@@ -1,0 +1,30 @@
+"""Hand-written Hopper kernels of the port and their launch counters.
+
+Each `sodt_tpu/pallas` kernel on the main path has here a wrapper that
+launches a CUDA C++ kernel (sources in `sodt_tpu_torch/csrc/`, built with
+nvcc at first use by `_build.py`) for a tensor on the card, and takes the
+plain PyTorch version beside it for a tensor on the CPU. A wrapper adds one
+to `LAUNCHES[name]` where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+LAUNCHES: dict[str, int] = {
+    "window_attention": 0,      # K1, window_attention.fused_window_attention_nhwc
+    "swin_block": 0,            # K2, swin_block.fused_swin_block
+    "block_attention_ln": 0,    # K3, window_attention.fused_block_attention_ln
+    "conv_mlp_tail": 0,         # K4, swin_block.fused_conv_mlp_tail
+    "block_attention": 0,       # K5, window_attention.fused_block_attention
+    "mlp_tail": 0,              # K6, swin_block.fused_mlp_tail
+    "conv_mlp_tail_noln": 0,    # K7, swin_block.fused_conv_mlp_tail_noln
+    "global_attention": 0,      # K8, window_attention.fused_global_attention
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launches() -> dict[str, int]:
+    return dict(LAUNCHES)

@@ -1,0 +1,121 @@
+"""Build and bind the CUDA sources of `sodt_tpu_torch/csrc/`.
+
+At first use every `*.cu` is compiled by its own `nvcc` process (all
+started together) for `sm_90a` into an object file, and the objects are
+linked into one shared library under `build/sodt_tpu_torch/` of the
+checkout, named by a hash of the sources. The library has a plain C
+interface and is bound with ctypes: `c_void_p` for every pointer and the
+stream, `c_int` for ints, `c_float` for floats. Every entry returns
+`cudaGetLastError()`; `check()` raises when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sodt_tpu_torch"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points and their argument types (see the .cu files)
+SIGNATURES = {
+    "sodt_gemm_bias": [P, P, P, P, I, I, I, I, I, P],
+    "sodt_window_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    "sodt_mlp_tail": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "sodt_conv_mlp_tail": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "sodt_global_attention": [P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "sodt_swin_block": [P] * 16 + [I] * 9 + [F, P],
+    "sodt_block_attention_ln": [P] * 10 + [I] * 8 + [F, P],
+    "sodt_conv_tail": [P] * 11 + [I] * 5 + [P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    h.update(" ".join(ARCH + FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source in parallel and link the shared library;
+    returns its path (reused when the sources have not changed)."""
+    nvcc = nvcc_path()
+    out_dir = BUILD_DIR / _source_hash()
+    so = out_dir / "libsodt_kernels.so"
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    procs = []
+    for src in srcs:
+        obj = out_dir / (src.stem + ".o")
+        cmd = [nvcc, *ARCH, *FLAGS, "-I", str(CSRC), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    objs, errors = [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src.name}:\n{out.decode(errors='replace')}")
+        objs.append(str(obj))
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp = out_dir / f"libsodt_kernels.{os.getpid()}.so"
+    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *objs],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n"
+                           + link.stdout.decode(errors="replace"))
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The bound kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr() -> int:
+    import torch
+    return torch.cuda.current_stream().cuda_stream

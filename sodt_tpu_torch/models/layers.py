@@ -1,0 +1,100 @@
+"""The YOLO head's building blocks on the main path
+(`sodt_tpu/models/layers.py`): ConvBnAct, Bottleneck, C3, Upsample,
+Concat. NHWC; BatchNorm in eval mode with running stats, eps 1e-3,
+normalized in f32 as flax does; SiLU in the working dtype."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .swin import Conv
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm: (x - mean) * (rsqrt(var + eps) * weight) + bias,
+    in f32, cast to the input dtype (flax `_normalize`)."""
+
+    def __init__(self, c: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x):
+        y = x.float() - self.running_mean
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (y * mul + self.bias).to(x.dtype)
+
+
+class ConvBnAct(nn.Module):
+    """Bias-free conv + BatchNorm + SiLU (the reference `Conv`)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        self.conv = Conv(c1, c2, k, s, k // 2, bias=False)   # 'same' pad
+        self.bn = BatchNorm(c2)
+
+    def forward(self, x):
+        return silu(self.bn(self.conv(x)))
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, c1: int, c2: int, shortcut: bool = True,
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = ConvBnAct(c_, c2, 3, 1)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        for i in range(n):
+            setattr(self, f"m{i}", Bottleneck(c_, c_, shortcut, e=1.0))
+        self.cv2 = ConvBnAct(c1, c_, 1, 1)
+        self.cv3 = ConvBnAct(2 * c_, c2, 1)
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        for i in range(self.n):
+            y1 = getattr(self, f"m{i}")(y1)
+        return self.cv3(torch.cat([y1, self.cv2(x)], dim=-1))
+
+
+class Upsample(nn.Module):
+    """Nearest upsample of an NHWC map."""
+
+    def __init__(self, scale: int = 2, method: str = "nearest"):
+        super().__init__()
+        if method != "nearest":
+            raise NotImplementedError(
+                f"Upsample {method!r}: ROADMAP.md Queue 1 item 10")
+        self.scale = scale
+
+    def forward(self, x):
+        s = self.scale
+        return x.repeat_interleave(s, dim=1).repeat_interleave(s, dim=2)
+
+
+class Concat(nn.Module):
+    def forward(self, xs):
+        return torch.cat(xs, dim=-1)

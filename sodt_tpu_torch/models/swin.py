@@ -1,0 +1,327 @@
+"""Swin windowed-attention blocks, NHWC (`sodt_tpu/models/swin.py`).
+
+Window partition/unpartition, the shifted-window mask (value -100), the
+relative-position index, W-MSA with a rel-pos bias materialized once per
+weight load, the dual-mode MLP (linear, or fc1 -> 2x2 conv with the zero
+pad on fc1's output -> fc2), PatchMerging and PatchEmbed.
+
+`swin_block_forward` holds the port's whole block dispatch in one place.
+On a CUDA bf16 tensor with a windowed shape (H, W multiples of the window)
+it runs the megakernels where c <= 256 (K2 for a linear-MLP block, K3 + K4
+for a conv-MLP block) and the LN-outside split elsewhere (LN1 -> K5 with
+the shift folded in -> un-roll -> add+LN2 -> K6 or K7). Every other shape
+takes the composition of JAX's generic path, whose attention core goes to
+K1 (windows of up to 256 tokens) or K8 (larger windows) on the card.
+"""
+
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .norm import LayerNorm, AddLayerNorm
+from ..ops.activations import gelu
+from ..kernels import window_attention as kwa
+from ..kernels import swin_block as ksb
+
+
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nW, ws*ws, C). H, W must be multiples of ws."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws * ws, c)
+
+
+def window_unpartition(windows: torch.Tensor, ws: int,
+                       hw: tuple[int, int]) -> torch.Tensor:
+    """(B*nW, ws*ws, C) -> (B, H, W, C)."""
+    h, w = hw
+    c = windows.shape[-1]
+    b = windows.shape[0] // ((h // ws) * (w // ws))
+    x = windows.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
+
+
+def shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
+    """SW-MSA additive mask (nW, ws*ws, ws*ws), values {0, -100}."""
+    img_mask = np.zeros((h, w), np.int32)
+    cnt = 0
+    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+            img_mask[hs, wsl] = cnt
+            cnt += 1
+    m = img_mask.reshape(h // ws, ws, w // ws, ws)
+    m = m.transpose(0, 2, 1, 3).reshape(-1, ws * ws)
+    diff = m[:, None, :] - m[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+@lru_cache(maxsize=64)
+def _mask_tensor(h: int, w: int, ws: int, shift: int,
+                 device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(shift_attn_mask(h, w, ws, shift)).to(device)
+
+
+def relative_position_index(ws: int) -> np.ndarray:
+    """(ws*ws, ws*ws) index into the (2ws-1)^2 bias table."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = flat[:, :, None] - flat[:, None, :]
+    rel = rel.transpose(1, 2, 0)
+    rel[:, :, 0] += ws - 1
+    rel[:, :, 1] += ws - 1
+    rel[:, :, 0] *= 2 * ws - 1
+    return rel.sum(-1)
+
+
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """x @ W^T + b in x's dtype (flax nn.Dense with `dtype`)."""
+    dt = x.dtype
+    y = torch.matmul(x, layer.weight.to(dt).t())
+    return y + layer.bias.to(dt) if layer.bias is not None else y
+
+
+class Conv(nn.Module):
+    """NHWC convolution with an OIHW weight (flax nn.Conv with `dtype`):
+    input and weight are cast to the input's dtype."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int = 0,
+                 bias: bool = True):
+        super().__init__()
+        self.stride, self.padding = s, p
+        self.weight = nn.Parameter(torch.zeros(c2, c1, k, k))
+        self.bias = nn.Parameter(torch.zeros(c2)) if bias else None
+
+    def forward(self, x):
+        dt = x.dtype
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt),
+                     None if self.bias is None else self.bias.to(dt),
+                     self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class WindowAttention(nn.Module):
+    """W-MSA with relative position bias; parameters (torch layout):
+    relative_position_bias_table ((2ws-1)^2, nh), qkv (3C, C), proj (C, C)."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int):
+        super().__init__()
+        self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
+        n = (2 * window_size - 1) ** 2
+        self.relative_position_bias_table = nn.Parameter(torch.zeros(n, num_heads))
+        self.register_buffer("relative_position_index", torch.from_numpy(
+            relative_position_index(window_size).reshape(-1)).long(),
+            persistent=False)
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        self.register_buffer("bias_cache", None, persistent=False)
+
+    def materialize_bias(self) -> torch.Tensor:
+        n = self.window_size ** 2
+        t = self.relative_position_bias_table[self.relative_position_index]
+        return t.reshape(n, n, self.num_heads).permute(2, 0, 1).float()
+
+    def cache_bias(self) -> None:
+        """Materialize the (nh, N, N) bias once per weight load (the
+        JAX package's evaluate.cache_rel_bias); every later call reads it."""
+        with torch.no_grad():
+            self.bias_cache = self.materialize_bias().contiguous()
+
+    def rel_bias(self) -> torch.Tensor:
+        if self.bias_cache is not None:
+            return self.bias_cache
+        return self.materialize_bias().contiguous()
+
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        """Plain path on a (B, H, W, C) map (already padded/rolled)."""
+        nh = self.num_heads
+        scale = (x.shape[-1] // nh) ** -0.5
+        qkv = linear(x, self.qkv)
+        out = kwa.window_attention_core_nhwc(qkv, self.rel_bias(), mask,
+                                             self.window_size, nh, scale)
+        return linear(out, self.proj)
+
+
+class Mlp(nn.Module):
+    """linear: fc1 (C->hidden) -> GELU -> fc2. conv ("enhanced"): fc1 keeps
+    C, the 2x2 conv runs over fc1's output zero-padded bottom/right, then
+    GELU -> fc2."""
+
+    def __init__(self, dim: int, hidden: int, out: int, linear_mlp: bool):
+        super().__init__()
+        self.linear_mlp = linear_mlp
+        if linear_mlp:
+            self.fc1 = nn.Linear(dim, hidden)
+            self.fc2 = nn.Linear(hidden, out)
+        else:
+            self.fc1 = nn.Linear(dim, dim)
+            self.conv1 = Conv(dim, dim, 2, bias=True)
+            self.fc2 = nn.Linear(dim, out)
+
+    def forward(self, x):
+        if self.linear_mlp:
+            return linear(gelu(linear(x, self.fc1)), self.fc2)
+        f1 = linear(x, self.fc1)
+        z = ksb.conv2x2_pad_br(f1, self.conv1.weight, self.conv1.bias)
+        return linear(gelu(z), self.fc2)
+
+
+class SwinBlock(nn.Module):
+    """Swin block over an NHWC map; `forward` is `swin_block_forward`."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int = 7,
+                 shift_size: int = 0, mlp_ratio: float = 4.0,
+                 linear_mlp: bool = True):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.window_size, self.shift_size = window_size, shift_size
+        self.linear_mlp = linear_mlp
+        self.norm1 = LayerNorm(dim)
+        self.attn = WindowAttention(dim, window_size, num_heads)
+        self.norm2 = AddLayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, linear_mlp)
+        self._kernel_weights = None
+
+    def forward(self, x):
+        return swin_block_forward(self, x)
+
+    def _build_kernel_weights(self, dt: torch.dtype) -> dict:
+        at, mlp = self.attn, self.mlp
+        with torch.no_grad():
+            cast = lambda p: p.detach().to(dt).contiguous()
+            f32 = lambda p: p.detach().float().contiguous()
+            kw = dict(dtype=dt, device=at.qkv.weight.device,
+                      ln1w=f32(self.norm1.weight), ln1b=f32(self.norm1.bias),
+                      ln2w=f32(self.norm2.weight), ln2b=f32(self.norm2.bias),
+                      wqkv=cast(at.qkv.weight), bqkv=cast(at.qkv.bias),
+                      wp=cast(at.proj.weight), bp=cast(at.proj.bias),
+                      w1=cast(mlp.fc1.weight), b1=cast(mlp.fc1.bias),
+                      w2=cast(mlp.fc2.weight), b2=cast(mlp.fc2.bias))
+            if not self.linear_mlp:
+                kw["wc"] = cast(ksb.conv_taps(mlp.conv1.weight))
+                kw["bc"] = cast(mlp.conv1.bias)
+        return kw
+
+    def cache_kernel_weights(self, dt: torch.dtype = torch.bfloat16) -> None:
+        """Build the kernels' weights (dtype dt, the conv as
+        `conv_taps`) once per weight load, beside the rel-pos bias
+        (`train.evaluate.cache_rel_bias`); refresh after a load or a move."""
+        self._kernel_weights = self._build_kernel_weights(dt)
+
+    def kernel_weights(self, dt: torch.dtype) -> dict:
+        """The cached kernel weights when they match dt and the device,
+        else a set built for this call."""
+        kw = self._kernel_weights
+        if (kw is None or kw["dtype"] != dt
+                or kw["device"] != self.attn.qkv.weight.device):
+            kw = self._build_kernel_weights(dt)
+        return kw
+
+
+def split_block(blk: SwinBlock, x: torch.Tensor, mask, shift: int):
+    """The LN-outside split (`sodt_tpu/models/swin.py` l.385-412): LN1 ->
+    K5 with the shift folded in (output in shifted coordinates) -> roll
+    back by (+shift, +shift) -> add+LN2 -> K6 (linear MLP) or K7 (conv
+    MLP). Each wrapper takes its plain version for a tensor on the CPU."""
+    kw = blk.kernel_weights(x.dtype)
+    ws, nh = blk.window_size, blk.num_heads
+    scale = (x.shape[-1] // nh) ** -0.5
+    a = kwa.fused_block_attention(
+        blk.norm1(x), kw["wqkv"], kw["bqkv"], kw["wp"], kw["bp"],
+        blk.attn.rel_bias(), mask, ws, nh, scale, shift)
+    if shift:
+        a = torch.roll(a, (shift, shift), (1, 2))
+    s, y = blk.norm2(x, a)
+    if blk.linear_mlp:
+        return ksb.fused_mlp_tail(s, y, kw["w1"], kw["b1"], kw["w2"], kw["b2"])
+    return ksb.fused_conv_mlp_tail_noln(s, y, kw["w1"], kw["b1"], kw["wc"],
+                                        kw["bc"], kw["w2"], kw["b2"])
+
+
+def mega_block(blk: SwinBlock, x: torch.Tensor, mask, shift: int):
+    """The megakernel path for c <= 256 (`sodt_tpu/models/swin.py`
+    l.342-376): K2 for a linear-MLP block (the shift folds into its gather
+    and scatter); K3 (LN1 + attention, output in shifted coordinates) then
+    K4 (un-shift on read + residual + LN2 + conv MLP + residual) for a
+    conv-MLP block. Each wrapper takes its plain version for a tensor on
+    the CPU."""
+    kw = blk.kernel_weights(x.dtype)
+    ws, nh = blk.window_size, blk.num_heads
+    scale = (x.shape[-1] // nh) ** -0.5
+    bias = blk.attn.rel_bias()
+    if blk.linear_mlp:
+        return ksb.fused_swin_block(
+            x, kw["ln1w"], kw["ln1b"], kw["wqkv"], kw["bqkv"], kw["wp"],
+            kw["bp"], kw["ln2w"], kw["ln2b"], kw["w1"], kw["b1"], kw["w2"],
+            kw["b2"], bias, mask, ws, nh, scale, shift)
+    a = kwa.fused_block_attention_ln(
+        x, kw["ln1w"], kw["ln1b"], kw["wqkv"], kw["bqkv"], kw["wp"],
+        kw["bp"], bias, mask, ws, nh, scale, shift)
+    return ksb.fused_conv_mlp_tail(
+        x, a, kw["ln2w"], kw["ln2b"], kw["w1"], kw["b1"], kw["wc"], kw["bc"],
+        kw["w2"], kw["b2"], shift)
+
+
+def swin_block_forward(blk: SwinBlock, x: torch.Tensor) -> torch.Tensor:
+    """The port's block dispatch (the module doc says which path runs
+    where). Each kernel wrapper raises outside its kernel's domain."""
+    b, h, w, c = x.shape
+    ws, shift = blk.window_size, blk.shift_size
+    if min(h, w) <= ws:
+        # the window covers the map: global attention over ONE padded window
+        shift = 0
+    ph, pw = (-h) % ws, (-w) % ws
+    mask = _mask_tensor(h + ph, w + pw, ws, shift, x.device) if shift else None
+
+    on_card = x.is_cuda and x.dtype == torch.bfloat16
+    if on_card and ws * ws <= 256 and h % ws == 0 and w % ws == 0:
+        if ksb.megakernel_supported(c, blk.num_heads, ws):
+            return mega_block(blk, x, mask, shift)
+        return split_block(blk, x, mask, shift)
+
+    # JAX's generic composition; padded tokens take part in attention
+    # unmasked
+    shortcut = x
+    x = blk.norm1(x)
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    if shift:
+        x = torch.roll(x, (-shift, -shift), (1, 2))
+    x = blk.attn(x, mask)
+    if shift:
+        x = torch.roll(x, (shift, shift), (1, 2))
+    if ph or pw:
+        x = x[:, :h, :w]
+    x, y = blk.norm2(shortcut, x)
+    return x + blk.mlp(y)
+
+
+class PatchMerging(nn.Module):
+    """2x2 space-to-depth + Linear(4C->2C) + LN, as ONE stride-2 conv whose
+    OIHW weight holds the reference's Linear rows in their order
+    [x(0::2,0::2); x(1::2,0::2); x(0::2,1::2); x(1::2,1::2)]."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.reduction = Conv(dim, 2 * dim, 2, 2, bias=False)
+        self.norm = LayerNorm(2 * dim)
+
+    def forward(self, x):
+        return self.norm(self.reduction(x))
+
+
+class PatchEmbed(nn.Module):
+    """Conv projection to NHWC tokens."""
+
+    def __init__(self, c1: int, embed_dim: int, kernel=16, stride=16,
+                 padding=1):
+        super().__init__()
+        self.proj = Conv(c1, embed_dim, kernel, stride, padding, bias=True)
+
+    def forward(self, x):
+        return self.proj(x)

@@ -1,0 +1,39 @@
+"""Box geometry used by NMS and eval (`sodt_tpu/ops/boxes.py`): the same
+formulas, so that NMS sees bit-identical IoUs on the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
+    """(..., 4) center boxes [cx,cy,w,h] -> corner boxes [x1,y1,x2,y2]."""
+    cx, cy, w, h = x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
+    hw, hh = w / 2, h / 2
+    return torch.cat([cx - hw, cy - hh, cx + hw, cy + hh], dim=-1)
+
+
+def xywhn2xyxy(x: torch.Tensor, w: float = 640, h: float = 640) -> torch.Tensor:
+    """Normalized center boxes -> pixel corner boxes (no letterbox pad)."""
+    cx, cy, bw, bh = x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
+    return torch.cat([w * (cx - bw / 2), h * (cy - bh / 2),
+                      w * (cx + bw / 2), h * (cy + bh / 2)], dim=-1)
+
+
+def clip_coords(boxes: torch.Tensor, img_hw: tuple[int, int]) -> torch.Tensor:
+    """Clip xyxy boxes to image bounds (h, w); extra columns pass through."""
+    h, w = img_hw
+    return torch.cat([boxes[..., 0:1].clamp(0, w), boxes[..., 1:2].clamp(0, h),
+                      boxes[..., 2:3].clamp(0, w), boxes[..., 3:4].clamp(0, h),
+                      boxes[..., 4:]], dim=-1)
+
+
+def box_iou(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of (..., N, 4) and (..., M, 4) xyxy boxes -> (..., N, M)."""
+    area1 = (box1[..., 2] - box1[..., 0]) * (box1[..., 3] - box1[..., 1])
+    area2 = (box2[..., 2] - box2[..., 0]) * (box2[..., 3] - box2[..., 1])
+    lt = torch.maximum(box1[..., :, None, :2], box2[..., None, :, :2])
+    rb = torch.minimum(box1[..., :, None, 2:4], box2[..., None, :, 2:4])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (area1[..., :, None] + area2[..., None, :] - inter)

@@ -1,0 +1,102 @@
+"""Weights: the flax variable tree -> a torch state_dict, .npz files, and a
+seeded initialization.
+
+`from_jax_variables` takes the JAX package's {"params", "batch_stats"} tree
+as nested dicts of numpy arrays (no JAX needed) and maps it onto this
+package's module names, which mirror the flax tree:
+
+  Dense kernel (in, out)          -> Linear weight (out, in)   [transpose]
+  Conv kernel HWIO                -> weight OIHW
+  LN / BN scale, bias             -> weight, bias
+  batch_stats mean / var          -> running_mean / running_var
+  PatchMerging reduction (4C, 2C) -> stride-2 conv OIHW, rows taken in the
+                                     reference order (row block p = 2*dw+dh)
+  neck1 (1, 1, 2C, out)           -> neck1.a / neck1.b Linear halves
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
+    """flax variables (nested dicts of arrays) -> torch state_dict."""
+    sd: dict[str, np.ndarray] = {}
+    for path, v in _flatten(tree.get("params", {})).items():
+        parts = path.split("/")
+        leaf, mods = parts[-1], parts[:-1]
+        name = ".".join(mods)
+        if leaf == "kernel" and mods[-1] == "reduction":
+            c4, out = v.shape
+            c = c4 // 4
+            hwio = v.reshape(2, 2, c, out).transpose(1, 0, 2, 3)
+            sd[f"{name}.weight"] = hwio.transpose(3, 2, 0, 1)
+        elif leaf == "kernel" and mods[-1] == "neck1":
+            w = v[0, 0]                                   # (2C, out)
+            c = w.shape[0] // 2
+            sd[f"{name}.a.weight"] = w[:c].T
+            sd[f"{name}.b.weight"] = w[c:].T
+        elif leaf == "kernel" and v.ndim == 2:
+            sd[f"{name}.weight"] = v.T
+        elif leaf == "kernel" and v.ndim == 4:
+            sd[f"{name}.weight"] = v.transpose(3, 2, 0, 1)
+        elif leaf == "scale":
+            sd[f"{name}.weight"] = v
+        else:                    # bias, pos_embed, relative_position_bias_table
+            sd[".".join(parts)] = v
+    for path, v in _flatten(tree.get("batch_stats", {})).items():
+        parts = path.split("/")
+        leaf = {"mean": "running_mean", "var": "running_var"}[parts[-1]]
+        sd[".".join(parts[:-1] + [leaf])] = v
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def save_npz(state_dict: dict, path) -> None:
+    np.savez(path, **{k: v.detach().cpu().float().numpy()
+                      for k, v in state_dict.items()})
+
+
+def load_npz(path) -> dict[str, torch.Tensor]:
+    with np.load(path) as f:
+        return {k: torch.from_numpy(f[k]) for k in f.files}
+
+
+def _lecun_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
+    # flax lecun_normal: truncated normal (at 2 std) of variance 1/fan_in
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        w.copy_(torch.nn.init.trunc_normal_(torch.empty(w.shape), 0.0, std,
+                                            -2 * std, 2 * std, generator=g))
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Random weights from a seeded torch.Generator, with the flax
+    initializers' distributions: lecun-normal kernels, zero biases, unit
+    norm scales, trunc-normal(0.02) rel-pos tables, zero pos_embed. The
+    Detect biases keep their prior from construction."""
+    g = torch.Generator().manual_seed(seed)
+    for mname, mod in model.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            if pname == "relative_position_bias_table":
+                p.copy_(torch.nn.init.trunc_normal_(
+                    torch.empty(p.shape), 0.0, 0.02, -0.04, 0.04, generator=g))
+            elif pname == "weight" and p.ndim in (2, 4):
+                _lecun_(p, p[0].numel(), g)
+            elif pname == "bias" and not mname.startswith("detect"):
+                p.zero_()
+    return model

@@ -1,0 +1,211 @@
+"""The port's CUDA kernels vs their plain versions, on the card.
+
+Marked `cuda`: each test skips (inside the test, never at import) when no
+card is visible. Run them on a machine with an H100:
+
+    python -m pytest tests/test_torch_port_cuda.py -q -m cuda
+
+Inputs are bf16; each kernel is compared with its plain version computed
+in f32 from the same bf16 inputs. Tolerance 2e-2 of max |ref|: bf16 keeps
+8 mantissa bits (a relative step of 2^-8 = 3.9e-3), and the kernels round
+q*scale, qkv, P, the hidden activations and the output to bf16 at other
+points than an f32 reference does, so a few bf16 steps separate them.
+"""
+
+import pytest
+import torch
+
+from sodt_tpu_torch import kernels
+from sodt_tpu_torch.kernels import window_attention as wa, swin_block as sb
+from sodt_tpu_torch.models.swin import shift_attn_mask
+
+pytestmark = pytest.mark.cuda
+TOL = 2e-2
+BF = torch.bfloat16
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rnd(shape, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).cuda()
+
+
+def _rel(out, ref):
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("b,hw,c", [(1, 16, 32), (2, 128, 192), (2, 64, 384)])
+@pytest.mark.parametrize("shift", [0, 2])
+def test_block_attention_kernel(card, b, hw, c, shift):
+    nh, ws = (2 if c == 32 else 12), 8
+    x = _rnd((b, hw, hw, c), 1).to(BF)
+    w = [_rnd((3 * c, c), 2, c ** -0.5).to(BF), _rnd((3 * c,), 3, 0.1).to(BF),
+         _rnd((c, c), 4, c ** -0.5).to(BF), _rnd((c,), 5, 0.1).to(BF)]
+    bias = _rnd((nh, 64, 64), 6)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
+            if shift else None)
+    scale = (c // nh) ** -0.5
+    out = wa.fused_block_attention(x, *w, bias, mask, ws, nh, scale, shift)
+    ref = wa.block_attention_plain(x.float(), *[t.float() for t in w], bias,
+                                   mask, ws, nh, scale, shift)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < TOL
+
+
+@pytest.mark.parametrize("b,hw,c", [(1, 16, 32), (2, 128, 192), (2, 64, 384)])
+def test_mlp_tails_kernels(card, b, hw, c):
+    r, y = _rnd((b, hw, hw, c), 7).to(BF), _rnd((b, hw, hw, c), 8).to(BF)
+    w6 = [_rnd((4 * c, c), 9, c ** -0.5).to(BF), _rnd((4 * c,), 10, 0.1).to(BF),
+          _rnd((c, 4 * c), 11, (4 * c) ** -0.5).to(BF), _rnd((c,), 12, 0.1).to(BF)]
+    out = sb.fused_mlp_tail(r, y, *w6)
+    ref = sb.mlp_tail_plain(r.float(), y.float(), *[t.float() for t in w6])
+    assert _rel(out, ref) < TOL
+    w7 = [_rnd((c, c), 13, c ** -0.5).to(BF), _rnd((c,), 14, 0.1).to(BF),
+          _rnd((c, 2, 2, c), 15, (4 * c) ** -0.5).to(BF),
+          _rnd((c,), 16, 0.1).to(BF), _rnd((c, c), 17, c ** -0.5).to(BF),
+          _rnd((c,), 18, 0.1).to(BF)]
+    out = sb.fused_conv_mlp_tail_noln(r, y, *w7)
+    ref = sb.conv_mlp_tail_noln_plain(r.float(), y.float(),
+                                      *[t.float() for t in w7])
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < TOL
+
+
+@pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 8, 64, 4, 8),
+                                          (2, 32, 768, 12, 32),
+                                          (1, 64, 768, 12, 32)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_global_attention_kernel(card, b, hw, c, nh, ws, masked):
+    """K8: one window over the map, or (64 px map, ws 32) four windows of
+    1024 tokens, with and without a shift mask."""
+    n = ws * ws
+    qkv = _rnd((b, hw, hw, 3 * c), 19).to(BF)
+    bias = _rnd((nh, n, n), 20)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, 2)).cuda()
+            if masked and hw > ws else None)
+    scale = (c // nh) ** -0.5
+    out = wa.fused_global_attention(qkv, bias, nh, scale, ws, mask)
+    ref = wa.global_attention_plain(qkv.float(), bias, nh, scale, ws, mask)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < TOL
+
+
+@pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 16, 32, 2, 8), (2, 80, 384, 12, 8),
+                                          (1, 32, 256, 4, 16)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_kernel(card, b, hw, c, nh, ws, masked):
+    """K1 at head dims 16, 32 and 64 and windows of 64 and 256 tokens."""
+    n = ws * ws
+    qkv = _rnd((b, hw, hw, 3 * c), 21).to(BF)
+    bias = _rnd((nh, n, n), 22)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, ws // 4)).cuda()
+            if masked else None)
+    scale = (c // nh) ** -0.5
+    out = wa.fused_window_attention_nhwc(qkv, bias, mask, ws, nh, scale)
+    ref = wa.reference_attention_nhwc(qkv.float(), bias, mask, ws, nh, scale)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < TOL
+
+
+def _block_weights(c, seed):
+    g = lambda shape, k, s: _rnd(shape, seed + k, s)
+    ln = lambda k: ((1 + g((c,), k, 0.1)).float(), g((c,), k + 1, 0.1).float())
+    return dict(
+        ln1=ln(0), ln2=ln(2),
+        att=[g((3 * c, c), 4, c ** -0.5).to(BF), g((3 * c,), 5, 0.1).to(BF),
+             g((c, c), 6, c ** -0.5).to(BF), g((c,), 7, 0.1).to(BF)],
+        lin=[g((4 * c, c), 8, c ** -0.5).to(BF), g((4 * c,), 9, 0.1).to(BF),
+             g((c, 4 * c), 10, (4 * c) ** -0.5).to(BF), g((c,), 11, 0.1).to(BF)],
+        conv=[g((c, c), 12, c ** -0.5).to(BF), g((c,), 13, 0.1).to(BF),
+              g((c, 2, 2, c), 14, (4 * c) ** -0.5).to(BF),
+              g((c,), 15, 0.1).to(BF), g((c, c), 16, c ** -0.5).to(BF),
+              g((c,), 17, 0.1).to(BF)])
+
+
+def _f32(ts):
+    return [t.float() for t in ts]
+
+
+@pytest.mark.parametrize("b,hw,c,nh", [(1, 16, 32, 2), (2, 128, 192, 12)])
+@pytest.mark.parametrize("shift", [0, 2])
+def test_megakernels(card, b, hw, c, nh, shift):
+    """K2 (whole linear block), K3 (LN1 + attention, shifted output) and K4
+    (un-shift + residual + LN2 + conv MLP)."""
+    ws = 8
+    wt = _block_weights(c, 30)
+    x = _rnd((b, hw, hw, c), 1).to(BF)
+    bias = _rnd((nh, 64, 64), 6)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
+            if shift else None)
+    scale = (c // nh) ** -0.5
+    out = sb.fused_swin_block(x, *wt["ln1"], *wt["att"], *wt["ln2"],
+                              *wt["lin"], bias, mask, ws, nh, scale, shift)
+    ref = sb.swin_block_plain(x.float(), *wt["ln1"], *_f32(wt["att"]),
+                              *wt["ln2"], *_f32(wt["lin"]), bias, mask, ws,
+                              nh, scale, shift)
+    assert _rel(out, ref) < TOL
+    a = wa.fused_block_attention_ln(x, *wt["ln1"], *wt["att"], bias, mask, ws,
+                                    nh, scale, shift)
+    ref_a = wa.block_attention_ln_plain(x.float(), *wt["ln1"], *_f32(wt["att"]),
+                                        bias, mask, ws, nh, scale, shift)
+    assert _rel(a, ref_a) < TOL
+    out = sb.fused_conv_mlp_tail(x, a, *wt["ln2"], *wt["conv"], shift)
+    ref = sb.conv_mlp_tail_plain(x.float(), a.float(), *wt["ln2"],
+                                 *_f32(wt["conv"]), shift)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < TOL
+
+
+def test_wrappers_raise_on_cuda_f32(card):
+    x = _rnd((1, 16, 16, 32), 1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        sb.fused_mlp_tail(x, x, _rnd((128, 32), 2), _rnd((128,), 3),
+                          _rnd((32, 128), 4), _rnd((32,), 5))
+
+
+MAIN = {"swin_block": 3, "block_attention_ln": 3, "conv_mlp_tail": 3,
+        "block_attention": 4, "mlp_tail": 2, "conv_mlp_tail_noln": 2,
+        "window_attention": 0, "global_attention": 1}
+# 608 px: stage 2's 76x76 map is no window multiple, so its four blocks
+# take the generic path (K1 core); stage 3's 38x38 map pads to 64x64, four
+# 32x32 windows for K8
+OFF_WINDOW = dict(MAIN, block_attention=0, mlp_tail=0, conv_mlp_tail_noln=0,
+                  window_attention=4)
+
+
+@pytest.mark.parametrize("img,counts", [(512, MAIN), (128, MAIN), (320, MAIN),
+                                        (640, MAIN), (608, OFF_WINDOW)])
+def test_flagship_forward_dispatch(card, img, counts):
+    """Launches per forward and bf16-vs-f32 Detect maps at the config size
+    and off it: at 128 and 320 px stage 3 (8x8, 20x20) pads up to one
+    32x32 window for K8; at 640 px its 40x40 map pads to 64x64, four
+    windows of 1024 tokens, which K8 also takes."""
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.weights import init_weights
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    raws = {}
+    for dt in (BF, torch.float32):
+        m = build_model("configs/model.yaml", ch_in=4, dtype=dt)
+        m = cache_rel_bias(init_weights(m, 0).cuda().eval())
+        x = torch.rand((1, img, img, 3), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+        kernels.reset_launches()
+        with torch.no_grad():
+            raws[dt] = m(x, x)["raw"][0].float()
+        torch.cuda.synchronize()
+        if dt == BF:
+            assert kernels.launches() == counts
+        else:
+            assert sum(kernels.launches().values()) == 0   # f32: plain path
+    a, b = raws[BF], raws[torch.float32]
+    assert torch.isfinite(a).all()
+    assert ((a - b).norm() / b.norm()).item() < TOL

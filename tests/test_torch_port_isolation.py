@@ -1,0 +1,59 @@
+"""The port stands alone: no module of sodt_tpu_torch imports JAX or the
+JAX package, and its entry points refuse to fall back to the CPU quietly."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+import yaml
+
+import sodt_tpu_torch
+from torch_port_common import NARROW_CFG
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax():
+    mods = [m.name for m in pkgutil.walk_packages(sodt_tpu_torch.__path__,
+                                                  "sodt_tpu_torch.")]
+    assert "sodt_tpu_torch.kernels.window_attention" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'sodt_tpu', 'orbax'))\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from sodt_tpu_torch import resolve_device, val
+    from sodt_tpu_torch.train.evaluate import evaluate
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate(torch.nn.Module(), [], nc=8, img_size=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        val.main(["--synthetic"])
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_val_cli_runs_on_cpu_when_asked(tmp_path, capsys):
+    from sodt_tpu_torch import val
+    cfg = tmp_path / "narrow.yaml"
+    cfg.write_text(yaml.safe_dump(NARROW_CFG))
+    m = val.main(["--cfg", str(cfg), "--synthetic", "--synthetic-n", "3",
+                  "--img-size", "128", "--batch-size", "2", "--device", "cpu",
+                  "--no-bf16"])
+    assert m["seen"] == 3 and m["device"] == "cpu"
+    assert '"map50"' in capsys.readouterr().out
+    s = val.main(["--cfg", str(cfg), "--task", "speed", "--img-size", "64",
+                  "--batch-size", "1", "--device", "cpu", "--no-bf16"])
+    assert s["ms_per_image"] > 0

@@ -1,0 +1,81 @@
+"""Shared helpers of the tests/test_torch_port_*.py files: inputs made with
+numpy from a seed go through the JAX package (the oracle, on the CPU) and
+through its counterpart in sodt_tpu_torch."""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import jax.numpy as jnp
+import torch
+
+
+def rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape)
+            * scale).astype(np.float32)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def j(x):
+    return jnp.asarray(np.asarray(x, dtype=np.float32))
+
+
+def close(a, b, tol):
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    np.testing.assert_allclose(a, np.asarray(b), rtol=tol, atol=tol)
+
+
+@contextlib.contextmanager
+def interpret_mode():
+    """Run Pallas kernels through the interpreter on the CPU, as
+    tests/test_pallas.py does."""
+    from jax.experimental import pallas as pl
+    orig = pl.pallas_call
+    try:
+        pl.pallas_call = lambda *a, **kw: orig(*a, interpret=True, **kw)
+        yield
+    finally:
+        pl.pallas_call = orig
+
+
+NARROW_CFG = {
+    # model.yaml's head, with a narrow encoder (embed 48 divides by nh 12)
+    "nc": 8, "depth_multiple": 0.33, "width_multiple": 0.50,
+    "anchors": [[10, 13, 16, 30, 33, 23]],
+    "backbone": [[-1, 1, "ImageEncoderViT", [128, 6, 48, 4, 64, 4]]],
+    "head": [[2, 1, "Conv", [512, 1, 1]],
+             [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+             [[-1, 1], 1, "Concat", [1]],
+             [-1, 3, "C3", [512, False]],
+             [-1, 1, "Conv", [256, 1, 1]],
+             [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+             [[-1, 0], 1, "Concat", [1]],
+             [-1, 3, "C3", [256, False]],
+             [[10], 1, "Detect", ["nc", "anchors"]]],
+}
+
+
+def randomize_variables(v, seed: int):
+    """Perturb a flax init so BN stats, LN affine, biases and pos_embed
+    are not their trivial init values (the comparison then covers them)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(d):
+        out = {}
+        for k, x in d.items():
+            if isinstance(x, dict):
+                out[k] = walk(x)
+                continue
+            x = np.asarray(x, np.float32)
+            if k in ("mean", "bias", "pos_embed"):
+                x = x + 0.05 * rng.standard_normal(x.shape).astype(np.float32)
+            elif k in ("var", "scale"):
+                x = x * (1.0 + 0.1 * rng.uniform(-1, 1, x.shape)).astype(np.float32)
+            out[k] = x
+        return out
+
+    return walk(v)
