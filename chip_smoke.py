@@ -10,21 +10,36 @@ the final ok line:
   2. build    nvcc builds the kernels of sodt_tpu_torch/csrc (seconds)
   3. kernels  each kernel vs its plain PyTorch version on the same bf16
               inputs at the shapes its path gives it (batch 2, and the
-              paths' batch 4), max |diff| / max |ref| <= 2e-2, with the
-              kernel's, the plain version's and (K1, K8) the library call's
-              time
+              paths' batch 4), max |diff| / max |ref| <= 2e-2 (the f32
+              dbias of K9 / K10: <= 1e-3), with the kernel's, the plain
+              version's and (K1, K8, K9, K10, K13) the library call's time;
+              K1 at the 608 px path's shape and at the four shapes of the
+              training step's replays; K9 / K10 also dq, dk and dv singly,
+              beside the error that the bf16 store alone would leave
+     autograd torch.autograd.grad through K1 -> K9 and K8 -> K10 against
+              autograd of the f32 plain version
   4. main     `python -m sodt_tpu_torch.val --task val --synthetic
-              --synthetic-n 8 --img-size 512 --batch-size 4` in-process
+              --synthetic-n 4 --img-size 512 --batch-size 4` in-process
               (bf16, seeded weights), launch counts per forward K2 3, K3 3,
-              K4 3, K5 4, K6 2, K7 2, K8 1; then raw Detect maps of one
-              batch, bf16 kernels vs the f32 plain path on the same
+              K4 3, K5 4, K6 2, K7 2, K8 1, K13 11 + 5; then raw Detect maps
+              of one batch, bf16 kernels vs the f32 plain path on the same
               weights, relative L2 <= 2e-2
      608px    the same at 608 px (4 images): stage 2's 76x76 map takes the
               generic block path, K1 4 launches per forward, and stage 3
               pads into four windows for K8
+     train    `python -m sodt_tpu_torch.train --synthetic --synthetic-n 16
+              --img-size 512 --batch-size 4 --nbs 4 --epochs 2 --notest`
+              in-process (8 optimizer steps, bf16, seeded weights, a hyp
+              file with warmup_iters 4): finite losses, the launches of
+              every step (PER_STEP), a non-zero gradient on every parameter
+              at the first step, parameters that moved
+     grads    one training batch, two seeds: gradients (and raw Detect
+              maps) of the bf16 kernel path vs the f32 plain path on the
+              same weights
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
               device time
+     profile_train  the same over one warm training step
   6. the {"kernels": [...]} line, the card line, the ok line.
 
 Needs a CUDA card; exits 1 without one and 2 when the port is missing.
@@ -36,22 +51,62 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, published peak
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, published
 KERNEL_TOL = 2e-2              # max |kernel - plain| / max |plain|, bf16
+# the f32 dbias of K9 / K10 sums dS over the batch and up to 1024 windows;
+# every term is formed in f32 from exact bf16 inputs, so only the order of
+# the sums and expf separate it from the f32 plain version (measured:
+# see PERF.md)
+DBIAS_TOL = 1e-3
 DETECT_REL_L2 = 2e-2           # ||raw_bf16 - raw_f32|| / ||raw_f32||
-MAIN_ARGS = ["--task", "val", "--synthetic", "--synthetic-n", "8",
+# gradients of the bf16 kernel path against the f32 plain path, one batch,
+# same weights: relative L2 over all gradients together, and the worst
+# leaf among those that carry at least 1e-3 of the largest leaf's norm
+# (a leaf whose true gradient is ~0, such as a key bias, is all rounding
+# noise). Two settings:
+#  * BatchNorm on its running statistics: bf16 rounds every activation and
+#    cotangent of ~60 layers to 2^-8 relative and the errors add like a
+#    random walk, a few 1e-2 (measured 1.35e-2 and 3.33e-2 on the two
+#    seeds, worst leaf 0.16): the bound that holds the backward kernels.
+#  * BatchNorm on batch statistics, the real training step: its backward
+#    subtracts the mean of the cotangent and its projection on x-hat, and
+#    at a seeded initialization the objectness gradient is nearly constant
+#    over the map, so the difference cancels most of the signal and keeps
+#    the bf16 rounding; the forward alone (raw Detect maps, the same
+#    kernels) is 3.1e-2 from f32 in this mode against 4e-3 to 5e-3 on
+#    running statistics. Measured 0.225 and 0.200 on the two seeds; the
+#    bound is 1.5 times the larger.
+GRAD_REL_L2 = 5e-2
+GRAD_WORST_LEAF = 0.2
+GRAD_REL_L2_BATCH_STATS = 0.34
+GRAD_SEEDS = (0, 1)            # weights and training batch
+MAIN_ARGS = ["--task", "val", "--synthetic", "--synthetic-n", "4",
              "--img-size", "512", "--batch-size", "4"]
 MAIN_BATCH = 4
 # launches per forward on the main path (512 px): stage 1 K2 x3 + (K3, K4)
-# x3; stage 2 K5 x4, K6 x2, K7 x2; stage 3 K8
+# x3; stage 2 K5 x4, K6 x2, K7 x2; stage 3 K8. K13: LN of the four
+# cross-channel maps, stage 2's four LN1, stage 3's LN1, two PatchMergings;
+# add+LN2 of stage 2's four blocks and stage 3's
 PER_FORWARD = {"window_attention": 0, "swin_block": 3,
                "block_attention_ln": 3, "conv_mlp_tail": 3,
                "block_attention": 4, "mlp_tail": 2, "conv_mlp_tail_noln": 2,
-               "global_attention": 1}
+               "global_attention": 1, "window_attention_bwd": 0,
+               "global_attention_bwd": 0, "layernorm": 11, "add_layernorm": 5}
+# launches per training step (forward + backward). The backward of K2, K3
+# and K5 replays a composition whose core is K1 (10 windowed blocks: K1 10,
+# K9 10); K8's backward is K10, with no replay. K13 in the replays: K2's
+# LN1 and LN2 (3 x 2), K3's LN1 (3), K4's LN2 (3): 11 + 12 = 23.
+PER_STEP = dict(PER_FORWARD, window_attention=10, window_attention_bwd=10,
+                global_attention_bwd=1, layernorm=23)
+TRAIN_ARGS = ["--synthetic", "--synthetic-n", "16", "--img-size", "512",
+              "--batch-size", "4", "--nbs", "4", "--epochs", "2", "--notest"]
+TRAIN_STEPS = 8
 # the off-window path (608 px): stage 2's 76x76 map is no multiple of the
 # window, so its four blocks take the generic composition with the K1 core;
 # stage 3's 38x38 map pads to four 32x32 windows for K8
@@ -59,25 +114,46 @@ OFF_ARGS = ["--task", "val", "--synthetic", "--synthetic-n", "4",
             "--img-size", "608", "--batch-size", "4"]
 OFF_FORWARD = dict(PER_FORWARD, window_attention=4, block_attention=0,
                    mlp_tail=0, conv_mlp_tail_noln=0)
-# counter name -> (tag, source, TPU kernel it replaces, path whose run
-# counts its launches)
+# counter name -> (tag, source, TPU kernel it replaces, paths whose runs
+# count its launches: one entry of the kernels line for each, with the
+# times of that path's shapes)
 TPU_KERNEL = {
     "window_attention": ("K1", "sodt_tpu_torch/csrc/block_attention.cu",
-                         "sodt_tpu/pallas/window_attention.py:378", "608px"),
+                         "sodt_tpu/pallas/window_attention.py:378",
+                         ("608px", "train")),
     "swin_block": ("K2", "sodt_tpu_torch/csrc/swin_block.cu",
-                   "sodt_tpu/pallas/swin_block.py:93", "main"),
+                   "sodt_tpu/pallas/swin_block.py:93",
+                ("main",)),
     "block_attention_ln": ("K3", "sodt_tpu_torch/csrc/swin_block.cu",
-                           "sodt_tpu/pallas/window_attention.py:690", "main"),
+                           "sodt_tpu/pallas/window_attention.py:690",
+                ("main",)),
     "conv_mlp_tail": ("K4", "sodt_tpu_torch/csrc/swin_block.cu",
-                      "sodt_tpu/pallas/swin_block.py:329", "main"),
+                      "sodt_tpu/pallas/swin_block.py:329",
+                ("main",)),
     "block_attention": ("K5", "sodt_tpu_torch/csrc/block_attention.cu",
-                        "sodt_tpu/pallas/window_attention.py:491", "main"),
+                        "sodt_tpu/pallas/window_attention.py:491",
+                ("main",)),
     "mlp_tail": ("K6", "sodt_tpu_torch/csrc/mlp_tail.cu",
-                 "sodt_tpu/pallas/swin_block.py:544", "main"),
+                 "sodt_tpu/pallas/swin_block.py:544",
+                ("main",)),
     "conv_mlp_tail_noln": ("K7", "sodt_tpu_torch/csrc/conv_mlp_tail.cu",
-                           "sodt_tpu/pallas/swin_block.py:622", "main"),
+                           "sodt_tpu/pallas/swin_block.py:622",
+                ("main",)),
     "global_attention": ("K8", "sodt_tpu_torch/csrc/global_attention.cu",
-                         "sodt_tpu/pallas/window_attention.py:941", "main"),
+                         "sodt_tpu/pallas/window_attention.py:941",
+                ("main",)),
+    "window_attention_bwd": ("K9",
+                             "sodt_tpu_torch/csrc/window_attention_bwd.cu",
+                             "sodt_tpu/pallas/window_attention.py:761",
+                             ("train",)),
+    "global_attention_bwd": ("K10",
+                             "sodt_tpu_torch/csrc/global_attention_bwd.cu",
+                             "sodt_tpu/pallas/window_attention.py:1023",
+                             ("train",)),
+    "layernorm": ("K13", "sodt_tpu_torch/csrc/layernorm.cu",
+                  "sodt_tpu/pallas/layernorm.py:67", ("train",)),
+    "add_layernorm": ("K13", "sodt_tpu_torch/csrc/layernorm.cu",
+                      "sodt_tpu/pallas/layernorm.py:72", ("train",)),
 }
 
 
@@ -126,14 +202,19 @@ def _cast(args, dt):
 
 
 def kernel_cases(batch: int) -> list[dict]:
-    """Every kernel call shape of one flagship forward at 512 px, and K1's
-    at 608 px: the kernel and its plain version on the same arguments, the
-    bytes and operations the function needs, its calls per forward of its
-    path, and (K1, K8) one library call computing the same function."""
+    """Every kernel call shape of one flagship forward at 512 px, K1's at
+    608 px and the training step's (K1's replays, K9, K10, K13): the kernel
+    and its plain version on the same arguments, the bytes and operations
+    the function needs, its calls per forward (per step) of its path (the
+    `path` whose run counts its launches), and (K1, K8, K9, K10, K13) one
+    library call computing the same function. A kernel with
+    two outputs (K9, K10: dqkv and the f32 dbias; add+LN) has one tolerance
+    for each."""
     import torch
     import torch.nn.functional as F
     from sodt_tpu_torch.kernels import window_attention as wa
     from sodt_tpu_torch.kernels import swin_block as sb
+    from sodt_tpu_torch.kernels import layernorm as kln
     from sodt_tpu_torch.models.swin import shift_attn_mask
 
     bf = torch.bfloat16
@@ -151,10 +232,21 @@ def kernel_cases(batch: int) -> list[dict]:
 
     cases = []
 
-    def case(name, shape, kern, plain, args, nb, fl, calls, lib=None):
+    def case(name, shape, kern, plain, args, nb, fl, calls, lib=None,
+             tols=(KERNEL_TOL,), path="main"):
         cases.append(dict(name=name, shape=shape, kern=kern, plain=plain,
                           args=args, nbytes=nb, flops=fl, calls=calls,
-                          lib=lib))
+                          lib=lib, tols=tols, path=path))
+
+    def sdpa_bwd(q, k, v, am, scale):
+        """The backward of SDPA with the same additive bias (no dbias: the
+        mask asks for no gradient), on a graph built once."""
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                             scale=scale)
+        g = torch.ones_like(out)
+        return lambda: torch.autograd.grad(out, (q, k, v), g,
+                                           retain_graph=True)
 
     nh, ws, n = 12, 8, 64
     # stage 1 (c 192): K2 for blocks 0/2/4, K3 + K4 (shift 2) for 1/3/5
@@ -237,7 +329,72 @@ def kernel_cases(batch: int) -> list[dict]:
              nbytes(qkv, bias, mask) + nbytes(qkv) // 3,
              4 * batch * hw * hw * n * c, 2,
              lambda am=am, scale=scale: F.scaled_dot_product_attention(
-                 q1, k1, v1, attn_mask=am, scale=scale))
+                 q1, k1, v1, attn_mask=am, scale=scale), path="608px")
+
+    # K1 and K9 in a training step at 512 px: the core that the backward of
+    # a windowed block replays, and its backward, stage 1 (c 192, head dim
+    # 16: K2's three unshifted and K3's three shifted blocks) and stage 2
+    # (c 384, head dim 32: K5's two and two); the replay rolls the map and
+    # calls the core with shift 0 and the mask. K9's bytes: qkv, gy read,
+    # dqkv written (7 * C * 2 per token), bias (+ mask) read, dbias
+    # written; operations: five N x N x hd products per window and head
+    # (10 * N * C per token).
+    n = ws * ws
+    bias = rnd((nh, n, n), 1.0, torch.float32)
+    for hw, c, calls in ((128, 192, 3), (64, 384, 2)):
+        qkv, gy = rnd((batch, hw, hw, 3 * c)), rnd((batch, hw, hw, c))
+        scale = (c // nh) ** -0.5
+        nw = (hw // ws) ** 2
+        heads = (qkv.reshape(batch, hw // ws, ws, hw // ws, ws, 3, nh, c // nh)
+                 .permute(5, 0, 1, 3, 6, 2, 4, 7)
+                 .reshape(3, batch * nw, nh, n, c // nh))
+        q9, k9, v9 = (t.contiguous() for t in heads)
+        for shift in (0, 2):
+            mask = msk(hw, ws, shift)
+            full = bias[None].repeat(nw, 1, 1, 1)
+            if mask is not None:
+                full = full + mask[:, None]
+            am = full.to(bf).repeat(batch, 1, 1, 1)
+            case("window_attention",
+                 f"({batch},{hw},{hw},{3 * c}) shift {shift}",
+                 wa.fused_window_attention_nhwc, wa.reference_attention_nhwc,
+                 (qkv, bias, mask, ws, nh, scale),
+                 nbytes(qkv, bias, mask) + nbytes(qkv) // 3,
+                 4 * batch * hw * hw * n * c, calls,
+                 lambda q=q9, k=k9, v=v9, am=am, scale=scale:
+                 F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                scale=scale), path="train")
+            case("window_attention_bwd",
+                 f"({batch},{hw},{hw},{3 * c}) shift {shift}",
+                 wa.window_attention_bwd, wa.attention_nhwc_bwd_plain,
+                 (qkv, bias, mask, ws, nh, scale, gy),
+                 2 * nbytes(qkv) + nbytes(gy) + 2 * nbytes(bias) + nbytes(mask),
+                 10 * batch * hw * hw * n * c, calls,
+                 sdpa_bwd(q9, k9, v9, am, scale), (KERNEL_TOL, DBIAS_TOL),
+                 path="train")
+
+    # K13: every LayerNorm of a training step outside a megakernel (calls
+    # per step in the comment of PER_STEP), bound by bytes: x read, y
+    # written (add+LN: two reads, two writes)
+    for hw, c, calls in ((128, 48, 4), (128, 192, 12), (64, 384, 5),
+                         (32, 768, 2)):
+        x = rnd((batch, hw, hw, c))
+        w, b = ln(c)
+        wb, bb = w.to(bf), b.to(bf)
+        case("layernorm", f"({batch},{hw},{hw},{c})", kln.layernorm,
+             kln.layernorm_plain, (x, w, b), 2 * nbytes(x) + nbytes(w, b),
+             8 * x.numel(), calls,
+             lambda x=x, c=c, wb=wb, bb=bb: F.layer_norm(x, (c,), wb, bb),
+             path="train")
+    for hw, c, calls in ((64, 384, 4), (32, 768, 1)):
+        x, y = rnd((batch, hw, hw, c)), rnd((batch, hw, hw, c))
+        w, b = ln(c)
+        wb, bb = w.to(bf), b.to(bf)
+        case("add_layernorm", f"({batch},{hw},{hw},{c})", kln.add_layernorm,
+             kln.add_layernorm_plain, (x, y, w, b),
+             4 * nbytes(x) + nbytes(w, b), 9 * x.numel(), calls,
+             lambda x=x, y=y, c=c, wb=wb, bb=bb: F.layer_norm(
+                 x + y, (c,), wb, bb), (KERNEL_TOL, KERNEL_TOL), path="train")
 
     # stage 3: one 32x32 window, K8
     c, hw = 768, 32
@@ -254,29 +411,59 @@ def kernel_cases(batch: int) -> list[dict]:
          4 * batch * n * n * c, 1,
          lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask_bf,
                                                 scale=scale))
+    # K10, its backward: qkv, gy read, dqkv written, the 50 MB bias read and
+    # the 50 MB dbias written once
+    gy = rnd((batch, hw, hw, c))
+    case("global_attention_bwd", f"({batch},{hw},{hw},{3 * c}) N {n}",
+         wa.global_attention_bwd, wa.global_attention_bwd_plain,
+         (qkv, bias, nh, scale, gy),
+         2 * nbytes(qkv) + nbytes(gy) + 2 * nbytes(bias),
+         10 * batch * n * n * c, 1, sdpa_bwd(q, k, v, mask_bf, scale),
+         (KERNEL_TOL, DBIAS_TOL), path="train")
     return cases
 
 
 def phase_kernels(batch: int) -> list[dict]:
     import torch
     rows = []
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
     for cs in kernel_cases(batch):
         args = cs["args"]
-        out = cs["kern"](*args)
-        ref = cs["plain"](*_cast(args, torch.float32)).float()
+        outs = as_tuple(cs["kern"](*args))
+        refs = as_tuple(cs["plain"](*_cast(args, torch.float32)))
         torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
+        errs = [(o.float() - r.float()).abs().max().item()
+                for o, r in zip(outs, refs)]
+        rels = [e / r.float().abs().max().item() for e, r in zip(errs, refs)]
+        singly = None
+        if cs["name"].endswith("_bwd"):
+            # dq, dk, dv singly (the last axis of dqkv is [q | k | v]): the
+            # kernel rounds P and dS to bf16 before its tensor-core
+            # products, the plain version keeps them in f32; beside each,
+            # what rounding the f32 result to bf16 at the store leaves
+            rel = lambda a, r: ((a.float() - r).abs().max()
+                                / r.abs().max()).item()
+            singly = {
+                "kernel": [rel(o, r) for o, r in zip(outs[0].chunk(3, -1),
+                                                     refs[0].chunk(3, -1))],
+                "bf16_store_alone": [rel(r.to(torch.bfloat16), r)
+                                     for r in refs[0].chunk(3, -1)]}
+        del outs, refs
         ms = time_ms(lambda: cs["kern"](*args))
         pms = time_ms(lambda: cs["plain"](*args))
         lms = time_ms(cs["lib"]) if cs["lib"] is not None else None
         bms, by = bound_ms(cs["nbytes"], cs["flops"])
         row = {"phase": "kernel", "name": cs["name"], "shape": cs["shape"],
-               "batch": batch, "calls_per_forward": cs["calls"],
-               "max_abs_err": err, "rel_err": rel, "tol": KERNEL_TOL,
+               "batch": batch, "path": cs["path"],
+               "calls_per_forward": cs["calls"],
+               "max_abs_err": errs[0], "rel_err": rels[0],
+               "rel_errs": rels, "tols": list(cs["tols"]),
+               "dq_dk_dv_rel_err": singly,
                "ms": ms, "plain_ms": pms, "library_ms": lms,
                "bound_ms": bms, "bound_by": by,
-               "ok": bool(math.isfinite(rel) and rel <= KERNEL_TOL)}
+               "ok": bool(len(rels) == len(cs["tols"]) and all(
+                   math.isfinite(r) and r <= t
+                   for r, t in zip(rels, cs["tols"])))}
         emit(row)
         rows.append(row)
     return rows
@@ -334,6 +521,277 @@ def phase_path(label: str, args: list[str], expected: dict) -> dict:
     return row
 
 
+def phase_autograd() -> list[str]:
+    """torch.autograd.grad through the two attention functions (K1 -> K9
+    at stage 1 with the shift mask and at stage 2 without, K8 -> K10) at
+    the training batch, against autograd of the f32 plain version on the
+    same inputs; the cotangent arrives as a view."""
+    import torch
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.kernels import window_attention as wa
+    from sodt_tpu_torch.models.swin import shift_attn_mask
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(1)
+    rnd = lambda shape: torch.randn(shape, generator=g).cuda()
+    failed = []
+    for kind, (hw, c, ws), shift in (("window", (128, 192, 8), 2),
+                                     ("window", (64, 384, 8), 0),
+                                     ("global", (32, 768, 32), 0)):
+        nh, n = 12, ws * ws
+        mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
+                if shift else None)
+        scale = (c // nh) ** -0.5
+        qkv = rnd((MAIN_BATCH, hw, hw, 3 * c)).to(bf).requires_grad_()
+        bias = rnd((nh, n, n)).requires_grad_()
+        gy = rnd((MAIN_BATCH, hw, c, hw)).to(bf).transpose(2, 3)
+        kernels.reset_launches()
+        if kind == "window":
+            out = wa.fused_window_attention_nhwc(qkv, bias, mask, ws, nh,
+                                                 scale)
+        else:
+            out = wa.fused_global_attention(qkv, bias, nh, scale)
+        dq, db = torch.autograd.grad(out, [qkv, bias], gy)
+        counts = {k: v for k, v in kernels.launches().items() if v}
+        q32 = qkv.detach().float().requires_grad_()
+        b32 = bias.detach().clone().requires_grad_()
+        ref = wa.reference_attention_nhwc(q32, b32, mask, ws, nh, scale)
+        rq, rb = torch.autograd.grad(ref, [q32, b32], gy.float())
+        torch.cuda.synchronize()
+        rel = lambda a, b: ((a.float() - b).abs().max() / b.abs().max()).item()
+        # dbias against the plain FORWARD's autograd: that forward scales q
+        # in bf16-free f32 but before the product, the kernels scale the
+        # scores: 5e-3 leaves room for the reassociation
+        row = {"phase": "autograd", "function": kind,
+               "shape": [MAIN_BATCH, hw, hw, 3 * c], "masked": bool(shift),
+               "launches": counts,
+               "dqkv_rel_err": rel(dq, rq), "dbias_rel_err": rel(db, rb),
+               "tols": [KERNEL_TOL, 5e-3]}
+        row["ok"] = bool(row["dqkv_rel_err"] <= KERNEL_TOL
+                         and row["dbias_rel_err"] <= 5e-3
+                         and sorted(counts.values()) == [1, 1])
+        emit(row)
+        if not row["ok"]:
+            failed.append(f"autograd {kind} {hw}")
+    return failed
+
+
+def phase_train(workdir: Path) -> dict:
+    """Drive `sodt_tpu_torch.train` in-process for 8 optimizer steps, the
+    launch counts set to 0 just before and read just after. A step hook
+    reads the counts of each step and the synchronized step times, a
+    gradient hook the first step's gradients."""
+    import torch
+    import yaml
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+    from sodt_tpu_torch.train import cli
+    from sodt_tpu_torch.weights import init_weights
+
+    with open(resolve_config_path("configs/hyp.scratch.yaml")) as f:
+        hyp = yaml.safe_load(f)
+    hyp_path = workdir / "hyp_smoke.yaml"
+    hyp_path.write_text(yaml.safe_dump(dict(hyp, warmup_iters=4)))
+    args = TRAIN_ARGS + ["--hyp", str(hyp_path)]
+
+    seen = {"counts": [], "losses": [], "t": [], "no_grad": None,
+            "state": None}
+
+    def on_step(state, metrics):
+        torch.cuda.synchronize()
+        seen["t"].append(time.perf_counter())
+        seen["counts"].append(kernels.launches())
+        seen["losses"].append({k: float(v) for k, v in metrics.items()})
+        seen["state"] = state
+
+    def on_grads(grads):
+        if seen["no_grad"] is None:
+            seen["no_grad"] = [k for k, g in grads.items()
+                               if not (torch.isfinite(g).all()
+                                       and g.abs().max() > 0)]
+            seen["n_params"] = len(grads)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = cli.main(args, on_step=on_step, on_grads=on_grads)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+
+    zero = {k: 0 for k in counts}
+    per_step = [{k: c[k] - p[k] for k in c}
+                for p, c in zip([zero] + seen["counts"], seen["counts"])]
+    step_ms = [1e3 * (b - a) for a, b in zip(seen["t"], seen["t"][1:])]
+    # the run ends with one eval forward of the EMA weights (4 images)
+    expected_total = {k: TRAIN_STEPS * PER_STEP[k] + PER_FORWARD[k]
+                      for k in PER_STEP}
+    fresh = init_weights(build_model("configs/model.yaml", ch_in=4,
+                                     dtype=torch.bfloat16), 0)
+    start = dict(fresh.named_parameters())
+    params = dict(seen["state"].model.named_parameters())
+    unmoved = [k for k, p in params.items()
+               if torch.equal(p.detach().cpu(), start[k].detach())]
+    finite = all(math.isfinite(v) for l in seen["losses"] for v in l.values())
+    ok = (len(per_step) == TRAIN_STEPS and all(p == PER_STEP for p in per_step)
+          and counts == expected_total and finite and not seen["no_grad"]
+          and not unmoved and m["steps"] == TRAIN_STEPS
+          and seen["state"].ema_updates == TRAIN_STEPS
+          and math.isfinite(m["map50"]))
+    row = {"phase": "train", "args": args, "wall_s": wall,
+           "steps": len(per_step), "step_ms": step_ms,
+           "losses": seen["losses"], "launches": counts,
+           "launches_per_step": per_step[0] if per_step else {},
+           "expected_per_step": PER_STEP, "expected_total": expected_total,
+           "params": seen.get("n_params"),
+           "params_without_gradient_at_step_1": seen["no_grad"],
+           "params_unmoved": unmoved, "map50": m["map50"],
+           "ema_updates": seen["state"].ema_updates, "ok": bool(ok)}
+    emit(row)
+    return row
+
+
+def _train_setup(dtype, seed: int = 0):
+    """The flagship in training mode with weights from `seed`, one
+    synthetic training batch from `seed` on the card, and its loss
+    configuration."""
+    import torch
+    import yaml
+    from sodt_tpu_torch.data import SyntheticVedai
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+    from sodt_tpu_torch.train.trainer import (loss_config, make_train_batches,
+                                              scale_hyp)
+    from sodt_tpu_torch.weights import batch_to_torch, init_weights
+
+    with open(resolve_config_path("configs/hyp.scratch.yaml")) as f:
+        hyp = yaml.safe_load(f)
+    model = build_model("configs/model.yaml", ch_in=4, dtype=dtype)
+    model = init_weights(model, seed).cuda().train()
+    hyp = scale_hyp(dict(hyp, warmup_iters=4), len(model.spec.anchors), 8, 512)
+    ds = SyntheticVedai(n=MAIN_BATCH, img_size=512, nc=8, seed=seed)
+    batch = next(make_train_batches(ds, MAIN_BATCH, 30, seed, 0))
+    return model, batch_to_torch(batch, "cuda"), hyp, loss_config(model, hyp, 8)
+
+
+def _grad_diff(a: dict, b: dict) -> dict:
+    """Relative L2 of gradients a against b over all leaves together, the
+    cosine between them, and the worst single leaf among those with at
+    least 1e-3 of the largest leaf's norm."""
+    num = math.sqrt(sum(((a[k] - b[k]).double() ** 2).sum().item() for k in b))
+    den = math.sqrt(sum((b[k].double() ** 2).sum().item() for k in b))
+    dot = sum((a[k].double() * b[k].double()).sum().item() for k in b)
+    na = math.sqrt(sum((a[k].double() ** 2).sum().item() for k in b))
+    norms = {k: b[k].norm().item() for k in b}
+    floor = 1e-3 * max(norms.values())
+    leaf = {k: ((a[k] - b[k]).norm() / b[k].norm()).item()
+            for k in b if norms[k] >= floor}
+    worst = max(leaf, key=leaf.get)
+    return {"rel_l2_all": num / den, "cosine": dot / (na * den),
+            "leaves_compared_singly": len(leaf), "worst_leaf": worst,
+            "worst_leaf_rel_l2": leaf[worst]}
+
+
+def phase_grads() -> dict:
+    """Gradients of the detection loss on one training batch, for each
+    seed of GRAD_SEEDS: the bf16 kernel path against the f32 plain path on
+    the same weights, with BatchNorm on its running statistics (the tight
+    bound) and on batch statistics (the training step itself). The raw
+    Detect maps of the same two forwards are held beside them: they show
+    how far the forward alone moves with the BatchNorm mode."""
+    import torch
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.train.loss import compute_loss
+
+    row = {"phase": "grads", "batch": MAIN_BATCH, "seeds": list(GRAD_SEEDS)}
+    ok = True
+    for seed in GRAD_SEEDS:
+        for stats in ("running", "batch"):
+            grads, raws = {}, {}
+            for dt in (torch.bfloat16, torch.float32):
+                model, batch, _, cfg = _train_setup(dt, seed)
+                model.train(stats == "batch")
+                kernels.reset_launches()
+                out = model(batch["img"], batch["ir"])
+                total, _ = compute_loss(out["raw"], batch["targets"],
+                                        batch["tmask"], cfg)
+                names = [k for k, _ in model.named_parameters()]
+                gs = torch.autograd.grad(total, list(model.parameters()))
+                grads[dt] = dict(zip(names, gs))
+                raws[dt] = out["raw"][0].detach().float()
+                launched = kernels.launches()
+                ok = ok and (launched == PER_STEP if dt == torch.bfloat16
+                             else not any(launched.values()))
+                del model, out, total
+            d = _grad_diff(grads[torch.bfloat16], grads[torch.float32])
+            a, b = raws[torch.bfloat16], raws[torch.float32]
+            d["raw_maps_rel_l2"] = ((a - b).norm() / b.norm()).item()
+            row[f"seed{seed}_{stats}_stats"] = d
+            row["leaves"] = len(grads[torch.float32])
+            ok = ok and math.isfinite(d["rel_l2_all"]) and all(
+                g.dtype == torch.float32
+                for g in grads[torch.bfloat16].values())
+            if stats == "running":
+                ok = ok and (d["rel_l2_all"] <= GRAD_REL_L2
+                             and d["worst_leaf_rel_l2"] <= GRAD_WORST_LEAF)
+            else:
+                ok = ok and d["rel_l2_all"] <= GRAD_REL_L2_BATCH_STATS
+    row.update(rel_l2_bound=GRAD_REL_L2, worst_leaf_bound=GRAD_WORST_LEAF,
+               rel_l2_bound_batch_stats=GRAD_REL_L2_BATCH_STATS, ok=bool(ok))
+    emit(row)
+    return row
+
+
+def _device_rows(prof) -> list[dict]:
+    """Device kernels only: a host-side op (an aten op, an autograd
+    function) carries its kernels' time a second time."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0.0)
+        if (dev and e.key and e.device_type == DeviceType.CUDA
+                and not e.key.startswith("Memcpy")):
+            rows.append({"kernel": e.key[:120], "device_ms": dev / 1e3,
+                         "count": e.count})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
+def phase_profile_train() -> None:
+    """Kernel-time breakdown of one warm training step (forward, loss,
+    backward, optimizer update, EMA) at the train path's shape."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    from sodt_tpu_torch.train.optim import make_optimizer
+    from sodt_tpu_torch.train.state import TrainState, make_train_step
+
+    model, batch, hyp, cfg = _train_setup(torch.bfloat16)
+    tx = make_optimizer(hyp, dict(model.named_parameters()), epochs=2, nb=4)
+    state = TrainState.create(model, tx)
+    step = make_train_step(model, tx, cfg)
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, batch), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = _device_rows(prof)
+    busy = sum(r["device_ms"] for r in rows)
+    ours = sum(r["device_ms"] for r in rows if "sodt::" in r["kernel"])
+    emit({"phase": "profile_train", "batch": MAIN_BATCH, "img": 512,
+          "train_step_ms": step_ms, "images_per_s": 1e3 * MAIN_BATCH / step_ms,
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+          "port_kernels_ms": ours,
+          "idle_share": max(0.0, 1 - busy / step_ms),
+          "peak_memory_bytes": peak, "top": rows[:40]})
+
+
 def phase_profile() -> None:
     """Kernel-time breakdown of one warm eval step (forward + decode + NMS)
     at the main path's shape."""
@@ -360,15 +818,7 @@ def phase_profile() -> None:
         step(x, x)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for e in prof.key_averages():
-        dev = getattr(e, "device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "cuda_time_total", 0.0)
-        if dev and e.key and not e.key.startswith(("aten::", "cuda", "Memcpy")):
-            rows.append({"kernel": e.key[:120], "device_ms": dev / 1e3,
-                         "count": e.count})
-    rows.sort(key=lambda r: -r["device_ms"])
+    rows = _device_rows(prof)
     busy = sum(r["device_ms"] for r in rows)
     ours = sum(r["device_ms"] for r in rows if "sodt::" in r["kernel"])
     # idle share against the unprofiled step time (the profiler's own host
@@ -421,6 +871,11 @@ def main() -> int:
             traceback.print_exc()
             failed.append(f"kernels batch {batch}")
     failed += [f"{r['name']} {r['shape']}" for r in rows if not r["ok"]]
+    try:
+        failed += phase_autograd()
+    except Exception:
+        traceback.print_exc()
+        failed.append("autograd")
     paths = {}
     for label, args, expected in (("main", MAIN_ARGS, PER_FORWARD),
                                   ("608px", OFF_ARGS, OFF_FORWARD)):
@@ -432,31 +887,51 @@ def main() -> int:
             traceback.print_exc()
             failed.append(f"{label} path")
             paths[label] = {"launches": {}}
-    try:
-        phase_profile()
-    except Exception:
-        traceback.print_exc()
-        failed.append("profile")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            paths["train"] = phase_train(Path(tmp))
+            if not paths["train"]["ok"]:
+                failed.append("train path")
+        except Exception:
+            traceback.print_exc()
+            failed.append("train path")
+            paths["train"] = {"launches": {}}
+    for label, phase in (("grads", phase_grads), ("profile", phase_profile),
+                         ("profile_train", phase_profile_train)):
+        try:
+            row = phase()
+            if row is not None and not row["ok"]:
+                failed.append(label)
+        except Exception:
+            traceback.print_exc()
+            failed.append(label)
 
-    # per-forward totals at the main path's batch: the sum over one
-    # forward's calls of each kernel on its path (calls_per_forward of each
-    # shape); launches as counted on that path's run
+    # per-forward (on the train path: per-step) totals at the paths' batch:
+    # the sum over one forward's or step's calls of each kernel on its path
+    # (calls_per_forward of each shape); launches as counted on that
+    # path's run; a kernel of its path that was never launched fails
     entries = []
-    for name, (tag, src, tpu, path) in TPU_KERNEL.items():
-        mine = [r for r in rows if r["name"] == name and r["batch"] == MAIN_BATCH]
-        tot = lambda key: (sum(r["calls_per_forward"] * r[key] for r in mine)
-                           if mine and all(r[key] is not None for r in mine)
-                           else None)
-        entries.append({
-            "name": f"{tag} {name}", "route": "cuda", "source": src,
-            "replaces": tpu, "path": path,
-            "launches": paths[path]["launches"].get(name, 0),
-            "max_abs_err": max((r["max_abs_err"] for r in mine), default=None),
-            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
-            "bound_ms": tot("bound_ms"),
-            "bound_by": (max(mine, key=lambda r: r["bound_ms"])["bound_by"]
-                         if mine else None),
-            "library_ms": tot("library_ms")})
+    for name, (tag, src, tpu, on_paths) in TPU_KERNEL.items():
+        for path in on_paths:
+            mine = [r for r in rows if r["name"] == name
+                    and r["path"] == path and r["batch"] == MAIN_BATCH]
+            tot = lambda key: (
+                sum(r["calls_per_forward"] * r[key] for r in mine)
+                if mine and all(r[key] is not None for r in mine) else None)
+            entries.append({
+                "name": f"{tag} {name}" + (f" ({path} path)"
+                                           if len(on_paths) > 1 else ""),
+                "route": "cuda", "source": src, "replaces": tpu, "path": path,
+                "launches": paths[path]["launches"].get(name, 0),
+                "max_abs_err": max((r["max_abs_err"] for r in mine),
+                                   default=None),
+                "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+                "bound_ms": tot("bound_ms"),
+                "bound_by": (max(mine, key=lambda r: r["bound_ms"])["bound_by"]
+                             if mine else None),
+                "library_ms": tot("library_ms")})
+    failed += [f"{e['name']} not launched on the {e['path']} path"
+               for e in entries if not e["launches"]]
     if failed:
         print(f"chip_smoke: FAILED: {failed}", file=sys.stderr)
         return 1

@@ -18,6 +18,10 @@ LAUNCHES: dict[str, int] = {
     "mlp_tail": 0,              # K6, swin_block.fused_mlp_tail
     "conv_mlp_tail_noln": 0,    # K7, swin_block.fused_conv_mlp_tail_noln
     "global_attention": 0,      # K8, window_attention.fused_global_attention
+    "window_attention_bwd": 0,  # K9, window_attention.window_attention_bwd
+    "global_attention_bwd": 0,  # K10, window_attention.global_attention_bwd
+    "layernorm": 0,             # K13, layernorm.layernorm
+    "add_layernorm": 0,         # K13, layernorm.add_layernorm
 }
 
 

@@ -35,6 +35,10 @@ SIGNATURES = {
     "sodt_swin_block": [P] * 16 + [I] * 9 + [F, P],
     "sodt_block_attention_ln": [P] * 10 + [I] * 8 + [F, P],
     "sodt_conv_tail": [P] * 11 + [I] * 5 + [P],
+    "sodt_window_attention_bwd": [P] * 7 + [I] * 7 + [F, I, P],
+    "sodt_global_attention_bwd": [P] * 7 + [I] * 7 + [F, P],
+    "sodt_layernorm": [P, P, P, P, I, I, F, P],
+    "sodt_add_layernorm": [P, P, P, P, P, P, I, I, F, P],
 }
 
 _lib = None

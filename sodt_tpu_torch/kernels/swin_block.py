@@ -17,6 +17,12 @@ the layout both conv kernels read (`conv_taps`). Plain versions mirror
 `_compose_swin_block` / `_compose_conv_tail` / `_compose_mlp_tail` /
 `_compose_conv_tail_noln` with the dtype-dependent `gelu`; the kernels use
 the tanh form, as the Pallas kernels do.
+
+On the card every wrapper is a `window_attention.Replay` function: the
+forward launches the kernel, the backward replays the plain composition
+(`dispatch=True`: its LayerNorms and attention core go through K13 and
+K1 -> K9) and differentiates it, as `_fsb_bwd`, `_fct_bwd`, `_fmt_bwd` and
+`_fctn_bwd` do.
 """
 
 from __future__ import annotations
@@ -26,9 +32,9 @@ import torch.nn.functional as F
 
 from . import LAUNCHES
 from . import _build
-from .window_attention import (_check_cuda, _check_window_args, _require,
-                               block_attention_ln_plain, gemm_bias,
-                               layer_norm)
+from .layernorm import layernorm, layernorm_plain
+from .window_attention import (Replay, _check_cuda, _check_window_args,
+                               _require, block_attention_ln_plain, gemm_bias)
 from ..ops.activations import gelu
 
 
@@ -65,28 +71,34 @@ def conv_mlp_tail_noln_plain(r, y, w1, b1, wc, bc, w2, b2):
 
 def swin_block_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
                      w2, b2, bias, mask, ws: int, nh: int, scale: float,
-                     shift: int = 0):
+                     shift: int = 0, dispatch: bool = False):
     """K2's plain version: `_compose_swin_block` (l.279) on
-    roll(x, -shift), rolled back by +shift."""
+    roll(x, -shift), rolled back by +shift. `dispatch=True` (a backward's
+    replay): the LNs and the attention core go through their kernel
+    wrappers."""
+    ln = layernorm if dispatch else layernorm_plain
     if shift:
         x = torch.roll(x, (-shift, -shift), (1, 2))
     res1 = x + block_attention_ln_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp,
-                                        bias, mask, ws, nh, scale)
-    out = mlp_tail_plain(res1, layer_norm(res1, ln2w, ln2b), w1, b1, w2, b2)
+                                        bias, mask, ws, nh, scale,
+                                        dispatch=dispatch)
+    out = mlp_tail_plain(res1, ln(res1, ln2w, ln2b), w1, b1, w2, b2)
     if shift:
         out = torch.roll(out, (shift, shift), (1, 2))
     return out
 
 
 def conv_mlp_tail_plain(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
-                        shift: int = 0):
+                        shift: int = 0, dispatch: bool = False):
     """K4's plain version: `_compose_conv_tail` (l.468) on
-    roll(a, (+shift, +shift)); wc in the kernels' (out, 2, 2, in) layout."""
+    roll(a, (+shift, +shift)); wc in the kernels' (out, 2, 2, in) layout.
+    `dispatch=True` (a backward's replay): LN2 goes through K13's wrapper."""
+    ln = layernorm if dispatch else layernorm_plain
     if shift:
         a = torch.roll(a, (shift, shift), (1, 2))
     res1 = x + a
-    return conv_mlp_tail_noln_plain(res1, layer_norm(res1, ln2w, ln2b), w1,
-                                    b1, wc, bc, w2, b2)
+    return conv_mlp_tail_noln_plain(res1, ln(res1, ln2w, ln2b), w1, b1, wc,
+                                    bc, w2, b2)
 
 
 # ----------------------------------------------------------------- kernels
@@ -139,6 +151,19 @@ def fused_swin_block(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
              and tuple(w1.shape) == (hid, c) and tuple(w2.shape) == (c, hid),
              f"{name}: weight shapes")
     _check_window_args(name, b, h, w, nh, ws, bias, mask, shift)
+    return Replay.apply(_launch_swin_block, _compose_swin_block,
+                        (ws, nh, scale, shift), x, ln1w, ln1b, wqkv, bqkv, wp,
+                        bp, ln2w, ln2b, w1, b1, w2, b2, bias, mask)
+
+
+def _compose_swin_block(*args):
+    return swin_block_plain(*args, dispatch=True)
+
+
+def _launch_swin_block(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
+                       w2, b2, bias, mask, ws, nh, scale, shift):
+    b, h, w, c = x.shape
+    hid = w1.shape[0]
     out = torch.empty_like(x)
     scale_dt = float(torch.tensor(scale, dtype=x.dtype))
     _build.check(_build.library().sodt_swin_block(
@@ -148,7 +173,7 @@ def fused_swin_block(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
         b2.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         b, h, w, c, hid, nh, ws, shift, int(mask is not None), scale_dt,
-        _build.stream_ptr()), name)
+        _build.stream_ptr()), "fused_swin_block")
     LAUNCHES["swin_block"] += 1
     return out
 
@@ -184,12 +209,22 @@ def fused_conv_mlp_tail(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
     _require(tuple(w1.shape) == (c, c) and tuple(w2.shape) == (c, c)
              and tuple(wc.shape) == (c, 2, 2, c), f"{name}: weight shapes")
     _require(0 <= shift < min(h, w), f"{name}: shift {shift}")
+    return Replay.apply(_launch_conv_tail, _compose_conv_tail, (shift,), x, a,
+                        ln2w, ln2b, w1, b1, wc, bc, w2, b2)
+
+
+def _compose_conv_tail(*args):
+    return conv_mlp_tail_plain(*args, dispatch=True)
+
+
+def _launch_conv_tail(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2, shift):
+    b, h, w, c = x.shape
     out = torch.empty_like(x)
     _build.check(_build.library().sodt_conv_tail(
         x.data_ptr(), a.data_ptr(), ln2w.data_ptr(), ln2b.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), wc.data_ptr(), bc.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, h, w, c, shift,
-        _build.stream_ptr()), name)
+        _build.stream_ptr()), "fused_conv_mlp_tail")
     LAUNCHES["conv_mlp_tail"] += 1
     return out
 
@@ -236,6 +271,11 @@ def fused_mlp_tail(r, y, w1, b1, w2, b2):
              f"{name}: weight shapes")
     _require(c % 16 == 0 and hid % 16 == 0 and hid <= 2048 and c <= 1024,
              f"{name}: C={c}, hidden={hid}")
+    return Replay.apply(_launch_mlp_tail, mlp_tail_plain, (), r, y, w1, b1,
+                        w2, b2)
+
+
+def _launch_mlp_tail(r, y, w1, b1, w2, b2):
     out = _mlp2(y, w1, b1, w2, b2, r, taps=1)
     LAUNCHES["mlp_tail"] += 1
     return out
@@ -268,6 +308,11 @@ def fused_conv_mlp_tail_noln(r, y, w1, b1, wc, bc, w2, b2):
     _require(tuple(w1.shape) == (c, c) and tuple(w2.shape) == (c, c)
              and tuple(wc.shape) == (c, 2, 2, c), f"{name}: weight shapes")
     _require(c % 16 == 0 and c <= 512, f"{name}: C={c}")
+    return Replay.apply(_launch_conv_tail_noln, conv_mlp_tail_noln_plain, (),
+                        r, y, w1, b1, wc, bc, w2, b2)
+
+
+def _launch_conv_tail_noln(r, y, w1, b1, wc, bc, w2, b2):
     f1 = gemm_bias(y, w1, b1)
     out = _mlp2(f1, wc, bc, w2, b2, r, taps=4)
     LAUNCHES["conv_mlp_tail_noln"] += 1

@@ -1,5 +1,6 @@
 """Window attention: K1 (windowed core), K3 (LN + qkv + W-MSA + proj), K5
-(qkv + W-MSA + proj) and K8 (global / large-window attention).
+(qkv + W-MSA + proj), K8 (global / large-window attention) and the
+backward kernels K9 (of K1) and K10 (of K8).
 
 Counterpart of `sodt_tpu/pallas/window_attention.py`. Weights use torch's
 Linear layout (out, in): the kernels read B of every product K-contiguous,
@@ -9,6 +10,15 @@ Plain versions mirror the JAX compositions (`reference_attention_qkv`,
 `reference_attention_nhwc`, `_compose_block_attention`): q is scaled in the
 working dtype before QK^T, scores and softmax are f32, probabilities are
 cast back to the working dtype before PV.
+
+Gradients. On the card K1 and K8 are `torch.autograd.Function`s whose
+backward launches K9 / K10 on the saved (qkv, bias, mask), as the JAX
+package's `custom_vjp`s do. The fused wrappers K3 and K5 (and K2, K4, K6, K7
+in `swin_block`) save their inputs and, in backward, replay the plain
+composition with `dispatch=True` - its LayerNorms and its attention core
+then go through the kernel wrappers (K13, K1 -> K9, K8 -> K10) - and
+differentiate that (`_fba_bwd`, `_fbal_bwd`, `_fsb_bwd`, ...). On the CPU
+every wrapper is its plain version and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -17,13 +27,7 @@ import torch
 
 from . import LAUNCHES
 from . import _build
-
-
-def layer_norm(x, weight, bias):
-    """`models.norm.layer_norm` (imported here at call time: the models
-    package imports this module)."""
-    from ..models.norm import layer_norm as ln
-    return ln(x, weight, bias)
+from .layernorm import layernorm, layernorm_plain
 
 
 # ----------------------------------------------------------- plain versions
@@ -69,23 +73,78 @@ def reference_attention_nhwc(qkv, bias, mask, ws: int, nh: int,
 
 
 def block_attention_plain(x, wqkv, bqkv, wp, bp, bias, mask, ws: int,
-                          nh: int, scale: float, shift: int = 0):
+                          nh: int, scale: float, shift: int = 0,
+                          dispatch: bool = False):
     """K5's plain version: `_compose_block_attention` on roll(x, -shift).
-    The output stays in shifted coordinates."""
+    The output stays in shifted coordinates. `dispatch=True` is the
+    composition a backward replays: the attention core goes through
+    `window_attention_core_nhwc` (K1 / K8 and their backward kernels on
+    the card) instead of the plain reference."""
     if shift:
         x = torch.roll(x, (-shift, -shift), (1, 2))
     dt = x.dtype
     qkv = torch.matmul(x, wqkv.to(dt).t()) + bqkv.to(dt)
-    out = reference_attention_nhwc(qkv, bias, mask, ws, nh, scale)
+    core = window_attention_core_nhwc if dispatch else reference_attention_nhwc
+    out = core(qkv, bias, mask, ws, nh, scale)
     return torch.matmul(out, wp.to(dt).t()) + bp.to(dt)
 
 
 def block_attention_ln_plain(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
-                             ws: int, nh: int, scale: float, shift: int = 0):
+                             ws: int, nh: int, scale: float, shift: int = 0,
+                             dispatch: bool = False):
     """K3's plain version: LN1, then K5's plain version (the LN is per
-    token, so it commutes with the roll)."""
-    return block_attention_plain(layer_norm(x, lnw, lnb), wqkv, bqkv, wp, bp,
-                                 bias, mask, ws, nh, scale, shift)
+    token, so it commutes with the roll). `dispatch=True`: the LN goes
+    through `layernorm` (K13 on the card) and the core through its
+    wrapper."""
+    ln = layernorm if dispatch else layernorm_plain
+    return block_attention_plain(ln(x, lnw, lnb), wqkv, bqkv, wp, bp, bias,
+                                 mask, ws, nh, scale, shift, dispatch)
+
+
+def attention_nhwc_bwd_plain(qkv, bias, mask, ws: int, nh: int, scale: float,
+                             gy):
+    """K9's plain version, from `_bwd_strip_kernel`'s formulas in f32:
+    S = scale * Q K^T + bias (+ mask) with q NOT pre-scaled, P = softmax(S),
+    dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dP * P)),
+    dQ = scale * dS K, dK = scale * dS^T Q, dbias = sum over batch and
+    windows of dS. qkv (B, H, W, 3C), gy (B, H, W, C) -> (dqkv in qkv's
+    dtype, dbias (nh, N, N) f32)."""
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // nh
+    n = ws * ws
+    g = (h // ws) * (w // ws)
+
+    def heads(t):          # (B, H, W, k*C) -> k tensors (B*g, nh, N, hd)
+        k = t.shape[-1] // c
+        t = t.float().reshape(b, h // ws, ws, w // ws, ws, k, nh, hd)
+        return t.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(k, b * g, nh, n, hd)
+
+    q, k, v = heads(qkv)
+    do = heads(gy)[0]
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale + bias[None].float()
+    if mask is not None:
+        s = (s.reshape(b, g, nh, n, n)
+             + mask.float()[None, :, None]).reshape(b * g, nh, n, n)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = scale * torch.matmul(ds, k)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), q)
+    dx = torch.stack([dq, dk, dv]).to(qkv.dtype)
+    dx = dx.reshape(3, b, h // ws, w // ws, nh, ws, ws, hd)
+    dx = dx.permute(1, 2, 5, 3, 6, 0, 4, 7).reshape(b, h, w, c3)
+    return dx, ds.sum(dim=0)
+
+
+def global_attention_bwd_plain(qkv, bias, nh: int, scale: float, gy,
+                               ws: int | None = None, mask=None):
+    """K10's plain version (`_global_chunk_grads` and the two kernels that
+    use it compute the same formulas as K9's, over one window of the whole
+    map by default)."""
+    return attention_nhwc_bwd_plain(qkv, bias, mask, ws or qkv.shape[1], nh,
+                                    scale, gy)
 
 
 def global_attention_plain(qkv, bias, nh: int, scale: float,
@@ -137,6 +196,33 @@ def gemm_bias(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return out
 
 
+class Replay(torch.autograd.Function):
+    """A fused kernel with a replayed backward (the JAX package's
+    `custom_vjp`s `_fsb_bwd`, `_fba_bwd`, ...): forward runs
+    `launch(*tensors, *consts)` and saves the tensors; backward runs
+    `compose(*leaves, *consts)` on detached leaves under enable_grad and
+    returns `torch.autograd.grad` of it. The kernels inside `compose` (K13,
+    K1 -> K9, K8 -> K10) carry their own backward."""
+
+    @staticmethod
+    def forward(ctx, launch, compose, consts, *tensors):
+        ctx.compose, ctx.consts = compose, consts
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors, *consts)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, needs)]
+            out = ctx.compose(*leaves, *ctx.consts)
+            grads = iter(torch.autograd.grad(
+                out, [l for l, n in zip(leaves, needs) if n], g))
+        return (None, None, None,
+                *[next(grads) if n else None for n in needs])
+
+
 # ---------------------------------------------------------------------- K5
 
 def fused_block_attention(x, wqkv, bqkv, wp, bp, bias, mask, ws: int,
@@ -175,11 +261,23 @@ def fused_block_attention(x, wqkv, bqkv, wp, bp, bias, mask, ws: int,
     _require(tuple(wqkv.shape) == (3 * c, c) and tuple(wp.shape) == (c, c),
              f"{name}: weight shapes")
     _check_window_args(name, b, h, w, nh, ws, bias, mask, shift)
+    return Replay.apply(_launch_block_attention, _compose_block_attention,
+                        (ws, nh, scale, shift), x, wqkv, bqkv, wp, bp, bias,
+                        mask)
+
+
+def _launch_block_attention(x, wqkv, bqkv, wp, bp, bias, mask, ws, nh, scale,
+                            shift):
     qkv = gemm_bias(x, wqkv, bqkv)
-    attn = _window_core(qkv, bias, mask, ws, nh, scale, shift, name)
+    attn = _window_core(qkv, bias, mask, ws, nh, scale, shift,
+                        "fused_block_attention")
     out = gemm_bias(attn, wp, bp)
     LAUNCHES["block_attention"] += 1
     return out
+
+
+def _compose_block_attention(*args):
+    return block_attention_plain(*args, dispatch=True)
 
 
 def _check_window_args(name, b, h, w, nh, ws, bias, mask, shift):
@@ -242,6 +340,14 @@ def fused_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
     _require(tuple(wqkv.shape) == (3 * c, c) and tuple(wp.shape) == (c, c),
              f"{name}: weight shapes")
     _check_window_args(name, b, h, w, nh, ws, bias, mask, shift)
+    return Replay.apply(_launch_block_attention_ln,
+                        _compose_block_attention_ln, (ws, nh, scale, shift),
+                        x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask)
+
+
+def _launch_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
+                               ws, nh, scale, shift):
+    b, h, w, c = x.shape
     out = torch.empty_like(x)
     scale_dt = float(torch.tensor(scale, dtype=x.dtype))
     _build.check(_build.library().sodt_block_attention_ln(
@@ -249,9 +355,13 @@ def fused_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
         bqkv.data_ptr(), wp.data_ptr(), bp.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         b, h, w, c, nh, ws, shift, int(mask is not None), scale_dt,
-        _build.stream_ptr()), name)
+        _build.stream_ptr()), "fused_block_attention_ln")
     LAUNCHES["block_attention_ln"] += 1
     return out
+
+
+def _compose_block_attention_ln(*args):
+    return block_attention_ln_plain(*args, dispatch=True)
 
 
 # ---------------------------------------------------------------------- K1
@@ -283,9 +393,82 @@ def fused_window_attention_nhwc(qkv, bias, mask, ws: int, nh: int,
     _require(c3 % (3 * nh) == 0 and window_core_supported(ws * ws, hd),
              f"{name}: window of {ws * ws} tokens, head dim {hd}")
     _check_window_args(name, b, h, w, nh, ws, bias, mask, 0)
-    out = _window_core(qkv, bias, mask, ws, nh, scale, 0, name)
-    LAUNCHES["window_attention"] += 1
-    return out
+    return _WindowAttention.apply(qkv, bias, mask, ws, nh, scale)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """K1 forward, K9 backward, on the residuals (qkv, bias, mask)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, ws, nh, scale):
+        ctx.consts = (ws, nh, scale)
+        ctx.save_for_backward(qkv, bias, mask)
+        out = _window_core(qkv, bias, mask, ws, nh, scale, 0,
+                           "fused_window_attention_nhwc")
+        LAUNCHES["window_attention"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        qkv, bias, mask = ctx.saved_tensors
+        dqkv, dbias = window_attention_bwd(qkv, bias, mask, *ctx.consts, gy)
+        return dqkv, dbias, None, None, None, None
+
+
+# ---------------------------------------------------------------------- K9
+
+BWD_GROUPS = 128    # CTAs (and dbias partials) per head in K9
+
+
+def window_attention_bwd(qkv, bias, mask, ws: int, nh: int, scale: float, gy):
+    """Backward of the windowed attention core: (dqkv, dbias).
+
+    Replaces `sodt_tpu/pallas/window_attention.py`
+    `_pallas_attention_nhwc_bwd` (l.836, body `_bwd_strip_kernel` l.761,
+    `_unpack_dbias` l.824). qkv (B, H, W, 3C) bf16 and bias / mask as K1
+    saved them; gy (B, H, W, C) bf16, made contiguous here (autograd may
+    hand over a view). Returns dqkv (B, H, W, 3C) bf16 and dbias
+    (nh, N, N) f32, summed over the batch and the windows.
+
+    On the H100 it is bound by its shared-memory round trips, as K1 is
+    (7*C*2 bytes per token against five N x N x hd products per window and
+    head). Design (csrc/window_attention_bwd.cu): one CTA per (head, group
+    of windows); a warp takes 16 query rows for the row statistics, dS and
+    dQ, then 16 key rows for dV and dK from recomputed transposed score
+    strips, so no product needs a reduction across warps. dbias is summed
+    in two deterministic passes (a partial per group, each address owned by
+    one thread, then a reduction in group order): no f32 atomics, at the
+    price of min(B * nW, 128) * nh * N * N floats of scratch. The f32
+    scores are scaled by the unrounded `scale` (the Pallas backward does
+    not pre-scale q in bf16 as its forward does).
+    """
+    if not qkv.is_cuda:
+        return attention_nhwc_bwd_plain(qkv, bias, mask, ws, nh, scale, gy)
+    name = "window_attention_bwd"
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // nh
+    n = ws * ws
+    gy = gy.contiguous()
+    _check_cuda(name, torch.bfloat16, qkv=qkv, gy=gy)
+    _check_cuda(name, torch.float32, bias=bias, mask=mask)
+    _require(c3 % (3 * nh) == 0 and window_core_supported(n, hd),
+             f"{name}: window of {n} tokens, head dim {hd}")
+    _require(tuple(gy.shape) == (b, h, w, c), f"{name}: gy shape")
+    _check_window_args(name, b, h, w, nh, ws, bias, mask, 0)
+    groups = min(b * (h // ws) * (w // ws), BWD_GROUPS)
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((groups, nh, n, n), dtype=torch.float32,
+                       device=qkv.device)
+    dbias = torch.empty((nh, n, n), dtype=torch.float32, device=qkv.device)
+    _build.check(_build.library().sodt_window_attention_bwd(
+        qkv.data_ptr(), gy.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
+        part.data_ptr(), dbias.data_ptr(), b, h, w, c, nh, ws,
+        int(mask is not None), float(scale), groups, _build.stream_ptr()),
+        name)
+    LAUNCHES["window_attention_bwd"] += 1
+    return dqkv, dbias
 
 
 # ---------------------------------------------------------------------- K8
@@ -313,10 +496,15 @@ def fused_global_attention(qkv, bias, nh: int, scale: float,
     """
     if not qkv.is_cuda:
         return global_attention_plain(qkv, bias, nh, scale, ws, mask)
-    name = "fused_global_attention"
+    ws = ws or qkv.shape[1]
+    _check_global_args("fused_global_attention", qkv, bias, mask, nh, ws)
+    return _GlobalAttention.apply(qkv, bias, mask, nh, scale, ws)
+
+
+def _check_global_args(name, qkv, bias, mask, nh, ws):
+    """The domain K8 and K10 share."""
     b, h, w, c3 = qkv.shape
     c = c3 // 3
-    ws = ws or h
     hd = c // nh
     _check_cuda(name, torch.bfloat16, qkv=qkv)
     _check_cuda(name, torch.float32, bias=bias, mask=mask)
@@ -327,17 +515,83 @@ def fused_global_attention(qkv, bias, nh: int, scale: float,
     _check_window_args(name, b, h, w, nh, ws, bias, mask, 0)
     _require(b * (h // ws) * (w // ws) * nh <= 65535,
              f"{name}: too many (window, head) pairs")
-    out = torch.empty(qkv.shape[:-1] + (c,), dtype=qkv.dtype,
-                      device=qkv.device)
-    lib = _build.library()
-    scale_dt = float(torch.tensor(scale, dtype=qkv.dtype))
-    _build.check(lib.sodt_global_attention(
-        qkv.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), b, h, w,
-        c, nh, ws, int(mask is not None), scale_dt, _build.stream_ptr()),
-        name)
-    LAUNCHES["global_attention"] += 1
-    return out
+
+
+class _GlobalAttention(torch.autograd.Function):
+    """K8 forward, K10 backward, on the residuals (qkv, bias, mask)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, nh, scale, ws):
+        ctx.consts = (nh, scale, ws)
+        ctx.save_for_backward(qkv, bias, mask)
+        b, h, w, c3 = qkv.shape
+        out = torch.empty(qkv.shape[:-1] + (c3 // 3,), dtype=qkv.dtype,
+                          device=qkv.device)
+        scale_dt = float(torch.tensor(scale, dtype=qkv.dtype))
+        _build.check(_build.library().sodt_global_attention(
+            qkv.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), b, h,
+            w, c3 // 3, nh, ws, int(mask is not None), scale_dt,
+            _build.stream_ptr()), "fused_global_attention")
+        LAUNCHES["global_attention"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        qkv, bias, mask = ctx.saved_tensors
+        nh, scale, ws = ctx.consts
+        dqkv, dbias = global_attention_bwd(qkv, bias, nh, scale, gy, ws, mask)
+        return dqkv, dbias, None, None, None, None
+
+
+# --------------------------------------------------------------------- K10
+
+def global_attention_bwd(qkv, bias, nh: int, scale: float, gy,
+                         ws: int | None = None, mask=None):
+    """Backward of K8: (dqkv, dbias), over the whole domain K8 takes (one
+    window, or several ws x ws windows with an optional mask).
+
+    Replaces `sodt_tpu/pallas/window_attention.py`
+    `_pallas_global_attention_bwd` (l.1071, bodies
+    `_global_bwd_dqkv_kernel` l.1023 and `_global_bwd_dbias_kernel` l.1053).
+    qkv (B, H, W, 3C) bf16, gy (B, H, W, C) bf16 (made contiguous here) ->
+    dqkv bf16 and dbias (nh, N, N) f32 summed over batch and windows.
+
+    On the H100 the bound is bytes at small batch: the f32 bias read and
+    the f32 dbias written are 50 MB each at N = 1024, nh = 12. Design
+    (csrc/global_attention_bwd.cu): K8 keeps no log-sum-exp, so the first
+    kernel recomputes the row max and sum, together with
+    delta = rowsum(dP * P), in one online pass over the key blocks; its
+    second pass forms dS per 64 x 64 tile, accumulates dQ in shared memory
+    and adds dS into dbias. A CTA owns 64 query rows of one head and walks
+    the batch in order, so every dbias address has one owner: written
+    without atomics, deterministic. The second kernel owns 64 key rows of
+    one (window, head), loops over the query blocks and accumulates dK and
+    dV in f32 in shared memory, rounded to bf16 once.
+    """
+    if not qkv.is_cuda:
+        return global_attention_bwd_plain(qkv, bias, nh, scale, gy, ws, mask)
+    name = "global_attention_bwd"
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    ws = ws or h
+    n = ws * ws
+    gy = gy.contiguous()
+    _check_global_args(name, qkv, bias, mask, nh, ws)
+    _check_cuda(name, torch.bfloat16, gy=gy)
+    _require(tuple(gy.shape) == (b, h, w, c), f"{name}: gy shape")
+    total = b * (h // ws) * (w // ws)
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((nh, n, n), dtype=torch.float32, device=qkv.device)
+    stats = torch.empty((2, total, nh, n), dtype=torch.float32,
+                        device=qkv.device)
+    _build.check(_build.library().sodt_global_attention_bwd(
+        qkv.data_ptr(), gy.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
+        dbias.data_ptr(), stats.data_ptr(), b, h, w, c, nh, ws,
+        int(mask is not None), float(scale), _build.stream_ptr()), name)
+    LAUNCHES["global_attention_bwd"] += 1
+    return dqkv, dbias
 
 
 # ---------------------------------------------------------------- dispatch

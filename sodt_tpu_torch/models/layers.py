@@ -1,7 +1,8 @@
 """The YOLO head's building blocks on the main path
 (`sodt_tpu/models/layers.py`): ConvBnAct, Bottleneck, C3, Upsample,
-Concat. NHWC; BatchNorm in eval mode with running stats, eps 1e-3,
-normalized in f32 as flax does; SiLU in the working dtype."""
+Concat. NHWC; BatchNorm with eps 1e-3, normalized in f32 as flax does
+(running statistics in eval mode, batch statistics and the momentum-0.97
+running update in training mode); SiLU in the working dtype."""
 
 from __future__ import annotations
 
@@ -16,21 +17,35 @@ def silu(x):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm: (x - mean) * (rsqrt(var + eps) * weight) + bias,
-    in f32, cast to the input dtype (flax `_normalize`)."""
+    """(x - mean) * (rsqrt(var + eps) * weight) + bias, in f32, cast to the
+    input dtype (flax `_normalize`). In eval mode mean and var are the
+    running statistics. In training mode (`module.train()`, the JAX
+    package's `train=True`) they are the batch statistics over (B, H, W) in
+    f32, var = max(0, E[x^2] - E[x]^2) (flax's fast variance, biased), and
+    running <- momentum * running + (1 - momentum) * batch with that same
+    biased variance (flax `momentum=0.97`; torch's BatchNorm2d would store
+    the unbiased estimate)."""
 
-    def __init__(self, c: int, eps: float = 1e-3):
+    def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.97):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x):
-        y = x.float() - self.running_mean
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (y * mul + self.bias).to(x.dtype)
+        x32 = x.float()
+        mean, var = self.running_mean, self.running_var
+        if self.training:
+            mean = x32.mean(dim=(0, 1, 2))
+            var = ((x32 * x32).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():   # in place: the buffers are the state
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+                self.running_var.mul_(m).add_(var, alpha=1 - m)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x32 - mean) * mul + self.bias).to(x.dtype)
 
 
 class ConvBnAct(nn.Module):

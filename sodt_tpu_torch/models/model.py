@@ -5,6 +5,11 @@ and Detect. Parameters stay f32; `dtype` is the compute dtype every layer
 casts its input and weights to, as the flax modules' `dtype` does.
 Submodule names mirror the flax tree (`l0` = the encoder, `l3`.. = head
 layers, `detect`), so the weight bridge is a name map.
+
+The JAX package's `train` argument is the module's mode here:
+`model.train()` makes every BatchNorm use and update batch statistics,
+`model.eval()` the running ones. Either way the forward returns the raw
+Detect maps; decoding belongs to the eval step.
 """
 
 from __future__ import annotations

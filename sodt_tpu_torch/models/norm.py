@@ -3,6 +3,8 @@
 Statistics in f32 as var = E[x^2] - mu^2, eps 1e-5, result cast back to
 the input dtype (`sodt_tpu/pallas/layernorm.py` `_reference_ln`). Parameter
 names follow torch ("weight", "bias"); the weight bridge maps flax "scale".
+Both modules go through `kernels.layernorm`, which launches K13 for a bf16
+tensor on the card and takes the plain version elsewhere.
 """
 
 from __future__ import annotations
@@ -10,14 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = (x32 * x32).mean(dim=-1, keepdim=True) - mu * mu
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+from ..kernels.layernorm import layernorm as layer_norm, add_layernorm
 
 
 class LayerNorm(nn.Module):
@@ -35,5 +30,4 @@ class AddLayerNorm(LayerNorm):
     """Residual + LN: (a, b) -> (a + b, LN(a + b))."""
 
     def forward(self, a, b):
-        s = a + b
-        return s, layer_norm(s, self.weight, self.bias, self.eps)
+        return add_layernorm(a, b, self.weight, self.bias, self.eps)

@@ -105,6 +105,12 @@ class Conv(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+def _param_key(params) -> tuple:
+    """Identity and in-place version of each parameter: an optimizer step,
+    a `load_state_dict` or a device move changes it."""
+    return tuple((id(p), p._version, p.device) for p in params)
+
+
 class WindowAttention(nn.Module):
     """W-MSA with relative position bias; parameters (torch layout):
     relative_position_bias_table ((2ws-1)^2, nh), qkv (3C, C), proj (C, C)."""
@@ -120,6 +126,7 @@ class WindowAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.register_buffer("bias_cache", None, persistent=False)
+        self._bias_key = None
 
     def materialize_bias(self) -> torch.Tensor:
         n = self.window_size ** 2
@@ -128,12 +135,17 @@ class WindowAttention(nn.Module):
 
     def cache_bias(self) -> None:
         """Materialize the (nh, N, N) bias once per weight load (the
-        JAX package's evaluate.cache_rel_bias); every later call reads it."""
+        JAX package's evaluate.cache_rel_bias). It is read only while
+        gradients are off and the table has not changed since (see
+        `SwinBlock.kernel_weights` for the rule)."""
         with torch.no_grad():
             self.bias_cache = self.materialize_bias().contiguous()
+        self._bias_key = _param_key([self.relative_position_bias_table])
 
     def rel_bias(self) -> torch.Tensor:
-        if self.bias_cache is not None:
+        if (self.bias_cache is not None and not torch.is_grad_enabled()
+                and self._bias_key == _param_key(
+                    [self.relative_position_bias_table])):
             return self.bias_cache
         return self.materialize_bias().contiguous()
 
@@ -190,37 +202,56 @@ class SwinBlock(nn.Module):
     def forward(self, x):
         return swin_block_forward(self, x)
 
-    def _build_kernel_weights(self, dt: torch.dtype) -> dict:
+    def _kernel_params(self) -> list:
         at, mlp = self.attn, self.mlp
-        with torch.no_grad():
-            cast = lambda p: p.detach().to(dt).contiguous()
-            f32 = lambda p: p.detach().float().contiguous()
-            kw = dict(dtype=dt, device=at.qkv.weight.device,
-                      ln1w=f32(self.norm1.weight), ln1b=f32(self.norm1.bias),
-                      ln2w=f32(self.norm2.weight), ln2b=f32(self.norm2.bias),
-                      wqkv=cast(at.qkv.weight), bqkv=cast(at.qkv.bias),
-                      wp=cast(at.proj.weight), bp=cast(at.proj.bias),
-                      w1=cast(mlp.fc1.weight), b1=cast(mlp.fc1.bias),
-                      w2=cast(mlp.fc2.weight), b2=cast(mlp.fc2.bias))
-            if not self.linear_mlp:
-                kw["wc"] = cast(ksb.conv_taps(mlp.conv1.weight))
-                kw["bc"] = cast(mlp.conv1.bias)
+        ps = [self.norm1.weight, self.norm1.bias, self.norm2.weight,
+              self.norm2.bias, at.qkv.weight, at.qkv.bias, at.proj.weight,
+              at.proj.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+              mlp.fc2.bias]
+        if not self.linear_mlp:
+            ps += [mlp.conv1.weight, mlp.conv1.bias]
+        return ps
+
+    def _build_kernel_weights(self, dt: torch.dtype) -> dict:
+        """The kernels' weights: dtype dt, LN affines f32, the conv as
+        `conv_taps`. The casts are differentiable ops on the f32 master
+        parameters (flax's `.astype(dt)`): under grad mode a gradient
+        through a kernel lands on the parameter in f32."""
+        at, mlp = self.attn, self.mlp
+        cast = lambda p: p.to(dt).contiguous()
+        f32 = lambda p: p.float().contiguous()
+        kw = dict(ln1w=f32(self.norm1.weight), ln1b=f32(self.norm1.bias),
+                  ln2w=f32(self.norm2.weight), ln2b=f32(self.norm2.bias),
+                  wqkv=cast(at.qkv.weight), bqkv=cast(at.qkv.bias),
+                  wp=cast(at.proj.weight), bp=cast(at.proj.bias),
+                  w1=cast(mlp.fc1.weight), b1=cast(mlp.fc1.bias),
+                  w2=cast(mlp.fc2.weight), b2=cast(mlp.fc2.bias))
+        if not self.linear_mlp:
+            kw["wc"] = cast(ksb.conv_taps(mlp.conv1.weight))
+            kw["bc"] = cast(mlp.conv1.bias)
         return kw
 
     def cache_kernel_weights(self, dt: torch.dtype = torch.bfloat16) -> None:
-        """Build the kernels' weights (dtype dt, the conv as
-        `conv_taps`) once per weight load, beside the rel-pos bias
-        (`train.evaluate.cache_rel_bias`); refresh after a load or a move."""
-        self._kernel_weights = self._build_kernel_weights(dt)
+        """Build the kernels' weights once per weight load, beside the
+        rel-pos bias (`train.evaluate.cache_rel_bias`), for inference."""
+        with torch.no_grad():
+            kw = self._build_kernel_weights(dt)
+        kw["dtype"], kw["key"] = dt, _param_key(self._kernel_params())
+        self._kernel_weights = kw
 
     def kernel_weights(self, dt: torch.dtype) -> dict:
-        """The cached kernel weights when they match dt and the device,
-        else a set built for this call."""
+        """One rule for both caches (this one and `attn.bias_cache`): a
+        cache is read only while gradients are off (`torch.no_grad()`) and
+        no source parameter was modified, replaced or moved since it was
+        built. Under grad mode the casts and the bias
+        gather are part of the graph, so no stale or detached copy is ever
+        differentiated."""
         kw = self._kernel_weights
-        if (kw is None or kw["dtype"] != dt
-                or kw["device"] != self.attn.qkv.weight.device):
-            kw = self._build_kernel_weights(dt)
-        return kw
+        if (kw is not None and not torch.is_grad_enabled()
+                and kw["dtype"] == dt
+                and kw["key"] == _param_key(self._kernel_params())):
+            return kw
+        return self._build_kernel_weights(dt)
 
 
 def split_block(blk: SwinBlock, x: torch.Tensor, mask, shift: int):

@@ -1,7 +1,9 @@
-"""Box geometry used by NMS and eval (`sodt_tpu/ops/boxes.py`): the same
-formulas, so that NMS sees bit-identical IoUs on the CPU."""
+"""Box geometry used by NMS, eval and the loss (`sodt_tpu/ops/boxes.py`):
+the same formulas, so that NMS sees bit-identical IoUs on the CPU."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -37,3 +39,52 @@ def box_iou(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
     wh = (rb - lt).clamp(min=0)
     inter = wh[..., 0] * wh[..., 1]
     return inter / (area1[..., :, None] + area2[..., None, :] - inter)
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, *, xyxy: bool = True,
+             giou: bool = False, diou: bool = False, ciou: bool = False,
+             eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise IoU / GIoU / DIoU / CIoU of broadcastable (..., 4) boxes
+    -> (...). As in the JAX package: eps goes on the heights only when the
+    union is formed, the CIoU aspect term uses atan, and its alpha is held
+    out of the gradient."""
+    if xyxy:
+        b1_x1, b1_y1, b1_x2, b1_y2 = (box1[..., i] for i in range(4))
+        b2_x1, b2_y1, b2_x2, b2_y2 = (box2[..., i] for i in range(4))
+    else:
+        b1_x1 = box1[..., 0] - box1[..., 2] / 2
+        b1_x2 = box1[..., 0] + box1[..., 2] / 2
+        b1_y1 = box1[..., 1] - box1[..., 3] / 2
+        b1_y2 = box1[..., 1] + box1[..., 3] / 2
+        b2_x1 = box2[..., 0] - box2[..., 2] / 2
+        b2_x2 = box2[..., 0] + box2[..., 2] / 2
+        b2_y1 = box2[..., 1] - box2[..., 3] / 2
+        b2_y2 = box2[..., 1] + box2[..., 3] / 2
+
+    inter_w = (torch.minimum(b1_x2, b2_x2)
+               - torch.maximum(b1_x1, b2_x1)).clamp(min=0)
+    inter_h = (torch.minimum(b1_y2, b2_y2)
+               - torch.maximum(b1_y1, b2_y1)).clamp(min=0)
+    inter = inter_w * inter_h
+
+    w1, h1 = b1_x2 - b1_x1, b1_y2 - b1_y1 + eps
+    w2, h2 = b2_x2 - b2_x1, b2_y2 - b2_y1 + eps
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not (giou or diou or ciou):
+        return iou
+
+    cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)
+    ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)
+    if ciou or diou:
+        c2 = cw ** 2 + ch ** 2 + eps
+        rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2
+                + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
+        if diou:
+            return iou - rho2 / c2
+        v = (4 / math.pi ** 2) * (torch.atan(w2 / h2)
+                                  - torch.atan(w1 / h1)) ** 2
+        alpha = (v / (v - iou + (1 + eps))).detach()
+        return iou - (rho2 / c2 + v * alpha)
+    c_area = cw * ch + eps
+    return iou - (c_area - union) / c_area

@@ -1,0 +1,103 @@
+"""TrainState and the train step (`sodt_tpu/train/state.py`).
+
+The JAX package's step is a pure function over an immutable pytree. Here
+the parameters and BatchNorm statistics live in the model, and the step
+updates the model, the optimizer state and the EMA copy IN PLACE; it
+returns the same `TrainState` object for symmetry with the JAX signature:
+
+  forward in training mode (batch BN statistics, running stats updated)
+  -> detection loss -> gradients (f32, on the f32 master parameters)
+  -> optimizer update (schedules are functions of the optimizer step)
+  -> EMA of parameters and BN statistics, only on steps where the
+     optimizer fired.
+
+No GradScaler: bf16 keeps the f32 exponent range. The epoch scan of the
+JAX package (`make_epoch_scan`, one dispatch per epoch) is a plain Python
+loop over `train_step` here: PyTorch runs eagerly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from .loss import LossConfig, compute_loss
+from .optim import Optimizer, ema_update
+
+
+def ema_tensors(model: nn.Module) -> dict:
+    """What the EMA tracks: every parameter and every persistent buffer
+    (the BatchNorm running statistics), name -> tensor."""
+    out = dict(model.named_parameters())
+    out.update({k: v for k, v in model.state_dict(keep_vars=True).items()
+                if k not in out})
+    return out
+
+
+@dataclass
+class TrainState:
+    model: nn.Module                 # parameters + BN statistics
+    tx: Optimizer                    # optimizer state
+    ema: dict                        # EMA of parameters and BN statistics
+    step: int = 0                    # data iterations taken
+    ema_updates: int = 0             # EMA update counter
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: Optimizer) -> "TrainState":
+        ema = {k: v.detach().clone() for k, v in ema_tensors(model).items()}
+        return cls(model=model, tx=tx, ema=ema)
+
+
+def make_train_step(model: nn.Module, tx: Optimizer, loss_cfg: LossConfig, *,
+                    sr: bool = False, down_factor: int = 1,
+                    freeze: tuple = (), on_grads=None):
+    """Build `train_step(state, batch) -> (state, metrics)`.
+
+    batch: dict of tensors on the model's device: img, ir (B, H, W, 3)
+    float in [0, 1]; targets (B, M, 5) [cls, cx, cy, w, h] normalized;
+    tmask (B, M) bool. metrics: loss, box, obj, cls (0-d tensors).
+
+    `freeze`: substrings of parameter names (`l0.stage1_0.attn.qkv.weight`);
+    a matching parameter gets zero gradients AND zero updates, so neither
+    the gradient step nor the weight decay moves it.
+
+    Gradient accumulation is the optimizer's (`make_optimizer(...,
+    accumulate=n)`): `tx.just_stepped` says whether its gate fired.
+    `on_grads(grads)` is called with the step's gradients (name -> f32
+    tensor, frozen ones zeroed) before the update; the step keeps no
+    reference to them."""
+    if sr or down_factor != 1:
+        raise NotImplementedError(
+            "the SR branch and its L1 loss (--super): ROADMAP.md Queue 1 "
+            "item 10")
+    params = dict(model.named_parameters())
+    frozen = {k for k in params if any(f in k for f in freeze)}
+
+    def train_step(state: TrainState, batch: dict):
+        model.train()
+        out = model(batch["img"], batch.get("ir"))
+        total, parts = compute_loss(out["raw"], batch["targets"],
+                                    batch["tmask"], loss_cfg)
+        names = list(params)
+        gs = torch.autograd.grad(total, [params[k] for k in names])
+        grads = {k: (torch.zeros_like(g) if k in frozen else g)
+                 for k, g in zip(names, gs)}
+        if on_grads is not None:
+            on_grads(grads)
+        updates = tx.update(grads, params)
+        with torch.no_grad():
+            if updates is not None:
+                for k, u in updates.items():
+                    if k not in frozen:
+                        params[k].add_(u)
+            if tx.just_stepped:
+                state.ema_updates += 1
+                ema_update(state.ema, ema_tensors(model), state.ema_updates)
+        state.step += 1
+        metrics = {"loss": total.detach(),
+                   **{k: v.detach() for k, v in parts.items()}}
+        return state, metrics
+
+    return train_step

@@ -12,6 +12,11 @@ package's module names, which mirror the flax tree:
   PatchMerging reduction (4C, 2C) -> stride-2 conv OIHW, rows taken in the
                                      reference order (row block p = 2*dw+dh)
   neck1 (1, 1, 2C, out)           -> neck1.a / neck1.b Linear halves
+
+The mapping is linear per leaf (a transpose, a reshape or a slice), so it
+carries any tree of that structure: `from_jax_tree` takes a JAX gradient
+tree or the EMA copy (`ema_params`, `ema_batch_stats`) onto the port's
+names, and `batch_to_torch` takes a padded JAX batch onto a device.
 """
 
 from __future__ import annotations
@@ -63,6 +68,34 @@ def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
         sd[".".join(parts[:-1] + [leaf])] = v
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def from_jax_tree(params: dict, batch_stats: dict | None = None
+                  ) -> dict[str, torch.Tensor]:
+    """A tree shaped like the flax "params" (gradients, optimizer moments,
+    the EMA parameters), with an optional tree shaped like "batch_stats"
+    (the EMA statistics), onto the port's parameter / buffer names."""
+    tree = {"params": params}
+    if batch_stats is not None:
+        tree["batch_stats"] = batch_stats
+    return from_jax_variables(tree)
+
+
+def batch_to_torch(batch: dict, device="cpu") -> dict[str, torch.Tensor]:
+    """A padded batch of numpy arrays as both packages' train steps take
+    it (img, ir (B, H, W, 3) float in [0, 1], or uint8, scaled here by
+    1/255 on the device; targets (B, M, 5) f32; tmask (B, M) bool) ->
+    tensors on `device`."""
+    out = {}
+    for k in ("img", "ir"):
+        if batch.get(k) is not None:
+            x = torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
+            out[k] = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+    out["targets"] = torch.from_numpy(
+        np.asarray(batch["targets"], np.float32)).to(device)
+    out["tmask"] = torch.from_numpy(
+        np.asarray(batch["tmask"], bool)).to(device)
+    return out
 
 
 def save_npz(state_dict: dict, path) -> None:

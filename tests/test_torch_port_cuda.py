@@ -174,7 +174,11 @@ def test_wrappers_raise_on_cuda_f32(card):
 
 MAIN = {"swin_block": 3, "block_attention_ln": 3, "conv_mlp_tail": 3,
         "block_attention": 4, "mlp_tail": 2, "conv_mlp_tail_noln": 2,
-        "window_attention": 0, "global_attention": 1}
+        "window_attention": 0, "global_attention": 1,
+        "window_attention_bwd": 0, "global_attention_bwd": 0,
+        # K13: the four cross-channel LNs, stage 2's four LN1, stage 3's
+        # LN1, two PatchMergings; add+LN2 of stage 2's blocks and stage 3's
+        "layernorm": 11, "add_layernorm": 5}
 # 608 px: stage 2's 76x76 map is no window multiple, so its four blocks
 # take the generic path (K1 core); stage 3's 38x38 map pads to 64x64, four
 # 32x32 windows for K8
@@ -209,3 +213,204 @@ def test_flagship_forward_dispatch(card, img, counts):
     a, b = raws[BF], raws[torch.float32]
     assert torch.isfinite(a).all()
     assert ((a - b).norm() / b.norm()).item() < TOL
+
+
+# ------------------------------------------------- training kernels (K9-K13)
+#
+# Tolerances. dq/dk/dv are bf16 outputs of products whose P and dS operands
+# the kernels round to bf16: TOL (2e-2 of max |ref|) as for the forward
+# kernels. dbias is an f32 sum of dS over up to thousands of windows, each
+# term computed from exact bf16 inputs in f32: only the summation order and
+# expf differ from the f32 plain version, DBIAS_TOL = 1e-3 of max |ref|.
+DBIAS_TOL = 1e-3
+
+
+@pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 16, 32, 2, 8), (2, 128, 192, 12, 8),
+                                          (2, 64, 384, 12, 8), (4, 128, 192, 12, 8),
+                                          (1, 32, 256, 4, 16), (3, 8, 64, 2, 4)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_bwd_kernel(card, b, hw, c, nh, ws, masked):
+    """K9 at head dims 16, 32 and 64, windows of 16, 64 and 256 tokens, and
+    more windows than dbias groups (4 x 256 windows)."""
+    n = ws * ws
+    qkv = _rnd((b, hw, hw, 3 * c), 40).to(BF)
+    gy = _rnd((b, hw, hw, c), 41).to(BF)
+    bias = _rnd((nh, n, n), 42)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, ws // 4)).cuda()
+            if masked else None)
+    scale = (c // nh) ** -0.5
+    dqkv, dbias = wa.window_attention_bwd(qkv, bias, mask, ws, nh, scale, gy)
+    rq, rb = wa.attention_nhwc_bwd_plain(qkv.float(), bias, mask, ws, nh,
+                                         scale, gy.float())
+    torch.cuda.synchronize()
+    assert dqkv.dtype == BF and dbias.dtype == torch.float32
+    for k in range(3):      # dq, dk, dv separately: their scales differ
+        assert _rel(dqkv[..., k * c:(k + 1) * c], rq[..., k * c:(k + 1) * c]) < TOL
+    assert _rel(dbias, rb) < DBIAS_TOL
+    # deterministic: no atomics
+    d2, b2 = wa.window_attention_bwd(qkv, bias, mask, ws, nh, scale, gy)
+    assert torch.equal(d2, dqkv) and torch.equal(b2, dbias)
+
+
+@pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 8, 64, 4, 8), (2, 32, 768, 12, 32),
+                                          (4, 32, 768, 12, 32),
+                                          (1, 64, 768, 12, 32)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_global_attention_bwd_kernel(card, b, hw, c, nh, ws, masked):
+    """K10 at one 64-token window, one 1024-token window (batch 2 and 4)
+    and four 1024-token windows with a shift mask."""
+    n = ws * ws
+    qkv = _rnd((b, hw, hw, 3 * c), 43).to(BF)
+    gy = _rnd((b, hw, hw, c), 44).to(BF)
+    bias = _rnd((nh, n, n), 45)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, 2)).cuda()
+            if masked and hw > ws else None)
+    scale = (c // nh) ** -0.5
+    dqkv, dbias = wa.global_attention_bwd(qkv, bias, nh, scale, gy, ws, mask)
+    rq, rb = wa.global_attention_bwd_plain(qkv.float(), bias, nh, scale,
+                                           gy.float(), ws, mask)
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert _rel(dqkv[..., k * c:(k + 1) * c], rq[..., k * c:(k + 1) * c]) < TOL
+    assert _rel(dbias, rb) < DBIAS_TOL
+    d2, b2 = wa.global_attention_bwd(qkv, bias, nh, scale, gy, ws, mask)
+    assert torch.equal(d2, dqkv) and torch.equal(b2, dbias)
+
+
+@pytest.mark.parametrize("kind", ["window", "global"])
+def test_attention_functions_grad(card, kind):
+    """torch.autograd.grad through K1 -> K9 and K8 -> K10 (with a
+    non-contiguous cotangent) against autograd of the f32 plain version."""
+    if kind == "window":
+        b, hw, c, nh, ws = 2, 64, 384, 12, 8
+    else:
+        b, hw, c, nh, ws = 2, 32, 768, 12, 32
+    n = ws * ws
+    qkv = _rnd((b, hw, hw, 3 * c), 46).to(BF).requires_grad_()
+    bias = _rnd((nh, n, n), 47).requires_grad_()
+    gy = _rnd((b, hw, c, hw), 48).to(BF).transpose(2, 3)   # a view
+    scale = (c // nh) ** -0.5
+    kernels.reset_launches()
+    if kind == "window":
+        out = wa.fused_window_attention_nhwc(qkv, bias, None, ws, nh, scale)
+    else:
+        out = wa.fused_global_attention(qkv, bias, nh, scale)
+    dq, db = torch.autograd.grad(out, [qkv, bias], gy)
+    q32 = qkv.detach().float().requires_grad_()
+    b32 = bias.detach().clone().requires_grad_()
+    ref = wa.reference_attention_nhwc(q32, b32, None, ws, nh, scale)
+    rq, rb = torch.autograd.grad(ref, [q32, b32], gy.float())
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    fwd, bwd = (("window_attention", "window_attention_bwd") if kind == "window"
+                else ("global_attention", "global_attention_bwd"))
+    assert counts[fwd] == 1 and counts[bwd] == 1
+    # the plain forward scales q in the working dtype first, the backward
+    # kernels scale the f32 scores (as the Pallas pair does): same TOL
+    assert _rel(dq, rq) < TOL and _rel(db, rb) < 5e-3
+
+
+@pytest.mark.parametrize("r,c", [(64, 48), (2 * 64 * 64, 384), (1000, 192),
+                                 (2 * 32 * 32, 768), (9, 1024)])
+def test_layernorm_kernels(card, r, c):
+    """K13 forward (LN and add+LN) and its backward against the plain
+    versions; rows that do not fill the last CTA."""
+    from sodt_tpu_torch.kernels import layernorm as kln
+    x = _rnd((r, c), 50).to(BF).requires_grad_()
+    y2 = _rnd((r, c), 51).to(BF).requires_grad_()
+    w = (1 + _rnd((c,), 52, 0.1)).requires_grad_()
+    bb = _rnd((c,), 53, 0.1).requires_grad_()
+    g = _rnd((r, c), 54).to(BF)
+    kernels.reset_launches()
+    out = kln.layernorm(x, w, bb)
+    ref = kln.layernorm_plain(x.detach().float(), w.detach(), bb.detach())
+    assert _rel(out, ref) < TOL
+    s, ln = kln.add_layernorm(x, y2, w, bb)
+    rs, rln = kln.add_layernorm_plain(x.detach(), y2.detach(), w.detach(),
+                                      bb.detach())
+    assert torch.equal(s, rs)        # the bf16 add is exact to the last bit
+    assert _rel(ln, rln) < TOL
+    assert kernels.launches()["layernorm"] == 1
+    assert kernels.launches()["add_layernorm"] == 1
+    grads = torch.autograd.grad([s, ln], [x, y2, w, bb], [g, g])
+    xs = [t.detach().float().requires_grad_() for t in (x, y2, w, bb)]
+    rs, rln = kln.add_layernorm_plain(*xs)
+    refs = torch.autograd.grad([rs, rln], xs, [g.float(), g.float()])
+    torch.cuda.synchronize()
+    for a, bref in zip(grads, refs):
+        assert _rel(a, bref) < TOL
+    with pytest.raises(ValueError, match="C=20"):
+        kln.layernorm(_rnd((4, 20), 55).to(BF), torch.ones(20).cuda(),
+                      torch.zeros(20).cuda())
+    # f32 on the card takes the plain version (JAX's bf16 gate)
+    kernels.reset_launches()
+    kln.layernorm(x.detach().float(), w.detach(), bb.detach())
+    assert kernels.launches()["layernorm"] == 0
+
+
+def test_fused_wrappers_replay_grad(card):
+    """Each of K2-K7 as an autograd function on the card: gradients of the
+    replayed composition against autograd of the f32 plain version."""
+    b, hw, ws = 2, 32, 8
+    for c, nh in ((192, 12), (384, 12)):
+        wt = _block_weights(c, 60)
+        x = _rnd((b, hw, hw, c), 61).to(BF)
+        a = _rnd((b, hw, hw, c), 62).to(BF)
+        g = _rnd((b, hw, hw, c), 63).to(BF)
+        bias = _rnd((nh, 64, 64), 64)
+        scale = (c // nh) ** -0.5
+        for shift in (0, 2):
+            mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
+                    if shift else None)
+            cases = [
+                (wa.fused_block_attention, wa.block_attention_plain,
+                 [x, *wt["att"], bias], (mask, ws, nh, scale, shift)),
+                (sb.fused_mlp_tail, sb.mlp_tail_plain, [x, a, *wt["lin"]], ()),
+                (sb.fused_conv_mlp_tail_noln, sb.conv_mlp_tail_noln_plain,
+                 [x, a, *wt["conv"]], ())]
+            if c <= 256:
+                cases += [
+                    (sb.fused_swin_block, sb.swin_block_plain,
+                     [x, *wt["ln1"], *wt["att"], *wt["ln2"], *wt["lin"], bias],
+                     (mask, ws, nh, scale, shift)),
+                    (wa.fused_block_attention_ln, wa.block_attention_ln_plain,
+                     [x, *wt["ln1"], *wt["att"], bias],
+                     (mask, ws, nh, scale, shift)),
+                    (sb.fused_conv_mlp_tail, sb.conv_mlp_tail_plain,
+                     [x, a, *wt["ln2"], *wt["conv"]], (shift,))]
+            for fn, plain, tensors, consts in cases:
+                leaves = [t.detach().requires_grad_() for t in tensors]
+                grads = torch.autograd.grad(fn(*leaves, *consts), leaves, g)
+                l32 = [t.detach().float().requires_grad_() for t in tensors]
+                refs = torch.autograd.grad(plain(*l32, *consts), l32, g.float())
+                torch.cuda.synchronize()
+                for i, (ga, gr) in enumerate(zip(grads, refs)):
+                    assert ga.dtype == tensors[i].dtype
+                    assert _rel(ga, gr) < 3e-2, (fn.__name__, c, shift, i)
+
+
+def test_flagship_backward_reaches_every_parameter(card):
+    """A backward through the bf16 flagship on the card leaves no trainable
+    parameter without a (finite, non-zero) gradient: no launcher cuts the
+    graph, and the caches of detached weights are not read under grad."""
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.weights import init_weights
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    m = build_model("configs/model.yaml", ch_in=4, dtype=BF)
+    m = cache_rel_bias(init_weights(m, 0).cuda().eval())   # stale caches
+    m.train()
+    x = torch.rand((2, 256, 256, 3), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    kernels.reset_launches()
+    out = m(x, x)["raw"][0]
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert counts["window_attention_bwd"] == 10
+    assert counts["global_attention_bwd"] == 1
+    assert counts["window_attention"] == 10 and counts["global_attention"] == 1
+    assert counts["layernorm"] == 23 and counts["add_layernorm"] == 5
+    for name, p in m.named_parameters():
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max() > 0, name

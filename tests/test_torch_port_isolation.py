@@ -20,11 +20,14 @@ def test_port_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(sodt_tpu_torch.__path__,
                                                   "sodt_tpu_torch.")]
     assert "sodt_tpu_torch.kernels.window_attention" in mods
+    for new in ("kernels.layernorm", "train.loss", "train.optim",
+                "train.state", "train.trainer", "train.cli", "train.__main__"):
+        assert f"sodt_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'sodt_tpu', 'orbax'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sodt_tpu'))\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
