@@ -14,10 +14,14 @@ the final ok line:
               dbias of K9 / K10: <= 1e-3), with the kernel's, the plain
               version's and (K1, K8, K9, K10, K13) the library call's time;
               K1 at the 608 px path's shape and at the four shapes of the
-              training step's replays; K9 / K10 also dq, dk and dv singly,
-              beside the error that the bf16 store alone would leave
-     autograd torch.autograd.grad through K1 -> K9 and K8 -> K10 against
-              autograd of the f32 plain version
+              training step's replays; K11 forward and backward at the
+              four stage shapes of the SwinV2 family, masked and unmasked,
+              and K13 at the five shapes that family gives it;
+              the backward kernels (K9, K10, K11) also dq, dk and dv
+              singly, beside the error that the bf16 store alone would
+              leave, and their dbias bit-equal over two runs
+     autograd torch.autograd.grad through K1 -> K9, K8 -> K10 and K11 ->
+              K11 backward against autograd of the f32 plain version
   4. main     `python -m sodt_tpu_torch.val --task val --synthetic
               --synthetic-n 4 --img-size 512 --batch-size 4` in-process
               (bf16, seeded weights), launch counts per forward K2 3, K3 3,
@@ -33,6 +37,15 @@ the final ok line:
               file with warmup_iters 4): finite losses, the launches of
               every step (PER_STEP), a non-zero gradient on every parameter
               at the first step, parameters that moved
+     swinv2   `python -m sodt_tpu_torch.val --cfg model_swinv2.yaml` at
+              512 px, batch 4, 4 images, weights from a seed with the
+              post-norm scales drawn too (at their zero init every V2 block
+              is the identity): K11 12 launches per forward, K13 31; raw
+              Detect maps bf16 vs f32 as on the main path
+     swinv2_train  `python -m sodt_tpu_torch.train --cfg model_swinv2.yaml`
+              on the same weights, 4 optimizer steps at batch 4: K11 12 +
+              12 and K13 31 per step, a non-zero gradient on every
+              parameter at the first step, parameters that moved
      grads    one training batch, two seeds: gradients (and raw Detect
               maps) of the bf16 kernel path vs the f32 plain path on the
               same weights
@@ -40,6 +53,8 @@ the final ok line:
               shape: device-busy and idle share, the top 40 kernels by
               device time
      profile_train  the same over one warm training step
+     profile_swinv2, profile_swinv2_train  the same two for the SwinV2
+              model
   6. the {"kernels": [...]} line, the card line, the ok line.
 
 Needs a CUDA card; exits 1 without one and 2 when the port is missing.
@@ -97,7 +112,9 @@ PER_FORWARD = {"window_attention": 0, "swin_block": 3,
                "block_attention_ln": 3, "conv_mlp_tail": 3,
                "block_attention": 4, "mlp_tail": 2, "conv_mlp_tail_noln": 2,
                "global_attention": 1, "window_attention_bwd": 0,
-               "global_attention_bwd": 0, "layernorm": 11, "add_layernorm": 5}
+               "global_attention_bwd": 0, "window_attention_tokens": 0,
+               "window_attention_tokens_bwd": 0, "layernorm": 11,
+               "add_layernorm": 5}
 # launches per training step (forward + backward). The backward of K2, K3
 # and K5 replays a composition whose core is K1 (10 windowed blocks: K1 10,
 # K9 10); K8's backward is K10, with no replay. K13 in the replays: K2's
@@ -114,6 +131,25 @@ OFF_ARGS = ["--task", "val", "--synthetic", "--synthetic-n", "4",
             "--img-size", "608", "--batch-size", "4"]
 OFF_FORWARD = dict(PER_FORWARD, window_attention=4, block_attention=0,
                    mlp_tail=0, conv_mlp_tail_noln=0)
+# the SwinV2 family at 512 px: every one of its 12 blocks (depths 2/2/6/2)
+# runs K11 on its pre-partitioned windows, forward and - in a training step
+# - backward. K13: the four LNs of the cross-channel block, the two
+# post-norms of each block, the three PatchMergings; its backward is plain
+# PyTorch, so a step launches no more of it than a forward
+V2_CFG = "model_swinv2.yaml"
+V2_ARGS = ["--cfg", V2_CFG, "--task", "val", "--synthetic", "--synthetic-n",
+           "4", "--img-size", "512", "--batch-size", "4"]
+V2_FORWARD = dict({k: 0 for k in PER_FORWARD}, window_attention_tokens=12,
+                  layernorm=31)
+V2_STEP = dict(V2_FORWARD, window_attention_tokens_bwd=12)
+V2_TRAIN_ARGS = ["--cfg", V2_CFG, "--synthetic", "--synthetic-n", "16",
+                 "--img-size", "512", "--batch-size", "4", "--nbs", "4",
+                 "--epochs", "1", "--notest"]
+V2_TRAIN_STEPS = 4
+# K11's shapes at 512 px: (windows per image, C, heads, blocks of each kind
+# - unshifted, and shifted with a mask - in a forward); N = 64, head dim 32
+V2_STAGES = ((256, 96, 3, 1), (64, 192, 6, 1), (16, 384, 12, 3),
+             (4, 768, 24, 1))
 # counter name -> (tag, source, TPU kernel it replaces, paths whose runs
 # count its launches: one entry of the kernels line for each, with the
 # times of that path's shapes)
@@ -150,8 +186,15 @@ TPU_KERNEL = {
                              "sodt_tpu_torch/csrc/global_attention_bwd.cu",
                              "sodt_tpu/pallas/window_attention.py:1023",
                              ("train",)),
+    "window_attention_tokens": (
+        "K11", "sodt_tpu_torch/csrc/window_attention_tokens.cu",
+        "sodt_tpu/pallas/window_attention.py:61", ("swinv2",)),
+    "window_attention_tokens_bwd": (
+        "K11", "sodt_tpu_torch/csrc/window_attention_tokens.cu",
+        "sodt_tpu/pallas/window_attention.py:206", ("swinv2_train",)),
     "layernorm": ("K13", "sodt_tpu_torch/csrc/layernorm.cu",
-                  "sodt_tpu/pallas/layernorm.py:67", ("train",)),
+                  "sodt_tpu/pallas/layernorm.py:67",
+                  ("train", "swinv2", "swinv2_train")),
     "add_layernorm": ("K13", "sodt_tpu_torch/csrc/layernorm.cu",
                       "sodt_tpu/pallas/layernorm.py:72", ("train",)),
 }
@@ -203,7 +246,8 @@ def _cast(args, dt):
 
 def kernel_cases(batch: int) -> list[dict]:
     """Every kernel call shape of one flagship forward at 512 px, K1's at
-    608 px and the training step's (K1's replays, K9, K10, K13): the kernel
+    608 px, the training step's (K1's replays, K9, K10, K13) and the SwinV2
+    family's (K11 forward and backward, K13): the kernel
     and its plain version on the same arguments, the bytes and operations
     the function needs, its calls per forward (per step) of its path (the
     `path` whose run counts its launches), and (K1, K8, K9, K10, K13) one
@@ -373,6 +417,42 @@ def kernel_cases(batch: int) -> list[dict]:
                  sdpa_bwd(q9, k9, v9, am, scale), (KERNEL_TOL, DBIAS_TOL),
                  path="train")
 
+    # K11 forward and backward at the SwinV2 family's four stages (512 px):
+    # the unshifted blocks without a mask, the shifted ones with the mask
+    # of their stage (window w takes mask[w mod nw]); scale 1.0 (the
+    # cosine attention folds its logit scale into q). Bytes and operations
+    # as for K1 / K9. SDPA gets the bias (+ mask) as its attn_mask.
+    for nw, c2, nh2, calls in V2_STAGES:
+        w2, n2 = batch * nw, 64
+        qkv, gy = rnd((w2, n2, 3 * c2)), rnd((w2, n2, c2))
+        bias2 = rnd((nh2, n2, n2), 1.0, torch.float32)
+        heads = qkv.reshape(w2, n2, 3, nh2, c2 // nh2).permute(2, 0, 3, 1, 4)
+        q11, k11, v11 = (t.contiguous() for t in heads)
+        side = int(nw ** 0.5) * 8
+        for shift in (0, 4):
+            mask = msk(side, 8, shift)
+            full = bias2[None].repeat(nw, 1, 1, 1)
+            if mask is not None:
+                full = full + mask[:, None]
+            am = full.to(bf).repeat(batch, 1, 1, 1)
+            tag = f"({w2},{n2},{3 * c2}) nh {nh2}" + (f" mask nw {nw}"
+                                                      if shift else "")
+            mnw = nw if shift else 1
+            case("window_attention_tokens", tag, wa.fused_window_attention,
+                 wa.reference_attention_qkv, (qkv, bias2, mask, mnw, nh2, 1.0),
+                 nbytes(qkv, bias2, mask) + nbytes(qkv) // 3,
+                 4 * w2 * n2 * n2 * c2, calls,
+                 lambda q=q11, k=k11, v=v11, am=am:
+                 F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                scale=1.0), path="swinv2")
+            case("window_attention_tokens_bwd", tag,
+                 wa.window_attention_tokens_bwd, wa.attention_qkv_bwd_plain,
+                 (qkv, bias2, mask, mnw, nh2, 1.0, gy),
+                 2 * nbytes(qkv) + nbytes(gy) + 2 * nbytes(bias2)
+                 + nbytes(mask), 10 * w2 * n2 * n2 * c2, calls,
+                 sdpa_bwd(q11, k11, v11, am, 1.0), (KERNEL_TOL, DBIAS_TOL),
+                 path="swinv2_train")
+
     # K13: every LayerNorm of a training step outside a megakernel (calls
     # per step in the comment of PER_STEP), bound by bytes: x read, y
     # written (add+LN: two reads, two writes)
@@ -386,6 +466,25 @@ def kernel_cases(batch: int) -> list[dict]:
              8 * x.numel(), calls,
              lambda x=x, c=c, wb=wb, bb=bb: F.layer_norm(x, (c,), wb, bb),
              path="train")
+    # K13 on the SwinV2 paths (31 calls per forward, and no more per step):
+    # the four LNs of the cross-channel block on its 2x2 windows, the two
+    # post-norms of each block of the four stages and the PatchMerging norm
+    # that follows stages 0 to 2
+    for shape, calls in (((batch * 4096, 4, 24), 4),
+                         ((batch, 128, 128, 96), 4),
+                         ((batch, 64, 64, 192), 4 + 1),
+                         ((batch, 32, 32, 384), 12 + 1),
+                         ((batch, 16, 16, 768), 4 + 1)):
+        x = rnd(shape)
+        c = shape[-1]
+        w, b = ln(c)
+        wb, bb = w.to(bf), b.to(bf)
+        for path in ("swinv2", "swinv2_train"):
+            case("layernorm", "(" + ",".join(map(str, shape)) + ")",
+                 kln.layernorm, kln.layernorm_plain, (x, w, b),
+                 2 * nbytes(x) + nbytes(w, b), 8 * x.numel(), calls,
+                 lambda x=x, c=c, wb=wb, bb=bb: F.layer_norm(x, (c,), wb, bb),
+                 path=path)
     for hw, c, calls in ((64, 384, 4), (32, 768, 1)):
         x, y = rnd((batch, hw, hw, c)), rnd((batch, hw, hw, c))
         w, b = ln(c)
@@ -435,8 +534,12 @@ def phase_kernels(batch: int) -> list[dict]:
         errs = [(o.float() - r.float()).abs().max().item()
                 for o, r in zip(outs, refs)]
         rels = [e / r.float().abs().max().item() for e, r in zip(errs, refs)]
-        singly = None
+        singly = bit_equal = None
         if cs["name"].endswith("_bwd"):
+            # no atomics in the dbias sums: a second run gives the same bits
+            again = as_tuple(cs["kern"](*args))
+            bit_equal = all(torch.equal(a, o) for a, o in zip(again, outs))
+            del again
             # dq, dk, dv singly (the last axis of dqkv is [q | k | v]): the
             # kernel rounds P and dS to bf16 before its tensor-core
             # products, the plain version keeps them in f32; beside each,
@@ -459,11 +562,13 @@ def phase_kernels(batch: int) -> list[dict]:
                "max_abs_err": errs[0], "rel_err": rels[0],
                "rel_errs": rels, "tols": list(cs["tols"]),
                "dq_dk_dv_rel_err": singly,
+               "bit_equal_over_two_runs": bit_equal,
                "ms": ms, "plain_ms": pms, "library_ms": lms,
                "bound_ms": bms, "bound_by": by,
                "ok": bool(len(rels) == len(cs["tols"]) and all(
                    math.isfinite(r) and r <= t
-                   for r, t in zip(rels, cs["tols"])))}
+                   for r, t in zip(rels, cs["tols"]))
+                   and bit_equal is not False)}
         emit(row)
         rows.append(row)
     return rows
@@ -471,14 +576,44 @@ def phase_kernels(batch: int) -> list[dict]:
 
 # ---------------------------------------------------------------- main path
 
+def seeded_model(cfg: str, dtype, seed: int = 0):
+    """The model of `cfg` with weights from `seed`, on the CPU. The SwinV2
+    blocks' post-norm scales are drawn from the seed as well: at their
+    zero initialization every V2 block is the identity, K11 contributes
+    nothing to the output and its backward returns zeros (a model without
+    V2 blocks is left as `init_weights` made it)."""
+    import torch
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.models.swinv2 import SwinBlockV2
+    from sodt_tpu_torch.weights import init_weights
+    model = init_weights(build_model(cfg, ch_in=4, dtype=dtype), seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, SwinBlockV2):
+                for norm in (mod.norm1, mod.norm2):
+                    norm.weight.copy_(0.5 + torch.rand(norm.weight.shape,
+                                                       generator=g))
+    return model
+
+
+def seeded_weights_file(cfg: str, workdir: Path) -> str:
+    """`seeded_model`'s weights as the .npz that --weights-npz reads."""
+    import torch
+    from sodt_tpu_torch.weights import save_npz
+    path = workdir / (Path(cfg).stem + "_seed0.npz")
+    save_npz(seeded_model(cfg, torch.float32).state_dict(), path)
+    return str(path)
+
+
 def phase_path(label: str, args: list[str], expected: dict) -> dict:
     """Drive `sodt_tpu_torch.val` in-process with the launch counts set to
     0 just before and read just after; then hold the raw Detect maps of one
-    batch, bf16 kernels vs the f32 plain path on the same weights."""
+    batch, bf16 kernels vs the f32 plain path on the same weights
+    (`seeded_model` of the path's --cfg: what val builds itself for the
+    flagship, what --weights-npz hands it for SwinV2)."""
     import torch
     from sodt_tpu_torch import kernels, val
-    from sodt_tpu_torch.models import build_model
-    from sodt_tpu_torch.weights import init_weights
     from sodt_tpu_torch.train.evaluate import cache_rel_bias
     from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
 
@@ -499,8 +634,7 @@ def phase_path(label: str, args: list[str], expected: dict) -> dict:
     ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
     raws = {}
     for dt in (torch.bfloat16, torch.float32):
-        model = build_model("configs/model.yaml", ch_in=4, dtype=dt)
-        model = cache_rel_bias(init_weights(model, 0).cuda().eval())
+        model = cache_rel_bias(seeded_model(opt.cfg, dt).cuda().eval())
         with torch.no_grad():
             raws[dt] = model(img, ir)["raw"][0].float()
     a, b = raws[torch.bfloat16], raws[torch.float32]
@@ -522,8 +656,9 @@ def phase_path(label: str, args: list[str], expected: dict) -> dict:
 
 
 def phase_autograd() -> list[str]:
-    """torch.autograd.grad through the two attention functions (K1 -> K9
-    at stage 1 with the shift mask and at stage 2 without, K8 -> K10) at
+    """torch.autograd.grad through the three attention functions (K1 -> K9
+    at stage 1 with the shift mask and at stage 2 without, K8 -> K10, K11
+    -> K11 backward on the windows of SwinV2's stage 0 with the mask) at
     the training batch, against autograd of the f32 plain version on the
     same inputs; the cotangent arrives as a view."""
     import torch
@@ -535,40 +670,53 @@ def phase_autograd() -> list[str]:
     g = torch.Generator().manual_seed(1)
     rnd = lambda shape: torch.randn(shape, generator=g).cuda()
     failed = []
-    for kind, (hw, c, ws), shift in (("window", (128, 192, 8), 2),
-                                     ("window", (64, 384, 8), 0),
-                                     ("global", (32, 768, 32), 0)):
-        nh, n = 12, ws * ws
+    for kind, (hw, c, ws), shift, nh in (("window", (128, 192, 8), 2, 12),
+                                         ("window", (64, 384, 8), 0, 12),
+                                         ("global", (32, 768, 32), 0, 12),
+                                         ("tokens", (128, 96, 8), 4, 3)):
+        n = ws * ws
         mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
                 if shift else None)
         scale = (c // nh) ** -0.5
-        qkv = rnd((MAIN_BATCH, hw, hw, 3 * c)).to(bf).requires_grad_()
         bias = rnd((nh, n, n)).requires_grad_()
-        gy = rnd((MAIN_BATCH, hw, c, hw)).to(bf).transpose(2, 3)
+        if kind == "tokens":      # (W, N, 3C) windows, scale 1 as V2 calls it
+            nw, scale = (hw // ws) ** 2, 1.0
+            qkv = rnd((MAIN_BATCH * nw, n, 3 * c)).to(bf).requires_grad_()
+            gy = rnd((MAIN_BATCH * nw, c, n)).to(bf).transpose(1, 2)
+            plain = lambda q, b: wa.reference_attention_qkv(q, b, mask, nw,
+                                                            nh, scale)
+        else:
+            qkv = rnd((MAIN_BATCH, hw, hw, 3 * c)).to(bf).requires_grad_()
+            gy = rnd((MAIN_BATCH, hw, c, hw)).to(bf).transpose(2, 3)
+            plain = lambda q, b: wa.reference_attention_nhwc(q, b, mask, ws,
+                                                             nh, scale)
         kernels.reset_launches()
         if kind == "window":
             out = wa.fused_window_attention_nhwc(qkv, bias, mask, ws, nh,
                                                  scale)
-        else:
+        elif kind == "global":
             out = wa.fused_global_attention(qkv, bias, nh, scale)
+        else:
+            out = wa.fused_window_attention(qkv, bias, mask, nw, nh, scale)
         dq, db = torch.autograd.grad(out, [qkv, bias], gy)
         counts = {k: v for k, v in kernels.launches().items() if v}
         q32 = qkv.detach().float().requires_grad_()
         b32 = bias.detach().clone().requires_grad_()
-        ref = wa.reference_attention_nhwc(q32, b32, mask, ws, nh, scale)
-        rq, rb = torch.autograd.grad(ref, [q32, b32], gy.float())
+        rq, rb = torch.autograd.grad(plain(q32, b32), [q32, b32], gy.float())
         torch.cuda.synchronize()
         rel = lambda a, b: ((a.float() - b).abs().max() / b.abs().max()).item()
         # dbias against the plain FORWARD's autograd: that forward scales q
         # in bf16-free f32 but before the product, the kernels scale the
         # scores: 5e-3 leaves room for the reassociation
         row = {"phase": "autograd", "function": kind,
-               "shape": [MAIN_BATCH, hw, hw, 3 * c], "masked": bool(shift),
+               "shape": list(qkv.shape), "masked": bool(shift),
                "launches": counts,
                "dqkv_rel_err": rel(dq, rq), "dbias_rel_err": rel(db, rb),
+               "dqkv_max_abs": dq.float().abs().max().item(),
                "tols": [KERNEL_TOL, 5e-3]}
         row["ok"] = bool(row["dqkv_rel_err"] <= KERNEL_TOL
                          and row["dbias_rel_err"] <= 5e-3
+                         and row["dqkv_max_abs"] > 0
                          and sorted(counts.values()) == [1, 1])
         emit(row)
         if not row["ok"]:
@@ -576,24 +724,26 @@ def phase_autograd() -> list[str]:
     return failed
 
 
-def phase_train(workdir: Path) -> dict:
-    """Drive `sodt_tpu_torch.train` in-process for 8 optimizer steps, the
-    launch counts set to 0 just before and read just after. A step hook
+def phase_train(label: str, workdir: Path, train_args: list[str], steps: int,
+                per_step: dict, per_forward: dict) -> dict:
+    """Drive `sodt_tpu_torch.train` in-process for `steps` optimizer steps,
+    the launch counts set to 0 just before and read just after. A step hook
     reads the counts of each step and the synchronized step times, a
-    gradient hook the first step's gradients."""
+    gradient hook the first step's gradients. The run starts from
+    `seeded_model` of its --cfg: the trainer's own seeded initialization
+    for the flagship, --weights-npz for SwinV2."""
     import torch
     import yaml
     from sodt_tpu_torch import kernels
-    from sodt_tpu_torch.models import build_model
     from sodt_tpu_torch.models.compiler import resolve_config_path
     from sodt_tpu_torch.train import cli
-    from sodt_tpu_torch.weights import init_weights
 
     with open(resolve_config_path("configs/hyp.scratch.yaml")) as f:
         hyp = yaml.safe_load(f)
     hyp_path = workdir / "hyp_smoke.yaml"
     hyp_path.write_text(yaml.safe_dump(dict(hyp, warmup_iters=4)))
-    args = TRAIN_ARGS + ["--hyp", str(hyp_path)]
+    args = train_args + ["--hyp", str(hyp_path)]
+    cfg = cli.parser().parse_args(args).cfg
 
     seen = {"counts": [], "losses": [], "t": [], "no_grad": None,
             "state": None}
@@ -619,29 +769,27 @@ def phase_train(workdir: Path) -> dict:
     counts = kernels.launches()
 
     zero = {k: 0 for k in counts}
-    per_step = [{k: c[k] - p[k] for k in c}
-                for p, c in zip([zero] + seen["counts"], seen["counts"])]
+    counted = [{k: c[k] - p[k] for k in c}
+               for p, c in zip([zero] + seen["counts"], seen["counts"])]
     step_ms = [1e3 * (b - a) for a, b in zip(seen["t"], seen["t"][1:])]
     # the run ends with one eval forward of the EMA weights (4 images)
-    expected_total = {k: TRAIN_STEPS * PER_STEP[k] + PER_FORWARD[k]
-                      for k in PER_STEP}
-    fresh = init_weights(build_model("configs/model.yaml", ch_in=4,
-                                     dtype=torch.bfloat16), 0)
-    start = dict(fresh.named_parameters())
+    expected_total = {k: steps * per_step[k] + per_forward[k]
+                      for k in per_step}
+    start = dict(seeded_model(cfg, torch.bfloat16).named_parameters())
     params = dict(seen["state"].model.named_parameters())
     unmoved = [k for k, p in params.items()
                if torch.equal(p.detach().cpu(), start[k].detach())]
     finite = all(math.isfinite(v) for l in seen["losses"] for v in l.values())
-    ok = (len(per_step) == TRAIN_STEPS and all(p == PER_STEP for p in per_step)
+    ok = (len(counted) == steps and all(p == per_step for p in counted)
           and counts == expected_total and finite and not seen["no_grad"]
-          and not unmoved and m["steps"] == TRAIN_STEPS
-          and seen["state"].ema_updates == TRAIN_STEPS
+          and not unmoved and m["steps"] == steps
+          and seen["state"].ema_updates == steps
           and math.isfinite(m["map50"]))
-    row = {"phase": "train", "args": args, "wall_s": wall,
-           "steps": len(per_step), "step_ms": step_ms,
+    row = {"phase": label, "args": args, "wall_s": wall,
+           "steps": len(counted), "step_ms": step_ms,
            "losses": seen["losses"], "launches": counts,
-           "launches_per_step": per_step[0] if per_step else {},
-           "expected_per_step": PER_STEP, "expected_total": expected_total,
+           "launches_per_step": counted[0] if counted else {},
+           "expected_per_step": per_step, "expected_total": expected_total,
            "params": seen.get("n_params"),
            "params_without_gradient_at_step_1": seen["no_grad"],
            "params_unmoved": unmoved, "map50": m["map50"],
@@ -650,23 +798,20 @@ def phase_train(workdir: Path) -> dict:
     return row
 
 
-def _train_setup(dtype, seed: int = 0):
-    """The flagship in training mode with weights from `seed`, one
-    synthetic training batch from `seed` on the card, and its loss
-    configuration."""
-    import torch
+def _train_setup(dtype, seed: int = 0, cfg: str = "configs/model.yaml"):
+    """The model of `cfg` (the flagship) in training mode with weights from
+    `seed`, one synthetic training batch from `seed` on the card, and its
+    loss configuration."""
     import yaml
     from sodt_tpu_torch.data import SyntheticVedai
-    from sodt_tpu_torch.models import build_model
     from sodt_tpu_torch.models.compiler import resolve_config_path
     from sodt_tpu_torch.train.trainer import (loss_config, make_train_batches,
                                               scale_hyp)
-    from sodt_tpu_torch.weights import batch_to_torch, init_weights
+    from sodt_tpu_torch.weights import batch_to_torch
 
     with open(resolve_config_path("configs/hyp.scratch.yaml")) as f:
         hyp = yaml.safe_load(f)
-    model = build_model("configs/model.yaml", ch_in=4, dtype=dtype)
-    model = init_weights(model, seed).cuda().train()
+    model = seeded_model(cfg, dtype, seed).cuda().train()
     hyp = scale_hyp(dict(hyp, warmup_iters=4), len(model.spec.anchors), 8, 512)
     ds = SyntheticVedai(n=MAIN_BATCH, img_size=512, nc=8, seed=seed)
     batch = next(make_train_batches(ds, MAIN_BATCH, 30, seed, 0))
@@ -758,15 +903,17 @@ def _device_rows(prof) -> list[dict]:
     return rows
 
 
-def phase_profile_train() -> None:
+def phase_profile_train(label: str = "profile_train",
+                        cfg: str = "configs/model.yaml") -> None:
     """Kernel-time breakdown of one warm training step (forward, loss,
-    backward, optimizer update, EMA) at the train path's shape."""
+    backward, optimizer update, EMA) of `cfg`'s model at the train paths'
+    shape."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     from sodt_tpu_torch.train.optim import make_optimizer
     from sodt_tpu_torch.train.state import TrainState, make_train_step
 
-    model, batch, hyp, cfg = _train_setup(torch.bfloat16)
+    model, batch, hyp, cfg = _train_setup(torch.bfloat16, cfg=cfg)
     tx = make_optimizer(hyp, dict(model.named_parameters()), epochs=2, nb=4)
     state = TrainState.create(model, tx)
     step = make_train_step(model, tx, cfg)
@@ -784,7 +931,7 @@ def phase_profile_train() -> None:
     rows = _device_rows(prof)
     busy = sum(r["device_ms"] for r in rows)
     ours = sum(r["device_ms"] for r in rows if "sodt::" in r["kernel"])
-    emit({"phase": "profile_train", "batch": MAIN_BATCH, "img": 512,
+    emit({"phase": label, "batch": MAIN_BATCH, "img": 512,
           "train_step_ms": step_ms, "images_per_s": 1e3 * MAIN_BATCH / step_ms,
           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
           "port_kernels_ms": ours,
@@ -792,17 +939,15 @@ def phase_profile_train() -> None:
           "peak_memory_bytes": peak, "top": rows[:40]})
 
 
-def phase_profile() -> None:
+def phase_profile(label: str = "profile",
+                  cfg: str = "configs/model.yaml") -> None:
     """Kernel-time breakdown of one warm eval step (forward + decode + NMS)
-    at the main path's shape."""
+    of `cfg`'s model at the eval paths' shape."""
     import torch
     from torch.profiler import profile, ProfilerActivity
-    from sodt_tpu_torch.models import build_model
-    from sodt_tpu_torch.weights import init_weights
     from sodt_tpu_torch.train.evaluate import cache_rel_bias, make_eval_step
 
-    model = build_model("configs/model.yaml", ch_in=4, dtype=torch.bfloat16)
-    model = cache_rel_bias(init_weights(model, 0).cuda().eval())
+    model = cache_rel_bias(seeded_model(cfg, torch.bfloat16).cuda().eval())
     step = make_eval_step(model)
     x = torch.randint(0, 255, (MAIN_BATCH, 512, 512, 3), dtype=torch.uint8,
                       device="cuda")
@@ -823,7 +968,7 @@ def phase_profile() -> None:
     ours = sum(r["device_ms"] for r in rows if "sodt::" in r["kernel"])
     # idle share against the unprofiled step time (the profiler's own host
     # overhead stretches the profiled wall)
-    out = {"phase": "profile", "batch": MAIN_BATCH, "img": 512,
+    out = {"phase": label, "batch": MAIN_BATCH, "img": 512,
            "forward_ms": fwd_ms, "eval_step_ms": step_ms,
            "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
            "port_kernels_ms": ours,
@@ -877,29 +1022,41 @@ def main() -> int:
         traceback.print_exc()
         failed.append("autograd")
     paths = {}
-    for label, args, expected in (("main", MAIN_ARGS, PER_FORWARD),
-                                  ("608px", OFF_ARGS, OFF_FORWARD)):
+
+    def drive(label, phase, *args):
+        """One path: its row, or a failure that the run reports."""
         try:
-            paths[label] = phase_path(label, args, expected)
+            paths[label] = phase(label, *args)
             if not paths[label]["ok"]:
                 failed.append(f"{label} path")
         except Exception:
             traceback.print_exc()
             failed.append(f"{label} path")
             paths[label] = {"launches": {}}
+
     with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        drive("main", phase_path, MAIN_ARGS, PER_FORWARD)
+        drive("608px", phase_path, OFF_ARGS, OFF_FORWARD)
+        drive("train", phase_train, tmp, TRAIN_ARGS, TRAIN_STEPS, PER_STEP,
+              PER_FORWARD)
         try:
-            paths["train"] = phase_train(Path(tmp))
-            if not paths["train"]["ok"]:
-                failed.append("train path")
+            v2_weights = ["--weights-npz", seeded_weights_file(V2_CFG, tmp)]
         except Exception:
             traceback.print_exc()
-            failed.append("train path")
-            paths["train"] = {"launches": {}}
-    for label, phase in (("grads", phase_grads), ("profile", phase_profile),
-                         ("profile_train", phase_profile_train)):
+            failed.append("swinv2 seeded weights file")
+            v2_weights = []
+        drive("swinv2", phase_path, V2_ARGS + v2_weights, V2_FORWARD)
+        drive("swinv2_train", phase_train, tmp, V2_TRAIN_ARGS + v2_weights,
+              V2_TRAIN_STEPS, V2_STEP, V2_FORWARD)
+    for label, phase, args in (
+            ("grads", phase_grads, ()), ("profile", phase_profile, ()),
+            ("profile_train", phase_profile_train, ()),
+            ("profile_swinv2", phase_profile, ("profile_swinv2", V2_CFG)),
+            ("profile_swinv2_train", phase_profile_train,
+             ("profile_swinv2_train", V2_CFG))):
         try:
-            row = phase()
+            row = phase(*args)
             if row is not None and not row["ok"]:
                 failed.append(label)
         except Exception:

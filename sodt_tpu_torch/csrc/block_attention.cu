@@ -6,18 +6,14 @@
 //    accumulation on the tensor cores; 64x64 tiles, K steps of 32 staged
 //    in shared memory. Launched for the qkv projection, the output
 //    projection, and K7's fc1.
-//  * window_attn_kernel: one CTA (4 warps) per (head, window), any window
-//    of up to 256 tokens (padded to a multiple of 16). Token t of window
-//    (wr, wc) in shifted coordinates (r, c) reads its q/k/v at
-//    ((r + shift) mod H, (c + shift) mod W): the cyclic shift is index
-//    arithmetic, no roll is materialized. q is scaled in bf16 as in JAX;
-//    each warp takes 16 query rows (common.cuh warp_attention_rows):
-//    scores + rel-pos bias (+ shift mask) and the softmax stay f32 in its
-//    shared scratch; P is rounded to bf16 for PV. The head's output is
-//    written at (r, c), i.e. in shifted coordinates, as the Pallas kernel
-//    does. With shift 0 this is also K1, the windowed attention core
-//    (`fused_window_attention_nhwc`, body `_strip_kernel`).
-#include "common.cuh"
+//  * window_attn_kernel<MapWindows> (window_attention.cuh): one CTA per
+//    (head, window) of the unpartitioned map. Token t of window (wr, wc) in
+//    shifted coordinates (r, c) reads its q/k/v at ((r + shift) mod H,
+//    (c + shift) mod W); the head's output is written at (r, c), i.e. in
+//    shifted coordinates, as the Pallas kernel does. With shift 0 this is
+//    also K1, the windowed attention core (`fused_window_attention_nhwc`,
+//    body `_strip_kernel`).
+#include "window_attention.cuh"
 
 namespace sodt {
 
@@ -77,65 +73,6 @@ gemm_bias_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   }
 }
 
-__host__ __device__ inline size_t window_attn_smem_bytes(int n, int hd) {
-  const int np = (n + 15) & ~15;
-  return (size_t)3 * np * (hd + 8) * 2 + (size_t)4 * warp_attn_scratch_floats(np) * 4 +
-         (size_t)4 * 256 * 4;
-}
-
-__global__ void __launch_bounds__(128)
-window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                   const float* __restrict__ mask, bf16* __restrict__ out, int H, int W,
-                   int C, int nh, int ws, int shift, int has_mask, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n = ws * ws, np = (n + 15) & ~15, hd = C / nh, ld = hd + 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + np * ld;
-  bf16* Vs = Ks + np * ld;
-  float* S = reinterpret_cast<float*>(Vs + np * ld);
-  float* stage = S + 4 * warp_attn_scratch_floats(np);
-
-  const int h = blockIdx.x, win = blockIdx.y;
-  const int gx = W / ws, gy = H / ws;
-  const int b = win / (gx * gy), widx = win % (gx * gy);
-  const int wr = widx / gx, wc = widx % gx;
-  const int C3 = 3 * C;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  const int vpr = hd / 8;
-  for (int v = threadIdx.x; v < np * vpr; v += blockDim.x) {
-    const int t = v / vpr, cv = (v % vpr) * 8;
-    uint4 q = make_uint4(0u, 0u, 0u, 0u), k = q, val = q;
-    if (t < n) {
-      const int r = wr * ws + t / ws, c = wc * ws + t % ws;
-      const int sr = (r + shift) % H, sc = (c + shift) % W;
-      const bf16* src = qkv + ((size_t)(b * H + sr) * W + sc) * C3 + h * hd + cv;
-      q = *reinterpret_cast<const uint4*>(src);
-      bf16* qe = reinterpret_cast<bf16*>(&q);
-      for (int e = 0; e < 8; ++e) qe[e] = __float2bfloat16(__bfloat162float(qe[e]) * scale);
-      k = *reinterpret_cast<const uint4*>(src + C);
-      val = *reinterpret_cast<const uint4*>(src + 2 * C);
-    }
-    *reinterpret_cast<uint4*>(Qs + t * ld + cv) = q;
-    *reinterpret_cast<uint4*>(Ks + t * ld + cv) = k;
-    *reinterpret_cast<uint4*>(Vs + t * ld + cv) = val;
-  }
-  __syncthreads();
-
-  const float* mk = has_mask ? mask + (size_t)widx * n * n : nullptr;
-  for (int qb = warp; qb < np / 16; qb += nwarps)
-    warp_attention_rows(Qs, Ks, Vs, ld, hd, n, np, qb * 16, bias + (size_t)h * n * n, mk,
-                        S + warp * warp_attn_scratch_floats(np), stage + warp * 256,
-                        [&](int t, int d, float v) {
-                          if (t < n) {
-                            const int r = wr * ws + t / ws, c = wc * ws + t % ws;
-                            out[((size_t)(b * H + r) * W + c) * C + h * hd + d] =
-                                __float2bfloat16(v);
-                          }
-                        });
-}
-
 }  // namespace sodt
 
 extern "C" int sodt_gemm_bias(const void* A, const void* B, const void* bias, void* out,
@@ -150,13 +87,7 @@ extern "C" int sodt_gemm_bias(const void* A, const void* B, const void* bias, vo
 extern "C" int sodt_window_attention(const void* qkv, const void* bias, const void* mask,
                                      void* out, int B, int H, int W, int C, int nh, int ws,
                                      int shift, int has_mask, float scale, void* stream) {
-  static int smem_set = 0;
-  const size_t smem = sodt::window_attn_smem_bytes(ws * ws, C / nh);
-  if (smem > sodt::SMEM_MAX) return (int)cudaErrorInvalidValue;
-  sodt::ensure_smem(sodt::window_attn_kernel, smem, smem_set);
-  dim3 grid(nh, B * (H / ws) * (W / ws));
-  sodt::window_attn_kernel<<<grid, 128, smem, (cudaStream_t)stream>>>(
-      (const sodt::bf16*)qkv, (const float*)bias, (const float*)mask, (sodt::bf16*)out, H,
-      W, C, nh, ws, shift, has_mask, scale);
-  return (int)cudaGetLastError();
+  return sodt::launch_window_attention(sodt::MapWindows{H, W, ws, shift}, qkv, bias,
+                                       has_mask ? mask : nullptr, out,
+                                       B * (H / ws) * (W / ws), C, nh, ws * ws, scale, stream);
 }

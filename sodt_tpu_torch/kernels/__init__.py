@@ -20,6 +20,10 @@ LAUNCHES: dict[str, int] = {
     "global_attention": 0,      # K8, window_attention.fused_global_attention
     "window_attention_bwd": 0,  # K9, window_attention.window_attention_bwd
     "global_attention_bwd": 0,  # K10, window_attention.global_attention_bwd
+    # K11, window_attention.fused_window_attention and its backward,
+    # window_attention.window_attention_tokens_bwd
+    "window_attention_tokens": 0,
+    "window_attention_tokens_bwd": 0,
     "layernorm": 0,             # K13, layernorm.layernorm
     "add_layernorm": 0,         # K13, layernorm.add_layernorm
 }

@@ -37,6 +37,8 @@ SIGNATURES = {
     "sodt_conv_tail": [P] * 11 + [I] * 5 + [P],
     "sodt_window_attention_bwd": [P] * 7 + [I] * 7 + [F, I, P],
     "sodt_global_attention_bwd": [P] * 7 + [I] * 7 + [F, P],
+    "sodt_window_attention_tokens": [P, P, P, P, I, I, I, I, I, F, P],
+    "sodt_window_attention_tokens_bwd": [P] * 7 + [I] * 5 + [F, I, P],
     "sodt_layernorm": [P, P, P, P, I, I, F, P],
     "sodt_add_layernorm": [P, P, P, P, P, P, I, I, F, P],
 }

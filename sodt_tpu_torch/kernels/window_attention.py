@@ -1,6 +1,7 @@
-"""Window attention: K1 (windowed core), K3 (LN + qkv + W-MSA + proj), K5
-(qkv + W-MSA + proj), K8 (global / large-window attention) and the
-backward kernels K9 (of K1) and K10 (of K8).
+"""Window attention: K1 (windowed core on a map), K3 (LN + qkv + W-MSA +
+proj), K5 (qkv + W-MSA + proj), K8 (global / large-window attention), K11
+(windowed core on pre-partitioned windows) and the backward kernels K9 (of
+K1), K10 (of K8) and K11's own.
 
 Counterpart of `sodt_tpu/pallas/window_attention.py`. Weights use torch's
 Linear layout (out, in): the kernels read B of every product K-contiguous,
@@ -11,9 +12,9 @@ Plain versions mirror the JAX compositions (`reference_attention_qkv`,
 working dtype before QK^T, scores and softmax are f32, probabilities are
 cast back to the working dtype before PV.
 
-Gradients. On the card K1 and K8 are `torch.autograd.Function`s whose
-backward launches K9 / K10 on the saved (qkv, bias, mask), as the JAX
-package's `custom_vjp`s do. The fused wrappers K3 and K5 (and K2, K4, K6, K7
+Gradients. On the card K1, K8 and K11 are `torch.autograd.Function`s whose
+backward launches K9 / K10 / K11's backward kernel on the saved (qkv, bias,
+mask), as the JAX package's `custom_vjp`s do. The fused wrappers K3 and K5 (and K2, K4, K6, K7
 in `swin_block`) save their inputs and, in backward, replay the plain
 composition with `dispatch=True` - its LayerNorms and its attention core
 then go through the kernel wrappers (K13, K1 -> K9, K8 -> K10) - and
@@ -101,41 +102,56 @@ def block_attention_ln_plain(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
                                  mask, ws, nh, scale, shift, dispatch)
 
 
-def attention_nhwc_bwd_plain(qkv, bias, mask, ws: int, nh: int, scale: float,
-                             gy):
-    """K9's plain version, from `_bwd_strip_kernel`'s formulas in f32:
-    S = scale * Q K^T + bias (+ mask) with q NOT pre-scaled, P = softmax(S),
-    dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dP * P)),
-    dQ = scale * dS K, dK = scale * dS^T Q, dbias = sum over batch and
-    windows of dS. qkv (B, H, W, 3C), gy (B, H, W, C) -> (dqkv in qkv's
-    dtype, dbias (nh, N, N) f32)."""
-    b, h, w, c3 = qkv.shape
+def attention_qkv_bwd_plain(qkv, bias, mask, nw: int, nh: int, scale: float,
+                            gy):
+    """The plain version of K11's backward (and, through the window
+    partition, of K9's), from `_bwd_kernel`'s formulas in f32:
+    S = scale * Q K^T + bias (+ mask[w mod nw]) with q NOT pre-scaled,
+    P = softmax(S), dV = P^T dO, dP = dO V^T,
+    dS = P * (dP - rowsum(dP * P)), dQ = scale * dS K, dK = scale * dS^T Q,
+    dbias = sum over the windows of dS. qkv (W, N, 3C), gy (W, N, C) ->
+    (dqkv in qkv's dtype, dbias (nh, N, N) f32)."""
+    w, n, c3 = qkv.shape
     c = c3 // 3
     hd = c // nh
-    n = ws * ws
-    g = (h // ws) * (w // ws)
 
-    def heads(t):          # (B, H, W, k*C) -> k tensors (B*g, nh, N, hd)
+    def heads(t):          # (W, N, k*C) -> k tensors (W, nh, N, hd)
         k = t.shape[-1] // c
-        t = t.float().reshape(b, h // ws, ws, w // ws, ws, k, nh, hd)
-        return t.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(k, b * g, nh, n, hd)
+        return t.float().reshape(w, n, k, nh, hd).permute(2, 0, 3, 1, 4)
 
     q, k, v = heads(qkv)
     do = heads(gy)[0]
     s = torch.matmul(q, k.transpose(-1, -2)) * scale + bias[None].float()
     if mask is not None:
-        s = (s.reshape(b, g, nh, n, n)
-             + mask.float()[None, :, None]).reshape(b * g, nh, n, n)
+        s = (s.reshape(w // nw, nw, nh, n, n)
+             + mask.float()[None, :, None]).reshape(w, nh, n, n)
     p = torch.softmax(s, dim=-1)
     dv = torch.matmul(p.transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     dq = scale * torch.matmul(ds, k)
     dk = scale * torch.matmul(ds.transpose(-1, -2), q)
-    dx = torch.stack([dq, dk, dv]).to(qkv.dtype)
-    dx = dx.reshape(3, b, h // ws, w // ws, nh, ws, ws, hd)
-    dx = dx.permute(1, 2, 5, 3, 6, 0, 4, 7).reshape(b, h, w, c3)
-    return dx, ds.sum(dim=0)
+    dx = torch.stack([dq, dk, dv]).to(qkv.dtype)     # (3, W, nh, N, hd)
+    return dx.permute(1, 3, 0, 2, 4).reshape(w, n, c3), ds.sum(dim=0)
+
+
+def attention_nhwc_bwd_plain(qkv, bias, mask, ws: int, nh: int, scale: float,
+                             gy):
+    """K9's plain version (`_bwd_strip_kernel`): `attention_qkv_bwd_plain`
+    on the windows of the map. qkv (B, H, W, 3C), gy (B, H, W, C) -> (dqkv
+    in qkv's dtype, dbias (nh, N, N) f32)."""
+    b, h, w, c3 = qkv.shape
+    g = (h // ws) * (w // ws)
+
+    def part(t):
+        k = t.shape[-1]
+        t = t.reshape(b, h // ws, ws, w // ws, ws, k)
+        return t.permute(0, 1, 3, 2, 4, 5).reshape(b * g, ws * ws, k)
+
+    dx, dbias = attention_qkv_bwd_plain(part(qkv), bias, mask, g, nh, scale,
+                                        part(gy))
+    dx = dx.reshape(b, h // ws, w // ws, ws, ws, c3)
+    return dx.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c3), dbias
 
 
 def global_attention_bwd_plain(qkv, bias, nh: int, scale: float, gy,
@@ -172,10 +188,11 @@ def _check_cuda(name: str, dtype: torch.dtype, **tensors) -> None:
 
 
 def window_core_supported(n: int, hd: int) -> bool:
-    """The domain of the windowed attention core of csrc/block_attention.cu
-    (K1 and K5's core): windows of up to 256 tokens — JAX's own gate for K1
-    and K5, ws*ws <= 256 — and head dims that are whole 16-wide tensor-core
-    tiles, at most 64 (the shared-memory budget at 256 tokens)."""
+    """The domain of the windowed attention core of
+    csrc/window_attention.cuh (K1, K5's core, K9, K11 forward and
+    backward): windows of up to 256 tokens — JAX's own gate for K1, K5 and
+    K11, N <= 256 — and head dims that are whole 16-wide tensor-core tiles,
+    at most 64 (the shared-memory budget at 256 tokens)."""
     return n <= 256 and hd % 16 == 0 and hd <= 64
 
 
@@ -378,7 +395,7 @@ def fused_window_attention_nhwc(qkv, bias, mask, ws: int, nh: int,
     On the H100 it is bound by its shared-memory round trips (the f32
     scores) more than by bytes or operations: 4*N*C FLOPs per token at
     N <= 256. Design: the kernel K5 launches between its projections
-    (csrc/block_attention.cu window_attn_kernel, shift 0): one CTA per
+    (csrc/window_attention.cuh window_attn_kernel, shift 0): one CTA per
     (head, window), each warp 16 query rows, scores and the f32 softmax in
     the warp's shared scratch, no window partition copies. Window packing
     (`_pick_pack`) is a TPU MXU trick and is not carried over.
@@ -417,7 +434,7 @@ class _WindowAttention(torch.autograd.Function):
 
 # ---------------------------------------------------------------------- K9
 
-BWD_GROUPS = 128    # CTAs (and dbias partials) per head in K9
+BWD_GROUPS = 128    # CTAs (and dbias partials) per head in K9 and K11
 
 
 def window_attention_bwd(qkv, bias, mask, ws: int, nh: int, scale: float, gy):
@@ -468,6 +485,119 @@ def window_attention_bwd(qkv, bias, mask, ws: int, nh: int, scale: float, gy):
         int(mask is not None), float(scale), groups, _build.stream_ptr()),
         name)
     LAUNCHES["window_attention_bwd"] += 1
+    return dqkv, dbias
+
+
+# --------------------------------------------------------------------- K11
+
+def fused_window_attention(qkv, bias, mask, nw: int, nh: int, scale: float):
+    """Windowed multi-head attention core on pre-partitioned windows.
+
+    Replaces `sodt_tpu/pallas/window_attention.py` `fused_window_attention`
+    (l.156, body `_kernel` l.61). qkv (W, N, 3C) bf16, the layout the qkv
+    projection of window tokens leaves; bias (nh, N, N) f32; mask
+    (nw, N, N) f32 or None, window w takes mask[w mod nw] (nw = 1 and any W
+    when there is no mask). Returns (W, N, C):
+    softmax(q * scale @ k^T + bias[h] + mask[w mod nw]) @ v per head, q
+    scaled in bf16, scores and softmax f32, P rounded to bf16 before P @ V.
+
+    On the H100 its bound is bytes (8 * C bytes per token against 4 * N * C
+    operations, N <= 256); in practice the shared-memory round trips of the
+    f32 scores. Design (csrc/window_attention_tokens.cu): the kernel of K1
+    with another addressing — one CTA per (head, window) reads the window's
+    N contiguous rows with 16-byte loads, each warp takes 16 query rows,
+    scores and the softmax stay in shared memory — so no copy into map
+    layout stands on the path. The TPU kernel's window groups
+    (`_pick_group`, sized to VMEM) are not carried over.
+    """
+    if not qkv.is_cuda:
+        return reference_attention_qkv(qkv, bias, mask, nw, nh, scale)
+    _check_tokens_args("fused_window_attention", qkv, bias, mask, nw, nh)
+    return _WindowAttentionTokens.apply(qkv, bias, mask, nw, nh, scale)
+
+
+def _check_tokens_args(name, qkv, bias, mask, nw, nh):
+    """The domain K11's forward and backward share."""
+    _require(qkv.ndim == 3, f"{name}: qkv must be (W, N, 3C)")
+    w, n, c3 = qkv.shape
+    _check_cuda(name, torch.bfloat16, qkv=qkv)
+    _check_cuda(name, torch.float32, bias=bias, mask=mask)
+    _require(c3 % (3 * nh) == 0 and window_core_supported(n, c3 // 3 // nh),
+             f"{name}: window of {n} tokens, head dim {c3 // 3 // nh}")
+    _require(tuple(bias.shape) == (nh, n, n), f"{name}: bias shape")
+    if mask is None:
+        _require(nw == 1, f"{name}: nw must be 1 without a mask")
+    else:
+        _require(tuple(mask.shape) == (nw, n, n) and w % nw == 0,
+                 f"{name}: mask shape {tuple(mask.shape)} for {w} windows, "
+                 f"nw {nw}")
+    _require(1 <= w <= 65535, f"{name}: {w} windows")
+
+
+class _WindowAttentionTokens(torch.autograd.Function):
+    """K11 forward, K11 backward, on the residuals (qkv, bias, mask)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, nw, nh, scale):
+        ctx.consts = (nw, nh, scale)
+        ctx.save_for_backward(qkv, bias, mask)
+        w, n, c3 = qkv.shape
+        out = torch.empty((w, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+        scale_dt = float(torch.tensor(scale, dtype=qkv.dtype))
+        _build.check(_build.library().sodt_window_attention_tokens(
+            qkv.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), w, n,
+            c3 // 3, nh, nw, scale_dt, _build.stream_ptr()),
+            "fused_window_attention")
+        LAUNCHES["window_attention_tokens"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        qkv, bias, mask = ctx.saved_tensors
+        dqkv, dbias = window_attention_tokens_bwd(qkv, bias, mask,
+                                                  *ctx.consts, gy)
+        return dqkv, dbias, None, None, None, None
+
+
+def window_attention_tokens_bwd(qkv, bias, mask, nw: int, nh: int,
+                                scale: float, gy):
+    """Backward of K11: (dqkv, dbias).
+
+    Replaces `sodt_tpu/pallas/window_attention.py` `_pallas_attention_bwd`
+    (l.264, body `_bwd_kernel` l.206). qkv (W, N, 3C) bf16 and bias / mask
+    as the forward saved them; gy (W, N, C) bf16, made contiguous here.
+    Returns dqkv (W, N, 3C) bf16 and dbias (nh, N, N) f32 summed over the
+    windows.
+
+    The kernel of K9 with the token addressing (csrc/window_attention.cuh,
+    where the design is described): the f32 scores are scaled by the
+    unrounded `scale`, P and dS are rounded to bf16 before the tensor-core
+    products (the Pallas kernel keeps them in f32), and dbias takes two
+    deterministic passes — a partial per group of windows, then a
+    reduction in group order — where the TPU kernel accumulates across its
+    sequential grid: no f32 atomics, at the price of
+    min(W, 128) * nh * N * N floats of scratch.
+    """
+    if not qkv.is_cuda:
+        return attention_qkv_bwd_plain(qkv, bias, mask, nw, nh, scale, gy)
+    name = "window_attention_tokens_bwd"
+    gy = gy.contiguous()
+    _check_tokens_args(name, qkv, bias, mask, nw, nh)
+    w, n, c3 = qkv.shape
+    _check_cuda(name, torch.bfloat16, gy=gy)
+    _require(tuple(gy.shape) == (w, n, c3 // 3), f"{name}: gy shape")
+    groups = min(w, BWD_GROUPS)
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((groups, nh, n, n), dtype=torch.float32,
+                       device=qkv.device)
+    dbias = torch.empty((nh, n, n), dtype=torch.float32, device=qkv.device)
+    _build.check(_build.library().sodt_window_attention_tokens_bwd(
+        qkv.data_ptr(), gy.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
+        part.data_ptr(), dbias.data_ptr(), w, n, c3 // 3, nh, nw,
+        float(scale), groups, _build.stream_ptr()), name)
+    LAUNCHES["window_attention_tokens_bwd"] += 1
     return dqkv, dbias
 
 
@@ -609,3 +739,15 @@ def window_attention_core_nhwc(qkv, bias, mask, ws: int, nh: int,
             return fused_window_attention_nhwc(qkv, bias, mask, ws, nh, scale)
         return fused_global_attention(qkv, bias, nh, scale, ws, mask)
     return reference_attention_nhwc(qkv, bias, mask, ws, nh, scale)
+
+
+def window_attention_core(qkv, bias, mask, nw: int, nh: int, scale: float):
+    """The attention core on pre-partitioned (W, N, 3C) windows
+    (`window_attention_core` l.185), by JAX's gate: a CUDA bf16 tensor
+    with windows of up to 256 tokens goes to K11, whose wrapper raises
+    outside the kernel's domain (`window_core_supported`: head dims of
+    whole tensor-core tiles); f32, CPU tensors and larger windows take the
+    plain composition."""
+    if qkv.is_cuda and qkv.dtype == torch.bfloat16 and qkv.shape[1] <= 256:
+        return fused_window_attention(qkv, bias, mask, nw, nh, scale)
+    return reference_attention_qkv(qkv, bias, mask, nw, nh, scale)

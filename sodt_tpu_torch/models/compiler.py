@@ -2,10 +2,11 @@
 (`sodt_tpu/models/compiler.py`), for the split-backbone mode and the
 registry entries the flagship uses.
 
-Split mode: the backbone is a single `ImageEncoderViT` entry producing
-[P3, P4, P5]; head `from` indices address y = [P3, P4, P5, head...] and
-the head channels seed (out_chans, out_chans, 2*out_chans) at strides
-(4, 8, 16). Channel arithmetic matches the JAX package: width multiple +
+Split mode: the backbone is a single `ImageEncoderViT` or
+`ImageEncoderSwinV2` entry producing [P3, P4, P5]; head `from` indices
+address y = [P3, P4, P5, head...] and the head channels seed (out_chans,
+out_chans, 2*out_chans) at strides (4, 8, 16) for the flagship encoder,
+(128, 256, 512) at strides (4, 16, 32) for the SwinV2 variant. Channel arithmetic matches the JAX package: width multiple +
 make_divisible(8) on conv-family outputs, depth multiple on repeat counts,
 Concat summing. Any other module, and the unified (all-CNN) mode, raise
 NotImplementedError naming the ROADMAP.md item that ports them.
@@ -21,11 +22,11 @@ import yaml
 
 from . import layers as L
 from .backbone import ImageEncoderViT
+from .swinv2 import ImageEncoderSwinV2
 
 _CONV_FAMILY = {"Conv", "Bottleneck", "C3"}
 _LATER = {
     "ImageEncoderViTMono": "ROADMAP.md Queue 1 item 5 (mono variant)",
-    "ImageEncoderSwinV2": "ROADMAP.md Queue 1 item 10 (other model families)",
 }
 _QUEUE_OTHER = "ROADMAP.md Queue 1 item 10 (other model families)"
 
@@ -59,10 +60,12 @@ class ModelSpec:
 
 def resolve_config_path(path) -> str:
     """A relative path names a file of this package first (so
-    "configs/model.yaml" is the port's own copy), else the path as given."""
+    "configs/model.yaml", or just "model_swinv2.yaml", is the port's own
+    copy), else the path as given."""
     p = Path(path)
     pkg = Path(__file__).resolve().parent.parent
-    for cand in ([] if p.is_absolute() else [pkg / p]) + [p]:
+    own = [] if p.is_absolute() else [pkg / p, pkg / "configs" / p]
+    for cand in own + [p]:
         if cand.exists():
             return str(cand)
     raise FileNotFoundError(path)
@@ -145,7 +148,7 @@ def parse_config(cfg, ch_in: int = 4, nc: int | None = None) -> ModelSpec:
     if not (len(bdefs) == 1 and bdefs[0][2].startswith("ImageEncoder")):
         raise NotImplementedError(f"unified (all-CNN) configs: {_QUEUE_OTHER}")
     enc_name, args = bdefs[0][2], list(bdefs[0][3])
-    if enc_name != "ImageEncoderViT" or len(args) != 6:
+    if enc_name not in MODULE_REGISTRY or len(args) != 6:
         raise NotImplementedError(
             f"backbone {enc_name!r} {args}: "
             f"{_LATER.get(enc_name, _QUEUE_OTHER)}")
@@ -153,9 +156,15 @@ def parse_config(cfg, ch_in: int = 4, nc: int | None = None) -> ModelSpec:
     # patch_size is forced to 4
     enc = dict(img_size=args[0], patch_size=4, embed_dim=args[2],
                in_chans=args[3], out_chans=args[4], window_size=args[5])
-    oc = enc["out_chans"]
-    ch = [oc, oc, 2 * oc]
-    strides = [4.0, 8.0, 16.0]
+    if enc_name == "ImageEncoderSwinV2":
+        # the V2 variant's width, necks and tap strides are fixed
+        enc["embed_dim"] = 96
+        ch = [128, 256, 512]
+        strides = [4.0, 16.0, 32.0]
+    else:
+        oc = enc["out_chans"]
+        ch = [oc, oc, 2 * oc]
+        strides = [4.0, 8.0, 16.0]
     backbone = (LayerDef(0, (-1,), enc_name, tuple(sorted(enc.items())),
                          ch_in, ch[0]),)
     head, save, detect = _parse_section(d["head"], ch, strides, gd, gw, no,
@@ -204,6 +213,12 @@ def _encoder(ld):
     return ImageEncoderViT(**dict(ld.args))
 
 
+def _encoder_swinv2(ld):
+    kw = dict(ld.args)
+    kw.pop("out_chans", None)       # the necks are fixed in the V2 variant
+    return ImageEncoderSwinV2(**kw)
+
+
 MODULE_REGISTRY = {
     "Concat": lambda ld: L.Concat(),
     "Conv": _conv,
@@ -211,6 +226,7 @@ MODULE_REGISTRY = {
     "Bottleneck": _bottleneck,
     "Upsample": _upsample,
     "ImageEncoderViT": _encoder,
+    "ImageEncoderSwinV2": _encoder_swinv2,
 }
 
 

@@ -27,6 +27,7 @@ from torch import nn
 from .norm import LayerNorm, AddLayerNorm
 from ..ops.activations import gelu
 from ..kernels import window_attention as kwa
+from ..kernels.layernorm import layernorm as layer_norm
 from ..kernels import swin_block as ksb
 
 
@@ -111,7 +112,42 @@ def _param_key(params) -> tuple:
     return tuple((id(p), p._version, p.device) for p in params)
 
 
-class WindowAttention(nn.Module):
+class RelPosBias(nn.Module):
+    """The (nh, N, N) f32 attention bias of a window-attention module, a
+    function of parameters, with the one cache rule of the eval path: the
+    bias is materialized once per weight load (the JAX package's
+    evaluate.cache_rel_bias) and that copy is read only while gradients are
+    off and no source parameter was modified, replaced or moved since (see
+    `SwinBlock.kernel_weights`). A subclass names the parameters
+    (`bias_params`) and computes the bias (`materialize_bias(*variant)`);
+    `variant` is whatever else the bias depends on (nothing for the
+    rel-pos table, the window size and compute dtype for V2's MLP)."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("bias_cache", None, persistent=False)
+        self._bias_key = None
+
+    def bias_params(self) -> list:
+        raise NotImplementedError
+
+    def materialize_bias(self, *variant) -> torch.Tensor:
+        raise NotImplementedError
+
+    def cache_bias(self, *variant) -> None:
+        with torch.no_grad():
+            self.bias_cache = self.materialize_bias(*variant).contiguous()
+        self._bias_key = (variant, _param_key(self.bias_params()))
+
+    def rel_bias(self, *variant) -> torch.Tensor:
+        if (self.bias_cache is not None and not torch.is_grad_enabled()
+                and self._bias_key == (variant,
+                                       _param_key(self.bias_params()))):
+            return self.bias_cache
+        return self.materialize_bias(*variant).contiguous()
+
+
+class WindowAttention(RelPosBias):
     """W-MSA with relative position bias; parameters (torch layout):
     relative_position_bias_table ((2ws-1)^2, nh), qkv (3C, C), proj (C, C)."""
 
@@ -125,37 +161,33 @@ class WindowAttention(nn.Module):
             persistent=False)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
-        self.register_buffer("bias_cache", None, persistent=False)
-        self._bias_key = None
+
+    def bias_params(self) -> list:
+        return [self.relative_position_bias_table]
 
     def materialize_bias(self) -> torch.Tensor:
         n = self.window_size ** 2
         t = self.relative_position_bias_table[self.relative_position_index]
         return t.reshape(n, n, self.num_heads).permute(2, 0, 1).float()
 
-    def cache_bias(self) -> None:
-        """Materialize the (nh, N, N) bias once per weight load (the
-        JAX package's evaluate.cache_rel_bias). It is read only while
-        gradients are off and the table has not changed since (see
-        `SwinBlock.kernel_weights` for the rule)."""
-        with torch.no_grad():
-            self.bias_cache = self.materialize_bias().contiguous()
-        self._bias_key = _param_key([self.relative_position_bias_table])
-
-    def rel_bias(self) -> torch.Tensor:
-        if (self.bias_cache is not None and not torch.is_grad_enabled()
-                and self._bias_key == _param_key(
-                    [self.relative_position_bias_table])):
-            return self.bias_cache
-        return self.materialize_bias().contiguous()
-
-    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
-        """Plain path on a (B, H, W, C) map (already padded/rolled)."""
+    def forward(self, x: torch.Tensor, mask=None, ln=None) -> torch.Tensor:
+        """Two input layouts share the parameters: a (B, H, W, C) map
+        (already padded/rolled), whose core is K1 / K8 on the card, or
+        (B_, N, C) pre-partitioned window tokens with an optional
+        (nW, N, N) mask, whose core is K11. `ln` = (weight, bias) of a
+        LayerNorm applied first (K13)."""
         nh = self.num_heads
         scale = (x.shape[-1] // nh) ** -0.5
+        if ln is not None:
+            x = layer_norm(x, ln[0], ln[1])
         qkv = linear(x, self.qkv)
-        out = kwa.window_attention_core_nhwc(qkv, self.rel_bias(), mask,
-                                             self.window_size, nh, scale)
+        if x.ndim == 4:
+            out = kwa.window_attention_core_nhwc(qkv, self.rel_bias(), mask,
+                                                 self.window_size, nh, scale)
+        else:
+            nw = mask.shape[0] if mask is not None else 1
+            out = kwa.window_attention_core(qkv, self.rel_bias(), mask, nw,
+                                            nh, scale)
         return linear(out, self.proj)
 
 

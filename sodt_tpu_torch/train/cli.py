@@ -5,7 +5,8 @@
 
 Takes the JAX `train.py` flags that this slice covers under their own
 names, plus --device (default cuda; raises when no card is visible,
---device cpu runs the plain PyTorch path). Synthetic data only; the other
+--device cpu runs the plain PyTorch path) and --weights-npz (initial
+weights, else a seeded initialization). Synthetic data only; the other
 flags of `train.py` raise, naming the ROADMAP item they wait for. Prints
 one metrics JSON line.
 """
@@ -49,6 +50,9 @@ def parser() -> argparse.ArgumentParser:
                    help="nominal batch size for gradient accumulation")
     p.add_argument("--freeze", default="",
                    help="comma-separated parameter-name substrings to freeze")
+    p.add_argument("--weights-npz", default="",
+                   help="initial weights: a state_dict saved with "
+                        "sodt_tpu_torch.weights.save_npz (as val takes it)")
     p.add_argument("--device", default="cuda")
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
@@ -71,7 +75,7 @@ def main(argv=None, on_step=None, on_grads=None) -> dict:
                      synthetic_n=a.synthetic_n, seed=a.seed, bf16=a.bf16,
                      notest=a.notest, nbs=a.nbs,
                      freeze=tuple(s for s in a.freeze.split(",") if s),
-                     device=a.device)
+                     weights_npz=a.weights_npz, device=a.device)
     m = train(tc, on_step=on_step, on_grads=on_grads)
     print(json.dumps({k: v for k, v in m.items()
                       if isinstance(v, (int, float, str))}))

@@ -20,19 +20,23 @@ import torch
 
 from ..models.detect import decode_detections
 from ..models.swin import SwinBlock, WindowAttention
+from ..models.swinv2 import WindowAttentionV2
 from ..ops.nms import batched_nms
 from ..ops.boxes import xywhn2xyxy
 from ..utils.metrics import ap_per_class, match_predictions
 
 
 def cache_rel_bias(model: torch.nn.Module) -> torch.nn.Module:
-    """Materialize every WindowAttention's (nh, N, N) rel-pos bias and, for
-    a bf16 model, every SwinBlock's kernel weights once (refresh after any
+    """Materialize every WindowAttention's (nh, N, N) rel-pos bias (V2: the
+    cpb-MLP bias of its nominal window, in the model's dtype) and, for a
+    bf16 model, every SwinBlock's kernel weights once (refresh after any
     weight load or device move)."""
     dt = getattr(model, "dtype", torch.float32)
     for m in model.modules():
         if isinstance(m, WindowAttention):
             m.cache_bias()
+        elif isinstance(m, WindowAttentionV2):
+            m.cache_bias(m.window_size, dt)
         elif isinstance(m, SwinBlock) and dt == torch.bfloat16:
             m.cache_kernel_weights(dt)
     return model

@@ -134,7 +134,8 @@ def param_labels(named_params: dict) -> dict:
     the flax leaf name: 'decay' for >= 2-D leaves without "bias" in the
     name (kernels, pos_embed), 'bias' for leaves named bias, 'nodecay' for
     the rest (norm scales, and the relative_position_bias_table, whose
-    name holds "bias")."""
+    name holds "bias", and SwinV2's q_bias / v_bias, which are not NAMED
+    bias). SwinV2's 3-D logit_scale has no "bias" in its name and decays."""
     out = {}
     for name, p in named_params.items():
         leaf = jax_leaf_name(name, p)

@@ -25,7 +25,7 @@ from ..data import SyntheticVedai, make_eval_batches
 from ..data.synthetic import pad_labels
 from ..models import build_model
 from ..models.compiler import resolve_config_path
-from ..weights import batch_to_torch, init_weights
+from ..weights import batch_to_torch, init_weights, load_npz
 from .evaluate import evaluate
 from .loss import LossConfig
 from .optim import make_optimizer
@@ -55,6 +55,7 @@ class TrainConfig:
     notest: bool = False             # only evaluate the final epoch
     nbs: int = NOMINAL_BATCH         # nominal batch for grad accumulation
     freeze: tuple = ()               # parameter-name substrings to freeze
+    weights_npz: str = ""            # initial state_dict (weights.save_npz)
     device: str = "cuda"
 
 
@@ -124,7 +125,11 @@ def train(tc: TrainConfig, on_step=None, on_grads=None) -> dict:
                             img_size=tc.img_size, nc=nc, seed=tc.seed + 1)
     model = build_model(tc.cfg, ch_in=CH_IN[tc.input_mode], nc=nc,
                         dtype=dtype, input_mode=tc.input_mode)
-    model = init_weights(model, seed=tc.seed).to(dev)
+    if tc.weights_npz:
+        model.load_state_dict(load_npz(tc.weights_npz))
+    else:
+        init_weights(model, seed=tc.seed)
+    model = model.to(dev)
     nb = max(len(train_ds) // tc.batch_size, 1)
     accumulate = max(round(tc.nbs / tc.batch_size), 1)
     hyp = scale_hyp(hyp, len(model.spec.anchors), nc, tc.img_size)

@@ -11,7 +11,10 @@ package's module names, which mirror the flax tree:
   batch_stats mean / var          -> running_mean / running_var
   PatchMerging reduction (4C, 2C) -> stride-2 conv OIHW, rows taken in the
                                      reference order (row block p = 2*dw+dh)
-  neck1 (1, 1, 2C, out)           -> neck1.a / neck1.b Linear halves
+  neck1 (1, 1, 2C, out)           -> neck1.a / neck1.b Linear halves, in the
+                                     flagship encoder only (the SwinV2
+                                     variant's neck1 is a plain 1x1 conv)
+  logit_scale, q_bias, v_bias     -> the same names (SwinV2 attention)
 
 The mapping is linear per leaf (a transpose, a reshape or a slice), so it
 carries any tree of that structure: `from_jax_tree` takes a JAX gradient
@@ -37,10 +40,19 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def _two_tap_necks(flat: dict) -> set:
+    """The encoders whose neck1 reads the concat of two stage-1 taps (the
+    flagship `ImageEncoderViT`, told by its `pos_embed`): module paths."""
+    return {p.rpartition("/")[0] for p in flat
+            if p.rpartition("/")[2] == "pos_embed"}
+
+
 def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
     """flax variables (nested dicts of arrays) -> torch state_dict."""
     sd: dict[str, np.ndarray] = {}
-    for path, v in _flatten(tree.get("params", {})).items():
+    flat = _flatten(tree.get("params", {}))
+    two_tap = _two_tap_necks(flat)
+    for path, v in flat.items():
         parts = path.split("/")
         leaf, mods = parts[-1], parts[:-1]
         name = ".".join(mods)
@@ -49,7 +61,8 @@ def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
             c = c4 // 4
             hwio = v.reshape(2, 2, c, out).transpose(1, 0, 2, 3)
             sd[f"{name}.weight"] = hwio.transpose(3, 2, 0, 1)
-        elif leaf == "kernel" and mods[-1] == "neck1":
+        elif (leaf == "kernel" and mods[-1] == "neck1"
+              and "/".join(mods[:-1]) in two_tap):
             w = v[0, 0]                                   # (2C, out)
             c = w.shape[0] // 2
             sd[f"{name}.a.weight"] = w[:c].T
@@ -60,7 +73,8 @@ def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
             sd[f"{name}.weight"] = v.transpose(3, 2, 0, 1)
         elif leaf == "scale":
             sd[f"{name}.weight"] = v
-        else:                    # bias, pos_embed, relative_position_bias_table
+        else:       # bias, pos_embed, relative_position_bias_table, and
+            #         logit_scale, q_bias, v_bias of the SwinV2 attention
             sd[".".join(parts)] = v
     for path, v in _flatten(tree.get("batch_stats", {})).items():
         parts = path.split("/")
@@ -121,9 +135,16 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Random weights from a seeded torch.Generator, with the flax
     initializers' distributions: lecun-normal kernels, zero biases, unit
     norm scales, trunc-normal(0.02) rel-pos tables, zero pos_embed. The
-    Detect biases keep their prior from construction."""
+    Detect biases keep their prior from construction. The SwinV2 blocks
+    keep logit_scale = log 10 and zero q_bias / v_bias from construction,
+    and their two post-norm scales start at ZERO, so a freshly initialized
+    V2 block is the identity."""
+    from .models.swinv2 import SwinBlockV2
     g = torch.Generator().manual_seed(seed)
     for mname, mod in model.named_modules():
+        if isinstance(mod, SwinBlockV2):
+            mod.norm1.weight.zero_()
+            mod.norm2.weight.zero_()
         for pname, p in mod.named_parameters(recurse=False):
             if pname == "relative_position_bias_table":
                 p.copy_(torch.nn.init.trunc_normal_(

@@ -176,6 +176,7 @@ MAIN = {"swin_block": 3, "block_attention_ln": 3, "conv_mlp_tail": 3,
         "block_attention": 4, "mlp_tail": 2, "conv_mlp_tail_noln": 2,
         "window_attention": 0, "global_attention": 1,
         "window_attention_bwd": 0, "global_attention_bwd": 0,
+        "window_attention_tokens": 0, "window_attention_tokens_bwd": 0,
         # K13: the four cross-channel LNs, stage 2's four LN1, stage 3's
         # LN1, two PatchMergings; add+LN2 of stage 2's blocks and stage 3's
         "layernorm": 11, "add_layernorm": 5}
@@ -412,5 +413,198 @@ def test_flagship_backward_reaches_every_parameter(card):
     assert counts["layernorm"] == 23 and counts["add_layernorm"] == 5
     for name, p in m.named_parameters():
         assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max() > 0, name
+
+
+# ------------------------------------------- K11: pre-partitioned windows
+#
+# The corners of the kernel's domain: head dims 16, 32 and 64, windows of 4
+# (a 2x2 map: SwinV2's last stage at 64 px), 16, 64, 100 (padded to 112 in
+# shared memory) and 256 tokens, one window,
+# more windows than dbias groups, and the four full-width shapes of the
+# SwinV2 family at 512 px (batch 2; stage 3's nw = 4).
+K11_SHAPES = [(8, 4, 96, 3, 2), (4, 16, 32, 2, 4), (6, 16, 96, 3, 2),
+              (1, 16, 768, 24, 1),
+              (512, 64, 96, 3, 256), (128, 64, 192, 6, 64),
+              (32, 64, 384, 12, 16), (8, 64, 768, 24, 4),
+              (6, 100, 64, 2, 3), (3, 256, 128, 2, 3), (300, 64, 64, 4, 2)]
+
+
+def _k11_inputs(w, n, c, nh, nw, masked):
+    qkv = _rnd((w, n, 3 * c), 70).to(BF)
+    gy = _rnd((w, n, c), 71).to(BF)
+    bias = _rnd((nh, n, n), 72)
+    mask = None
+    if masked:
+        mask = torch.where(_rnd((nw, n, n), 73) > 0.5, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()    # no fully masked row
+    return qkv, gy, bias, mask, (nw if masked else 1)
+
+
+@pytest.mark.parametrize("w,n,c,nh,nw", K11_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("scale_one", [True, False], ids=["v2", "v1"])
+def test_window_attention_tokens_kernel(card, w, n, c, nh, nw, masked,
+                                        scale_one):
+    """K11 forward against its plain version; scale 1.0 (the V2 caller) and
+    hd ** -0.5 (the v1 token-layout caller)."""
+    qkv, _, bias, mask, nw = _k11_inputs(w, n, c, nh, nw, masked)
+    scale = 1.0 if scale_one else (c // nh) ** -0.5
+    kernels.reset_launches()
+    out = wa.fused_window_attention(qkv, bias, mask, nw, nh, scale)
+    ref = wa.reference_attention_qkv(qkv.float(), bias, mask, nw, nh, scale)
+    torch.cuda.synchronize()
+    assert out.dtype == BF and tuple(out.shape) == (w, n, c)
+    assert kernels.launches()["window_attention_tokens"] == 1
+    assert _rel(out, ref) < TOL
+    # the map kernel (K1) on the same windows, each as a ws x ws map of its
+    # own, agrees to the last bit: one body, two addressings
+    ws = int(n ** 0.5)
+    if ws * ws == n and not masked:
+        k1 = wa.fused_window_attention_nhwc(qkv.reshape(w, ws, ws, 3 * c),
+                                            bias, None, ws, nh, scale)
+        assert torch.equal(k1.reshape(w, n, c), out)
+
+
+@pytest.mark.parametrize("w,n,c,nh,nw", K11_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_tokens_bwd_kernel(card, w, n, c, nh, nw, masked):
+    """K11 backward against its plain version, dq / dk / dv singly, the f32
+    dbias, and bit-equal results run to run (no atomics)."""
+    qkv, gy, bias, mask, nw = _k11_inputs(w, n, c, nh, nw, masked)
+    scale = (c // nh) ** -0.5
+    kernels.reset_launches()
+    dqkv, dbias = wa.window_attention_tokens_bwd(qkv, bias, mask, nw, nh,
+                                                 scale, gy)
+    rq, rb = wa.attention_qkv_bwd_plain(qkv.float(), bias, mask, nw, nh,
+                                        scale, gy.float())
+    torch.cuda.synchronize()
+    assert kernels.launches()["window_attention_tokens_bwd"] == 1
+    assert dqkv.dtype == BF and dbias.dtype == torch.float32
+    assert dqkv.float().abs().max() > 0
+    for k in range(3):
+        assert _rel(dqkv[..., k * c:(k + 1) * c], rq[..., k * c:(k + 1) * c]) < TOL
+    assert _rel(dbias, rb) < DBIAS_TOL
+    d2, b2 = wa.window_attention_tokens_bwd(qkv, bias, mask, nw, nh, scale, gy)
+    assert torch.equal(d2, dqkv) and torch.equal(b2, dbias)
+
+
+def test_window_attention_tokens_grad(card):
+    """torch.autograd.grad through K11 -> K11 backward with a mask and a
+    non-contiguous cotangent against autograd of the f32 plain version; the
+    dispatcher takes the kernel inside its domain and the plain version
+    outside it."""
+    w, n, c, nh, nw = 128, 64, 192, 6, 64
+    qkv, _, bias, mask, nw = _k11_inputs(w, n, c, nh, nw, True)
+    qkv.requires_grad_()
+    bias.requires_grad_()
+    gy = _rnd((w, c, n), 74).to(BF).transpose(1, 2)
+    kernels.reset_launches()
+    out = wa.window_attention_core(qkv, bias, mask, nw, nh, 1.0)
+    dq, db = torch.autograd.grad(out, [qkv, bias], gy)
+    q32 = qkv.detach().float().requires_grad_()
+    b32 = bias.detach().clone().requires_grad_()
+    ref = wa.reference_attention_qkv(q32, b32, mask, nw, nh, 1.0)
+    rq, rb = torch.autograd.grad(ref, [q32, b32], gy.float())
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert counts["window_attention_tokens"] == 1
+    assert counts["window_attention_tokens_bwd"] == 1
+    assert dq.abs().max() > 0
+    assert _rel(dq, rq) < TOL and _rel(db, rb) < 5e-3
+    # JAX's gate: f32 on the card and windows of more than 256 tokens take
+    # the plain version; bf16 windows of up to 256 tokens go to the kernel,
+    # which raises outside its domain (head dim 2) and never falls back
+    kernels.reset_launches()
+    wa.window_attention_core(qkv.detach().float(), bias.detach(), mask, nw,
+                             nh, 1.0)
+    wa.window_attention_core(_rnd((2, 400, 96), 75).to(BF),
+                             _rnd((2, 400, 400), 76), None, 1, 2, 1.0)
+    assert sum(kernels.launches().values()) == 0
+    with pytest.raises(ValueError, match="head dim 2"):
+        wa.window_attention_core(_rnd((8, 4, 72), 77).to(BF),
+                                 _rnd((12, 4, 4), 78), None, 1, 12, 1.0)
+
+
+def test_window_attention_tokens_refusals(card):
+    """The launcher raises outside the kernel's domain; it never falls back."""
+    qkv, gy, bias, mask, nw = _k11_inputs(8, 64, 96, 3, 4, True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wa.fused_window_attention(qkv.float(), bias, mask, nw, 3, 1.0)
+    with pytest.raises(ValueError, match="head dim 8"):
+        wa.fused_window_attention(qkv, _rnd((12, 64, 64), 1), mask, nw, 12, 1.0)
+    with pytest.raises(ValueError, match="window of 400 tokens"):
+        wa.fused_window_attention(_rnd((2, 400, 96), 2).to(BF),
+                                  _rnd((2, 400, 400), 3), None, 1, 2, 1.0)
+    with pytest.raises(ValueError, match="mask shape"):
+        wa.fused_window_attention(qkv, bias, mask, 3, 3, 1.0)
+    with pytest.raises(ValueError, match="nw must be 1"):
+        wa.fused_window_attention(qkv, bias, None, 4, 3, 1.0)
+    with pytest.raises(ValueError, match="bias shape"):
+        wa.fused_window_attention(qkv, bias[:2], mask, nw, 3, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wa.fused_window_attention(qkv.transpose(0, 1).contiguous().transpose(0, 1),
+                                  bias, mask, nw, 3, 1.0)
+    with pytest.raises(ValueError, match="gy shape"):
+        wa.window_attention_tokens_bwd(qkv, bias, mask, nw, 3, 1.0, gy[:4])
+
+
+# launches per forward of the SwinV2 family: K11 in each of its 12 blocks,
+# K13 in the cross-channel block (4), the post-norms (24) and the
+# PatchMergings (3); nothing else of the port's kernels
+SWINV2 = dict({k: 0 for k in MAIN}, window_attention_tokens=12, layernorm=31)
+
+
+def _swinv2(dt):
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.weights import init_weights
+    from torch_port_common import seed_postnorms
+    m = build_model("model_swinv2.yaml", ch_in=4, dtype=dt)
+    return seed_postnorms(init_weights(m, 0), 0).cuda()
+
+
+@pytest.mark.parametrize("img", [512, 256, 128, 64])
+def test_swinv2_forward_dispatch(card, img):
+    """Launches per forward and bf16-vs-f32 Detect maps at every valid
+    size: below 512 px the deep stages run on shrunk windows (one 8x8, 4x4
+    or 2x2 window per image), which K11 takes too. Post-norm scales from
+    the seed: at zero the blocks would be the identity."""
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    raws = {}
+    for dt in (BF, torch.float32):
+        m = cache_rel_bias(_swinv2(dt).eval())
+        x = torch.rand((2, img, img, 3), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+        kernels.reset_launches()
+        with torch.no_grad():
+            raws[dt] = m(x, x)["raw"][0].float()
+        torch.cuda.synchronize()
+        if dt == BF:
+            assert kernels.launches() == SWINV2
+        else:
+            assert sum(kernels.launches().values()) == 0   # f32: plain path
+    a, b = raws[BF], raws[torch.float32]
+    assert torch.isfinite(a).all()
+    assert ((a - b).norm() / b.norm()).item() < TOL
+
+
+def test_swinv2_backward_reaches_every_parameter(card):
+    """A backward through the bf16 SwinV2 model on the card: K11's backward
+    once per block, and no trainable parameter without a finite, non-zero
+    gradient (the cpb-MLP bias and the logit scale included: dbias flows)."""
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    m = cache_rel_bias(_swinv2(BF).eval())      # stale caches
+    m.train()
+    x = torch.rand((2, 256, 256, 3), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    kernels.reset_launches()
+    out = m(x, x)["raw"][0]
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert kernels.launches() == dict(SWINV2, window_attention_tokens_bwd=12)
+    for name, p in m.named_parameters():
+        assert p.grad is not None, name
+        assert p.grad.dtype == torch.float32, name
         assert torch.isfinite(p.grad).all(), name
         assert p.grad.abs().max() > 0, name

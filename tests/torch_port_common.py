@@ -7,7 +7,6 @@ from __future__ import annotations
 import contextlib
 
 import numpy as np
-import jax.numpy as jnp
 import torch
 
 
@@ -21,6 +20,7 @@ def t(x):
 
 
 def j(x):
+    import jax.numpy as jnp     # the tests on the card import no JAX
     return jnp.asarray(np.asarray(x, dtype=np.float32))
 
 
@@ -59,9 +59,27 @@ NARROW_CFG = {
 }
 
 
+SWINV2_CFG = "sodt_tpu/configs/model_swinv2.yaml"
+PORT_SWINV2_CFG = "sodt_tpu_torch/configs/model_swinv2.yaml"
+
+
+def with_depths(spec, depths):
+    """A parsed SwinV2 model (either package's ModelSpec) with the encoder's
+    stage depths cut to `depths`: both packages pass the backbone entry's
+    args to the encoder's constructor."""
+    import dataclasses
+    enc = spec.backbone[0]
+    args = tuple(sorted(dict(enc.args, depths=tuple(depths)).items()))
+    return dataclasses.replace(
+        spec, backbone=(dataclasses.replace(enc, args=args),))
+
+
 def randomize_variables(v, seed: int):
     """Perturb a flax init so BN stats, LN affine, biases and pos_embed
-    are not their trivial init values (the comparison then covers them)."""
+    are not their trivial init values (the comparison then covers them).
+    A norm scale that starts at ZERO (the post-norms of the SwinV2 blocks,
+    which make a fresh block the identity) is drawn of order 1, and the
+    SwinV2 attention's logit_scale, q_bias and v_bias are perturbed."""
     rng = np.random.default_rng(seed)
 
     def walk(d):
@@ -71,11 +89,31 @@ def randomize_variables(v, seed: int):
                 out[k] = walk(x)
                 continue
             x = np.asarray(x, np.float32)
-            if k in ("mean", "bias", "pos_embed"):
+            if k in ("mean", "bias", "pos_embed", "q_bias", "v_bias",
+                     "logit_scale"):
                 x = x + 0.05 * rng.standard_normal(x.shape).astype(np.float32)
+            elif k == "scale" and not x.any():
+                x = rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
             elif k in ("var", "scale"):
                 x = x * (1.0 + 0.1 * rng.uniform(-1, 1, x.shape)).astype(np.float32)
             out[k] = x
         return out
 
     return walk(v)
+
+
+@torch.no_grad()
+def seed_postnorms(model, seed: int = 0):
+    """Draw the post-norm scales of every SwinV2 block of the port's
+    `model` from `seed`, uniform in [0.5, 1.5] (what `randomize_variables`
+    does to a flax tree). At their zero initialization every V2 block is
+    the identity: its attention, its MLP and their gradients contribute
+    exactly nothing, and any comparison passes."""
+    from sodt_tpu_torch.models.swinv2 import SwinBlockV2
+    g = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, SwinBlockV2):
+            for norm in (mod.norm1, mod.norm2):
+                norm.weight.copy_(0.5 + torch.rand(norm.weight.shape,
+                                                   generator=g))
+    return model
