@@ -19,7 +19,16 @@ the final ok line:
               and K13 at the five shapes that family gives it;
               the backward kernels (K9, K10, K11) also dq, dk and dv
               singly, beside the error that the bf16 store alone would
-              leave, and their dbias bit-equal over two runs
+              leave, and their dbias bit-equal over two runs; K12's five
+              int8 bodies against their plain int8 versions on the SAME
+              bf16 inputs (the rounding points are part of the function),
+              with the bf16 kernel's time at the same shape beside them,
+              K2's also at the 608 px stage 1 (19 windows per strip);
+              and against the plain int8 version with the kernels' own
+              attention core: relative L2 <= 3e-3 and every strip's
+              abs-max slot within 1e-2, where the bf16 kernel's output
+              and strip maxima over wrong rows (one 64-row tile, the
+              unshifted rows, no halo row) must read above those limits
      autograd torch.autograd.grad through K1 -> K9, K8 -> K10 and K11 ->
               K11 backward against autograd of the f32 plain version
   4. main     `python -m sodt_tpu_torch.val --task val --synthetic
@@ -49,12 +58,22 @@ the final ok line:
      grads    one training batch, two seeds: gradients (and raw Detect
               maps) of the bf16 kernel path vs the f32 plain path on the
               same weights
+     int8     `python -m sodt_tpu_torch.val --int8` on the main path's
+              arguments (int8 serving, K12): launches per forward K2-K7's
+              int8 bodies 3, 3, 3, 4, 2, 2 (their bf16 kernels 0), K8 1,
+              K13 11 + 5; raw Detect maps of one batch, the int8 kernels vs
+              the plain int8 bodies on the card (relative L2 <= 2e-2), vs
+              the same with the kernels' attention core and vs the bf16
+              kernels (reported); each of the 17 K12 calls of that forward
+              held on its own arguments as the kernel cases are; then
+              `--task speed` with and without --int8
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
               device time
      profile_train  the same over one warm training step
      profile_swinv2, profile_swinv2_train  the same two for the SwinV2
               model
+     profile_int8  one warm eval step in int8 serving
   6. the {"kernels": [...]} line, the card line, the ok line.
 
 Needs a CUDA card; exits 1 without one and 2 when the port is missing.
@@ -62,6 +81,7 @@ Needs a CUDA card; exits 1 without one and 2 when the port is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -71,8 +91,10 @@ import time
 import traceback
 from pathlib import Path
 
+START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, published peak
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, published
+INT8_OPS_PER_S = 1979e12       # dense s8 tensor-core peak, published
 KERNEL_TOL = 2e-2              # max |kernel - plain| / max |plain|, bf16
 # the f32 dbias of K9 / K10 sums dS over the batch and up to 1024 windows;
 # every term is formed in f32 from exact bf16 inputs, so only the order of
@@ -80,6 +102,20 @@ KERNEL_TOL = 2e-2              # max |kernel - plain| / max |plain|, bf16
 # see PERF.md)
 DBIAS_TOL = 1e-3
 DETECT_REL_L2 = 2e-2           # ||raw_bf16 - raw_f32|| / ||raw_f32||
+# K12 against its plain int8 version with the same attention core
+# (`dispatch=True`: K1, which the int8 kernels run as their core) on the
+# same bf16 inputs, where only the int8 arithmetic separates them: a wrong
+# strip scale moves every code of the strip, ~1e-2 of the output (the bf16
+# kernel, un-quantized, must read above Q8_REL_L2). The same scales leave
+# K5's, K6's and K7's bodies bit-equal; K2 reads up to 1.5e-3 (an f32 LN1
+# that differs in the last ulp can move its attention output's strip
+# maximum by a bf16 step, and with it that strip's codes). The strip
+# abs-max slots (`quant.strip_amax_log`) are held one by one (K2: up to
+# 2.9e-3); strip maxima over a wrong set of rows (one 64-row GEMM tile, the
+# unshifted rows of a shifted block, a conv tail's strip without its halo
+# row) must read above Q8_AMAX_TOL. Measured: PERF.md, PR 4.
+Q8_REL_L2 = 3e-3               # ||kernel - plain|| / ||plain||
+Q8_AMAX_TOL = 1e-2             # max over strips |slot - plain| / plain
 # gradients of the bf16 kernel path against the f32 plain path, one batch,
 # same weights: relative L2 over all gradients together, and the worst
 # leaf among those that carry at least 1e-3 of the largest leaf's norm
@@ -114,7 +150,19 @@ PER_FORWARD = {"window_attention": 0, "swin_block": 3,
                "global_attention": 1, "window_attention_bwd": 0,
                "global_attention_bwd": 0, "window_attention_tokens": 0,
                "window_attention_tokens_bwd": 0, "layernorm": 11,
-               "add_layernorm": 5}
+               "add_layernorm": 5, "swin_block_q8": 0,
+               "block_attention_ln_q8": 0, "conv_mlp_tail_q8": 0,
+               "block_attention_q8": 0, "mlp_tail_q8": 0,
+               "conv_mlp_tail_noln_q8": 0}
+# int8 serving (`val --int8`, JAX's int8 gate) on the main path's
+# arguments: each bf16 K2-K7 launch becomes its int8 twin's (K12)
+INT8_ARGS = ["--int8"] + MAIN_ARGS
+INT8_FORWARD = dict(PER_FORWARD, swin_block=0, block_attention_ln=0,
+                    conv_mlp_tail=0, block_attention=0, mlp_tail=0,
+                    conv_mlp_tail_noln=0, swin_block_q8=3,
+                    block_attention_ln_q8=3, conv_mlp_tail_q8=3,
+                    block_attention_q8=4, mlp_tail_q8=2,
+                    conv_mlp_tail_noln_q8=2)
 # launches per training step (forward + backward). The backward of K2, K3
 # and K5 replays a composition whose core is K1 (10 windowed blocks: K1 10,
 # K9 10); K8's backward is K10, with no replay. K13 in the replays: K2's
@@ -197,6 +245,22 @@ TPU_KERNEL = {
                   ("train", "swinv2", "swinv2_train")),
     "add_layernorm": ("K13", "sodt_tpu_torch/csrc/layernorm.cu",
                       "sodt_tpu/pallas/layernorm.py:72", ("train",)),
+    # K12: the int8 branches of the bodies of K2-K7
+    "swin_block_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+                      "sodt_tpu/pallas/swin_block.py:158", ("int8",)),
+    "block_attention_ln_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+                              "sodt_tpu/pallas/window_attention.py:522",
+                              ("int8",)),
+    "conv_mlp_tail_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+                         "sodt_tpu/pallas/swin_block.py:356", ("int8",)),
+    "block_attention_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+                           "sodt_tpu/pallas/window_attention.py:558",
+                           ("int8",)),
+    "mlp_tail_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+                    "sodt_tpu/pallas/swin_block.py:549", ("int8",)),
+    "conv_mlp_tail_noln_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+                              "sodt_tpu/pallas/swin_block.py:630",
+                              ("int8",)),
 }
 
 
@@ -226,8 +290,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float,
+             int8_ops: float = 0.0) -> tuple[float, str]:
+    """The larger of the bytes' time and the operations' (bf16 FLOPs at
+    the bf16 peak plus s8 operations at the int8 peak)."""
+    tb = nbytes / HBM_BYTES_PER_S
+    tf = flops / BF16_FLOPS_PER_S + int8_ops / INT8_OPS_PER_S
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -277,10 +345,16 @@ def kernel_cases(batch: int) -> list[dict]:
     cases = []
 
     def case(name, shape, kern, plain, args, nb, fl, calls, lib=None,
-             tols=(KERNEL_TOL,), path="main"):
+             tols=(KERNEL_TOL,), path="main", int8_ops=0, bf16=None,
+             q8=None):
+        """`int8_ops`: s8 operations of the function (K12, whose plain
+        version then runs on the same bf16 inputs); `bf16`: the bf16
+        kernel at the same shape, timed beside it; `q8`: what
+        `q8_readings` needs."""
         cases.append(dict(name=name, shape=shape, kern=kern, plain=plain,
                           args=args, nbytes=nb, flops=fl, calls=calls,
-                          lib=lib, tols=tols, path=path))
+                          lib=lib, tols=tols, path=path, int8_ops=int8_ops,
+                          bf16=bf16, q8=q8))
 
     def sdpa_bwd(q, k, v, am, scale):
         """The backward of SDPA with the same additive bias (no dbias: the
@@ -519,7 +593,113 @@ def kernel_cases(batch: int) -> list[dict]:
          2 * nbytes(qkv) + nbytes(gy) + 2 * nbytes(bias),
          10 * batch * n * n * c, 1, sdpa_bwd(q, k, v, mask_bf, scale),
          (KERNEL_TOL, DBIAS_TOL), path="train")
+    int8_cases(batch, rnd, ln, msk, case)
     return cases
+
+
+def int8_cases(batch: int, rnd, ln, msk, case) -> None:
+    """K12 at the int8 path's shapes (512 px): stage 1 (c 192, hidden 768)
+    K2's body x3, K3's + K4's (shift 2) x3; stage 2 (c 384) K5's x2 + x2
+    (shift 0 / 2), K6's x2, K7's x2; and K2's at 608 px's stage 1 (152 x
+    152: 19 windows per strip; 0 calls on the path). The kernels get the
+    int8 weights precomputed, as the model's cache hands them over. Bytes:
+    activations in and out, int8 weights; operations: the projections as s8
+    (two per multiply-add; K4 / K7's fc1 also over the halo row of each
+    8-row strip) plus the bf16 attention core (4 N C per token)."""
+    import functools
+    import torch
+    from sodt_tpu_torch.kernels import window_attention as wa
+    from sodt_tpu_torch.kernels import swin_block as sb
+    from sodt_tpu_torch.kernels.quant import q8_weights, tail_ws
+
+    def q8case(name, shape, fn, plain, args, q8, nb, ops, attn, calls):
+        """`attn`: the attention core's FLOPs (0 for the tails, whose plain
+        version has no core to share)."""
+        b, h, w = args[0].shape[:3]
+        ws = i8ws if attn else tail_ws(h)
+        shift = args[-1] if isinstance(args[-1], int) else 0
+        case(name, shape, functools.partial(fn, int8=True, q8=q8),
+             functools.partial(plain, q8=q8), args, nb, attn, calls,
+             path="int8", int8_ops=ops, bf16=functools.partial(fn, *args),
+             q8=dict(same_core=functools.partial(
+                 plain, q8=q8, **({"dispatch": True} if attn else {})),
+                 geom=(b, h, w, ws, shift if attn else 0)))
+
+    def wbytes(q8):
+        return sum(nbytes(q, s) for q, s in q8.values())
+
+    i8nh, i8ws, i8n = 12, 8, 64
+    for hw, calls2 in ((128, 3), (152, 0)):
+        c1 = 192
+        m1 = batch * hw * hw
+        xa = rnd((batch, hw, hw, c1))
+        att1 = (rnd((3 * c1, c1), c1 ** -0.5), rnd((3 * c1,), 0.1),
+                rnd((c1, c1), c1 ** -0.5), rnd((c1,), 0.1))
+        lin1 = (rnd((4 * c1, c1), c1 ** -0.5), rnd((4 * c1,), 0.1),
+                rnd((c1, 4 * c1), (4 * c1) ** -0.5), rnd((c1,), 0.1))
+        lna, lnb_ = ln(c1), ln(c1)
+        bias1 = rnd((i8nh, i8n, i8n), 1.0, torch.float32)
+        sc1 = (c1 // i8nh) ** -0.5
+        q2 = q8_weights(None, wqkv=att1[0], wp=att1[2], w1=lin1[0],
+                        w2=lin1[2])
+        q8case("swin_block_q8", f"({batch},{hw},{hw},{c1}) shift 0",
+               sb.fused_swin_block, sb.swin_block_q8_plain,
+               (xa, *lna, *att1, *lnb_, *lin1, bias1, None, i8ws, i8nh, sc1,
+                0), q2, 2 * nbytes(xa) + wbytes(q2) + nbytes(
+                    bias1, *lna, *lnb_, att1[1], att1[3], lin1[1], lin1[3]),
+               24 * m1 * c1 * c1,
+               4 * m1 * i8n * c1, calls2)
+        if hw != 128:
+            continue
+        mask1 = msk(hw, i8ws, 2)
+        q3 = {k: q2[k] for k in ("wqkv", "wp")}
+        q8case("block_attention_ln_q8", f"({batch},{hw},{hw},{c1}) shift 2",
+               wa.fused_block_attention_ln, wa.block_attention_ln_q8_plain,
+               (xa, *lna, *att1, bias1, mask1, i8ws, i8nh, sc1, 2), q3,
+               2 * nbytes(xa) + wbytes(q3) + nbytes(
+                   bias1, mask1, *lna, att1[1], att1[3]), 8 * m1 * c1 * c1,
+               4 * m1 * i8n * c1, 3)
+        aa = rnd((batch, hw, hw, c1))
+        conv1 = (rnd((c1, c1), c1 ** -0.5), rnd((c1,), 0.1),
+                 rnd((c1, 2, 2, c1), (4 * c1) ** -0.5), rnd((c1,), 0.1),
+                 rnd((c1, c1), c1 ** -0.5), rnd((c1,), 0.1))
+        q4 = q8_weights(None, w1=conv1[0], wc=conv1[2], w2=conv1[4])
+        halo1 = m1 // 8
+        q8case("conv_mlp_tail_q8", f"({batch},{hw},{hw},{c1}) shift 2",
+               sb.fused_conv_mlp_tail, sb.conv_mlp_tail_q8_plain,
+               (xa, aa, *lnb_, *conv1, 2), q4, 3 * nbytes(xa) + wbytes(q4),
+               2 * (m1 + halo1) * c1 * c1 + 10 * m1 * c1 * c1, 0, 3)
+
+    hw, c2 = 64, 384
+    m2 = batch * hw * hw
+    xb = rnd((batch, hw, hw, c2))
+    att2 = (rnd((3 * c2, c2), c2 ** -0.5), rnd((3 * c2,), 0.1),
+            rnd((c2, c2), c2 ** -0.5), rnd((c2,), 0.1))
+    bias2 = rnd((i8nh, i8n, i8n), 1.0, torch.float32)
+    q5 = q8_weights(None, wqkv=att2[0], wp=att2[2])
+    for sh in (0, 2):
+        q8case("block_attention_q8", f"({batch},{hw},{hw},{c2}) shift {sh}",
+               wa.fused_block_attention, wa.block_attention_q8_plain,
+               (xb, *att2, bias2, msk(hw, i8ws, sh), i8ws, i8nh,
+                (c2 // i8nh) ** -0.5, sh), q5, 2 * nbytes(xb) + wbytes(q5)
+               + nbytes(bias2, msk(hw, i8ws, sh), att2[1], att2[3]),
+               8 * m2 * c2 * c2, 4 * m2 * i8n * c2, 2)
+    rb, yb = rnd((batch, hw, hw, c2)), rnd((batch, hw, hw, c2))
+    hid2 = 4 * c2
+    lin2 = (rnd((hid2, c2), c2 ** -0.5), rnd((hid2,), 0.1),
+            rnd((c2, hid2), hid2 ** -0.5), rnd((c2,), 0.1))
+    q6 = q8_weights(None, w1=lin2[0], w2=lin2[2])
+    q8case("mlp_tail_q8", f"({batch},{hw},{hw},{c2}) hidden {hid2}",
+           sb.fused_mlp_tail, sb.mlp_tail_q8_plain, (rb, yb, *lin2), q6,
+           3 * nbytes(rb) + wbytes(q6), 4 * m2 * c2 * hid2, 0, 2)
+    conv2 = (rnd((c2, c2), c2 ** -0.5), rnd((c2,), 0.1),
+             rnd((c2, 2, 2, c2), (4 * c2) ** -0.5), rnd((c2,), 0.1),
+             rnd((c2, c2), c2 ** -0.5), rnd((c2,), 0.1))
+    q7 = q8_weights(None, w1=conv2[0], wc=conv2[2], w2=conv2[4])
+    q8case("conv_mlp_tail_noln_q8", f"({batch},{hw},{hw},{c2})",
+           sb.fused_conv_mlp_tail_noln, sb.conv_mlp_tail_noln_q8_plain,
+           (rb, yb, *conv2), q7, 3 * nbytes(rb) + wbytes(q7),
+           2 * (m2 + m2 // 8) * c2 * c2 + 10 * m2 * c2 * c2, 0, 2)
 
 
 def phase_kernels(batch: int) -> list[dict]:
@@ -529,7 +709,10 @@ def phase_kernels(batch: int) -> list[dict]:
     for cs in kernel_cases(batch):
         args = cs["args"]
         outs = as_tuple(cs["kern"](*args))
-        refs = as_tuple(cs["plain"](*_cast(args, torch.float32)))
+        # K12's plain version takes the same bf16 inputs: its rounding
+        # points are part of the function
+        refs = as_tuple(cs["plain"](*(args if cs["int8_ops"]
+                                      else _cast(args, torch.float32))))
         torch.cuda.synchronize()
         errs = [(o.float() - r.float()).abs().max().item()
                 for o, r in zip(outs, refs)]
@@ -555,7 +738,11 @@ def phase_kernels(batch: int) -> list[dict]:
         ms = time_ms(lambda: cs["kern"](*args))
         pms = time_ms(lambda: cs["plain"](*args))
         lms = time_ms(cs["lib"]) if cs["lib"] is not None else None
-        bms, by = bound_ms(cs["nbytes"], cs["flops"])
+        b16 = time_ms(cs["bf16"]) if cs["bf16"] is not None else None
+        bms, by = bound_ms(cs["nbytes"], cs["flops"], cs["int8_ops"])
+        q8 = (q8_readings(lambda: cs["kern"](*args),
+                          lambda: cs["q8"]["same_core"](*args), cs["bf16"],
+                          cs["q8"]["geom"]) if cs["q8"] is not None else {})
         row = {"phase": "kernel", "name": cs["name"], "shape": cs["shape"],
                "batch": batch, "path": cs["path"],
                "calls_per_forward": cs["calls"],
@@ -564,14 +751,91 @@ def phase_kernels(batch: int) -> list[dict]:
                "dq_dk_dv_rel_err": singly,
                "bit_equal_over_two_runs": bit_equal,
                "ms": ms, "plain_ms": pms, "library_ms": lms,
-               "bound_ms": bms, "bound_by": by,
+               "bf16_kernel_ms": b16, "bound_ms": bms, "bound_by": by,
+               **q8,
                "ok": bool(len(rels) == len(cs["tols"]) and all(
                    math.isfinite(r) and r <= t
                    for r, t in zip(rels, cs["tols"]))
-                   and bit_equal is not False)}
+                   and bit_equal is not False and q8.get("q8_ok", True))}
         emit(row)
         rows.append(row)
     return rows
+
+
+def _amax_err(klog, slots) -> float:
+    """max over points and strips of |kernel slot - slot| / slot."""
+    return max(((k.amax(-1) - c).abs() / c.clamp_min(1e-30)).max().item()
+               for k, c in zip(klog, slots))
+
+
+def int8_bodies() -> dict:
+    """K12's bodies: counter -> (module, launcher, plain int8 body, bf16
+    wrapper, has an attention core). A launcher and its plain body take the
+    same arguments; the bf16 wrapper takes them without the int8 weights."""
+    from sodt_tpu_torch.kernels import window_attention as wa
+    from sodt_tpu_torch.kernels import swin_block as sb
+    return {
+        "swin_block_q8": (sb, "_launch_swin_block_q8", sb.swin_block_q8_plain,
+                          sb.fused_swin_block, True),
+        "block_attention_ln_q8": (
+            wa, "_launch_block_attention_ln_q8",
+            wa.block_attention_ln_q8_plain, wa.fused_block_attention_ln,
+            True),
+        "conv_mlp_tail_q8": (sb, "_launch_conv_tail_q8",
+                             sb.conv_mlp_tail_q8_plain, sb.fused_conv_mlp_tail,
+                             False),
+        "block_attention_q8": (wa, "_launch_block_attention_q8",
+                               wa.block_attention_q8_plain,
+                               wa.fused_block_attention, True),
+        "mlp_tail_q8": (sb, "_launch_mlp_tail_q8", sb.mlp_tail_q8_plain,
+                        sb.fused_mlp_tail, False),
+        "conv_mlp_tail_noln_q8": (sb, "_launch_conv_tail_noln_q8",
+                                  sb.conv_mlp_tail_noln_q8_plain,
+                                  sb.fused_conv_mlp_tail_noln, False)}
+
+
+def q8_readings(kern, same_core, bf16, geom) -> dict:
+    """K12: the kernel (`kern()`) against its plain int8 version with the
+    same attention core (`same_core()`), output and strip abs-max slots,
+    and the controls each reading must tell from the kernel: the bf16
+    kernel's output (`bf16()`), and strip maxima over one 64-row tile, over
+    the unshifted rows (a shifted block) and without the halo row (the conv
+    tails). geom: (B, H, W, strip rows, shift of the strips' coordinates)."""
+    import torch
+    from sodt_tpu_torch.kernels.quant import strip_amax_log
+    b, h, w, ws, shift = geom
+    with strip_amax_log() as klog:
+        out = kern()
+    with strip_amax_log() as plog:
+        ref = same_core()
+    bf = bf16()
+    ref32 = ref.float()
+    rl2 = lambda a: ((a.float() - ref32).norm() / ref32.norm()).item()
+    slots = [p.amax(-1) for p in plog]
+    controls = {
+        "bf16_kernel_rel_l2": rl2(bf),
+        "tile_amax_rel_err": _amax_err(klog, [p[:, :64].amax(-1)
+                                              for p in plog]),
+        "unshifted_amax_rel_err": _amax_err(klog, [
+            torch.roll(p.reshape(b, h, w), (shift, shift), (1, 2))
+            .reshape(p.shape).amax(-1) for p in plog]) if shift else None,
+        "no_halo_amax_rel_err": _amax_err(
+            [k for k, p in zip(klog, plog) if p.shape[1] > ws * w],
+            [p[:, :ws * w].amax(-1) for p in plog if p.shape[1] > ws * w])
+        if any(p.shape[1] > ws * w for p in plog) else None}
+    r = {"q8_rel_l2": rl2(out), "q8_amax_rel_err": _amax_err(klog, slots),
+         "q8_amax_bit_equal_share": sum(
+             int((k.amax(-1) == c).sum()) for k, c in zip(klog, slots))
+         / sum(c.numel() for c in slots),
+         "q8_points": [len(klog), len(plog)],
+         "q8_limits": [Q8_REL_L2, Q8_AMAX_TOL], "q8_controls": controls}
+    r["q8_ok"] = bool(
+        len(klog) == len(plog) > 0 and r["q8_rel_l2"] <= Q8_REL_L2
+        and r["q8_amax_rel_err"] <= Q8_AMAX_TOL
+        and controls["bf16_kernel_rel_l2"] > Q8_REL_L2
+        and all(v > Q8_AMAX_TOL for k, v in controls.items()
+                if k != "bf16_kernel_rel_l2" and v is not None))
+    return r
 
 
 # ---------------------------------------------------------------- main path
@@ -651,6 +915,164 @@ def phase_path(label: str, args: list[str], expected: dict) -> dict:
            "expected_per_forward": expected,
            "detect_rel_l2_bf16_vs_f32": rel_l2, "rel_l2_bound": DETECT_REL_L2,
            "raw_shape": list(a.shape), "ok": bool(ok)}
+    emit(row)
+    return row
+
+
+@contextlib.contextmanager
+def swapped_int8_launchers(make):
+    """Within the context each K12 launcher is `make(name, launcher)`. A
+    launcher that is not where it is looked for raises here."""
+    bodies = int8_bodies()
+    saved = {name: getattr(mod, fn) for name, (mod, fn, *_) in bodies.items()}
+    try:
+        for name, (mod, fn, *_) in bodies.items():
+            setattr(mod, fn, make(name, saved[name]))
+        yield
+    finally:
+        for name, (mod, fn, *_) in bodies.items():
+            setattr(mod, fn, saved[name])
+
+
+@contextlib.contextmanager
+def plain_int8(same_core: bool):
+    """Within the context the int8 wrappers run their plain int8 bodies on
+    the card, each in place of its launcher (with `same_core`, the
+    attention core through K1, as in the kernels): the yardstick of the
+    int8 path's Detect maps. A `*_q8` launch inside the context (a swap
+    that did not take) fails on exit."""
+    import functools
+    from sodt_tpu_torch import kernels
+    bodies = int8_bodies()
+
+    def make(name, _):
+        _, _, plain, _, core = bodies[name]
+        return (functools.partial(plain, dispatch=True)
+                if core and same_core else plain)
+
+    q8_launches = lambda: sum(v for k, v in kernels.launches().items()
+                              if k.endswith("_q8"))
+    before = q8_launches()
+    with swapped_int8_launchers(make):
+        yield
+    if q8_launches() != before:
+        raise RuntimeError("plain_int8: an int8 kernel launched")
+
+
+def int8_call_readings(calls) -> dict:
+    """`q8_readings` of every K12 call a forward made, on the arguments it
+    was given (the path's own activations, weights and int8 weights), by
+    counter: the largest reading and the smallest control of its calls."""
+    import functools
+    from sodt_tpu_torch.kernels.quant import tail_ws
+    bodies = int8_bodies()
+    out = {}
+    for name, launch, a in calls:
+        _, _, plain, bf16, core = bodies[name]
+        b, h, w = a[0].shape[:3]
+        geom = (b, h, w, a[-5], a[-2]) if core else (b, h, w, tail_ws(h), 0)
+        same = (functools.partial(plain, dispatch=True) if core else plain)
+        r = q8_readings(lambda: launch(*a), lambda: same(*a),
+                        lambda: bf16(*a[:-1]), geom)
+        if name not in out:
+            out[name] = dict(r, calls=1)
+            continue
+        o = out[name]
+        o["calls"] += 1
+        for k in ("q8_rel_l2", "q8_amax_rel_err"):
+            o[k] = max(o[k], r[k])
+        for k, v in r["q8_controls"].items():
+            if v is not None:
+                was = o["q8_controls"][k]
+                o["q8_controls"][k] = v if was is None else min(was, v)
+        o["q8_ok"] = o["q8_ok"] and r["q8_ok"]
+        o["q8_amax_bit_equal_share"] = min(o["q8_amax_bit_equal_share"],
+                                           r["q8_amax_bit_equal_share"])
+    return out
+
+
+def phase_int8(label: str, args: list[str], expected: dict) -> dict:
+    """The int8 serving path: `sodt_tpu_torch.val --int8` in-process with
+    the launch counts set to 0 just before and read just after; raw Detect
+    maps of one batch on the seeded weights, the int8 kernels against the
+    plain int8 bodies on the card (bound DETECT_REL_L2), against the same
+    with the kernels' attention core and against the bf16 kernels (both
+    reported: quantization makes the model discontinuous, so a code that
+    one ulp moved in one body moves later strips' scales, and the maps of
+    two sound int8 forwards sit about as far apart as int8 from bf16);
+    every K12 call of that forward held on its own arguments as the kernel
+    cases are (`int8_call_readings`, bounds Q8_REL_L2 / Q8_AMAX_TOL, with
+    their controls); then `--task speed` with and without --int8 (ms per
+    image, conf 0.25)."""
+    import torch
+    from sodt_tpu_torch import kernels, val
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
+
+    opt = val.parser().parse_args(args)
+    n_img, img_size, bs = opt.synthetic_n, opt.img_size, opt.batch_size
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = val.main(args)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    forwards = math.ceil(n_img / bs)
+    per_fwd = {k: v / forwards for k, v in counts.items()}
+    finite = all(math.isfinite(m[k]) for k in ("map50", "map", "speed_ms"))
+
+    ds = SyntheticVedai(n=bs, img_size=img_size, nc=8, seed=1)
+    batch = next(make_eval_batches(ds, bs))
+    img = torch.from_numpy(batch["img"]).cuda().float() / 255
+    ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
+    model = cache_rel_bias(seeded_model(opt.cfg, torch.bfloat16).cuda().eval())
+    raws, calls = {}, []
+
+    def recorder(name, launch):
+        def record(*a):
+            calls.append((name, launch, a))
+            return launch(*a)
+        return record
+
+    with torch.no_grad():
+        with kernels.int8_serving():
+            with swapped_int8_launchers(recorder):
+                raws["int8"] = model(img, ir)["raw"][0].float()
+            with plain_int8(same_core=True):
+                raws["plain_core"] = model(img, ir)["raw"][0].float()
+            with plain_int8(same_core=False):
+                raws["plain"] = model(img, ir)["raw"][0].float()
+        raws["bf16"] = model(img, ir)["raw"][0].float()
+        bodies = int8_call_readings(calls)
+    rel = lambda a, b: ((raws[a] - raws[b]).norm() / raws[b].norm()).item()
+    vs_plain, vs_bf16 = rel("int8", "plain"), rel("int8", "bf16")
+    vs_core = rel("int8", "plain_core")
+    per_call = {k: v["calls"] for k, v in bodies.items()}
+    speed = {}
+    for tag, extra in (("int8", ["--int8"]), ("bf16", [])):
+        speed[tag] = val.main(extra + ["--task", "speed", "--img-size",
+                                       str(img_size), "--batch-size",
+                                       str(bs)])["ms_per_image"]
+    a = raws["int8"]
+    g = img_size // 4
+    ok = (per_fwd == {k: float(v) for k, v in expected.items()}
+          and finite and bool(torch.isfinite(a).all()) and m["int8"] is True
+          and tuple(a.shape) == (bs, g, g, 3, 13) and m["seen"] == n_img
+          and vs_plain <= DETECT_REL_L2 and vs_bf16 > 0
+          and per_call == {k: v for k, v in expected.items()
+                           if k.endswith("_q8")}
+          and all(v["q8_ok"] for v in bodies.values()))
+    row = {"phase": label, "args": args, "wall_s": wall,
+           "images_per_s": m["images_per_s"], "speed_ms": m["speed_ms"],
+           "map50": m["map50"], "map": m["map"], "seen": m["seen"],
+           "launches": counts, "launches_per_forward": per_fwd,
+           "expected_per_forward": expected,
+           "detect_rel_l2_int8_kernels_vs_plain_int8": vs_plain,
+           "rel_l2_bound": DETECT_REL_L2,
+           "detect_rel_l2_int8_kernels_vs_plain_int8_same_core": vs_core,
+           "detect_rel_l2_int8_vs_bf16_kernels": vs_bf16,
+           "bodies_on_the_path_inputs": bodies,
+           "speed_ms_per_image": speed, "raw_shape": list(a.shape),
+           "ok": bool(ok)}
     emit(row)
     return row
 
@@ -940,9 +1362,15 @@ def phase_profile_train(label: str = "profile_train",
 
 
 def phase_profile(label: str = "profile",
-                  cfg: str = "configs/model.yaml") -> None:
+                  cfg: str = "configs/model.yaml", int8: bool = False) -> None:
     """Kernel-time breakdown of one warm eval step (forward + decode + NMS)
-    of `cfg`'s model at the eval paths' shape."""
+    of `cfg`'s model at the eval paths' shape (int8: in int8 serving)."""
+    from sodt_tpu_torch.kernels import int8_serving
+    with int8_serving() if int8 else contextlib.nullcontext():
+        _profile_eval(label, cfg, int8)
+
+
+def _profile_eval(label: str, cfg: str, int8: bool) -> None:
     import torch
     from torch.profiler import profile, ProfilerActivity
     from sodt_tpu_torch.train.evaluate import cache_rel_bias, make_eval_step
@@ -968,7 +1396,7 @@ def phase_profile(label: str = "profile",
     ours = sum(r["device_ms"] for r in rows if "sodt::" in r["kernel"])
     # idle share against the unprofiled step time (the profiler's own host
     # overhead stretches the profiled wall)
-    out = {"phase": label, "batch": MAIN_BATCH, "img": 512,
+    out = {"phase": label, "batch": MAIN_BATCH, "img": 512, "int8": int8,
            "forward_ms": fwd_ms, "eval_step_ms": step_ms,
            "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
            "port_kernels_ms": ours,
@@ -1049,12 +1477,15 @@ def main() -> int:
         drive("swinv2", phase_path, V2_ARGS + v2_weights, V2_FORWARD)
         drive("swinv2_train", phase_train, tmp, V2_TRAIN_ARGS + v2_weights,
               V2_TRAIN_STEPS, V2_STEP, V2_FORWARD)
+        drive("int8", phase_int8, INT8_ARGS, INT8_FORWARD)
     for label, phase, args in (
             ("grads", phase_grads, ()), ("profile", phase_profile, ()),
             ("profile_train", phase_profile_train, ()),
             ("profile_swinv2", phase_profile, ("profile_swinv2", V2_CFG)),
             ("profile_swinv2_train", phase_profile_train,
-             ("profile_swinv2_train", V2_CFG))):
+             ("profile_swinv2_train", V2_CFG)),
+            ("profile_int8", phase_profile,
+             ("profile_int8", "configs/model.yaml", True))):
         try:
             row = phase(*args)
             if row is not None and not row["ok"]:
@@ -1086,12 +1517,15 @@ def main() -> int:
                 "bound_ms": tot("bound_ms"),
                 "bound_by": (max(mine, key=lambda r: r["bound_ms"])["bound_by"]
                              if mine else None),
-                "library_ms": tot("library_ms")})
+                "library_ms": tot("library_ms"),
+                **({"bf16_kernel_ms": tot("bf16_kernel_ms")}
+                   if tag == "K12" else {})})
     failed += [f"{e['name']} not launched on the {e['path']} path"
                for e in entries if not e["launches"]]
     if failed:
         print(f"chip_smoke: FAILED: {failed}", file=sys.stderr)
         return 1
+    emit({"phase": "wall", "seconds": time.perf_counter() - START})
     emit({"kernels": entries})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,18 @@ launches a CUDA C++ kernel (sources in `sodt_tpu_torch/csrc/`, built with
 nvcc at first use by `_build.py`) for a tensor on the card, and takes the
 plain PyTorch version beside it for a tensor on the CPU. A wrapper adds one
 to `LAUNCHES[name]` where it launches its kernel, and nowhere else.
+
+`int8_serving()` is the int8 serving mode (K12, `sodt_tpu.pallas
+.int8_serving`): inside it the block dispatch takes JAX's int8 gate, on any
+device, and the five fused block wrappers run their int8 bodies (the
+`*_q8` counters). It is read at each forward.
 """
 
 from __future__ import annotations
+
+import contextlib
+
+_int8 = False
 
 LAUNCHES: dict[str, int] = {
     "window_attention": 0,      # K1, window_attention.fused_window_attention_nhwc
@@ -26,7 +35,33 @@ LAUNCHES: dict[str, int] = {
     "window_attention_tokens_bwd": 0,
     "layernorm": 0,             # K13, layernorm.layernorm
     "add_layernorm": 0,         # K13, layernorm.add_layernorm
+    # K12, the int8 bodies of K2-K7 (`int8=True` on their wrappers)
+    "swin_block_q8": 0,
+    "block_attention_ln_q8": 0,
+    "conv_mlp_tail_q8": 0,
+    "block_attention_q8": 0,
+    "mlp_tail_q8": 0,
+    "conv_mlp_tail_noln_q8": 0,
 }
+
+
+def int8_enabled() -> bool:
+    """True inside `int8_serving()`."""
+    return _int8
+
+
+@contextlib.contextmanager
+def int8_serving():
+    """Quantized-GEMM serving mode within the context: bf16 blocks on JAX's
+    megakernel gate run the int8 bodies, whose backward replays the bf16
+    composition (do not train in this mode)."""
+    global _int8
+    prev = _int8
+    _int8 = True
+    try:
+        yield
+    finally:
+        _int8 = prev
 
 
 def reset_launches() -> None:

@@ -33,8 +33,13 @@ import torch.nn.functional as F
 from . import LAUNCHES
 from . import _build
 from .layernorm import layernorm, layernorm_plain
+from .quant import (conv_gelu_fc2_q8, fc1_halo_q8, gelu_tanh, ln_f32,
+                    log_kernel_amax, q8_dot, q8_weights, tail_ws, to_strips)
 from .window_attention import (Replay, _check_cuda, _check_window_args,
-                               _require, block_attention_ln_plain, gemm_bias)
+                               _require, block_attention_ln_plain, gemm_bias,
+                               reference_attention_nhwc,
+                               window_attention_core_nhwc,
+                               window_core_supported)
 from ..ops.activations import gelu
 
 
@@ -101,6 +106,101 @@ def conv_mlp_tail_plain(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
                                     bc, w2, b2)
 
 
+# ------------------------------------------------- plain int8 bodies (K12)
+#
+# From the `int8=True` Pallas bodies line by line, with their rounding
+# points (`quant` has the quantizers). Each takes its bf16 plain version's
+# arguments (its kernel launcher's too) with `q8`: the int8 weights and
+# their scales by name, or None to quantize the given weights here.
+# `dispatch=True` sends the attention core through its kernel wrapper (K1
+# on the card, which the int8 kernels run as their core), so a kernel can
+# be held against its plain int8 version with no other difference than the
+# int8 arithmetic.
+
+def swin_block_q8_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1,
+                        b1, w2, b2, bias, mask, ws: int, nh: int,
+                        scale: float, shift: int = 0, q8=None,
+                        dispatch: bool = False):
+    """`_mega_q8_kernel` (l.158), the unshifted block only (JAX's gate):
+    LN1 in f32 -> `_q8_dot` + bqkv -> working dtype -> attention core ->
+    f32 -> res1 = x + `_q8_dot` + bp (f32) -> LN2 (f32) -> `_q8_dot` + b1
+    -> tanh GELU (f32) -> out = res1 + `_q8_dot` + b2, per strip of ws
+    rows."""
+    _require(shift == 0 and mask is None, "swin_block int8: JAX quantizes "
+             f"only the unshifted linear block (shift {shift})")
+    qw = q8_weights(q8, wqkv=wqkv, wp=wp, w1=w1, w2=w2)
+    b, h, w, c = x.shape
+    dt = x.dtype
+    x32 = to_strips(x.float(), ws)
+    qkv = (q8_dot(ln_f32(x32, ln1w, ln1b), *qw["wqkv"])
+           + bqkv.float()).to(dt)
+    core = window_attention_core_nhwc if dispatch else reference_attention_nhwc
+    attn = core(qkv.reshape(b, h, w, 3 * c), bias, None, ws, nh, scale)
+    res1 = x32 + q8_dot(to_strips(attn.float(), ws), *qw["wp"]) + bp.float()
+    h1 = gelu_tanh(q8_dot(ln_f32(res1, ln2w, ln2b), *qw["w1"]) + b1.float())
+    out = res1 + q8_dot(h1, *qw["w2"]) + b2.float()
+    return out.reshape(b, h, w, c).to(dt)
+
+
+def conv_tail_halo_rows(h: int, ws: int, shift: int) -> tuple[list, list]:
+    """The rows the conv tail's halo of each strip of ws rows reads: x's
+    row min(r + 1, nr - 1) * ws (the clamped `nxt` BlockSpec), and the
+    row of the UNSHIFTED attention output: the same row without a shift,
+    row (r + 1) * ws mod H with one (the Pallas kernel takes it from the
+    current strip's shifted rows, l.341-347). The two differ on the last
+    strip when shift > 0, a property of the reference the int8 body keeps:
+    the fc1 scale covers that row, whose fc1 output is then zeroed."""
+    nr = h // ws
+    nxt = [min(r + 1, nr - 1) * ws for r in range(nr)]
+    return nxt, ([(r + 1) * ws % h for r in range(nr)] if shift else nxt)
+
+
+def conv_mlp_tail_q8_plain(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
+                           shift: int = 0, q8=None):
+    """`_conv_tail_kernel` with s1 / sc / s2 (l.329), strips of
+    `tail_ws(H)` rows: res1 = x + roll(a, +shift) in f32; LN2 (f32) of
+    the strip and its halo row; fc1 as `_q8_dot` over both (halo zeroed on
+    the last strip); the 2x2 conv, GELU and fc2 (`conv_gelu_fc2_q8`); out
+    = res1 + that. wc in the kernels' (out, 2, 2, in) layout."""
+    qw = q8_weights(q8, w1=w1, wc=wc, w2=w2)
+    b, h, w, c = x.shape
+    ws = tail_ws(h)
+    a_un = torch.roll(a, (shift, shift), (1, 2)) if shift else a
+    res1 = to_strips(x.float() + a_un.float(), ws)
+    x_rows, a_rows = conv_tail_halo_rows(h, ws, shift)
+    halo = x[:, x_rows].float() + a_un[:, a_rows].float()
+    t = ln_f32(torch.cat([res1, halo], dim=2), ln2w, ln2b)
+    f1 = fc1_halo_q8(t, ws, w, qw["w1"], b1)
+    z = conv_gelu_fc2_q8(f1, ws, w, *qw["wc"], bc, *qw["w2"], b2)
+    return (res1 + z).reshape(b, h, w, c).to(x.dtype)
+
+
+def mlp_tail_q8_plain(r, y, w1, b1, w2, b2, q8=None):
+    """`_mlp_tail_kernel` with s1 / s2 (l.544), strips of `tail_ws(H)`
+    rows: y -> f32 -> `_q8_dot` + b1 -> tanh GELU (f32) -> `_q8_dot` + b2;
+    out = r + that."""
+    qw = q8_weights(q8, w1=w1, w2=w2)
+    ws = tail_ws(r.shape[1])
+    f1 = q8_dot(to_strips(y.float(), ws), *qw["w1"]) + b1.float()
+    z = q8_dot(gelu_tanh(f1), *qw["w2"]) + b2.float()
+    return (to_strips(r.float(), ws) + z).reshape(r.shape).to(r.dtype)
+
+
+def conv_mlp_tail_noln_q8_plain(r, y, w1, b1, wc, bc, w2, b2, q8=None):
+    """`_conv_tail_noln_kernel` with s1 / sc / s2 (l.622): fc1 as
+    `_q8_dot` over each strip of y and its halo row (the next strip's
+    first row, clamped; zeroed after fc1 on the last strip), then the conv
+    tail as K4's; out = r + that."""
+    qw = q8_weights(q8, w1=w1, wc=wc, w2=w2)
+    b, h, w, c = r.shape
+    ws = tail_ws(h)
+    x_rows, _ = conv_tail_halo_rows(h, ws, 0)
+    t = torch.cat([to_strips(y, ws), y[:, x_rows]], dim=2).float()
+    f1 = fc1_halo_q8(t, ws, w, qw["w1"], b1)
+    z = conv_gelu_fc2_q8(f1, ws, w, *qw["wc"], bc, *qw["w2"], b2)
+    return (to_strips(r.float(), ws) + z).reshape(b, h, w, c).to(r.dtype)
+
+
 # ----------------------------------------------------------------- kernels
 
 def megakernel_supported(c: int, nh: int, ws: int) -> bool:
@@ -114,7 +214,7 @@ def megakernel_supported(c: int, nh: int, ws: int) -> bool:
 
 def fused_swin_block(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
                      w2, b2, bias, mask, ws: int, nh: int, scale: float,
-                     shift: int = 0):
+                     shift: int = 0, int8: bool = False, q8=None):
     """The whole Swin block with the linear MLP, one kernel launch.
 
     Replaces `sodt_tpu/pallas/swin_block.py` `fused_swin_block` (l.294,
@@ -132,7 +232,15 @@ def fused_swin_block(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
     attention output, the f32 residual, LN2 and the hidden layer stay in
     shared memory, and each weight streams through double-buffered 64x64
     tiles, so only x and the block output touch device memory.
+
+    int8=True: K12's twin of this body (`swin_block_q8_plain` says what it
+    computes; `q8` the quantized weights, else quantized here), for the
+    unshifted block only, as JAX's gate has it: see `_swin_block_q8`.
     """
+    if int8:
+        return _swin_block_q8(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b,
+                              w1, b1, w2, b2, bias, mask, ws, nh, scale, shift,
+                              q8)
     if not x.is_cuda:
         return swin_block_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b,
                                 w1, b1, w2, b2, bias, mask, ws, nh, scale,
@@ -179,7 +287,7 @@ def _launch_swin_block(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
 
 
 def fused_conv_mlp_tail(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
-                        shift: int = 0):
+                        shift: int = 0, int8: bool = False, q8=None):
     """Un-shift + residual + LN2 + fc1 + 2x2 conv + GELU + fc2 + residual.
 
     Replaces `sodt_tpu/pallas/swin_block.py` `fused_conv_mlp_tail` (l.482,
@@ -195,7 +303,12 @@ def fused_conv_mlp_tail(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
     fc1's OUTPUT), then runs the conv as one GEMM with K = 4C whose A rows
     are the halo rows shifted by each tap, and fc2 with the residual: only
     x, a and the output touch device memory.
+
+    int8=True: K12's twin (`conv_mlp_tail_q8_plain`; `_conv_tail_q8`).
     """
+    if int8:
+        return _conv_tail_q8(x, a, (ln2w, ln2b), w1, b1, wc, bc, w2, b2,
+                             shift, q8)
     if not x.is_cuda:
         return conv_mlp_tail_plain(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
                                    shift)
@@ -246,7 +359,7 @@ def _mlp2(a, w1, b1, w2, b2, r, taps: int):
     return out
 
 
-def fused_mlp_tail(r, y, w1, b1, w2, b2):
+def fused_mlp_tail(r, y, w1, b1, w2, b2, int8: bool = False, q8=None):
     """r + fc2(tanh-GELU(fc1(y))), y already normed.
 
     Replaces `sodt_tpu/pallas/swin_block.py` `fused_mlp_tail` (l.598, body
@@ -259,7 +372,11 @@ def fused_mlp_tail(r, y, w1, b1, w2, b2):
     the (M, hidden) activation never reaches device memory; both GEMMs run
     on the tensor cores (wmma bf16, f32 accumulation) with bias, GELU and
     the residual folded into their epilogues.
+
+    int8=True: K12's twin (`mlp_tail_q8_plain`; `_mlp_tail_q8`).
     """
+    if int8:
+        return _mlp_tail_q8(r, y, w1, b1, w2, b2, q8)
     if not r.is_cuda:
         return mlp_tail_plain(r, y, w1, b1, w2, b2)
     name = "fused_mlp_tail"
@@ -281,7 +398,8 @@ def _launch_mlp_tail(r, y, w1, b1, w2, b2):
     return out
 
 
-def fused_conv_mlp_tail_noln(r, y, w1, b1, wc, bc, w2, b2):
+def fused_conv_mlp_tail_noln(r, y, w1, b1, wc, bc, w2, b2,
+                             int8: bool = False, q8=None):
     """r + fc2(tanh-GELU(conv2x2(pad_br(fc1(y))))), y already normed.
 
     Replaces `sodt_tpu/pallas/swin_block.py` `fused_conv_mlp_tail_noln`
@@ -297,7 +415,11 @@ def fused_conv_mlp_tail_noln(r, y, w1, b1, wc, bc, w2, b2):
     of fc1's output (the TPU kernel's zeroed last-strip halo) — and runs
     conv -> GELU -> fc2 + residual without the conv output reaching device
     memory.
+
+    int8=True: K12's twin (`conv_mlp_tail_noln_q8_plain`; `_conv_tail_q8`).
     """
+    if int8:
+        return _conv_tail_q8(r, y, None, w1, b1, wc, bc, w2, b2, 0, q8)
     if not r.is_cuda:
         return conv_mlp_tail_noln_plain(r, y, w1, b1, wc, bc, w2, b2)
     name = "fused_conv_mlp_tail_noln"
@@ -316,4 +438,186 @@ def _launch_conv_tail_noln(r, y, w1, b1, wc, bc, w2, b2):
     f1 = gemm_bias(y, w1, b1)
     out = _mlp2(f1, wc, bc, w2, b2, r, taps=4)
     LAUNCHES["conv_mlp_tail_noln"] += 1
+    return out
+
+
+# ------------------------------------------------------------ K12 (int8)
+#
+# The int8 bodies on the card: csrc/int8_blocks.cu, on the pieces of
+# csrc/quant.cuh. A strip's activation scale must be known before any CTA
+# quantizes it, and a strip spans many CTAs, so each body runs as launches
+# split at its quantization points: the producer of an activation writes it
+# (f32 scratch) and folds max|x| into a per-strip slot with atomicMax, the
+# next s8 x s8 -> s32 GEMM quantizes while it stages its tile and
+# dequantizes, adds bias / residual and GELU in its epilogue. Launches per
+# call: K2 8, K3 and K5 5, K4 and K7 4, K6 3 (and one memset of the slots
+# each). Bound by operations at the flagship's shapes: the projections at
+# the int8 tensor-core rate; the scratch round trips make them far slower.
+# Every wrapper is a `Replay`: the backward replays the bf16 composition
+# (`_fsb_bwd`, `_fct_bwd`, `_fmt_bwd`, `_fctn_bwd`). On the CPU the forward
+# is the plain int8 body, which takes the launcher's arguments. Each
+# launcher hands its slots to `quant.strip_amax_log`.
+
+def _i8(*ts):
+    """The int8 entries take every bias as f32."""
+    return [t.float().contiguous() for t in ts]
+
+
+def _swin_block_q8(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1, w2,
+                   b2, bias, mask, ws, nh, scale, shift, q8):
+    qw = q8_weights(q8, wqkv=wqkv, wp=wp, w1=w1, w2=w2)
+    if x.is_cuda:
+        name = "fused_swin_block int8"
+        b, h, w, c = x.shape
+        hid = w1.shape[0]
+        _require(shift == 0 and mask is None, f"{name}: JAX quantizes only "
+                 f"the unshifted linear block (shift {shift})")
+        _check_cuda(name, torch.bfloat16, x=x, wqkv=wqkv, bqkv=bqkv, wp=wp,
+                    bp=bp, w1=w1, b1=b1, w2=w2, b2=b2)
+        _check_cuda(name, torch.float32, ln1w=ln1w, ln1b=ln1b, ln2w=ln2w,
+                    ln2b=ln2b, bias=bias)
+        _require(c % nh == 0 and c % 32 == 0 and hid % 32 == 0
+                 and window_core_supported(ws * ws, c // nh),
+                 f"{name}: C={c}, hidden={hid}, nh={nh}, window {ws}")
+        _require(tuple(wqkv.shape) == (3 * c, c) and tuple(wp.shape) == (c, c)
+                 and tuple(w1.shape) == (hid, c) and tuple(w2.shape) == (c, hid),
+                 f"{name}: weight shapes")
+        _require(b * h * w <= 65535 * 64, f"{name}: {b * h * w} tokens")
+        _check_window_args(name, b, h, w, nh, ws, bias, None, 0)
+        launch = _launch_swin_block_q8
+    else:
+        launch = swin_block_q8_plain
+    compose = lambda *a: _compose_swin_block(*a[:-1])
+    return Replay.apply(launch, compose, (ws, nh, scale, shift, qw), x, ln1w,
+                        ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1, w2, b2,
+                        bias, mask)
+
+
+def _launch_swin_block_q8(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1,
+                          b1, w2, b2, bias, mask, ws, nh, scale, shift, qw):
+    b, h, w, c = x.shape
+    hid = w1.shape[0]
+    m = b * h * w
+    out = torch.empty_like(x)
+    f32ws = torch.empty(m * (2 * c + hid), dtype=torch.float32,
+                        device=x.device)
+    bf16ws = torch.empty(m * 4 * c, dtype=torch.bfloat16, device=x.device)
+    amax = torch.empty(4 * b * (h // ws), dtype=torch.float32, device=x.device)
+    bqkv, bp, b1, b2 = _i8(bqkv, bp, b1, b2)
+    (wqkv_q, sqkv), (wp_q, sp) = qw["wqkv"], qw["wp"]
+    (w1_q, s1), (w2_q, s2) = qw["w1"], qw["w2"]
+    scale_dt = float(torch.tensor(scale, dtype=x.dtype))
+    ptrs = [t.data_ptr() for t in (
+        x, ln1w, ln1b, wqkv_q, sqkv, bqkv, wp_q, sp, bp, ln2w, ln2b, w1_q, s1,
+        b1, w2_q, s2, b2, bias, out, f32ws, bf16ws, amax)]
+    _build.check(_build.library().sodt_swin_block_q8(
+        *ptrs, b, h, w, c, hid, nh, ws, scale_dt, _build.stream_ptr()),
+        "fused_swin_block int8")
+    LAUNCHES["swin_block_q8"] += 1
+    log_kernel_amax(amax, 4)
+    return out
+
+
+def _conv_tail_q8(x, a, ln, w1, b1, wc, bc, w2, b2, shift, q8):
+    """K4's int8 body (`ln` = LN2's (weight, bias); x the block input, a
+    K3's output in shifted coordinates) or K7's (ln None; x = r, a = y)."""
+    qw = q8_weights(q8, w1=w1, wc=wc, w2=w2)
+    if x.is_cuda:
+        name = ("fused_conv_mlp_tail" if ln is not None
+                else "fused_conv_mlp_tail_noln") + " int8"
+        b, h, w, c = x.shape
+        _check_cuda(name, torch.bfloat16, x=x, a=a, w1=w1, b1=b1, wc=wc,
+                    bc=bc, w2=w2, b2=b2)
+        lnw, lnb = ln if ln is not None else (None, None)
+        _check_cuda(name, torch.float32, lnw=lnw, lnb=lnb)
+        _require(a.shape == x.shape, f"{name}: input shapes")
+        _require(c % 32 == 0, f"{name}: C={c}")
+        _require(tuple(w1.shape) == (c, c) and tuple(w2.shape) == (c, c)
+                 and tuple(wc.shape) == (c, 2, 2, c), f"{name}: weight shapes")
+        _require(0 <= shift < min(h, w), f"{name}: shift {shift}")
+        _require(b * h * w + b * h * w // tail_ws(h) <= 65535 * 64,
+                 f"{name}: {b * h * w} tokens")
+    if ln is None:
+        launch = (_launch_conv_tail_noln_q8 if x.is_cuda
+                  else conv_mlp_tail_noln_q8_plain)
+        compose = lambda *r: conv_mlp_tail_noln_plain(*r[:-1])
+        return Replay.apply(launch, compose, (qw,), x, a, w1, b1, wc, bc, w2,
+                            b2)
+    launch = _launch_conv_tail_q8 if x.is_cuda else conv_mlp_tail_q8_plain
+    compose = lambda *r: _compose_conv_tail(*r[:-1])
+    return Replay.apply(launch, compose, (shift, qw), x, a, *ln, w1, b1, wc,
+                        bc, w2, b2)
+
+
+def _launch_conv_tail_q8(x, a, lnw, lnb, w1, b1, wc, bc, w2, b2, shift, qw):
+    out = _conv_tail_q8_entry(x, a, lnw, lnb, w1, b1, wc, bc, w2, b2, shift,
+                              qw)
+    LAUNCHES["conv_mlp_tail_q8"] += 1
+    return out
+
+
+def _launch_conv_tail_noln_q8(r, y, w1, b1, wc, bc, w2, b2, qw):
+    out = _conv_tail_q8_entry(r, y, None, None, w1, b1, wc, bc, w2, b2, 0, qw)
+    LAUNCHES["conv_mlp_tail_noln_q8"] += 1
+    return out
+
+
+def _conv_tail_q8_entry(x, a, lnw, lnb, w1, b1, wc, bc, w2, b2, shift, qw):
+    """`sodt_conv_tail_q8`, K4's body with the LN (lnw given), K7's
+    without."""
+    b, h, w, c = x.shape
+    ws = tail_ws(h)
+    rows = b * h * w + b * (h // ws) * w
+    out = torch.empty_like(x)
+    f32ws = torch.empty(rows * c * 3, dtype=torch.float32, device=x.device)
+    amax = torch.empty(3 * b * (h // ws), dtype=torch.float32, device=x.device)
+    b1, bc, b2 = _i8(b1, bc, b2)
+    (w1_q, s1), (wc_q, sc), (w2_q, s2) = qw["w1"], qw["wc"], qw["w2"]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _build.check(_build.library().sodt_conv_tail_q8(
+        x.data_ptr(), a.data_ptr(), ptr(lnw), ptr(lnb), w1_q.data_ptr(),
+        s1.data_ptr(), b1.data_ptr(), wc_q.data_ptr(), sc.data_ptr(),
+        bc.data_ptr(), w2_q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), f32ws.data_ptr(), amax.data_ptr(),
+        int(lnw is not None), b, h, w, c, ws, shift, _build.stream_ptr()),
+        "fused_conv_mlp_tail int8")
+    log_kernel_amax(amax, 3)
+    return out
+
+
+def _mlp_tail_q8(r, y, w1, b1, w2, b2, q8):
+    qw = q8_weights(q8, w1=w1, w2=w2)
+    if r.is_cuda:
+        name = "fused_mlp_tail int8"
+        b, h, w, c = r.shape
+        hid = w1.shape[0]
+        _check_cuda(name, torch.bfloat16, r=r, y=y, w1=w1, b1=b1, w2=w2, b2=b2)
+        _require(y.shape == r.shape, f"{name}: r/y shapes")
+        _require(tuple(w1.shape) == (hid, c) and tuple(w2.shape) == (c, hid),
+                 f"{name}: weight shapes")
+        _require(c % 32 == 0 and hid % 32 == 0, f"{name}: C={c}, hidden={hid}")
+        _require(b * h * w <= 65535 * 64, f"{name}: {b * h * w} tokens")
+        launch = _launch_mlp_tail_q8
+    else:
+        launch = mlp_tail_q8_plain
+    compose = lambda *a: mlp_tail_plain(*a[:-1])
+    return Replay.apply(launch, compose, (qw,), r, y, w1, b1, w2, b2)
+
+
+def _launch_mlp_tail_q8(r, y, w1, b1, w2, b2, qw):
+    b, h, w, c = r.shape
+    hid = w1.shape[0]
+    ws = tail_ws(h)
+    out = torch.empty_like(r)
+    f32ws = torch.empty(b * h * w * hid, dtype=torch.float32, device=r.device)
+    amax = torch.empty(2 * b * (h // ws), dtype=torch.float32, device=r.device)
+    b1, b2 = _i8(b1, b2)
+    (w1_q, s1), (w2_q, s2) = qw["w1"], qw["w2"]
+    _build.check(_build.library().sodt_mlp_tail_q8(
+        r.data_ptr(), y.data_ptr(), w1_q.data_ptr(), s1.data_ptr(),
+        b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), f32ws.data_ptr(), amax.data_ptr(), b, h, w, c, hid,
+        ws, _build.stream_ptr()), "fused_mlp_tail int8")
+    LAUNCHES["mlp_tail_q8"] += 1
+    log_kernel_amax(amax, 2)
     return out

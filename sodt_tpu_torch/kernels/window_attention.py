@@ -29,6 +29,7 @@ import torch
 from . import LAUNCHES
 from . import _build
 from .layernorm import layernorm, layernorm_plain
+from .quant import ln_f32, log_kernel_amax, q8_dot, q8_weights, to_strips
 
 
 # ----------------------------------------------------------- plain versions
@@ -100,6 +101,41 @@ def block_attention_ln_plain(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
     ln = layernorm if dispatch else layernorm_plain
     return block_attention_plain(ln(x, lnw, lnb), wqkv, bqkv, wp, bp, bias,
                                  mask, ws, nh, scale, shift, dispatch)
+
+
+def block_attention_q8_plain(x, wqkv, bqkv, wp, bp, bias, mask, ws: int,
+                             nh: int, scale: float, shift: int = 0, q8=None,
+                             dispatch: bool = False, ln=None):
+    """The int8 body of K5 (with `ln` = (weight, bias): of K3), from
+    `_block_attn_kernel` with `sqkv_ref` / `sp_ref` (l.491): on the
+    (-shift, -shift)-rolled map, per strip of ws rows, [LN rounded to the
+    working dtype ->] f32 -> `_q8_dot` + bqkv -> working dtype -> the
+    attention core -> f32 -> `_q8_dot` + bp. The output stays in shifted
+    coordinates. `q8`: {"wqkv", "wp"} -> (int8, scales), else quantized
+    here; `dispatch=True`: the core goes through its wrapper (K1 on the
+    card, the int8 kernel's own core)."""
+    qw = q8_weights(q8, wqkv=wqkv, wp=wp)
+    if shift:
+        x = torch.roll(x, (-shift, -shift), (1, 2))
+    b, h, w, c = x.shape
+    dt = x.dtype
+    if ln is not None:
+        x = ln_f32(x.float(), *ln).to(dt)
+    qkv = (q8_dot(to_strips(x.float(), ws), *qw["wqkv"])
+           + bqkv.float()).to(dt)
+    core = window_attention_core_nhwc if dispatch else reference_attention_nhwc
+    attn = core(qkv.reshape(b, h, w, 3 * c), bias, mask, ws, nh, scale)
+    y = q8_dot(to_strips(attn.float(), ws), *qw["wp"]) + bp.float()
+    return y.reshape(b, h, w, c).to(dt)
+
+
+def block_attention_ln_q8_plain(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
+                                ws: int, nh: int, scale: float,
+                                shift: int = 0, q8=None,
+                                dispatch: bool = False):
+    """K3's int8 body: `block_attention_q8_plain` with the LN."""
+    return block_attention_q8_plain(x, wqkv, bqkv, wp, bp, bias, mask, ws, nh,
+                                    scale, shift, q8, dispatch, ln=(lnw, lnb))
 
 
 def attention_qkv_bwd_plain(qkv, bias, mask, nw: int, nh: int, scale: float,
@@ -243,7 +279,8 @@ class Replay(torch.autograd.Function):
 # ---------------------------------------------------------------------- K5
 
 def fused_block_attention(x, wqkv, bqkv, wp, bp, bias, mask, ws: int,
-                          nh: int, scale: float, shift: int = 0):
+                          nh: int, scale: float, shift: int = 0,
+                          int8: bool = False, q8=None):
     """qkv projection + (shifted) W-MSA + output projection.
 
     Replaces `sodt_tpu/pallas/window_attention.py` `fused_block_attention`
@@ -263,7 +300,14 @@ def fused_block_attention(x, wqkv, bqkv, wp, bp, bias, mask, ws: int,
     shared memory and writes the head's output in shifted coordinates; the
     proj GEMM is a second launch of the same GEMM kernel. Window packing
     (`_pick_pack`, a TPU MXU-filling trick) is not carried over.
+
+    int8=True is K12's body (`block_attention_q8_plain` says what it
+    computes; `q8` the quantized weights, else quantized here): see
+    `_block_attention_q8`.
     """
+    if int8:
+        return _block_attention_q8(x, None, wqkv, bqkv, wp, bp, bias, mask, ws,
+                                   nh, scale, shift, q8)
     if not x.is_cuda:
         return block_attention_plain(x, wqkv, bqkv, wp, bp, bias, mask, ws,
                                      nh, scale, shift)
@@ -327,7 +371,8 @@ def _window_core(qkv, bias, mask, ws, nh, scale, shift, name):
 # ---------------------------------------------------------------------- K3
 
 def fused_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
-                             ws: int, nh: int, scale: float, shift: int = 0):
+                             ws: int, nh: int, scale: float, shift: int = 0,
+                             int8: bool = False, q8=None):
     """LN1 + qkv projection + (shifted) W-MSA + output projection, one
     kernel launch.
 
@@ -342,8 +387,12 @@ def fused_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
     reads the window's tokens straight from x at their shifted positions,
     and the normed rows, qkv, scores and the attention output stay in
     shared memory; only x and the projected output touch device memory.
-    Domain: `swin_block.megakernel_supported`.
+    Domain: `swin_block.megakernel_supported`. int8=True: K12's body, as
+    for `fused_block_attention`, with the LN.
     """
+    if int8:
+        return _block_attention_q8(x, (lnw, lnb), wqkv, bqkv, wp, bp, bias,
+                                   mask, ws, nh, scale, shift, q8)
     if not x.is_cuda:
         return block_attention_ln_plain(x, lnw, lnb, wqkv, bqkv, wp, bp, bias,
                                         mask, ws, nh, scale, shift)
@@ -379,6 +428,96 @@ def _launch_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
 
 def _compose_block_attention_ln(*args):
     return block_attention_ln_plain(*args, dispatch=True)
+
+
+# ------------------------------------------------------- K12 for K3 and K5
+
+def _block_attention_q8(x, ln, wqkv, bqkv, wp, bp, bias, mask, ws, nh, scale,
+                        shift, q8):
+    """The int8 body of K3 (`ln` given) or K5, a `Replay` whose backward
+    replays the bf16 composition (`_fbal_bwd` / `_fba_bwd`): on the card
+    the kernel of csrc/int8_blocks.cu (`sodt_block_attention_q8`), on the
+    CPU `block_attention_[ln_]q8_plain`.
+
+    Design (csrc/int8_blocks.cu, quant.cuh): a strip's scale must be known
+    before any CTA quantizes it, so the body runs as five launches split at
+    its two quantization points - [LN1 rounded to bf16 +] the strip
+    abs-max of the shifted map, the qkv GEMM (s8 x s8 -> s32 on the tensor
+    cores, quantizing while it stages, bias and the bf16 rounding in its
+    epilogue), K1's bf16 attention core, the abs-max of its output, the
+    proj GEMM. Bound by operations (8*C^2 per token in the projections at
+    twice the bf16 rate); the f32 and bf16 round trips through device
+    memory between the launches make it bytes-heavy."""
+    qw = q8_weights(q8, wqkv=wqkv, wp=wp)
+    if x.is_cuda:
+        name = ("fused_block_attention_ln" if ln is not None
+                else "fused_block_attention") + " int8"
+        b, h, w, c = x.shape
+        _check_cuda(name, torch.bfloat16, x=x, wqkv=wqkv, bqkv=bqkv, wp=wp,
+                    bp=bp)
+        lnw, lnb = ln if ln is not None else (None, None)
+        _check_cuda(name, torch.float32, lnw=lnw, lnb=lnb, bias=bias,
+                    mask=mask)
+        _require(c % nh == 0 and c % 32 == 0
+                 and window_core_supported(ws * ws, c // nh),
+                 f"{name}: C={c}, nh={nh}, window of {ws * ws} tokens")
+        _require(tuple(wqkv.shape) == (3 * c, c) and tuple(wp.shape) == (c, c),
+                 f"{name}: weight shapes")
+        _require(b * h * w <= 65535 * 64, f"{name}: {b * h * w} tokens")
+        _check_window_args(name, b, h, w, nh, ws, bias, mask, shift)
+    consts = (ws, nh, scale, shift, qw)
+    tensors = (wqkv, bqkv, wp, bp, bias, mask)
+    if ln is None:
+        launch = (_launch_block_attention_q8 if x.is_cuda
+                  else block_attention_q8_plain)
+        compose = lambda *a: _compose_block_attention(*a[:-1])
+        return Replay.apply(launch, compose, consts, x, *tensors)
+    launch = (_launch_block_attention_ln_q8 if x.is_cuda
+              else block_attention_ln_q8_plain)
+    compose = lambda *a: _compose_block_attention_ln(*a[:-1])
+    return Replay.apply(launch, compose, consts, x, *ln, *tensors)
+
+
+def _launch_block_attention_q8(x, wqkv, bqkv, wp, bp, bias, mask, ws, nh,
+                               scale, shift, qw):
+    out = _block_attention_q8_entry(x, None, None, wqkv, bqkv, wp, bp, bias,
+                                    mask, ws, nh, scale, shift, qw)
+    LAUNCHES["block_attention_q8"] += 1
+    return out
+
+
+def _launch_block_attention_ln_q8(x, lnw, lnb, wqkv, bqkv, wp, bp, bias,
+                                  mask, ws, nh, scale, shift, qw):
+    out = _block_attention_q8_entry(x, lnw, lnb, wqkv, bqkv, wp, bp, bias,
+                                    mask, ws, nh, scale, shift, qw)
+    LAUNCHES["block_attention_ln_q8"] += 1
+    return out
+
+
+def _block_attention_q8_entry(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
+                              ws, nh, scale, shift, qw):
+    """`sodt_block_attention_q8`: K3's body with the LN (lnw given), K5's
+    without."""
+    b, h, w, c = x.shape
+    m = b * h * w
+    out = torch.empty_like(x)
+    f32ws = torch.empty(m * c if lnw is not None else 1, dtype=torch.float32,
+                        device=x.device)
+    bf16ws = torch.empty(m * 4 * c, dtype=torch.bfloat16, device=x.device)
+    amax = torch.empty(2 * b * (h // ws), dtype=torch.float32, device=x.device)
+    (wqkv_q, sqkv), (wp_q, sp) = qw["wqkv"], qw["wp"]
+    bqkv32, bp32 = bqkv.float().contiguous(), bp.float().contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    scale_dt = float(torch.tensor(scale, dtype=x.dtype))
+    _build.check(_build.library().sodt_block_attention_q8(
+        x.data_ptr(), ptr(lnw), ptr(lnb), wqkv_q.data_ptr(), sqkv.data_ptr(),
+        bqkv32.data_ptr(), wp_q.data_ptr(), sp.data_ptr(), bp32.data_ptr(),
+        bias.data_ptr(), ptr(mask), out.data_ptr(), f32ws.data_ptr(),
+        bf16ws.data_ptr(), amax.data_ptr(), int(lnw is not None), b, h, w, c,
+        nh, ws, shift, int(mask is not None), scale_dt, _build.stream_ptr()),
+        "fused_block_attention int8")
+    log_kernel_amax(amax, 2)
+    return out
 
 
 # ---------------------------------------------------------------------- K1

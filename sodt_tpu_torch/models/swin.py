@@ -12,6 +12,15 @@ for a conv-MLP block) and the LN-outside split elsewhere (LN1 -> K5 with
 the shift folded in -> un-roll -> add+LN2 -> K6 or K7). Every other shape
 takes the composition of JAX's generic path, whose attention core goes to
 K1 (windows of up to 256 tokens) or K8 (larger windows) on the card.
+
+Inside `kernels.int8_serving()` a bf16 block takes JAX's int8 gate
+exactly, on any device (`sodt_tpu/models/swin.py` l.333-412): windows of
+at most 256 tokens on a map of whole windows; at c <= 256 the unshifted
+linear-MLP block runs K2's int8 body and a conv-MLP block K3's + K4's, at
+c > 256 the LN-outside split with K5's and K6's / K7's; every other block
+(a shifted linear-MLP block at c <= 256 among them) takes the generic
+composition, un-quantized, as in JAX. On the CPU the int8 wrappers run
+their plain int8 bodies.
 """
 
 
@@ -26,7 +35,9 @@ from torch import nn
 
 from .norm import LayerNorm, AddLayerNorm
 from ..ops.activations import gelu
+from ..kernels import int8_enabled
 from ..kernels import window_attention as kwa
+from ..kernels.quant import q8_weights
 from ..kernels.layernorm import layernorm as layer_norm
 from ..kernels import swin_block as ksb
 
@@ -265,9 +276,13 @@ class SwinBlock(nn.Module):
 
     def cache_kernel_weights(self, dt: torch.dtype = torch.bfloat16) -> None:
         """Build the kernels' weights once per weight load, beside the
-        rel-pos bias (`train.evaluate.cache_rel_bias`), for inference."""
+        rel-pos bias (`train.evaluate.cache_rel_bias`), for inference: the
+        bf16 ones and, from those, the int8 ones of the int8 bodies with
+        their scales (`kw["q8"]`, as JAX quantizes `w.astype(dt)`)."""
         with torch.no_grad():
             kw = self._build_kernel_weights(dt)
+            kw["q8"] = q8_weights(None, **{k: kw[k] for k in (
+                "wqkv", "wp", "w1", "w2", "wc") if k in kw})
         kw["dtype"], kw["key"] = dt, _param_key(self._kernel_params())
         self._kernel_weights = kw
 
@@ -277,7 +292,8 @@ class SwinBlock(nn.Module):
         no source parameter was modified, replaced or moved since it was
         built. Under grad mode the casts and the bias
         gather are part of the graph, so no stale or detached copy is ever
-        differentiated."""
+        differentiated (and the int8 wrappers quantize the weights they
+        are given)."""
         kw = self._kernel_weights
         if (kw is not None and not torch.is_grad_enabled()
                 and kw["dtype"] == dt
@@ -286,34 +302,40 @@ class SwinBlock(nn.Module):
         return self._build_kernel_weights(dt)
 
 
-def split_block(blk: SwinBlock, x: torch.Tensor, mask, shift: int):
+def split_block(blk: SwinBlock, x: torch.Tensor, mask, shift: int,
+                int8: bool = False):
     """The LN-outside split (`sodt_tpu/models/swin.py` l.385-412): LN1 ->
     K5 with the shift folded in (output in shifted coordinates) -> roll
     back by (+shift, +shift) -> add+LN2 -> K6 (linear MLP) or K7 (conv
-    MLP). Each wrapper takes its plain version for a tensor on the CPU."""
+    MLP); int8: their int8 bodies. Each wrapper takes its plain version for
+    a tensor on the CPU."""
     kw = blk.kernel_weights(x.dtype)
+    q8 = dict(int8=True, q8=kw.get("q8")) if int8 else {}
     ws, nh = blk.window_size, blk.num_heads
     scale = (x.shape[-1] // nh) ** -0.5
     a = kwa.fused_block_attention(
         blk.norm1(x), kw["wqkv"], kw["bqkv"], kw["wp"], kw["bp"],
-        blk.attn.rel_bias(), mask, ws, nh, scale, shift)
+        blk.attn.rel_bias(), mask, ws, nh, scale, shift, **q8)
     if shift:
         a = torch.roll(a, (shift, shift), (1, 2))
     s, y = blk.norm2(x, a)
     if blk.linear_mlp:
-        return ksb.fused_mlp_tail(s, y, kw["w1"], kw["b1"], kw["w2"], kw["b2"])
+        return ksb.fused_mlp_tail(s, y, kw["w1"], kw["b1"], kw["w2"], kw["b2"],
+                                  **q8)
     return ksb.fused_conv_mlp_tail_noln(s, y, kw["w1"], kw["b1"], kw["wc"],
-                                        kw["bc"], kw["w2"], kw["b2"])
+                                        kw["bc"], kw["w2"], kw["b2"], **q8)
 
 
-def mega_block(blk: SwinBlock, x: torch.Tensor, mask, shift: int):
+def mega_block(blk: SwinBlock, x: torch.Tensor, mask, shift: int,
+               int8: bool = False):
     """The megakernel path for c <= 256 (`sodt_tpu/models/swin.py`
     l.342-376): K2 for a linear-MLP block (the shift folds into its gather
     and scatter); K3 (LN1 + attention, output in shifted coordinates) then
     K4 (un-shift on read + residual + LN2 + conv MLP + residual) for a
-    conv-MLP block. Each wrapper takes its plain version for a tensor on
-    the CPU."""
+    conv-MLP block; int8: their int8 bodies. Each wrapper takes its plain
+    version for a tensor on the CPU."""
     kw = blk.kernel_weights(x.dtype)
+    q8 = dict(int8=True, q8=kw.get("q8")) if int8 else {}
     ws, nh = blk.window_size, blk.num_heads
     scale = (x.shape[-1] // nh) ** -0.5
     bias = blk.attn.rel_bias()
@@ -321,13 +343,13 @@ def mega_block(blk: SwinBlock, x: torch.Tensor, mask, shift: int):
         return ksb.fused_swin_block(
             x, kw["ln1w"], kw["ln1b"], kw["wqkv"], kw["bqkv"], kw["wp"],
             kw["bp"], kw["ln2w"], kw["ln2b"], kw["w1"], kw["b1"], kw["w2"],
-            kw["b2"], bias, mask, ws, nh, scale, shift)
+            kw["b2"], bias, mask, ws, nh, scale, shift, **q8)
     a = kwa.fused_block_attention_ln(
         x, kw["ln1w"], kw["ln1b"], kw["wqkv"], kw["bqkv"], kw["wp"],
-        kw["bp"], bias, mask, ws, nh, scale, shift)
+        kw["bp"], bias, mask, ws, nh, scale, shift, **q8)
     return ksb.fused_conv_mlp_tail(
         x, a, kw["ln2w"], kw["ln2b"], kw["w1"], kw["b1"], kw["wc"], kw["bc"],
-        kw["w2"], kw["b2"], shift)
+        kw["w2"], kw["b2"], shift, **q8)
 
 
 def swin_block_forward(blk: SwinBlock, x: torch.Tensor) -> torch.Tensor:
@@ -341,8 +363,14 @@ def swin_block_forward(blk: SwinBlock, x: torch.Tensor) -> torch.Tensor:
     ph, pw = (-h) % ws, (-w) % ws
     mask = _mask_tensor(h + ph, w + pw, ws, shift, x.device) if shift else None
 
-    on_card = x.is_cuda and x.dtype == torch.bfloat16
-    if on_card and ws * ws <= 256 and h % ws == 0 and w % ws == 0:
+    windowed = ws * ws <= 256 and h % ws == 0 and w % ws == 0
+    if int8_enabled() and x.dtype == torch.bfloat16:
+        # JAX's int8 gate (module doc)
+        if windowed and c <= 256 and (shift == 0 or not blk.linear_mlp):
+            return mega_block(blk, x, mask, shift, int8=True)
+        if windowed and c > 256:
+            return split_block(blk, x, mask, shift, int8=True)
+    elif x.is_cuda and x.dtype == torch.bfloat16 and windowed:
         if ksb.megakernel_supported(c, blk.num_heads, ws):
             return mega_block(blk, x, mask, shift)
         return split_block(blk, x, mask, shift)

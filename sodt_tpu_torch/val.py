@@ -3,6 +3,7 @@
     python -m sodt_tpu_torch.val --task val --synthetic --synthetic-n 8 \\
         --img-size 512 --batch-size 4
     python -m sodt_tpu_torch.val --task speed --batch-size 8
+    python -m sodt_tpu_torch.val --int8 --task val --synthetic ...
 
 Tasks: val (mAP protocol) and speed (ms per image at conf 0.25 /
 iou 0.45). bf16 compute is on by default (--no-bf16 for f32). Weights come
@@ -10,12 +11,15 @@ from --weights-npz (a state_dict converted with
 sodt_tpu_torch.weights.from_jax_variables and saved with save_npz), else
 from a torch.Generator seeded with 0. --device defaults to cuda and
 raises when no card is visible; --device cpu runs the plain PyTorch path.
-Prints one metrics JSON line.
+--int8 runs every task inside `kernels.int8_serving()` (K12: the int8
+bodies on JAX's gate) and says "int8": true in the metrics line. Prints one
+metrics JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -23,6 +27,7 @@ import torch
 import yaml
 
 from . import resolve_device
+from .kernels import int8_serving
 from .data import SyntheticVedai, make_eval_batches
 from .models import build_model
 from .models.compiler import resolve_config_path
@@ -73,6 +78,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--no-bf16", action="store_false", dest="bf16")
     p.add_argument("--device", default="cuda")
     p.add_argument("--verbose", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 serving: the quantized projection GEMMs of the "
+                        "block kernels (K12), on JAX's gate; measures the mAP "
+                        "and speed of the quantized path. Takes effect only "
+                        "in bf16, as in JAX: with --no-bf16 nothing is "
+                        "quantized")
     return p
 
 
@@ -80,6 +91,12 @@ def main(argv=None) -> dict:
     a = parser().parse_args(argv)
     if a.task == "speed":
         a.synthetic = True
+    # the int8 gate wraps every task, as in the JAX CLI
+    with int8_serving() if a.int8 else contextlib.nullcontext():
+        return _run(a)
+
+
+def _run(a) -> dict:
     model, ds, nc, names, dev = build(a)
     if a.task == "val":
         t0 = time.perf_counter()
@@ -88,6 +105,7 @@ def main(argv=None) -> dict:
                      iou_thres=a.iou_thres)
         wall = time.perf_counter() - t0
         m["images_per_s"] = m["seen"] / wall
+        m["int8"] = a.int8
         m["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu")
         if a.verbose:
@@ -111,7 +129,7 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize(dev)
     dt = (time.perf_counter() - t0) / (n * a.batch_size) * 1000
     m = {"ms_per_image": dt, "img_size": a.img_size,
-         "batch_size": a.batch_size}
+         "batch_size": a.batch_size, "int8": a.int8}
     print(json.dumps(m))
     return m
 

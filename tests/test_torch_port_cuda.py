@@ -179,7 +179,10 @@ MAIN = {"swin_block": 3, "block_attention_ln": 3, "conv_mlp_tail": 3,
         "window_attention_tokens": 0, "window_attention_tokens_bwd": 0,
         # K13: the four cross-channel LNs, stage 2's four LN1, stage 3's
         # LN1, two PatchMergings; add+LN2 of stage 2's blocks and stage 3's
-        "layernorm": 11, "add_layernorm": 5}
+        "layernorm": 11, "add_layernorm": 5,
+        # K12, int8 serving only
+        "swin_block_q8": 0, "block_attention_ln_q8": 0, "conv_mlp_tail_q8": 0,
+        "block_attention_q8": 0, "mlp_tail_q8": 0, "conv_mlp_tail_noln_q8": 0}
 # 608 px: stage 2's 76x76 map is no window multiple, so its four blocks
 # take the generic path (K1 core); stage 3's 38x38 map pads to 64x64, four
 # 32x32 windows for K8
@@ -214,6 +217,182 @@ def test_flagship_forward_dispatch(card, img, counts):
     a, b = raws[BF], raws[torch.float32]
     assert torch.isfinite(a).all()
     assert ((a - b).norm() / b.norm()).item() < TOL
+
+
+# ------------------------------------------------------ K12: int8 serving
+#
+# Each int8 body against its plain int8 version on the SAME bf16 inputs
+# (the rounding points are part of the function): both compute the same
+# codes but for a value that an f32 LN or GELU rounded differently across a
+# code boundary (one step of a strip's 127), so TOL holds with room. Held
+# tightly against the plain version with the kernels' own attention core
+# (`dispatch=True`): relative L2 Q8_REL_L2, which the un-quantized bf16
+# kernel must miss, and every strip's abs-max slot (`strip_amax_log`)
+# within Q8_AMAX_TOL (chip_smoke.py's limits, which say why).
+Q8_REL_L2 = 3e-3
+Q8_AMAX_TOL = 1e-2
+
+
+def _rel_l2(out, ref):
+    out, ref = out.float(), ref.float()
+    return ((out - ref).norm() / ref.norm()).item()
+
+
+def _amax_err(klog, plog):
+    assert len(klog) == len(plog) > 0
+    return max(((k.amax(-1) - p.amax(-1)).abs() / p.amax(-1)).max().item()
+               for k, p in zip(klog, plog))
+
+
+@pytest.mark.parametrize("b,hw,c,nh", [(1, 16, 32, 2), (2, 128, 192, 12),
+                                       (2, 64, 384, 12), (1, 152, 192, 12)])
+@pytest.mark.parametrize("shift", [0, 2])
+def test_int8_kernels(card, b, hw, c, nh, shift):
+    """K12's five bodies; 152 x 152 (the 608 px stage 1) has 19 windows
+    per strip, more CTAs per strip scale than a cluster could hold."""
+    from sodt_tpu_torch.kernels.quant import strip_amax_log
+    ws = 8
+    wt = _block_weights(c, 90)
+    x = _rnd((b, hw, hw, c), 91).to(BF)
+    a = _rnd((b, hw, hw, c), 92).to(BF)
+    bias = _rnd((nh, 64, 64), 93)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
+            if shift else None)
+    scale = (c // nh) ** -0.5
+    win = (bias, mask, ws, nh, scale, shift)
+    # (name, kernel, plain int8 version, its arguments, has a core)
+    cases = [
+        ("block_attention_q8", wa.fused_block_attention,
+         wa.block_attention_q8_plain, (x, *wt["att"], *win), True),
+        ("block_attention_ln_q8", wa.fused_block_attention_ln,
+         wa.block_attention_ln_q8_plain, (x, *wt["ln1"], *wt["att"], *win),
+         True),
+        ("conv_mlp_tail_q8", sb.fused_conv_mlp_tail,
+         sb.conv_mlp_tail_q8_plain, (x, a, *wt["ln2"], *wt["conv"], shift),
+         False),
+        ("mlp_tail_q8", sb.fused_mlp_tail, sb.mlp_tail_q8_plain,
+         (x, a, *wt["lin"]), False),
+        ("conv_mlp_tail_noln_q8", sb.fused_conv_mlp_tail_noln,
+         sb.conv_mlp_tail_noln_q8_plain, (x, a, *wt["conv"]), False)]
+    if shift == 0:
+        cases.append(("swin_block_q8", sb.fused_swin_block,
+                      sb.swin_block_q8_plain,
+                      (x, *wt["ln1"], *wt["att"], *wt["ln2"], *wt["lin"],
+                       bias, None, ws, nh, scale, 0), True))
+    # the bf16 megakernels K2-K4 hold c <= 256; their int8 bodies do not
+    mega = sb.megakernel_supported(c, nh, ws)
+    for name, kern, plain, args, core in cases:
+        kernels.reset_launches()
+        with strip_amax_log() as klog:
+            out = kern(*args, int8=True)
+        assert kernels.launches()[name] == 1, name
+        ref = plain(*args)
+        with strip_amax_log() as plog:
+            same = plain(*args, **({"dispatch": True} if core else {}))
+        torch.cuda.synchronize()
+        assert out.dtype == BF and torch.isfinite(out).all(), name
+        assert _rel(out, ref) < TOL, name
+        assert _rel_l2(out, same) <= Q8_REL_L2, name
+        assert _amax_err(klog, plog) <= Q8_AMAX_TOL, name
+        if mega or name in ("block_attention_q8", "mlp_tail_q8",
+                            "conv_mlp_tail_noln_q8"):
+            bf = kern(*args)                     # un-quantized: the control
+            assert _rel_l2(bf, same) > Q8_REL_L2, name
+
+
+def test_int8_scales_divide_truly_on_the_card(card):
+    """The quantizers' scales max(amax, 1e-8) / 127 on the card are the
+    CPU's, bit for bit: a true division, as the kernels' (a python divisor
+    would make torch multiply by the f32 reciprocal, ~5% of quotients one
+    ulp off)."""
+    from sodt_tpu_torch.kernels import quant
+    w = torch.randn((4096, 64), generator=torch.Generator().manual_seed(3))
+    for fn in (quant.q8_weight, lambda t: (quant.strip_scale(t[:, None]),)):
+        for a, b in zip(fn(w.cuda()), fn(w)):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_int8_conv_tail_halo_scale_quirk(card):
+    """K4 with shift > 0 on the card: the last strip's fc1 scale covers
+    x's row (nr-1)*ws plus a's UNSHIFTED row 0 (`conv_tail_halo_rows`), as
+    the reference's does. a's row 0 made large: the kernel's slot for that
+    strip is the plain version's, above the strip's own abs-max."""
+    from sodt_tpu_torch.kernels.quant import strip_amax_log
+    b, h, w, c, shift = 1, 16, 16, 32, 2
+    wt = _block_weights(c, 94)
+    x = (_rnd((b, h, w, c), 95) * 0.1).to(BF)
+    a = (_rnd((b, h, w, c), 96) * 0.1)
+    a[:, h - shift, :, 0] = 50.0                 # a's unshifted row 0
+    a = a.to(BF)
+    args = (x, a, *wt["ln2"], *wt["conv"], shift)
+    with strip_amax_log() as klog:
+        out = sb.fused_conv_mlp_tail(*args, int8=True)
+    with strip_amax_log() as plog:
+        ref = sb.conv_mlp_tail_q8_plain(*args)
+    torch.cuda.synchronize()
+    assert _amax_err(klog, plog) <= Q8_AMAX_TOL
+    assert _rel_l2(out, ref) <= Q8_REL_L2
+    strip_only = plog[0][1, :8 * w].max().item()
+    assert klog[0][1].max().item() > 1.05 * strip_only
+
+
+def test_int8_wrappers_raise_outside_domain(card):
+    """A CUDA tensor outside an int8 kernel's domain raises; nothing falls
+    back to the plain version or to the bf16 kernel."""
+    c = 48
+    x = _rnd((1, 16, 16, c), 1).to(BF)
+    lin = [_rnd((4 * c, c), 2).to(BF), _rnd((4 * c,), 3).to(BF),
+           _rnd((c, 4 * c), 4).to(BF), _rnd((c,), 5).to(BF)]
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="C=48"):
+        sb.fused_mlp_tail(x, x, *lin, int8=True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        sb.fused_mlp_tail(x.float(), x.float(), *lin, int8=True)
+    wt = _block_weights(32, 6)
+    x = _rnd((1, 16, 16, 32), 7).to(BF)
+    bias = _rnd((2, 64, 64), 8)
+    with pytest.raises(ValueError, match="unshifted"):
+        sb.fused_swin_block(x, *wt["ln1"], *wt["att"], *wt["ln2"], *wt["lin"],
+                            bias, None, 8, 2, 0.25, 2, int8=True)
+    x = _rnd((1, 20, 20, 32), 9).to(BF)
+    with pytest.raises(ValueError, match="400 tokens"):
+        wa.fused_block_attention(x, *wt["att"], _rnd((2, 400, 400), 10), None,
+                                 20, 2, 0.25, 0, int8=True)
+    assert sum(kernels.launches().values()) == 0
+
+
+# int8 serving: each bf16 K2-K7 launch becomes its int8 twin's; at 608 px
+# stage 2 (76 x 76) is off the window grid, un-quantized in JAX too
+INT8 = dict(MAIN, swin_block=0, block_attention_ln=0, conv_mlp_tail=0,
+            block_attention=0, mlp_tail=0, conv_mlp_tail_noln=0,
+            swin_block_q8=3, block_attention_ln_q8=3, conv_mlp_tail_q8=3,
+            block_attention_q8=4, mlp_tail_q8=2, conv_mlp_tail_noln_q8=2)
+INT8_OFF = dict(INT8, block_attention_q8=0, mlp_tail_q8=0,
+                conv_mlp_tail_noln_q8=0, window_attention=4)
+
+
+@pytest.mark.parametrize("img,counts", [(512, INT8), (128, INT8),
+                                        (608, INT8_OFF)])
+def test_flagship_int8_forward_dispatch(card, img, counts):
+    """Launches per forward inside int8_serving() (JAX's gate), and the
+    int8 Detect maps against the bf16 kernels' on the same weights: finite,
+    moved by the quantization, within 5e-2."""
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.weights import init_weights
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    m = build_model("configs/model.yaml", ch_in=4, dtype=BF)
+    m = cache_rel_bias(init_weights(m, 0).cuda().eval())
+    x = torch.rand((1, img, img, 3), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    kernels.reset_launches()
+    with torch.no_grad(), kernels.int8_serving():
+        q8 = m(x, x)["raw"][0].float()
+    torch.cuda.synchronize()
+    assert kernels.launches() == counts
+    with torch.no_grad():
+        bf = m(x, x)["raw"][0].float()
+    assert torch.isfinite(q8).all()
+    assert 0 < ((q8 - bf).norm() / bf.norm()).item() < 5e-2
 
 
 # ------------------------------------------------- training kernels (K9-K13)

@@ -1,0 +1,345 @@
+"""K12, the int8 serving bodies: the port's quantizers and the plain int8
+versions of its five bodies vs the JAX package's (`_q8_weight`,
+`_q8_weight_conv`, `_q8_dot`, and the Pallas bodies with int8=True run in
+interpret mode), f32 on the CPU.
+
+The quantizers are bit-equal. A body is held to 2e-3 of max |ref|: both
+sides compute the same codes in f32, but an LN or a GELU that differs in
+the last ulp between the two CPU backends can move a value across a
+rounding boundary, which changes one code by one step (one 127th of a
+strip's range times a weight) - far below 2e-3 of the output. Each body
+also differs by more than 1e-6 from the un-quantized composition, so the
+quantization ran (tests/test_pallas.py holds JAX's own that way).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from sodt_tpu.models.swin import shift_attn_mask
+from sodt_tpu.pallas import window_attention as jwa, swin_block as jsb
+from sodt_tpu_torch import kernels
+from sodt_tpu_torch.kernels import quant, window_attention as twa, swin_block as tsb
+
+from torch_port_common import rand, t, j, close, interpret_mode
+
+TOL = 2e-3
+
+
+def _rel_close(out, ref, tol=TOL):
+    out, ref = np.asarray(out.detach()), np.asarray(ref)
+    assert out.shape == ref.shape
+    rel = np.abs(out - ref).max() / np.abs(ref).max()
+    assert rel <= tol, rel
+
+
+def _quantized(out, ref):
+    assert np.abs(np.asarray(out.detach()) - np.asarray(ref)).max() > 1e-6
+
+
+def _ln(c, seed):
+    return 1.0 + rand((c,), seed, 0.1), rand((c,), seed + 1, 0.1)
+
+
+# ------------------------------------------------------------ quantizers
+
+@pytest.mark.parametrize("shape,scale", [((32, 96), 0.1), ((64, 48), 3.0)])
+def test_q8_weight_bit_equal(shape, scale):
+    w = rand(shape, 1, scale)               # JAX (K, N); torch (N, K)
+    w[0, 3] = 0.0
+    w[:, 5] = 0.0                           # an all-zero output channel
+    jq, js = jsb._q8_weight(j(w))
+    tq, ts = quant.q8_weight(t(w.T))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq).T)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js)[0])
+    assert tq.dtype == torch.int8 and int(tq.abs().max()) == 127
+
+
+def test_q8_weight_conv_bit_equal():
+    wc = rand((2, 2, 32, 48), 2, 0.2)       # HWIO
+    jq, js = jsb._q8_weight_conv(j(wc))
+    tq, ts = quant.q8_weight_conv(t(wc.transpose(3, 0, 1, 2)))
+    np.testing.assert_array_equal(tq.numpy(),
+                                  np.asarray(jq).transpose(3, 0, 1, 2))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js)[0])
+
+
+def test_q8_weight_rounds_half_to_even():
+    # one channel of max 127 (scale exactly 1): 2.5 -> 2, 3.5 -> 4, -0.5 -> 0
+    w = np.array([[127.0, 2.5, 3.5, -0.5, -1.5]], np.float32)
+    q, s = quant.q8_weight(t(w))
+    assert s.item() == 1.0
+    assert q.tolist() == [[127, 2, 4, 0, -2]]
+
+
+class _Ref:
+    def __init__(self, v):
+        self.v = v
+
+    def __getitem__(self, _):
+        return self.v
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-10])
+def test_q8_dot_bit_equal(scale):
+    """One strip: codes, scale and the exact int32 product as f32. At
+    1e-10 the abs-max floor 1e-8 decides the scale."""
+    x = rand((48, 64), 3, scale)
+    w = rand((64, 40), 4, 0.1)
+    wq, ws = jsb._q8_weight(j(w))
+    ref = jsb._q8_dot(j(x), _Ref(wq), _Ref(ws))
+    tq, ts = quant.q8_weight(t(w.T))
+    out = quant.q8_dot(t(x), tq, ts)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_q8_quantize_strips_are_independent():
+    x = rand((2, 3, 16, 8), 5)
+    x[1, 2] *= 100.0
+    codes, sx = quant.q8_quantize(t(x))
+    assert sx.shape == (2, 3, 1, 1)
+    for b in range(2):
+        for r in range(3):
+            one, s1 = quant.q8_quantize(t(x[b, r]))
+            assert torch.equal(codes[b, r], one) and torch.equal(sx[b, r], s1)
+
+
+# ----------------------------------------------------------------- bodies
+
+def _att(c, seed):
+    return (rand((c, 3 * c), seed, 0.1), rand((3 * c,), seed + 1, 0.1),
+            rand((c, c), seed + 2, 0.1), rand((c,), seed + 3, 0.1))
+
+
+def test_swin_block_q8_plain_matches_pallas():
+    """K2's int8 twin, `_pallas_swin_block_q8`: 16 x 24 map, two strips."""
+    b, h, w, c, nh, ws = 2, 16, 24, 32, 4, 8
+    x = rand((b, h, w, c), 11)
+    ln1, ln2 = _ln(c, 12), _ln(c, 14)
+    wqkv, bqkv, wp, bp = _att(c, 16)
+    w1, b1 = rand((c, 4 * c), 20, 0.1), rand((4 * c,), 21, 0.1)
+    w2, b2 = rand((4 * c, c), 22, 0.1), rand((c,), 23, 0.1)
+    bias = rand((nh, ws * ws, ws * ws), 24)
+    scale = (c // nh) ** -0.5
+    jargs = [j(a) for a in (x, *ln1, wqkv, bqkv, wp, bp, *ln2, w1, b1, w2,
+                            b2, bias)]
+    with interpret_mode():
+        ref = jsb._pallas_swin_block_q8(*jargs, ws, nh, scale)
+    targs = (t(x), t(ln1[0]), t(ln1[1]), t(wqkv.T), t(bqkv), t(wp.T), t(bp),
+             t(ln2[0]), t(ln2[1]), t(w1.T), t(b1), t(w2.T), t(b2), t(bias))
+    out = tsb.swin_block_q8_plain(*targs, None, ws, nh, scale)
+    _rel_close(out, ref)
+    _quantized(out, jsb._compose_swin_block(*jargs, ws, nh, scale))
+    # the wrapper takes the plain int8 body for a CPU tensor, no launch
+    kernels.reset_launches()
+    out2 = tsb.fused_swin_block(*targs[:-1], t(bias), None, ws, nh, scale,
+                                int8=True)
+    assert torch.equal(out2, out)
+    assert not any(kernels.launches().values())
+
+
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("shift", [0, 2])
+def test_block_attention_q8_plain_matches_pallas(ln, shift):
+    """K3's (with the LN) and K5's int8 twin, `_pallas_block_attention(
+    int8=True)`: the shifted strips, masked."""
+    b, hw, c, nh, ws = 2, 16, 32, 4, 8
+    x = rand((b, hw, hw, c), 31)
+    lnw, lnb = _ln(c, 32)
+    wqkv, bqkv, wp, bp = _att(c, 34)
+    bias = rand((nh, ws * ws, ws * ws), 38)
+    scale = (c // nh) ** -0.5
+    mask = shift_attn_mask(hw, hw, ws, shift) if shift else None
+    jln = (j(lnw), j(lnb)) if ln else None
+    with interpret_mode():
+        ref = jwa._pallas_block_attention(
+            j(x), j(wqkv), j(bqkv), j(wp), j(bp), j(bias), mask, ws, nh,
+            scale, ln=jln, shift=shift, int8=True)
+    tm = None if mask is None else t(mask)
+    tw = (t(wqkv.T), t(bqkv), t(wp.T), t(bp), t(bias), tm, ws, nh, scale,
+          shift)
+    if ln:
+        out = twa.fused_block_attention_ln(t(x), t(lnw), t(lnb), *tw,
+                                           int8=True)
+    else:
+        out = twa.fused_block_attention(t(x), *tw, int8=True)
+    _rel_close(out, ref)
+    xr = jnp.roll(j(x), (-shift, -shift), (1, 2))
+    _quantized(out, jwa._compose_block_attention(
+        xr, j(wqkv), j(bqkv), j(wp), j(bp), j(bias), mask, ws, nh, scale,
+        ln=jln))
+
+
+def _conv_weights(c, seed):
+    return (rand((c, c), seed, 0.1), rand((c,), seed + 1, 0.1),
+            rand((2, 2, c, c), seed + 2, 0.1), rand((c,), seed + 3, 0.1),
+            rand((c, c), seed + 4, 0.1), rand((c,), seed + 5, 0.1))
+
+
+def _torch_conv_weights(w1, b1, wc, bc, w2, b2):
+    return (t(w1.T), t(b1), t(wc.transpose(3, 0, 1, 2)), t(bc), t(w2.T),
+            t(b2))
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_conv_mlp_tail_q8_plain_matches_pallas(shift):
+    """K4's int8 twin, `_pallas_conv_tail(int8=True)`: three strips of 8
+    rows, so the last one zeroes its halo."""
+    b, h, w, c = 2, 24, 16, 32
+    x, a = rand((b, h, w, c), 41), rand((b, h, w, c), 42)
+    lnw, lnb = _ln(c, 43)
+    cw = _conv_weights(c, 45)
+    with interpret_mode():
+        ref = jsb._pallas_conv_tail(j(x), j(a), j(lnw), j(lnb),
+                                    *[j(v) for v in cw], 8, shift=shift,
+                                    int8=True)
+    out = tsb.fused_conv_mlp_tail(t(x), t(a), t(lnw), t(lnb),
+                                  *_torch_conv_weights(*cw), shift, int8=True)
+    _rel_close(out, ref)
+    ar = jnp.roll(j(a), (shift, shift), (1, 2))
+    _quantized(out, jsb._compose_conv_tail(j(x), ar, j(lnw), j(lnb),
+                                           *[j(v) for v in cw]))
+
+
+def test_mlp_tail_q8_plain_matches_pallas():
+    """K6's int8 twin, `_pallas_mlp_tail(int8=True)`."""
+    b, h, w, c = 2, 16, 8, 32
+    r, y = rand((b, h, w, c), 51), rand((b, h, w, c), 52)
+    w1, b1 = rand((c, 4 * c), 53, 0.1), rand((4 * c,), 54, 0.1)
+    w2, b2 = rand((4 * c, c), 55, 0.1), rand((c,), 56, 0.1)
+    with interpret_mode():
+        ref = jsb._pallas_mlp_tail(j(r), j(y), j(w1), j(b1), j(w2), j(b2), 8,
+                                   int8=True)
+    out = tsb.fused_mlp_tail(t(r), t(y), t(w1.T), t(b1), t(w2.T), t(b2),
+                             int8=True)
+    _rel_close(out, ref)
+    _quantized(out, jsb._compose_mlp_tail(j(r), j(y), j(w1), j(b1), j(w2),
+                                          j(b2)))
+
+
+@pytest.mark.parametrize("h", [8, 24])
+def test_conv_mlp_tail_noln_q8_plain_matches_pallas(h):
+    """K7's int8 twin, `_pallas_conv_tail_noln(int8=True)`: one strip (its
+    halo is its own first row, zeroed) and three."""
+    b, w, c = 2, 16, 32
+    r, y = rand((b, h, w, c), 61), rand((b, h, w, c), 62)
+    cw = _conv_weights(c, 63)
+    with interpret_mode():
+        ref = jsb._pallas_conv_tail_noln(j(r), j(y), *[j(v) for v in cw], 8,
+                                         int8=True)
+    out = tsb.fused_conv_mlp_tail_noln(t(r), t(y), *_torch_conv_weights(*cw),
+                                       int8=True)
+    _rel_close(out, ref)
+    _quantized(out, jsb._compose_conv_tail_noln(j(r), j(y),
+                                                *[j(v) for v in cw]))
+
+
+def test_conv_tail_halo_scale_quirk():
+    """K4 with shift > 0: the last strip's halo row is x's row (nr-1)*ws
+    plus a's UNSHIFTED row 0 (nr*ws mod H), not a row of that strip, and
+    its LN enters that strip's fc1 scale though its fc1 output is zeroed.
+    On this input (a large unshifted row 0) the port's scale differs from
+    the strip-only abs-max, and the whole body still matches JAX's."""
+    b, h, w, c, shift, ws = 1, 16, 8, 32, 2, 8
+    x = rand((b, h, w, c), 71, 0.1)
+    a = rand((b, h, w, c), 72, 0.1)
+    # a's unshifted row 0 = shifted row H - shift: make its LN outputs large
+    # in one channel
+    a[:, h - shift, :, 0] = 50.0
+    lnw, lnb = _ln(c, 73)
+    cw = _conv_weights(c, 75)
+    x_rows, a_rows = tsb.conv_tail_halo_rows(h, ws, shift)
+    assert x_rows == [8, 8] and a_rows == [8, 0]
+    a_un = torch.roll(t(a), (shift, shift), (1, 2))
+    res1 = quant.to_strips(t(x) + a_un, ws)
+    halo = t(x)[:, x_rows] + a_un[:, a_rows]
+    with_halo = quant.ln_f32(torch.cat([res1, halo], 2), t(lnw), t(lnb))
+    strip_only = quant.ln_f32(res1, t(lnw), t(lnb))
+    s_port = quant.strip_scale(with_halo)[0, 1].item()
+    s_strip = quant.strip_scale(strip_only)[0, 1].item()
+    assert s_port > 1.05 * s_strip
+    with interpret_mode():
+        ref = jsb._pallas_conv_tail(j(x), j(a), j(lnw), j(lnb),
+                                    *[j(v) for v in cw], 8, shift=shift,
+                                    int8=True)
+    with quant.strip_amax_log() as log:
+        out = tsb.conv_mlp_tail_q8_plain(t(x), t(a), t(lnw), t(lnb),
+                                         *_torch_conv_weights(*cw), shift)
+    _rel_close(out, ref)
+    # the log holds what the scale was made of: the halo row is in it
+    assert log[0].amax(-1)[1].item() == with_halo[0, 1].abs().max().item()
+
+
+def _body_args(name, b, h, w, c, nh, ws, shift):
+    """Small torch inputs of one plain int8 body, and its quantization
+    points (K2 4, K3 / K5 2, K4 / K7 3 with the halo row, K6 2)."""
+    x, a = t(rand((b, h, w, c), 91)), t(rand((b, h, w, c), 92))
+    ln1, ln2 = [t(v) for v in _ln(c, 93)], [t(v) for v in _ln(c, 95)]
+    wqkv, bqkv, wp, bp = _att(c, 97)
+    att = (t(wqkv.T), t(bqkv), t(wp.T), t(bp))
+    lin = (t(rand((4 * c, c), 101, 0.1)), t(rand((4 * c,), 102, 0.1)),
+           t(rand((c, 4 * c), 103, 0.1)), t(rand((c,), 104, 0.1)))
+    conv = _torch_conv_weights(*_conv_weights(c, 105))
+    bias = t(rand((nh, ws * ws, ws * ws), 111))
+    mask = t(shift_attn_mask(h, w, ws, shift)) if shift else None
+    win = (bias, mask, ws, nh, (c // nh) ** -0.5, shift)
+    return {
+        "swin_block": (tsb.swin_block_q8_plain,
+                       (x, *ln1, *att, *ln2, *lin, *win), 4),
+        "block_attention": (twa.block_attention_q8_plain, (x, *att, *win), 2),
+        "block_attention_ln": (twa.block_attention_ln_q8_plain,
+                               (x, *ln1, *att, *win), 2),
+        "conv_mlp_tail": (tsb.conv_mlp_tail_q8_plain,
+                          (x, a, *ln2, *conv, shift), 3),
+        "mlp_tail": (tsb.mlp_tail_q8_plain, (x, a, *lin), 2),
+        "conv_mlp_tail_noln": (tsb.conv_mlp_tail_noln_q8_plain,
+                               (x, a, *conv), 3)}[name]
+
+
+@pytest.mark.parametrize("name,shift", [
+    ("swin_block", 0), ("block_attention", 2), ("block_attention_ln", 2),
+    ("conv_mlp_tail", 2), ("mlp_tail", 0), ("conv_mlp_tail_noln", 0)])
+def test_strip_amax_log_sees_every_quantization_point(name, shift):
+    """`quant.strip_amax_log` (what the card's kernels are held to): one
+    entry per quantization point in the body's order, one row per strip
+    (image-major), the strip's rows (+ the conv tails' halo row) as
+    columns; the first point's abs-max is that of the body's first strip
+    input: the shifted strips for a shifted block, y and its halo row (the
+    next strip's first row, clamped) for K7."""
+    b, h, w, c, nh, ws = 2, 16, 8, 32, 2, 8
+    body, args, points = _body_args(name, b, h, w, c, nh, ws, shift)
+    with quant.strip_amax_log() as log:
+        body(*args)
+    assert len(log) == points
+    halo = name.startswith("conv")
+    for k, e in enumerate(log):
+        rows = ws * w + (w if halo and k < 2 else 0)
+        assert tuple(e.shape) == (b * h // ws, rows)
+    x0 = torch.roll(args[0], (-shift, -shift), (1, 2))
+    if name == "mlp_tail":
+        x0 = args[1]
+    elif name == "conv_mlp_tail_noln":
+        y = args[1]
+        x0 = torch.cat([quant.to_strips(y, ws), y[:, [8, 8]]], 2)
+    if name in ("block_attention", "mlp_tail", "conv_mlp_tail_noln"):
+        want = x0.reshape(b * h // ws, -1).abs().amax(-1)
+        torch.testing.assert_close(log[0].amax(-1), want, rtol=0, atol=0)
+    assert not quant._amax_log                  # closed with the context
+
+
+def test_int8_wrappers_backward_replays_the_bf16_composition():
+    """`_fmt_bwd`: the gradient of the int8 wrapper is the gradient of the
+    un-quantized composition (nothing trains in this mode)."""
+    b, h, w, c = 1, 8, 8, 32
+    r, y = rand((b, h, w, c), 81), rand((b, h, w, c), 82)
+    ws_ = [t(rand((4 * c, c), 83, 0.1)), t(rand((4 * c,), 84, 0.1)),
+           t(rand((c, 4 * c), 85, 0.1)), t(rand((c,), 86, 0.1))]
+    leaves = [t(r).requires_grad_(), t(y).requires_grad_()] + [
+        v.clone().requires_grad_() for v in ws_]
+    g_out = t(rand((b, h, w, c), 87))
+    g8 = torch.autograd.grad(tsb.fused_mlp_tail(*leaves, int8=True), leaves,
+                             g_out)
+    g = torch.autograd.grad(tsb.mlp_tail_plain(*leaves), leaves, g_out)
+    for a_, b_ in zip(g8, g):
+        close(a_, b_.detach().numpy(), 1e-6)
