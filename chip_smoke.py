@@ -8,13 +8,18 @@ the final ok line:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions
   2. build    nvcc builds the kernels of sodt_tpu_torch/csrc (seconds)
+     ptxas    registers, static shared memory and spills of the K8 / K10
+              kernels (`nvcc -Xptxas -v`, run beside the build), and the
+              dynamic shared memory their launches take at head dim 64
   3. kernels  each kernel vs its plain PyTorch version on the same bf16
               inputs at the shapes its path gives it (batch 2, and the
               paths' batch 4), max |diff| / max |ref| <= 2e-2 (the f32
               dbias of K9 / K10: <= 1e-3), with the kernel's, the plain
               version's and (K1, K8, K9, K10, K13) the library call's time;
               K1 at the 608 px path's shape and at the four shapes of the
-              training step's replays; K11 forward and backward at the
+              training step's replays; K8 also at the 608 px path's four
+              windows; K10 on K8's statistics, as training runs it, and
+              (path `own_stats`, outside the kernels line) on its own; K11 forward and backward at the
               four stage shapes of the SwinV2 family, masked and unmasked,
               and K13 at the five shapes that family gives it;
               the backward kernels (K9, K10, K11) also dq, dk and dv
@@ -84,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -225,7 +231,7 @@ TPU_KERNEL = {
                 ("main",)),
     "global_attention": ("K8", "sodt_tpu_torch/csrc/global_attention.cu",
                          "sodt_tpu/pallas/window_attention.py:941",
-                ("main",)),
+                         ("main", "608px")),
     "window_attention_bwd": ("K9",
                              "sodt_tpu_torch/csrc/window_attention_bwd.cu",
                              "sodt_tpu/pallas/window_attention.py:761",
@@ -301,6 +307,70 @@ def bound_ms(nbytes: float, flops: float,
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# ------------------------------------------------------------------- ptxas
+
+# the sources whose kernels this slice redesigned (K8, K10): registers,
+# static shared memory and spills as `nvcc -Xptxas -v` reports them
+PTXAS_SOURCES = ("global_attention.cu", "global_attention_bwd.cu")
+
+
+def start_ptxas(out_dir: Path) -> list:
+    """One `nvcc -Xptxas -v` per source, started beside the build."""
+    from sodt_tpu_torch.kernels import _build
+    procs = []
+    for name in PTXAS_SOURCES:
+        cmd = [_build.nvcc_path(), *_build.ARCH, *_build.FLAGS, "-Xptxas",
+               "-v", "-I", str(_build.CSRC), "-c", str(_build.CSRC / name),
+               "-o", str(out_dir / (name + ".o"))]
+        procs.append((name, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return procs
+
+
+def ptxas_report(procs) -> dict:
+    """{kernel<template args>: registers, static smem, spill bytes} from
+    ptxas's lines; with the dynamic shared memory each launch asks for at
+    the main path's shape (head dim 64, N 1024, no mask; the layouts of
+    csrc/global_attention.cuh and csrc/global_attention_bwd.cu)."""
+    kernels, entry = {}, None
+    for name, proc in procs:
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v {name}:\n{out}")
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                k = re.search(r"(global_attn_\w+?_kernel)(?:ILi(\d+)E"
+                              r"(?:Li(\d+)E)?)?", m.group(1))
+                entry = (k.group(1) + ("<" + ",".join(
+                    a for a in k.group(2, 3) if a) + ">" if k.group(2)
+                    else "")) if k else m.group(1)
+                kernels[entry] = {}
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                kernels[entry]["spill_stores"] = int(m.group(1))
+                kernels[entry]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                kernels[entry]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                kernels[entry]["static_smem"] = int(sm.group(1)) if sm else 0
+    n, ld = 1024, 64 + 8
+    dynamic = {
+        "global_attn_fwd_kernel": 2 * (2 * 64 * ld * 2 + 64 * 72 * 4),
+        "global_attn_bwd_dq_kernel": (2 * (2 * 64 * ld * 2 + 32 * 72 * 4)
+                                      + 2 * 32 * ld * 2 + 32 * (n + 8) * 4),
+        "global_attn_bwd_dkv_kernel": (2 * 64 * ld * 2 + 2 * (
+            2 * 64 * ld * 2 + 64 * 68 * 4 + 2 * 64 * 4))}
+    return {"phase": "ptxas", "kernels": kernels,
+            "dynamic_smem_bytes_hd64_n1024": dynamic}
 
 
 # ------------------------------------------------------------------ kernels
@@ -584,15 +654,41 @@ def kernel_cases(batch: int) -> list[dict]:
          4 * batch * n * n * c, 1,
          lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask_bf,
                                                 scale=scale))
-    # K10, its backward: qkv, gy read, dqkv written, the 50 MB bias read and
-    # the 50 MB dbias written once
+    # K8 on the 608 px path: stage 3's 38x38 map padded to 64x64, four
+    # 32x32 windows per image, no mask (stage 3's one block is unshifted)
+    hw6 = 64
+    qkv6 = rnd((batch, hw6, hw6, 3 * c))
+    heads6 = (qkv6.reshape(batch, 2, hw, 2, hw, 3, nh, c // nh)
+              .permute(5, 0, 1, 3, 6, 2, 4, 7)
+              .reshape(3, batch * 4, nh, n, c // nh))
+    q6, k6, v6 = (t.contiguous() for t in heads6)
+    case("global_attention", f"({batch},{hw6},{hw6},{3 * c}) ws {hw}",
+         wa.fused_global_attention, wa.global_attention_plain,
+         (qkv6, bias, nh, scale, hw), nbytes(qkv6, bias) + nbytes(qkv6) // 3,
+         4 * batch * hw6 * hw6 * n * c, 1,
+         lambda: F.scaled_dot_product_attention(q6, k6, v6,
+                                                attn_mask=mask_bf,
+                                                scale=scale), path="608px")
+    # K10, its backward, as the training step runs it: on K8's statistics
+    # (head dim 64, scale 1/8: `lse_reusable`). qkv, gy and K8's f32 output
+    # and log-sum-exp read, dqkv written, the 50 MB bias read and the 50 MB
+    # dbias written once. Beside it (path "own_stats", not a path of the
+    # kernels line) K10 taking its own statistics, as a direct call does.
     gy = rnd((batch, hw, hw, c))
+    _, k8_stats = wa._launch_global(qkv, bias, None, nh, scale, hw, True)
+    case("global_attention_bwd", f"({batch},{hw},{hw},{3 * c}) N {n} "
+         "K8 stats",
+         lambda *a: wa.global_attention_bwd(*a, stats=k8_stats),
+         wa.global_attention_bwd_plain, (qkv, bias, nh, scale, gy),
+         2 * nbytes(qkv) + nbytes(gy) + 2 * nbytes(bias) + nbytes(*k8_stats),
+         10 * batch * n * n * c, 1, sdpa_bwd(q, k, v, mask_bf, scale),
+         (KERNEL_TOL, DBIAS_TOL), path="train")
     case("global_attention_bwd", f"({batch},{hw},{hw},{3 * c}) N {n}",
          wa.global_attention_bwd, wa.global_attention_bwd_plain,
          (qkv, bias, nh, scale, gy),
          2 * nbytes(qkv) + nbytes(gy) + 2 * nbytes(bias),
          10 * batch * n * n * c, 1, sdpa_bwd(q, k, v, mask_bf, scale),
-         (KERNEL_TOL, DBIAS_TOL), path="train")
+         (KERNEL_TOL, DBIAS_TOL), path="own_stats")
     int8_cases(batch, rnd, ln, msk, case)
     return cases
 
@@ -1433,8 +1529,20 @@ def main() -> int:
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    ptx_dir = tempfile.TemporaryDirectory()
+    ptxas = start_ptxas(Path(ptx_dir.name))
+    try:
+        _build.build()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        emit(ptxas_report(ptxas))
+    except Exception:
+        traceback.print_exc()
+        failed.append("build / ptxas")
+    finally:
+        for _, proc in ptxas:
+            proc.kill()
+            proc.wait()
+        ptx_dir.cleanup()
 
     rows = []
     for batch in (2, MAIN_BATCH):

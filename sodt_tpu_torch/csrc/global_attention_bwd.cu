@@ -1,351 +1,498 @@
 // K10: backward of the single-window ("global") attention K8.
 // Replaces sodt_tpu/pallas/window_attention.py _global_bwd_dqkv_kernel +
 // _global_bwd_dbias_kernel (_pallas_global_attention_bwd, _global_chunk_grads).
-// Per (window, head), in f32, with S = scale * Q K^T + bias (+ mask) and
-// P = softmax(S) recomputed (K8 keeps no log-sum-exp):
-//   dP = dO V^T,  delta = rowsum(dP * P),  dS = P * (dP - delta)
+// Per (window, head), in f32, with S = scale * Q K^T + bias (+ mask),
+// P = softmax(S) = exp(S - lse):
+//   dP = dO V^T,  delta = rowsum(dP * P) = rowsum(dO * O),
+//   dS = P * (dP - delta),
 //   dQ = scale * dS K,  dK = scale * dS^T Q,  dV = P^T dO,
 //   dbias = sum over batch (and windows) of dS.
+// P and dS are rounded to bf16 before their tensor-core products; dbias is
+// summed in f32.
 //
-// Bound by bytes at small batch: the f32 bias (read) and dbias (written) are
-// 50 MB each at N = 1024, nh = 12. Flash style, two kernels, 64 x 64 score
-// tiles on the tensor cores, no (N, N) tensor in device memory but dbias:
+// What bounds it on the H100: bytes. At N = 1024, 12 heads, batch 4 the f32
+// bias read and the f32 dbias written are 50 MB each (30 us at 3.35 TB/s);
+// its five N x N x 64 products per (window, head) are 32 GFLOP (33 us at
+// the bf16 peak, about twice that for mma.sync from registers).
 //
-//  * global_attn_bwd_dq_kernel, one CTA per (64 query rows, head). It walks
-//    every window of the batch in order. Pass 1 over the key blocks takes
-//    the row max, row sum and delta with one online rescaling (delta is
-//    sum_j exp(S_ij - m_i) dP_ij / l_i, so it rescales like the sum): the
-//    row statistics are recomputed here, not saved by the forward. Pass 2
-//    forms dS per tile, accumulates dQ in shared memory (f32) and adds dS
-//    into the CTA's own rows of dbias by plain read-modify-write: one owner
-//    thread per address, windows in order, so dbias is deterministic and
-//    written without atomics. The log-sum-exp and delta of every row go to
-//    a small (B * nW, nh, N) f32 scratch for the second kernel.
-//  * global_attn_bwd_dkv_kernel, one CTA per (64 key rows, window, head),
-//    loops over the query blocks: P and dS tiles from the saved row
-//    statistics, dV += P^T dO and dK += dS^T Q accumulated in f32 in shared
-//    memory across all query blocks, rounded to bf16 once at the store
-//    (the Pallas kernel keeps an f32 output for the same reason).
-//
+// Design. Three properties: dbias deterministic (no float atomics: every
+// dbias address has one owner thread, which adds the windows in order),
+// dbias written once, and each score tile computed at most twice in the
+// backward on the training path (K8's statistics). Steps, one launch each, on the caller's stream:
+//  1. Row statistics (lse, delta), (B * nW, nh, N) f32 each:
+//     * taken from K8 when the caller hands K8's log-sum-exp and f32
+//       output. The wrapper does so under autograd only where K8's S
+//       equals this one: K8 scales q in bf16 before QK^T, which is exact
+//       only when the scale is a power of two (head dim 16 or 64; the
+//       flagship's 64). delta = rowsum(dO * O) then comes from that f32 O
+//       (global_attn_delta_kernel, 12.6 + 6.3 MB read at batch 4). Not
+//       from K8's bf16 output: O's and P's bf16 roundings move delta by
+//       ~1e-3 of dP, and dbias then misses DBIAS_TOL (global_attention.cuh
+//       keeps P's rounding residue for that reason);
+//     * else computed by K8's body in its statistics mode (q unscaled,
+//       S * scale in f32, O in f32 for delta): one more pass over the
+//       score tiles, so three score computations per tile on this path
+//       (K8 has computed them once more in the forward). Holding a
+//       window's 32 x N score rows in shared memory to take the statistics
+//       inside step 2 would not fit beside the dbias slab (2 x 128 KB at
+//       N = 1024).
+//  2. global_attn_bwd_dq_kernel: one CTA of 8 warps per (32 query rows,
+//     head), 384 CTAs at N = 1024 with 12 heads. It holds its 32 x N f32
+//     dbias slab in shared memory (132 KB at N = 1024) across all B * nW
+//     windows, which it walks in order; per window, 64-key blocks of K, V
+//     and the bias (+ mask) tile come through a two-stage cp.async ring
+//     (one barrier per block),
+//     warp (r, k) computes S and dP of its 16 rows x 16 keys in registers
+//     (mma.sync, ldmatrix), forms dS there, adds it into the slab and
+//     accumulates dQ += dS K in registers; the four key-quarter warps' dQ
+//     are summed in a fixed order at the end of the window. The slab is
+//     written to dbias once, at the end. (Where the slab does not fit,
+//     N > ~1400 or head dim 128 at N = 1024, the same owner threads add
+//     into dbias in device memory instead: still deterministic.)
+//  3. global_attn_bwd_dkv_kernel: one CTA of 4 warps per (64 key rows,
+//     window, head), rastered like K8 with the window fastest so the bias
+//     tiles of one (head, key block) are read side by side. It loops over
+//     the query blocks through the same kind of ring, computes S^T and
+//     dP^T of its keys in registers, and accumulates dV += P^T dO and
+//     dK += dS^T Q in registers for the whole loop, rounded to bf16 once.
 // The row-chunk structure of the TPU kernel (_bwd_row_chunk) is a VMEM
 // device and is not carried over.
-#include "common.cuh"
+#include "global_attention.cuh"
 
 namespace sodt {
 
-constexpr int GB_Q = 64, GB_KB = 64, GB_WARPS = 8;
-constexpr int GB_LDS = GB_KB + 4, GB_LDP = GB_KB + 16;
+constexpr int GQ_R = 32, GQ_WARPS = 8, GQ_KB = 64;  // dQ kernel: query rows, warps, key block
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-
-__host__ __device__ inline size_t global_bwd_dq_smem_bytes(int hd) {
-  return (size_t)4 * GB_Q * (hd + 16) * 2 + (size_t)2 * GB_Q * GB_LDS * 4 +
-         (size_t)GB_Q * GB_LDP * 2 + (size_t)GB_Q * (hd + 4) * 4 + 4 * GB_Q * 4;
-}
-
-__host__ __device__ inline size_t global_bwd_dkv_smem_bytes(int hd) {
-  return (size_t)4 * GB_Q * (hd + 16) * 2 + (size_t)2 * GB_Q * GB_LDS * 4 +
-         (size_t)2 * GB_Q * GB_LDP * 2 + (size_t)2 * GB_Q * (hd + 4) * 4 + 2 * GB_Q * 4;
-}
-
-// 64 rows of one of q / k / v (col0 = 0, C, 2C) or of gy into shared memory
-template <class Tok>
-__device__ __forceinline__ void load_rows(bf16* dst, int ldq, const bf16* src, int stride,
-                                          int col0, int t0, int hd, Tok tok) {
-  const int vpr = hd / 8;
-  for (int v = threadIdx.x; v < GB_Q * vpr; v += blockDim.x) {
-    const int t = v / vpr, cv = (v % vpr) * 8;
-    *reinterpret_cast<uint4*>(dst + t * ldq + cv) =
-        *reinterpret_cast<const uint4*>(src + tok(t0 + t) * stride + col0 + cv);
+template <int HD>
+struct GqLayout {
+  static constexpr int LDH = HD + 8;
+  static constexpr int LDB = GQ_KB + 8;
+  static constexpr int KV = GQ_KB * LDH;
+  static constexpr int BT = GQ_R * LDB;
+  static constexpr int LDR = HD + 4;  // f32 row stride of the dQ partials
+  __host__ __device__ static size_t stage_bytes(bool mask) {
+    return (size_t)2 * KV * 2 + (size_t)(mask ? 2 : 1) * BT * 4;
   }
-}
-
-// S = A . B^T and D = G . V^T, both (64 x 64, f32, row stride GB_LDS), over hd
-__device__ __forceinline__ void score_tiles(const bf16* A, const bf16* B, const bf16* G,
-                                            const bf16* V, int ldq, int hd, float* S,
-                                            float* D) {
-  const int warp = threadIdx.x >> 5;
-  const int tiles = (GB_Q / 16) * (GB_KB / 16);
-  for (int tile = warp; tile < 2 * tiles; tile += GB_WARPS) {
-    const int which = tile / tiles, tt = tile % tiles;
-    const int tm = tt / (GB_KB / 16), tn = tt % (GB_KB / 16);
-    const bf16* a_src = which ? G : A;
-    const bf16* b_src = which ? V : B;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < hd; kk += 16) {
-      FragA a;
-      FragBT b;
-      wmma::load_matrix_sync(a, a_src + tm * 16 * ldq + kk, ldq);
-      wmma::load_matrix_sync(b, b_src + tn * 16 * ldq + kk, ldq);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync((which ? D : S) + tm * 16 * GB_LDS + tn * 16, acc, GB_LDS,
-                            wmma::mem_row_major);
+  __host__ __device__ static size_t slab_bytes(int N) { return (size_t)GQ_R * (N + 8) * 4; }
+  // ring + Q / dO tiles (+ slab); the dQ partials reuse the ring
+  __host__ __device__ static size_t smem_bytes(bool mask, int N, bool slab) {
+    return GA_STAGES * stage_bytes(mask) + (size_t)2 * GQ_R * LDH * 2 +
+           (slab ? slab_bytes(N) : 0);
   }
-}
+};
 
-__global__ void __launch_bounds__(GB_WARPS * 32)
+template <int HD>
+__global__ void __launch_bounds__(GQ_WARPS * 32)
 global_attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gy,
                           const float* __restrict__ bias, const float* __restrict__ mask,
-                          bf16* __restrict__ dqkv, float* __restrict__ dbias,
-                          float* __restrict__ lse_g, float* __restrict__ del_g, int H, int W,
-                          int C, int nh, int ws, int has_mask, float scale, int total) {
+                          const float* __restrict__ lse_g, const float* __restrict__ del_g,
+                          bf16* __restrict__ dqkv, float* __restrict__ dbias, GaWindows m,
+                          int C, int nh, int total, int slab_in_smem, float scale) {
+  using L = GqLayout<HD>;
+  constexpr int NS = GA_STAGES;
+  static_assert(4 * GQ_R * (HD + 4) * 4 <= 2 * 2 * GQ_KB * (HD + 8) * 2,
+                "the dQ partials fit in the ring");
   extern __shared__ __align__(128) unsigned char smem[];
-  const int hd = C / nh, ldq = hd + 16, ldo = hd + 4;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + GB_Q * ldq;
-  bf16* Ks = Gs + GB_Q * ldq;
-  bf16* Vs = Ks + GB_Q * ldq;
-  float* S = reinterpret_cast<float*>(Vs + GB_Q * ldq);
-  float* D = S + GB_Q * GB_LDS;
-  bf16* Ps = reinterpret_cast<bf16*>(D + GB_Q * GB_LDS);
-  float* Os = reinterpret_cast<float*>(Ps + GB_Q * GB_LDP);
-  float* mrow = Os + GB_Q * ldo;
-  float* lrow = mrow + GB_Q;
-  float* arow = lrow + GB_Q;
-  float* lse = arow + GB_Q;
-
-  const int N = ws * ws;
-  const int gx = W / ws, nw = (H / ws) * gx;
-  const int q0 = blockIdx.x * GB_Q, h = blockIdx.y;
+  const bool has_mask = mask != nullptr;
+  const int N = m.ws * m.ws;
+  const size_t stage = L::stage_bytes(has_mask);
+  auto Ks = [&](int s) { return reinterpret_cast<bf16*>(smem + s * stage); };
+  auto Vs = [&](int s) { return Ks(s) + L::KV; };
+  auto Bs = [&](int s) { return reinterpret_cast<float*>(Vs(s) + L::KV); };
+  auto Ms = [&](int s) { return Bs(s) + L::BT; };
+  bf16* Qs = reinterpret_cast<bf16*>(smem + NS * stage);
+  bf16* Gs = Qs + GQ_R * L::LDH;
+  float* red = reinterpret_cast<float*>(smem);  // dQ partials, after a window's loop
+  const int nqb = N / GQ_R;
+  const int h = blockIdx.x / nqb, q0 = (blockIdx.x % nqb) * GQ_R;
   const int C3 = 3 * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int dt = hd / 16;
-  const float* brow = bias + ((size_t)h * N + q0) * N;
-  float* dbrow = dbias + ((size_t)h * N + q0) * N;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rt = warp & 1, kq = warp >> 1;  // 16-row tile, 16-key quarter of a block
+  const int row0 = rt * 16 + g;             // this lane's first row in the CTA tile
+  float* slab;
+  int lds;
+  if (slab_in_smem) {
+    slab = reinterpret_cast<float*>(Gs + GQ_R * L::LDH);
+    lds = N + 8;
+  } else {
+    slab = dbias + ((size_t)h * N + q0) * N;
+    lds = N;
+  }
+  const bf16* base = qkv + h * HD;
+  const float* bias_q = bias + ((size_t)h * N + q0) * N;
+  const int nkb = N / GQ_KB;
 
   for (int win = 0; win < total; ++win) {
-    const int b = win / nw, widx = win % nw;
-    const int wr = widx / gx, wc = widx % gx;
-    auto tok = [&](int t) {
-      return (size_t)(b * H + wr * ws + t / ws) * W + wc * ws + t % ws;
+    const float* mask_q = has_mask ? mask + ((size_t)(win % m.nw) * N + q0) * N : nullptr;
+    auto issue = [&](int kb, int s) {
+      const int k0 = kb * GQ_KB;
+      cp_rows<HD>(Ks(s), L::LDH, base, C3, C, m, win, k0, GQ_KB);
+      cp_rows<HD>(Vs(s), L::LDH, base, C3, 2 * C, m, win, k0, GQ_KB);
+      cp_f32_tile(Bs(s), L::LDB, bias_q + k0, N, GQ_R, GQ_KB / 4);
+      if (has_mask) cp_f32_tile(Ms(s), L::LDB, mask_q + k0, N, GQ_R, GQ_KB / 4);
     };
-    const float* mrow_g = has_mask ? mask + ((size_t)widx * N + q0) * N : nullptr;
-    const bf16* base = qkv + h * hd;
-
-    __syncthreads();  // the previous window is done with shared memory
-    load_rows(Qs, ldq, base, C3, 0, q0, hd, tok);
-    load_rows(Gs, ldq, gy + h * hd, C, 0, q0, hd, tok);
-    for (int e = threadIdx.x; e < GB_Q * hd; e += blockDim.x) Os[(e / hd) * ldo + e % hd] = 0.0f;
-    for (int r = threadIdx.x; r < GB_Q; r += blockDim.x) {
-      mrow[r] = -INFINITY;
-      lrow[r] = 0.0f;
-      arow[r] = 0.0f;
+    cp_rows<HD>(Qs, L::LDH, base, C3, 0, m, win, q0, GQ_R);
+    cp_rows<HD>(Gs, L::LDH, gy + h * HD, C, 0, m, win, q0, GQ_R);
+    issue(0, 0);
+    cp_async_commit();
+#pragma unroll
+    for (int i = 1; i < NS - 1; ++i) {
+      if (i < nkb) issue(i, i);
+      cp_async_commit();
     }
-
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int k0 = 0; k0 < N; k0 += GB_KB) {
-        __syncthreads();  // the previous block is done with Ks / Vs / S / D / Ps
-        load_rows(Ks, ldq, base, C3, C, k0, hd, tok);
-        load_rows(Vs, ldq, base, C3, 2 * C, k0, hd, tok);
-        __syncthreads();
-        score_tiles(Qs, Ks, Gs, Vs, ldq, hd, S, D);
-        __syncthreads();
-
-        for (int row = warp; row < GB_Q; row += GB_WARPS) {
-          const float* bptr = brow + (size_t)row * N + k0;
-          float s0 = S[row * GB_LDS + lane] * scale + bptr[lane];
-          float s1 = S[row * GB_LDS + lane + 32] * scale + bptr[lane + 32];
-          if (mrow_g) {
-            const float* mptr = mrow_g + (size_t)row * N + k0;
-            s0 += mptr[lane];
-            s1 += mptr[lane + 32];
-          }
-          const float d0 = D[row * GB_LDS + lane], d1 = D[row * GB_LDS + lane + 32];
-          if (pass == 0) {
-            const float m_old = mrow[row];
-            const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-            const float alpha = expf(m_old - m_new);
-            const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-            const float psum = warp_sum(p0 + p1);
-            const float dsum = warp_sum(p0 * d0 + p1 * d1);
-            __syncwarp();
-            if (lane == 0) {
-              mrow[row] = m_new;
-              lrow[row] = lrow[row] * alpha + psum;
-              arow[row] = arow[row] * alpha + dsum;
-            }
-          } else {
-            const float l = lse[row], del = arow[row];
-            const float ds0 = expf(s0 - l) * (d0 - del);
-            const float ds1 = expf(s1 - l) * (d1 - del);
-            float* dptr = dbrow + (size_t)row * N + k0;
-            dptr[lane] = win == 0 ? ds0 : dptr[lane] + ds0;
-            dptr[lane + 32] = win == 0 ? ds1 : dptr[lane + 32] + ds1;
-            Ps[row * GB_LDP + lane] = __float2bfloat16(ds0);
-            Ps[row * GB_LDP + lane + 32] = __float2bfloat16(ds1);
-          }
-        }
-        if (pass == 1) {
-          __syncthreads();
-          for (int tile = warp; tile < (GB_Q / 16) * dt; tile += GB_WARPS) {
-            const int tm = tile / dt, tn = tile % dt;
-            FragC acc;
-            wmma::load_matrix_sync(acc, Os + tm * 16 * ldo + tn * 16, ldo, wmma::mem_row_major);
-            for (int kk = 0; kk < GB_KB; kk += 16) {
-              FragA a;
-              FragB kb;
-              wmma::load_matrix_sync(a, Ps + tm * 16 * GB_LDP + kk, GB_LDP);
-              wmma::load_matrix_sync(kb, Ks + kk * ldq + tn * 16, ldq);
-              wmma::mma_sync(acc, a, kb, acc);
-            }
-            wmma::store_matrix_sync(Os + tm * 16 * ldo + tn * 16, acc, ldo,
-                                    wmma::mem_row_major);
-          }
-        }
-      }
-      if (pass == 0) {
-        __syncthreads();
-        for (int r = threadIdx.x; r < GB_Q; r += blockDim.x) {
-          const float l = mrow[r] + logf(lrow[r]);
-          const float del = arow[r] / lrow[r];
-          lse[r] = l;
-          arow[r] = del;
-          lse_g[((size_t)win * nh + h) * N + q0 + r] = l;
-          del_g[((size_t)win * nh + h) * N + q0 + r] = del;
-        }
-      }
-    }
+    cp_async_wait<NS - 2>();
     __syncthreads();
-    bf16* obase = dqkv + h * hd;
-    for (int e = threadIdx.x; e < GB_Q * hd; e += blockDim.x) {
-      const int t = e / hd, d = e % hd;
-      obase[tok(q0 + t) * C3 + d] = __float2bfloat16(scale * Os[t * ldo + d]);
+    unsigned qa[HD / 16][4], ga[HD / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      ldsm_x4(qa[ks], a_tile_addr(Qs, L::LDH, rt * 16, ks * 16, lane));
+      ldsm_x4(ga[ks], a_tile_addr(Gs, L::LDH, rt * 16, ks * 16, lane));
+    }
+    const size_t srow = ((size_t)win * nh + h) * N + q0 + row0;
+    const float l2[2] = {lse_g[srow] * GA_LOG2E, lse_g[srow + 8] * GA_LOG2E};
+    const float dl[2] = {del_g[srow], del_g[srow + 8]};
+    float dq[HD / 8][4];
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.0f;
+
+    for (int kb = 0; kb < nkb; ++kb) {
+      cp_async_wait<NS - 2>();  // block kb has landed,
+      __syncthreads();          // and every warp is done with block kb - 1
+      if (kb + NS - 1 < nkb) issue(kb + NS - 1, (kb + NS - 1) % NS);
+      cp_async_commit();
+      const int s = kb % NS;
+
+      float sc[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        unsigned b[4];
+        ldsm_x4(b, b_tile_addr(Ks(s), L::LDH, kq * 16, ks * 16, lane));
+        mma_bf16(sc[0], qa[ks], b[0], b[1]);
+        mma_bf16(sc[1], qa[ks], b[2], b[3]);
+        ldsm_x4(b, b_tile_addr(Vs(s), L::LDH, kq * 16, ks * 16, lane));
+        mma_bf16(dp[0], ga[ks], b[0], b[1]);
+        mma_bf16(dp[1], ga[ks], b[2], b[3]);
+      }
+      unsigned dsa[4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = row0 + 8 * hr, c = kq * 16 + nt * 8 + 2 * t4;
+          float2 bv = *reinterpret_cast<const float2*>(Bs(s) + r * L::LDB + c);
+          if (has_mask) {
+            const float2 mv = *reinterpret_cast<const float2*>(Ms(s) + r * L::LDB + c);
+            bv.x += mv.x;
+            bv.y += mv.y;
+          }
+          const float x0 = sc[nt][2 * hr] * scale + bv.x;
+          const float x1 = sc[nt][2 * hr + 1] * scale + bv.y;
+          const float p0 = exp2f(x0 * GA_LOG2E - l2[hr]);
+          const float p1 = exp2f(x1 * GA_LOG2E - l2[hr]);
+          const float d0 = p0 * (dp[nt][2 * hr] - dl[hr]);
+          const float d1 = p1 * (dp[nt][2 * hr + 1] - dl[hr]);
+          // this thread is the one owner of these two slab entries
+          float2* dst = reinterpret_cast<float2*>(slab + (size_t)r * lds + kb * GQ_KB + c);
+          if (win > 0) {
+            const float2 prev = *dst;
+            *dst = make_float2(prev.x + d0, prev.y + d1);
+          } else {
+            *dst = make_float2(d0, d1);
+          }
+          dsa[nt * 2 + hr] = pack_bf16(d0, d1);  // A operand: (row g | g+8, key tile nt)
+        }
+      }
+      // dQ += dS K over this warp's 16 keys: K as a k-major B operand
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        unsigned b[4];
+        ldsm_x4_t(b, b_tile_addr_t(Ks(s), L::LDH, kq * 16, np * 16, lane));
+        mma_bf16(dq[2 * np], dsa, b[0], b[1]);
+        mma_bf16(dq[2 * np + 1], dsa, b[2], b[3]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the dQ partials
+    // the four key-quarter warps' dQ, summed in a fixed order
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<float2*>(red + (kq * GQ_R + row0 + 8 * hr) * L::LDR + nt * 8 +
+                                   2 * t4) = make_float2(dq[nt][2 * hr], dq[nt][2 * hr + 1]);
+    __syncthreads();
+    bf16* dqb = dqkv + h * HD;
+    for (int e = threadIdx.x; e < GQ_R * HD / 2; e += blockDim.x) {
+      const int r = e / (HD / 2), c = (e % (HD / 2)) * 2;
+      float2 acc = make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 v = *reinterpret_cast<const float2*>(red + (k * GQ_R + r) * L::LDR + c);
+        acc.x += v.x;
+        acc.y += v.y;
+      }
+      *reinterpret_cast<unsigned*>(dqb + m.tok(win, q0 + r) * C3 + c) =
+          pack_bf16(scale * acc.x, scale * acc.y);
+    }
+    __syncthreads();  // the ring and the Q / dO tiles are refilled next window
+  }
+  if (slab_in_smem) {
+    float* dst = dbias + ((size_t)h * N + q0) * N;
+    const int n4 = N / 4;
+    for (int v = threadIdx.x; v < GQ_R * n4; v += blockDim.x) {
+      const int r = v / n4, c = (v % n4) * 4;
+      *reinterpret_cast<float4*>(dst + (size_t)r * N + c) =
+          *reinterpret_cast<const float4*>(slab + r * lds + c);
     }
   }
 }
 
-__global__ void __launch_bounds__(GB_WARPS * 32)
+// dK / dV: one CTA of GK_WARPS warps per (16 * GK_WARPS key rows, window, head)
+constexpr int GK_WARPS = 4, GK_KEYS = 16 * GK_WARPS, GK_Q = 64;
+template <int HD>
+struct GkLayout {
+  static constexpr int LDH = HD + 8;
+  static constexpr int LDT = GK_KEYS + 4;  // f32 bias rows, read transposed without conflicts
+  static constexpr int OWN = GK_KEYS * LDH;  // this CTA's K (or V) rows
+  static constexpr int TILE = GK_Q * LDH;    // a block of Q (or dO) rows
+  static constexpr int BT = GK_Q * LDT;
+  __host__ __device__ static size_t stage_bytes(bool mask) {
+    return (size_t)2 * TILE * 2 + (size_t)(mask ? 2 : 1) * BT * 4 + 2 * GK_Q * 4;
+  }
+  __host__ __device__ static size_t smem_bytes(bool mask) {
+    return (size_t)2 * OWN * 2 + 2 * stage_bytes(mask);
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(GK_WARPS * 32)
 global_attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gy,
                            const float* __restrict__ bias, const float* __restrict__ mask,
-                           bf16* __restrict__ dqkv, const float* __restrict__ lse_g,
-                           const float* __restrict__ del_g, int H, int W, int C, int nh,
-                           int ws, int has_mask, float scale) {
+                           const float* __restrict__ lse_g, const float* __restrict__ del_g,
+                           bf16* __restrict__ dqkv, GaWindows m, int C, int nh, int total,
+                           float scale) {
+  using L = GkLayout<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int hd = C / nh, ldq = hd + 16, ldo = hd + 4;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + GB_Q * ldq;
-  bf16* Qs = Vs + GB_Q * ldq;
-  bf16* Gs = Qs + GB_Q * ldq;
-  float* S = reinterpret_cast<float*>(Gs + GB_Q * ldq);
-  float* D = S + GB_Q * GB_LDS;
-  bf16* Pb = reinterpret_cast<bf16*>(D + GB_Q * GB_LDS);
-  bf16* dSb = Pb + GB_Q * GB_LDP;
-  float* dVs = reinterpret_cast<float*>(dSb + GB_Q * GB_LDP);
-  float* dKs = dVs + GB_Q * ldo;
-  float* lse = dKs + GB_Q * ldo;
-  float* del = lse + GB_Q;
+  const bool has_mask = mask != nullptr;
+  const int N = m.ws * m.ws;
+  bf16* Kown = reinterpret_cast<bf16*>(smem);
+  bf16* Vown = Kown + L::OWN;
+  unsigned char* ring = smem + (size_t)2 * L::OWN * 2;
+  const size_t stage = L::stage_bytes(has_mask);
+  auto Qs = [&](int s) { return reinterpret_cast<bf16*>(ring + s * stage); };
+  auto Gs = [&](int s) { return Qs(s) + L::TILE; };
+  auto Bs = [&](int s) { return reinterpret_cast<float*>(Gs(s) + L::TILE); };
+  auto Ms = [&](int s) { return Bs(s) + L::BT; };
+  auto Ls = [&](int s) { return Bs(s) + (has_mask ? 2 : 1) * L::BT; };  // lse, then delta
 
-  const int N = ws * ws;
-  const int gx = W / ws, nw = (H / ws) * gx;
-  const int j0 = blockIdx.x * GB_KB;
-  const int h = blockIdx.y % nh, win = blockIdx.y / nh;
-  const int b = win / nw, widx = win % nw;
-  const int wr = widx / gx, wc = widx % gx;
+  const int nkb = N / GK_KEYS;
+  const int win = blockIdx.x % total;
+  const int kb = (blockIdx.x / total) % nkb;
+  const int h = blockIdx.x / (total * nkb);
+  const int k0 = kb * GK_KEYS;
   const int C3 = 3 * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int dt = hd / 16;
-  auto tok = [&](int t) {
-    return (size_t)(b * H + wr * ws + t / ws) * W + wc * ws + t % ws;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* base = qkv + h * HD;
+  const float* bias_k = bias + (size_t)h * N * N + k0;
+  const float* mask_k = has_mask ? mask + (size_t)(win % m.nw) * N * N + k0 : nullptr;
+  const size_t sbase = ((size_t)win * nh + h) * N;
+
+  auto issue = [&](int qb, int s) {
+    const int i0 = qb * GK_Q;
+    cp_rows<HD>(Qs(s), L::LDH, base, C3, 0, m, win, i0, GK_Q);
+    cp_rows<HD>(Gs(s), L::LDH, gy + h * HD, C, 0, m, win, i0, GK_Q);
+    cp_f32_tile(Bs(s), L::LDT, bias_k + (size_t)i0 * N, N, GK_Q, GK_KEYS / 4);
+    if (has_mask) cp_f32_tile(Ms(s), L::LDT, mask_k + (size_t)i0 * N, N, GK_Q, GK_KEYS / 4);
+    cp_f32_tile(Ls(s), GK_Q, lse_g + sbase + i0, 0, 1, GK_Q / 4);
+    cp_f32_tile(Ls(s) + GK_Q, GK_Q, del_g + sbase + i0, 0, 1, GK_Q / 4);
   };
-  const bf16* base = qkv + h * hd;
-  const float* bias_h = bias + (size_t)h * N * N;
-  const float* mask_w = has_mask ? mask + (size_t)widx * N * N : nullptr;
-  const float* lse_w = lse_g + ((size_t)win * nh + h) * N;
-  const float* del_w = del_g + ((size_t)win * nh + h) * N;
 
-  load_rows(Ks, ldq, base, C3, C, j0, hd, tok);
-  load_rows(Vs, ldq, base, C3, 2 * C, j0, hd, tok);
-  for (int e = threadIdx.x; e < GB_Q * hd; e += blockDim.x) {
-    dVs[(e / hd) * ldo + e % hd] = 0.0f;
-    dKs[(e / hd) * ldo + e % hd] = 0.0f;
-  }
+  cp_rows<HD>(Kown, L::LDH, base, C3, C, m, win, k0, GK_KEYS);
+  cp_rows<HD>(Vown, L::LDH, base, C3, 2 * C, m, win, k0, GK_KEYS);
+  issue(0, 0);
+  cp_async_commit();
 
-  for (int i0 = 0; i0 < N; i0 += GB_Q) {
-    __syncthreads();  // the previous query block is done with Qs / Gs / Pb / dSb
-    load_rows(Qs, ldq, base, C3, 0, i0, hd, tok);
-    load_rows(Gs, ldq, gy + h * hd, C, 0, i0, hd, tok);
-    for (int r = threadIdx.x; r < GB_Q; r += blockDim.x) {
-      lse[r] = lse_w[i0 + r];
-      del[r] = del_w[i0 + r];
-    }
-    __syncthreads();
-    score_tiles(Qs, Ks, Gs, Vs, ldq, hd, S, D);  // rows: queries, columns: this CTA's keys
-    __syncthreads();
-    for (int row = warp; row < GB_Q; row += GB_WARPS) {
-      const float* bptr = bias_h + (size_t)(i0 + row) * N + j0;
-      float s0 = S[row * GB_LDS + lane] * scale + bptr[lane];
-      float s1 = S[row * GB_LDS + lane + 32] * scale + bptr[lane + 32];
-      if (mask_w) {
-        const float* mptr = mask_w + (size_t)(i0 + row) * N + j0;
-        s0 += mptr[lane];
-        s1 += mptr[lane + 32];
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.0f;
+  const int nqb = N / GK_Q;
+  for (int qb = 0; qb < nqb; ++qb) {
+    cp_async_wait<0>();  // block qb has landed,
+    __syncthreads();     // and every warp is done with block qb - 1
+    if (qb + 1 < nqb) issue(qb + 1, (qb + 1) & 1);
+    cp_async_commit();
+    const int s = qb & 1;
+
+    // S^T and dP^T: rows this warp's 16 keys, columns the block's 64 queries
+    float st[GK_Q / 8][4], dpt[GK_Q / 8][4];
+#pragma unroll
+    for (int i = 0; i < GK_Q / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      unsigned ka[4], va[4];
+      ldsm_x4(ka, a_tile_addr(Kown, L::LDH, warp * 16, ks * 16, lane));
+      ldsm_x4(va, a_tile_addr(Vown, L::LDH, warp * 16, ks * 16, lane));
+#pragma unroll
+      for (int np = 0; np < GK_Q / 16; ++np) {
+        unsigned b[4];
+        ldsm_x4(b, b_tile_addr(Qs(s), L::LDH, np * 16, ks * 16, lane));
+        mma_bf16(st[2 * np], ka, b[0], b[1]);
+        mma_bf16(st[2 * np + 1], ka, b[2], b[3]);
+        ldsm_x4(b, b_tile_addr(Gs(s), L::LDH, np * 16, ks * 16, lane));
+        mma_bf16(dpt[2 * np], va, b[0], b[1]);
+        mma_bf16(dpt[2 * np + 1], va, b[2], b[3]);
       }
-      const float p0 = expf(s0 - lse[row]), p1 = expf(s1 - lse[row]);
-      Pb[row * GB_LDP + lane] = __float2bfloat16(p0);
-      Pb[row * GB_LDP + lane + 32] = __float2bfloat16(p1);
-      dSb[row * GB_LDP + lane] = __float2bfloat16(p0 * (D[row * GB_LDS + lane] - del[row]));
-      dSb[row * GB_LDP + lane + 32] =
-          __float2bfloat16(p1 * (D[row * GB_LDS + lane + 32] - del[row]));
     }
-    __syncthreads();
-    // dV[k, :] += sum_q P[q, k] dO[q, :];  dK[k, :] += sum_q dS[q, k] Q[q, :]
-    const int tiles = (GB_KB / 16) * dt;
-    for (int tile = warp; tile < 2 * tiles; tile += GB_WARPS) {
-      const int which = tile / tiles, tt = tile % tiles;
-      const int tm = tt / dt, tn = tt % dt;
-      float* accp = (which ? dKs : dVs) + tm * 16 * ldo + tn * 16;
-      const bf16* at = (which ? dSb : Pb) + tm * 16;
-      const bf16* bm = (which ? Qs : Gs) + tn * 16;
-      FragC acc;
-      wmma::load_matrix_sync(acc, accp, ldo, wmma::mem_row_major);
-      for (int qq = 0; qq < GB_Q; qq += 16) {
-        FragAT a;
-        FragB bb;
-        wmma::load_matrix_sync(a, at + qq * GB_LDP, GB_LDP);
-        wmma::load_matrix_sync(bb, bm + qq * ldq, ldq);
-        wmma::mma_sync(acc, a, bb, acc);
+    const float* bt = Bs(s);
+    const float* mt = Ms(s);
+    const float* ls = Ls(s);
+#pragma unroll
+    for (int nt = 0; nt < GK_Q / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = nt * 8 + 2 * t4 + (e & 1);      // query in the block
+        const int j = warp * 16 + g + 8 * (e >> 1);   // key in the block
+        float b = bt[i * L::LDT + j];
+        if (has_mask) b += mt[i * L::LDT + j];
+        const float x = st[nt][e] * scale + b;
+        const float p = exp2f(x * GA_LOG2E - ls[i] * GA_LOG2E);
+        st[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - ls[GK_Q + i]);
       }
-      wmma::store_matrix_sync(accp, acc, ldo, wmma::mem_row_major);
+    }
+    // dV += P^T dO, dK += dS^T Q: P^T and dS^T re-packed as A operands
+#pragma unroll
+    for (int kk = 0; kk < GK_Q / 16; ++kk) {
+      const unsigned pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const unsigned da[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
+                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
+                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        unsigned b[4];
+        ldsm_x4_t(b, b_tile_addr_t(Gs(s), L::LDH, kk * 16, np * 16, lane));
+        mma_bf16(dv[2 * np], pa, b[0], b[1]);
+        mma_bf16(dv[2 * np + 1], pa, b[2], b[3]);
+        ldsm_x4_t(b, b_tile_addr_t(Qs(s), L::LDH, kk * 16, np * 16, lane));
+        mma_bf16(dk[2 * np], da, b[0], b[1]);
+        mma_bf16(dk[2 * np + 1], da, b[2], b[3]);
+      }
     }
   }
-  __syncthreads();
-  bf16* obase = dqkv + h * hd;
-  for (int e = threadIdx.x; e < GB_KB * hd; e += blockDim.x) {
-    const int t = e / hd, d = e % hd;
-    const size_t p = tok(j0 + t) * C3 + d;
-    obase[p + C] = __float2bfloat16(scale * dKs[t * ldo + d]);
-    obase[p + 2 * C] = __float2bfloat16(dVs[t * ldo + d]);
+  bf16* ob = dqkv + h * HD;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    bf16* row = ob + m.tok(win, k0 + warp * 16 + g + 8 * hr) * C3;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int c = nt * 8 + 2 * t4;
+      *reinterpret_cast<unsigned*>(row + C + c) =
+          pack_bf16(scale * dk[nt][2 * hr], scale * dk[nt][2 * hr + 1]);
+      *reinterpret_cast<unsigned*>(row + 2 * C + c) =
+          pack_bf16(dv[nt][2 * hr], dv[nt][2 * hr + 1]);
+    }
   }
+}
+
+// delta = rowsum(dO * O) per (window, head, row) from K8's f32 output
+__global__ void global_attn_delta_kernel(const float* __restrict__ out,
+                                         const bf16* __restrict__ gy, float* __restrict__ delta,
+                                         GaWindows m, int C, int nh, int total) {
+  const int N = m.ws * m.ws, hd = C / nh;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)total * N * nh) return;
+  const int h = idx % nh;
+  const int t = (idx / nh) % N;
+  const int win = idx / ((size_t)nh * N);
+  const size_t p = m.tok(win, t) * C + h * hd;
+  float acc = 0.0f;
+  for (int c = 0; c < hd; c += 8) {
+    const float4 o0 = *reinterpret_cast<const float4*>(out + p + c);
+    const float4 o1 = *reinterpret_cast<const float4*>(out + p + c + 4);
+    const uint4 gv = *reinterpret_cast<const uint4*>(gy + p + c);
+    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+    const float oe[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc += oe[e] * __bfloat162float(ge[e]);
+  }
+  delta[((size_t)win * nh + h) * N + t] = acc;
+}
+
+template <int HD>
+int launch_global_bwd(const void* qkv, const void* gy, const void* bias, const void* mask,
+                      const float* lse, const float* del, void* dqkv, void* dbias,
+                      const GaWindows& m, int C, int nh, int total, float scale,
+                      cudaStream_t stream) {
+  static int set_dq = 0, set_dkv = 0;
+  const int N = m.ws * m.ws;
+  const bool has_mask = mask != nullptr;
+  const int slab = GqLayout<HD>::smem_bytes(has_mask, N, true) <= SMEM_MAX;
+  const size_t s1 = GqLayout<HD>::smem_bytes(has_mask, N, slab);
+  const size_t s2 = GkLayout<HD>::smem_bytes(has_mask);
+  if (s1 > SMEM_MAX || s2 > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  ensure_smem(global_attn_bwd_dq_kernel<HD>, s1, set_dq);
+  ensure_smem(global_attn_bwd_dkv_kernel<HD>, s2, set_dkv);
+  global_attn_bwd_dq_kernel<HD><<<(N / GQ_R) * nh, GQ_WARPS * 32, s1, stream>>>(
+      (const bf16*)qkv, (const bf16*)gy, (const float*)bias, (const float*)mask, lse, del,
+      (bf16*)dqkv, (float*)dbias, m, C, nh, total, slab, scale);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  global_attn_bwd_dkv_kernel<HD><<<nh * (N / GK_KEYS) * total, GK_WARPS * 32, s2, stream>>>(
+      (const bf16*)qkv, (const bf16*)gy, (const float*)bias, (const float*)mask, lse, del,
+      (bf16*)dqkv, m, C, nh, total, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sodt
 
-// stats: (2, B * nW, nh, N) f32 scratch (log-sum-exp, delta); dbias (nh, N, N) f32
+// o_full, lse: K8's f32 output and log-sum-exp (both null: the statistics
+// are computed here); stats: (2, B * nW, nh, N) f32 scratch (log-sum-exp,
+// delta); dbias (nh, N, N) f32
 extern "C" int sodt_global_attention_bwd(const void* qkv, const void* gy, const void* bias,
-                                         const void* mask, void* dqkv, void* dbias,
-                                         void* stats, int B, int H, int W, int C, int nh,
-                                         int ws, int has_mask, float scale, void* stream) {
-  static int smem_dq = 0, smem_dkv = 0;
+                                         const void* mask, const void* o_full, const void* lse,
+                                         void* dqkv, void* dbias, void* stats, int B, int H,
+                                         int W, int C, int nh, int ws, int has_mask,
+                                         float scale, void* stream) {
+  using namespace sodt;
   const int hd = C / nh, N = ws * ws;
-  const int total = B * (H / ws) * (W / ws);
-  const size_t s1 = sodt::global_bwd_dq_smem_bytes(hd), s2 = sodt::global_bwd_dkv_smem_bytes(hd);
-  if (s1 > sodt::SMEM_MAX || s2 > sodt::SMEM_MAX || N % 64 != 0 || total * nh > 65535)
+  if (N % 64 != 0 || C % nh != 0 || hd % 16 != 0 || hd > 128)
     return (int)cudaErrorInvalidValue;
-  sodt::ensure_smem(sodt::global_attn_bwd_dq_kernel, s1, smem_dq);
-  sodt::ensure_smem(sodt::global_attn_bwd_dkv_kernel, s2, smem_dkv);
-  float* lse = (float*)stats;
-  float* del = lse + (size_t)total * nh * N;
-  sodt::global_attn_bwd_dq_kernel<<<dim3(N / sodt::GB_Q, nh), sodt::GB_WARPS * 32, s1,
-                                    (cudaStream_t)stream>>>(
-      (const sodt::bf16*)qkv, (const sodt::bf16*)gy, (const float*)bias, (const float*)mask,
-      (sodt::bf16*)dqkv, (float*)dbias, lse, del, H, W, C, nh, ws, has_mask, scale, total);
-  int err = (int)cudaGetLastError();
+  const int total = B * (H / ws) * (W / ws);
+  const GaWindows m = GaWindows::make(H, W, ws);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!has_mask) mask = nullptr;
+  float* lse_s = (float*)stats;
+  float* del_s = lse_s + (size_t)total * nh * N;
+  int err;
+  if (lse != nullptr && o_full != nullptr) {
+    const size_t rows = (size_t)total * N * nh;
+    global_attn_delta_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
+        (const float*)o_full, (const bf16*)gy, del_s, m, C, nh, total);
+    err = (int)cudaGetLastError();
+    lse_s = (float*)lse;
+  } else {
+    err = launch_global_fwd<GA_STATS>(qkv, bias, mask, nullptr, lse_s, nullptr, gy, del_s, B,
+                                      H, W, C, nh, ws, scale, st);
+  }
   if (err) return err;
-  sodt::global_attn_bwd_dkv_kernel<<<dim3(N / sodt::GB_KB, total * nh), sodt::GB_WARPS * 32,
-                                     s2, (cudaStream_t)stream>>>(
-      (const sodt::bf16*)qkv, (const sodt::bf16*)gy, (const float*)bias, (const float*)mask,
-      (sodt::bf16*)dqkv, lse, del, H, W, C, nh, ws, has_mask, scale);
-  return (int)cudaGetLastError();
+  switch (hd) {
+    case 16: return launch_global_bwd<16>(qkv, gy, bias, mask, lse_s, del_s, dqkv, dbias, m, C, nh, total, scale, st);
+    case 32: return launch_global_bwd<32>(qkv, gy, bias, mask, lse_s, del_s, dqkv, dbias, m, C, nh, total, scale, st);
+    case 48: return launch_global_bwd<48>(qkv, gy, bias, mask, lse_s, del_s, dqkv, dbias, m, C, nh, total, scale, st);
+    case 64: return launch_global_bwd<64>(qkv, gy, bias, mask, lse_s, del_s, dqkv, dbias, m, C, nh, total, scale, st);
+    case 80: return launch_global_bwd<80>(qkv, gy, bias, mask, lse_s, del_s, dqkv, dbias, m, C, nh, total, scale, st);
+    case 96: return launch_global_bwd<96>(qkv, gy, bias, mask, lse_s, del_s, dqkv, dbias, m, C, nh, total, scale, st);
+    case 112: return launch_global_bwd<112>(qkv, gy, bias, mask, lse_s, del_s, dqkv, dbias, m, C, nh, total, scale, st);
+    default: return launch_global_bwd<128>(qkv, gy, bias, mask, lse_s, del_s, dqkv, dbias, m, C, nh, total, scale, st);
+  }
 }

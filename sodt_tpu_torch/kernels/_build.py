@@ -31,12 +31,12 @@ SIGNATURES = {
     "sodt_window_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
     "sodt_mlp_tail": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "sodt_conv_mlp_tail": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "sodt_global_attention": [P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "sodt_global_attention": [P] * 6 + [I] * 7 + [F, P],
     "sodt_swin_block": [P] * 16 + [I] * 9 + [F, P],
     "sodt_block_attention_ln": [P] * 10 + [I] * 8 + [F, P],
     "sodt_conv_tail": [P] * 11 + [I] * 5 + [P],
     "sodt_window_attention_bwd": [P] * 7 + [I] * 7 + [F, I, P],
-    "sodt_global_attention_bwd": [P] * 7 + [I] * 7 + [F, P],
+    "sodt_global_attention_bwd": [P] * 9 + [I] * 7 + [F, P],
     "sodt_window_attention_tokens": [P, P, P, P, I, I, I, I, I, F, P],
     "sodt_window_attention_tokens_bwd": [P] * 7 + [I] * 5 + [F, I, P],
     "sodt_layernorm": [P, P, P, P, I, I, F, P],

@@ -24,6 +24,8 @@ every wrapper is its plain version and autograd differentiates it.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import LAUNCHES
@@ -752,16 +754,20 @@ def fused_global_attention(qkv, bias, nh: int, scale: float,
     (B, H, W, C). With `ws` smaller than the map it attends within each
     ws x ws window (N = ws*ws, optional (nW, N, N) f32 mask): the windows
     of more than 256 tokens that JAX leaves to its XLA composition
-    (flagship stage 3 off the 512 px size, e.g. 640 px: a 40x40 map padded
+    (flagship stage 3 off the 512 px size, e.g. 608 px: a 38x38 map padded
     to four 32x32 windows).
 
     On the H100 the bound is bytes: the f32 (nh, N, N) bias is 50 MB at
-    N=1024 and nh=12, five times the qkv tensor at batch 2. Design: flash
-    style, one CTA per (batch, head, 64 query rows); it streams 64-key
-    blocks of K and V straight from the fused qkv layout (no head-split
-    transpose), reads each bias tile once per batch element, and keeps the
-    online-softmax state and the output accumulator in shared memory, so
-    the (N, N) scores never reach device memory.
+    N=1024 and nh=12. Design (csrc/global_attention.cu, body in
+    csrc/global_attention.cuh): flash style, one CTA of 4 warps per (64
+    query rows, window, head); scores, softmax state, P and the output
+    accumulator stay in registers (mma.sync from ldmatrix operands); K, V
+    (straight from the fused qkv layout) and the bias (+ mask) tiles come
+    through a two-stage cp.async ring; the grid runs the windows of one
+    (head, query block) side by side, so each bias tile comes from HBM
+    about once. Under autograd it also keeps each row's log-sum-exp and
+    its output in f32 for K10 where K10's scores equal its own
+    (`lse_reusable`).
     """
     if not qkv.is_cuda:
         return global_attention_plain(qkv, bias, nh, scale, ws, mask)
@@ -786,37 +792,137 @@ def _check_global_args(name, qkv, bias, mask, nh, ws):
              f"{name}: too many (window, head) pairs")
 
 
+def lse_reusable(scale: float) -> bool:
+    """Whether K10 may take K8's log-sum-exp. K8 scales q in bf16 before
+    QK^T (`_global_kernel`), K10 scales the f32 scores
+    (`_global_chunk_grads`); the two S agree only where q * scale is exact
+    in bf16, that is where the scale is a power of two (head dim 16 or 64)."""
+    return math.frexp(scale)[0] == 0.5
+
+
+def _launch_global(qkv, bias, mask, nh: int, scale: float, ws: int,
+                   with_stats: bool = False):
+    """K8's launch: (out, stats). With `with_stats` stats = (O in f32 with
+    P's bf16 rounding residue added back, (B, H, W, C); each row's
+    log-sum-exp, (B*nW, nh, N) f32), what K10 takes where `lse_reusable`;
+    else None. `out` does not depend on `with_stats`."""
+    b, h, w, c3 = qkv.shape
+    out = torch.empty(qkv.shape[:-1] + (c3 // 3,), dtype=qkv.dtype,
+                      device=qkv.device)
+    stats = None
+    if with_stats:
+        stats = (torch.empty(out.shape, dtype=torch.float32,
+                             device=qkv.device),
+                 torch.empty((b * (h // ws) * (w // ws), nh, ws * ws),
+                             dtype=torch.float32, device=qkv.device))
+    scale_dt = float(torch.tensor(scale, dtype=qkv.dtype))
+    _build.check(_build.library().sodt_global_attention(
+        qkv.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        None if stats is None else stats[1].data_ptr(),
+        None if stats is None else stats[0].data_ptr(), b, h, w, c3 // 3, nh,
+        ws, int(mask is not None), scale_dt, _build.stream_ptr()),
+        "fused_global_attention")
+    LAUNCHES["global_attention"] += 1
+    return out, stats
+
+
 class _GlobalAttention(torch.autograd.Function):
-    """K8 forward, K10 backward, on the residuals (qkv, bias, mask)."""
+    """K8 forward, K10 backward, on the residuals (qkv, bias, mask) and,
+    where `lse_reusable(scale)`, K8's f32 output and log-sum-exp."""
 
     @staticmethod
     def forward(ctx, qkv, bias, mask, nh, scale, ws):
         ctx.consts = (nh, scale, ws)
-        ctx.save_for_backward(qkv, bias, mask)
-        b, h, w, c3 = qkv.shape
-        out = torch.empty(qkv.shape[:-1] + (c3 // 3,), dtype=qkv.dtype,
-                          device=qkv.device)
-        scale_dt = float(torch.tensor(scale, dtype=qkv.dtype))
-        _build.check(_build.library().sodt_global_attention(
-            qkv.data_ptr(), bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(), b, h,
-            w, c3 // 3, nh, ws, int(mask is not None), scale_dt,
-            _build.stream_ptr()), "fused_global_attention")
-        LAUNCHES["global_attention"] += 1
+        keep = lse_reusable(scale) and any(ctx.needs_input_grad[:2])
+        out, stats = _launch_global(qkv, bias, mask, nh, scale, ws, keep)
+        ctx.save_for_backward(qkv, bias, mask, *(stats or (None, None)))
         return out
 
     @staticmethod
     def backward(ctx, gy):
-        qkv, bias, mask = ctx.saved_tensors
+        qkv, bias, mask, o32, lse = ctx.saved_tensors
         nh, scale, ws = ctx.consts
-        dqkv, dbias = global_attention_bwd(qkv, bias, nh, scale, gy, ws, mask)
+        dqkv, dbias = global_attention_bwd(
+            qkv, bias, nh, scale, gy, ws, mask,
+            stats=None if lse is None else (o32, lse))
         return dqkv, dbias, None, None, None, None
 
 
 # --------------------------------------------------------------------- K10
 
+def _heads(t, ws: int, nh: int, k: int):
+    """(B, H, W, k*C) -> (k, B*nW, nh, N, hd) f32, windows in K8 / K10's
+    order (b * nW + window index)."""
+    b, h, w, kc = t.shape
+    hd = kc // k // nh
+    t = t.reshape(b, h // ws, ws, w // ws, ws, k, nh, hd)
+    return (t.permute(5, 0, 1, 3, 6, 2, 4, 7).float()
+            .reshape(k, -1, nh, ws * ws, hd))
+
+
+def _scores(qkv, bias, nh: int, scale: float, ws: int, mask, forward: bool):
+    """S of every (window, head): K8's (q scaled in the working dtype, then
+    QK^T) with `forward`, else K10's ((q k^T) * scale in f32), + bias
+    (+ mask), (B*nW, nh, N, N) f32."""
+    q, k, _ = _heads(qkv, ws, nh, 3)
+    if forward:
+        c = qkv.shape[-1] // 3
+        q = _heads(_scaled(qkv[..., :c], scale), ws, nh, 1)[0]
+        s = torch.matmul(q, k.transpose(-1, -2))
+    else:
+        s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = s + bias[None].float()
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(-1, nw, *s.shape[1:])
+             + mask.float()[None, :, None]).reshape(s.shape)
+    return s
+
+
+def global_attention_lse_plain(qkv, bias, nh: int, scale: float,
+                               ws: int | None = None, mask=None,
+                               forward: bool = False):
+    """The natural log-sum-exp over the keys of every row, (B*nW, nh, N)
+    f32: of K8's S with `forward` (what K8 keeps for K10), else of K10's
+    S (what K10's statistics step computes)."""
+    return torch.logsumexp(_scores(qkv, bias, nh, scale, ws or qkv.shape[1],
+                                   mask, forward), dim=-1)
+
+
+def global_attention_delta_plain(out, gy, nh: int, ws: int | None = None):
+    """delta = rowsum(dO * O) per (window, head, row), (B*nW, nh, N) f32,
+    from K8's output O and the cotangent dO, both (B, H, W, C)."""
+    ws = ws or out.shape[1]
+    return (_heads(out, ws, nh, 1)[0] * _heads(gy, ws, nh, 1)[0]).sum(-1)
+
+
+def global_attention_bwd_stats_plain(qkv, bias, nh: int, scale: float, gy,
+                                     lse, delta, ws: int | None = None,
+                                     mask=None):
+    """K10's arithmetic from given row statistics, in f32: P = exp(S -
+    lse), dS = P * (dO V^T - delta), dQ = scale dS K, dK = scale dS^T Q,
+    dV = P^T dO, dbias = dS summed over batch and windows. Returns (dqkv
+    in qkv's dtype, dbias (nh, N, N) f32)."""
+    b, h, w, c3 = qkv.shape
+    ws = ws or h
+    q, k, v = _heads(qkv, ws, nh, 3)
+    do = _heads(gy, ws, nh, 1)[0]
+    p = torch.exp(_scores(qkv, bias, nh, scale, ws, mask, False)
+                  - lse[..., None])
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta[..., None])
+    dq = scale * torch.matmul(ds, k)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), q)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dx = torch.stack([dq, dk, dv])          # (3, B*nW, nh, N, hd)
+    hd = dx.shape[-1]
+    dx = dx.reshape(3, b, h // ws, w // ws, nh, ws, ws, hd)
+    dx = dx.permute(1, 2, 5, 3, 6, 0, 4, 7).reshape(b, h, w, c3)
+    return dx.to(qkv.dtype), ds.sum(dim=0)
+
+
 def global_attention_bwd(qkv, bias, nh: int, scale: float, gy,
-                         ws: int | None = None, mask=None):
+                         ws: int | None = None, mask=None, stats=None):
     """Backward of K8: (dqkv, dbias), over the whole domain K8 takes (one
     window, or several ws x ws windows with an optional mask).
 
@@ -825,18 +931,20 @@ def global_attention_bwd(qkv, bias, nh: int, scale: float, gy,
     `_global_bwd_dqkv_kernel` l.1023 and `_global_bwd_dbias_kernel` l.1053).
     qkv (B, H, W, 3C) bf16, gy (B, H, W, C) bf16 (made contiguous here) ->
     dqkv bf16 and dbias (nh, N, N) f32 summed over batch and windows.
+    `stats` = K8's (f32 output, log-sum-exp) from `_launch_global`, given
+    only where `lse_reusable(scale)`; without it the kernel computes the
+    statistics.
 
     On the H100 the bound is bytes at small batch: the f32 bias read and
     the f32 dbias written are 50 MB each at N = 1024, nh = 12. Design
-    (csrc/global_attention_bwd.cu): K8 keeps no log-sum-exp, so the first
-    kernel recomputes the row max and sum, together with
-    delta = rowsum(dP * P), in one online pass over the key blocks; its
-    second pass forms dS per 64 x 64 tile, accumulates dQ in shared memory
-    and adds dS into dbias. A CTA owns 64 query rows of one head and walks
-    the batch in order, so every dbias address has one owner: written
-    without atomics, deterministic. The second kernel owns 64 key rows of
-    one (window, head), loops over the query blocks and accumulates dK and
-    dV in f32 in shared memory, rounded to bf16 once.
+    (csrc/global_attention_bwd.cu): the row statistics (log-sum-exp and
+    delta = rowsum(dO * O), O in f32 with P's bf16 rounding residue added
+    back) from K8 or from K8's body in a statistics mode; a dQ + dbias kernel, one CTA per (32 query rows, head) walking
+    every window in order with its 32 x N dbias slab in shared memory
+    (one owner thread per entry: deterministic, no atomics, written once);
+    a dK / dV kernel, one CTA per (64 keys, window, head) over the query
+    blocks. Scores, P, dS and the accumulators live in registers; tiles
+    come through two-stage cp.async rings. One counted launch per call.
     """
     if not qkv.is_cuda:
         return global_attention_bwd_plain(qkv, bias, nh, scale, gy, ws, mask)
@@ -850,14 +958,24 @@ def global_attention_bwd(qkv, bias, nh: int, scale: float, gy,
     _check_cuda(name, torch.bfloat16, gy=gy)
     _require(tuple(gy.shape) == (b, h, w, c), f"{name}: gy shape")
     total = b * (h // ws) * (w // ws)
+    out = lse = None
+    if stats is not None:
+        out, lse = stats
+        _require(lse_reusable(scale), f"{name}: K8's statistics are of "
+                 f"another S at scale {scale}")
+        _check_cuda(name, torch.float32, out=out, lse=lse)
+        _require(tuple(out.shape) == (b, h, w, c)
+                 and tuple(lse.shape) == (total, nh, n), f"{name}: stats")
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((nh, n, n), dtype=torch.float32, device=qkv.device)
-    stats = torch.empty((2, total, nh, n), dtype=torch.float32,
-                        device=qkv.device)
+    scratch = torch.empty((2, total, nh, n), dtype=torch.float32,
+                          device=qkv.device)
     _build.check(_build.library().sodt_global_attention_bwd(
         qkv.data_ptr(), gy.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
-        dbias.data_ptr(), stats.data_ptr(), b, h, w, c, nh, ws,
+        None if mask is None else mask.data_ptr(),
+        None if out is None else out.data_ptr(),
+        None if lse is None else lse.data_ptr(), dqkv.data_ptr(),
+        dbias.data_ptr(), scratch.data_ptr(), b, h, w, c, nh, ws,
         int(mask is not None), float(scale), _build.stream_ptr()), name)
     LAUNCHES["global_attention_bwd"] += 1
     return dqkv, dbias

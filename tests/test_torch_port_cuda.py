@@ -82,11 +82,18 @@ def test_mlp_tails_kernels(card, b, hw, c):
 
 @pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 8, 64, 4, 8),
                                           (2, 32, 768, 12, 32),
-                                          (1, 64, 768, 12, 32)])
+                                          (1, 64, 768, 12, 32),
+                                          (2, 32, 384, 12, 32),
+                                          (4, 32, 768, 12, 32),
+                                          (16, 32, 768, 12, 32),
+                                          (4, 64, 384, 12, 32),
+                                          (2, 32, 256, 2, 32)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_global_attention_kernel(card, b, hw, c, nh, ws, masked):
     """K8: one window over the map, or (64 px map, ws 32) four windows of
-    1024 tokens, with and without a shift mask."""
+    1024 tokens, with and without a shift mask; head dims 16, 32 (a scale
+    that is no power of two), 64 and 128; batch 1 to 16 (the raster runs
+    the windows of one bias tile side by side)."""
     n = ws * ws
     qkv = _rnd((b, hw, hw, 3 * c), 19).to(BF)
     bias = _rnd((nh, n, n), 20)
@@ -97,6 +104,36 @@ def test_global_attention_kernel(card, b, hw, c, nh, ws, masked):
     ref = wa.global_attention_plain(qkv.float(), bias, nh, scale, ws, mask)
     torch.cuda.synchronize()
     assert _rel(out, ref) < TOL
+
+
+@pytest.mark.parametrize("b,hw,c,nh,ws,masked", [(2, 32, 768, 12, 32, False),
+                                                 (2, 32, 384, 12, 32, False),
+                                                 (1, 64, 768, 12, 32, True)])
+def test_global_attention_lse(card, b, hw, c, nh, ws, masked):
+    """K8 with its statistics for K10: the output bit-equal to K8's
+    without them; the log-sum-exp that of K8's own S (q scaled in bf16) to
+    1e-4 of its value (f32 sums of unrounded exponentials); the f32 output
+    that of the plain version with P in f32 (O = softmax(S) V) to 1e-4, far
+    closer than the bf16 output (P rounded, ~4e-3)."""
+    n = ws * ws
+    qkv = _rnd((b, hw, hw, 3 * c), 21).to(BF)
+    bias = _rnd((nh, n, n), 22)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, 2)).cuda()
+            if masked else None)
+    scale = (c // nh) ** -0.5
+    out, none = wa._launch_global(qkv, bias, mask, nh, scale, ws, False)
+    out2, (o32, lse) = wa._launch_global(qkv, bias, mask, nh, scale, ws, True)
+    ref = wa.global_attention_lse_plain(qkv, bias, nh, scale, ws, mask,
+                                        forward=True)
+    s = wa._scores(qkv, bias, nh, scale, ws, mask, True)
+    v = wa._heads(qkv, ws, nh, 3)[2]
+    o = torch.matmul(torch.softmax(s, -1), v)          # (B*nW, nh, N, hd)
+    o = o.reshape(b, hw // ws, hw // ws, nh, ws, ws, -1)
+    o = o.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, hw, hw, c)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, out2)
+    assert _rel(lse, ref) < 1e-4
+    assert _rel(o32, o) < 1e-4
 
 
 @pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 16, 32, 2, 8), (2, 80, 384, 12, 8),
@@ -434,11 +471,20 @@ def test_window_attention_bwd_kernel(card, b, hw, c, nh, ws, masked):
 
 @pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 8, 64, 4, 8), (2, 32, 768, 12, 32),
                                           (4, 32, 768, 12, 32),
-                                          (1, 64, 768, 12, 32)])
+                                          (1, 64, 768, 12, 32),
+                                          (2, 32, 384, 12, 32),
+                                          (1, 32, 768, 12, 32),
+                                          (16, 32, 768, 12, 32),
+                                          (4, 64, 384, 12, 32),
+                                          (2, 32, 256, 2, 32)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_global_attention_bwd_kernel(card, b, hw, c, nh, ws, masked):
-    """K10 at one 64-token window, one 1024-token window (batch 2 and 4)
-    and four 1024-token windows with a shift mask."""
+    """K10 (computing its own row statistics) at one 64-token window, one
+    1024-token window (batch 1, 2, 4 and 16: dbias summed over 16
+    windows), head dims 16, 32, 64 and 128 (whose dbias slab does not fit
+    in shared memory beside the ring: added in device memory), and four
+    1024-token windows with and without a shift mask; bit-equal on a
+    repeat."""
     n = ws * ws
     qkv = _rnd((b, hw, hw, 3 * c), 43).to(BF)
     gy = _rnd((b, hw, hw, c), 44).to(BF)
@@ -457,14 +503,53 @@ def test_global_attention_bwd_kernel(card, b, hw, c, nh, ws, masked):
     assert torch.equal(d2, dqkv) and torch.equal(b2, dbias)
 
 
-@pytest.mark.parametrize("kind", ["window", "global"])
+@pytest.mark.parametrize("b,hw,c,nh,ws,masked", [(1, 32, 768, 12, 32, False),
+                                                 (4, 32, 768, 12, 32, False),
+                                                 (1, 8, 64, 4, 8, False),
+                                                 (4, 64, 768, 12, 32, True)])
+def test_global_attention_bwd_with_k8_stats(card, b, hw, c, nh, ws, masked):
+    """K10 on K8's log-sum-exp and output (head dims 64 and 16, scales that
+    are powers of two): within the same tolerances of the plain version as
+    K10 on its own statistics, and of K10 on its own statistics; bit-equal
+    on a repeat. At a scale that is no power of two K10 refuses them."""
+    n = ws * ws
+    qkv = _rnd((b, hw, hw, 3 * c), 49).to(BF)
+    gy = _rnd((b, hw, hw, c), 50).to(BF)
+    bias = _rnd((nh, n, n), 51)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, 2)).cuda()
+            if masked else None)
+    scale = (c // nh) ** -0.5
+    assert wa.lse_reusable(scale)
+    _, stats = wa._launch_global(qkv, bias, mask, nh, scale, ws, True)
+    dqkv, dbias = wa.global_attention_bwd(qkv, bias, nh, scale, gy, ws, mask,
+                                          stats=stats)
+    oq, ob = wa.global_attention_bwd(qkv, bias, nh, scale, gy, ws, mask)
+    rq, rb = wa.global_attention_bwd_plain(qkv.float(), bias, nh, scale,
+                                           gy.float(), ws, mask)
+    torch.cuda.synchronize()
+    for k in range(3):
+        sl = slice(k * c, (k + 1) * c)
+        assert _rel(dqkv[..., sl], rq[..., sl]) < TOL
+        assert _rel(dqkv[..., sl], oq[..., sl].float()) < TOL
+    assert _rel(dbias, rb) < DBIAS_TOL and _rel(dbias, ob) < DBIAS_TOL
+    d2, b2 = wa.global_attention_bwd(qkv, bias, nh, scale, gy, ws, mask,
+                                     stats=stats)
+    assert torch.equal(d2, dqkv) and torch.equal(b2, dbias)
+    with pytest.raises(ValueError):
+        wa.global_attention_bwd(qkv, bias, nh, 0.17, gy, ws, mask, stats=stats)
+
+
+@pytest.mark.parametrize("kind", ["window", "global", "global_hd32"])
 def test_attention_functions_grad(card, kind):
     """torch.autograd.grad through K1 -> K9 and K8 -> K10 (with a
-    non-contiguous cotangent) against autograd of the f32 plain version."""
+    non-contiguous cotangent) against autograd of the f32 plain version;
+    K10 on K8's statistics at head dim 64, on its own at head dim 32."""
     if kind == "window":
         b, hw, c, nh, ws = 2, 64, 384, 12, 8
-    else:
+    elif kind == "global":
         b, hw, c, nh, ws = 2, 32, 768, 12, 32
+    else:
+        b, hw, c, nh, ws = 2, 32, 384, 12, 32
     n = ws * ws
     qkv = _rnd((b, hw, hw, 3 * c), 46).to(BF).requires_grad_()
     bias = _rnd((nh, n, n), 47).requires_grad_()
