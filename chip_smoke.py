@@ -9,13 +9,18 @@ the final ok line:
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions
   2. build    nvcc builds the kernels of sodt_tpu_torch/csrc (seconds)
      ptxas    registers, static shared memory and spills of the K8 / K10
-              kernels (`nvcc -Xptxas -v`, run beside the build), and the
-              dynamic shared memory their launches take at head dim 64
+              kernels and of the GEMM core's instantiations (K6, K7)
+              (`nvcc -Xptxas -v`, run beside the build), the dynamic
+              shared memory their launches take (K8 / K10 at head dim
+              64), and which instantiation each launch of K6 and K7 runs
   3. kernels  each kernel vs its plain PyTorch version on the same bf16
               inputs at the shapes its path gives it (batch 2, and the
               paths' batch 4), max |diff| / max |ref| <= 2e-2 (the f32
               dbias of K9 / K10: <= 1e-3), with the kernel's, the plain
               version's and (K1, K8, K9, K10, K13) the library call's time;
+              K6 and K7 also with the summed device time per call of the
+              kernel and of the plain version (torch.profiler), their
+              TFLOP/s, and bit-equal over two runs;
               K1 at the 608 px path's shape and at the four shapes of the
               training step's replays; K8 also at the 608 px path's four
               windows; K10 on K8's statistics, as training runs it, and
@@ -223,10 +228,10 @@ TPU_KERNEL = {
     "block_attention": ("K5", "sodt_tpu_torch/csrc/block_attention.cu",
                         "sodt_tpu/pallas/window_attention.py:491",
                 ("main",)),
-    "mlp_tail": ("K6", "sodt_tpu_torch/csrc/mlp_tail.cu",
+    "mlp_tail": ("K6", "sodt_tpu_torch/csrc/gemm_core.cu",
                  "sodt_tpu/pallas/swin_block.py:544",
                 ("main",)),
-    "conv_mlp_tail_noln": ("K7", "sodt_tpu_torch/csrc/conv_mlp_tail.cu",
+    "conv_mlp_tail_noln": ("K7", "sodt_tpu_torch/csrc/gemm_core.cu",
                            "sodt_tpu/pallas/swin_block.py:622",
                 ("main",)),
     "global_attention": ("K8", "sodt_tpu_torch/csrc/global_attention.cu",
@@ -296,6 +301,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 5) -> float:
+    """Summed device time of the kernels of one call of `fn`, from
+    torch.profiler over `iters` warm calls: the time on the card without
+    the host's share of the call."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r["device_ms"] for r in _device_rows(prof)) / iters
+
+
 def bound_ms(nbytes: float, flops: float,
              int8_ops: float = 0.0) -> tuple[float, str]:
     """The larger of the bytes' time and the operations' (bf16 FLOPs at
@@ -311,9 +332,24 @@ def nbytes(*ts) -> int:
 
 # ------------------------------------------------------------------- ptxas
 
-# the sources whose kernels this slice redesigned (K8, K10): registers,
-# static shared memory and spills as `nvcc -Xptxas -v` reports them
-PTXAS_SOURCES = ("global_attention.cu", "global_attention_bwd.cu")
+# the sources of the redesigned kernels (K8, K10; K6 and K7 on the GEMM
+# core): registers, static shared memory and spills as `nvcc -Xptxas -v`
+# reports them
+PTXAS_SOURCES = ("global_attention.cu", "global_attention_bwd.cu",
+                 "gemm_core.cu")
+# csrc/gemm_core.cuh: the GEMM core's template arguments (loader, epilogue,
+# tile width BN, stages) for an output width N, as `launch_gemm_core` picks
+# them, and the launches of K6 and K7 at the flagship's stage 2 (C 384,
+# hidden 1536): (loader, epilogue, N)
+
+def gemm_core_entry(loader: int, epi: int, n: int) -> str:
+    return (f"gemm_core_kernel<{loader},{epi},128,3>" if n > 512
+            else f"gemm_core_kernel<{loader},{epi},96,4>")
+
+
+GEMM_CORE_LAUNCHES = {"K6 fc1": (0, 0, 1536), "K6 fc2": (0, 2, 384),
+                      "K7 fc1": (0, 1, 384), "K7 conv": (1, 0, 384),
+                      "K7 fc2": (0, 2, 384)}
 
 
 def start_ptxas(out_dir: Path) -> list:
@@ -343,11 +379,12 @@ def ptxas_report(procs) -> dict:
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                k = re.search(r"(global_attn_\w+?_kernel)(?:ILi(\d+)E"
-                              r"(?:Li(\d+)E)?)?", m.group(1))
-                entry = (k.group(1) + ("<" + ",".join(
-                    a for a in k.group(2, 3) if a) + ">" if k.group(2)
-                    else "")) if k else m.group(1)
+                # _ZN4sodt<len><name>_kernelILi<a>E...EE...: name<a,...>
+                k = re.search(r"4sodt\d+(\w+?_kernel)(I(?:Li\d+E)+)?",
+                              m.group(1))
+                entry = (k.group(1) + (
+                    "<" + ",".join(re.findall(r"Li(\d+)E", k.group(2)))
+                    + ">" if k.group(2) else "")) if k else m.group(1)
                 kernels[entry] = {}
                 continue
             if entry is None:
@@ -369,8 +406,18 @@ def ptxas_report(procs) -> dict:
                                       + 2 * 32 * ld * 2 + 32 * (n + 8) * 4),
         "global_attn_bwd_dkv_kernel": (2 * 64 * ld * 2 + 2 * (
             2 * 64 * ld * 2 + 64 * 68 * 4 + 2 * 64 * 4))}
+    for entry, row in kernels.items():
+        if entry.startswith("gemm_core_kernel<"):
+            bn, stages = map(int, entry[17:-1].split(",")[2:4])
+            row["dynamic_smem"] = stages * (128 + bn) * 128 + 1024
+    launched = {k: gemm_core_entry(*v) for k, v in GEMM_CORE_LAUNCHES.items()}
     return {"phase": "ptxas", "kernels": kernels,
-            "dynamic_smem_bytes_hd64_n1024": dynamic}
+            "dynamic_smem_bytes_hd64_n1024": dynamic,
+            "gemm_core_launches": launched,
+            "gemm_core_spill_bytes": sum(
+                kernels.get(e, {}).get("spill_stores", -1)
+                + kernels.get(e, {}).get("spill_loads", -1)
+                for e in set(launched.values()))}
 
 
 # ------------------------------------------------------------------ kernels
@@ -416,15 +463,17 @@ def kernel_cases(batch: int) -> list[dict]:
 
     def case(name, shape, kern, plain, args, nb, fl, calls, lib=None,
              tols=(KERNEL_TOL,), path="main", int8_ops=0, bf16=None,
-             q8=None):
+             q8=None, device=False):
         """`int8_ops`: s8 operations of the function (K12, whose plain
         version then runs on the same bf16 inputs); `bf16`: the bf16
         kernel at the same shape, timed beside it; `q8`: what
-        `q8_readings` needs."""
+        `q8_readings` needs; `device`: also the kernel's and the plain
+        version's summed device time per call from torch.profiler (no host
+        time), and the kernel's bit-equality over two runs."""
         cases.append(dict(name=name, shape=shape, kern=kern, plain=plain,
                           args=args, nbytes=nb, flops=fl, calls=calls,
                           lib=lib, tols=tols, path=path, int8_ops=int8_ops,
-                          bf16=bf16, q8=q8))
+                          bf16=bf16, q8=q8, device=device))
 
     def sdpa_bwd(q, k, v, am, scale):
         """The backward of SDPA with the same additive bias (no dbias: the
@@ -487,13 +536,14 @@ def kernel_cases(batch: int) -> list[dict]:
           rnd((c, hid), hid ** -0.5), rnd((c,), 0.1))
     case("mlp_tail", f"({batch},{hw},{hw},{c}) hidden {hid}",
          sb.fused_mlp_tail, sb.mlp_tail_plain, (r, y, *w6),
-         nbytes(r, y, *w6) + nbytes(r), 4 * m * c * hid, 2)
+         nbytes(r, y, *w6) + nbytes(r), 4 * m * c * hid, 2, device=True)
     w7 = (rnd((c, c), c ** -0.5), rnd((c,), 0.1),
           rnd((c, 2, 2, c), (4 * c) ** -0.5), rnd((c,), 0.1),
           rnd((c, c), c ** -0.5), rnd((c,), 0.1))
     case("conv_mlp_tail_noln", f"({batch},{hw},{hw},{c})",
          sb.fused_conv_mlp_tail_noln, sb.conv_mlp_tail_noln_plain,
-         (r, y, *w7), nbytes(r, y, *w7) + nbytes(r), 12 * m * c * c, 2)
+         (r, y, *w7), nbytes(r, y, *w7) + nbytes(r), 12 * m * c * c, 2,
+         device=True)
 
     # K1 on the 608 px path: stage 2's 76x76 map padded to 80x80, blocks
     # 0/2 unshifted, 1/3 shifted (masked)
@@ -814,11 +864,13 @@ def phase_kernels(batch: int) -> list[dict]:
                 for o, r in zip(outs, refs)]
         rels = [e / r.float().abs().max().item() for e, r in zip(errs, refs)]
         singly = bit_equal = None
-        if cs["name"].endswith("_bwd"):
-            # no atomics in the dbias sums: a second run gives the same bits
+        if cs["name"].endswith("_bwd") or cs["device"]:
+            # no atomics (the dbias sums, the GEMM core of K6 / K7): a
+            # second run gives the same bits
             again = as_tuple(cs["kern"](*args))
             bit_equal = all(torch.equal(a, o) for a, o in zip(again, outs))
             del again
+        if cs["name"].endswith("_bwd"):
             # dq, dk, dv singly (the last axis of dqkv is [q | k | v]): the
             # kernel rounds P and dS to bf16 before its tensor-core
             # products, the plain version keeps them in f32; beside each,
@@ -836,6 +888,12 @@ def phase_kernels(batch: int) -> list[dict]:
         lms = time_ms(cs["lib"]) if cs["lib"] is not None else None
         b16 = time_ms(cs["bf16"]) if cs["bf16"] is not None else None
         bms, by = bound_ms(cs["nbytes"], cs["flops"], cs["int8_ops"])
+        dev = {}
+        if cs["device"]:
+            dev["device_ms"] = device_ms(lambda: cs["kern"](*args))
+            dev["plain_device_ms"] = device_ms(lambda: cs["plain"](*args))
+            dev["tflops"] = cs["flops"] / dev["device_ms"] / 1e9
+            dev["plain_tflops"] = cs["flops"] / dev["plain_device_ms"] / 1e9
         q8 = (q8_readings(lambda: cs["kern"](*args),
                           lambda: cs["q8"]["same_core"](*args), cs["bf16"],
                           cs["q8"]["geom"]) if cs["q8"] is not None else {})
@@ -848,7 +906,7 @@ def phase_kernels(batch: int) -> list[dict]:
                "bit_equal_over_two_runs": bit_equal,
                "ms": ms, "plain_ms": pms, "library_ms": lms,
                "bf16_kernel_ms": b16, "bound_ms": bms, "bound_by": by,
-               **q8,
+               **dev, **q8,
                "ok": bool(len(rels) == len(cs["tols"]) and all(
                    math.isfinite(r) and r <= t
                    for r, t in zip(rels, cs["tols"]))

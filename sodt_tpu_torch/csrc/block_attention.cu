@@ -4,8 +4,7 @@
 //
 //  * gemm_bias_kernel: out = A . B^T + bias in one bf16 rounding, f32
 //    accumulation on the tensor cores; 64x64 tiles, K steps of 32 staged
-//    in shared memory. Launched for the qkv projection, the output
-//    projection, and K7's fc1.
+//    in shared memory. Launched for the qkv and the output projection.
 //  * window_attn_kernel<MapWindows> (window_attention.cuh): one CTA per
 //    (head, window) of the unpartitioned map. Token t of window (wr, wc) in
 //    shifted coordinates (r, c) reads its q/k/v at ((r + shift) mod H,

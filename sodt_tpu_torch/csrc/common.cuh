@@ -1,8 +1,9 @@
 // Shared pieces of the port's Hopper kernels (sm_90a): bf16 tensor-core
 // tiles through WMMA (16x16x16, f32 accumulation), the tanh GELU of the
-// Pallas kernels, and the fused GEMM -> GELU -> GEMM tail that K6 and K7
-// launch. Every kernel launches on the caller's stream and allocates
-// nothing; the Python wrapper allocates outputs with torch.empty.
+// Pallas kernels, cp.async copies, and the building blocks of the
+// megakernels and of the windowed attention core. Every kernel launches on
+// the caller's stream and allocates nothing; the Python wrapper allocates
+// outputs with torch.empty.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,120 +37,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---------------------------------------------------------------------------
-// Fused MLP tail: out = R + W2 . gelu(sum_taps A_tap . W1_tap^T + b1) + b2
-//
-// One CTA owns MB = 32 consecutive tokens of a (B, H, W, K) map. It gathers
-// the A rows of every tap into shared memory (TAPS = 4: the 2x2 conv taps
-// (di, dj) read token (i + di, j + dj); a tap below the last row or right of
-// the last column reads zeros, the bottom/right zero pad), computes the
-// hidden block tile by tile on the tensor cores with b1 + GELU in the
-// epilogue into a bf16 shared buffer, then the output tiles with b2 and the
-// residual in the epilogue. W1 is (HID, TAPS, K) -- for the conv, the OIHW
-// weight as (out, kh, kw, in) -- and W2 is (N, HID): both are read
-// K-contiguous as col-major B operands straight from global memory.
-// ---------------------------------------------------------------------------
-constexpr int MLP_MB = 32;
-constexpr int MLP_WARPS = 8;
-
-__host__ __device__ inline size_t mlp2_smem_bytes(int taps, int K, int HID) {
-  return (size_t)taps * MLP_MB * (K + 16) * 2 + (size_t)MLP_MB * (HID + 16) * 2 +
-         (size_t)MLP_WARPS * 256 * 4;
-}
-
-template <int TAPS>
-__global__ void __launch_bounds__(MLP_WARPS * 32)
-mlp2_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W1,
-            const bf16* __restrict__ b1, const bf16* __restrict__ W2,
-            const bf16* __restrict__ b2, const bf16* __restrict__ R,
-            bf16* __restrict__ out, int Bn, int H, int W, int K, int HID, int N) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = K + 16, ldh = HID + 16;
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Hs = As + (size_t)TAPS * MLP_MB * lda;
-  float* stage = reinterpret_cast<float*>(Hs + (size_t)MLP_MB * ldh);
-  const int M = Bn * H * W;
-  const int m0 = blockIdx.x * MLP_MB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* st = stage + warp * 256;
-
-  // gather the A rows of every tap, 16 bytes per thread and step
-  const int vpr = K / 8;
-  for (int v = threadIdx.x; v < TAPS * MLP_MB * vpr; v += blockDim.x) {
-    const int t = v / (MLP_MB * vpr);
-    const int rem = v - t * MLP_MB * vpr;
-    const int p = rem / vpr;
-    const int cv = (rem - p * vpr) * 8;
-    const int m = m0 + p;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m < M) {
-      const int j = m % W, i = (m / W) % H, b = m / (W * H);
-      const int ii = i + (TAPS == 4 ? (t >> 1) : 0);
-      const int jj = j + (TAPS == 4 ? (t & 1) : 0);
-      if (ii < H && jj < W)
-        val = *reinterpret_cast<const uint4*>(A + ((size_t)(b * H + ii) * W + jj) * K + cv);
-    }
-    *reinterpret_cast<uint4*>(As + (size_t)(t * MLP_MB + p) * lda + cv) = val;
-  }
-  __syncthreads();
-
-  // hidden = gelu(A . W1^T + b1), bf16, kept in shared memory
-  const int mt = MLP_MB / 16;
-  for (int tile = warp; tile < mt * (HID / 16); tile += MLP_WARPS) {
-    const int tm = tile % mt, tn = tile / mt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int t = 0; t < TAPS; ++t) {
-      const bf16* arow = As + (size_t)(t * MLP_MB + tm * 16) * lda;
-      const bf16* wrow = W1 + ((size_t)tn * 16 * TAPS + t) * K;
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        FragA a;
-        FragBT bfr;
-        wmma::load_matrix_sync(a, arow + k0, lda);
-        wmma::load_matrix_sync(bfr, wrow + k0, TAPS * K);
-        wmma::mma_sync(acc, a, bfr, acc);
-      }
-    }
-    wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      const float v = st[e] + __bfloat162float(b1[tn * 16 + c]);
-      Hs[(size_t)(tm * 16 + r) * ldh + tn * 16 + c] = __float2bfloat16(gelu_tanh(v));
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // out = R + hidden . W2^T + b2
-  for (int tile = warp; tile < mt * (N / 16); tile += MLP_WARPS) {
-    const int tm = tile % mt, tn = tile / mt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    const bf16* hrow = Hs + (size_t)tm * 16 * ldh;
-    const bf16* wrow = W2 + (size_t)tn * 16 * HID;
-    for (int k0 = 0; k0 < HID; k0 += 16) {
-      FragA a;
-      FragBT bfr;
-      wmma::load_matrix_sync(a, hrow + k0, ldh);
-      wmma::load_matrix_sync(bfr, wrow + k0, HID);
-      wmma::mma_sync(acc, a, bfr, acc);
-    }
-    wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      const int m = m0 + tm * 16 + r, n = tn * 16 + c;
-      if (m < M) {
-        const float v = st[e] + __bfloat162float(b2[n]) +
-                        __bfloat162float(R[(size_t)m * N + n]);
-        out[(size_t)m * N + n] = __float2bfloat16(v);
-      }
-    }
-    __syncwarp();
-  }
-}
-
 // Raise a kernel's dynamic shared-memory limit once per process (per
 // launcher), not on every launch: `cur` is the launcher's static record.
 template <typename Kern>
@@ -162,21 +49,6 @@ inline void ensure_smem(Kern kernel, size_t bytes, int& cur) {
 
 // The opt-in shared-memory ceiling of one CTA on sm_90 (227 KB).
 constexpr size_t SMEM_MAX = 232448;
-
-template <int TAPS>
-inline int launch_mlp2(const void* A, const void* W1, const void* b1, const void* W2,
-                       const void* b2, const void* R, void* out, int Bn, int H, int W,
-                       int K, int HID, int N, void* stream) {
-  static int smem_set = 0;
-  const size_t smem = mlp2_smem_bytes(TAPS, K, HID);
-  ensure_smem(mlp2_kernel<TAPS>, smem, smem_set);
-  const int M = Bn * H * W;
-  const int grid = (M + MLP_MB - 1) / MLP_MB;
-  mlp2_kernel<TAPS><<<grid, MLP_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const bf16*)A, (const bf16*)W1, (const bf16*)b1, (const bf16*)W2, (const bf16*)b2,
-      (const bf16*)R, (bf16*)out, Bn, H, W, K, HID, N);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // Building blocks of the per-tile megakernels (K2, K3, K4) and of the

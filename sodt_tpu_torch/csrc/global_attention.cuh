@@ -1,9 +1,9 @@
 // Pieces that K8 (global_attention.cu) and K10 (global_attention_bwd.cu)
 // share: bf16 tensor-core products issued from registers (mma.sync
-// m16n8k16, f32 accumulation) with operands brought from shared memory by
-// ldmatrix, a cp.async copy ring, and the flash-style forward body, which
-// K10 also runs (in its statistics mode) when it is not handed K8's
-// log-sum-exp.
+// m16n8k16, f32 accumulation, through the helpers of mma_sync.cuh) with
+// operands brought from shared memory by ldmatrix, a cp.async copy ring,
+// and the flash-style forward body, which K10 also runs (in its statistics
+// mode) when it is not handed K8's log-sum-exp.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane l, g = l / 4,
 // t = l % 4. The accumulator of a 16 x 8 tile holds rows g (c0, c1) and
@@ -14,69 +14,12 @@
 // registers they were computed in).
 #pragma once
 
-#include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace sodt {
 
 constexpr float GA_LOG2E = 1.4426950408889634f;
 constexpr float GA_LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a . b  (16 x 8 f32 += 16 x 16 bf16 . 16 x 8 bf16)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> one register of two bf16 (the lower column in the low half)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// Address a lane hands to ldmatrix.x4 so that the four 8 x 8 matrices are
-// (rows r0..r0+7, cols c0..c0+7), (r0+8.., c0..), (r0.., c0+8..),
-// (r0+8.., c0+8..): the A operand of a 16 x 16 tile at (r0, c0) of a
-// row-major bf16 array with row stride ld.
-__device__ __forceinline__ const bf16* a_tile_addr(const bf16* base, int ld, int r0, int c0,
-                                                   int lane) {
-  const int mi = lane >> 3;
-  return base + (size_t)(r0 + (mi & 1) * 8 + (lane & 7)) * ld + c0 + (mi >> 1) * 8;
-}
-
-// The B operands of two n8 tiles (rows n0..n0+15 of an n-major array whose
-// k runs along the row, k0..k0+15): registers {b0, b1} of tile n0 and of
-// tile n0 + 8, without .trans. With .trans the same address order serves a
-// k-major array (rows k0..k0+15, cols n0..n0+15): use b_tile_addr_t.
-__device__ __forceinline__ const bf16* b_tile_addr(const bf16* base, int ld, int n0, int k0,
-                                                   int lane) {
-  const int mi = lane >> 3;
-  return base + (size_t)(n0 + (mi >> 1) * 8 + (lane & 7)) * ld + k0 + (mi & 1) * 8;
-}
-__device__ __forceinline__ const bf16* b_tile_addr_t(const bf16* base, int ld, int k0, int n0,
-                                                     int lane) {
-  const int mi = lane >> 3;
-  return base + (size_t)(k0 + (mi & 1) * 8 + (lane & 7)) * ld + n0 + (mi >> 1) * 8;
-}
 
 // The addressing of one window: map index of token t of window `win`
 // (b * nW + window index) in a (B, H, W, .) map cut into ws x ws windows.

@@ -29,8 +29,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "sodt_gemm_bias": [P, P, P, P, I, I, I, I, I, P],
     "sodt_window_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
-    "sodt_mlp_tail": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-    "sodt_conv_mlp_tail": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "sodt_gemm_core": [P] * 5 + [I] * 6 + [P],
     "sodt_global_attention": [P] * 6 + [I] * 7 + [F, P],
     "sodt_swin_block": [P] * 16 + [I] * 9 + [F, P],
     "sodt_block_attention_ln": [P] * 10 + [I] * 8 + [F, P],

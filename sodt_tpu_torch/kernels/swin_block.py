@@ -36,7 +36,7 @@ from .layernorm import layernorm, layernorm_plain
 from .quant import (conv_gelu_fc2_q8, fc1_halo_q8, gelu_tanh, ln_f32,
                     log_kernel_amax, q8_dot, q8_weights, tail_ws, to_strips)
 from .window_attention import (Replay, _check_cuda, _check_window_args,
-                               _require, block_attention_ln_plain, gemm_bias,
+                               _require, block_attention_ln_plain,
                                reference_attention_nhwc,
                                window_attention_core_nhwc,
                                window_core_supported)
@@ -58,6 +58,20 @@ def conv2x2_pad_br(f1: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor):
     x = F.pad(f1.permute(0, 3, 1, 2), (0, 1, 0, 1))
     z = F.conv2d(x, wc.to(dt)) + bc.to(dt)[:, None, None]
     return z.permute(0, 2, 3, 1)
+
+
+def conv2x2_taps_gemm_plain(f1, taps, bc):
+    """`conv2x2_pad_br` as one GEMM, the way K7's conv launch computes it:
+    for each token the (kh, kw, in)-ordered 4C-vector of its 2x2 window of
+    f1 zero-padded at the bottom and right, times taps (out, 2, 2, in)
+    viewed as (C, 4C), plus bc."""
+    dt = f1.dtype
+    b, h, w, c = f1.shape
+    x = F.pad(f1, (0, 0, 0, 1, 0, 1))
+    cols = torch.cat([x[:, di:di + h, dj:dj + w] for di in (0, 1)
+                      for dj in (0, 1)], -1)
+    return (torch.matmul(cols, taps.to(dt).reshape(taps.shape[0], 4 * c).t())
+            + bc.to(dt))
 
 
 def mlp_tail_plain(r, y, w1, b1, w2, b2):
@@ -342,21 +356,82 @@ def _launch_conv_tail(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2, shift):
     return out
 
 
-def _mlp2(a, w1, b1, w2, b2, r, taps: int):
-    """Launch the fused GEMM -> tanh-GELU -> GEMM (+ residual) kernel of
-    csrc/common.cuh: one tap for K6 (`sodt_mlp_tail`), four for K7
-    (`sodt_conv_mlp_tail`, the 2x2 conv's shifted rows of `a` with the
-    bottom/right zero pad)."""
-    b, h, w, k = a.shape
-    hid = w1.shape[0]
-    n = w2.shape[0]
-    out = torch.empty_like(r)
-    lib = _build.library()
-    fn = lib.sodt_mlp_tail if taps == 1 else lib.sodt_conv_mlp_tail
-    _build.check(fn(a.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                    b2.data_ptr(), r.data_ptr(), out.data_ptr(), b, h, w, k,
-                    hid, n, _build.stream_ptr()), "mlp tail")
+# The GEMM core of K6 and K7 (csrc/gemm_core.cuh): one launch computes
+# bf16(epi(A . W^T + b)) with one of these epilogues (and, for GEMM_CONV,
+# A gathered from the 2x2 conv's taps over a (B, H, W, C) map)
+GEMM_GELU, GEMM_BIAS, GEMM_RESIDUAL, GEMM_CONV = range(4)
+
+
+def gemm_core_plain(a, w, b, mode: int, r=None):
+    """The plain version of one launch of the GEMM core: `a @ w^T + b` with
+    the dtype-dependent GELU (GEMM_GELU), nothing (GEMM_BIAS) or `+ r`
+    (GEMM_RESIDUAL) after it; GEMM_CONV is `gelu(conv2x2_taps_gemm_plain)`
+    with w the (out, 2, 2, in) conv weight."""
+    dt = a.dtype
+    if mode == GEMM_CONV:
+        return gelu(conv2x2_taps_gemm_plain(a, w, b))
+    z = torch.matmul(a, w.to(dt).t()) + b.to(dt)
+    if mode == GEMM_GELU:
+        return gelu(z)
+    return z + r if mode == GEMM_RESIDUAL else z
+
+
+def gemm_core(a, w, b, mode: int, r=None):
+    """One launch of the GEMM core of K6 and K7 on the card (its plain
+    version for a CPU tensor). a (..., K), or for GEMM_CONV the map f1
+    (B, H, W, C); w (N, K) or the conv weight (N, 2, 2, C); b (N,); r
+    (..., N) for GEMM_RESIDUAL. Returns (..., N) bf16. Not a counted
+    kernel of its own: K6 and K7 count one launch per call. The checks
+    build their messages only on failure: a K6 call is short enough on the
+    card that the Python around it shows in its time."""
+    if not a.is_cuda:
+        return gemm_core_plain(a, w, b, mode, r)
+    _check_cuda("gemm_core", torch.bfloat16, a=a, w=w, b=b, r=r)
+    k = a.shape[-1]
+    n = w.shape[0]
+    m = a.numel() // k
+    h = wd = 0
+    if mode == GEMM_CONV:
+        ok = a.dim() == 4 and w.shape == (n, 2, 2, k)
+        h, wd = a.shape[1], a.shape[2]
+        k = 4 * k
+    else:
+        ok = w.shape == (n, k)
+    # the kernel moves 16-byte chunks: K, N and every address a multiple
+    ok = (ok and b.shape == (n,) and k % 8 == 0 and n % 8 == 0 and m > 0
+          and (m + 127) // 128 <= 65535
+          and (mode != GEMM_RESIDUAL
+               or (r is not None and r.shape == a.shape[:-1] + (n,)))
+          and all(t.data_ptr() % 16 == 0 for t in (a, w, b, r)
+                  if t is not None))
+    if not ok:
+        raise ValueError(
+            f"gemm_core: a {tuple(a.shape)}, w {tuple(w.shape)}, b "
+            f"{tuple(b.shape)}, r {None if r is None else tuple(r.shape)}, "
+            f"mode {mode}: shapes, multiples of 8 or 16-byte alignment")
+    out = torch.empty(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
+    _build.check(_build.library().sodt_gemm_core(
+        a.data_ptr(), w.data_ptr(), b.data_ptr(),
+        r.data_ptr() if r is not None else None, out.data_ptr(), m, n, k, h,
+        wd, mode, _build.stream_ptr()), "gemm_core")
     return out
+
+
+def mlp_tail_split(r, y, w1, b1, w2, b2):
+    """K6 as its two launches of the GEMM core: H = bf16(gelu(fc1(y))),
+    then r + fc2(H). On the CPU each launch is its plain version."""
+    hid = gemm_core(y, w1, b1, GEMM_GELU)
+    return gemm_core(hid, w2, b2, GEMM_RESIDUAL, r)
+
+
+def conv_mlp_tail_noln_split(r, y, w1, b1, wc, bc, w2, b2):
+    """K7 as its three launches of the GEMM core: f1 = bf16(fc1(y)),
+    z = bf16(gelu(conv2x2(pad_br(f1)))), then r + fc2(z); wc in the
+    kernels' (out, 2, 2, in) layout. On the CPU each launch is its plain
+    version."""
+    f1 = gemm_core(y, w1, b1, GEMM_BIAS)
+    z = gemm_core(f1, wc, bc, GEMM_CONV)
+    return gemm_core(z, w2, b2, GEMM_RESIDUAL, r)
 
 
 def fused_mlp_tail(r, y, w1, b1, w2, b2, int8: bool = False, q8=None):
@@ -367,11 +442,14 @@ def fused_mlp_tail(r, y, w1, b1, w2, b2, int8: bool = False, q8=None):
     w2 (C, hidden).
 
     On the H100 it is bound by operations (4*C*hidden FLOPs per token
-    against 4*C bytes of activations). Design: one CTA per 32 tokens keeps
-    its y rows and the whole bf16 hidden row block in shared memory, so
-    the (M, hidden) activation never reaches device memory; both GEMMs run
-    on the tensor cores (wmma bf16, f32 accumulation) with bias, GELU and
-    the residual folded into their epilogues.
+    against 4*C bytes of activations). Design: two launches of the GEMM
+    core (csrc/gemm_core.cuh; `mlp_tail_split`): fc1 with b1 and the tanh
+    GELU in its epilogue writes the hidden in bf16 (the Pallas kernel's
+    own rounding point), then fc2 with b2 and the residual. The hidden's
+    round trip through device memory (2 x 2*hidden bytes a token) costs
+    less than the FLOPs at the flagship's shapes, and keeping it on chip
+    would take a 128 x C f32 tile in registers or 32-token CTAs that read
+    all of W1 and W2 for every 32 tokens.
 
     int8=True: K12's twin (`mlp_tail_q8_plain`; `_mlp_tail_q8`).
     """
@@ -393,7 +471,7 @@ def fused_mlp_tail(r, y, w1, b1, w2, b2, int8: bool = False, q8=None):
 
 
 def _launch_mlp_tail(r, y, w1, b1, w2, b2):
-    out = _mlp2(y, w1, b1, w2, b2, r, taps=1)
+    out = mlp_tail_split(r, y, w1, b1, w2, b2)
     LAUNCHES["mlp_tail"] += 1
     return out
 
@@ -407,14 +485,14 @@ def fused_conv_mlp_tail_noln(r, y, w1, b1, wc, bc, w2, b2,
     r, y (B, H, W, C) bf16; w1, w2 (C, C); wc (C, 2, 2, C).
 
     On the H100 it is bound by operations (the four conv taps are four
-    C x C GEMMs). Design: fc1 runs as the GEMM kernel and writes f1 in
+    C x C GEMMs). Design: three launches of the GEMM core
+    (csrc/gemm_core.cuh; `conv_mlp_tail_noln_split`): fc1 writes f1 in
     bf16 (the Pallas kernel rounds f1 to bf16 before the conv too); the
-    fused kernel then gathers, for 32 tokens, the four shifted f1 rows of
-    the 2x2 taps into shared memory — a tap that falls below the last row
-    or right of the last column reads zeros, which is the bottom/right pad
-    of fc1's output (the TPU kernel's zeroed last-strip halo) — and runs
-    conv -> GELU -> fc2 + residual without the conv output reaching device
-    memory.
+    conv is one GEMM with K = 4C whose A rows are gathered from f1's 2x2
+    window as they are copied in (a tap below the last row or right of
+    the last column reads zeros, the bottom/right pad of fc1's output,
+    the TPU kernel's zeroed last-strip halo), with bc and GELU in its
+    epilogue; fc2 adds b2 and the residual.
 
     int8=True: K12's twin (`conv_mlp_tail_noln_q8_plain`; `_conv_tail_q8`).
     """
@@ -435,8 +513,7 @@ def fused_conv_mlp_tail_noln(r, y, w1, b1, wc, bc, w2, b2,
 
 
 def _launch_conv_tail_noln(r, y, w1, b1, wc, bc, w2, b2):
-    f1 = gemm_bias(y, w1, b1)
-    out = _mlp2(f1, wc, bc, w2, b2, r, taps=4)
+    out = conv_mlp_tail_noln_split(r, y, w1, b1, wc, bc, w2, b2)
     LAUNCHES["conv_mlp_tail_noln"] += 1
     return out
 

@@ -217,12 +217,16 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _check_cuda(name: str, dtype: torch.dtype, **tensors) -> None:
+    # messages are built only on failure: this runs on every kernel call
     for k, t in tensors.items():
         if t is None:
             continue
-        _require(t.is_cuda, f"{name}: {k} must be on the card")
-        _require(t.dtype == dtype, f"{name}: {k} must be {dtype}, got {t.dtype}")
-        _require(t.is_contiguous(), f"{name}: {k} must be contiguous")
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {k} must be on the card")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {k} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
 
 
 def window_core_supported(n: int, hd: int) -> bool:
@@ -236,7 +240,7 @@ def window_core_supported(n: int, hd: int) -> bool:
 
 def gemm_bias(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16 (M, K) @ (N, K)^T + b, f32 accumulation, one bf16 rounding: the
-    GEMM kernel of csrc/block_attention.cu that K5 and K7 launch for their
+    GEMM kernel of csrc/block_attention.cu that K5 launches for its
     projections. Not a counted kernel of its own."""
     k = a.shape[-1]
     m = a.numel() // k

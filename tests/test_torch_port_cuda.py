@@ -61,14 +61,16 @@ def test_block_attention_kernel(card, b, hw, c, shift):
     assert _rel(out, ref) < TOL
 
 
-@pytest.mark.parametrize("b,hw,c", [(1, 16, 32), (2, 128, 192), (2, 64, 384)])
-def test_mlp_tails_kernels(card, b, hw, c):
-    r, y = _rnd((b, hw, hw, c), 7).to(BF), _rnd((b, hw, hw, c), 8).to(BF)
-    w6 = [_rnd((4 * c, c), 9, c ** -0.5).to(BF), _rnd((4 * c,), 10, 0.1).to(BF),
-          _rnd((c, 4 * c), 11, (4 * c) ** -0.5).to(BF), _rnd((c,), 12, 0.1).to(BF)]
+def _check_mlp_tails(b, h, w, c, hid):
+    """K6 and K7 against their plain versions in f32 on the same bf16
+    inputs, and each bit-equal over two runs (no atomics, no split-K)."""
+    r, y = _rnd((b, h, w, c), 7).to(BF), _rnd((b, h, w, c), 8).to(BF)
+    w6 = [_rnd((hid, c), 9, c ** -0.5).to(BF), _rnd((hid,), 10, 0.1).to(BF),
+          _rnd((c, hid), 11, hid ** -0.5).to(BF), _rnd((c,), 12, 0.1).to(BF)]
     out = sb.fused_mlp_tail(r, y, *w6)
     ref = sb.mlp_tail_plain(r.float(), y.float(), *[t.float() for t in w6])
     assert _rel(out, ref) < TOL
+    assert torch.equal(out, sb.fused_mlp_tail(r, y, *w6))
     w7 = [_rnd((c, c), 13, c ** -0.5).to(BF), _rnd((c,), 14, 0.1).to(BF),
           _rnd((c, 2, 2, c), 15, (4 * c) ** -0.5).to(BF),
           _rnd((c,), 16, 0.1).to(BF), _rnd((c, c), 17, c ** -0.5).to(BF),
@@ -78,6 +80,44 @@ def test_mlp_tails_kernels(card, b, hw, c):
                                       *[t.float() for t in w7])
     torch.cuda.synchronize()
     assert _rel(out, ref) < TOL
+    assert torch.equal(out, sb.fused_conv_mlp_tail_noln(r, y, *w7))
+
+
+@pytest.mark.parametrize("b,hw,c", [(1, 16, 32), (2, 128, 192), (2, 64, 384),
+                                    (3, 20, 384)])
+def test_mlp_tails_kernels(card, b, hw, c):
+    """At (3, 20, 384) M = 1200 is no multiple of the core's 128-row tile
+    and its tiles cross images (the conv's gather reads across them)."""
+    _check_mlp_tails(b, hw, hw, c, 4 * c)
+
+
+def test_mlp_tails_narrow(card):
+    """The narrowest domain: C = 48 (K7's conv K = 192 spans taps inside a
+    32-deep K step), hidden 192, a 9 x 13 map."""
+    _check_mlp_tails(1, 9, 13, 48, 192)
+
+
+@pytest.mark.parametrize("m,n,k", [(1000, 1536, 384), (1000, 384, 1536)])
+@pytest.mark.parametrize("mode", ["gelu", "bias", "residual"])
+def test_gemm_core_kernel(card, m, n, k, mode):
+    """One launch of the GEMM core against an f32 torch.matmul of the same
+    bf16 inputs (M = 1000: a ragged last row tile; both tile widths).
+    The kernel rounds once, at the store: within one bf16 step (2^-8) of
+    max |ref|."""
+    a, w = _rnd((m, k), 40).to(BF), _rnd((n, k), 41, k ** -0.5).to(BF)
+    b, r = _rnd((n,), 42, 0.1).to(BF), _rnd((m, n), 43).to(BF)
+    code = {"gelu": sb.GEMM_GELU, "bias": sb.GEMM_BIAS,
+            "residual": sb.GEMM_RESIDUAL}[mode]
+    rr = r if mode == "residual" else None
+    out = sb.gemm_core(a, w, b, code, rr)
+    z = torch.matmul(a.float(), w.float().t()) + b.float()
+    if mode == "gelu":
+        z = torch.nn.functional.gelu(z, approximate="tanh")
+    elif mode == "residual":
+        z = z + r.float()
+    torch.cuda.synchronize()
+    assert out.shape == (m, n) and _rel(out, z) < 2 ** -8
+    assert torch.equal(out, sb.gemm_core(a, w, b, code, rr))
 
 
 @pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 8, 64, 4, 8),
