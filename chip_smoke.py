@@ -333,10 +333,11 @@ def nbytes(*ts) -> int:
 # ------------------------------------------------------------------- ptxas
 
 # the sources of the redesigned kernels (K8, K10; K6 and K7 on the GEMM
-# core): registers, static shared memory and spills as `nvcc -Xptxas -v`
-# reports them
+# core; K9's register body, window_attn_bwd_regs_kernel<head dim, N padded>):
+# registers, static shared memory and spills as `nvcc -Xptxas -v` reports
+# them
 PTXAS_SOURCES = ("global_attention.cu", "global_attention_bwd.cu",
-                 "gemm_core.cu")
+                 "gemm_core.cu", "window_attention_bwd.cu")
 # csrc/gemm_core.cuh: the GEMM core's template arguments (loader, epilogue,
 # tile width BN, stages) for an output width N, as `launch_gemm_core` picks
 # them, and the launches of K6 and K7 at the flagship's stage 2 (C 384,
@@ -411,7 +412,19 @@ def ptxas_report(procs) -> dict:
             bn, stages = map(int, entry[17:-1].split(",")[2:4])
             row["dynamic_smem"] = stages * (128 + bn) * 128 + 1024
     launched = {k: gemm_core_entry(*v) for k, v in GEMM_CORE_LAUNCHES.items()}
+    # K9 on the training step: head dims 16 and 32 at N 64 (two stages of
+    # Q, K, V, dO rows of hd + 8, + the 64 x 72 f32 mask rows when masked;
+    # the bf16 P and dS tiles and the output staging rows,
+    # csrc/window_attention_bwd.cuh WrLayout)
+    k9 = [f"window_attn_bwd_regs_kernel<{hd},64>" for hd in (16, 32)]
+    k9_smem = {f"{e} mask {m}": 2 * (4 * 64 * (hd + 8) * 2 + m * 64 * 72 * 4)
+               + 2 * 64 * 72 * 2 + 64 * (hd + 8) * 2
+               for e, hd in zip(k9, (16, 32)) for m in (0, 1)}
     return {"phase": "ptxas", "kernels": kernels,
+            "k9_dynamic_smem": k9_smem,
+            "k9_spill_bytes": sum(kernels.get(e, {}).get("spill_stores", -1)
+                                  + kernels.get(e, {}).get("spill_loads", -1)
+                                  for e in k9),
             "dynamic_smem_bytes_hd64_n1024": dynamic,
             "gemm_core_launches": launched,
             "gemm_core_spill_bytes": sum(

@@ -35,6 +35,7 @@ SIGNATURES = {
     "sodt_block_attention_ln": [P] * 10 + [I] * 8 + [F, P],
     "sodt_conv_tail": [P] * 11 + [I] * 5 + [P],
     "sodt_window_attention_bwd": [P] * 7 + [I] * 7 + [F, I, P],
+    "sodt_window_attention_bwd_regs": [P] * 7 + [I] * 7 + [F, I, P],
     "sodt_global_attention_bwd": [P] * 9 + [I] * 7 + [F, P],
     "sodt_window_attention_tokens": [P, P, P, P, I, I, I, I, I, F, P],
     "sodt_window_attention_tokens_bwd": [P] * 7 + [I] * 5 + [F, I, P],

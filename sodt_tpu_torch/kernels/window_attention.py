@@ -149,9 +149,19 @@ def attention_qkv_bwd_plain(qkv, bias, mask, nw: int, nh: int, scale: float,
     dS = P * (dP - rowsum(dP * P)), dQ = scale * dS K, dK = scale * dS^T Q,
     dbias = sum over the windows of dS. qkv (W, N, 3C), gy (W, N, C) ->
     (dqkv in qkv's dtype, dbias (nh, N, N) f32)."""
+    dx, ds = _attention_bwd_windows(qkv, bias, mask, nw, nh, scale, gy, False)
+    return dx, ds.sum(dim=0)
+
+
+def _attention_bwd_windows(qkv, bias, mask, nw, nh, scale, gy, rounded):
+    """`attention_qkv_bwd_plain`'s dqkv and the dS of every window (W, nh,
+    N, N) f32; `rounded`: P rounded to bf16 before dV, dS before dQ and dK,
+    as K9's register body rounds them."""
     w, n, c3 = qkv.shape
     c = c3 // 3
     hd = c // nh
+    rnd = ((lambda x: x.to(torch.bfloat16).float()) if rounded
+           else (lambda x: x))
 
     def heads(t):          # (W, N, k*C) -> k tensors (W, nh, N, hd)
         k = t.shape[-1] // c
@@ -164,13 +174,25 @@ def attention_qkv_bwd_plain(qkv, bias, mask, nw: int, nh: int, scale: float,
         s = (s.reshape(w // nw, nw, nh, n, n)
              + mask.float()[None, :, None]).reshape(w, nh, n, n)
     p = torch.softmax(s, dim=-1)
-    dv = torch.matmul(p.transpose(-1, -2), do)
+    dv = torch.matmul(rnd(p).transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq = scale * torch.matmul(ds, k)
-    dk = scale * torch.matmul(ds.transpose(-1, -2), q)
+    dq = scale * torch.matmul(rnd(ds), k)
+    dk = scale * torch.matmul(rnd(ds).transpose(-1, -2), q)
     dx = torch.stack([dq, dk, dv]).to(qkv.dtype)     # (3, W, nh, N, hd)
-    return dx.permute(1, 3, 0, 2, 4).reshape(w, n, c3), ds.sum(dim=0)
+    return dx.permute(1, 3, 0, 2, 4).reshape(w, n, c3), ds
+
+
+def _to_windows(t, ws: int):
+    """(B, H, W, k) -> (B * nW, ws * ws, k), windows in row-major order."""
+    b, h, w, k = t.shape
+    t = t.reshape(b, h // ws, ws, w // ws, ws, k)
+    return t.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, k)
+
+
+def _from_windows(t, b: int, h: int, w: int, ws: int):
+    t = t.reshape(b, h // ws, w // ws, ws, ws, t.shape[-1])
+    return t.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, t.shape[-1])
 
 
 def attention_nhwc_bwd_plain(qkv, bias, mask, ws: int, nh: int, scale: float,
@@ -178,18 +200,46 @@ def attention_nhwc_bwd_plain(qkv, bias, mask, ws: int, nh: int, scale: float,
     """K9's plain version (`_bwd_strip_kernel`): `attention_qkv_bwd_plain`
     on the windows of the map. qkv (B, H, W, 3C), gy (B, H, W, C) -> (dqkv
     in qkv's dtype, dbias (nh, N, N) f32)."""
-    b, h, w, c3 = qkv.shape
-    g = (h // ws) * (w // ws)
+    b, h, w, _ = qkv.shape
+    dx, dbias = attention_qkv_bwd_plain(_to_windows(qkv, ws), bias, mask,
+                                        (h // ws) * (w // ws), nh, scale,
+                                        _to_windows(gy, ws))
+    return _from_windows(dx, b, h, w, ws), dbias
 
-    def part(t):
-        k = t.shape[-1]
-        t = t.reshape(b, h // ws, ws, w // ws, ws, k)
-        return t.permute(0, 1, 3, 2, 4, 5).reshape(b * g, ws * ws, k)
 
-    dx, dbias = attention_qkv_bwd_plain(part(qkv), bias, mask, g, nh, scale,
-                                        part(gy))
-    dx = dx.reshape(b, h // ws, w // ws, ws, ws, c3)
-    return dx.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c3), dbias
+def attention_nhwc_bwd_mirror(qkv, bias, mask, ws: int, nh: int,
+                              scale: float, gy, groups: int | None = None,
+                              rounded: bool = True):
+    """The plain mirror of K9's register body (N <= 64,
+    csrc/window_attention_bwd.cuh): `attention_nhwc_bwd_plain`'s formulas
+    with P rounded to bf16 before dV and dS before dQ and dK (`rounded`),
+    and dbias summed in the kernel's order: each group adds its stages
+    group, group + groups, ... in turn, a stage's window slots (four at
+    N <= 16) in slot order, then the groups in order. `groups` defaults to
+    the wrapper's (`bwd_groups`). Same arguments and results as
+    `attention_nhwc_bwd_plain`."""
+    b, h, w, _ = qkv.shape
+    n = ws * ws
+    total = b * (h // ws) * (w // ws)
+    dx, ds = _attention_bwd_windows(
+        _to_windows(qkv, ws), bias, mask, (h // ws) * (w // ws), nh, scale,
+        _to_windows(gy, ws), rounded)
+    wpi = bwd_stage_windows(n)
+    groups = groups or bwd_groups(total, n, nh)
+    iters = -(-total // (wpi * groups))
+    ds = torch.cat([ds, ds.new_zeros((iters * groups * wpi - total,
+                                      *ds.shape[1:]))])
+    ds = ds.reshape(iters, groups, wpi, *ds.shape[1:])
+    acc = ds[0]
+    for i in range(1, iters):
+        acc = acc + ds[i]
+    slots = acc[:, 0]
+    for i in range(1, wpi):
+        slots = slots + acc[:, i]
+    dbias = slots[0]
+    for i in range(1, groups):
+        dbias = dbias + slots[i]
+    return _from_windows(dx, b, h, w, ws), dbias
 
 
 def global_attention_bwd_plain(qkv, bias, nh: int, scale: float, gy,
@@ -231,10 +281,12 @@ def _check_cuda(name: str, dtype: torch.dtype, **tensors) -> None:
 
 def window_core_supported(n: int, hd: int) -> bool:
     """The domain of the windowed attention core of
-    csrc/window_attention.cuh (K1, K5's core, K9, K11 forward and
-    backward): windows of up to 256 tokens — JAX's own gate for K1, K5 and
-    K11, N <= 256 — and head dims that are whole 16-wide tensor-core tiles,
-    at most 64 (the shared-memory budget at 256 tokens)."""
+    csrc/window_attention.cuh (K1, K5's core, K11 forward and backward,
+    K9 above 64 tokens; K9's own body of csrc/window_attention_bwd.cuh
+    takes the same head dims): windows of up to 256 tokens — JAX's own
+    gate for K1, K5 and K11, N <= 256 — and head dims that are whole
+    16-wide tensor-core tiles, at most 64 (the shared-memory budget at 256
+    tokens)."""
     return n <= 256 and hd % 16 == 0 and hd <= 64
 
 
@@ -579,7 +631,43 @@ class _WindowAttention(torch.autograd.Function):
 
 # ---------------------------------------------------------------------- K9
 
-BWD_GROUPS = 128    # CTAs (and dbias partials) per head in K9 and K11
+BWD_GROUPS = 128    # CTAs (dbias partials) per head: K11, and K9 at N > 64
+BWD_CTAS = 2 * 132  # K9 at N <= 64: the CTAs a launch aims at (132 SMs)
+
+
+def bwd_body(n: int) -> str:
+    """K9's body for windows of n tokens: "regs" (n <= 64, every window of
+    the repo's configurations: window_attn_bwd_regs_kernel of
+    csrc/window_attention_bwd.cuh, the scores in registers) or "strips"
+    (n > 64: window_attn_bwd_kernel of csrc/window_attention.cuh, the
+    score strips in shared memory, the body K11's backward runs)."""
+    return "regs" if n <= 64 else "strips"
+
+
+def bwd_stage_windows(n: int) -> int:
+    """Windows of one 64-row stage of the register body: four at n <= 16
+    (padded to 16 tokens), else one (padded to 64)."""
+    return 4 if n <= 16 else 1
+
+
+def bwd_groups(total: int, n: int, nh: int) -> int:
+    """Groups of windows (CTAs per head, dbias partials) of K9 over `total`
+    windows of n tokens and nh heads.
+
+    Register body: the launch has nh * groups CTAs, one per (head, group),
+    and aims at BWD_CTAS = 2 * 132, one wave of the two CTAs that fit on
+    each of the H100's 132 SMs (their registers: 223 and 249 a thread at
+    head dims 16 and 32), so groups = ceil(BWD_CTAS / nh), at most the
+    number of stages (a CTA takes at least one) and at least 1. At the
+    flagship's 12 heads that is 22 groups, 264 CTAs; on the H100 two and
+    four CTAs an SM timed level or slower, three (1.5 waves) slower still
+    (`tools/bench_window_attention_bwd.py --ctas`). Fewer groups also mean
+    fewer dbias partials to write and sum. Strip body:
+    min(total, BWD_GROUPS)."""
+    if bwd_body(n) == "strips":
+        return min(total, BWD_GROUPS)
+    stages = -(-total // bwd_stage_windows(n))
+    return max(1, min(stages, -(-BWD_CTAS // nh)))
 
 
 def window_attention_bwd(qkv, bias, mask, ws: int, nh: int, scale: float, gy):
@@ -592,17 +680,25 @@ def window_attention_bwd(qkv, bias, mask, ws: int, nh: int, scale: float, gy):
     hand over a view). Returns dqkv (B, H, W, 3C) bf16 and dbias
     (nh, N, N) f32, summed over the batch and the windows.
 
-    On the H100 it is bound by its shared-memory round trips, as K1 is
-    (7*C*2 bytes per token against five N x N x hd products per window and
-    head). Design (csrc/window_attention_bwd.cu): one CTA per (head, group
-    of windows); a warp takes 16 query rows for the row statistics, dS and
-    dQ, then 16 key rows for dV and dK from recomputed transposed score
-    strips, so no product needs a reduction across warps. dbias is summed
-    in two deterministic passes (a partial per group, each address owned by
-    one thread, then a reduction in group order): no f32 atomics, at the
-    price of min(B * nW, 128) * nh * N * N floats of scratch. The f32
-    scores are scaled by the unrounded `scale` (the Pallas backward does
-    not pre-scale q in bf16 as its forward does).
+    Two hand-written bodies, chosen by the window's N = ws * ws
+    (`bwd_body`; csrc/window_attention_bwd.cu):
+    - N <= 64 (ws 8 and 4: every configuration of the repo): one CTA per
+      (head, group of windows), `bwd_groups` groups; a two-stage cp.async
+      ring of the head's Q, K, V, dO (+ mask) rows; each warp takes 16
+      query rows with S, P, dP and dS in registers (mma.sync), dQ from dS
+      packed in registers, P and dS stored once as bf16, then 16 key rows
+      for dV = P^T dO and dK = dS^T Q through ldmatrix.trans: five
+      products, no score recomputed. The bias rows sit in registers, and
+      the CTA's dbias partial too, written once.
+    - N > 64 (ws 16, no configuration): the strip body K11's backward
+      runs, min(B * nW, 128) groups.
+    The bound is bytes (7 * C * 2 per token against 10 * N * C
+    operations). dbias is summed in two deterministic passes (a partial
+    per group, each address owned by one thread, then a reduction in
+    group order): no f32 atomics, bit-equal repeats. P and dS are rounded
+    to bf16 before their products (`attention_nhwc_bwd_mirror` mirrors
+    it); the f32 scores are scaled by the unrounded `scale` (the Pallas
+    backward does not pre-scale q in bf16 as its forward does).
     """
     if not qkv.is_cuda:
         return attention_nhwc_bwd_plain(qkv, bias, mask, ws, nh, scale, gy)
@@ -618,12 +714,15 @@ def window_attention_bwd(qkv, bias, mask, ws: int, nh: int, scale: float, gy):
              f"{name}: window of {n} tokens, head dim {hd}")
     _require(tuple(gy.shape) == (b, h, w, c), f"{name}: gy shape")
     _check_window_args(name, b, h, w, nh, ws, bias, mask, 0)
-    groups = min(b * (h // ws) * (w // ws), BWD_GROUPS)
+    groups = bwd_groups(b * (h // ws) * (w // ws), n, nh)
+    lib = _build.library()
+    entry = (lib.sodt_window_attention_bwd_regs if bwd_body(n) == "regs"
+             else lib.sodt_window_attention_bwd)
     dqkv = torch.empty_like(qkv)
     part = torch.empty((groups, nh, n, n), dtype=torch.float32,
                        device=qkv.device)
     dbias = torch.empty((nh, n, n), dtype=torch.float32, device=qkv.device)
-    _build.check(_build.library().sodt_window_attention_bwd(
+    _build.check(entry(
         qkv.data_ptr(), gy.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
         part.data_ptr(), dbias.data_ptr(), b, h, w, c, nh, ws,
@@ -715,8 +814,9 @@ def window_attention_tokens_bwd(qkv, bias, mask, nw: int, nh: int,
     Returns dqkv (W, N, 3C) bf16 and dbias (nh, N, N) f32 summed over the
     windows.
 
-    The kernel of K9 with the token addressing (csrc/window_attention.cuh,
-    where the design is described): the f32 scores are scaled by the
+    The strip body of csrc/window_attention.cuh with the token addressing
+    (where the design is described; K9 runs it only for windows of more
+    than 64 tokens): the f32 scores are scaled by the
     unrounded `scale`, P and dS are rounded to bf16 before the tensor-core
     products (the Pallas kernel keeps them in f32), and dbias takes two
     deterministic passes — a partial per group of windows, then a

@@ -484,11 +484,20 @@ DBIAS_TOL = 1e-3
 
 @pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 16, 32, 2, 8), (2, 128, 192, 12, 8),
                                           (2, 64, 384, 12, 8), (4, 128, 192, 12, 8),
-                                          (1, 32, 256, 4, 16), (3, 8, 64, 2, 4)])
+                                          (1, 32, 256, 4, 16), (3, 8, 64, 2, 4),
+                                          (2, 32, 192, 4, 8), (1, 24, 96, 2, 8),
+                                          (3, 64, 384, 12, 8), (2, 32, 64, 4, 4),
+                                          (1, 12, 32, 2, 4), (1, 30, 64, 2, 5),
+                                          (2, 12, 32, 2, 6), (1, 9, 32, 2, 3)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_window_attention_bwd_kernel(card, b, hw, c, nh, ws, masked):
-    """K9 at head dims 16, 32 and 64, windows of 16, 64 and 256 tokens, and
-    more windows than dbias groups (4 x 256 windows)."""
+    """K9 at head dims 16, 32, 48 and 64; windows of 64 tokens (ws 8) and
+    16 (ws 4: four windows to a stage, one stage part-filled at 9
+    windows) through the register body, padded windows of 9, 25 (a mask
+    row not a multiple of 4 floats) and 36 tokens through it too, and 256
+    (ws 16) through the strip body; more windows than dbias groups (4 x
+    256 windows, and 192, no multiple of the 44 groups), fewer than the
+    groups rule asks for (4, 9)."""
     n = ws * ws
     qkv = _rnd((b, hw, hw, 3 * c), 40).to(BF)
     gy = _rnd((b, hw, hw, c), 41).to(BF)
@@ -507,6 +516,39 @@ def test_window_attention_bwd_kernel(card, b, hw, c, nh, ws, masked):
     # deterministic: no atomics
     d2, b2 = wa.window_attention_bwd(qkv, bias, mask, ws, nh, scale, gy)
     assert torch.equal(d2, dqkv) and torch.equal(b2, dbias)
+
+
+# K9's register body against its rounded mirror (P and dS rounded to bf16
+# where the kernel rounds them, dbias in the kernel's order), in f32 from
+# the same bf16 inputs: what separates them is dq / dk / dv's one bf16
+# rounding at the store (2^-9 of an element: <= 2e-3 of max |ref|) and a
+# rare P or dS that rounds the other way, so 5e-3, a quarter of TOL; dbias
+# differs by expf and the f32 summation order alone: 1e-5, a hundredth of
+# DBIAS_TOL.
+MIRROR_TOL, MIRROR_DBIAS_TOL = 5e-3, 1e-5
+
+
+@pytest.mark.parametrize("b,hw,c,nh,ws", [(4, 128, 192, 12, 8), (4, 64, 384, 12, 8),
+                                          (2, 32, 256, 4, 8), (2, 32, 64, 4, 4)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_bwd_kernel_vs_rounded_mirror(card, b, hw, c, nh, ws, masked):
+    """K9 at the flagship's two stages (batch 4), head dim 64 and ws 4
+    against `attention_nhwc_bwd_mirror`, tighter than TOL."""
+    n = ws * ws
+    qkv = _rnd((b, hw, hw, 3 * c), 46).to(BF)
+    gy = _rnd((b, hw, hw, c), 47).to(BF)
+    bias = _rnd((nh, n, n), 48)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, ws // 4)).cuda()
+            if masked else None)
+    scale = (c // nh) ** -0.5
+    assert wa.bwd_body(n) == "regs"
+    dqkv, dbias = wa.window_attention_bwd(qkv, bias, mask, ws, nh, scale, gy)
+    mq, mb = wa.attention_nhwc_bwd_mirror(qkv.float(), bias, mask, ws, nh,
+                                          scale, gy.float())
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert _rel(dqkv[..., k * c:(k + 1) * c], mq[..., k * c:(k + 1) * c]) < MIRROR_TOL
+    assert _rel(dbias, mb) < MIRROR_DBIAS_TOL
 
 
 @pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 8, 64, 4, 8), (2, 32, 768, 12, 32),
