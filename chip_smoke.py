@@ -9,18 +9,22 @@ the final ok line:
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions
   2. build    nvcc builds the kernels of sodt_tpu_torch/csrc (seconds)
      ptxas    registers, static shared memory and spills of the K8 / K10
-              kernels and of the GEMM core's instantiations (K6, K7)
-              (`nvcc -Xptxas -v`, run beside the build), the dynamic
-              shared memory their launches take (K8 / K10 at head dim
-              64), and which instantiation each launch of K6 and K7 runs
+              kernels, of the GEMM core's instantiations (K6, K7), of K9's
+              register body and of the windowed-attention forward's
+              register body (K1, K5's core, K11 forward: head dims 16-64,
+              three addressings) (`nvcc -Xptxas -v`, run beside the
+              build), the dynamic shared memory their launches take, and
+              which instantiation each launch of K6, K7 and of the
+              forward's register body at N 64 runs
   3. kernels  each kernel vs its plain PyTorch version on the same bf16
               inputs at the shapes its path gives it (batch 2, and the
               paths' batch 4), max |diff| / max |ref| <= 2e-2 (the f32
               dbias of K9 / K10: <= 1e-3), with the kernel's, the plain
-              version's and (K1, K8, K9, K10, K13) the library call's time;
-              K6 and K7 also with the summed device time per call of the
-              kernel and of the plain version (torch.profiler), their
-              TFLOP/s, and bit-equal over two runs;
+              version's and (K1, K8, K9, K10, K11, K13) the library call's
+              time, the library call's also as summed device time per call
+              (torch.profiler); K1, K6, K7 and K11's forward also with the
+              summed device time per call of the kernel and of the plain
+              version, their TFLOP/s, and bit-equal over two runs;
               K1 at the 608 px path's shape and at the four shapes of the
               training step's replays; K8 also at the 608 px path's four
               windows; K10 on K8's statistics, as training runs it, and
@@ -84,6 +88,10 @@ the final ok line:
      profile_swinv2, profile_swinv2_train  the same two for the SwinV2
               model
      profile_int8  one warm eval step in int8 serving
+     profiler the run's torch.profiler sessions, those that recorded no
+              device kernel (each run again, up to 5 sessions in all) and
+              the device times that then fell back to CUDA events (a
+              kernel row names its own in `cuda_event_fallbacks`)
   6. the {"kernels": [...]} line, the card line, the ok line.
 
 Needs a CUDA card; exits 1 without one and 2 when the port is missing.
@@ -301,20 +309,50 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 5) -> float:
-    """Summed device time of the kernels of one call of `fn`, from
-    torch.profiler over `iters` warm calls: the time on the card without
-    the host's share of the call."""
+# torch.profiler sessions of the run: how many, the labels of those that
+# recorded no device kernel at all (CUPTI now and then hands a session none:
+# 4 of 165 sessions in one run on an NVIDIA H100 80GB HBM3, 700.00 W, and
+# in the next 3 in a row of one call), and the device times that fell back
+# to CUDA events after PROFILE_TRIES such sessions in a row
+PROFILE_TRIES = 5
+PROFILER = {"sessions": 0, "empty_sessions": [], "event_fallbacks": []}
+
+
+def profiled(run, label: str) -> list[dict]:
+    """The device kernels (`_device_rows`) of one torch.profiler session
+    around `run()`. A session that recorded none is run again after a
+    pause that grows, up to PROFILE_TRIES sessions in all; [] if none of
+    them recorded any."""
     import torch
     from torch.profiler import profile, ProfilerActivity
+    for i in range(PROFILE_TRIES):
+        time.sleep(0.1 * i)
+        PROFILER["sessions"] += 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = _device_rows(prof)
+        if rows:
+            return rows
+        PROFILER["empty_sessions"].append(label)
+    return []
+
+
+def device_ms(fn, label: str, iters: int = 5) -> float:
+    """Summed device time of the kernels of one call of `fn`, from
+    torch.profiler over `iters` warm calls: the time on the card without
+    the host's share of the call. Where no session recorded a kernel, the
+    CUDA events' time per call (host gaps included), listed under
+    `label` in PROFILER."""
+    import torch
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(r["device_ms"] for r in _device_rows(prof)) / iters
+    rows = profiled(lambda: [fn() for _ in range(iters)], label)
+    if not rows:
+        PROFILER["event_fallbacks"].append(label)
+        return time_ms(fn, iters=iters)
+    return sum(r["device_ms"] for r in rows) / iters
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -333,11 +371,43 @@ def nbytes(*ts) -> int:
 # ------------------------------------------------------------------- ptxas
 
 # the sources of the redesigned kernels (K8, K10; K6 and K7 on the GEMM
-# core; K9's register body, window_attn_bwd_regs_kernel<head dim, N padded>):
-# registers, static shared memory and spills as `nvcc -Xptxas -v` reports
-# them
+# core; K9's register body, window_attn_bwd_regs_kernel<head dim, N padded>;
+# the forward's register body, window_attn_fwd_kernel<head dim, N padded,
+# addressing>, of K1 and K5's core and of K11's forward): registers, static
+# shared memory and spills as `nvcc -Xptxas -v` reports them
 PTXAS_SOURCES = ("global_attention.cu", "global_attention_bwd.cu",
-                 "gemm_core.cu", "window_attention_bwd.cu")
+                 "gemm_core.cu", "window_attention_bwd.cu",
+                 "block_attention.cu", "window_attention_tokens.cu")
+# the forward's register body as the paths launch it at N 64 (head dim,
+# addressing of csrc/window_attention_fwd.cuh)
+FWD_LAUNCHES = {"K1 stage 1 (train)": (16, "FwdMap"),
+                "K1 stage 2 (train, 608 px)": (32, "FwdMap"),
+                "K5 core, unshifted": (32, "FwdMap"),
+                "K5 core, shifted": (32, "FwdShiftedMap"),
+                "K11 forward (SwinV2)": (32, "FwdTokens")}
+
+
+def kernel_entry(mangled: str) -> str:
+    """sodt's kernel name with its template arguments from a mangled
+    name: _ZN4sodt<len><name>_kernelI Li<a>E ... NS_<len><class>E ... ->
+    name<a,...,class>."""
+    k = re.search(r"4sodt\d+(\w+?_kernel)(I\w*)?", mangled)
+    if not k:
+        return mangled
+    args, rest = [], k.group(2) or ""
+    while rest[:1] == "I" or rest[:2] in ("Li", "NS"):
+        if rest[0] == "I":
+            rest = rest[1:]
+        elif rest.startswith("Li"):
+            m = re.match(r"Li(\d+)E", rest)
+            args.append(m.group(1))
+            rest = rest[m.end():]
+        else:
+            m = re.match(r"NS_(\d+)", rest)
+            end = m.end() + int(m.group(1))
+            args.append(rest[m.end():end])
+            rest = rest[end + 1:]
+    return k.group(1) + ("<" + ",".join(args) + ">" if args else "")
 # csrc/gemm_core.cuh: the GEMM core's template arguments (loader, epilogue,
 # tile width BN, stages) for an output width N, as `launch_gemm_core` picks
 # them, and the launches of K6 and K7 at the flagship's stage 2 (C 384,
@@ -380,12 +450,7 @@ def ptxas_report(procs) -> dict:
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                # _ZN4sodt<len><name>_kernelILi<a>E...EE...: name<a,...>
-                k = re.search(r"4sodt\d+(\w+?_kernel)(I(?:Li\d+E)+)?",
-                              m.group(1))
-                entry = (k.group(1) + (
-                    "<" + ",".join(re.findall(r"Li(\d+)E", k.group(2)))
-                    + ">" if k.group(2) else "")) if k else m.group(1)
+                entry = kernel_entry(m.group(1))
                 kernels[entry] = {}
                 continue
             if entry is None:
@@ -420,7 +485,20 @@ def ptxas_report(procs) -> dict:
     k9_smem = {f"{e} mask {m}": 2 * (4 * 64 * (hd + 8) * 2 + m * 64 * 72 * 4)
                + 2 * 64 * 72 * 2 + 64 * (hd + 8) * 2
                for e, hd in zip(k9, (16, 32)) for m in (0, 1)}
+    # the forward's register body: two stages of Q, K, V rows of hd + 8
+    # (+ the 64 x 72 f32 mask rows when masked), csrc/window_attention_fwd.cuh
+    # WfLayout
+    fwd = {k: f"window_attn_fwd_kernel<{hd},64,{a}>"
+           for k, (hd, a) in FWD_LAUNCHES.items()}
+    fwd_smem = {f"head dim {hd} mask {m}": 2 * (3 * 64 * (hd + 8) * 2
+                                                + m * 64 * 72 * 4)
+                for hd in (16, 32) for m in (0, 1)}
     return {"phase": "ptxas", "kernels": kernels,
+            "fwd_launches": fwd, "fwd_dynamic_smem": fwd_smem,
+            "fwd_spill_bytes": sum(
+                kernels.get(e, {}).get("spill_stores", -1)
+                + kernels.get(e, {}).get("spill_loads", -1)
+                for e in set(fwd.values())),
             "k9_dynamic_smem": k9_smem,
             "k9_spill_bytes": sum(kernels.get(e, {}).get("spill_stores", -1)
                                   + kernels.get(e, {}).get("spill_loads", -1)
@@ -580,7 +658,8 @@ def kernel_cases(batch: int) -> list[dict]:
              nbytes(qkv, bias, mask) + nbytes(qkv) // 3,
              4 * batch * hw * hw * n * c, 2,
              lambda am=am, scale=scale: F.scaled_dot_product_attention(
-                 q1, k1, v1, attn_mask=am, scale=scale), path="608px")
+                 q1, k1, v1, attn_mask=am, scale=scale), path="608px",
+             device=True)
 
     # K1 and K9 in a training step at 512 px: the core that the backward of
     # a windowed block replays, and its backward, stage 1 (c 192, head dim
@@ -614,7 +693,8 @@ def kernel_cases(batch: int) -> list[dict]:
                  4 * batch * hw * hw * n * c, calls,
                  lambda q=q9, k=k9, v=v9, am=am, scale=scale:
                  F.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                                scale=scale), path="train")
+                                                scale=scale), path="train",
+                 device=True)
             case("window_attention_bwd",
                  f"({batch},{hw},{hw},{3 * c}) shift {shift}",
                  wa.window_attention_bwd, wa.attention_nhwc_bwd_plain,
@@ -651,7 +731,8 @@ def kernel_cases(batch: int) -> list[dict]:
                  4 * w2 * n2 * n2 * c2, calls,
                  lambda q=q11, k=k11, v=v11, am=am:
                  F.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                                scale=1.0), path="swinv2")
+                                                scale=1.0), path="swinv2",
+                 device=True)
             case("window_attention_tokens_bwd", tag,
                  wa.window_attention_tokens_bwd, wa.attention_qkv_bwd_plain,
                  (qkv, bias2, mask, mnw, nh2, 1.0, gy),
@@ -902,11 +983,19 @@ def phase_kernels(batch: int) -> list[dict]:
         b16 = time_ms(cs["bf16"]) if cs["bf16"] is not None else None
         bms, by = bound_ms(cs["nbytes"], cs["flops"], cs["int8_ops"])
         dev = {}
+        tag = f'{cs["name"]} {cs["shape"]} batch {batch}'
+        fell_back = len(PROFILER["event_fallbacks"])
+        if cs["lib"] is not None:
+            dev["library_device_ms"] = device_ms(cs["lib"], f"{tag} library")
         if cs["device"]:
-            dev["device_ms"] = device_ms(lambda: cs["kern"](*args))
-            dev["plain_device_ms"] = device_ms(lambda: cs["plain"](*args))
+            dev["device_ms"] = device_ms(lambda: cs["kern"](*args), tag)
+            dev["plain_device_ms"] = device_ms(lambda: cs["plain"](*args),
+                                               f"{tag} plain")
             dev["tflops"] = cs["flops"] / dev["device_ms"] / 1e9
             dev["plain_tflops"] = cs["flops"] / dev["plain_device_ms"] / 1e9
+        if PROFILER["event_fallbacks"][fell_back:]:
+            # these device times are CUDA-event times, host gaps included
+            dev["cuda_event_fallbacks"] = PROFILER["event_fallbacks"][fell_back:]
         q8 = (q8_readings(lambda: cs["kern"](*args),
                           lambda: cs["q8"]["same_core"](*args), cs["bf16"],
                           cs["q8"]["geom"]) if cs["q8"] is not None else {})
@@ -1492,13 +1581,25 @@ def _device_rows(prof) -> list[dict]:
     return rows
 
 
+def _busy(rows) -> tuple:
+    """Device-busy ms and the port's kernels' share of it; None, None where
+    no profiler session recorded a kernel."""
+    if not rows:
+        return None, None
+    return (sum(r["device_ms"] for r in rows),
+            sum(r["device_ms"] for r in rows if "sodt::" in r["kernel"]))
+
+
+def _idle(busy, step_ms):
+    return None if busy is None else max(0.0, 1 - busy / step_ms)
+
+
 def phase_profile_train(label: str = "profile_train",
                         cfg: str = "configs/model.yaml") -> None:
     """Kernel-time breakdown of one warm training step (forward, loss,
     backward, optimizer update, EMA) of `cfg`'s model at the train paths'
     shape."""
     import torch
-    from torch.profiler import profile, ProfilerActivity
     from sodt_tpu_torch.train.optim import make_optimizer
     from sodt_tpu_torch.train.state import TrainState, make_train_step
 
@@ -1512,19 +1613,21 @@ def phase_profile_train(label: str = "profile_train",
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(lambda: step(state, batch), iters=5, warmup=1)
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def run():
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = _device_rows(prof)
-    busy = sum(r["device_ms"] for r in rows)
-    ours = sum(r["device_ms"] for r in rows if "sodt::" in r["kernel"])
+        wall.append(1e3 * (time.perf_counter() - t0))
+    rows = profiled(run, label)
+    wall_ms = wall[-1]
+    busy, ours = _busy(rows)
     emit({"phase": label, "batch": MAIN_BATCH, "img": 512,
           "train_step_ms": step_ms, "images_per_s": 1e3 * MAIN_BATCH / step_ms,
           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
           "port_kernels_ms": ours,
-          "idle_share": max(0.0, 1 - busy / step_ms),
+          "idle_share": _idle(busy, step_ms),
           "peak_memory_bytes": peak, "top": rows[:40]})
 
 
@@ -1539,7 +1642,6 @@ def phase_profile(label: str = "profile",
 
 def _profile_eval(label: str, cfg: str, int8: bool) -> None:
     import torch
-    from torch.profiler import profile, ProfilerActivity
     from sodt_tpu_torch.train.evaluate import cache_rel_bias, make_eval_step
 
     model = cache_rel_bias(seeded_model(cfg, torch.bfloat16).cuda().eval())
@@ -1553,21 +1655,23 @@ def _profile_eval(label: str, cfg: str, int8: bool) -> None:
     with torch.no_grad():
         fwd_ms = time_ms(fwd, iters=5, warmup=1)
     step_ms = time_ms(lambda: step(x, x), iters=5, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def run():
         t0 = time.perf_counter()
         step(x, x)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = _device_rows(prof)
-    busy = sum(r["device_ms"] for r in rows)
-    ours = sum(r["device_ms"] for r in rows if "sodt::" in r["kernel"])
+        wall.append(1e3 * (time.perf_counter() - t0))
+    rows = profiled(run, label)
+    wall_ms = wall[-1]
+    busy, ours = _busy(rows)
     # idle share against the unprofiled step time (the profiler's own host
     # overhead stretches the profiled wall)
     out = {"phase": label, "batch": MAIN_BATCH, "img": 512, "int8": int8,
            "forward_ms": fwd_ms, "eval_step_ms": step_ms,
            "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
            "port_kernels_ms": ours,
-           "idle_share": max(0.0, 1 - busy / step_ms),
+           "idle_share": _idle(busy, step_ms),
            "top": rows[:40]}
     emit(out)
 
@@ -1673,6 +1777,8 @@ def main() -> int:
             traceback.print_exc()
             failed.append(label)
 
+    emit({"phase": "profiler", **PROFILER})
+
     # per-forward (on the train path: per-step) totals at the paths' batch:
     # the sum over one forward's or step's calls of each kernel on its path
     # (calls_per_forward of each shape); launches as counted on that
@@ -1697,6 +1803,8 @@ def main() -> int:
                 "bound_by": (max(mine, key=lambda r: r["bound_ms"])["bound_by"]
                              if mine else None),
                 "library_ms": tot("library_ms"),
+                **({key: tot(key) for key in ("device_ms", "library_device_ms")
+                    if mine and all(key in r for r in mine)}),
                 **({"bf16_kernel_ms": tot("bf16_kernel_ms")}
                    if tag == "K12" else {})})
     failed += [f"{e['name']} not launched on the {e['path']} path"

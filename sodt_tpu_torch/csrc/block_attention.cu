@@ -5,14 +5,15 @@
 //  * gemm_bias_kernel: out = A . B^T + bias in one bf16 rounding, f32
 //    accumulation on the tensor cores; 64x64 tiles, K steps of 32 staged
 //    in shared memory. Launched for the qkv and the output projection.
-//  * window_attn_kernel<MapWindows> (window_attention.cuh): one CTA per
-//    (head, window) of the unpartitioned map. Token t of window (wr, wc) in
-//    shifted coordinates (r, c) reads its q/k/v at ((r + shift) mod H,
-//    (c + shift) mod W); the head's output is written at (r, c), i.e. in
-//    shifted coordinates, as the Pallas kernel does. With shift 0 this is
-//    also K1, the windowed attention core (`fused_window_attention_nhwc`,
-//    body `_strip_kernel`).
-#include "window_attention.cuh"
+//  * the windowed attention forward (launch_window_attention of
+//    window_attention_fwd.cuh: its register body at N <= 64, the strip body
+//    of window_attention.cuh above) on the unpartitioned map. Token t of
+//    window (wr, wc) in shifted coordinates (r, c) reads its q/k/v at
+//    ((r + shift) mod H, (c + shift) mod W); the head's output is written
+//    at (r, c), i.e. in shifted coordinates, as the Pallas kernel does.
+//    With shift 0 this is also K1, the windowed attention core
+//    (`fused_window_attention_nhwc`, body `_strip_kernel`).
+#include "window_attention_fwd.cuh"
 
 namespace sodt {
 
@@ -83,10 +84,14 @@ extern "C" int sodt_gemm_bias(const void* A, const void* B, const void* bias, vo
   return (int)cudaGetLastError();
 }
 
+// groups: windows' groups per head of the register body (N <= 64), at most
+// the number of its stages (B * nW windows, four to a stage at N <= 16)
 extern "C" int sodt_window_attention(const void* qkv, const void* bias, const void* mask,
                                      void* out, int B, int H, int W, int C, int nh, int ws,
-                                     int shift, int has_mask, float scale, void* stream) {
+                                     int shift, int has_mask, float scale, int groups,
+                                     void* stream) {
   return sodt::launch_window_attention(sodt::MapWindows{H, W, ws, shift}, qkv, bias,
                                        has_mask ? mask : nullptr, out,
-                                       B * (H / ws) * (W / ws), C, nh, ws * ws, scale, stream);
+                                       B * (H / ws) * (W / ws), C, nh, ws * ws, scale, groups,
+                                       stream);
 }

@@ -4,7 +4,8 @@
 // K5's), swin_block.py _conv_tail_kernel with s1 / sc / s2 (K4's),
 // _mlp_tail_kernel (K6's) and _conv_tail_noln_kernel (K7's). Every
 // projection is an s8 x s8 -> s32 tensor-core GEMM (quant.cuh); the
-// attention core stays the bf16 window_attn_kernel of K1 / K5.
+// attention core stays the bf16 forward of K1 / K5 (launch_window_attention
+// of window_attention_fwd.cuh; att_groups: its groups of windows per head).
 //
 // Each body runs as launches split at its quantization points (quant.cuh
 // says why), in the reference's rounding order. Launches per call:
@@ -23,7 +24,7 @@
 // as the Pallas kernels do. Bound by operations at the flagship's shapes
 // (the projections); the f32 round trips make it far slower than that.
 #include "quant.cuh"
-#include "window_attention.cuh"
+#include "window_attention_fwd.cuh"
 
 using sodt::bf16;
 using sodt::Strips;
@@ -35,7 +36,8 @@ extern "C" int sodt_swin_block_q8(const void* x, const void* ln1g, const void* l
                                   const void* s1, const void* b1, const void* w2,
                                   const void* s2, const void* b2, const void* bias, void* out,
                                   void* f32ws, void* bf16ws, void* amax, int B, int H, int W,
-                                  int C, int HID, int nh, int ws, float scale, void* stream) {
+                                  int C, int HID, int nh, int ws, float scale, int att_groups,
+                                  void* stream) {
   using namespace sodt;
   const cudaStream_t st = (cudaStream_t)stream;
   const int M = B * H * W, S = B * (H / ws);
@@ -52,7 +54,8 @@ extern "C" int sodt_swin_block_q8(const void* x, const void* ln1g, const void* l
   Q8_TRY(q8_gemm<float>(RowsOf<float>{L, C}, wqkv, sqkv, am, strips, M, 3 * C, C,
                         EpiBf16{(const float*)bqkv, qkv, 3 * C}, nullptr, strips, st));
   Q8_TRY(launch_window_attention(MapWindows{H, W, ws, 0}, qkv, bias, nullptr, att,
-                                 B * (H / ws) * (W / ws), C, nh, ws * ws, scale, stream));
+                                 B * (H / ws) * (W / ws), C, nh, ws * ws, scale, att_groups,
+                                 stream));
   Q8_TRY(q8_amax(Val<RowsOf<bf16>>{{att, C}}, M, C, am + S, strips, st));
   Q8_TRY(q8_gemm<bf16>(RowsOf<bf16>{att, C}, wp, sp, am + S, strips, M, C, C,
                        EpiRes1{(const bf16*)x, (const float*)bp, res, C}, nullptr, strips, st));
@@ -74,7 +77,7 @@ extern "C" int sodt_block_attention_q8(const void* x, const void* lng, const voi
                                        const void* bias, const void* mask, void* out,
                                        void* f32ws, void* bf16ws, void* amax, int has_ln, int B,
                                        int H, int W, int C, int nh, int ws, int shift,
-                                       int has_mask, float scale, void* stream) {
+                                       int has_mask, float scale, int att_groups, void* stream) {
   using namespace sodt;
   const cudaStream_t st = (cudaStream_t)stream;
   const int M = B * H * W, S = B * (H / ws);
@@ -96,7 +99,8 @@ extern "C" int sodt_block_attention_q8(const void* x, const void* lng, const voi
   }
   // qkv is already in shifted coordinates: the core runs unshifted, masked
   Q8_TRY(launch_window_attention(MapWindows{H, W, ws, 0}, qkv, bias, has_mask ? mask : nullptr,
-                                 att, B * (H / ws) * (W / ws), C, nh, ws * ws, scale, stream));
+                                 att, B * (H / ws) * (W / ws), C, nh, ws * ws, scale, att_groups,
+                                 stream));
   Q8_TRY(q8_amax(Val<RowsOf<bf16>>{{att, C}}, M, C, am + S, strips, st));
   Q8_TRY(q8_gemm<bf16>(RowsOf<bf16>{att, C}, wp, sp, am + S, strips, M, C, C,
                        EpiBf16{(const float*)bp, (bf16*)out, C}, nullptr, strips, st));

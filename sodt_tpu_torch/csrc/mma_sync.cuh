@@ -73,4 +73,39 @@ __device__ __forceinline__ const bf16* b_tile_addr_t(const bf16* base, int ld, i
   return base + (size_t)(k0 + (mi & 1) * 8 + (lane & 7)) * ld + n0 + (mi >> 1) * 8;
 }
 
+// ---- the windowed-attention register bodies' pieces (K1 / K5 / K11 forward,
+// K9): a 4-byte cp.async, stmatrix, ex2 and the reductions over the four
+// lanes of an accumulator row
+
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem_dst)),
+               "l"(gmem_src), "r"(pred ? 4 : 0));
+}
+
+// four 8 x 8 bf16 matrices from accumulator-layout registers (lane l holds
+// row l / 4, columns 2 (l % 4), +1 of each) to the rows lanes 8i..8i+7 address
+__device__ __forceinline__ void stsm_x4(const void* p, unsigned r0, unsigned r1, unsigned r2,
+                                        unsigned r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_addr(p)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {  // 2^x, -inf -> 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+
 }  // namespace sodt

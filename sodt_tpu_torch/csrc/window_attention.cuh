@@ -13,8 +13,10 @@
 // Everything between the loads and the stores - scores, f32 softmax, the
 // tensor-core products - is the same code for both layouts.
 //
-// Forward, one CTA (4 warps) per (head, window), any window of up to 256
-// tokens (padded to a multiple of 16): q is scaled in bf16 as in JAX; each
+// Forward (the strip body: windows of more than 64 tokens; at N <= 64 the
+// register body of window_attention_fwd.cuh runs), one CTA (4 warps) per
+// (head, window), any window of up to 256 tokens (padded to a multiple of
+// 16): q is scaled in bf16 as in JAX; each
 // warp takes 16 query rows (common.cuh warp_attention_rows): scores +
 // rel-pos bias (+ mask) and the softmax stay f32 in its shared scratch; P
 // is rounded to bf16 for PV.
@@ -92,6 +94,31 @@ struct TokenWindows {
   __device__ __forceinline__ int mask_index(int win) const { return win % nw; }
 };
 
+// The register bodies (window_attention_fwd.cuh, window_attention_bwd.cuh):
+// 4 warps, a stage of 64 token rows, the softmax in log2 units
+constexpr int WR_WARPS = 4, WR_ROWS = 16 * WR_WARPS;  // token rows of a stage
+constexpr float WR_LOG2E = 1.4426950408889634f;
+
+// Windows of ws x ws tokens of a (B, H, W, .) map, read and written at
+// shift 0 (K1 and K9 take the rolled map): window win = b * nw + wr * gx + wc
+// starts at map row (b * H + wr * ws) * W + wc * ws, and its token t sits
+// (t / ws) * W + t % ws further. The divisions by runtime values are taken
+// once per window (base) and once per kernel for a thread's token offsets,
+// not per 16-byte copy.
+struct WrMap {
+  int H, W, ws, gx, nw;
+  __device__ __forceinline__ size_t base(int win, int& widx) const {
+    const int b = win / nw;
+    widx = win - b * nw;  // also the index of the window's mask
+    const int wr = widx / gx, wc = widx - wr * gx;
+    return ((size_t)b * H + wr * ws) * W + wc * ws;
+  }
+  __device__ __forceinline__ int offset(int t) const {
+    const int tr = t / ws;
+    return tr * W + t - tr * ws;
+  }
+};
+
 // ------------------------------------------------------------------ forward
 
 __host__ __device__ inline size_t window_attn_smem_bytes(int n, int hd) {
@@ -148,10 +175,12 @@ window_attn_kernel(Windows wins, const bf16* __restrict__ qkv, const float* __re
                         });
 }
 
+// the strip body's launch; launch_window_attention (window_attention_fwd.cuh)
+// takes it for windows of more than 64 tokens
 template <class Windows>
-inline int launch_window_attention(Windows wins, const void* qkv, const void* bias,
-                                   const void* mask, void* out, int total, int C, int nh,
-                                   int n, float scale, void* stream) {
+inline int launch_window_attention_strips(Windows wins, const void* qkv, const void* bias,
+                                          const void* mask, void* out, int total, int C,
+                                          int nh, int n, float scale, void* stream) {
   static int smem_set = 0;
   const size_t smem = window_attn_smem_bytes(n, C / nh);
   if (smem > SMEM_MAX || total < 1 || total > 65535) return (int)cudaErrorInvalidValue;

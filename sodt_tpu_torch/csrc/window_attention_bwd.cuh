@@ -45,9 +45,6 @@
 
 namespace sodt {
 
-constexpr int WR_WARPS = 4, WR_ROWS = 16 * WR_WARPS;  // token rows of a stage
-constexpr float WR_LOG2E = 1.4426950408889634f;
-
 // NP: the window padded to 16 or 64 tokens
 template <int HD, int NP>
 struct WrLayout {
@@ -63,56 +60,6 @@ struct WrLayout {
     return 2 * stage_bytes(mask) + (size_t)2 * WR_ROWS * LDP * 2 + (size_t)TILE * 2;
   }
 };
-
-// Windows of ws x ws tokens of a (B, H, W, .) map, read and written at
-// shift 0 (K9 takes the rolled map): window win = b * nw + wr * gx + wc
-// starts at map row (b * H + wr * ws) * W + wc * ws, and its token t sits
-// (t / ws) * W + t % ws further. The divisions by runtime values are taken
-// once per window (base) and once per kernel for a thread's token offsets,
-// not per 16-byte copy.
-struct WrMap {
-  int H, W, ws, gx, nw;
-  __device__ __forceinline__ size_t base(int win, int& widx) const {
-    const int b = win / nw;
-    widx = win - b * nw;  // also the index of the window's mask
-    const int wr = widx / gx, wc = widx - wr * gx;
-    return ((size_t)b * H + wr * ws) * W + wc * ws;
-  }
-  __device__ __forceinline__ int offset(int t) const {
-    const int tr = t / ws;
-    return tr * W + t - tr * ws;
-  }
-};
-
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem_dst)),
-               "l"(gmem_src), "r"(pred ? 4 : 0));
-}
-
-// four 8 x 8 bf16 matrices from accumulator-layout registers (lane l holds
-// row l / 4, columns 2 (l % 4), +1 of each) to the rows lanes 8i..8i+7 address
-__device__ __forceinline__ void stsm_x4(const void* p, unsigned r0, unsigned r1, unsigned r2,
-                                        unsigned r3) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   smem_addr(p)),
-               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
-               : "memory");
-}
-
-__device__ __forceinline__ float ex2_approx(float x) {  // 2^x, -inf -> 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // grid (nh * groups): CTA b takes head b % nh and group b / nh, which walks
 // the stages (chunks of 64 / NP windows) group, group + groups, ...;

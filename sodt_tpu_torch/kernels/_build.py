@@ -28,7 +28,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (see the .cu files)
 SIGNATURES = {
     "sodt_gemm_bias": [P, P, P, P, I, I, I, I, I, P],
-    "sodt_window_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    "sodt_window_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
     "sodt_gemm_core": [P] * 5 + [I] * 6 + [P],
     "sodt_global_attention": [P] * 6 + [I] * 7 + [F, P],
     "sodt_swin_block": [P] * 16 + [I] * 9 + [F, P],
@@ -37,12 +37,12 @@ SIGNATURES = {
     "sodt_window_attention_bwd": [P] * 7 + [I] * 7 + [F, I, P],
     "sodt_window_attention_bwd_regs": [P] * 7 + [I] * 7 + [F, I, P],
     "sodt_global_attention_bwd": [P] * 9 + [I] * 7 + [F, P],
-    "sodt_window_attention_tokens": [P, P, P, P, I, I, I, I, I, F, P],
+    "sodt_window_attention_tokens": [P, P, P, P, I, I, I, I, I, F, I, P],
     "sodt_window_attention_tokens_bwd": [P] * 7 + [I] * 5 + [F, I, P],
     "sodt_layernorm": [P, P, P, P, I, I, F, P],
     "sodt_add_layernorm": [P, P, P, P, P, P, I, I, F, P],
-    "sodt_swin_block_q8": [P] * 22 + [I] * 7 + [F, P],
-    "sodt_block_attention_q8": [P] * 15 + [I] * 9 + [F, P],
+    "sodt_swin_block_q8": [P] * 22 + [I] * 7 + [F, I, P],
+    "sodt_block_attention_q8": [P] * 15 + [I] * 9 + [F, I, P],
     "sodt_conv_tail_q8": [P] * 16 + [I] * 7 + [P],
     "sodt_mlp_tail_q8": [P] * 11 + [I] * 6 + [P],
 }

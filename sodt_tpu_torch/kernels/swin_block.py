@@ -37,7 +37,7 @@ from .quant import (conv_gelu_fc2_q8, fc1_halo_q8, gelu_tanh, ln_f32,
                     log_kernel_amax, q8_dot, q8_weights, tail_ws, to_strips)
 from .window_attention import (Replay, _check_cuda, _check_window_args,
                                _require, block_attention_ln_plain,
-                               reference_attention_nhwc,
+                               fwd_groups, reference_attention_nhwc,
                                window_attention_core_nhwc,
                                window_core_supported)
 from ..ops.activations import gelu
@@ -587,8 +587,9 @@ def _launch_swin_block_q8(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1,
     ptrs = [t.data_ptr() for t in (
         x, ln1w, ln1b, wqkv_q, sqkv, bqkv, wp_q, sp, bp, ln2w, ln2b, w1_q, s1,
         b1, w2_q, s2, b2, bias, out, f32ws, bf16ws, amax)]
+    groups = fwd_groups(b * (h // ws) * (w // ws), ws * ws, nh)
     _build.check(_build.library().sodt_swin_block_q8(
-        *ptrs, b, h, w, c, hid, nh, ws, scale_dt, _build.stream_ptr()),
+        *ptrs, b, h, w, c, hid, nh, ws, scale_dt, groups, _build.stream_ptr()),
         "fused_swin_block int8")
     LAUNCHES["swin_block_q8"] += 1
     log_kernel_amax(amax, 4)

@@ -224,7 +224,7 @@ def attention_nhwc_bwd_mirror(qkv, bias, mask, ws: int, nh: int,
     dx, ds = _attention_bwd_windows(
         _to_windows(qkv, ws), bias, mask, (h // ws) * (w // ws), nh, scale,
         _to_windows(gy, ws), rounded)
-    wpi = bwd_stage_windows(n)
+    wpi = stage_windows(n)
     groups = groups or bwd_groups(total, n, nh)
     iters = -(-total // (wpi * groups))
     ds = torch.cat([ds, ds.new_zeros((iters * groups * wpi - total,
@@ -240,6 +240,51 @@ def attention_nhwc_bwd_mirror(qkv, bias, mask, ws: int, nh: int,
     for i in range(1, groups):
         dbias = dbias + slots[i]
     return _from_windows(dx, b, h, w, ws), dbias
+
+
+LOG2E = 1.4426950408889634
+
+
+def attention_qkv_fwd_mirror(qkv, bias, mask, nw: int, nh: int,
+                             scale: float, rounded: bool = True):
+    """The plain mirror of the forward register body (N <= 64,
+    csrc/window_attention_fwd.cuh) on pre-partitioned windows, qkv
+    (W, N, 3C) -> (W, N, C) f32. With `rounded`, the kernel's arithmetic:
+    q times the scale rounded to bf16, the product rounded to bf16;
+    S = q k^T in f32; the bias (+ mask[w mod nw]) added in log2 units;
+    P = 2^(x - max) times 1 / its sum in f32, rounded to bf16 before PV;
+    the output rounded to bf16. Without it, the same formulas in f32
+    throughout (the Pallas forwards on f32 inputs)."""
+    w, n, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // nh
+    rnd = ((lambda x: x.to(torch.bfloat16).float()) if rounded
+           else (lambda x: x))
+    q, k, v = qkv.float().reshape(w, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    q = rnd(q * rnd(torch.tensor(scale, dtype=torch.float32)))
+    x = (torch.matmul(q, k.transpose(-1, -2)) * LOG2E
+         + bias[None].float() * LOG2E)
+    if mask is not None:
+        x = (x.reshape(w // nw, nw, nh, n, n)
+             + mask.float()[None, :, None] * LOG2E).reshape(w, nh, n, n)
+    e = torch.exp2(x - x.amax(dim=-1, keepdim=True))
+    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    out = rnd(torch.matmul(rnd(p), v))
+    return out.transpose(1, 2).reshape(w, n, c)
+
+
+def attention_fwd_mirror(qkv, bias, mask, ws: int, nh: int, scale: float,
+                         shift: int = 0, rounded: bool = True):
+    """`attention_qkv_fwd_mirror` on the ws x ws windows of an
+    unpartitioned (B, H, W, 3C) map, read at ((r + shift) mod H,
+    (c + shift) mod W) and written at (r, c): K5's shifted core, K1 at
+    shift 0. Returns (B, H, W, C) f32."""
+    b, h, w, _ = qkv.shape
+    if shift:
+        qkv = torch.roll(qkv, (-shift, -shift), (1, 2))
+    out = attention_qkv_fwd_mirror(_to_windows(qkv, ws), bias, mask,
+                                   (h // ws) * (w // ws), nh, scale, rounded)
+    return _from_windows(out, b, h, w, ws)
 
 
 def global_attention_bwd_plain(qkv, bias, nh: int, scale: float, gy,
@@ -280,10 +325,11 @@ def _check_cuda(name: str, dtype: torch.dtype, **tensors) -> None:
 
 
 def window_core_supported(n: int, hd: int) -> bool:
-    """The domain of the windowed attention core of
-    csrc/window_attention.cuh (K1, K5's core, K11 forward and backward,
-    K9 above 64 tokens; K9's own body of csrc/window_attention_bwd.cuh
-    takes the same head dims): windows of up to 256 tokens — JAX's own
+    """The domain of the windowed attention core (K1, K5's core, K11
+    forward and backward, K9): the strip bodies of csrc/window_attention.cuh
+    and the register bodies of csrc/window_attention_fwd.cuh and
+    csrc/window_attention_bwd.cuh (N <= 64) take the same head dims.
+    Windows of up to 256 tokens — JAX's own
     gate for K1, K5 and K11, N <= 256 — and head dims that are whole
     16-wide tensor-core tiles, at most 64 (the shared-memory budget at 256
     tokens)."""
@@ -349,15 +395,14 @@ def fused_block_attention(x, wqkv, bqkv, wp, bp, bias, mask, ws: int,
 
     On the H100 the work is bound by operations, most of them in the two
     projections (8*C^2 FLOPs per token against 4*N*C in the windowed core,
-    N=64); the core itself is small and bound by its shared-memory round
-    trips. Design: the qkv GEMM runs on
-    the unrolled map (a per-token product commutes with the roll); the
-    attention kernel, one CTA per (window, head), reads its tokens at
-    ((r + shift) mod H, (c + shift) mod W) — the shift is index arithmetic,
-    no roll is materialized — keeps scores, mask, f32 softmax and P in
-    shared memory and writes the head's output in shifted coordinates; the
-    proj GEMM is a second launch of the same GEMM kernel. Window packing
-    (`_pick_pack`, a TPU MXU-filling trick) is not carried over.
+    N=64). Design: the qkv GEMM runs on the unrolled map (a per-token
+    product commutes with the roll); the attention core is K1's forward
+    body (csrc/window_attention_fwd.cuh, scores in registers at N <= 64)
+    with the shifted addressing: it reads its tokens at ((r + shift) mod H,
+    (c + shift) mod W) — the shift is index arithmetic, no roll is
+    materialized — and writes the head's output in shifted coordinates;
+    the proj GEMM is a second launch of the same GEMM kernel. Window
+    packing (`_pick_pack`, a TPU MXU-filling trick) is not carried over.
 
     int8=True is K12's body (`block_attention_q8_plain` says what it
     computes; `q8` the quantized weights, else quantized here): see
@@ -412,17 +457,19 @@ def _check_window_args(name, b, h, w, nh, ws, bias, mask, shift):
 
 
 def _window_core(qkv, bias, mask, ws, nh, scale, shift, name):
-    """Launch the windowed attention core of csrc/block_attention.cu on an
-    unpartitioned (B, H, W, 3C) qkv map."""
+    """Launch the windowed attention forward of csrc/block_attention.cu
+    (`fwd_body` picks its body) on an unpartitioned (B, H, W, 3C) qkv
+    map."""
     b, h, w, c3 = qkv.shape
     attn = torch.empty(qkv.shape[:-1] + (c3 // 3,), dtype=qkv.dtype,
                        device=qkv.device)
     scale_dt = float(torch.tensor(scale, dtype=qkv.dtype))
+    groups = fwd_groups(b * (h // ws) * (w // ws), ws * ws, nh)
     _build.check(_build.library().sodt_window_attention(
         qkv.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), attn.data_ptr(),
         b, h, w, c3 // 3, nh, ws, shift, int(mask is not None), scale_dt,
-        _build.stream_ptr()), name)
+        groups, _build.stream_ptr()), name)
     return attn
 
 
@@ -567,13 +614,14 @@ def _block_attention_q8_entry(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
     bqkv32, bp32 = bqkv.float().contiguous(), bp.float().contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()
     scale_dt = float(torch.tensor(scale, dtype=x.dtype))
+    groups = fwd_groups(b * (h // ws) * (w // ws), ws * ws, nh)
     _build.check(_build.library().sodt_block_attention_q8(
         x.data_ptr(), ptr(lnw), ptr(lnb), wqkv_q.data_ptr(), sqkv.data_ptr(),
         bqkv32.data_ptr(), wp_q.data_ptr(), sp.data_ptr(), bp32.data_ptr(),
         bias.data_ptr(), ptr(mask), out.data_ptr(), f32ws.data_ptr(),
         bf16ws.data_ptr(), amax.data_ptr(), int(lnw is not None), b, h, w, c,
-        nh, ws, shift, int(mask is not None), scale_dt, _build.stream_ptr()),
-        "fused_block_attention int8")
+        nh, ws, shift, int(mask is not None), scale_dt, groups,
+        _build.stream_ptr()), "fused_block_attention int8")
     log_kernel_amax(amax, 2)
     return out
 
@@ -589,12 +637,21 @@ def fused_window_attention_nhwc(qkv, bias, mask, ws: int, nh: int,
     qkv (B, H, W, 3C) bf16 (already padded/rolled by the caller); bias
     (nh, N, N) f32; mask (nW, N, N) f32 or None. Returns (B, H, W, C).
 
-    On the H100 it is bound by its shared-memory round trips (the f32
-    scores) more than by bytes or operations: 4*N*C FLOPs per token at
-    N <= 256. Design: the kernel K5 launches between its projections
-    (csrc/window_attention.cuh window_attn_kernel, shift 0): one CTA per
-    (head, window), each warp 16 query rows, scores and the f32 softmax in
-    the warp's shared scratch, no window partition copies. Window packing
+    On the H100 it is bound by bytes: 8 * C bytes per token (qkv read, out
+    written) against 4*N*C operations. Two hand-written bodies, chosen by
+    the window's N = ws * ws (`fwd_body`), the core K5 launches between
+    its projections too:
+    - N <= 64 (ws 8 and 4: every configuration of the repo): the register
+      body of csrc/window_attention_fwd.cuh, one CTA per (head, group of
+      windows), `fwd_groups` groups; a two-stage cp.async ring of the
+      head's Q, K, V (+ mask) rows; each warp takes 16 query rows with S
+      and P in registers (mma.sync), P packed to bf16 A fragments for PV,
+      the output staged by stmatrix and stored 16 bytes a lane.
+    - N > 64 (ws 16, no configuration): the strip body of
+      csrc/window_attention.cuh, one CTA per (head, window), scores and
+      the f32 softmax in shared memory.
+    q is scaled in bf16 as in JAX, P rounded to bf16 before PV
+    (`attention_fwd_mirror` mirrors the register body). Window packing
     (`_pick_pack`) is a TPU MXU trick and is not carried over.
     """
     if not qkv.is_cuda:
@@ -629,6 +686,39 @@ class _WindowAttention(torch.autograd.Function):
         return dqkv, dbias, None, None, None, None
 
 
+# ------------------------------------------------- K1, K5, K11 forward rules
+
+FWD_CTAS = 3 * 132  # the forward's register body: the CTAs a launch aims at
+
+
+def fwd_body(n: int) -> str:
+    """The forward's body for windows of n tokens (K1, K5's core, K11's
+    forward, K12's cores): "regs" (n <= 64, every window of the repo's
+    configurations: window_attn_fwd_kernel of csrc/window_attention_fwd.cuh,
+    the scores in registers) or "strips" (n > 64: window_attn_kernel of
+    csrc/window_attention.cuh, the scores in shared memory)."""
+    return "regs" if n <= 64 else "strips"
+
+
+def fwd_groups(total: int, n: int, nh: int) -> int:
+    """Groups of windows (CTAs per head) of the forward over `total`
+    windows of n tokens and nh heads.
+
+    Register body: the launch has nh * groups CTAs, one per (head, group),
+    each walking its group's stages through its cp.async ring, and aims at
+    FWD_CTAS = 3 * 132, one wave of the three CTAs that fit on each of the
+    H100's 132 SMs (their registers: 164-168 a thread at head dims 16 and
+    32), so groups = ceil(FWD_CTAS / nh), at most the number of stages (a
+    CTA takes at least one) and at least 1. On the H100, 264, 528, 660, 792
+    and 1,056 CTAs timed level or up to 1.5x slower than 396
+    (`tools/bench_window_attention_fwd.py --ctas`). Strip body: one CTA per
+    (head, window), `total` (the kernel does not read it)."""
+    if fwd_body(n) == "strips":
+        return total
+    stages = -(-total // stage_windows(n))
+    return max(1, min(stages, -(-FWD_CTAS // nh)))
+
+
 # ---------------------------------------------------------------------- K9
 
 BWD_GROUPS = 128    # CTAs (dbias partials) per head: K11, and K9 at N > 64
@@ -644,9 +734,9 @@ def bwd_body(n: int) -> str:
     return "regs" if n <= 64 else "strips"
 
 
-def bwd_stage_windows(n: int) -> int:
-    """Windows of one 64-row stage of the register body: four at n <= 16
-    (padded to 16 tokens), else one (padded to 64)."""
+def stage_windows(n: int) -> int:
+    """Windows of one 64-row stage of the register bodies (forward and
+    K9): four at n <= 16 (padded to 16 tokens), else one (padded to 64)."""
     return 4 if n <= 16 else 1
 
 
@@ -666,7 +756,7 @@ def bwd_groups(total: int, n: int, nh: int) -> int:
     min(total, BWD_GROUPS)."""
     if bwd_body(n) == "strips":
         return min(total, BWD_GROUPS)
-    stages = -(-total // bwd_stage_windows(n))
+    stages = -(-total // stage_windows(n))
     return max(1, min(stages, -(-BWD_CTAS // nh)))
 
 
@@ -746,13 +836,13 @@ def fused_window_attention(qkv, bias, mask, nw: int, nh: int, scale: float):
     scaled in bf16, scores and softmax f32, P rounded to bf16 before P @ V.
 
     On the H100 its bound is bytes (8 * C bytes per token against 4 * N * C
-    operations, N <= 256); in practice the shared-memory round trips of the
-    f32 scores. Design (csrc/window_attention_tokens.cu): the kernel of K1
-    with another addressing — one CTA per (head, window) reads the window's
-    N contiguous rows with 16-byte loads, each warp takes 16 query rows,
-    scores and the softmax stay in shared memory — so no copy into map
-    layout stands on the path. The TPU kernel's window groups
-    (`_pick_group`, sized to VMEM) are not carried over.
+    operations, N <= 256). Design (csrc/window_attention_tokens.cu): K1's
+    forward with the token addressing — at N <= 64 the register body, one
+    CTA per (head, group of windows, `fwd_groups`) copying each window's N
+    contiguous rows with 16-byte cp.async, scores and P in registers;
+    above, the strip body — so no copy into map layout stands on the path.
+    The TPU kernel's window groups (`_pick_group`, sized to VMEM) are not
+    carried over.
     """
     if not qkv.is_cuda:
         return reference_attention_qkv(qkv, bias, mask, nw, nh, scale)
@@ -791,8 +881,8 @@ class _WindowAttentionTokens(torch.autograd.Function):
         _build.check(_build.library().sodt_window_attention_tokens(
             qkv.data_ptr(), bias.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), w, n,
-            c3 // 3, nh, nw, scale_dt, _build.stream_ptr()),
-            "fused_window_attention")
+            c3 // 3, nh, nw, scale_dt, fwd_groups(w, n, nh),
+            _build.stream_ptr()), "fused_window_attention")
         LAUNCHES["window_attention_tokens"] += 1
         return out
 

@@ -551,6 +551,121 @@ def test_window_attention_bwd_kernel_vs_rounded_mirror(card, b, hw, c, nh, ws, m
     assert _rel(dbias, mb) < MIRROR_DBIAS_TOL
 
 
+# The windowed-attention forward's register body (csrc/window_attention_fwd.cuh,
+# N <= 64: K1, K5's core, K11's forward) against its plain version (TOL) and
+# its rounded mirror (`attention_fwd_mirror`: q scaled and rounded in bf16,
+# the softmax in log2 units, P and the output rounded to bf16), in f32 from
+# the same bf16 inputs: what separates kernel and mirror is the f32
+# summation order and ex2.approx, enough to round an output element or a P
+# the other way (one bf16 step, <= 3.9e-3 of max |ref|): MIRROR_TOL, a
+# quarter of TOL. Head dims 16, 32, 48, 64; ws 3 to 8 (padded keys at 9,
+# 25, 36, 49 tokens; four windows to a stage at ws <= 4, one part-filled at
+# 9 windows); window counts that are no multiple of the groups (125 windows
+# in 88 groups at 6 heads; 75 and 1,024 in 44); the flagship's shapes at
+# batch 4 and 608 px.
+FWD_SHAPES = [(4, 128, 192, 12, 8), (4, 64, 384, 12, 8), (2, 80, 384, 12, 8),
+              (2, 32, 192, 4, 8), (2, 32, 256, 4, 8), (5, 40, 96, 6, 8),
+              (3, 8, 64, 2, 4), (1, 12, 32, 2, 4), (1, 9, 32, 2, 3),
+              (1, 30, 64, 2, 5), (2, 12, 32, 2, 6), (3, 35, 192, 12, 7)]
+
+
+@pytest.mark.parametrize("b,hw,c,nh,ws", FWD_SHAPES)
+@pytest.mark.parametrize("mode", ["plain", "masked", "shifted"])
+def test_window_attention_fwd_regs_kernel(card, b, hw, c, nh, ws, mode):
+    """K1 (unmasked, and masked at shift 0 as the replays call it) and K5's
+    core (`_window_core` with the shift: read at ((r + s) mod H, (c + s)
+    mod W), the wrapping windows included, written at (r, c)) through the
+    register body, against the plain version and the rounded mirror, and
+    bit-equal over two runs."""
+    n = ws * ws
+    assert wa.fwd_body(n) == "regs"
+    qkv = _rnd((b, hw, hw, 3 * c), 60).to(BF)
+    bias = _rnd((nh, n, n), 61)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, ws // 2)).cuda()
+            if mode != "plain" else None)
+    shift = ws // 2 if mode == "shifted" else 0
+    scale = (c // nh) ** -0.5
+    kernels.reset_launches()
+    if shift:
+        run = lambda: wa._window_core(qkv, bias, mask, ws, nh, scale, shift,
+                                      "test")
+    else:
+        run = lambda: wa.fused_window_attention_nhwc(qkv, bias, mask, ws, nh,
+                                                     scale)
+    out = run()
+    rolled = torch.roll(qkv.float(), (-shift, -shift), (1, 2))
+    ref = wa.reference_attention_nhwc(rolled, bias, mask, ws, nh, scale)
+    mir = wa.attention_fwd_mirror(qkv.float(), bias, mask, ws, nh, scale,
+                                  shift=shift)
+    again = run()
+    torch.cuda.synchronize()
+    assert out.dtype == BF and out.shape == ref.shape
+    assert kernels.launches()["window_attention"] == (0 if shift else 2)
+    assert _rel(out, ref) < TOL
+    assert _rel(out, mir) < MIRROR_TOL
+    assert torch.equal(out, again)
+
+
+K11_FWD_SHAPES = [(1024, 64, 96, 3, 256), (256, 64, 192, 6, 64),
+                  (64, 64, 384, 12, 16), (16, 64, 768, 24, 4),
+                  (8, 4, 96, 3, 2), (6, 16, 96, 3, 2), (300, 64, 64, 4, 2),
+                  (10, 36, 96, 2, 5)]
+
+
+@pytest.mark.parametrize("w,n,c,nh,nw", K11_FWD_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_tokens_fwd_vs_rounded_mirror(card, w, n, c, nh, nw,
+                                                       masked):
+    """K11's forward through the register body (the SwinV2 family's four
+    stages at batch 4, scale 1.0; windows of 4, 16 and 36 tokens) against
+    `attention_qkv_fwd_mirror`, window w taking mask[w mod nw]; bit-equal
+    over two runs."""
+    qkv, _, bias, mask, nw = _k11_inputs(w, n, c, nh, nw, masked)
+    assert wa.fwd_body(n) == "regs"
+    out = wa.fused_window_attention(qkv, bias, mask, nw, nh, 1.0)
+    mir = wa.attention_qkv_fwd_mirror(qkv.float(), bias, mask, nw, nh, 1.0)
+    again = wa.fused_window_attention(qkv, bias, mask, nw, nh, 1.0)
+    torch.cuda.synchronize()
+    assert _rel(out, mir) < MIRROR_TOL
+    assert torch.equal(out, again)
+
+
+def _device_kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+def test_forward_bodies_by_kernel_name(card):
+    """The kernels the profiler sees: the register body, with the
+    addressing of each caller, at N <= 64 (K1, K5's shifted core, K11's
+    forward); the strip body at ws 16."""
+    c, nh = 64, 4
+    qkv = _rnd((1, 32, 32, 3 * c), 62).to(BF)
+    mask = torch.from_numpy(shift_attn_mask(32, 32, 8, 4)).cuda()
+    for name, fn in (
+            ("window_attn_fwd_kernel<16, 64, sodt::FwdMap>",
+             lambda: wa.fused_window_attention_nhwc(
+                 qkv, _rnd((nh, 64, 64), 63), None, 8, nh, 0.25)),
+            ("window_attn_fwd_kernel<16, 64, sodt::FwdShiftedMap>",
+             lambda: wa._window_core(qkv, _rnd((nh, 64, 64), 63), mask, 8,
+                                     nh, 0.25, 4, "test")),
+            ("window_attn_fwd_kernel<16, 16, sodt::FwdTokens>",
+             lambda: wa.fused_window_attention(
+                 qkv.reshape(64, 16, 3 * c), _rnd((nh, 16, 16), 64), None,
+                 1, nh, 1.0)),
+            ("window_attn_kernel<sodt::MapWindows>",
+             lambda: wa.fused_window_attention_nhwc(
+                 qkv, _rnd((nh, 256, 256), 65), None, 16, nh, 0.25))):
+        names = _device_kernel_names(fn)
+        assert any(name in k for k in names), (name, names)
+    assert wa.fwd_body(256) == "strips"
+
+
 @pytest.mark.parametrize("b,hw,c,nh,ws", [(1, 8, 64, 4, 8), (2, 32, 768, 12, 32),
                                           (4, 32, 768, 12, 32),
                                           (1, 64, 768, 12, 32),

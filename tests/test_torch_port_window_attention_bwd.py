@@ -116,7 +116,7 @@ def test_bwd_body_by_window_size():
     assert [twa.bwd_body(ws * ws) for ws in (2, 3, 4, 5, 6, 7, 8)] == \
         ["regs"] * 7
     assert twa.bwd_body(256) == "strips" and twa.bwd_body(81) == "strips"
-    assert [twa.bwd_stage_windows(ws * ws) for ws in (2, 4, 5, 8)] == \
+    assert [twa.stage_windows(ws * ws) for ws in (2, 4, 5, 8)] == \
         [4, 4, 1, 1]
 
 
