@@ -9,22 +9,26 @@ the final ok line:
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions
   2. build    nvcc builds the kernels of sodt_tpu_torch/csrc (seconds)
      ptxas    registers, static shared memory and spills of the K8 / K10
-              kernels, of the GEMM core's instantiations (K6, K7), of K9's
-              register body and of the windowed-attention forward's
-              register body (K1, K5's core, K11 forward: head dims 16-64,
-              three addressings) (`nvcc -Xptxas -v`, run beside the
-              build), the dynamic shared memory their launches take, and
-              which instantiation each launch of K6, K7 and of the
-              forward's register body at N 64 runs
+              kernels, of the GEMM core's instantiations (K6, K7, K2's
+              four GEMMs with their two f32-residual epilogues), of the
+              backward's register body (K9 on the map, K11's backward on
+              token windows), of the windowed-attention forward's
+              register body (K1, K5's core, K11 forward, K2's core: head
+              dims 16-64, four addressings) and of the LayerNorm body
+              (K13, K2's LN2 on f32 rows) (`nvcc -Xptxas -v`, run beside
+              the build), the dynamic shared memory their launches take,
+              and which instantiation each launch of K6, K7, K2's chain,
+              the backward's and the forward's register bodies runs
   3. kernels  each kernel vs its plain PyTorch version on the same bf16
               inputs at the shapes its path gives it (batch 2, and the
               paths' batch 4), max |diff| / max |ref| <= 2e-2 (the f32
               dbias of K9 / K10: <= 1e-3), with the kernel's, the plain
               version's and (K1, K8, K9, K10, K11, K13) the library call's
               time, the library call's also as summed device time per call
-              (torch.profiler); K1, K6, K7 and K11's forward also with the
-              summed device time per call of the kernel and of the plain
-              version, their TFLOP/s, and bit-equal over two runs;
+              (torch.profiler); K1, K2, K6, K7 and K11 (forward and
+              backward) also with the summed device time per call of the
+              kernel and of the plain version, their TFLOP/s, and
+              bit-equal over two runs;
               K1 at the 608 px path's shape and at the four shapes of the
               training step's replays; K8 also at the 608 px path's four
               windows; K10 on K8's statistics, as training runs it, and
@@ -224,7 +228,7 @@ TPU_KERNEL = {
     "window_attention": ("K1", "sodt_tpu_torch/csrc/block_attention.cu",
                          "sodt_tpu/pallas/window_attention.py:378",
                          ("608px", "train")),
-    "swin_block": ("K2", "sodt_tpu_torch/csrc/swin_block.cu",
+    "swin_block": ("K2", "sodt_tpu_torch/csrc/swin_block_chain.cu",
                    "sodt_tpu/pallas/swin_block.py:93",
                 ("main",)),
     "block_attention_ln": ("K3", "sodt_tpu_torch/csrc/swin_block.cu",
@@ -371,20 +375,30 @@ def nbytes(*ts) -> int:
 # ------------------------------------------------------------------- ptxas
 
 # the sources of the redesigned kernels (K8, K10; K6 and K7 on the GEMM
-# core; K9's register body, window_attn_bwd_regs_kernel<head dim, N padded>;
-# the forward's register body, window_attn_fwd_kernel<head dim, N padded,
-# addressing>, of K1 and K5's core and of K11's forward): registers, static
-# shared memory and spills as `nvcc -Xptxas -v` reports them
+# core; the backward's register body, window_attn_bwd_regs_kernel<head dim,
+# N padded, addressing>, of K9 and K11's backward; the forward's register
+# body, window_attn_fwd_kernel<head dim, N padded, addressing>, of K1, K5's
+# core, K11's forward and K2's core; K2's chain and the LayerNorm body it
+# runs on f32 rows): registers, static shared memory and spills as
+# `nvcc -Xptxas -v` reports them
 PTXAS_SOURCES = ("global_attention.cu", "global_attention_bwd.cu",
                  "gemm_core.cu", "window_attention_bwd.cu",
-                 "block_attention.cu", "window_attention_tokens.cu")
+                 "block_attention.cu", "window_attention_tokens.cu",
+                 "swin_block_chain.cu", "layernorm.cu")
 # the forward's register body as the paths launch it at N 64 (head dim,
 # addressing of csrc/window_attention_fwd.cuh)
 FWD_LAUNCHES = {"K1 stage 1 (train)": (16, "FwdMap"),
                 "K1 stage 2 (train, 608 px)": (32, "FwdMap"),
                 "K5 core, unshifted": (32, "FwdMap"),
                 "K5 core, shifted": (32, "FwdShiftedMap"),
-                "K11 forward (SwinV2)": (32, "FwdTokens")}
+                "K11 forward (SwinV2)": (32, "FwdTokens"),
+                "K2 core, unshifted (main)": (16, "FwdMap"),
+                "K2 core, shifted (no path)": (16, "FwdRolledMap")}
+# the backward's register body as the paths launch it at N 64 (head dim,
+# addressing of csrc/window_attention.cuh)
+BWD_LAUNCHES = {"K9 stage 1 (train)": (16, "WrMap"),
+                "K9 stage 2 (train)": (32, "WrMap"),
+                "K11 backward (SwinV2 train)": (32, "WrTokens")}
 
 
 def kernel_entry(mangled: str) -> str:
@@ -395,13 +409,25 @@ def kernel_entry(mangled: str) -> str:
     if not k:
         return mangled
     args, rest = [], k.group(2) or ""
-    while rest[:1] == "I" or rest[:2] in ("Li", "NS"):
+    while (rest[:1] in ("I", "f") or rest[:1].isdigit()
+           or rest[:2] in ("Li", "Lb", "NS")):
         if rest[0] == "I":
+            rest = rest[1:]
+        elif rest[0].isdigit():     # a type by its source name
+            m = re.match(r"(\d+)", rest)
+            end = m.end() + int(m.group(1))
+            args.append(rest[m.end():end])
+            rest = rest[end:]
+        elif rest[0] == "f":
+            args.append("float")
             rest = rest[1:]
         elif rest.startswith("Li"):
             m = re.match(r"Li(\d+)E", rest)
             args.append(m.group(1))
             rest = rest[m.end():]
+        elif rest.startswith("Lb"):
+            args.append("true" if rest[2] == "1" else "false")
+            rest = rest[4:]
         else:
             m = re.match(r"NS_(\d+)", rest)
             end = m.end() + int(m.group(1))
@@ -420,7 +446,12 @@ def gemm_core_entry(loader: int, epi: int, n: int) -> str:
 
 GEMM_CORE_LAUNCHES = {"K6 fc1": (0, 0, 1536), "K6 fc2": (0, 2, 384),
                       "K7 fc1": (0, 1, 384), "K7 conv": (1, 0, 384),
-                      "K7 fc2": (0, 2, 384)}
+                      "K7 fc2": (0, 2, 384),
+                      # K2's chain at the flagship's stage 1 (C 192,
+                      # hidden 768): 3 / 4 the f32-residual epilogues
+                      "K2 qkv": (0, 1, 576), "K2 proj + res1 (f32 out)":
+                      (0, 3, 192), "K2 fc1": (0, 0, 768),
+                      "K2 fc2 + res1 (f32 in)": (0, 4, 192)}
 
 
 def start_ptxas(out_dir: Path) -> list:
@@ -480,8 +511,12 @@ def ptxas_report(procs) -> dict:
     # K9 on the training step: head dims 16 and 32 at N 64 (two stages of
     # Q, K, V, dO rows of hd + 8, + the 64 x 72 f32 mask rows when masked;
     # the bf16 P and dS tiles and the output staging rows,
-    # csrc/window_attention_bwd.cuh WrLayout)
-    k9 = [f"window_attn_bwd_regs_kernel<{hd},64>" for hd in (16, 32)]
+    # csrc/window_attention_bwd.cuh WrLayout); K11's backward the same
+    # layout at head dim 32
+    bwd = {k: f"window_attn_bwd_regs_kernel<{hd},64,{a}>"
+           for k, (hd, a) in BWD_LAUNCHES.items()}
+    k9 = [e for k, e in bwd.items() if k.startswith("K9")]
+    k11 = [e for k, e in bwd.items() if k.startswith("K11")]
     k9_smem = {f"{e} mask {m}": 2 * (4 * 64 * (hd + 8) * 2 + m * 64 * 72 * 4)
                + 2 * 64 * 72 * 2 + 64 * (hd + 8) * 2
                for e, hd in zip(k9, (16, 32)) for m in (0, 1)}
@@ -493,7 +528,17 @@ def ptxas_report(procs) -> dict:
     fwd_smem = {f"head dim {hd} mask {m}": 2 * (3 * 64 * (hd + 8) * 2
                                                 + m * 64 * 72 * 4)
                 for hd in (16, 32) for m in (0, 1)}
+    spills = lambda es: sum(kernels.get(e, {}).get("spill_stores", -1)
+                            + kernels.get(e, {}).get("spill_loads", -1)
+                            for e in set(es))
+    k2 = {k: v for k, v in launched.items() if k.startswith("K2")}
+    k2.update({k: v for k, v in fwd.items() if k.startswith("K2")})
+    k2.update({"K2 LN1 (K13's body)": "layernorm_kernel<false,__nv_bfloat16>",
+               "K2 LN2 (f32 rows)": "layernorm_kernel<false,float>"})
     return {"phase": "ptxas", "kernels": kernels,
+            "k2_chain_launches": k2, "k2_chain_spill_bytes": spills(
+                e for k, e in k2.items() if "LN" not in k),
+            "bwd_launches": bwd, "k11_bwd_spill_bytes": spills(k11),
             "fwd_launches": fwd, "fwd_dynamic_smem": fwd_smem,
             "fwd_spill_bytes": sum(
                 kernels.get(e, {}).get("spill_stores", -1)
@@ -595,7 +640,7 @@ def kernel_cases(batch: int) -> list[dict]:
          sb.fused_swin_block, sb.swin_block_plain,
          (x, *ln1, *att, *ln2, *lin, bias, None, ws, nh, scale, 0),
          nbytes(x, *ln1, *att, *ln2, *lin, bias) + nbytes(x),
-         m * (24 * c * c + 4 * n * c), 3)
+         m * (24 * c * c + 4 * n * c), 3, device=True)
     mask = msk(hw, ws, 2)
     case("block_attention_ln", f"({batch},{hw},{hw},{c}) shift 2",
          wa.fused_block_attention_ln, wa.block_attention_ln_plain,
@@ -739,7 +784,7 @@ def kernel_cases(batch: int) -> list[dict]:
                  2 * nbytes(qkv) + nbytes(gy) + 2 * nbytes(bias2)
                  + nbytes(mask), 10 * w2 * n2 * n2 * c2, calls,
                  sdpa_bwd(q11, k11, v11, am, 1.0), (KERNEL_TOL, DBIAS_TOL),
-                 path="swinv2_train")
+                 path="swinv2_train", device=True)
 
     # K13: every LayerNorm of a training step outside a megakernel (calls
     # per step in the comment of PER_STEP), bound by bytes: x read, y

@@ -1,4 +1,4 @@
-// The tensor-core GEMM core of K6 and K7:
+// The tensor-core GEMM core of K6, K7 and K2:
 //
 //   out[m, n] = bf16(epi(sum_k A[m, k] * W[n, k] + b[n]))
 //
@@ -9,6 +9,8 @@
 // the residual), K7 three (fc1, the 2x2 conv as one GEMM over a gathered
 // A + GELU, fc2 + the residual). The hidden activation and f1 go through
 // device memory in bf16, which are the Pallas kernels' own rounding points.
+// K2 (swin_block_chain.cu) runs four of its launches: qkv, the projection
+// with its f32 residual, fc1 and fc2.
 //
 // What bounds it on the H100: operations. At stage 2 of the flagship
 // (M = 16384 tokens, C = 384, hidden 1536) K6 is 38.7 GFLOP, 39 us at the
@@ -37,7 +39,10 @@
 //  * the epilogue stages the f32 accumulators in the ring's shared memory
 //    and writes 16-byte chunks of 8 columns: f32 arithmetic and one bf16
 //    rounding, GC_GELU (+ b, tanh GELU), GC_BIAS (+ b), GC_RESIDUAL
-//    (+ b + r, r read in bf16).
+//    (+ b + r, r read in bf16); and two for K2's f32 residual stream,
+//    which is never rounded: GC_RESIDUAL_OUT_F32 (+ b + r, r read in bf16,
+//    the sum written in f32, no rounding) and GC_RESIDUAL_F32 (+ b + r, r
+//    read in f32, one bf16 rounding).
 // No atomics and no split-K: repeats are bit-equal. The kernel allocates
 // nothing; the wrapper allocates every output and scratch buffer.
 #pragma once
@@ -47,16 +52,24 @@
 namespace sodt {
 
 enum { GC_ROWS = 0, GC_CONV2X2 = 1 };                // A loaders
-enum { GC_GELU = 0, GC_BIAS = 1, GC_RESIDUAL = 2 };  // epilogues
+enum {  // epilogues
+  GC_GELU = 0,
+  GC_BIAS = 1,
+  GC_RESIDUAL = 2,
+  GC_RESIDUAL_OUT_F32 = 3,
+  GC_RESIDUAL_F32 = 4
+};
 
 struct GemmArgs {
   const bf16* A;     // (M, K); GC_CONV2X2: f1 (M, C) with C = K / 4
   const bf16* W;     // (N, K)
   const bf16* bias;  // (N,)
-  const bf16* R;     // (M, N), GC_RESIDUAL only
-  bf16* out;         // (M, N)
+  const bf16* R;     // (M, N), GC_RESIDUAL and GC_RESIDUAL_OUT_F32
+  bf16* out;         // (M, N), but for GC_RESIDUAL_OUT_F32
   int M, N, K;
   int H, Wd;         // GC_CONV2X2: the map's height and width
+  const float* R32;  // (M, N), GC_RESIDUAL_F32
+  float* out32;      // (M, N), GC_RESIDUAL_OUT_F32
 };
 
 // cp.async of 16 bytes to a shared-window address (zero-filled unless pred)
@@ -298,7 +311,8 @@ __global__ void __launch_bounds__(256, (GcLayout<BN, STAGES>::MIN_CTAS))
       *reinterpret_cast<float2*>(st + (r0 + 8 * hr) * L::LDS + j * 8 + 2 * t4) =
           make_float2(acc[j][2 * hr], acc[j][2 * hr + 1]);
   __syncthreads();
-  // 8 columns a thread: 16-byte loads of bias and residual, 16-byte stores
+  // 8 columns a thread: 16-byte loads of bias and a bf16 residual (32-byte
+  // of an f32 one), 16-byte stores (32-byte in f32)
   for (int v = tid; v < BM * NI; v += 256) {
     const int r = v / NI, c = (v % NI) * 8;
     const int row = m0 + r, col = n0 + c;
@@ -308,25 +322,41 @@ __global__ void __launch_bounds__(256, (GcLayout<BN, STAGES>::MIN_CTAS))
     float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
     const uint4 bq = *reinterpret_cast<const uint4*>(p.bias + col);
     const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&bq);
+    const size_t at = (size_t)row * p.N + col;
     uint4 rq = make_uint4(0u, 0u, 0u, 0u);
-    if constexpr (EPI == GC_RESIDUAL)
-      rq = *reinterpret_cast<const uint4*>(p.R + (size_t)row * p.N + col);
+    if constexpr (EPI == GC_RESIDUAL || EPI == GC_RESIDUAL_OUT_F32)
+      rq = *reinterpret_cast<const uint4*>(p.R + at);
     const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&rq);
-    unsigned o[4];
+    float rf[8];
+    if constexpr (EPI == GC_RESIDUAL_F32) {
+      *reinterpret_cast<float4*>(rf) = *reinterpret_cast<const float4*>(p.R32 + at);
+      *reinterpret_cast<float4*>(rf + 4) = *reinterpret_cast<const float4*>(p.R32 + at + 4);
+    }
+    float y[8];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v0 = x[2 * e] + __low2float(b2[e]), v1 = x[2 * e + 1] + __high2float(b2[e]);
       if constexpr (EPI == GC_GELU) {
         v0 = gelu_tanh(v0);
         v1 = gelu_tanh(v1);
-      } else if constexpr (EPI == GC_RESIDUAL) {
+      } else if constexpr (EPI == GC_RESIDUAL || EPI == GC_RESIDUAL_OUT_F32) {
         v0 += __low2float(r2[e]);
         v1 += __high2float(r2[e]);
+      } else if constexpr (EPI == GC_RESIDUAL_F32) {
+        v0 += rf[2 * e];
+        v1 += rf[2 * e + 1];
       }
-      o[e] = pack_bf16(v0, v1);
+      y[2 * e] = v0;
+      y[2 * e + 1] = v1;
     }
-    *reinterpret_cast<uint4*>(p.out + (size_t)row * p.N + col) =
-        make_uint4(o[0], o[1], o[2], o[3]);
+    if constexpr (EPI == GC_RESIDUAL_OUT_F32) {
+      *reinterpret_cast<float4*>(p.out32 + at) = make_float4(y[0], y[1], y[2], y[3]);
+      *reinterpret_cast<float4*>(p.out32 + at + 4) = make_float4(y[4], y[5], y[6], y[7]);
+    } else {
+      *reinterpret_cast<uint4*>(p.out + at) =
+          make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                     pack_bf16(y[6], y[7]));
+    }
   }
 }
 

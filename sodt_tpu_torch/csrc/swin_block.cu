@@ -1,7 +1,9 @@
 // Swin-block megakernels for c <= 256 (flagship stage 1, c = 192):
 //
-//  * K2 swin_window_kernel<true>: the whole block with the linear MLP.
-//    Replaces sodt_tpu/pallas/swin_block.py fused_swin_block
+//  * K2 swin_window_kernel<true>: the whole block with the linear MLP, at
+//    head dims above 64 only (no configuration of the repo; at 64 and
+//    below K2 is the chain of swin_block_chain.cu). Replaces
+//    sodt_tpu/pallas/swin_block.py fused_swin_block
 //    (_mega_kernel): LN1 -> qkv -> W-MSA -> proj -> +x -> LN2 -> fc1 ->
 //    tanh-GELU -> fc2 -> +res. Everything after the attention is per token,
 //    so the cyclic shift folds into the gather/scatter: a shifted linear

@@ -21,7 +21,9 @@
 // rel-pos bias (+ mask) and the softmax stay f32 in its shared scratch; P
 // is rounded to bf16 for PV.
 //
-// Backward, per (window, head), in f32:
+// Backward (the strip body: windows of more than 64 tokens; at N <= 64 the
+// register body of window_attention_bwd.cuh runs, for K9 and K11 alike),
+// per (window, head), in f32:
 //   S = scale * Q K^T + bias (+ mask),  P = softmax(S)
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - rowsum(dP * P))
 //   dQ = scale * dS K,  dK = scale * dS^T Q,  dbias = sum over windows of dS
@@ -117,6 +119,19 @@ struct WrMap {
     const int tr = t / ws;
     return tr * W + t - tr * ws;
   }
+};
+
+// K11's pre-partitioned windows (Wn, n, .) for the register backward (the
+// same interface as WrMap): window win starts at row win * n, its token t
+// sits t rows further, its mask is mask[win mod nw]; one division per
+// window.
+struct WrTokens {
+  int n, nw;
+  __device__ __forceinline__ size_t base(int win, int& widx) const {
+    widx = win % nw;
+    return (size_t)win * n;
+  }
+  __device__ __forceinline__ int offset(int t) const { return t; }
 };
 
 // ------------------------------------------------------------------ forward

@@ -2,11 +2,13 @@
 // (B, H, W, 3C) map. Replaces sodt_tpu/pallas/window_attention.py
 // _bwd_strip_kernel (_pallas_attention_nhwc_bwd, _unpack_dbias). Two bodies,
 // chosen by the window's token count N (the Python wrapper picks the entry):
-//   N <= 64  window_attn_bwd_regs_kernel of window_attention_bwd.cuh: the
-//            scores in registers, five products, the dbias partial held in
-//            registers across a CTA's windows (the flagship's windows of 64);
+//   N <= 64  window_attn_bwd_regs_kernel<., ., WrMap> of
+//            window_attention_bwd.cuh: the scores in registers, five
+//            products, the dbias partial held in registers across a CTA's
+//            windows (the flagship's windows of 64; K11's backward runs
+//            the same body on its token windows);
 //   N > 64   window_attn_bwd_kernel<MapWindows> of window_attention.cuh, the
-//            score strips in shared memory (the body K11's backward runs).
+//            score strips in shared memory.
 // Both hold the formulas and sum dbias in two deterministic passes.
 #include "window_attention_bwd.cuh"
 
@@ -29,16 +31,8 @@ extern "C" int sodt_window_attention_bwd_regs(const void* qkv, const void* gy,
                                               void* part, void* dbias, int B, int H, int W,
                                               int C, int nh, int ws, int has_mask, float scale,
                                               int groups, void* stream) {
-  using namespace sodt;
-  const int n = ws * ws;
-  if (n > 64 || C % nh != 0) return (int)cudaErrorInvalidValue;
-  const WrMap m{H, W, ws, W / ws, (H / ws) * (W / ws)};
-  const int total = B * (H / ws) * (W / ws);
-  if (!has_mask) mask = nullptr;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 16)
-    return dispatch_window_attention_bwd_regs<16>(C / nh, m, qkv, gy, bias, mask, dqkv, part,
-                                                  dbias, total, C, nh, n, scale, groups, st);
-  return dispatch_window_attention_bwd_regs<64>(C / nh, m, qkv, gy, bias, mask, dqkv, part,
-                                                dbias, total, C, nh, n, scale, groups, st);
+  const sodt::WrMap m{H, W, ws, W / ws, (H / ws) * (W / ws)};
+  return sodt::window_attention_bwd_regs(m, qkv, gy, bias, has_mask ? mask : nullptr, dqkv,
+                                         part, dbias, B * (H / ws) * (W / ws), C, nh, ws * ws,
+                                         scale, groups, stream);
 }

@@ -1,5 +1,8 @@
-// K9's backward body for windows of up to 64 tokens, with the scores in
-// registers. Per (window, head), in f32 (the Pallas _bwd_strip_kernel):
+// The windowed attention backward for windows of up to 64 tokens, with the
+// scores in registers: K9 (sodt_tpu/pallas/window_attention.py
+// _bwd_strip_kernel, on the map) and K11's backward (_bwd_kernel, on
+// pre-partitioned windows), the same function term for term. Per (window,
+// head), in f32:
 //   S = scale * Q K^T + bias (+ mask[window mod nW]),  P = softmax(S)
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - rowsum(dP * P))
 //   dQ = scale * dS K,  dK = scale * dS^T Q,  dbias = sum over windows of dS
@@ -38,6 +41,12 @@
 // part[group, head] once (every address one owner: a warp's rows, or at
 // N <= 16 the four slots summed in order), and dbias_reduce_kernel sums the
 // partials in group order: deterministic, no f32 atomics.
+//
+// Two addressings (the template parameter Map, window_attention.cuh), each
+// taking its runtime divisions once per window (`base`) and once per kernel
+// for a thread's token offsets (`offset`), never per 16-byte copy: WrMap
+// (the unpartitioned map at shift 0: K9) and WrTokens (pre-partitioned
+// (Wn, N, 3C) windows, the mask of window w is mask[w mod nw]: K11).
 #pragma once
 
 #include "mma_sync.cuh"
@@ -64,9 +73,9 @@ struct WrLayout {
 // grid (nh * groups): CTA b takes head b % nh and group b / nh, which walks
 // the stages (chunks of 64 / NP windows) group, group + groups, ...;
 // part is the (groups, nh, n, n) f32 dbias scratch; mask may be null
-template <int HD, int NP>
+template <int HD, int NP, class Map>
 __global__ void __launch_bounds__(WR_WARPS * 32)
-window_attn_bwd_regs_kernel(WrMap m, const bf16* __restrict__ qkv,
+window_attn_bwd_regs_kernel(Map m, const bf16* __restrict__ qkv,
                             const bf16* __restrict__ gy, const float* __restrict__ bias,
                             const float* __restrict__ mask, bf16* __restrict__ dqkv,
                             float* __restrict__ part, int C, int nh, int n, float scale,
@@ -390,8 +399,8 @@ window_attn_bwd_regs_kernel(WrMap m, const bf16* __restrict__ qkv,
 
 // part: (groups, nh, n, n) f32 scratch with groups <= ceil(total / (64 /
 // NP)); dbias: (nh, n, n) f32
-template <int HD, int NP>
-inline int launch_window_attention_bwd_regs(const WrMap& m, const void* qkv,
+template <int HD, int NP, class Map>
+inline int launch_window_attention_bwd_regs(const Map& m, const void* qkv,
                                             const void* gy, const void* bias,
                                             const void* mask, void* dqkv, void* part,
                                             void* dbias, int total, int C, int nh, int n,
@@ -400,8 +409,8 @@ inline int launch_window_attention_bwd_regs(const WrMap& m, const void* qkv,
   const size_t smem = WrLayout<HD, NP>::smem_bytes(mask != nullptr);
   const int chunks = (total + WR_ROWS / NP - 1) / (WR_ROWS / NP);
   if (smem > SMEM_MAX || groups < 1 || groups > chunks) return (int)cudaErrorInvalidValue;
-  ensure_smem(window_attn_bwd_regs_kernel<HD, NP>, smem, smem_set);
-  window_attn_bwd_regs_kernel<HD, NP><<<nh * groups, WR_WARPS * 32, smem, stream>>>(
+  ensure_smem(window_attn_bwd_regs_kernel<HD, NP, Map>, smem, smem_set);
+  window_attn_bwd_regs_kernel<HD, NP, Map><<<nh * groups, WR_WARPS * 32, smem, stream>>>(
       m, (const bf16*)qkv, (const bf16*)gy, (const float*)bias, (const float*)mask,
       (bf16*)dqkv, (float*)part, C, nh, n, scale, total, groups);
   int err = (int)cudaGetLastError();
@@ -413,19 +422,36 @@ inline int launch_window_attention_bwd_regs(const WrMap& m, const void* qkv,
 }
 
 // the instantiation for head dim hd (16, 32, 48 or 64)
-template <int NP>
-inline int dispatch_window_attention_bwd_regs(int hd, const WrMap& m, const void* qkv,
+template <int NP, class Map>
+inline int dispatch_window_attention_bwd_regs(int hd, const Map& m, const void* qkv,
                                               const void* gy, const void* bias,
                                               const void* mask, void* dqkv, void* part,
                                               void* dbias, int total, int C, int nh, int n,
                                               float scale, int groups, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_window_attention_bwd_regs<16, NP>(m, qkv, gy, bias, mask, dqkv, part, dbias, total, C, nh, n, scale, groups, stream);
-    case 32: return launch_window_attention_bwd_regs<32, NP>(m, qkv, gy, bias, mask, dqkv, part, dbias, total, C, nh, n, scale, groups, stream);
-    case 48: return launch_window_attention_bwd_regs<48, NP>(m, qkv, gy, bias, mask, dqkv, part, dbias, total, C, nh, n, scale, groups, stream);
-    case 64: return launch_window_attention_bwd_regs<64, NP>(m, qkv, gy, bias, mask, dqkv, part, dbias, total, C, nh, n, scale, groups, stream);
+    case 16: return launch_window_attention_bwd_regs<16, NP, Map>(m, qkv, gy, bias, mask, dqkv, part, dbias, total, C, nh, n, scale, groups, stream);
+    case 32: return launch_window_attention_bwd_regs<32, NP, Map>(m, qkv, gy, bias, mask, dqkv, part, dbias, total, C, nh, n, scale, groups, stream);
+    case 48: return launch_window_attention_bwd_regs<48, NP, Map>(m, qkv, gy, bias, mask, dqkv, part, dbias, total, C, nh, n, scale, groups, stream);
+    case 64: return launch_window_attention_bwd_regs<64, NP, Map>(m, qkv, gy, bias, mask, dqkv, part, dbias, total, C, nh, n, scale, groups, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The register body over `total` windows of n <= 64 tokens: the
+// instantiation for the window's padding (16 or 64 tokens) and the head
+// dim; mask may be null
+template <class Map>
+inline int window_attention_bwd_regs(const Map& m, const void* qkv, const void* gy,
+                                     const void* bias, const void* mask, void* dqkv, void* part,
+                                     void* dbias, int total, int C, int nh, int n, float scale,
+                                     int groups, void* stream) {
+  if (n > 64 || C % nh != 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 16)
+    return dispatch_window_attention_bwd_regs<16>(C / nh, m, qkv, gy, bias, mask, dqkv, part,
+                                                  dbias, total, C, nh, n, scale, groups, st);
+  return dispatch_window_attention_bwd_regs<64>(C / nh, m, qkv, gy, bias, mask, dqkv, part,
+                                                dbias, total, C, nh, n, scale, groups, st);
 }
 
 }  // namespace sodt

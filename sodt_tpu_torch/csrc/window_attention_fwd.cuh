@@ -36,13 +36,15 @@
 // lane. The TPU kernels' strip and pack layout (_pick_pack) is not carried
 // over.
 //
-// Three addressings (the template parameter Addr), each taking its runtime
+// Four addressings (the template parameter Addr), each taking its runtime
 // divisions once per window and once per kernel for a thread's token
 // offsets, never per 16-byte copy: FwdMap (the unpartitioned map at shift
-// 0, K9's WrMap: K1, K12), FwdShiftedMap (read at ((r + s) mod H,
+// 0, K9's WrMap: K1, K12, K2), FwdShiftedMap (read at ((r + s) mod H,
 // (c + s) mod W) and written at (r, c), the wrap a compare-and-subtract:
-// K5) and FwdTokens (pre-partitioned (Wn, N, 3C) windows, the mask of
-// window w is mask[w mod nw]: K11).
+// K5), FwdRolledMap (read AND written at ((r + s) mod H, (c + s) mod W):
+// K2's shifted blocks, whose output then stays in map order) and FwdTokens
+// (pre-partitioned (Wn, N, 3C) windows, the mask of window w is
+// mask[w mod nw]: K11).
 #pragma once
 
 #include "mma_sync.cuh"
@@ -112,6 +114,13 @@ struct FwdShiftedMap {
   __device__ __forceinline__ size_t dst(const Win& w, Tok k) const {
     return w.img + (size_t)(w.r0 + k.tr) * W + w.c0 + k.tc;
   }
+};
+
+// K2's core at a shift: FwdShiftedMap's windows of the rolled map, but each
+// token's output goes back to where its q, k, v were read, so the block's
+// per-token steps around the core need no roll at all.
+struct FwdRolledMap : FwdShiftedMap {
+  __device__ __forceinline__ size_t dst(const Win& w, Tok k) const { return src(w, k); }
 };
 
 // K11: pre-partitioned windows (Wn, n, .): token t of window win is row

@@ -36,8 +36,9 @@ from .layernorm import layernorm, layernorm_plain
 from .quant import (conv_gelu_fc2_q8, fc1_halo_q8, gelu_tanh, ln_f32,
                     log_kernel_amax, q8_dot, q8_weights, tail_ws, to_strips)
 from .window_attention import (Replay, _check_cuda, _check_window_args,
-                               _require, block_attention_ln_plain,
-                               fwd_groups, reference_attention_nhwc,
+                               _require, attention_fwd_mirror,
+                               block_attention_ln_plain, fwd_groups,
+                               reference_attention_nhwc,
                                window_attention_core_nhwc,
                                window_core_supported)
 from ..ops.activations import gelu
@@ -105,6 +106,33 @@ def swin_block_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
     if shift:
         out = torch.roll(out, (shift, shift), (1, 2))
     return out
+
+
+def swin_block_chain_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1,
+                           b1, w2, b2, bias, mask, ws: int, nh: int,
+                           scale: float, shift: int = 0,
+                           res1_rounded: bool = False):
+    """The plain mirror of K2's chain (csrc/swin_block_chain.cu), each launch
+    in f32 with the kernel's rounding points made explicit, in map order:
+    ln1 = bf16(LN(x)); qkv = bf16(ln1 Wqkv^T + bqkv); the attention core
+    as `attention_fwd_mirror` rounds it, on the windows of the map rolled
+    by -shift, its output rolled back; res1 = x + (attn Wp^T + bp) in f32,
+    never rounded; ln2 = bf16(LN(res1)); h1 = bf16(gelu_tanh(ln2 W1^T +
+    b1)); out = bf16(res1 + (h1 W2^T + b2)). Returns (B, H, W, C) f32.
+    `res1_rounded` rounds res1 to bf16 (the control a check of the f32
+    residual must tell apart)."""
+    rnd = lambda z: z.to(torch.bfloat16).float()
+    lin = lambda z, w, b: torch.matmul(z, w.float().t()) + b.float()
+    x = x.float()
+    qkv = rnd(lin(rnd(ln_f32(x, ln1w, ln1b)), wqkv, bqkv))
+    attn = attention_fwd_mirror(qkv, bias, mask, ws, nh, scale, shift)
+    if shift:
+        attn = torch.roll(attn, (shift, shift), (1, 2))
+    res1 = x + lin(attn, wp, bp)
+    if res1_rounded:
+        res1 = rnd(res1)
+    h1 = rnd(gelu_tanh(lin(rnd(ln_f32(res1, ln2w, ln2b)), w1, b1)))
+    return rnd(res1 + lin(h1, w2, b2))
 
 
 def conv_mlp_tail_plain(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
@@ -226,10 +254,20 @@ def megakernel_supported(c: int, nh: int, ws: int) -> bool:
             and (c // nh) % 16 == 0 and ws * ws <= 64)
 
 
+def swin_block_body(c: int, nh: int, ws: int) -> str:
+    """K2's body for a block of width c, nh heads and window ws (inside
+    `megakernel_supported`): "chain" at head dims of at most 64 (every
+    configuration of the repo: the launches of csrc/swin_block_chain.cu on
+    the wgmma GEMM core and the forward's register attention core) or
+    "window" above (swin_window_kernel<true> of csrc/swin_block.cu, one CTA
+    per window)."""
+    return "chain" if c // nh <= 64 else "window"
+
+
 def fused_swin_block(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
                      w2, b2, bias, mask, ws: int, nh: int, scale: float,
                      shift: int = 0, int8: bool = False, q8=None):
-    """The whole Swin block with the linear MLP, one kernel launch.
+    """The whole Swin block with the linear MLP, one counted launch.
 
     Replaces `sodt_tpu/pallas/swin_block.py` `fused_swin_block` (l.294,
     body `_mega_kernel` l.93). x (B, H, W, C) bf16; LN weights (C,) f32;
@@ -239,13 +277,26 @@ def fused_swin_block(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
     the kernel's gather and scatter: a shifted block runs here too (JAX
     sends that case to its XLA composition).
 
-    On the H100 it is bound by operations (24*C^2 FLOPs per token in the
-    four projections). Design: one CTA per window
-    (csrc/swin_block.cu swin_window_kernel<true>): LN1 reads the window's
-    tokens straight from x at their shifted positions; qkv, scores, the
-    attention output, the f32 residual, LN2 and the hidden layer stay in
-    shared memory, and each weight streams through double-buffered 64x64
-    tiles, so only x and the block output touch device memory.
+    Two bodies, chosen by `swin_block_body`:
+    - head dim <= 64 (every configuration): a chain of seven launches
+      from one C entry (csrc/swin_block_chain.cu), all in map order:
+      K13's LN body on x; qkv on the wgmma GEMM core (+ bqkv); the
+      forward's register attention core, which at a shift reads and
+      writes each token at ((r + s) mod H, (c + s) mod W), so no roll is
+      materialized; the projection with res1 = x + (. + bp) written in
+      f32; LN over the f32 res1; fc1 + tanh GELU; fc2 + the f32 res1,
+      rounded once. At the flagship's stage 1 it is bound by bytes (qkv,
+      the hidden and the f32 res1 through device memory: ~0.7 GB a call
+      at batch 4 against 58 GFLOP). `swin_block_chain_plain` mirrors its
+      rounding points; the scratch (ln / attention / ln2 in one bf16
+      buffer, qkv / the hidden in another, res1 in f32) is allocated
+      here.
+    - head dim > 64: one CTA per window (csrc/swin_block.cu
+      swin_window_kernel<true>): LN1 reads the window's tokens straight
+      from x at their shifted positions; qkv, scores, the attention
+      output, the f32 residual, LN2 and the hidden layer stay in shared
+      memory, and each weight streams through double-buffered 64x64
+      tiles, so only x and the block output touch device memory.
 
     int8=True: K12's twin of this body (`swin_block_q8_plain` says what it
     computes; `q8` the quantized weights, else quantized here), for the
@@ -288,14 +339,29 @@ def _launch_swin_block(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1,
     hid = w1.shape[0]
     out = torch.empty_like(x)
     scale_dt = float(torch.tensor(scale, dtype=x.dtype))
-    _build.check(_build.library().sodt_swin_block(
-        x.data_ptr(), ln1w.data_ptr(), ln1b.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), wp.data_ptr(), bp.data_ptr(), ln2w.data_ptr(),
-        ln2b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        b, h, w, c, hid, nh, ws, shift, int(mask is not None), scale_dt,
-        _build.stream_ptr()), "fused_swin_block")
+    ptrs = [t.data_ptr() for t in (x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w,
+                                   ln2b, w1, b1, w2, b2, bias)]
+    ptrs += [None if mask is None else mask.data_ptr(), out.data_ptr()]
+    lib = _build.library()
+    if swin_block_body(c, nh, ws) == "chain":
+        # the chain's launches move 16-byte pieces of every operand
+        _require(all(p % 16 == 0 for p in ptrs if p is not None),
+                 "fused_swin_block: operands must be 16-byte aligned")
+        m = b * h * w
+        ln = torch.empty((m, c), dtype=x.dtype, device=x.device)
+        wide = torch.empty((m, max(3 * c, hid)), dtype=x.dtype,
+                           device=x.device)
+        res1 = torch.empty((m, c), dtype=torch.float32, device=x.device)
+        groups = fwd_groups(b * (h // ws) * (w // ws), ws * ws, nh)
+        err = lib.sodt_swin_block_chain(
+            *ptrs, ln.data_ptr(), wide.data_ptr(), res1.data_ptr(), b, h, w,
+            c, hid, nh, ws, shift, int(mask is not None), scale_dt, groups,
+            _build.stream_ptr())
+    else:
+        err = lib.sodt_swin_block(
+            *ptrs, b, h, w, c, hid, nh, ws, shift, int(mask is not None),
+            scale_dt, _build.stream_ptr())
+    _build.check(err, "fused_swin_block")
     LAUNCHES["swin_block"] += 1
     return out
 

@@ -207,23 +207,20 @@ def attention_nhwc_bwd_plain(qkv, bias, mask, ws: int, nh: int, scale: float,
     return _from_windows(dx, b, h, w, ws), dbias
 
 
-def attention_nhwc_bwd_mirror(qkv, bias, mask, ws: int, nh: int,
-                              scale: float, gy, groups: int | None = None,
-                              rounded: bool = True):
-    """The plain mirror of K9's register body (N <= 64,
-    csrc/window_attention_bwd.cuh): `attention_nhwc_bwd_plain`'s formulas
-    with P rounded to bf16 before dV and dS before dQ and dK (`rounded`),
-    and dbias summed in the kernel's order: each group adds its stages
-    group, group + groups, ... in turn, a stage's window slots (four at
-    N <= 16) in slot order, then the groups in order. `groups` defaults to
-    the wrapper's (`bwd_groups`). Same arguments and results as
-    `attention_nhwc_bwd_plain`."""
-    b, h, w, _ = qkv.shape
-    n = ws * ws
-    total = b * (h // ws) * (w // ws)
-    dx, ds = _attention_bwd_windows(
-        _to_windows(qkv, ws), bias, mask, (h // ws) * (w // ws), nh, scale,
-        _to_windows(gy, ws), rounded)
+def attention_qkv_bwd_mirror(qkv, bias, mask, nw: int, nh: int,
+                             scale: float, gy, groups: int | None = None,
+                             rounded: bool = True):
+    """The plain mirror of the register backward body (N <= 64,
+    csrc/window_attention_bwd.cuh) on pre-partitioned windows (K11's
+    backward): `attention_qkv_bwd_plain`'s formulas with P rounded to bf16
+    before dV and dS before dQ and dK (`rounded`), and dbias summed in the
+    kernel's order: each group adds its stages group, group + groups, ...
+    in turn, a stage's window slots (four at N <= 16) in slot order, then
+    the groups in order. `groups` defaults to the wrapper's (`bwd_groups`).
+    Same arguments and results as `attention_qkv_bwd_plain`."""
+    total, n = qkv.shape[:2]
+    dx, ds = _attention_bwd_windows(qkv, bias, mask, nw, nh, scale, gy,
+                                    rounded)
     wpi = stage_windows(n)
     groups = groups or bwd_groups(total, n, nh)
     iters = -(-total // (wpi * groups))
@@ -239,6 +236,19 @@ def attention_nhwc_bwd_mirror(qkv, bias, mask, ws: int, nh: int,
     dbias = slots[0]
     for i in range(1, groups):
         dbias = dbias + slots[i]
+    return dx, dbias
+
+
+def attention_nhwc_bwd_mirror(qkv, bias, mask, ws: int, nh: int,
+                              scale: float, gy, groups: int | None = None,
+                              rounded: bool = True):
+    """The plain mirror of K9's register body: `attention_qkv_bwd_mirror`
+    on the windows of the map. Same arguments and results as
+    `attention_nhwc_bwd_plain`."""
+    b, h, w, _ = qkv.shape
+    dx, dbias = attention_qkv_bwd_mirror(
+        _to_windows(qkv, ws), bias, mask, (h // ws) * (w // ws), nh, scale,
+        _to_windows(gy, ws), groups, rounded)
     return _from_windows(dx, b, h, w, ws), dbias
 
 
@@ -721,16 +731,16 @@ def fwd_groups(total: int, n: int, nh: int) -> int:
 
 # ---------------------------------------------------------------------- K9
 
-BWD_GROUPS = 128    # CTAs (dbias partials) per head: K11, and K9 at N > 64
-BWD_CTAS = 2 * 132  # K9 at N <= 64: the CTAs a launch aims at (132 SMs)
+BWD_GROUPS = 128    # CTAs (dbias partials) per head: the strip body (N > 64)
+BWD_CTAS = 2 * 132  # the register body (N <= 64): the CTAs a launch aims at
 
 
 def bwd_body(n: int) -> str:
-    """K9's body for windows of n tokens: "regs" (n <= 64, every window of
-    the repo's configurations: window_attn_bwd_regs_kernel of
-    csrc/window_attention_bwd.cuh, the scores in registers) or "strips"
-    (n > 64: window_attn_bwd_kernel of csrc/window_attention.cuh, the
-    score strips in shared memory, the body K11's backward runs)."""
+    """The backward's body for windows of n tokens (K9 and K11's
+    backward): "regs" (n <= 64, every window of the repo's configurations:
+    window_attn_bwd_regs_kernel of csrc/window_attention_bwd.cuh, the
+    scores in registers) or "strips" (n > 64: window_attn_bwd_kernel of
+    csrc/window_attention.cuh, the score strips in shared memory)."""
     return "regs" if n <= 64 else "strips"
 
 
@@ -741,8 +751,9 @@ def stage_windows(n: int) -> int:
 
 
 def bwd_groups(total: int, n: int, nh: int) -> int:
-    """Groups of windows (CTAs per head, dbias partials) of K9 over `total`
-    windows of n tokens and nh heads.
+    """Groups of windows (CTAs per head, dbias partials) of the backward
+    (K9, and K11's on its token windows) over `total` windows of n tokens
+    and nh heads.
 
     Register body: the launch has nh * groups CTAs, one per (head, group),
     and aims at BWD_CTAS = 2 * 132, one wave of the two CTAs that fit on
@@ -780,8 +791,10 @@ def window_attention_bwd(qkv, bias, mask, ws: int, nh: int, scale: float, gy):
       for dV = P^T dO and dK = dS^T Q through ldmatrix.trans: five
       products, no score recomputed. The bias rows sit in registers, and
       the CTA's dbias partial too, written once.
-    - N > 64 (ws 16, no configuration): the strip body K11's backward
-      runs, min(B * nW, 128) groups.
+    - N > 64 (ws 16, no configuration): the strip body of
+      csrc/window_attention.cuh, min(B * nW, 128) groups.
+    K11's backward runs the same two bodies on its token windows
+    (`window_attention_tokens_bwd`).
     The bound is bytes (7 * C * 2 per token against 10 * N * C
     operations). dbias is summed in two deterministic passes (a partial
     per group, each address owned by one thread, then a reduction in
@@ -904,15 +917,23 @@ def window_attention_tokens_bwd(qkv, bias, mask, nw: int, nh: int,
     Returns dqkv (W, N, 3C) bf16 and dbias (nh, N, N) f32 summed over the
     windows.
 
-    The strip body of csrc/window_attention.cuh with the token addressing
-    (where the design is described; K9 runs it only for windows of more
-    than 64 tokens): the f32 scores are scaled by the
-    unrounded `scale`, P and dS are rounded to bf16 before the tensor-core
-    products (the Pallas kernel keeps them in f32), and dbias takes two
-    deterministic passes — a partial per group of windows, then a
-    reduction in group order — where the TPU kernel accumulates across its
-    sequential grid: no f32 atomics, at the price of
-    min(W, 128) * nh * N * N floats of scratch.
+    K9's two bodies with the token addressing, chosen by the window's N
+    (`bwd_body`; csrc/window_attention_tokens.cu):
+    - N <= 64 (every window of the repo's configurations: SwinV2's are 64
+      tokens at head dim 32): K9's register body of
+      csrc/window_attention_bwd.cuh (`WrTokens`: window w's rows are
+      w * N ..., its mask mask[w mod nw]), one CTA per (head, group of
+      windows), `bwd_groups` groups, S / P / dP / dS in registers, five
+      products (`window_attention_bwd` describes it);
+      `attention_qkv_bwd_mirror` mirrors it.
+    - N > 64: the strip body of csrc/window_attention.cuh
+      (`TokenWindows`), min(W, 128) groups.
+    The f32 scores are scaled by the unrounded `scale`, P and dS are
+    rounded to bf16 before the tensor-core products (the Pallas kernel
+    keeps them in f32), and dbias takes two deterministic passes - a
+    partial per group of windows, then a reduction in group order - where
+    the TPU kernel accumulates across its sequential grid: no f32 atomics,
+    at the price of groups * nh * N * N floats of scratch.
     """
     if not qkv.is_cuda:
         return attention_qkv_bwd_plain(qkv, bias, mask, nw, nh, scale, gy)
@@ -922,7 +943,7 @@ def window_attention_tokens_bwd(qkv, bias, mask, nw: int, nh: int,
     w, n, c3 = qkv.shape
     _check_cuda(name, torch.bfloat16, gy=gy)
     _require(tuple(gy.shape) == (w, n, c3 // 3), f"{name}: gy shape")
-    groups = min(w, BWD_GROUPS)
+    groups = bwd_groups(w, n, nh)
     dqkv = torch.empty_like(qkv)
     part = torch.empty((groups, nh, n, n), dtype=torch.float32,
                        device=qkv.device)

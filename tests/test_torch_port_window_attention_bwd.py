@@ -1,7 +1,10 @@
-"""K9's register body (csrc/window_attention_bwd.cuh, windows of up to 64
-tokens) on the CPU: its plain mirror `attention_nhwc_bwd_mirror` against
-the Pallas backward `_pallas_attention_nhwc_bwd` in interpret mode, and the
-wrapper's choice of body and of its group count as plain functions.
+"""The register backward body (csrc/window_attention_bwd.cuh, windows of up
+to 64 tokens) on the CPU, for its two callers: K9 on the map, its plain
+mirror `attention_nhwc_bwd_mirror` against the Pallas backward
+`_pallas_attention_nhwc_bwd` in interpret mode, and K11's backward on
+pre-partitioned windows, `attention_qkv_bwd_mirror` against
+`_pallas_attention_bwd`; and the wrappers' choice of body and of its group
+count as plain functions.
 
 The mirror is the kernel's arithmetic: P rounded to bf16 before dV = P^T
 dO, dS before dQ and dK, dbias summed per group over its stages in order,
@@ -148,4 +151,108 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
     args = (t(qkv), t(bias), t(mask), ws, nh, (c // nh) ** -0.5, t(gy))
     dq, db = twa.window_attention_bwd(*args)
     rq, rb = twa.attention_nhwc_bwd_plain(*args)
+    assert torch.equal(dq, rq) and torch.equal(db, rb)
+
+
+# ----------------------------------------------- K11: pre-partitioned windows
+
+# (windows, N, C, nh, nw): head dims 16 and 32, windows of 16 and 64 tokens,
+# nw > 1 (window w takes mask[w mod nw]), window counts that are no
+# multiple of the group count (5 at 4 windows to a stage, 7 and 12 in
+# 2 and 5 groups)
+K11_SHAPES = [(8, 16, 32, 2, 4), (5, 16, 32, 2, 5), (6, 64, 64, 2, 3),
+              (12, 64, 96, 3, 4)]
+
+
+def _k11_inputs(w, n, c, nh, nw, masked, seed=0):
+    """bf16-valued f32 inputs; a 0 / -100 mask with its diagonal kept (no
+    fully masked row), as the shift mask of a SwinV2 stage."""
+    bf = lambda x: t(x).to(torch.bfloat16).float().numpy()
+    qkv = bf(rand((w, n, 3 * c), 81 + seed))
+    gy = bf(rand((w, n, c), 82 + seed))
+    bias = rand((nh, n, n), 83 + seed)
+    mask = None
+    if masked:
+        mask = np.where(rand((nw, n, n), 84 + seed) > 0.5, -100.0,
+                        0.0).astype(np.float32)
+        for m in mask:
+            np.fill_diagonal(m, 0.0)
+    return qkv, gy, bias, mask, (nw if masked else 1)
+
+
+def _pallas_tokens(qkv, gy, bias, mask, nw, nh, scale):
+    with interpret_mode():
+        pq, pb = jwa._pallas_attention_bwd(
+            j(qkv), j(bias), None if mask is None else j(mask), nw, nh,
+            scale, j(gy))
+    return np.asarray(pq), np.asarray(pb)
+
+
+def _mirror_tokens(qkv, gy, bias, mask, nw, nh, scale, **kw):
+    dq, db = twa.attention_qkv_bwd_mirror(
+        t(qkv), t(bias), None if mask is None else t(mask), nw, nh, scale,
+        t(gy), **kw)
+    return dq.numpy(), db.numpy()
+
+
+@pytest.mark.parametrize("shape", K11_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_tokens_mirror_matches_pallas(shape, masked):
+    """K11's mirror against `_pallas_attention_bwd` in interpret mode:
+    without the rounding the same f32 formulas, 1e-5 of max |ref|; with it
+    dq / dk / dv within the card's KERNEL_TOL and dbias within DBIAS_TOL,
+    and not equal to the unrounded gradients."""
+    w, n, c, nh, nw = shape
+    qkv, gy, bias, mask, nw = _k11_inputs(*shape, masked)
+    scale = (c // nh) ** -0.5
+    pq, pb = _pallas_tokens(qkv, gy, bias, mask, nw, nh, scale)
+    uq, ub = _mirror_tokens(qkv, gy, bias, mask, nw, nh, scale,
+                            rounded=False)
+    mq, mb = _mirror_tokens(qkv, gy, bias, mask, nw, nh, scale)
+    for k in range(3):
+        sl = slice(k * c, (k + 1) * c)
+        assert _rel(uq[..., sl], pq[..., sl]) < 1e-5
+        assert _rel(mq[..., sl], pq[..., sl]) < KERNEL_TOL
+        assert _rel(mq[..., sl], uq[..., sl]) > 1e-6
+    assert _rel(ub, pb) < 1e-5
+    assert _rel(mb, pb) < DBIAS_TOL
+
+
+def test_tokens_mirror_is_the_map_mirror_on_its_windows():
+    """One body, two addressings: K9's mirror on a map is K11's mirror on
+    the map's windows taken out in row-major order, bit for bit (the same
+    windows in the same order give the same dbias sum)."""
+    nh, c, ws = 2, 32, 4
+    qkv, gy, bias, mask = _inputs(nh, c, ws, 2, 8, 16, True, seed=4)
+    scale = (c // nh) ** -0.5
+    mq, mb = _mirror(qkv, gy, bias, mask, ws, nh, scale)
+    win = lambda x: twa._to_windows(t(x), ws).numpy()
+    tq, tb = _mirror_tokens(win(qkv), win(gy), bias, mask, mask.shape[0],
+                            nh, scale)
+    np.testing.assert_array_equal(
+        twa._from_windows(t(tq), 2, 8, 16, ws).numpy(), mq)
+    np.testing.assert_array_equal(tb, mb)
+
+
+def test_tokens_bwd_groups_as_the_wrapper_uses_them():
+    """K11's backward takes `bwd_groups` of its windows: at SwinV2's four
+    stages at batch 4 (1,024 / 256 / 64 / 16 windows of 64 tokens, 3 / 6 /
+    12 / 24 heads) ceil(BWD_CTAS / nh) groups, at most one per window; the
+    strip body above 64 tokens keeps min(windows, BWD_GROUPS)."""
+    ctas = twa.BWD_CTAS
+    got = [twa.bwd_groups(w, 64, nh)
+           for w, nh in ((1024, 3), (256, 6), (64, 12), (16, 24))]
+    assert got == [-(-ctas // 3), -(-ctas // 6), -(-ctas // 12), 11]
+    assert [twa.bwd_body(n) for n in (4, 16, 64, 100, 256)] == \
+        ["regs"] * 3 + ["strips"] * 2
+    assert twa.bwd_groups(300, 100, 2) == twa.BWD_GROUPS
+
+
+def test_tokens_wrapper_on_the_cpu_is_the_plain_version():
+    """On a CPU tensor K11's backward wrapper returns the plain version."""
+    w, n, c, nh, nw = K11_SHAPES[0]
+    qkv, gy, bias, mask, nw = _k11_inputs(w, n, c, nh, nw, True, seed=5)
+    args = (t(qkv), t(bias), t(mask), nw, nh, (c // nh) ** -0.5, t(gy))
+    dq, db = twa.window_attention_tokens_bwd(*args)
+    rq, rb = twa.attention_qkv_bwd_plain(*args)
     assert torch.equal(dq, rq) and torch.equal(db, rb)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of K9 (the windowed-attention backward) and of SDPA's
-backward on the same inputs, on one CUDA card.
+"""Device times of K9 and K11's backward (the windowed-attention backward
+on the map and on pre-partitioned windows) and of SDPA's backward on the
+same inputs, on one CUDA card.
 
     python tools/bench_window_attention_bwd.py [--batch 4] [--iters 50]
         [--ctas 528 264 ...]
@@ -16,10 +17,14 @@ name and power limit (nvidia-smi).
 Cases: the flagship training step's four shapes of K9 at 512 px, stage 1
 (128 x 128 map, c 192, head dim 16) and stage 2 (64 x 64, c 384, head dim
 32), 12 heads, window 8, without and with the shift mask; beside each,
-SDPA's backward with the bias (+ mask) as a bf16 mask (no dbias). `--ctas`
-times K9 once for each value of `BWD_CTAS` (the CTAs a launch of the
-register body aims at; a version without it is timed once). Needs a card;
-exits 1 without one.
+SDPA's backward with the bias (+ mask) as a bf16 mask (no dbias). Then
+K11's backward at the SwinV2 family's four stages at 512 px (1,024 / 256 /
+64 / 16 windows of 64 tokens at batch 4, C 96 / 192 / 384 / 768, 3 / 6 /
+12 / 24 heads, head dim 32, scale 1.0), unmasked and with a 0 / -100 mask
+of the stage's windows, SDPA's backward beside each. `--ctas` times K9 and
+K11 once for each value of `BWD_CTAS` (the CTAs a launch of the register
+body aims at; a version without it is timed once). Needs a card; exits 1
+without one.
 """
 
 from __future__ import annotations
@@ -128,6 +133,44 @@ def main() -> int:
             am = full.to(torch.bfloat16).repeat(b, 1, 1, 1)
             out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
                                                  scale=scale)
+            go = torch.ones_like(out)
+            row = {"case": f"SDPA backward {tag}", "tree": tree,
+                   "label": args.label, "card": name,
+                   **measure(lambda: torch.autograd.grad(
+                       out, (q, k, v), go, retain_graph=True), args.iters)}
+            print(json.dumps(row), flush=True)
+    for nw, c, nh2 in ((256, 96, 3), (64, 192, 6), (16, 384, 12),
+                       (4, 768, 24)):
+        w = b * nw
+        qkv, gy = rnd((w, n, 3 * c)), rnd((w, n, c))
+        bias2 = rnd((nh2, n, n), torch.float32)
+        heads = qkv.reshape(w, n, 3, nh2, c // nh2).permute(2, 0, 3, 1, 4)
+        q, k, v = (t.contiguous().requires_grad_() for t in heads)
+        for masked in (False, True):
+            mask = None
+            if masked:
+                mask = torch.where(rnd((nw, n, n), torch.float32) > 0.5,
+                                   -100.0, 0.0)
+                mask.diagonal(dim1=1, dim2=2).zero_()
+            mnw = nw if masked else 1
+            tag = f"({w},{n},{3 * c}) nh {nh2}" + (" masked" if masked
+                                                   else "")
+            for ct in ctas:
+                if ct is not None:
+                    wa.BWD_CTAS = ct
+                row = {"case": f"K11 backward {tag}", "ctas": ct or default_ctas,
+                       "tree": tree, "label": args.label, "card": name,
+                       **measure(lambda: wa.window_attention_tokens_bwd(
+                           qkv, bias2, mask, mnw, nh2, 1.0, gy), args.iters)}
+                print(json.dumps(row), flush=True)
+            if default_ctas is not None:
+                wa.BWD_CTAS = default_ctas
+            full = bias2[None].repeat(nw, 1, 1, 1)
+            if mask is not None:
+                full = full + mask[:, None]
+            am = full.to(torch.bfloat16).repeat(b, 1, 1, 1)
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                 scale=1.0)
             go = torch.ones_like(out)
             row = {"case": f"SDPA backward {tag}", "tree": tree,
                    "label": args.label, "card": name,
