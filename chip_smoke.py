@@ -10,25 +10,29 @@ the final ok line:
   2. build    nvcc builds the kernels of sodt_tpu_torch/csrc (seconds)
      ptxas    registers, static shared memory and spills of the K8 / K10
               kernels, of the GEMM core's instantiations (K6, K7, K2's
-              four GEMMs with their two f32-residual epilogues), of the
-              backward's register body (K9 on the map, K11's backward on
-              token windows), of the windowed-attention forward's
-              register body (K1, K5's core, K11 forward, K2's core: head
-              dims 16-64, four addressings) and of the LayerNorm body
-              (K13, K2's LN2 on f32 rows) (`nvcc -Xptxas -v`, run beside
-              the build), the dynamic shared memory their launches take,
-              and which instantiation each launch of K6, K7, K2's chain,
-              the backward's and the forward's register bodies runs
+              four GEMMs with their two f32-residual epilogues, K3's two,
+              K4's three), of the backward's register body (K9 on the map,
+              K11's backward on token windows), of the windowed-attention
+              forward's register body (K1, K5's core, K11 forward, K2's
+              and K3's cores: head dims 16-64, four addressings) and of
+              the LayerNorm bodies (K13, K2's LN2 on f32 rows, K4's
+              un-shift + add + LN) (`nvcc -Xptxas -v`, run beside the
+              build), the dynamic shared memory their launches take, and
+              which instantiation each launch of K6, K7, the chains of K2,
+              K3 and K4, the backward's and the forward's register bodies
+              runs
   3. kernels  each kernel vs its plain PyTorch version on the same bf16
               inputs at the shapes its path gives it (batch 2, and the
               paths' batch 4), max |diff| / max |ref| <= 2e-2 (the f32
               dbias of K9 / K10: <= 1e-3), with the kernel's, the plain
               version's and (K1, K8, K9, K10, K11, K13) the library call's
               time, the library call's also as summed device time per call
-              (torch.profiler); K1, K2, K6, K7 and K11 (forward and
-              backward) also with the summed device time per call of the
-              kernel and of the plain version, their TFLOP/s, and
-              bit-equal over two runs;
+              (torch.profiler); K1, K2, K3, K4, K6, K7 and K11 (forward
+              and backward) also with the summed device time per call of
+              the kernel and of the plain version, their TFLOP/s, and
+              bit-equal over two runs; the chains (K2, K3, K4) also with
+              each launch's device time and the bytes bound of the
+              chain's own traffic beside the function's bound;
               K1 at the 608 px path's shape and at the four shapes of the
               training step's replays; K8 also at the 608 px path's four
               windows; K10 on K8's statistics, as training runs it, and
@@ -87,7 +91,9 @@ the final ok line:
               `--task speed` with and without --int8
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
-              device time
+              device time; the forward's time by CUDA events (host gaps
+              included), its summed kernel time, the host's time to issue
+              it and the host's largest ops
      profile_train  the same over one warm training step
      profile_swinv2, profile_swinv2_train  the same two for the SwinV2
               model
@@ -231,10 +237,10 @@ TPU_KERNEL = {
     "swin_block": ("K2", "sodt_tpu_torch/csrc/swin_block_chain.cu",
                    "sodt_tpu/pallas/swin_block.py:93",
                 ("main",)),
-    "block_attention_ln": ("K3", "sodt_tpu_torch/csrc/swin_block.cu",
+    "block_attention_ln": ("K3", "sodt_tpu_torch/csrc/shifted_block_chain.cu",
                            "sodt_tpu/pallas/window_attention.py:690",
                 ("main",)),
-    "conv_mlp_tail": ("K4", "sodt_tpu_torch/csrc/swin_block.cu",
+    "conv_mlp_tail": ("K4", "sodt_tpu_torch/csrc/shifted_block_chain.cu",
                       "sodt_tpu/pallas/swin_block.py:329",
                 ("main",)),
     "block_attention": ("K5", "sodt_tpu_torch/csrc/block_attention.cu",
@@ -343,20 +349,54 @@ def profiled(run, label: str) -> list[dict]:
     return []
 
 
-def device_ms(fn, label: str, iters: int = 5) -> float:
+def device_split(fn, label: str, iters: int = 5) -> tuple[float, dict]:
     """Summed device time of the kernels of one call of `fn`, from
     torch.profiler over `iters` warm calls: the time on the card without
-    the host's share of the call. Where no session recorded a kernel, the
-    CUDA events' time per call (host gaps included), listed under
-    `label` in PROFILER."""
+    the host's share of the call; and its split by kernel name (ms a
+    call). Where no session recorded a kernel, the CUDA events' time per
+    call (host gaps included), listed under `label` in PROFILER, and no
+    split."""
     import torch
     fn()
     torch.cuda.synchronize()
     rows = profiled(lambda: [fn() for _ in range(iters)], label)
     if not rows:
         PROFILER["event_fallbacks"].append(label)
-        return time_ms(fn, iters=iters)
-    return sum(r["device_ms"] for r in rows) / iters
+        return time_ms(fn, iters=iters), {}
+    return (sum(r["device_ms"] for r in rows) / iters,
+            {r["kernel"]: r["device_ms"] / iters for r in rows})
+
+
+def device_ms(fn, label: str, iters: int = 5) -> float:
+    return device_split(fn, label, iters)[0]
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Host time to issue one call of `fn`: the clock stops before the
+    card is waited for, so a call the host holds back reads about its
+    CUDA-event time, and one the card holds back reads less."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / iters
+
+
+def host_ops(fn, top: int = 10) -> list[dict]:
+    """The host's self time of one call of `fn` by op, the `top` largest,
+    from one CPU-only torch.profiler session (which adds its own cost to
+    every op it records)."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return [{"op": e.key[:60], "self_ms": e.self_cpu_time_total / 1e3,
+             "count": e.count} for e in rows[:top]]
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -384,7 +424,8 @@ def nbytes(*ts) -> int:
 PTXAS_SOURCES = ("global_attention.cu", "global_attention_bwd.cu",
                  "gemm_core.cu", "window_attention_bwd.cu",
                  "block_attention.cu", "window_attention_tokens.cu",
-                 "swin_block_chain.cu", "layernorm.cu")
+                 "swin_block_chain.cu", "shifted_block_chain.cu",
+                 "layernorm.cu")
 # the forward's register body as the paths launch it at N 64 (head dim,
 # addressing of csrc/window_attention_fwd.cuh)
 FWD_LAUNCHES = {"K1 stage 1 (train)": (16, "FwdMap"),
@@ -393,7 +434,8 @@ FWD_LAUNCHES = {"K1 stage 1 (train)": (16, "FwdMap"),
                 "K5 core, shifted": (32, "FwdShiftedMap"),
                 "K11 forward (SwinV2)": (32, "FwdTokens"),
                 "K2 core, unshifted (main)": (16, "FwdMap"),
-                "K2 core, shifted (no path)": (16, "FwdRolledMap")}
+                "K2 core, shifted (no path)": (16, "FwdRolledMap"),
+                "K3 core, shifted (main)": (16, "FwdShiftedMap")}
 # the backward's register body as the paths launch it at N 64 (head dim,
 # addressing of csrc/window_attention.cuh)
 BWD_LAUNCHES = {"K9 stage 1 (train)": (16, "WrMap"),
@@ -451,7 +493,11 @@ GEMM_CORE_LAUNCHES = {"K6 fc1": (0, 0, 1536), "K6 fc2": (0, 2, 384),
                       # hidden 768): 3 / 4 the f32-residual epilogues
                       "K2 qkv": (0, 1, 576), "K2 proj + res1 (f32 out)":
                       (0, 3, 192), "K2 fc1": (0, 0, 768),
-                      "K2 fc2 + res1 (f32 in)": (0, 4, 192)}
+                      "K2 fc2 + res1 (f32 in)": (0, 4, 192),
+                      # K3's and K4's chains at the same shapes
+                      "K3 qkv": (0, 1, 576), "K3 proj": (0, 1, 192),
+                      "K4 fc1": (0, 1, 192), "K4 conv": (1, 0, 192),
+                      "K4 fc2 + res1 (f32 in)": (0, 4, 192)}
 
 
 def start_ptxas(out_dir: Path) -> list:
@@ -535,9 +581,15 @@ def ptxas_report(procs) -> dict:
     k2.update({k: v for k, v in fwd.items() if k.startswith("K2")})
     k2.update({"K2 LN1 (K13's body)": "layernorm_kernel<false,__nv_bfloat16>",
                "K2 LN2 (f32 rows)": "layernorm_kernel<false,float>"})
+    k34 = {k: v for k, v in launched.items() if k[:2] in ("K3", "K4")}
+    k34.update({k: v for k, v in fwd.items() if k.startswith("K3")})
+    k34.update({"K3 LN (K13's body)": "layernorm_kernel<false,__nv_bfloat16>",
+                "K4 un-shift + add + LN": "unshift_add_ln_kernel"})
     return {"phase": "ptxas", "kernels": kernels,
             "k2_chain_launches": k2, "k2_chain_spill_bytes": spills(
                 e for k, e in k2.items() if "LN" not in k),
+            "k3_k4_chain_launches": k34, "k3_k4_chain_spill_bytes": spills(
+                k34.values()),
             "bwd_launches": bwd, "k11_bwd_spill_bytes": spills(k11),
             "fwd_launches": fwd, "fwd_dynamic_smem": fwd_smem,
             "fwd_spill_bytes": sum(
@@ -599,17 +651,20 @@ def kernel_cases(batch: int) -> list[dict]:
 
     def case(name, shape, kern, plain, args, nb, fl, calls, lib=None,
              tols=(KERNEL_TOL,), path="main", int8_ops=0, bf16=None,
-             q8=None, device=False):
+             q8=None, device=False, chain_bytes=None):
         """`int8_ops`: s8 operations of the function (K12, whose plain
         version then runs on the same bf16 inputs); `bf16`: the bf16
         kernel at the same shape, timed beside it; `q8`: what
         `q8_readings` needs; `device`: also the kernel's and the plain
         version's summed device time per call from torch.profiler (no host
-        time), and the kernel's bit-equality over two runs."""
+        time), the kernel's split by launch, and its bit-equality over two
+        runs; `chain_bytes`: the bytes a chain of launches moves, each
+        launch reading its inputs and writing its outputs once (K2-K4)."""
         cases.append(dict(name=name, shape=shape, kern=kern, plain=plain,
                           args=args, nbytes=nb, flops=fl, calls=calls,
                           lib=lib, tols=tols, path=path, int8_ops=int8_ops,
-                          bf16=bf16, q8=q8, device=device))
+                          bf16=bf16, q8=q8, device=device,
+                          chain_bytes=chain_bytes))
 
     def sdpa_bwd(q, k, v, am, scale):
         """The backward of SDPA with the same additive bias (no dbias: the
@@ -636,22 +691,30 @@ def kernel_cases(batch: int) -> list[dict]:
     bias = rnd((nh, n, n), 1.0, torch.float32)
     ln1, ln2 = ln(c), ln(c)
     scale = (c // nh) ** -0.5
+    # the chains' own traffic, in (M, C) bf16 maps (f32 res1 counts two):
+    # K2 29 (x twice, ln1 2, qkv 3 + 3, attn 2, res1 2 + 2 + 2, ln2 2,
+    # hidden 4 + 4, out), K3 12 (x, ln 2, qkv 3 + 3, attn 2, out), K4 13 (x,
+    # a, res1 2 + 2, t 2, f1 2, z 2, out); plus the weights once
+    mc2 = m * c * 2
     case("swin_block", f"({batch},{hw},{hw},{c}) shift 0",
          sb.fused_swin_block, sb.swin_block_plain,
          (x, *ln1, *att, *ln2, *lin, bias, None, ws, nh, scale, 0),
          nbytes(x, *ln1, *att, *ln2, *lin, bias) + nbytes(x),
-         m * (24 * c * c + 4 * n * c), 3, device=True)
+         m * (24 * c * c + 4 * n * c), 3, device=True,
+         chain_bytes=29 * mc2 + nbytes(*ln1, *att, *ln2, *lin, bias))
     mask = msk(hw, ws, 2)
     case("block_attention_ln", f"({batch},{hw},{hw},{c}) shift 2",
          wa.fused_block_attention_ln, wa.block_attention_ln_plain,
          (x, *ln1, *att, bias, mask, ws, nh, scale, 2),
          nbytes(x, *ln1, *att, bias, mask) + nbytes(x),
-         m * (8 * c * c + 4 * n * c), 3)
+         m * (8 * c * c + 4 * n * c), 3, device=True,
+         chain_bytes=12 * mc2 + nbytes(*ln1, *att, bias, mask))
     a = rnd((batch, hw, hw, c))
     case("conv_mlp_tail", f"({batch},{hw},{hw},{c}) shift 2",
          sb.fused_conv_mlp_tail, sb.conv_mlp_tail_plain,
          (x, a, *ln2, *conv, 2), nbytes(x, a, *ln2, *conv) + nbytes(x),
-         12 * m * c * c, 3)
+         12 * m * c * c, 3, device=True,
+         chain_bytes=13 * mc2 + nbytes(*ln2, *conv))
 
     # stage 2 (c 384): the LN-outside split, K5 + K6 / K7
     hw, c = 64, 384
@@ -1033,7 +1096,15 @@ def phase_kernels(batch: int) -> list[dict]:
         if cs["lib"] is not None:
             dev["library_device_ms"] = device_ms(cs["lib"], f"{tag} library")
         if cs["device"]:
-            dev["device_ms"] = device_ms(lambda: cs["kern"](*args), tag)
+            dev["device_ms"], split = device_split(lambda: cs["kern"](*args),
+                                                   tag)
+            if cs["chain_bytes"] is not None:
+                # the chain's launches one by one, and the least time of
+                # the bytes they move beside the function's bound_ms
+                dev["launch_device_ms"] = split
+                dev["chain_bytes"] = cs["chain_bytes"]
+                dev["chain_bytes_bound_ms"] = (1e3 * cs["chain_bytes"]
+                                               / HBM_BYTES_PER_S)
             dev["plain_device_ms"] = device_ms(lambda: cs["plain"](*args),
                                                f"{tag} plain")
             dev["tflops"] = cs["flops"] / dev["device_ms"] / 1e9
@@ -1699,6 +1770,12 @@ def _profile_eval(label: str, cfg: str, int8: bool) -> None:
     fwd = lambda: model(x.float() / 255, x.float() / 255)
     with torch.no_grad():
         fwd_ms = time_ms(fwd, iters=5, warmup=1)
+        # the forward's summed kernel time and the host's time to issue it:
+        # where the host launches slower than the card runs, fwd_ms reads
+        # the host
+        fwd_dev = device_ms(fwd, f"{label} forward")
+        fwd_host = host_ms(fwd)
+        fwd_ops = host_ops(fwd)
     step_ms = time_ms(lambda: step(x, x), iters=5, warmup=1)
     wall = []
 
@@ -1713,7 +1790,9 @@ def _profile_eval(label: str, cfg: str, int8: bool) -> None:
     # idle share against the unprofiled step time (the profiler's own host
     # overhead stretches the profiled wall)
     out = {"phase": label, "batch": MAIN_BATCH, "img": 512, "int8": int8,
-           "forward_ms": fwd_ms, "eval_step_ms": step_ms,
+           "forward_ms": fwd_ms, "forward_device_ms": fwd_dev,
+           "forward_host_ms": fwd_host, "forward_host_ops": fwd_ops,
+           "eval_step_ms": step_ms,
            "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
            "port_kernels_ms": ours,
            "idle_share": _idle(busy, step_ms),

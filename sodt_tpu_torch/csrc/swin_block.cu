@@ -1,9 +1,9 @@
-// Swin-block megakernels for c <= 256 (flagship stage 1, c = 192):
+// Swin-block megakernels for c <= 256 at head dims above 64 (no
+// configuration of the repo: at 64 and below K2 is the chain of
+// swin_block_chain.cu, K3 the chain of shifted_block_chain.cu):
 //
-//  * K2 swin_window_kernel<true>: the whole block with the linear MLP, at
-//    head dims above 64 only (no configuration of the repo; at 64 and
-//    below K2 is the chain of swin_block_chain.cu). Replaces
-//    sodt_tpu/pallas/swin_block.py fused_swin_block
+//  * K2 swin_window_kernel<true>: the whole block with the linear MLP.
+//    Replaces sodt_tpu/pallas/swin_block.py fused_swin_block
 //    (_mega_kernel): LN1 -> qkv -> W-MSA -> proj -> +x -> LN2 -> fc1 ->
 //    tanh-GELU -> fc2 -> +res. Everything after the attention is per token,
 //    so the cyclic shift folds into the gather/scatter: a shifted linear
@@ -12,25 +12,14 @@
 //    proj, output in SHIFTED coordinates. Replaces
 //    sodt_tpu/pallas/window_attention.py fused_block_attention_ln
 //    (_block_attn_kernel with the LN).
-//  * K4 conv_tail_kernel: un-shift a on read + residual + LN2 + fc1 + 2x2
-//    conv (zero pad on fc1's output, bottom/right) + tanh-GELU + fc2 +
-//    residual. Replaces sodt_tpu/pallas/swin_block.py fused_conv_mlp_tail
-//    (_conv_tail_kernel).
 //
-// K2/K3: one CTA (8 warps) per window of n <= 64 tokens, padded to 64 rows.
+// One CTA (8 warps) per window of n <= 64 tokens, padded to 64 rows.
 // The window's rows never leave shared memory between the block input and
 // output: LN1 reads x straight from global memory, qkv/attention/proj/LN2/
 // hidden live in shared memory, and every GEMM streams its weight through
 // cta_gemm's double-buffered 64x64 tiles (common.cuh). The hidden layer
 // runs in chunks of HC columns when the whole hidden row block does not
 // fit; fc2's partial sums then accumulate in the f32 residual buffer.
-//
-// K4: one CTA per 4 x 16 output pixels. The 2x2 conv needs fc1 one row
-// below and one column right, so the CTA forms res1 and LN2 and runs fc1
-// on the 5 x 17 halo (85 rows, padded to 96), zeroes fc1 outside the map
-// (the pad on fc1's OUTPUT: fc1(0) != 0), then runs the conv as one GEMM
-// with K = 4C whose A rows for tap (di, dj) are the halo rows shifted by
-// (di, dj) -- contiguous 16-row blocks, no gather copy -- and fc2.
 #include "common.cuh"
 
 namespace sodt {
@@ -167,97 +156,6 @@ swin_window_kernel(const bf16* __restrict__ x, const float* __restrict__ ln1g,
   }
 }
 
-// ------------------------------------------------------------------- K4
-constexpr int CT_R = 4, CT_C = 16;                // output pixels per CTA
-constexpr int CT_HC = CT_C + 1;                   // halo columns
-constexpr int CT_HALO = (CT_R + 1) * CT_HC;       // 85 halo pixels
-constexpr int CT_ROWS = 96;                       // padded to 16-row blocks
-
-__host__ __device__ inline size_t conv_tail_smem(int C) {
-  return (size_t)CT_ROWS * (C + 4) * 4 + (size_t)CT_ROWS * (C + 8) * 2 +
-         (size_t)CT_ROWS * (C + 16) * 2 + GEMM_SMEM;
-}
-
-__global__ void __launch_bounds__(256, 1)
-conv_tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
-                 const float* __restrict__ ln2g, const float* __restrict__ ln2b,
-                 const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-                 const bf16* __restrict__ wct, const bf16* __restrict__ bc,
-                 const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-                 bf16* __restrict__ out, int H, int W, int C, int shift) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldr = C + 4, ldl = C + 8, ldf = C + 16;
-  float* Rs = reinterpret_cast<float*>(smem);
-  bf16* Ls = reinterpret_cast<bf16*>(Rs + CT_ROWS * ldr);   // LN2, then GELU(conv)
-  bf16* Fs = Ls + CT_ROWS * ldl;
-  bf16* wbuf = Fs + CT_ROWS * ldf;
-  float* stage = reinterpret_cast<float*>(wbuf + GEMM_WBUF);
-  float* st = stage + (threadIdx.x >> 5) * 256;
-
-  const int i0 = blockIdx.y * CT_R, j0 = blockIdx.x * CT_C, b = blockIdx.z;
-  auto inside = [&](int q) {
-    return q < CT_HALO && i0 + q / CT_HC < H && j0 + q % CT_HC < W;
-  };
-
-  // res1 = x + a, with a read at its shifted coordinates (the un-shift)
-  const int vpr = C / 8;
-  for (int v = threadIdx.x; v < CT_ROWS * vpr; v += blockDim.x) {
-    const int q = v / vpr, cv = (v % vpr) * 8;
-    float* dst = Rs + q * ldr + cv;
-    if (inside(q)) {
-      const int i = i0 + q / CT_HC, j = j0 + q % CT_HC;
-      const int ai = (i - shift + H) % H, aj = (j - shift + W) % W;
-      uint4 xv = *reinterpret_cast<const uint4*>(x + ((size_t)(b * H + i) * W + j) * C + cv);
-      uint4 av = *reinterpret_cast<const uint4*>(a + ((size_t)(b * H + ai) * W + aj) * C + cv);
-      const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-      const bf16* ae = reinterpret_cast<const bf16*>(&av);
-      for (int e = 0; e < 8; ++e) dst[e] = bf(xe[e]) + bf(ae[e]);
-    } else {
-      for (int e = 0; e < 8; ++e) dst[e] = 0.0f;
-    }
-  }
-  __syncthreads();
-  ln_rows([&](int q, int c) { return Rs[q * ldr + c]; }, CT_ROWS, C, ln2g, ln2b, Ls, ldl);
-  __syncthreads();
-
-  // fc1 over the halo; zero outside the map
-  cta_gemm<6>([&](int tm, int k) -> const bf16* { return Ls + tm * 16 * ldl + k; }, ldl, w1,
-              C, C, C, wbuf, st, [&](int r0, int c0, const float* s, int lane) {
-                for (int e = lane; e < 256; e += 32) {
-                  const int q = r0 + (e >> 4), c = c0 + (e & 15);
-                  Fs[q * ldf + c] =
-                      __float2bfloat16(inside(q) ? s[e] + bf(b1[c]) : 0.0f);
-                }
-              });
-
-  // 2x2 conv: output row block tm (pixel row tm, columns 0..15); tap
-  // t = 2 di + dj reads halo rows starting at (tm + di) * 17 + dj
-  cta_gemm<4>(
-      [&](int tm, int k) -> const bf16* {
-        const int t = k / C, kk = k - t * C;
-        return Fs + ((tm + (t >> 1)) * CT_HC + (t & 1)) * ldf + kk;
-      },
-      ldf, wct, 4 * C, C, 4 * C, wbuf, st, [&](int r0, int c0, const float* s, int lane) {
-        for (int e = lane; e < 256; e += 32) {
-          const int r = r0 + (e >> 4), c = c0 + (e & 15);
-          Ls[r * ldl + c] = __float2bfloat16(gelu_tanh(s[e] + bf(bc[c])));
-        }
-      });
-
-  // fc2 + res1
-  cta_gemm<4>([&](int tm, int k) -> const bf16* { return Ls + tm * 16 * ldl + k; }, ldl, w2,
-              C, C, C, wbuf, st, [&](int r0, int c0, const float* s, int lane) {
-                for (int e = lane; e < 256; e += 32) {
-                  const int r = r0 + (e >> 4), c = c0 + (e & 15);
-                  const int ti = r >> 4, tj = r & 15;
-                  const int i = i0 + ti, j = j0 + tj;
-                  if (i < H && j < W)
-                    out[((size_t)(b * H + i) * W + j) * C + c] = __float2bfloat16(
-                        Rs[(ti * CT_HC + tj) * ldr + c] + (s[e] + bf(b2[c])));
-                }
-              });
-}
-
 }  // namespace sodt
 
 using sodt::bf16;
@@ -300,21 +198,5 @@ extern "C" int sodt_block_attention_ln(const void* x, const void* ln1g, const vo
       (const bf16*)bqkv, (const bf16*)wp, (const bf16*)bp, nullptr, nullptr, nullptr,
       nullptr, nullptr, nullptr, (const float*)bias, (const float*)mask, (bf16*)out, H, W, C,
       0, 1, nh, ws, shift, has_mask, scale);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int sodt_conv_tail(const void* x, const void* a, const void* ln2g,
-                              const void* ln2b, const void* w1, const void* b1,
-                              const void* wct, const void* bc, const void* w2, const void* b2,
-                              void* out, int B, int H, int W, int C, int shift, void* stream) {
-  static int smem_set = 0;
-  const size_t smem = sodt::conv_tail_smem(C);
-  if (smem > sodt::SMEM_MAX) return (int)cudaErrorInvalidValue;
-  sodt::ensure_smem(sodt::conv_tail_kernel, smem, smem_set);
-  dim3 grid((W + sodt::CT_C - 1) / sodt::CT_C, (H + sodt::CT_R - 1) / sodt::CT_R, B);
-  sodt::conv_tail_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)a, (const float*)ln2g, (const float*)ln2b,
-      (const bf16*)w1, (const bf16*)b1, (const bf16*)wct, (const bf16*)bc, (const bf16*)w2,
-      (const bf16*)b2, (bf16*)out, H, W, C, shift);
   return (int)cudaGetLastError();
 }

@@ -34,7 +34,8 @@ SIGNATURES = {
     "sodt_swin_block": [P] * 16 + [I] * 9 + [F, P],
     "sodt_swin_block_chain": [P] * 19 + [I] * 9 + [F, I, P],
     "sodt_block_attention_ln": [P] * 10 + [I] * 8 + [F, P],
-    "sodt_conv_tail": [P] * 11 + [I] * 5 + [P],
+    "sodt_block_attention_ln_chain": [P] * 12 + [I] * 8 + [F, I, P],
+    "sodt_conv_tail_chain": [P] * 14 + [I] * 5 + [P],
     "sodt_window_attention_bwd": [P] * 7 + [I] * 7 + [F, I, P],
     "sodt_window_attention_bwd_regs": [P] * 7 + [I] * 7 + [F, I, P],
     "sodt_global_attention_bwd": [P] * 9 + [I] * 7 + [F, P],

@@ -1,6 +1,6 @@
-"""Swin-block kernels: the megakernels K2 (whole linear block) and K4 (conv
-tail with the un-shift, residual and LN2), and the LN-free MLP tails K6
-(linear) and K7 (conv).
+"""Swin-block kernels: K2 (the whole linear block) and K4 (the conv tail
+with the un-shift, residual and LN2), each a chain of launches, and the
+LN-free MLP tails K6 (linear) and K7 (conv).
 
 Counterpart of `sodt_tpu/pallas/swin_block.py`:
 
@@ -135,6 +135,30 @@ def swin_block_chain_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1,
     return rnd(res1 + lin(h1, w2, b2))
 
 
+def conv_tail_chain_plain(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
+                          shift: int = 0, res1_rounded: bool = False):
+    """The plain mirror of K4's chain (csrc/shifted_block_chain.cu), each
+    launch in f32 with the kernel's rounding points made explicit: res1 =
+    x + roll(a, (+shift, +shift)) in f32, never rounded; t = bf16(LN(res1));
+    f1 = bf16(t W1^T + b1); z = bf16(gelu_tanh(conv2x2(f1) + bc)) with f1
+    zero-padded at the bottom and right (`conv2x2_taps_gemm_plain`, the
+    conv launch's gather); out = bf16(res1 + (z W2^T + b2)). wc in the
+    kernels' (out, 2, 2, in) layout. Returns (B, H, W, C) f32.
+    `res1_rounded` rounds res1 to bf16 (the control a check of the f32
+    residual must tell apart)."""
+    rnd = lambda z: z.to(torch.bfloat16).float()
+    lin = lambda z, w, b: torch.matmul(z, w.float().t()) + b.float()
+    a = a.float()
+    if shift:
+        a = torch.roll(a, (shift, shift), (1, 2))
+    res1 = x.float() + a
+    if res1_rounded:
+        res1 = rnd(res1)
+    f1 = rnd(lin(rnd(ln_f32(res1, ln2w, ln2b)), w1, b1))
+    z = rnd(gelu_tanh(conv2x2_taps_gemm_plain(f1, wc.float(), bc.float())))
+    return rnd(res1 + lin(z, w2, b2))
+
+
 def conv_mlp_tail_plain(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
                         shift: int = 0, dispatch: bool = False):
     """K4's plain version: `_compose_conv_tail` (l.468) on
@@ -246,21 +270,25 @@ def conv_mlp_tail_noln_q8_plain(r, y, w1, b1, wc, bc, w2, b2, q8=None):
 # ----------------------------------------------------------------- kernels
 
 def megakernel_supported(c: int, nh: int, ws: int) -> bool:
-    """The domain of csrc/swin_block.cu (K2, K3, K4): c <= 256, JAX's own
-    gate for its megakernels (at c = 256 K4 takes 224 of the 227 KB of
-    shared memory a CTA may have); head dims of whole 16-wide tensor-core
-    tiles; windows of at most 64 tokens (one CTA holds a window)."""
+    """The domain of K2, K3 and K4 (csrc/swin_block_chain.cu,
+    csrc/shifted_block_chain.cu, and csrc/swin_block.cu at head dims above
+    64): c <= 256, JAX's own gate for its megakernels; head dims of whole
+    16-wide tensor-core tiles; windows of at most 64 tokens (one CTA of
+    swin_block.cu holds a window, the register attention core takes at
+    most 64 tokens)."""
     return (c <= 256 and c % 16 == 0 and c % nh == 0
             and (c // nh) % 16 == 0 and ws * ws <= 64)
 
 
 def swin_block_body(c: int, nh: int, ws: int) -> str:
-    """K2's body for a block of width c, nh heads and window ws (inside
-    `megakernel_supported`): "chain" at head dims of at most 64 (every
-    configuration of the repo: the launches of csrc/swin_block_chain.cu on
+    """K2's and K3's body for a block of width c, nh heads and window ws
+    (inside `megakernel_supported`): "chain" at head dims of at most 64
+    (every configuration of the repo: the launches of
+    csrc/swin_block_chain.cu, K2, or csrc/shifted_block_chain.cu, K3, on
     the wgmma GEMM core and the forward's register attention core) or
-    "window" above (swin_window_kernel<true> of csrc/swin_block.cu, one CTA
-    per window)."""
+    "window" above (swin_window_kernel<true> / <false> of
+    csrc/swin_block.cu, one CTA per window). K4's chain takes every
+    width."""
     return "chain" if c // nh <= 64 else "window"
 
 
@@ -376,13 +404,18 @@ def fused_conv_mlp_tail(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
     (i - shift, j - shift); LN2 weights (C,) f32; w1, w2 (C, C), wc
     (C, 2, 2, C) and the biases bf16.
 
-    On the H100 it is bound by operations (12*C^2 FLOPs per token in fc1,
-    the four conv taps and fc2). Design: one CTA per 4 x 16 output pixels
-    (csrc/swin_block.cu conv_tail_kernel) forms res1 and LN2 on the
-    5 x 17 halo, runs fc1 there and zeroes it outside the map (the pad on
-    fc1's OUTPUT), then runs the conv as one GEMM with K = 4C whose A rows
-    are the halo rows shifted by each tap, and fc2 with the residual: only
-    x, a and the output touch device memory.
+    Design: a chain of four launches from one C entry
+    (csrc/shifted_block_chain.cu), all in map order: one per-token pass
+    forms res1 = x + a read at ((i - shift) mod H, (j - shift) mod W) in
+    f32, writes it in f32 and writes LN2(res1) in bf16 (csrc/layernorm.cu);
+    fc1 (+ b1) on the wgmma GEMM core writes f1 in bf16; the 2x2 conv as
+    one GEMM with K = 4C over f1's gathered 2x2 window, a tap below the
+    last row or right of the last column reading zeros (the pad on fc1's
+    OUTPUT, JAX's zeroed last-strip halo), + bc and the tanh GELU; fc2 +
+    b2 + the f32 res1, rounded once. At the flagship's stage 1 it is bound
+    by bytes (~0.33 GB a call at batch 4 against 29 GFLOP).
+    `conv_tail_chain_plain` mirrors its rounding points; the scratch (res1
+    in f32; LN2, then z; f1) is allocated here.
 
     int8=True: K12's twin (`conv_mlp_tail_q8_plain`; `_conv_tail_q8`).
     """
@@ -413,11 +446,18 @@ def _compose_conv_tail(*args):
 def _launch_conv_tail(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2, shift):
     b, h, w, c = x.shape
     out = torch.empty_like(x)
-    _build.check(_build.library().sodt_conv_tail(
-        x.data_ptr(), a.data_ptr(), ln2w.data_ptr(), ln2b.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), wc.data_ptr(), bc.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, h, w, c, shift,
-        _build.stream_ptr()), "fused_conv_mlp_tail")
+    ptrs = [t.data_ptr() for t in (x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
+                                   out)]
+    # the chain's launches move 16-byte pieces of every operand
+    _require(all(p % 16 == 0 for p in ptrs),
+             "fused_conv_mlp_tail: operands must be 16-byte aligned")
+    m = b * h * w
+    res1 = torch.empty((m, c), dtype=torch.float32, device=x.device)
+    t, f1 = (torch.empty((m, c), dtype=x.dtype, device=x.device)
+             for _ in range(2))
+    _build.check(_build.library().sodt_conv_tail_chain(
+        *ptrs, res1.data_ptr(), t.data_ptr(), f1.data_ptr(), b, h, w, c,
+        shift, _build.stream_ptr()), "fused_conv_mlp_tail")
     LAUNCHES["conv_mlp_tail"] += 1
     return out
 

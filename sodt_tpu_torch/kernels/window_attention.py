@@ -297,6 +297,25 @@ def attention_fwd_mirror(qkv, bias, mask, ws: int, nh: int, scale: float,
     return _from_windows(out, b, h, w, ws)
 
 
+def block_attention_ln_chain_plain(x, lnw, lnb, wqkv, bqkv, wp, bp, bias,
+                                   mask, ws: int, nh: int, scale: float,
+                                   shift: int = 0, core_rounded: bool = True):
+    """The plain mirror of K3's chain (csrc/shifted_block_chain.cu), each
+    launch in f32 with the kernel's rounding points made explicit, in map
+    order: ln = bf16(LN(x)); qkv = bf16(ln Wqkv^T + bqkv); the attention
+    core as `attention_fwd_mirror` rounds it, read at ((r + shift) mod H,
+    (c + shift) mod W) and written at (r, c); out = bf16(attn Wp^T + bp).
+    Returns (B, H, W, C) f32 in SHIFTED coordinates, as JAX's kernel.
+    `core_rounded=False` keeps q * scale, P and the attention output in f32
+    (the control a check of the core's rounding points must tell apart)."""
+    rnd = lambda z: z.to(torch.bfloat16).float()
+    lin = lambda z, w, b: torch.matmul(z, w.float().t()) + b.float()
+    qkv = rnd(lin(rnd(ln_f32(x.float(), lnw, lnb)), wqkv, bqkv))
+    attn = attention_fwd_mirror(qkv, bias, mask, ws, nh, scale, shift,
+                                core_rounded)
+    return rnd(lin(attn, wp, bp))
+
+
 def global_attention_bwd_plain(qkv, bias, nh: int, scale: float, gy,
                                ws: int | None = None, mask=None):
     """K10's plain version (`_global_chunk_grads` and the two kernels that
@@ -489,7 +508,7 @@ def fused_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
                              ws: int, nh: int, scale: float, shift: int = 0,
                              int8: bool = False, q8=None):
     """LN1 + qkv projection + (shifted) W-MSA + output projection, one
-    kernel launch.
+    counted launch.
 
     Replaces `sodt_tpu/pallas/window_attention.py` `fused_block_attention_ln`
     (l.690, body `_block_attn_kernel` l.491 with the LN). x (B, H, W, C)
@@ -497,11 +516,21 @@ def fused_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
     coordinates, as in JAX; `swin_block.fused_conv_mlp_tail` un-shifts it
     while reading.
 
-    On the H100 it is bound by operations (the two projections). Design:
-    one CTA per window (csrc/swin_block.cu swin_window_kernel<false>): LN1
-    reads the window's tokens straight from x at their shifted positions,
-    and the normed rows, qkv, scores and the attention output stay in
-    shared memory; only x and the projected output touch device memory.
+    Two bodies, chosen by `swin_block.swin_block_body` (as K2's):
+    - head dim <= 64 (every configuration): a chain of four launches from
+      one C entry (csrc/shifted_block_chain.cu): K13's LN body on x; qkv on
+      the wgmma GEMM core (+ bqkv); the forward's register attention core,
+      which at a shift reads each token at ((r + s) mod H, (c + s) mod W)
+      and writes it at (r, c) (`FwdShiftedMap`, K5's core); the projection
+      (+ bp), per token, so it writes in shifted order too. Bound by bytes
+      at the flagship's stage 1 (~0.30 GB a call at batch 4 against 22.5
+      GFLOP). `block_attention_ln_chain_plain` mirrors its rounding
+      points; the scratch (ln, then the attention output; qkv) is
+      allocated here.
+    - head dim > 64: one CTA per window (csrc/swin_block.cu
+      swin_window_kernel<false>): LN1 reads the window's tokens straight
+      from x at their shifted positions, and the normed rows, qkv, scores
+      and the attention output stay in shared memory.
     Domain: `swin_block.megakernel_supported`. int8=True: K12's body, as
     for `fused_block_attention`, with the LN.
     """
@@ -528,15 +557,29 @@ def fused_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
 
 def _launch_block_attention_ln(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
                                ws, nh, scale, shift):
+    from .swin_block import swin_block_body
     b, h, w, c = x.shape
     out = torch.empty_like(x)
     scale_dt = float(torch.tensor(scale, dtype=x.dtype))
-    _build.check(_build.library().sodt_block_attention_ln(
-        x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), wp.data_ptr(), bp.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        b, h, w, c, nh, ws, shift, int(mask is not None), scale_dt,
-        _build.stream_ptr()), "fused_block_attention_ln")
+    ptrs = [t.data_ptr() for t in (x, lnw, lnb, wqkv, bqkv, wp, bp, bias)]
+    ptrs += [None if mask is None else mask.data_ptr(), out.data_ptr()]
+    lib = _build.library()
+    if swin_block_body(c, nh, ws) == "chain":
+        # the chain's launches move 16-byte pieces of every operand
+        _require(all(p % 16 == 0 for p in ptrs if p is not None),
+                 "fused_block_attention_ln: operands must be 16-byte aligned")
+        m = b * h * w
+        ln = torch.empty((m, c), dtype=x.dtype, device=x.device)
+        qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
+        groups = fwd_groups(b * (h // ws) * (w // ws), ws * ws, nh)
+        err = lib.sodt_block_attention_ln_chain(
+            *ptrs, ln.data_ptr(), qkv.data_ptr(), b, h, w, c, nh, ws, shift,
+            int(mask is not None), scale_dt, groups, _build.stream_ptr())
+    else:
+        err = lib.sodt_block_attention_ln(
+            *ptrs, b, h, w, c, nh, ws, shift, int(mask is not None),
+            scale_dt, _build.stream_ptr())
+    _build.check(err, "fused_block_attention_ln")
     LAUNCHES["block_attention_ln"] += 1
     return out
 

@@ -340,6 +340,125 @@ def test_swin_block_bodies_by_kernel_name(card):
     assert _rel(out, ref) < TOL
 
 
+# K3's and K4's chains (csrc/shifted_block_chain.cu) against their rounded
+# mirrors `block_attention_ln_chain_plain` and `conv_tail_chain_plain`, in
+# f32 from the same bf16 inputs, to K2_CHAIN_L2, as K2's chain: the mirrors
+# hold the Pallas kernels to 2e-4 relative L2 on the CPU
+# (tests/test_torch_port_block_chains.py), and the kernels' GEMM summation
+# order and ex2.approx move a few elements by one bf16 step. Each mirror's
+# control (K3: the core's q * scale, P and output kept in f32; K4: res1
+# rounded to bf16) reads ~3e-3 and must stay above the bound.
+SHIFTED_SHAPES = [(4, 128, 192, 12), (4, 152, 192, 12), (2, 32, 128, 4),
+                  (2, 24, 64, 1)]
+
+
+def _check_chain(fn, mirror, plain, args, counter, control_kw):
+    """The chain's output against its mirror by relative L2 over the map
+    and over its wrapping last window row and column, against the f32
+    plain version by max |diff| (TOL); the control above the bound;
+    bit-equal over two runs, one counted launch a call."""
+    ws = 8
+    kernels.reset_launches()
+    out = fn(*args)
+    again = fn(*args)
+    mir = mirror(*args)
+    control = mirror(*args, **control_kw)
+    ref = plain(*[a.float() if torch.is_tensor(a) and a.dtype == BF else a
+                  for a in args])
+    torch.cuda.synchronize()
+    assert out.dtype == BF and out.shape == args[0].shape
+    assert kernels.launches()[counter] == 2
+    assert _rel(out, ref) < TOL
+    assert _rel_l2_of(out, mir) < K2_CHAIN_L2
+    for edge in ((slice(None), slice(-ws, None)),
+                 (slice(None), slice(None), slice(-ws, None))):
+        assert _rel_l2_of(out[edge], mir[edge]) < K2_CHAIN_L2
+    assert _rel_l2_of(control, mir) > K2_CHAIN_L2
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("b,hw,c,nh", SHIFTED_SHAPES)
+@pytest.mark.parametrize("shift", [0, 2])
+def test_block_attention_ln_chain_vs_mirror(card, b, hw, c, nh, shift):
+    """K3 through the chain at the flagship's stage 1 at 512 and 608 px and
+    at two small shapes (head dims 16, 32, 64), at shift 0 and at shift 2
+    with the mask (the core reads at ((r + 2) mod H, (c + 2) mod W) and
+    writes at (r, c): the output in shifted coordinates)."""
+    ws = 8
+    assert sb.swin_block_body(c, nh, ws) == "chain"
+    wt = _block_weights(c, 90)
+    x = _rnd((b, hw, hw, c), 91).to(BF)
+    bias = _rnd((nh, 64, 64), 92)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
+            if shift else None)
+    _check_chain(wa.fused_block_attention_ln, wa.block_attention_ln_chain_plain,
+                 wa.block_attention_ln_plain,
+                 (x, *wt["ln1"], *wt["att"], bias, mask, ws, nh,
+                  (c // nh) ** -0.5, shift), "block_attention_ln",
+                 {"core_rounded": False})
+
+
+@pytest.mark.parametrize("b,hw,c,nh", SHIFTED_SHAPES)
+@pytest.mark.parametrize("shift", [0, 2])
+def test_conv_tail_chain_vs_mirror(card, b, hw, c, nh, shift):
+    """K4 through the chain at the same shapes: a read at ((i - 2) mod H,
+    (j - 2) mod W) (the un-shift), the conv's zero taps below the last row
+    and right of the last column, res1 in f32 from its sum to fc2."""
+    wt = _block_weights(c, 93)
+    x = _rnd((b, hw, hw, c), 94).to(BF)
+    a = _rnd((b, hw, hw, c), 95).to(BF)
+    _check_chain(sb.fused_conv_mlp_tail, sb.conv_tail_chain_plain,
+                 sb.conv_mlp_tail_plain,
+                 (x, a, *wt["ln2"], *wt["conv"], shift), "conv_mlp_tail",
+                 {"res1_rounded": True})
+
+
+def test_shifted_block_chains_by_kernel_name(card):
+    """The kernels the profiler sees in a K3 and a K4 call at head dim 16
+    and shift 4: K13's LN body, the GEMM core and the register attention
+    core with K5's addressing (FwdShiftedMap) for K3; the un-shift add +
+    LN pass, the GEMM core and its conv gather (loader 1) for K4; no
+    kernel of csrc/swin_block.cu. swin_window_kernel<false> at head dim
+    128, which the chain does not take, still held to the plain version."""
+    c, nh, ws, hw = 64, 4, 8, 16
+    wt = _block_weights(c, 96)
+    x = _rnd((1, hw, hw, c), 97).to(BF)
+    bias = _rnd((nh, 64, 64), 98)
+    mask = torch.from_numpy(shift_attn_mask(hw, hw, ws, 4)).cuda()
+    parts = ("layernorm_kernel", "gemm_core_kernel<0, 1, 96",
+             "window_attn_fwd_kernel<16, 64, sodt::FwdShiftedMap>")
+    names = _device_kernel_names(
+        lambda: wa.fused_block_attention_ln(x, *wt["ln1"], *wt["att"], bias,
+                                            mask, ws, nh, 0.25, 4), *parts)
+    for part in parts:
+        assert any(part in k for k in names), (part, names)
+    assert not any("swin_window_kernel" in k for k in names)
+    parts = ("unshift_add_ln_kernel", "gemm_core_kernel<0, 1, 96",
+             "gemm_core_kernel<1, 0, 96", "gemm_core_kernel<0, 4, 96")
+    names = _device_kernel_names(
+        lambda: sb.fused_conv_mlp_tail(x, x, *wt["ln2"], *wt["conv"], 4),
+        *parts)
+    for part in parts:
+        assert any(part in k for k in names), (part, names)
+    assert not any("conv_tail" in k for k in names)
+    c, nh = 256, 2
+    assert sb.swin_block_body(c, nh, ws) == "window"
+    wt = _block_weights(c, 99)
+    x = _rnd((1, hw, hw, c), 100).to(BF)
+    bias = _rnd((nh, 64, 64), 101)
+    args = (x, *wt["ln1"], *wt["att"], bias, mask, ws, nh, (c // nh) ** -0.5,
+            4)
+    names = _device_kernel_names(lambda: wa.fused_block_attention_ln(*args),
+                                 "swin_window_kernel<false>")
+    assert any("swin_window_kernel<false>" in k for k in names), names
+    out = wa.fused_block_attention_ln(*args)
+    ref = wa.block_attention_ln_plain(*[a.float() if torch.is_tensor(a)
+                                        and a.dtype == BF else a
+                                        for a in args])
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < TOL
+
+
 def test_wrappers_raise_on_cuda_f32(card):
     x = _rnd((1, 16, 16, 32), 1)
     with pytest.raises(ValueError, match="bfloat16"):

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Device times of K2 (the whole Swin block with the linear MLP) and of its
-bf16 PyTorch composition, on one CUDA card, with the kernel's time split by
-the kernels it launches.
+"""Device times of the stage-1 Swin block kernels, K2 (the whole block with
+the linear MLP), K3 (LN1 + shifted attention + projection) and K4 (the
+un-shift, residual, LN2 and conv MLP tail), and of their bf16 PyTorch
+compositions, on one CUDA card, with each kernel's time split by the
+kernels it launches.
 
     python tools/bench_swin_block.py [--batch 4] [--iters 30] [--label x]
 
@@ -9,17 +11,20 @@ Run from the root of a checkout (or with PYTHONPATH pointing at one, to
 time another version of `sodt_tpu_torch` in the same call: unpack it with
 `git archive` under `build/`). For each case it prints one JSON line: the
 device time per call summed over the CUDA kernels that torch.profiler
-records (`device_us`, and by kernel name `kernels_us`: the chain's LN,
-GEMM and attention launches one by one), the CUDA-event time of the whole
-call with its host work (`event_us`), the TFLOP/s of the device time, the
-bytes bound of the call at 3.35 TB/s, and the card's name and power limit
-(nvidia-smi).
+records (`device_us`, and by kernel name `kernels_us`: a chain's LN, GEMM
+and attention launches one by one), the CUDA-event time of the whole call
+with its host work (`event_us`), the TFLOP/s of the device time, the bytes
+bound of the function at 3.35 TB/s (its inputs read and its output written
+once, `bytes_bound_us`) and of the chain's own traffic (each launch's
+inputs read and outputs written once, `chain_bytes_bound_us`), and the
+card's name and power limit (nvidia-smi).
 
 Cases: the flagship's stage 1 (C 192, 12 heads, window 8, hidden 768) at
-512 px (a 128 x 128 map) and 608 px (152 x 152, 19 windows a row), the
-unshifted block the main path runs three times a forward; beside each
-`swin_block_plain` on the same bf16 arguments. Needs a card; exits 1
-without one.
+512 px (a 128 x 128 map) and 608 px (152 x 152, 19 windows a row): K2 on
+the unshifted block, K3 and K4 at shift 2 with the mask, each of which the
+main path runs three times a forward; beside each its plain version on
+the same bf16 arguments (`swin_block_plain`, `block_attention_ln_plain`,
+`conv_mlp_tail_plain`). Needs a card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import sys
 from pathlib import Path
 
 sys.path.append(".")  # the checkout, after any PYTHONPATH
-from bench_global_attention import card, measure  # noqa: E402
+from bench_window_attention_bwd import card, measure  # noqa: E402
 
 
 def main() -> int:
@@ -44,6 +49,8 @@ def main() -> int:
         print("bench_swin_block: no CUDA card visible", file=sys.stderr)
         return 1
     from sodt_tpu_torch.kernels import swin_block as sb
+    from sodt_tpu_torch.kernels import window_attention as wa
+    from sodt_tpu_torch.models.swin import shift_attn_mask
 
     name = card()
     tree = str(Path(sb.__file__).resolve().parents[2])
@@ -56,29 +63,51 @@ def main() -> int:
 
     ln = lambda: (1 + rnd((c,), 0.1, torch.float32),
                   rnd((c,), 0.1, torch.float32))
-    wts = (*ln(), rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.1),
-           rnd((c, c), c ** -0.5), rnd((c,), 0.1), *ln(),
-           rnd((hid, c), c ** -0.5), rnd((hid,), 0.1),
+    ln1, ln2 = ln(), ln()
+    att = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.1),
+           rnd((c, c), c ** -0.5), rnd((c,), 0.1))
+    lin = (rnd((hid, c), c ** -0.5), rnd((hid,), 0.1),
            rnd((c, hid), hid ** -0.5), rnd((c,), 0.1))
+    conv = (rnd((c, c), c ** -0.5), rnd((c,), 0.1),
+            rnd((c, 2, 2, c), (4 * c) ** -0.5), rnd((c,), 0.1),
+            rnd((c, c), c ** -0.5), rnd((c,), 0.1))
     bias = rnd((nh, n, n), 1.0, torch.float32)
     scale = (c // nh) ** -0.5
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts
+                           if t is not None)
     for hw in (128, 152):
-        x = rnd((b, hw, hw, c))
+        x, a = rnd((b, hw, hw, c)), rnd((b, hw, hw, c))
+        mask = torch.from_numpy(shift_attn_mask(hw, hw, ws, 2)).cuda()
         m = b * hw * hw
-        flops = m * (24 * c * c + 4 * n * c)
-        # x read and the output written once, the weights and the bias
-        nbytes = 2 * x.numel() * 2 + sum(t.numel() * t.element_size()
-                                         for t in (*wts, bias))
-        blk = (x, *wts, bias, None, ws, nh, scale, 0)
-        tag = f"({b},{hw},{hw},{c}) hidden {hid} shift 0"
-        for label, fn in ((f"K2 {tag}", lambda: sb.fused_swin_block(*blk)),
-                          (f"K2 plain {tag}",
-                           lambda: sb.swin_block_plain(*blk))):
-            row = {"case": label, "tree": tree, "label": args.label,
-                   "card": name, **measure(fn, args.iters)}
-            row["tflops"] = flops / row["device_us"] / 1e6
-            row["bytes_bound_us"] = 1e6 * nbytes / 3.35e12
-            print(json.dumps(row), flush=True)
+        mc2 = m * c * 2
+        # (name, kernel, plain, arguments, FLOPs, the function's bytes:
+        # its inputs and output once, and the chain's: (M, C) bf16 maps,
+        # an f32 res1 counting two, as chip_smoke.py counts them)
+        cases = (
+            ("K2", sb.fused_swin_block, sb.swin_block_plain,
+             (x, *ln1, *att, *ln2, *lin, bias, None, ws, nh, scale, 0),
+             m * (24 * c * c + 4 * n * c),
+             2 * mc2 + size(*ln1, *att, *ln2, *lin, bias),
+             29 * mc2 + size(*ln1, *att, *ln2, *lin, bias)),
+            ("K3", wa.fused_block_attention_ln, wa.block_attention_ln_plain,
+             (x, *ln1, *att, bias, mask, ws, nh, scale, 2),
+             m * (8 * c * c + 4 * n * c),
+             2 * mc2 + size(*ln1, *att, bias, mask),
+             12 * mc2 + size(*ln1, *att, bias, mask)),
+            ("K4", sb.fused_conv_mlp_tail, sb.conv_mlp_tail_plain,
+             (x, a, *ln2, *conv, 2), 12 * m * c * c,
+             3 * mc2 + size(*ln2, *conv), 13 * mc2 + size(*ln2, *conv)))
+        for kname, kern, plain, blk, flops, fbytes, cbytes in cases:
+            shift = blk[-1]
+            tag = f"({b},{hw},{hw},{c}) shift {shift}"
+            for label, fn in ((f"{kname} {tag}", lambda: kern(*blk)),
+                              (f"{kname} plain {tag}", lambda: plain(*blk))):
+                row = {"case": label, "tree": tree, "label": args.label,
+                       "card": name, **measure(fn, args.iters)}
+                row["tflops"] = flops / max(row["device_us"], 1e-9) / 1e6
+                row["bytes_bound_us"] = 1e6 * fbytes / 3.35e12
+                row["chain_bytes_bound_us"] = 1e6 * cbytes / 3.35e12
+                print(json.dumps(row), flush=True)
     return 0
 
 
