@@ -275,19 +275,20 @@ TPU_KERNEL = {
     "add_layernorm": ("K13", "sodt_tpu_torch/csrc/layernorm.cu",
                       "sodt_tpu/pallas/layernorm.py:72", ("train",)),
     # K12: the int8 branches of the bodies of K2-K7
-    "swin_block_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+    # (K2's and K4's / K7's twins: chains on the s8 wgmma core)
+    "swin_block_q8": ("K12", "sodt_tpu_torch/csrc/int8_chains.cu",
                       "sodt_tpu/pallas/swin_block.py:158", ("int8",)),
     "block_attention_ln_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
                               "sodt_tpu/pallas/window_attention.py:522",
                               ("int8",)),
-    "conv_mlp_tail_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+    "conv_mlp_tail_q8": ("K12", "sodt_tpu_torch/csrc/int8_chains.cu",
                          "sodt_tpu/pallas/swin_block.py:356", ("int8",)),
     "block_attention_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
                            "sodt_tpu/pallas/window_attention.py:558",
                            ("int8",)),
     "mlp_tail_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
                     "sodt_tpu/pallas/swin_block.py:549", ("int8",)),
-    "conv_mlp_tail_noln_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+    "conv_mlp_tail_noln_q8": ("K12", "sodt_tpu_torch/csrc/int8_chains.cu",
                               "sodt_tpu/pallas/swin_block.py:630",
                               ("int8",)),
 }
@@ -425,7 +426,7 @@ PTXAS_SOURCES = ("global_attention.cu", "global_attention_bwd.cu",
                  "gemm_core.cu", "window_attention_bwd.cu",
                  "block_attention.cu", "window_attention_tokens.cu",
                  "swin_block_chain.cu", "shifted_block_chain.cu",
-                 "layernorm.cu")
+                 "layernorm.cu", "int8_chains.cu")
 # the forward's register body as the paths launch it at N 64 (head dim,
 # addressing of csrc/window_attention_fwd.cuh)
 FWD_LAUNCHES = {"K1 stage 1 (train)": (16, "FwdMap"),
@@ -605,7 +606,13 @@ def ptxas_report(procs) -> dict:
             "gemm_core_spill_bytes": sum(
                 kernels.get(e, {}).get("spill_stores", -1)
                 + kernels.get(e, {}).get("spill_loads", -1)
-                for e in set(launched.values()))}
+                for e in set(launched.values())),
+            # K12's chains (csrc/int8_chains.cu): the s8 core and the row
+            # passes, every instantiation
+            "k12_chain_spill_bytes": sum(
+                r.get("spill_stores", -1) + r.get("spill_loads", -1)
+                for e, r in kernels.items()
+                if e.startswith(("gemm_s8_kernel<", "q8_rowpass_kernel<")))}
 
 
 # ------------------------------------------------------------------ kernels
@@ -960,15 +967,18 @@ def int8_cases(batch: int, rnd, ln, msk, case) -> None:
     from sodt_tpu_torch.kernels import swin_block as sb
     from sodt_tpu_torch.kernels.quant import q8_weights, tail_ws
 
-    def q8case(name, shape, fn, plain, args, q8, nb, ops, attn, calls):
+    def q8case(name, shape, fn, plain, args, q8, nb, ops, attn, calls,
+               chain_bytes=None):
         """`attn`: the attention core's FLOPs (0 for the tails, whose plain
-        version has no core to share)."""
+        version has no core to share); `chain_bytes`: the bytes of a chain
+        of csrc/int8_chains.cu (its row then carries the split by launch)."""
         b, h, w = args[0].shape[:3]
         ws = i8ws if attn else tail_ws(h)
         shift = args[-1] if isinstance(args[-1], int) else 0
         case(name, shape, functools.partial(fn, int8=True, q8=q8),
              functools.partial(plain, q8=q8), args, nb, attn, calls,
              path="int8", int8_ops=ops, bf16=functools.partial(fn, *args),
+             device=chain_bytes is not None, chain_bytes=chain_bytes,
              q8=dict(same_core=functools.partial(
                  plain, q8=q8, **({"dispatch": True} if attn else {})),
                  geom=(b, h, w, ws, shift if attn else 0)))
@@ -996,7 +1006,11 @@ def int8_cases(batch: int, rnd, ln, msk, case) -> None:
                 0), q2, 2 * nbytes(xa) + wbytes(q2) + nbytes(
                     bias1, *lna, *lnb_, att1[1], att1[3], lin1[1], lin1[3]),
                24 * m1 * c1 * c1,
-               4 * m1 * i8n * c1, calls2)
+               4 * m1 * i8n * c1, calls2,
+               # in (M, C) int8 bytes: x 2 + 2 + 2, codes 1 + 1 + 1 + 1 + 1
+               # + 1, qkv 6 + 6, att 2 + 2 + 2, res1 4 + 4 + 4 + 4, the
+               # hidden's 4 + 4, out 2
+               chain_bytes=57 * m1 * c1 + wbytes(q2))
         if hw != 128:
             continue
         mask1 = msk(hw, i8ws, 2)
@@ -1016,7 +1030,11 @@ def int8_cases(batch: int, rnd, ln, msk, case) -> None:
         q8case("conv_mlp_tail_q8", f"({batch},{hw},{hw},{c1}) shift 2",
                sb.fused_conv_mlp_tail, sb.conv_mlp_tail_q8_plain,
                (xa, aa, *lnb_, *conv1, 2), q4, 3 * nbytes(xa) + wbytes(q4),
-               2 * (m1 + halo1) * c1 * c1 + 10 * m1 * c1 * c1, 0, 3)
+               2 * (m1 + halo1) * c1 * c1 + 10 * m1 * c1 * c1, 0, 3,
+               # x + a over the rows and halo rows 4.5 + 4.5, t 1.125 +
+               # 1.125, f1 1.125 + 1.125 + 1.125, the conv's f32 y 4 + 4, y's
+               # codes 1 + 1, fc2's x + a + out 6 (M C bytes)
+               chain_bytes=int(30.625 * m1 * c1) + wbytes(q4))
 
     hw, c2 = 64, 384
     m2 = batch * hw * hw
@@ -1047,7 +1065,8 @@ def int8_cases(batch: int, rnd, ln, msk, case) -> None:
     q8case("conv_mlp_tail_noln_q8", f"({batch},{hw},{hw},{c2})",
            sb.fused_conv_mlp_tail_noln, sb.conv_mlp_tail_noln_q8_plain,
            (rb, yb, *conv2), q7, 3 * nbytes(rb) + wbytes(q7),
-           2 * (m2 + m2 // 8) * c2 * c2 + 10 * m2 * c2 * c2, 0, 2)
+           2 * (m2 + m2 // 8) * c2 * c2 + 10 * m2 * c2 * c2, 0, 2,
+           chain_bytes=int(24.125 * m2 * c2) + wbytes(q7))
 
 
 def phase_kernels(batch: int) -> list[dict]:

@@ -1,6 +1,8 @@
-// int8 serving pieces (K12): the s8 x s8 -> s32 tensor-core GEMM with
-// on-load activation quantization and a fused dequantizing epilogue, the
-// f32 LayerNorm and the per-strip abs-max that feed it.
+// int8 serving pieces (K12): the quantizers' arithmetic, the strips and
+// row sources every int8 body shares, and the WMMA s8 x s8 -> s32 GEMM with
+// on-load activation quantization, the f32 LayerNorm and the per-strip
+// abs-max of K3's, K5's and K6's twins (int8_blocks.cu). K2's and K4's /
+// K7's twins run on the s8 wgmma core of gemm_s8_core.cuh instead.
 //
 // The arithmetic is the Pallas kernels' (sodt_tpu/pallas/swin_block.py
 // _q8_weight, _q8_dot, _q8_weight_conv): weights carry one f32 scale per
@@ -94,33 +96,10 @@ struct MapWithHalo {
   const bf16* y;
   int M0, H, W, C, ws;
   __device__ __forceinline__ const bf16* operator()(int m, int k) const {
-    size_t row = m;
-    if (m >= M0) {
-      const int h = m - M0, j = h % W, s = h / W, nr = H / ws;
-      row = (size_t)((s / nr) * H + min(s % nr + 1, nr - 1) * ws) * W + j;
-    }
-    return y + row * C + k;
-  }
-};
-
-// The 2x2 conv's A (K = 4C, tap t = 2 di + dj) over fc1's output f: M0 map
-// rows, then the halo row of each strip. Pixel (i, j) reads (i + di, j +
-// dj); below the last row of a strip that is the strip's halo row, right of
-// the last column it is zero (the pad on fc1's output).
-struct ConvTaps {
-  const float* f;
-  int M0, H, W, C, ws;
-  __device__ __forceinline__ const float* operator()(int m, int k) const {
-    const int t = k / C, kk = k - t * C;
-    const int j = m % W, i = (m / W) % H, b = m / (W * H);
-    const int jj = j + (t & 1);
-    if (jj >= W) return nullptr;
-    size_t row;
-    if ((t >> 1) && i % ws == ws - 1)
-      row = (size_t)M0 + (size_t)(b * (H / ws) + i / ws) * W + jj;
-    else
-      row = (size_t)(b * H + i + (t >> 1)) * W + jj;
-    return f + row * C + kk;
+    // both rows computed, one taken: no branch between a row pass's loads
+    const int h = max(m - M0, 0), j = h % W, s = h / W, nr = H / ws;
+    const size_t halo = (size_t)((s / nr) * H + min(s % nr + 1, nr - 1) * ws) * W + j;
+    return y + (m < M0 ? (size_t)m : halo) * C + k;
   }
 };
 
@@ -131,25 +110,28 @@ struct Val {
   __device__ __forceinline__ float operator()(int m, int c) const { return to_f(*p(m, c)); }
 };
 
-// K4's LN input: res1 = x + a read at its shifted position (the un-shift);
-// the halo row of strip r is x's row min(r + 1, nr - 1) * ws plus a's
-// unshifted row u = (r + 1) * ws mod H when shift > 0 (the Pallas kernel
-// takes it from the current strip's shifted rows), x's row otherwise.
+// K4's LN input, 4 channels from c on: res1 = x + a read at its shifted
+// position (the un-shift); the halo row of strip r is x's row min(r + 1,
+// nr - 1) * ws plus a's unshifted row u = (r + 1) * ws mod H when shift > 0
+// (the Pallas kernel takes it from the current strip's shifted rows), x's
+// row otherwise. A row source of gemm_s8_core.cuh's row passes.
 struct ConvTailIn {
   const bf16 *x, *a;
   int M0, H, W, C, ws, shift;
-  __device__ __forceinline__ float operator()(int m, int c) const {
-    int b, i, j, ia;
-    if (m < M0) {
-      j = m % W, i = (m / W) % H, b = m / (W * H), ia = i;
-    } else {
-      const int h = m - M0, s = h / W, nr = H / ws, r = s % nr;
-      j = h % W, b = s / nr, i = min(r + 1, nr - 1) * ws;
-      ia = shift ? ((r + 1) * ws) % H : i;
-    }
+  __device__ __forceinline__ void load(int m, int c, float v[4]) const {
+    // the map row and the halo row both computed, one taken (no branch)
+    const int jm = m % W, im = (m / W) % H, bm = m / (W * H);
+    const int h = max(m - M0, 0), s = h / W, nr = H / ws, r = s % nr;
+    const int ih = min(r + 1, nr - 1) * ws, iah = shift ? ((r + 1) * ws) % H : ih;
+    const bool main = m < M0;
+    const int b = main ? bm : s / nr, i = main ? im : ih, j = main ? jm : h % W;
+    const int ia = main ? im : iah;
     const size_t xr = (size_t)(b * H + i) * W + j;
     const size_t ar = (size_t)(b * H + (ia - shift + H) % H) * W + (j - shift + W) % W;
-    return __bfloat162float(x[xr * C + c]) + __bfloat162float(a[ar * C + c]);
+    float av[4];
+    load4(x + xr * C + c, v);
+    load4(a + ar * C + c, av);
+    for (int e = 0; e < 4; ++e) v[e] = __fadd_rn(v[e], av[e]);
   }
 };
 
@@ -168,18 +150,6 @@ struct EpiBf16 {  // bf16(v + b): qkv and the K3 / K5 projection
   }
 };
 
-struct EpiF32 {  // v + b in f32; the halo rows of an image's last strip are 0
-  const float* b;
-  float* out;
-  int ld, M0, W, nr;
-  __device__ __forceinline__ float operator()(int m, int n, float v) const {
-    float o = v + b[n];
-    if (m >= M0 && ((m - M0) / W) % nr == nr - 1) o = 0.0f;
-    out[(size_t)m * ld + n] = o;
-    return fabsf(o);
-  }
-};
-
 struct EpiGelu {  // tanh-GELU(v + b) in f32
   const float* b;
   float* out;
@@ -191,42 +161,14 @@ struct EpiGelu {  // tanh-GELU(v + b) in f32
   }
 };
 
-struct EpiRes1 {  // (x + v) + b in f32: K2's first residual
-  const bf16* x;
+struct EpiOut {  // bf16(r + (v + b)): K6's output
+  const bf16* r;
   const float* b;
-  float* out;
+  bf16* out;
   int ld;
   __device__ __forceinline__ float operator()(int m, int n, float v) const {
     const size_t e = (size_t)m * ld + n;
-    out[e] = (__bfloat162float(x[e]) + v) + b[n];
-    return 0.0f;
-  }
-};
-
-// The block output in bf16: residual resf (f32), or x (+ a read at its
-// shifted position), then res_first ? (res + v) + b : res + (v + b), each
-// in its body's order.
-struct EpiOut {
-  const float* resf;
-  const bf16 *x, *a;
-  int H, W, shift;
-  const float* b;
-  bf16* out;
-  int ld, res_first;
-  __device__ __forceinline__ float operator()(int m, int n, float v) const {
-    const size_t e = (size_t)m * ld + n;
-    float res;
-    if (resf) {
-      res = resf[e];
-    } else {
-      res = __bfloat162float(x[e]);
-      if (a) {
-        const int j = m % W, i = (m / W) % H, bi = m / (W * H);
-        const size_t ar = (size_t)(bi * H + (i - shift + H) % H) * W + (j - shift + W) % W;
-        res += __bfloat162float(a[ar * ld + n]);
-      }
-    }
-    out[e] = __float2bfloat16(res_first ? (res + v) + b[n] : res + (v + b[n]));
+    out[e] = __float2bfloat16(__bfloat162float(r[e]) + (v + b[n]));
     return 0.0f;
   }
 };

@@ -33,8 +33,9 @@ import torch.nn.functional as F
 from . import LAUNCHES
 from . import _build
 from .layernorm import layernorm, layernorm_plain
-from .quant import (conv_gelu_fc2_q8, fc1_halo_q8, gelu_tanh, ln_f32,
-                    log_kernel_amax, q8_dot, q8_weights, tail_ws, to_strips)
+from .quant import (_q8, _scale, conv_gelu_fc2_q8, fc1_halo_q8, gelu_tanh,
+                    ln_f32, log_kernel_amax, q8_dot, q8_matmul, q8_weights,
+                    tail_ws, to_strips)
 from .window_attention import (Replay, _check_cuda, _check_window_args,
                                _require, attention_fwd_mirror,
                                block_attention_ln_plain, fwd_groups,
@@ -265,6 +266,146 @@ def conv_mlp_tail_noln_q8_plain(r, y, w1, b1, wc, bc, w2, b2, q8=None):
     f1 = fc1_halo_q8(t, ws, w, qw["w1"], b1)
     z = conv_gelu_fc2_q8(f1, ws, w, *qw["wc"], bc, *qw["w2"], b2)
     return (to_strips(r.float(), ws) + z).reshape(b, h, w, c).to(r.dtype)
+
+
+# --------------------------------- mirrors of K12's chains (tests only)
+#
+# csrc/int8_chains.cu launch by launch: rows in the chain's own layout (M
+# map rows, then the conv tails' halo rows, one map row a strip, in strip
+# order), one abs-max slot a strip (`_q8_point`: the fold, then the int8
+# codes under the finished scale), products of int8 codes, the conv as the
+# core's gather over f1's codes. Each is bit-equal to its plain int8 body
+# on the CPU (the tests hold them so), and logs its slots as a kernel does.
+
+def _q8_point(v: torch.Tensor, strip: torch.Tensor, s: int):
+    """A quantization point over rows v (rows, K) f32: the strip slots
+    (max |v| a strip, what atomicMax folds) and the int8 codes of v under
+    its strip's finished scale."""
+    slots = torch.zeros(s, dtype=torch.float32, device=v.device).scatter_reduce(
+        0, strip, v.abs().amax(-1), "amax")
+    sx = _scale(slots)[strip][:, None]
+    return _q8(v, sx).to(torch.int8), slots
+
+
+def _q8_deq(codes, wq, sw, slots, strip) -> torch.Tensor:
+    """The core's dequantized product float(acc) * (sw * sx(m))."""
+    return q8_matmul(codes, wq) * (sw * _scale(slots)[strip][:, None])
+
+
+def swin_block_q8_chain_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b,
+                              w1, b1, w2, b2, bias, mask, ws: int, nh: int,
+                              scale: float, shift: int = 0, q8=None,
+                              dispatch: bool = False):
+    """The mirror of `sodt_swin_block_q8`: LN1 fold / codes, qkv, the
+    core, att fold / codes, proj (f32 res1), LN2 fold / codes, fc1 fold /
+    codes, fc2; strips of ws map rows over the (M, C) rows."""
+    _require(shift == 0 and mask is None, "swin_block int8: JAX quantizes "
+             f"only the unshifted linear block (shift {shift})")
+    qw = q8_weights(q8, wqkv=wqkv, wp=wp, w1=w1, w2=w2)
+    b, h, w, c = x.shape
+    m, s = b * h * w, b * (h // ws)
+    strip = torch.arange(m, device=x.device) // (ws * w)
+    x32 = x.float().reshape(m, c)
+    slots = []
+
+    def point(v):
+        codes, sl = _q8_point(v, strip, s)
+        slots.append(sl)
+        return codes, sl
+
+    ln1 = point(ln_f32(x32, ln1w, ln1b))
+    qkv = (_q8_deq(ln1[0], *qw["wqkv"], ln1[1], strip)
+           + bqkv.float()).to(x.dtype)
+    core = window_attention_core_nhwc if dispatch else reference_attention_nhwc
+    att = core(qkv.reshape(b, h, w, 3 * c), bias, None, ws, nh, scale)
+    att = point(att.float().reshape(m, c))
+    res1 = x32 + _q8_deq(att[0], *qw["wp"], att[1], strip) + bp.float()
+    ln2 = point(ln_f32(res1, ln2w, ln2b))
+    hid = point(gelu_tanh(_q8_deq(ln2[0], *qw["w1"], ln2[1], strip)
+                          + b1.float()))
+    out = res1 + _q8_deq(hid[0], *qw["w2"], hid[1], strip) + b2.float()
+    log_kernel_amax(torch.cat(slots), len(slots))
+    return out.reshape(b, h, w, c).to(x.dtype)
+
+
+def conv_gather_codes(f1: torch.Tensor, b: int, h: int, w: int,
+                      ws: int) -> torch.Tensor:
+    """The conv launch's A: for each of the M = b*h*w tokens (i, j) the
+    (kh, kw, in)-ordered 4C codes of its 2x2 window over f1's codes (M map
+    rows, then a halo row a strip): tap (di, dj) reads row i + di, column
+    j + dj; below the last row of the strip that is the strip's halo row,
+    right of the last column a zero (`GsCopy` with GS_CONV2X2)."""
+    m, c = b * h * w, f1.shape[-1]
+    tok = torch.arange(m, device=f1.device)
+    j, i, bi = tok % w, (tok // w) % h, tok // (w * h)
+    below = torch.where(i % ws == ws - 1,
+                        m + (bi * (h // ws) + i // ws) * w + j, tok + w)
+    taps = []
+    for di in (0, 1):
+        for dj in (0, 1):
+            row = (below if di else tok) + dj
+            ok = (j + dj < w)[:, None]
+            taps.append(torch.where(ok, f1[row.clamp(max=f1.shape[0] - 1)],
+                                    torch.zeros_like(f1[:1])))
+    return torch.cat(taps, -1).reshape(m, 4 * c)
+
+
+def _conv_tail_q8_chain(x, a, ln, w1, b1, wc, bc, w2, b2, shift, q8):
+    """The mirror of `sodt_conv_tail_q8`: the LN (or y) over the map rows
+    and the halo rows, fold / codes; fc1 (halo rows of an image's last
+    strip zeroed) fold / codes; the conv over f1's codes fold / codes; fc2
+    with the residual."""
+    qw = q8_weights(q8, w1=w1, wc=wc, w2=w2)
+    b, h, w, c = x.shape
+    ws = tail_ws(h)
+    nr = h // ws
+    m, s = b * h * w, b * nr
+    rows = torch.arange(m + s * w, device=x.device)
+    strip = torch.where(rows < m, rows // (ws * w), (rows - m) // w)
+    # the halo row of strip r: x's row min(r + 1, nr - 1) * ws, and with a
+    # shift a's un-shifted row (r + 1) * ws mod H (`ConvTailIn`)
+    nxt = [min(r + 1, nr - 1) * ws for r in range(nr)]
+    a_nxt = [(r + 1) * ws % h for r in range(nr)] if shift else nxt
+    if ln is not None:
+        a_un = torch.roll(a, (shift, shift), (1, 2)) if shift else a
+        res = x.float() + a_un.float()
+        halo = x[:, nxt].float() + a_un[:, a_nxt].float()
+    else:
+        res, halo = x.float(), a[:, nxt].float()
+    t = torch.cat([(a.float() if ln is None else res).reshape(m, c),
+                   halo.reshape(s * w, c)])
+    slots = []
+
+    def point(v, st):
+        codes, sl = _q8_point(v, st, s)
+        slots.append(sl)
+        return codes, sl
+
+    t = point(ln_f32(t, *ln) if ln is not None else t, strip)
+    f1 = _q8_deq(t[0], *qw["w1"], t[1], strip) + b1.float()
+    last = (rows >= m) & (((rows - m) // w) % nr == nr - 1)
+    f1 = point(torch.where(last[:, None], torch.zeros_like(f1), f1), strip)
+    main = strip[:m]
+    wcq, sc = qw["wc"]
+    y = point(gelu_tanh(_q8_deq(conv_gather_codes(f1[0], b, h, w, ws),
+                                wcq.reshape(c, 4 * c), sc, f1[1], main)
+                        + bc.float()), main)
+    out = (res.reshape(m, c)
+           + (_q8_deq(y[0], *qw["w2"], y[1], main) + b2.float()))
+    log_kernel_amax(torch.cat(slots), len(slots))
+    return out.reshape(b, h, w, c).to(x.dtype)
+
+
+def conv_mlp_tail_q8_chain_plain(x, a, ln2w, ln2b, w1, b1, wc, bc, w2, b2,
+                                 shift: int = 0, q8=None):
+    """K4's twin as `sodt_conv_tail_q8` runs it (`_conv_tail_q8_chain`)."""
+    return _conv_tail_q8_chain(x, a, (ln2w, ln2b), w1, b1, wc, bc, w2, b2,
+                               shift, q8)
+
+
+def conv_mlp_tail_noln_q8_chain_plain(r, y, w1, b1, wc, bc, w2, b2, q8=None):
+    """K7's twin as `sodt_conv_tail_q8` runs it (`_conv_tail_q8_chain`)."""
+    return _conv_tail_q8_chain(r, y, None, w1, b1, wc, bc, w2, b2, 0, q8)
 
 
 # ----------------------------------------------------------------- kernels
@@ -626,23 +767,26 @@ def _launch_conv_tail_noln(r, y, w1, b1, wc, bc, w2, b2):
 
 # ------------------------------------------------------------ K12 (int8)
 #
-# The int8 bodies on the card: csrc/int8_blocks.cu, on the pieces of
-# csrc/quant.cuh. A strip's activation scale must be known before any CTA
-# quantizes it, and a strip spans many CTAs, so each body runs as launches
-# split at its quantization points: the producer of an activation writes it
-# (f32 scratch) and folds max|x| into a per-strip slot with atomicMax, the
-# next s8 x s8 -> s32 GEMM quantizes while it stages its tile and
-# dequantizes, adds bias / residual and GELU in its epilogue. Launches per
-# call: K2 8, K3 and K5 5, K4 and K7 4, K6 3 (and one memset of the slots
-# each). Bound by operations at the flagship's shapes: the projections at
-# the int8 tensor-core rate; the scratch round trips make them far slower.
+# The int8 bodies on the card. A strip's activation scale must be known
+# before any CTA quantizes it, and a strip spans many CTAs, so each body
+# runs as launches split at its quantization points, each producer folding
+# max|x| into a per-strip slot with atomicMax. K2's and K4's / K7's twins
+# (csrc/int8_chains.cu, on the s8 wgmma core of csrc/gemm_s8_core.cuh) run
+# each producer twice, a fold and then the same values again written as
+# int8 codes under the finished scale, so every activation but K2's f32
+# res1 crosses launches as codes: K2's 11 kernels, K4's and K7's 7 (and a
+# memset of the slots). K3's, K5's and K6's twins (csrc/int8_blocks.cu on
+# the WMMA GEMM of csrc/quant.cuh) keep f32 scratch and quantize as they
+# stage: 5, 5 and 3 kernels. The mirrors `swin_block_q8_chain_plain` and
+# `conv_mlp_tail[_noln]_q8_chain_plain` follow the chains launch by launch.
 # Every wrapper is a `Replay`: the backward replays the bf16 composition
 # (`_fsb_bwd`, `_fct_bwd`, `_fmt_bwd`, `_fctn_bwd`). On the CPU the forward
 # is the plain int8 body, which takes the launcher's arguments. Each
 # launcher hands its slots to `quant.strip_amax_log`.
 
 def _i8(*ts):
-    """The int8 entries take every bias as f32."""
+    """The WMMA int8 entries (K3's, K5's and K6's twins) take every bias
+    as f32; the chains read them in bf16."""
     return [t.float().contiguous() for t in ts]
 
 
@@ -659,13 +803,13 @@ def _swin_block_q8(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1, w2,
                     bp=bp, w1=w1, b1=b1, w2=w2, b2=b2)
         _check_cuda(name, torch.float32, ln1w=ln1w, ln1b=ln1b, ln2w=ln2w,
                     ln2b=ln2b, bias=bias)
-        _require(c % nh == 0 and c % 32 == 0 and hid % 32 == 0
+        _require(c % nh == 0 and c % 32 == 0 and c <= 512 and hid % 32 == 0
                  and window_core_supported(ws * ws, c // nh),
                  f"{name}: C={c}, hidden={hid}, nh={nh}, window {ws}")
         _require(tuple(wqkv.shape) == (3 * c, c) and tuple(wp.shape) == (c, c)
                  and tuple(w1.shape) == (hid, c) and tuple(w2.shape) == (c, hid),
                  f"{name}: weight shapes")
-        _require(b * h * w <= 65535 * 64, f"{name}: {b * h * w} tokens")
+        _require(b * h * w <= 65535 * 128, f"{name}: {b * h * w} tokens")
         _check_window_args(name, b, h, w, nh, ws, bias, None, 0)
         launch = _launch_swin_block_q8
     else:
@@ -682,17 +826,18 @@ def _launch_swin_block_q8(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1,
     hid = w1.shape[0]
     m = b * h * w
     out = torch.empty_like(x)
-    f32ws = torch.empty(m * (2 * c + hid), dtype=torch.float32,
-                        device=x.device)
+    res1 = torch.empty(m * c, dtype=torch.float32, device=x.device)
+    codes = torch.empty(m * c, dtype=torch.int8, device=x.device)
+    hidden = torch.empty(m * hid, dtype=torch.int8, device=x.device)
     bf16ws = torch.empty(m * 4 * c, dtype=torch.bfloat16, device=x.device)
     amax = torch.empty(4 * b * (h // ws), dtype=torch.float32, device=x.device)
-    bqkv, bp, b1, b2 = _i8(bqkv, bp, b1, b2)
+    bqkv, bp, b1, b2 = (t.contiguous() for t in (bqkv, bp, b1, b2))
     (wqkv_q, sqkv), (wp_q, sp) = qw["wqkv"], qw["wp"]
     (w1_q, s1), (w2_q, s2) = qw["w1"], qw["w2"]
     scale_dt = float(torch.tensor(scale, dtype=x.dtype))
     ptrs = [t.data_ptr() for t in (
         x, ln1w, ln1b, wqkv_q, sqkv, bqkv, wp_q, sp, bp, ln2w, ln2b, w1_q, s1,
-        b1, w2_q, s2, b2, bias, out, f32ws, bf16ws, amax)]
+        b1, w2_q, s2, b2, bias, out, res1, codes, hidden, bf16ws, amax)]
     groups = fwd_groups(b * (h // ws) * (w // ws), ws * ws, nh)
     _build.check(_build.library().sodt_swin_block_q8(
         *ptrs, b, h, w, c, hid, nh, ws, scale_dt, groups, _build.stream_ptr()),
@@ -715,11 +860,11 @@ def _conv_tail_q8(x, a, ln, w1, b1, wc, bc, w2, b2, shift, q8):
         lnw, lnb = ln if ln is not None else (None, None)
         _check_cuda(name, torch.float32, lnw=lnw, lnb=lnb)
         _require(a.shape == x.shape, f"{name}: input shapes")
-        _require(c % 32 == 0, f"{name}: C={c}")
+        _require(c % 32 == 0 and c <= 512, f"{name}: C={c}")
         _require(tuple(w1.shape) == (c, c) and tuple(w2.shape) == (c, c)
                  and tuple(wc.shape) == (c, 2, 2, c), f"{name}: weight shapes")
         _require(0 <= shift < min(h, w), f"{name}: shift {shift}")
-        _require(b * h * w + b * h * w // tail_ws(h) <= 65535 * 64,
+        _require(b * h * w + b * h * w // tail_ws(h) <= 65535 * 128,
                  f"{name}: {b * h * w} tokens")
     if ln is None:
         launch = (_launch_conv_tail_noln_q8 if x.is_cuda
@@ -753,16 +898,17 @@ def _conv_tail_q8_entry(x, a, lnw, lnb, w1, b1, wc, bc, w2, b2, shift, qw):
     ws = tail_ws(h)
     rows = b * h * w + b * (h // ws) * w
     out = torch.empty_like(x)
-    f32ws = torch.empty(rows * c * 3, dtype=torch.float32, device=x.device)
+    i8ws = torch.empty(rows * c * 3, dtype=torch.int8, device=x.device)
+    f32ws = torch.empty(b * h * w * c, dtype=torch.float32, device=x.device)
     amax = torch.empty(3 * b * (h // ws), dtype=torch.float32, device=x.device)
-    b1, bc, b2 = _i8(b1, bc, b2)
+    b1, bc, b2 = (t.contiguous() for t in (b1, bc, b2))
     (w1_q, s1), (wc_q, sc), (w2_q, s2) = qw["w1"], qw["wc"], qw["w2"]
     ptr = lambda t: None if t is None else t.data_ptr()
     _build.check(_build.library().sodt_conv_tail_q8(
         x.data_ptr(), a.data_ptr(), ptr(lnw), ptr(lnb), w1_q.data_ptr(),
         s1.data_ptr(), b1.data_ptr(), wc_q.data_ptr(), sc.data_ptr(),
         bc.data_ptr(), w2_q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), f32ws.data_ptr(), amax.data_ptr(),
+        out.data_ptr(), i8ws.data_ptr(), f32ws.data_ptr(), amax.data_ptr(),
         int(lnw is not None), b, h, w, c, ws, shift, _build.stream_ptr()),
         "fused_conv_mlp_tail int8")
     log_kernel_amax(amax, 3)
@@ -805,3 +951,103 @@ def _launch_mlp_tail_q8(r, y, w1, b1, w2, b2, qw):
     LAUNCHES["mlp_tail_q8"] += 1
     log_kernel_amax(amax, 2)
     return out
+
+
+# ------------------------------------ K12 chains' pieces, one launch each
+#
+# For the tests on the card: one launch of the s8 core or of a row pass as
+# the chains run them (csrc/int8_chains.cu `sodt_gemm_s8`,
+# `sodt_q8_rowpass`), and their plain versions for a CPU tensor. No path
+# calls them, so they count no launch.
+
+S8_FOLD, S8_CODES, S8_F32, S8_BF16 = 0, 1, 2, 3
+
+
+def gemm_s8(a, wq, sw, b, amax_in, mode: int, amax_out=None,
+            strip_rows: int = 0, conv=None):
+    """One launch of the s8 core. a: (M, K) int8 codes in strips of
+    `strip_rows` rows, or (conv = (B, H, W, ws)) f1's codes of a (B, H, W)
+    map, its M = B H W rows and then one halo row a strip of ws rows, K =
+    4C; wq (N, K) int8, sw (N,) f32, b (N,) bf16, amax_in one f32 slot a
+    strip. mode S8_FOLD / S8_F32 / S8_CODES runs the chains' producer
+    tanh-GELU(v + b) and returns (None / its f32 values / its int8 codes
+    under the scales of `amax_out`, the output's slots); S8_BF16 returns
+    (bf16(v + b), None)."""
+    m = a.shape[0] if conv is None else conv[0] * conv[1] * conv[2]
+    n, k = wq.shape
+    if not a.is_cuda:
+        return gemm_s8_plain(a, wq, sw, b, amax_in, mode, amax_out,
+                             strip_rows, conv)
+    name = "gemm_s8"
+    _require(a.dtype == wq.dtype == torch.int8 and b.dtype == torch.bfloat16
+             and n % 8 == 0 and k % 32 == 0, f"{name}: N={n}, K={k}")
+    bb, hh, ww, ws = conv if conv is not None else (1, 1, 1, 1)
+    strips = (-(-m // strip_rows) if conv is None else bb * (hh // ws))
+    if mode == S8_CODES:
+        amax = amax_out
+    else:
+        amax = torch.zeros(strips, dtype=torch.float32, device=a.device)
+    out = (torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+           if mode == S8_BF16 else
+           torch.empty((m, n), dtype=torch.float32 if mode == S8_F32
+                       else torch.int8, device=a.device))
+    _build.check(_build.library().sodt_gemm_s8(
+        a.data_ptr(), wq.data_ptr(), sw.data_ptr(), b.data_ptr(),
+        amax_in.data_ptr(), amax.data_ptr(), out.data_ptr(), m, n, k,
+        strip_rows, hh, ww, ws, int(conv is not None), mode,
+        _build.stream_ptr()), name)
+    if mode == S8_BF16:
+        return out, None
+    return (None if mode == S8_FOLD else out), amax
+
+
+def gemm_s8_plain(a, wq, sw, b, amax_in, mode: int, amax_out=None,
+                  strip_rows: int = 0, conv=None):
+    """`gemm_s8` in plain PyTorch (the mirrors' pieces)."""
+    if conv is None:
+        strip = torch.arange(a.shape[0], device=a.device) // strip_rows
+    else:
+        bb, hh, ww, ws = conv
+        strip = torch.arange(bb * hh * ww, device=a.device) // (ws * ww)
+        a = conv_gather_codes(a, bb, hh, ww, ws)
+    v = _q8_deq(a, wq, sw, amax_in, strip) + b.float()
+    if mode == S8_BF16:
+        return v.to(torch.bfloat16), None
+    y = gelu_tanh(v)
+    if mode == S8_CODES:
+        return _q8(y, _scale(amax_out)[strip][:, None]).to(torch.int8), amax_out
+    _, slots = _q8_point(y, strip, len(amax_in))
+    return (y if mode == S8_F32 else None), slots
+
+
+def q8_rowpass(x, g, b, mode: int, strip_rows: int, amax=None):
+    """One row pass over (rows, C) x (bf16 or f32) in strips of
+    `strip_rows` rows: LN(x) * g + b in f32, or x itself where g is None;
+    mode S8_FOLD / S8_F32 / S8_CODES returns (None / the f32 values / their
+    int8 codes under the scales of `amax`, the slots)."""
+    if not x.is_cuda:
+        return q8_rowpass_plain(x, g, b, mode, strip_rows, amax)
+    rows, c = x.shape
+    _require(x.dtype in (torch.bfloat16, torch.float32) and c % 4 == 0
+             and c <= 512, f"q8_rowpass: C={c}")
+    if mode != S8_CODES:
+        amax = torch.zeros(rows // strip_rows, dtype=torch.float32,
+                           device=x.device)
+    out = torch.empty((rows, c), device=x.device, dtype=(
+        torch.int8 if mode == S8_CODES else torch.float32))
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    _build.check(_build.library().sodt_q8_rowpass(
+        x.data_ptr(), ptr(g), ptr(b), amax.data_ptr(), out.data_ptr(), rows,
+        c, strip_rows, int(g is not None), mode,
+        int(x.dtype == torch.float32), _build.stream_ptr()), "q8_rowpass")
+    return (None if mode == S8_FOLD else out), amax
+
+
+def q8_rowpass_plain(x, g, b, mode: int, strip_rows: int, amax=None):
+    """`q8_rowpass` in plain PyTorch."""
+    v = x.float() if g is None else ln_f32(x.float(), g, b)
+    strip = torch.arange(x.shape[0], device=x.device) // strip_rows
+    if mode == S8_CODES:
+        return _q8(v, _scale(amax)[strip][:, None]).to(torch.int8), amax
+    _, slots = _q8_point(v, strip, x.shape[0] // strip_rows)
+    return (v if mode == S8_F32 else None), slots

@@ -655,6 +655,134 @@ def test_int8_wrappers_raise_outside_domain(card):
     assert sum(kernels.launches().values()) == 0
 
 
+def _codes_of(vals, slots, rows_per_strip=None, strip=None):
+    """int8 codes of f32 rows under their strips' scales, in torch on the
+    card (a true division, as the kernels')."""
+    from sodt_tpu_torch.kernels.quant import _q8, _scale
+    if strip is None:
+        strip = torch.arange(vals.shape[0], device=vals.device) // rows_per_strip
+    return _q8(vals, _scale(slots)[strip][:, None]).to(torch.int8)
+
+
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+def test_int8_rowpass_codes_are_its_values_codes(card, ln, dtype):
+    """A quantization point's two runs (csrc/int8_chains.cu): the pass
+    that writes the codes computes the values the folding pass saw. Its
+    codes equal those of the f32 values a third run stores, under the slots
+    the fold finished (bit for bit), the fold's slots equal the storing
+    run's, and repeats are bit-equal. 3 strips of 1,000 rows, C 192."""
+    rows, c, r = 3000, 192, 1000
+    x = (_rnd((rows, c), 120) * 3).to(dtype)
+    g = (1 + _rnd((c,), 121, 0.1)).float() if ln else None
+    b = _rnd((c,), 122, 0.1).float() if ln else None
+    _, slots = sb.q8_rowpass(x, g, b, sb.S8_FOLD, r)
+    vals, slots_f = sb.q8_rowpass(x, g, b, sb.S8_F32, r)
+    codes, _ = sb.q8_rowpass(x, g, b, sb.S8_CODES, r, slots)
+    again, _ = sb.q8_rowpass(x, g, b, sb.S8_CODES, r, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(slots, slots_f)
+    assert torch.equal(codes, _codes_of(vals, slots, r))
+    assert torch.equal(codes, again)
+    ref, ref_slots = sb.q8_rowpass_plain(x.cpu(), None if g is None else g.cpu(),
+                                         None if b is None else b.cpu(),
+                                         sb.S8_F32, r)
+    assert _rel(vals.cpu(), ref) < 1e-5
+    assert _rel(slots.cpu(), ref_slots) < 1e-5
+
+
+@pytest.mark.parametrize("m,n,k", [(3000, 768, 192), (1000, 96, 64),
+                                   (640, 32, 1536)])
+def test_int8_gemm_s8_core(card, m, n, k):
+    """The s8 wgmma core on ragged shapes (M not a multiple of 64; N 768 in
+    four 192-wide tiles, 96 in one 128-wide tile, 32 in one 64-wide; K 64
+    ends inside a 128-deep step): the bf16(v + b) epilogue bit-equal to the
+    plain version (an exact int32 sum, the same f32 dequantization), and the
+    producer's two runs as in the row pass: codes of the stored values under
+    the folded slots, bit-equal repeats, slots equal."""
+    gen = torch.Generator().manual_seed(123)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+    sw = torch.rand(n, generator=gen) * 1e-3 + 1e-4
+    b = (torch.randn(n, generator=gen) * 0.1).to(BF)
+    r = 500
+    amax_in = torch.rand((m + r - 1) // r, generator=gen) * 4 + 0.5
+    cpu = (a, wq, sw, b, amax_in)
+    dev = [t.cuda() for t in cpu]
+    out, _ = sb.gemm_s8(*dev, sb.S8_BF16, strip_rows=r)
+    ref, _ = sb.gemm_s8_plain(*cpu, sb.S8_BF16, strip_rows=r)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref)
+    if m % r:
+        return                                  # the producer takes whole strips
+    _, slots = sb.gemm_s8(*dev, sb.S8_FOLD, strip_rows=r)
+    vals, slots_f = sb.gemm_s8(*dev, sb.S8_F32, strip_rows=r)
+    codes, _ = sb.gemm_s8(*dev, sb.S8_CODES, slots, strip_rows=r)
+    again, _ = sb.gemm_s8(*dev, sb.S8_CODES, slots, strip_rows=r)
+    torch.cuda.synchronize()
+    assert torch.equal(slots, slots_f)
+    assert torch.equal(codes, _codes_of(vals, slots, r))
+    assert torch.equal(codes, again)
+    pv, _ = sb.gemm_s8_plain(*cpu, sb.S8_F32, strip_rows=r)
+    assert _rel(vals.cpu(), pv) < 1e-5
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 24, 20, 64), (1, 64, 64, 384)])
+def test_int8_conv_gather_core(card, b, h, w, c):
+    """The conv launch (GS_CONV2X2 over f1's codes and its halo rows, the
+    zero taps right of the last column): its values against the plain
+    gather (`conv_gather_codes`) within GELU's last-ulp differences, and
+    its two runs as in the row pass. 20 columns: a 64-row tile spans
+    several 20-row halo strips."""
+    gen = torch.Generator().manual_seed(7)
+    ws = 8
+    s = b * (h // ws)
+    rows = b * h * w + s * w
+    f1 = torch.randint(-127, 128, (rows, c), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (c, 4 * c), generator=gen, dtype=torch.int8)
+    sw = torch.rand(c, generator=gen) * 1e-4 + 1e-5
+    bias = (torch.randn(c, generator=gen) * 0.1).to(BF)
+    amax_in = torch.rand(s, generator=gen) * 4 + 0.5
+    cpu = (f1, wq, sw, bias, amax_in)
+    dev = [t.cuda() for t in cpu]
+    geo = (b, h, w, ws)
+    _, slots = sb.gemm_s8(*dev, sb.S8_FOLD, conv=geo)
+    vals, slots_f = sb.gemm_s8(*dev, sb.S8_F32, conv=geo)
+    codes, _ = sb.gemm_s8(*dev, sb.S8_CODES, slots, conv=geo)
+    again, _ = sb.gemm_s8(*dev, sb.S8_CODES, slots, conv=geo)
+    torch.cuda.synchronize()
+    main = torch.arange(b * h * w, device="cuda") // (ws * w)
+    assert torch.equal(slots, slots_f)
+    assert torch.equal(codes, _codes_of(vals, slots, strip=main))
+    assert torch.equal(codes, again)
+    pv, pslots = sb.gemm_s8_plain(*cpu, sb.S8_F32, conv=geo)
+    assert _rel(vals.cpu(), pv) < 1e-5
+    assert _rel(slots.cpu(), pslots) < 1e-5
+
+
+def test_int8_chains_run_on_the_s8_core(card):
+    """K2's and K4's / K7's twins launch the s8 wgmma core and the row
+    passes, never the WMMA q8_gemm_kernel of the other int8 bodies (the
+    profiler's kernel names)."""
+    c, nh, ws = 192, 12, 8
+    wt = _block_weights(c, 97)
+    x = _rnd((1, 32, 32, c), 98).to(BF)
+    a = _rnd((1, 32, 32, c), 99).to(BF)
+    bias = _rnd((nh, 64, 64), 100)
+    calls = [
+        lambda: sb.fused_swin_block(x, *wt["ln1"], *wt["att"], *wt["ln2"],
+                                    *wt["lin"], bias, None, ws, nh,
+                                    (c // nh) ** -0.5, 0, int8=True),
+        lambda: sb.fused_conv_mlp_tail(x, a, *wt["ln2"], *wt["conv"], 2,
+                                       int8=True),
+        lambda: sb.fused_conv_mlp_tail_noln(x, a, *wt["conv"], int8=True)]
+    for fn in calls:
+        names = _device_kernel_names(fn, "gemm_s8_kernel", "q8_rowpass_kernel")
+        assert any("gemm_s8_kernel" in k for k in names), names
+        assert any("q8_rowpass_kernel" in k for k in names), names
+        assert not any("q8_gemm_kernel" in k for k in names), names
+
+
 # int8 serving: each bf16 K2-K7 launch becomes its int8 twin's; at 608 px
 # stage 2 (76 x 76) is off the window grid, un-quantized in JAX too
 INT8 = dict(MAIN, swin_block=0, block_attention_ln=0, conv_mlp_tail=0,

@@ -343,3 +343,175 @@ def test_int8_wrappers_backward_replays_the_bf16_composition():
     g = torch.autograd.grad(tsb.mlp_tail_plain(*leaves), leaves, g_out)
     for a_, b_ in zip(g8, g):
         close(a_, b_.detach().numpy(), 1e-6)
+
+
+# ------------------------------------ mirrors of the chains on the card
+#
+# K2's and K4's / K7's twins run on the card as chains of launches that
+# store int8 codes and halo rows the plain bodies never materialise
+# (csrc/int8_chains.cu). Their mirrors (`*_q8_chain_plain`) follow the
+# launches: per-strip slots, the codes of each intermediate, the halo rows
+# after the map rows, the conv as a gather over f1's codes with zero taps.
+# Each is bit-equal to its plain body and within TOL of the Pallas body: at
+# C 32 as max |diff| / max |ref| (both sides agree to ~1e-7 there); at C 64
+# XLA's and torch's f32 LN and GELU differ in the last ulp often enough to
+# flip isolated codes by one step (up to ~5e-3 of max |ref| in those few
+# elements, the plain body the same), so there TOL holds the relative L2
+# distance (measured 2.7e-4 to 5.3e-4) and fewer than 1% of the elements
+# may differ by more than 1e-3 of max |ref|.
+
+
+def _mirror_close(out, ref, c):
+    if c == 32:
+        _rel_close(out, ref)
+        return
+    out, ref = np.asarray(out.detach()), np.asarray(ref)
+    d = np.abs(out - ref)
+    assert np.linalg.norm(d) / np.linalg.norm(ref) <= TOL
+    assert (d > 1e-3 * np.abs(ref).max()).mean() < 0.01
+
+def _swin_args(h, c, seed):
+    b, w, nh, ws = 2, 16, c // 16, 8
+    x = rand((b, h, w, c), seed)
+    ln1, ln2 = _ln(c, seed + 1), _ln(c, seed + 3)
+    wqkv, bqkv, wp, bp = _att(c, seed + 5)
+    w1, b1 = rand((c, 4 * c), seed + 9, 0.1), rand((4 * c,), seed + 10, 0.1)
+    w2, b2 = rand((4 * c, c), seed + 11, 0.1), rand((c,), seed + 12, 0.1)
+    bias = rand((nh, ws * ws, ws * ws), seed + 13)
+    return (x, *ln1, wqkv, bqkv, wp, bp, *ln2, w1, b1, w2, b2, bias), nh, ws
+
+
+@pytest.mark.parametrize("c", [32, 64])
+def test_swin_block_q8_chain_mirror(c):
+    """`swin_block_q8_chain_plain`: 24 map rows in three 8-row strips,
+    bit-equal to `swin_block_q8_plain` (output and every strip slot), and
+    within TOL of `_pallas_swin_block_q8` in interpret mode."""
+    a, nh, ws = _swin_args(24, c, 200 + c)
+    scale = (c // nh) ** -0.5
+    targs = (t(a[0]), t(a[1]), t(a[2]), t(a[3].T), t(a[4]), t(a[5].T),
+             t(a[6]), t(a[7]), t(a[8]), t(a[9].T), t(a[10]), t(a[11].T),
+             t(a[12]), t(a[13]), None, ws, nh, scale)
+    with quant.strip_amax_log() as plog:
+        ref = tsb.swin_block_q8_plain(*targs)
+    with quant.strip_amax_log() as mlog:
+        out = tsb.swin_block_q8_chain_plain(*targs)
+    assert torch.equal(out, ref)
+    assert len(mlog) == len(plog) == 4
+    for m_, p_ in zip(mlog, plog):
+        assert torch.equal(m_[:, 0], p_.amax(-1))
+    with interpret_mode():
+        pal = jsb._pallas_swin_block_q8(*[j(v) for v in a], ws, nh, scale)
+    _mirror_close(out, pal, c)
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("shift", [0, 2])
+def test_conv_mlp_tail_q8_chain_mirror(shift, c):
+    """`conv_mlp_tail_q8_chain_plain`: K4's twin with its halo rows after
+    the map rows, three 8-row strips (the last one's fc1 halo zeroed before
+    the conv's quantization), bit-equal to `conv_mlp_tail_q8_plain` and its
+    slots, within TOL of `_pallas_conv_tail(int8=True)`."""
+    b, h, w = 2, 24, 16
+    x, a = rand((b, h, w, c), 300 + c), rand((b, h, w, c), 301 + c)
+    lnw, lnb = _ln(c, 302 + c)
+    cw = _conv_weights(c, 304 + c)
+    targs = (t(x), t(a), t(lnw), t(lnb), *_torch_conv_weights(*cw), shift)
+    with quant.strip_amax_log() as plog:
+        ref = tsb.conv_mlp_tail_q8_plain(*targs)
+    with quant.strip_amax_log() as mlog:
+        out = tsb.conv_mlp_tail_q8_chain_plain(*targs)
+    assert torch.equal(out, ref)
+    for m_, p_ in zip(mlog, plog):
+        assert torch.equal(m_[:, 0], p_.amax(-1))
+    with interpret_mode():
+        pal = jsb._pallas_conv_tail(j(x), j(a), j(lnw), j(lnb),
+                                    *[j(v) for v in cw], 8, shift=shift,
+                                    int8=True)
+    _mirror_close(out, pal, c)
+
+
+@pytest.mark.parametrize("h", [8, 24])
+def test_conv_mlp_tail_noln_q8_chain_mirror(h):
+    """`conv_mlp_tail_noln_q8_chain_plain`: K7's twin, one strip (its halo
+    its own first row, zeroed) and three; bit-equal to
+    `conv_mlp_tail_noln_q8_plain`, within TOL of the Pallas body."""
+    b, w, c = 2, 16, 32
+    r, y = rand((b, h, w, c), 401), rand((b, h, w, c), 402)
+    cw = _conv_weights(c, 403)
+    targs = (t(r), t(y), *_torch_conv_weights(*cw))
+    out = tsb.conv_mlp_tail_noln_q8_chain_plain(*targs)
+    assert torch.equal(out, tsb.conv_mlp_tail_noln_q8_plain(*targs))
+    with interpret_mode():
+        pal = jsb._pallas_conv_tail_noln(j(r), j(y), *[j(v) for v in cw], 8,
+                                         int8=True)
+    _rel_close(out, pal)
+
+
+def test_conv_tail_halo_scale_quirk_chain_mirror():
+    """K4's halo quirk (`test_conv_tail_halo_scale_quirk`'s input) through
+    the chain's layout: the halo row of the last strip, x's row (nr-1)*ws
+    plus a's UNSHIFTED row 0, sits after the map rows and enters that
+    strip's LN slot; the mirror's slots and output equal the plain body's."""
+    b, h, w, c, shift = 1, 16, 8, 32, 2
+    x = rand((b, h, w, c), 71, 0.1)
+    a = rand((b, h, w, c), 72, 0.1)
+    a[:, h - shift, :, 0] = 50.0
+    lnw, lnb = _ln(c, 73)
+    cw = _conv_weights(c, 75)
+    targs = (t(x), t(a), t(lnw), t(lnb), *_torch_conv_weights(*cw), shift)
+    with quant.strip_amax_log() as plog:
+        ref = tsb.conv_mlp_tail_q8_plain(*targs)
+    with quant.strip_amax_log() as mlog:
+        out = tsb.conv_mlp_tail_q8_chain_plain(*targs)
+    assert torch.equal(out, ref)
+    assert torch.equal(mlog[0][:, 0], plog[0].amax(-1))
+    # the last strip's LN slot is its halo row's, above its own rows
+    assert mlog[0][1, 0] > plog[0][1, :8 * w].max()
+    with interpret_mode():
+        pal = jsb._pallas_conv_tail(j(x), j(a), j(lnw), j(lnb),
+                                    *[j(v) for v in cw], 8, shift=shift,
+                                    int8=True)
+    _rel_close(out, pal)
+
+
+def test_conv_gather_codes_zero_taps():
+    """`conv_gather_codes` (the conv launch's A): a token's (kh, kw, in)
+    taps read the next row, or below a strip's last row its halo row, and
+    zeros right of the last column."""
+    b, h, w, c, ws = 1, 16, 4, 16, 8
+    m = b * h * w
+    rows = m + (h // ws) * w
+    f1 = torch.arange(rows, dtype=torch.float32)[:, None].repeat(1, c)
+    g = tsb.conv_gather_codes(f1, b, h, w, ws).reshape(m, 4, c)[:, :, 0]
+    tok = lambda i, jj: i * w + jj
+    assert g[tok(0, 0)].tolist() == [tok(0, 0), tok(0, 1), tok(1, 0), tok(1, 1)]
+    assert g[tok(7, 3)].tolist() == [tok(7, 3), 0, m + 3, 0]      # strip 0's halo
+    assert g[tok(15, 1)].tolist() == [tok(15, 1), tok(15, 2), m + w + 1,
+                                      m + w + 2]                  # strip 1's halo
+
+
+def test_one_launch_pieces_plain():
+    """The plain versions of the chains' one-launch probes
+    (`gemm_s8_plain`, `q8_rowpass_plain`, what `gemm_s8` / `q8_rowpass`
+    take for a CPU tensor): the codes of the recomputing run are those of
+    the stored values under the folded slots; the fold is their max."""
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randint(-127, 128, (48, 64), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (32, 64), generator=gen, dtype=torch.int8)
+    sw = torch.rand(32, generator=gen) * 1e-3
+    b = (torch.randn(32, generator=gen) * 0.1).to(torch.bfloat16)
+    amax_in = torch.rand(3, generator=gen) + 0.5
+    vals, slots = tsb.gemm_s8(a, wq, sw, b, amax_in, tsb.S8_F32, strip_rows=16)
+    codes, _ = tsb.gemm_s8(a, wq, sw, b, amax_in, tsb.S8_CODES, slots,
+                           strip_rows=16)
+    assert torch.equal(slots, vals.abs().reshape(3, -1).amax(-1))
+    sx = quant._scale(slots).repeat_interleave(16)[:, None]
+    assert torch.equal(codes, quant._q8(vals, sx).to(torch.int8))
+    x = torch.randn((48, 32), generator=gen).to(torch.bfloat16)
+    lnw, lnb = torch.ones(32), torch.zeros(32)
+    vals, slots = tsb.q8_rowpass(x, lnw, lnb, tsb.S8_F32, 16)
+    torch.testing.assert_close(vals, quant.ln_f32(x.float(), lnw, lnb),
+                               rtol=0, atol=0)
+    codes, _ = tsb.q8_rowpass(x, lnw, lnb, tsb.S8_CODES, 16, slots)
+    sx = quant._scale(slots).repeat_interleave(16)[:, None]
+    assert torch.equal(codes, quant._q8(vals, sx).to(torch.int8))
