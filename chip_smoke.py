@@ -274,19 +274,19 @@ TPU_KERNEL = {
                   ("train", "swinv2", "swinv2_train")),
     "add_layernorm": ("K13", "sodt_tpu_torch/csrc/layernorm.cu",
                       "sodt_tpu/pallas/layernorm.py:72", ("train",)),
-    # K12: the int8 branches of the bodies of K2-K7
-    # (K2's and K4's / K7's twins: chains on the s8 wgmma core)
+    # K12: the int8 branches of the bodies of K2-K7, chains on the s8 wgmma
+    # core
     "swin_block_q8": ("K12", "sodt_tpu_torch/csrc/int8_chains.cu",
                       "sodt_tpu/pallas/swin_block.py:158", ("int8",)),
-    "block_attention_ln_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+    "block_attention_ln_q8": ("K12", "sodt_tpu_torch/csrc/int8_chains.cu",
                               "sodt_tpu/pallas/window_attention.py:522",
                               ("int8",)),
     "conv_mlp_tail_q8": ("K12", "sodt_tpu_torch/csrc/int8_chains.cu",
                          "sodt_tpu/pallas/swin_block.py:356", ("int8",)),
-    "block_attention_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+    "block_attention_q8": ("K12", "sodt_tpu_torch/csrc/int8_chains.cu",
                            "sodt_tpu/pallas/window_attention.py:558",
                            ("int8",)),
-    "mlp_tail_q8": ("K12", "sodt_tpu_torch/csrc/int8_blocks.cu",
+    "mlp_tail_q8": ("K12", "sodt_tpu_torch/csrc/int8_chains.cu",
                     "sodt_tpu/pallas/swin_block.py:549", ("int8",)),
     "conv_mlp_tail_noln_q8": ("K12", "sodt_tpu_torch/csrc/int8_chains.cu",
                               "sodt_tpu/pallas/swin_block.py:630",
@@ -968,17 +968,18 @@ def int8_cases(batch: int, rnd, ln, msk, case) -> None:
     from sodt_tpu_torch.kernels.quant import q8_weights, tail_ws
 
     def q8case(name, shape, fn, plain, args, q8, nb, ops, attn, calls,
-               chain_bytes=None):
+               chain_bytes):
         """`attn`: the attention core's FLOPs (0 for the tails, whose plain
-        version has no core to share); `chain_bytes`: the bytes of a chain
-        of csrc/int8_chains.cu (its row then carries the split by launch)."""
+        version has no core to share); `chain_bytes`: the bytes its chain
+        of csrc/int8_chains.cu moves (the row carries the split by
+        launch)."""
         b, h, w = args[0].shape[:3]
         ws = i8ws if attn else tail_ws(h)
         shift = args[-1] if isinstance(args[-1], int) else 0
         case(name, shape, functools.partial(fn, int8=True, q8=q8),
              functools.partial(plain, q8=q8), args, nb, attn, calls,
              path="int8", int8_ops=ops, bf16=functools.partial(fn, *args),
-             device=chain_bytes is not None, chain_bytes=chain_bytes,
+             device=True, chain_bytes=chain_bytes,
              q8=dict(same_core=functools.partial(
                  plain, q8=q8, **({"dispatch": True} if attn else {})),
                  geom=(b, h, w, ws, shift if attn else 0)))
@@ -1020,7 +1021,10 @@ def int8_cases(batch: int, rnd, ln, msk, case) -> None:
                (xa, *lna, *att1, bias1, mask1, i8ws, i8nh, sc1, 2), q3,
                2 * nbytes(xa) + wbytes(q3) + nbytes(
                    bias1, mask1, *lna, att1[1], att1[3]), 8 * m1 * c1 * c1,
-               4 * m1 * i8n * c1, 3)
+               4 * m1 * i8n * c1, 3,
+               # in (M, C) int8 bytes: x 2 + 2, codes 1 + 1 + 1 + 1, qkv 6
+               # + 6, att 2 + 2 + 2, out 2
+               chain_bytes=28 * m1 * c1 + wbytes(q3))
         aa = rnd((batch, hw, hw, c1))
         conv1 = (rnd((c1, c1), c1 ** -0.5), rnd((c1,), 0.1),
                  rnd((c1, 2, 2, c1), (4 * c1) ** -0.5), rnd((c1,), 0.1),
@@ -1049,7 +1053,8 @@ def int8_cases(batch: int, rnd, ln, msk, case) -> None:
                (xb, *att2, bias2, msk(hw, i8ws, sh), i8ws, i8nh,
                 (c2 // i8nh) ** -0.5, sh), q5, 2 * nbytes(xb) + wbytes(q5)
                + nbytes(bias2, msk(hw, i8ws, sh), att2[1], att2[3]),
-               8 * m2 * c2 * c2, 4 * m2 * i8n * c2, 2)
+               8 * m2 * c2 * c2, 4 * m2 * i8n * c2, 2,
+               chain_bytes=28 * m2 * c2 + wbytes(q5))  # as K3's twin
     rb, yb = rnd((batch, hw, hw, c2)), rnd((batch, hw, hw, c2))
     hid2 = 4 * c2
     lin2 = (rnd((hid2, c2), c2 ** -0.5), rnd((hid2,), 0.1),
@@ -1057,7 +1062,10 @@ def int8_cases(batch: int, rnd, ln, msk, case) -> None:
     q6 = q8_weights(None, w1=lin2[0], w2=lin2[2])
     q8case("mlp_tail_q8", f"({batch},{hw},{hw},{c2}) hidden {hid2}",
            sb.fused_mlp_tail, sb.mlp_tail_q8_plain, (rb, yb, *lin2), q6,
-           3 * nbytes(rb) + wbytes(q6), 4 * m2 * c2 * hid2, 0, 2)
+           3 * nbytes(rb) + wbytes(q6), 4 * m2 * c2 * hid2, 0, 2,
+           # in (M, C) int8 bytes: y 2 + 2, codes 1 + 1 + 1, fc1's f32
+           # hidden 16 + 16, its codes 4 + 4, r 2, out 2
+           chain_bytes=50 * m2 * c2 + wbytes(q6))
     conv2 = (rnd((c2, c2), c2 ** -0.5), rnd((c2,), 0.1),
              rnd((c2, 2, 2, c2), (4 * c2) ** -0.5), rnd((c2,), 0.1),
              rnd((c2, c2), c2 ** -0.5), rnd((c2,), 0.1))

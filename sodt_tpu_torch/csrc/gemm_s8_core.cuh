@@ -1,7 +1,6 @@
-// The s8 tensor-core GEMM core of K12's redesigned int8 bodies
-// (int8_chains.cu: K2's twin `sodt_swin_block_q8`, K4's and K7's twin
-// `sodt_conv_tail_q8`), and the per-row pass that makes their activation
-// codes:
+// The s8 tensor-core GEMM core of K12's int8 bodies (int8_chains.cu: the
+// twins of K2, K3 / K5, K4 / K7 and K6), and the per-row pass that makes
+// their activation codes:
 //
 //   acc[m, n] = sum_k A[m, k] * W[n, k]           exact, int32
 //   v[m, n]   = float(acc) * (sw[n] * sx(m))      rounded as JAX's
@@ -18,10 +17,9 @@
 // TOP/s, against ~0.65 GB its launches move (~0.2 ms at 3.35 TB/s); its
 // GEMMs' main loops run at ~870 TOP/s (fc1: 22 us), their epilogues (the
 // dequantization, GELU, codes and stores of 12.6 to 50 M outputs) take
-// most of their time. The WMMA kernel it replaces (q8_gemm_kernel,
-// quant.cuh) read A in f32 once per 64 output columns and quantized it
-// while staging, and every intermediate crossed device memory in f32
-// (30-50 TOP/s).
+// most of their time. The WMMA GEMM it replaced read A in f32 once per 64
+// output columns and quantized it while staging, and every intermediate
+// crossed device memory in f32 (30-50 TOP/s).
 //
 // Design:
 //  * wgmma m64nBNk32 .s32.s8.s8, both operands from shared memory, int32
@@ -746,7 +744,9 @@ inline int launch_gemm_s8(const S8Args& a, const Epi& epi, cudaStream_t stream) 
 // C % 4 == 0), read once. With LN the values are LN(row) * g + b
 // (statistics E[x^2] - mu^2, eps 1e-5: `_ln_rows_vpu`) with every rounding
 // explicit, so the folding run and the run that writes the codes compute
-// the same values; the fold reduces over the CTA before its atomicMax.
+// the same values; with BF16 they are then rounded to bf16 (K3's LN output,
+// which the reference quantizes in the working dtype). The fold reduces
+// over the CTA before its atomicMax.
 constexpr int RP_ROWS = 2;
 
 template <class P>  // a row source that hands out a pointer to element (m, c)
@@ -800,7 +800,7 @@ __device__ __forceinline__ void q8_rows_ln(float (&v)[RP_ROWS][V][4], int C, int
 // MODE GS_FOLD: max |value| into the strip slots; GS_CODES: the codes
 // under the strip's finished scale, (rows, C) int8; GS_F32: the values in
 // f32 and the fold
-template <bool LN, int MODE, int V, class Src>
+template <bool LN, int MODE, int V, bool BF16, class Src>
 __global__ void __launch_bounds__(256)
 q8_rowpass_kernel(Src src, int rows, int C, const float* __restrict__ g,
                   const float* __restrict__ b, float* __restrict__ amax, Strips strips,
@@ -829,6 +829,13 @@ q8_rowpass_kernel(Src src, int rows, int C, const float* __restrict__ g,
     }
   }
   if constexpr (LN) q8_rows_ln(v, C, lane, g, b);
+  if constexpr (BF16)
+#pragma unroll
+    for (int k = 0; k < RP_ROWS; ++k)
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[k][i][e] = __bfloat162float(__float2bfloat16_rn(v[k][i][e]));
   const int s0 = strips(row0);
   float mx = 0.0f;
 #pragma unroll
@@ -872,17 +879,17 @@ q8_rowpass_kernel(Src src, int rows, int C, const float* __restrict__ g,
   }
 }
 
-template <bool LN, int MODE, class Src>
+template <bool LN, int MODE, bool BF16 = false, class Src>
 inline int q8_rowpass(const Src& src, int rows, int C, const void* g, const void* b,
                       float* amax, Strips strips, void* codes, float* f32,
                       cudaStream_t stream) {
   if (rows <= 0 || C % 4 || C > 512) return (int)cudaErrorInvalidValue;
   const int grid = (rows + 8 * RP_ROWS - 1) / (8 * RP_ROWS);
   if (C <= 256)
-    q8_rowpass_kernel<LN, MODE, 2><<<grid, 256, 0, stream>>>(
+    q8_rowpass_kernel<LN, MODE, 2, BF16><<<grid, 256, 0, stream>>>(
         src, rows, C, (const float*)g, (const float*)b, amax, strips, (signed char*)codes, f32);
   else
-    q8_rowpass_kernel<LN, MODE, 4><<<grid, 256, 0, stream>>>(
+    q8_rowpass_kernel<LN, MODE, 4, BF16><<<grid, 256, 0, stream>>>(
         src, rows, C, (const float*)g, (const float*)b, amax, strips, (signed char*)codes, f32);
   return (int)cudaGetLastError();
 }

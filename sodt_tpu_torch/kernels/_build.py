@@ -46,9 +46,9 @@ SIGNATURES = {
     "sodt_swin_block_q8": [P] * 24 + [I] * 7 + [F, I, P],
     "sodt_block_attention_q8": [P] * 15 + [I] * 9 + [F, I, P],
     "sodt_conv_tail_q8": [P] * 17 + [I] * 7 + [P],
-    "sodt_mlp_tail_q8": [P] * 11 + [I] * 6 + [P],
+    "sodt_mlp_tail_q8": [P] * 13 + [I] * 6 + [P],
     "sodt_gemm_s8": [P] * 7 + [I] * 9 + [P],
-    "sodt_q8_rowpass": [P] * 5 + [I] * 6 + [P],
+    "sodt_q8_rowpass": [P] * 5 + [I] * 9 + [P],
 }
 
 _lib = None

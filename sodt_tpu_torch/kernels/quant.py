@@ -127,6 +127,21 @@ def q8_matmul(codes: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch.matmul(codes.double(), wq.double().t()).float()
 
 
+def _q8_point(v: torch.Tensor, strip: torch.Tensor, s: int):
+    """A quantization point of a chain over rows v (rows, K) f32, `strip`
+    the strip of each row: the strip slots (max |v| a strip, what atomicMax
+    folds) and the int8 codes of v under its strip's finished scale."""
+    slots = torch.zeros(s, dtype=torch.float32, device=v.device).scatter_reduce(
+        0, strip, v.abs().amax(-1), "amax")
+    sx = _scale(slots)[strip][:, None]
+    return _q8(v, sx).to(torch.int8), slots
+
+
+def _q8_deq(codes, wq, sw, slots, strip) -> torch.Tensor:
+    """The s8 core's dequantized product float(acc) * (sw * sx(m))."""
+    return q8_matmul(codes, wq) * (sw * _scale(slots)[strip][:, None])
+
+
 def q8_dot(x32: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor):
     """`_q8_dot`: x32 (..., rows, K) f32, one scale per strip (the leading
     axes) -> dequantized f32 (..., rows, N)."""

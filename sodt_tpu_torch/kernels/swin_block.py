@@ -33,9 +33,9 @@ import torch.nn.functional as F
 from . import LAUNCHES
 from . import _build
 from .layernorm import layernorm, layernorm_plain
-from .quant import (_q8, _scale, conv_gelu_fc2_q8, fc1_halo_q8, gelu_tanh,
-                    ln_f32, log_kernel_amax, q8_dot, q8_matmul, q8_weights,
-                    tail_ws, to_strips)
+from .quant import (_q8, _q8_deq, _q8_point, _scale, conv_gelu_fc2_q8,
+                    fc1_halo_q8, gelu_tanh, ln_f32, log_kernel_amax, q8_dot,
+                    q8_weights, tail_ws, to_strips)
 from .window_attention import (Replay, _check_cuda, _check_window_args,
                                _require, attention_fwd_mirror,
                                block_attention_ln_plain, fwd_groups,
@@ -272,25 +272,10 @@ def conv_mlp_tail_noln_q8_plain(r, y, w1, b1, wc, bc, w2, b2, q8=None):
 #
 # csrc/int8_chains.cu launch by launch: rows in the chain's own layout (M
 # map rows, then the conv tails' halo rows, one map row a strip, in strip
-# order), one abs-max slot a strip (`_q8_point`: the fold, then the int8
-# codes under the finished scale), products of int8 codes, the conv as the
+# order), one abs-max slot a strip (`quant._q8_point`: the fold, then the
+# int8 codes under the finished scale), products of int8 codes, the conv as the
 # core's gather over f1's codes. Each is bit-equal to its plain int8 body
 # on the CPU (the tests hold them so), and logs its slots as a kernel does.
-
-def _q8_point(v: torch.Tensor, strip: torch.Tensor, s: int):
-    """A quantization point over rows v (rows, K) f32: the strip slots
-    (max |v| a strip, what atomicMax folds) and the int8 codes of v under
-    its strip's finished scale."""
-    slots = torch.zeros(s, dtype=torch.float32, device=v.device).scatter_reduce(
-        0, strip, v.abs().amax(-1), "amax")
-    sx = _scale(slots)[strip][:, None]
-    return _q8(v, sx).to(torch.int8), slots
-
-
-def _q8_deq(codes, wq, sw, slots, strip) -> torch.Tensor:
-    """The core's dequantized product float(acc) * (sw * sx(m))."""
-    return q8_matmul(codes, wq) * (sw * _scale(slots)[strip][:, None])
-
 
 def swin_block_q8_chain_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b,
                               w1, b1, w2, b2, bias, mask, ws: int, nh: int,
@@ -326,6 +311,31 @@ def swin_block_q8_chain_plain(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b,
     out = res1 + _q8_deq(hid[0], *qw["w2"], hid[1], strip) + b2.float()
     log_kernel_amax(torch.cat(slots), len(slots))
     return out.reshape(b, h, w, c).to(x.dtype)
+
+
+def mlp_tail_q8_chain_plain(r, y, w1, b1, w2, b2, q8=None):
+    """The mirror of `sodt_mlp_tail_q8`: y fold / codes, fc1's
+    tanh-GELU(v + b1) fold / codes, fc2 with the residual r + (v + b2);
+    strips of `tail_ws(H)` map rows over the (M, C) rows."""
+    qw = q8_weights(q8, w1=w1, w2=w2)
+    b, h, w, c = r.shape
+    ws = tail_ws(h)
+    m, s = b * h * w, b * (h // ws)
+    strip = torch.arange(m, device=r.device) // (ws * w)
+    slots = []
+
+    def point(v):
+        codes, sl = _q8_point(v, strip, s)
+        slots.append(sl)
+        return codes, sl
+
+    yq = point(y.float().reshape(m, c))
+    hid = point(gelu_tanh(_q8_deq(yq[0], *qw["w1"], yq[1], strip)
+                          + b1.float()))
+    out = (r.float().reshape(m, c)
+           + (_q8_deq(hid[0], *qw["w2"], hid[1], strip) + b2.float()))
+    log_kernel_amax(torch.cat(slots), len(slots))
+    return out.reshape(b, h, w, c).to(r.dtype)
 
 
 def conv_gather_codes(f1: torch.Tensor, b: int, h: int, w: int,
@@ -770,25 +780,19 @@ def _launch_conv_tail_noln(r, y, w1, b1, wc, bc, w2, b2):
 # The int8 bodies on the card. A strip's activation scale must be known
 # before any CTA quantizes it, and a strip spans many CTAs, so each body
 # runs as launches split at its quantization points, each producer folding
-# max|x| into a per-strip slot with atomicMax. K2's and K4's / K7's twins
-# (csrc/int8_chains.cu, on the s8 wgmma core of csrc/gemm_s8_core.cuh) run
-# each producer twice, a fold and then the same values again written as
-# int8 codes under the finished scale, so every activation but K2's f32
-# res1 crosses launches as codes: K2's 11 kernels, K4's and K7's 7 (and a
-# memset of the slots). K3's, K5's and K6's twins (csrc/int8_blocks.cu on
-# the WMMA GEMM of csrc/quant.cuh) keep f32 scratch and quantize as they
-# stage: 5, 5 and 3 kernels. The mirrors `swin_block_q8_chain_plain` and
-# `conv_mlp_tail[_noln]_q8_chain_plain` follow the chains launch by launch.
-# Every wrapper is a `Replay`: the backward replays the bf16 composition
-# (`_fsb_bwd`, `_fct_bwd`, `_fmt_bwd`, `_fctn_bwd`). On the CPU the forward
-# is the plain int8 body, which takes the launcher's arguments. Each
-# launcher hands its slots to `quant.strip_amax_log`.
-
-def _i8(*ts):
-    """The WMMA int8 entries (K3's, K5's and K6's twins) take every bias
-    as f32; the chains read them in bf16."""
-    return [t.float().contiguous() for t in ts]
-
+# max|x| into a per-strip slot with atomicMax. Every twin (K2, K3 / K5 in
+# `window_attention`, K4 / K7, K6) is a chain of csrc/int8_chains.cu on the
+# s8 wgmma core of csrc/gemm_s8_core.cuh: each producer runs twice, a fold
+# and then the same values again written as int8 codes under the finished
+# scale, so every activation but K2's f32 res1 crosses launches as codes
+# (the conv's and K6's fc1 output are stored in f32 once and a row pass
+# writes their codes: faster there): K2's 11 kernels, K3's / K5's 7, K4's
+# and K7's 7, K6's 5 (and a memset of the slots). The mirrors
+# `*_q8_chain_plain` follow the chains launch by launch. Every wrapper is a
+# `Replay`: the backward replays the bf16 composition (`_fsb_bwd`,
+# `_fct_bwd`, `_fmt_bwd`, `_fctn_bwd`). On the CPU the forward is the plain
+# int8 body, which takes the launcher's arguments. Each launcher hands its
+# slots to `quant.strip_amax_log`.
 
 def _swin_block_q8(x, ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1, w2,
                    b2, bias, mask, ws, nh, scale, shift, q8):
@@ -925,8 +929,9 @@ def _mlp_tail_q8(r, y, w1, b1, w2, b2, q8):
         _require(y.shape == r.shape, f"{name}: r/y shapes")
         _require(tuple(w1.shape) == (hid, c) and tuple(w2.shape) == (c, hid),
                  f"{name}: weight shapes")
-        _require(c % 32 == 0 and hid % 32 == 0, f"{name}: C={c}, hidden={hid}")
-        _require(b * h * w <= 65535 * 64, f"{name}: {b * h * w} tokens")
+        _require(c % 32 == 0 and c <= 512 and hid % 32 == 0,
+                 f"{name}: C={c}, hidden={hid}")
+        _require(b * h * w <= 65535 * 128, f"{name}: {b * h * w} tokens")
         launch = _launch_mlp_tail_q8
     else:
         launch = mlp_tail_q8_plain
@@ -937,17 +942,17 @@ def _mlp_tail_q8(r, y, w1, b1, w2, b2, q8):
 def _launch_mlp_tail_q8(r, y, w1, b1, w2, b2, qw):
     b, h, w, c = r.shape
     hid = w1.shape[0]
-    ws = tail_ws(h)
+    m, ws = b * h * w, tail_ws(h)
     out = torch.empty_like(r)
-    f32ws = torch.empty(b * h * w * hid, dtype=torch.float32, device=r.device)
+    codes = torch.empty(m * c, dtype=torch.int8, device=r.device)
+    hidden = torch.empty(m * hid, dtype=torch.int8, device=r.device)
+    f32ws = torch.empty(m * hid, dtype=torch.float32, device=r.device)
     amax = torch.empty(2 * b * (h // ws), dtype=torch.float32, device=r.device)
-    b1, b2 = _i8(b1, b2)
     (w1_q, s1), (w2_q, s2) = qw["w1"], qw["w2"]
+    ptrs = [t.data_ptr() for t in (r, y, w1_q, s1, b1, w2_q, s2, b2, out,
+                                   codes, hidden, f32ws, amax)]
     _build.check(_build.library().sodt_mlp_tail_q8(
-        r.data_ptr(), y.data_ptr(), w1_q.data_ptr(), s1.data_ptr(),
-        b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), f32ws.data_ptr(), amax.data_ptr(), b, h, w, c, hid,
-        ws, _build.stream_ptr()), "fused_mlp_tail int8")
+        *ptrs, b, h, w, c, hid, ws, _build.stream_ptr()), "fused_mlp_tail int8")
     LAUNCHES["mlp_tail_q8"] += 1
     log_kernel_amax(amax, 2)
     return out
@@ -1020,32 +1025,47 @@ def gemm_s8_plain(a, wq, sw, b, amax_in, mode: int, amax_out=None,
     return (y if mode == S8_F32 else None), slots
 
 
-def q8_rowpass(x, g, b, mode: int, strip_rows: int, amax=None):
+def q8_rowpass(x, g, b, mode: int, strip_rows: int, amax=None,
+               round_bf16: bool = False, shift=None):
     """One row pass over (rows, C) x (bf16 or f32) in strips of
-    `strip_rows` rows: LN(x) * g + b in f32, or x itself where g is None;
+    `strip_rows` rows, or (shift given) over the rows of a bf16 (B, H, W,
+    C) map read at its (-shift, -shift)-rolled position: LN(x) * g + b in
+    f32 (`round_bf16`: then rounded to bf16), or x itself where g is None;
     mode S8_FOLD / S8_F32 / S8_CODES returns (None / the f32 values / their
-    int8 codes under the scales of `amax`, the slots)."""
+    int8 codes under the scales of `amax`, the slots), one row a row of
+    the (rolled) map."""
     if not x.is_cuda:
-        return q8_rowpass_plain(x, g, b, mode, strip_rows, amax)
-    rows, c = x.shape
+        return q8_rowpass_plain(x, g, b, mode, strip_rows, amax, round_bf16,
+                                shift)
+    c = x.shape[-1]
+    rows = x.numel() // c
+    hh, ww = x.shape[1:3] if shift is not None else (0, 0)
     _require(x.dtype in (torch.bfloat16, torch.float32) and c % 4 == 0
-             and c <= 512, f"q8_rowpass: C={c}")
+             and c <= 512 and (shift is None or x.dtype == torch.bfloat16)
+             and (g is not None or not round_bf16), f"q8_rowpass: C={c}")
     if mode != S8_CODES:
         amax = torch.zeros(rows // strip_rows, dtype=torch.float32,
                            device=x.device)
     out = torch.empty((rows, c), device=x.device, dtype=(
         torch.int8 if mode == S8_CODES else torch.float32))
     ptr = lambda t: 0 if t is None else t.data_ptr()
+    ln = 0 if g is None else 2 if round_bf16 else 1
     _build.check(_build.library().sodt_q8_rowpass(
         x.data_ptr(), ptr(g), ptr(b), amax.data_ptr(), out.data_ptr(), rows,
-        c, strip_rows, int(g is not None), mode,
-        int(x.dtype == torch.float32), _build.stream_ptr()), "q8_rowpass")
+        c, strip_rows, ln, mode, int(x.dtype == torch.float32), hh, ww,
+        shift or 0, _build.stream_ptr()), "q8_rowpass")
     return (None if mode == S8_FOLD else out), amax
 
 
-def q8_rowpass_plain(x, g, b, mode: int, strip_rows: int, amax=None):
+def q8_rowpass_plain(x, g, b, mode: int, strip_rows: int, amax=None,
+                     round_bf16: bool = False, shift=None):
     """`q8_rowpass` in plain PyTorch."""
+    if shift:
+        x = torch.roll(x, (-shift, -shift), (1, 2))
+    x = x.reshape(-1, x.shape[-1])
     v = x.float() if g is None else ln_f32(x.float(), g, b)
+    if round_bf16:
+        v = v.to(torch.bfloat16).float()
     strip = torch.arange(x.shape[0], device=x.device) // strip_rows
     if mode == S8_CODES:
         return _q8(v, _scale(amax)[strip][:, None]).to(torch.int8), amax

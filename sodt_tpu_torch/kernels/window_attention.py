@@ -31,7 +31,8 @@ import torch
 from . import LAUNCHES
 from . import _build
 from .layernorm import layernorm, layernorm_plain
-from .quant import ln_f32, log_kernel_amax, q8_dot, q8_weights, to_strips
+from .quant import (_q8_deq, _q8_point, ln_f32, log_kernel_amax, q8_dot,
+                    q8_weights, to_strips)
 
 
 # ----------------------------------------------------------- plain versions
@@ -588,24 +589,75 @@ def _compose_block_attention_ln(*args):
     return block_attention_ln_plain(*args, dispatch=True)
 
 
+def block_attention_q8_chain_plain(x, wqkv, bqkv, wp, bp, bias, mask,
+                                   ws: int, nh: int, scale: float,
+                                   shift: int = 0, q8=None,
+                                   dispatch: bool = False, ln=None):
+    """The mirror of `sodt_block_attention_q8` (csrc/int8_chains.cu, tests
+    only), launch by launch over the (M, C) rows of the rolled map: the
+    fold and codes of x (with `ln`: of its LN rounded to the working
+    dtype), qkv, the core, att fold / codes, proj; one slot a strip of ws
+    map rows (`quant._q8_point`). Bit-equal to `block_attention_q8_plain`
+    on the CPU."""
+    qw = q8_weights(q8, wqkv=wqkv, wp=wp)
+    if shift:
+        x = torch.roll(x, (-shift, -shift), (1, 2))
+    b, h, w, c = x.shape
+    m, s = b * h * w, b * (h // ws)
+    dt = x.dtype
+    strip = torch.arange(m, device=x.device) // (ws * w)
+    v = x.float().reshape(m, c)
+    if ln is not None:
+        v = ln_f32(v, *ln).to(dt).float()
+    slots = []
+
+    def point(v):
+        codes, sl = _q8_point(v, strip, s)
+        slots.append(sl)
+        return codes, sl
+
+    xq = point(v)
+    qkv = (_q8_deq(xq[0], *qw["wqkv"], xq[1], strip) + bqkv.float()).to(dt)
+    core = window_attention_core_nhwc if dispatch else reference_attention_nhwc
+    att = core(qkv.reshape(b, h, w, 3 * c), bias, mask, ws, nh, scale)
+    aq = point(att.float().reshape(m, c))
+    y = _q8_deq(aq[0], *qw["wp"], aq[1], strip) + bp.float()
+    log_kernel_amax(torch.cat(slots), len(slots))
+    return y.reshape(b, h, w, c).to(dt)
+
+
+def block_attention_ln_q8_chain_plain(x, lnw, lnb, wqkv, bqkv, wp, bp, bias,
+                                      mask, ws: int, nh: int, scale: float,
+                                      shift: int = 0, q8=None,
+                                      dispatch: bool = False):
+    """K3's twin as `sodt_block_attention_q8` runs it: the mirror with the
+    LN."""
+    return block_attention_q8_chain_plain(x, wqkv, bqkv, wp, bp, bias, mask,
+                                          ws, nh, scale, shift, q8, dispatch,
+                                          ln=(lnw, lnb))
+
 # ------------------------------------------------------- K12 for K3 and K5
 
 def _block_attention_q8(x, ln, wqkv, bqkv, wp, bp, bias, mask, ws, nh, scale,
                         shift, q8):
     """The int8 body of K3 (`ln` given) or K5, a `Replay` whose backward
     replays the bf16 composition (`_fbal_bwd` / `_fba_bwd`): on the card
-    the kernel of csrc/int8_blocks.cu (`sodt_block_attention_q8`), on the
-    CPU `block_attention_[ln_]q8_plain`.
+    the chain `sodt_block_attention_q8` of csrc/int8_chains.cu, on the CPU
+    `block_attention_[ln_]q8_plain` (`block_attention_q8_chain_plain`
+    mirrors the chain).
 
-    Design (csrc/int8_blocks.cu, quant.cuh): a strip's scale must be known
-    before any CTA quantizes it, so the body runs as five launches split at
-    its two quantization points - [LN1 rounded to bf16 +] the strip
-    abs-max of the shifted map, the qkv GEMM (s8 x s8 -> s32 on the tensor
-    cores, quantizing while it stages, bias and the bf16 rounding in its
-    epilogue), K1's bf16 attention core, the abs-max of its output, the
-    proj GEMM. Bound by operations (8*C^2 per token in the projections at
-    twice the bf16 rate); the f32 and bf16 round trips through device
-    memory between the launches make it bytes-heavy."""
+    Design (csrc/int8_chains.cu, on the s8 wgmma core of
+    csrc/gemm_s8_core.cuh): a strip's scale must be known before any CTA
+    quantizes it, so the body runs as launches split at its two
+    quantization points, and each point's producer runs twice, a fold of
+    the strip abs-max and then the int8 codes under the finished scale: a
+    row pass over the (-shift, -shift)-rolled map read in place ([LN1
+    rounded to bf16 ->] fold, codes), the qkv GEMM (s8 x s8 -> s32 wgmma,
+    bf16(v + bqkv) in its epilogue), K1's bf16 attention core, the row
+    passes of its output, the proj GEMM (bf16(v + bp)). Bound by
+    operations (8*C^2 per token in the projections at twice the bf16 rate)
+    at the flagship's shapes; the chain's own traffic (28 M*C bytes: qkv
+    and att in bf16 between launches, the codes) takes longer than that."""
     qw = q8_weights(q8, wqkv=wqkv, wp=wp)
     if x.is_cuda:
         name = ("fused_block_attention_ln" if ln is not None
@@ -616,12 +668,12 @@ def _block_attention_q8(x, ln, wqkv, bqkv, wp, bp, bias, mask, ws, nh, scale,
         lnw, lnb = ln if ln is not None else (None, None)
         _check_cuda(name, torch.float32, lnw=lnw, lnb=lnb, bias=bias,
                     mask=mask)
-        _require(c % nh == 0 and c % 32 == 0
+        _require(c % nh == 0 and c % 32 == 0 and c <= 512
                  and window_core_supported(ws * ws, c // nh),
                  f"{name}: C={c}, nh={nh}, window of {ws * ws} tokens")
         _require(tuple(wqkv.shape) == (3 * c, c) and tuple(wp.shape) == (c, c),
                  f"{name}: weight shapes")
-        _require(b * h * w <= 65535 * 64, f"{name}: {b * h * w} tokens")
+        _require(b * h * w <= 65535 * 128, f"{name}: {b * h * w} tokens")
         _check_window_args(name, b, h, w, nh, ws, bias, mask, shift)
     consts = (ws, nh, scale, shift, qw)
     tensors = (wqkv, bqkv, wp, bp, bias, mask)
@@ -659,19 +711,17 @@ def _block_attention_q8_entry(x, lnw, lnb, wqkv, bqkv, wp, bp, bias, mask,
     b, h, w, c = x.shape
     m = b * h * w
     out = torch.empty_like(x)
-    f32ws = torch.empty(m * c if lnw is not None else 1, dtype=torch.float32,
-                        device=x.device)
+    codes = torch.empty(m * c, dtype=torch.int8, device=x.device)
     bf16ws = torch.empty(m * 4 * c, dtype=torch.bfloat16, device=x.device)
     amax = torch.empty(2 * b * (h // ws), dtype=torch.float32, device=x.device)
     (wqkv_q, sqkv), (wp_q, sp) = qw["wqkv"], qw["wp"]
-    bqkv32, bp32 = bqkv.float().contiguous(), bp.float().contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()
     scale_dt = float(torch.tensor(scale, dtype=x.dtype))
     groups = fwd_groups(b * (h // ws) * (w // ws), ws * ws, nh)
     _build.check(_build.library().sodt_block_attention_q8(
         x.data_ptr(), ptr(lnw), ptr(lnb), wqkv_q.data_ptr(), sqkv.data_ptr(),
-        bqkv32.data_ptr(), wp_q.data_ptr(), sp.data_ptr(), bp32.data_ptr(),
-        bias.data_ptr(), ptr(mask), out.data_ptr(), f32ws.data_ptr(),
+        bqkv.data_ptr(), wp_q.data_ptr(), sp.data_ptr(), bp.data_ptr(),
+        bias.data_ptr(), ptr(mask), out.data_ptr(), codes.data_ptr(),
         bf16ws.data_ptr(), amax.data_ptr(), int(lnw is not None), b, h, w, c,
         nh, ws, shift, int(mask is not None), scale_dt, groups,
         _build.stream_ptr()), "fused_block_attention int8")

@@ -664,31 +664,45 @@ def _codes_of(vals, slots, rows_per_strip=None, strip=None):
     return _q8(vals, _scale(slots)[strip][:, None]).to(torch.int8)
 
 
-@pytest.mark.parametrize("ln", [False, True])
-@pytest.mark.parametrize("dtype", [BF, torch.float32])
-def test_int8_rowpass_codes_are_its_values_codes(card, ln, dtype):
+@pytest.mark.parametrize("src,dtype", [
+    (s, d) for s in ("rows", "ln", "ln_bf16") for d in (BF, torch.float32)]
+    + [("shifted", BF), ("shifted_ln_bf16", BF)])
+def test_int8_rowpass_codes_are_its_values_codes(card, src, dtype):
     """A quantization point's two runs (csrc/int8_chains.cu): the pass
     that writes the codes computes the values the folding pass saw. Its
     codes equal those of the f32 values a third run stores, under the slots
     the fold finished (bit for bit), the fold's slots equal the storing
-    run's, and repeats are bit-equal. 3 strips of 1,000 rows, C 192."""
+    run's, and repeats are bit-equal. 3 strips of 1,000 rows, C 192; the
+    sources: rows as they are, their LN, the LN rounded to bf16 (K3's
+    twin), and a bf16 (3, 10, 100, C) map read at its (-2, -2)-rolled
+    position (K3's and K5's twins, bf16 only), as it is or its LN rounded
+    to bf16. The rounded values are bf16 values; the rolled map's are the
+    plain version's on the rolled rows."""
     rows, c, r = 3000, 192, 1000
     x = (_rnd((rows, c), 120) * 3).to(dtype)
+    ln = src != "rows" and src != "shifted"
     g = (1 + _rnd((c,), 121, 0.1)).float() if ln else None
     b = _rnd((c,), 122, 0.1).float() if ln else None
-    _, slots = sb.q8_rowpass(x, g, b, sb.S8_FOLD, r)
-    vals, slots_f = sb.q8_rowpass(x, g, b, sb.S8_F32, r)
-    codes, _ = sb.q8_rowpass(x, g, b, sb.S8_CODES, r, slots)
-    again, _ = sb.q8_rowpass(x, g, b, sb.S8_CODES, r, slots)
+    kw = dict(round_bf16=src.endswith("bf16"))
+    if src.startswith("shifted"):
+        x = x.reshape(3, 10, 100, c)
+        kw["shift"] = 2
+    _, slots = sb.q8_rowpass(x, g, b, sb.S8_FOLD, r, **kw)
+    vals, slots_f = sb.q8_rowpass(x, g, b, sb.S8_F32, r, **kw)
+    codes, _ = sb.q8_rowpass(x, g, b, sb.S8_CODES, r, slots, **kw)
+    again, _ = sb.q8_rowpass(x, g, b, sb.S8_CODES, r, slots, **kw)
     torch.cuda.synchronize()
     assert torch.equal(slots, slots_f)
     assert torch.equal(codes, _codes_of(vals, slots, r))
     assert torch.equal(codes, again)
+    if kw["round_bf16"]:
+        assert torch.equal(vals, vals.to(BF).float())
     ref, ref_slots = sb.q8_rowpass_plain(x.cpu(), None if g is None else g.cpu(),
                                          None if b is None else b.cpu(),
-                                         sb.S8_F32, r)
-    assert _rel(vals.cpu(), ref) < 1e-5
-    assert _rel(slots.cpu(), ref_slots) < 1e-5
+                                         sb.S8_F32, r, **kw)
+    # a rounded value may land one bf16 step away from the CPU's
+    assert _rel(vals.cpu(), ref) < (4e-3 if kw["round_bf16"] else 1e-5)
+    assert _rel(slots.cpu(), ref_slots) < (4e-3 if kw["round_bf16"] else 1e-5)
 
 
 @pytest.mark.parametrize("m,n,k", [(3000, 768, 192), (1000, 96, 64),
@@ -761,26 +775,69 @@ def test_int8_conv_gather_core(card, b, h, w, c):
 
 
 def test_int8_chains_run_on_the_s8_core(card):
-    """K2's and K4's / K7's twins launch the s8 wgmma core and the row
-    passes, never the WMMA q8_gemm_kernel of the other int8 bodies (the
-    profiler's kernel names)."""
+    """Every int8 body launches the s8 wgmma core and the row passes (the
+    profiler's kernel names): K2's twin and K4's / K7's, and K3's (shift
+    2, masked), K5's at shift 0 and 2 and K6's twin, which run nothing
+    else but the attention core's register body and the memset of the
+    slots (their weights quantized beforehand, as the model's cache hands
+    them over). No WMMA q8_gemm_kernel anywhere."""
+    from sodt_tpu_torch.kernels.quant import q8_weights
     c, nh, ws = 192, 12, 8
     wt = _block_weights(c, 97)
     x = _rnd((1, 32, 32, c), 98).to(BF)
     a = _rnd((1, 32, 32, c), 99).to(BF)
     bias = _rnd((nh, 64, 64), 100)
+    mask = torch.from_numpy(shift_attn_mask(32, 32, ws, 2)).cuda()
+    sc = (c // nh) ** -0.5
+    q_att = q8_weights(None, wqkv=wt["att"][0], wp=wt["att"][2])
+    q_lin = q8_weights(None, w1=wt["lin"][0], w2=wt["lin"][2])
     calls = [
         lambda: sb.fused_swin_block(x, *wt["ln1"], *wt["att"], *wt["ln2"],
-                                    *wt["lin"], bias, None, ws, nh,
-                                    (c // nh) ** -0.5, 0, int8=True),
+                                    *wt["lin"], bias, None, ws, nh, sc, 0,
+                                    int8=True),
         lambda: sb.fused_conv_mlp_tail(x, a, *wt["ln2"], *wt["conv"], 2,
                                        int8=True),
         lambda: sb.fused_conv_mlp_tail_noln(x, a, *wt["conv"], int8=True)]
-    for fn in calls:
-        names = _device_kernel_names(fn, "gemm_s8_kernel", "q8_rowpass_kernel")
-        assert any("gemm_s8_kernel" in k for k in names), names
-        assert any("q8_rowpass_kernel" in k for k in names), names
-        assert not any("q8_gemm_kernel" in k for k in names), names
+    only = [
+        lambda: wa.fused_block_attention_ln(x, *wt["ln1"], *wt["att"], bias,
+                                            mask, ws, nh, sc, 2, int8=True,
+                                            q8=q_att),
+        lambda: wa.fused_block_attention(x, *wt["att"], bias, None, ws, nh,
+                                         sc, 0, int8=True, q8=q_att),
+        lambda: wa.fused_block_attention(x, *wt["att"], bias, mask, ws, nh,
+                                         sc, 2, int8=True, q8=q_att),
+        lambda: sb.fused_mlp_tail(x, a, *wt["lin"], int8=True, q8=q_lin)]
+    for k, fn in enumerate(calls + only):
+        names = _device_kernel_names(fn, "gemm_s8_kernel", "q8_rowpass_kernel",
+                                     device_only=True)
+        assert any("gemm_s8_kernel" in n for n in names), names
+        assert any("q8_rowpass_kernel" in n for n in names), names
+        assert not any("q8_gemm_kernel" in n for n in names), names
+        if k >= len(calls):
+            allowed = ("gemm_s8_kernel", "q8_rowpass_kernel",
+                       "window_attn_fwd_kernel", "Memset")
+            assert all(any(w in n for w in allowed) for n in names), names
+
+
+def test_int8_forward_runs_no_wmma_gemm(card):
+    """The whole int8 forward at 512 px (every K12 body, the bf16 kernels
+    outside JAX's int8 gate): no kernel named q8_gemm_kernel, and the s8
+    core runs."""
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.weights import init_weights
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    m = build_model("configs/model.yaml", ch_in=4, dtype=BF)
+    m = cache_rel_bias(init_weights(m, 0).cuda().eval())
+    x = torch.rand((1, 512, 512, 3), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+
+    def forward():
+        with torch.no_grad(), kernels.int8_serving():
+            m(x, x)
+
+    names = _device_kernel_names(forward, "gemm_s8_kernel")
+    assert any("gemm_s8_kernel" in n for n in names), names
+    assert not any("q8_gemm_kernel" in n for n in names), names
 
 
 # int8 serving: each bf16 K2-K7 launch becomes its int8 twin's; at 608 px
@@ -975,13 +1032,15 @@ def test_window_attention_tokens_fwd_vs_rounded_mirror(card, w, n, c, nh, nw,
     assert torch.equal(out, again)
 
 
-def _device_kernel_names(fn, *want, tries=5):
-    """The names torch.profiler records over a call of `fn`. CUPTI now and
+def _device_kernel_names(fn, *want, tries=5, device_only=False):
+    """The names torch.profiler records over a call of `fn` (`device_only`:
+    of what ran on the card, no runtime calls). CUPTI now and
     then drops a session's kernel records, all of them or some (one run on
     the H100 kept dbias_reduce_kernel and lost the K9 body launched before
     it): a session whose names miss one of the `want` substrings is run
     again, up to `tries` sessions, and the names of all of them are
     returned."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -990,7 +1049,8 @@ def _device_kernel_names(fn, *want, tries=5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names |= {e.key for e in prof.key_averages()}
+        names |= {e.key for e in prof.key_averages()
+                  if not device_only or e.device_type == DeviceType.CUDA}
         if all(any(w in k for k in names) for w in want):
             break
     return names

@@ -361,8 +361,9 @@ def test_int8_wrappers_backward_replays_the_bf16_composition():
 # may differ by more than 1e-3 of max |ref|.
 
 
-def _mirror_close(out, ref, c):
-    if c == 32:
+def _mirror_close(out, ref, c, flips=False):
+    """`flips`: XLA's and torch's f32 LN flip isolated codes at C 32 too."""
+    if c == 32 and not flips:
         _rel_close(out, ref)
         return
     out, ref = np.asarray(out.detach()), np.asarray(ref)
@@ -401,6 +402,78 @@ def test_swin_block_q8_chain_mirror(c):
         assert torch.equal(m_[:, 0], p_.amax(-1))
     with interpret_mode():
         pal = jsb._pallas_swin_block_q8(*[j(v) for v in a], ws, nh, scale)
+    _mirror_close(out, pal, c)
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("shift", [0, 2])
+@pytest.mark.parametrize("ln", [False, True])
+def test_block_attention_q8_chain_mirror(ln, shift, c):
+    """`block_attention_[ln_]q8_chain_plain`: K3's twin (with the LN,
+    rounded to the working dtype before its codes) and K5's as
+    `sodt_block_attention_q8` runs them, on a 24 x 16 map in three 8-row
+    strips of the rolled map, masked where shifted; bit-equal to
+    `block_attention_[ln_]q8_plain` (output and both points' strip slots),
+    and within TOL of `_pallas_block_attention(int8=True)` in interpret
+    mode (`_mirror_close`: max |diff| / max |ref| at C 32, relative L2 at
+    C 64). With the LN, TOL holds the relative L2 at C 32 too: XLA's and
+    torch's f32 LN differ in the last ulp in half of the values, which at
+    C 32, shift 2 flips two of the 24,576 LN codes and moves 0.5% of the
+    outputs by more than 1e-3 of max |ref| (the plain body the same)."""
+    b, h, w, ws = 2, 24, 16, 8
+    nh = c // 16
+    x = rand((b, h, w, c), 500 + c)
+    lnw, lnb = _ln(c, 501 + c)
+    wqkv, bqkv, wp, bp = _att(c, 503 + c)
+    bias = rand((nh, ws * ws, ws * ws), 507 + c)
+    scale = (c // nh) ** -0.5
+    mask = shift_attn_mask(h, w, ws, shift) if shift else None
+    targs = (t(x), *((t(lnw), t(lnb)) if ln else ()), t(wqkv.T), t(bqkv),
+             t(wp.T), t(bp), t(bias), None if mask is None else t(mask), ws,
+             nh, scale, shift)
+    plain, chain = ((twa.block_attention_ln_q8_plain,
+                     twa.block_attention_ln_q8_chain_plain) if ln else
+                    (twa.block_attention_q8_plain,
+                     twa.block_attention_q8_chain_plain))
+    with quant.strip_amax_log() as plog:
+        ref = plain(*targs)
+    with quant.strip_amax_log() as mlog:
+        out = chain(*targs)
+    assert torch.equal(out, ref)
+    assert len(mlog) == len(plog) == 2
+    for m_, p_ in zip(mlog, plog):
+        assert torch.equal(m_[:, 0], p_.amax(-1))
+    with interpret_mode():
+        pal = jwa._pallas_block_attention(
+            j(x), j(wqkv), j(bqkv), j(wp), j(bp), j(bias), mask, ws, nh,
+            scale, ln=(j(lnw), j(lnb)) if ln else None, shift=shift,
+            int8=True)
+    _mirror_close(out, pal, c, flips=ln)
+
+
+@pytest.mark.parametrize("c", [32, 64])
+def test_mlp_tail_q8_chain_mirror(c):
+    """`mlp_tail_q8_chain_plain`: K6's twin as `sodt_mlp_tail_q8` runs it
+    (y fold / codes, fc1 fold / codes, fc2 with the residual), three 8-row
+    strips, hidden 4C; bit-equal to `mlp_tail_q8_plain` (output and both
+    points' strip slots), within TOL of `_pallas_mlp_tail(int8=True)` in
+    interpret mode (`_mirror_close`)."""
+    b, h, w = 2, 24, 16
+    r, y = rand((b, h, w, c), 600 + c), rand((b, h, w, c), 601 + c)
+    w1, b1 = rand((c, 4 * c), 602 + c, 0.1), rand((4 * c,), 603 + c, 0.1)
+    w2, b2 = rand((4 * c, c), 604 + c, 0.1), rand((c,), 605 + c, 0.1)
+    targs = (t(r), t(y), t(w1.T), t(b1), t(w2.T), t(b2))
+    with quant.strip_amax_log() as plog:
+        ref = tsb.mlp_tail_q8_plain(*targs)
+    with quant.strip_amax_log() as mlog:
+        out = tsb.mlp_tail_q8_chain_plain(*targs)
+    assert torch.equal(out, ref)
+    assert len(mlog) == len(plog) == 2
+    for m_, p_ in zip(mlog, plog):
+        assert torch.equal(m_[:, 0], p_.amax(-1))
+    with interpret_mode():
+        pal = jsb._pallas_mlp_tail(j(r), j(y), j(w1), j(b1), j(w2), j(b2), 8,
+                                   int8=True)
     _mirror_close(out, pal, c)
 
 
@@ -514,4 +587,27 @@ def test_one_launch_pieces_plain():
                                rtol=0, atol=0)
     codes, _ = tsb.q8_rowpass(x, lnw, lnb, tsb.S8_CODES, 16, slots)
     sx = quant._scale(slots).repeat_interleave(16)[:, None]
+    assert torch.equal(codes, quant._q8(vals, sx).to(torch.int8))
+
+
+def test_rowpass_plain_rounded_and_shifted():
+    """The row pass probe's plain version in K3's and K5's modes: a bf16
+    map read at its (-shift, -shift)-rolled position is the rolled map's
+    rows, and the LN rounded to bf16 is the bf16 value of the LN; the codes
+    of either are those of its values under the folded slots."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 8, 12, 32), generator=gen).to(torch.bfloat16)
+    lnw, lnb = 1 + 0.1 * torch.randn(32, generator=gen), torch.zeros(32)
+    r = 4 * 12
+    rolled = torch.roll(x, (-2, -2), (1, 2)).reshape(-1, 32)
+    vals, slots = tsb.q8_rowpass(x, None, None, tsb.S8_F32, r, shift=2)
+    assert torch.equal(vals, rolled.float())
+    vals, slots = tsb.q8_rowpass(x, lnw, lnb, tsb.S8_F32, r, round_bf16=True,
+                                 shift=2)
+    ln = quant.ln_f32(rolled.float(), lnw, lnb)
+    assert torch.equal(vals, ln.to(torch.bfloat16).float())
+    assert torch.equal(slots, vals.abs().reshape(4, -1).amax(-1))
+    codes, _ = tsb.q8_rowpass(x, lnw, lnb, tsb.S8_CODES, r, slots,
+                              round_bf16=True, shift=2)
+    sx = quant._scale(slots).repeat_interleave(r)[:, None]
     assert torch.equal(codes, quant._q8(vals, sx).to(torch.int8))

@@ -10,16 +10,18 @@ time another version of `sodt_tpu_torch` in the same call: unpack it with
 `git archive` under `build/`). For each case it prints one JSON line: the
 device time per call summed over the CUDA kernels that torch.profiler
 records (`device_us`, and by kernel name `kernels_us`), the CUDA-event time
-of the whole call with its host work (`event_us`), the same two for the
-bf16 twin (`bf16_device_us`, `bf16_kernels_us`) and the plain int8 version
+of the whole call with its host work (`event_us`), the call's launches
+one by one in launch order (`launches_us`: [kernel, us], null where a
+session lost a record; two launches of one instantiation, as K3's and
+K5's qkv and proj, stay apart there), the same two for the bf16 twin
+(`bf16_device_us`, `bf16_kernels_us`) and the plain int8 version
 (`plain_device_us`), the least time of the function's bytes at 3.35 TB/s
 (its activations read and its output written once, the int8 weights once:
 `bytes_bound_us`) and of its s8 operations at 1,979 TOP/s plus the
 attention core's bf16 FLOPs at 989 TFLOP/s (`ops_bound_us`), the bytes the
 chain's own launches move (each launch reading its inputs and writing its
-outputs once, `chain_bytes` and `chain_bytes_bound_us`; K2's and K4's / K7's
-chains, csrc/int8_chains.cu), and the card's name and power limit
-(nvidia-smi).
+outputs once, `chain_bytes` and `chain_bytes_bound_us`; the chains of
+csrc/int8_chains.cu), and the card's name and power limit (nvidia-smi).
 
 Cases, at the int8 path's shapes at 512 px (JAX's int8 gate): stage 1
 (a 128 x 128 map, C 192, 12 heads, window 8, hidden 768) K2's twin
@@ -29,8 +31,9 @@ K4's `conv_mlp_tail_q8` at shift 2; stage 2 (64 x 64, C 384) K5's
 K7's `conv_mlp_tail_noln_q8`. Then the two ways to quantize the conv's
 output (the dearest producer): run the conv twice (fold, then codes) or
 store it in f32 and quantize it in a row pass (`conv_*` lines, where the
-tree has the chains' one-launch entries). Needs a card; exits 1 without
-one.
+tree has the chains' one-launch entries), and the same two ways for fc1's
+GELU output of K2's twin (hidden 768) and K6's (hidden 1,536; `fc1_*`
+lines). Needs a card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -42,6 +45,34 @@ from pathlib import Path
 
 sys.path.append(".")  # the checkout, after any PYTHONPATH
 from bench_window_attention_bwd import card, measure  # noqa: E402
+
+
+def launch_order(fn, iters: int):
+    """The device time of each launch of one call of `fn`, in launch order
+    ([kernel, us] averaged over `iters` calls of one torch.profiler
+    session), or None where the session's records do not split into
+    `iters` equal calls (CUPTI lost some)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith("Memcpy")),
+                key=lambda e: e.time_range.start)
+    n = len(ev) // iters
+    if not n or len(ev) != n * iters:
+        return None
+    names = [e.name for e in ev[:n]]
+    if any(ev[k].name != names[k % n] for k in range(len(ev))):
+        return None
+    return [[names[i][:80], sum(ev[c * n + i].time_range.elapsed_us()
+                                for c in range(iters)) / iters]
+            for i in range(n)]
 
 HBM = 3.35e12
 S8_OPS, BF16_FLOPS = 1.979e15, 9.89e14
@@ -120,7 +151,10 @@ def main() -> int:
          (x, *ln1, *att, bias, mask, ws, nh, sc, 2),
          {k: q2[k] for k in ("wqkv", "wp")}, 8 * m * c * c, core,
          2 * size(x) + size(*ln1, att[1], att[3], bias, mask)
-         + wsize({k: q2[k] for k in ("wqkv", "wp")}), None),
+         + wsize({k: q2[k] for k in ("wqkv", "wp")}),
+         # in M C bytes: x 2 + 2, codes 1 + 1 + 1 + 1, qkv 6 + 6, att 2 + 2
+         # + 2, out 2
+         mc * 28 + wsize({k: q2[k] for k in ("wqkv", "wp")})),
         ("conv_mlp_tail_q8", sb.fused_conv_mlp_tail,
          sb.conv_mlp_tail_q8_plain, (x, a, *ln2, *conv, 2), q4,
          2 * (m + halo) * c * c + 10 * m * c * c, 0,
@@ -149,11 +183,14 @@ def main() -> int:
                                            sh),
              q5, 8 * m * c * c, core,
              2 * size(xb) + size(att2[1], att2[3], bias, mk) + wsize(q5),
-             None))
+             mc * 28 + wsize(q5)))     # as K3's twin
     cases += [
         ("mlp_tail_q8", sb.fused_mlp_tail, sb.mlp_tail_q8_plain,
          (xb, yb, *lin2), q6, 4 * m * c * hid, 0,
-         3 * size(xb) + size(lin2[1], lin2[3]) + wsize(q6), None),
+         3 * size(xb) + size(lin2[1], lin2[3]) + wsize(q6),
+         # in M C bytes: y 2 + 2, codes 1 + 1 + 1, fc1's f32 hidden 16 +
+         # 16, its codes 4 + 4, r 2, out 2
+         mc * 50 + wsize(q6)),
         ("conv_mlp_tail_noln_q8", sb.fused_conv_mlp_tail_noln,
          sb.conv_mlp_tail_noln_q8_plain, (xb, yb, *conv2), q7,
          2 * (m + halo) * c * c + 10 * m * c * c, 0,
@@ -167,6 +204,8 @@ def main() -> int:
         shape = tuple(blk[0].shape)
         shift = blk[-1] if isinstance(blk[-1], int) else 0
         kern = measure(lambda: fn(*blk, int8=True, q8=q8), args.iters)
+        kern["launches_us"] = launch_order(
+            lambda: fn(*blk, int8=True, q8=q8), args.iters)
         bf = measure(lambda: fn(*blk), args.iters)
         pl = measure(lambda: plain(*blk, q8=q8), max(3, args.iters // 10))
         row = {"case": f"{cname} {shape} shift {shift}", **kern,
@@ -210,6 +249,38 @@ def main() -> int:
             emit({"case": f"conv_{way} ({mm}, {cc}) K {4 * cc}",
                   **measure(fn, args.iters),
                   "ops_bound_us": 1e6 * 2 * mm * cc * 4 * cc / S8_OPS})
+
+    # fc1's quantization point (tanh-GELU(v + b1), hidden 4C), two ways:
+    # K2's twin at stage 1, K6's at stage 2, on the codes of a normal (M, C)
+    # activation and the int8 weights of a normal fc1 as the chains see
+    # them (the GELU fold's cost depends on the values). The row pass reads
+    # the f32 hidden as rows of at most 512 (its widest).
+    from sodt_tpu_torch.kernels.quant import q8_weight
+    for (hh, cc) in ((128, 192), (64, 384)):
+        mm, r, hid = b * hh * hh, ws * hh, 4 * cc
+        y = rnd((mm // r, r, cc), 1.0, torch.float32)
+        amax_in = y.abs().amax((1, 2))
+        sx = (amax_in.clamp_min(1e-8) / torch.tensor(127.0, device="cuda"))
+        a8 = torch.clamp(torch.round(y / sx[:, None, None]), -127, 127).to(
+            torch.int8).reshape(mm, cc)
+        wq, sw = q8_weight(rnd((hid, cc), cc ** -0.5))
+        op = (a8, wq, sw, rnd((hid,), 0.1), amax_in)
+        cw = max(d for d in range(4, 513, 4) if hid % d == 0)
+
+        def recompute():
+            _, slots = sb.gemm_s8(*op, sb.S8_FOLD, strip_rows=r)
+            return sb.gemm_s8(*op, sb.S8_CODES, slots, strip_rows=r)
+
+        def store_f32():
+            h, slots = sb.gemm_s8(*op, sb.S8_F32, strip_rows=r)
+            return sb.q8_rowpass(h.view(-1, cw), None, None, sb.S8_CODES,
+                                 r * hid // cw, slots)
+
+        for way, fn in (("recompute", recompute), ("f32 + row pass", store_f32)):
+            emit({"case": f"fc1_{way} ({mm}, {cc}) N {hid}",
+                  **measure(fn, args.iters),
+                  "launches_us": launch_order(fn, args.iters),
+                  "ops_bound_us": 1e6 * 2 * mm * cc * hid / S8_OPS})
     return 0
 
 
