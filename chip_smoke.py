@@ -11,26 +11,27 @@ the final ok line:
      ptxas    registers, static shared memory and spills of the K8 / K10
               kernels, of the GEMM core's instantiations (K6, K7, K2's
               four GEMMs with their two f32-residual epilogues, K3's two,
-              K4's three), of the backward's register body (K9 on the map,
-              K11's backward on token windows), of the windowed-attention
-              forward's register body (K1, K5's core, K11 forward, K2's
-              and K3's cores: head dims 16-64, four addressings) and of
-              the LayerNorm bodies (K13, K2's LN2 on f32 rows, K4's
-              un-shift + add + LN) (`nvcc -Xptxas -v`, run beside the
-              build), the dynamic shared memory their launches take, and
-              which instantiation each launch of K6, K7, the chains of K2,
-              K3 and K4, the backward's and the forward's register bodies
-              runs
+              K4's three, K5's two), of the backward's register body (K9
+              on the map, K11's backward on token windows), of the
+              windowed-attention forward's register body (K1, K5's core,
+              K11 forward, K2's and K3's cores: head dims 16-64, four
+              addressings) and of K13's row body (its four fronts: LN,
+              add + LN, K2's LN2 on f32 rows, K4's un-shift + add + LN)
+              (`nvcc -Xptxas -v`, run beside the build), the dynamic
+              shared memory their launches take, and which instantiation
+              each launch of K6, K7, the chains of K2, K3, K4 and K5, the
+              backward's and the forward's register bodies and the LN
+              body at each width runs
   3. kernels  each kernel vs its plain PyTorch version on the same bf16
               inputs at the shapes its path gives it (batch 2, and the
               paths' batch 4), max |diff| / max |ref| <= 2e-2 (the f32
               dbias of K9 / K10: <= 1e-3), with the kernel's, the plain
               version's and (K1, K8, K9, K10, K11, K13) the library call's
               time, the library call's also as summed device time per call
-              (torch.profiler); K1, K2, K3, K4, K6, K7 and K11 (forward
-              and backward) also with the summed device time per call of
-              the kernel and of the plain version, their TFLOP/s, and
-              bit-equal over two runs; the chains (K2, K3, K4) also with
+              (torch.profiler); K1-K7, K11 (forward and backward) and
+              K13 also with the summed device time per call of the
+              kernel and of the plain version, their TFLOP/s, and
+              bit-equal over two runs; the chains (K2-K5) also with
               each launch's device time and the bytes bound of the
               chain's own traffic beside the function's bound;
               K1 at the 608 px path's shape and at the four shapes of the
@@ -58,7 +59,9 @@ the final ok line:
               (bf16, seeded weights), launch counts per forward K2 3, K3 3,
               K4 3, K5 4, K6 2, K7 2, K8 1, K13 11 + 5; then raw Detect maps
               of one batch, bf16 kernels vs the f32 plain path on the same
-              weights, relative L2 <= 2e-2
+              weights, relative L2 <= 2e-2, and the kernels of one bf16
+              forward (torch.profiler): none named gemm_bias_kernel (K5's
+              retired WMMA GEMM; every path of this phase checks it)
      608px    the same at 608 px (4 images): stage 2's 76x76 map takes the
               generic block path, K1 4 launches per forward, and stage 3
               pads into four windows for K8
@@ -498,7 +501,23 @@ GEMM_CORE_LAUNCHES = {"K6 fc1": (0, 0, 1536), "K6 fc2": (0, 2, 384),
                       # K3's and K4's chains at the same shapes
                       "K3 qkv": (0, 1, 576), "K3 proj": (0, 1, 192),
                       "K4 fc1": (0, 1, 192), "K4 conv": (1, 0, 192),
-                      "K4 fc2 + res1 (f32 in)": (0, 4, 192)}
+                      "K4 fc2 + res1 (f32 in)": (0, 4, 192),
+                      # K5's chain at the flagship's stage 2 (C 384)
+                      "K5 qkv": (0, 1, 1152), "K5 proj": (0, 1, 384)}
+# csrc/layernorm.cu: K13's row body, layernorm_kernel<front, V, L> (front 0
+# bf16 rows, 1 f32 rows, 2 add, 3 un-shift add; V vectors a lane, L lanes a
+# row: `layernorm.ln_body`) at each width the paths run it: (front, C)
+LN_LAUNCHES = {**{f"K13 LN C {c}": (0, c) for c in (24, 48, 96, 192, 384,
+                                                     768)},
+               "K13 add + LN C 384": (2, 384), "K13 add + LN C 768": (2, 768),
+               "K2 LN2 (f32 rows)": (1, 192),
+               "K4 un-shift + add + LN": (3, 192)}
+
+
+def ln_entry(front: int, c: int) -> str:
+    from sodt_tpu_torch.kernels.layernorm import ln_body
+    lanes, vecs = ln_body(c)
+    return f"layernorm_kernel<{front},{vecs},{lanes}>"
 
 
 def start_ptxas(out_dir: Path) -> list:
@@ -580,17 +599,23 @@ def ptxas_report(procs) -> dict:
                             for e in set(es))
     k2 = {k: v for k, v in launched.items() if k.startswith("K2")}
     k2.update({k: v for k, v in fwd.items() if k.startswith("K2")})
-    k2.update({"K2 LN1 (K13's body)": "layernorm_kernel<false,__nv_bfloat16>",
-               "K2 LN2 (f32 rows)": "layernorm_kernel<false,float>"})
+    ln = {k: ln_entry(*v) for k, v in LN_LAUNCHES.items()}
+    k2.update({"K2 LN1 (K13's body)": ln_entry(0, 192),
+               "K2 LN2 (f32 rows)": ln["K2 LN2 (f32 rows)"]})
     k34 = {k: v for k, v in launched.items() if k[:2] in ("K3", "K4")}
     k34.update({k: v for k, v in fwd.items() if k.startswith("K3")})
-    k34.update({"K3 LN (K13's body)": "layernorm_kernel<false,__nv_bfloat16>",
-                "K4 un-shift + add + LN": "unshift_add_ln_kernel"})
+    k34.update({"K3 LN (K13's body)": ln_entry(0, 192),
+                "K4 un-shift + add + LN": ln["K4 un-shift + add + LN"]})
+    k5 = {k: v for k, v in launched.items() if k.startswith("K5")}
+    k5.update({k: v for k, v in fwd.items() if k.startswith("K5")})
     return {"phase": "ptxas", "kernels": kernels,
             "k2_chain_launches": k2, "k2_chain_spill_bytes": spills(
                 e for k, e in k2.items() if "LN" not in k),
             "k3_k4_chain_launches": k34, "k3_k4_chain_spill_bytes": spills(
                 k34.values()),
+            "k5_chain_launches": k5, "k5_chain_spill_bytes": spills(
+                k5.values()),
+            "ln_launches": ln, "ln_spill_bytes": spills(ln.values()),
             "bwd_launches": bwd, "k11_bwd_spill_bytes": spills(k11),
             "fwd_launches": fwd, "fwd_dynamic_smem": fwd_smem,
             "fwd_spill_bytes": sum(
@@ -729,13 +754,16 @@ def kernel_cases(batch: int) -> list[dict]:
     x = rnd((batch, hw, hw, c))
     wts = (rnd((3 * c, c), c ** -0.5), rnd((3 * c,), 0.1),
            rnd((c, c), c ** -0.5), rnd((c,), 0.1))
+    # K5's chain moves 10 (M, C) bf16 maps (x, qkv 3 + 3, attn 1 + 1, out)
+    # and the weights, bias and mask once
     for shift in (0, 2):
         mask = msk(hw, ws, shift)
         case("block_attention", f"({batch},{hw},{hw},{c}) shift {shift}",
              wa.fused_block_attention, wa.block_attention_plain,
              (x, *wts, bias, mask, ws, nh, (c // nh) ** -0.5, shift),
              nbytes(x, *wts, bias, mask) + nbytes(x),
-             m * (8 * c * c + 4 * n * c), 2)
+             m * (8 * c * c + 4 * n * c), 2, device=True,
+             chain_bytes=10 * m * c * 2 + nbytes(*wts, bias, mask))
     r, y = rnd((batch, hw, hw, c)), rnd((batch, hw, hw, c))
     hid = 4 * c
     w6 = (rnd((hid, c), c ** -0.5), rnd((hid,), 0.1),
@@ -868,7 +896,7 @@ def kernel_cases(batch: int) -> list[dict]:
              kln.layernorm_plain, (x, w, b), 2 * nbytes(x) + nbytes(w, b),
              8 * x.numel(), calls,
              lambda x=x, c=c, wb=wb, bb=bb: F.layer_norm(x, (c,), wb, bb),
-             path="train")
+             path="train", device=True)
     # K13 on the SwinV2 paths (31 calls per forward, and no more per step):
     # the four LNs of the cross-channel block on its 2x2 windows, the two
     # post-norms of each block of the four stages and the PatchMerging norm
@@ -887,7 +915,7 @@ def kernel_cases(batch: int) -> list[dict]:
                  kln.layernorm, kln.layernorm_plain, (x, w, b),
                  2 * nbytes(x) + nbytes(w, b), 8 * x.numel(), calls,
                  lambda x=x, c=c, wb=wb, bb=bb: F.layer_norm(x, (c,), wb, bb),
-                 path=path)
+                 path=path, device=True)
     for hw, c, calls in ((64, 384, 4), (32, 768, 1)):
         x, y = rnd((batch, hw, hw, c)), rnd((batch, hw, hw, c))
         w, b = ln(c)
@@ -896,7 +924,8 @@ def kernel_cases(batch: int) -> list[dict]:
              kln.add_layernorm_plain, (x, y, w, b),
              4 * nbytes(x) + nbytes(w, b), 9 * x.numel(), calls,
              lambda x=x, y=y, c=c, wb=wb, bb=bb: F.layer_norm(
-                 x + y, (c,), wb, bb), (KERNEL_TOL, KERNEL_TOL), path="train")
+                 x + y, (c,), wb, bb), (KERNEL_TOL, KERNEL_TOL), path="train",
+             device=True)
 
     # stage 3: one 32x32 window, K8
     c, hw = 768, 32
@@ -1300,20 +1329,29 @@ def phase_path(label: str, args: list[str], expected: dict) -> dict:
         model = cache_rel_bias(seeded_model(opt.cfg, dt).cuda().eval())
         with torch.no_grad():
             raws[dt] = model(img, ir)["raw"][0].float()
+            if dt == torch.bfloat16:
+                # the kernels of one bf16 forward: K5 runs its chain on the
+                # GEMM core, and K5's old WMMA GEMM (gemm_bias_kernel) runs
+                # nowhere
+                seen = [r["kernel"] for r in profiled(
+                    lambda: model(img, ir), f"{label} forward kernels")]
     a, b = raws[torch.bfloat16], raws[torch.float32]
     rel_l2 = ((a - b).norm() / b.norm()).item()
     g = img_size // 4
     ok = (per_fwd == {k: float(v) for k, v in expected.items()}
           and finite and bool(torch.isfinite(a).all())
           and tuple(a.shape) == (bs, g, g, 3, 13)
-          and m["seen"] == n_img and rel_l2 <= DETECT_REL_L2)
+          and m["seen"] == n_img and rel_l2 <= DETECT_REL_L2
+          and bool(seen) and not any("gemm_bias" in k for k in seen))
     row = {"phase": label, "args": args, "wall_s": wall,
            "images_per_s": m["images_per_s"], "speed_ms": m["speed_ms"],
            "map50": m["map50"], "map": m["map"], "seen": m["seen"],
            "launches": counts, "launches_per_forward": per_fwd,
            "expected_per_forward": expected,
            "detect_rel_l2_bf16_vs_f32": rel_l2, "rel_l2_bound": DETECT_REL_L2,
-           "raw_shape": list(a.shape), "ok": bool(ok)}
+           "raw_shape": list(a.shape), "forward_kernels_seen": len(seen),
+           "gemm_bias_kernels_seen": [k for k in seen if "gemm_bias" in k],
+           "ok": bool(ok)}
     emit(row)
     return row
 

@@ -1,87 +1,81 @@
-// K5: qkv GEMM + (shifted) W-MSA + proj GEMM for the Swin blocks.
-// Replaces sodt_tpu/pallas/window_attention.py fused_block_attention
-// (_block_attn_kernel without the LN). Two kernels:
+// K5 and the windowed attention core's map entry.
 //
-//  * gemm_bias_kernel: out = A . B^T + bias in one bf16 rounding, f32
-//    accumulation on the tensor cores; 64x64 tiles, K steps of 32 staged
-//    in shared memory. Launched for the qkv and the output projection.
-//  * the windowed attention forward (launch_window_attention of
-//    window_attention_fwd.cuh: its register body at N <= 64, the strip body
-//    of window_attention.cuh above) on the unpartitioned map. Token t of
-//    window (wr, wc) in shifted coordinates (r, c) reads its q/k/v at
-//    ((r + shift) mod H, (c + shift) mod W); the head's output is written
-//    at (r, c), i.e. in shifted coordinates, as the Pallas kernel does.
-//    With shift 0 this is also K1, the windowed attention core
-//    (`fused_window_attention_nhwc`, body `_strip_kernel`).
+// K5, sodt_block_attention_chain; replaces sodt_tpu/pallas/
+// window_attention.py fused_block_attention (_block_attn_kernel without
+// the LN): K3's chain (shifted_block_chain.cu) less its LN, three launches
+// from one C entry over the (M, .) rows of a (B, H, W, C) map, M = B*H*W,
+// with the Pallas kernel's rounding points:
+//   qkv  = bf16(x Wqkv^T + bqkv)          gemm_core, GC_BIAS (N = 3C)
+//   attn = bf16(softmax(bf16(q * bf16(scale)) k^T + bias (+ mask)) V)
+//          on the windows of the map rolled by (-shift, -shift), written in
+//          shifted coordinates          launch_window_attention: the
+//                                          register body (FwdShiftedMap,
+//                                          FwdMap at shift 0) at N <= 64,
+//                                          the strip body above
+//   out  = bf16(attn Wp^T + bp)           gemm_core, GC_BIAS
+// The products are per token, so qkv runs on the unrolled map and the
+// projection writes where the core wrote: the output stays in SHIFTED
+// coordinates, as JAX's. The bias is added in f32 before the one bf16
+// rounding of each GEMM, as K3's chain does.
+//
+// What bounds it on the H100: operations. At the flagship's stage 2 (M =
+// 16,384 at batch 4, C 384, N 64) the function is 19.3 GFLOP + 1.6 GFLOP
+// of attention (21 us at the bf16 peak) against 25 MB of input and output
+// (7.5 us); the chain's own traffic (x, qkv written and read, attn written
+// and read, out: 10 (M, C) bf16 maps, 126 MB) takes 37.6 us. Both GEMMs
+// run on the wgmma core of gemm_core.cuh (BN 128 at N = 1,152, 96 at 384),
+// the one K3's, K6's and K7's launches use. On an NVIDIA H100 80GB HBM3 at
+// 700 W the chain takes 97-100 us a call (PERF.md, §6): qkv 48.5 us (~300
+// TFLOP/s; its 1,152 CTAs fill 4.4 waves of two an SM), the core 32 / 36
+// (unmasked / masked), the projection 15.7. Scratch qkv (M, 3C) and attn
+// (M, C) bf16 comes from the wrapper. All launches on one stream, no
+// atomics: repeats are bit-equal.
+//
+// sodt_window_attention is the attention core alone on a map (K1's
+// `fused_window_attention_nhwc`, body `_strip_kernel`), at shift 0 or at a
+// shift: token t of window (wr, wc) in shifted coordinates (r, c) reads its
+// q / k / v at ((r + shift) mod H, (c + shift) mod W) and the head's output
+// is written at (r, c).
+#include "gemm_core.cuh"
 #include "window_attention_fwd.cuh"
 
-namespace sodt {
+// N = ws * ws <= 256, head dim C / nh 16, 32, 48 or 64, 0 <= shift < ws, C
+// a multiple of 8; scale rounded to bf16; groups: the register core's
+// groups a head (fwd_groups; not read at N > 64); mask (nW, N, N) or null
+extern "C" int sodt_block_attention_chain(const void* x, const void* wqkv, const void* bqkv,
+                                          const void* wp, const void* bp, const void* bias,
+                                          const void* mask, void* out, void* qkv, void* attn,
+                                          int B, int H, int W, int C, int nh, int ws,
+                                          int shift, int has_mask, float scale, int groups,
+                                          void* stream) {
+  using namespace sodt;
+  const long long m = (long long)B * H * W;
+  if (m <= 0 || m > 0x7fffffff || ws <= 0 || H % ws != 0 || W % ws != 0 || C % nh != 0 ||
+      C % 8 != 0 || shift < 0 || shift >= ws)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  GemmArgs a{};
+  a.A = (const bf16*)x;
+  a.W = (const bf16*)wqkv;
+  a.bias = (const bf16*)bqkv;
+  a.out = (bf16*)qkv;
+  a.M = (int)m;
+  a.N = 3 * C;
+  a.K = C;
+  int err = launch_gemm_core<GC_ROWS, GC_BIAS>(a, st);
+  if (err) return err;
 
-constexpr int GB_M = 64, GB_N = 64, GB_K = 32;
-constexpr int GB_LD = GB_K + 8, GB_CLD = GB_N + 4;
+  err = launch_window_attention(MapWindows{H, W, ws, shift}, qkv, bias,
+                                has_mask ? mask : nullptr, attn, B * (H / ws) * (W / ws), C,
+                                nh, ws * ws, scale, groups, stream);
+  if (err) return err;
 
-__global__ void __launch_bounds__(128)
-gemm_bias_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                 const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N,
-                 int K, int lda, int ldo) {
-  __shared__ __align__(128) bf16 As[GB_M * GB_LD];
-  __shared__ __align__(128) bf16 Bs[GB_N * GB_LD];
-  __shared__ __align__(128) float Cs[GB_M * GB_CLD];
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  FragC acc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += GB_K) {
-    for (int v = threadIdx.x; v < GB_M * (GB_K / 8); v += blockDim.x) {
-      const int r = v / (GB_K / 8), cv = (v % (GB_K / 8)) * 8;
-      const int gk = k0 + cv;
-      uint4 a = make_uint4(0u, 0u, 0u, 0u), b = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && gk < K)
-        a = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * lda + gk);
-      if (n0 + r < N && gk < K)
-        b = *reinterpret_cast<const uint4*>(B + (size_t)(n0 + r) * K + gk);
-      *reinterpret_cast<uint4*>(&As[r * GB_LD + cv]) = a;
-      *reinterpret_cast<uint4*>(&Bs[r * GB_LD + cv]) = b;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      FragA a[2];
-      FragBT b[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm + i * 16) * GB_LD + kk], GB_LD);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[(wn + j * 16) * GB_LD + kk], GB_LD);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm + i * 16) * GB_CLD + wn + j * 16], acc[i][j],
-                              GB_CLD, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < GB_M * GB_N; e += blockDim.x) {
-    const int r = e / GB_N, c = e % GB_N;
-    const int gr = m0 + r, gc = n0 + c;
-    if (gr < M && gc < N)
-      out[(size_t)gr * ldo + gc] =
-          __float2bfloat16(Cs[r * GB_CLD + c] + __bfloat162float(bias[gc]));
-  }
-}
-
-}  // namespace sodt
-
-extern "C" int sodt_gemm_bias(const void* A, const void* B, const void* bias, void* out,
-                              int M, int N, int K, int lda, int ldo, void* stream) {
-  dim3 grid((N + sodt::GB_N - 1) / sodt::GB_N, (M + sodt::GB_M - 1) / sodt::GB_M);
-  sodt::gemm_bias_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const sodt::bf16*)A, (const sodt::bf16*)B, (const sodt::bf16*)bias,
-      (sodt::bf16*)out, M, N, K, lda, ldo);
-  return (int)cudaGetLastError();
+  a.A = (const bf16*)attn;
+  a.W = (const bf16*)wp;
+  a.bias = (const bf16*)bp;
+  a.out = (bf16*)out;
+  a.N = C;
+  return launch_gemm_core<GC_ROWS, GC_BIAS>(a, st);
 }
 
 // groups: windows' groups per head of the register body (N <= 64), at most

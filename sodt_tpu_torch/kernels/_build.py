@@ -27,7 +27,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (see the .cu files)
 SIGNATURES = {
-    "sodt_gemm_bias": [P, P, P, P, I, I, I, I, I, P],
+    "sodt_block_attention_chain": [P] * 10 + [I] * 8 + [F, I, P],
     "sodt_window_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
     "sodt_gemm_core": [P] * 5 + [I] * 6 + [P],
     "sodt_global_attention": [P] * 6 + [I] * 7 + [F, P],

@@ -8,8 +8,8 @@ Counterpart of `sodt_tpu/pallas/layernorm.py`:
 Statistics in f32 as var = E[x^2] - mu^2, eps 1e-5 by default, the result
 cast back to the input dtype (`_reference_ln`); the add is taken in the
 input dtype first and LN sees the rounded sum (`_add_ln_kernel`). On a CUDA
-bf16 tensor the forward is the hand-written kernel of csrc/layernorm.cu and
-the backward follows `_ln_grad` / `_add_ln_core_bwd` (analytic, in plain
+bf16 tensor the forward is the hand-written kernel of csrc/layernorm.cu
+(rows packed to their width: `ln_body`) and the backward follows `_ln_grad` / `_add_ln_core_bwd` (analytic, in plain
 PyTorch, as the JAX package leaves it to XLA). f32 and CPU tensors take the
 plain version, differentiated by autograd.
 """
@@ -58,7 +58,27 @@ def ln_grad_plain(x, weight, g, eps: float = 1e-5):
 def kernel_supported(c: int) -> bool:
     """The domain of csrc/layernorm.cu: rows of whole 16-byte vectors that
     one warp keeps in registers."""
-    return c % 8 == 0 and c <= 1024
+    return c % 8 == 0 and 0 < c <= 1024
+
+
+# the widths the system runs, 24 * 2^k: lanes a row at three 16-byte
+# vectors a lane
+PACKED_LANES = {24: 1, 48: 2, 96: 4, 192: 8, 384: 16, 768: 32}
+
+
+def ln_body(c: int) -> tuple[int, int]:
+    """(lanes a row, 16-byte vectors a lane) of csrc/layernorm.cu's row body
+    at width c, as `ln_dispatch` there picks it (the kernel's template
+    arguments L and V): rows packed to their width at 24 * 2^k (C / 24
+    lanes of three vectors: 32 / L rows a warp, no lane idle), a whole warp
+    of four vectors a lane at any other width of the domain. The same for
+    all four entries (LN, add + LN, K2's LN2 on f32 rows, K4's front)."""
+    if not kernel_supported(c):
+        raise ValueError(f"layernorm: C={c} (needs a multiple of 8, at most "
+                         "1024)")
+    if c in PACKED_LANES:
+        return PACKED_LANES[c], 3
+    return 32, 4
 
 
 def _check(name: str, c: int, **tensors) -> None:

@@ -298,23 +298,36 @@ def attention_fwd_mirror(qkv, bias, mask, ws: int, nh: int, scale: float,
     return _from_windows(out, b, h, w, ws)
 
 
-def block_attention_ln_chain_plain(x, lnw, lnb, wqkv, bqkv, wp, bp, bias,
-                                   mask, ws: int, nh: int, scale: float,
-                                   shift: int = 0, core_rounded: bool = True):
-    """The plain mirror of K3's chain (csrc/shifted_block_chain.cu), each
-    launch in f32 with the kernel's rounding points made explicit, in map
-    order: ln = bf16(LN(x)); qkv = bf16(ln Wqkv^T + bqkv); the attention
-    core as `attention_fwd_mirror` rounds it, read at ((r + shift) mod H,
-    (c + shift) mod W) and written at (r, c); out = bf16(attn Wp^T + bp).
-    Returns (B, H, W, C) f32 in SHIFTED coordinates, as JAX's kernel.
+def block_attention_chain_plain(x, wqkv, bqkv, wp, bp, bias, mask,
+                                ws: int, nh: int, scale: float,
+                                shift: int = 0, core_rounded: bool = True,
+                                ln=None):
+    """The plain mirror of K5's chain (csrc/block_attention.cu; with `ln`
+    = (lnw, lnb), of K3's, csrc/shifted_block_chain.cu), each launch in f32
+    with the kernel's rounding points made explicit, in map order: (K3: ln
+    = bf16(LN(x)), which takes x's place;) qkv = bf16(x Wqkv^T + bqkv); the
+    attention core as `attention_fwd_mirror` rounds it, read at ((r + shift)
+    mod H, (c + shift) mod W) and written at (r, c); out = bf16(attn Wp^T +
+    bp). Returns (B, H, W, C) f32 in SHIFTED coordinates, as JAX's kernel.
     `core_rounded=False` keeps q * scale, P and the attention output in f32
     (the control a check of the core's rounding points must tell apart)."""
     rnd = lambda z: z.to(torch.bfloat16).float()
     lin = lambda z, w, b: torch.matmul(z, w.float().t()) + b.float()
-    qkv = rnd(lin(rnd(ln_f32(x.float(), lnw, lnb)), wqkv, bqkv))
+    z = x.float() if ln is None else rnd(ln_f32(x.float(), *ln))
+    qkv = rnd(lin(z, wqkv, bqkv))
     attn = attention_fwd_mirror(qkv, bias, mask, ws, nh, scale, shift,
                                 core_rounded)
     return rnd(lin(attn, wp, bp))
+
+
+def block_attention_ln_chain_plain(x, lnw, lnb, wqkv, bqkv, wp, bp, bias,
+                                   mask, ws: int, nh: int, scale: float,
+                                   shift: int = 0, core_rounded: bool = True):
+    """The plain mirror of K3's chain: `block_attention_chain_plain` with
+    the LN."""
+    return block_attention_chain_plain(x, wqkv, bqkv, wp, bp, bias, mask, ws,
+                                       nh, scale, shift, core_rounded,
+                                       ln=(lnw, lnb))
 
 
 def global_attention_bwd_plain(qkv, bias, nh: int, scale: float, gy,
@@ -366,23 +379,6 @@ def window_core_supported(n: int, hd: int) -> bool:
     return n <= 256 and hd % 16 == 0 and hd <= 64
 
 
-def gemm_bias(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16 (M, K) @ (N, K)^T + b, f32 accumulation, one bf16 rounding: the
-    GEMM kernel of csrc/block_attention.cu that K5 launches for its
-    projections. Not a counted kernel of its own."""
-    k = a.shape[-1]
-    m = a.numel() // k
-    n = w.shape[0]
-    _require(k % 8 == 0 and w.shape[1] == k, f"gemm_bias: bad K {k}")
-    _require((m + 63) // 64 <= 65535, f"gemm_bias: {m} rows exceed the grid")
-    out = torch.empty(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
-    lib = _build.library()
-    _build.check(lib.sodt_gemm_bias(a.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                    out.data_ptr(), m, n, k, k, n,
-                                    _build.stream_ptr()), "gemm_bias")
-    return out
-
-
 class Replay(torch.autograd.Function):
     """A fused kernel with a replayed backward (the JAX package's
     `custom_vjp`s `_fsb_bwd`, `_fba_bwd`, ...): forward runs
@@ -425,14 +421,18 @@ def fused_block_attention(x, wqkv, bqkv, wp, bp, bias, mask, ws: int,
 
     On the H100 the work is bound by operations, most of them in the two
     projections (8*C^2 FLOPs per token against 4*N*C in the windowed core,
-    N=64). Design: the qkv GEMM runs on the unrolled map (a per-token
-    product commutes with the roll); the attention core is K1's forward
-    body (csrc/window_attention_fwd.cuh, scores in registers at N <= 64)
-    with the shifted addressing: it reads its tokens at ((r + shift) mod H,
-    (c + shift) mod W) — the shift is index arithmetic, no roll is
-    materialized — and writes the head's output in shifted coordinates;
-    the proj GEMM is a second launch of the same GEMM kernel. Window
-    packing (`_pick_pack`, a TPU MXU-filling trick) is not carried over.
+    N=64). Design: K3's chain less the LN, three launches from one C entry
+    (csrc/block_attention.cu, `sodt_block_attention_chain`): the qkv GEMM
+    on the wgmma GEMM core (+ bqkv) over the unrolled map (a per-token
+    product commutes with the roll); the attention core (the forward's
+    register body at N <= 64, the strip body above) with the shifted
+    addressing: it reads its tokens at ((r + shift) mod H, (c + shift) mod
+    W) — the shift is index arithmetic, no roll is materialized — and
+    writes the head's output in shifted coordinates; the projection on the
+    same core (+ bp). `block_attention_chain_plain` mirrors its rounding
+    points; the scratch (qkv, the attention output) is allocated here.
+    Window packing (`_pick_pack`, a TPU MXU-filling trick) is not carried
+    over.
 
     int8=True is K12's body (`block_attention_q8_plain` says what it
     computes; `q8` the quantized weights, else quantized here): see
@@ -462,10 +462,21 @@ def fused_block_attention(x, wqkv, bqkv, wp, bp, bias, mask, ws: int,
 
 def _launch_block_attention(x, wqkv, bqkv, wp, bp, bias, mask, ws, nh, scale,
                             shift):
-    qkv = gemm_bias(x, wqkv, bqkv)
-    attn = _window_core(qkv, bias, mask, ws, nh, scale, shift,
-                        "fused_block_attention")
-    out = gemm_bias(attn, wp, bp)
+    b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, wqkv, bqkv, wp, bp, bias)]
+    ptrs += [None if mask is None else mask.data_ptr(), out.data_ptr()]
+    # the chain's launches move 16-byte pieces of every operand
+    _require(all(p % 16 == 0 for p in ptrs if p is not None),
+             "fused_block_attention: operands must be 16-byte aligned")
+    m = b * h * w
+    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
+    attn = torch.empty((m, c), dtype=x.dtype, device=x.device)
+    groups = fwd_groups(b * (h // ws) * (w // ws), ws * ws, nh)
+    _build.check(_build.library().sodt_block_attention_chain(
+        *ptrs, qkv.data_ptr(), attn.data_ptr(), b, h, w, c, nh, ws, shift,
+        int(mask is not None), float(torch.tensor(scale, dtype=x.dtype)),
+        groups, _build.stream_ptr()), "fused_block_attention")
     LAUNCHES["block_attention"] += 1
     return out
 

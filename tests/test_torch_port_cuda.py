@@ -416,8 +416,9 @@ def test_conv_tail_chain_vs_mirror(card, b, hw, c, nh, shift):
 def test_shifted_block_chains_by_kernel_name(card):
     """The kernels the profiler sees in a K3 and a K4 call at head dim 16
     and shift 4: K13's LN body, the GEMM core and the register attention
-    core with K5's addressing (FwdShiftedMap) for K3; the un-shift add +
-    LN pass, the GEMM core and its conv gather (loader 1) for K4; no
+    core with K5's addressing (FwdShiftedMap) for K3; K13's body with the
+    un-shift add front (mode 3; a whole warp a row at C 64), the GEMM core
+    and its conv gather (loader 1) for K4; no
     kernel of csrc/swin_block.cu. swin_window_kernel<false> at head dim
     128, which the chain does not take, still held to the plain version."""
     c, nh, ws, hw = 64, 4, 8, 16
@@ -433,7 +434,7 @@ def test_shifted_block_chains_by_kernel_name(card):
     for part in parts:
         assert any(part in k for k in names), (part, names)
     assert not any("swin_window_kernel" in k for k in names)
-    parts = ("unshift_add_ln_kernel", "gemm_core_kernel<0, 1, 96",
+    parts = ("layernorm_kernel<3, 4, 32>", "gemm_core_kernel<0, 1, 96",
              "gemm_core_kernel<1, 0, 96", "gemm_core_kernel<0, 4, 96")
     names = _device_kernel_names(
         lambda: sb.fused_conv_mlp_tail(x, x, *wt["ln2"], *wt["conv"], 4),
@@ -457,6 +458,96 @@ def test_shifted_block_chains_by_kernel_name(card):
                                         for a in args])
     torch.cuda.synchronize()
     assert _rel(out, ref) < TOL
+
+
+# K5's chain (csrc/block_attention.cu) against its rounded mirror
+# `block_attention_chain_plain` as K3's: relative L2 K2_CHAIN_L2 over the
+# map and its wrapping windows, the f32 plain version by max |diff|, the
+# core's rounding points in f32 as the control
+@pytest.mark.parametrize("b,hw,c,nh", [(2, 64, 384, 12), (1, 16, 32, 2)])
+@pytest.mark.parametrize("shift", [0, 2])
+def test_block_attention_chain_vs_mirror(card, b, hw, c, nh, shift):
+    """K5 through the chain at the flagship's stage 2 (qkv N = 1,152 on
+    the core's 128-wide tiles, the projection on its 96-wide ones) and at
+    a small shape, at shift 0 and at shift 2 with the mask (output in
+    shifted coordinates)."""
+    ws = 8
+    wt = _block_weights(c, 110)
+    x = _rnd((b, hw, hw, c), 111).to(BF)
+    bias = _rnd((nh, 64, 64), 112)
+    mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
+            if shift else None)
+    _check_chain(wa.fused_block_attention, wa.block_attention_chain_plain,
+                 wa.block_attention_plain,
+                 (x, *wt["att"], bias, mask, ws, nh, (c // nh) ** -0.5,
+                  shift), "block_attention", {"core_rounded": False})
+
+
+def test_block_attention_chain_by_kernel_name(card):
+    """The kernels the profiler sees in a K5 call at C 384, 12 heads (head
+    dim 32): the GEMM core with the bias epilogue at both tile widths (qkv
+    N 1,152: 128; the projection N 384: 96) and the register attention
+    core with FwdMap at shift 0, FwdShiftedMap at shift 4, and nothing
+    else: no gemm_bias_kernel (the WMMA GEMM K5 ran before)."""
+    c, nh, ws, hw = 384, 12, 8, 16
+    wt = _block_weights(c, 113)
+    x = _rnd((1, hw, hw, c), 114).to(BF)
+    bias = _rnd((nh, 64, 64), 115)
+    mask = torch.from_numpy(shift_attn_mask(hw, hw, ws, 4)).cuda()
+    for shift, core in ((0, "FwdMap"), (4, "FwdShiftedMap")):
+        parts = ("gemm_core_kernel<0, 1, 128, 3>", "gemm_core_kernel<0, 1, 96, 4>",
+                 f"window_attn_fwd_kernel<32, 64, sodt::{core}>")
+        names = _device_kernel_names(
+            lambda: wa.fused_block_attention(x, *wt["att"], bias,
+                                             mask if shift else None, ws, nh,
+                                             0.25, shift), *parts,
+            device_only=True)
+        for part in parts:
+            assert any(part in k for k in names), (part, names)
+        assert all(("gemm_core_kernel<0, 1, " in k
+                    or "window_attn_fwd_kernel" in k) for k in names), names
+
+
+def test_block_attention_chain_strip_core(card):
+    """K5's chain at windows of 256 tokens (ws 16), where its core is the
+    strip body of csrc/window_attention.cuh, against the f32 plain version
+    (TOL), at shift 0 and at shift 8 with the mask."""
+    c, nh, ws, hw = 64, 2, 16, 32
+    wt = _block_weights(c, 116)
+    x = _rnd((2, hw, hw, c), 117).to(BF)
+    bias = _rnd((nh, 256, 256), 118)
+    for shift in (0, 8):
+        mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
+                if shift else None)
+        args = (x, *wt["att"], bias, mask, ws, nh, (c // nh) ** -0.5, shift)
+        out = wa.fused_block_attention(*args)
+        ref = wa.block_attention_plain(*[a.float() if torch.is_tensor(a)
+                                         and a.dtype == BF else a
+                                         for a in args])
+        torch.cuda.synchronize()
+        assert _rel(out, ref) < TOL
+
+
+def test_bf16_forward_runs_no_gemm_bias_kernel(card):
+    """The whole bf16 forward at 512 px: no kernel named gemm_bias_kernel,
+    and K5's two GEMM shapes on the core (qkv N 1,152 takes its 128-wide
+    tiles, as K3's and K2's qkv at N 576 do)."""
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.weights import init_weights
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    m = build_model("configs/model.yaml", ch_in=4, dtype=BF)
+    m = cache_rel_bias(init_weights(m, 0).cuda().eval())
+    x = torch.rand((1, 512, 512, 3), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+
+    def forward():
+        with torch.no_grad():
+            m(x, x)
+
+    names = _device_kernel_names(forward, "gemm_core_kernel<0, 1, 128, 3>",
+                                 device_only=True)
+    assert any("gemm_core_kernel<0, 1, 128, 3>" in n for n in names), names
+    assert not any("gemm_bias" in n for n in names), names
 
 
 def test_wrappers_raise_on_cuda_f32(card):
@@ -1189,10 +1280,14 @@ def test_attention_functions_grad(card, kind):
 
 
 @pytest.mark.parametrize("r,c", [(64, 48), (2 * 64 * 64, 384), (1000, 192),
-                                 (2 * 32 * 32, 768), (9, 1024)])
+                                 (2 * 32 * 32, 768), (9, 1024),
+                                 (4 * 4096 + 7, 24), (1001, 48), (333, 96),
+                                 (77, 40), (5, 192)])
 def test_layernorm_kernels(card, r, c):
     """K13 forward (LN and add+LN) and its backward against the plain
-    versions; rows that do not fill the last CTA."""
+    versions; rows that do not fill the last CTA, and (4 * 4096 + 7 at C
+    24: 32 rows a warp; 1001 at 48: 16; 333 at 96: 8; 1000 and 5 at 192:
+    4) rows that leave the last warp's row groups partly past R."""
     from sodt_tpu_torch.kernels import layernorm as kln
     x = _rnd((r, c), 50).to(BF).requires_grad_()
     y2 = _rnd((r, c), 51).to(BF).requires_grad_()
@@ -1224,6 +1319,25 @@ def test_layernorm_kernels(card, r, c):
     kernels.reset_launches()
     kln.layernorm(x.detach().float(), w.detach(), bb.detach())
     assert kernels.launches()["layernorm"] == 0
+
+
+@pytest.mark.parametrize("c", [24, 48, 96, 192, 384, 768, 40])
+def test_layernorm_bodies_by_kernel_name(card, c):
+    """The instantiation of K13's row body the profiler sees for LN (front
+    0) and add + LN (front 2) is the one `ln_body` names: layernorm_kernel
+    <front, V, L>, L lanes of V vectors a row. A session profiles 20 calls:
+    one call of a few microseconds alone left sessions with no record."""
+    from sodt_tpu_torch.kernels import layernorm as kln
+    lanes, vecs = kln.ln_body(c)
+    x = _rnd((4099, c), 56).to(BF)
+    w, bb = 1 + _rnd((c,), 57, 0.1), _rnd((c,), 58, 0.1)
+    for front, fn in ((0, lambda: kln.layernorm(x, w, bb)),
+                      (2, lambda: kln.add_layernorm(x, x, w, bb))):
+        want = f"layernorm_kernel<{front}, {vecs}, {lanes}>"
+        names = _device_kernel_names(lambda: [fn() for _ in range(20)], want,
+                                     device_only=True)
+        assert any(want in k for k in names), (want, names)
+        assert all("layernorm_kernel" in k for k in names), names
 
 
 def test_fused_wrappers_replay_grad(card):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Device times of the stage-1 Swin block kernels, K2 (the whole block with
-the linear MLP), K3 (LN1 + shifted attention + projection) and K4 (the
-un-shift, residual, LN2 and conv MLP tail), and of their bf16 PyTorch
-compositions, on one CUDA card, with each kernel's time split by the
-kernels it launches.
+"""Device times of the Swin block kernels, K2 (the whole block with the
+linear MLP), K3 (LN1 + shifted attention + projection), K4 (the un-shift,
+residual, LN2 and conv MLP tail) and K5 (stage 2's qkv + attention +
+projection), and of their bf16 PyTorch compositions, on one CUDA card,
+with each kernel's time split by the kernels it launches.
 
     python tools/bench_swin_block.py [--batch 4] [--iters 30] [--label x]
 
@@ -24,7 +24,10 @@ Cases: the flagship's stage 1 (C 192, 12 heads, window 8, hidden 768) at
 the unshifted block, K3 and K4 at shift 2 with the mask, each of which the
 main path runs three times a forward; beside each its plain version on
 the same bf16 arguments (`swin_block_plain`, `block_attention_ln_plain`,
-`conv_mlp_tail_plain`). Needs a card; exits 1 without one.
+`conv_mlp_tail_plain`); and stage 2 at 512 px (C 384, 12 heads, a 64 x 64
+map): K5 at shift 0 and at shift 2 with the mask, each of which the main
+path runs twice a forward, beside `block_attention_plain`. Needs a card;
+exits 1 without one.
 """
 
 from __future__ import annotations
@@ -75,6 +78,17 @@ def main() -> int:
     scale = (c // nh) ** -0.5
     size = lambda *ts: sum(t.numel() * t.element_size() for t in ts
                            if t is not None)
+
+    def emit(kname, kern, plain, blk, flops, fbytes, cbytes, tag):
+        for label, fn in ((f"{kname} {tag}", lambda: kern(*blk)),
+                          (f"{kname} plain {tag}", lambda: plain(*blk))):
+            row = {"case": label, "tree": tree, "label": args.label,
+                   "card": name, **measure(fn, args.iters)}
+            row["tflops"] = flops / max(row["device_us"], 1e-9) / 1e6
+            row["bytes_bound_us"] = 1e6 * fbytes / 3.35e12
+            row["chain_bytes_bound_us"] = 1e6 * cbytes / 3.35e12
+            print(json.dumps(row), flush=True)
+
     for hw in (128, 152):
         x, a = rnd((b, hw, hw, c)), rnd((b, hw, hw, c))
         mask = torch.from_numpy(shift_attn_mask(hw, hw, ws, 2)).cuda()
@@ -98,16 +112,23 @@ def main() -> int:
              (x, a, *ln2, *conv, 2), 12 * m * c * c,
              3 * mc2 + size(*ln2, *conv), 13 * mc2 + size(*ln2, *conv)))
         for kname, kern, plain, blk, flops, fbytes, cbytes in cases:
-            shift = blk[-1]
-            tag = f"({b},{hw},{hw},{c}) shift {shift}"
-            for label, fn in ((f"{kname} {tag}", lambda: kern(*blk)),
-                              (f"{kname} plain {tag}", lambda: plain(*blk))):
-                row = {"case": label, "tree": tree, "label": args.label,
-                       "card": name, **measure(fn, args.iters)}
-                row["tflops"] = flops / max(row["device_us"], 1e-9) / 1e6
-                row["bytes_bound_us"] = 1e6 * fbytes / 3.35e12
-                row["chain_bytes_bound_us"] = 1e6 * cbytes / 3.35e12
-                print(json.dumps(row), flush=True)
+            emit(kname, kern, plain, blk, flops, fbytes, cbytes,
+                 f"({b},{hw},{hw},{c}) shift {blk[-1]}")
+    # stage 2: K5, its chain's own traffic 10 (M, C) bf16 maps (x, qkv
+    # written and read, the attention output written and read, out)
+    c2, hw = 2 * c, 64
+    m = b * hw * hw
+    att2 = (rnd((3 * c2, c2), c2 ** -0.5), rnd((3 * c2,), 0.1),
+            rnd((c2, c2), c2 ** -0.5), rnd((c2,), 0.1))
+    x = rnd((b, hw, hw, c2))
+    for shift in (0, 2):
+        mask = (torch.from_numpy(shift_attn_mask(hw, hw, ws, shift)).cuda()
+                if shift else None)
+        w = size(*att2, bias, mask)
+        emit("K5", wa.fused_block_attention, wa.block_attention_plain,
+             (x, *att2, bias, mask, ws, nh, (c2 // nh) ** -0.5, shift),
+             m * (8 * c2 * c2 + 4 * n * c2), 2 * m * c2 * 2 + w,
+             10 * m * c2 * 2 + w, f"({b},{hw},{hw},{c2}) shift {shift}")
     return 0
 
 
