@@ -67,10 +67,11 @@ the final ok line:
               pads into four windows for K8
      train    `python -m sodt_tpu_torch.train --synthetic --synthetic-n 16
               --img-size 512 --batch-size 4 --nbs 4 --epochs 2 --notest`
-              in-process (8 optimizer steps, bf16, seeded weights, a hyp
-              file with warmup_iters 4): finite losses, the launches of
-              every step (PER_STEP), a non-zero gradient on every parameter
-              at the first step, parameters that moved
+              in-process (8 optimizer steps on the augmented device-bank
+              feed, bf16, seeded weights, a hyp file with warmup_iters 4):
+              finite losses, the launches of every step (PER_STEP), a
+              non-zero gradient on every parameter at the first step,
+              parameters that moved
      swinv2   `python -m sodt_tpu_torch.val --cfg model_swinv2.yaml` at
               512 px, batch 4, 4 images, weights from a seed with the
               post-norm scales drawn too (at their zero init every V2 block
@@ -92,6 +93,27 @@ the final ok line:
               kernels (reported); each of the 17 K12 calls of that forward
               held on its own arguments as the kernel cases are; then
               `--task speed` with and without --int8
+     trained  the trained flagship (checkpoints/flagship_r5_150ep_ema.npz,
+              its sha256 held to the sidecar's first): `val --weights` at
+              512 px, batch 4, SyntheticVedai(n=16, seed=1) in bf16, on the
+              f32 plain path and with --int8, launches per forward as on
+              `main` / `int8` (f32: none); mAP@0.5 and mAP beside JAX's f32
+              values from the sidecar (bf16 within 1e-2, f32 within 5e-3 of
+              JAX's mAP@0.5, int8 at least 0.9x bf16's; int8's gap to bf16
+              is its cost in mAP), raw Detect maps bf16 vs f32
+     train_aug  `python -m sodt_tpu_torch.train --weights` the .npz, 512 px,
+              batch 4, nbs 4: 2 epochs with --save-dir / --save-period 1
+              (every array but the anchors loaded), --resume last.pt for one
+              more epoch after the restored state is held to the saved one
+              bit for bit, 2 steps with the gather warp, mixup and the
+              mosaic gate, 3 steps of --multi-scale at 384, 512 and 640 px
+              (launches per step and per forward at each size), 1 epoch of
+              --image-weights: finite losses and the launches of each run;
+              the feed's device time per step (torch.profiler) beside a
+              training step's and the idle share of the two; one augmented
+              batch on the card against the same tiles and draws on the
+              CPU (images <= 1e-2 on the 0-255 scale, labels <= 1e-3 px,
+              masks equal), for the hyp file's and the gather / mixup hyps
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
               device time; the forward's time by CUDA events (host gaps
@@ -204,6 +226,30 @@ PER_STEP = dict(PER_FORWARD, window_attention=10, window_attention_bwd=10,
 TRAIN_ARGS = ["--synthetic", "--synthetic-n", "16", "--img-size", "512",
               "--batch-size", "4", "--nbs", "4", "--epochs", "2", "--notest"]
 TRAIN_STEPS = 8
+# the trained flagship (runs/flagship_r5_150ep, EMA weights), committed as
+# an .npz with a sidecar that holds its sha256 and JAX's own f32 mAP on
+# SyntheticVedai(n=16, seed=1) at 512 px, batch 4 (tools/export_flagship_npz.py)
+TRAINED_NPZ = "checkpoints/flagship_r5_150ep_ema.npz"
+TRAINED_ARGS = ["--task", "val", "--synthetic", "--synthetic-n", "16",
+                "--img-size", "512", "--batch-size", "4", "--weights",
+                TRAINED_NPZ]
+TRAINED_FORWARDS = 4
+# mAP@0.5 on the card against JAX's f32 value: the bf16 kernels within
+# 1e-2, the f32 plain path within 5e-3; int8 serving at least 0.9x bf16's
+TRAINED_BF16_TOL = 1e-2
+TRAINED_F32_TOL = 5e-3
+TRAINED_INT8_FRACTION = 0.9
+# the augmented training feed from the trained weights (train_aug): the
+# flagship at full width and depth, 512 px, batch 4, nbs 4
+AUG_ARGS = ["--synthetic", "--img-size", "512", "--batch-size", "4",
+            "--nbs", "4", "--weights", TRAINED_NPZ]
+# the hyps that turn on the gather warp, mixup and the mosaic gate
+AUG_GATHER_HYP = dict(degrees=10.0, shear=2.0, perspective=0.0005,
+                      mixup=0.5, mosaic=0.5)
+# the card's augmented batch against the CPU's on the same tiles and draws:
+# images on the 0-255 scale, labels in px
+AUG_IMG_TOL = 1e-2
+AUG_LABEL_TOL = 1e-3
 # the off-window path (608 px): stage 2's 76x76 map is no multiple of the
 # window, so its four blocks take the generic composition with the K1 core;
 # stage 3's 38x38 map pads to four 32x32 windows for K8
@@ -1601,7 +1647,8 @@ def phase_train(label: str, workdir: Path, train_args: list[str], steps: int,
         hyp = yaml.safe_load(f)
     hyp_path = workdir / "hyp_smoke.yaml"
     hyp_path.write_text(yaml.safe_dump(dict(hyp, warmup_iters=4)))
-    args = train_args + ["--hyp", str(hyp_path)]
+    args = train_args + ["--hyp", str(hyp_path), "--save-dir",
+                         str(workdir / label)]
     cfg = cli.parser().parse_args(args).cfg
 
     seen = {"counts": [], "losses": [], "t": [], "no_grad": None,
@@ -1657,6 +1704,327 @@ def phase_train(label: str, workdir: Path, train_args: list[str], steps: int,
     return row
 
 
+def trained_weights() -> tuple[str, dict]:
+    """The committed .npz of the trained flagship and its sidecar, after
+    the file's sha256 is held to the sidecar's."""
+    import hashlib
+    npz = Path(TRAINED_NPZ)
+    side = json.loads(npz.with_suffix(".json").read_text())
+    digest = hashlib.sha256(npz.read_bytes()).hexdigest()
+    if digest != side["sha256"]:
+        raise RuntimeError(f"{npz}: sha256 {digest} is not the sidecar's "
+                           f"{side['sha256']}")
+    return str(npz), side
+
+
+def phase_trained(label: str) -> dict:
+    """The trained flagship on the card: `val --weights` the committed
+    .npz at 512 px, batch 4, on SyntheticVedai(n=16, seed=1) in bf16 (the
+    kernels), on the f32 plain path (--no-bf16) and in int8 serving
+    (--int8), each with the launch counts set to 0 just before and read
+    just after; mAP@0.5 and mAP beside JAX's f32 values from the sidecar;
+    the raw Detect maps of one batch, bf16 against f32. int8's gap to bf16
+    is its cost in mAP."""
+    import torch
+    from sodt_tpu_torch import kernels, val
+    from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.train.checkpoint import load_weights
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+
+    npz, side = trained_weights()
+    ref = side["jax_f32_eval"]
+    runs, ok = {}, True
+    for tag, extra, expected in (
+            ("bf16", [], PER_FORWARD),
+            ("f32", ["--no-bf16"], {k: 0 for k in PER_FORWARD}),
+            ("int8", ["--int8"], INT8_FORWARD)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m = val.main(extra + TRAINED_ARGS)
+        wall = time.perf_counter() - t0
+        per_fwd = {k: v / TRAINED_FORWARDS
+                   for k, v in kernels.launches().items()}
+        runs[tag] = {k: m[k] for k in ("map50", "map", "mp", "mr", "seen",
+                                       "images_per_s", "speed_ms")}
+        runs[tag].update(wall_s=wall, launches_per_forward=per_fwd)
+        ok = ok and (per_fwd == {k: float(v) for k, v in expected.items()}
+                     and m["seen"] == 16
+                     and all(math.isfinite(m[k]) for k in ("map50", "map")))
+
+    ds = SyntheticVedai(n=16, img_size=512, nc=8, seed=1)
+    batch = next(make_eval_batches(ds, MAIN_BATCH))
+    img = torch.from_numpy(batch["img"]).cuda().float() / 255
+    ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
+    sd, raws = load_weights(npz), {}
+    for dt in (torch.bfloat16, torch.float32):
+        model = build_model("configs/model.yaml", ch_in=4, dtype=dt)
+        model.load_state_dict(sd)
+        model = cache_rel_bias(model.cuda().eval())
+        with torch.no_grad():
+            raws[dt] = model(img, ir)["raw"][0].float()
+    a, b = raws[torch.bfloat16], raws[torch.float32]
+    rel_l2 = ((a - b).norm() / b.norm()).item()
+    gaps = {tag: runs[tag]["map50"] - ref["map50"] for tag in runs}
+    ok = ok and (abs(gaps["bf16"]) <= TRAINED_BF16_TOL
+                 and abs(gaps["f32"]) <= TRAINED_F32_TOL
+                 and runs["int8"]["map50"]
+                 >= TRAINED_INT8_FRACTION * runs["bf16"]["map50"]
+                 and bool(torch.isfinite(a).all()))
+    row = {"phase": label, "args": TRAINED_ARGS, "npz_sha256": side["sha256"],
+           "jax_f32": {"map50": ref["map50"], "map": ref["map"]},
+           "runs": runs, "map50_minus_jax_f32": gaps,
+           "int8_cost": {k: runs["bf16"][k] - runs["int8"][k]
+                         for k in ("map50", "map")},
+           "detect_rel_l2_bf16_vs_f32": rel_l2,
+           "bounds": {"bf16": TRAINED_BF16_TOL, "f32": TRAINED_F32_TOL,
+                      "int8_fraction_of_bf16": TRAINED_INT8_FRACTION},
+           "ok": bool(ok)}
+    emit(row)
+    return row
+
+
+def _train_cli(args: list[str], **hooks) -> tuple[dict, str]:
+    """`sodt_tpu_torch.train` in-process; its printed lines are passed on
+    and returned."""
+    import io
+    from sodt_tpu_torch.train import cli
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            m = cli.main(args, **hooks)
+    finally:
+        sys.stdout.write(buf.getvalue())
+    return m, buf.getvalue()
+
+
+def _step_recorder():
+    """An on_step hook that keeps each step's launch counts and losses."""
+    from sodt_tpu_torch import kernels
+    seen = {"counts": [], "losses": []}
+
+    def on_step(state, metrics):
+        seen["counts"].append(kernels.launches())
+        seen["losses"].append({k: float(v) for k, v in metrics.items()})
+    return seen, on_step
+
+
+def _per_step(counts: list[dict]) -> list[dict]:
+    zero = {k: 0 for k in counts[0]} if counts else {}
+    return [{k: c[k] - p[k] for k in c}
+            for p, c in zip([zero] + counts, counts)]
+
+
+def _distinct_scale_seed() -> tuple[int, list[int]]:
+    """The first seed whose multi-scale stream draws the three buckets in
+    its first three steps, and their sizes at 512 px."""
+    import numpy as np
+    from sodt_tpu_torch.data.loader import MULTI_SCALE
+    for seed in range(100):
+        rng = np.random.default_rng(seed)
+        draws = [int(rng.integers(len(MULTI_SCALE))) for _ in range(3)]
+        if len(set(draws)) == 3:
+            return seed, [int(round(512 * MULTI_SCALE[d] / 32) * 32)
+                          for d in draws]
+    raise RuntimeError("no seed draws three distinct buckets")
+
+
+def _state_equals(state, ckpt: dict) -> bool:
+    """The TrainState equals the checkpoint bit for bit: parameters and
+    BatchNorm statistics, EMA, optimizer state, step, EMA counter."""
+    import torch
+    eq = lambda a, b: torch.equal(a.detach().cpu(), b)
+    sd, opt = state.model.state_dict(), state.tx.state_dict()
+    same = lambda got, want: (
+        (got is None) == (want is None)
+        and set(got or {}) == set(want or {})
+        and all(eq(got[k], v) for k, v in (want or {}).items()))
+    return (same(sd, ckpt["model"]) and same(state.ema, ckpt["ema"])
+            and all(same(opt[k], ckpt["opt_state"][k])
+                    for k in ("acc", "trace", "nu"))
+            and (opt["count"], opt["ni"]) == (ckpt["opt_state"]["count"],
+                                              ckpt["opt_state"]["ni"])
+            and state.step == ckpt["step"]
+            and state.ema_updates == ckpt["ema_updates"])
+
+
+def _aug_card_vs_cpu(hyp: dict) -> dict:
+    """One augmented batch of the bank feed made on the card against the
+    same tiles and draws augmented on the CPU."""
+    import torch
+    from sodt_tpu_torch.data import SyntheticVedai
+    from sodt_tpu_torch.data.loader import BankFeed
+    ds = SyntheticVedai(n=16, img_size=512, nc=8, seed=0)
+    gpu = BankFeed(ds, MAIN_BATCH, 512, hyp, seed=3, device="cuda")
+    cpu = BankFeed(ds, MAIN_BATCH, 512, hyp, seed=3, device="cpu")
+    prim, sec, draws = gpu.step_schedule()
+    a = {k: v.cpu() for k, v in gpu.augment(prim, sec, draws).items()}
+    b = cpu.augment(prim, sec, draws)
+    img = max((a[k] - b[k]).abs().max().item() * 255 for k in ("img", "ir"))
+    lab = ((a["targets"][..., 1:] - b["targets"][..., 1:]).abs().max().item()
+           * 512)
+    same = (torch.equal(a["tmask"], b["tmask"])
+            and torch.equal(a["targets"][..., 0], b["targets"][..., 0]))
+    return {"img_max_abs_diff_0_255": img, "labels_max_abs_diff_px": lab,
+            "masks_and_classes_equal": bool(same),
+            "boxes_kept": int(b["tmask"].sum()),
+            "ok": bool(img <= AUG_IMG_TOL and lab <= AUG_LABEL_TOL and same)}
+
+
+def _aug_profile(hyp_path: Path, hyp: dict) -> dict:
+    """Device time of the feed's kernels for one step (torch.profiler over
+    `augment_step`), one training step's, and the idle share of the two
+    together against their CUDA-event time, warm, from the trained
+    weights."""
+    import torch
+    import yaml
+    from sodt_tpu_torch.data import SyntheticVedai
+    from sodt_tpu_torch.data.loader import BankFeed
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.train.checkpoint import load_weights
+    from sodt_tpu_torch.train.optim import make_optimizer
+    from sodt_tpu_torch.train.state import TrainState, make_train_step
+    from sodt_tpu_torch.train.trainer import loss_config, scale_hyp
+
+    model = build_model("configs/model.yaml", ch_in=4, dtype=torch.bfloat16)
+    model.load_state_dict(load_weights(TRAINED_NPZ))
+    model = model.cuda().train()
+    base = yaml.safe_load(hyp_path.read_text())
+    h = scale_hyp(dict(base, **hyp), len(model.spec.anchors), 8, 512)
+    tx = make_optimizer(h, dict(model.named_parameters()), epochs=1, nb=4)
+    state = TrainState.create(model, tx)
+    step = make_train_step(model, tx, loss_config(model, h, 8))
+    feed = BankFeed(SyntheticVedai(n=16, img_size=512, nc=8, seed=0),
+                    MAIN_BATCH, 512, h, seed=0, device="cuda")
+    both = lambda: step(state, feed.augment_step())
+    for _ in range(2):
+        both()
+    aug_ms = device_ms(feed.augment_step, "train_aug feed", iters=3)
+    batch = feed.augment_step()
+    step_dev = device_ms(lambda: step(state, batch), "train_aug step",
+                         iters=3)
+    wall_ms = time_ms(both, iters=5, warmup=1)
+    return {"augment_device_ms": aug_ms, "train_step_device_ms": step_dev,
+            "augment_plus_step_ms": wall_ms,
+            "augment_share_of_device": aug_ms / (aug_ms + step_dev),
+            "idle_share": max(0.0, 1 - (aug_ms + step_dev) / wall_ms)}
+
+
+def phase_train_aug(label: str, workdir: Path) -> dict:
+    """The augmented training feed from the trained weights, through
+    `sodt_tpu_torch.train` (--weights the .npz; the counts set to 0 just
+    before each run and read just after):
+      1. 2 epochs (8 steps), --save-dir, --save-period 1;
+      2. --resume last.pt for one more epoch (opt.yaml's epochs raised to
+         3, as a user extends a run: --resume reloads the run's opt.yaml),
+         the restored state held to the saved one bit for bit first;
+      3. 2 steps with the gather warp, mixup and the mosaic gate on;
+      4. 3 steps of --multi-scale, one at each of 384, 512 and 640 px
+         (a seed whose bucket stream draws all three), launches per step
+         and per eval forward at each size;
+      5. 1 epoch of --image-weights.
+    Then the feed's device time per step beside a training step's, the
+    idle share, and the card's augmented batch against the CPU's."""
+    import re
+    import torch
+    import yaml
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+    from sodt_tpu_torch.train.checkpoint import load_checkpoint, load_weights
+
+    trained_weights()
+    hyp_path = Path(resolve_config_path("configs/hyp.scratch.yaml"))
+    hyp_file = yaml.safe_load(hyp_path.read_text())
+    gather_path = workdir / "hyp_gather.yaml"
+    gather_path.write_text(yaml.safe_dump(dict(hyp_file, **AUG_GATHER_HYP)))
+    total = lambda steps, evals: {k: steps * PER_STEP[k]
+                                  + evals * PER_FORWARD[k] for k in PER_STEP}
+    row, ok = {"phase": label}, True
+
+    def run(tag, args, steps, evals, **hooks):
+        nonlocal ok
+        seen, on_step = _step_recorder()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m, out = _train_cli(AUG_ARGS + args, on_step=on_step, **hooks)
+        counts = kernels.launches()
+        losses = seen["losses"]
+        finite = all(math.isfinite(v) for l in losses for v in l.values())
+        r = {"args": args, "wall_s": time.perf_counter() - t0,
+             "steps": len(losses), "losses": losses, "finite": finite,
+             "map50": m["map50"], "launches": counts,
+             "launches_ok": counts == total(steps, evals)}
+        ok = ok and finite and r["launches_ok"] and len(losses) == steps
+        row[tag] = r
+        return m, out, seen
+
+    d = workdir / "aug"
+    _, out, _ = run("epochs2", ["--synthetic-n", "16", "--epochs", "2",
+                                "--save-dir", str(d), "--save-period", "1"],
+                    8, 2)
+    hit = re.search(r"pretrained: (\d+)/(\d+)", out)
+    n_loaded, n_total = (int(hit[1]), int(hit[2])) if hit else (0, -1)
+    files = sorted(p.name for p in d.iterdir())
+    row["pretrained"] = {"n_loaded": n_loaded, "n_total": n_total}
+    row["files"] = files
+    ok = ok and n_loaded == n_total and {"last.pt", "best.pt",
+                                         "epoch0.pt"} <= set(files)
+
+    opt = yaml.safe_load((d / "opt.yaml").read_text())
+    (d / "opt.yaml").write_text(yaml.safe_dump(dict(opt, epochs=3)))
+    saved = load_checkpoint(d / "last.pt")
+    restored = {}
+    m, _, _ = run("resume", ["--resume", str(d / "last.pt")], 4, 1,
+                  on_start=lambda st: restored.update(
+                      bit_equal=_state_equals(st, saved)))
+    row["resume"].update(restored_bit_equal=restored.get("bit_equal"),
+                         saved_epoch=saved["epoch"], steps_after=m["steps"])
+    ok = ok and restored.get("bit_equal") is True and m["steps"] == 12
+
+    run("gather_mixup", ["--synthetic-n", "8", "--epochs", "1", "--hyp",
+                         str(gather_path), "--save-dir", str(workdir / "g")],
+        2, 1)
+
+    seed, sizes = _distinct_scale_seed()
+    _, _, seen = run("multi_scale", ["--synthetic-n", "12", "--epochs", "1",
+                                     "--multi-scale", "--seed", str(seed),
+                                     "--save-dir", str(workdir / "ms")], 3, 1)
+    steps = _per_step(seen["counts"])
+    model = build_model("configs/model.yaml", ch_in=4, dtype=torch.bfloat16)
+    model.load_state_dict(load_weights(TRAINED_NPZ))
+    model = model.cuda().eval()
+    fwd = {}
+    for size in sorted(set(sizes)):
+        x = torch.rand(MAIN_BATCH, size, size, 3, device="cuda")
+        kernels.reset_launches()
+        with torch.no_grad():
+            model(x, x)
+        fwd[size] = kernels.launches()
+    row["multi_scale"].update(
+        seed=seed, sizes=sizes,
+        launches_per_step={str(z): c for z, c in zip(sizes, steps)},
+        launches_per_forward={str(z): c for z, c in fwd.items()})
+    ok = ok and sorted(sizes) == [384, 512, 640] and all(
+        c == PER_STEP for c in steps) and all(
+        c == PER_FORWARD for c in fwd.values())
+
+    run("image_weights", ["--synthetic-n", "16", "--epochs", "1",
+                          "--image-weights", "--save-dir",
+                          str(workdir / "iw")], 4, 1)
+
+    row["profile"] = {tag: _aug_profile(hyp_path, h) for tag, h in
+                      (("hyp_file", {}), ("gather_mixup", AUG_GATHER_HYP))}
+    row["card_vs_cpu"] = {
+        tag: _aug_card_vs_cpu(dict(hyp_file, **h)) for tag, h in
+        (("hyp_file", {}), ("gather_mixup", AUG_GATHER_HYP))}
+    ok = ok and all(v["ok"] for v in row["card_vs_cpu"].values())
+    row.update(bounds={"img_0_255": AUG_IMG_TOL, "labels_px": AUG_LABEL_TOL},
+               launches={}, ok=bool(ok))
+    emit(row)
+    return row
+
+
 def _train_setup(dtype, seed: int = 0, cfg: str = "configs/model.yaml"):
     """The model of `cfg` (the flagship) in training mode with weights from
     `seed`, one synthetic training batch from `seed` on the card, and its
@@ -1664,17 +2032,30 @@ def _train_setup(dtype, seed: int = 0, cfg: str = "configs/model.yaml"):
     import yaml
     from sodt_tpu_torch.data import SyntheticVedai
     from sodt_tpu_torch.models.compiler import resolve_config_path
-    from sodt_tpu_torch.train.trainer import (loss_config, make_train_batches,
-                                              scale_hyp)
-    from sodt_tpu_torch.weights import batch_to_torch
+    from sodt_tpu_torch.train.trainer import loss_config, scale_hyp
 
     with open(resolve_config_path("configs/hyp.scratch.yaml")) as f:
         hyp = yaml.safe_load(f)
     model = seeded_model(cfg, dtype, seed).cuda().train()
     hyp = scale_hyp(dict(hyp, warmup_iters=4), len(model.spec.anchors), 8, 512)
     ds = SyntheticVedai(n=MAIN_BATCH, img_size=512, nc=8, seed=seed)
-    batch = next(make_train_batches(ds, MAIN_BATCH, 30, seed, 0))
-    return model, batch_to_torch(batch, "cuda"), hyp, loss_config(model, hyp, 8)
+    return model, plain_batch(ds, seed), hyp, loss_config(model, hyp, 8)
+
+
+def plain_batch(ds, seed: int) -> dict:
+    """One un-augmented training batch of the whole dataset `ds` in a
+    seeded order, uint8 images scaled on the card: the input that the
+    gradient bounds (GRAD_*) were measured on."""
+    import numpy as np
+    from sodt_tpu_torch.data import pad_labels
+    from sodt_tpu_torch.weights import batch_to_torch
+    order = np.random.default_rng(seed * 7919).permutation(len(ds))
+    items = [ds[int(i)] for i in order]
+    labs = [pad_labels(lab, 30) for _, _, lab in items]
+    return batch_to_torch({"img": np.stack([r for r, _, _ in items]),
+                           "ir": np.stack([q for _, q, _ in items]),
+                           "targets": np.stack([l for l, _ in labs]),
+                           "tmask": np.stack([k for _, k in labs])}, "cuda")
 
 
 def _grad_diff(a: dict, b: dict) -> dict:
@@ -1950,6 +2331,8 @@ def main() -> int:
         drive("swinv2_train", phase_train, tmp, V2_TRAIN_ARGS + v2_weights,
               V2_TRAIN_STEPS, V2_STEP, V2_FORWARD)
         drive("int8", phase_int8, INT8_ARGS, INT8_FORWARD)
+        drive("trained", phase_trained)
+        drive("train_aug", phase_train_aug, tmp)
     for label, phase, args in (
             ("grads", phase_grads, ()), ("profile", phase_profile, ()),
             ("profile_train", phase_profile_train, ()),

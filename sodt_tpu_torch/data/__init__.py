@@ -1,3 +1,5 @@
-from .synthetic import SyntheticVedai, make_eval_batches, pad_labels
+from .synthetic import (SyntheticVedai, apply_single_cls, make_eval_batches,
+                        pad_labels)
 
-__all__ = ["SyntheticVedai", "make_eval_batches", "pad_labels"]
+__all__ = ["SyntheticVedai", "apply_single_cls", "make_eval_batches",
+           "pad_labels"]

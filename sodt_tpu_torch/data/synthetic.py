@@ -75,6 +75,18 @@ def pad_labels(labels: np.ndarray, m: int):
     return out, mask
 
 
+def apply_single_cls(ds):
+    """--single-cls: every label becomes class 0, in place (a copy of
+    `sodt_tpu/data/vedai.py`'s). Works on any dataset with a `.labels` list
+    of (n, 5) [cls, cx, cy, w, h] arrays."""
+    ds.labels = [
+        (np.concatenate([np.zeros((len(l), 1), np.float32),
+                         np.asarray(l, np.float32)[:, 1:]], axis=1)
+         if len(l) else l)
+        for l in ds.labels]
+    return ds
+
+
 def make_eval_batches(dataset, batch_size: int, max_labels_per_image: int = 60):
     """Deterministic square eval batches of uint8 numpy arrays. The last
     batch is padded by repeating its final sample; "valid" counts the real

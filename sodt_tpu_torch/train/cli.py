@@ -1,36 +1,53 @@
 """Training CLI of the port (`train.py` of the JAX package), on the card.
 
     python -m sodt_tpu_torch.train --synthetic --synthetic-n 16 \\
-        --img-size 512 --batch-size 4 --nbs 4 --epochs 2 --notest
+        --img-size 512 --batch-size 4 --nbs 4 --epochs 2 \\
+        --weights checkpoints/flagship_r5_150ep_ema.npz --save-dir runs/ft
+    python -m sodt_tpu_torch.train --resume runs/ft/last.pt
 
-Takes the JAX `train.py` flags that this slice covers under their own
-names, plus --device (default cuda; raises when no card is visible,
---device cpu runs the plain PyTorch path) and --weights-npz (initial
-weights, else a seeded initialization). Synthetic data only; the other
-flags of `train.py` raise, naming the ROADMAP item they wait for. Prints
-one metrics JSON line.
+Takes the JAX `train.py` flags that the port covers under their own names
+and meanings (--weights: initial weights from a checkpoint or a .npz,
+shape-matched; --resume: a checkpoint whose run's opt.yaml is reloaded, so
+no other flag is needed; --save-dir, --nosave, --save-period,
+--eval-every, --multi-scale, --image-weights, --single-cls), plus --device
+(default cuda; raises when no card is visible, --device cpu runs the plain
+PyTorch path) and --weights-npz (a state_dict loaded strictly, else a
+seeded initialization). Synthetic data only; the other flags of `train.py`
+raise, naming the ROADMAP item they wait for. Prints one metrics JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+from pathlib import Path
+
+import yaml
 
 from .trainer import TrainConfig, train
 
 # flags of the JAX train.py that are not ported yet -> ROADMAP.md Queue 1 item
 UNPORTED = {
-    "--weights": 9, "--resume": 9, "--save-dir": 9, "--nosave": 9,
-    "--save-period": 9, "--image-weights": 9, "--multi-scale": 9,
-    "--rect": 9, "--single-cls": 9, "--super": 10, "--factor": 10,
+    "--rect": "9, second part", "--super": 10, "--factor": 10,
     "--down-factor": 10, "--noautoanchor": 11, "--evolve": 11, "--wandb": 11,
-    "--remat": 11, "--scan-epoch": 11, "--eval-every": 9,
+    "--remat": 11, "--scan-epoch": 11,
 }
 
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--weights", default="",
+                   help="initial weights, a checkpoint or a .npz: "
+                        "shape-matched load, fresh optimizer; use --resume "
+                        "for the full state")
+    p.add_argument("--single-cls", action="store_true",
+                   help="train multi-class data as single-class")
+    p.add_argument("--nosave", action="store_true",
+                   help="only save the final checkpoint")
+    p.add_argument("--notest", action="store_true",
+                   help="only evaluate the final epoch")
     p.add_argument("--cfg", default="configs/model.yaml")
     p.add_argument("--data", default="configs/data_vedai.yaml")
     p.add_argument("--hyp", default="configs/hyp.scratch.yaml")
@@ -42,17 +59,28 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--linear-lr", action="store_true")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic-n", type=int, default=64)
+    p.add_argument("--save-dir", "--project", default="runs/train/exp",
+                   dest="save_dir")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval-every", type=int, default=1)
     p.add_argument("--no-bf16", action="store_false", dest="bf16")
-    p.add_argument("--notest", action="store_true",
-                   help="only evaluate the final epoch")
+    p.add_argument("--resume", default="",
+                   help="checkpoint to resume from (parameters, optimizer, "
+                        "EMA, step, epoch, best fitness); the run's opt.yaml "
+                        "beside it is reloaded, so no other flag is needed")
+    p.add_argument("--image-weights", action="store_true")
+    p.add_argument("--multi-scale", action="store_true")
     p.add_argument("--nbs", type=int, default=64,
                    help="nominal batch size for gradient accumulation")
+    p.add_argument("--save-period", type=int, default=-1,
+                   help="save an epoch checkpoint every N epochs; -1 "
+                        "disables")
     p.add_argument("--freeze", default="",
                    help="comma-separated parameter-name substrings to freeze")
     p.add_argument("--weights-npz", default="",
                    help="initial weights: a state_dict saved with "
-                        "sodt_tpu_torch.weights.save_npz (as val takes it)")
+                        "sodt_tpu_torch.weights.save_npz, loaded strictly "
+                        "(as val takes it)")
     p.add_argument("--device", default="cuda")
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
@@ -60,23 +88,46 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None, on_step=None, on_grads=None) -> dict:
-    """Parse, train, print the metrics line. `on_step` and `on_grads` are
-    passed on to `trainer.train` (hooks for measurements)."""
+def resume_config(resume: str) -> TrainConfig | None:
+    """The run's TrainConfig from the opt.yaml beside the checkpoint (None
+    when there is none: the flags given are used)."""
+    opt_path = Path(resume).resolve().parent / "opt.yaml"
+    if not opt_path.is_file():
+        return None
+    opt = yaml.safe_load(opt_path.read_text())
+    fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    kw = {k: v for k, v in opt.items() if k in fields}
+    kw["freeze"] = tuple(kw.get("freeze") or ())
+    kw["resume"] = resume
+    print(f"Resuming from {resume} with {opt_path}")
+    return TrainConfig(**kw)
+
+
+def main(argv=None, on_step=None, on_grads=None, on_start=None) -> dict:
+    """Parse, train, print the metrics line. `on_step`, `on_grads` and
+    `on_start` are passed on to `trainer.train` (hooks for measurements)."""
     a = parser().parse_args(argv)
     for flag, item in UNPORTED.items():
         if getattr(a, flag.lstrip("-").replace("-", "_")) is not None:
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP.md Queue 1 item {item}")
-    tc = TrainConfig(cfg=a.cfg, data=a.data, hyp=a.hyp, epochs=a.epochs,
-                     batch_size=a.batch_size, img_size=a.img_size,
-                     input_mode=a.input_mode, adam=a.adam,
-                     linear_lr=a.linear_lr, synthetic=a.synthetic,
-                     synthetic_n=a.synthetic_n, seed=a.seed, bf16=a.bf16,
-                     notest=a.notest, nbs=a.nbs,
-                     freeze=tuple(s for s in a.freeze.split(",") if s),
-                     weights_npz=a.weights_npz, device=a.device)
-    m = train(tc, on_step=on_step, on_grads=on_grads)
+    tc = resume_config(a.resume) if a.resume else None
+    if tc is None:
+        tc = TrainConfig(cfg=a.cfg, data=a.data, hyp=a.hyp, epochs=a.epochs,
+                         batch_size=a.batch_size, img_size=a.img_size,
+                         input_mode=a.input_mode, adam=a.adam,
+                         linear_lr=a.linear_lr, synthetic=a.synthetic,
+                         synthetic_n=a.synthetic_n, save_dir=a.save_dir,
+                         image_weights=a.image_weights,
+                         multi_scale=a.multi_scale, seed=a.seed,
+                         eval_every=a.eval_every, bf16=a.bf16,
+                         resume=a.resume, weights=a.weights,
+                         single_cls=a.single_cls, nosave=a.nosave,
+                         notest=a.notest, nbs=a.nbs,
+                         freeze=tuple(s for s in a.freeze.split(",") if s),
+                         save_period=a.save_period,
+                         weights_npz=a.weights_npz, device=a.device)
+    m = train(tc, on_step=on_step, on_grads=on_grads, on_start=on_start)
     print(json.dumps({k: v for k, v in m.items()
                       if isinstance(v, (int, float, str))}))
     return m

@@ -170,6 +170,21 @@ class Optimizer:
         self.nu: dict = {}           # Adam second moments
         self.just_stepped = False
 
+    def state_dict(self) -> dict:
+        """The optimizer's state (step counters, accumulated gradients,
+        momentum / Adam moments), tensors on the CPU."""
+        cpu = lambda d: None if d is None else {k: v.detach().cpu()
+                                                 for k, v in d.items()}
+        return {"count": self.count, "ni": self.ni, "acc": cpu(self.acc),
+                "trace": cpu(self.trace), "nu": cpu(self.nu)}
+
+    def load_state_dict(self, sd: dict, device) -> None:
+        dev = lambda d: None if d is None else {k: v.to(device)
+                                                 for k, v in d.items()}
+        self.count, self.ni = int(sd["count"]), int(sd["ni"])
+        self.acc, self.trace, self.nu = (dev(sd["acc"]), dev(sd["trace"]),
+                                         dev(sd["nu"]))
+
     def _inner(self, grads: dict, params: dict) -> dict:
         m = self.mom(self.count)
         b2, eps = 0.999, 1e-8

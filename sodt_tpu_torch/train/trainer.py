@@ -1,31 +1,45 @@
-"""The training loop (`sodt_tpu/train/trainer.py`, the part that this
-slice of the port covers).
+"""The training loop (`sodt_tpu/train/trainer.py`, the part that the port
+covers).
 
-Synthetic data only, square un-augmented batches padded to `MAX_LABELS`
-labels per image, the hyp gain scaling of the JAX trainer, a per-step loop
-(`state.make_train_step`), and a final `evaluate` of the EMA weights
-through the eval path. Augmentation, VEDAI folders, checkpoints / resume,
-autoanchor, rect and multi-scale batches, the SR branch, evolve and W&B are
-not ported yet (ROADMAP.md Queue 1 items 9-11): their options are absent
-from `TrainConfig`.
+Synthetic data through the augmented feed (`data.loader.make_train_batches`:
+the device tile bank when it fits, else streaming), the hyp gain scaling
+of the JAX trainer, a per-step loop (`state.make_train_step`), an eval of
+the EMA weights every `eval_every` epochs and at the last, and checkpoints
+in `save_dir`:
+`last.pt` after each eval, `best.pt` a copy of it when the fitness is the
+best so far, `epoch{N}.pt` every `save_period` epochs; `nosave` keeps only
+the final one. `weights` loads initial weights (shape-matched, names with
+"anchor" excluded); `resume` restores a run's full state from a checkpoint.
+`image_weights` resamples the images by the per-class mAP of the last eval;
+`multi_scale` draws each batch's size from 0.75 / 1 / 1.25 x img_size.
+
+VEDAI folders and --rect training (ROADMAP.md Queue 1 item 9, second
+part), autoanchor, the SR branch, evolve, W&B and the epoch scan (items 10
+and 11) are not ported: their options are absent from `TrainConfig`.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 import yaml
 
 from .. import resolve_device
-from ..data import SyntheticVedai, make_eval_batches
-from ..data.synthetic import pad_labels
+from ..data import SyntheticVedai, apply_single_cls, make_eval_batches
+from ..data.loader import make_train_batches
 from ..models import build_model
 from ..models.compiler import resolve_config_path
-from ..weights import batch_to_torch, init_weights, load_npz
+from ..utils.general import labels_to_class_weights, labels_to_image_weights
+from ..weights import init_weights, load_npz
+from .checkpoint import (checkpoint_tree, clone_checkpoint, load_checkpoint,
+                         load_pretrained_variables, restore_train_state,
+                         write_checkpoint)
 from .evaluate import evaluate
 from .loss import LossConfig
 from .optim import make_optimizer
@@ -35,6 +49,8 @@ NOMINAL_BATCH = 64
 MAX_LABELS = 30      # label slots per image in a padded batch
 LOG_EVERY = 10       # steps between the loss samples of an epoch's mean
 CH_IN = {"RGB": 3, "IR": 3, "RGB+IR": 4, "RGB+IR+fusion": 8, "RGB+IR+MF": 3}
+RECT_ITEM = ("ROADMAP.md Queue 1 item 9, second part (data/vedai.py, "
+             "data/prepare.py, data/native_loader.py, data/tools.py, --rect)")
 
 
 @dataclass
@@ -50,32 +66,22 @@ class TrainConfig:
     linear_lr: bool = False
     synthetic: bool = False
     synthetic_n: int = 64
+    save_dir: str = "runs/train/exp"
+    image_weights: bool = False      # class-weighted image resampling
+    multi_scale: bool = False        # 0.75 / 1 / 1.25 x img_size buckets
     seed: int = 0
+    eval_every: int = 1
     bf16: bool = True
+    resume: str = ""                 # checkpoint to resume from
+    weights: str = ""                # initial weights: checkpoint or .npz
+    single_cls: bool = False         # all labels -> class 0, nc = 1
+    nosave: bool = False             # only save the final checkpoint
     notest: bool = False             # only evaluate the final epoch
     nbs: int = NOMINAL_BATCH         # nominal batch for grad accumulation
     freeze: tuple = ()               # parameter-name substrings to freeze
-    weights_npz: str = ""            # initial state_dict (weights.save_npz)
+    save_period: int = -1            # epoch-N checkpoints
+    weights_npz: str = ""            # initial state_dict, loaded strictly
     device: str = "cuda"
-
-
-def make_train_batches(dataset, batch_size: int, max_labels: int, seed: int,
-                       epoch: int):
-    """One epoch of square un-augmented batches in a seeded random order,
-    the remainder dropped (nb = n // batch_size): dicts of numpy arrays
-    with uint8 images."""
-    order = np.random.default_rng(seed * 7919 + epoch).permutation(len(dataset))
-    for start in range(0, len(order) - batch_size + 1, batch_size):
-        rgbs, irs, labs, msks = [], [], [], []
-        for i in order[start:start + batch_size]:
-            rgb, ir, lab = dataset[int(i)]
-            pl, pm = pad_labels(lab, max_labels)
-            rgbs.append(rgb)
-            irs.append(ir)
-            labs.append(pl)
-            msks.append(pm)
-        yield {"img": np.stack(rgbs), "ir": np.stack(irs),
-               "targets": np.stack(labs), "tmask": np.stack(msks)}
 
 
 def scale_hyp(hyp: dict, nl: int, nc: int, img_size: int) -> dict:
@@ -96,6 +102,11 @@ def loss_config(model, hyp: dict, nc: int) -> LossConfig:
         anchor_t=hyp.get("anchor_t", 4.0), fl_gamma=hyp.get("fl_gamma", 0.0))
 
 
+def fitness_from_metrics(m: dict) -> float:
+    """0.9 * mAP50 + 0.1 * mAP."""
+    return 0.9 * m.get("map50", 0.0) + 0.1 * m.get("map", 0.0)
+
+
 def ema_model(state: TrainState) -> torch.nn.Module:
     """A copy of the model that holds the EMA weights and statistics."""
     m = copy.deepcopy(state.model)
@@ -103,32 +114,53 @@ def ema_model(state: TrainState) -> torch.nn.Module:
     return m.eval()
 
 
-def train(tc: TrainConfig, on_step=None, on_grads=None) -> dict:
-    """Train, evaluate the EMA weights, return the metrics. Two hooks for
-    measurements: `on_step(state, metrics)` is called after every step,
-    `on_grads(grads)` with every step's gradients (`make_train_step`)."""
+def _datasets(tc: TrainConfig, nc: int):
+    train = SyntheticVedai(n=tc.synthetic_n, img_size=tc.img_size, nc=nc,
+                           seed=tc.seed)
+    val = SyntheticVedai(n=max(tc.synthetic_n // 4, 4), img_size=tc.img_size,
+                         nc=nc, seed=tc.seed + 1)
+    if tc.single_cls:
+        apply_single_cls(train)
+        apply_single_cls(val)
+    return train, val
+
+
+def train(tc: TrainConfig, on_step=None, on_grads=None,
+          on_start=None) -> dict:
+    """Train, evaluate the EMA weights, save checkpoints, return the final
+    metrics. Hooks for measurements: `on_start(state)` once before the
+    first step (after --resume's restore), `on_step(state, metrics)` after
+    every step, `on_grads(grads)` with every step's gradients
+    (`make_train_step`)."""
     dev = resolve_device(tc.device)
     if not tc.synthetic:
         raise NotImplementedError(
-            "VEDAI folder datasets and augmentation: ROADMAP.md Queue 1 "
-            "item 9; use --synthetic")
+            f"VEDAI folder datasets: {RECT_ITEM}; use --synthetic")
+    save_dir = Path(tc.save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
     with open(resolve_config_path(tc.hyp)) as f:
         hyp = yaml.safe_load(f)
     with open(resolve_config_path(tc.data)) as f:
         data_cfg = yaml.safe_load(f)
-    nc = int(data_cfg.get("nc", 8))
+    nc = 1 if tc.single_cls else int(data_cfg.get("nc", 8))
+    (save_dir / "hyp.yaml").write_text(yaml.safe_dump(hyp))
+    (save_dir / "opt.yaml").write_text(yaml.safe_dump(
+        {k: (list(v) if isinstance(v, tuple) else v)
+         for k, v in dataclasses.asdict(tc).items()}))
     dtype = torch.bfloat16 if tc.bf16 else torch.float32
 
-    train_ds = SyntheticVedai(n=tc.synthetic_n, img_size=tc.img_size, nc=nc,
-                              seed=tc.seed)
-    val_ds = SyntheticVedai(n=max(tc.synthetic_n // 4, 4),
-                            img_size=tc.img_size, nc=nc, seed=tc.seed + 1)
+    train_ds, val_ds = _datasets(tc, nc)
     model = build_model(tc.cfg, ch_in=CH_IN[tc.input_mode], nc=nc,
                         dtype=dtype, input_mode=tc.input_mode)
     if tc.weights_npz:
         model.load_state_dict(load_npz(tc.weights_npz))
     else:
         init_weights(model, seed=tc.seed)
+    if tc.weights and not tc.resume:
+        sd, n_hit, n_all = load_pretrained_variables(model.state_dict(),
+                                                     tc.weights)
+        model.load_state_dict(sd)
+        print(f"pretrained: {n_hit}/{n_all} arrays from {tc.weights}")
     model = model.to(dev)
     nb = max(len(train_ds) // tc.batch_size, 1)
     accumulate = max(round(tc.nbs / tc.batch_size), 1)
@@ -138,22 +170,44 @@ def train(tc: TrainConfig, on_step=None, on_grads=None) -> dict:
     tx = make_optimizer(hyp, params, epochs=tc.epochs, nb=nb, adam=tc.adam,
                         linear_lr=tc.linear_lr, accumulate=accumulate)
     state = TrainState.create(model, tx)
+    start_epoch, best_fitness = 0, 0.0
+    if tc.resume:
+        ckpt = load_checkpoint(tc.resume)
+        restore_train_state(state, ckpt)
+        start_epoch = int(ckpt["epoch"]) + 1
+        best_fitness = float(ckpt["best_fitness"])
     step_fn = make_train_step(model, tx, loss_config(model, hyp, nc),
                               freeze=tuple(tc.freeze), on_grads=on_grads)
     nparams = sum(p.numel() for p in params.values())
+
+    maps = np.zeros(nc)
+    cw0 = labels_to_class_weights(train_ds.labels, nc)
+
+    def sample_weights():
+        # cw * (1 - maps)^2 / nc -> per-image weights
+        return labels_to_image_weights(train_ds.labels, nc,
+                                       cw0 * (1 - maps) ** 2 / nc)
+
+    # the device bank when the tiles fit, else streaming (make_train_batches
+    # chooses, as in JAX), positioned at the resumed step
+    batches = make_train_batches(
+        train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
+        max_labels_per_image=MAX_LABELS, multi_scale=tc.multi_scale,
+        device=dev, start_step=start_epoch * nb,
+        sample_weights_fn=sample_weights if tc.image_weights else None)
     print(f"model {tc.cfg} ({nparams / 1e6:.2f}M params), device {dev}, "
           f"nb={nb}/epoch, accumulate={accumulate}")
+    if on_start is not None:
+        on_start(state)
 
     metrics_out: dict = {}
     history = []
     t_start = time.time()
-    for epoch in range(tc.epochs):
+    for epoch in range(start_epoch, tc.epochs):
         t_epoch = time.time()
         losses = []
-        batches = make_train_batches(train_ds, tc.batch_size, MAX_LABELS,
-                                     tc.seed, epoch)
-        for bi, batch in enumerate(batches):
-            state, m = step_fn(state, batch_to_torch(batch, dev))
+        for bi in range(nb):
+            state, m = step_fn(state, next(batches))
             if on_step is not None:
                 on_step(state, m)
             if bi % LOG_EVERY == 0:
@@ -164,17 +218,48 @@ def train(tc: TrainConfig, on_step=None, on_grads=None) -> dict:
         line = (f"epoch {epoch}/{tc.epochs - 1} "
                 + " ".join(f"{k}={v:.4f}" for k, v in mean_losses.items())
                 + f" img/s={ips:.1f}")
-        if epoch == tc.epochs - 1 or not tc.notest:
+        is_final = epoch == tc.epochs - 1
+        if is_final or (not tc.notest and (epoch + 1) % tc.eval_every == 0):
             metrics_out = evaluate(
                 ema_model(state), make_eval_batches(val_ds, tc.batch_size),
                 nc=nc, img_size=tc.img_size, device=dev)
+            fit = fitness_from_metrics(metrics_out)
+            for c, v in metrics_out["per_class"].items():
+                if c < nc:
+                    maps[c] = v["ap"]
             line += (f" mAP50={metrics_out['map50']:.4f} "
-                     f"mAP={metrics_out['map']:.4f}")
+                     f"mAP={metrics_out['map']:.4f} fit={fit:.4f}")
+            best_fitness = max(best_fitness, fit)
+            # ties refresh best too: the latest equal wins
+            _save(save_dir, state, tc, epoch, best_fitness,
+                  is_best=fit >= best_fitness, is_final=is_final)
         print(line)
+        with open(save_dir / "results.txt", "a") as f:
+            f.write(line + "\n")
         history.append(mean_losses)
     metrics_out["train_time_s"] = time.time() - t_start
     metrics_out["losses"] = history
     metrics_out["steps"] = state.step
+    metrics_out["best_fitness"] = best_fitness
     metrics_out["device"] = (torch.cuda.get_device_name(dev)
                              if dev.type == "cuda" else "cpu")
     return metrics_out
+
+
+def _save(save_dir: Path, state, tc: TrainConfig, epoch: int,
+          best_fitness: float, *, is_best: bool, is_final: bool) -> None:
+    """last.pt (and best.pt, a copy of it) unless --nosave, which keeps
+    only the final one; epoch{N}.pt every save_period epochs but the last.
+    """
+    ckpt = None
+    if not tc.nosave or is_final:
+        ckpt = checkpoint_tree(state, epoch=epoch, best_fitness=best_fitness)
+        write_checkpoint(save_dir / "last.pt", ckpt)
+        if is_best:
+            clone_checkpoint(save_dir / "last.pt", save_dir / "best.pt")
+    if (tc.save_period > 0 and (epoch + 1) % tc.save_period == 0
+            and not is_final):
+        if ckpt is None:
+            ckpt = checkpoint_tree(state, epoch=epoch,
+                                   best_fitness=best_fitness)
+        write_checkpoint(save_dir / f"epoch{epoch}.pt", ckpt)

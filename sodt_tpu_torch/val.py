@@ -7,10 +7,13 @@
 
 Tasks: val (mAP protocol) and speed (ms per image at conf 0.25 /
 iou 0.45). bf16 compute is on by default (--no-bf16 for f32). Weights come
-from --weights-npz (a state_dict converted with
-sodt_tpu_torch.weights.from_jax_variables and saved with save_npz), else
-from a torch.Generator seeded with 0. --device defaults to cuda and
-raises when no card is visible; --device cpu runs the plain PyTorch path.
+from --weights (JAX's flag: a .npz state_dict, such as the trained
+flagship's checkpoints/flagship_r5_150ep_ema.npz, or a checkpoint of the
+port's trainer, whose EMA weights are taken) or --weights-npz (a state_dict
+converted with sodt_tpu_torch.weights.from_jax_variables and saved with
+save_npz), else from a torch.Generator seeded with 0. --device defaults to
+cuda and raises when no card is visible; --device cpu runs the plain
+PyTorch path.
 --int8 runs every task inside `kernels.int8_serving()` (K12: the int8
 bodies on JAX's gate) and says "int8": true in the metrics line. Prints one
 metrics JSON line.
@@ -32,7 +35,8 @@ from .data import SyntheticVedai, make_eval_batches
 from .models import build_model
 from .models.compiler import resolve_config_path
 from .train.evaluate import evaluate, make_eval_step, cache_rel_bias
-from .weights import init_weights, load_npz
+from .train.checkpoint import load_weights
+from .weights import init_weights
 
 CH_IN = {"RGB": 3, "IR": 3, "RGB+IR": 4, "RGB+IR+fusion": 8, "RGB+IR+MF": 3}
 
@@ -47,15 +51,15 @@ def build(a):
     dtype = torch.bfloat16 if a.bf16 else torch.float32
     model = build_model(a.cfg, ch_in=CH_IN[a.input_mode], nc=nc, dtype=dtype,
                         input_mode=a.input_mode)
-    if a.weights_npz:
-        model.load_state_dict(load_npz(a.weights_npz))
+    if a.weights or a.weights_npz:
+        model.load_state_dict(load_weights(a.weights or a.weights_npz))
     else:
         init_weights(model, seed=0)
     model = model.to(dev).eval()
     cache_rel_bias(model)
     if not a.synthetic:
         raise NotImplementedError(
-            "VEDAI folder datasets: ROADMAP.md Queue 1 item 9 (data); "
+            "VEDAI folder datasets: ROADMAP.md Queue 1 item 9, second part; "
             "use --synthetic")
     ds = SyntheticVedai(n=a.synthetic_n, img_size=a.img_size, nc=nc, seed=1)
     return model, ds, nc, names, dev
@@ -66,6 +70,8 @@ def parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--cfg", default="configs/model.yaml")
     p.add_argument("--data", default="configs/data_vedai.yaml")
+    p.add_argument("--weights", default="",
+                   help="a .npz state_dict or a checkpoint of the port")
     p.add_argument("--weights-npz", default="")
     p.add_argument("--task", default="val", choices=["val", "speed"])
     p.add_argument("--batch-size", type=int, default=8)

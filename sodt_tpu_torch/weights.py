@@ -112,9 +112,12 @@ def batch_to_torch(batch: dict, device="cpu") -> dict[str, torch.Tensor]:
     return out
 
 
-def save_npz(state_dict: dict, path) -> None:
-    np.savez(path, **{k: v.detach().cpu().float().numpy()
-                      for k, v in state_dict.items()})
+def save_npz(state_dict: dict, path, *, compressed: bool = False) -> None:
+    """A state_dict as f32 arrays in one .npz (`compressed`: deflated, as
+    `np.savez_compressed` writes it; `load_npz` reads either)."""
+    save = np.savez_compressed if compressed else np.savez
+    save(path, **{k: v.detach().cpu().float().numpy()
+                  for k, v in state_dict.items()})
 
 
 def load_npz(path) -> dict[str, torch.Tensor]:

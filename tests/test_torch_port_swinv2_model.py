@@ -590,7 +590,7 @@ def test_torch_swinv2_clis_run_on_cpu_when_asked(tmp_path, capsys, monkeypatch):
         hyp.write_text(yaml.safe_dump(dict(yaml.safe_load(f), warmup_iters=2)))
     seen = {}
     targs = common + ["--hyp", str(hyp), "--nbs", "2", "--epochs", "2",
-                      "--notest"]
+                      "--notest", "--save-dir", str(tmp_path / "run")]
     m = cli.main(targs + ["--device", "cpu"], on_grads=seen.update)
     assert m["steps"] == 2 and m["device"] == "cpu"
     assert all(np.isfinite(v) for ep in m["losses"] for v in ep.values())

@@ -212,13 +212,14 @@ def test_torch_train_cli_runs_on_cpu_when_asked(tmp_path, capsys, monkeypatch):
     hyp.write_text(yaml.safe_dump(dict(h, warmup_iters=2)))
     args = ["--cfg", str(cfg), "--hyp", str(hyp), "--synthetic",
             "--synthetic-n", "4", "--img-size", "64", "--batch-size", "2",
-            "--nbs", "4", "--epochs", "2", "--notest", "--no-bf16"]
+            "--nbs", "4", "--epochs", "2", "--notest", "--no-bf16",
+            "--save-dir", str(tmp_path / "run")]
     m = cli.main(args + ["--device", "cpu"])
     assert m["steps"] == 4 and m["device"] == "cpu" and m["seen"] == 4
     assert all(np.isfinite(v) for ep in m["losses"] for v in ep.values())
     assert '"map50"' in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        cli.main(args + ["--device", "cpu", "--resume", "runs/x"])
+        cli.main(args + ["--device", "cpu", "--rect"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         cli.main(args + ["--device", "cpu", "--super"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
