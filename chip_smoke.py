@@ -235,10 +235,13 @@ TRAINED_ARGS = ["--task", "val", "--synthetic", "--synthetic-n", "16",
                 TRAINED_NPZ]
 TRAINED_FORWARDS = 4
 # mAP@0.5 on the card against JAX's f32 value: the bf16 kernels within
-# 1e-2, the f32 plain path within 5e-3; int8 serving at least 0.9x bf16's
+# 1e-2, the f32 plain path within 5e-3; int8 serving at least 0.9x bf16's.
+# mAP@0.5 saturates near 0.99 on these 16 images, so mAP@0.5:0.95 is held
+# too: bf16 and int8 within 2e-2 of JAX's f32 value, f32 within 5e-3
 TRAINED_BF16_TOL = 1e-2
 TRAINED_F32_TOL = 5e-3
 TRAINED_INT8_FRACTION = 0.9
+TRAINED_MAP_TOL = {"bf16": 2e-2, "f32": 5e-3, "int8": 2e-2}
 # the augmented training feed from the trained weights (train_aug): the
 # flagship at full width and depth, 512 px, batch 4, nbs 4
 AUG_ARGS = ["--synthetic", "--img-size", "512", "--batch-size", "4",
@@ -250,6 +253,7 @@ AUG_GATHER_HYP = dict(degrees=10.0, shear=2.0, perspective=0.0005,
 # images on the 0-255 scale, labels in px
 AUG_IMG_TOL = 1e-2
 AUG_LABEL_TOL = 1e-3
+AUG_TOP = 12          # the feed's largest kernels printed by device time
 # the off-window path (608 px): stage 2's 76x76 map is no multiple of the
 # window, so its four blocks take the generic composition with the K1 core;
 # stage 3's 38x38 map pads to four 32x32 windows for K8
@@ -1766,19 +1770,23 @@ def phase_trained(label: str) -> dict:
     a, b = raws[torch.bfloat16], raws[torch.float32]
     rel_l2 = ((a - b).norm() / b.norm()).item()
     gaps = {tag: runs[tag]["map50"] - ref["map50"] for tag in runs}
+    map_gaps = {tag: runs[tag]["map"] - ref["map"] for tag in runs}
     ok = ok and (abs(gaps["bf16"]) <= TRAINED_BF16_TOL
                  and abs(gaps["f32"]) <= TRAINED_F32_TOL
                  and runs["int8"]["map50"]
                  >= TRAINED_INT8_FRACTION * runs["bf16"]["map50"]
+                 and all(abs(map_gaps[t]) <= TRAINED_MAP_TOL[t] for t in runs)
                  and bool(torch.isfinite(a).all()))
     row = {"phase": label, "args": TRAINED_ARGS, "npz_sha256": side["sha256"],
            "jax_f32": {"map50": ref["map50"], "map": ref["map"]},
            "runs": runs, "map50_minus_jax_f32": gaps,
+           "map_minus_jax_f32": map_gaps,
            "int8_cost": {k: runs["bf16"][k] - runs["int8"][k]
                          for k in ("map50", "map")},
            "detect_rel_l2_bf16_vs_f32": rel_l2,
            "bounds": {"bf16": TRAINED_BF16_TOL, "f32": TRAINED_F32_TOL,
-                      "int8_fraction_of_bf16": TRAINED_INT8_FRACTION},
+                      "int8_fraction_of_bf16": TRAINED_INT8_FRACTION,
+                      "map": TRAINED_MAP_TOL},
            "ok": bool(ok)}
     emit(row)
     return row
@@ -1799,14 +1807,24 @@ def _train_cli(args: list[str], **hooks) -> tuple[dict, str]:
 
 
 def _step_recorder():
-    """An on_step hook that keeps each step's launch counts and losses."""
+    """Hooks that keep each step's launch counts and losses (on_step) and
+    the image size of each training forward (on_start: a forward pre-hook
+    on the model, which the EMA model of the evals copies but leaves in
+    eval mode)."""
     from sodt_tpu_torch import kernels
-    seen = {"counts": [], "losses": []}
+    seen = {"counts": [], "losses": [], "sizes": []}
 
     def on_step(state, metrics):
         seen["counts"].append(kernels.launches())
         seen["losses"].append({k: float(v) for k, v in metrics.items()})
-    return seen, on_step
+
+    def size(module, args):
+        if module.training:
+            seen["sizes"].append(int(args[0].shape[1]))
+
+    def on_start(state):
+        state.model.register_forward_pre_hook(size)
+    return seen, {"on_step": on_step, "on_start": on_start}
 
 
 def _per_step(counts: list[dict]) -> list[dict]:
@@ -1817,7 +1835,8 @@ def _per_step(counts: list[dict]) -> list[dict]:
 
 def _distinct_scale_seed() -> tuple[int, list[int]]:
     """The first seed whose multi-scale stream draws the three buckets in
-    its first three steps, and their sizes at 512 px."""
+    its first three steps, and the sizes it should give at 512 px (the run
+    is held to the sizes its forwards saw)."""
     import numpy as np
     from sodt_tpu_torch.data.loader import MULTI_SCALE
     for seed in range(100):
@@ -1871,9 +1890,47 @@ def _aug_card_vs_cpu(hyp: dict) -> dict:
             "ok": bool(img <= AUG_IMG_TOL and lab <= AUG_LABEL_TOL and same)}
 
 
+def _aug_stages(feed, timer) -> dict:
+    """Time of each stage of one mosaic pass of `augment_batch` on one
+    step's tiles and draws from `feed` (a BankFeed): the bank gather, the
+    mosaic paste, the perspective warp (its sampler and the labels), HSV,
+    the flips (fed the warped pixel labels: the values do not change their
+    work). `timer(fn, label)` gives the ms of a call of fn. Mixup repeats
+    the first three for its second mosaic."""
+    import torch
+    from sodt_tpu_torch.data.augment import (PerspectiveParams, draw_cols,
+                                             flips, hsv_apply, mosaic4,
+                                             random_perspective)
+    from sodt_tpu_torch.ops.boxes import xywhn2xyxy
+    s, dev = feed.img_size, feed.device
+    prim, _, draws = feed.step_schedule()
+    p = torch.from_numpy(prim).to(dev)
+    d = torch.from_numpy(draws).to(dev)
+    rgb, ir, lab, msk = feed.banks
+    persp = PerspectiveParams.from_hyp(feed.hyp)
+    r4, i4, l4, k4 = rgb[p], ir[p], lab[p], msk[p]
+    lab_px = xywhn2xyxy(l4[..., 1:5], s, s)
+    mos = mosaic4(r4, i4, lab_px, k4, draw_cols(d, "center_a"), s)
+    warped = random_perspective(*mos, draw_cols(d, "warp_a"), persp, (s, s))
+    img = hsv_apply(warped[0], draw_cols(d, "hsv"))
+    cls = l4[..., 0].reshape(len(prim), -1)
+    targets = torch.cat([cls[..., None], warped[2]], -1)
+    ud, lr = (draw_cols(d, "flip") > 0).unbind(1)
+    stages = {
+        "bank_gather": lambda: (rgb[p], ir[p], lab[p], msk[p]),
+        "mosaic": lambda: mosaic4(r4, i4, lab_px, k4,
+                                  draw_cols(d, "center_a"), s),
+        "perspective": lambda: random_perspective(
+            *mos, draw_cols(d, "warp_a"), persp, (s, s)),
+        "hsv": lambda: hsv_apply(warped[0], draw_cols(d, "hsv")),
+        "flips": lambda: flips(img, warped[1], targets, warped[3], ud, lr)}
+    return {k: timer(fn, f"train_aug stage {k}") for k, fn in stages.items()}
+
+
 def _aug_profile(hyp_path: Path, hyp: dict) -> dict:
     """Device time of the feed's kernels for one step (torch.profiler over
-    `augment_step`), one training step's, and the idle share of the two
+    `augment_step`) with its AUG_TOP largest kernels and its stages
+    (`_aug_stages`), one training step's, and the idle share of the two
     together against their CUDA-event time, warm, from the trained
     weights."""
     import torch
@@ -1899,12 +1956,19 @@ def _aug_profile(hyp_path: Path, hyp: dict) -> dict:
     both = lambda: step(state, feed.augment_step())
     for _ in range(2):
         both()
-    aug_ms = device_ms(feed.augment_step, "train_aug feed", iters=3)
+    aug_ms, split = device_split(feed.augment_step, "train_aug feed",
+                                 iters=3)
     batch = feed.augment_step()
     step_dev = device_ms(lambda: step(state, batch), "train_aug step",
                          iters=3)
     wall_ms = time_ms(both, iters=5, warmup=1)
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:AUG_TOP]
     return {"augment_device_ms": aug_ms, "train_step_device_ms": step_dev,
+            "augment_top_kernels_ms": [{"kernel": k, "ms": v}
+                                       for k, v in top],
+            "augment_kernels": len(split),
+            "stage_device_ms": _aug_stages(
+                feed, lambda fn, label: device_ms(fn, label, iters=3)),
             "augment_plus_step_ms": wall_ms,
             "augment_share_of_device": aug_ms / (aug_ms + step_dev),
             "idle_share": max(0.0, 1 - (aug_ms + step_dev) / wall_ms)}
@@ -1942,12 +2006,15 @@ def phase_train_aug(label: str, workdir: Path) -> dict:
                                   + evals * PER_FORWARD[k] for k in PER_STEP}
     row, ok = {"phase": label}, True
 
-    def run(tag, args, steps, evals, **hooks):
+    def run(tag, args, steps, evals, on_start=None):
         nonlocal ok
-        seen, on_step = _step_recorder()
+        seen, hooks = _step_recorder()
+        if on_start is not None:
+            record = hooks["on_start"]
+            hooks["on_start"] = lambda st: (on_start(st), record(st))
         kernels.reset_launches()
         t0 = time.perf_counter()
-        m, out = _train_cli(AUG_ARGS + args, on_step=on_step, **hooks)
+        m, out = _train_cli(AUG_ARGS + args, **hooks)
         counts = kernels.launches()
         losses = seen["losses"]
         finite = all(math.isfinite(v) for l in losses for v in l.values())
@@ -2002,10 +2069,11 @@ def phase_train_aug(label: str, workdir: Path) -> dict:
             model(x, x)
         fwd[size] = kernels.launches()
     row["multi_scale"].update(
-        seed=seed, sizes=sizes,
-        launches_per_step={str(z): c for z, c in zip(sizes, steps)},
+        seed=seed, sizes_expected=sizes, sizes_seen=seen["sizes"],
+        launches_per_step={str(z): c for z, c in zip(seen["sizes"], steps)},
         launches_per_forward={str(z): c for z, c in fwd.items()})
-    ok = ok and sorted(sizes) == [384, 512, 640] and all(
+    ok = ok and sorted(seen["sizes"]) == [384, 512, 640] and (
+        seen["sizes"] == sizes) and all(
         c == PER_STEP for c in steps) and all(
         c == PER_FORWARD for c in fwd.values())
 

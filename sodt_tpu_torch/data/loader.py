@@ -18,9 +18,13 @@ float in [0, 1], targets (B, N, 5) [cls, cx, cy, w, h] normalized, tmask
 (B, N) bool.
 
 Both regimes take `start_step`: the schedule, the draws and the multi-scale
-stream are run forward to that step without touching a tile, so a resumed
-run sees the batches that the uninterrupted run saw (the JAX package
-restarts its stream from the seed on resume).
+stream are run forward to that step without touching a tile, so that
+--resume continues the stream where the saved run left it (the JAX package
+restarts its stream from the seed on resume). Without --image-weights a
+resumed run then sees the batches of the uninterrupted run. Under
+--image-weights it need not: the checkpoint holds no per-class maps (nor
+does JAX's), so the first resumed epoch draws its order from the class
+weights alone, where the uninterrupted run used the last eval's maps.
 
 The whole-epoch scan of JAX (`epoch_schedule` feeding `make_epoch_scan`) is
 not ported: it is `lax.scan`'s answer to dispatch cost, and its flag
@@ -244,13 +248,10 @@ class BankFeed:
 
 def make_bank_feed(dataset, batch_size: int, img_size: int, hyp: dict,
                    *, seed: int = 0, m0: int = 30, sample_weights_fn=None,
-                   device_bank: bool | None = None, device="cuda",
-                   start_step: int = 0) -> BankFeed | None:
-    """BankFeed when the dataset fits the device-memory budget, else None."""
-    if device_bank is None:           # the rgb + ir uint8 tiles
-        device_bank = (2 * len(dataset) * img_size * img_size * 3
-                       <= DEVICE_BANK_MAX_GB * 2**30)
-    if not device_bank:
+                   device="cuda", start_step: int = 0) -> BankFeed | None:
+    """BankFeed when the dataset's rgb + ir uint8 tiles fit
+    DEVICE_BANK_MAX_GB, else None."""
+    if 2 * len(dataset) * img_size * img_size * 3 > DEVICE_BANK_MAX_GB * 2**30:
         return None
     return BankFeed(dataset, batch_size, img_size, hyp, seed=seed, m0=m0,
                     sample_weights_fn=sample_weights_fn, device=device,
@@ -303,10 +304,9 @@ def _rescale(b: dict, ns: int, img_size: int) -> dict:
 def make_train_batches(dataset, batch_size: int, img_size: int, hyp: dict,
                        *, seed: int = 0, max_labels_per_image: int = 30,
                        sample_weights_fn=None, multi_scale: bool = False,
-                       device_bank: bool | None = None, device="cuda",
-                       start_step: int = 0) -> Iterator[dict]:
+                       device="cuda", start_step: int = 0) -> Iterator[dict]:
     """Endless iterator of augmented device batches, from `start_step` on.
-    The device bank when the tiles fit (or `device_bank=True`), else
+    The device bank when the tiles fit DEVICE_BANK_MAX_GB, else
     streaming: tiles read on the host through a RAM cache, sent as uint8,
     augmented on the device. `multi_scale` resizes each batch to one of
     MULTI_SCALE x img_size (rounded to 32 px), drawn from a stream of its
@@ -325,8 +325,7 @@ def make_train_batches(dataset, batch_size: int, img_size: int, hyp: dict,
     steps_per_epoch = max(n // batch_size, 1)
     feed = make_bank_feed(dataset, batch_size, img_size, hyp, seed=seed,
                           m0=m0, sample_weights_fn=sample_weights_fn,
-                          device_bank=device_bank, device=device,
-                          start_step=start_step)
+                          device=device, start_step=start_step)
     if multi_scale:
         for _ in range(start_step):
             _bucket(scale_rng, img_size)

@@ -5,7 +5,7 @@ A checkpoint is one file holding a dict:
 
   {step, model (parameters + BatchNorm statistics: the state_dict),
    ema (EMA of both), ema_updates, opt_state (`Optimizer.state_dict`),
-   epoch, best_fitness[, extra]}
+   epoch, best_fitness}
 
 with every tensor on the CPU. The trainer writes `last.pt`, copies it to
 `best.pt` (a file copy, as `clone_checkpoint` copies the orbax directory)
@@ -26,18 +26,14 @@ import torch
 from ..weights import load_npz
 
 
-def checkpoint_tree(state, *, epoch: int, best_fitness: float,
-                    extra: dict | None = None) -> dict:
+def checkpoint_tree(state, *, epoch: int, best_fitness: float) -> dict:
     """The host-side checkpoint of a `TrainState` (one copy to the CPU, so
     that a caller saving to several paths pays it once)."""
     cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
-    ckpt = {"step": int(state.step), "model": cpu(state.model.state_dict()),
+    return {"step": int(state.step), "model": cpu(state.model.state_dict()),
             "ema": cpu(state.ema), "ema_updates": int(state.ema_updates),
             "opt_state": state.tx.state_dict(), "epoch": int(epoch),
             "best_fitness": float(best_fitness)}
-    if extra:
-        ckpt["extra"] = extra
-    return ckpt
 
 
 def write_checkpoint(path: str | Path, ckpt: dict) -> None:
@@ -57,10 +53,9 @@ def clone_checkpoint(src: str | Path, dst: str | Path) -> None:
 
 
 def save_checkpoint(path: str | Path, state, *, epoch: int,
-                    best_fitness: float, extra: dict | None = None) -> None:
+                    best_fitness: float) -> None:
     write_checkpoint(path, checkpoint_tree(state, epoch=epoch,
-                                           best_fitness=best_fitness,
-                                           extra=extra))
+                                           best_fitness=best_fitness))
 
 
 def load_checkpoint(path: str | Path) -> dict:
@@ -91,10 +86,10 @@ def strip_checkpoint(path: str | Path, out_path: str | Path) -> None:
                                 "epoch": ckpt["epoch"]})
 
 
-def eval_variables(ckpt: dict, *, ema: bool = True) -> dict:
+def eval_variables(ckpt: dict) -> dict:
     """The state_dict to evaluate: the EMA weights if present, else the
     model's."""
-    if ema and "ema" in ckpt:
+    if "ema" in ckpt:
         return ckpt["ema"]
     return ckpt["model"]
 

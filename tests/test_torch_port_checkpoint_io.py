@@ -11,6 +11,8 @@ and the trainer's checkpoint flags, on the CPU.
     streaming feed, augmentation off; deterministic algorithms on, since
     the CPU's index backward of the rel-pos tables sums in a thread-dependent
     order: two straight runs differ there by ~1e-11 without them);
+  * --resume under --image-weights: the resumed epoch's order comes from
+    the class weights alone (maps are not checkpointed, as in JAX);
   * val --weights takes the .npz and a checkpoint; --rect still raises.
 """
 
@@ -151,6 +153,56 @@ def test_resume_is_bit_equal_to_the_straight_run(tmp_path, monkeypatch,
         assert (oa[key] is None) == (ob[key] is None)
         for k in oa[key] or {}:
             assert torch.equal(oa[key][k], ob[key][k]), (key, k)
+
+
+@pytest.mark.parametrize("ap", [0.0, 0.6], ids=["zero_maps", "eval_maps"])
+def test_resume_under_image_weights(tmp_path, monkeypatch, deterministic,
+                                    ap):
+    """--image-weights across --resume. The checkpoint holds no per-class
+    maps (nor does JAX's), so the resumed run draws its first epoch's order
+    from the class weights alone. The uninterrupted run draws it from the
+    last eval's maps. With an eval that reads all-zero maps the two runs
+    are bit-equal; with maps of 0.6 the resumed epoch's image weights
+    differ from the uninterrupted run's. The eval is a stand-in that
+    returns `ap` for every class, so that the maps are known."""
+    from sodt_tpu_torch.data import loader
+    from sodt_tpu_torch.train import cli, trainer
+    monkeypatch.setattr(loader, "DEVICE_BANK_MAX_GB", 0.0)   # streaming
+    monkeypatch.setattr(trainer, "evaluate", lambda *a, nc, **k: {
+        "map50": ap, "map": ap / 2,
+        "per_class": {c: {"ap": ap} for c in range(nc)}})
+    seen, image_weights = [], trainer.labels_to_image_weights
+
+    def weights(labels, nc, cw):             # the class weights of each order
+        seen.append(np.array(cw))
+        return image_weights(labels, nc, cw)
+    monkeypatch.setattr(trainer, "labels_to_image_weights", weights)
+    common = _narrow(tmp_path) + ["--epochs", "2", "--image-weights"]
+    cli.main(common + ["--save-dir", str(tmp_path / "a")])
+    straight, seen[:] = list(seen), []
+
+    def cut(state, m):
+        if state.step == 3:
+            raise _Cut
+    with pytest.raises(_Cut):
+        cli.main(common + ["--save-dir", str(tmp_path / "b")], on_step=cut)
+    seen.clear()
+    m = cli.main(["--resume", str(tmp_path / "b/last.pt")])
+    assert m["steps"] == 4 and len(straight) == len(seen) == 2
+    # epoch 0: maps zero in both; epoch 1: the resumed run's maps are zero
+    np.testing.assert_array_equal(seen[0], straight[0])
+    np.testing.assert_array_equal(seen[1], seen[0])
+    a = tck.load_checkpoint(tmp_path / "a/last.pt")
+    b = tck.load_checkpoint(tmp_path / "b/last.pt")
+    assert (a["epoch"], a["step"]) == (b["epoch"], b["step"]) == (1, 4)
+    if ap == 0.0:
+        np.testing.assert_array_equal(straight[1], seen[1])
+        for part in ("model", "ema"):
+            for k in a[part]:
+                assert torch.equal(a[part][k], b[part][k]), (part, k)
+    else:
+        np.testing.assert_allclose(straight[1], seen[1] * (1 - ap) ** 2,
+                                   rtol=1e-12)
 
 
 def test_checkpoint_files_and_val_weights(tmp_path, capsys):

@@ -94,24 +94,26 @@ def _same(a, b):
             assert torch.equal(x[k], y[k]), k
 
 
-def test_regimes_agree_and_start_step_resumes_the_stream():
+def test_regimes_agree_and_start_step_resumes_the_stream(monkeypatch):
     """The device bank and the streaming regime give the same batches for
     the same seed; a feed started at step k gives the batches that the
     uninterrupted feed gives from k on (draws, schedule and the
-    multi-scale stream are run forward), in both regimes."""
+    multi-scale stream are run forward), in both regimes. The regime is
+    set through the bank gate, DEVICE_BANK_MAX_GB."""
     s = 96                    # buckets 64, 96, 128 px
     ds = SyntheticVedai(n=8, img_size=s, seed=1)
     kw = dict(seed=3, device="cpu", multi_scale=True,
               sample_weights_fn=_weights_fn(ds))
-    bank = _take(tl.make_train_batches(ds, 2, s, HYP, device_bank=True, **kw),
-                 9)
-    stream = _take(tl.make_train_batches(ds, 2, s, HYP, device_bank=False,
-                                         **kw), 9)
+    gate = {"bank": tl.DEVICE_BANK_MAX_GB, "stream": 0.0}
+
+    def batches(regime, k, **more):
+        monkeypatch.setattr(tl, "DEVICE_BANK_MAX_GB", gate[regime])
+        return _take(tl.make_train_batches(ds, 2, s, HYP, **kw, **more), k)
+    bank, stream = batches("bank", 9), batches("stream", 9)
     _same(bank, stream)
     assert {b["img"].shape[1] for b in bank} == {64, 96, 128}
-    for regime in (True, False):
-        late = _take(tl.make_train_batches(ds, 2, s, HYP, device_bank=regime,
-                                           start_step=5, **kw), 4)
+    for regime in gate:
+        late = batches(regime, 4, start_step=5)
         _same(late, bank[5:])
         assert [b["epoch"] for b in late] == [1, 1, 1, 2]
 
