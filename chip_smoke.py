@@ -114,6 +114,20 @@ the final ok line:
               batch on the card against the same tiles and draws on the
               CPU (images <= 1e-2 on the 0-255 scale, labels <= 1e-3 px,
               masks equal), for the hyp file's and the gather / mixup hyps
+     folders  VEDAI folders written on the card by the port's own PNG
+              encoder: 16 pairs of 1024 px (`SyntheticVedai(seed=0)`, RGB
+              `_co`, gray `_ir`, every row filter type, raw 14-column
+              annotations), decoded back bit-equal and `prepare`d; `train
+              --data --weights` the .npz at 512 px, batch 4: 2 epochs
+              streaming (the bank gate at 0), 1 epoch from the device bank,
+              1 epoch of --rect, PER_STEP on every step, finite losses, the
+              feed's regime and tile source printed; `val --data` square
+              (PER_FORWARD) and --rect (544 px, OFF_FORWARD); `trained`'s
+              16 images as a 512 px PNG folder (labels written with 9
+              digits, read back bit-equal) whose bf16 mAP@0.5 and mAP must
+              equal `trained`'s to the digit; decode ms per pair, the first
+              epoch's feed against a warm one, feed + step ms and the idle
+              share of the streaming, bank and rect feeds
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
               device time; the forward's time by CUDA events (host gaps
@@ -1371,7 +1385,7 @@ def phase_path(label: str, args: list[str], expected: dict) -> dict:
     finite = all(math.isfinite(m[k]) for k in ("map50", "map", "speed_ms"))
 
     ds = SyntheticVedai(n=bs, img_size=img_size, nc=8, seed=1)
-    batch = next(make_eval_batches(ds, bs))
+    batch = next(make_eval_batches(ds, bs, img_size))
     img = torch.from_numpy(batch["img"]).cuda().float() / 255
     ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
     raws = {}
@@ -1508,7 +1522,7 @@ def phase_int8(label: str, args: list[str], expected: dict) -> dict:
     finite = all(math.isfinite(m[k]) for k in ("map50", "map", "speed_ms"))
 
     ds = SyntheticVedai(n=bs, img_size=img_size, nc=8, seed=1)
-    batch = next(make_eval_batches(ds, bs))
+    batch = next(make_eval_batches(ds, bs, img_size))
     img = torch.from_numpy(batch["img"]).cuda().float() / 255
     ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
     model = cache_rel_bias(seeded_model(opt.cfg, torch.bfloat16).cuda().eval())
@@ -1757,7 +1771,7 @@ def phase_trained(label: str) -> dict:
                      and all(math.isfinite(m[k]) for k in ("map50", "map")))
 
     ds = SyntheticVedai(n=16, img_size=512, nc=8, seed=1)
-    batch = next(make_eval_batches(ds, MAIN_BATCH))
+    batch = next(make_eval_batches(ds, MAIN_BATCH, 512))
     img = torch.from_numpy(batch["img"]).cuda().float() / 255
     ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
     sd, raws = load_weights(npz), {}
@@ -2093,6 +2107,299 @@ def phase_train_aug(label: str, workdir: Path) -> dict:
     return row
 
 
+# ------------------------------------------------------------------ folders
+
+# VEDAI folders written on the card's machine by the port's own encoder
+# (1024 px `_co` RGB / `_ir` gray pairs in the raw layout, the rows of
+# every file cycling through the five filter types), trained and evaluated
+# at 512 px from the trained weights
+FOLDER_N = 16
+FOLDER_RAW = 1024
+FOLDER_ARGS = ["--img-size", "512", "--batch-size", "4", "--nbs", "4",
+               "--weights", TRAINED_NPZ, "--nosave", "--notest"]
+FOLDER_VAL = ["--task", "val", "--img-size", "512", "--batch-size", "4",
+              "--weights", TRAINED_NPZ]
+FOLDER_STEPS = FOLDER_N // MAIN_BATCH
+FOLDER_FORWARDS = FOLDER_N // MAIN_BATCH
+# training id -> a raw VEDAI id that `prepare` maps onto it
+RAW_CLASS = {0: 1, 1: 11, 2: 5, 3: 2, 4: 10, 5: 4, 6: 23, 7: 9}
+# --rect eval at 512 px batches the square tiles at 544 px (pad 0.5):
+# stage 2's 68 x 68 map is off the window grid and stage 3 pads to four
+# windows, as at 608 px
+RECT_EVAL_PX = 544
+RECT_FORWARD = OFF_FORWARD
+
+
+def _row_filters(path: Path) -> list[int]:
+    """The filter types used by the rows of a PNG written by the port."""
+    import numpy as np
+    import zlib
+    from sodt_tpu_torch.data import png
+    data = path.read_bytes()
+    chunks = list(png._chunks(data))
+    w, h, _, ctype = png._ihdr(chunks[0][1])[:4]
+    raw = zlib.decompress(b"".join(p for k, p in chunks if k == b"IDAT"))
+    rows = np.frombuffer(raw, np.uint8).reshape(h, -1)
+    return sorted(set(rows[:, 0].tolist()))
+
+
+def _write_png_folder(root: Path, ds, stems, raw_size: int | None) -> dict:
+    """Items of `ds` as `images/<stem>_co.png` (RGB) and `_ir.png` (gray),
+    written by `png.write_png` with the rows' filters cycling through all
+    five types, each file decoded back and held bit-equal to the array
+    written. With `raw_size`, 14-column annotations in pixels under
+    `Annotations<raw_size>/`; else label files written with 9 significant
+    digits, which `np.loadtxt` reads back into the float32 labels bit for
+    bit (held)."""
+    import numpy as np
+    from sodt_tpu_torch.data.png import read_png, write_png
+    (root / "images").mkdir(parents=True)
+    ann = root / (f"Annotations{raw_size}" if raw_size else "labels")
+    ann.mkdir()
+    exact, decode_ms, write_ms = True, [], []
+    for i, stem in enumerate(stems):
+        rgb, ir, labels = ds[i]
+        filters = np.arange(rgb.shape[0]) % 5
+        co, irp = (root / "images" / f"{stem}_{m}.png" for m in ("co", "ir"))
+        t0 = time.perf_counter()
+        write_png(co, rgb, filters=filters)
+        write_png(irp, ir[..., 0], filters=filters)
+        t1 = time.perf_counter()
+        back = (read_png(co), read_png(irp))
+        decode_ms.append(1e3 * (time.perf_counter() - t1))
+        write_ms.append(1e3 * (t1 - t0))
+        exact = exact and np.array_equal(back[0], rgb) and np.array_equal(
+            back[1], ir[..., :1])
+        s = raw_size
+        if s:
+            rows = []
+            for c, cx, cy, w, h in labels:
+                x1, x2, y1, y2 = ((cx - w / 2) * s, (cx + w / 2) * s,
+                                  (cy - h / 2) * s, (cy + h / 2) * s)
+                rows.append(
+                    f"{cx * s:.1f} {cy * s:.1f} 0.0 {RAW_CLASS[int(c)]} 0 0 "
+                    f"{x1:.1f} {x2:.1f} {x2:.1f} {x1:.1f} "
+                    f"{y1:.1f} {y1:.1f} {y2:.1f} {y2:.1f}")
+        else:
+            rows = [" ".join(f"{v:.9g}" for v in r) for r in labels]
+        (ann / f"{stem}.txt").write_text("\n".join(rows) + "\n")
+        if not s:
+            back_lab = np.loadtxt(ann / f"{stem}.txt", ndmin=2,
+                                  dtype=np.float32)
+            exact = exact and np.array_equal(back_lab, labels)
+    return {"bit_equal": bool(exact),
+            "filters": _row_filters(root / "images" / f"{stems[0]}_co.png"),
+            "decode_ms_per_pair": decode_ms,
+            "write_ms_per_pair": sum(write_ms) / len(write_ms)}
+
+
+def _data_yaml(root: Path, fold: str) -> str:
+    data = root / "data.yaml"
+    data.write_text(json.dumps({"train": fold, "val": fold, "nc": 8,
+                                "names": [str(c) for c in range(8)]}))
+    return str(data)
+
+
+def _folder_feed(fold: str, hyp_path: Path, regime: str) -> dict:
+    """Feed + step on the folder from the trained weights, warm: ms of the
+    two on CUDA events, the device's busy ms (torch.profiler) and the idle
+    share. `stream` (the bank gate at 0) and `rect` first time each feed
+    call of a first epoch (tiles decoded from the PNGs) and of a second
+    (the RAM cache); `bank` times its upload (`setup_s`)."""
+    import torch
+    import yaml
+    from sodt_tpu_torch.data import VedaiDataset, loader
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.train.checkpoint import load_weights
+    from sodt_tpu_torch.train.optim import make_optimizer
+    from sodt_tpu_torch.train.state import TrainState, make_train_step
+    from sodt_tpu_torch.train.trainer import loss_config, scale_hyp
+
+    model = build_model("configs/model.yaml", ch_in=4, dtype=torch.bfloat16)
+    model.load_state_dict(load_weights(TRAINED_NPZ))
+    model = model.cuda().train()
+    h = scale_hyp(yaml.safe_load(hyp_path.read_text()),
+                  len(model.spec.anchors), 8, 512)
+    tx = make_optimizer(h, dict(model.named_parameters()), epochs=1, nb=4)
+    state = TrainState.create(model, tx)
+    step = make_train_step(model, tx, loss_config(model, h, 8))
+    ds = VedaiDataset(fold, img_size=512)
+    out = {"regime": regime}
+    gate = loader.DEVICE_BANK_MAX_GB
+    t0 = time.perf_counter()
+    try:
+        if regime == "rect":
+            batches = loader.make_rect_train_batches(ds, MAIN_BATCH, 512, h,
+                                                     device="cuda")
+        else:
+            loader.DEVICE_BANK_MAX_GB = 0.0 if regime == "stream" else gate
+            batches = loader.make_train_batches(ds, MAIN_BATCH, 512, h,
+                                                device="cuda")
+    finally:
+        loader.DEVICE_BANK_MAX_GB = gate
+    out["setup_s"] = time.perf_counter() - t0
+
+    def feed_ms():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        b = next(batches)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t), b
+    if regime != "bank":
+        # a first epoch decodes the PNGs into the RAM cache, later ones not
+        first = [feed_ms()[0] for _ in range(FOLDER_STEPS)]
+        warm = [feed_ms()[0] for _ in range(FOLDER_STEPS)]
+        out.update(feed_ms_first_epoch=first, feed_ms_warm_epoch=warm)
+    both = lambda: step(state, next(batches))
+    both()
+    out["feed_plus_step_ms"] = time_ms(both, iters=FOLDER_STEPS, warmup=1)
+    wall = []
+
+    def run():
+        t = time.perf_counter()
+        both()
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t))
+    busy, _ = _busy(profiled(run, f"folders {regime}"))
+    out.update(device_busy_ms=busy, profiled_wall_ms=wall[-1],
+               idle_share=_idle(busy, out["feed_plus_step_ms"]))
+    return out
+
+
+def phase_folders(label: str, workdir: Path, trained: dict) -> dict:
+    """VEDAI folders on the card (module doc, phase `folders`):
+      1. a 1024 px raw-layout folder written with the port's encoder
+         (every filter type), decoded back bit-equal, `prepare`d;
+      2. `sodt_tpu_torch.train --data` on it from the trained weights at
+         512 px: 2 epochs streaming (the bank gate at 0), 1 epoch from the
+         device bank, 1 epoch of --rect; PER_STEP on every step, finite
+         losses, the tile source printed;
+      3. `val --data` on it, square (PER_FORWARD) and --rect (544 px,
+         RECT_FORWARD);
+      4. `trained`'s 16 images at 512 px as a PNG folder: `val` in bf16
+         reads `trained`'s bf16 mAP@0.5 and mAP to the last digit;
+      5. feed + step and the idle share of each regime.
+    The launch counts are set to 0 just before each run and read after."""
+    import numpy as np
+    import torch
+    import yaml
+    from sodt_tpu_torch import kernels, val
+    from sodt_tpu_torch.data import SyntheticVedai, VedaiDataset, loader
+    from sodt_tpu_torch.data import make_eval_batches
+    from sodt_tpu_torch.data.prepare import changepath, makelabels
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+
+    trained_weights()
+    row, ok = {"phase": label}, True
+    root = workdir / "vedai1024"
+    stems = [f"{i + 1:08d}" for i in range(FOLDER_N)]
+    row["write"] = _write_png_folder(
+        root, SyntheticVedai(n=FOLDER_N, img_size=FOLDER_RAW, nc=8, seed=0),
+        stems, FOLDER_RAW)
+    (root / "fold01.txt").write_text("\n".join(stems) + "\n")
+    makelabels(str(root / f"Annotations{FOLDER_RAW}"), str(root / "labels"),
+               img_size=float(FOLDER_RAW))
+    fold = str(root / "fold01_write.txt")
+    changepath(str(root / "fold01.txt"), fold, str(root / "images"),
+               suffix="_co.png")
+    data = _data_yaml(root, fold)
+    ok = ok and row["write"]["bit_equal"] and row["write"]["filters"] == [
+        0, 1, 2, 3, 4]
+
+    hyp = yaml.safe_load(Path(resolve_config_path(
+        "configs/hyp.scratch.yaml")).read_text())
+    hyp_path = workdir / "hyp_folders.yaml"
+    hyp_path.write_text(yaml.safe_dump(dict(hyp, warmup_iters=4)))
+
+    def train(tag, extra, epochs, stream=False):
+        nonlocal ok
+        seen, hooks = _step_recorder()
+        gate = loader.DEVICE_BANK_MAX_GB
+        if stream:
+            loader.DEVICE_BANK_MAX_GB = 0.0
+        kernels.reset_launches()
+        try:
+            m, out = _train_cli(FOLDER_ARGS + [
+                "--data", data, "--hyp", str(hyp_path), "--epochs",
+                str(epochs), "--save-dir", str(workdir / f"f_{tag}")] + extra,
+                **hooks)
+        finally:
+            loader.DEVICE_BANK_MAX_GB = gate
+        counts = kernels.launches()
+        steps = _per_step(seen["counts"])
+        n = epochs * FOLDER_STEPS
+        src = re.search(r"feed: ([^,(]+).*tile source: (\w+) \(([^)]*)\)",
+                        out)
+        finite = all(math.isfinite(v) for l in seen["losses"]
+                     for v in l.values())
+        expected = {k: n * PER_STEP[k] + FOLDER_FORWARDS * PER_FORWARD[k]
+                    for k in PER_STEP}
+        r = {"args": extra, "steps": len(steps), "losses": seen["losses"],
+             "sizes": sorted(set(seen["sizes"])),
+             "feed": src[1].strip() if src else None,
+             "tile_source": src[2] if src else None,
+             "tile_source_why": src[3] if src else None,
+             "launches_per_step_ok": all(c == PER_STEP for c in steps),
+             "launches_ok": counts == expected, "map50": m["map50"]}
+        ok = ok and (len(steps) == n and r["launches_per_step_ok"]
+                     and r["launches_ok"] and finite and src is not None
+                     and r["sizes"] == [512])
+        row[tag] = r
+
+    train("stream", [], 2, stream=True)
+    train("bank", [], 1)
+    train("rect", ["--rect"], 1)
+
+    evals = {}
+    for tag, extra, per_fwd in (("square", [], PER_FORWARD),
+                                ("rect", ["--rect"], RECT_FORWARD)):
+        kernels.reset_launches()
+        m = val.main(FOLDER_VAL + ["--data", data] + extra)
+        per = {k: v / FOLDER_FORWARDS for k, v in kernels.launches().items()}
+        evals[tag] = {k: m[k] for k in ("map50", "map", "seen")}
+        evals[tag]["launches_per_forward"] = per
+        ok = ok and per == {k: float(v) for k, v in per_fwd.items()} and (
+            m["seen"] == FOLDER_N)
+    shape = next(make_eval_batches(VedaiDataset(fold, img_size=512),
+                                   MAIN_BATCH, 512, rect=True))["net_shape"]
+    evals["rect"]["net_shape"] = list(shape)
+    ok = ok and tuple(shape) == (RECT_EVAL_PX, RECT_EVAL_PX)
+    row["eval"] = evals
+
+    # the lossless tie: `trained`'s images as PNGs at 512 px
+    tie = workdir / "trained_png"
+    tstems = [f"{i:08d}" for i in range(16)]
+    row["tie_write"] = _write_png_folder(
+        tie, SyntheticVedai(n=16, img_size=512, nc=8, seed=1), tstems, None)
+    tfold = tie / "fold.txt"
+    tfold.write_text("".join(f"{tie / 'images' / s}_co.png\n"
+                             for s in tstems))
+    m = val.main(FOLDER_VAL + ["--data", _data_yaml(tie, str(tfold))])
+    want = (trained or {}).get("runs", {}).get("bf16")
+    if want is None:
+        want = val.main(TRAINED_ARGS)
+    row["tie"] = {"folder": {k: m[k] for k in ("map50", "map")},
+                  "trained_bf16": {k: want[k] for k in ("map50", "map")}}
+    ok = ok and row["tie_write"]["bit_equal"] and all(
+        m[k] == want[k] for k in ("map50", "map"))
+
+    row["feed"] = {regime: _folder_feed(fold, hyp_path, regime)
+                   for regime in ("stream", "bank", "rect")}
+    dec = row["write"]["decode_ms_per_pair"]
+    row["summary"] = {
+        "decode_ms_per_1024_pair_first": dec[0],
+        "decode_ms_per_1024_pair_mean": sum(dec) / len(dec),
+        **{f"{k}_feed_ms_{e}_epoch_mean": float(np.mean(
+            row["feed"][k][f"feed_ms_{e}_epoch"]))
+           for k in ("stream", "rect") for e in ("first", "warm")},
+        **{f"{k}_feed_plus_step_ms": v["feed_plus_step_ms"]
+           for k, v in row["feed"].items()},
+        **{f"{k}_idle_share": v["idle_share"] for k, v in row["feed"].items()}}
+    row.update(launches={}, ok=bool(ok))
+    emit(row)
+    return row
+
+
 def _train_setup(dtype, seed: int = 0, cfg: str = "configs/model.yaml"):
     """The model of `cfg` (the flagship) in training mode with weights from
     `seed`, one synthetic training batch from `seed` on the card, and its
@@ -2401,6 +2708,7 @@ def main() -> int:
         drive("int8", phase_int8, INT8_ARGS, INT8_FORWARD)
         drive("trained", phase_trained)
         drive("train_aug", phase_train_aug, tmp)
+        drive("folders", phase_folders, tmp, paths.get("trained"))
     for label, phase, args in (
             ("grads", phase_grads, ()), ("profile", phase_profile, ()),
             ("profile_train", phase_profile_train, ()),

@@ -1,6 +1,6 @@
-"""The training feed: padded labels, the device tile bank, the streaming
-regime and the augmentation of a batch (`sodt_tpu/data/loader.py`, without
-its native, rect and eval parts).
+"""The feeds (`sodt_tpu/data/loader.py`): padded labels, the tile sources,
+the device tile bank, the streaming regime and the augmentation of a
+batch; rect training; the eval batches, square and rect.
 
   host:    numpy tiles (uint8) and padded labels, the index schedule
            (`_order`, `_step_indices`: numpy in JAX too, copied so that the
@@ -13,7 +13,9 @@ its native, rect and eval parts).
 Two regimes, as in JAX: the device bank (every uint8 tile uploaded once
 when the rgb + ir tiles fit `DEVICE_BANK_MAX_GB`; a step sends the (B, 4)
 indices and the draws) and streaming (tiles read on the host, sent as
-uint8). Batches are dicts of tensors on the device: img / ir (B, S, S, 3)
+uint8). Tiles come from a tile source: the native loader
+(`native/libsodt_loader.so`, OpenCV) where it loads, else the python
+dataset; the feed prints which and why on its `feed:` line. Batches are dicts of tensors on the device: img / ir (B, S, S, 3)
 float in [0, 1], targets (B, N, 5) [cls, cx, cy, w, h] normalized, tmask
 (B, N) bool.
 
@@ -26,6 +28,11 @@ resumed run then sees the batches of the uninterrupted run. Under
 does JAX's), so the first resumed epoch draws its order from the class
 weights alone, where the uninterrupted run used the last eval's maps.
 
+Rect training (`make_rect_train_batches`) keeps JAX's aspect-ratio groups
+and their order (the same numpy Generator calls); its augmentation draws
+follow the port's convention, a Generator keyed by (seed, epoch * groups +
+group). Eval batches stay uint8 numpy (`make_eval_batches`).
+
 The whole-epoch scan of JAX (`epoch_schedule` feeding `make_epoch_scan`) is
 not ported: it is `lax.scan`'s answer to dispatch cost, and its flag
 --scan-epoch is ROADMAP Queue 1 item 11.
@@ -33,15 +40,19 @@ not ported: it is `lax.scan`'s answer to dispatch cost, and its flag
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
 import torch
 
-from .augment import (PerspectiveParams, augment_draws, draw_cols, flips,
-                      hsv_apply, mosaic4, random_perspective)
+from .augment import (WARP, PerspectiveParams, augment_draws, draw_cols,
+                      flip_draws, flips, hsv_apply, hsv_draws, mosaic4,
+                      perspective_draws, random_perspective, warp_draws)
+from .png import png_size
 from .synthetic import pad_labels
 from ..ops.boxes import xywhn2xyxy
+from ..ops.letterbox import letterbox_image_np, letterbox_params
 
 DEVICE_BANK_MAX_GB = 1.5  # device-bank gate: rgb + ir uint8 tiles must fit
 
@@ -138,13 +149,57 @@ def augment_batch(rgb4, ir4, lab4, msk4, rgb4b, ir4b, lab4b, msk4b,
     return img / 255.0, ir / 255.0, targets, mask
 
 
-def read_tiles(ds, flat_idx):
-    """Stacked uint8 rgb / ir tiles of `flat_idx` through the python
-    dataset (JAX's `PyTileSource`, whose submit / wait split serves the
-    native loader's prefetch)."""
-    items = [ds[int(j)] for j in flat_idx]
-    return (np.stack([rgb for rgb, _, _ in items]),
-            np.stack([ir for _, ir, _ in items]))
+class PyTileSource:
+    """Tiles through the python dataset: `submit` only records the indices,
+    `wait` reads them (stacked uint8 rgb and ir)."""
+
+    name = "python"
+
+    def __init__(self, ds, why: str):
+        self.ds = ds
+        self.why = why
+
+    def submit(self, flat_idx):
+        return flat_idx
+
+    def wait(self, flat_idx):
+        items = [self.ds[int(j)] for j in flat_idx]
+        return (np.stack([rgb for rgb, _, _ in items]),
+                np.stack([ir for _, ir, _ in items]))
+
+
+class NativeTileSource:
+    """Tiles through the C++ prefetch loader (`native_loader`): `submit`
+    starts the decode on its worker, `wait` collects it."""
+
+    name = "native"
+
+    def __init__(self, ds, img_size: int, cache: bool):
+        from .native_loader import NativeTileLoader
+        self.loader = NativeTileLoader(ds.img_files, ds.ir_files, img_size,
+                                       cache_gb=8.0 if cache else 0.0)
+        self.why = "native/libsodt_loader.so loaded"
+
+    def submit(self, flat_idx):
+        return self.loader.submit(np.asarray(flat_idx, np.int32))
+
+    def wait(self, job):
+        return self.loader.wait(job)
+
+
+def _make_tile_source(dataset, img_size: int, cache: bool = True):
+    """The native loader where the dataset has image files and the library
+    loads, else the python dataset (through a RamCache when `cache`). The
+    JAX package swallows the reason it falls back; here the source carries
+    it (`.name`, `.why`) and the feed prints it."""
+    if not hasattr(dataset, "img_files"):
+        why = "the dataset has no image files"
+    else:
+        from . import native_loader
+        if native_loader.available():
+            return NativeTileSource(dataset, img_size, cache)
+        why = f"native loader unavailable: {native_loader.load_error()}"
+    return PyTileSource(RamCache(dataset) if cache else dataset, why)
 
 
 def _pack_labels(labels, flat_idx, m0: int):
@@ -207,7 +262,9 @@ class BankFeed:
         self.step = 0
         self.device = torch.device(device)
 
-        rgb_all, ir_all = read_tiles(dataset, range(n))
+        self.source = _make_tile_source(dataset, img_size, cache=False)
+        src = self.source
+        rgb_all, ir_all = src.wait(src.submit(np.arange(n)))
         labs, msks = _pack_labels(dataset.labels, range(n), m0)
         self.banks = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(
             self.device) for x in (rgb_all, ir_all, labs, msks))
@@ -277,12 +334,14 @@ def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w)).T.to(device)
 
 
-def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
-    """(B, H, W, C) f32 -> (B, size, size, C), `jax.image.resize(...,
-    "bilinear")` as the multi-scale buckets call it: a product per axis
-    (f32; TF32 must be off)."""
-    wy = _resize_weights(x.shape[1], size, x.device)
-    wx = _resize_weights(x.shape[2], size, x.device)
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """(B, H, W, C) f32 -> (B, h, w, C) for `size` (h, w), or an int for a
+    square: `jax.image.resize(..., "bilinear")` as the multi-scale buckets
+    and the letterbox call it, a product per axis (f32; TF32 must be
+    off)."""
+    h, w = (size, size) if isinstance(size, int) else size
+    wy = _resize_weights(x.shape[1], h, x.device)
+    wx = _resize_weights(x.shape[2], w, x.device)
     return torch.einsum("oh,bhwc,pw->bopc", wy, x, wx)
 
 
@@ -307,56 +366,89 @@ def make_train_batches(dataset, batch_size: int, img_size: int, hyp: dict,
                        device="cuda", start_step: int = 0) -> Iterator[dict]:
     """Endless iterator of augmented device batches, from `start_step` on.
     The device bank when the tiles fit DEVICE_BANK_MAX_GB, else
-    streaming: tiles read on the host through a RAM cache, sent as uint8,
-    augmented on the device. `multi_scale` resizes each batch to one of
-    MULTI_SCALE x img_size (rounded to 32 px), drawn from a stream of its
-    own seeded with `seed`."""
+    streaming: tiles read on the host by the tile source
+    (`_make_tile_source`: the native loader, else the python dataset
+    through a RAM cache), sent as uint8, augmented on the device; within an
+    epoch the next step's tiles are submitted before a batch is yielded.
+    `multi_scale` resizes each batch to one of MULTI_SCALE x img_size
+    (rounded to 32 px), drawn from a stream of its own seeded with `seed`. The regime and the
+    tile source are chosen, and printed on a `feed:` line, when this is
+    called."""
+    n = len(dataset)
+    if n < batch_size:
+        raise ValueError(
+            f"dataset has {n} images < batch_size {batch_size}; "
+            "the epoch schedule would never yield a batch")
+    feed = make_bank_feed(dataset, batch_size, img_size, hyp, seed=seed,
+                          m0=max_labels_per_image,
+                          sample_weights_fn=sample_weights_fn,
+                          device=device, start_step=start_step)
+    if feed is not None:
+        src = feed.source
+        print(f"feed: device bank ({n} tiles on {feed.device}), tile source: "
+              f"{src.name} ({src.why})")
+        return _bank_batches(feed, img_size, seed, multi_scale, start_step)
+    src = _make_tile_source(dataset, img_size)
+    print(f"feed: streaming ({n} tiles decoded on the host), tile source: "
+          f"{src.name} ({src.why})")
+    return _stream_batches(dataset, src, batch_size, img_size, hyp, seed,
+                           max_labels_per_image, sample_weights_fn,
+                           multi_scale, torch.device(device), start_step)
+
+
+def _bank_batches(feed, img_size, seed, multi_scale, start_step):
+    scale_rng = np.random.default_rng(seed)
+    if multi_scale:
+        for _ in range(start_step):
+            _bucket(scale_rng, img_size)
+    while True:
+        b = feed.augment_step()
+        if multi_scale:
+            b = _rescale(b, _bucket(scale_rng, img_size), img_size)
+        yield b
+
+
+def _stream_batches(dataset, src, batch_size, img_size, hyp, seed, m0,
+                    sample_weights_fn, multi_scale, dev, start_step):
     n = len(dataset)
     labels = dataset.labels
     rng = np.random.default_rng(seed)
     scale_rng = np.random.default_rng(seed)
     mosaic_p = float(hyp.get("mosaic", 1.0))
     use_mixup = hyp.get("mixup", 0.0) > 0 and mosaic_p > 0
-    m0 = max_labels_per_image
-    if n < batch_size:
-        raise ValueError(
-            f"dataset has {n} images < batch_size {batch_size}; "
-            "the epoch schedule would never yield a batch")
     steps_per_epoch = max(n // batch_size, 1)
-    feed = make_bank_feed(dataset, batch_size, img_size, hyp, seed=seed,
-                          m0=m0, sample_weights_fn=sample_weights_fn,
-                          device=device, start_step=start_step)
     if multi_scale:
         for _ in range(start_step):
             _bucket(scale_rng, img_size)
-    if feed is not None:
-        while True:
-            b = feed.augment_step()
-            if multi_scale:
-                b = _rescale(b, _bucket(scale_rng, img_size), img_size)
-            yield b
-
-    dev = torch.device(device)
-    src = RamCache(dataset)
 
     def schedule():
         while True:
             order = _order(rng, n, sample_weights_fn)
             for start in range(0, n - batch_size + 1, batch_size):
-                yield _step_indices(rng, order, start, batch_size, n,
-                                    use_mixup)
+                prim, sec = _step_indices(rng, order, start, batch_size, n,
+                                          use_mixup)
+                yield (prim.ravel() if sec is None
+                       else np.concatenate([prim.ravel(), sec.ravel()]))
 
     sched = schedule()
     for _ in range(start_step):
         next(sched)
     step = start_step
     shape4 = (batch_size, 4, img_size, img_size, 3)
+    pending = None                    # the next step's indices and job
     while True:
-        prim, sec = next(sched)
-        flat = (prim.ravel() if sec is None
-                else np.concatenate([prim.ravel(), sec.ravel()]))
-        rgb, ir = read_tiles(src, flat)
-        labs, msks = _pack_labels(labels, flat, m0)
+        if pending is None:
+            flat = next(sched)
+            pending = (flat, src.submit(flat))
+        cur, job = pending
+        rgb, ir = src.wait(job)
+        pending = None
+        if (step + 1) % steps_per_epoch:
+            # the next step's decode starts now; not across an epoch's end,
+            # whose order --image-weights draws after the epoch's eval
+            flat = next(sched)
+            pending = (flat, src.submit(flat))
+        labs, msks = _pack_labels(labels, cur, m0)
         t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         half = batch_size * 4
         r1, i1 = t(rgb[:half].reshape(shape4)), t(ir[:half].reshape(shape4))
@@ -379,3 +471,235 @@ def make_train_batches(dataset, batch_size: int, img_size: int, hyp: dict,
             b = _rescale(b, _bucket(scale_rng, img_size), img_size)
         yield b
         step += 1
+
+
+# ------------------------------------------------------------------ eval
+
+def _stem(files, i: int) -> str:
+    return Path(files[i]).stem if files is not None else str(i)
+
+
+def make_eval_batches(dataset, batch_size: int, img_size: int,
+                      max_labels_per_image: int = 60, rect: bool = False,
+                      stride: int = 32, pad: float = 0.5) -> Iterator[dict]:
+    """Deterministic eval batches of uint8 numpy arrays (the eval step casts
+    and scales on the device): img / ir, padded targets / tmask, the
+    dataset `indices`, `valid` (the last batch is padded by repeating its
+    final sample), the images' `shapes` and file `stems` (dataset indices
+    where it has no files). `rect` batches by aspect ratio, each batch
+    letterboxed to its own stride-multiple shape (`net_shape`), as JAX's
+    `_rect_eval_batches`."""
+    if rect:
+        yield from _rect_eval_batches(dataset, batch_size, img_size,
+                                      max_labels_per_image, stride, pad)
+        return
+    n = len(dataset)
+    files = getattr(dataset, "img_files", None)
+    for start in range(0, n, batch_size):
+        idx = list(range(start, min(start + batch_size, n)))
+        valid = len(idx)
+        while len(idx) < batch_size:
+            idx.append(idx[-1])
+        rgbs, irs, labs, msks, shapes = [], [], [], [], []
+        for i in idx:
+            rgb, ir, lab = dataset[i]
+            pl, pm = pad_labels(lab, max_labels_per_image)
+            rgbs.append(rgb)
+            irs.append(ir)
+            labs.append(pl)
+            msks.append(pm)
+            shapes.append(rgb.shape[:2])
+        yield {"img": np.stack(rgbs), "ir": np.stack(irs),
+               "targets": np.stack(labs), "tmask": np.stack(msks),
+               "indices": idx, "valid": valid, "shapes": shapes,
+               "stems": [_stem(files, i) for i in idx]}
+
+
+def _aspect_ratios(dataset) -> np.ndarray:
+    """h / w of every image, from the PNG headers where the dataset has
+    files (JAX reads them from PIL's headers)."""
+    files = getattr(dataset, "img_files", None)
+    if files is not None:
+        shapes = [png_size(f)[::-1] for f in files]
+    else:
+        shapes = [dataset[i][0].shape[:2] for i in range(len(dataset))]
+    shapes = np.asarray(shapes, np.float64)
+    return shapes[:, 0] / shapes[:, 1]
+
+
+def _rect_shape(ari: np.ndarray, img_size: int, stride: int, pad: float):
+    shape = [1.0, 1.0]
+    if ari.max() < 1:
+        shape = [float(ari.max()), 1.0]
+    elif ari.min() > 1:
+        shape = [1.0, float(1.0 / ari.min())]
+    bh, bw = (np.ceil(np.asarray(shape) * img_size / stride
+                      + pad).astype(int) * stride).tolist()
+    return bh, bw
+
+
+def _letterboxed(dataset, i: int, hw, scaleup: bool):
+    """Item i letterboxed to hw: rgb, ir, its labels in the letterboxed
+    frame, and the letterbox's gain and pad."""
+    bh, bw = hw
+    rgb, ir, lab = dataset[i]
+    h1, w1 = rgb.shape[:2]
+    (r, _), _, (dw, dh) = letterbox_params((h1, w1), hw, scaleup=scaleup)
+    lab = lab.copy()
+    if len(lab):
+        lab[:, 1] = (lab[:, 1] * w1 * r + dw) / bw
+        lab[:, 2] = (lab[:, 2] * h1 * r + dh) / bh
+        lab[:, 3] = lab[:, 3] * w1 * r / bw
+        lab[:, 4] = lab[:, 4] * h1 * r / bh
+    return (letterbox_image_np(rgb, hw, scaleup=scaleup),
+            letterbox_image_np(ir, hw, scaleup=scaleup), lab, (h1, w1),
+            ((r,), (dw, dh)))
+
+
+def _rect_eval_batches(dataset, batch_size: int, img_size: int, m0: int,
+                       stride: int, pad: float) -> Iterator[dict]:
+    """Rectangular eval batching: images sorted by aspect ratio, each batch
+    letterboxed (not enlarged) to its own shape."""
+    n = len(dataset)
+    files = getattr(dataset, "img_files", None)
+    ar = _aspect_ratios(dataset)
+    order = np.argsort(ar)
+    for start in range(0, n, batch_size):
+        idx = [int(order[j]) for j in
+               range(start, min(start + batch_size, n))]
+        valid = len(idx)
+        while len(idx) < batch_size:
+            idx.append(idx[-1])
+        hw = _rect_shape(ar[idx[:valid]], img_size, stride, pad)
+        rgbs, irs, labs, msks, shps, rps = [], [], [], [], [], []
+        for i in idx:
+            rgb, ir, lab, shape, rp = _letterboxed(dataset, i, hw, False)
+            pl, pm = pad_labels(lab, m0)
+            rgbs.append(rgb)
+            irs.append(ir)
+            labs.append(pl)
+            msks.append(pm)
+            shps.append(shape)
+            rps.append(rp)
+        yield {"img": np.stack(rgbs), "ir": np.stack(irs),
+               "targets": np.stack(labs), "tmask": np.stack(msks),
+               "indices": idx, "valid": valid, "shapes": shps,
+               "ratio_pads": rps, "stems": [_stem(files, i) for i in idx],
+               "net_shape": tuple(hw)}
+
+
+# --------------------------------------------------------- rect training
+
+def rect_draws(seed: int, key: int, batch_size: int, hw: tuple[int, int],
+               hyp: dict) -> np.ndarray:
+    """The draws of one rect batch, from a Generator keyed by (seed, key):
+    (B, WARP + 5) [warp at hw, HSV gains, flips]."""
+    rng = np.random.default_rng((seed, key))
+    p = PerspectiveParams.from_hyp(hyp)
+    warp = warp_draws(perspective_draws(rng, batch_size, p, hw), hw)
+    hsv = hsv_draws(rng, batch_size, hyp.get("hsv_h", 0.015),
+                    hyp.get("hsv_s", 0.7), hyp.get("hsv_v", 0.4))
+    flip = flip_draws(rng, batch_size, hyp.get("flipud", 0.0),
+                      hyp.get("fliplr", 0.5))
+    return np.concatenate([warp, hsv, flip], 1).astype(np.float32)
+
+
+def rect_augment_batch(img, ir, lab, msk, draws: torch.Tensor, *, hw,
+                       hyp: dict):
+    """The rect branch's augmentation of a letterboxed batch (JAX's
+    `_rect_augment_one`, vmapped there): perspective, HSV, flips at the
+    batch's shape, no mosaic. img / ir (B, bh, bw, 3) uint8; lab (B, M, 5)
+    xywhn in the letterboxed frame; draws from `rect_draws`. Returns img,
+    ir in [0, 1], targets (B, M, 5), tmask (B, M)."""
+    bh, bw = hw
+    p = PerspectiveParams.from_hyp(hyp)
+    lab_px = xywhn2xyxy(lab[..., 1:5], bw, bh)
+    img, ir, labels, mask = random_perspective(
+        img.float(), ir.float(), lab_px, msk, draws[:, :WARP], p, (bh, bw))
+    img = hsv_apply(img, draws[:, WARP:WARP + 3])
+    lab_n = torch.stack([(labels[..., 0] + labels[..., 2]) / 2 / bw,
+                         (labels[..., 1] + labels[..., 3]) / 2 / bh,
+                         (labels[..., 2] - labels[..., 0]) / bw,
+                         (labels[..., 3] - labels[..., 1]) / bh], -1)
+    ud, lr = (draws[:, WARP + 3:WARP + 5] > 0).unbind(1)
+    img, ir, targets, mask = flips(
+        img, ir, torch.cat([lab[..., :1], lab_n], -1), mask, ud, lr)
+    return img / 255.0, ir / 255.0, targets, mask
+
+
+def _rect_groups(dataset, batch_size: int, img_size: int, stride: int = 32,
+                pad: float = 0.0):
+    """The fixed batches of rect training and their (bh, bw): images sorted
+    by aspect ratio, the tail group padded to batch_size by cycling its own
+    members (JAX's `make_rect_train_batches`)."""
+    n = len(dataset)
+    ar = _aspect_ratios(dataset)
+    order = np.argsort(ar)
+    nb = n // batch_size
+    starts = [gi * batch_size for gi in range(nb)]
+    if n % batch_size:
+        starts.append(n - (n % batch_size))
+    groups, shapes = [], []
+    for start in starts:
+        idx = order[start:start + batch_size]
+        if len(idx) < batch_size:
+            idx = np.resize(idx, batch_size)
+        groups.append(idx)
+        shapes.append(_rect_shape(ar[idx], img_size, stride, pad))
+    return groups, shapes
+
+
+def make_rect_train_batches(dataset, batch_size: int, img_size: int,
+                            hyp: dict, *, seed: int = 0,
+                            max_labels_per_image: int = 30, stride: int = 32,
+                            pad: float = 0.0, device="cuda",
+                            start_step: int = 0) -> Iterator[dict]:
+    """Rect training: the fixed aspect-ratio groups of `_rect_groups`, each
+    letterboxed on the host to its own shape and augmented on the device
+    by `rect_augment_batch`; items are decoded once, into a RamCache (JAX
+    decodes them at every read). Every epoch permutes the groups and shuffles
+    each group's members with JAX's `np.random.default_rng(seed)` calls,
+    so the port sees JAX's batches in JAX's order; the augmentation draws
+    come from `rect_draws` keyed by (seed, epoch * nb + group). Batches
+    carry their `net_shape`. `start_step` runs the schedule forward
+    without decoding."""
+    n = len(dataset)
+    if n < batch_size:
+        raise ValueError(f"dataset has {n} images < batch {batch_size}")
+    groups, shapes = _rect_groups(dataset, batch_size, img_size, stride, pad)
+    nb = len(groups)
+    dev = torch.device(device)
+    print(f"feed: rect ({nb} groups, shapes "
+          f"{sorted(set(map(tuple, shapes)))}), tile source: python "
+          "(RAM-cached, letterboxed per group on the host)")
+    return _rect_batches(RamCache(dataset), groups, shapes, batch_size, hyp,
+                         seed, max_labels_per_image, dev, start_step)
+
+
+def _rect_batches(dataset, groups, shapes, batch_size, hyp, seed, m0, dev,
+                  start_step):
+    rng = np.random.default_rng(seed)
+    nb = len(groups)
+    step, epoch = 0, 0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    while True:
+        for gi in rng.permutation(nb):
+            idx = groups[gi].copy()
+            rng.shuffle(idx)
+            step += 1
+            if step <= start_step:
+                continue
+            hw = shapes[gi]
+            items = [_letterboxed(dataset, int(i), hw, True) for i in idx]
+            packed = [pad_labels(it[2], m0) for it in items]
+            draws = rect_draws(seed, epoch * nb + int(gi), batch_size, hw,
+                               hyp)
+            img, ir, targets, tmask = rect_augment_batch(
+                t(np.stack([it[0] for it in items])),
+                t(np.stack([it[1] for it in items])),
+                t(np.stack([p[0] for p in packed])),
+                t(np.stack([p[1] for p in packed])), t(draws), hw=hw,
+                hyp=hyp)
+            yield {"img": img, "ir": ir, "targets": targets, "tmask": tmask,
+                   "epoch": epoch, "net_shape": hw}
+        epoch += 1

@@ -1,0 +1,127 @@
+"""ctypes binding of the C++ prefetching tile loader, `native/loader.cpp`
+(`sodt_tpu/data/native_loader.py`): `native/libsodt_loader.so`, with the
+JAX package's API (`available`, `NativeTileLoader`: submit / wait / get /
+close).
+
+A GIL-free worker decodes and resizes the next step's (rgb, ir) pairs with
+OpenCV while the device runs the current one. Departure: the port never
+runs `make` (the JAX binding builds the library where it is missing). The
+library links OpenCV, whose headers and libraries the card's machine
+lacks. Where it is missing or does not load, `load_error()` says why and
+the feed takes the Python tile source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import numpy as np
+
+LIB_PATH = Path(__file__).resolve().parents[2] / "native" / "libsodt_loader.so"
+_lib = None
+_error = None
+
+
+def _load_lib():
+    global _lib, _error
+    if _lib is not None or _error is not None:
+        return _lib
+    if not LIB_PATH.exists():
+        _error = f"{LIB_PATH} is not there"
+        return None
+    try:
+        lib = ctypes.CDLL(str(LIB_PATH))
+    except OSError as e:
+        _error = str(e)
+        return None
+    lib.loader_create.restype = ctypes.c_void_p
+    lib.loader_create.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int, ctypes.c_int, ctypes.c_size_t]
+    lib.loader_submit.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.loader_wait.restype = ctypes.c_int
+    lib.loader_wait.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8)]
+    lib.loader_last_error.restype = ctypes.c_int
+    lib.loader_last_error.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.loader_destroy.argtypes = [ctypes.c_void_p]
+    _lib = lib
+    return lib
+
+
+def available() -> bool:
+    return _load_lib() is not None
+
+
+def load_error() -> str | None:
+    """Why the library did not load (None where it did)."""
+    _load_lib()
+    return _error
+
+
+class NativeTileLoader:
+    """Decode-and-resize service over (rgb, ir) path pairs: uint8 (n, s, s,
+    3) tiles, RGB, the IR's one channel repeated."""
+
+    def __init__(self, rgb_paths: list[str], ir_paths: list[str],
+                 img_size: int, cache_gb: float = 8.0):
+        lib = _load_lib()
+        if lib is None:
+            raise RuntimeError(f"native loader unavailable: {_error}")
+        self._lib = lib
+        self.img_size = img_size
+        self.n = len(rgb_paths)
+        enc = lambda ps: (ctypes.c_char_p * len(ps))(
+            *[p.encode() for p in ps])
+        self._rgb_arr = enc(rgb_paths)   # kept alive for the worker
+        self._ir_arr = enc(ir_paths)
+        self._handle = lib.loader_create(
+            self._rgb_arr, self._ir_arr, self.n, img_size,
+            int(cache_gb * (1 << 30)))
+        self._next_id = 0
+        self._pending: dict[int, int] = {}
+
+    def submit(self, indices: np.ndarray) -> int:
+        idx = np.ascontiguousarray(indices, dtype=np.int32)
+        job = self._next_id
+        self._next_id += 1
+        self._lib.loader_submit(
+            self._handle, job,
+            idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), len(idx))
+        self._pending[job] = len(idx)
+        return job
+
+    def wait(self, job: int):
+        n = self._pending.pop(job)
+        s = self.img_size
+        rgb = np.empty((n, s, s, 3), np.uint8)
+        ir = np.empty((n, s, s, 3), np.uint8)
+        ok = self._lib.loader_wait(
+            self._handle, job,
+            rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ir.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        if not ok:
+            buf = ctypes.create_string_buffer(4096)
+            self._lib.loader_last_error(self._handle, buf, len(buf))
+            detail = buf.value.decode(errors="replace") or "unknown error"
+            raise RuntimeError(f"native loader job failed: {detail}")
+        return rgb, ir
+
+    def get(self, indices: np.ndarray):
+        return self.wait(self.submit(indices))
+
+    def close(self):
+        if self._handle:
+            self._lib.loader_destroy(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

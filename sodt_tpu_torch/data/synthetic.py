@@ -1,8 +1,6 @@
 """Synthetic VEDAI-like dataset: deterministic aerial-style scenes.
 
-A copy of `sodt_tpu/data/synthetic.py` (numpy only), plus the plain square
-eval batcher that takes the place of `sodt_tpu/data/loader.make_eval_batches`
-in the port.
+A copy of `sodt_tpu/data/synthetic.py` (numpy only), with `pad_labels`.
 
 No VEDAI data ships with the repository, so tests and the chip smoke run
 use a generator with the same *interface* as VedaiDataset:
@@ -73,38 +71,3 @@ def pad_labels(labels: np.ndarray, m: int):
         out[:n] = labels[:n]
         mask[:n] = True
     return out, mask
-
-
-def apply_single_cls(ds):
-    """--single-cls: every label becomes class 0, in place (a copy of
-    `sodt_tpu/data/vedai.py`'s). Works on any dataset with a `.labels` list
-    of (n, 5) [cls, cx, cy, w, h] arrays."""
-    ds.labels = [
-        (np.concatenate([np.zeros((len(l), 1), np.float32),
-                         np.asarray(l, np.float32)[:, 1:]], axis=1)
-         if len(l) else l)
-        for l in ds.labels]
-    return ds
-
-
-def make_eval_batches(dataset, batch_size: int, max_labels_per_image: int = 60):
-    """Deterministic square eval batches of uint8 numpy arrays. The last
-    batch is padded by repeating its final sample; "valid" counts the real
-    ones. Images stay uint8: the eval step casts and scales on the device."""
-    n = len(dataset)
-    for start in range(0, n, batch_size):
-        idx = list(range(start, min(start + batch_size, n)))
-        valid = len(idx)
-        while len(idx) < batch_size:
-            idx.append(idx[-1])
-        rgbs, irs, labs, msks = [], [], [], []
-        for i in idx:
-            rgb, ir, lab = dataset[i]
-            pl, pm = pad_labels(lab, max_labels_per_image)
-            rgbs.append(rgb)
-            irs.append(ir)
-            labs.append(pl)
-            msks.append(pm)
-        yield {"img": np.stack(rgbs), "ir": np.stack(irs),
-               "targets": np.stack(labs), "tmask": np.stack(msks),
-               "valid": valid}

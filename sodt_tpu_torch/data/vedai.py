@@ -1,0 +1,172 @@
+"""VEDAI paired RGB+IR folders on the host (`sodt_tpu/data/vedai.py`).
+
+A fold list names the RGB images (`*_co.png`); the IR image is the
+`*_ir.png` beside each, the label `labels/<stem>.txt` beside `images/`
+(`class cx cy w h`, normalized, one object a line). Items are uint8 RGB
+and IR tiles resized so that the longest side is `img_size`, and the
+(n, 5) labels.
+
+Decoding is the port's own (`png.read_png`, PNG only: the card's machine
+has neither cv2 nor PIL) and so is the resize (`resize.resize_longest`,
+cv2's arithmetic): both give the pixels of the JAX package's cv2 branch.
+The integrity scan verifies each file with `png.verify_png` where JAX
+calls PIL's `Image.verify`, and marks the same files corrupt. The label
+cache (`<list>.labels.npz`, keyed by a sha256 over every file's path, size
+and mtime) has JAX's key and layout, so each package reads the other's.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+from pathlib import Path
+
+import numpy as np
+
+from .png import read_png, verify_png
+from .resize import resize_longest as _resize_longest
+
+
+def derive_ir_path(p: str) -> str:
+    name = Path(p).name.replace("_co", "_ir")
+    return str(Path(p).parent / name)
+
+
+def derive_label_path(p: str) -> str:
+    sa, sb = os.sep + "images" + os.sep, os.sep + "labels" + os.sep
+    q = sb.join(p.rsplit(sa, 1)).rsplit(".", 1)[0]
+    if q.endswith("_co"):
+        q = q[: -len("_co")]
+    return q + ".txt"
+
+
+def _read_image(path: str) -> np.ndarray:
+    """Decode to uint8 HWC RGB, HW1 for one channel (JAX's cv2 branch;
+    `png.read_png` says what four channels hold). PNG only."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    if Path(path).suffix.lower() != ".png":
+        raise NotImplementedError(
+            f"{path}: the port decodes PNG only (the card's machine has no "
+            "other decoder)")
+    return read_png(path)
+
+
+class VedaiDataset:
+    """Index-addressable paired dataset: (rgb u8, ir u8, labels (n, 5))."""
+
+    def __init__(self, list_file: str, img_size: int = 512,
+                 prefix: str | None = None):
+        self.img_size = img_size
+        root = Path(list_file).parent
+        with open(list_file) as f:
+            files = [ln.strip() for ln in f if ln.strip()]
+        if prefix:
+            files = [str(Path(prefix) / p) for p in files]
+        # relative entries resolve against the list file's directory
+        self.img_files = [
+            p if os.path.isabs(p) and os.path.exists(p)
+            else (p if os.path.exists(p) else str(root / Path(p).name))
+            for p in files
+        ]
+        self.ir_files = [derive_ir_path(p) for p in self.img_files]
+        self.label_files = [derive_label_path(p) for p in self.img_files]
+        labels, bad = self._load_labels(list_file)
+        if bad.any():
+            keep = [i for i in range(len(labels)) if not bad[i]]
+            self.img_files = [self.img_files[i] for i in keep]
+            self.ir_files = [self.ir_files[i] for i in keep]
+            self.label_files = [self.label_files[i] for i in keep]
+            labels = [labels[i] for i in keep]
+        self.labels = labels
+
+    def _load_labels(self, list_file: str):
+        """The labels and the corrupt-item flags, from the cache when its
+        key matches, else from the integrity scan: both modalities
+        verified (>= 10 px sides), labels of 5 columns, non-negative,
+        normalized, without duplicate rows. A corrupt item is left out of
+        the dataset and counted in the summary line."""
+        cache = Path(list_file).with_suffix(".labels.npz")
+        h = hashlib.sha256()
+        for p in (*self.label_files, *self.img_files, *self.ir_files):
+            st = os.stat(p) if os.path.exists(p) else None
+            h.update(f"{p}:{st.st_size if st else -1}:"
+                     f"{st.st_mtime_ns if st else 0};".encode())
+        key = np.frombuffer(h.digest(), np.uint8)
+        if cache.exists():
+            data = np.load(cache, allow_pickle=True)
+            if np.array_equal(data["key"], key) and "bad" in data:
+                return list(data["labels"]), np.asarray(data["bad"], bool)
+        labels, bad = [], []
+        nf = nm = ne = nc = 0  # found, missing, empty, corrupt
+        for im, irf, lf in zip(self.img_files, self.ir_files,
+                               self.label_files):
+            ok = True
+            for f in (im, irf):
+                if not os.path.exists(f):
+                    continue  # decoded lazily; a missing pair fails there
+                try:
+                    verify_png(f)
+                except Exception as e:
+                    print(f"WARNING: corrupt image {f}: {e}")
+                    ok = False
+            arr = np.zeros((0, 5), np.float32)
+            if not os.path.exists(lf):
+                nm += 1
+            else:
+                try:
+                    arr = np.loadtxt(lf, ndmin=2, dtype=np.float32)
+                    if arr.size == 0:
+                        arr = np.zeros((0, 5), np.float32)
+                        ne += 1
+                    else:
+                        assert arr.shape[1] == 5, "labels require 5 columns"
+                        assert (arr >= 0).all(), "negative labels"
+                        assert (arr[:, 1:] <= 1.00001).all(), \
+                            "non-normalized or out of bounds coordinates"
+                        assert np.unique(arr, axis=0).shape[0] == \
+                            arr.shape[0], "duplicate labels"
+                        nf += 1
+                except Exception as e:
+                    print(f"WARNING: corrupt label {lf}: {e}")
+                    arr = np.zeros((0, 5), np.float32)
+                    ok = False
+            if not ok:
+                nc += 1
+            labels.append(arr)
+            bad.append(not ok)
+        bad = np.asarray(bad, bool)
+        if nm or ne or nc:
+            print(f"Scanned {len(labels)} items: {nf} labels found, "
+                  f"{nm} missing, {ne} empty, {nc} corrupt")
+        try:
+            np.savez(cache, key=key,
+                     labels=np.asarray(labels, dtype=object), bad=bad)
+        except OSError:
+            pass
+        return labels, bad
+
+    def __len__(self):
+        return len(self.img_files)
+
+    def __getitem__(self, i: int):
+        rgb = _resize_longest(_read_image(self.img_files[i]), self.img_size)
+        ir = _resize_longest(_read_image(self.ir_files[i]), self.img_size)
+        if ir.shape[-1] == 1:
+            ir = np.repeat(ir, 3, axis=-1)
+        elif ir.shape[-1] > 3:
+            ir = ir[..., :3]
+        if rgb.shape[-1] == 1:
+            rgb = np.repeat(rgb, 3, axis=-1)
+        return rgb, ir[..., :3], self.labels[i].copy()
+
+
+def apply_single_cls(ds):
+    """--single-cls: every label becomes class 0, in place. Works on any
+    dataset with a `.labels` list of (n, 5) [cls, cx, cy, w, h] arrays."""
+    ds.labels = [
+        (np.concatenate([np.zeros((len(l), 1), np.float32),
+                         np.asarray(l, np.float32)[:, 1:]], axis=1)
+         if len(l) else l)
+        for l in ds.labels]
+    return ds

@@ -3,17 +3,21 @@
     python -m sodt_tpu_torch.train --synthetic --synthetic-n 16 \\
         --img-size 512 --batch-size 4 --nbs 4 --epochs 2 \\
         --weights checkpoints/flagship_r5_150ep_ema.npz --save-dir runs/ft
+    python -m sodt_tpu_torch.train --data data.yaml --img-size 512 \
+        --batch-size 4 --weights checkpoints/flagship_r5_150ep_ema.npz
     python -m sodt_tpu_torch.train --resume runs/ft/last.pt
 
 Takes the JAX `train.py` flags that the port covers under their own names
 and meanings (--weights: initial weights from a checkpoint or a .npz,
 shape-matched; --resume: a checkpoint whose run's opt.yaml is reloaded, so
 no other flag is needed; --save-dir, --nosave, --save-period,
---eval-every, --multi-scale, --image-weights, --single-cls), plus --device
-(default cuda; raises when no card is visible, --device cpu runs the plain
-PyTorch path) and --weights-npz (a state_dict loaded strictly, else a
-seeded initialization). Synthetic data only; the other flags of `train.py`
-raise, naming the ROADMAP item they wait for. Prints one metrics JSON line.
+--eval-every, --multi-scale, --image-weights, --single-cls, --rect), plus
+--device (default cuda; raises when no card is visible, --device cpu runs
+the plain PyTorch path) and --weights-npz (a state_dict loaded strictly,
+else a seeded initialization). Data: the VEDAI fold lists of the --data
+yaml (`train`, `val`; PNG folders, decoded by the port itself), or
+--synthetic. The other flags of `train.py` raise, naming the ROADMAP item
+they wait for. Prints one metrics JSON line.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from .trainer import TrainConfig, train
 
 # flags of the JAX train.py that are not ported yet -> ROADMAP.md Queue 1 item
 UNPORTED = {
-    "--rect": "9, second part", "--super": 10, "--factor": 10,
+    "--super": 10, "--factor": 10,
     "--down-factor": 10, "--noautoanchor": 11, "--evolve": 11, "--wandb": 11,
     "--remat": 11, "--scan-epoch": 11,
 }
@@ -69,6 +73,9 @@ def parser() -> argparse.ArgumentParser:
                         "EMA, step, epoch, best fitness); the run's opt.yaml "
                         "beside it is reloaded, so no other flag is needed")
     p.add_argument("--image-weights", action="store_true")
+    p.add_argument("--rect", action="store_true",
+                   help="rectangular training: aspect-ratio batches, each "
+                        "letterboxed to its own shape, no mosaic")
     p.add_argument("--multi-scale", action="store_true")
     p.add_argument("--nbs", type=int, default=64,
                    help="nominal batch size for gradient accumulation")
@@ -119,7 +126,8 @@ def main(argv=None, on_step=None, on_grads=None, on_start=None) -> dict:
                          linear_lr=a.linear_lr, synthetic=a.synthetic,
                          synthetic_n=a.synthetic_n, save_dir=a.save_dir,
                          image_weights=a.image_weights,
-                         multi_scale=a.multi_scale, seed=a.seed,
+                         multi_scale=a.multi_scale, rect=a.rect,
+                         seed=a.seed,
                          eval_every=a.eval_every, bf16=a.bf16,
                          resume=a.resume, weights=a.weights,
                          single_cls=a.single_cls, nosave=a.nosave,

@@ -75,7 +75,8 @@ def evaluate(model, batches, *, nc: int, img_size: int,
              iou_thres: float = 0.6, max_det: int = 300, top_k: int = 4096,
              merge: bool = True) -> dict[str, Any]:
     """Run the mAP protocol over `batches` (dicts from
-    data.make_eval_batches). Returns the metrics dict."""
+    data.make_eval_batches; a rect batch's `net_shape` scales its ground
+    truth). Returns the metrics dict."""
     from .. import resolve_device
     dev = resolve_device(device)
     cache_rel_bias(model)
@@ -95,6 +96,8 @@ def evaluate(model, batches, *, nc: int, img_size: int,
         t_infer += time.perf_counter() - t0
 
         targets, tmask = batch["targets"], batch["tmask"]
+        # rect batches carry their own network shape
+        net_h, net_w = batch.get("net_shape", (img_size, img_size))
         for si in range(batch.get("valid", dets.shape[0])):
             seen += 1
             d = dets[si][valid[si]]
@@ -105,8 +108,8 @@ def evaluate(model, batches, *, nc: int, img_size: int,
                     stats.append((np.zeros((0, 10), bool), np.zeros(0),
                                   np.zeros(0), tcls))
                 continue
-            gt = xywhn2xyxy(torch.from_numpy(labs[:, 1:5]), img_size,
-                            img_size).numpy()
+            gt = xywhn2xyxy(torch.from_numpy(labs[:, 1:5]), net_w,
+                            net_h).numpy()
             labels5 = np.concatenate([labs[:, 0:1], gt], axis=1)
             correct = match_predictions(d, labels5, iouv)
             stats.append((correct, d[:, 4], d[:, 5], tcls))

@@ -1,9 +1,13 @@
 """The training loop (`sodt_tpu/train/trainer.py`, the part that the port
 covers).
 
-Synthetic data through the augmented feed (`data.loader.make_train_batches`:
-the device tile bank when it fits, else streaming), the hyp gain scaling
-of the JAX trainer, a per-step loop (`state.make_train_step`), an eval of
+VEDAI folders from the data yaml (`data.vedai.VedaiDataset`: its `train`
+and `val` fold lists) or synthetic data, through the augmented feed
+(`data.loader.make_train_batches`: the device tile bank when it fits, else
+streaming; its `feed:` line names the regime and the tile source) or,
+under `rect`, the rect feed (`make_rect_train_batches`: aspect-ratio
+groups, no mosaic; refused with multi_scale and image_weights, as in JAX),
+the hyp gain scaling of the JAX trainer, a per-step loop (`state.make_train_step`), an eval of
 the EMA weights every `eval_every` epochs and at the last, and checkpoints
 in `save_dir`:
 `last.pt` after each eval, `best.pt` a copy of it when the fitness is the
@@ -13,9 +17,9 @@ the final one. `weights` loads initial weights (shape-matched, names with
 `image_weights` resamples the images by the per-class mAP of the last eval;
 `multi_scale` draws each batch's size from 0.75 / 1 / 1.25 x img_size.
 
-VEDAI folders and --rect training (ROADMAP.md Queue 1 item 9, second
-part), autoanchor, the SR branch, evolve, W&B and the epoch scan (items 10
-and 11) are not ported: their options are absent from `TrainConfig`.
+Autoanchor, the SR branch, evolve, W&B and the epoch scan (ROADMAP.md
+Queue 1 items 10 and 11) are not ported: their options are absent from
+`TrainConfig`.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ import torch
 import yaml
 
 from .. import resolve_device
-from ..data import SyntheticVedai, apply_single_cls, make_eval_batches
-from ..data.loader import make_train_batches
+from ..data import (SyntheticVedai, VedaiDataset, apply_single_cls,
+                    make_eval_batches)
+from ..data.loader import make_rect_train_batches, make_train_batches
 from ..models import build_model
 from ..models.compiler import resolve_config_path
 from ..utils.general import labels_to_class_weights, labels_to_image_weights
@@ -49,8 +54,6 @@ NOMINAL_BATCH = 64
 MAX_LABELS = 30      # label slots per image in a padded batch
 LOG_EVERY = 10       # steps between the loss samples of an epoch's mean
 CH_IN = {"RGB": 3, "IR": 3, "RGB+IR": 4, "RGB+IR+fusion": 8, "RGB+IR+MF": 3}
-RECT_ITEM = ("ROADMAP.md Queue 1 item 9, second part (data/vedai.py, "
-             "data/prepare.py, data/native_loader.py, data/tools.py, --rect)")
 
 
 @dataclass
@@ -69,6 +72,7 @@ class TrainConfig:
     save_dir: str = "runs/train/exp"
     image_weights: bool = False      # class-weighted image resampling
     multi_scale: bool = False        # 0.75 / 1 / 1.25 x img_size buckets
+    rect: bool = False               # aspect-ratio batches, no mosaic
     seed: int = 0
     eval_every: int = 1
     bf16: bool = True
@@ -114,11 +118,16 @@ def ema_model(state: TrainState) -> torch.nn.Module:
     return m.eval()
 
 
-def _datasets(tc: TrainConfig, nc: int):
-    train = SyntheticVedai(n=tc.synthetic_n, img_size=tc.img_size, nc=nc,
-                           seed=tc.seed)
-    val = SyntheticVedai(n=max(tc.synthetic_n // 4, 4), img_size=tc.img_size,
-                         nc=nc, seed=tc.seed + 1)
+def _datasets(tc: TrainConfig, data_cfg: dict, nc: int):
+    if tc.synthetic:
+        train = SyntheticVedai(n=tc.synthetic_n, img_size=tc.img_size, nc=nc,
+                               seed=tc.seed)
+        val = SyntheticVedai(n=max(tc.synthetic_n // 4, 4),
+                             img_size=tc.img_size, nc=nc, seed=tc.seed + 1)
+    else:
+        train = VedaiDataset(data_cfg["train"], img_size=tc.img_size)
+        val = VedaiDataset(data_cfg.get("val", data_cfg.get("test")),
+                           img_size=tc.img_size)
     if tc.single_cls:
         apply_single_cls(train)
         apply_single_cls(val)
@@ -133,9 +142,9 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     every step, `on_grads(grads)` with every step's gradients
     (`make_train_step`)."""
     dev = resolve_device(tc.device)
-    if not tc.synthetic:
-        raise NotImplementedError(
-            f"VEDAI folder datasets: {RECT_ITEM}; use --synthetic")
+    if tc.rect and (tc.multi_scale or tc.image_weights):
+        raise ValueError("--rect is incompatible with --multi-scale and "
+                         "--image-weights (rect disables mosaic)")
     save_dir = Path(tc.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     with open(resolve_config_path(tc.hyp)) as f:
@@ -149,7 +158,7 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
          for k, v in dataclasses.asdict(tc).items()}))
     dtype = torch.bfloat16 if tc.bf16 else torch.float32
 
-    train_ds, val_ds = _datasets(tc, nc)
+    train_ds, val_ds = _datasets(tc, data_cfg, nc)
     model = build_model(tc.cfg, ch_in=CH_IN[tc.input_mode], nc=nc,
                         dtype=dtype, input_mode=tc.input_mode)
     if tc.weights_npz:
@@ -162,7 +171,10 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
         model.load_state_dict(sd)
         print(f"pretrained: {n_hit}/{n_all} arrays from {tc.weights}")
     model = model.to(dev)
-    nb = max(len(train_ds) // tc.batch_size, 1)
+    # rect yields ceil(n / bs) groups an epoch (the tail group padded by
+    # cycling); the other feeds drop the remainder
+    nb = (max(-(-len(train_ds) // tc.batch_size), 1) if tc.rect
+          else max(len(train_ds) // tc.batch_size, 1))
     accumulate = max(round(tc.nbs / tc.batch_size), 1)
     hyp = scale_hyp(hyp, len(model.spec.anchors), nc, tc.img_size)
 
@@ -189,12 +201,18 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
                                        cw0 * (1 - maps) ** 2 / nc)
 
     # the device bank when the tiles fit, else streaming (make_train_batches
-    # chooses, as in JAX), positioned at the resumed step
-    batches = make_train_batches(
-        train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
-        max_labels_per_image=MAX_LABELS, multi_scale=tc.multi_scale,
-        device=dev, start_step=start_epoch * nb,
-        sample_weights_fn=sample_weights if tc.image_weights else None)
+    # chooses, as in JAX), or the rect groups; positioned at the resumed step
+    if tc.rect:
+        batches = make_rect_train_batches(
+            train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
+            max_labels_per_image=MAX_LABELS, device=dev,
+            start_step=start_epoch * nb)
+    else:
+        batches = make_train_batches(
+            train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
+            max_labels_per_image=MAX_LABELS, multi_scale=tc.multi_scale,
+            device=dev, start_step=start_epoch * nb,
+            sample_weights_fn=sample_weights if tc.image_weights else None)
     print(f"model {tc.cfg} ({nparams / 1e6:.2f}M params), device {dev}, "
           f"nb={nb}/epoch, accumulate={accumulate}")
     if on_start is not None:
@@ -221,7 +239,8 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
         is_final = epoch == tc.epochs - 1
         if is_final or (not tc.notest and (epoch + 1) % tc.eval_every == 0):
             metrics_out = evaluate(
-                ema_model(state), make_eval_batches(val_ds, tc.batch_size),
+                ema_model(state),
+                make_eval_batches(val_ds, tc.batch_size, tc.img_size),
                 nc=nc, img_size=tc.img_size, device=dev)
             fit = fitness_from_metrics(metrics_out)
             for c, v in metrics_out["per_class"].items():

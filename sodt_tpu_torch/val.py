@@ -4,9 +4,14 @@
         --img-size 512 --batch-size 4
     python -m sodt_tpu_torch.val --task speed --batch-size 8
     python -m sodt_tpu_torch.val --int8 --task val --synthetic ...
+    python -m sodt_tpu_torch.val --data data.yaml --task test --rect \\
+        --weights checkpoints/flagship_r5_150ep_ema.npz
 
-Tasks: val (mAP protocol) and speed (ms per image at conf 0.25 /
-iou 0.45). bf16 compute is on by default (--no-bf16 for f32). Weights come
+Tasks: val, test and train (mAP protocol on the data yaml's fold list of
+that name, a VEDAI folder of PNGs decoded by the port itself, or on
+--synthetic data) and speed (ms per image at conf 0.25 / iou 0.45).
+--rect batches by aspect ratio, each batch letterboxed to its own shape
+(stride 32, pad 0.5). bf16 compute is on by default (--no-bf16 for f32). Weights come
 from --weights (JAX's flag: a .npz state_dict, such as the trained
 flagship's checkpoints/flagship_r5_150ep_ema.npz, or a checkpoint of the
 port's trainer, whose EMA weights are taken) or --weights-npz (a state_dict
@@ -31,7 +36,7 @@ import yaml
 
 from . import resolve_device
 from .kernels import int8_serving
-from .data import SyntheticVedai, make_eval_batches
+from .data import SyntheticVedai, VedaiDataset, make_eval_batches
 from .models import build_model
 from .models.compiler import resolve_config_path
 from .train.evaluate import evaluate, make_eval_step, cache_rel_bias
@@ -57,11 +62,14 @@ def build(a):
         init_weights(model, seed=0)
     model = model.to(dev).eval()
     cache_rel_bias(model)
-    if not a.synthetic:
-        raise NotImplementedError(
-            "VEDAI folder datasets: ROADMAP.md Queue 1 item 9, second part; "
-            "use --synthetic")
-    ds = SyntheticVedai(n=a.synthetic_n, img_size=a.img_size, nc=nc, seed=1)
+    if a.synthetic:
+        ds = SyntheticVedai(n=a.synthetic_n, img_size=a.img_size, nc=nc,
+                            seed=1)
+    else:
+        ds = VedaiDataset(data_cfg.get(a.task if a.task in ("val", "test",
+                                                            "train")
+                                       else "val", data_cfg["val"]),
+                          img_size=a.img_size)
     return model, ds, nc, names, dev
 
 
@@ -73,7 +81,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--weights", default="",
                    help="a .npz state_dict or a checkpoint of the port")
     p.add_argument("--weights-npz", default="")
-    p.add_argument("--task", default="val", choices=["val", "speed"])
+    p.add_argument("--task", default="val",
+                   choices=["val", "test", "train", "speed"])
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--img-size", type=int, default=512)
     p.add_argument("--conf-thres", type=float, default=0.001)
@@ -81,6 +90,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--input_mode", default="RGB+IR")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic-n", type=int, default=16)
+    p.add_argument("--rect", action="store_true",
+                   help="rectangular eval batching (pad 0.5): one batch "
+                        "shape per aspect-ratio group")
     p.add_argument("--no-bf16", action="store_false", dest="bf16")
     p.add_argument("--device", default="cuda")
     p.add_argument("--verbose", action="store_true")
@@ -104,9 +116,10 @@ def main(argv=None) -> dict:
 
 def _run(a) -> dict:
     model, ds, nc, names, dev = build(a)
-    if a.task == "val":
+    if a.task != "speed":
         t0 = time.perf_counter()
-        m = evaluate(model, make_eval_batches(ds, a.batch_size), nc=nc,
+        m = evaluate(model, make_eval_batches(ds, a.batch_size, a.img_size,
+                                              rect=a.rect), nc=nc,
                      img_size=a.img_size, device=dev, conf_thres=a.conf_thres,
                      iou_thres=a.iou_thres)
         wall = time.perf_counter() - t0

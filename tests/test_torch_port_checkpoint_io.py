@@ -13,7 +13,8 @@ and the trainer's checkpoint flags, on the CPU.
     order: two straight runs differ there by ~1e-11 without them);
   * --resume under --image-weights: the resumed epoch's order comes from
     the class weights alone (maps are not checkpointed, as in JAX);
-  * val --weights takes the .npz and a checkpoint; --rect still raises.
+  * val --weights takes the .npz and a checkpoint; --rect with
+    --multi-scale is refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -250,9 +251,10 @@ def test_checkpoint_files_and_val_weights(tmp_path, capsys):
 def test_rect_and_later_flags_still_raise(tmp_path):
     from sodt_tpu_torch.train import cli
     args = _narrow(tmp_path) + ["--epochs", "1"]
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 9, second part"):
-        cli.main(args + ["--rect"])
+    # --rect is ported: what raises now is JAX's refusal of its mixes
+    assert "--rect" not in cli.UNPORTED
+    with pytest.raises(ValueError, match="--rect is incompatible"):
+        cli.main(args + ["--rect", "--multi-scale"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         cli.main(args + ["--scan-epoch", "on"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):

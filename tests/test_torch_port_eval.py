@@ -32,7 +32,7 @@ def test_evaluate_matches_jax_on_checkpoint(img):
     tm.load_state_dict(from_jax_variables(v))
     mj = jevaluate(jm, v, jbatches(JSynth(n=4, img_size=img, seed=1), 2, img),
                    nc=8, img_size=img)
-    mt = tevaluate(tm, make_eval_batches(TSynth(n=4, img_size=img, seed=1), 2),
+    mt = tevaluate(tm, make_eval_batches(TSynth(n=4, img_size=img, seed=1), 2, img),
                    nc=8, img_size=img, device="cpu")
     assert mt["seen"] == mj["seen"] == 4
     assert mt["nt"] == mj["nt"]

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of sodt_tpu_torch imports JAX or the
-JAX package, and its entry points refuse to fall back to the CPU quietly."""
+"""The port stands alone: no module of sodt_tpu_torch imports JAX, the JAX
+package, cv2 or PIL (the card's machine has neither), and its entry points
+refuse to fall back to the CPU quietly."""
 
 import pkgutil
 import subprocess
@@ -21,13 +22,16 @@ def test_port_imports_no_jax():
                                                   "sodt_tpu_torch.")]
     assert "sodt_tpu_torch.kernels.window_attention" in mods
     for new in ("kernels.layernorm", "train.loss", "train.optim",
-                "train.state", "train.trainer", "train.cli", "train.__main__"):
+                "train.state", "train.trainer", "train.cli", "train.__main__",
+                "data.png", "data.resize", "data.vedai", "data.prepare",
+                "data.native_loader", "ops.letterbox"):
         assert f"sodt_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sodt_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sodt_tpu', 'cv2',"
+            " 'PIL'))\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -218,11 +218,13 @@ def test_torch_train_cli_runs_on_cpu_when_asked(tmp_path, capsys, monkeypatch):
     assert m["steps"] == 4 and m["device"] == "cpu" and m["seen"] == 4
     assert all(np.isfinite(v) for ep in m["losses"] for v in ep.values())
     assert '"map50"' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        cli.main(args + ["--device", "cpu", "--rect"])
+    # --rect and VEDAI folders are ported: JAX's refusal of --rect with
+    # --multi-scale, and the data yaml's fold list read without --synthetic
+    with pytest.raises(ValueError, match="--rect is incompatible"):
+        cli.main(args + ["--device", "cpu", "--rect", "--multi-scale"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         cli.main(args + ["--device", "cpu", "--super"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(FileNotFoundError, match="fold01_write.txt"):
         cli.main([a for a in args if a != "--synthetic"] + ["--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

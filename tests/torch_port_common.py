@@ -117,3 +117,53 @@ def seed_postnorms(model, seed: int = 0):
                 norm.weight.copy_(0.5 + torch.rand(norm.weight.shape,
                                                    generator=g))
     return model
+
+
+def write_vedai_folder(root, n: int = 8, portrait: bool = True) -> dict:
+    """A VEDAI folder in the real on-disk layout under `root`:
+    `tests/test_e2e_fixture.py`'s `_write_fixture` (n 1024 px `_co` / `_ir`
+    pairs written by cv2, raw 14-column annotations) prepared by the JAX
+    package's `prepare` into `labels/` and the fold list `fold01_write.txt`;
+    with `portrait`, one more pair 1024 high and 768 wide (its label file
+    written directly, normalized by its own sides: `prepare` normalizes
+    both axes by one size). Shorter lists: `fold_val.txt` (the first two
+    pairs) and `fold_eval.txt` (those and the last). Returns the paths."""
+    import cv2
+    import yaml
+    from pathlib import Path
+    from test_e2e_fixture import _write_fixture
+    from sodt_tpu.data.prepare import changepath, makelabels
+    from sodt_tpu.data.synthetic import SyntheticVedai as JSynth
+
+    root = Path(root)
+    stems = _write_fixture(root, n=n, raw_size=1024, nc=3)
+    makelabels(str(root / "Annotations1024"), str(root / "labels"),
+               img_size=1024.0)
+    if portrait:
+        rgb, ir, lab = JSynth(n=1, img_size=1024, nc=3, seed=12)[0]
+        stem = f"{n + 1:08d}"
+        cv2.imwrite(str(root / "images" / f"{stem}_co.png"),
+                    rgb[:, :768, ::-1])
+        cv2.imwrite(str(root / "images" / f"{stem}_ir.png"), ir[:, :768, 0])
+        inside = lab[(lab[:, 1] + lab[:, 3] / 2) * 1024 < 768]
+        rows = [f"{int(c)} {cx * 1024 / 768:.6f} {cy:.6f} "
+                f"{w * 1024 / 768:.6f} {h:.6f}" for c, cx, cy, w, h in inside]
+        (root / "labels" / f"{stem}.txt").write_text("\n".join(rows) + "\n")
+        stems.append(stem)
+        with open(root / "fold01.txt", "a") as f:
+            f.write(stem + "\n")
+    changepath(str(root / "fold01.txt"), str(root / "fold01_write.txt"),
+               str(root / "images"), suffix="_co.png")
+    lst = lambda name, picked: (root / name).write_text(
+        "".join(f"{root / 'images' / s}_co.png\n" for s in picked))
+    lst("fold_val.txt", stems[:2])
+    lst("fold_eval.txt", stems[:2] + stems[-1:])
+    data = root / "data.yaml"
+    data.write_text(yaml.safe_dump(
+        {"train": str(root / "fold01_write.txt"),
+         "val": str(root / "fold01_write.txt"),
+         "test": str(root / "fold_val.txt"), "nc": 8,
+         "names": [f"c{i}" for i in range(8)]}))
+    return {"root": root, "stems": stems, "list": root / "fold01_write.txt",
+            "val_list": root / "fold_val.txt",
+            "eval_list": root / "fold_eval.txt", "data": data}
