@@ -100,7 +100,8 @@ the final ok line:
               `main` / `int8` (f32: none); mAP@0.5 and mAP beside JAX's f32
               values from the sidecar (bf16 within 1e-2, f32 within 5e-3 of
               JAX's mAP@0.5, int8 at least 0.9x bf16's; int8's gap to bf16
-              is its cost in mAP), raw Detect maps bf16 vs f32
+              is its cost in mAP) and bf16's beside JAX's bf16 values (the
+              same bounds), raw Detect maps bf16 vs f32
      train_aug  `python -m sodt_tpu_torch.train --weights` the .npz, 512 px,
               batch 4, nbs 4: 2 epochs with --save-dir / --save-period 1
               (every array but the anchors loaded), --resume last.pt for one
@@ -128,6 +129,24 @@ the final ok line:
               equal `trained`'s to the digit; decode ms per pair, the first
               epoch's feed against a warm one, feed + step ms and the idle
               share of the streaming, bank and rect feeds
+     eval_extras  the eval protocol's extras and the serving path on the
+              trained weights (predictions printed first): `val --augment`
+              in bf16 and f32 on `trained`'s 16 images (mAP@0.5 and mAP
+              within 2e-2 / 5e-3 of JAX's f32 TTA from the sidecar;
+              TTA_STEP launches a step: two PER_FORWARD passes at 512 and
+              448 px and an OFF_FORWARD one at 352 px), the TTA step's ms
+              beside the plain step's; `val --weights trained,seeded` (an
+              NMS ensemble, ENSEMBLE_STEP); `val --save-hybrid` (mAP@0.5
+              >= 0.99); `val --data` on `folders`' 1024 px folder with
+              --save-json --save-txt --save-conf, square and --rect (mAP
+              equal to `folders`' to the digit, one json record a txt
+              line, every box inside its frame, per_class.csv / .xlsx);
+              `val --task study` at 384, 640 and 1024 px (PER_FORWARD at
+              each); the Predictor on the 16 images (bit-equal to its own
+              eval step after scale_coords, ms per image); `python -m
+              sodt_tpu_torch.detect` over the 1024 px pairs with --save-txt
+              (one label file a pair, per-image counts equal to the
+              Predictor's on the same decoded pairs)
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
               device time; the forward's time by CUDA events (host gaps
@@ -1740,9 +1759,10 @@ def phase_trained(label: str) -> dict:
     .npz at 512 px, batch 4, on SyntheticVedai(n=16, seed=1) in bf16 (the
     kernels), on the f32 plain path (--no-bf16) and in int8 serving
     (--int8), each with the launch counts set to 0 just before and read
-    just after; mAP@0.5 and mAP beside JAX's f32 values from the sidecar;
-    the raw Detect maps of one batch, bf16 against f32. int8's gap to bf16
-    is its cost in mAP."""
+    just after; mAP@0.5 and mAP beside JAX's f32 values from the sidecar,
+    and bf16's beside JAX's bf16 values (its compose path on the CPU); the
+    raw Detect maps of one batch, bf16 against f32. int8's gap to bf16 is
+    its cost in mAP."""
     import torch
     from sodt_tpu_torch import kernels, val
     from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
@@ -1751,7 +1771,7 @@ def phase_trained(label: str) -> dict:
     from sodt_tpu_torch.train.evaluate import cache_rel_bias
 
     npz, side = trained_weights()
-    ref = side["jax_f32_eval"]
+    ref, ref16 = side["jax_f32_eval"], side["jax_bf16_eval"]
     runs, ok = {}, True
     for tag, extra, expected in (
             ("bf16", [], PER_FORWARD),
@@ -1790,9 +1810,16 @@ def phase_trained(label: str) -> dict:
                  and runs["int8"]["map50"]
                  >= TRAINED_INT8_FRACTION * runs["bf16"]["map50"]
                  and all(abs(map_gaps[t]) <= TRAINED_MAP_TOL[t] for t in runs)
+                 and abs(runs["bf16"]["map50"] - ref16["map50"])
+                 <= TRAINED_BF16_TOL
+                 and abs(runs["bf16"]["map"] - ref16["map"])
+                 <= TRAINED_MAP_TOL["bf16"]
                  and bool(torch.isfinite(a).all()))
     row = {"phase": label, "args": TRAINED_ARGS, "npz_sha256": side["sha256"],
            "jax_f32": {"map50": ref["map50"], "map": ref["map"]},
+           "jax_bf16": {"map50": ref16["map50"], "map": ref16["map"]},
+           "bf16_minus_jax_bf16": {k: runs["bf16"][k] - ref16[k]
+                                   for k in ("map50", "map")},
            "runs": runs, "map50_minus_jax_f32": gaps,
            "map_minus_jax_f32": map_gaps,
            "int8_cost": {k: runs["bf16"][k] - runs["int8"][k]
@@ -2266,6 +2293,26 @@ def _folder_feed(fold: str, hyp_path: Path, regime: str) -> dict:
     return out
 
 
+def _vedai1024(workdir: Path) -> tuple[dict, str, str]:
+    """`workdir/vedai1024`: FOLDER_N synthetic 1024 px pairs written by the
+    port's encoder with raw annotations, `prepare`d into labels and the fold
+    list. Returns the write report, the fold list and the data yaml."""
+    from sodt_tpu_torch.data import SyntheticVedai
+    from sodt_tpu_torch.data.prepare import changepath, makelabels
+    root = workdir / "vedai1024"
+    stems = [f"{i + 1:08d}" for i in range(FOLDER_N)]
+    write = _write_png_folder(
+        root, SyntheticVedai(n=FOLDER_N, img_size=FOLDER_RAW, nc=8, seed=0),
+        stems, FOLDER_RAW)
+    (root / "fold01.txt").write_text("\n".join(stems) + "\n")
+    makelabels(str(root / f"Annotations{FOLDER_RAW}"), str(root / "labels"),
+               img_size=float(FOLDER_RAW))
+    fold = str(root / "fold01_write.txt")
+    changepath(str(root / "fold01.txt"), fold, str(root / "images"),
+               suffix="_co.png")
+    return write, fold, _data_yaml(root, fold)
+
+
 def phase_folders(label: str, workdir: Path, trained: dict) -> dict:
     """VEDAI folders on the card (module doc, phase `folders`):
       1. a 1024 px raw-layout folder written with the port's encoder
@@ -2286,23 +2333,11 @@ def phase_folders(label: str, workdir: Path, trained: dict) -> dict:
     from sodt_tpu_torch import kernels, val
     from sodt_tpu_torch.data import SyntheticVedai, VedaiDataset, loader
     from sodt_tpu_torch.data import make_eval_batches
-    from sodt_tpu_torch.data.prepare import changepath, makelabels
     from sodt_tpu_torch.models.compiler import resolve_config_path
 
     trained_weights()
     row, ok = {"phase": label}, True
-    root = workdir / "vedai1024"
-    stems = [f"{i + 1:08d}" for i in range(FOLDER_N)]
-    row["write"] = _write_png_folder(
-        root, SyntheticVedai(n=FOLDER_N, img_size=FOLDER_RAW, nc=8, seed=0),
-        stems, FOLDER_RAW)
-    (root / "fold01.txt").write_text("\n".join(stems) + "\n")
-    makelabels(str(root / f"Annotations{FOLDER_RAW}"), str(root / "labels"),
-               img_size=float(FOLDER_RAW))
-    fold = str(root / "fold01_write.txt")
-    changepath(str(root / "fold01.txt"), fold, str(root / "images"),
-               suffix="_co.png")
-    data = _data_yaml(root, fold)
+    row["write"], fold, data = _vedai1024(workdir)
     ok = ok and row["write"]["bit_equal"] and row["write"]["filters"] == [
         0, 1, 2, 3, 4]
 
@@ -2396,6 +2431,269 @@ def phase_folders(label: str, workdir: Path, trained: dict) -> dict:
            for k, v in row["feed"].items()},
         **{f"{k}_idle_share": v["idle_share"] for k, v in row["feed"].items()}}
     row.update(launches={}, ok=bool(ok))
+    emit(row)
+    return row
+
+
+# the eval protocol's extras and the serving path on the trained weights
+# (phase eval_extras). A TTA step runs three forwards: 512 px (PER_FORWARD);
+# the lr-flipped 0.83 pass padded to 448 px, whose stage 1 (112 x 112) and
+# stage 2 (56 x 56) stay on the window grid and whose stage 3 (28 x 28)
+# pads to one window for K8 (PER_FORWARD); the 0.67 pass at 352 px, whose
+# stage 2 (44 x 44) leaves the grid (OFF_FORWARD: K1 instead of K5-K7)
+TTA_STEP = {k: 2 * PER_FORWARD[k] + OFF_FORWARD[k] for k in PER_FORWARD}
+# TTA's mAP@0.5 and mAP against JAX's f32 TTA values from the sidecar
+TTA_TOL = {"bf16": 2e-2, "f32": 5e-3}
+# an NMS ensemble of two flagships: two forwards a step
+ENSEMBLE_STEP = {k: 2 * v for k, v in PER_FORWARD.items()}
+HYBRID_MAP50 = 0.99
+# --task study: stage 2 stays on the window grid at all three sizes, and
+# stage 3 (24, 40 and 64 px maps) takes one K8 launch over one or four
+# padded windows, so each forward launches PER_FORWARD
+STUDY_SIZES = (384, 640, 1024)
+STUDY_FORWARD = PER_FORWARD
+SERVE_N = 16          # the Predictor's images: `trained`'s 16, at 512 px
+# written before this phase first ran on the card (PERF.md, section 6)
+EXTRAS_PREDICTED = {
+    "tta_map50_bf16": "0.96-0.99 (JAX f32 TTA 0.97856)",
+    "tta_map_bf16": "0.680-0.695 (JAX f32 TTA 0.69288)",
+    "tta_f32_minus_jax": "< 1e-4 on both",
+    "tta_launches_per_step": "TTA_STEP",
+    "tta_step_ms_over_plain": "2.0-3.0x",
+    "ensemble_map50": "0.9-0.99",
+    "hybrid_map50": ">= 0.99 (CPU f32 0.99535)",
+    "exports_map": "equal to folders' to the digit",
+    "study_map50": {"384": "0.85-0.99", "640": "0.9-0.99",
+                    "1024": "0.5-0.95"},
+    "study_speed_ms": {"384": "12-15", "640": "12-15", "1024": "15-25"},
+    "predictor_ms_per_image": "2-6",
+    "detect_wall_ms_per_image": "200-400"}
+
+
+def _trained_model(dtype):
+    import torch
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.train.checkpoint import load_weights
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    model = build_model("configs/model.yaml", ch_in=4, dtype=dtype)
+    model.load_state_dict(load_weights(TRAINED_NPZ))
+    return cache_rel_bias(model.cuda().eval())
+
+
+def _val_counted(args: list[str], steps: int) -> tuple[dict, dict, float]:
+    """`val.main(args)` with the launch counts set to 0 just before: the
+    metrics, the launches per step and the wall seconds."""
+    from sodt_tpu_torch import kernels, val
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = val.main(args)
+    wall = time.perf_counter() - t0
+    return m, {k: v / steps for k, v in kernels.launches().items()}, wall
+
+
+def _extras_tta(side: dict) -> tuple[dict, bool]:
+    """`val --augment` in bf16 and on the f32 plain path against JAX's f32
+    TTA; the TTA step's ms beside the plain step's (bf16, batch 4)."""
+    import torch
+    from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
+    from sodt_tpu_torch.train.evaluate import make_eval_step
+    ref = side["jax_f32_tta_eval"]
+    out, ok = {"jax_f32_tta": {k: ref[k] for k in ("map50", "map")}}, True
+    for tag, extra, want in (("bf16", [], TTA_STEP),
+                             ("f32", ["--no-bf16"],
+                              {k: 0 for k in PER_FORWARD})):
+        m, per, wall = _val_counted(["--augment"] + extra + TRAINED_ARGS,
+                                    TRAINED_FORWARDS)
+        gap = {k: m[k] - ref[k] for k in ("map50", "map")}
+        out[tag] = {"map50": m["map50"], "map": m["map"],
+                    "minus_jax_f32_tta": gap, "speed_ms": m["speed_ms"],
+                    "wall_s": wall, "launches_per_step": per}
+        ok = ok and (per == {k: float(v) for k, v in want.items()}
+                     and m["seen"] == 16
+                     and all(abs(g) <= TTA_TOL[tag] for g in gap.values()))
+    model = _trained_model(torch.bfloat16)
+    b = next(make_eval_batches(SyntheticVedai(n=MAIN_BATCH, img_size=512,
+                                              nc=8, seed=1), MAIN_BATCH, 512))
+    img = torch.from_numpy(b["img"]).cuda()
+    ir = torch.from_numpy(b["ir"]).cuda()
+    for tag, aug in (("plain_step_ms", False), ("tta_step_ms", True)):
+        step = make_eval_step(model, augment=aug)
+        out[tag] = time_ms(lambda: step(img, ir), iters=5, warmup=2)
+    out["tta_over_plain"] = out["tta_step_ms"] / out["plain_step_ms"]
+    return out, ok
+
+
+def _extras_exports(workdir: Path, folders: dict) -> tuple[dict, bool]:
+    """`val --data` on phase `folders`' 1024 px folder with --save-json
+    --save-txt --save-conf, square and --rect: mAP equal to `folders`' own
+    to the last digit, one json record a txt line, every box inside its
+    image's frame (the 512 px one the dataset resizes the 1024 px pairs
+    to: the exports are in that frame, in JAX too)."""
+    root = workdir / "vedai1024"
+    data = str(root / "data.yaml")
+    out, ok = {}, True
+    for tag, extra, want in (("square", [], PER_FORWARD),
+                             ("rect", ["--rect"], RECT_FORWARD)):
+        d = workdir / f"exports_{tag}"
+        m, per, _ = _val_counted(
+            FOLDER_VAL + ["--data", data, "--save-json", "--save-txt",
+                          "--save-conf", "--save-dir", str(d)] + extra,
+            FOLDER_FORWARDS)
+        recs = json.loads((d / "predictions.json").read_text())
+        lines = [ln for f in sorted((d / "labels").iterdir())
+                 for ln in f.read_text().splitlines()]
+        inside = all(min(r["bbox"]) >= 0
+                     and r["bbox"][0] + r["bbox"][2] <= 512 + 1e-3
+                     and r["bbox"][1] + r["bbox"][3] <= 512 + 1e-3
+                     for r in recs)
+        six = all(len(ln.split()) == 6 for ln in lines)
+        want_m = folders["eval"][tag]
+        out[tag] = {"map50": m["map50"], "map": m["map"],
+                    "folders": {k: want_m[k] for k in ("map50", "map")},
+                    "records": len(recs), "txt_lines": len(lines),
+                    "txt_files": len(list((d / "labels").iterdir())),
+                    "boxes_inside": inside, "launches_per_forward": per,
+                    "per_class_files": sorted(
+                        p.name for p in d.glob("per_class.*"))}
+        ok = ok and (all(m[k] == want_m[k] for k in ("map50", "map"))
+                     and len(recs) == len(lines) > 0 and inside and six
+                     and per == {k: float(v) for k, v in want.items()}
+                     and out[tag]["per_class_files"] == [
+                         "per_class.csv", "per_class.xlsx"])
+    return out, ok
+
+
+def _extras_study() -> tuple[list, bool]:
+    """`val --task study --study-sizes 384,640,1024` on the trained
+    weights: one row per size with its launches per forward."""
+    from sodt_tpu_torch import kernels, val
+    counts, orig = {}, val.run_map
+
+    def counted(a, size):
+        kernels.reset_launches()
+        m = orig(a, size)
+        counts[size] = {k: v / TRAINED_FORWARDS
+                        for k, v in kernels.launches().items()}
+        return m
+    val.run_map = counted
+    try:
+        args = TRAINED_ARGS[:]
+        args[args.index("val")] = "study"
+        rows = val.main(args + ["--study-sizes",
+                                ",".join(map(str, STUDY_SIZES))])["study"]
+    finally:
+        val.run_map = orig
+    ok = [r["img_size"] for r in rows] == list(STUDY_SIZES)
+    for r in rows:
+        r["launches_per_forward"] = counts.get(r["img_size"])
+        ok = ok and (all(math.isfinite(r[k])
+                         for k in ("map50", "map", "speed_ms"))
+                     and r["launches_per_forward"] == {
+                         k: float(v) for k, v in STUDY_FORWARD.items()})
+    return rows, bool(ok)
+
+
+def _extras_serving(workdir: Path) -> tuple[dict, bool]:
+    """The Predictor on `trained`'s 16 images at their native 512 px in
+    bf16, bit-equal to its own eval step after scale_coords; then
+    `python -m sodt_tpu_torch.detect` over the 1024 px `_co` / `_ir`
+    folder with --save-txt, its per-image counts held to the Predictor's
+    on the same decoded pairs (one image a call, as detect runs)."""
+    import numpy as np
+    import torch
+    from sodt_tpu_torch import detect, kernels
+    from sodt_tpu_torch.data import SyntheticVedai
+    from sodt_tpu_torch.data.vedai import _read_image
+    from sodt_tpu_torch.models.infer import Predictor
+    from sodt_tpu_torch.ops.boxes import scale_coords
+
+    pred = Predictor(_trained_model(torch.bfloat16), 512)
+    ds = SyntheticVedai(n=SERVE_N, img_size=512, nc=8, seed=1)
+    rgbs, irs = zip(*[ds[i][:2] for i in range(SERVE_N)])
+    kernels.reset_launches()
+    res = pred(list(rgbs), ir=list(irs))
+    launches = kernels.launches()
+    dets, valid, _ = pred.step(pred.letterbox(rgbs), pred.letterbox(irs))
+    bit_equal = True
+    for i, d in enumerate(res.dets):
+        ref = dets[i][valid[i]].cpu().clone()
+        ref[:, :4] = scale_coords((512, 512), ref[:, :4], rgbs[i].shape[:2])
+        bit_equal = bit_equal and torch.equal(torch.from_numpy(d), ref)
+    n_det = sum(len(d) for d in res.dets)
+    ms = time_ms(lambda: pred(list(rgbs), ir=list(irs)), iters=3,
+                 warmup=1) / SERVE_N
+    out = {"images": SERVE_N, "detections": n_det, "bit_equal": bit_equal,
+           "ms_per_image": ms, "launches": launches}
+    ok = bit_equal and n_det > 0 and launches == PER_FORWARD
+
+    images = workdir / "vedai1024" / "images"
+    save = workdir / "detect_out"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = detect.main(["--source", str(images), "--input_mode", "RGB+IR",
+                       "--weights", TRAINED_NPZ, "--save-txt", "--save-dir",
+                       str(save)])
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    want = []
+    for r in got["results"]:
+        co = r["source"]
+        ir = co.replace("_co.png", "_ir.png")
+        want.append(len(pred([_read_image(co)],
+                             ir=[_read_image(ir)]).dets[0]))
+    files = sorted((save / "labels").iterdir())
+    out["detect"] = {
+        "images": got["images"], "detections": got["detections"],
+        "counts": [r["n"] for r in got["results"]],
+        "predictor_counts": want, "label_files": len(files),
+        "wall_ms_per_image_build_included": 1e3 * wall / max(
+            got["images"], 1),
+        "launches_per_image": {k: v / max(got["images"], 1)
+                               for k, v in counts.items()}}
+    ok = ok and (got["images"] == FOLDER_N and len(files) == FOLDER_N
+                 and [r["n"] for r in got["results"]] == want
+                 and got["detections"] > 0
+                 and out["detect"]["launches_per_image"] == {
+                     k: float(v) for k, v in PER_FORWARD.items()}
+                 and all(np.isfinite(d).all() for d in res.dets))
+    return out, bool(ok)
+
+
+def phase_eval_extras(label: str, workdir: Path, folders: dict) -> dict:
+    """The eval protocol's extras and the serving path on the trained
+    flagship (module doc, phase `eval_extras`): TTA, an NMS ensemble,
+    hybrid labels, the exports on `folders`' 1024 px folder, --task study,
+    the Predictor and the detect CLI. Launch counts are set to 0 just
+    before each run and read just after."""
+    _, side = trained_weights()
+    emit({"phase": f"{label}_predictions", **EXTRAS_PREDICTED})
+    row, ok = {"phase": label}, True
+    row["tta"], good = _extras_tta(side)
+    ok = ok and good
+
+    seeded = seeded_weights_file("configs/model.yaml", workdir)
+    args = TRAINED_ARGS[:-1] + [f"{TRAINED_NPZ},{seeded}"]
+    m, per, _ = _val_counted(args, TRAINED_FORWARDS)
+    row["ensemble"] = {"map50": m["map50"], "map": m["map"],
+                       "launches_per_step": per}
+    ok = ok and (per == {k: float(v) for k, v in ENSEMBLE_STEP.items()}
+                 and all(math.isfinite(m[k]) for k in ("map50", "map")))
+
+    m, per, _ = _val_counted(["--save-hybrid"] + TRAINED_ARGS,
+                             TRAINED_FORWARDS)
+    row["hybrid"] = {"map50": m["map50"], "map": m["map"],
+                     "launches_per_forward": per}
+    ok = ok and m["map50"] >= HYBRID_MAP50 and per == {
+        k: float(v) for k, v in PER_FORWARD.items()}
+
+    if not (folders or {}).get("eval"):
+        raise RuntimeError("phase folders gave no folder to export from")
+    row["exports"], good = _extras_exports(workdir, folders)
+    ok = ok and good
+    row["study"], good = _extras_study()
+    ok = ok and good
+    row["serving"], good = _extras_serving(workdir)
+    row.update(launches={}, ok=bool(ok and good))
     emit(row)
     return row
 
@@ -2709,6 +3007,7 @@ def main() -> int:
         drive("trained", phase_trained)
         drive("train_aug", phase_train_aug, tmp)
         drive("folders", phase_folders, tmp, paths.get("trained"))
+        drive("eval_extras", phase_eval_extras, tmp, paths.get("folders"))
     for label, phase, args in (
             ("grads", phase_grads, ()), ("profile", phase_profile, ()),
             ("profile_train", phase_profile_train, ()),

@@ -5,7 +5,14 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(..., 4) corner boxes [x1,y1,x2,y2] -> center boxes [cx,cy,w,h]."""
+    x1, y1, x2, y2 = x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
+    return torch.cat([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
 
 
 def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
@@ -28,6 +35,30 @@ def clip_coords(boxes: torch.Tensor, img_hw: tuple[int, int]) -> torch.Tensor:
     return torch.cat([boxes[..., 0:1].clamp(0, w), boxes[..., 1:2].clamp(0, h),
                       boxes[..., 2:3].clamp(0, w), boxes[..., 3:4].clamp(0, h),
                       boxes[..., 4:]], dim=-1)
+
+
+def scale_coords(img1_hw, coords: torch.Tensor, img0_hw,
+                 ratio_pad=None) -> torch.Tensor:
+    """Undo the letterbox: xyxy coords in the network's `img1_hw` (h, w)
+    back to the native `img0_hw`, then clipped to it. `ratio_pad`
+    ((gain,), (padw, padh)) is the letterbox's own, as a rect batch
+    carries it; without it the gain and pad are those of a centred
+    letterbox from img0 to img1, formed in f32 as JAX forms them."""
+    if ratio_pad is None:
+        f = np.float32
+        gain = f(min(img1_hw[0] / img0_hw[0], img1_hw[1] / img0_hw[1]))
+        padw = float((f(img1_hw[1]) - f(img0_hw[1]) * gain) / f(2))
+        padh = float((f(img1_hw[0]) - f(img0_hw[0]) * gain) / f(2))
+        gain = float(gain)
+    else:
+        gain = ratio_pad[0][0]
+        padw, padh = ratio_pad[1]
+    out = torch.cat([(coords[..., 0:1] - padw) / gain,
+                     (coords[..., 1:2] - padh) / gain,
+                     (coords[..., 2:3] - padw) / gain,
+                     (coords[..., 3:4] - padh) / gain,
+                     coords[..., 4:]], dim=-1)
+    return clip_coords(out, img0_hw)
 
 
 def box_iou(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:

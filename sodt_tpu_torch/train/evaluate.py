@@ -6,12 +6,20 @@ merge-NMS with the 1 < n < 3000 gate and redundancy drop, IoU vector
 0.5:0.95:10, top_k 4096. The forward, decode and NMS run on the device;
 the greedy GT matching and AP accumulation run on host numpy. speed_ms is
 inference + NMS wall time per image, synchronized with the device.
-Save-json/txt, the confusion matrix, TTA, ensembles and hybrid labels are
-not ported yet.
+
+The protocol's extras are JAX's: test-time augmentation (`train/tta.py`),
+NMS ensembles (a list of models whose decoded predictions are concatenated
+before one NMS), hybrid labels (the ground truth as unit-confidence
+candidates), the val loss, the confusion matrix, the COCO-style json and
+YOLO txt exports in native pixels, and an optional COCOeval pass where
+pycocotools is installed. The scan eval and the `EvalRunner` of the JAX
+package answer TPU dispatch latency and are not ported.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Any
 
@@ -22,8 +30,10 @@ from ..models.detect import decode_detections
 from ..models.swin import SwinBlock, WindowAttention
 from ..models.swinv2 import WindowAttentionV2
 from ..ops.nms import batched_nms
-from ..ops.boxes import xywhn2xyxy
-from ..utils.metrics import ap_per_class, match_predictions
+from ..ops.boxes import scale_coords, xywhn2xyxy
+from ..utils.metrics import ConfusionMatrix, ap_per_class, match_predictions
+from .loss import LossConfig, compute_loss
+from .tta import tta_forward
 
 
 def cache_rel_bias(model: torch.nn.Module) -> torch.nn.Module:
@@ -49,53 +59,175 @@ def _sync(device: torch.device) -> None:
 
 def make_eval_step(model, *, conf_thres: float = 0.001,
                    iou_thres: float = 0.6, max_det: int = 300,
-                   top_k: int = 4096, merge: bool = True):
-    """(img, ir) -> (dets (B, max_det, 6), valid (B, max_det)) on the
-    model's device. uint8 images are cast and scaled by 1/255 there."""
-    anchors = model.anchors_per_level
-    strides = model.strides
+                   top_k: int = 4096, merge: bool = True,
+                   multi_label: bool = True,
+                   loss_cfg: LossConfig | None = None,
+                   augment: bool = False, hybrid_labels: bool = False):
+    """(img, ir[, targets, tmask]) -> (dets (B, max_det, 6), valid
+    (B, max_det), val losses or None) on the model's device. uint8 images
+    are cast and scaled by 1/255 there.
+
+    `model` may be a list of models: an NMS ensemble, whose members'
+    decoded predictions are concatenated before one NMS. `augment` runs
+    each member through `tta_forward`. `hybrid_labels` adds the ground
+    truth (targets (B, M, 5) normalized xywh, tmask (B, M)) as candidates
+    of confidence 1 at the batch's network size; masked slots get obj 0
+    and fall to the conf gate. The val loss (`loss_cfg`) is taken for a
+    single model without `augment` only: one member's raw maps would
+    misstate an ensemble."""
+    models = list(model) if isinstance(model, (list, tuple)) else [model]
+    anchors = models[0].anchors_per_level
+    strides = models[0].strides
 
     @torch.no_grad()
-    def step(img: torch.Tensor, ir: torch.Tensor):
+    def step(img: torch.Tensor, ir: torch.Tensor, targets=None, tmask=None):
         if img.dtype == torch.uint8:
             img = img.float() / 255.0
         if ir is not None and ir.dtype == torch.uint8:
             ir = ir.float() / 255.0
-        out = model(img, ir)
-        pred = decode_detections(out["raw"], anchors, strides)
-        return batched_nms(pred, conf_thres=conf_thres, iou_thres=iou_thres,
-                           multi_label=True, max_det=max_det,
-                           top_k=top_k, merge=merge)
+        preds, out = [], None
+        for m in models:
+            if augment:
+                preds.append(tta_forward(m, img, ir))
+            else:
+                out = m(img, ir)
+                preds.append(decode_detections(out["raw"], anchors, strides))
+        pred = preds[0] if len(preds) == 1 else torch.cat(preds, 1)
+        if hybrid_labels and targets is not None:
+            nc = pred.shape[-1] - 5
+            h, w = img.shape[1:3]
+            net = torch.tensor([w, h, w, h], dtype=torch.float32,
+                               device=pred.device)
+            obj = tmask.to(pred.dtype)[..., None]
+            # one-hot as jax.nn.one_hot: a class out of range is all zeros
+            onehot = (targets[..., :1].long() == torch.arange(
+                nc, device=pred.device)).to(pred.dtype)
+            gt = torch.cat([(targets[..., 1:5] * net).to(pred.dtype), obj,
+                            onehot * obj], -1)
+            pred = torch.cat([pred, gt], 1)
+        dets, valid = batched_nms(pred, conf_thres=conf_thres,
+                                  iou_thres=iou_thres,
+                                  multi_label=multi_label, max_det=max_det,
+                                  top_k=top_k, merge=merge)
+        losses = None
+        if (loss_cfg is not None and targets is not None
+                and len(models) == 1 and not augment):
+            _, losses = compute_loss(out["raw"], targets, tmask, loss_cfg)
+        return dets, valid, losses
 
     return step
+
+
+def _image_id(batch: dict, si: int, seen: int):
+    """The file stem, an int when numeric; else the dataset index."""
+    stems = batch.get("stems")
+    if stems is not None:
+        stem = stems[si]
+        return int(stem) if str(stem).isnumeric() else stem
+    ids = batch.get("indices")
+    return ids[si] if ids is not None else seen - 1
+
+
+def _export(d: np.ndarray, batch: dict, si: int, net_hw, image_id,
+            jdict: list | None, save_txt: str | None,
+            save_conf: bool) -> None:
+    """One image's detections in its native pixels: COCO records into
+    `jdict`, a YOLO txt under `save_txt`. A rect batch carries the
+    letterbox's own gain and pad (`ratio_pads`, scaleup off): they are
+    used, never recomputed from `shapes`."""
+    net_h, net_w = net_hw
+    shapes = batch.get("shapes")
+    h0, w0 = shapes[si] if shapes is not None else (net_h, net_w)
+    dn = d.copy()
+    rps = batch.get("ratio_pads")
+    if rps is not None or (h0, w0) != (net_h, net_w):
+        dn[:, :4] = scale_coords(
+            (net_h, net_w), torch.from_numpy(d[:, :4]), (h0, w0),
+            ratio_pad=None if rps is None else rps[si]).numpy()
+    if jdict is not None:
+        for x1, y1, x2, y2, conf, cls in dn:
+            jdict.append({"image_id": image_id, "category_id": int(cls),
+                          "bbox": [round(float(x1), 3), round(float(y1), 3),
+                                   round(float(x2 - x1), 3),
+                                   round(float(y2 - y1), 3)],
+                          "score": round(float(conf), 5)})
+    if save_txt is not None:
+        os.makedirs(save_txt, exist_ok=True)
+        with open(f"{save_txt}/{image_id}.txt", "w") as fh:
+            for x1, y1, x2, y2, conf, cls in dn:
+                tail = f" {conf:.5f}" if save_conf else ""
+                fh.write(f"{int(cls)} {(x1 + x2) / 2 / w0:.6f} "
+                         f"{(y1 + y2) / 2 / h0:.6f} {(x2 - x1) / w0:.6f} "
+                         f"{(y2 - y1) / h0:.6f}{tail}\n")
+
+
+def _coco_eval(anno_json: str, save_json: str) -> dict:
+    """COCOeval of the written predictions, where pycocotools is
+    installed; a failure is reported and the run goes on."""
+    try:
+        from pycocotools.coco import COCO
+        from pycocotools.cocoeval import COCOeval
+    except ImportError:
+        print("pycocotools not installed -- skipping COCOeval "
+              "(predictions json written)")
+        return {}
+    try:
+        anno = COCO(anno_json)
+        ce = COCOeval(anno, anno.loadRes(save_json), "bbox")
+        ce.evaluate()
+        ce.accumulate()
+        ce.summarize()
+        return {"coco_map": float(ce.stats[0]),
+                "coco_map50": float(ce.stats[1])}
+    except Exception as e:  # anno / predictions mismatch: report, go on
+        print(f"COCOeval failed: {e}")
+        return {}
 
 
 def evaluate(model, batches, *, nc: int, img_size: int,
              device: str | torch.device = "cuda", conf_thres: float = 0.001,
              iou_thres: float = 0.6, max_det: int = 300, top_k: int = 4096,
-             merge: bool = True) -> dict[str, Any]:
+             merge: bool = True, loss_cfg: LossConfig | None = None,
+             names=None, confusion: bool = False, verbose: bool = False,
+             save_json: str | None = None, save_txt: str | None = None,
+             save_conf: bool = False, save_hybrid: bool = False,
+             augment: bool = False,
+             anno_json: str | None = None) -> dict[str, Any]:
     """Run the mAP protocol over `batches` (dicts from
     data.make_eval_batches; a rect batch's `net_shape` scales its ground
-    truth). Returns the metrics dict."""
+    truth). `model` may be a list (an NMS ensemble). Returns the metrics
+    dict, with `val_loss` when `loss_cfg` is given and
+    `confusion_matrix` when `confusion`; `save_json` / `save_txt` name the
+    export files, written in native pixels."""
     from .. import resolve_device
     dev = resolve_device(device)
-    cache_rel_bias(model)
+    models = list(model) if isinstance(model, (list, tuple)) else [model]
+    for m in models:
+        cache_rel_bias(m)
     step = make_eval_step(model, conf_thres=conf_thres, iou_thres=iou_thres,
-                          max_det=max_det, top_k=top_k, merge=merge)
+                          max_det=max_det, top_k=top_k, merge=merge,
+                          loss_cfg=loss_cfg, augment=augment,
+                          hybrid_labels=save_hybrid)
     iouv = np.linspace(0.5, 0.95, 10)
     stats = []
+    cm = ConfusionMatrix(nc=nc) if confusion else None
     seen = 0
     t_infer = 0.0
+    losses_acc = []
+    jdict = [] if save_json is not None else None
     for batch in batches:
         img = torch.from_numpy(batch["img"]).to(dev)
         ir = torch.from_numpy(batch["ir"]).to(dev)
+        targets, tmask = batch["targets"], batch["tmask"]
         _sync(dev)
         t0 = time.perf_counter()
-        dets, valid = step(img, ir)
+        dets, valid, losses = step(img, ir, torch.from_numpy(targets).to(dev),
+                                   torch.from_numpy(tmask).to(dev))
         dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
         t_infer += time.perf_counter() - t0
+        if losses is not None:
+            losses_acc.append({k: float(v) for k, v in losses.items()})
 
-        targets, tmask = batch["targets"], batch["tmask"]
         # rect batches carry their own network shape
         net_h, net_w = batch.get("net_shape", (img_size, img_size))
         for si in range(batch.get("valid", dets.shape[0])):
@@ -112,7 +244,13 @@ def evaluate(model, batches, *, nc: int, img_size: int,
                             net_h).numpy()
             labels5 = np.concatenate([labs[:, 0:1], gt], axis=1)
             correct = match_predictions(d, labels5, iouv)
+            if cm is not None:
+                cm.process_batch(d, labels5)
             stats.append((correct, d[:, 4], d[:, 5], tcls))
+            if save_json is not None or save_txt is not None:
+                _export(d, batch, si, (net_h, net_w),
+                        _image_id(batch, si, seen), jdict, save_txt,
+                        save_conf)
 
     out: dict[str, Any] = {"seen": seen,
                            "speed_ms": 1000 * t_infer / max(seen, 1)}
@@ -135,4 +273,22 @@ def evaluate(model, batches, *, nc: int, img_size: int,
         out["nt"] = np.bincount(tcls.astype(np.int64), minlength=nc).tolist()
     else:
         out.update(mp=0.0, mr=0.0, map50=0.0, map=0.0, per_class={}, nt=[0])
+    if losses_acc:
+        out["val_loss"] = {k: float(np.mean([l[k] for l in losses_acc]))
+                           for k in losses_acc[0]}
+    if cm is not None:
+        out["confusion_matrix"] = cm.matrix
+    if save_json is not None:
+        with open(save_json, "w") as fh:
+            json.dump(jdict, fh)
+        if anno_json is not None:
+            out.update(_coco_eval(anno_json, save_json))
+    if verbose and names and out.get("per_class"):
+        print(f"{'class':>12} {'P':>8} {'R':>8} {'mAP50':>8} {'mAP':>8}")
+        print(f"{'all':>12} {out['mp']:8.4f} {out['mr']:8.4f} "
+              f"{out['map50']:8.4f} {out['map']:8.4f}")
+        for c, v in out["per_class"].items():
+            nm = names[c] if c < len(names) else str(c)
+            print(f"{nm:>12} {v['p']:8.4f} {v['r']:8.4f} "
+                  f"{v['ap50']:8.4f} {v['ap']:8.4f}")
     return out

@@ -1,14 +1,22 @@
-"""Detection metrics for the eval protocol: COCO-style mAP and GT matching.
+"""Detection metrics for the eval protocol: COCO-style mAP, GT matching,
+the confusion matrix, fitness and the per-class CSV.
 
 A numpy-only copy of `sodt_tpu/utils/metrics.py` (conf-sorted PR
 accumulation, 1000-point curve sampling, 101-point interpolated AP over
-the 0.5:0.95 IoU vector, F1-max operating point), kept inside the port so
-that `sodt_tpu_torch` imports nothing of the JAX package.
+the 0.5:0.95 IoU vector, F1-max operating point, fitness = 0.9 mAP@0.5 +
+0.1 mAP), kept inside the port so that `sodt_tpu_torch` imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def fitness(x: np.ndarray) -> np.ndarray:
+    """Weighted fitness over [P, R, mAP@.5, mAP@.5:.95] rows (metrics.py:12-15)."""
+    w = np.array([0.0, 0.0, 0.9, 0.1])
+    return (x[:, :4] * w).sum(1)
 
 
 def compute_ap(recall, precision):
@@ -58,6 +66,48 @@ def ap_per_class(tp, conf, pred_cls, target_cls):
     return p[:, i], r[:, i], ap, f1[:, i], unique_classes.astype("int32")
 
 
+class ConfusionMatrix:
+    """IoU-matched confusion matrix (reference metrics.py:109-181)."""
+
+    def __init__(self, nc: int, conf: float = 0.25, iou_thres: float = 0.45):
+        self.matrix = np.zeros((nc + 1, nc + 1))
+        self.nc = nc
+        self.conf = conf
+        self.iou_thres = iou_thres
+
+    def process_batch(self, detections: np.ndarray, labels: np.ndarray):
+        """detections: (N,6) xyxy+conf+cls; labels: (M,5) cls+xyxy."""
+        detections = detections[detections[:, 4] > self.conf]
+        gt_classes = labels[:, 0].astype(int)
+        detection_classes = detections[:, 5].astype(int)
+        iou = _box_iou_np(labels[:, 1:], detections[:, :4])
+
+        x = np.where(iou > self.iou_thres)
+        if x[0].shape[0]:
+            matches = np.concatenate(
+                (np.stack(x, 1), iou[x[0], x[1]][:, None]), 1)
+            if x[0].shape[0] > 1:
+                matches = matches[matches[:, 2].argsort()[::-1]]
+                matches = matches[np.unique(matches[:, 1], return_index=True)[1]]
+                matches = matches[matches[:, 2].argsort()[::-1]]
+                matches = matches[np.unique(matches[:, 0], return_index=True)[1]]
+        else:
+            matches = np.zeros((0, 3))
+
+        n = matches.shape[0] > 0
+        m0, m1, _ = matches.transpose().astype(np.int16)
+        for i, gc in enumerate(gt_classes):
+            j = m0 == i
+            if n and sum(j) == 1:
+                self.matrix[gc, detection_classes[m1[j]]] += 1
+            else:
+                self.matrix[self.nc, gc] += 1
+        if n:
+            for i, dc in enumerate(detection_classes):
+                if not any(m1 == i):
+                    self.matrix[dc, self.nc] += 1
+
+
 def _box_iou_np(box1: np.ndarray, box2: np.ndarray) -> np.ndarray:
     area1 = (box1[:, 2] - box1[:, 0]) * (box1[:, 3] - box1[:, 1])
     area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
@@ -100,3 +150,18 @@ def match_predictions(det: np.ndarray, labels_xyxy: np.ndarray,
                 if len(detected) == nl:
                     break
     return correct
+
+
+def write_per_class_csv(metrics: dict, names, path) -> None:
+    """The per-class table as CSV (`utils/xlsx.py` writes the same table
+    as a workbook): an `all` row, then one row per evaluated class."""
+    with open(path, "w") as fh:
+        fh.write("class,name,P,R,mAP50,mAP\n")
+        fh.write(f"all,all,{metrics.get('mp', 0):.5g},"
+                 f"{metrics.get('mr', 0):.5g},"
+                 f"{metrics.get('map50', 0):.5g},"
+                 f"{metrics.get('map', 0):.5g}\n")
+        for c, v in sorted(metrics.get("per_class", {}).items()):
+            nm = names[c] if c < len(names) else str(c)
+            fh.write(f"{c},{nm},{v['p']:.5g},{v['r']:.5g},"
+                     f"{v['ap50']:.5g},{v['ap']:.5g}\n")

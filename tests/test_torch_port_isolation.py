@@ -24,7 +24,8 @@ def test_port_imports_no_jax():
     for new in ("kernels.layernorm", "train.loss", "train.optim",
                 "train.state", "train.trainer", "train.cli", "train.__main__",
                 "data.png", "data.resize", "data.vedai", "data.prepare",
-                "data.native_loader", "ops.letterbox"):
+                "data.native_loader", "ops.letterbox", "detect",
+                "models.infer", "train.tta", "ops.wbf", "utils.xlsx"):
         assert f"sodt_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -40,7 +41,7 @@ def test_port_imports_no_jax():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
-    from sodt_tpu_torch import resolve_device, val
+    from sodt_tpu_torch import detect, resolve_device, val
     from sodt_tpu_torch.train.evaluate import evaluate
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -49,6 +50,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         evaluate(torch.nn.Module(), [], nc=8, img_size=64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         val.main(["--synthetic"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        detect.main(["--source", str(tmp_path)])
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -58,9 +61,10 @@ def test_val_cli_runs_on_cpu_when_asked(tmp_path, capsys):
     cfg.write_text(yaml.safe_dump(NARROW_CFG))
     m = val.main(["--cfg", str(cfg), "--synthetic", "--synthetic-n", "3",
                   "--img-size", "128", "--batch-size", "2", "--device", "cpu",
-                  "--no-bf16"])
+                  "--no-bf16", "--save-dir", str(tmp_path)])
     assert m["seen"] == 3 and m["device"] == "cpu"
     assert '"map50"' in capsys.readouterr().out
     s = val.main(["--cfg", str(cfg), "--task", "speed", "--img-size", "64",
-                  "--batch-size", "1", "--device", "cpu", "--no-bf16"])
+                  "--batch-size", "1", "--device", "cpu", "--no-bf16",
+                  "--save-dir", str(tmp_path)])
     assert s["ms_per_image"] > 0

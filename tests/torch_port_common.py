@@ -167,3 +167,54 @@ def write_vedai_folder(root, n: int = 8, portrait: bool = True) -> dict:
     return {"root": root, "stems": stems, "list": root / "fold01_write.txt",
             "val_list": root / "fold_val.txt",
             "eval_list": root / "fold_eval.txt", "data": data}
+
+
+def trained_pair():
+    """The trained flagship (runs/flagship_r5_150ep/best_stripped, its EMA
+    weights) in both packages, f32 on the CPU: (JAX model, its variables as
+    numpy, the port's model in eval mode with the same weights)."""
+    import jax
+    from pathlib import Path
+    from sodt_tpu.models import build_model as jbuild
+    from sodt_tpu.train.checkpoint import eval_variables, load_checkpoint
+    from sodt_tpu_torch.models import build_model as tbuild
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    from sodt_tpu_torch.weights import from_jax_variables
+    root = Path(__file__).resolve().parent.parent
+    v = jax.tree.map(np.asarray, eval_variables(
+        load_checkpoint(root / "runs/flagship_r5_150ep/best_stripped")))
+    jm = jbuild(str(root / "sodt_tpu/configs/model.yaml"), ch_in=4,
+                input_mode="RGB+IR")
+    tm = tbuild(str(root / "sodt_tpu_torch/configs/model.yaml"), ch_in=4)
+    tm.load_state_dict(from_jax_variables(v))
+    return jm, v, cache_rel_bias(tm.eval())
+
+
+def same_dets(td, tv, jd, jv, tol):
+    """The port's NMS output (torch) against JAX's: the same survivors,
+    at least one, and their boxes, scores and classes within `tol`."""
+    jd, jv = np.asarray(jd), np.asarray(jv)
+    tv = tv.numpy()
+    assert (tv == jv).all(), (tv.sum(1), jv.sum(1))
+    assert tv.any()
+    close(td.numpy()[tv], jd[jv], tol)
+
+
+def narrow_pair(seed: int, img: int = 64):
+    """The narrow flagship (`NARROW_CFG`, RGB+IR) in both packages from a
+    JAX init drawn with `seed` and perturbed by `randomize_variables`:
+    (JAX model, variables as numpy, the port's model in eval mode)."""
+    import jax
+    from sodt_tpu.models import build_model as jbuild
+    from sodt_tpu_torch.models import build_model as tbuild
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    from sodt_tpu_torch.weights import from_jax_variables
+    jm = jbuild(NARROW_CFG, ch_in=4, input_mode="RGB+IR")
+    x0 = j(np.zeros((1, img, img, 3), np.float32))
+    # jitted: flax's eager init of the Swin encoder takes ~30 s on the CPU
+    init = jax.jit(lambda k, x: jm.init(k, x, x, train=False))
+    v = randomize_variables(
+        jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed), x0)), seed)
+    tm = tbuild(NARROW_CFG, ch_in=4).eval()
+    tm.load_state_dict(from_jax_variables(v))
+    return jm, v, cache_rel_bias(tm)
