@@ -135,15 +135,21 @@ the final ok line:
               within 2e-2 / 5e-3 of JAX's f32 TTA from the sidecar;
               TTA_STEP launches a step: two PER_FORWARD passes at 512 and
               448 px and an OFF_FORWARD one at 352 px), the TTA step's ms
-              beside the plain step's; `val --weights trained,seeded` (an
-              NMS ensemble, ENSEMBLE_STEP); `val --save-hybrid` (mAP@0.5
-              >= 0.99); `val --data` on `folders`' 1024 px folder with
+              beside the plain step's; `val --weights trained,perturbed`
+              (an NMS ensemble of the trained weights and a copy with its
+              biases and BatchNorm statistics moved: ENSEMBLE_STEP, bf16
+              mAP within `trained`'s bounds of the same ensemble on the
+              f32 plain path, and on one batch survivors equal to one NMS
+              over both members' own candidates and unlike the first
+              member's alone); `val --save-hybrid` (mAP@0.5 >= 0.99); `val --data` on `folders`' 1024 px folder with
               --save-json --save-txt --save-conf, square and --rect (mAP
               equal to `folders`' to the digit, one json record a txt
               line, every box inside its frame, per_class.csv / .xlsx);
               `val --task study` at 384, 640 and 1024 px (PER_FORWARD at
               each); the Predictor on the 16 images (bit-equal to its own
-              eval step after scale_coords, ms per image); `python -m
+              eval step after scale_coords; its bf16 detections held to
+              the same Predictor on the f32 plain model within SERVE_*;
+              ms per image); `python -m
               sodt_tpu_torch.detect` over the 1024 px pairs with --save-txt
               (one label file a pair, per-image counts equal to the
               Predictor's on the same decoded pairs)
@@ -2446,6 +2452,13 @@ TTA_STEP = {k: 2 * PER_FORWARD[k] + OFF_FORWARD[k] for k in PER_FORWARD}
 TTA_TOL = {"bf16": 2e-2, "f32": 5e-3}
 # an NMS ensemble of two flagships: two forwards a step
 ENSEMBLE_STEP = {k: 2 * v for k, v in PER_FORWARD.items()}
+# its second member: the trained weights with every bias and BatchNorm
+# running mean moved by 0.05 N(0, 1) and every running variance scaled by
+# 1 + 0.1 U(-1, 1), drawn from ENSEMBLE_SEED (the moves of the CPU tests'
+# randomize_variables), so that it puts candidates of its own above the
+# conf gate; the bf16 ensemble is held to the same ensemble on the f32
+# plain path within `trained`'s bounds (TRAINED_BF16_TOL, TRAINED_MAP_TOL)
+ENSEMBLE_SEED = 7
 HYBRID_MAP50 = 0.99
 # --task study: stage 2 stays on the window grid at all three sizes, and
 # stage 3 (24, 40 and 64 px maps) takes one K8 launch over one or four
@@ -2453,6 +2466,14 @@ HYBRID_MAP50 = 0.99
 STUDY_SIZES = (384, 640, 1024)
 STUDY_FORWARD = PER_FORWARD
 SERVE_N = 16          # the Predictor's images: `trained`'s 16, at 512 px
+# the Predictor in bf16 against the same Predictor on the f32 plain model:
+# each detection of either side whose confidence is at least the 0.25 gate
+# plus SERVE_CONF_TOL has a partner of its class on the other side at IoU
+# >= SERVE_IOU, with every corner within SERVE_BOX_PX native pixels and the
+# confidence within SERVE_CONF_TOL
+SERVE_BOX_PX = 3.0
+SERVE_IOU = 0.9
+SERVE_CONF_TOL = 0.05
 # written before this phase first ran on the card (PERF.md, section 6)
 EXTRAS_PREDICTED = {
     "tta_map50_bf16": "0.96-0.99 (JAX f32 TTA 0.97856)",
@@ -2460,7 +2481,13 @@ EXTRAS_PREDICTED = {
     "tta_f32_minus_jax": "< 1e-4 on both",
     "tta_launches_per_step": "TTA_STEP",
     "tta_step_ms_over_plain": "2.0-3.0x",
-    "ensemble_map50": "0.9-0.99",
+    "ensemble_map50": "0.97-0.995 (the perturbed member's candidates "
+                      "merged with the trained model's)",
+    "ensemble_bf16_minus_f32": "|mAP@0.5| < 5e-3, |mAP| < 1e-2",
+    "ensemble_second_member_candidates": "> 1000 above obj 0.001 on 4 "
+                                         "images",
+    "predictor_bf16_vs_f32": "every confident detection matched, IoU >= "
+                             "0.97, corners <= 1 px, conf <= 0.02",
     "hybrid_map50": ">= 0.99 (CPU f32 0.99535)",
     "exports_map": "equal to folders' to the digit",
     "study_map50": {"384": "0.85-0.99", "640": "0.9-0.99",
@@ -2470,14 +2497,117 @@ EXTRAS_PREDICTED = {
     "detect_wall_ms_per_image": "200-400"}
 
 
-def _trained_model(dtype):
+def _trained_model(dtype, path: str = TRAINED_NPZ):
     import torch
     from sodt_tpu_torch.models import build_model
     from sodt_tpu_torch.train.checkpoint import load_weights
     from sodt_tpu_torch.train.evaluate import cache_rel_bias
     model = build_model("configs/model.yaml", ch_in=4, dtype=dtype)
-    model.load_state_dict(load_weights(TRAINED_NPZ))
+    model.load_state_dict(load_weights(path))
     return cache_rel_bias(model.cuda().eval())
+
+
+def perturbed_trained_file(workdir: Path) -> str:
+    """The ensemble's second member (ENSEMBLE_SEED) as an .npz."""
+    import torch
+    from sodt_tpu_torch.train.checkpoint import load_weights
+    from sodt_tpu_torch.weights import save_npz
+    g = torch.Generator().manual_seed(ENSEMBLE_SEED)
+    sd = load_weights(TRAINED_NPZ)
+    for k in sorted(sd):
+        v = sd[k]
+        if k.endswith((".bias", ".running_mean")):
+            sd[k] = v + 0.05 * torch.randn(v.shape, generator=g)
+        elif k.endswith(".running_var"):
+            sd[k] = v * (1 + 0.1 * (2 * torch.rand(v.shape, generator=g) - 1))
+    path = workdir / "trained_perturbed.npz"
+    save_npz(sd, path)
+    return str(path)
+
+
+def _extras_ensemble(workdir: Path) -> tuple[dict, bool]:
+    """`val --weights trained,perturbed` in bf16 (ENSEMBLE_STEP launches a
+    step) and on the f32 plain path, held to each other within `trained`'s
+    bounds; then on one batch of 4, the ensemble's eval step against one
+    NMS over both members' own decoded candidates (bit-equal) and against
+    the first member's step alone (unlike it)."""
+    import torch
+    from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
+    from sodt_tpu_torch.models.detect import decode_detections
+    from sodt_tpu_torch.ops.nms import batched_nms
+    from sodt_tpu_torch.train.evaluate import make_eval_step
+    pert = perturbed_trained_file(workdir)
+    args = TRAINED_ARGS[:-1] + [f"{TRAINED_NPZ},{pert}"]
+    out, ok = {}, True
+    for tag, extra, want in (("bf16", [], ENSEMBLE_STEP),
+                             ("f32", ["--no-bf16"],
+                              {k: 0 for k in PER_FORWARD})):
+        m, per, _ = _val_counted(extra + args, TRAINED_FORWARDS)
+        out[tag] = {"map50": m["map50"], "map": m["map"],
+                    "launches_per_step": per}
+        ok = ok and (per == {k: float(v) for k, v in want.items()}
+                     and m["seen"] == 16
+                     and all(math.isfinite(m[k]) for k in ("map50", "map")))
+    gap = {k: out["bf16"][k] - out["f32"][k] for k in ("map50", "map")}
+    out["bf16_minus_f32"] = gap
+    ok = ok and (abs(gap["map50"]) <= TRAINED_BF16_TOL
+                 and abs(gap["map"]) <= TRAINED_MAP_TOL["bf16"])
+
+    members = [_trained_model(torch.bfloat16),
+               _trained_model(torch.bfloat16, pert)]
+    b = next(make_eval_batches(SyntheticVedai(n=MAIN_BATCH, img_size=512,
+                                              nc=8, seed=1), MAIN_BATCH, 512))
+    img = torch.from_numpy(b["img"]).cuda().float() / 255
+    ir = torch.from_numpy(b["ir"]).cuda().float() / 255
+    with torch.no_grad():
+        preds = [decode_detections(m(img, ir)["raw"], m.anchors_per_level,
+                                   m.strides) for m in members]
+        want_d, want_v = batched_nms(torch.cat(preds, 1), conf_thres=0.001,
+                                     iou_thres=0.6, multi_label=True,
+                                     max_det=300, top_k=4096, merge=True)
+    ens_d, ens_v, _ = make_eval_step(members)(img, ir)
+    one_d, one_v, _ = make_eval_step(members[0])(img, ir)
+    out["step"] = {
+        "second_member_candidates": int((preds[1][..., 4] > 0.001).sum()),
+        "survivors": int(ens_v.sum()), "first_member_survivors":
+            int(one_v.sum()),
+        "equal_to_nms_of_both": bool(torch.equal(ens_d, want_d)
+                                     and torch.equal(ens_v, want_v)),
+        "unlike_first_member": not (torch.equal(ens_d, one_d)
+                                    and torch.equal(ens_v, one_v))}
+    ok = ok and (out["step"]["second_member_candidates"] > 0
+                 and out["step"]["equal_to_nms_of_both"]
+                 and out["step"]["unlike_first_member"])
+    return out, bool(ok)
+
+
+def _det_gap(got: list, ref: list, gate: float) -> dict:
+    """Each detection (x1, y1, x2, y2, conf, cls) of either side whose
+    confidence is at least `gate`, paired with the other side's detection
+    of its class of highest IoU: the worst IoU, corner gap (px) and
+    confidence gap over the pairs, and how many found no partner."""
+    import numpy as np
+    gap = {"pairs": 0, "unmatched": 0, "min_iou": 1.0, "max_corner_px": 0.0,
+           "max_conf": 0.0}
+    for a_all, b_all in [*zip(got, ref), *zip(ref, got)]:
+        for d in a_all[a_all[:, 4] >= gate]:
+            same = b_all[b_all[:, 5] == d[5]]
+            if not len(same):
+                gap["unmatched"] += 1
+                continue
+            lt = np.maximum(d[:2], same[:, :2])
+            rb = np.minimum(d[2:4], same[:, 2:4])
+            inter = np.clip(rb - lt, 0, None).prod(1)
+            area = lambda x: (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])
+            iou = inter / (area(d) + area(same) - inter)
+            j = int(iou.argmax())
+            gap["pairs"] += 1
+            gap["min_iou"] = min(gap["min_iou"], float(iou[j]))
+            gap["max_corner_px"] = max(gap["max_corner_px"], float(
+                np.abs(d[:4] - same[j, :4]).max()))
+            gap["max_conf"] = max(gap["max_conf"],
+                                  float(abs(d[4] - same[j, 4])))
+    return gap
 
 
 def _val_counted(args: list[str], steps: int) -> tuple[dict, dict, float]:
@@ -2622,9 +2752,20 @@ def _extras_serving(workdir: Path) -> tuple[dict, bool]:
     n_det = sum(len(d) for d in res.dets)
     ms = time_ms(lambda: pred(list(rgbs), ir=list(irs)), iters=3,
                  warmup=1) / SERVE_N
+    plain = Predictor(_trained_model(torch.float32), 512)
+    kernels.reset_launches()
+    res32 = plain(list(rgbs), ir=list(irs))
+    plain_launches = sum(kernels.launches().values())
+    gap = _det_gap(res.dets, res32.dets, plain.conf + SERVE_CONF_TOL)
     out = {"images": SERVE_N, "detections": n_det, "bit_equal": bit_equal,
-           "ms_per_image": ms, "launches": launches}
-    ok = bit_equal and n_det > 0 and launches == PER_FORWARD
+           "ms_per_image": ms, "launches": launches,
+           "f32_plain_detections": sum(len(d) for d in res32.dets),
+           "bf16_vs_f32_plain": gap}
+    ok = (bit_equal and n_det > 0 and launches == PER_FORWARD
+          and plain_launches == 0 and gap["pairs"] > 0
+          and gap["unmatched"] == 0 and gap["min_iou"] >= SERVE_IOU
+          and gap["max_corner_px"] <= SERVE_BOX_PX
+          and gap["max_conf"] <= SERVE_CONF_TOL)
 
     images = workdir / "vedai1024" / "images"
     save = workdir / "detect_out"
@@ -2671,13 +2812,8 @@ def phase_eval_extras(label: str, workdir: Path, folders: dict) -> dict:
     row["tta"], good = _extras_tta(side)
     ok = ok and good
 
-    seeded = seeded_weights_file("configs/model.yaml", workdir)
-    args = TRAINED_ARGS[:-1] + [f"{TRAINED_NPZ},{seeded}"]
-    m, per, _ = _val_counted(args, TRAINED_FORWARDS)
-    row["ensemble"] = {"map50": m["map50"], "map": m["map"],
-                       "launches_per_step": per}
-    ok = ok and (per == {k: float(v) for k, v in ENSEMBLE_STEP.items()}
-                 and all(math.isfinite(m[k]) for k in ("map50", "map")))
+    row["ensemble"], good = _extras_ensemble(workdir)
+    ok = ok and good
 
     m, per, _ = _val_counted(["--save-hybrid"] + TRAINED_ARGS,
                              TRAINED_FORWARDS)

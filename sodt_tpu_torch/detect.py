@@ -38,6 +38,7 @@ from .models import build_model
 from .models.compiler import resolve_config_path
 from .models.infer import Predictor
 from .train.checkpoint import load_weights
+from .train.evaluate import write_yolo_txt
 from .weights import init_weights
 
 IMG_EXT = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp"}
@@ -142,15 +143,11 @@ def _run(a) -> dict:
     for name, rgb, ir in iter_sources(a.source,
                                       want_ir="IR" in a.input_mode):
         d = predictor([rgb], ir=[ir]).dets[0]
-        h0, w0 = rgb.shape[:2]
         results.append({"source": name, "n": int(d.shape[0])})
         print(f"{name}: {d.shape[0]} detections")
         if a.save_txt:
-            with open(labels / f"{Path(name).stem}.txt", "w") as f:
-                for x1, y1, x2, y2, conf, cls in d:
-                    f.write(f"{int(cls)} {(x1 + x2) / 2 / w0:.6f} "
-                            f"{(y1 + y2) / 2 / h0:.6f} {(x2 - x1) / w0:.6f} "
-                            f"{(y2 - y1) / h0:.6f} {conf:.4f}\n")
+            write_yolo_txt(labels / f"{Path(name).stem}.txt", d,
+                           rgb.shape[:2], ".4f")
     out = {"images": len(results),
            "detections": sum(r["n"] for r in results)}
     print(json.dumps(out))

@@ -10,10 +10,13 @@ inference + NMS wall time per image, synchronized with the device.
 The protocol's extras are JAX's: test-time augmentation (`train/tta.py`),
 NMS ensembles (a list of models whose decoded predictions are concatenated
 before one NMS), hybrid labels (the ground truth as unit-confidence
-candidates), the val loss, the confusion matrix, the COCO-style json and
-YOLO txt exports in native pixels, and an optional COCOeval pass where
-pycocotools is installed. The scan eval and the `EvalRunner` of the JAX
-package answer TPU dispatch latency and are not ported.
+candidates), the COCO-style json and YOLO txt exports in native pixels,
+and an optional COCOeval pass where pycocotools is installed. The eval
+step also gives the val loss (`make_eval_step(loss_cfg=)`); `evaluate`
+fills neither it nor the confusion matrix until a caller needs them (the
+trainer's val loss, `--plots`: ROADMAP.md Queue 1 item 11). The scan eval
+and the `EvalRunner` of the JAX package answer TPU dispatch latency and
+are not ported.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ from ..models.detect import decode_detections
 from ..models.swin import SwinBlock, WindowAttention
 from ..models.swinv2 import WindowAttentionV2
 from ..ops.nms import batched_nms
-from ..ops.boxes import scale_coords, xywhn2xyxy
-from ..utils.metrics import ConfusionMatrix, ap_per_class, match_predictions
+from ..ops.boxes import scale_coords, xywhn2xyxy, xyxy2xywh
+from ..utils.metrics import ap_per_class, match_predictions
 from .loss import LossConfig, compute_loss
 from .tta import tta_forward
 
@@ -153,12 +156,23 @@ def _export(d: np.ndarray, batch: dict, si: int, net_hw, image_id,
                           "score": round(float(conf), 5)})
     if save_txt is not None:
         os.makedirs(save_txt, exist_ok=True)
-        with open(f"{save_txt}/{image_id}.txt", "w") as fh:
-            for x1, y1, x2, y2, conf, cls in dn:
-                tail = f" {conf:.5f}" if save_conf else ""
-                fh.write(f"{int(cls)} {(x1 + x2) / 2 / w0:.6f} "
-                         f"{(y1 + y2) / 2 / h0:.6f} {(x2 - x1) / w0:.6f} "
-                         f"{(y2 - y1) / h0:.6f}{tail}\n")
+        write_yolo_txt(f"{save_txt}/{image_id}.txt", dn, (h0, w0),
+                       ".5f" if save_conf else None)
+
+
+def write_yolo_txt(path, d: np.ndarray, shape0,
+                   conf_fmt: str | None) -> None:
+    """One image's detections (n, 6) [x1,y1,x2,y2,conf,cls] in native
+    pixels as YOLO label lines, `cls cx cy w h` normalized by the native
+    (h0, w0), with the confidence in `conf_fmt` when it is given."""
+    h0, w0 = shape0
+    xywh = (xyxy2xywh(torch.from_numpy(d[:, :4]))
+            / torch.tensor([w0, h0, w0, h0], dtype=torch.float32)).numpy()
+    with open(path, "w") as fh:
+        for (cx, cy, bw, bh), conf, cls in zip(xywh, d[:, 4], d[:, 5]):
+            tail = f" {conf:{conf_fmt}}" if conf_fmt else ""
+            fh.write(f"{int(cls)} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}"
+                     f"{tail}\n")
 
 
 def _coco_eval(anno_json: str, save_json: str) -> dict:
@@ -187,8 +201,7 @@ def _coco_eval(anno_json: str, save_json: str) -> dict:
 def evaluate(model, batches, *, nc: int, img_size: int,
              device: str | torch.device = "cuda", conf_thres: float = 0.001,
              iou_thres: float = 0.6, max_det: int = 300, top_k: int = 4096,
-             merge: bool = True, loss_cfg: LossConfig | None = None,
-             names=None, confusion: bool = False, verbose: bool = False,
+             merge: bool = True, names=None, verbose: bool = False,
              save_json: str | None = None, save_txt: str | None = None,
              save_conf: bool = False, save_hybrid: bool = False,
              augment: bool = False,
@@ -196,9 +209,10 @@ def evaluate(model, batches, *, nc: int, img_size: int,
     """Run the mAP protocol over `batches` (dicts from
     data.make_eval_batches; a rect batch's `net_shape` scales its ground
     truth). `model` may be a list (an NMS ensemble). Returns the metrics
-    dict, with `val_loss` when `loss_cfg` is given and
-    `confusion_matrix` when `confusion`; `save_json` / `save_txt` name the
-    export files, written in native pixels."""
+    dict; `save_json` / `save_txt` name the export files, written in
+    native pixels. speed_ms times the step and the fetch of its result;
+    the ground truth goes to the device, before the clock starts, only
+    for `save_hybrid`."""
     from .. import resolve_device
     dev = resolve_device(device)
     models = list(model) if isinstance(model, (list, tuple)) else [model]
@@ -206,27 +220,23 @@ def evaluate(model, batches, *, nc: int, img_size: int,
         cache_rel_bias(m)
     step = make_eval_step(model, conf_thres=conf_thres, iou_thres=iou_thres,
                           max_det=max_det, top_k=top_k, merge=merge,
-                          loss_cfg=loss_cfg, augment=augment,
-                          hybrid_labels=save_hybrid)
+                          augment=augment, hybrid_labels=save_hybrid)
     iouv = np.linspace(0.5, 0.95, 10)
     stats = []
-    cm = ConfusionMatrix(nc=nc) if confusion else None
     seen = 0
     t_infer = 0.0
-    losses_acc = []
     jdict = [] if save_json is not None else None
     for batch in batches:
         img = torch.from_numpy(batch["img"]).to(dev)
         ir = torch.from_numpy(batch["ir"]).to(dev)
         targets, tmask = batch["targets"], batch["tmask"]
+        gt_dev = ((torch.from_numpy(targets).to(dev),
+                   torch.from_numpy(tmask).to(dev)) if save_hybrid else ())
         _sync(dev)
         t0 = time.perf_counter()
-        dets, valid, losses = step(img, ir, torch.from_numpy(targets).to(dev),
-                                   torch.from_numpy(tmask).to(dev))
+        dets, valid, _ = step(img, ir, *gt_dev)
         dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
         t_infer += time.perf_counter() - t0
-        if losses is not None:
-            losses_acc.append({k: float(v) for k, v in losses.items()})
 
         # rect batches carry their own network shape
         net_h, net_w = batch.get("net_shape", (img_size, img_size))
@@ -244,8 +254,6 @@ def evaluate(model, batches, *, nc: int, img_size: int,
                             net_h).numpy()
             labels5 = np.concatenate([labs[:, 0:1], gt], axis=1)
             correct = match_predictions(d, labels5, iouv)
-            if cm is not None:
-                cm.process_batch(d, labels5)
             stats.append((correct, d[:, 4], d[:, 5], tcls))
             if save_json is not None or save_txt is not None:
                 _export(d, batch, si, (net_h, net_w),
@@ -273,11 +281,6 @@ def evaluate(model, batches, *, nc: int, img_size: int,
         out["nt"] = np.bincount(tcls.astype(np.int64), minlength=nc).tolist()
     else:
         out.update(mp=0.0, mr=0.0, map50=0.0, map=0.0, per_class={}, nt=[0])
-    if losses_acc:
-        out["val_loss"] = {k: float(np.mean([l[k] for l in losses_acc]))
-                           for k in losses_acc[0]}
-    if cm is not None:
-        out["confusion_matrix"] = cm.matrix
     if save_json is not None:
         with open(save_json, "w") as fh:
             json.dump(jdict, fh)

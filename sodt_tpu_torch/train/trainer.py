@@ -41,6 +41,7 @@ from ..data.loader import make_rect_train_batches, make_train_batches
 from ..models import build_model
 from ..models.compiler import resolve_config_path
 from ..utils.general import labels_to_class_weights, labels_to_image_weights
+from ..utils.metrics import fitness
 from ..weights import init_weights, load_npz
 from .checkpoint import (checkpoint_tree, clone_checkpoint, load_checkpoint,
                          load_pretrained_variables, restore_train_state,
@@ -107,8 +108,9 @@ def loss_config(model, hyp: dict, nc: int) -> LossConfig:
 
 
 def fitness_from_metrics(m: dict) -> float:
-    """0.9 * mAP50 + 0.1 * mAP."""
-    return 0.9 * m.get("map50", 0.0) + 0.1 * m.get("map", 0.0)
+    """`metrics.fitness` of one eval: 0.9 * mAP50 + 0.1 * mAP."""
+    row = [[m.get(k, 0.0) for k in ("mp", "mr", "map50", "map")]]
+    return float(fitness(np.asarray(row))[0])
 
 
 def ema_model(state: TrainState) -> torch.nn.Module:

@@ -1,12 +1,12 @@
 """The eval protocol's extras in the port (`sodt_tpu_torch/train/evaluate.py`,
-`val.py`, `utils/metrics.py`, `utils/xlsx.py`, `ops/wbf.py`) against the
+`val.py`, `utils/metrics.py`, `utils/xlsx.py`, `ops/boxes.py`) against the
 JAX package's, f32 on the CPU.
 
 Tolerances: NMS ensembles and hybrid labels in `make_eval_step`: the same
 survivors, boxes / scores / classes <= 1e-4 (relative and absolute); the
 val loss <= 1e-4 relative; `ConfusionMatrix`, `write_per_class_csv`, the
-xlsx workbook's parts and `weighted_boxes_fusion` / `weighted_boxes`:
-equal; the exports of `evaluate` (`save_json`, `save_txt` + `save_conf`) on
+xlsx workbook's parts, `xyxy2xywh` and `fitness` (with the trainer's
+`fitness_from_metrics`): equal; the exports of `evaluate` (`save_json`, `save_txt` + `save_conf`) on
 square and rect batches: the same records and lines, each number within
 1e-5 relative plus one unit of its written precision (json bbox 1e-3 px,
 score 1e-5; txt coordinates 1e-6, conf 1e-5), since one rounding step of
@@ -26,7 +26,7 @@ import torch
 
 from sodt_tpu.data.loader import make_eval_batches as jbatches
 from sodt_tpu.data.vedai import VedaiDataset as JDS
-from sodt_tpu.ops import wbf as jwbf
+from sodt_tpu.ops import boxes as jboxes
 from sodt_tpu.train.evaluate import evaluate as jevaluate
 from sodt_tpu.train.evaluate import make_eval_step as jstep
 from sodt_tpu.train.loss import LossConfig as JLossConfig
@@ -36,7 +36,7 @@ from sodt_tpu_torch import val
 from sodt_tpu_torch.data import SyntheticVedai, VedaiDataset as TDS
 from sodt_tpu_torch.data import make_eval_batches
 from sodt_tpu_torch.models import build_model as tbuild
-from sodt_tpu_torch.ops import wbf as twbf
+from sodt_tpu_torch.ops import boxes as tboxes
 from sodt_tpu_torch.train.evaluate import cache_rel_bias
 from sodt_tpu_torch.train.evaluate import evaluate as tevaluate
 from sodt_tpu_torch.train.evaluate import make_eval_step as tstep
@@ -180,26 +180,26 @@ def test_torch_per_class_xlsx_equals_jax_parts(tmp_path):
             assert zt.read(part) == zj.read(part), part
 
 
-def test_torch_wbf_equals_jax():
+def test_torch_xyxy2xywh_equals_jax():
     rng = np.random.default_rng(1)
-    xy = rng.uniform(0, 0.8, (40, 2))
-    boxes = np.concatenate([xy, xy + rng.uniform(0.02, 0.2, (40, 2))], 1)
-    boxes[20:] = boxes[:20] + rng.normal(0, 0.01, (20, 4))   # clusters
-    scores = rng.uniform(0, 1, 40)
-    labels = rng.integers(0, 3, 40).astype(np.float64)
-    for conf_type in ("avg", "max"):
-        got = twbf.weighted_boxes_fusion(boxes, scores, labels,
-                                         skip_box_thr=0.1,
-                                         conf_type=conf_type)
-        want = jwbf.weighted_boxes_fusion(boxes, scores, labels,
-                                          skip_box_thr=0.1,
-                                          conf_type=conf_type)
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
-    dets = np.concatenate([boxes * 512, scores[:, None], labels[:, None]], 1)
-    np.testing.assert_array_equal(twbf.weighted_boxes(dets, 512),
-                                  jwbf.weighted_boxes(dets, 512))
-    assert len(twbf.weighted_boxes(dets, 512)) < len(dets)
+    xy = rng.uniform(0, 800, (3, 40, 2)).astype(np.float32)
+    boxes = np.concatenate(
+        [xy, xy + rng.uniform(1, 90, (3, 40, 2)).astype(np.float32)], -1)
+    np.testing.assert_array_equal(
+        tboxes.xyxy2xywh(torch.from_numpy(boxes)).numpy(),
+        np.asarray(jboxes.xyxy2xywh(boxes)))
+
+
+def test_torch_fitness_equals_jax():
+    from sodt_tpu.train.evaluate import fitness_from_metrics as jfit
+    from sodt_tpu_torch.train.trainer import fitness_from_metrics as tfit
+    rows = np.random.default_rng(2).uniform(0, 1, (5, 7))
+    np.testing.assert_array_equal(tmetrics.fitness(rows),
+                                  jmetrics.fitness(rows))
+    for mp, mr, map50, map_ in rows[:, :4]:
+        m = dict(mp=mp, mr=mr, map50=map50, map=map_)
+        assert tfit(m) == jfit(m)
+    assert tfit({}) == jfit({}) == 0.0
 
 
 def _close_numbers(got, want, unit):

@@ -25,7 +25,7 @@ def test_port_imports_no_jax():
                 "train.state", "train.trainer", "train.cli", "train.__main__",
                 "data.png", "data.resize", "data.vedai", "data.prepare",
                 "data.native_loader", "ops.letterbox", "detect",
-                "models.infer", "train.tta", "ops.wbf", "utils.xlsx"):
+                "models.infer", "train.tta", "utils.xlsx"):
         assert f"sodt_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
