@@ -153,6 +153,23 @@ the final ok line:
               sodt_tpu_torch.detect` over the 1024 px pairs with --save-txt
               (one label file a pair, per-image counts equal to the
               Predictor's on the same decoded pairs)
+     mono     `val --cfg model_mono.yaml --input_mode RGB` on the main
+              path's arguments (the flagship's Swin stages behind one RGB
+              patch embed, full width and depth): MONO_FORWARD launches (K13
+              LN 7: no cross-channel block), raw maps bf16 vs f32 as on
+              `main`
+     mono_train  `train --cfg model_mono.yaml --input_mode RGB`, 4 steps
+              at batch 4: MONO_STEP on every step (K13 LN 19)
+     families `val` on yolo5m (RGB, three Detect levels), SRyolo_PF
+              (RGB+IR) and SRyolo_MF (RGB+IR+MF) at 512 px: every counter 0;
+              raw maps of calibrated weights, bf16 vs f32 on the card and
+              f32 on the card vs the CPU
+     sr_train `train --cfg SRyolo_MF.yaml --input_mode RGB+IR+MF --super
+              --factor 2 --down-factor 2` on 1024 px originals (the model
+              at 512 px, the SR output 1024 px, 4 channels), 4 steps: every
+              counter 0, finite losses, sr > 0; the first step's loss
+              parts and SR output, bf16 vs f32 on one batch
+     Each path's seconds follow it on a line of their own.
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
               device time; the forward's time by CUDA events (host gaps
@@ -319,6 +336,70 @@ V2_TRAIN_STEPS = 4
 # - unshifted, and shifted with a mask - in a forward); N = 64, head dim 32
 V2_STAGES = ((256, 96, 3, 1), (64, 192, 6, 1), (16, 384, 12, 3),
              (4, 768, 24, 1))
+# the mono family (model_mono.yaml, RGB): the flagship's Swin stages behind
+# one RGB patch embed, at the flagship's width and depth. Its forward
+# launches what the flagship's does less K13's four LNs of the
+# cross-channel block, which it has not: LN 11 - 4 = 7, and 7 + 12 in a
+# step (the replays' LNs are the flagship's)
+MONO_CFG = "model_mono.yaml"
+MONO_ARGS = ["--cfg", MONO_CFG, "--input_mode", "RGB"] + MAIN_ARGS
+MONO_FORWARD = dict(PER_FORWARD, layernorm=7)
+MONO_STEP = dict(PER_STEP, layernorm=19)
+MONO_TRAIN_ARGS = ["--cfg", MONO_CFG, "--input_mode", "RGB", "--synthetic",
+                   "--synthetic-n", "16", "--img-size", "512",
+                   "--batch-size", "4", "--nbs", "4", "--epochs", "1",
+                   "--notest"]
+MONO_TRAIN_STEPS = 4
+# the all-CNN families at their configs' widths, 512 px, batch 4: PyTorch
+# convolutions, no kernel of the port (every counter must read 0); raw
+# Detect maps of the bf16 model against the f32 plain one on the same
+# weights, whose biases are moved from the seeded init (FAMILY_SEED) and
+# whose BatchNorm statistics are calibrated on the compared batch, so that
+# the maps are not the bias prior (`calibrated`)
+FAMILIES = (("yolo5m.yaml", "RGB", 3), ("SRyolo_PF.yaml", "RGB+IR", 1),
+            ("SRyolo_MF.yaml", "RGB+IR+MF", 1))
+NO_LAUNCH = {k: 0 for k in PER_FORWARD}
+FAMILY_SEED = 7
+# Two comparisons of the raw maps (all levels), relative L2. The f32 model
+# on the card against the same model on the CPU (the function the CPU
+# tests hold to JAX): only the convolutions' summation order separates
+# them. bf16 against f32 on the card: a seeded CNN whose BatchNorms
+# normalize (calibrated) amplifies rounding from layer to layer (on a
+# CPU, yolo5m at 256 px: 1.0e-2 after its first layer, 0.13
+# after SPP, 0.74 at its last C3), so the bound is loose: it catches a
+# wrong path (uncorrelated maps read ~1.4), not a rounding point. Measured
+# on an H100 (PERF.md): bf16 vs f32 yolo5m 0.0907 (0.076 / 0.124
+# / 0.174 by level), SRyolo_PF 0.0422, SRyolo_MF 0.0421; f32 card vs CPU
+# 1.6e-5 at most. The bounds are about twice and sixty times those
+FAMILY_F32_REL_L2 = 1e-3
+FAMILY_REL_L2 = 0.2
+# the SR regime: SRyolo_MF under RGB+IR+MF with --super --factor 2
+# --down-factor 2 on 1024 px originals (the model sees 512 px, the SR
+# output is 1024 px with 4 channels), 4 steps at batch 4. On one batch and
+# one set of weights the first step's loss parts and the SR output (the
+# training-mode forward: batch statistics) of the bf16 model are held to
+# the f32 plain model's: relative difference of each part, relative L2 of
+# the output
+SR_CFG = "SRyolo_MF.yaml"
+SR_MODE = "RGB+IR+MF"
+SR_RAW = 1024
+SR_TRAIN_ARGS = ["--cfg", SR_CFG, "--input_mode", SR_MODE, "--super",
+                 "--factor", "2", "--down-factor", "2", "--synthetic",
+                 "--synthetic-n", "16", "--img-size", str(SR_RAW),
+                 "--batch-size", "4", "--nbs", "4", "--epochs", "1",
+                 "--notest"]
+SR_TRAIN_STEPS = 4
+# The loss parts in bf16 move with the logits' rounding: the objectness
+# loss at a seeded init is the BCE of logits near the prior's -6.7, where
+# bf16's step is 3.1e-2, i.e. ~3 % of the loss's exp(logit) (measured on
+# a CPU at 128 px: obj 4.6e-2, cls 2.1e-2, sr 1.2e-2, box
+# 2.5e-3, the total 2.6e-3). The SR output leaves the training-mode
+# backbone (bf16 vs f32 raw maps at a seeded init: 2.6e-2-3.1e-2 on
+# SRyolo_PF / MF at 256 px on the CPU) through 38 more convs: 9.3e-2 on
+# the CPU at 128 px. Measured on an H100 (PERF.md): obj 3.9e-2,
+# box 1.0e-2, cls 7.4e-3, sr 5.7e-3; the SR output 6.8e-2
+SR_PART_REL = 0.1
+SR_OUT_REL_L2 = 0.15
 # counter name -> (tag, source, TPU kernel it replaces, paths whose runs
 # count its launches: one entry of the kernels line for each, with the
 # times of that path's shapes)
@@ -1357,17 +1438,22 @@ def q8_readings(kern, same_core, bf16, geom) -> dict:
 
 # ---------------------------------------------------------------- main path
 
-def seeded_model(cfg: str, dtype, seed: int = 0):
-    """The model of `cfg` with weights from `seed`, on the CPU. The SwinV2
-    blocks' post-norm scales are drawn from the seed as well: at their
-    zero initialization every V2 block is the identity, K11 contributes
-    nothing to the output and its backward returns zeros (a model without
-    V2 blocks is left as `init_weights` made it)."""
+def seeded_model(cfg: str, dtype, seed: int = 0, input_mode: str = "RGB+IR",
+                 **build):
+    """The model of `cfg` under `input_mode` with weights from `seed`, on
+    the CPU (`build`: more arguments of build_model, such as the SR
+    branch's). The SwinV2 blocks' post-norm scales are drawn from the seed
+    as well: at their zero initialization every V2 block is the identity,
+    K11 contributes nothing to the output and its backward returns zeros
+    (a model without V2 blocks is left as `init_weights` made it)."""
     import torch
     from sodt_tpu_torch.models import build_model
     from sodt_tpu_torch.models.swinv2 import SwinBlockV2
+    from sodt_tpu_torch.train.trainer import CH_IN
     from sodt_tpu_torch.weights import init_weights
-    model = init_weights(build_model(cfg, ch_in=4, dtype=dtype), seed)
+    model = init_weights(build_model(cfg, ch_in=CH_IN[input_mode],
+                                     dtype=dtype, input_mode=input_mode,
+                                     **build), seed)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -1385,6 +1471,13 @@ def seeded_weights_file(cfg: str, workdir: Path) -> str:
     path = workdir / (Path(cfg).stem + "_seed0.npz")
     save_npz(seeded_model(cfg, torch.float32).state_dict(), path)
     return str(path)
+
+
+def map_spread(raw) -> float:
+    """The spread of a raw Detect map over its positions: the mean over
+    its output channels of their standard deviation over batch and cells
+    (0 for a map that is the bias prior alone)."""
+    return float(raw.flatten(0, 2).std(dim=0).mean())
 
 
 def phase_path(label: str, args: list[str], expected: dict) -> dict:
@@ -1415,7 +1508,8 @@ def phase_path(label: str, args: list[str], expected: dict) -> dict:
     ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
     raws = {}
     for dt in (torch.bfloat16, torch.float32):
-        model = cache_rel_bias(seeded_model(opt.cfg, dt).cuda().eval())
+        model = cache_rel_bias(seeded_model(
+            opt.cfg, dt, input_mode=opt.input_mode).cuda().eval())
         with torch.no_grad():
             raws[dt] = model(img, ir)["raw"][0].float()
             if dt == torch.bfloat16:
@@ -1438,7 +1532,8 @@ def phase_path(label: str, args: list[str], expected: dict) -> dict:
            "launches": counts, "launches_per_forward": per_fwd,
            "expected_per_forward": expected,
            "detect_rel_l2_bf16_vs_f32": rel_l2, "rel_l2_bound": DETECT_REL_L2,
-           "raw_shape": list(a.shape), "forward_kernels_seen": len(seen),
+           "raw_shape": list(a.shape), "raw_spread": map_spread(b),
+           "forward_kernels_seen": len(seen),
            "gemm_bias_kernels_seen": [k for k in seen if "gemm_bias" in k],
            "ok": bool(ok)}
     emit(row)
@@ -1692,7 +1787,7 @@ def phase_train(label: str, workdir: Path, train_args: list[str], steps: int,
     hyp_path.write_text(yaml.safe_dump(dict(hyp, warmup_iters=4)))
     args = train_args + ["--hyp", str(hyp_path), "--save-dir",
                          str(workdir / label)]
-    cfg = cli.parser().parse_args(args).cfg
+    opt = cli.parser().parse_args(args)
 
     seen = {"counts": [], "losses": [], "t": [], "no_grad": None,
             "state": None}
@@ -1724,7 +1819,8 @@ def phase_train(label: str, workdir: Path, train_args: list[str], steps: int,
     # the run ends with one eval forward of the EMA weights (4 images)
     expected_total = {k: steps * per_step[k] + per_forward[k]
                       for k in per_step}
-    start = dict(seeded_model(cfg, torch.bfloat16).named_parameters())
+    start = dict(seeded_model(opt.cfg, torch.bfloat16,
+                              input_mode=opt.input_mode).named_parameters())
     params = dict(seen["state"].model.named_parameters())
     unmoved = [k for k, p in params.items()
                if torch.equal(p.detach().cpu(), start[k].detach())]
@@ -1743,6 +1839,179 @@ def phase_train(label: str, workdir: Path, train_args: list[str], steps: int,
            "params_without_gradient_at_step_1": seen["no_grad"],
            "params_unmoved": unmoved, "map50": m["map50"],
            "ema_updates": seen["state"].ema_updates, "ok": bool(ok)}
+    emit(row)
+    return row
+
+
+def perturbed(model, seed: int):
+    """`model` with `perturb_state` of its state_dict, in place."""
+    perturb_state(model.state_dict(), seed)
+    return model
+
+
+def calibrated(model, img, ir):
+    """`model` with every BatchNorm's running statistics set to the batch
+    statistics of one training-mode forward of (img, ir), in eval mode. A
+    seeded CNN's BatchNorms at their init statistics do not renormalize:
+    the signal fades through the layers (yolo5m's raw maps at 128 px vary
+    by 2e-4 about the bias prior, below bf16's step of 3e-2 at the prior's
+    -6.7), and a comparison of such maps is blind."""
+    import torch
+    from sodt_tpu_torch.models.layers import BatchNorm
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.momentum = 0.0
+    with torch.no_grad():
+        model.train()(img, ir)
+    for m in bns:
+        m.momentum = 0.97
+    return model.eval()
+
+
+def phase_families(label: str) -> dict:
+    """`val --cfg <family> --input_mode <mode>` for each of FAMILIES at the
+    main path's arguments: every launch counter at 0, finite metrics; then
+    the raw Detect maps of one batch on the same weights (perturbed, their
+    BatchNorm statistics calibrated on the batch by the f32 model), with
+    their spread: bf16 vs f32 plain on the card, and f32 on the card vs f32
+    on the CPU."""
+    import torch
+    from sodt_tpu_torch import kernels, val
+    from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
+
+    ds = SyntheticVedai(n=MAIN_BATCH, img_size=512, nc=8, seed=1)
+    batch = next(make_eval_batches(ds, MAIN_BATCH, 512))
+    img = torch.from_numpy(batch["img"]).cuda().float() / 255
+    ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
+    rows, ok = [], True
+    for cfg, mode, levels in FAMILIES:
+        t0 = time.perf_counter()
+        args = ["--cfg", cfg, "--input_mode", mode] + MAIN_ARGS
+        kernels.reset_launches()
+        m = val.main(args)
+        counts = kernels.launches()
+        ref = calibrated(perturbed(seeded_model(cfg, torch.float32,
+                                                input_mode=mode),
+                                   FAMILY_SEED).cuda(), img, ir)
+        raws = {}
+        for dt, dev in ((torch.bfloat16, "cuda"), (torch.float32, "cuda"),
+                        (torch.float32, "cpu")):
+            model = seeded_model(cfg, dt, input_mode=mode).to(dev).eval()
+            model.load_state_dict(ref.state_dict())
+            with torch.no_grad():
+                raws[dt, dev] = [r.float().cpu() for r in
+                                 model(img.to(dev), ir.to(dev))["raw"]]
+        a, b = raws[torch.bfloat16, "cuda"], raws[torch.float32, "cuda"]
+        cat = lambda rs: torch.cat([r.flatten() for r in rs])
+        rel = lambda x, y: ((cat(x) - cat(y)).norm() / cat(y).norm()).item()
+        rel_l2 = rel(a, b)
+        f32_rel = rel(b, raws[torch.float32, "cpu"])
+        shapes = [list(r.shape) for r in a]
+        strides = [512 // s[1] for s in shapes]
+        good = (counts == NO_LAUNCH and m["seen"] == MAIN_BATCH
+                and all(math.isfinite(m[k]) for k in ("map50", "map"))
+                and len(a) == levels
+                and all(bool(torch.isfinite(r).all()) for r in a)
+                and strides == [int(s) for s in model.strides]
+                and rel_l2 <= FAMILY_REL_L2
+                and f32_rel <= FAMILY_F32_REL_L2)
+        ok &= good
+        rows.append({"cfg": cfg, "input_mode": mode, "seconds":
+                     time.perf_counter() - t0, "launches": counts,
+                     "map50": m["map50"], "speed_ms": m["speed_ms"],
+                     "raw_shapes": shapes,
+                     "raw_spread": [map_spread(r) for r in b],
+                     "detect_rel_l2_bf16_vs_f32": rel_l2,
+                     "rel_l2_bound": FAMILY_REL_L2,
+                     "level_rel_l2_bf16_vs_f32": [
+                         ((x - y).norm() / y.norm()).item()
+                         for x, y in zip(a, b)],
+                     "detect_rel_l2_f32_card_vs_cpu": f32_rel,
+                     "f32_rel_l2_bound": FAMILY_F32_REL_L2,
+                     "ok": bool(good)})
+    row = {"phase": label, "families": rows, "ok": bool(ok)}
+    emit(row)
+    return row
+
+
+def _sr_step_pair() -> dict:
+    """One batch of 1024 px originals and one set of seeded weights: the
+    SR output of the training-mode forward at 512 px and the first step's
+    loss parts, bf16 against the f32 plain model."""
+    import copy
+    import torch
+    import yaml
+    from sodt_tpu_torch.data import SyntheticVedai
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+    from sodt_tpu_torch.ops.resize import resize_bilinear
+    from sodt_tpu_torch.train.optim import make_optimizer
+    from sodt_tpu_torch.train.state import TrainState, make_train_step
+    from sodt_tpu_torch.train.trainer import loss_config, scale_hyp
+
+    with open(resolve_config_path("configs/hyp.scratch.yaml")) as f:
+        hyp = scale_hyp(dict(yaml.safe_load(f), warmup_iters=4), 1, 8,
+                        SR_RAW)
+    batch = plain_batch(SyntheticVedai(n=MAIN_BATCH, img_size=SR_RAW, nc=8,
+                                       seed=0), 0)
+    half = (SR_RAW // 2, SR_RAW // 2)
+    got = {}
+    for dt in (torch.bfloat16, torch.float32):
+        model = seeded_model(SR_CFG, dt, input_mode=SR_MODE, sr=True,
+                             factor=2).cuda()
+        with torch.no_grad():      # a copy: training mode moves BN stats
+            sr = copy.deepcopy(model).train()(
+                resize_bilinear(batch["img"], half),
+                resize_bilinear(batch["ir"], half))["sr"].float()
+        tx = make_optimizer(hyp, dict(model.named_parameters()), epochs=1,
+                            nb=1)
+        step = make_train_step(model, tx, loss_config(model, hyp, 8),
+                               sr=True, down_factor=2)
+        _, met = step(TrainState.create(model, tx), batch)
+        got[dt] = (sr, {k: float(v) for k, v in met.items()})
+    (a, pa), (b, pb) = got[torch.bfloat16], got[torch.float32]
+    parts = {k: abs(pa[k] - pb[k]) / max(abs(pb[k]), 1e-12) for k in pb}
+    return {"sr_shape": list(a.shape),
+            "sr_rel_l2_bf16_vs_f32": ((a - b).norm() / b.norm()).item(),
+            "sr_spread": float(b.std()), "parts_f32": pb, "parts_bf16": pa,
+            "parts_rel_diff": parts,
+            "ok": (list(a.shape) == [MAIN_BATCH, SR_RAW, SR_RAW, 4]
+                   and bool(torch.isfinite(a).all())
+                   and ((a - b).norm() / b.norm()).item() <= SR_OUT_REL_L2
+                   and all(v <= SR_PART_REL for v in parts.values()))}
+
+
+def phase_sr_train(label: str, workdir: Path) -> dict:
+    """`train --super --factor 2 --down-factor 2` on SRyolo_MF (SR_TRAIN_*):
+    every counter 0, finite losses and sr > 0 on every step; then
+    `_sr_step_pair`."""
+    import yaml
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+
+    with open(resolve_config_path("configs/hyp.scratch.yaml")) as f:
+        hyp = yaml.safe_load(f)
+    hyp_path = workdir / "hyp_sr.yaml"
+    hyp_path.write_text(yaml.safe_dump(dict(hyp, warmup_iters=4)))
+    seen, hooks = _step_recorder()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m, _ = _train_cli(SR_TRAIN_ARGS + ["--hyp", str(hyp_path), "--save-dir",
+                                       str(workdir / label)], **hooks)
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    pair = _sr_step_pair()
+    losses = seen["losses"]
+    ok = (counts == NO_LAUNCH and m["steps"] == SR_TRAIN_STEPS
+          and len(losses) == SR_TRAIN_STEPS
+          and all(math.isfinite(v) for l in losses for v in l.values())
+          and all(l["sr"] > 0 for l in losses)
+          and seen["sizes"] == [SR_RAW // 2] * SR_TRAIN_STEPS
+          and math.isfinite(m["map50"]) and pair["ok"])
+    row = {"phase": label, "args": SR_TRAIN_ARGS, "wall_s": wall,
+           "losses": losses, "model_input_px": seen["sizes"],
+           "launches": counts, "map50": m["map50"], **pair,
+           "bounds": {"parts_rel": SR_PART_REL, "sr_rel_l2": SR_OUT_REL_L2},
+           "ok": bool(ok)}
     emit(row)
     return row
 
@@ -2507,19 +2776,27 @@ def _trained_model(dtype, path: str = TRAINED_NPZ):
     return cache_rel_bias(model.cuda().eval())
 
 
+def perturb_state(sd: dict, seed: int) -> dict:
+    """`sd` with its biases and BatchNorm means moved by 0.05 x N(0, 1)
+    and its BatchNorm variances scaled by 1 +- 0.1, from `seed`, in
+    place."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k in sorted(sd):
+            v = sd[k]
+            if k.endswith((".bias", ".running_mean")):
+                v.add_(0.05 * torch.randn(v.shape, generator=g))
+            elif k.endswith(".running_var"):
+                v.mul_(1 + 0.1 * (2 * torch.rand(v.shape, generator=g) - 1))
+    return sd
+
+
 def perturbed_trained_file(workdir: Path) -> str:
     """The ensemble's second member (ENSEMBLE_SEED) as an .npz."""
-    import torch
     from sodt_tpu_torch.train.checkpoint import load_weights
     from sodt_tpu_torch.weights import save_npz
-    g = torch.Generator().manual_seed(ENSEMBLE_SEED)
-    sd = load_weights(TRAINED_NPZ)
-    for k in sorted(sd):
-        v = sd[k]
-        if k.endswith((".bias", ".running_mean")):
-            sd[k] = v + 0.05 * torch.randn(v.shape, generator=g)
-        elif k.endswith(".running_var"):
-            sd[k] = v * (1 + 0.1 * (2 * torch.rand(v.shape, generator=g) - 1))
+    sd = perturb_state(load_weights(TRAINED_NPZ), ENSEMBLE_SEED)
     path = workdir / "trained_perturbed.npz"
     save_npz(sd, path)
     return str(path)
@@ -3114,7 +3391,9 @@ def main() -> int:
     paths = {}
 
     def drive(label, phase, *args):
-        """One path: its row, or a failure that the run reports."""
+        """One path: its row, or a failure that the run reports; then its
+        seconds on a line of their own."""
+        t0 = time.perf_counter()
         try:
             paths[label] = phase(label, *args)
             if not paths[label]["ok"]:
@@ -3123,6 +3402,8 @@ def main() -> int:
             traceback.print_exc()
             failed.append(f"{label} path")
             paths[label] = {"launches": {}}
+        emit({"phase": "seconds", "of": label,
+              "seconds": time.perf_counter() - t0})
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -3144,6 +3425,11 @@ def main() -> int:
         drive("train_aug", phase_train_aug, tmp)
         drive("folders", phase_folders, tmp, paths.get("trained"))
         drive("eval_extras", phase_eval_extras, tmp, paths.get("folders"))
+        drive("mono", phase_path, MONO_ARGS, MONO_FORWARD)
+        drive("mono_train", phase_train, tmp, MONO_TRAIN_ARGS,
+              MONO_TRAIN_STEPS, MONO_STEP, MONO_FORWARD)
+        drive("families", phase_families)
+        drive("sr_train", phase_sr_train, tmp)
     for label, phase, args in (
             ("grads", phase_grads, ()), ("profile", phase_profile, ()),
             ("profile_train", phase_profile_train, ()),

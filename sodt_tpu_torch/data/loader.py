@@ -53,6 +53,7 @@ from .png import png_size
 from .synthetic import pad_labels
 from ..ops.boxes import xywhn2xyxy
 from ..ops.letterbox import letterbox_image_np, letterbox_params
+from ..ops.resize import resize_bilinear
 
 DEVICE_BANK_MAX_GB = 1.5  # device-bank gate: rgb + ir uint8 tiles must fit
 
@@ -313,36 +314,6 @@ def make_bank_feed(dataset, batch_size: int, img_size: int, hyp: dict,
     return BankFeed(dataset, batch_size, img_size, hyp, seed=seed, m0=m0,
                     sample_weights_fn=sample_weights_fn, device=device,
                     start_step=start_step)
-
-
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """(n_out, n_in) weights of `jax.image.resize`'s "bilinear" (a triangle
-    kernel, antialiased: widened by n_in / n_out when shrinking), as
-    `jax._src.image.scale.compute_weight_mat` builds them."""
-    inv_scale = 1.0 / (n_out / n_in)
-    kernel_scale = max(inv_scale, 1.0)
-    sample_f = ((torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale
-                - 0.5)
-    x = (sample_f[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]
-         ).abs() / kernel_scale
-    w = (1 - x.abs()).clamp(min=0)
-    tot = w.sum(0, keepdim=True)
-    w = torch.where(tot.abs() > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(tot != 0, tot, torch.ones_like(tot)),
-                    torch.zeros_like(w))
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w)).T.to(device)
-
-
-def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
-    """(B, H, W, C) f32 -> (B, h, w, C) for `size` (h, w), or an int for a
-    square: `jax.image.resize(..., "bilinear")` as the multi-scale buckets
-    and the letterbox call it, a product per axis (f32; TF32 must be
-    off)."""
-    h, w = (size, size) if isinstance(size, int) else size
-    wy = _resize_weights(x.shape[1], h, x.device)
-    wx = _resize_weights(x.shape[2], w, x.device)
-    return torch.einsum("oh,bhwc,pw->bopc", wy, x, wx)
 
 
 MULTI_SCALE = (0.75, 1.0, 1.25)     # multi-scale buckets x img_size

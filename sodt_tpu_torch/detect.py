@@ -37,7 +37,7 @@ from .kernels import int8_serving
 from .models import build_model
 from .models.compiler import resolve_config_path
 from .models.infer import Predictor
-from .train.checkpoint import load_weights
+from .train.checkpoint import load_into
 from .train.evaluate import write_yolo_txt
 from .weights import init_weights
 
@@ -128,7 +128,7 @@ def _run(a) -> dict:
                         dtype=torch.bfloat16 if a.bf16 else torch.float32,
                         input_mode=a.input_mode)
     if a.weights:
-        model.load_state_dict(load_weights(a.weights))
+        load_into(model, a.weights)
     else:
         init_weights(model, seed=0)
     # serving settings: the exact sort over 512 candidates holds all that

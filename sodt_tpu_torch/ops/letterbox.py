@@ -1,7 +1,7 @@
 """Letterbox geometry and resize (`sodt_tpu/ops/letterbox.py`).
 
 `letterbox_params` is JAX's. `letterbox_image` resizes on the device with
-`data.loader.resize_bilinear` (JAX's `jax.image.resize` "linear"), and
+`ops.resize.resize_bilinear` (JAX's `jax.image.resize` "linear"), and
 `letterbox_image_np` on the host in uint8 with PIL's BILINEAR resample
 reproduced (`pil_resize_bilinear`): the card's machine has no PIL.
 """
@@ -12,6 +12,8 @@ import math
 
 import numpy as np
 import torch
+
+from .resize import resize_bilinear
 
 PRECISION_BITS = 32 - 8 - 2        # PIL's fixed point for 8-bit images
 
@@ -56,7 +58,6 @@ def letterbox_image(img: torch.Tensor, new_shape_hw, *, scaleup: bool = True,
                     pad_value: float = 114.0) -> torch.Tensor:
     """Letterbox an HWC image to exactly `new_shape_hw` (f32 out), on the
     image's device."""
-    from ..data.loader import resize_bilinear
     h0, w0, c = img.shape
     if isinstance(new_shape_hw, int):
         new_shape_hw = (new_shape_hw, new_shape_hw)

@@ -12,7 +12,8 @@ with every tensor on the CPU. The trainer writes `last.pt`, copies it to
 and writes `epoch{N}.pt` under --save-period. `strip_checkpoint` keeps the
 EMA weights as the final model. `load_weights` reads either a checkpoint
 (its EMA weights, else its model) or a state_dict .npz
-(`weights.save_npz`).
+(`weights.save_npz`); `load_into` loads one into a model, leaving the SR
+branch's entries aside where the model has none.
 """
 
 from __future__ import annotations
@@ -100,6 +101,18 @@ def load_weights(path: str | Path) -> dict:
     if Path(path).suffix == ".npz":
         return load_npz(path)
     return eval_variables(load_checkpoint(path))
+
+
+def load_into(model, path: str | Path):
+    """`load_weights(path)` into `model`, strictly, except that a model
+    built without the SR branch leaves a checkpoint's `model_up.*` entries
+    aside (a run trained with --super evaluates without it: JAX's apply
+    ignores the unused leaves). Returns the model."""
+    sd = load_weights(path)
+    if not hasattr(model, "model_up"):
+        sd = {k: v for k, v in sd.items() if not k.startswith("model_up.")}
+    model.load_state_dict(sd)
+    return model
 
 
 def _jax_leaf(name: str) -> str:

@@ -6,12 +6,17 @@
     python -m sodt_tpu_torch.train --data data.yaml --img-size 512 \
         --batch-size 4 --weights checkpoints/flagship_r5_150ep_ema.npz
     python -m sodt_tpu_torch.train --resume runs/ft/last.pt
+    python -m sodt_tpu_torch.train --cfg SRyolo_MF.yaml \
+        --input_mode RGB+IR+MF --super --factor 2 --down-factor 2 \
+        --synthetic --img-size 1024 --batch-size 4
 
 Takes the JAX `train.py` flags that the port covers under their own names
 and meanings (--weights: initial weights from a checkpoint or a .npz,
 shape-matched; --resume: a checkpoint whose run's opt.yaml is reloaded, so
 no other flag is needed; --save-dir, --nosave, --save-period,
---eval-every, --multi-scale, --image-weights, --single-cls, --rect), plus
+--eval-every, --multi-scale, --image-weights, --single-cls, --rect,
+--super / --factor / --down-factor: the SR branch, which fails at
+--factor 1 as JAX's does, here with a ValueError that names it), plus
 --device (default cuda; raises when no card is visible, --device cpu runs
 the plain PyTorch path) and --weights-npz (a state_dict loaded strictly,
 else a seeded initialization). Data: the VEDAI fold lists of the --data
@@ -33,9 +38,8 @@ from .trainer import TrainConfig, train
 
 # flags of the JAX train.py that are not ported yet -> ROADMAP.md Queue 1 item
 UNPORTED = {
-    "--super": 10, "--factor": 10,
-    "--down-factor": 10, "--noautoanchor": 11, "--evolve": 11, "--wandb": 11,
-    "--remat": 11, "--scan-epoch": 11,
+    "--noautoanchor": 11, "--evolve": 11, "--wandb": 11, "--remat": 11,
+    "--scan-epoch": 11,
 }
 
 
@@ -59,6 +63,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--img-size", "--train_img_size", type=int, default=512)
     p.add_argument("--input_mode", default="RGB+IR")
+    p.add_argument("--super", action="store_true", dest="sr",
+                   help="train the super-resolution auxiliary branch")
+    p.add_argument("--factor", type=int, default=1, dest="sr_factor",
+                   help="the SR decoder's factor (the branch needs >= 2)")
+    p.add_argument("--down-factor", type=int, default=1,
+                   help="model input = img-size / down-factor (SR regime)")
     p.add_argument("--adam", action="store_true")
     p.add_argument("--linear-lr", action="store_true")
     p.add_argument("--synthetic", action="store_true")
@@ -122,7 +132,9 @@ def main(argv=None, on_step=None, on_grads=None, on_start=None) -> dict:
     if tc is None:
         tc = TrainConfig(cfg=a.cfg, data=a.data, hyp=a.hyp, epochs=a.epochs,
                          batch_size=a.batch_size, img_size=a.img_size,
-                         input_mode=a.input_mode, adam=a.adam,
+                         input_mode=a.input_mode, sr=a.sr,
+                         sr_factor=a.sr_factor, down_factor=a.down_factor,
+                         adam=a.adam,
                          linear_lr=a.linear_lr, synthetic=a.synthetic,
                          synthetic_n=a.synthetic_n, save_dir=a.save_dir,
                          image_weights=a.image_weights,

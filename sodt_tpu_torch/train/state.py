@@ -6,7 +6,7 @@ updates the model, the optimizer state and the EMA copy IN PLACE; it
 returns the same `TrainState` object for symmetry with the JAX signature:
 
   forward in training mode (batch BN statistics, running stats updated)
-  -> detection loss -> gradients (f32, on the f32 master parameters)
+  -> detection loss (+ the SR branch's L1) -> gradients (f32, on the f32 master parameters)
   -> optimizer update (schedules are functions of the optimizer step)
   -> EMA of parameters and BN statistics, only on steps where the
      optimizer fired.
@@ -23,8 +23,19 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..ops.resize import resize_bilinear
 from .loss import LossConfig, compute_loss
 from .optim import Optimizer, ema_update
+
+
+def sr_l1(sr_out: torch.Tensor, img: torch.Tensor, ir, mode: str):
+    """The SR branch's L1 loss against the full-resolution images."""
+    if mode == "IR":
+        return 0.5 * (sr_out - ir).abs().mean()
+    if mode == "RGB":
+        return 0.5 * (sr_out - img).abs().mean()
+    return 0.1 * ((sr_out[..., 0:3] - img).abs().mean()
+                  + (sr_out[..., 3:4] - ir[..., 0:1]).abs().mean())
 
 
 def ema_tensors(model: nn.Module) -> dict:
@@ -57,7 +68,15 @@ def make_train_step(model: nn.Module, tx: Optimizer, loss_cfg: LossConfig, *,
 
     batch: dict of tensors on the model's device: img, ir (B, H, W, 3)
     float in [0, 1]; targets (B, M, 5) [cls, cx, cy, w, h] normalized;
-    tmask (B, M) bool. metrics: loss, box, obj, cls (0-d tensors).
+    tmask (B, M) bool. metrics: loss, box, obj, cls (0-d tensors), and sr
+    when the SR loss is on.
+
+    The SR regime (`sr`, `down_factor`), as in JAX: with down_factor > 1
+    the model takes the batch resized to H / down_factor, W / down_factor
+    (JAX's antialiased bilinear), and the SR output of a model built with
+    the SR branch is held in f32 to the full-resolution images by L1:
+    0.5 x mean |sr - img| (or ir) for one modality, 0.1 x (mean |sr[..., :3]
+    - img| + mean |sr[..., 3:] - ir[..., :1]|) for the fused modes.
 
     `freeze`: substrings of parameter names (`l0.stage1_0.attn.qkv.weight`);
     a matching parameter gets zero gradients AND zero updates, so neither
@@ -68,18 +87,24 @@ def make_train_step(model: nn.Module, tx: Optimizer, loss_cfg: LossConfig, *,
     `on_grads(grads)` is called with the step's gradients (name -> f32
     tensor, frozen ones zeroed) before the update; the step keeps no
     reference to them."""
-    if sr or down_factor != 1:
-        raise NotImplementedError(
-            "the SR branch and its L1 loss (--super): ROADMAP.md Queue 1 "
-            "item 10")
     params = dict(model.named_parameters())
     frozen = {k for k in params if any(f in k for f in freeze)}
 
     def train_step(state: TrainState, batch: dict):
         model.train()
-        out = model(batch["img"], batch.get("ir"))
+        img, ir = batch["img"], batch.get("ir")
+        img_in, ir_in = img, ir
+        if down_factor > 1:
+            size = (img.shape[1] // down_factor, img.shape[2] // down_factor)
+            img_in = resize_bilinear(img, size)
+            ir_in = resize_bilinear(ir, size) if ir is not None else None
+        out = model(img_in, ir_in)
         total, parts = compute_loss(out["raw"], batch["targets"],
                                     batch["tmask"], loss_cfg)
+        if sr and "sr" in out:
+            sr_loss = sr_l1(out["sr"].float(), img, ir, model.input_mode)
+            total = total + sr_loss
+            parts = dict(parts, sr=sr_loss)
         names = list(params)
         gs = torch.autograd.grad(total, [params[k] for k in names])
         grads = {k: (torch.zeros_like(g) if k in frozen else g)

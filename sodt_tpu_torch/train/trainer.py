@@ -17,9 +17,13 @@ the final one. `weights` loads initial weights (shape-matched, names with
 `image_weights` resamples the images by the per-class mAP of the last eval;
 `multi_scale` draws each batch's size from 0.75 / 1 / 1.25 x img_size.
 
-Autoanchor, the SR branch, evolve, W&B and the epoch scan (ROADMAP.md
-Queue 1 items 10 and 11) are not ported: their options are absent from
-`TrainConfig`.
+`sr` trains the super-resolution branch beside the detector (`sr_factor`
+its decoder's factor, `down_factor` the model input's reduction, as in
+`state.make_train_step`); the evals run the EMA weights at full
+resolution without it, as JAX's read only the Detect maps.
+
+Autoanchor, evolve, W&B and the epoch scan (ROADMAP.md Queue 1 item 11)
+are not ported: their options are absent from `TrainConfig`.
 """
 
 from __future__ import annotations
@@ -66,6 +70,9 @@ class TrainConfig:
     batch_size: int = 16
     img_size: int = 512
     input_mode: str = "RGB+IR"
+    sr: bool = False                 # --super
+    sr_factor: int = 1               # --factor
+    down_factor: int = 1             # model input = img_size / down_factor
     adam: bool = False
     linear_lr: bool = False
     synthetic: bool = False
@@ -114,9 +121,11 @@ def fitness_from_metrics(m: dict) -> float:
 
 
 def ema_model(state: TrainState) -> torch.nn.Module:
-    """A copy of the model that holds the EMA weights and statistics."""
+    """A copy of the model that holds the EMA weights and statistics, for
+    the evals: its SR branch is off (they read only the Detect maps)."""
     m = copy.deepcopy(state.model)
     m.load_state_dict(state.ema, strict=False)
+    m.sr = False
     return m.eval()
 
 
@@ -162,7 +171,8 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
 
     train_ds, val_ds = _datasets(tc, data_cfg, nc)
     model = build_model(tc.cfg, ch_in=CH_IN[tc.input_mode], nc=nc,
-                        dtype=dtype, input_mode=tc.input_mode)
+                        dtype=dtype, input_mode=tc.input_mode, sr=tc.sr,
+                        factor=tc.sr_factor)
     if tc.weights_npz:
         model.load_state_dict(load_npz(tc.weights_npz))
     else:
@@ -191,6 +201,7 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
         start_epoch = int(ckpt["epoch"]) + 1
         best_fitness = float(ckpt["best_fitness"])
     step_fn = make_train_step(model, tx, loss_config(model, hyp, nc),
+                              sr=tc.sr, down_factor=tc.down_factor,
                               freeze=tuple(tc.freeze), on_grads=on_grads)
     nparams = sum(p.numel() for p in params.values())
 

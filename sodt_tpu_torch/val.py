@@ -61,7 +61,7 @@ from .data import (SyntheticVedai, VedaiDataset, apply_single_cls,
 from .models import build_model
 from .models.compiler import resolve_config_path
 from .train.evaluate import evaluate, make_eval_step, cache_rel_bias
-from .train.checkpoint import load_weights
+from .train.checkpoint import load_into
 from .utils.metrics import write_per_class_csv
 from .utils.xlsx import write_per_class_xlsx
 from .weights import init_weights
@@ -86,7 +86,7 @@ def build(a, img_size: int):
         model = build_model(a.cfg, ch_in=CH_IN[a.input_mode], nc=nc,
                             dtype=dtype, input_mode=a.input_mode)
         if src:
-            model.load_state_dict(load_weights(src))
+            load_into(model, src)
         else:
             init_weights(model, seed=0)
         models.append(cache_rel_bias(model.to(dev).eval()))

@@ -257,5 +257,7 @@ def test_rect_and_later_flags_still_raise(tmp_path):
         cli.main(args + ["--rect", "--multi-scale"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         cli.main(args + ["--scan-epoch", "on"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cli.main(args + ["--super"])
+    # --super is ported: on a config without SR taps it is refused
+    assert "--super" not in cli.UNPORTED
+    with pytest.raises(ValueError, match="SR taps"):
+        cli.main(args + ["--super", "--factor", "2"])

@@ -52,10 +52,13 @@ def test_flagship_width_model_matches_jax():
 
 def test_compiler_rejects_unported_modules():
     from sodt_tpu_torch.models.compiler import parse_config
-    cfg = dict(NARROW_CFG, head=[[2, 1, "SPP", [512]]] + NARROW_CFG["head"][1:])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    cfg = dict(NARROW_CFG, head=[[2, 1, "ACmix", [512]]] + NARROW_CFG["head"][1:])
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md Queue 1 item 10 \(rest\)"):
         parse_config(cfg)
+    # a fusion input without steam layers fails in JAX (no stems to run):
+    # the port refuses it when the model is built
     from sodt_tpu_torch.models.model import DetectionModel
     spec = parse_config(NARROW_CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        DetectionModel(spec, input_mode="RGB+IR+MF")
+    with pytest.raises(ValueError, match="steam"):
+        DetectionModel(spec, input_mode="RGB+IR+fusion")

@@ -102,6 +102,40 @@ def randomize_variables(v, seed: int):
     return walk(v)
 
 
+def drawn_variables(jmodel, *inputs, seed: int = 0, **kw):
+    """Variables for the JAX module `jmodel`, drawn with numpy from `seed`
+    on the tree that `jmodel.init(key, *inputs, **kw)` builds (traced by
+    jax.eval_shape, never compiled: a jitted init of a deep CNN compiles
+    for ~15 s on the CPU). Kernels normal with variance 1 / fan_in, norm
+    scales and BN variances uniform in [0.5, 1.5], rel-pos tables normal
+    (0.02), every other leaf (biases, BN means, pos_embed) normal (0.05):
+    nothing is left at a trivial init value. Only "params" and
+    "batch_stats" are returned."""
+    import jax
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda *a: jmodel.init(*a, **kw),
+                            jax.random.PRNGKey(0), *inputs)
+
+    def draw(path, s):
+        name = getattr(path[-1], "key", str(path[-1]))
+        if name == "kernel":
+            x = rng.standard_normal(s.shape) / np.sqrt(
+                np.prod(s.shape[:-1]))
+        elif name in ("scale", "var"):
+            x = rng.uniform(0.5, 1.5, s.shape)
+        elif name == "relative_position_bias_table":
+            x = 0.02 * rng.standard_normal(s.shape)
+        else:
+            x = 0.05 * rng.standard_normal(s.shape)
+        return x.astype(np.float32)
+
+    # the init's "bias_cache" collection (the materialized rel-pos bias)
+    # would be read in place of the drawn table: it is left out
+    return jax.tree_util.tree_map_with_path(
+        draw, {k: shapes[k] for k in ("params", "batch_stats")
+               if k in shapes})
+
+
 @torch.no_grad()
 def seed_postnorms(model, seed: int = 0):
     """Draw the post-norm scales of every SwinV2 block of the port's
