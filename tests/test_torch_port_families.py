@@ -36,6 +36,9 @@ from sodt_tpu_torch.train import loss as tloss
 from sodt_tpu_torch.weights import from_jax_variables
 
 from torch_port_common import close, drawn_variables, j, randomize_variables, t
+from torch_port_common import one_torch_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-4
 CONFIGS = ("model", "model_mono", "model_swinv2", "yolo5m", "SRyolo_MF",

@@ -48,6 +48,9 @@ from sodt_tpu_torch.weights import (batch_to_torch, from_jax_tree,
                                     from_jax_variables)
 
 from torch_port_common import close, drawn_variables, j, t
+from torch_port_common import one_torch_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-4
 # tests/test_train_step.py's SR config: taps l1 (32 ch at /4), l2 (64 ch

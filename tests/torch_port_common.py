@@ -7,7 +7,22 @@ from __future__ import annotations
 import contextlib
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test, restored after. The Tier-1 run
+    puts six workers on 8 cores; these small-op tests run no faster alone
+    with 8 threads than with one, and under that load 8 threads a worker
+    spin at every parallel region's barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def rand(shape, seed, scale=1.0):
