@@ -88,9 +88,10 @@ the final ok line:
               arguments (int8 serving, K12): launches per forward K2-K7's
               int8 bodies 3, 3, 3, 4, 2, 2 (their bf16 kernels 0), K8 1,
               K13 11 + 5; raw Detect maps of one batch, the int8 kernels vs
-              the plain int8 bodies on the card (relative L2 <= 2e-2), vs
-              the same with the kernels' attention core and vs the bf16
-              kernels (reported); each of the 17 K12 calls of that forward
+              the plain int8 bodies on the card and vs the bf16 kernels
+              (relative L2 <= 2e-2 each), vs the plain int8 bodies with the
+              kernels' attention core (reported); each of the 17 K12 calls
+              of that forward
               held on its own arguments as the kernel cases are; then
               `--task speed` with and without --int8
      trained  the trained flagship (checkpoints/flagship_r5_150ep_ema.npz,
@@ -160,15 +161,33 @@ the final ok line:
               `main`
      mono_train  `train --cfg model_mono.yaml --input_mode RGB`, 4 steps
               at batch 4: MONO_STEP on every step (K13 LN 19)
+     mono_int8  `val --int8 --cfg model_mono.yaml --input_mode RGB` on the
+              main path's arguments: MONO_INT8_FORWARD launches (the K12
+              twins 3, 3, 3, 4, 2, 2, bf16 K2-K7 0, K8 1, K13 LN 7 + 5); raw
+              maps held to the plain int8 bodies on the card and to the
+              mono bf16 path (relative L2 <= 2e-2 each), every K12 call on
+              its own arguments, `--task speed` of the mono model with and
+              without --int8
      families `val` on yolo5m (RGB, three Detect levels), SRyolo_PF
               (RGB+IR) and SRyolo_MF (RGB+IR+MF) at 512 px: every counter 0;
               raw maps of calibrated weights, bf16 vs f32 on the card and
               f32 on the card vs the CPU
+     layers   `val --cfg every_layer.yaml --input_mode RGB` at 512 px (the
+              twelve registry layers that no shipped config uses, an
+              Upsample of each resize method, two Detect levels): every
+              counter 0; raw maps of calibrated weights, bf16 vs f32 on the
+              card (<= 0.1) and f32 on the card vs the CPU (<= 1e-4)
      sr_train `train --cfg SRyolo_MF.yaml --input_mode RGB+IR+MF --super
               --factor 2 --down-factor 2` on 1024 px originals (the model
               at 512 px, the SR output 1024 px, 4 channels), 4 steps: every
               counter 0, finite losses, sr > 0; the first step's loss
               parts and SR output, bf16 vs f32 on one batch
+     autoanchor  `train --synthetic --synthetic-n 8 --img-size 128`, 2
+              steps of the flagship: the anchors of its Detect, decode and
+              loss equal to check_anchors' refit of the same labels on the
+              host, and its `autoanchor: ... -> anchors refit` line (phase
+              `train` and every training path print theirs: BPR 1.0000 at
+              512 px, the yaml's anchors kept)
      Each path's seconds follow it on a line of their own.
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
@@ -350,6 +369,14 @@ MONO_TRAIN_ARGS = ["--cfg", MONO_CFG, "--input_mode", "RGB", "--synthetic",
                    "--batch-size", "4", "--nbs", "4", "--epochs", "1",
                    "--notest"]
 MONO_TRAIN_STEPS = 4
+# int8 serving of the mono model on the main path's arguments: MONO_FORWARD
+# with each bf16 K2-K7 launch moved to its K12 twin (INT8_FORWARD less the
+# cross-channel block's LNs). Its raw maps are held to the plain int8
+# bodies and to the bf16 path as on `int8` (the flagship's int8 read
+# 7.25e-3 from its bf16 on an H100, PERF.md; the mono model's 5.5e-3 on a
+# CPU at 128 px)
+MONO_INT8_ARGS = ["--int8"] + MONO_ARGS
+MONO_INT8_FORWARD = dict(INT8_FORWARD, layernorm=MONO_FORWARD["layernorm"])
 # the all-CNN families at their configs' widths, 512 px, batch 4: PyTorch
 # convolutions, no kernel of the port (every counter must read 0); raw
 # Detect maps of the bf16 model against the f32 plain one on the same
@@ -400,6 +427,25 @@ SR_TRAIN_STEPS = 4
 # box 1.0e-2, cls 7.4e-3, sr 5.7e-3; the SR output 6.8e-2
 SR_PART_REL = 0.1
 SR_OUT_REL_L2 = 0.15
+# every layer of JAX's registry that no shipped config uses and an Upsample
+# of each resize method (`every_layer.yaml`, RGB, strides 4 and 8) at the
+# main path's arguments: PyTorch operations only, every counter 0; raw maps
+# of calibrated weights as in `families`. f32 on the card against the CPU:
+# the summation order alone; bf16 against f32: on a CPU 3.5e-2 at 512 px
+# (2.7e-2 / 5.4e-2 by level), the bound about three times that
+LAYERS_CFG = "every_layer.yaml"
+LAYERS_MODE = "RGB"
+LAYERS_F32_REL_L2 = 1e-4
+LAYERS_REL_L2 = 0.1
+# autoanchor on the card: the flagship trained 2 steps at 128 px on 8
+# synthetic images, whose labels put the yaml's anchors under the 0.98
+# recall gate: the model's Detect, its decode and the loss must take the
+# anchors that check_anchors refits on the host from the same labels
+AA_N, AA_PX = 8, 128
+AA_ARGS = ["--synthetic", "--synthetic-n", str(AA_N), "--img-size",
+           str(AA_PX), "--batch-size", "4", "--nbs", "4", "--epochs", "1",
+           "--notest"]
+AA_STEPS = 2
 # counter name -> (tag, source, TPU kernel it replaces, paths whose runs
 # count its launches: one entry of the kernels line for each, with the
 # times of that path's shapes)
@@ -1616,15 +1662,16 @@ def phase_int8(label: str, args: list[str], expected: dict) -> dict:
     """The int8 serving path: `sodt_tpu_torch.val --int8` in-process with
     the launch counts set to 0 just before and read just after; raw Detect
     maps of one batch on the seeded weights, the int8 kernels against the
-    plain int8 bodies on the card (bound DETECT_REL_L2), against the same
-    with the kernels' attention core and against the bf16 kernels (both
-    reported: quantization makes the model discontinuous, so a code that
-    one ulp moved in one body moves later strips' scales, and the maps of
-    two sound int8 forwards sit about as far apart as int8 from bf16);
-    every K12 call of that forward held on its own arguments as the kernel
-    cases are (`int8_call_readings`, bounds Q8_REL_L2 / Q8_AMAX_TOL, with
-    their controls); then `--task speed` with and without --int8 (ms per
-    image, conf 0.25)."""
+    plain int8 bodies on the card and against the bf16 kernels (bound
+    DETECT_REL_L2 each: it catches a wrong path, not a rounding point;
+    quantization makes the model discontinuous, so a code that one ulp
+    moved in one body moves later strips' scales, and the maps of two
+    sound int8 forwards sit about as far apart as int8 from bf16), and
+    against the plain int8 bodies with the kernels' attention core
+    (reported); every K12 call of that forward held on its own arguments
+    as the kernel cases are (`int8_call_readings`, bounds Q8_REL_L2 /
+    Q8_AMAX_TOL, with their controls); then `--task speed` of the same
+    model with and without --int8 (ms per image, conf 0.25)."""
     import torch
     from sodt_tpu_torch import kernels, val
     from sodt_tpu_torch.train.evaluate import cache_rel_bias
@@ -1645,7 +1692,8 @@ def phase_int8(label: str, args: list[str], expected: dict) -> dict:
     batch = next(make_eval_batches(ds, bs, img_size))
     img = torch.from_numpy(batch["img"]).cuda().float() / 255
     ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
-    model = cache_rel_bias(seeded_model(opt.cfg, torch.bfloat16).cuda().eval())
+    model = cache_rel_bias(seeded_model(
+        opt.cfg, torch.bfloat16, input_mode=opt.input_mode).cuda().eval())
     raws, calls = {}, []
 
     def recorder(name, launch):
@@ -1670,15 +1718,16 @@ def phase_int8(label: str, args: list[str], expected: dict) -> dict:
     per_call = {k: v["calls"] for k, v in bodies.items()}
     speed = {}
     for tag, extra in (("int8", ["--int8"]), ("bf16", [])):
-        speed[tag] = val.main(extra + ["--task", "speed", "--img-size",
-                                       str(img_size), "--batch-size",
-                                       str(bs)])["ms_per_image"]
+        speed[tag] = val.main(extra + [
+            "--cfg", opt.cfg, "--input_mode", opt.input_mode, "--task",
+            "speed", "--img-size", str(img_size), "--batch-size",
+            str(bs)])["ms_per_image"]
     a = raws["int8"]
     g = img_size // 4
     ok = (per_fwd == {k: float(v) for k, v in expected.items()}
           and finite and bool(torch.isfinite(a).all()) and m["int8"] is True
           and tuple(a.shape) == (bs, g, g, 3, 13) and m["seen"] == n_img
-          and vs_plain <= DETECT_REL_L2 and vs_bf16 > 0
+          and vs_plain <= DETECT_REL_L2 and 0 < vs_bf16 <= DETECT_REL_L2
           and per_call == {k: v for k, v in expected.items()
                            if k.endswith("_q8")}
           and all(v["q8_ok"] for v in bodies.values()))
@@ -1808,7 +1857,8 @@ def phase_train(label: str, workdir: Path, train_args: list[str], steps: int,
 
     kernels.reset_launches()
     t0 = time.perf_counter()
-    m = cli.main(args, on_step=on_step, on_grads=on_grads)
+    with stdout_lines("autoanchor") as autoanchor:
+        m = cli.main(args, on_step=on_step, on_grads=on_grads)
     wall = time.perf_counter() - t0
     counts = kernels.launches()
 
@@ -1829,7 +1879,7 @@ def phase_train(label: str, workdir: Path, train_args: list[str], steps: int,
           and counts == expected_total and finite and not seen["no_grad"]
           and not unmoved and m["steps"] == steps
           and seen["state"].ema_updates == steps
-          and math.isfinite(m["map50"]))
+          and math.isfinite(m["map50"]) and len(autoanchor) == 1)
     row = {"phase": label, "args": args, "wall_s": wall,
            "steps": len(counted), "step_ms": step_ms,
            "losses": seen["losses"], "launches": counts,
@@ -1838,7 +1888,8 @@ def phase_train(label: str, workdir: Path, train_args: list[str], steps: int,
            "params": seen.get("n_params"),
            "params_without_gradient_at_step_1": seen["no_grad"],
            "params_unmoved": unmoved, "map50": m["map50"],
-           "ema_updates": seen["state"].ema_updates, "ok": bool(ok)}
+           "ema_updates": seen["state"].ema_updates,
+           "autoanchor": autoanchor, "ok": bool(ok)}
     emit(row)
     return row
 
@@ -1868,68 +1919,182 @@ def calibrated(model, img, ir):
     return model.eval()
 
 
-def phase_families(label: str) -> dict:
-    """`val --cfg <family> --input_mode <mode>` for each of FAMILIES at the
-    main path's arguments: every launch counter at 0, finite metrics; then
-    the raw Detect maps of one batch on the same weights (perturbed, their
-    BatchNorm statistics calibrated on the batch by the f32 model), with
-    their spread: bf16 vs f32 plain on the card, and f32 on the card vs f32
-    on the CPU."""
+def _main_batch():
+    """One batch of the main path (4 synthetic images at 512 px) on the
+    card: (img, ir) in [0, 1]."""
     import torch
-    from sodt_tpu_torch import kernels, val
     from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
-
     ds = SyntheticVedai(n=MAIN_BATCH, img_size=512, nc=8, seed=1)
     batch = next(make_eval_batches(ds, MAIN_BATCH, 512))
-    img = torch.from_numpy(batch["img"]).cuda().float() / 255
-    ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
-    rows, ok = [], True
-    for cfg, mode, levels in FAMILIES:
-        t0 = time.perf_counter()
-        args = ["--cfg", cfg, "--input_mode", mode] + MAIN_ARGS
-        kernels.reset_launches()
-        m = val.main(args)
-        counts = kernels.launches()
-        ref = calibrated(perturbed(seeded_model(cfg, torch.float32,
-                                                input_mode=mode),
-                                   FAMILY_SEED).cuda(), img, ir)
-        raws = {}
-        for dt, dev in ((torch.bfloat16, "cuda"), (torch.float32, "cuda"),
-                        (torch.float32, "cpu")):
-            model = seeded_model(cfg, dt, input_mode=mode).to(dev).eval()
-            model.load_state_dict(ref.state_dict())
-            with torch.no_grad():
-                raws[dt, dev] = [r.float().cpu() for r in
-                                 model(img.to(dev), ir.to(dev))["raw"]]
-        a, b = raws[torch.bfloat16, "cuda"], raws[torch.float32, "cuda"]
-        cat = lambda rs: torch.cat([r.flatten() for r in rs])
-        rel = lambda x, y: ((cat(x) - cat(y)).norm() / cat(y).norm()).item()
-        rel_l2 = rel(a, b)
-        f32_rel = rel(b, raws[torch.float32, "cpu"])
-        shapes = [list(r.shape) for r in a]
-        strides = [512 // s[1] for s in shapes]
-        good = (counts == NO_LAUNCH and m["seen"] == MAIN_BATCH
-                and all(math.isfinite(m[k]) for k in ("map50", "map"))
-                and len(a) == levels
-                and all(bool(torch.isfinite(r).all()) for r in a)
-                and strides == [int(s) for s in model.strides]
-                and rel_l2 <= FAMILY_REL_L2
-                and f32_rel <= FAMILY_F32_REL_L2)
-        ok &= good
-        rows.append({"cfg": cfg, "input_mode": mode, "seconds":
-                     time.perf_counter() - t0, "launches": counts,
-                     "map50": m["map50"], "speed_ms": m["speed_ms"],
-                     "raw_shapes": shapes,
-                     "raw_spread": [map_spread(r) for r in b],
-                     "detect_rel_l2_bf16_vs_f32": rel_l2,
-                     "rel_l2_bound": FAMILY_REL_L2,
-                     "level_rel_l2_bf16_vs_f32": [
-                         ((x - y).norm() / y.norm()).item()
-                         for x, y in zip(a, b)],
-                     "detect_rel_l2_f32_card_vs_cpu": f32_rel,
-                     "f32_rel_l2_bound": FAMILY_F32_REL_L2,
-                     "ok": bool(good)})
-    row = {"phase": label, "families": rows, "ok": bool(ok)}
+    return (torch.from_numpy(batch["img"]).cuda().float() / 255,
+            torch.from_numpy(batch["ir"]).cuda().float() / 255)
+
+
+def _cnn_row(cfg: str, mode: str, levels: int, img, ir, rel_bound: float,
+             f32_bound: float) -> dict:
+    """`val --cfg <cfg> --input_mode <mode>` at the main path's arguments:
+    every launch counter at 0, finite metrics; then the raw Detect maps of
+    one batch on the same weights (perturbed, their BatchNorm statistics
+    calibrated on the batch by the f32 model), with their spread: bf16 vs
+    f32 plain on the card within `rel_bound`, and f32 on the card vs f32 on
+    the CPU within `f32_bound`."""
+    import torch
+    from sodt_tpu_torch import kernels, val
+    t0 = time.perf_counter()
+    args = ["--cfg", cfg, "--input_mode", mode] + MAIN_ARGS
+    kernels.reset_launches()
+    m = val.main(args)
+    counts = kernels.launches()
+    ref = calibrated(perturbed(seeded_model(cfg, torch.float32,
+                                            input_mode=mode),
+                               FAMILY_SEED).cuda(), img, ir)
+    raws = {}
+    for dt, dev in ((torch.bfloat16, "cuda"), (torch.float32, "cuda"),
+                    (torch.float32, "cpu")):
+        model = seeded_model(cfg, dt, input_mode=mode).to(dev).eval()
+        model.load_state_dict(ref.state_dict())
+        with torch.no_grad():
+            raws[dt, dev] = [r.float().cpu() for r in
+                             model(img.to(dev), ir.to(dev))["raw"]]
+    a, b = raws[torch.bfloat16, "cuda"], raws[torch.float32, "cuda"]
+    cat = lambda rs: torch.cat([r.flatten() for r in rs])
+    rel = lambda x, y: ((cat(x) - cat(y)).norm() / cat(y).norm()).item()
+    rel_l2 = rel(a, b)
+    f32_rel = rel(b, raws[torch.float32, "cpu"])
+    shapes = [list(r.shape) for r in a]
+    strides = [512 // s[1] for s in shapes]
+    good = (counts == NO_LAUNCH and m["seen"] == MAIN_BATCH
+            and all(math.isfinite(m[k]) for k in ("map50", "map"))
+            and len(a) == levels
+            and all(bool(torch.isfinite(r).all()) for r in a)
+            and strides == [int(s) for s in model.strides]
+            and rel_l2 <= rel_bound and f32_rel <= f32_bound)
+    return {"cfg": cfg, "input_mode": mode, "seconds":
+            time.perf_counter() - t0, "launches": counts,
+            "map50": m["map50"], "speed_ms": m["speed_ms"],
+            "raw_shapes": shapes,
+            "raw_spread": [map_spread(r) for r in b],
+            "detect_rel_l2_bf16_vs_f32": rel_l2, "rel_l2_bound": rel_bound,
+            "level_rel_l2_bf16_vs_f32": [
+                ((x - y).norm() / y.norm()).item() for x, y in zip(a, b)],
+            "detect_rel_l2_f32_card_vs_cpu": f32_rel,
+            "f32_rel_l2_bound": f32_bound, "ok": bool(good)}
+
+
+def phase_families(label: str) -> dict:
+    """`_cnn_row` for each of FAMILIES (bounds FAMILY_REL_L2,
+    FAMILY_F32_REL_L2)."""
+    img, ir = _main_batch()
+    rows = [_cnn_row(cfg, mode, levels, img, ir, FAMILY_REL_L2,
+                     FAMILY_F32_REL_L2) for cfg, mode, levels in FAMILIES]
+    row = {"phase": label, "families": rows,
+           "ok": all(r["ok"] for r in rows)}
+    emit(row)
+    return row
+
+
+def phase_layers(label: str) -> dict:
+    """`_cnn_row` of `every_layer.yaml` (the twelve registry layers that no
+    shipped config uses and an Upsample of each resize method; bounds
+    LAYERS_REL_L2, LAYERS_F32_REL_L2), with the names it built."""
+    from sodt_tpu_torch.models.compiler import parse_config
+    img, ir = _main_batch()
+    row = _cnn_row(LAYERS_CFG, LAYERS_MODE, 2, img, ir, LAYERS_REL_L2,
+                   LAYERS_F32_REL_L2)
+    spec = parse_config(LAYERS_CFG, ch_in=3)
+    row = {"phase": label, **row,
+           "layers": sorted({ld.name for ld in spec.backbone + spec.head}),
+           "upsample_methods": [ld.args[1] for ld in spec.head
+                                if ld.name == "Upsample"]}
+    emit(row)
+    return row
+
+
+@contextlib.contextmanager
+def stdout_lines(prefix: str):
+    """Within the context, the lines written to stdout that start with
+    `prefix` are also collected into the list it yields."""
+    real, found = sys.stdout, []
+
+    class Tee:
+        def write(self, text):
+            found.extend(l for l in text.splitlines() if l.startswith(prefix))
+            return real.write(text)
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+    sys.stdout = Tee()
+    try:
+        yield found
+    finally:
+        sys.stdout = real
+
+
+def phase_autoanchor(label: str, workdir: Path) -> dict:
+    """`python -m sodt_tpu_torch.train` in-process at AA_PX on AA_N
+    synthetic images (AA_STEPS steps, the flagship on the card): the
+    trainer's autoanchor line, and the anchors of its model's Detect and
+    decode and of its loss (the trainer's `loss_config`, wrapped here to
+    read what it returns) equal to `check_anchors` of the same labels on
+    the host, which refits the yaml's here."""
+    import numpy as np
+    import torch
+    import yaml
+    from sodt_tpu_torch.data import SyntheticVedai
+    from sodt_tpu_torch.models.compiler import parse_config, resolve_config_path
+    from sodt_tpu_torch.train import cli, trainer
+    from sodt_tpu_torch.utils.autoanchor import check_anchors
+
+    with open(resolve_config_path("configs/hyp.scratch.yaml")) as f:
+        hyp = yaml.safe_load(f)
+    spec = parse_config("configs/model.yaml", ch_in=4, nc=8)
+    a0 = np.asarray(spec.anchors, np.float32).reshape(len(spec.anchors), -1,
+                                                      2)
+    labels = SyntheticVedai(n=AA_N, img_size=AA_PX, nc=8, seed=0).labels
+    new, changed, bpr = check_anchors(
+        labels, np.full((AA_N, 2), AA_PX, float), a0, img_size=AA_PX,
+        thr=hyp.get("anchor_t", 4.0), seed=0)
+    want = tuple(tuple(float(v) for v in lvl.reshape(-1)) for lvl in new)
+
+    seen = {"losses": []}
+    real = trainer.loss_config
+
+    def recording(model, hyp_, nc):
+        cfg = real(model, hyp_, nc)
+        seen["loss_anchors"] = cfg.anchors
+        return cfg
+
+    def on_start(state):
+        seen["model"] = state.model
+
+    def on_step(state, metrics):
+        seen["losses"].append({k: float(v) for k, v in metrics.items()})
+
+    args = AA_ARGS + ["--save-dir", str(workdir / label)]
+    trainer.loss_config = recording
+    try:
+        with stdout_lines("autoanchor") as lines:
+            m = cli.main(args, on_step=on_step, on_start=on_start)
+    finally:
+        trainer.loss_config = real
+    model = seen["model"]
+    per_level = np.asarray(want, np.float32).reshape(len(want), -1, 2)
+    finite = all(math.isfinite(v) for l in seen["losses"] for v in l.values())
+    ok = (changed and want != spec.anchors
+          and model.spec.anchors == want and model.detect.anchors == want
+          and seen.get("loss_anchors") == want
+          and np.array_equal(model.anchors_per_level, per_level)
+          and next(model.parameters()).is_cuda
+          and len(seen["losses"]) == AA_STEPS and m["steps"] == AA_STEPS
+          and finite and math.isfinite(m["map50"])
+          and lines == [f"autoanchor: BPR {bpr:.4f} -> anchors refit"])
+    row = {"phase": label, "args": args, "autoanchor_lines": lines,
+           "yaml_anchors": spec.anchors, "refit_on_host": want,
+           "bpr_after_refit": bpr, "detect_anchors": model.detect.anchors,
+           "loss_anchors": seen.get("loss_anchors"),
+           "model_on": str(next(model.parameters()).device),
+           "losses": seen["losses"], "ok": bool(ok)}
     emit(row)
     return row
 
@@ -3428,8 +3593,11 @@ def main() -> int:
         drive("mono", phase_path, MONO_ARGS, MONO_FORWARD)
         drive("mono_train", phase_train, tmp, MONO_TRAIN_ARGS,
               MONO_TRAIN_STEPS, MONO_STEP, MONO_FORWARD)
+        drive("mono_int8", phase_int8, MONO_INT8_ARGS, MONO_INT8_FORWARD)
         drive("families", phase_families)
+        drive("layers", phase_layers)
         drive("sr_train", phase_sr_train, tmp)
+        drive("autoanchor", phase_autoanchor, tmp)
     for label, phase, args in (
             ("grads", phase_grads, ()), ("profile", phase_profile, ()),
             ("profile_train", phase_profile_train, ()),

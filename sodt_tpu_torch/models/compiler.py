@@ -24,8 +24,14 @@ channels, so every LayerDef carries them (`c1`): the channel list of the
 walk, and in the unified mode with a steam twice the steam's output
 channels (the two stems' maps concatenated). DWConv builds the same
 module as Conv (JAX's registry maps both to one constructor, without
-groups). The registry entries that no shipped config uses raise
-NotImplementedError naming the ROADMAP.md item that ports them.
+groups). The stride of a conv-family layer comes from its arguments as
+JAX reads them (Conv / DWConv args[2], ACmix args[4], MixConv2d args[2],
+Focus 2), also where the module itself ignores them (JAX's MixConv2d
+constructor runs at stride 1); the repeat count is folded into the
+arguments of C3, BottleneckCSP, BottleneckCSP2 and SPPCSP and dropped for
+every other module, as JAX drops it; Sum keeps its input's channels,
+Contract multiplies them by gain^2 and Expand divides them. A name outside
+JAX's registry raises JAX's KeyError.
 """
 
 from __future__ import annotations
@@ -40,12 +46,17 @@ from . import layers as L
 from .backbone import ImageEncoderViT
 from .swinv2 import ImageEncoderSwinV2
 
-# the ported conv-family modules: their first argument is the output
-# channel count, scaled by the width multiple
-_CONV_FAMILY = {"Conv", "DWConv", "Bottleneck", "C3", "SPP", "Focus"}
+# modules whose first argument is the output channel count, scaled by the
+# width multiple
+_CONV_FAMILY = {
+    "Conv", "Bottleneck", "SPP", "DWConv", "MixConv2d", "Focus", "CrossConv",
+    "BottleneckCSP", "BottleneckCSP2", "SPPCSP", "C3", "AttentionModel",
+    "GhostConv", "GhostBottleneck", "ACmix",
+}
+# conv-family modules that take the repeat count as their second argument
+_REPEATED = ("BottleneckCSP", "BottleneckCSP2", "SPPCSP", "C3")
 SPLIT_BACKBONES = ("ImageEncoderViT", "ImageEncoderViTMono",
                    "ImageEncoderSwinV2")
-_QUEUE_REST = "ROADMAP.md Queue 1 item 10 (rest)"
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -122,8 +133,6 @@ def _parse_section(defs, ch: list[int], strides: list[float], gd: float,
         name = mname.replace("nn.", "")
         if name in SPLIT_BACKBONES:
             raise ValueError(f"{name} is only valid as a split backbone")
-        if name != "Detect" and name not in MODULE_REGISTRY:
-            raise NotImplementedError(f"module {mname!r}: {_QUEUE_REST}")
         c1 = ch[fs[0]]
         s_in = strides[fs[0]]
         s_out = s_in
@@ -132,11 +141,15 @@ def _parse_section(defs, ch: list[int], strides: list[float], gd: float,
             if c2 != no:
                 c2 = make_divisible(c2 * gw, 8)
             args = [c2, *args[1:]]
+            s = 1
             if name in ("Conv", "DWConv"):
-                s_out = s_in * (args[2] if len(args) > 2 else 1)
-            elif name == "Focus":
-                s_out = s_in * 2            # space-to-depth halves the map
-            if name == "C3":
+                s = args[2] if len(args) > 2 else 1
+            elif name == "ACmix":
+                s = args[4] if len(args) > 4 else 1
+            elif name == "MixConv2d" and len(args) > 2:
+                s = args[2]
+            s_out = s_in * (2 if name == "Focus" else s)
+            if name in _REPEATED:
                 args = [args[0], n, *args[1:]]
         elif name == "Upsample":
             scale = args[1] if len(args) > 1 else 2
@@ -149,11 +162,21 @@ def _parse_section(defs, ch: list[int], strides: list[float], gd: float,
             args = []
         elif name == "MF":
             c2 = 64                         # 48 RGB + 16 IR channels
-        else:                               # Detect
+        elif name == "Detect":
             detect = (fs, tuple(ch[x] for x in fs),
                       tuple(strides[x] for x in fs))
             c2 = no
             args = []
+        elif name == "Sum":
+            c2 = c1
+        elif name == "Contract":
+            c2 = c1 * args[0] ** 2
+            s_out = s_in * args[0]
+        elif name == "Expand":
+            c2 = c1 // args[0] ** 2
+            s_out = s_in / args[0]
+        else:
+            raise KeyError(f"unknown module {mname!r} in config")
         out.append(LayerDef(i, fs, name, tuple(args), c1, c2))
         for x in fs:
             if x != i - 1:
@@ -188,11 +211,16 @@ def _encoder_def(name: str, args: list, ch_in: int):
                      ch[0]), ch, strides)
 
 
-def parse_config(cfg, ch_in: int = 4, nc: int | None = None) -> ModelSpec:
-    """Parse a model YAML (path or dict) into a static ModelSpec."""
+def parse_config(cfg, ch_in: int = 4, nc: int | None = None,
+                 anchors=None) -> ModelSpec:
+    """Parse a model YAML (path or dict) into a static ModelSpec; `nc` and
+    `anchors` (per-level flat (w, h, ...) lists: autoanchor's refit)
+    override the yaml's."""
     d = load_yaml(cfg)
     if nc is not None:
         d["nc"] = nc
+    if anchors is not None:
+        d["anchors"] = anchors
     nc = int(d["nc"])
     gd, gw = float(d["depth_multiple"]), float(d["width_multiple"])
     anchors = tuple(tuple(a) for a in d["anchors"])
@@ -295,6 +323,41 @@ def _mf(ld):
     return L.MF(ld.c1, reduction=ld.args[0] if ld.args else 3)
 
 
+def _bcsp(ld):
+    c2, n, *rest = ld.args
+    return L.BottleneckCSP(ld.c1, c2, n=n, shortcut=rest[0] if rest else True)
+
+
+def _bcsp2(ld):
+    c2, n, *rest = ld.args
+    return L.BottleneckCSP2(ld.c1, c2, n=n,
+                            shortcut=rest[0] if rest else False)
+
+
+def _sppcsp(ld):
+    c2, n, *_ = ld.args
+    return L.SPPCSP(ld.c1, c2, n=n)
+
+
+def _ghostconv(ld):
+    c2, *rest = ld.args
+    return L.GhostConv(ld.c1, c2, k=rest[0] if rest else 1,
+                       s=rest[1] if len(rest) > 1 else 1)
+
+
+def _acmix(ld):
+    # yaml args after c2: [kernel_att, head, kernel_conv, stride]
+    c2, *rest = ld.args
+    get = lambda j, d: rest[j] if len(rest) > j else d
+    return L.ACmix(ld.c1, c2, kernel_att=get(0, 7), head=get(1, 4),
+                   kernel_conv=get(2, 3), s=get(3, 1))
+
+
+def _sum(ld):
+    a = ld.args
+    return L.Sum(n=a[0] if a else 2, weight=a[1] if len(a) > 1 else False)
+
+
 def _encoder(ld):
     return ImageEncoderViT(**dict(ld.args))
 
@@ -322,16 +385,29 @@ MODULE_REGISTRY = {
     "ImageEncoderViT": _encoder,
     "ImageEncoderViTMono": _encoder_mono,
     "ImageEncoderSwinV2": _encoder_swinv2,
+    "BottleneckCSP": _bcsp,
+    "BottleneckCSP2": _bcsp2,
+    "SPPCSP": _sppcsp,
+    "Contract": lambda ld: L.Contract(gain=ld.args[0]),
+    "Expand": lambda ld: L.Expand(gain=ld.args[0]),
+    "AttentionModel": lambda ld: L.AttentionModel(ld.c1),
+    "GhostConv": _ghostconv,
+    # JAX's constructors take these at their defaults whatever the yaml says
+    "GhostBottleneck": lambda ld: L.GhostBottleneck(ld.c1, ld.args[0]),
+    "CrossConv": lambda ld: L.CrossConv(ld.c1, ld.args[0]),
+    "MixConv2d": lambda ld: L.MixConv2d(ld.c1, ld.args[0]),
+    "ACmix": _acmix,
+    "Sum": _sum,
 }
 
 
-def build_model(cfg, *, ch_in: int = 4, nc: int | None = None, dtype=None,
-                input_mode: str = "RGB+IR", sr: bool = False,
+def build_model(cfg, *, ch_in: int = 4, nc: int | None = None, anchors=None,
+                dtype=None, input_mode: str = "RGB+IR", sr: bool = False,
                 factor: int = 2):
     """Config -> DetectionModel (torch). See model.DetectionModel."""
     import torch
     from .model import DetectionModel
 
-    spec = parse_config(cfg, ch_in=ch_in, nc=nc)
+    spec = parse_config(cfg, ch_in=ch_in, nc=nc, anchors=anchors)
     return DetectionModel(spec, input_mode=input_mode, sr=sr,
                           sr_factor=factor, dtype=dtype or torch.float32)

@@ -100,20 +100,23 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 class Conv(nn.Module):
     """NHWC convolution with an OIHW weight (flax nn.Conv with `dtype`):
-    input and weight are cast to the input's dtype."""
+    input and weight are cast to the input's dtype. `k`, `s` and `p` are
+    ints or (h, w) pairs; `g` groups the channels (flax
+    `feature_group_count`: the weight is (c2, c1 // g, kh, kw))."""
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int = 0,
-                 bias: bool = True):
+    def __init__(self, c1: int, c2: int, k=1, s=1, p=0, bias: bool = True,
+                 g: int = 1):
         super().__init__()
-        self.stride, self.padding = s, p
-        self.weight = nn.Parameter(torch.zeros(c2, c1, k, k))
+        kh, kw = (k, k) if isinstance(k, int) else k
+        self.stride, self.padding, self.groups = s, p, g
+        self.weight = nn.Parameter(torch.zeros(c2, c1 // g, kh, kw))
         self.bias = nn.Parameter(torch.zeros(c2)) if bias else None
 
     def forward(self, x):
         dt = x.dtype
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt),
                      None if self.bias is None else self.bias.to(dt),
-                     self.stride, self.padding)
+                     self.stride, self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 
 

@@ -15,7 +15,9 @@ and meanings (--weights: initial weights from a checkpoint or a .npz,
 shape-matched; --resume: a checkpoint whose run's opt.yaml is reloaded, so
 no other flag is needed; --save-dir, --nosave, --save-period,
 --eval-every, --multi-scale, --image-weights, --single-cls, --rect,
---super / --factor / --down-factor: the SR branch, which fails at
+--noautoanchor: keep the config's anchors, which autoanchor otherwise
+refits where their best possible recall on the training labels is under
+0.98; --super / --factor / --down-factor: the SR branch, which fails at
 --factor 1 as JAX's does, here with a ValueError that names it), plus
 --device (default cuda; raises when no card is visible, --device cpu runs
 the plain PyTorch path) and --weights-npz (a state_dict loaded strictly,
@@ -38,7 +40,7 @@ from .trainer import TrainConfig, train
 
 # flags of the JAX train.py that are not ported yet -> ROADMAP.md Queue 1 item
 UNPORTED = {
-    "--noautoanchor": 11, "--evolve": 11, "--wandb": 11, "--remat": 11,
+    "--evolve": 11, "--wandb": 11, "--remat": 11,
     "--scan-epoch": 11,
 }
 
@@ -82,6 +84,9 @@ def parser() -> argparse.ArgumentParser:
                    help="checkpoint to resume from (parameters, optimizer, "
                         "EMA, step, epoch, best fitness); the run's opt.yaml "
                         "beside it is reloaded, so no other flag is needed")
+    p.add_argument("--noautoanchor", action="store_false", dest="autoanchor",
+                   help="keep the config's anchors (autoanchor refits them "
+                        "where their best possible recall is under 0.98)")
     p.add_argument("--image-weights", action="store_true")
     p.add_argument("--rect", action="store_true",
                    help="rectangular training: aspect-ratio batches, each "
@@ -137,6 +142,7 @@ def main(argv=None, on_step=None, on_grads=None, on_start=None) -> dict:
                          adam=a.adam,
                          linear_lr=a.linear_lr, synthetic=a.synthetic,
                          synthetic_n=a.synthetic_n, save_dir=a.save_dir,
+                         autoanchor=a.autoanchor,
                          image_weights=a.image_weights,
                          multi_scale=a.multi_scale, rect=a.rect,
                          seed=a.seed,

@@ -17,13 +17,20 @@ the final one. `weights` loads initial weights (shape-matched, names with
 `image_weights` resamples the images by the per-class mAP of the last eval;
 `multi_scale` draws each batch's size from 0.75 / 1 / 1.25 x img_size.
 
+`autoanchor` (on by default, as in JAX) holds the config's anchors to the
+training labels before the model is built: where their best possible
+recall is under 0.98, k-means and a genetic search refit them
+(`utils.autoanchor.check_anchors`, seeded by `seed`), and the model, its
+Detect decode and the loss take the refit anchors. As in JAX, checkpoints
+do not carry them: a later `val` of the run reads the config's.
+
 `sr` trains the super-resolution branch beside the detector (`sr_factor`
 its decoder's factor, `down_factor` the model input's reduction, as in
 `state.make_train_step`); the evals run the EMA weights at full
 resolution without it, as JAX's read only the Detect maps.
 
-Autoanchor, evolve, W&B and the epoch scan (ROADMAP.md Queue 1 item 11)
-are not ported: their options are absent from `TrainConfig`.
+Evolve, W&B and the epoch scan (ROADMAP.md Queue 1 item 11) are not
+ported: their options are absent from `TrainConfig`.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ from ..data import (SyntheticVedai, VedaiDataset, apply_single_cls,
                     make_eval_batches)
 from ..data.loader import make_rect_train_batches, make_train_batches
 from ..models import build_model
-from ..models.compiler import resolve_config_path
+from ..models.compiler import parse_config, resolve_config_path
+from ..utils.autoanchor import check_anchors
 from ..utils.general import labels_to_class_weights, labels_to_image_weights
 from ..utils.metrics import fitness
 from ..weights import init_weights, load_npz
@@ -78,6 +86,7 @@ class TrainConfig:
     synthetic: bool = False
     synthetic_n: int = 64
     save_dir: str = "runs/train/exp"
+    autoanchor: bool = True          # --noautoanchor turns it off
     image_weights: bool = False      # class-weighted image resampling
     multi_scale: bool = False        # 0.75 / 1 / 1.25 x img_size buckets
     rect: bool = False               # aspect-ratio batches, no mosaic
@@ -129,6 +138,28 @@ def ema_model(state: TrainState) -> torch.nn.Module:
     return m.eval()
 
 
+def anchors_for(tc: TrainConfig, labels, hyp: dict, nc: int):
+    """Autoanchor's refit of the config's anchors on the training labels
+    (per-level flat lists for `build_model(anchors=)`), or None where they
+    are kept; prints JAX's line either way. Too few labels for the
+    k-means keeps them too, with JAX's "autoanchor skipped" line."""
+    spec = parse_config(tc.cfg, ch_in=CH_IN[tc.input_mode], nc=nc)
+    a0 = np.asarray(spec.anchors, np.float32).reshape(len(spec.anchors), -1,
+                                                      2)
+    shapes = np.full((len(labels), 2), tc.img_size, float)
+    try:
+        new, changed, bpr = check_anchors(
+            labels, shapes, a0, img_size=tc.img_size,
+            thr=hyp.get("anchor_t", 4.0), seed=tc.seed)
+    except ValueError as e:
+        print(f"autoanchor skipped: {e}")
+        return None
+    print(f"autoanchor: BPR {bpr:.4f}" + (" -> anchors refit" if changed
+                                           else ""))
+    return ([list(map(float, lvl.reshape(-1))) for lvl in new] if changed
+            else None)
+
+
 def _datasets(tc: TrainConfig, data_cfg: dict, nc: int):
     if tc.synthetic:
         train = SyntheticVedai(n=tc.synthetic_n, img_size=tc.img_size, nc=nc,
@@ -170,8 +201,10 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     dtype = torch.bfloat16 if tc.bf16 else torch.float32
 
     train_ds, val_ds = _datasets(tc, data_cfg, nc)
+    anchors = (anchors_for(tc, train_ds.labels, hyp, nc) if tc.autoanchor
+               else None)
     model = build_model(tc.cfg, ch_in=CH_IN[tc.input_mode], nc=nc,
-                        dtype=dtype, input_mode=tc.input_mode, sr=tc.sr,
+                        anchors=anchors, dtype=dtype, input_mode=tc.input_mode, sr=tc.sr,
                         factor=tc.sr_factor)
     if tc.weights_npz:
         model.load_state_dict(load_npz(tc.weights_npz))

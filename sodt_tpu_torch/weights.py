@@ -15,6 +15,16 @@ package's module names, which mirror the flax tree:
                                      flagship encoder only (the SwinV2
                                      variant's neck1 is a plain 1x1 conv)
   logit_scale, q_bias, v_bias     -> the same names (SwinV2 attention)
+  grouped Conv kernel (kh, kw,    -> weight (out, in / g, kh, kw): the same
+    in / g, out)                     transpose (GhostConv's cv2, the
+                                     GhostBottleneck's dw / sc_dw, ACmix's
+                                     dep_conv)
+  w (Sum), rate1 / rate2 (ACmix)  -> the same names
+
+The layers of JAX's registry keep flax's module names (cv1-cv7, bn, m{i},
+g1, g2, dw, sc_dw, sc_pw, conv1-conv3, conv_p, fc, dep_conv, conv), so
+their leaves take the rules above: ACmix's fc is a Dense kernel (3 heads,
+kernel_conv^2) -> Linear, every conv an HWIO kernel -> OIHW.
 
 The mapping is linear per leaf (a transpose, a reshape or a slice), so it
 carries any tree of that structure: `from_jax_tree` takes a JAX gradient

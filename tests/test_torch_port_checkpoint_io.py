@@ -33,6 +33,9 @@ from sodt_tpu_torch.train import checkpoint as tck
 from sodt_tpu_torch.weights import load_npz, save_npz
 
 from torch_port_common import NARROW_CFG
+from torch_port_common import one_torch_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "runs/flagship_r5_150ep/best_stripped"

@@ -105,10 +105,16 @@ def test_depth_multiple_and_unported_names():
     assert (focus.name, focus.c1, focus.c2, focus.args) == (
         "Focus", 3, 48, (48, 3))
     assert spec.detect_strides == (8.0, 16.0, 32.0)
+    # GhostConv is ported now; a name outside JAX's registry raises JAX's
+    # KeyError in both packages
     cfg = dict(STEAM_CFG, backbone=[[-1, 1, "GhostConv", [16, 3, 2]]]
                + STEAM_CFG["backbone"][1:])
-    with pytest.raises(NotImplementedError, match=r"item 10 \(rest\)"):
-        tparse(cfg)
+    assert tparse(cfg).backbone[0].c2 == 16
+    cfg = dict(STEAM_CFG, backbone=[[-1, 1, "GhostConv3D", [16, 3, 2]]]
+               + STEAM_CFG["backbone"][1:])
+    for parse in (tparse, jparse):
+        with pytest.raises(KeyError, match="unknown module 'GhostConv3D'"):
+            parse(cfg)
 
 
 def _module_pair(jmod, tmod, inputs, seed=0):

@@ -52,9 +52,14 @@ def test_flagship_width_model_matches_jax():
 
 def test_compiler_rejects_unported_modules():
     from sodt_tpu_torch.models.compiler import parse_config
-    cfg = dict(NARROW_CFG, head=[[2, 1, "ACmix", [512]]] + NARROW_CFG["head"][1:])
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md Queue 1 item 10 \(rest\)"):
+    # every name of JAX's registry is ported (ACmix included); a name that
+    # JAX does not know raises JAX's KeyError
+    acmix = dict(NARROW_CFG,
+                 head=[[2, 1, "ACmix", [512]]] + NARROW_CFG["head"][1:])
+    assert parse_config(acmix).head[0].name == "ACmix"
+    cfg = dict(NARROW_CFG, head=[[2, 1, "Involution", [512]]]
+               + NARROW_CFG["head"][1:])
+    with pytest.raises(KeyError, match="unknown module 'Involution' in config"):
         parse_config(cfg)
     # a fusion input without steam layers fails in JAX (no stems to run):
     # the port refuses it when the model is built

@@ -51,6 +51,9 @@ from sodt_tpu_torch.weights import (from_jax_variables, from_jax_tree,
 from torch_port_common import (rand, t, j, close, randomize_variables,
                                seed_postnorms, with_depths, SWINV2_CFG,
                                PORT_SWINV2_CFG)
+from torch_port_common import one_torch_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _np(tree):

@@ -27,6 +27,9 @@ from sodt_tpu_torch.weights import (from_jax_variables, from_jax_tree,
                                     batch_to_torch)
 
 from torch_port_common import NARROW_CFG, randomize_variables, j
+from torch_port_common import one_torch_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 HYP = dict(lr0=0.01, lrf=0.2, momentum=0.937, warmup_momentum=0.8,
            warmup_bias_lr=0.1, warmup_iters=2)
