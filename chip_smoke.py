@@ -188,6 +188,33 @@ the final ok line:
               host, and its `autoanchor: ... -> anchors refit` line (phase
               `train` and every training path print theirs: BPR 1.0000 at
               512 px, the yaml's anchors kept)
+     scan_epoch  `train --scan-epoch on` against `off` (the flagship at
+              256 px, 8 images, batch 2, two epochs with an eval after
+              each: two chunks against 8 steps; deterministic algorithms):
+              parameters, BN statistics and EMA bit-equal, the epoch losses
+              the all-step means (recomputed from a reading hook), the host
+              syncs per chunk outside evals and checkpoints (wrapped
+              torch.cuda.synchronize, Tensor.item / float / int / bool /
+              cpu / tolist) and between steps, each run's seconds
+     remat    one forward + backward of the flagship at 512 px, batch 4,
+              with and without --remat from the same weights: gradients of
+              every leaf (bit-equal, else the largest difference and its
+              leaf), peak memory of each (remat's below), launches
+              (remat's: one more forward of the blocks, REMAT_FORWARD),
+              warm ms of each
+     sam      three updates of `train.sam.make_sam_optimizer` on the mono
+              model at 256 px, batch 2, each held to the hand composition
+              (the gradient at p - rho g / |g| through the same kernels,
+              then the base update); SAM's own launches
+     evolve   `train --evolve 2` at 128 px, 8 images, one epoch a
+              generation: evolve.txt two rows of 28 numbers,
+              hyp_evolved.yaml and hyp_gen{0,1}.yaml, the first
+              generation's hyperparameters equal to `mutate` on the host
+     run_logs a short run's events.jsonl keys (JAX's TAGS that it logs and
+              wall/*); `val --plots` and `detect --save-img` write their
+              plots or, without matplotlib, say so on one line;
+              `model_info` of the flagship (parameters equal to
+              named_parameters'), `time_fn` of its bf16 forward
      Each path's seconds follow it on a line of their own.
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
@@ -202,7 +229,8 @@ the final ok line:
               device kernel (each run again, up to 5 sessions in all) and
               the device times that then fell back to CUDA events (a
               kernel row names its own in `cuda_event_fallbacks`)
-  6. the {"kernels": [...]} line, the card line, the ok line.
+  6. the {"kernels": [...]} line (each entry also with its launches on
+     the `remat` and `sam` runs), the card line, the ok line.
 
 Needs a CUDA card; exits 1 without one and 2 when the port is missing.
 """
@@ -446,6 +474,42 @@ AA_ARGS = ["--synthetic", "--synthetic-n", str(AA_N), "--img-size",
            str(AA_PX), "--batch-size", "4", "--nbs", "4", "--epochs", "1",
            "--notest"]
 AA_STEPS = 2
+# the epoch path against the per-step path (`scan_epoch`): the flagship at
+# 256 px, 8 synthetic images, batch 2, two epochs with an eval after each,
+# so that the epoch path runs two chunks of 4 steps where the per-step path
+# runs 8 steps; seeded weights, deterministic algorithms for every run, the
+# paths run in the order SCAN_ORDER (the first run of a process is cold)
+SCAN_ARGS = ["--synthetic", "--synthetic-n", "8", "--img-size", "256",
+             "--batch-size", "2", "--nbs", "2", "--epochs", "2",
+             "--eval-every", "1", "--noautoanchor", "--nosave"]
+SCAN_ORDER = ("on", "off", "off", "on")
+SCAN_STEPS, SCAN_CHUNKS = 8, 2
+# remat: one forward + backward of the flagship at 512 px, batch 4, with
+# and without it, from the same weights and batch. Remat runs the Swin
+# blocks' forward again in the backward: the kernels of PER_FORWARD that
+# live in the blocks once more (K2-K8, add + LN2 5; of K13's LN the 5
+# inside blocks, stage 2's four LN1 and stage 3's, not the cross-channel
+# block's four or the two PatchMergings')
+REMAT_FORWARD = dict(PER_FORWARD, layernorm=5)
+# SAM (`train.sam.make_sam_optimizer`, rho 0.05) on the mono model at
+# 256 px, batch 2: three updates, each held to the hand composition of the
+# gradient at p - rho g / |g| through the same kernels and the base update
+SAM_PX, SAM_BATCH, SAM_UPDATES, SAM_RHO = 256, 2, 3, 0.05
+SAM_TOL = 1e-6         # max |SAM - hand| / max |hand| over an update
+# hyperparameter evolution, two generations of one epoch each
+EVOLVE_ARGS = ["--synthetic", "--synthetic-n", "8", "--img-size", "128",
+               "--batch-size", "4", "--nbs", "4", "--epochs", "1",
+               "--noautoanchor", "--evolve", "2", "--seed", "3"]
+# the run's record: one short run, its events.jsonl keys (JAX's trainer
+# logs the TAGS it has inputs for, and wall/* every epoch)
+LOG_ARGS = ["--synthetic", "--synthetic-n", "4", "--img-size", "128",
+            "--batch-size", "4", "--nbs", "4", "--epochs", "1",
+            "--noautoanchor"]
+LOG_KEYS = {"train/box_loss", "train/obj_loss", "train/cls_loss",
+            "metrics/precision", "metrics/recall", "metrics/mAP_0.5",
+            "metrics/mAP_0.5:0.95", "x/lr0", "x/lr1", "x/lr2", "wall/sched",
+            "wall/dispatch", "wall/fetch", "wall/chunk", "wall/eval",
+            "wall/ckpt", "wall/ckpt_fetch", "wall/ckpt_write", "wall/epoch"}
 # counter name -> (tag, source, TPU kernel it replaces, paths whose runs
 # count its launches: one entry of the kernels line for each, with the
 # times of that path's shapes)
@@ -2099,6 +2163,407 @@ def phase_autoanchor(label: str, workdir: Path) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def counting_syncs():
+    """Count the host's reads of device values while the context is open
+    and `count["on"]`: torch.cuda.synchronize, and on a CUDA tensor
+    Tensor.item, float / int / bool of it, Tensor.cpu and Tensor.tolist."""
+    import torch
+    count, patched = {"n": 0, "on": True}, []
+
+    def wrap(owner, name, cuda_only: bool):
+        orig = getattr(owner, name)
+
+        def counted(*a, **k):
+            if count["on"] and (not cuda_only or getattr(a[0], "is_cuda",
+                                                         False)):
+                count["n"] += 1
+            return orig(*a, **k)
+        setattr(owner, name, counted)
+        patched.append((owner, name, orig))
+    for name in ("item", "__float__", "__int__", "__bool__", "cpu",
+                 "tolist"):
+        wrap(torch.Tensor, name, True)
+    wrap(torch.cuda, "synchronize", False)
+    try:
+        yield count
+    finally:
+        for owner, name, orig in reversed(patched):
+            setattr(owner, name, orig)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms for the block (warn_only: the
+    cuBLAS workspace variable cannot be set this late in the process)."""
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _scan_run(flag: str, workdir: Path, hyp_path: Path, tag: str) -> dict:
+    """One `train --scan-epoch <flag>` run of SCAN_ARGS: its host syncs
+    outside the evals and checkpoint writes (whose timers are taken out of
+    the training time), the syncs between consecutive steps of a chunk,
+    the per-step launch counts, the epoch losses and the final state."""
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.train import trainer
+    seen = {"at": [], "counts": [], "state": None, "paused_s": 0.0}
+    real_eval, real_save = trainer.evaluate, trainer._save
+    with counting_syncs() as count:
+        def paused(fn):
+            def run(*a, **k):
+                count["on"] = False
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    seen["paused_s"] += time.perf_counter() - t0
+                    count["on"] = True
+            return run
+
+        def on_step(state, metrics):           # reads no device value
+            seen["at"].append(count["n"])
+            seen["counts"].append(kernels.launches())
+            seen["state"] = state
+        trainer.evaluate, trainer._save = paused(real_eval), paused(real_save)
+        kernels.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            m, out = _train_cli(SCAN_ARGS + [
+                "--scan-epoch", flag, "--hyp", str(hyp_path), "--save-dir",
+                str(workdir / f"scan_{tag}")], on_step=on_step)
+            wall = time.perf_counter() - t0
+        finally:
+            trainer.evaluate, trainer._save = real_eval, real_save
+        syncs = count["n"]
+    per_chunk = SCAN_STEPS // SCAN_CHUNKS
+    between = [b - a for i, (a, b) in enumerate(zip(seen["at"],
+                                                    seen["at"][1:]))
+               if (i + 1) % per_chunk]
+    return {"m": m, "state": seen["state"], "wall_s": wall,
+            "train_s": wall - seen["paused_s"], "syncs": syncs,
+            "syncs_between_steps": between,
+            "per_step": _per_step(seen["counts"]),
+            "epoch_path": "epoch-scan dispatch" in out,
+            "losses": m["losses"]}
+
+
+def phase_scan_epoch(label: str, workdir: Path) -> dict:
+    """The epoch path (`--scan-epoch on`: two chunks of 4 steps) against
+    the per-step path (`off`: 8 steps) on the same run (SCAN_ARGS), two
+    runs of each in SCAN_ORDER: the parameters, BatchNorm statistics and
+    EMA after every run bit-equal to the first's; the epoch path's losses
+    the all-step means, recomputed here from a hook of its own that reads
+    every step's losses (a run of its own: the reads are syncs); the host
+    syncs per chunk (per epoch on the per-step path) outside evals and
+    checkpoints, and between steps; the seconds of each run, with and
+    without its evals and checkpoint writes."""
+    import numpy as np
+    import torch
+    import yaml
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+
+    hyp = yaml.safe_load(Path(resolve_config_path(
+        "configs/hyp.scratch.yaml")).read_text())
+    hyp_path = workdir / "hyp_scan.yaml"
+    hyp_path.write_text(yaml.safe_dump(dict(hyp, warmup_iters=4)))
+    with deterministic():
+        order = [(flag, _scan_run(flag, workdir, hyp_path, f"{flag}{i}"))
+                 for i, flag in enumerate(SCAN_ORDER)]
+    a = order[0][1]["state"]
+    sa, diff = a.model.state_dict(), {}
+    for i, (_, r) in enumerate(order[1:], 1):
+        b = r["state"]
+        sb = b.model.state_dict()
+        for k in sa:
+            diff[f"run{i}.{k}"] = float((sa[k].float()
+                                         - sb[k].float()).abs().max())
+        for k in a.ema:
+            diff[f"run{i}.ema.{k}"] = float((a.ema[k].float()
+                                             - b.ema[k].float()).abs().max())
+    worst = max(diff, key=diff.get)
+    runs = {flag: r for flag, r in reversed(order)}    # each path's first
+    # the all-step means, from a third run whose hook reads each step
+    seen = []
+    m, _ = _train_cli(SCAN_ARGS + [
+        "--scan-epoch", "on", "--hyp", str(hyp_path), "--save-dir",
+        str(workdir / "scan_read")],
+        on_step=lambda s, mt: seen.append({k: float(v)
+                                           for k, v in mt.items()}))
+    per_ep = SCAN_STEPS // 2
+    means = [{k: float(np.mean(np.array([r[k] for r in
+                                         seen[e * per_ep:(e + 1) * per_ep]],
+                                        np.float32)))
+              for k in seen[0]} for e in range(2)]
+    means_ok = m["losses"] == means
+    row = {"phase": label, "args": SCAN_ARGS,
+           "bit_equal": diff[worst] == 0.0,
+           "max_abs_diff": diff[worst], "worst_leaf": worst,
+           "leaves": len(diff) // (len(order) - 1),
+           "epoch_losses": m["losses"],
+           "all_step_means": means, "losses_are_all_step_means": means_ok}
+    for flag, name in (("on", "epoch_path"), ("off", "per_step_path")):
+        r = runs[flag]
+        mine = [o for f, o in order if f == flag]
+        row[name] = {
+            "epoch_path_taken": r["epoch_path"],
+            "wall_s": [o["wall_s"] for o in mine],
+            "train_s_without_eval_and_ckpt": [o["train_s"] for o in mine],
+            "train_s_mean": sum(o["train_s"] for o in mine) / len(mine),
+            "host_syncs": r["syncs"],
+            "host_syncs_per_chunk": r["syncs"] / SCAN_CHUNKS,
+            "host_syncs_between_steps_of_a_chunk":
+                r["syncs_between_steps"],
+            "steps": len(r["per_step"]),
+            "launches_per_step": r["per_step"][0] if r["per_step"] else {}}
+    row["train_s_epoch_over_per_step"] = (
+        row["epoch_path"]["train_s_mean"] / row["per_step_path"]["train_s_mean"])
+    on, off = runs["on"], runs["off"]
+    ok = (row["bit_equal"] and means_ok and on["epoch_path"]
+          and not off["epoch_path"] and len(on["per_step"]) == SCAN_STEPS
+          and on["per_step"] == off["per_step"]
+          and all(on["per_step"][0][k] > 0 for k in (
+              "window_attention", "window_attention_bwd",
+              "global_attention_bwd", "layernorm"))
+          and not any(on["syncs_between_steps"])
+          and all(math.isfinite(v) for ep in on["losses"]
+                  for v in ep.values()))
+    row["launches"] = {k: sum(c[k] for c in on["per_step"])
+                       for k in on["per_step"][0]}
+    row["ok"] = bool(ok)
+    emit(row)
+    return row
+
+
+def phase_remat(label: str) -> dict:
+    """One forward + backward of the flagship at 512 px, batch 4, with
+    remat and without, from the same seeded weights and batch
+    (deterministic algorithms): the gradients of every leaf (bit-equal, or
+    the largest difference and its leaf), the peak memory of each above
+    what was allocated before it, the launches of each (remat: those
+    without it plus REMAT_FORWARD), and the warm time of each by CUDA
+    events."""
+    import torch
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.train.loss import compute_loss
+
+    model, batch, _, cfg = _train_setup(torch.bfloat16)
+    del model
+    runs, grads = {}, {}
+    for remat in (False, True):
+        model = seeded_model("configs/model.yaml", torch.bfloat16,
+                             remat=remat).cuda().train()
+        names = [k for k, _ in model.named_parameters()]
+
+        def step():
+            out = model(batch["img"], batch["ir"])
+            total, _ = compute_loss(out["raw"], batch["targets"],
+                                    batch["tmask"], cfg)
+            return torch.autograd.grad(total, list(model.parameters()))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        with deterministic():
+            gs = step()
+        torch.cuda.synchronize()
+        runs[remat] = {"peak_bytes_above_start":
+                       torch.cuda.max_memory_allocated() - base,
+                       "launches": kernels.launches()}
+        grads[remat] = dict(zip(names, gs))
+        del gs
+        runs[remat]["step_ms"] = time_ms(step, iters=5, warmup=1)
+        del model
+    diff = {k: float((grads[True][k] - g).abs().max())
+            for k, g in grads[False].items()}
+    worst = max(diff, key=diff.get)
+    plain, rem = runs[False]["launches"], runs[True]["launches"]
+    expected = {k: plain[k] + REMAT_FORWARD[k] for k in plain}
+    row = {"phase": label, "batch": MAIN_BATCH, "img": 512,
+           "bit_equal": diff[worst] == 0.0, "max_abs_diff": diff[worst],
+           "worst_leaf": worst, "leaves": len(diff),
+           "peak_mib": {("remat" if r else "plain"):
+                        runs[r]["peak_bytes_above_start"] / 2**20
+                        for r in runs},
+           "step_ms": {("remat" if r else "plain"): runs[r]["step_ms"]
+                       for r in runs},
+           "launches_plain": plain, "launches_remat": rem,
+           "expected_remat": expected, "launches": rem}
+    row["ok"] = bool(row["bit_equal"] and rem == expected and (
+        runs[True]["peak_bytes_above_start"]
+        < runs[False]["peak_bytes_above_start"])
+        and all(torch.isfinite(g).all() for g in grads[True].values()))
+    emit(row)
+    return row
+
+
+def phase_sam(label: str) -> dict:
+    """SAM_UPDATES updates of `make_sam_optimizer` on the mono model at
+    SAM_PX, batch SAM_BATCH (deterministic algorithms), each held to the
+    hand composition: the gradient at p - rho g / |g| through the same
+    kernels, then a copy of the base optimizer's update. The launches are
+    SAM's own (its two gradients an update), not the hand composition's."""
+    import copy
+    import torch
+    import yaml
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.data import SyntheticVedai
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+    from sodt_tpu_torch.train.loss import compute_loss
+    from sodt_tpu_torch.train.sam import make_sam_optimizer
+    from sodt_tpu_torch.train.trainer import loss_config, scale_hyp
+
+    model = seeded_model(MONO_CFG, torch.bfloat16,
+                         input_mode="RGB").cuda().train()
+    hyp = yaml.safe_load(Path(resolve_config_path(
+        "configs/hyp.scratch.yaml")).read_text())
+    hyp = scale_hyp(dict(hyp, warmup_iters=4), len(model.spec.anchors), 8,
+                    SAM_PX)
+    cfg = loss_config(model, hyp, 8)
+    batch = plain_batch(SyntheticVedai(n=SAM_BATCH, img_size=SAM_PX, nc=8,
+                                       seed=0), 0)
+    params = dict(model.named_parameters())
+
+    def grads_at(p, i=0):
+        with torch.no_grad():
+            for k, v in p.items():
+                params[k].copy_(v)
+        out = model(batch["img"], batch["ir"])
+        total, _ = compute_loss(out["raw"], batch["targets"],
+                                batch["tmask"], cfg)
+        return dict(zip(params, torch.autograd.grad(
+            total, list(params.values()))))
+
+    sam = make_sam_optimizer(hyp, params, epochs=1, nb=SAM_UPDATES,
+                             rho=SAM_RHO)
+    counted = {k: 0 for k in kernels.launches()}
+    errs, finite = [], True
+    with deterministic():
+        for _ in range(SAM_UPDATES):
+            p0 = {k: v.detach().clone() for k, v in params.items()}
+            base = copy.deepcopy(sam.base)
+            kernels.reset_launches()
+            g = grads_at(p0)
+            ups = sam.update(g, p0, grad_fn=grads_at)
+            for k, v in kernels.launches().items():
+                counted[k] += v
+            norm = torch.sqrt(sum((x.float() ** 2).sum() for x in g.values()))
+            adv = {k: p0[k] - SAM_RHO * (g[k] / norm) for k in g}
+            want = base.update(grads_at(adv), p0)
+            scale = max(float(w.abs().max()) for w in want.values())
+            errs.append(max(float((ups[k] - want[k]).abs().max())
+                            for k in want) / scale)
+            finite = finite and all(torch.isfinite(u).all()
+                                    for u in ups.values())
+            with torch.no_grad():
+                for k, u in ups.items():
+                    params[k].copy_(p0[k] + u)
+    moved = any(not torch.equal(params[k].detach(), p0[k]) for k in params)
+    row = {"phase": label, "img": SAM_PX, "batch": SAM_BATCH, "rho": SAM_RHO,
+           "updates": SAM_UPDATES, "max_rel_err_vs_hand": errs,
+           "tol": SAM_TOL, "optimizer_steps": sam.base.count,
+           "launches": counted}
+    row["ok"] = bool(all(e <= SAM_TOL for e in errs) and finite and moved
+                     and sam.base.count == SAM_UPDATES
+                     and counted["window_attention_bwd"] > 0)
+    emit(row)
+    return row
+
+
+def phase_evolve(label: str, workdir: Path) -> dict:
+    """`train --evolve 2` (EVOLVE_ARGS): evolve.txt two rows of 28
+    numbers, hyp_evolved.yaml and hyp_gen{0,1}.yaml written, the first
+    generation's hyperparameters equal to `mutate` on the host from the
+    same seed."""
+    import numpy as np
+    import yaml
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+    from sodt_tpu_torch.train.evolve import mutate
+
+    hyp = yaml.safe_load(Path(resolve_config_path(
+        "configs/hyp.scratch.yaml")).read_text())
+    base = dict(hyp, warmup_iters=4)
+    hyp_path = workdir / "hyp_evolve.yaml"
+    hyp_path.write_text(yaml.safe_dump(base))
+    out_dir = workdir / label
+    kernels.reset_launches()
+    m, _ = _train_cli(EVOLVE_ARGS + ["--hyp", str(hyp_path), "--save-dir",
+                                     str(out_dir)])
+    counts = kernels.launches()
+    seed = int(EVOLVE_ARGS[EVOLVE_ARGS.index("--seed") + 1])
+    first = mutate(base, out_dir / "none.txt", np.random.default_rng(seed))
+    rows = np.loadtxt(out_dir / "evolve.txt", ndmin=2)
+    gen0 = yaml.safe_load((out_dir / "hyp_gen0.yaml").read_text())
+    files = sorted(p.name for p in out_dir.iterdir())
+    row = {"phase": label, "args": EVOLVE_ARGS, "evolve_txt": rows.tolist(),
+           "files": files, "best_fitness": m["best_fitness"],
+           "first_mutation_equals_host": gen0 == first, "launches": counts}
+    row["ok"] = bool(rows.shape == (2, 28) and gen0 == first and all(
+        f in files for f in ("hyp_evolved.yaml", "hyp_gen0.yaml",
+                             "hyp_gen1.yaml", "gen0", "gen1"))
+        and counts["window_attention_bwd"] > 0)
+    emit(row)
+    return row
+
+
+def phase_run_logs(label: str, workdir: Path) -> dict:
+    """The run's record on the card: a short run's events.jsonl keys
+    (LOG_KEYS); `val --plots` and `detect --save-img` write their plots,
+    or, without matplotlib, say on one line that they wrote none;
+    `model_info` of the flagship (its parameters equal to the count from
+    named_parameters; FLOPs from the plain versions on the CPU) and
+    `time_fn` of its bf16 eval forward by CUDA events."""
+    import numpy as np
+    import torch
+    from sodt_tpu_torch import detect, val
+    from sodt_tpu_torch.data.png import write_png
+    from sodt_tpu_torch.utils.plots import missing_reason
+    from sodt_tpu_torch.utils.profiler import model_info, time_fn
+
+    run = workdir / label
+    _train_cli(LOG_ARGS + ["--save-dir", str(run)])
+    events = [json.loads(l) for l in (run / "events.jsonl").open()]
+    keys = set().union(*events) - {"t", "step"}
+    row = {"phase": label, "events": len(events), "keys": sorted(keys),
+           "missing_keys": sorted(LOG_KEYS - keys),
+           "matplotlib": missing_reason() or "installed"}
+    with stdout_lines("--") as said:
+        val.main(["--plots", "--synthetic", "--synthetic-n", "4",
+                  "--img-size", "256", "--batch-size", "4", "--save-dir",
+                  str(run / "val")])
+        write_png(run / "img.png", np.full((200, 300, 3), 90, np.uint8))
+        detect.main(["--source", str(run / "img.png"), "--img-size", "256",
+                     "--input_mode", "RGB+IR", "--save-img", "--save-dir",
+                     str(run / "detect")])
+    row["lines"] = said
+    if missing_reason():
+        plots_ok = (any(l.startswith("--plots: no plot written") for l in said)
+                    and any(l.startswith("--save-img: no image written")
+                            for l in said))
+    else:
+        plots_ok = ((run / "val" / "confusion_matrix.png").exists()
+                    and (run / "detect" / "img.png").exists())
+    model = seeded_model("configs/model.yaml", torch.bfloat16).cuda().eval()
+    info = model_info(model, img_size=256)
+    x = torch.rand(MAIN_BATCH, 512, 512, 3, device="cuda")
+    with torch.no_grad():
+        t = time_fn(model, x, x, iters=10, warmup=2)
+    n = sum(p.numel() for _, p in model.named_parameters())
+    row.update(plots_ok=plots_ok, model_info_256px=info,
+               params_named=n, forward_bf16_512px_batch4=t)
+    row["ok"] = bool(not row["missing_keys"] and plots_ok
+                     and info["params"] == n and t["timer"] == "cuda_events"
+                     and t["seconds"] > 0)
+    emit(row)
+    return row
+
+
 def _sr_step_pair() -> dict:
     """One batch of 1024 px originals and one set of seeded weights: the
     SR output of the training-mode forward at 512 px and the first step's
@@ -3598,6 +4063,11 @@ def main() -> int:
         drive("layers", phase_layers)
         drive("sr_train", phase_sr_train, tmp)
         drive("autoanchor", phase_autoanchor, tmp)
+        drive("scan_epoch", phase_scan_epoch, tmp)
+        drive("remat", phase_remat)
+        drive("sam", phase_sam)
+        drive("evolve", phase_evolve, tmp)
+        drive("run_logs", phase_run_logs, tmp)
     for label, phase, args in (
             ("grads", phase_grads, ()), ("profile", phase_profile, ()),
             ("profile_train", phase_profile_train, ()),
@@ -3633,6 +4103,8 @@ def main() -> int:
                                            if len(on_paths) > 1 else ""),
                 "route": "cuda", "source": src, "replaces": tpu, "path": path,
                 "launches": paths[path]["launches"].get(name, 0),
+                "launches_remat": paths["remat"]["launches"].get(name, 0),
+                "launches_sam": paths["sam"]["launches"].get(name, 0),
                 "max_abs_err": max((r["max_abs_err"] for r in mine),
                                    default=None),
                 "ms": tot("ms"), "plain_ms": tot("plain_ms"),

@@ -33,9 +33,11 @@ and their order (the same numpy Generator calls); its augmentation draws
 follow the port's convention, a Generator keyed by (seed, epoch * groups +
 group). Eval batches stay uint8 numpy (`make_eval_batches`).
 
-The whole-epoch scan of JAX (`epoch_schedule` feeding `make_epoch_scan`) is
-not ported: it is `lax.scan`'s answer to dispatch cost, and its flag
---scan-epoch is ROADMAP Queue 1 item 11.
+The bank serves two protocols, as in JAX: one step at a time
+(`augment_step`, the per-step feed) and a whole epoch's schedule at once
+(`epoch_schedule`, the trainer's epoch path: `train.state.make_epoch_scan`
+uploads it once and runs the epoch's steps from it). Both consume the
+generator alike, so at one seed they give the same sample stream.
 """
 
 from __future__ import annotations
@@ -242,7 +244,8 @@ def step_draws(seed: int, step: int, batch_size: int, s: int,
 
 class BankFeed:
     """Device-resident uint8 tile bank + host-side index scheduler, served
-    one step at a time (`augment_step`)."""
+    one step at a time (`augment_step`) or an epoch at a time
+    (`epoch_schedule`)."""
 
     def __init__(self, dataset, batch_size: int, img_size: int, hyp: dict,
                  *, seed: int = 0, m0: int = 30, sample_weights_fn=None,
@@ -286,15 +289,30 @@ class BankFeed:
         self.step += 1
         return prim, sec, d
 
+    def epoch_schedule(self):
+        """Indices and draws for a WHOLE epoch: prim (K, B, 4), sec
+        (K, B, 4) or None, draws (K, B, N_DRAWS), K = steps_per_epoch.
+        The rows are `step_schedule`'s, in order, so the generator is
+        consumed as the per-step protocol consumes it."""
+        rows = [self.step_schedule() for _ in range(self.steps_per_epoch)]
+        prim, sec, draws = zip(*rows)
+        return (np.stack(prim), None if sec[0] is None else np.stack(sec),
+                np.stack(draws))
+
     def augment(self, prim, sec, draws):
         """One augmented batch from the bank for a schedule row."""
-        dev = self.device
+        up = lambda a: torch.from_numpy(a).to(self.device)
+        return self.augment_device(up(prim), None if sec is None else up(sec),
+                                   up(draws))
+
+    def augment_device(self, p, q, draws):
+        """One augmented batch from schedule rows already on the device
+        (q None: no mixup operand, the primary tiles stand in)."""
         rgb, ir, lab, msk = self.banks
-        p = torch.from_numpy(prim).to(dev)
-        q = p if sec is None else torch.from_numpy(sec).to(dev)
+        q = p if q is None else q
         img, irr, targets, tmask = augment_batch(
             rgb[p], ir[p], lab[p], msk[p], rgb[q], ir[q], lab[q], msk[q],
-            torch.from_numpy(draws).to(dev), s=self.img_size, hyp=self.hyp,
+            draws, s=self.img_size, hyp=self.hyp,
             use_mixup=self.use_mixup, mosaic_p=self.mosaic_p)
         return {"img": img, "ir": irr, "targets": targets, "tmask": tmask}
 
@@ -306,10 +324,15 @@ class BankFeed:
 
 def make_bank_feed(dataset, batch_size: int, img_size: int, hyp: dict,
                    *, seed: int = 0, m0: int = 30, sample_weights_fn=None,
-                   device="cuda", start_step: int = 0) -> BankFeed | None:
+                   device="cuda", start_step: int = 0,
+                   device_bank: bool | None = None) -> BankFeed | None:
     """BankFeed when the dataset's rgb + ir uint8 tiles fit
-    DEVICE_BANK_MAX_GB, else None."""
-    if 2 * len(dataset) * img_size * img_size * 3 > DEVICE_BANK_MAX_GB * 2**30:
+    DEVICE_BANK_MAX_GB, else None; `device_bank` True forces the bank,
+    False refuses it, None applies the gate."""
+    if device_bank is None:
+        bank_bytes = 2 * len(dataset) * img_size * img_size * 3
+        device_bank = bank_bytes <= DEVICE_BANK_MAX_GB * 2**30
+    if not device_bank:
         return None
     return BankFeed(dataset, batch_size, img_size, hyp, seed=seed, m0=m0,
                     sample_weights_fn=sample_weights_fn, device=device,

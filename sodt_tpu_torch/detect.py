@@ -10,15 +10,17 @@ files are skipped as pair partners. Each image goes through
 native pixels) with the serving rule of the JAX CLI: top_k 512 when
 --conf-thres >= 0.1, else the eval protocol's 4096. --save-txt writes
 `<save-dir>/labels/<stem>.txt` (class cx cy w h conf, normalized by the
-native size). --int8 runs inside `kernels.int8_serving()`, as `val --int8`.
+native size); --save-img writes `<save-dir>/<stem>.png`, the image with
+its boxes (`utils.plots.plot_images`), where matplotlib is installed, and
+otherwise prints one line saying that no image was written and why. --int8 runs inside `kernels.int8_serving()`, as `val --int8`.
 Weights: --weights (a .npz state_dict or a checkpoint of the port), else a
 torch.Generator seeded with 0. --device defaults to cuda and raises when no
 card is visible; --device cpu runs the plain PyTorch path.
 
 Video files, live streams (webcam index, rtsp / rtmp / http(s) URL,
-`.streams` lists), --max-frames and --save-img are refused: they wait for
-`data/streams.py`, a video decoder and `utils/plots.py` (ROADMAP.md Queue 1
-item 11). Prints one line per image and, last, {"images", "detections"}.
+`.streams` lists) and --max-frames are refused: they wait for
+`data/streams.py` and a video decoder (ROADMAP.md Queue 1 item 11). Prints
+one line per image and, last, {"images", "detections"}.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import contextlib
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
 import yaml
 
@@ -39,6 +42,7 @@ from .models.compiler import resolve_config_path
 from .models.infer import Predictor
 from .train.checkpoint import load_into
 from .train.evaluate import write_yolo_txt
+from .utils.plots import boxes_as_targets, missing_reason, plot_images
 from .weights import init_weights
 
 IMG_EXT = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp"}
@@ -98,7 +102,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-dir", default="runs/detect/exp")
     ap.add_argument("--save-txt", action="store_true")
     ap.add_argument("--save-img", action="store_true",
-                    help="not ported: ROADMAP.md Queue 1 item 11")
+                    help="write each image with its boxes to --save-dir "
+                         "(needs matplotlib)")
     ap.add_argument("--no-bf16", action="store_false", dest="bf16")
     ap.add_argument("--int8", action="store_true",
                     help="int8 serving (K12), as val --int8")
@@ -108,8 +113,8 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     a = parser().parse_args(argv)
-    if a.save_img:
-        raise _not_ported("--save-img")
+    if a.save_img and missing_reason():
+        print(f"--save-img: no image written: {missing_reason()}")
     if a.max_frames is not None:
         raise _not_ported("--max-frames")
     if is_stream_source(a.source):
@@ -148,6 +153,10 @@ def _run(a) -> dict:
         if a.save_txt:
             write_yolo_txt(labels / f"{Path(name).stem}.txt", d,
                            rgb.shape[:2], ".4f")
+        if a.save_img:
+            plot_images(rgb[None].astype(np.float32) / 255.0,
+                        *boxes_as_targets(d, rgb.shape[:2]),
+                        Path(a.save_dir) / f"{Path(name).stem}.png", names)
     out = {"images": len(results),
            "detections": sum(r["n"] for r in results)}
     print(json.dumps(out))

@@ -16,12 +16,19 @@ input's channels to embed_dim, no cross-channel block).
     -> PatchMerging -> stage3: 1 global block (window 32) -> P5
     -> 1x1 necks: P3 from the two stage-1 taps as two sliced GEMMs,
        P4 -> out_chans, P5 -> 2*out_chans
+
+`remat` (JAX's `nn.remat(SwinBlock)`) checkpoints each Swin block of the
+three stages while autograd records: the backward runs the block's
+forward again (its kernels launch a second time) in place of keeping its
+activations. Nothing in a block draws at random, so the gradients are
+those of the run without it.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.resize import resize_bilinear
 from .swin import SwinBlock, PatchMerging, PatchEmbed, Conv
@@ -54,11 +61,11 @@ class ImageEncoderViT(nn.Module):
                  embed_dim: int = 192, in_chans: int = 4,
                  out_chans: int = 256, window_size: int = 4,
                  num_heads: int = 12, mlp_ratio: float = 4.0,
-                 mono: bool = False):
+                 mono: bool = False, remat: bool = False):
         # window_size is the config's ctor arg, kept for parity: the stages
         # use windows 8 / 8 / 32
         super().__init__()
-        self.in_chans, self.mono = in_chans, mono
+        self.in_chans, self.mono, self.remat = in_chans, mono, remat
         ps, ce = patch_size, 48                  # 48 channels per modality
         if mono:
             self.patch_embed = PatchEmbed(in_chans, embed_dim, ps, ps, 0)
@@ -99,6 +106,12 @@ class ImageEncoderViT(nn.Module):
         r, g, b, ir = self.chan_block(r, g, b, ir)
         return self.patch_embed(torch.cat([r, g, b, ir], dim=-1))
 
+    def _block(self, name: str, x):
+        blk = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(blk, x, use_reentrant=False)
+        return blk(x)
+
     def forward(self, x):
         if x.shape[-1] != self.in_chans:
             raise ValueError(f"expected {self.in_chans} input channels, got "
@@ -112,13 +125,13 @@ class ImageEncoderViT(nn.Module):
 
         taps = []
         for i in range(6):
-            x = getattr(self, f"stage1_{i}")(x)
+            x = self._block(f"stage1_{i}", x)
             if i in (4, 5):
                 taps.append(x)
         x = self.pmerging1(x)
         for i in range(4):
-            x = getattr(self, f"stage2_{i}")(x)
+            x = self._block(f"stage2_{i}", x)
         p4 = x
         x = self.pmerging2(x)
-        p5 = self.stage3_0(x)
+        p5 = self._block("stage3_0", x)
         return [self.neck1(taps[0], taps[1]), self.neck2(p4), self.neck3(p5)]

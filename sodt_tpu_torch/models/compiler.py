@@ -38,10 +38,10 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from pathlib import Path
 
 import yaml
 
+from ..utils.general import resolve_config_path  # noqa: F401  (re-export)
 from . import layers as L
 from .backbone import ImageEncoderViT
 from .swinv2 import ImageEncoderSwinV2
@@ -89,19 +89,6 @@ class ModelSpec:
     sr_ch: tuple                    # (c1, c2) or ()
     ch_in: int
     ch: tuple = ()                  # channels of y[j] (split: 0-2 P3-P5)
-
-
-def resolve_config_path(path) -> str:
-    """A relative path names a file of this package first (so
-    "configs/model.yaml", or just "model_swinv2.yaml", is the port's own
-    copy), else the path as given."""
-    p = Path(path)
-    pkg = Path(__file__).resolve().parent.parent
-    own = [] if p.is_absolute() else [pkg / p, pkg / "configs" / p]
-    for cand in own + [p]:
-        if cand.exists():
-            return str(cand)
-    raise FileNotFoundError(path)
 
 
 def load_yaml(cfg) -> dict:
@@ -281,8 +268,11 @@ def parse_config(cfg, ch_in: int = 4, nc: int | None = None,
                      sr_ch=sr_ch, ch_in=ch_in, ch=tuple(ch))
 
 
-def build_module(ld: LayerDef):
-    """Instantiate the torch module for one LayerDef (registry dispatch)."""
+def build_module(ld: LayerDef, remat: bool = False):
+    """Instantiate the torch module for one LayerDef (registry dispatch);
+    `remat` reaches the Swin encoders, whose blocks it checkpoints."""
+    if ld.name in ("ImageEncoderViT", "ImageEncoderViTMono") and remat:
+        return MODULE_REGISTRY[ld.name](ld, remat=True)
     return MODULE_REGISTRY[ld.name](ld)
 
 
@@ -358,12 +348,12 @@ def _sum(ld):
     return L.Sum(n=a[0] if a else 2, weight=a[1] if len(a) > 1 else False)
 
 
-def _encoder(ld):
-    return ImageEncoderViT(**dict(ld.args))
+def _encoder(ld, remat=False):
+    return ImageEncoderViT(**dict(ld.args), remat=remat)
 
 
-def _encoder_mono(ld):
-    return ImageEncoderViT(**dict(ld.args), mono=True)
+def _encoder_mono(ld, remat=False):
+    return ImageEncoderViT(**dict(ld.args), mono=True, remat=remat)
 
 
 def _encoder_swinv2(ld):
@@ -403,11 +393,13 @@ MODULE_REGISTRY = {
 
 def build_model(cfg, *, ch_in: int = 4, nc: int | None = None, anchors=None,
                 dtype=None, input_mode: str = "RGB+IR", sr: bool = False,
-                factor: int = 2):
-    """Config -> DetectionModel (torch). See model.DetectionModel."""
+                factor: int = 2, remat: bool = False):
+    """Config -> DetectionModel (torch). See model.DetectionModel;
+    `remat` checkpoints each Swin block of the encoder (ImageEncoderViT)."""
     import torch
     from .model import DetectionModel
 
     spec = parse_config(cfg, ch_in=ch_in, nc=nc, anchors=anchors)
     return DetectionModel(spec, input_mode=input_mode, sr=sr,
-                          sr_factor=factor, dtype=dtype or torch.float32)
+                          sr_factor=factor, dtype=dtype or torch.float32,
+                          remat=remat)

@@ -26,12 +26,14 @@ from ..train.evaluate import cache_rel_bias, make_eval_step
 
 class Detections:
     """Per-image detections in native pixels: `dets` a list of (n, 6)
-    xyxy + conf + cls arrays, `shapes` the images' (h, w)."""
+    xyxy + conf + cls arrays, `shapes` the images' (h, w); `imgs` the
+    images (HWC uint8), which `save` draws."""
 
-    def __init__(self, dets: list[np.ndarray], shapes, names):
+    def __init__(self, dets: list[np.ndarray], shapes, names, imgs=None):
         self.dets = dets
         self.shapes = shapes
         self.names = names
+        self.imgs = imgs
         self.n = len(dets)
 
     def __len__(self):
@@ -53,10 +55,19 @@ class Detections:
             desc = ", ".join(f"{v} {k}" for k, v in counts.items()) or "none"
             print(f"image {i}: {desc}")
 
-    def save(self, save_dir="runs/detect/exp"):
-        raise NotImplementedError(
-            "Detections.save is not ported yet: ROADMAP.md Queue 1 item 11 "
-            "(utils/plots.py)")
+    def save(self, save_dir="runs/detect/exp") -> list:
+        """`<save_dir>/image{i}.png`: each image with its boxes
+        (`utils.plots.plot_images`). Returns the paths written: none where
+        matplotlib is missing, which it then says on one line."""
+        from ..utils.plots import boxes_as_targets, missing_reason, plot_images
+        if missing_reason():
+            print(f"Detections.save: no image written: {missing_reason()}")
+            return []
+        Path(save_dir).mkdir(parents=True, exist_ok=True)
+        return [plot_images(img[None].astype(np.float32) / 255.0,
+                            *boxes_as_targets(d, img.shape[:2]),
+                            Path(save_dir) / f"image{i}.png", self.names)
+                for i, (d, img) in enumerate(zip(self.dets, self.imgs))]
 
 
 def _to_array(item) -> np.ndarray:
@@ -118,4 +129,4 @@ class Predictor:
                                         torch.from_numpy(d[:, :4]),
                                         hw).numpy()
             out.append(d)
-        return Detections(out, shapes, self.names)
+        return Detections(out, shapes, self.names, imgs)

@@ -32,7 +32,7 @@ INPUT_MODES = ("RGB", "IR", "RGB+IR", "RGB+IR+fusion", "RGB+IR+MF")
 class DetectionModel(nn.Module):
     def __init__(self, spec: ModelSpec, input_mode: str = "RGB+IR",
                  dtype: torch.dtype = torch.float32, sr: bool = False,
-                 sr_factor: int = 2):
+                 sr_factor: int = 2, remat: bool = False):
         super().__init__()
         if input_mode not in INPUT_MODES:
             raise ValueError(f"unknown input_mode {input_mode!r}")
@@ -51,7 +51,7 @@ class DetectionModel(nn.Module):
         self.layer_defs = layers
         self.sr = sr
         for ld in layers:
-            setattr(self, f"l{ld.i}", build_module(ld))
+            setattr(self, f"l{ld.i}", build_module(ld, remat=remat))
         # flax creates the steam's parameters only where the route runs it
         self.steam_defs = spec.steam if input_mode == "RGB+IR+fusion" else ()
         for ld in self.steam_defs:

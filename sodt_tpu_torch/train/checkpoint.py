@@ -27,14 +27,19 @@ import torch
 from ..weights import load_npz
 
 
-def checkpoint_tree(state, *, epoch: int, best_fitness: float) -> dict:
+def checkpoint_tree(state, *, epoch: int, best_fitness: float,
+                    extra: dict | None = None) -> dict:
     """The host-side checkpoint of a `TrainState` (one copy to the CPU, so
-    that a caller saving to several paths pays it once)."""
+    that a caller saving to several paths pays it once); `extra` (the
+    W&B run id) is kept under "extra" where given."""
     cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
-    return {"step": int(state.step), "model": cpu(state.model.state_dict()),
+    ckpt = {"step": int(state.step), "model": cpu(state.model.state_dict()),
             "ema": cpu(state.ema), "ema_updates": int(state.ema_updates),
             "opt_state": state.tx.state_dict(), "epoch": int(epoch),
             "best_fitness": float(best_fitness)}
+    if extra:
+        ckpt["extra"] = extra
+    return ckpt
 
 
 def write_checkpoint(path: str | Path, ckpt: dict) -> None:

@@ -9,6 +9,9 @@
     python -m sodt_tpu_torch.train --cfg SRyolo_MF.yaml \
         --input_mode RGB+IR+MF --super --factor 2 --down-factor 2 \
         --synthetic --img-size 1024 --batch-size 4
+    python -m sodt_tpu_torch.train --synthetic --img-size 512 --remat \
+        --scan-epoch off --wandb
+    python -m sodt_tpu_torch.train --synthetic --img-size 256 --evolve 30
 
 Takes the JAX `train.py` flags that the port covers under their own names
 and meanings (--weights: initial weights from a checkpoint or a .npz,
@@ -19,12 +22,18 @@ no other flag is needed; --save-dir, --nosave, --save-period,
 refits where their best possible recall on the training labels is under
 0.98; --super / --factor / --down-factor: the SR branch, which fails at
 --factor 1 as JAX's does, here with a ValueError that names it), plus
---device (default cuda; raises when no card is visible, --device cpu runs
-the plain PyTorch path) and --weights-npz (a state_dict loaded strictly,
-else a seeded initialization). Data: the VEDAI fold lists of the --data
-yaml (`train`, `val`; PNG folders, decoded by the port itself), or
---synthetic. The other flags of `train.py` raise, naming the ROADMAP item
-they wait for. Prints one metrics JSON line.
+--scan-epoch auto|on|off: the epoch path, on where the tiles fit the bank
+gate and neither --multi-scale nor --rect is set, forced on or off;
+--remat: checkpoint the encoder's Swin blocks, their forward run again in
+the backward; --wandb: W&B scalars and artifacts where wandb is
+installed; --evolve N: N generations of hyperparameter evolution, each a
+training run in <save-dir>/gen{i}, evolve.txt and hyp_evolved.yaml in
+--save-dir), plus --device (default cuda; raises when no card is visible,
+--device cpu runs the plain PyTorch path) and --weights-npz (a state_dict
+loaded strictly, else a seeded initialization). Data: the VEDAI fold lists
+of the --data yaml (`train`, `val`; PNG folders, decoded by the port
+itself), or --synthetic. Prints one metrics JSON line (--evolve: the best
+fitness).
 """
 
 from __future__ import annotations
@@ -36,13 +45,10 @@ from pathlib import Path
 
 import yaml
 
+from .evolve import evolve
 from .trainer import TrainConfig, train
 
-# flags of the JAX train.py that are not ported yet -> ROADMAP.md Queue 1 item
-UNPORTED = {
-    "--evolve": 11, "--wandb": 11, "--remat": 11,
-    "--scan-epoch": 11,
-}
+SCAN_EPOCH = {None: None, "auto": None, "on": True, "off": False}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -80,6 +86,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eval-every", type=int, default=1)
     p.add_argument("--no-bf16", action="store_false", dest="bf16")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize the encoder's Swin blocks in the "
+                        "backward (less memory, one more forward of them)")
     p.add_argument("--resume", default="",
                    help="checkpoint to resume from (parameters, optimizer, "
                         "EMA, step, epoch, best fitness); the run's opt.yaml "
@@ -103,10 +112,17 @@ def parser() -> argparse.ArgumentParser:
                    help="initial weights: a state_dict saved with "
                         "sodt_tpu_torch.weights.save_npz, loaded strictly "
                         "(as val takes it)")
+    p.add_argument("--scan-epoch", default=None,
+                   choices=["auto", "on", "off"],
+                   help="the epoch path: whole epochs from a device tile "
+                        "bank, the metrics fetched once a chunk (auto: on "
+                        "when the tiles fit the bank gate and neither "
+                        "--multi-scale nor --rect is set)")
+    p.add_argument("--evolve", type=int, default=0, metavar="GENERATIONS",
+                   help="evolve the hyperparameters for N generations")
+    p.add_argument("--wandb", action="store_true",
+                   help="W&B scalars and artifacts (needs wandb)")
     p.add_argument("--device", default="cuda")
-    for flag in UNPORTED:
-        p.add_argument(flag, nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
     return p
 
 
@@ -126,13 +142,10 @@ def resume_config(resume: str) -> TrainConfig | None:
 
 
 def main(argv=None, on_step=None, on_grads=None, on_start=None) -> dict:
-    """Parse, train, print the metrics line. `on_step`, `on_grads` and
-    `on_start` are passed on to `trainer.train` (hooks for measurements)."""
+    """Parse, train (or evolve), print the metrics line. `on_step`,
+    `on_grads` and `on_start` are passed on to `trainer.train` (hooks for
+    measurements; not to the runs of --evolve)."""
     a = parser().parse_args(argv)
-    for flag, item in UNPORTED.items():
-        if getattr(a, flag.lstrip("-").replace("-", "_")) is not None:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP.md Queue 1 item {item}")
     tc = resume_config(a.resume) if a.resume else None
     if tc is None:
         tc = TrainConfig(cfg=a.cfg, data=a.data, hyp=a.hyp, epochs=a.epochs,
@@ -147,12 +160,17 @@ def main(argv=None, on_step=None, on_grads=None, on_start=None) -> dict:
                          multi_scale=a.multi_scale, rect=a.rect,
                          seed=a.seed,
                          eval_every=a.eval_every, bf16=a.bf16,
-                         resume=a.resume, weights=a.weights,
+                         remat=a.remat, scan_epoch=SCAN_EPOCH[a.scan_epoch],
+                         wandb=a.wandb, resume=a.resume, weights=a.weights,
                          single_cls=a.single_cls, nosave=a.nosave,
                          notest=a.notest, nbs=a.nbs,
                          freeze=tuple(s for s in a.freeze.split(",") if s),
                          save_period=a.save_period,
                          weights_npz=a.weights_npz, device=a.device)
+    if a.evolve > 0:
+        best_hyp, best_fit = evolve(tc, generations=a.evolve, seed=tc.seed)
+        print(json.dumps({"best_fitness": best_fit}))
+        return {"best_fitness": best_fit, "hyp": best_hyp}
     m = train(tc, on_step=on_step, on_grads=on_grads, on_start=on_start)
     print(json.dumps({k: v for k, v in m.items()
                       if isinstance(v, (int, float, str))}))

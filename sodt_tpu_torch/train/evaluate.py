@@ -13,10 +13,10 @@ before one NMS), hybrid labels (the ground truth as unit-confidence
 candidates), the COCO-style json and YOLO txt exports in native pixels,
 and an optional COCOeval pass where pycocotools is installed. The eval
 step also gives the val loss (`make_eval_step(loss_cfg=)`); `evaluate`
-fills neither it nor the confusion matrix until a caller needs them (the
-trainer's val loss, `--plots`: ROADMAP.md Queue 1 item 11). The scan eval
-and the `EvalRunner` of the JAX package answer TPU dispatch latency and
-are not ported.
+does not fill it, as JAX's trainer and CLI never ask for it. `evaluate(
+confusion=True)` (`val --plots`) adds the IoU-matched confusion matrix.
+The scan eval and the `EvalRunner` of the JAX package answer TPU dispatch
+latency and are not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from ..models.swin import SwinBlock, WindowAttention
 from ..models.swinv2 import WindowAttentionV2
 from ..ops.nms import batched_nms
 from ..ops.boxes import scale_coords, xywhn2xyxy, xyxy2xywh
-from ..utils.metrics import ap_per_class, match_predictions
+from ..utils.metrics import ConfusionMatrix, ap_per_class, match_predictions
 from .loss import LossConfig, compute_loss
 from .tta import tta_forward
 
@@ -204,7 +204,7 @@ def evaluate(model, batches, *, nc: int, img_size: int,
              merge: bool = True, names=None, verbose: bool = False,
              save_json: str | None = None, save_txt: str | None = None,
              save_conf: bool = False, save_hybrid: bool = False,
-             augment: bool = False,
+             augment: bool = False, confusion: bool = False,
              anno_json: str | None = None) -> dict[str, Any]:
     """Run the mAP protocol over `batches` (dicts from
     data.make_eval_batches; a rect batch's `net_shape` scales its ground
@@ -212,7 +212,8 @@ def evaluate(model, batches, *, nc: int, img_size: int,
     dict; `save_json` / `save_txt` name the export files, written in
     native pixels. speed_ms times the step and the fetch of its result;
     the ground truth goes to the device, before the clock starts, only
-    for `save_hybrid`."""
+    for `save_hybrid`. `confusion` adds "confusion_matrix", the
+    (nc + 1)^2 matrix of `utils.metrics.ConfusionMatrix`."""
     from .. import resolve_device
     dev = resolve_device(device)
     models = list(model) if isinstance(model, (list, tuple)) else [model]
@@ -223,6 +224,7 @@ def evaluate(model, batches, *, nc: int, img_size: int,
                           augment=augment, hybrid_labels=save_hybrid)
     iouv = np.linspace(0.5, 0.95, 10)
     stats = []
+    cm = ConfusionMatrix(nc=nc) if confusion else None
     seen = 0
     t_infer = 0.0
     jdict = [] if save_json is not None else None
@@ -254,6 +256,8 @@ def evaluate(model, batches, *, nc: int, img_size: int,
                             net_h).numpy()
             labels5 = np.concatenate([labs[:, 0:1], gt], axis=1)
             correct = match_predictions(d, labels5, iouv)
+            if cm is not None:
+                cm.process_batch(d, labels5)
             stats.append((correct, d[:, 4], d[:, 5], tcls))
             if save_json is not None or save_txt is not None:
                 _export(d, batch, si, (net_h, net_w),
@@ -281,6 +285,8 @@ def evaluate(model, batches, *, nc: int, img_size: int,
         out["nt"] = np.bincount(tcls.astype(np.int64), minlength=nc).tolist()
     else:
         out.update(mp=0.0, mr=0.0, map50=0.0, map=0.0, per_class={}, nt=[0])
+    if cm is not None:
+        out["confusion_matrix"] = cm.matrix
     if save_json is not None:
         with open(save_json, "w") as fh:
             json.dump(jdict, fh)

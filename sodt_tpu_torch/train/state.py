@@ -11,15 +11,20 @@ returns the same `TrainState` object for symmetry with the JAX signature:
   -> EMA of parameters and BN statistics, only on steps where the
      optimizer fired.
 
-No GradScaler: bf16 keeps the f32 exponent range. The epoch scan of the
-JAX package (`make_epoch_scan`, one dispatch per epoch) is a plain Python
-loop over `train_step` here: PyTorch runs eagerly.
+No GradScaler: bf16 keeps the f32 exponent range.
+
+`make_epoch_scan` is JAX's epoch path (`lax.scan` over gather -> augment
+-> train step, one dispatch an epoch): here a Python loop over the same
+steps, fed from a schedule uploaded to the device once, with the metrics
+kept on the device and fetched once a chunk, so that the host never
+waits on the card between steps.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -126,3 +131,34 @@ def make_train_step(model: nn.Module, tx: Optimizer, loss_cfg: LossConfig, *,
         return state, metrics
 
     return train_step
+
+
+def make_epoch_scan(train_step, feed):
+    """Build `epoch_fn(state, prim, sec, draws, on_step=None) -> (state,
+    keys, metrics)`: the steps of a schedule (`BankFeed.epoch_schedule`
+    rows, one or several epochs stacked: prim / sec (K, B, 4), draws
+    (K, B, N_DRAWS), numpy), each gather -> augment -> `train_step` from
+    `feed`'s bank. The schedule goes to the device in one upload a tensor;
+    each step's metrics stay on the device, stacked into `metrics`, a
+    (K, len(keys)) f32 tensor on the device that the caller fetches once.
+    Nothing between two steps reads a device value on the host, except
+    `on_step(state, step_metrics)` where a caller passes one."""
+
+    def epoch_fn(state, prim, sec, draws, on_step=None):
+        dev = feed.device
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        p, d = up(prim), up(draws)
+        q = None if sec is None else up(sec)
+        rows = []
+        for k in range(p.shape[0]):
+            batch = feed.augment_device(p[k], None if q is None else q[k],
+                                        d[k])
+            state, m = train_step(state, batch)
+            if on_step is not None:
+                on_step(state, m)
+            rows.append(m)
+        keys = list(rows[0])
+        return state, keys, torch.stack(
+            [torch.stack([m[key].float() for key in keys]) for m in rows])
+
+    return epoch_fn

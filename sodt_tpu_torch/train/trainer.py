@@ -2,14 +2,26 @@
 covers).
 
 VEDAI folders from the data yaml (`data.vedai.VedaiDataset`: its `train`
-and `val` fold lists) or synthetic data, through the augmented feed
-(`data.loader.make_train_batches`: the device tile bank when it fits, else
-streaming; its `feed:` line names the regime and the tile source) or,
-under `rect`, the rect feed (`make_rect_train_batches`: aspect-ratio
-groups, no mosaic; refused with multi_scale and image_weights, as in JAX),
-the hyp gain scaling of the JAX trainer, a per-step loop (`state.make_train_step`), an eval of
-the EMA weights every `eval_every` epochs and at the last, and checkpoints
-in `save_dir`:
+and `val` fold lists) or synthetic data, the hyp gain scaling of the JAX
+trainer, and one of three feeds, chosen as JAX chooses:
+
+  * the epoch path (`scan_epoch` None: when the uint8 tiles fit the bank
+    gate and neither multi_scale nor rect is on; True: forced; False:
+    never): the device tile bank (`data.loader.make_bank_feed`) and
+    `state.make_epoch_scan`, one chunk of epochs up to the next eval (one
+    epoch under image_weights) from a schedule uploaded once, the metrics
+    fetched once a chunk; an epoch's losses are the mean over ALL its
+    steps;
+  * the per-step path (`state.make_train_step` over
+    `data.loader.make_train_batches`: the bank when it fits, else
+    streaming; its `feed:` line names the regime and the tile source), an
+    epoch's losses the mean over every LOG_EVERY-th step, as in JAX;
+  * under `rect`, the rect feed (`make_rect_train_batches`: aspect-ratio
+    groups, no mosaic; refused with multi_scale and image_weights, as in
+    JAX), per step.
+
+Then an eval of the EMA weights every `eval_every` epochs and at the
+last, and checkpoints in `save_dir`:
 `last.pt` after each eval, `best.pt` a copy of it when the fitness is the
 best so far, `epoch{N}.pt` every `save_period` epochs; `nosave` keeps only
 the final one. `weights` loads initial weights (shape-matched, names with
@@ -29,8 +41,18 @@ its decoder's factor, `down_factor` the model input's reduction, as in
 `state.make_train_step`); the evals run the EMA weights at full
 resolution without it, as JAX's read only the Detect maps.
 
-Evolve, W&B and the epoch scan (ROADMAP.md Queue 1 item 11) are not
-ported: their options are absent from `TrainConfig`.
+The run's record, as JAX writes it: `utils.loggers.RunLogger` appends
+the TAGS of each eval and the epoch's wall-clock split (`wall/sched`,
+`wall/dispatch`, `wall/fetch`, `wall/chunk` on the epoch path's first
+epoch of a chunk; `wall/eval`, `wall/ckpt`, `wall/ckpt_fetch`,
+`wall/ckpt_write` at evals; `wall/epoch` always) to `events.jsonl`, and
+to TensorBoard and W&B where they import (`wandb`: W&B scalars, the run
+id in the checkpoint's "extra", model and dataset artifacts);
+`LR.png`, `labels.png` and, at the end, `results.png` where matplotlib is
+installed. `remat` checkpoints the encoder's Swin blocks
+(`models.backbone.ImageEncoderViT`). `weights` may be a URL
+(`utils.downloads.attempt_download`); `resume` may name a W&B artifact.
+Hyperparameter evolution is `train.evolve.evolve` around `train`.
 """
 
 from __future__ import annotations
@@ -48,24 +70,30 @@ import yaml
 from .. import resolve_device
 from ..data import (SyntheticVedai, VedaiDataset, apply_single_cls,
                     make_eval_batches)
-from ..data.loader import make_rect_train_batches, make_train_batches
+from ..data.loader import (make_bank_feed, make_rect_train_batches,
+                           make_train_batches)
 from ..models import build_model
-from ..models.compiler import parse_config, resolve_config_path
+from ..models.compiler import parse_config
 from ..utils.autoanchor import check_anchors
-from ..utils.general import labels_to_class_weights, labels_to_image_weights
+from ..utils.downloads import attempt_download
+from ..utils.general import (labels_to_class_weights, labels_to_image_weights,
+                             resolve_config_path)
+from ..utils.loggers import RunLogger
 from ..utils.metrics import fitness
+from ..utils.plots import plot_labels, plot_lr_schedule, plot_results
+from ..utils.wandb_utils import is_wandb_artifact, resolve_artifact_checkpoint
 from ..weights import init_weights, load_npz
 from .checkpoint import (checkpoint_tree, clone_checkpoint, load_checkpoint,
                          load_pretrained_variables, restore_train_state,
                          write_checkpoint)
 from .evaluate import evaluate
 from .loss import LossConfig
-from .optim import make_optimizer
-from .state import TrainState, make_train_step
+from .optim import lr_schedules, make_optimizer
+from .state import TrainState, make_epoch_scan, make_train_step
 
 NOMINAL_BATCH = 64
 MAX_LABELS = 30      # label slots per image in a padded batch
-LOG_EVERY = 10       # steps between the loss samples of an epoch's mean
+LOG_EVERY = 10       # per-step path: steps between an epoch's loss samples
 CH_IN = {"RGB": 3, "IR": 3, "RGB+IR": 4, "RGB+IR+fusion": 8, "RGB+IR+MF": 3}
 
 
@@ -93,6 +121,12 @@ class TrainConfig:
     seed: int = 0
     eval_every: int = 1
     bf16: bool = True
+    remat: bool = False              # checkpoint the encoder's Swin blocks
+    # the epoch path: None = when the tiles fit the bank gate and neither
+    # multi_scale nor rect is on; True forces the bank, False the per-step
+    # feed
+    scan_epoch: bool | None = None
+    wandb: bool = False              # W&B scalars and artifacts
     resume: str = ""                 # checkpoint to resume from
     weights: str = ""                # initial weights: checkpoint or .npz
     single_cls: bool = False         # all labels -> class 0, nc = 1
@@ -181,7 +215,8 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     """Train, evaluate the EMA weights, save checkpoints, return the final
     metrics. Hooks for measurements: `on_start(state)` once before the
     first step (after --resume's restore), `on_step(state, metrics)` after
-    every step, `on_grads(grads)` with every step's gradients
+    every step (on the epoch path too: the only host read between its
+    steps), `on_grads(grads)` with every step's gradients
     (`make_train_step`)."""
     dev = resolve_device(tc.device)
     if tc.rect and (tc.multi_scale or tc.image_weights):
@@ -205,14 +240,14 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
                else None)
     model = build_model(tc.cfg, ch_in=CH_IN[tc.input_mode], nc=nc,
                         anchors=anchors, dtype=dtype, input_mode=tc.input_mode, sr=tc.sr,
-                        factor=tc.sr_factor)
+                        factor=tc.sr_factor, remat=tc.remat)
     if tc.weights_npz:
         model.load_state_dict(load_npz(tc.weights_npz))
     else:
         init_weights(model, seed=tc.seed)
     if tc.weights and not tc.resume:
-        sd, n_hit, n_all = load_pretrained_variables(model.state_dict(),
-                                                     tc.weights)
+        sd, n_hit, n_all = load_pretrained_variables(
+            model.state_dict(), attempt_download(tc.weights))
         model.load_state_dict(sd)
         print(f"pretrained: {n_hit}/{n_all} arrays from {tc.weights}")
     model = model.to(dev)
@@ -229,6 +264,8 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     state = TrainState.create(model, tx)
     start_epoch, best_fitness = 0, 0.0
     if tc.resume:
+        if is_wandb_artifact(tc.resume):
+            tc.resume = resolve_artifact_checkpoint(tc.resume)
         ckpt = load_checkpoint(tc.resume)
         restore_train_state(state, ckpt)
         start_epoch = int(ckpt["epoch"]) + 1
@@ -237,6 +274,23 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
                               sr=tc.sr, down_factor=tc.down_factor,
                               freeze=tuple(tc.freeze), on_grads=on_grads)
     nparams = sum(p.numel() for p in params.values())
+    print(f"model {tc.cfg} ({nparams / 1e6:.2f}M params), device {dev}, "
+          f"nb={nb}/epoch, accumulate={accumulate}")
+
+    logger = RunLogger(save_dir, config=dataclasses.asdict(tc),
+                       use_wandb=tc.wandb)
+    if logger.lifecycle.active:
+        logger.lifecycle.log_dataset(data_cfg)
+    # the logged learning rates and LR.png read the schedules at the
+    # optimizer step, as JAX's do (step x accumulate data iterations)
+    lr_w, lr_b, _, _ = lr_schedules(hyp, tc.epochs, nb,
+                                    linear_lr=tc.linear_lr,
+                                    accumulate=accumulate)
+    plot_lr_schedule((lr_w, lr_b), max(tc.epochs * nb // accumulate, 2),
+                     save_dir / "LR.png")
+    labelled = [l for l in train_ds.labels if len(l)]
+    if labelled:
+        plot_labels(np.concatenate(labelled), save_dir, nc)
 
     maps = np.zeros(nc)
     cw0 = labels_to_class_weights(train_ds.labels, nc)
@@ -246,9 +300,23 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
         return labels_to_image_weights(train_ds.labels, nc,
                                        cw0 * (1 - maps) ** 2 / nc)
 
-    # the device bank when the tiles fit, else streaming (make_train_batches
-    # chooses, as in JAX), or the rect groups; positioned at the resumed step
-    if tc.rect:
+    weights_fn = sample_weights if tc.image_weights else None
+    # JAX's choice: the epoch path where the bank fits (or is forced), else
+    # the per-step feeds; each is positioned at the resumed step
+    feed = None
+    if tc.scan_epoch is not False and not tc.multi_scale and not tc.rect:
+        feed = make_bank_feed(
+            train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
+            m0=MAX_LABELS, sample_weights_fn=weights_fn, device=dev,
+            start_step=start_epoch * nb,
+            device_bank=True if tc.scan_epoch else None)
+    if feed is not None:
+        epoch_fn = make_epoch_scan(step_fn, feed)
+        batches = None
+        print(f"feed: device bank ({len(train_ds)} tiles in HBM), "
+              f"epoch-scan dispatch over 1 device(s), 1 process(es), "
+              f"tile source: {feed.source.name} ({feed.source.why})")
+    elif tc.rect:
         batches = make_rect_train_batches(
             train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
             max_labels_per_image=MAX_LABELS, device=dev,
@@ -258,32 +326,66 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
             train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
             max_labels_per_image=MAX_LABELS, multi_scale=tc.multi_scale,
             device=dev, start_step=start_epoch * nb,
-            sample_weights_fn=sample_weights if tc.image_weights else None)
-    print(f"model {tc.cfg} ({nparams / 1e6:.2f}M params), device {dev}, "
-          f"nb={nb}/epoch, accumulate={accumulate}")
+            sample_weights_fn=weights_fn)
     if on_start is not None:
         on_start(state)
 
     metrics_out: dict = {}
     history = []
     t_start = time.time()
+    # the epoch path runs the epochs up to the next eval in one chunk (one
+    # under image_weights, whose order reads the last eval's maps); the
+    # chunk's later epochs report its rate and log their own walls only
+    chunk_losses: dict[int, dict] = {}
+    chunk_ips = 0.0
     for epoch in range(start_epoch, tc.epochs):
         t_epoch = time.time()
-        losses = []
-        for bi in range(nb):
-            state, m = step_fn(state, next(batches))
-            if on_step is not None:
-                on_step(state, m)
-            if bi % LOG_EVERY == 0:
-                losses.append({k: float(v) for k, v in m.items()})
-        mean_losses = ({k: float(np.mean([l[k] for l in losses]))
-                        for k in losses[0]} if losses else {})
-        ips = tc.batch_size * nb / (time.time() - t_epoch)
+        wall = {}
+        if feed is not None:
+            if epoch not in chunk_losses:
+                cap = 1 if tc.image_weights else max(tc.eval_every, 1)
+                boundary = epoch + (cap - 1) - (epoch % cap)
+                n_ep = min(boundary, tc.epochs - 1) - epoch + 1
+                t0 = time.time()
+                scheds = [feed.epoch_schedule() for _ in range(n_ep)]
+                prim = np.concatenate([sc[0] for sc in scheds])
+                sec = (None if scheds[0][1] is None
+                       else np.concatenate([sc[1] for sc in scheds]))
+                draws = np.concatenate([sc[2] for sc in scheds])
+                wall["sched"] = time.time() - t0
+                t0 = time.time()
+                state, keys, ms = epoch_fn(state, prim, sec, draws,
+                                           on_step=on_step)
+                wall["dispatch"] = time.time() - t0
+                t0 = time.time()
+                ms = ms.cpu().numpy().reshape(n_ep, feed.steps_per_epoch,
+                                              len(keys))
+                chunk_losses = {epoch + i: {k: float(np.mean(ms[i, :, j]))
+                                            for j, k in enumerate(keys)}
+                                for i in range(n_ep)}
+                wall["fetch"] = time.time() - t0
+                wall["chunk"] = n_ep
+                chunk_ips = (tc.batch_size * nb * n_ep
+                             / max(time.time() - t_epoch, 1e-9))
+            mean_losses = chunk_losses.pop(epoch)
+            ips = chunk_ips
+        else:
+            losses = []
+            for bi in range(nb):
+                state, m = step_fn(state, next(batches))
+                if on_step is not None:
+                    on_step(state, m)
+                if bi % LOG_EVERY == 0:
+                    losses.append({k: float(v) for k, v in m.items()})
+            mean_losses = ({k: float(np.mean([l[k] for l in losses]))
+                            for k in losses[0]} if losses else {})
+            ips = tc.batch_size * nb / (time.time() - t_epoch)
         line = (f"epoch {epoch}/{tc.epochs - 1} "
                 + " ".join(f"{k}={v:.4f}" for k, v in mean_losses.items())
                 + f" img/s={ips:.1f}")
         is_final = epoch == tc.epochs - 1
         if is_final or (not tc.notest and (epoch + 1) % tc.eval_every == 0):
+            t0 = time.time()
             metrics_out = evaluate(
                 ema_model(state),
                 make_eval_batches(val_ds, tc.batch_size, tc.img_size),
@@ -294,14 +396,39 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
                     maps[c] = v["ap"]
             line += (f" mAP50={metrics_out['map50']:.4f} "
                      f"mAP={metrics_out['map']:.4f} fit={fit:.4f}")
+            wall["eval"] = time.time() - t0
+            t0 = time.time()
+            opt_step = state.step // accumulate
+            logger.log_epoch(epoch, mean_losses, metrics_out,
+                             lrs=(lr_w(opt_step), lr_w(opt_step),
+                                  lr_b(opt_step)))
             best_fitness = max(best_fitness, fit)
             # ties refresh best too: the latest equal wins
-            _save(save_dir, state, tc, epoch, best_fitness,
-                  is_best=fit >= best_fitness, is_final=is_final)
+            is_best = fit >= best_fitness
+            t_fetch, t_write = _save(
+                save_dir, state, tc, epoch, best_fitness, is_best=is_best,
+                is_final=is_final,
+                extra={"wandb_id": logger.wandb_id} if logger.wandb_id
+                else None)
+            logger.log_scalars({"wall/ckpt_fetch": t_fetch,
+                                "wall/ckpt_write": t_write}, epoch)
+            if logger.lifecycle.active:
+                logger.lifecycle.log_model(save_dir / "last.pt", epoch=epoch,
+                                           fitness=fit, best=is_best)
+            wall["ckpt"] = time.time() - t0
+        wall["epoch"] = time.time() - t_epoch
+        logger.log_scalars({f"wall/{k}": v for k, v in wall.items()}, epoch)
+        if "eval" in wall:
+            line += ("  [wall "
+                     + " ".join(f"{k}={int(v)}" if k == "chunk"
+                                else f"{k}={v:.2f}s"
+                                for k, v in wall.items()) + "]")
         print(line)
         with open(save_dir / "results.txt", "a") as f:
             f.write(line + "\n")
         history.append(mean_losses)
+    logger.close()
+    plot_results(save_dir / "events.jsonl", save_dir / "results.png")
     metrics_out["train_time_s"] = time.time() - t_start
     metrics_out["losses"] = history
     metrics_out["steps"] = state.step
@@ -312,19 +439,26 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
 
 
 def _save(save_dir: Path, state, tc: TrainConfig, epoch: int,
-          best_fitness: float, *, is_best: bool, is_final: bool) -> None:
+          best_fitness: float, *, is_best: bool, is_final: bool,
+          extra: dict | None = None) -> tuple[float, float]:
     """last.pt (and best.pt, a copy of it) unless --nosave, which keeps
     only the final one; epoch{N}.pt every save_period epochs but the last.
-    """
+    Returns the seconds of the device-to-host copy and of the writes."""
+    t0 = time.time()
     ckpt = None
     if not tc.nosave or is_final:
-        ckpt = checkpoint_tree(state, epoch=epoch, best_fitness=best_fitness)
+        ckpt = checkpoint_tree(state, epoch=epoch, best_fitness=best_fitness,
+                               extra=extra)
+    t1 = time.time()
+    if ckpt is not None:
         write_checkpoint(save_dir / "last.pt", ckpt)
         if is_best:
             clone_checkpoint(save_dir / "last.pt", save_dir / "best.pt")
+    t2 = time.time()
     if (tc.save_period > 0 and (epoch + 1) % tc.save_period == 0
             and not is_final):
         if ckpt is None:
             ckpt = checkpoint_tree(state, epoch=epoch,
-                                   best_fitness=best_fitness)
+                                   best_fitness=best_fitness, extra=extra)
         write_checkpoint(save_dir / f"epoch{epoch}.pt", ckpt)
+    return t1 - t0, t2 - t1

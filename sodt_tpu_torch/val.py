@@ -33,8 +33,10 @@ The eval extras are JAX's: --augment (test-time augmentation),
 --save-json (COCO-style predictions.json in native pixels; with
 --anno-json a COCOeval pass where pycocotools is installed), --save-txt /
 --save-conf (YOLO labels/<image id>.txt). per_class.csv and per_class.xlsx
-are always written to --save-dir. --plots is refused: it waits for
-`utils/plots.py` (ROADMAP.md Queue 1 item 11).
+are always written to --save-dir. --plots writes confusion_matrix.png
+(the mAP tasks) or study.png (--task study) to --save-dir where
+matplotlib is installed; where it is not, it prints one line saying that
+no plot was written and why.
 
 --device (alias --platform) defaults to cuda and raises when no card is
 visible; --device cpu runs the plain PyTorch path. --int8 runs every task
@@ -63,6 +65,7 @@ from .models.compiler import resolve_config_path
 from .train.evaluate import evaluate, make_eval_step, cache_rel_bias
 from .train.checkpoint import load_into
 from .utils.metrics import write_per_class_csv
+from .utils.plots import missing_reason, plot_confusion_matrix, plot_study
 from .utils.xlsx import write_per_class_xlsx
 from .weights import init_weights
 
@@ -120,7 +123,11 @@ def run_map(a, img_size: int) -> dict:
                  save_json=(str(save_dir / "predictions.json")
                             if a.save_json else None),
                  save_txt=str(save_dir / "labels") if a.save_txt else None,
-                 save_conf=a.save_conf, save_hybrid=a.save_hybrid)
+                 save_conf=a.save_conf, save_hybrid=a.save_hybrid,
+                 confusion=a.plots)
+    if a.plots and "confusion_matrix" in m:
+        plot_confusion_matrix(m["confusion_matrix"],
+                              save_dir / "confusion_matrix.png", names)
     m["images_per_s"] = m["seen"] / (time.perf_counter() - t0)
     m["int8"] = a.int8
     m["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -154,7 +161,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--no-bf16", action="store_false", dest="bf16")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--plots", action="store_true",
-                   help="not ported: ROADMAP.md Queue 1 item 11")
+                   help="confusion_matrix.png / study.png in --save-dir "
+                        "(needs matplotlib)")
     p.add_argument("--save-dir", default="runs/val/exp")
     p.add_argument("--save-json", action="store_true")
     p.add_argument("--save-txt", action="store_true")
@@ -184,10 +192,8 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     a = parser().parse_args(argv)
-    if a.plots:
-        raise NotImplementedError(
-            "--plots is not ported yet: ROADMAP.md Queue 1 item 11 "
-            "(utils/plots.py)")
+    if a.plots and missing_reason():
+        print(f"--plots: no plot written: {missing_reason()}")
     if a.task == "speed":
         a.synthetic = True
     # the int8 gate wraps every task, as in the JAX CLI
@@ -209,6 +215,9 @@ def _run(a) -> dict:
             except Exception as e:  # keep sweeping, as JAX does
                 print({"img_size": s, "error": str(e)})
         print(json.dumps(rows))
+        if a.plots and rows:
+            Path(a.save_dir).mkdir(parents=True, exist_ok=True)
+            plot_study(rows, Path(a.save_dir) / "study.png")
         return {"study": rows}
     if a.task != "speed":
         m = run_map(a, a.img_size)

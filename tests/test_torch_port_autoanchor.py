@@ -131,7 +131,8 @@ def test_noautoanchor_keeps_the_yaml_anchors(monkeypatch, tmp_path, capsys):
                                       ["--noautoanchor"])
     assert model.spec.anchors == loss_anchors == (YAML_ANCHORS,)
     assert "autoanchor" not in capsys.readouterr().out
-    assert "--noautoanchor" not in cli.UNPORTED
+    assert "--noautoanchor" in {s for act in cli.parser()._actions
+                                for s in act.option_strings}
     assert _jax_anchors(monkeypatch, tmp_path, autoanchor=False) == (
         YAML_ANCHORS,)
 

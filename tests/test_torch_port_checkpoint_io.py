@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -252,15 +253,18 @@ def test_checkpoint_files_and_val_weights(tmp_path, capsys):
 
 
 def test_rect_and_later_flags_still_raise(tmp_path):
+    """Every flag of JAX's train.py is the port's now; what raises is JAX's
+    refusal of --rect's mixes and of --super on a config without SR taps.
+    --scan-epoch takes JAX's three values."""
     from sodt_tpu_torch.train import cli
     args = _narrow(tmp_path) + ["--epochs", "1"]
-    # --rect is ported: what raises now is JAX's refusal of its mixes
-    assert "--rect" not in cli.UNPORTED
+    flags = set(re.findall(r'add_argument\("(--[\w-]+)"',
+                           (ROOT / "train.py").read_text()))
+    port = {s for act in cli.parser()._actions for s in act.option_strings}
+    assert flags and flags - {"--platform"} <= port, flags - port
     with pytest.raises(ValueError, match="--rect is incompatible"):
         cli.main(args + ["--rect", "--multi-scale"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        cli.main(args + ["--scan-epoch", "on"])
-    # --super is ported: on a config without SR taps it is refused
-    assert "--super" not in cli.UNPORTED
+    with pytest.raises(SystemExit):
+        cli.parser().parse_args(args + ["--scan-epoch", "always"])
     with pytest.raises(ValueError, match="SR taps"):
         cli.main(args + ["--super", "--factor", "2"])

@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from sodt_tpu.data.loader import make_eval_batches as jbatches
 from sodt_tpu.data.vedai import VedaiDataset as JDS
@@ -45,8 +46,8 @@ from sodt_tpu_torch.utils import metrics as tmetrics
 from sodt_tpu_torch.utils import xlsx as txlsx
 from sodt_tpu_torch.weights import from_jax_variables
 
-from torch_port_common import (randomize_variables, same_dets, trained_pair,
-                               write_vedai_folder)
+from torch_port_common import (NARROW_CFG, randomize_variables, same_dets,
+                               trained_pair, write_vedai_folder)
 
 ROOT = Path(__file__).resolve().parent.parent
 IMG = 256
@@ -299,12 +300,17 @@ def test_torch_val_study_matches_jax(tmp_path, capsys):
 
 
 def test_torch_val_accepts_every_jax_flag_and_refuses_plots(tmp_path):
-    """Every flag of the JAX val.py parses in the port's val; --plots is
-    refused, naming the Queue 1 item it waits for."""
+    """Every flag of the JAX val.py parses in the port's val; --plots, no
+    longer refused, writes the confusion matrix (its plot is held in
+    tests/test_torch_port_run_logs.py)."""
     flags = set(re.findall(r'add_argument\("(--[\w-]+)"',
                            (ROOT / "val.py").read_text()))
     port = {s for act in val.parser()._actions for s in act.option_strings}
     assert flags and flags <= port, flags - port
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        val.main(["--plots", "--synthetic", "--device", "cpu",
-                  "--save-dir", str(tmp_path)])
+    cfg = tmp_path / "narrow.yaml"
+    cfg.write_text(yaml.safe_dump(NARROW_CFG))
+    m = val.main(["--plots", "--synthetic", "--synthetic-n", "2",
+                  "--img-size", "64", "--batch-size", "2", "--cfg", str(cfg),
+                  "--device", "cpu", "--no-bf16", "--save-dir", str(tmp_path)])
+    assert (tmp_path / "confusion_matrix.png").exists()
+    assert m["confusion_matrix"].shape == (9, 9)

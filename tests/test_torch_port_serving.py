@@ -104,8 +104,8 @@ def test_torch_predictor_matches_jax(served, tmp_path, capsys):
     want.print()
     out = capsys.readouterr().out.splitlines()
     assert out[:2] == out[2:] and out[0].startswith("image 0: ")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        got.save(tmp_path / "plots")
+    saved = got.save(tmp_path / "plots")
+    assert [p.name for p in saved] == ["image0.png", "image1.png"]
 
 
 def test_torch_predictor_is_its_eval_step_after_scale_coords(served):
@@ -203,7 +203,7 @@ def test_torch_detect_cli_matches_jax_loop(served, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,what", [
-    (["--save-img"], "--save-img"),
+    (["--save-img"], None),
     (["--max-frames", "10"], "--max-frames"),
     (["--source", "0"], "stream source"),
     (["--source", "rtsp://camera/stream"], "stream source"),
@@ -211,6 +211,19 @@ def test_torch_detect_cli_matches_jax_loop(served, tmp_path, capsys):
     (["--source", "VIDEO"], "video source"),
 ], ids=["save_img", "max_frames", "webcam", "rtsp", "streams", "video"])
 def test_torch_detect_refuses_unported_sources(tmp_path, args, what):
+    """Streams, video and --max-frames are refused, naming the Queue 1 item
+    they wait for; --save-img (`what` None) is ported and writes the image
+    with its boxes beside the labels."""
+    if what is None:
+        cfg = tmp_path / "narrow.yaml"
+        cfg.write_text(yaml.safe_dump(NARROW_CFG))
+        write_png(tmp_path / "a.png", np.zeros((40, 60, 3), np.uint8))
+        detect.main(["--source", str(tmp_path / "a.png"), "--cfg", str(cfg),
+                     "--device", "cpu", "--no-bf16", "--img-size", "64",
+                     "--input_mode", "RGB+IR", "--save-dir",
+                     str(tmp_path / "out")] + args)
+        assert (tmp_path / "out" / "a.png").stat().st_size > 0
+        return
     (tmp_path / "clip.mp4").write_bytes(b"")
     cfg = tmp_path / "narrow.yaml"
     cfg.write_text(yaml.safe_dump(NARROW_CFG))

@@ -228,8 +228,11 @@ def test_torch_train_cli_runs_on_cpu_when_asked(tmp_path, capsys, monkeypatch):
     # --multi-scale, and the data yaml's fold list read without --synthetic
     with pytest.raises(ValueError, match="--rect is incompatible"):
         cli.main(args + ["--device", "cpu", "--rect", "--multi-scale"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        cli.main(args + ["--device", "cpu", "--evolve"])
+    # --evolve, --remat, --scan-epoch and --wandb are ported: they parse
+    a = cli.parser().parse_args(args + ["--evolve", "2", "--remat",
+                                        "--scan-epoch", "off", "--wandb"])
+    assert (a.evolve, a.remat, a.scan_epoch, a.wandb) == (2, True, "off",
+                                                          True)
     with pytest.raises(FileNotFoundError, match="fold01_write.txt"):
         cli.main([a for a in args if a != "--synthetic"] + ["--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
