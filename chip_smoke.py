@@ -215,6 +215,19 @@ the final ok line:
               plots or, without matplotlib, say so on one line;
               `model_info` of the flagship (parameters equal to
               named_parameters'), `time_fn` of its bf16 forward
+     ddp      data parallelism (`parallel.mesh`), the flagship at 512 px,
+              global batch 4: world size 1 over nccl (RANK / WORLD_SIZE /
+              LOCAL_RANK set, this process), 3 bf16 steps under
+              deterministic algorithms, parameters, BN statistics and EMA
+              bit-equal to the plain step's; world size 2 over gloo (two
+              processes of this script, `--ddp-worker`, on the one card, 2
+              images each), one step against world size 1's in f32 (loss,
+              gradients, BN running statistics within DDP_F32_TOL) and in
+              bf16 (DDP_BF16_TOL: its gradients against f32's within the
+              bf16 bound on batch statistics; beside them bf16's spread at
+              world size 1, against f32 and against the batch in another
+              order), every rank's bf16 launches PER_STEP; more than one
+              card is not measured
      Each path's seconds follow it on a line of their own.
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
@@ -230,7 +243,8 @@ the final ok line:
               the device times that then fell back to CUDA events (a
               kernel row names its own in `cuda_event_fallbacks`)
   6. the {"kernels": [...]} line (each entry also with its launches on
-     the `remat` and `sam` runs), the card line, the ok line.
+     the `remat` and `sam` runs, and on rank 0's step of `ddp` at world
+     size 2), the card line, the ok line.
 
 Needs a CUDA card; exits 1 without one and 2 when the port is missing.
 """
@@ -496,6 +510,18 @@ REMAT_FORWARD = dict(PER_FORWARD, layernorm=5)
 # gradient at p - rho g / |g| through the same kernels and the base update
 SAM_PX, SAM_BATCH, SAM_UPDATES, SAM_RHO = 256, 2, 3, 0.05
 SAM_TOL = 1e-6         # max |SAM - hand| / max |hand| over an update
+# data parallelism at world size 2 (two processes on one card, 2 images
+# each) against world size 1 (4 images), one step of the flagship in f32
+# and in bf16: |loss - loss1| / |loss1|, relative L2 of all the gradients
+# together, relative L2 of the BN running statistics. f32 is held to
+# DDP_F32_TOL; bf16 (its gradients re-round with the batch's partition:
+# PERF.md §6) to DDP_BF16_TOL, its gradients against f32's at
+# world size 1 to the bf16 bound on batch statistics, as bf16's own are
+DDP_STEPS = 3
+DDP_F32_TOL = {"loss": 1e-4, "grads": 1e-3, "bn": 1e-4}
+DDP_BF16_TOL = {"loss": 1e-2, "grads_vs_f32": GRAD_REL_L2_BATCH_STATS,
+                "bn": 1e-2}
+DDP_TIMEOUT = 300      # seconds for each rank's process
 # hyperparameter evolution, two generations of one epoch each
 EVOLVE_ARGS = ["--synthetic", "--synthetic-n", "8", "--img-size", "128",
                "--batch-size", "4", "--nbs", "4", "--epochs", "1",
@@ -2475,6 +2501,206 @@ def phase_sam(label: str) -> dict:
     return row
 
 
+def _ddp_setup() -> dict:
+    """`_train_setup`'s flagship (bf16), the same weights in an f32 model,
+    the batch and the loss configuration."""
+    import torch
+    from sodt_tpu_torch.models import build_model
+    model, batch, hyp, cfg = _train_setup(torch.bfloat16)
+    f32 = build_model("configs/model.yaml", ch_in=4,
+                      input_mode="RGB+IR").cuda()
+    f32.load_state_dict(model.state_dict())
+    return {"models": {torch.bfloat16: model, torch.float32: f32},
+            "batch": batch, "hyp": hyp, "cfg": cfg}
+
+
+def _ddp_steps(d: dict, steps: int, shard: bool, dtype=None,
+               order=None) -> dict:
+    """`steps` steps of `make_train_step` on a fresh copy of the model of
+    `_ddp_setup`'s `d` in `dtype` (bf16 by default; 512 px, this rank's
+    rows of the batch where `shard`, its rows in `order` where given): the
+    metrics, the last step's gradients and launches, the state after
+    (parameters and BN statistics, EMA), on the CPU."""
+    import copy
+    import torch
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.parallel.mesh import shard_batch
+    from sodt_tpu_torch.train.optim import make_optimizer
+    from sodt_tpu_torch.train.state import TrainState, make_train_step
+
+    model = copy.deepcopy(d["models"][dtype or torch.bfloat16]).train()
+    batch = shard_batch(d["batch"]) if shard else d["batch"]
+    if order is not None:
+        batch = {k: v[order] for k, v in batch.items()}
+    tx = make_optimizer(d["hyp"], dict(model.named_parameters()), epochs=1,
+                        nb=steps)
+    seen = {}
+    step = make_train_step(model, tx, d["cfg"],
+                           on_grads=lambda g: seen.update(grads=g))
+    state = TrainState.create(model, tx)
+    metrics = []
+    for _ in range(steps):
+        kernels.reset_launches()
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    cpu = lambda d: {k: v.detach().float().cpu() for k, v in d.items()}
+    return {"metrics": metrics, "launches": kernels.launches(),
+            "grads": cpu(seen["grads"]), "sd": cpu(model.state_dict()),
+            "ema": cpu(state.ema)}
+
+
+def ddp_worker(workdir: Path) -> int:
+    """One rank of `phase_ddp`'s world of 2 (`chip_smoke.py --ddp-worker
+    DIR`): gloo over the file store DIR/store, one bf16 and one f32 step
+    on its rows, its results in DIR/rank{r}.pt."""
+    import torch
+    import torch.distributed as dist
+    from sodt_tpu_torch.parallel.mesh import init_from_env
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh = init_from_env("cuda", backend="gloo",
+                         init_method=f"file://{workdir / 'store'}")
+    t0 = time.perf_counter()
+    out = {"world": mesh.world, "backend": mesh.backend}
+    d = _ddp_setup()
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        out[name] = _ddp_steps(d, 1, shard=True, dtype=dtype)
+        del out[name]["ema"]
+    out["step_s"] = time.perf_counter() - t0
+    torch.save(out, workdir / f"rank{mesh.rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def _bn(sd: dict) -> dict:
+    return {k: v for k, v in sd.items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def phase_ddp(label: str, workdir: Path) -> dict:
+    """World size 1 over nccl against the plain step (bit-equal, 3
+    steps); world size 2 over gloo, two processes on the one card, against
+    world size 1 (one step, in bf16 and in f32); every rank's launches
+    PER_STEP."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from sodt_tpu_torch.parallel.mesh import init_from_env, world_size
+
+    row = {"phase": label, "img": 512, "global_batch": MAIN_BATCH,
+           "cards": 1, "more_than_one_card": "not measured (one card)"}
+    t0 = time.perf_counter()
+    # world size 2 first: its processes start while this one works
+    w2 = workdir / "ddp_w2"
+    w2.mkdir()
+    logs = [open(w2 / f"rank{r}.log", "w+") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ddp-worker",
+         str(w2)], env=dict(os.environ, RANK=str(r), WORLD_SIZE="2",
+                            LOCAL_RANK="0"),
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        d = _ddp_setup()
+        with deterministic():
+            plain = _ddp_steps(d, DDP_STEPS, shard=False)
+            env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+            old = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                mesh = init_from_env("cuda", init_method=f"file://{workdir}/"
+                                     "store_w1")
+                row["w1_backend"], row["w1_world"] = (mesh.backend,
+                                                      world_size())
+                one = _ddp_steps(d, DDP_STEPS, shard=True)
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                for k, v in old.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        ref = {"bf16": _ddp_steps(d, 1, shard=False),
+               "f32": _ddp_steps(d, 1, shard=False, dtype=torch.float32),
+               "bf16_reordered": _ddp_steps(d, 1, shard=False,
+                                            order=[2, 3, 0, 1])}
+        for proc in procs:
+            proc.wait(timeout=DDP_TIMEOUT)
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        for f in logs:
+            f.close()
+    diff = {f"{part}.{k}": float((one[part][k] - v).abs().max())
+            for part in ("sd", "ema") for k, v in plain[part].items()}
+    worst = max(diff, key=diff.get)
+    row["w1"] = {"steps": DDP_STEPS, "bit_equal": diff[worst] == 0.0
+                 and one["metrics"] == plain["metrics"],
+                 "max_abs_diff": diff[worst], "worst_leaf": worst,
+                 "leaves": len(diff), "losses": [m["loss"] for m in
+                                                 one["metrics"]],
+                 "launches_per_step": one["launches"]}
+    for r, proc in enumerate(procs):
+        if proc.returncode:
+            print((w2 / f"rank{r}.log").read_text()[-6000:], file=sys.stderr)
+            raise RuntimeError(f"ddp rank {r} exited {proc.returncode}")
+    ranks = [torch.load(w2 / f"rank{r}.pt") for r in range(2)]
+    w2row = {"backend": ranks[0]["backend"], "world": ranks[0]["world"],
+             "rank_s": [r["step_s"] for r in ranks],
+             "launches_rank0": ranks[0]["bf16"]["launches"],
+             "launches_rank1": ranks[1]["bf16"]["launches"],
+             "tol": {"f32": DDP_F32_TOL, "bf16": DDP_BF16_TOL}}
+    for name in ("bf16", "f32"):
+        got, want = ranks[0][name], ref[name]
+        gl, wl = got["metrics"][0]["loss"], want["metrics"][0]["loss"]
+        w2row[name] = {
+            "loss": gl, "loss_w1": wl, "loss_rel_err": abs(gl - wl) / abs(wl),
+            "grad_rel_l2": _grad_diff(got["grads"],
+                                      want["grads"])["rel_l2_all"],
+            "grad_rel_l2_vs_f32_w1": _grad_diff(
+                got["grads"], ref["f32"]["grads"])["rel_l2_all"],
+            "bn_rel_l2": _grad_diff(_bn(got["sd"]),
+                                    _bn(want["sd"]))["rel_l2_all"],
+            "ranks_same_metrics": got["metrics"] == ranks[1][name]["metrics"],
+            "ranks_same_grads": all(torch.equal(v, ranks[1][name]["grads"][k])
+                                    for k, v in got["grads"].items()),
+            "ranks_same_bn": all(torch.equal(v, ranks[1][name]["sd"][k])
+                                 for k, v in _bn(got["sd"]).items())}
+    # bf16's own spread: world size 1 against f32, and against itself with
+    # the batch's images in another order (the same sum)
+    w2row["bf16_w1_vs_f32_w1_grad_rel_l2"] = _grad_diff(
+        ref["bf16"]["grads"], ref["f32"]["grads"])["rel_l2_all"]
+    w2row["bf16_w1_reordered_grad_rel_l2"] = _grad_diff(
+        ref["bf16_reordered"]["grads"], ref["bf16"]["grads"])["rel_l2_all"]
+    row["w2"] = w2row
+    row["seconds"] = time.perf_counter() - t0
+    want_launches = {k: v for k, v in PER_STEP.items() if v}
+    nonzero = lambda d: {k: v for k, v in d.items() if v}
+    row["launches"] = ranks[0]["bf16"]["launches"]
+    row["ok"] = bool(
+        row["w1"]["bit_equal"] and row["w1_backend"] == "nccl"
+        and row["w1_world"] == 1
+        and nonzero(one["launches"]) == want_launches
+        and w2row["backend"] == "gloo" and w2row["world"] == 2
+        and w2row["f32"]["loss_rel_err"] <= DDP_F32_TOL["loss"]
+        and w2row["f32"]["grad_rel_l2"] <= DDP_F32_TOL["grads"]
+        and w2row["f32"]["bn_rel_l2"] <= DDP_F32_TOL["bn"]
+        and w2row["bf16"]["loss_rel_err"] <= DDP_BF16_TOL["loss"]
+        and (w2row["bf16"]["grad_rel_l2_vs_f32_w1"]
+             <= DDP_BF16_TOL["grads_vs_f32"])
+        and w2row["bf16"]["bn_rel_l2"] <= DDP_BF16_TOL["bn"]
+        and all(w2row[n]["ranks_same_metrics"]
+                and w2row[n]["ranks_same_grads"]
+                and w2row[n]["ranks_same_bn"]
+                and math.isfinite(w2row[n]["loss"]) for n in ("bf16", "f32"))
+        and all(nonzero(r["bf16"]["launches"]) == want_launches
+                for r in ranks))
+    emit(row)
+    return row
+
+
 def phase_evolve(label: str, workdir: Path) -> dict:
     """`train --evolve 2` (EVOLVE_ARGS): evolve.txt two rows of 28
     numbers, hyp_evolved.yaml and hyp_gen{0,1}.yaml written, the first
@@ -4068,6 +4294,7 @@ def main() -> int:
         drive("sam", phase_sam)
         drive("evolve", phase_evolve, tmp)
         drive("run_logs", phase_run_logs, tmp)
+        drive("ddp", phase_ddp, tmp)
     for label, phase, args in (
             ("grads", phase_grads, ()), ("profile", phase_profile, ()),
             ("profile_train", phase_profile_train, ()),
@@ -4105,6 +4332,7 @@ def main() -> int:
                 "launches": paths[path]["launches"].get(name, 0),
                 "launches_remat": paths["remat"]["launches"].get(name, 0),
                 "launches_sam": paths["sam"]["launches"].get(name, 0),
+                "launches_ddp": paths["ddp"]["launches"].get(name, 0),
                 "max_abs_err": max((r["max_abs_err"] for r in mine),
                                    default=None),
                 "ms": tot("ms"), "plain_ms": tot("plain_ms"),
@@ -4131,4 +4359,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(Path(sys.argv[2])))
     sys.exit(main())

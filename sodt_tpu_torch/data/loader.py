@@ -249,10 +249,14 @@ class BankFeed:
 
     def __init__(self, dataset, batch_size: int, img_size: int, hyp: dict,
                  *, seed: int = 0, m0: int = 30, sample_weights_fn=None,
-                 device="cuda", start_step: int = 0):
+                 device="cuda", start_step: int = 0, process_index: int = 0,
+                 process_count: int = 1):
         n = len(dataset)
         if n < batch_size:
             raise ValueError(f"dataset {n} < batch_size {batch_size}")
+        # several processes: every one computes the GLOBAL schedule from
+        # the shared seed and augments only its row slice of each step
+        self.rows = _row_slice(batch_size, process_index, process_count)
         self.n = n
         self.batch_size = batch_size
         self.img_size = img_size
@@ -317,7 +321,10 @@ class BankFeed:
         return {"img": img, "ir": irr, "targets": targets, "tmask": tmask}
 
     def augment_step(self):
-        b = self.augment(*self.step_schedule())
+        """One augmented batch: this process's rows of the step."""
+        prim, sec, draws = self.step_schedule()
+        r = self.rows
+        b = self.augment(prim[r], None if sec is None else sec[r], draws[r])
         b["epoch"] = (self.step - 1) // self.steps_per_epoch
         return b
 
@@ -325,10 +332,13 @@ class BankFeed:
 def make_bank_feed(dataset, batch_size: int, img_size: int, hyp: dict,
                    *, seed: int = 0, m0: int = 30, sample_weights_fn=None,
                    device="cuda", start_step: int = 0,
-                   device_bank: bool | None = None) -> BankFeed | None:
+                   device_bank: bool | None = None, process_index: int = 0,
+                   process_count: int = 1) -> BankFeed | None:
     """BankFeed when the dataset's rgb + ir uint8 tiles fit
     DEVICE_BANK_MAX_GB, else None; `device_bank` True forces the bank,
-    False refuses it, None applies the gate."""
+    False refuses it, None applies the gate. Every process holds the
+    whole bank; `process_index` / `process_count` choose the rows of
+    each step that it augments."""
     if device_bank is None:
         bank_bytes = 2 * len(dataset) * img_size * img_size * 3
         device_bank = bank_bytes <= DEVICE_BANK_MAX_GB * 2**30
@@ -336,7 +346,17 @@ def make_bank_feed(dataset, batch_size: int, img_size: int, hyp: dict,
         return None
     return BankFeed(dataset, batch_size, img_size, hyp, seed=seed, m0=m0,
                     sample_weights_fn=sample_weights_fn, device=device,
-                    start_step=start_step)
+                    start_step=start_step, process_index=process_index,
+                    process_count=process_count)
+
+
+def _row_slice(batch_size: int, process_index: int,
+               process_count: int) -> slice:
+    if batch_size % process_count:
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"process_count {process_count}")
+    lb = batch_size // process_count
+    return slice(process_index * lb, (process_index + 1) * lb)
 
 
 MULTI_SCALE = (0.75, 1.0, 1.25)     # multi-scale buckets x img_size
@@ -357,7 +377,9 @@ def _rescale(b: dict, ns: int, img_size: int) -> dict:
 def make_train_batches(dataset, batch_size: int, img_size: int, hyp: dict,
                        *, seed: int = 0, max_labels_per_image: int = 30,
                        sample_weights_fn=None, multi_scale: bool = False,
-                       device="cuda", start_step: int = 0) -> Iterator[dict]:
+                       device="cuda", start_step: int = 0,
+                       process_index: int = 0,
+                       process_count: int = 1) -> Iterator[dict]:
     """Endless iterator of augmented device batches, from `start_step` on.
     The device bank when the tiles fit DEVICE_BANK_MAX_GB, else
     streaming: tiles read on the host by the tile source
@@ -367,16 +389,21 @@ def make_train_batches(dataset, batch_size: int, img_size: int, hyp: dict,
     `multi_scale` resizes each batch to one of MULTI_SCALE x img_size
     (rounded to 32 px), drawn from a stream of its own seeded with `seed`. The regime and the
     tile source are chosen, and printed on a `feed:` line, when this is
-    called."""
+    called. Several processes (`process_count`): `batch_size` stays
+    global, every process draws the same global schedule and yields its
+    `process_index`-th row slice of each step (JAX's multi-host feed)."""
     n = len(dataset)
     if n < batch_size:
         raise ValueError(
             f"dataset has {n} images < batch_size {batch_size}; "
             "the epoch schedule would never yield a batch")
+    rows = _row_slice(batch_size, process_index, process_count)
     feed = make_bank_feed(dataset, batch_size, img_size, hyp, seed=seed,
                           m0=max_labels_per_image,
                           sample_weights_fn=sample_weights_fn,
-                          device=device, start_step=start_step)
+                          device=device, start_step=start_step,
+                          process_index=process_index,
+                          process_count=process_count)
     if feed is not None:
         src = feed.source
         print(f"feed: device bank ({n} tiles on {feed.device}), tile source: "
@@ -387,7 +414,8 @@ def make_train_batches(dataset, batch_size: int, img_size: int, hyp: dict,
           f"{src.name} ({src.why})")
     return _stream_batches(dataset, src, batch_size, img_size, hyp, seed,
                            max_labels_per_image, sample_weights_fn,
-                           multi_scale, torch.device(device), start_step)
+                           multi_scale, torch.device(device), start_step,
+                           rows)
 
 
 def _bank_batches(feed, img_size, seed, multi_scale, start_step):
@@ -403,7 +431,7 @@ def _bank_batches(feed, img_size, seed, multi_scale, start_step):
 
 
 def _stream_batches(dataset, src, batch_size, img_size, hyp, seed, m0,
-                    sample_weights_fn, multi_scale, dev, start_step):
+                    sample_weights_fn, multi_scale, dev, start_step, rows):
     n = len(dataset)
     labels = dataset.labels
     rng = np.random.default_rng(seed)
@@ -421,14 +449,16 @@ def _stream_batches(dataset, src, batch_size, img_size, hyp, seed, m0,
             for start in range(0, n - batch_size + 1, batch_size):
                 prim, sec = _step_indices(rng, order, start, batch_size, n,
                                           use_mixup)
+                prim = prim[rows]       # this process's rows only
                 yield (prim.ravel() if sec is None
-                       else np.concatenate([prim.ravel(), sec.ravel()]))
+                       else np.concatenate([prim.ravel(), sec[rows].ravel()]))
 
     sched = schedule()
     for _ in range(start_step):
         next(sched)
     step = start_step
-    shape4 = (batch_size, 4, img_size, img_size, 3)
+    lb = len(range(batch_size)[rows])    # this process's rows
+    shape4 = (lb, 4, img_size, img_size, 3)
     pending = None                    # the next step's indices and job
     while True:
         if pending is None:
@@ -444,20 +474,20 @@ def _stream_batches(dataset, src, batch_size, img_size, hyp, seed, m0,
             pending = (flat, src.submit(flat))
         labs, msks = _pack_labels(labels, cur, m0)
         t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-        half = batch_size * 4
+        half = lb * 4
         r1, i1 = t(rgb[:half].reshape(shape4)), t(ir[:half].reshape(shape4))
-        l1 = t(labs[:half].reshape(batch_size, 4, m0, 5))
-        k1 = t(msks[:half].reshape(batch_size, 4, m0))
+        l1 = t(labs[:half].reshape(lb, 4, m0, 5))
+        k1 = t(msks[:half].reshape(lb, 4, m0))
         if use_mixup:
             r2 = t(rgb[half:].reshape(shape4))
             i2 = t(ir[half:].reshape(shape4))
-            l2 = t(labs[half:].reshape(batch_size, 4, m0, 5))
-            k2 = t(msks[half:].reshape(batch_size, 4, m0))
+            l2 = t(labs[half:].reshape(lb, 4, m0, 5))
+            k2 = t(msks[half:].reshape(lb, 4, m0))
         else:
             r2, i2, l2, k2 = r1, i1, l1, k1
         img, irr, targets, tmask = augment_batch(
             r1, i1, l1, k1, r2, i2, l2, k2,
-            t(step_draws(seed, step, batch_size, img_size, hyp)),
+            t(step_draws(seed, step, batch_size, img_size, hyp)[rows]),
             s=img_size, hyp=hyp, use_mixup=use_mixup, mosaic_p=mosaic_p)
         b = {"img": img, "ir": irr, "targets": targets, "tmask": tmask,
              "epoch": step // steps_per_epoch}

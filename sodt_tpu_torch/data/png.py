@@ -2,12 +2,29 @@
 stand-in for `cv2.imread` / PIL, which the card's machine does not have.
 
   read_png(path)    signature, chunks and their CRCs, the IDATs joined and
-                    inflated, the five row filters undone. Returns what the
-                    JAX package's `_read_image` returns through cv2
-                    (`sodt_tpu/data/vedai.py:51-57`: IMREAD_UNCHANGED, then
-                    `[..., ::-1]`): gray -> (H, W, 1); RGB -> (H, W, 3) RGB;
-                    RGBA -> (H, W, 4) in the order A, R, G, B; gray+alpha ->
-                    (H, W, 4) as A, L, L, L (cv2 widens it to BGRA first).
+                    inflated, the five row filters undone (each of Adam7's
+                    seven passes on its own), the samples unpacked. For an
+                    8-bit gray, RGB, gray+alpha or RGBA image it returns
+                    what the JAX package's `_read_image` returns through
+                    cv2 (`sodt_tpu/data/vedai.py:51-57`: IMREAD_UNCHANGED,
+                    then `[..., ::-1]`): gray -> (H, W, 1); RGB -> (H, W, 3)
+                    RGB; RGBA -> (H, W, 4) in the order A, R, G, B;
+                    gray+alpha -> (H, W, 4) as A, L, L, L (cv2 widens it to
+                    BGRA first). Every other image, and any image with a
+                    tRNS chunk, returns what `_read_image` returns through
+                    PIL where cv2 is absent, as on the card's machine
+                    (`np.asarray(Image.open(path))`, then `[..., None]` or
+                    `[..., :3]`): 16-bit gray -> (H, W, 1) uint16; 16-bit
+                    RGB, RGBA -> (H, W, 3) uint8 of each sample's high
+                    byte; 16-bit gray+alpha -> (H, W, 3) L, L, L high
+                    bytes; palette (1, 2, 4, 8 bits) -> (H, W, 1) of the
+                    palette INDICES, not colours (a JAX quirk); 1-bit gray
+                    -> (H, W, 1) bool; 2- and 4-bit gray -> (H, W, 1) uint8
+                    scaled to 0-255; tRNS changes nothing (RGB stays 3
+                    channels).
+  read_png_rgb(path)
+                    (H, W, 3) uint8 RGB, as PIL's `convert("RGB")` gives it
+                    (palette colours, alpha dropped).
   png_size(path)    (width, height) from IHDR alone, as PIL's `Image.size`.
   verify_png(path)  raises where PIL's `Image.verify` plus the JAX scan's
                     10 px assert fail: signature, IHDR first, every CRC,
@@ -19,9 +36,8 @@ stand-in for `cv2.imread` / PIL, which the card's machine does not have.
                     (gray, gray+alpha, R G B, R G B A). cv2 writes every row
                     with Sub, which is the default here too.
 
-Scope: bit depth 8, colour types 0 / 2 / 4 / 6, no interlace, no tRNS
-chunk. Anything else (16-bit, palette, Adam7) raises NotImplementedError
-naming ROADMAP.md Queue 1 item 11.
+Every bit depth and colour type of the PNG standard is read, interlaced
+or not; a combination outside it raises ValueError.
 
 Rows with Sub, Up or None are undone with whole-row numpy operations (Sub
 as a uint8 cumulative sum along the row, Up as one add to the row above).
@@ -41,9 +57,13 @@ from pathlib import Path
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-SCOPE_ITEM = "ROADMAP.md Queue 1 item 11"
-# colour type -> samples per pixel
-CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# colour type -> samples per pixel, and the bit depths the standard allows
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+          6: (8, 16)}
+# Adam7: each pass's (row start, column start, row step, column step)
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 MIN_SIDE = 10        # the JAX scan's "image size <10 pixels" assert
 
 
@@ -171,11 +191,10 @@ def _unfilter_scheduled(data, ft, bpp):
     return out.reshape(h, stride)
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """The inflated IDAT stream of an 8-bit, non-interlaced image -> (h,
-    w * bpp) uint8 with every row's filter undone."""
-    stride = w * bpp
-    buf = np.frombuffer(raw, np.uint8)
+def _unfilter(buf: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """h filtered rows of `stride` bytes each (their filter-type bytes in
+    front) -> (h, stride) uint8 with every row's filter undone; `bpp` the
+    bytes a pixel takes, at least 1."""
     if buf.size < h * (stride + 1):
         raise ValueError("truncated PNG file (image data)")
     buf = buf[:h * (stride + 1)].reshape(h, stride + 1)
@@ -189,36 +208,118 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str | Path) -> np.ndarray:
-    """Decode a PNG to uint8 in the layout of the JAX package's cv2 branch
-    of `_read_image` (module doc)."""
+def _samples(rows: np.ndarray, w: int, depth: int, spp: int) -> np.ndarray:
+    """Unfiltered rows (h, stride) -> (h, w, spp) samples: uint8 at depths
+    1-8, uint16 at 16 (big-endian in the file)."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows.reshape(h, w, spp)
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, spp)
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
+def _decode(raw: bytes, w: int, h: int, depth: int, spp: int,
+            interlace: int) -> np.ndarray:
+    """The inflated IDAT stream -> (h, w, spp) samples, plain or Adam7."""
+    buf = np.frombuffer(raw, np.uint8)
+    bpp = max(depth * spp // 8, 1)
+    stride = lambda n: (n * depth * spp + 7) // 8
+    if not interlace:
+        return _samples(_unfilter(buf, h, stride(w), bpp), w, depth, spp)
+    out = np.zeros((h, w, spp), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for y0, x0, dy, dx in ADAM7:
+        ph, pw = len(range(y0, h, dy)), len(range(x0, w, dx))
+        if not ph or not pw:
+            continue            # an empty pass holds no rows at all
+        n = ph * (stride(pw) + 1)
+        rows = _unfilter(buf[pos:pos + n], ph, stride(pw), bpp)
+        out[y0::dy, x0::dx] = _samples(rows, pw, depth, spp)
+        pos += n
+    return out
+
+
+def _as_read_image(img: np.ndarray, depth: int, ctype: int,
+                   trns: bool) -> np.ndarray:
+    """Samples -> the layout of JAX's `_read_image` (module doc): cv2's
+    for 8-bit gray / RGB / gray+alpha / RGBA without tRNS, PIL's for the
+    rest."""
+    if depth == 8 and ctype != 3 and not trns:
+        if ctype == 4:          # cv2 widens L, A to B G R A = L L L A
+            return np.ascontiguousarray(img[..., [1, 0, 0, 0]])
+        if ctype == 6:          # B G R A reversed: A R G B
+            return np.ascontiguousarray(img[..., [3, 0, 1, 2]])
+        return img
+    if ctype == 3 or (ctype == 0 and depth in (8, 16)):
+        return img              # palette indices; gray as stored
+    if ctype == 0:              # 1 bit: PIL mode "1"; 2, 4: scaled "L"
+        return (img.astype(bool) if depth == 1
+                else img * np.uint8(255 // ((1 << depth) - 1)))
+    if depth == 16:             # PIL keeps each sample's high byte
+        img = (img >> 8).astype(np.uint8)
+    if ctype == 4:              # PIL widens L, A to R G B A = L L L A
+        img = img[..., [0, 0, 0, 1]]
+    return np.ascontiguousarray(img[..., :3])
+
+
+def _load(path):
+    """(samples (H, W, spp), bit depth, colour type, tRNS present, PLTE
+    payload) of a PNG file."""
     data = Path(path).read_bytes()
-    idat, header = [], None
+    idat, header, trns, plte = [], None, False, b""
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
             header = _ihdr(payload)
         elif kind == b"IDAT":
             idat.append(payload)
-        elif kind in (b"PLTE", b"tRNS"):
-            raise NotImplementedError(
-                f"{path}: PNG with a {kind.decode()} chunk: {SCOPE_ITEM}")
+        elif kind == b"PLTE":
+            plte = payload
+        elif kind == b"tRNS":
+            trns = True
         elif kind == b"IEND":
             break
     if header is None or not idat:
         raise ValueError(f"{path}: broken PNG file (no IHDR or IDAT)")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in CHANNELS or interlace:
-        raise NotImplementedError(
-            f"{path}: PNG bit depth {depth}, colour type {ctype}, interlace "
-            f"{interlace} (8-bit gray / RGB / gray+alpha / RGBA without "
-            f"interlace are read): {SCOPE_ITEM}")
-    cn = CHANNELS[ctype]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, cn).reshape(h, w, cn)
-    if cn == 2:                 # cv2 widens L, A to B G R A = L L L A
-        return np.ascontiguousarray(img[..., [1, 0, 0, 0]])
-    if cn == 4:                 # B G R A reversed: A R G B
-        return np.ascontiguousarray(img[..., [3, 0, 1, 2]])
-    return img
+    if depth not in DEPTHS.get(ctype, ()) or interlace > 1:
+        raise ValueError(f"{path}: broken PNG file (bit depth {depth}, "
+                         f"colour type {ctype}, interlace {interlace})")
+    img = _decode(zlib.decompress(b"".join(idat)), w, h, depth,
+                  CHANNELS[ctype], interlace)
+    return img, depth, ctype, trns, plte
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """Decode a PNG to the layout of the JAX package's `_read_image` (module
+    doc)."""
+    img, depth, ctype, trns, _ = _load(path)
+    return _as_read_image(img, depth, ctype, trns)
+
+
+def read_png_rgb(path: str | Path) -> np.ndarray:
+    """Decode a PNG to (H, W, 3) uint8 RGB as PIL's `convert("RGB")` does:
+    palette indices to their PLTE colours (black past its end), 16-bit
+    gray clipped at 255, other 16-bit samples their high byte, 1-, 2- and
+    4-bit gray scaled to 0-255, gray repeated, alpha and tRNS dropped."""
+    img, depth, ctype, _, plte = _load(path)
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        colours = np.frombuffer(plte, np.uint8)[:768]
+        pal[:len(colours) // 3] = colours[:len(colours) // 3 * 3].reshape(
+            -1, 3)
+        return pal[img[..., 0]]
+    if ctype == 0 and depth == 16:
+        img = np.minimum(img, 255).astype(np.uint8)
+    elif ctype == 0 and depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
+    elif depth == 16:
+        img = (img >> 8).astype(np.uint8)
+    if ctype in (0, 4):
+        return np.ascontiguousarray(np.repeat(img[..., :1], 3, -1))
+    return np.ascontiguousarray(img[..., :3])
 
 
 def write_png(path: str | Path, arr: np.ndarray, filters=1,

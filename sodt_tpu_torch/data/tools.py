@@ -1,0 +1,117 @@
+"""Dataset maintenance tools (`sodt_tpu/data/tools.py`), on the host:
+
+  * flatten_recursive: copy every file of a directory tree into a flat
+    sibling `<path>_flat` directory;
+  * extract_boxes: crop each labelled box into `classifier/<class>/`
+    (a detection set into a classification set), each box padded by
+    1.2x + 3 px and clipped to the image;
+  * autosplit: write autosplit_{train,val,test}.txt, each image assigned
+    to a split by a weighted draw from `random.Random(seed)`.
+
+    python -m sodt_tpu_torch.data.tools {flatten,boxes,autosplit} <path>
+
+`extract_boxes` reads with the port's PNG decoder (`png.read_png_rgb`, as
+PIL's `convert("RGB")`) and writes each crop with its encoder as
+`.png`, where JAX writes JPEG (`.jpg`) through PIL, which the port does
+not import: a stated departure. The crops' pixels are JAX's crop arrays
+before its JPEG encoding. It reads PNG only: another image format raises.
+"""
+
+from __future__ import annotations
+
+import glob
+import random
+import shutil
+from pathlib import Path
+
+import numpy as np
+
+from .png import read_png_rgb, write_png
+from .vedai import derive_label_path
+
+IMG_FORMATS = {"bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp"}
+
+
+def flatten_recursive(path: str) -> Path:
+    """Bring all files of a directory tree to a flat `<path>_flat` dir."""
+    new_path = Path(str(path) + "_flat")
+    shutil.rmtree(new_path, ignore_errors=True)
+    new_path.mkdir(parents=True)
+    for file in glob.glob(str(Path(path)) + "/**/*.*", recursive=True):
+        shutil.copyfile(file, new_path / Path(file).name)
+    return new_path
+
+
+def extract_boxes(path: str) -> Path:
+    """Crop labelled boxes into one directory per class, as PNGs."""
+    path = Path(path)
+    out = path / "classifier"
+    if out.is_dir():
+        shutil.rmtree(out)
+    for im_file in sorted(path.rglob("*.*")):
+        if im_file.suffix[1:].lower() not in IMG_FORMATS:
+            continue
+        lb_file = Path(derive_label_path(str(im_file)))
+        if not lb_file.exists():
+            continue
+        if im_file.suffix.lower() != ".png":
+            raise NotImplementedError(
+                f"{im_file}: the port reads PNG only")
+        im = read_png_rgb(im_file)
+        h, w = im.shape[:2]
+        lb = np.loadtxt(lb_file, ndmin=2, dtype=np.float32)
+        for j, x in enumerate(lb):
+            c = int(x[0])
+            f = out / f"{c}" / f"{path.stem}_{im_file.stem}_{j}.png"
+            f.parent.mkdir(parents=True, exist_ok=True)
+            b = x[1:5] * [w, h, w, h]
+            b[2:] = b[2:] * 1.2 + 3  # pad
+            x1 = int(np.clip(b[0] - b[2] / 2, 0, w))
+            x2 = int(np.clip(b[0] + b[2] / 2, 0, w))
+            y1 = int(np.clip(b[1] - b[3] / 2, 0, h))
+            y2 = int(np.clip(b[1] + b[3] / 2, 0, h))
+            crop = im[y1:y2, x1:x2]
+            if not crop.size:
+                raise ValueError(f"box failure in {f}")
+            write_png(f, crop)
+    return out
+
+
+def autosplit(path: str, weights=(0.9, 0.1, 0.0), seed: int | None = None):
+    """Write autosplit_{train,val,test}.txt assigning each image to a
+    split with the given weights."""
+    path = Path(path)
+    files = sorted(path.rglob("*.*"))
+    rng = random.Random(seed)
+    txt = ["autosplit_train.txt", "autosplit_val.txt",
+           "autosplit_test.txt"]
+    for t in txt:
+        (path / t).unlink(missing_ok=True)
+    for img in files:
+        if img.suffix[1:].lower() not in IMG_FORMATS:
+            continue
+        i = rng.choices([0, 1, 2], weights=weights, k=1)[0]
+        with open(path / txt[i], "a") as f:
+            f.write(str(img) + "\n")
+    return [path / t for t in txt]
+
+
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("cmd", choices=["flatten", "boxes", "autosplit"])
+    p.add_argument("path")
+    p.add_argument("--weights", default="0.9,0.1,0.0")
+    p.add_argument("--seed", type=int, default=None)
+    a = p.parse_args(argv)
+    if a.cmd == "flatten":
+        print(flatten_recursive(a.path))
+    elif a.cmd == "boxes":
+        print(extract_boxes(a.path))
+    else:
+        w = tuple(float(x) for x in a.weights.split(","))
+        print([str(x) for x in autosplit(a.path, w, a.seed)])
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,13 @@
     python -m sodt_tpu_torch.detect --source images/ --input_mode RGB+IR \\
         --weights checkpoints/flagship_r5_150ep_ema.npz --save-txt
 
---source is a PNG file or a folder of them (decoded by the port itself).
+--source is an image or video file, a folder of them, a webcam index, an
+rtsp / rtmp / http(s) URL or a `.streams` list of them. Images are PNGs,
+decoded by the port itself; a video is read frame by frame with cv2
+(imported there; frames named `<file>#<i>`), and a live source through
+`data.streams.StreamSource` (cv2 too) until --max-frames frames (1000 by
+default). Without cv2, as on the card's machine, a video raises
+ImportError and a live source RuntimeError, as in JAX.
 Under RGB+IR a `*_co.png` picks up the `*_ir.png` beside it, and `_ir`
 files are skipped as pair partners. Each image goes through
 `models.infer.Predictor` (device letterbox, one eval step, boxes back in
@@ -14,13 +20,10 @@ native size); --save-img writes `<save-dir>/<stem>.png`, the image with
 its boxes (`utils.plots.plot_images`), where matplotlib is installed, and
 otherwise prints one line saying that no image was written and why. --int8 runs inside `kernels.int8_serving()`, as `val --int8`.
 Weights: --weights (a .npz state_dict or a checkpoint of the port), else a
-torch.Generator seeded with 0. --device defaults to cuda and raises when no
-card is visible; --device cpu runs the plain PyTorch path.
-
-Video files, live streams (webcam index, rtsp / rtmp / http(s) URL,
-`.streams` lists) and --max-frames are refused: they wait for
-`data/streams.py` and a video decoder (ROADMAP.md Queue 1 item 11). Prints
-one line per image and, last, {"images", "detections"}.
+torch.Generator seeded with 0. --device (or --platform, JAX's name)
+defaults to cuda and raises when no card is visible; --device cpu runs the
+plain PyTorch path. Prints one line per image and, last, {"images",
+"detections"}.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 import yaml
 
 from . import resolve_device
+from .data.streams import StreamSource, is_stream_source
 from .data.vedai import _read_image, derive_ir_path
 from .kernels import int8_serving
 from .models import build_model
@@ -50,47 +54,56 @@ VID_EXT = {".mp4", ".avi", ".mov", ".mkv"}
 CH_IN = {"RGB": 3, "IR": 3, "RGB+IR": 4}
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue 1 item 11")
-
-
-def is_stream_source(source: str) -> bool:
-    """Webcam index, URL schemes, or a .streams list file."""
-    s = str(source)
-    return (s.isdigit()
-            or s.lower().startswith(("rtsp://", "rtmp://", "http://",
-                                     "https://"))
-            or s.endswith(".streams"))
-
-
 def iter_sources(source: str, want_ir: bool = False):
-    """Yield (name, rgb uint8 HWC, ir or None) from a file or folder; a
-    video file raises."""
+    """Yield (name, rgb uint8 HWC, ir or None) frames from a file, a
+    folder or a video. Under RGB+IR a `*_co.png` picks up its `*_ir.png`
+    sibling where it exists, and `_ir` files are skipped as pair
+    partners."""
     p = Path(source)
     files = sorted(p.glob("*")) if p.is_dir() else [p]
     for f in files:
-        if f.suffix.lower() in VID_EXT:
-            raise _not_ported(f"video source {f}")
-        if f.suffix.lower() not in IMG_EXT:
-            continue
-        if "_ir" in f.stem and want_ir:
-            continue  # read as a pair partner
-        ir = None
-        if want_ir:
-            irp = Path(derive_ir_path(str(f)))
-            if irp.exists() and irp != f:
-                ir = _read_image(str(irp))
-        yield str(f), _read_image(str(f)), ir
+        if f.suffix.lower() in IMG_EXT:
+            if "_ir" in f.stem and want_ir:
+                continue  # read as a pair partner
+            ir = None
+            if want_ir:
+                irp = Path(derive_ir_path(str(f)))
+                if irp.exists() and irp != f:
+                    ir = _read_image(str(irp))
+            yield str(f), _read_image(str(f)), ir
+        elif f.suffix.lower() in VID_EXT:
+            import cv2
+            cap = cv2.VideoCapture(str(f))
+            i = 0
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                yield f"{f}#{i}", frame[..., ::-1].copy(), None  # BGR -> RGB
+                i += 1
+            cap.release()
+
+
+def iter_stream_frames(source: str, max_frames: int):
+    """Yield (name, rgb, None) from live sources until max_frames."""
+    n = 0
+    with StreamSource(source) as src:
+        for names, frames in src:
+            for name, frame in zip(names, frames):
+                yield f"{name}#{n}", frame, None
+                n += 1
+                if n >= max_frames:
+                    return
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--source", required=True,
-                    help="a PNG file or a folder of PNGs")
-    ap.add_argument("--max-frames", type=int, default=None,
-                    help="not ported: ROADMAP.md Queue 1 item 11")
+                    help="image / folder / video path, webcam index, "
+                         "rtsp/http URL, or .streams list file")
+    ap.add_argument("--max-frames", type=int, default=1000,
+                    help="stop live streams after N frames")
     ap.add_argument("--cfg", default="configs/model.yaml")
     ap.add_argument("--weights", default="")
     ap.add_argument("--data", default="configs/data_vedai.yaml")
@@ -107,7 +120,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-bf16", action="store_false", dest="bf16")
     ap.add_argument("--int8", action="store_true",
                     help="int8 serving (K12), as val --int8")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", "--platform", default="cuda")
     return ap
 
 
@@ -115,10 +128,6 @@ def main(argv=None) -> dict:
     a = parser().parse_args(argv)
     if a.save_img and missing_reason():
         print(f"--save-img: no image written: {missing_reason()}")
-    if a.max_frames is not None:
-        raise _not_ported("--max-frames")
-    if is_stream_source(a.source):
-        raise _not_ported(f"stream source {a.source!r}")
     with int8_serving() if a.int8 else contextlib.nullcontext():
         return _run(a)
 
@@ -145,8 +154,10 @@ def _run(a) -> dict:
     labels = Path(a.save_dir) / "labels"
     labels.mkdir(parents=True, exist_ok=True)
     results = []
-    for name, rgb, ir in iter_sources(a.source,
-                                      want_ir="IR" in a.input_mode):
+    frames = (iter_stream_frames(a.source, a.max_frames)
+              if is_stream_source(a.source)
+              else iter_sources(a.source, want_ir="IR" in a.input_mode))
+    for name, rgb, ir in frames:
         d = predictor([rgb], ir=[ir]).dets[0]
         results.append({"source": name, "n": int(d.shape[0])})
         print(f"{name}: {d.shape[0]} detections")

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import check_method, resize
+from ..parallel.mesh import all_reduce_sum, world_size
 from .swin import Conv
 
 
@@ -43,7 +44,13 @@ class BatchNorm(nn.Module):
     f32, var = max(0, E[x^2] - E[x]^2) (flax's fast variance, biased), and
     running <- momentum * running + (1 - momentum) * batch with that same
     biased variance (flax `momentum=0.97`; torch's BatchNorm2d would store
-    the unbiased estimate)."""
+    the unbiased estimate).
+
+    Under a process group of W > 1 ranks (`parallel.mesh`) the batch is
+    the global one, as under JAX's mesh: the per-channel f32 sums of x and
+    x^2 and the element count are all-reduced with autograd (the backward
+    carries the cross-shard terms), mean and var are formed from the
+    global sums, and every rank updates its running statistics alike."""
 
     def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.97):
         super().__init__()
@@ -56,9 +63,17 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         x32 = x.float()
         mean, var = self.running_mean, self.running_var
-        if self.training:
+        if self.training and world_size() > 1:
+            c = x32.shape[-1]
+            n = x32.new_full((1,), x32.numel() // c)
+            sums = all_reduce_sum(torch.cat([
+                x32.sum(dim=(0, 1, 2)), (x32 * x32).sum(dim=(0, 1, 2)), n]))
+            mean = sums[:c] / sums[-1]
+            var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+        elif self.training:
             mean = x32.mean(dim=(0, 1, 2))
             var = ((x32 * x32).mean(dim=(0, 1, 2)) - mean * mean).clamp_min(0.0)
+        if self.training:
             with torch.no_grad():   # in place: the buffers are the state
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean, alpha=1 - m)

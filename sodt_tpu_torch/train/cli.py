@@ -12,6 +12,8 @@
     python -m sodt_tpu_torch.train --synthetic --img-size 512 --remat \
         --scan-epoch off --wandb
     python -m sodt_tpu_torch.train --synthetic --img-size 256 --evolve 30
+    torchrun --standalone --nproc_per_node 2 -m sodt_tpu_torch.train \
+        --synthetic --img-size 512 --batch-size 8
 
 Takes the JAX `train.py` flags that the port covers under their own names
 and meanings (--weights: initial weights from a checkpoint or a .npz,
@@ -29,10 +31,14 @@ the backward; --wandb: W&B scalars and artifacts where wandb is
 installed; --evolve N: N generations of hyperparameter evolution, each a
 training run in <save-dir>/gen{i}, evolve.txt and hyp_evolved.yaml in
 --save-dir), plus --device (default cuda; raises when no card is visible,
---device cpu runs the plain PyTorch path) and --weights-npz (a state_dict
-loaded strictly, else a seeded initialization). Data: the VEDAI fold lists
-of the --data yaml (`train`, `val`; PNG folders, decoded by the port
-itself), or --synthetic. Prints one metrics JSON line (--evolve: the best
+--device cpu runs the plain PyTorch path; --platform is the same flag
+under JAX's name) and --weights-npz (a state_dict loaded strictly, else a
+seeded initialization). Under torchrun (RANK / WORLD_SIZE / LOCAL_RANK
+set) the run is data-parallel, one process per card (`parallel.mesh`:
+nccl on the card, gloo with --device cpu): --batch-size is the global
+batch, which the process count must divide; rank 0 evaluates and writes
+the files. Data: the VEDAI fold lists of the --data yaml (`train`, `val`;
+PNG folders, decoded by the port itself), or --synthetic. Prints one metrics JSON line (--evolve: the best
 fitness).
 """
 
@@ -43,6 +49,7 @@ import dataclasses
 import json
 from pathlib import Path
 
+import torch.distributed as dist
 import yaml
 
 from .evolve import evolve
@@ -122,7 +129,9 @@ def parser() -> argparse.ArgumentParser:
                    help="evolve the hyperparameters for N generations")
     p.add_argument("--wandb", action="store_true",
                    help="W&B scalars and artifacts (needs wandb)")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", "--platform", default="cuda",
+                   help="cuda (the default; one card a process under "
+                        "torchrun) or cpu")
     return p
 
 
@@ -167,6 +176,16 @@ def main(argv=None, on_step=None, on_grads=None, on_start=None) -> dict:
                          freeze=tuple(s for s in a.freeze.split(",") if s),
                          save_period=a.save_period,
                          weights_npz=a.weights_npz, device=a.device)
+    started = not dist.is_initialized()
+    try:
+        return _run(a, tc, on_step, on_grads, on_start)
+    finally:
+        # a process group that this run started ends with it
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(a, tc, on_step, on_grads, on_start) -> dict:
     if a.evolve > 0:
         best_hyp, best_fit = evolve(tc, generations=a.evolve, seed=tc.seed)
         print(json.dumps({"best_fitness": best_fit}))

@@ -97,12 +97,16 @@ def log_generation(evolve_file: Path, fitness: float, hyp: dict):
 def evolve(base_config, generations: int = 300, seed: int = 0):
     """The evolution loop: `base_config` is a TrainConfig; each generation
     trains in `<save_dir>/gen{N}` with mutated hyperparameters. Returns
-    (best hyp, best fitness)."""
+    (best hyp, best fitness). Under several processes (`parallel.mesh`)
+    every rank draws the same mutations from `seed`, rank 0 alone writes
+    the files, and the others wait for them at a barrier."""
+    from ..parallel.mesh import barrier, is_main
     from .trainer import train
 
     rng = np.random.default_rng(seed)
     save_dir = Path(base_config.save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    if is_main():
+        save_dir.mkdir(parents=True, exist_ok=True)
     evolve_file = save_dir / "evolve.txt"
     with open(resolve_config_path(base_config.hyp)) as f:
         base_hyp = yaml.safe_load(f)
@@ -111,16 +115,23 @@ def evolve(base_config, generations: int = 300, seed: int = 0):
     for gen in range(generations):
         hyp = mutate(base_hyp, evolve_file, rng)
         hyp_path = save_dir / f"hyp_gen{gen}.yaml"
-        hyp_path.write_text(yaml.dump(hyp))
+        if is_main():
+            hyp_path.write_text(yaml.dump(hyp))
+        barrier()
         tc = dataclasses.replace(base_config, hyp=str(hyp_path),
                                  save_dir=str(save_dir / f"gen{gen}"))
         metrics = train(tc)
         fit = float(metrics.get("best_fitness", 0.0))
-        log_generation(evolve_file, fit, hyp)
         if fit > best_fit:
             best_fit, best_hyp = fit, hyp
-            (save_dir / "hyp_evolved.yaml").write_text(yaml.dump(hyp))
-        print(f"evolve gen {gen}: fitness {fit:.4f} (best {best_fit:.4f})")
-    from ..utils.plots import plot_evolution
-    plot_evolution(evolve_file, save_dir / "evolve.png")
+        if is_main():
+            log_generation(evolve_file, fit, hyp)
+            if best_hyp is hyp:
+                (save_dir / "hyp_evolved.yaml").write_text(yaml.dump(hyp))
+            print(f"evolve gen {gen}: fitness {fit:.4f} "
+                  f"(best {best_fit:.4f})")
+        barrier()
+    if is_main():
+        from ..utils.plots import plot_evolution
+        plot_evolution(evolve_file, save_dir / "evolve.png")
     return best_hyp, best_fit

@@ -13,6 +13,14 @@ CIoU box loss; the objectness target is the scatter-MAX of the detached,
 clamped IoU over the slots that land on one (cell, anchor); BCE class loss
 with the cp/cn smoothing hooks; optional focal modulation; the per-level
 obj balance; the total carries `* batch size`.
+
+In the data-parallel train step (`world` W > 1 ranks, `parallel.mesh`)
+each rank holds B / W rows of the global batch, and its loss is its share
+of the global one, so that the ranks' losses sum to it: lbox and lcls divide by the
+global count of positives, max(sum over ranks, 1) (clamped after the
+sum, as JAX's mesh counts them); the objectness mean of each level is
+taken over the rank's rows and divided by W (equal shards); the total
+carries `* global batch size`.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import bbox_iou
+from ..parallel.mesh import all_reduce_tensors
 
 
 def smooth_bce(eps: float = 0.1) -> tuple[float, float]:
@@ -144,13 +153,15 @@ def build_targets_level(targets: torch.Tensor, tmask: torch.Tensor,
 
 
 def compute_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor,
-                 tmask: torch.Tensor, cfg: LossConfig):
+                 tmask: torch.Tensor, cfg: LossConfig, world: int = 1):
     """Total detection loss.
 
     preds: per-level raw outputs (B, ny, nx, na, 5+nc) from Detect;
     targets / tmask as in `build_targets_level`. Returns (total,
-    dict(box=, obj=, cls=)); the total carries the `* batch size` scale."""
-    bsz = preds[0].shape[0]
+    dict(box=, obj=, cls=)); the total carries the `* batch size` scale.
+    `world` > 1: this rank's share of the global loss over that many
+    ranks of the default process group (module doc)."""
+    bsz = preds[0].shape[0] * world
     nc = cfg.nc
     cp, cn = smooth_bce(cfg.label_smoothing)
     dev = preds[0].device
@@ -166,7 +177,10 @@ def compute_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor,
         asn = build_targets_level(targets, tmask, anchors_grid, ny, nx,
                                   cfg.anchor_t)
         pos = asn["pos"]
-        npos = pos.sum().clamp(min=1)
+        if world > 1:
+            npos = all_reduce_tensors([pos.sum().float()])[0].clamp(min=1)
+        else:
+            npos = pos.sum().clamp(min=1)
 
         # gather predictions at the assigned slots
         pf = p.reshape(b, ny * nx * na, no).float()
@@ -193,7 +207,8 @@ def compute_loss(preds: Sequence[torch.Tensor], targets: torch.Tensor,
         if cfg.fl_gamma > 0:
             obj_loss = focal_modulation(obj_logits, tobj, obj_loss,
                                         cfg.fl_gamma)
-        lobj = lobj + obj_loss.mean() * cfg.balance[li]
+        obj_mean = obj_loss.mean() if world == 1 else obj_loss.mean() / world
+        lobj = lobj + obj_mean * cfg.balance[li]
 
         # classification loss at the positives
         if nc > 1:

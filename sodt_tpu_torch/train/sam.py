@@ -24,12 +24,17 @@ the port runs that composition as the wrapper lays it out.)
 touches a model, so BatchNorm statistics are the caller's (opaque mode:
 the caller's forward at p_adv decides whether they update). JAX wires
 SAM into no trainer, and neither does the port.
+
+Under a process group of W > 1 ranks (`parallel.mesh`) `grads` and what
+`grad_fn` returns are this rank's shares, and both are summed over the
+ranks before they are used: the ascent's norm is the global gradient's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import all_reduce_dict
 from .optim import (Optimizer, lr_schedules, param_labels,
                     warmup_accumulate_plan, warmup_iters_of)
 
@@ -52,6 +57,7 @@ class SAM:
                 for k, g in grads.items()}
 
     def update(self, grads: dict, params: dict, *, grad_fn) -> dict | None:
+        grads = all_reduce_dict(grads)
         if self.gate_fn is not None:
             self.acc = (dict(grads) if self.acc is None
                         else {k: self.acc[k] + g for k, g in grads.items()})
@@ -62,7 +68,8 @@ class SAM:
                 return None
             grads, self.acc = self.acc, None
         self.just_stepped = True
-        adv_grads = grad_fn(self.adversarial_params(grads, params), 0)
+        adv_grads = all_reduce_dict(grad_fn(self.adversarial_params(grads,
+                                                                    params), 0))
         return self.base.update(adv_grads, params)
 
 

@@ -18,6 +18,16 @@ No GradScaler: bf16 keeps the f32 exponent range.
 steps, fed from a schedule uploaded to the device once, with the metrics
 kept on the device and fetched once a chunk, so that the host never
 waits on the card between steps.
+
+Data parallelism (`parallel.mesh`, W > 1 ranks): each rank runs the step
+on its B / W rows; the loss is its share of the global loss
+(`loss.compute_loss`), the gradients are summed over the ranks in one
+all-reduce a dtype before `on_grads` and the optimizer (an accumulation
+then sums global micro-step gradients, as JAX's does), and the metrics
+are summed, so every rank logs the global values and takes the same
+update. The model is not wrapped in DistributedDataParallel: the step
+takes its gradients with `torch.autograd.grad`, which DDP's reducer does
+not see. `make_epoch_scan` gives each rank its rows of every step.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import all_reduce_dict, all_reduce_tensors, shard_rows, \
+    world_size
 from .loss import LossConfig, compute_loss
 from .optim import Optimizer, ema_update
 
@@ -104,14 +116,19 @@ def make_train_step(model: nn.Module, tx: Optimizer, loss_cfg: LossConfig, *,
             img_in = resize_bilinear(img, size)
             ir_in = resize_bilinear(ir, size) if ir is not None else None
         out = model(img_in, ir_in)
+        world = world_size()
         total, parts = compute_loss(out["raw"], batch["targets"],
-                                    batch["tmask"], loss_cfg)
+                                    batch["tmask"], loss_cfg, world)
         if sr and "sr" in out:
             sr_loss = sr_l1(out["sr"].float(), img, ir, model.input_mode)
+            if world > 1:       # a mean over equal shards
+                sr_loss = sr_loss / world
             total = total + sr_loss
             parts = dict(parts, sr=sr_loss)
         names = list(params)
         gs = torch.autograd.grad(total, [params[k] for k in names])
+        if world > 1:
+            gs = all_reduce_tensors(list(gs))
         grads = {k: (torch.zeros_like(g) if k in frozen else g)
                  for k, g in zip(names, gs)}
         if on_grads is not None:
@@ -128,6 +145,8 @@ def make_train_step(model: nn.Module, tx: Optimizer, loss_cfg: LossConfig, *,
         state.step += 1
         metrics = {"loss": total.detach(),
                    **{k: v.detach() for k, v in parts.items()}}
+        if world > 1:
+            metrics = all_reduce_dict(metrics)
         return state, metrics
 
     return train_step
@@ -142,11 +161,17 @@ def make_epoch_scan(train_step, feed):
     each step's metrics stay on the device, stacked into `metrics`, a
     (K, len(keys)) f32 tensor on the device that the caller fetches once.
     Nothing between two steps reads a device value on the host, except
-    `on_step(state, step_metrics)` where a caller passes one."""
+    `on_step(state, step_metrics)` where a caller passes one.
+
+    Under W > 1 ranks each rank augments and trains on its rows of every
+    step of the global schedule (JAX's sharding constraint on the
+    augmented batch; the augmentation is per sample)."""
 
     def epoch_fn(state, prim, sec, draws, on_step=None):
         dev = feed.device
-        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        mine = shard_rows(prim.shape[1])
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a[:, mine])).to(
+            dev)
         p, d = up(prim), up(draws)
         q = None if sec is None else up(sec)
         rows = []

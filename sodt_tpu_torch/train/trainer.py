@@ -53,6 +53,15 @@ installed. `remat` checkpoints the encoder's Swin blocks
 (`models.backbone.ImageEncoderViT`). `weights` may be a URL
 (`utils.downloads.attempt_download`); `resume` may name a W&B artifact.
 Hyperparameter evolution is `train.evolve.evolve` around `train`.
+
+Data parallelism over processes (`parallel.mesh`: started by torchrun,
+one process per card, `batch_size` the global batch): each rank feeds and
+trains on its B / W rows of every step, with JAX's feed choice at W in
+place of JAX's device and process counts (the epoch path only where W
+divides the batch; a batch that W does not divide, and --rect at W > 1,
+raise). Rank 0 alone evaluates the EMA on the whole validation set (JAX's
+eval is not sharded) and writes the logs, plots and checkpoints; the
+other ranks wait at a barrier and take rank 0's metrics.
 """
 
 from __future__ import annotations
@@ -74,6 +83,8 @@ from ..data.loader import (make_bank_feed, make_rect_train_batches,
                            make_train_batches)
 from ..models import build_model
 from ..models.compiler import parse_config
+from ..parallel.mesh import (barrier, broadcast_object, init_from_env,
+                             replicate_tree)
 from ..utils.autoanchor import check_anchors
 from ..utils.downloads import attempt_download
 from ..utils.general import (labels_to_class_weights, labels_to_image_weights,
@@ -219,20 +230,30 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     steps), `on_grads(grads)` with every step's gradients
     (`make_train_step`)."""
     dev = resolve_device(tc.device)
+    mesh = init_from_env(dev)
+    dev, world, main = mesh.device(dev), mesh.world, mesh.rank == 0
+    if tc.batch_size % world:
+        raise ValueError(f"batch_size {tc.batch_size} not divisible by "
+                         f"process_count {world}")
     if tc.rect and (tc.multi_scale or tc.image_weights):
         raise ValueError("--rect is incompatible with --multi-scale and "
                          "--image-weights (rect disables mosaic)")
+    if tc.rect and world > 1:
+        # each rank's aspect-ratio groups would give it its own shape
+        raise ValueError("--rect is single-host only")
     save_dir = Path(tc.save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
     with open(resolve_config_path(tc.hyp)) as f:
         hyp = yaml.safe_load(f)
     with open(resolve_config_path(tc.data)) as f:
         data_cfg = yaml.safe_load(f)
     nc = 1 if tc.single_cls else int(data_cfg.get("nc", 8))
-    (save_dir / "hyp.yaml").write_text(yaml.safe_dump(hyp))
-    (save_dir / "opt.yaml").write_text(yaml.safe_dump(
-        {k: (list(v) if isinstance(v, tuple) else v)
-         for k, v in dataclasses.asdict(tc).items()}))
+    if main:
+        (save_dir / "hyp.yaml").write_text(yaml.safe_dump(hyp))
+        (save_dir / "opt.yaml").write_text(yaml.safe_dump(
+            {k: (list(v) if isinstance(v, tuple) else v)
+             for k, v in dataclasses.asdict(tc).items()}))
     dtype = torch.bfloat16 if tc.bf16 else torch.float32
 
     train_ds, val_ds = _datasets(tc, data_cfg, nc)
@@ -250,7 +271,7 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
             model.state_dict(), attempt_download(tc.weights))
         model.load_state_dict(sd)
         print(f"pretrained: {n_hit}/{n_all} arrays from {tc.weights}")
-    model = model.to(dev)
+    model = replicate_tree(model.to(dev))
     # rect yields ceil(n / bs) groups an epoch (the tail group padded by
     # cycling); the other feeds drop the remainder
     nb = (max(-(-len(train_ds) // tc.batch_size), 1) if tc.rect
@@ -277,8 +298,8 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     print(f"model {tc.cfg} ({nparams / 1e6:.2f}M params), device {dev}, "
           f"nb={nb}/epoch, accumulate={accumulate}")
 
-    logger = RunLogger(save_dir, config=dataclasses.asdict(tc),
-                       use_wandb=tc.wandb)
+    logger = (RunLogger(save_dir, config=dataclasses.asdict(tc),
+                        use_wandb=tc.wandb) if main else _Silent())
     if logger.lifecycle.active:
         logger.lifecycle.log_dataset(data_cfg)
     # the logged learning rates and LR.png read the schedules at the
@@ -286,11 +307,12 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     lr_w, lr_b, _, _ = lr_schedules(hyp, tc.epochs, nb,
                                     linear_lr=tc.linear_lr,
                                     accumulate=accumulate)
-    plot_lr_schedule((lr_w, lr_b), max(tc.epochs * nb // accumulate, 2),
-                     save_dir / "LR.png")
     labelled = [l for l in train_ds.labels if len(l)]
-    if labelled:
-        plot_labels(np.concatenate(labelled), save_dir, nc)
+    if main:
+        plot_lr_schedule((lr_w, lr_b), max(tc.epochs * nb // accumulate, 2),
+                         save_dir / "LR.png")
+        if labelled:
+            plot_labels(np.concatenate(labelled), save_dir, nc)
 
     maps = np.zeros(nc)
     cw0 = labels_to_class_weights(train_ds.labels, nc)
@@ -303,19 +325,22 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     weights_fn = sample_weights if tc.image_weights else None
     # JAX's choice: the epoch path where the bank fits (or is forced), else
     # the per-step feeds; each is positioned at the resumed step
+    shards = dict(process_index=mesh.rank, process_count=world)
     feed = None
-    if tc.scan_epoch is not False and not tc.multi_scale and not tc.rect:
+    if (tc.scan_epoch is not False and not tc.multi_scale and not tc.rect
+            and tc.batch_size % world == 0):
         feed = make_bank_feed(
             train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
             m0=MAX_LABELS, sample_weights_fn=weights_fn, device=dev,
             start_step=start_epoch * nb,
-            device_bank=True if tc.scan_epoch else None)
+            device_bank=True if tc.scan_epoch else None, **shards)
     if feed is not None:
         epoch_fn = make_epoch_scan(step_fn, feed)
         batches = None
         print(f"feed: device bank ({len(train_ds)} tiles in HBM), "
-              f"epoch-scan dispatch over 1 device(s), 1 process(es), "
-              f"tile source: {feed.source.name} ({feed.source.why})")
+              f"epoch-scan dispatch over {world} device(s), {world} "
+              f"process(es), tile source: {feed.source.name} "
+              f"({feed.source.why})")
     elif tc.rect:
         batches = make_rect_train_batches(
             train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
@@ -326,7 +351,7 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
             train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
             max_labels_per_image=MAX_LABELS, multi_scale=tc.multi_scale,
             device=dev, start_step=start_epoch * nb,
-            sample_weights_fn=weights_fn)
+            sample_weights_fn=weights_fn, **shards)
     if on_start is not None:
         on_start(state)
 
@@ -386,10 +411,12 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
         is_final = epoch == tc.epochs - 1
         if is_final or (not tc.notest and (epoch + 1) % tc.eval_every == 0):
             t0 = time.time()
-            metrics_out = evaluate(
-                ema_model(state),
-                make_eval_batches(val_ds, tc.batch_size, tc.img_size),
-                nc=nc, img_size=tc.img_size, device=dev)
+            if main:
+                metrics_out = evaluate(
+                    ema_model(state),
+                    make_eval_batches(val_ds, tc.batch_size, tc.img_size),
+                    nc=nc, img_size=tc.img_size, device=dev)
+            metrics_out = broadcast_object(metrics_out)
             fit = fitness_from_metrics(metrics_out)
             for c, v in metrics_out["per_class"].items():
                 if c < nc:
@@ -405,11 +432,14 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
             best_fitness = max(best_fitness, fit)
             # ties refresh best too: the latest equal wins
             is_best = fit >= best_fitness
-            t_fetch, t_write = _save(
-                save_dir, state, tc, epoch, best_fitness, is_best=is_best,
-                is_final=is_final,
-                extra={"wandb_id": logger.wandb_id} if logger.wandb_id
-                else None)
+            t_fetch = t_write = 0.0
+            if main:
+                t_fetch, t_write = _save(
+                    save_dir, state, tc, epoch, best_fitness,
+                    is_best=is_best, is_final=is_final,
+                    extra={"wandb_id": logger.wandb_id} if logger.wandb_id
+                    else None)
+            barrier()
             logger.log_scalars({"wall/ckpt_fetch": t_fetch,
                                 "wall/ckpt_write": t_write}, epoch)
             if logger.lifecycle.active:
@@ -423,12 +453,14 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
                      + " ".join(f"{k}={int(v)}" if k == "chunk"
                                 else f"{k}={v:.2f}s"
                                 for k, v in wall.items()) + "]")
-        print(line)
-        with open(save_dir / "results.txt", "a") as f:
-            f.write(line + "\n")
+        if main:
+            print(line)
+            with open(save_dir / "results.txt", "a") as f:
+                f.write(line + "\n")
         history.append(mean_losses)
     logger.close()
-    plot_results(save_dir / "events.jsonl", save_dir / "results.png")
+    if main:
+        plot_results(save_dir / "events.jsonl", save_dir / "results.png")
     metrics_out["train_time_s"] = time.time() - t_start
     metrics_out["losses"] = history
     metrics_out["steps"] = state.step
@@ -436,6 +468,19 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     metrics_out["device"] = (torch.cuda.get_device_name(dev)
                              if dev.type == "cuda" else "cpu")
     return metrics_out
+
+
+class _Silent:
+    """The run logger of a rank other than 0: it writes nothing."""
+    wandb_id = None
+
+    class lifecycle:
+        active = False
+
+    def log_epoch(self, *a, **k):
+        pass
+
+    log_scalars = close = log_epoch
 
 
 def _save(save_dir: Path, state, tc: TrainConfig, epoch: int,

@@ -28,7 +28,8 @@ def test_port_imports_no_jax():
                 "models.infer", "train.tta", "utils.xlsx", "train.evolve",
                 "train.sam", "utils.loggers", "utils.wandb_utils",
                 "utils.plots", "utils.profiler", "utils.downloads",
-                "utils.general"):
+                "utils.general", "parallel.mesh", "data.streams",
+                "data.tools", "utils.torch_import", "ops.wbf"):
         assert f"sodt_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -71,3 +72,16 @@ def test_val_cli_runs_on_cpu_when_asked(tmp_path, capsys):
                   "--batch-size", "1", "--device", "cpu", "--no-bf16",
                   "--save-dir", str(tmp_path)])
     assert s["ms_per_image"] > 0
+
+
+def test_multi_process_train_raises_without_cuda(monkeypatch, tmp_path):
+    """Under torchrun's variables, with no card and no --device cpu, the
+    trainer raises before it starts a process group: no gloo fallback."""
+    import torch.distributed as dist
+    from sodt_tpu_torch.train import cli
+    for k, v in {"RANK": "0", "WORLD_SIZE": "2", "LOCAL_RANK": "0"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--synthetic", "--save-dir", str(tmp_path)])
+    assert not dist.is_initialized()

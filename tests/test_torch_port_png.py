@@ -162,14 +162,23 @@ def test_verify_flags_what_pil_flags(tmp_path):
 
 
 def test_out_of_scope_pngs_raise(tmp_path):
-    """16-bit and palette PNGs raise, naming the ROADMAP item."""
-    p16 = tmp_path / "deep.png"
-    cv2.imwrite(str(p16), np.full((12, 12), 1000, np.uint16))
-    pal = tmp_path / "pal.png"
-    Image.fromarray(_image("rgb")).convert("P").save(pal)
-    for p in (p16, pal):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    """What the PNG standard does not define raises ValueError in the
+    port, as PIL refuses it too: a palette at 16 bits, colour type 5, gray
+    at 3 bits. (16-bit and palette images, once
+    refused here, are read: tests/test_torch_port_item11.py.)"""
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+    for depth, ctype, interlace in ((16, 3, 0), (8, 5, 0), (3, 0, 0)):
+        p = tmp_path / f"bad{depth}_{ctype}_{interlace}.png"
+        ihdr = struct.pack(">IIBBBBB", 12, 12, depth, ctype, 0, 0, interlace)
+        p.write_bytes(png.SIGNATURE + chunk(b"IHDR", ihdr)
+                      + chunk(b"IDAT", zlib.compress(bytes(12 * 80)))
+                      + chunk(b"IEND", b""))
+        with pytest.raises(ValueError, match="broken PNG file"):
             png.read_png(p)
+        with pytest.raises(Exception):
+            np.asarray(Image.open(p))
 
 
 # the factors of `_resize_longest`: r = 1, 1/2, 1/4, 1/8 (INTER_AREA on

@@ -14,6 +14,7 @@ precision).
 """
 
 import importlib.util
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -210,26 +211,38 @@ def test_torch_detect_cli_matches_jax_loop(served, tmp_path, capsys):
     (["--source", "cams.streams"], "stream source"),
     (["--source", "VIDEO"], "video source"),
 ], ids=["save_img", "max_frames", "webcam", "rtsp", "streams", "video"])
-def test_torch_detect_refuses_unported_sources(tmp_path, args, what):
-    """Streams, video and --max-frames are refused, naming the Queue 1 item
-    they wait for; --save-img (`what` None) is ported and writes the image
-    with its boxes beside the labels."""
-    if what is None:
-        cfg = tmp_path / "narrow.yaml"
-        cfg.write_text(yaml.safe_dump(NARROW_CFG))
-        write_png(tmp_path / "a.png", np.zeros((40, 60, 3), np.uint8))
-        detect.main(["--source", str(tmp_path / "a.png"), "--cfg", str(cfg),
-                     "--device", "cpu", "--no-bf16", "--img-size", "64",
-                     "--input_mode", "RGB+IR", "--save-dir",
-                     str(tmp_path / "out")] + args)
-        assert (tmp_path / "out" / "a.png").stat().st_size > 0
-        return
-    (tmp_path / "clip.mp4").write_bytes(b"")
+def test_torch_detect_refuses_unported_sources(tmp_path, monkeypatch, args,
+                                               what):
+    """Streams, video and --max-frames, once refused here, are ported: on
+    a machine without cv2 (the card's; cv2 hidden here) a live source
+    raises JAX's RuntimeError and a video JAX's ImportError, after the
+    model is built, as in JAX; --max-frames is taken (1000 by default).
+    --save-img (`what` None) writes the image with its boxes beside the
+    labels. The live sources with cv2 are in test_torch_port_item11.py."""
     cfg = tmp_path / "narrow.yaml"
     cfg.write_text(yaml.safe_dump(NARROW_CFG))
-    argv = ["--source", str(tmp_path), "--cfg", str(cfg), "--device", "cpu",
-            "--no-bf16", "--save-dir", str(tmp_path / "out")]
+    write_png(tmp_path / "a.png", np.zeros((40, 60, 3), np.uint8))
+    common = ["--cfg", str(cfg), "--device", "cpu", "--no-bf16",
+              "--img-size", "64", "--input_mode", "RGB+IR", "--save-dir",
+              str(tmp_path / "out")]
+    if what is None:
+        detect.main(["--source", str(tmp_path / "a.png")] + common + args)
+        assert (tmp_path / "out" / "a.png").stat().st_size > 0
+        return
+    assert detect.parser().parse_args(["--source", "x"]).max_frames == 1000
+    if what == "--max-frames":
+        out = detect.main(["--source", str(tmp_path / "a.png")] + common
+                          + args)
+        assert out["images"] == 1
+        return
+    (tmp_path / "clip.mp4").write_bytes(b"")
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    argv = ["--source", str(tmp_path)] + common
     argv += [a.replace("VIDEO", str(tmp_path / "clip.mp4")) for a in args]
-    with pytest.raises(NotImplementedError,
-                       match=f"{what}.*Queue 1 item 11"):
-        detect.main(argv)
+    if what == "video source":
+        with pytest.raises(ImportError):
+            detect.main(argv)
+    else:
+        with pytest.raises(RuntimeError,
+                           match="stream sources need OpenCV"):
+            detect.main(argv)
