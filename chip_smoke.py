@@ -154,6 +154,25 @@ the final ok line:
               sodt_tpu_torch.detect` over the 1024 px pairs with --save-txt
               (one label file a pair, per-image counts equal to the
               Predictor's on the same decoded pairs)
+     eval_runner  the whole-pass eval (`train.evaluate.EvalRunner`) on
+              the trained flagship at 512 px, batch 4, bf16, over
+              SyntheticVedai(n=32, seed=1) (8 batches; predictions printed
+              first): (a) the pass's detections bit-equal to the per-batch
+              path's and its metrics equal, the ms a batch of each; (b) the
+              issue loop under torch.cuda.set_sync_debug_mode("error"), the
+              one fetch outside it, plain and TTA; (c) one runner over the
+              trained weights, then the same weights with biases, BN
+              statistics and rel-pos tables moved: the second call equal
+              (metrics, and detections bit for bit) to a runnerless eval of
+              those weights; (d) stack_cache: the second call leaves a
+              poisoned iterator untouched; (e) int8 serving through the
+              runner equal to its per-batch path; (f) `train` at 128 px,
+              2 epochs, --save-period 1, deterministic algorithms: its
+              asynchronously written epoch0.pt bit-equal to last.pt of a
+              1-epoch run, the epoch's blocking checkpoint wall beside the
+              synchronous save's and the snapshot's device memory; (g) the
+              pass's launches, PER_FORWARD x 8 (`launches_runner` in the
+              kernels line); the phase's seconds
      mono     `val --cfg model_mono.yaml --input_mode RGB` on the main
               path's arguments (the flagship's Swin stages behind one RGB
               patch embed, full width and depth): MONO_FORWARD launches (K13
@@ -243,8 +262,8 @@ the final ok line:
               the device times that then fell back to CUDA events (a
               kernel row names its own in `cuda_event_fallbacks`)
   6. the {"kernels": [...]} line (each entry also with its launches on
-     the `remat` and `sam` runs, and on rank 0's step of `ddp` at world
-     size 2), the card line, the ok line.
+     the `remat` and `sam` runs, on rank 0's step of `ddp` at world size 2,
+     and on one whole pass of `eval_runner`), the card line, the ok line.
 
 Needs a CUDA card; exits 1 without one and 2 when the port is missing.
 """
@@ -2192,17 +2211,22 @@ def phase_autoanchor(label: str, workdir: Path) -> dict:
 @contextlib.contextmanager
 def counting_syncs():
     """Count the host's reads of device values while the context is open
-    and `count["on"]`: torch.cuda.synchronize, and on a CUDA tensor
+    and `count["on"]`, on the thread that opened it (the training loop's;
+    the trainer's checkpoint worker fetches its snapshot on a thread and a
+    stream of its own): torch.cuda.synchronize, and on a CUDA tensor
     Tensor.item, float / int / bool of it, Tensor.cpu and Tensor.tolist."""
+    import threading
     import torch
     count, patched = {"n": 0, "on": True}, []
+    loop = threading.get_ident()
 
     def wrap(owner, name, cuda_only: bool):
         orig = getattr(owner, name)
 
         def counted(*a, **k):
-            if count["on"] and (not cuda_only or getattr(a[0], "is_cuda",
-                                                         False)):
+            if (count["on"] and threading.get_ident() == loop
+                    and (not cuda_only or getattr(a[0], "is_cuda",
+                                                  False))):
                 count["n"] += 1
             return orig(*a, **k)
         setattr(owner, name, counted)
@@ -2232,13 +2256,15 @@ def deterministic():
 
 def _scan_run(flag: str, workdir: Path, hyp_path: Path, tag: str) -> dict:
     """One `train --scan-epoch <flag>` run of SCAN_ARGS: its host syncs
-    outside the evals and checkpoint writes (whose timers are taken out of
-    the training time), the syncs between consecutive steps of a chunk,
-    the per-step launch counts, the epoch losses and the final state."""
+    outside the evals and the checkpoints' blocking parts on the loop's
+    thread (their timers are taken out of the training time), the syncs
+    between consecutive steps of a chunk, the per-step launch counts, the
+    epoch losses and the final state."""
     from sodt_tpu_torch import kernels
     from sodt_tpu_torch.train import trainer
     seen = {"at": [], "counts": [], "state": None, "paused_s": 0.0}
-    real_eval, real_save = trainer.evaluate, trainer._save
+    saver = trainer._Saver
+    real_eval, real_save = trainer.evaluate, (saver.submit, saver.wait)
     with counting_syncs() as count:
         def paused(fn):
             def run(*a, **k):
@@ -2255,7 +2281,8 @@ def _scan_run(flag: str, workdir: Path, hyp_path: Path, tag: str) -> dict:
             seen["at"].append(count["n"])
             seen["counts"].append(kernels.launches())
             seen["state"] = state
-        trainer.evaluate, trainer._save = paused(real_eval), paused(real_save)
+        trainer.evaluate = paused(real_eval)
+        saver.submit, saver.wait = map(paused, real_save)
         kernels.reset_launches()
         try:
             t0 = time.perf_counter()
@@ -2264,7 +2291,8 @@ def _scan_run(flag: str, workdir: Path, hyp_path: Path, tag: str) -> dict:
                 str(workdir / f"scan_{tag}")], on_step=on_step)
             wall = time.perf_counter() - t0
         finally:
-            trainer.evaluate, trainer._save = real_eval, real_save
+            trainer.evaluate = real_eval
+            saver.submit, saver.wait = real_save
         syncs = count["n"]
     per_chunk = SCAN_STEPS // SCAN_CHUNKS
     between = [b - a for i, (a, b) in enumerate(zip(seen["at"],
@@ -3009,13 +3037,16 @@ def _distinct_scale_seed() -> tuple[int, list[int]]:
     """The first seed whose multi-scale stream draws the three buckets in
     its first three steps, and the sizes it should give at 512 px (the run
     is held to the sizes its forwards saw)."""
+    import inspect
     import numpy as np
-    from sodt_tpu_torch.data.loader import MULTI_SCALE
+    from sodt_tpu_torch.data.loader import make_train_batches
+    buckets = inspect.signature(make_train_batches).parameters[
+        "multi_scale_buckets"].default
     for seed in range(100):
         rng = np.random.default_rng(seed)
-        draws = [int(rng.integers(len(MULTI_SCALE))) for _ in range(3)]
+        draws = [int(rng.integers(len(buckets))) for _ in range(3)]
         if len(set(draws)) == 3:
-            return seed, [int(round(512 * MULTI_SCALE[d] / 32) * 32)
+            return seed, [int(round(512 * buckets[d] / 32) * 32)
                           for d in draws]
     raise RuntimeError("no seed draws three distinct buckets")
 
@@ -3622,6 +3653,25 @@ EXTRAS_PREDICTED = {
     "detect_wall_ms_per_image": "200-400"}
 
 
+# phase eval_runner: the whole-pass eval (`train.evaluate.EvalRunner`) on
+# the trained flagship at 512 px, batch 4, bf16, over 8 batches
+RUNNER_N = 32
+RUNNER_BATCHES = RUNNER_N // MAIN_BATCH
+RUNNER_SEED = 11           # the second weight set's perturbation
+RUNNER_PREDICTED = {
+    "whole_pass_over_per_batch_ms_a_batch": [0.85, 1.0],
+    "why": "the host still issues ~292 forward launches and ~2,400 of the "
+           "NMS loop a batch; the pass removes one wait a batch, not the "
+           "launches (a CUDA graph over the pass is the later gain)",
+    "async_blocking_ckpt": "falls from fetch + write to the snapshot alone",
+}
+# the asynchronous save: the flagship at 128 px, 8 images, batch 4 (2 steps
+# an epoch), the flat one-cycle schedule (lrf 1) so that epoch 0 of a
+# 2-epoch run is the whole of a 1-epoch run
+ASYNC_ARGS = ["--synthetic", "--synthetic-n", "8", "--img-size", "128",
+              "--batch-size", "4", "--nbs", "4", "--noautoanchor"]
+
+
 def _trained_model(dtype, path: str = TRAINED_NPZ):
     import torch
     from sodt_tpu_torch.models import build_model
@@ -3967,6 +4017,269 @@ def phase_eval_extras(label: str, workdir: Path, folders: dict) -> dict:
     return row
 
 
+def _stacked(blist) -> tuple:
+    import numpy as np
+    import torch
+    up = lambda k: torch.from_numpy(np.stack([b[k] for b in blist])).cuda()
+    return up("img"), up("ir"), up("targets"), up("tmask")
+
+
+def _per_batch_dets(step, blist) -> list:
+    """The per-batch path's detections: the step and a fetch a batch."""
+    import torch
+    out = []
+    for b in blist:
+        d, v, _ = step(*(torch.from_numpy(b[k]).cuda() for k in ("img",
+                                                                "ir")))
+        out.append((d.cpu().numpy(), v.cpu().numpy()))
+    return out
+
+
+def _pass_dets(step, blist, runner=None) -> list:
+    """The whole pass's detections, batch by batch."""
+    import torch
+    from sodt_tpu_torch.train import evaluate as ev
+    got, _ = ev._try_scan_eval(step, iter(blist), True, torch.device("cuda"),
+                               runner)
+    return [b["_results"][:2] for b in got]
+
+
+def _same_dets(a: list, b: list) -> bool:
+    import numpy as np
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+        for x, y in zip(a, b))
+
+
+def _same_map(a: dict, b: dict) -> bool:
+    keys = set(a) - {"speed_ms"}
+    return keys == set(b) - {"speed_ms"} and all(a[k] == b[k] for k in keys)
+
+
+def _issue_unsynced(runner, stacks) -> tuple:
+    """The runner's whole pass with the CUDA sync debug mode at "error"
+    around the issue loop (a synchronizing call raises); the one fetch
+    after it. Returns the fetched detections and the launch counts of the
+    pass."""
+    import torch
+    from sodt_tpu_torch import kernels
+    run = runner.scan_fn()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dets, valid, _ = run(*stacks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = kernels.launches()
+    return dets.cpu().numpy(), valid.cpu().numpy(), counts
+
+
+def _runner_weights(seed: int) -> dict:
+    """The trained weights with biases and BatchNorm statistics moved
+    (`perturb_state`) and every rel-pos table moved by 0.1 x N(0, 1): the
+    runner's cached biases and bf16 kernel weights both go stale."""
+    import torch
+    from sodt_tpu_torch.train.checkpoint import load_weights
+    sd = perturb_state(load_weights(TRAINED_NPZ), seed)
+    g = torch.Generator().manual_seed(seed)
+    for k in sorted(sd):
+        if k.endswith("relative_position_bias_table"):
+            sd[k].add_(0.1 * torch.randn(sd[k].shape, generator=g))
+    return sd
+
+
+def _async_save(workdir: Path) -> tuple[dict, bool]:
+    """(f): `train` at 128 px, 2 epochs, --save-period 1, deterministic
+    algorithms; its epoch0.pt against last.pt of the same run cut to 1
+    epoch, bit for bit. Beside it the epoch's blocking checkpoint wall
+    (events.jsonl wall/ckpt) and the worker's fetch / write, and on the
+    final state the synchronous save (fetch + write, as before the worker)
+    and the snapshot alone, with the snapshot's device memory."""
+    import torch
+    import yaml
+    from sodt_tpu_torch.models.compiler import resolve_config_path
+    from sodt_tpu_torch.train.checkpoint import (checkpoint_tree,
+                                                 load_checkpoint,
+                                                 snapshot_tree,
+                                                 write_checkpoint)
+    hyp = yaml.safe_load(Path(resolve_config_path(
+        "configs/hyp.scratch.yaml")).read_text())
+    workdir = Path(tempfile.mkdtemp(prefix="async_", dir=workdir))
+    hyp_path = workdir / "hyp_async.yaml"
+    hyp_path.write_text(yaml.safe_dump(dict(hyp, warmup_iters=4, lrf=1.0)))
+    kept = {}
+    runs = {}
+    with deterministic():
+        for epochs in (2, 1):
+            d = workdir / f"epochs_{epochs}"
+            runs[epochs] = d
+            _train_cli(ASYNC_ARGS + ["--epochs", str(epochs), "--save-period",
+                                     "1", "--hyp", str(hyp_path),
+                                     "--save-dir", str(d)],
+                       on_step=lambda s, m: kept.update(state=s))
+            if epochs == 2:
+                state = kept["state"]
+    a = load_checkpoint(runs[2] / "epoch0.pt")
+    b = load_checkpoint(runs[1] / "last.pt")
+    same = lambda x, y: set(x) == set(y) and all(torch.equal(x[k], y[k])
+                                                  for k in x)
+    opt_same = all(
+        (a["opt_state"][f] is None) == (b["opt_state"][f] is None)
+        and same(a["opt_state"][f] or {}, b["opt_state"][f] or {})
+        for f in ("acc", "trace", "nu"))
+    bit_equal = (same(a["model"], b["model"]) and same(a["ema"], b["ema"])
+                 and opt_same and all(a[k] == b[k] for k in (
+                     "step", "ema_updates", "epoch", "best_fitness"))
+                 and a["opt_state"]["count"] == b["opt_state"]["count"])
+    with open(runs[2] / "events.jsonl") as f:
+        ev = [json.loads(x) for x in f]
+    at = lambda key, e: next(r[key] for r in ev
+                             if r.get("step") == e and key in r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    write_checkpoint(workdir / "sync.pt",
+                     checkpoint_tree(state, epoch=1, best_fitness=0.0))
+    sync_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    snap = snapshot_tree(state, epoch=1, best_fitness=0.0)
+    snap_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    snap_bytes = torch.cuda.memory_allocated() - mem0
+    del snap
+    nparams = sum(p.numel() for p in state.model.parameters())
+    row = {"args": ASYNC_ARGS, "epoch0_equals_1_epoch_last": bit_equal,
+           "blocking_ckpt_s": {e: at("wall/ckpt", e) for e in (0, 1)},
+           "worker_fetch_s": {e: at("wall/ckpt_fetch", e) for e in (0, 1)},
+           "worker_write_s": {e: at("wall/ckpt_write", e) for e in (0, 1)},
+           "sync_save_s": sync_s, "snapshot_s": snap_s,
+           "snapshot_device_bytes": snap_bytes, "params": nparams,
+           "step": a["step"]}
+    return row, bit_equal and a["step"] == 2
+
+
+def phase_eval_runner(label: str, workdir: Path) -> dict:
+    """The whole-pass eval on the trained flagship (module doc, phase
+    `eval_runner`), over SyntheticVedai(n=32, seed=1) at 512 px, batch 4,
+    bf16: (a) the pass against the per-batch path, (b) no synchronizing
+    call while the pass is issued (plain and TTA), (c) one runner over two
+    weight sets, (d) stack_cache, (e) int8, (f) the trainer's asynchronous
+    save, (g) the pass's launches (PER_FORWARD x 8). Nothing gives way to
+    the per-batch path: a failure anywhere fails the phase. Two modules
+    serve every part: `a` (runnerless evals and the pass of (b)) and `b`
+    (the runners of (c)-(e), which load their weights into it)."""
+    import torch
+    from sodt_tpu_torch import kernels
+    from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.train import evaluate as ev
+    from sodt_tpu_torch.train.checkpoint import load_weights
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    emit({"phase": f"{label}_predictions", **RUNNER_PREDICTED})
+    blist = list(make_eval_batches(SyntheticVedai(n=RUNNER_N, img_size=512,
+                                                  nc=8, seed=1),
+                                   MAIN_BATCH, 512))
+    kw = dict(nc=8, img_size=512, device="cuda")
+    row, ok = {"phase": label, "batches": len(blist)}, True
+    sd1, sd2 = load_weights(TRAINED_NPZ), _runner_weights(RUNNER_SEED)
+
+    def module():
+        m = build_model("configs/model.yaml", ch_in=4, dtype=torch.bfloat16)
+        m.load_state_dict(sd1)
+        return ev.cache_rel_bias(m.cuda().eval())
+    a, b = module(), module()
+    part("setup")
+
+    # (a) the whole pass against the per-batch path; ms a batch of each
+    step = ev.make_eval_step(a)
+    _pass_dets(step, blist[:2])                               # warm
+    _per_batch_dets(step, blist[:2])
+    whole = ev.evaluate(a, iter(blist), scan=True, **kw)
+    per = ev.evaluate(a, iter(blist), scan=False, **kw)
+    per_dets = _per_batch_dets(step, blist)
+    dets_equal = _same_dets(_pass_dets(step, blist), per_dets)
+    row["a_whole_vs_per_batch"] = {
+        "dets_bit_equal": dets_equal, "metrics_equal": _same_map(whole, per),
+        "map50": whole["map50"], "map": whole["map"],
+        "whole_pass_ms_a_batch": whole["speed_ms"] * MAIN_BATCH,
+        "per_batch_ms_a_batch": per["speed_ms"] * MAIN_BATCH}
+    ok = ok and dets_equal and _same_map(whole, per) and whole["seen"] == 32
+    part("a")
+
+    # (b) + (g) no sync while the pass is issued; the pass's launches
+    stacks = _stacked(blist)
+    d, v, counts = _issue_unsynced(ev.EvalRunner(a), stacks)
+    want = {k: n * RUNNER_BATCHES for k, n in PER_FORWARD.items()}
+    _issue_unsynced(ev.EvalRunner(a, augment=True), stacks)
+    row["b_no_sync"] = {"plain": True, "tta": True}
+    row["g_launches_runner"] = counts
+    ok = ok and counts == want and _same_dets(
+        [(d[i], v[i]) for i in range(len(blist))], per_dets)
+    part("b_g")
+
+    # (c) one runner over two weight sets; (d) stack_cache
+    runner = ev.EvalRunner(b)
+    m1 = ev.evaluate(sd1, iter(blist), runner=runner, **kw)
+    m2 = ev.evaluate(sd2, iter(blist), runner=runner, **kw)
+    got2 = _pass_dets(runner.step, blist, runner)
+    a.load_state_dict(sd2)
+    m2_ref = ev.evaluate(a, iter(blist), **kw)
+    ref_dets = _pass_dets(ev.make_eval_step(a), blist)
+    c_ok = (_same_map(m2, m2_ref) and _same_dets(got2, ref_dets)
+            and _same_map(m1, whole) and not _same_map(m1, m2))
+    row["c_two_weight_sets"] = {
+        "second_equals_runnerless": _same_map(m2, m2_ref),
+        "second_dets_bit_equal": _same_dets(got2, ref_dets),
+        "first_equals_a": _same_map(m1, whole),
+        "map50": [m1["map50"], m2["map50"]]}
+    s1 = ev.evaluate(sd1, iter(blist), runner=runner, stack_cache="val",
+                     **kw)
+    consumed = []
+
+    def poisoned():
+        for batch in blist:
+            consumed.append(1)
+            yield batch
+    s2 = ev.evaluate(sd1, poisoned(), runner=runner, stack_cache="val", **kw)
+    d_ok = not consumed and _same_map(s1, whole) and _same_map(s2, whole)
+    row["d_stack_cache"] = {"iterator_untouched": not consumed,
+                            "metrics_equal": _same_map(s2, whole)}
+    ok = ok and c_ok and d_ok
+    part("c_d")
+
+    # (e) int8 serving through the runner against its per-batch path
+    a.load_state_dict(sd1)
+    with kernels.int8_serving():
+        r8 = ev.EvalRunner(b)
+        w8 = ev.evaluate(sd1, iter(blist), runner=r8, **kw)
+        p8 = ev.evaluate(a, iter(blist), scan=False, **kw)
+        e_dets = _same_dets(_pass_dets(r8.step, blist, r8),
+                            _per_batch_dets(ev.make_eval_step(a), blist))
+    row["e_int8"] = {"dets_bit_equal": e_dets,
+                     "metrics_equal": _same_map(w8, p8),
+                     "map50": w8["map50"],
+                     "whole_pass_ms_a_batch": w8["speed_ms"] * MAIN_BATCH,
+                     "per_batch_ms_a_batch": p8["speed_ms"] * MAIN_BATCH}
+    ok = ok and e_dets and _same_map(w8, p8)
+    part("e")
+
+    row["f_async_save"], good = _async_save(workdir)
+    ok = ok and good
+    part("f")
+    row.update(launches=counts, seconds=time.perf_counter() - t_phase,
+               seconds_by_part=parts, card=card_line(), ok=bool(ok))
+    emit(row)
+    return row
+
+
 def _train_setup(dtype, seed: int = 0, cfg: str = "configs/model.yaml"):
     """The model of `cfg` (the flagship) in training mode with weights from
     `seed`, one synthetic training batch from `seed` on the card, and its
@@ -4281,6 +4594,7 @@ def main() -> int:
         drive("train_aug", phase_train_aug, tmp)
         drive("folders", phase_folders, tmp, paths.get("trained"))
         drive("eval_extras", phase_eval_extras, tmp, paths.get("folders"))
+        drive("eval_runner", phase_eval_runner, tmp)
         drive("mono", phase_path, MONO_ARGS, MONO_FORWARD)
         drive("mono_train", phase_train, tmp, MONO_TRAIN_ARGS,
               MONO_TRAIN_STEPS, MONO_STEP, MONO_FORWARD)
@@ -4333,6 +4647,8 @@ def main() -> int:
                 "launches_remat": paths["remat"]["launches"].get(name, 0),
                 "launches_sam": paths["sam"]["launches"].get(name, 0),
                 "launches_ddp": paths["ddp"]["launches"].get(name, 0),
+                "launches_runner": paths["eval_runner"]["launches"].get(
+                    name, 0),
                 "max_abs_err": max((r["max_abs_err"] for r in mine),
                                    default=None),
                 "ms": tot("ms"), "plain_ms": tot("plain_ms"),

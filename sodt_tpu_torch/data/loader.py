@@ -11,9 +11,12 @@ batch; rect training; the eval batches, square and rect.
            batched (`augment_batch`).
 
 Two regimes, as in JAX: the device bank (every uint8 tile uploaded once
-when the rgb + ir tiles fit `DEVICE_BANK_MAX_GB`; a step sends the (B, 4)
-indices and the draws) and streaming (tiles read on the host, sent as
-uint8). Tiles come from a tile source: the native loader
+when the rgb + ir tiles fit `DEVICE_BANK_MAX_GB`, or forced either way by
+`device_bank`; a step sends the (B, 4) indices and the draws) and
+streaming (tiles read on the host, sent as uint8). JAX's switches keep
+their meanings: `epochs` (stop after n epochs), `cache`, `mosaic` (False:
+the letterbox-only path), `prefer_native`, `multi_scale_buckets`,
+`scale_seed`. Tiles come from a tile source: the native loader
 (`native/libsodt_loader.so`, OpenCV) where it loads, else the python
 dataset; the feed prints which and why on its `feed:` line. Batches are dicts of tensors on the device: img / ir (B, S, S, 3)
 float in [0, 1], targets (B, N, 5) [cls, cx, cy, w, h] normalized, tmask
@@ -42,6 +45,7 @@ generator alike, so at one seed they give the same sample stream.
 
 from __future__ import annotations
 
+import itertools
 from pathlib import Path
 from typing import Iterator
 
@@ -190,12 +194,15 @@ class NativeTileSource:
         return self.loader.wait(job)
 
 
-def _make_tile_source(dataset, img_size: int, cache: bool = True):
-    """The native loader where the dataset has image files and the library
-    loads, else the python dataset (through a RamCache when `cache`). The
-    JAX package swallows the reason it falls back; here the source carries
-    it (`.name`, `.why`) and the feed prints it."""
-    if not hasattr(dataset, "img_files"):
+def _make_tile_source(dataset, img_size: int, cache: bool = True,
+                      prefer_native: bool = True):
+    """The native loader where `prefer_native`, the dataset has image files
+    and the library loads, else the python dataset (through a RamCache
+    when `cache`). The JAX package swallows the reason it falls back; here
+    the source carries it (`.name`, `.why`) and the feed prints it."""
+    if not prefer_native:
+        why = "prefer_native=False"
+    elif not hasattr(dataset, "img_files"):
         why = "the dataset has no image files"
     else:
         from . import native_loader
@@ -248,7 +255,8 @@ class BankFeed:
     (`epoch_schedule`)."""
 
     def __init__(self, dataset, batch_size: int, img_size: int, hyp: dict,
-                 *, seed: int = 0, m0: int = 30, sample_weights_fn=None,
+                 *, seed: int = 0, m0: int = 30, mosaic: bool = True,
+                 sample_weights_fn=None, prefer_native: bool = True,
                  device="cuda", start_step: int = 0, process_index: int = 0,
                  process_count: int = 1):
         n = len(dataset)
@@ -261,7 +269,8 @@ class BankFeed:
         self.batch_size = batch_size
         self.img_size = img_size
         self.hyp = hyp
-        self.mosaic_p = float(hyp.get("mosaic", 1.0))
+        # mosaic=False: the letterbox-only path whatever the hyp says
+        self.mosaic_p = float(hyp.get("mosaic", 1.0)) if mosaic else 0.0
         self.use_mixup = hyp.get("mixup", 0.0) > 0 and self.mosaic_p > 0
         self.seed = seed
         self.rng = np.random.default_rng(seed)
@@ -270,7 +279,8 @@ class BankFeed:
         self.step = 0
         self.device = torch.device(device)
 
-        self.source = _make_tile_source(dataset, img_size, cache=False)
+        self.source = _make_tile_source(dataset, img_size, cache=False,
+                                        prefer_native=prefer_native)
         src = self.source
         rgb_all, ir_all = src.wait(src.submit(np.arange(n)))
         labs, msks = _pack_labels(dataset.labels, range(n), m0)
@@ -330,7 +340,8 @@ class BankFeed:
 
 
 def make_bank_feed(dataset, batch_size: int, img_size: int, hyp: dict,
-                   *, seed: int = 0, m0: int = 30, sample_weights_fn=None,
+                   *, seed: int = 0, m0: int = 30, mosaic: bool = True,
+                   sample_weights_fn=None, prefer_native: bool = True,
                    device="cuda", start_step: int = 0,
                    device_bank: bool | None = None, process_index: int = 0,
                    process_count: int = 1) -> BankFeed | None:
@@ -338,14 +349,17 @@ def make_bank_feed(dataset, batch_size: int, img_size: int, hyp: dict,
     DEVICE_BANK_MAX_GB, else None; `device_bank` True forces the bank,
     False refuses it, None applies the gate. Every process holds the
     whole bank; `process_index` / `process_count` choose the rows of
-    each step that it augments."""
+    each step that it augments. `mosaic=False` takes the letterbox-only
+    path whatever the hyp's mosaic; `prefer_native=False` reads the tiles
+    through the python dataset."""
     if device_bank is None:
         bank_bytes = 2 * len(dataset) * img_size * img_size * 3
         device_bank = bank_bytes <= DEVICE_BANK_MAX_GB * 2**30
     if not device_bank:
         return None
     return BankFeed(dataset, batch_size, img_size, hyp, seed=seed, m0=m0,
-                    sample_weights_fn=sample_weights_fn, device=device,
+                    mosaic=mosaic, sample_weights_fn=sample_weights_fn,
+                    prefer_native=prefer_native, device=device,
                     start_step=start_step, process_index=process_index,
                     process_count=process_count)
 
@@ -359,11 +373,8 @@ def _row_slice(batch_size: int, process_index: int,
     return slice(process_index * lb, (process_index + 1) * lb)
 
 
-MULTI_SCALE = (0.75, 1.0, 1.25)     # multi-scale buckets x img_size
-
-
-def _bucket(scale_rng, img_size: int) -> int:
-    f = MULTI_SCALE[int(scale_rng.integers(len(MULTI_SCALE)))]
+def _bucket(scale_rng, img_size: int, buckets) -> int:
+    f = buckets[int(scale_rng.integers(len(buckets)))]
     return int(round(img_size * f / 32) * 32)
 
 
@@ -376,72 +387,97 @@ def _rescale(b: dict, ns: int, img_size: int) -> dict:
 
 def make_train_batches(dataset, batch_size: int, img_size: int, hyp: dict,
                        *, seed: int = 0, max_labels_per_image: int = 30,
+                       epochs: int | None = None, cache: bool = True,
+                       mosaic: bool = True, prefer_native: bool = True,
                        sample_weights_fn=None, multi_scale: bool = False,
-                       device="cuda", start_step: int = 0,
-                       process_index: int = 0,
+                       multi_scale_buckets=(0.75, 1.0, 1.25),
+                       scale_seed: int | None = None,
+                       device_bank: bool | None = None, device="cuda",
+                       start_step: int = 0, process_index: int = 0,
                        process_count: int = 1) -> Iterator[dict]:
-    """Endless iterator of augmented device batches, from `start_step` on.
-    The device bank when the tiles fit DEVICE_BANK_MAX_GB, else
-    streaming: tiles read on the host by the tile source
-    (`_make_tile_source`: the native loader, else the python dataset
-    through a RAM cache), sent as uint8, augmented on the device; within an
+    """Iterator of augmented device batches from `start_step` on: endless
+    (`epochs` None) or stopping after `epochs` epochs. The device bank
+    when the tiles fit DEVICE_BANK_MAX_GB (`device_bank` None; True forces
+    the bank, False streaming), else streaming: tiles read on the host by
+    the tile source (`_make_tile_source`: the native loader unless
+    `prefer_native` is False, else the python dataset, through a RAM
+    cache when `cache`), sent as uint8, augmented on the device; within an
     epoch the next step's tiles are submitted before a batch is yielded.
-    `multi_scale` resizes each batch to one of MULTI_SCALE x img_size
-    (rounded to 32 px), drawn from a stream of its own seeded with `seed`. The regime and the
-    tile source are chosen, and printed on a `feed:` line, when this is
-    called. Several processes (`process_count`): `batch_size` stays
-    global, every process draws the same global schedule and yields its
-    `process_index`-th row slice of each step (JAX's multi-host feed)."""
+    `mosaic=False` takes the letterbox-only path whatever the hyp's
+    mosaic. `multi_scale` resizes each batch to one of
+    `multi_scale_buckets` x img_size (rounded to 32 px), drawn from a
+    stream of its own seeded with `scale_seed` (default `seed`). The regime
+    and the tile source are chosen, and printed on a `feed:` line, when
+    this is called. Several processes (`process_count`): `batch_size`
+    stays global, every process draws the same global schedule and yields
+    its `process_index`-th row slice of each step (JAX's multi-host
+    feed)."""
     n = len(dataset)
     if n < batch_size:
         raise ValueError(
             f"dataset has {n} images < batch_size {batch_size}; "
             "the epoch schedule would never yield a batch")
     rows = _row_slice(batch_size, process_index, process_count)
+    scale = ((multi_scale_buckets,
+              seed if scale_seed is None else scale_seed)
+             if multi_scale else None)
+    steps_per_epoch = max(n // batch_size, 1)
+    total = None if epochs is None else epochs * steps_per_epoch
     feed = make_bank_feed(dataset, batch_size, img_size, hyp, seed=seed,
-                          m0=max_labels_per_image,
+                          m0=max_labels_per_image, mosaic=mosaic,
                           sample_weights_fn=sample_weights_fn,
-                          device=device, start_step=start_step,
+                          prefer_native=prefer_native, device=device,
+                          start_step=start_step, device_bank=device_bank,
                           process_index=process_index,
                           process_count=process_count)
     if feed is not None:
         src = feed.source
         print(f"feed: device bank ({n} tiles on {feed.device}), tile source: "
               f"{src.name} ({src.why})")
-        return _bank_batches(feed, img_size, seed, multi_scale, start_step)
-    src = _make_tile_source(dataset, img_size)
-    print(f"feed: streaming ({n} tiles decoded on the host), tile source: "
-          f"{src.name} ({src.why})")
-    return _stream_batches(dataset, src, batch_size, img_size, hyp, seed,
-                           max_labels_per_image, sample_weights_fn,
-                           multi_scale, torch.device(device), start_step,
-                           rows)
+        it = _bank_batches(feed, img_size, scale, start_step)
+    else:
+        src = _make_tile_source(dataset, img_size, cache, prefer_native)
+        print(f"feed: streaming ({n} tiles decoded on the host), tile "
+              f"source: {src.name} ({src.why})")
+        it = _stream_batches(dataset, src, batch_size, img_size, hyp, seed,
+                             max_labels_per_image, sample_weights_fn, scale,
+                             torch.device(device), start_step, rows,
+                             mosaic)
+    if total is None:
+        return it
+    return itertools.islice(it, max(total - start_step, 0))
 
 
-def _bank_batches(feed, img_size, seed, multi_scale, start_step):
-    scale_rng = np.random.default_rng(seed)
-    if multi_scale:
-        for _ in range(start_step):
-            _bucket(scale_rng, img_size)
+def _scale_stream(scale, img_size: int, start_step: int):
+    """The multi-scale sizes, step by step from `start_step` (None: no
+    multi-scale)."""
+    if scale is None:
+        return None
+    buckets, scale_seed = scale
+    rng = np.random.default_rng(scale_seed)
+    for _ in range(start_step):
+        _bucket(rng, img_size, buckets)
+    return lambda: _bucket(rng, img_size, buckets)
+
+
+def _bank_batches(feed, img_size, scale, start_step):
+    size = _scale_stream(scale, img_size, start_step)
     while True:
         b = feed.augment_step()
-        if multi_scale:
-            b = _rescale(b, _bucket(scale_rng, img_size), img_size)
+        if size is not None:
+            b = _rescale(b, size(), img_size)
         yield b
 
 
 def _stream_batches(dataset, src, batch_size, img_size, hyp, seed, m0,
-                    sample_weights_fn, multi_scale, dev, start_step, rows):
+                    sample_weights_fn, scale, dev, start_step, rows, mosaic):
     n = len(dataset)
     labels = dataset.labels
     rng = np.random.default_rng(seed)
-    scale_rng = np.random.default_rng(seed)
-    mosaic_p = float(hyp.get("mosaic", 1.0))
+    mosaic_p = float(hyp.get("mosaic", 1.0)) if mosaic else 0.0
     use_mixup = hyp.get("mixup", 0.0) > 0 and mosaic_p > 0
     steps_per_epoch = max(n // batch_size, 1)
-    if multi_scale:
-        for _ in range(start_step):
-            _bucket(scale_rng, img_size)
+    size = _scale_stream(scale, img_size, start_step)
 
     def schedule():
         while True:
@@ -491,8 +527,8 @@ def _stream_batches(dataset, src, batch_size, img_size, hyp, seed, m0,
             s=img_size, hyp=hyp, use_mixup=use_mixup, mosaic_p=mosaic_p)
         b = {"img": img, "ir": irr, "targets": targets, "tmask": tmask,
              "epoch": step // steps_per_epoch}
-        if multi_scale:
-            b = _rescale(b, _bucket(scale_rng, img_size), img_size)
+        if size is not None:
+            b = _rescale(b, size(), img_size)
         yield b
         step += 1
 

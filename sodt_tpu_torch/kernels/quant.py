@@ -77,9 +77,10 @@ def _q8(x32: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def _scale(amax: torch.Tensor) -> torch.Tensor:
     """max(amax, 1e-8) / 127 as a true division on any device: divided by
     a python number, a CUDA tensor is multiplied by its f32 reciprocal,
-    which rounds 1 in ~20 quotients differently."""
-    return torch.clamp_min(amax, 1e-8) / torch.tensor(127.0,
-                                                      device=amax.device)
+    which rounds 1 in ~20 quotients differently (torch.full: no copy from
+    the host)."""
+    return torch.clamp_min(amax, 1e-8) / torch.full((), 127.0,
+                                                    device=amax.device)
 
 
 def q8_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

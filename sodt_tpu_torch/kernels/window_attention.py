@@ -40,7 +40,7 @@ from .quant import (_q8_deq, _q8_point, ln_f32, log_kernel_amax, q8_dot,
 def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
     # the scale is rounded to the working dtype first, like JAX's weak-typed
     # python scalar and the kernels' jnp.asarray(scale, x.dtype)
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    return q * float(torch.tensor(scale, dtype=q.dtype))
 
 
 def reference_attention_qkv(qkv, bias, mask, nw: int, nh: int, scale: float):

@@ -74,8 +74,8 @@ class CAttentionBlock(nn.Module):
                     x = torch.roll(x, (shift, shift), (1, 2))
                 return x
 
-            mask = (torch.from_numpy(shift_attn_mask(h, w, ws, shift)).to(r.device)
-                    if shift > 0 else None)
+            mask = (torch.from_numpy(shift_attn_mask(h, w, ws, shift)).to(
+                r.device, non_blocking=True) if shift > 0 else None)
             rw, gw, bw, irw = part(r), part(g), part(b), part(ir)
             r_out = unpart(self.r2g_attn(rw, gw, gw, mask))
             g_out = unpart(self.rg2b_attn(gw, bw, bw, mask))

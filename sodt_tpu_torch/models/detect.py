@@ -58,8 +58,8 @@ def decode_detections(outs, anchors, strides) -> torch.Tensor:
             torch.arange(nx, dtype=torch.float32, device=out.device),
             indexing="ij")
         grid = torch.stack([xv, yv], dim=-1)[:, :, None, :]
-        anc = torch.as_tensor(anc, dtype=torch.float32,
-                              device=out.device).reshape(1, 1, 1, na, 2)
+        anc = torch.as_tensor(anc, dtype=torch.float32).to(
+            out.device, non_blocking=True).reshape(1, 1, 1, na, 2)
         xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * s
         wh = (y[..., 2:4] * 2.0) ** 2 * anc
         z = torch.cat([xy, wh, y[..., 4:]], dim=-1)

@@ -76,7 +76,9 @@ def shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
 @lru_cache(maxsize=64)
 def _mask_tensor(h: int, w: int, ws: int, shift: int,
                  device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(shift_attn_mask(h, w, ws, shift)).to(device)
+    # non_blocking: a copy from host memory with no wait on the stream
+    return torch.from_numpy(shift_attn_mask(h, w, ws, shift)).to(
+        device, non_blocking=True)
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -126,6 +128,25 @@ def _param_key(params) -> tuple:
     return tuple((id(p), p._version, p.device) for p in params)
 
 
+def _refill(old, new):
+    """`new` written into the tensors of `old` where they match in shape,
+    dtype and device (dicts and tuples entry by entry), so that a refreshed
+    cache keeps its tensors' addresses; `new` itself where they do not. A
+    tensor that is its own source (an f32 parameter taken as is) is left
+    alone."""
+    if isinstance(old, torch.Tensor) and isinstance(new, torch.Tensor):
+        if new is old or (old.shape, old.dtype, old.device) != (
+                new.shape, new.dtype, new.device):
+            return new
+        return old.copy_(new)
+    if isinstance(old, dict) and isinstance(new, dict):
+        return {k: _refill(old.get(k), v) for k, v in new.items()}
+    if (isinstance(old, tuple) and isinstance(new, tuple)
+            and len(old) == len(new)):
+        return tuple(_refill(a, b) for a, b in zip(old, new))
+    return new
+
+
 class RelPosBias(nn.Module):
     """The (nh, N, N) f32 attention bias of a window-attention module, a
     function of parameters, with the one cache rule of the eval path: the
@@ -149,8 +170,11 @@ class RelPosBias(nn.Module):
         raise NotImplementedError
 
     def cache_bias(self, *variant) -> None:
+        """Materialize the bias, into the cached tensor where one of its
+        shape is there (a refresh keeps its address)."""
         with torch.no_grad():
-            self.bias_cache = self.materialize_bias(*variant).contiguous()
+            self.bias_cache = _refill(
+                self.bias_cache, self.materialize_bias(*variant).contiguous())
         self._bias_key = (variant, _param_key(self.bias_params()))
 
     def rel_bias(self, *variant) -> torch.Tensor:
@@ -281,11 +305,13 @@ class SwinBlock(nn.Module):
         """Build the kernels' weights once per weight load, beside the
         rel-pos bias (`train.evaluate.cache_rel_bias`), for inference: the
         bf16 ones and, from those, the int8 ones of the int8 bodies with
-        their scales (`kw["q8"]`, as JAX quantizes `w.astype(dt)`)."""
+        their scales (`kw["q8"]`, as JAX quantizes `w.astype(dt)`). A
+        refresh writes into the cached tensors (their addresses stay)."""
         with torch.no_grad():
             kw = self._build_kernel_weights(dt)
             kw["q8"] = q8_weights(None, **{k: kw[k] for k in (
                 "wqkv", "wp", "w1", "w2", "wc") if k in kw})
+            kw = _refill(self._kernel_weights or {}, kw)
         kw["dtype"], kw["key"] = dt, _param_key(self._kernel_params())
         self._kernel_weights = kw
 

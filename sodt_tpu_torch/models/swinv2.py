@@ -57,7 +57,8 @@ def _bias_inputs(ws: int, pretrained_ws: int, device: torch.device):
     """The coordinate table and the gather index of a ws x ws window."""
     table = torch.from_numpy(relative_coords_table(ws, pretrained_ws))
     index = torch.from_numpy(relative_position_index(ws).reshape(-1)).long()
-    return table.to(device), index.to(device)
+    return (table.to(device, non_blocking=True),
+            index.to(device, non_blocking=True))
 
 
 class WindowAttentionV2(RelPosBias):

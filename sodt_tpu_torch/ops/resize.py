@@ -74,7 +74,8 @@ def resize_weights(n_in: int, n_out: int, device=None,
                     w / torch.where(tot != 0, tot, torch.ones_like(tot)),
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w)).T.to(device)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).T.to(
+        device, non_blocking=True)
 
 
 def resize(x: torch.Tensor, size, method: str = "linear") -> torch.Tensor:

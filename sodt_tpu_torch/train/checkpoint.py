@@ -7,7 +7,10 @@ A checkpoint is one file holding a dict:
    ema (EMA of both), ema_updates, opt_state (`Optimizer.state_dict`),
    epoch, best_fitness}
 
-with every tensor on the CPU. The trainer writes `last.pt`, copies it to
+with every tensor on the CPU. The trainer takes it in two halves
+(`snapshot_tree` on its own thread: clones on the device; then
+`fetch_snapshot` and the writes on a worker thread, overlapping the next
+epoch). It writes `last.pt`, copies it to
 `best.pt` (a file copy, as `clone_checkpoint` copies the orbax directory)
 and writes `epoch{N}.pt` under --save-period. `strip_checkpoint` keeps the
 EMA weights as the final model. `load_weights` reads either a checkpoint
@@ -21,10 +24,61 @@ from __future__ import annotations
 import re
 import shutil
 from pathlib import Path
+from typing import Any
 
 import torch
 
 from ..weights import load_npz
+
+
+def snapshot_tree(state, *, epoch: int, best_fitness: float,
+                  extra: dict | None = None) -> tuple[dict, Any]:
+    """The checkpoint of a `TrainState` as clones on the state's device,
+    taken in stream order on the calling thread: the training that
+    follows updates the parameters, the EMA and the optimizer state in
+    place, and never these copies. Returns (the tree, an event recorded
+    after the clones on the card; None on the CPU, where the clones are
+    done on return). `fetch_snapshot` brings it to the host; `extra` (the
+    W&B run id) is kept under "extra" where given."""
+    with torch.no_grad():
+        clone = lambda d: {k: v.detach().clone() for k, v in d.items()}
+        tree = {"step": int(state.step),
+                "model": clone(state.model.state_dict()),
+                "ema": clone(state.ema), "ema_updates": int(state.ema_updates),
+                "opt_state": state.tx.snapshot(), "epoch": int(epoch),
+                "best_fitness": float(best_fitness)}
+    if extra:
+        tree["extra"] = extra
+    dev = next(iter(tree["ema"].values())).device
+    ready = None
+    if dev.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(dev))
+    return tree, ready
+
+
+def _to_host(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    return x
+
+
+def fetch_snapshot(snap: tuple[dict, Any]) -> dict:
+    """A `snapshot_tree` on the host, from any thread: on the card the
+    copies run on a stream of their own after the snapshot's event, so
+    that they wait for the clones and not for the work queued after
+    them."""
+    tree, ready = snap
+    if ready is None:
+        return tree
+    dev = next(iter(tree["ema"].values())).device
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream(dev)
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            return _to_host(tree)
 
 
 def checkpoint_tree(state, *, epoch: int, best_fitness: float,
@@ -32,14 +86,9 @@ def checkpoint_tree(state, *, epoch: int, best_fitness: float,
     """The host-side checkpoint of a `TrainState` (one copy to the CPU, so
     that a caller saving to several paths pays it once); `extra` (the
     W&B run id) is kept under "extra" where given."""
-    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
-    ckpt = {"step": int(state.step), "model": cpu(state.model.state_dict()),
-            "ema": cpu(state.ema), "ema_updates": int(state.ema_updates),
-            "opt_state": state.tx.state_dict(), "epoch": int(epoch),
-            "best_fitness": float(best_fitness)}
-    if extra:
-        ckpt["extra"] = extra
-    return ckpt
+    return fetch_snapshot(snapshot_tree(state, epoch=epoch,
+                                        best_fitness=best_fitness,
+                                        extra=extra))
 
 
 def write_checkpoint(path: str | Path, ckpt: dict) -> None:

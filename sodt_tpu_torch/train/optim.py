@@ -173,10 +173,18 @@ class Optimizer:
     def state_dict(self) -> dict:
         """The optimizer's state (step counters, accumulated gradients,
         momentum / Adam moments), tensors on the CPU."""
-        cpu = lambda d: None if d is None else {k: v.detach().cpu()
+        return self._tree(lambda v: v.detach().cpu())
+
+    def snapshot(self) -> dict:
+        """`state_dict`'s content as clones on the state's device (the
+        checkpoint's snapshot, `checkpoint.snapshot_tree`)."""
+        return self._tree(lambda v: v.detach().clone())
+
+    def _tree(self, leaf) -> dict:
+        each = lambda d: None if d is None else {k: leaf(v)
                                                  for k, v in d.items()}
-        return {"count": self.count, "ni": self.ni, "acc": cpu(self.acc),
-                "trace": cpu(self.trace), "nu": cpu(self.nu)}
+        return {"count": self.count, "ni": self.ni, "acc": each(self.acc),
+                "trace": each(self.trace), "nu": each(self.nu)}
 
     def load_state_dict(self, sd: dict, device) -> None:
         dev = lambda d: None if d is None else {k: v.to(device)

@@ -15,16 +15,26 @@ trainer, and one of three feeds, chosen as JAX chooses:
   * the per-step path (`state.make_train_step` over
     `data.loader.make_train_batches`: the bank when it fits, else
     streaming; its `feed:` line names the regime and the tile source), an
-    epoch's losses the mean over every LOG_EVERY-th step, as in JAX;
+    epoch's losses the mean over every `log_every`-th step, as in JAX;
   * under `rect`, the rect feed (`make_rect_train_batches`: aspect-ratio
     groups, no mosaic; refused with multi_scale and image_weights, as in
     JAX), per step.
 
 Then an eval of the EMA weights every `eval_every` epochs and at the
-last, and checkpoints in `save_dir`:
-`last.pt` after each eval, `best.pt` a copy of it when the fitness is the
-best so far, `epoch{N}.pt` every `save_period` epochs; `nosave` keeps only
-the final one. `weights` loads initial weights (shape-matched, names with
+last, through ONE `EvalRunner` for the run (built by rank 0 before the
+first epoch: its module takes the EMA weights in place at each eval, and
+the val set is uploaded to the device once, `stack_cache="val"`), and
+checkpoints in `save_dir`: `last.pt` after each eval, `best.pt` a copy of
+it when the fitness is the best so far, `epoch{N}.pt` every `save_period`
+epochs; `nosave` keeps only the final one. Saves are asynchronous, as in
+JAX: the main thread takes a snapshot on the device
+(`checkpoint.snapshot_tree`: the training updates the live tensors in
+place, so the worker never reads them) and one worker thread fetches it
+to the host and writes the files while the next epoch trains; at most one
+save is in flight (the previous one is waited for, and its error raised,
+before the next is submitted), and the final one has landed when `train`
+returns. `max_labels` is the label slots an image of a padded batch
+holds. `weights` loads initial weights (shape-matched, names with
 "anchor" excluded); `resume` restores a run's full state from a checkpoint.
 `image_weights` resamples the images by the per-class mAP of the last eval;
 `multi_scale` draws each batch's size from 0.75 / 1 / 1.25 x img_size.
@@ -44,8 +54,11 @@ resolution without it, as JAX's read only the Detect maps.
 The run's record, as JAX writes it: `utils.loggers.RunLogger` appends
 the TAGS of each eval and the epoch's wall-clock split (`wall/sched`,
 `wall/dispatch`, `wall/fetch`, `wall/chunk` on the epoch path's first
-epoch of a chunk; `wall/eval`, `wall/ckpt`, `wall/ckpt_fetch`,
-`wall/ckpt_write` at evals; `wall/epoch` always) to `events.jsonl`, and
+epoch of a chunk; `wall/eval` and `wall/ckpt` (the main thread's blocking
+part of a save) at evals, `wall/ckpt_fetch` and `wall/ckpt_write`
+measured by the save's worker and logged, under the save's own epoch, by
+the main thread once the save has landed; `wall/epoch` always) to
+`events.jsonl`, and
 to TensorBoard and W&B where they import (`wandb`: W&B scalars, the run
 id in the checkpoint's "extra", model and dataset artifacts);
 `LR.png`, `labels.png` and, at the end, `results.png` where matplotlib is
@@ -69,6 +82,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -94,17 +108,15 @@ from ..utils.metrics import fitness
 from ..utils.plots import plot_labels, plot_lr_schedule, plot_results
 from ..utils.wandb_utils import is_wandb_artifact, resolve_artifact_checkpoint
 from ..weights import init_weights, load_npz
-from .checkpoint import (checkpoint_tree, clone_checkpoint, load_checkpoint,
+from .checkpoint import (clone_checkpoint, fetch_snapshot, load_checkpoint,
                          load_pretrained_variables, restore_train_state,
-                         write_checkpoint)
-from .evaluate import evaluate
+                         snapshot_tree, write_checkpoint)
+from .evaluate import EvalRunner, evaluate
 from .loss import LossConfig
 from .optim import lr_schedules, make_optimizer
 from .state import TrainState, make_epoch_scan, make_train_step
 
 NOMINAL_BATCH = 64
-MAX_LABELS = 30      # label slots per image in a padded batch
-LOG_EVERY = 10       # per-step path: steps between an epoch's loss samples
 CH_IN = {"RGB": 3, "IR": 3, "RGB+IR": 4, "RGB+IR+fusion": 8, "RGB+IR+MF": 3}
 
 
@@ -131,6 +143,8 @@ class TrainConfig:
     rect: bool = False               # aspect-ratio batches, no mosaic
     seed: int = 0
     eval_every: int = 1
+    max_labels: int = 30             # label slots per image in a batch
+    log_every: int = 10              # per-step path: steps between samples
     bf16: bool = True
     remat: bool = False              # checkpoint the encoder's Swin blocks
     # the epoch path: None = when the tiles fit the bank gate and neither
@@ -176,7 +190,8 @@ def fitness_from_metrics(m: dict) -> float:
 
 def ema_model(state: TrainState) -> torch.nn.Module:
     """A copy of the model that holds the EMA weights and statistics, for
-    the evals: its SR branch is off (they read only the Detect maps)."""
+    the evals (the module of the run's `EvalRunner`): its SR branch is off
+    (they read only the Detect maps)."""
     m = copy.deepcopy(state.model)
     m.load_state_dict(state.ema, strict=False)
     m.sr = False
@@ -331,7 +346,7 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
             and tc.batch_size % world == 0):
         feed = make_bank_feed(
             train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
-            m0=MAX_LABELS, sample_weights_fn=weights_fn, device=dev,
+            m0=tc.max_labels, sample_weights_fn=weights_fn, device=dev,
             start_step=start_epoch * nb,
             device_bank=True if tc.scan_epoch else None, **shards)
     if feed is not None:
@@ -344,12 +359,12 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
     elif tc.rect:
         batches = make_rect_train_batches(
             train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
-            max_labels_per_image=MAX_LABELS, device=dev,
+            max_labels_per_image=tc.max_labels, device=dev,
             start_step=start_epoch * nb)
     else:
         batches = make_train_batches(
             train_ds, tc.batch_size, tc.img_size, hyp, seed=tc.seed,
-            max_labels_per_image=MAX_LABELS, multi_scale=tc.multi_scale,
+            max_labels_per_image=tc.max_labels, multi_scale=tc.multi_scale,
             device=dev, start_step=start_epoch * nb,
             sample_weights_fn=weights_fn, **shards)
     if on_start is not None:
@@ -357,107 +372,113 @@ def train(tc: TrainConfig, on_step=None, on_grads=None,
 
     metrics_out: dict = {}
     history = []
+    # one runner for the run (rank 0 alone evaluates) and one save worker
+    runner = EvalRunner(ema_model(state)) if main else None
+    saver = _Saver(save_dir, tc, logger)
     t_start = time.time()
-    # the epoch path runs the epochs up to the next eval in one chunk (one
-    # under image_weights, whose order reads the last eval's maps); the
-    # chunk's later epochs report its rate and log their own walls only
-    chunk_losses: dict[int, dict] = {}
-    chunk_ips = 0.0
-    for epoch in range(start_epoch, tc.epochs):
-        t_epoch = time.time()
-        wall = {}
-        if feed is not None:
-            if epoch not in chunk_losses:
-                cap = 1 if tc.image_weights else max(tc.eval_every, 1)
-                boundary = epoch + (cap - 1) - (epoch % cap)
-                n_ep = min(boundary, tc.epochs - 1) - epoch + 1
+    try:
+        # the epoch path runs the epochs up to the next eval in one chunk (one
+        # under image_weights, whose order reads the last eval's maps); the
+        # chunk's later epochs report its rate and log their own walls only
+        chunk_losses: dict[int, dict] = {}
+        chunk_ips = 0.0
+        for epoch in range(start_epoch, tc.epochs):
+            t_epoch = time.time()
+            wall = {}
+            if feed is not None:
+                if epoch not in chunk_losses:
+                    cap = 1 if tc.image_weights else max(tc.eval_every, 1)
+                    boundary = epoch + (cap - 1) - (epoch % cap)
+                    n_ep = min(boundary, tc.epochs - 1) - epoch + 1
+                    t0 = time.time()
+                    scheds = [feed.epoch_schedule() for _ in range(n_ep)]
+                    prim = np.concatenate([sc[0] for sc in scheds])
+                    sec = (None if scheds[0][1] is None
+                           else np.concatenate([sc[1] for sc in scheds]))
+                    draws = np.concatenate([sc[2] for sc in scheds])
+                    wall["sched"] = time.time() - t0
+                    t0 = time.time()
+                    state, keys, ms = epoch_fn(state, prim, sec, draws,
+                                               on_step=on_step)
+                    wall["dispatch"] = time.time() - t0
+                    t0 = time.time()
+                    ms = ms.cpu().numpy().reshape(
+                        n_ep, feed.steps_per_epoch, len(keys))
+                    chunk_losses = {
+                        epoch + i: {k: float(np.mean(ms[i, :, j]))
+                                    for j, k in enumerate(keys)}
+                        for i in range(n_ep)}
+                    wall["fetch"] = time.time() - t0
+                    wall["chunk"] = n_ep
+                    chunk_ips = (tc.batch_size * nb * n_ep
+                                 / max(time.time() - t_epoch, 1e-9))
+                mean_losses = chunk_losses.pop(epoch)
+                ips = chunk_ips
+            else:
+                losses = []
+                for bi in range(nb):
+                    state, m = step_fn(state, next(batches))
+                    if on_step is not None:
+                        on_step(state, m)
+                    if bi % tc.log_every == 0:
+                        losses.append({k: float(v) for k, v in m.items()})
+                mean_losses = ({k: float(np.mean([l[k] for l in losses]))
+                                for k in losses[0]} if losses else {})
+                ips = tc.batch_size * nb / (time.time() - t_epoch)
+            line = (f"epoch {epoch}/{tc.epochs - 1} "
+                    + " ".join(f"{k}={v:.4f}"
+                               for k, v in mean_losses.items())
+                    + f" img/s={ips:.1f}")
+            is_final = epoch == tc.epochs - 1
+            if is_final or (not tc.notest
+                            and (epoch + 1) % tc.eval_every == 0):
                 t0 = time.time()
-                scheds = [feed.epoch_schedule() for _ in range(n_ep)]
-                prim = np.concatenate([sc[0] for sc in scheds])
-                sec = (None if scheds[0][1] is None
-                       else np.concatenate([sc[1] for sc in scheds]))
-                draws = np.concatenate([sc[2] for sc in scheds])
-                wall["sched"] = time.time() - t0
+                if main:
+                    metrics_out = evaluate(
+                        state.ema,
+                        make_eval_batches(val_ds, tc.batch_size,
+                                          tc.img_size),
+                        nc=nc, img_size=tc.img_size, device=dev,
+                        runner=runner, stack_cache="val")
+                metrics_out = broadcast_object(metrics_out)
+                fit = fitness_from_metrics(metrics_out)
+                for c, v in metrics_out["per_class"].items():
+                    if c < nc:
+                        maps[c] = v["ap"]
+                line += (f" mAP50={metrics_out['map50']:.4f} "
+                         f"mAP={metrics_out['map']:.4f} fit={fit:.4f}")
+                wall["eval"] = time.time() - t0
                 t0 = time.time()
-                state, keys, ms = epoch_fn(state, prim, sec, draws,
-                                           on_step=on_step)
-                wall["dispatch"] = time.time() - t0
-                t0 = time.time()
-                ms = ms.cpu().numpy().reshape(n_ep, feed.steps_per_epoch,
-                                              len(keys))
-                chunk_losses = {epoch + i: {k: float(np.mean(ms[i, :, j]))
-                                            for j, k in enumerate(keys)}
-                                for i in range(n_ep)}
-                wall["fetch"] = time.time() - t0
-                wall["chunk"] = n_ep
-                chunk_ips = (tc.batch_size * nb * n_ep
-                             / max(time.time() - t_epoch, 1e-9))
-            mean_losses = chunk_losses.pop(epoch)
-            ips = chunk_ips
-        else:
-            losses = []
-            for bi in range(nb):
-                state, m = step_fn(state, next(batches))
-                if on_step is not None:
-                    on_step(state, m)
-                if bi % LOG_EVERY == 0:
-                    losses.append({k: float(v) for k, v in m.items()})
-            mean_losses = ({k: float(np.mean([l[k] for l in losses]))
-                            for k in losses[0]} if losses else {})
-            ips = tc.batch_size * nb / (time.time() - t_epoch)
-        line = (f"epoch {epoch}/{tc.epochs - 1} "
-                + " ".join(f"{k}={v:.4f}" for k, v in mean_losses.items())
-                + f" img/s={ips:.1f}")
-        is_final = epoch == tc.epochs - 1
-        if is_final or (not tc.notest and (epoch + 1) % tc.eval_every == 0):
-            t0 = time.time()
+                opt_step = state.step // accumulate
+                logger.log_epoch(epoch, mean_losses, metrics_out,
+                                 lrs=(lr_w(opt_step), lr_w(opt_step),
+                                      lr_b(opt_step)))
+                best_fitness = max(best_fitness, fit)
+                # ties refresh best too: the latest equal wins
+                is_best = fit >= best_fitness
+                if main:
+                    saver.submit(state, epoch, best_fitness, is_best=is_best,
+                                 is_final=is_final, fit=fit)
+                    if is_final:
+                        saver.wait()          # the last save lands first
+                barrier()
+                wall["ckpt"] = time.time() - t0
+            wall["epoch"] = time.time() - t_epoch
+            logger.log_scalars({f"wall/{k}": v for k, v in wall.items()},
+                               epoch)
+            if "eval" in wall:
+                line += ("  [wall "
+                         + " ".join(f"{k}={int(v)}" if k == "chunk"
+                                    else f"{k}={v:.2f}s"
+                                    for k, v in wall.items()) + "]")
             if main:
-                metrics_out = evaluate(
-                    ema_model(state),
-                    make_eval_batches(val_ds, tc.batch_size, tc.img_size),
-                    nc=nc, img_size=tc.img_size, device=dev)
-            metrics_out = broadcast_object(metrics_out)
-            fit = fitness_from_metrics(metrics_out)
-            for c, v in metrics_out["per_class"].items():
-                if c < nc:
-                    maps[c] = v["ap"]
-            line += (f" mAP50={metrics_out['map50']:.4f} "
-                     f"mAP={metrics_out['map']:.4f} fit={fit:.4f}")
-            wall["eval"] = time.time() - t0
-            t0 = time.time()
-            opt_step = state.step // accumulate
-            logger.log_epoch(epoch, mean_losses, metrics_out,
-                             lrs=(lr_w(opt_step), lr_w(opt_step),
-                                  lr_b(opt_step)))
-            best_fitness = max(best_fitness, fit)
-            # ties refresh best too: the latest equal wins
-            is_best = fit >= best_fitness
-            t_fetch = t_write = 0.0
-            if main:
-                t_fetch, t_write = _save(
-                    save_dir, state, tc, epoch, best_fitness,
-                    is_best=is_best, is_final=is_final,
-                    extra={"wandb_id": logger.wandb_id} if logger.wandb_id
-                    else None)
-            barrier()
-            logger.log_scalars({"wall/ckpt_fetch": t_fetch,
-                                "wall/ckpt_write": t_write}, epoch)
-            if logger.lifecycle.active:
-                logger.lifecycle.log_model(save_dir / "last.pt", epoch=epoch,
-                                           fitness=fit, best=is_best)
-            wall["ckpt"] = time.time() - t0
-        wall["epoch"] = time.time() - t_epoch
-        logger.log_scalars({f"wall/{k}": v for k, v in wall.items()}, epoch)
-        if "eval" in wall:
-            line += ("  [wall "
-                     + " ".join(f"{k}={int(v)}" if k == "chunk"
-                                else f"{k}={v:.2f}s"
-                                for k, v in wall.items()) + "]")
-        if main:
-            print(line)
-            with open(save_dir / "results.txt", "a") as f:
-                f.write(line + "\n")
-        history.append(mean_losses)
+                print(line)
+                with open(save_dir / "results.txt", "a") as f:
+                    f.write(line + "\n")
+            history.append(mean_losses)
+        saver.wait()
+    finally:
+        saver.close()                 # an error waits for the save too
     logger.close()
     if main:
         plot_results(save_dir / "events.jsonl", save_dir / "results.png")
@@ -483,27 +504,68 @@ class _Silent:
     log_scalars = close = log_epoch
 
 
-def _save(save_dir: Path, state, tc: TrainConfig, epoch: int,
-          best_fitness: float, *, is_best: bool, is_final: bool,
-          extra: dict | None = None) -> tuple[float, float]:
-    """last.pt (and best.pt, a copy of it) unless --nosave, which keeps
-    only the final one; epoch{N}.pt every save_period epochs but the last.
-    Returns the seconds of the device-to-host copy and of the writes."""
+class _Saver:
+    """The run's checkpoints on ONE worker thread, at most one save in
+    flight (JAX's pipeline). `submit` waits for the previous save (its
+    error is raised here), takes the snapshot on the calling thread and
+    hands the fetch and the writes to the worker; `wait` collects the save
+    in flight and logs its worker-measured `wall/ckpt_fetch` /
+    `wall/ckpt_write` under its own epoch (and the W&B model artifact):
+    every logger call stays on the main thread."""
+
+    def __init__(self, save_dir: Path, tc: TrainConfig, logger):
+        self.save_dir, self.tc, self.logger = save_dir, tc, logger
+        self.pool = ThreadPoolExecutor(max_workers=1,
+                                       thread_name_prefix="ckpt")
+        self.pending = None
+
+    def submit(self, state, epoch: int, best_fitness: float, *,
+               is_best: bool, is_final: bool, fit: float) -> None:
+        self.wait()
+        tc = self.tc
+        last = not tc.nosave or is_final
+        period = (tc.save_period > 0 and (epoch + 1) % tc.save_period == 0
+                  and not is_final)
+        snap = None
+        if last or period:
+            snap = snapshot_tree(
+                state, epoch=epoch, best_fitness=best_fitness,
+                extra=({"wandb_id": self.logger.wandb_id}
+                       if self.logger.wandb_id else None))
+        fut = self.pool.submit(_write_saves, self.save_dir, snap, epoch,
+                               last=last, best=last and is_best,
+                               period=period)
+        self.pending = (fut, epoch, fit, is_best)
+
+    def wait(self) -> None:
+        if self.pending is None:
+            return
+        (fut, epoch, fit, is_best), self.pending = self.pending, None
+        t_fetch, t_write = fut.result()
+        self.logger.log_scalars({"wall/ckpt_fetch": t_fetch,
+                                 "wall/ckpt_write": t_write}, epoch)
+        if self.logger.lifecycle.active:
+            self.logger.lifecycle.log_model(self.save_dir / "last.pt",
+                                            epoch=epoch, fitness=fit,
+                                            best=is_best)
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True)
+
+
+def _write_saves(save_dir: Path, snap, epoch: int, *, last: bool,
+                 best: bool, period: bool) -> tuple[float, float]:
+    """The worker's half of a save: the snapshot to the host, then
+    last.pt (and best.pt, a copy of it) and epoch{N}.pt as asked. Returns
+    the seconds of the fetch and of the last / best writes."""
     t0 = time.time()
-    ckpt = None
-    if not tc.nosave or is_final:
-        ckpt = checkpoint_tree(state, epoch=epoch, best_fitness=best_fitness,
-                               extra=extra)
+    ckpt = None if snap is None else fetch_snapshot(snap)
     t1 = time.time()
-    if ckpt is not None:
+    if last:
         write_checkpoint(save_dir / "last.pt", ckpt)
-        if is_best:
+        if best:
             clone_checkpoint(save_dir / "last.pt", save_dir / "best.pt")
     t2 = time.time()
-    if (tc.save_period > 0 and (epoch + 1) % tc.save_period == 0
-            and not is_final):
-        if ckpt is None:
-            ckpt = checkpoint_tree(state, epoch=epoch,
-                                   best_fitness=best_fitness, extra=extra)
+    if period:
         write_checkpoint(save_dir / f"epoch{epoch}.pt", ckpt)
     return t1 - t0, t2 - t1

@@ -49,9 +49,9 @@ def _bilinear_resize(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     taps (`F.interpolate` forms the source coordinate differently)."""
     _, h, w, _ = img.shape
     dev = img.device
-    y0, y1, fy = (torch.from_numpy(a).to(dev)
+    y0, y1, fy = (torch.from_numpy(a).to(dev, non_blocking=True)
                   for a in _source_coords(h, nh))
-    x0, x1, fx = (torch.from_numpy(a).to(dev)
+    x0, x1, fx = (torch.from_numpy(a).to(dev, non_blocking=True)
                   for a in _source_coords(w, nw))
     fy = fy[None, :, None, None]
     fx = fx[None, None, :, None]
@@ -89,8 +89,8 @@ def tta_forward(model, img: torch.Tensor, ir: torch.Tensor | None,
         ii = scale_img(ii, si, gs) if ii is not None else None
         y = decode_detections(model(xi, ii)["raw"], anchors, strides)
         # a true f32 division: on the card a Python divisor would become a
-        # multiply by its reciprocal
-        box = y[..., :4] / torch.tensor(si, dtype=y.dtype, device=y.device)
+        # multiply by its reciprocal (torch.full: no copy from the host)
+        box = y[..., :4] / torch.full((), si, dtype=y.dtype, device=y.device)
         if fi == 3:
             box = torch.cat([w - box[..., :1], box[..., 1:]], -1)
         outs.append(torch.cat([box, y[..., 4:]], -1))

@@ -18,7 +18,12 @@ that name, a VEDAI folder of PNGs decoded by the port itself, or on
 with a fresh model and dataset at each size; a size that fails is
 reported and skipped). --rect batches by aspect ratio, each batch
 letterboxed to its own shape (stride 32, pad 0.5). bf16 compute is on by
-default (--no-bf16 for f32).
+default (--no-bf16 for f32). The mAP tasks take the whole-pass eval where
+it is eligible, as JAX's val.py does (`evaluate(scan=None)`: more than one
+batch of one shape within the stacked-image budget; every batch's step
+issued with no host wait, the results fetched once); --rect batches of
+several shapes and a single batch run batch by batch. speed_ms is the
+inference + NMS time an image either way.
 
 Weights come from --weights (JAX's flag: a .npz state_dict, such as the
 trained flagship's checkpoints/flagship_r5_150ep_ema.npz, or a checkpoint
