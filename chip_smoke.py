@@ -127,9 +127,15 @@ the final ok line:
               (PER_FORWARD) and --rect (544 px, OFF_FORWARD); `trained`'s
               16 images as a 512 px PNG folder (labels written with 9
               digits, read back bit-equal) whose bf16 mAP@0.5 and mAP must
-              equal `trained`'s to the digit; decode ms per pair, the first
-              epoch's feed against a warm one, feed + step ms and the idle
-              share of the streaming, bank and rect feeds
+              equal `trained`'s to the digit; the port's C++ tile loader
+              (`csrc/tile_loader.cpp`, built by the host compiler beside
+              nvcc) is the tile source of the streaming and bank feeds
+              (required) and its tiles of the 1024 px folder are bit-equal
+              to the python source's; decode ms per pair (native with the
+              cache off, on its pool and on one core, and python), the
+              bank's setup, the first epoch's feed against a warm one,
+              feed + step ms and the idle share of the streaming, bank and
+              rect feeds
      eval_extras  the eval protocol's extras and the serving path on the
               trained weights (predictions printed first): `val --augment`
               in bf16 and f32 on `trained`'s 16 images (mAP@0.5 and mAP
@@ -271,12 +277,14 @@ Needs a CUDA card; exits 1 without one and 2 when the port is missing.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -3415,18 +3423,24 @@ def _folder_feed(fold: str, hyp_path: Path, regime: str) -> dict:
     ds = VedaiDataset(fold, img_size=512)
     out = {"regime": regime}
     gate = loader.DEVICE_BANK_MAX_GB
+    said = io.StringIO()
     t0 = time.perf_counter()
     try:
-        if regime == "rect":
-            batches = loader.make_rect_train_batches(ds, MAIN_BATCH, 512, h,
-                                                     device="cuda")
-        else:
-            loader.DEVICE_BANK_MAX_GB = 0.0 if regime == "stream" else gate
-            batches = loader.make_train_batches(ds, MAIN_BATCH, 512, h,
-                                                device="cuda")
+        with contextlib.redirect_stdout(said):
+            if regime == "rect":
+                batches = loader.make_rect_train_batches(
+                    ds, MAIN_BATCH, 512, h, device="cuda")
+            else:
+                loader.DEVICE_BANK_MAX_GB = (0.0 if regime == "stream"
+                                             else gate)
+                batches = loader.make_train_batches(ds, MAIN_BATCH, 512, h,
+                                                    device="cuda")
     finally:
         loader.DEVICE_BANK_MAX_GB = gate
     out["setup_s"] = time.perf_counter() - t0
+    print(said.getvalue(), end="", flush=True)
+    src = re.search(r"tile source: (\w+)", said.getvalue())
+    out["tile_source"] = src[1] if src else None
 
     def feed_ms():
         torch.cuda.synchronize()
@@ -3453,6 +3467,56 @@ def _folder_feed(fold: str, hyp_path: Path, regime: str) -> dict:
     out.update(device_busy_ms=busy, profiled_wall_ms=wall[-1],
                idle_share=_idle(busy, out["feed_plus_step_ms"]))
     return out
+
+
+def _native_tiles(fold: str) -> dict:
+    """The port's tile loader on the 1024 px folder at 512 px: every pair's
+    tiles bit-equal to the python source's, and the ms to decode and resize
+    one pair with the cache off, on its pool (the rgb and ir tiles on two
+    threads) and with the process held to one core, beside the python
+    source's ms a pair (the same tiles, `VedaiDataset.__getitem__`)."""
+    import os
+    import numpy as np
+    from sodt_tpu_torch.data import VedaiDataset, native_loader
+    ds = VedaiDataset(fold, img_size=512)
+    out = {"cpus": os.cpu_count(), "load_error": native_loader.load_error()}
+    if out["load_error"] is not None:
+        return dict(out, bit_equal=False)
+    py_ms, native_ms, equal = [], [], True
+    nat = native_loader.NativeTileLoader(ds.img_files, ds.ir_files, 512,
+                                         cache_gb=0.0)
+    try:
+        for i in range(len(ds)):
+            t = time.perf_counter()
+            rgb, ir, _ = ds[i]
+            py_ms.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            nrgb, nir = nat.get(np.array([i]))
+            native_ms.append(1e3 * (time.perf_counter() - t))
+            equal = equal and np.array_equal(nrgb[0], rgb) and \
+                np.array_equal(nir[0], ir)
+    finally:
+        nat.close()
+    # one core: the loader's threads inherit the mask of the thread that
+    # made them, so the loader is made under it
+    mask = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, {min(mask)})
+    one_core = []
+    try:
+        nat = native_loader.NativeTileLoader(ds.img_files, ds.ir_files, 512,
+                                             cache_gb=0.0)
+        try:
+            for i in range(4):
+                t = time.perf_counter()
+                nat.get(np.array([i]))
+                one_core.append(1e3 * (time.perf_counter() - t))
+        finally:
+            nat.close()
+    finally:
+        os.sched_setaffinity(0, mask)
+    return dict(out, bit_equal=bool(equal), pairs=len(ds),
+                python_ms_per_pair=py_ms, native_ms_per_pair=native_ms,
+                native_ms_per_pair_one_core=one_core)
 
 
 def _vedai1024(workdir: Path) -> tuple[dict, str, str]:
@@ -3482,12 +3546,16 @@ def phase_folders(label: str, workdir: Path, trained: dict) -> dict:
       2. `sodt_tpu_torch.train --data` on it from the trained weights at
          512 px: 2 epochs streaming (the bank gate at 0), 1 epoch from the
          device bank, 1 epoch of --rect; PER_STEP on every step, finite
-         losses, the tile source printed;
+         losses, the tile source printed: the port's C++ tile loader
+         (`native`) for streaming and the bank;
       3. `val --data` on it, square (PER_FORWARD) and --rect (544 px,
          RECT_FORWARD);
       4. `trained`'s 16 images at 512 px as a PNG folder: `val` in bf16
          reads `trained`'s bf16 mAP@0.5 and mAP to the last digit;
-      5. feed + step and the idle share of each regime.
+      5. the tile loader's tiles of the folder bit-equal to the python
+         source's, and each one's ms a pair (`_native_tiles`);
+      6. feed + step and the idle share of each regime, its tile source
+         (`native` for streaming and the bank) and its setup.
     The launch counts are set to 0 just before each run and read after."""
     import numpy as np
     import torch
@@ -3541,6 +3609,8 @@ def phase_folders(label: str, workdir: Path, trained: dict) -> dict:
         ok = ok and (len(steps) == n and r["launches_per_step_ok"]
                      and r["launches_ok"] and finite and src is not None
                      and r["sizes"] == [512])
+        # the card's feed reads the folder through the port's C++ loader
+        ok = ok and (tag == "rect" or r["tile_source"] == "native")
         row[tag] = r
 
     train("stream", [], 2, stream=True)
@@ -3580,12 +3650,24 @@ def phase_folders(label: str, workdir: Path, trained: dict) -> dict:
     ok = ok and row["tie_write"]["bit_equal"] and all(
         m[k] == want[k] for k in ("map50", "map"))
 
+    row["native_tiles"] = nat = _native_tiles(fold)
+    ok = ok and nat["bit_equal"]
     row["feed"] = {regime: _folder_feed(fold, hyp_path, regime)
                    for regime in ("stream", "bank", "rect")}
+    ok = ok and all(row["feed"][k]["tile_source"] == "native"
+                    for k in ("stream", "bank"))
     dec = row["write"]["decode_ms_per_pair"]
+    mean = lambda key: (float(np.mean(nat[key])) if nat.get(key) else None)
     row["summary"] = {
         "decode_ms_per_1024_pair_first": dec[0],
         "decode_ms_per_1024_pair_mean": sum(dec) / len(dec),
+        "tile_ms_per_1024_pair_native_mean": mean("native_ms_per_pair"),
+        "tile_ms_per_1024_pair_native_one_core_mean": mean(
+            "native_ms_per_pair_one_core"),
+        "tile_ms_per_1024_pair_python_mean": mean("python_ms_per_pair"),
+        **{f"{k}_tile_source": v["tile_source"]
+           for k, v in row["feed"].items()},
+        **{f"{k}_setup_s": v["setup_s"] for k, v in row["feed"].items()},
         **{f"{k}_feed_ms_{e}_epoch_mean": float(np.mean(
             row["feed"][k][f"feed_ms_{e}_epoch"]))
            for k in ("stream", "rect") for e in ("first", "warm")},
@@ -4503,6 +4585,17 @@ def _profile_eval(label: str, cfg: str, int8: bool) -> None:
 
 # --------------------------------------------------------------------- main
 
+def _build_tile_loader(out: dict) -> None:
+    """The port's tile loader (host C++), built while nvcc builds the
+    kernels: its seconds, or why it did not build (phase `folders` then
+    fails: the card's feed must be the native one)."""
+    from sodt_tpu_torch.data import native_loader
+    t0 = time.perf_counter()
+    out["built"] = native_loader.available()
+    out["seconds"] = time.perf_counter() - t0
+    out["error"] = native_loader.load_error()
+
+
 def main() -> int:
     try:
         import torch
@@ -4531,14 +4624,20 @@ def main() -> int:
     t0 = time.perf_counter()
     ptx_dir = tempfile.TemporaryDirectory()
     ptxas = start_ptxas(Path(ptx_dir.name))
+    host = {}
+    host_build = threading.Thread(target=_build_tile_loader, args=(host,))
+    host_build.start()
     try:
         _build.build()
-        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        host_build.join()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "tile_loader": host})
         emit(ptxas_report(ptxas))
     except Exception:
         traceback.print_exc()
         failed.append("build / ptxas")
     finally:
+        host_build.join()
         for _, proc in ptxas:
             proc.kill()
             proc.wait()

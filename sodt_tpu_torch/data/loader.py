@@ -16,9 +16,10 @@ when the rgb + ir tiles fit `DEVICE_BANK_MAX_GB`, or forced either way by
 streaming (tiles read on the host, sent as uint8). JAX's switches keep
 their meanings: `epochs` (stop after n epochs), `cache`, `mosaic` (False:
 the letterbox-only path), `prefer_native`, `multi_scale_buckets`,
-`scale_seed`. Tiles come from a tile source: the native loader
-(`native/libsodt_loader.so`, OpenCV) where it loads, else the python
-dataset; the feed prints which and why on its `feed:` line. Batches are dicts of tensors on the device: img / ir (B, S, S, 3)
+`scale_seed`. Tiles come from a tile source: the port's C++ tile loader
+(`csrc/tile_loader.cpp`, built at first use into `libsodt_tiles.so`) where
+it builds, else the python dataset; the feed prints which and why on its
+`feed:` line. Batches are dicts of tensors on the device: img / ir (B, S, S, 3)
 float in [0, 1], targets (B, N, 5) [cls, cx, cy, w, h] normalized, tmask
 (B, N) bool.
 
@@ -176,16 +177,17 @@ class PyTileSource:
 
 
 class NativeTileSource:
-    """Tiles through the C++ prefetch loader (`native_loader`): `submit`
-    starts the decode on its worker, `wait` collects it."""
+    """Tiles through the port's C++ prefetch loader (`native_loader`,
+    `csrc/tile_loader.cpp`): `submit` starts the decode on its worker,
+    `wait` collects it."""
 
     name = "native"
+    why = "libsodt_tiles.so built from csrc/tile_loader.cpp"
 
     def __init__(self, ds, img_size: int, cache: bool):
         from .native_loader import NativeTileLoader
         self.loader = NativeTileLoader(ds.img_files, ds.ir_files, img_size,
                                        cache_gb=8.0 if cache else 0.0)
-        self.why = "native/libsodt_loader.so loaded"
 
     def submit(self, flat_idx):
         return self.loader.submit(np.asarray(flat_idx, np.int32))
@@ -196,10 +198,11 @@ class NativeTileSource:
 
 def _make_tile_source(dataset, img_size: int, cache: bool = True,
                       prefer_native: bool = True):
-    """The native loader where `prefer_native`, the dataset has image files
-    and the library loads, else the python dataset (through a RamCache
-    when `cache`). The JAX package swallows the reason it falls back; here
-    the source carries it (`.name`, `.why`) and the feed prints it."""
+    """The port's native loader where `prefer_native`, the dataset has
+    image files and the library builds and loads, else the python dataset
+    (through a RamCache when `cache`). The JAX package swallows the reason
+    it falls back; here the source carries it (`.name`, `.why`: the
+    compiler's or the loader's own words) and the feed prints it."""
     if not prefer_native:
         why = "prefer_native=False"
     elif not hasattr(dataset, "img_files"):

@@ -1,24 +1,25 @@
-"""ctypes binding of the C++ prefetching tile loader, `native/loader.cpp`
-(`sodt_tpu/data/native_loader.py`): `native/libsodt_loader.so`, with the
-JAX package's API (`available`, `NativeTileLoader`: submit / wait / get /
-close).
+"""ctypes binding of the port's tile loader, `csrc/tile_loader.cpp`
+(`libsodt_tiles.so`), with the JAX package's API (`available`,
+`NativeTileLoader`: submit / wait / get / close; `sodt_tpu/data/
+native_loader.py`).
 
-A GIL-free worker decodes and resizes the next step's (rgb, ir) pairs with
-OpenCV while the device runs the current one. Departure: the port never
-runs `make` (the JAX binding builds the library where it is missing). The
-library links OpenCV, whose headers and libraries the card's machine
-lacks. Where it is missing or does not load, `load_error()` says why and
+A GIL-free worker decodes and resizes the next step's (rgb, ir) pairs while
+the device runs the current one: its own PNG reader and inflate, cv2's
+resize arithmetic, no OpenCV and no zlib. The library is built from the
+repo's sources with the host compiler at first use
+(`kernels._build.build_host`), on any machine with `c++` or `g++`. Where it
+does not build or load, `load_error()` keeps the reason word for word and
 the feed takes the Python tile source.
 """
 
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import numpy as np
 
-LIB_PATH = Path(__file__).resolve().parents[2] / "native" / "libsodt_loader.so"
+from ..kernels import _build
+
 _lib = None
 _error = None
 
@@ -27,18 +28,16 @@ def _load_lib():
     global _lib, _error
     if _lib is not None or _error is not None:
         return _lib
-    if not LIB_PATH.exists():
-        _error = f"{LIB_PATH} is not there"
-        return None
     try:
-        lib = ctypes.CDLL(str(LIB_PATH))
-    except OSError as e:
+        lib = ctypes.CDLL(str(_build.build_host()))
+    except (RuntimeError, OSError) as e:
         _error = str(e)
         return None
     lib.loader_create.restype = ctypes.c_void_p
     lib.loader_create.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),
         ctypes.c_int, ctypes.c_int, ctypes.c_size_t]
+    lib.loader_submit.restype = None
     lib.loader_submit.argtypes = [
         ctypes.c_void_p, ctypes.c_uint64,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int]
@@ -49,35 +48,41 @@ def _load_lib():
     lib.loader_last_error.restype = ctypes.c_int
     lib.loader_last_error.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.loader_destroy.restype = None
     lib.loader_destroy.argtypes = [ctypes.c_void_p]
     _lib = lib
     return lib
 
 
 def available() -> bool:
+    """Whether the library builds (at first use) and loads."""
     return _load_lib() is not None
 
 
 def load_error() -> str | None:
-    """Why the library did not load (None where it did)."""
+    """Why the library did not build or load (None where it did)."""
     _load_lib()
     return _error
 
 
 class NativeTileLoader:
     """Decode-and-resize service over (rgb, ir) path pairs: uint8 (n, s, s,
-    3) tiles, RGB, the IR's one channel repeated."""
+    3) tiles, RGB, gray repeated, the longest side resized to s and the
+    rest padded with 114; tiles stay cached up to `cache_gb`."""
 
     def __init__(self, rgb_paths: list[str], ir_paths: list[str],
                  img_size: int, cache_gb: float = 8.0):
         lib = _load_lib()
         if lib is None:
             raise RuntimeError(f"native loader unavailable: {_error}")
+        if len(rgb_paths) != len(ir_paths) or img_size < 1:
+            raise ValueError(f"{len(rgb_paths)} rgb and {len(ir_paths)} ir "
+                             f"paths at img_size {img_size}")
         self._lib = lib
         self.img_size = img_size
         self.n = len(rgb_paths)
         enc = lambda ps: (ctypes.c_char_p * len(ps))(
-            *[p.encode() for p in ps])
+            *[str(p).encode() for p in ps])
         self._rgb_arr = enc(rgb_paths)   # kept alive for the worker
         self._ir_arr = enc(ir_paths)
         self._handle = lib.loader_create(
@@ -88,6 +93,9 @@ class NativeTileLoader:
 
     def submit(self, indices: np.ndarray) -> int:
         idx = np.ascontiguousarray(indices, dtype=np.int32)
+        if idx.ndim != 1 or (idx.size and (idx.min() < 0
+                                           or idx.max() >= self.n)):
+            raise IndexError(f"tile indices must be 1-D in [0, {self.n})")
         job = self._next_id
         self._next_id += 1
         self._lib.loader_submit(

@@ -15,9 +15,12 @@ paths, and each is reproduced:
                                 order, in float32, rounded half to even.
   enlarging, linear             cv2's fixed point: 11-bit weights, a
                                 horizontal integer pass, a vertical pass
-                                that rounds at 22 bits (the scalar tail)
-                                or through 16-bit products (the vector
-                                body, 16 bytes a step).
+                                through 16-bit products (its vector body)
+                                at every byte of the row: cv2 rounds the
+                                bytes past the last whole 16 as its vector
+                                steps do, not at 22 bits as its scalar loop
+                                would (5.0 at 1, 3 and 4 channels, 4.6 at
+                                3, tested).
 
 Images are (H, W, C) uint8; the result keeps the channel axis (cv2 drops a
 trailing axis of 1, which `_resize_longest` restores).
@@ -31,7 +34,6 @@ import numpy as np
 
 COEF_BITS = 11                     # INTER_RESIZE_COEF_BITS
 COEF_SCALE = 1 << COEF_BITS
-VEC_BYTES = 16                     # cv2's 128-bit vector body (uint8 lanes)
 EPS = float(np.finfo(np.float64).eps)
 
 
@@ -134,25 +136,19 @@ def _linear_coeffs(n_in: int, n_out: int, clamp: bool):
 
 def _linear(img: np.ndarray, ow: int, oh: int) -> np.ndarray:
     """cv2's `INTER_LINEAR` for uint8: horizontal pass in int32, vertical
-    pass per row: 16-byte vector steps ((S >> 4) * b >> 16, summed, + 2 >> 2)
-    then the scalar tail ((S0 * b0 + S1 * b1 + 2^21) >> 22)."""
+    pass as cv2's vector steps ((S >> 4) * b >> 16, summed, + 2 >> 2) over
+    the whole row."""
     h, w, c = img.shape
     x0, x1, a0, a1 = _linear_coeffs(w, ow, clamp=True)
     y0, y1, b0, b1 = _linear_coeffs(h, oh, clamp=False)
     src = img.astype(np.int32)
     hor = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
-    width = ow * c
-    hor = hor.reshape(h, width)
-    vec = (width // VEC_BYTES) * VEC_BYTES
-    if width - vec > VEC_BYTES // 2:
-        vec += VEC_BYTES // 2
+    hor = hor.reshape(h, ow * c)
     s0, s1 = hor[y0], hor[y1]
     bb0, bb1 = b0[:, None], b1[:, None]
     v = (((s0 >> 4) * bb0) >> 16) + (((s1 >> 4) * bb1) >> 16)
     v = (v + 2) >> 2
-    t = (s0 * bb0 + s1 * bb1 + (1 << 21)) >> 22
-    out = np.where(np.arange(width)[None, :] < vec, v, t)
-    return np.clip(out, 0, 255).astype(np.uint8).reshape(oh, ow, c)
+    return np.clip(v, 0, 255).astype(np.uint8).reshape(oh, ow, c)
 
 
 def resize_longest(img: np.ndarray, size: int) -> np.ndarray:

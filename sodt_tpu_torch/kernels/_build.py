@@ -7,6 +7,12 @@ checkout, named by a hash of the sources. The library has a plain C
 interface and is bound with ctypes: `c_void_p` for every pointer and the
 stream, `c_int` for ints, `c_float` for floats. Every entry returns
 `cudaGetLastError()`; `check()` raises when it is not 0.
+
+Beside them, `build_host()` compiles the host C++ of `csrc/*.cpp` (the tile
+loader: standard library only, no CUDA) with the host compiler into
+`libsodt_tiles.so` under the same directory, named by a hash of those
+sources and the flags; it needs no `nvcc`, so it builds on any machine with
+`c++` or `g++`.
 """
 
 from __future__ import annotations
@@ -23,6 +29,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sodt_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+# no -ffast-math or -march=native, and no fused multiply-add: the tile
+# loader's area resize sums float32 products in OpenCV's order
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared",
+              "-ffp-contract=off"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (see the .cu files)
@@ -74,6 +84,45 @@ def _source_hash() -> str:
             h.update(p.read_bytes())
     h.update(" ".join(ARCH + FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def cxx_path() -> str:
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the "
+                       "tile loader builds with one")
+
+
+def _host_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cpp")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_host() -> Path:
+    """Compile `csrc/*.cpp` into `libsodt_tiles.so` with the host compiler;
+    returns its path (reused when the sources have not changed). Raises
+    RuntimeError with the compiler's own words where it fails."""
+    out_dir = BUILD_DIR / _host_hash()
+    so = out_dir / "libsodt_tiles.so"
+    if so.exists():
+        return so
+    cxx = cxx_path()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libsodt_tiles.{os.getpid()}.so"
+    proc = subprocess.run(
+        [cxx, *HOST_FLAGS, *map(str, sorted(CSRC.glob("*.cpp"))), "-o",
+         str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{Path(cxx).name} failed:\n"
+                           + proc.stdout.decode(errors="replace"))
+    os.replace(tmp, so)
+    return so
 
 
 def build() -> Path:

@@ -3,6 +3,7 @@ package, cv2 or PIL (the card's machine has neither), and its entry points
 refuse to fall back to the CPU quietly."""
 
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -85,3 +86,20 @@ def test_multi_process_train_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--synthetic", "--save-dir", str(tmp_path)])
     assert not dist.is_initialized()
+
+
+def test_port_loads_nothing_from_the_root_native_dir():
+    """The tile loader is the port's own (`csrc/tile_loader.cpp`): no module
+    of the port, and not chip_smoke.py, names JAX's OpenCV library or the
+    root `native/` directory."""
+    pat = re.compile(r"libsodt_loader|(?<![\w/])native/|/\s*[\"']native[\"']")
+    files = [ROOT / "chip_smoke.py", *sorted(
+        p for p in (ROOT / "sodt_tpu_torch").rglob("*")
+        if p.suffix in (".py", ".cpp", ".cu", ".cuh", ".yaml"))]
+    assert len(files) > 50
+    hits = [f"{p.relative_to(ROOT)}:{i + 1}" for p in files
+            for i, line in enumerate(p.read_text().splitlines())
+            if pat.search(line)]
+    assert not hits, hits
+    assert pat.search('ROOT / "native" / "libsodt_loader.so"')
+    assert pat.search("make -C native/")

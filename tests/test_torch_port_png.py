@@ -202,3 +202,19 @@ def test_resize_is_cv2_bit_for_bit(kind, src, dst):
         want = jresize(im, dst)
         assert got.shape == want.shape
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("size", [64, 512])
+def test_linear_resize_rounds_the_whole_row_as_cv2(channels, size):
+    """Enlarged portrait images, whose rows are not a whole number of 16
+    bytes: cv2 rounds the last bytes as its vector steps do, not with its
+    scalar formula. Every width from 2 px to the size."""
+    rng = np.random.default_rng(channels + size)
+    for w in range(2, size, 1 if size == 64 else 37):
+        h = min(w + 1 + w // 3, size - 1)
+        img = rng.integers(0, 256, (h, w, channels), dtype=np.uint8)
+        got = resize_longest(img, size)
+        want = jresize(img, size)
+        assert got.shape == want.shape, w
+        np.testing.assert_array_equal(got, want, err_msg=f"width {w}")

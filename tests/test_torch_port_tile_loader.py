@@ -1,0 +1,529 @@
+"""The port's tile loader (`csrc/tile_loader.cpp`, bound by
+`data/native_loader.py`) on the CPU, built here with the host compiler:
+
+  * every PNG variant (8-bit gray, gray+alpha, RGB, RGBA with every row
+    filter; Adam7; palette of 1-8 bits with and without tRNS; 1-, 2- and
+    4-bit gray; 16-bit gray, gray+alpha, RGB, RGBA) and every resize branch
+    (k = 2, k = 3, general area, linear, none) gives tiles bit-equal to JAX's
+    OpenCV native loader (`sodt_tpu.data.native_loader`) at 64 and 512 px,
+    non-square images padded with 114 as there;
+  * square 8-bit RGB / gray pairs equal the port's python tile source, and
+    the feeds give the same batches with and without `prefer_native`;
+  * the inflate against zlib at levels 0, 1, 6, 9 and its strategies;
+  * every faulty file fails its job with the file named; the cache, the
+    thread pool and repeated indices leave the bytes as they are;
+  * the build: the compiler's words kept where it fails, the library free
+    of OpenCV and zlib, the kernel library's hash blind to `.cpp` sources.
+"""
+
+from __future__ import annotations
+
+import shutil
+import struct
+import subprocess
+import threading
+import time
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from sodt_tpu.data import native_loader as jnative
+from sodt_tpu_torch.data import loader as tl
+from sodt_tpu_torch.data import native_loader as tnative
+from sodt_tpu_torch.data import png
+from sodt_tpu_torch.data.png import write_png
+from sodt_tpu_torch.data.vedai import VedaiDataset
+from sodt_tpu_torch.kernels import _build
+from test_torch_port_item11 import _chunk, _encode
+from torch_port_common import one_torch_thread  # noqa: F401  (fixture)
+
+SIZES = (64, 512)
+# a portrait variant image: area over partial cells at 64 px, the linear
+# path at 512 (a row of 460 px, not a multiple of 16 bytes), 114 at the right
+VH, VW = 100, 90
+HYP = dict(hsv_h=0.015, hsv_s=0.7, hsv_v=0.4, degrees=0.0, translate=0.1,
+           scale=0.5, shear=0.0, perspective=0.0, flipud=0.0, fliplr=0.5,
+           mosaic=1.0, mixup=0.5)
+
+
+@pytest.fixture(scope="module")
+def lib():
+    """The port's library, built with the host compiler (skips only where
+    there is none); JAX's OpenCV loader is the oracle and must load."""
+    try:
+        _build.cxx_path()
+    except RuntimeError as e:
+        pytest.skip(str(e))
+    assert tnative.available(), tnative.load_error()
+    if not jnative.available():
+        pytest.skip("JAX's native/libsodt_loader.so neither loads nor builds")
+    return tnative._lib
+
+
+def _scene(h: int, w: int, c: int, seed: int) -> np.ndarray:
+    """Smooth structure plus noise, uint8: ties of every rounding occur."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:h, :w]
+    base = (np.sin(x[..., None] / 7.0 + np.arange(c)) * 60
+            + np.cos(y[..., None] / 5.0) * 50 + 128)
+    return np.clip(base + rng.normal(0, 20, (h, w, c)), 0, 255).astype(
+        np.uint8)
+
+
+def _tiles(mod, rgb_paths, ir_paths, size, idx, cache_gb=8.0):
+    loader = mod.NativeTileLoader([str(p) for p in rgb_paths],
+                                  [str(p) for p in ir_paths], size,
+                                  cache_gb=cache_gb)
+    try:
+        return loader.get(np.asarray(idx))
+    finally:
+        loader.close()
+
+
+def _same_as_jax(path, size):
+    got = _tiles(tnative, [path], [path], size, [0])
+    want = _tiles(jnative, [path], [path], size, [0])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (1, size, size, 3)
+        np.testing.assert_array_equal(g, w, err_msg=str(path))
+    return got[0][0]
+
+
+# ------------------------------------------------------------- variants
+
+def _variant_writers() -> dict:
+    """name -> a function writing that variant's PNG to a path."""
+    h, w = VH, VW
+    rng = np.random.default_rng(23)
+    s16 = rng.integers(0, 65536, (h, w, 4), dtype=np.uint16)
+    s16[::2] //= 200                  # half the rows below 256: both sides
+    gray = _scene(h, w, 1, 1)
+    pal = {d: _chunk(b"PLTE", rng.integers(0, 256, 3 << d, dtype=np.uint8)
+                     .tobytes()) for d in (1, 2, 4, 8)}
+    trns = {d: _chunk(b"tRNS", bytes(range(0, 256, 7))[:1 << d])
+            for d in (1, 2, 4, 8)}
+    every = np.arange(h) % 5          # the rows cycle through all 5 filters
+    out = {}
+    for c, name in ((1, "gray8"), (2, "gray_alpha8"), (3, "rgb8"),
+                    (4, "rgba8")):
+        out[name] = lambda p, c=c: write_png(p, _scene(h, w, c, c),
+                                             filters=every)
+    for ctype, spp, name in ((0, 1, "gray16"), (4, 2, "gray_alpha16"),
+                             (2, 3, "rgb16"), (6, 4, "rgba16")):
+        out[name] = lambda p, ctype=ctype, spp=spp: p.write_bytes(
+            _encode(s16[..., :spp], 16, ctype))
+    out["adam7_rgb8"] = lambda p: p.write_bytes(
+        _encode(_scene(h, w, 3, 5), 8, 2, adam7=True))
+    out["adam7_gray_alpha16"] = lambda p: p.write_bytes(
+        _encode(s16[..., :2], 16, 4, adam7=True))
+    out["adam7_palette4"] = lambda p: p.write_bytes(
+        _encode(gray >> 4, 4, 3, adam7=True, extra=pal[4]))
+    for d in (1, 2, 4, 8):
+        out[f"palette{d}"] = lambda p, d=d: p.write_bytes(
+            _encode(gray >> (8 - d), d, 3, extra=pal[d]))
+        out[f"palette{d}_trns"] = lambda p, d=d: p.write_bytes(
+            _encode(gray >> (8 - d), d, 3, extra=pal[d] + trns[d]))
+    for d in (1, 2, 4):
+        out[f"gray{d}"] = lambda p, d=d: p.write_bytes(
+            _encode(gray >> (8 - d), d, 0))
+    out["rgb8_trns"] = lambda p: p.write_bytes(_encode(
+        _scene(h, w, 3, 6), 8, 2, extra=_chunk(b"tRNS", b"\0\1\0\2\0\3")))
+    out["gray8_trns"] = lambda p: p.write_bytes(
+        _encode(gray, 8, 0, extra=_chunk(b"tRNS", b"\0\7")))
+    return out
+
+
+VARIANTS = _variant_writers()
+
+
+@pytest.fixture(scope="module")
+def variant_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("variants")
+    for name, write in VARIANTS.items():
+        write(d / f"{name}.png")
+    return d
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_variant_tiles_equal_jax_opencv_loader(lib, variant_dir, variant,
+                                               size):
+    tile = _same_as_jax(variant_dir / f"{variant}.png", size)
+    ow = int(VW * size / VH)
+    assert (tile[:, ow:] == 114).all() and (tile[:, :ow] != 114).any()
+
+
+def test_palette_index_past_plte_is_black(lib, tmp_path):
+    """A palette image using indices past its PLTE: black there, as in
+    OpenCV (libpng's palette is zeroed past its end)."""
+    idx = (_scene(VH, VW, 1, 9) >> 4)
+    p = tmp_path / "short_plte.png"
+    p.write_bytes(_encode(idx, 4, 3, extra=_chunk(b"PLTE", bytes(
+        range(30)))))                                  # 10 of 16 entries
+    tile = _same_as_jax(p, VH)
+    assert (tile[:VH, :VW][idx[..., 0] >= 10] == 0).all()
+
+
+# ------------------------------------------------------------- resize
+
+# the longest side -> 64 / 512 px: 1024 (k 16 / k 2), 1536 (k 24 / k 3),
+# 600 (general area at both), 256 (k 4 / linear), 512 (k 8 / none), 48
+# (linear at both)
+SIDES = (1024, 1536, 600, 256, 512, 48)
+
+
+@pytest.fixture(scope="module")
+def resize_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("resize")
+    for side in SIDES:
+        write_png(d / f"rgb{side}.png", _scene(side, side, 3, side))
+        write_png(d / f"gray{side}.png", _scene(side, side, 1, side + 1))
+    for hw in ((768, 1024), (1024, 768)):
+        write_png(d / "rgb{}x{}.png".format(*hw), _scene(*hw, 3, 4))
+    return d
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("kind", ["rgb", "gray"])
+@pytest.mark.parametrize("side", SIDES)
+def test_resize_branches_equal_jax_opencv_loader(lib, resize_dir, side, kind,
+                                                 size):
+    tile = _same_as_jax(resize_dir / f"{kind}{side}.png", size)
+    assert (tile != 114).any()
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("hw", [(768, 1024), (1024, 768)],
+                         ids=["landscape", "portrait"])
+def test_non_square_is_padded_as_jax_opencv_loader(lib, resize_dir, hw,
+                                                   size):
+    tile = _same_as_jax(resize_dir / "rgb{}x{}.png".format(*hw), size)
+    h, w = (int(s * size / 1024) for s in hw)
+    assert (tile[h:] == 114).all() and (tile[:, w:] == 114).all()
+
+
+# ------------------------------------------------- python source, feeds
+
+def _folder(root: Path, sides, n_per_side: int = 2) -> str:
+    """A fold list of square 8-bit RGB `_co` / gray `_ir` pairs with one
+    label each; returns the list's path."""
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    lines = []
+    for i, side in enumerate(s for s in sides for _ in range(n_per_side)):
+        stem = f"{i:08d}"
+        write_png(root / "images" / f"{stem}_co.png",
+                  _scene(side, side, 3, 100 + i), filters=np.arange(side) % 5)
+        write_png(root / "images" / f"{stem}_ir.png",
+                  _scene(side, side, 1, 200 + i))
+        (root / "labels" / f"{stem}.txt").write_text(
+            f"{i % 3} 0.5 0.5 0.2 0.25\n")
+        lines.append(f"{root / 'images' / stem}_co.png\n")
+    lst = root / "fold.txt"
+    lst.write_text("".join(lines))
+    return str(lst)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_square_pairs_equal_python_tile_source(lib, tmp_path, size):
+    ds = VedaiDataset(_folder(tmp_path, (1024, 600, 256, 48), 1), size)
+    idx = np.array([3, 0, 2, 1, 0])
+    py = tl.PyTileSource(ds, "test").wait(idx)
+    src = tl._make_tile_source(ds, size, cache=False)
+    assert src.name == "native" and "tile_loader.cpp" in src.why
+    for got, want in zip(src.wait(src.submit(idx)), py):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def feed_ds(tmp_path_factory):
+    return VedaiDataset(_folder(tmp_path_factory.mktemp("feed"), (96, 80),
+                                3), 64)
+
+
+def _take(it, k):
+    return [next(it) for _ in range(k)]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_stream_feed_same_with_and_without_native(lib, feed_ds, monkeypatch,
+                                                  capsys):
+    """Streaming, two epochs: the native source's batches equal the python
+    source's at one seed."""
+    monkeypatch.setattr(tl, "DEVICE_BANK_MAX_GB", 0.0)
+    runs = {}
+    for native in (True, False):
+        runs[native] = _take(tl.make_train_batches(
+            feed_ds, 2, 64, HYP, seed=4, device="cpu", epochs=2,
+            prefer_native=native), 6)
+    out = capsys.readouterr().out
+    assert "tile source: native (libsodt_tiles.so" in out
+    assert "tile source: python (prefer_native=False)" in out
+    for a, b in zip(runs[True], runs[False]):
+        for k in ("img", "ir", "targets", "tmask"):
+            torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_bank_feed_same_with_and_without_native(lib, feed_ds):
+    feeds = {native: tl.make_bank_feed(feed_ds, 2, 64, HYP, seed=6,
+                                       device="cpu", prefer_native=native)
+             for native in (True, False)}
+    assert feeds[True].source.name == "native"
+    assert feeds[False].source.name == "python"
+    for a, b in zip(feeds[True].banks, feeds[False].banks):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    a, b = feeds[True].augment_step(), feeds[False].augment_step()
+    torch.testing.assert_close(a["img"], b["img"], rtol=0, atol=0)
+
+
+# -------------------------------------------------------------- inflate
+
+def _png_of(rgb: np.ndarray, zdata: bytes, parts: int = 3) -> bytes:
+    """An 8-bit RGB PNG whose zlib stream is `zdata`, cut into `parts`
+    IDAT chunks."""
+    h, w, _ = rgb.shape
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    cuts = np.linspace(0, len(zdata), parts + 1).astype(int)
+    idats = b"".join(_chunk(b"IDAT", zdata[a:b])
+                     for a, b in zip(cuts[:-1], cuts[1:]))
+    return (png.SIGNATURE + _chunk(b"IHDR", ihdr) + idats
+            + _chunk(b"IEND", b""))
+
+
+def _raw_rows(rgb: np.ndarray) -> bytes:
+    return b"".join(b"\0" + r.tobytes() for r in rgb)
+
+
+STREAMS = [(0, zlib.Z_DEFAULT_STRATEGY), (1, zlib.Z_DEFAULT_STRATEGY),
+           (6, zlib.Z_DEFAULT_STRATEGY), (9, zlib.Z_DEFAULT_STRATEGY),
+           (6, zlib.Z_FIXED), (6, zlib.Z_RLE), (9, zlib.Z_HUFFMAN_ONLY)]
+
+
+@pytest.mark.parametrize("level,strategy", STREAMS,
+                         ids=[f"level{l}-strategy{s}" for l, s in STREAMS])
+def test_inflate_is_held_to_zlib(lib, tmp_path, level, strategy):
+    """Stored, fixed and dynamic blocks, long and overlapping matches, a
+    stream cut across IDATs: the tile at r = 1 is the image itself."""
+    h, w = 160, 200                                    # > 64 KiB raw
+    rgb = _scene(h, w, 3, level)
+    rgb[40:80] = rgb[40:41]                            # long repeats
+    comp = zlib.compressobj(level, zlib.DEFLATED, 15, 8, strategy)
+    zdata = comp.compress(_raw_rows(rgb)) + comp.flush()
+    assert zlib.decompress(zdata) == _raw_rows(rgb)
+    p = tmp_path / "z.png"
+    p.write_bytes(_png_of(rgb, zdata))
+    tile = _tiles(tnative, [p], [p], w, [0])[0][0]
+    np.testing.assert_array_equal(tile[:h], rgb)
+    assert (tile[h:] == 114).all()
+
+
+# ------------------------------------------------------------ bad input
+
+def _broken(kind: str, good: bytes) -> bytes:
+    """`good` (a PNG with one IDAT) broken one way."""
+    chunks = list(png._chunks(good))
+    kinds = [k for k, _ in chunks]
+    i = kinds.index(b"IDAT")
+    z = chunks[i][1]
+    if kind == "crc":                                  # one CRC byte flipped
+        pos = good.index(b"IDAT") + 4 + len(z)
+        return good[:pos] + bytes([good[pos] ^ 0x40]) + good[pos + 1:]
+    if kind == "truncated":
+        return good[:len(good) // 2]
+    if kind == "not_png":
+        return b"\xff\xd8\xff\xe0" + good[4:]
+    bad = {"zlib_header": bytes([z[0] ^ 0x0F]) + z[1:],
+           "adler": z[:-1] + bytes([z[-1] ^ 1]),
+           "zlib_cut": z[:len(z) // 2]}[kind]
+    chunks[i] = (b"IDAT", bad)
+    return png.SIGNATURE + b"".join(_chunk(k, p) for k, p in chunks)
+
+
+BAD = {"crc": "bad CRC in chunk IDAT", "truncated": "truncated PNG file",
+       "not_png": "not a PNG file", "zlib_header": "bad zlib stream (header)",
+       "adler": "bad zlib stream (Adler-32)",
+       "zlib_cut": "truncated zlib stream", "missing": "cannot open the file"}
+
+
+@pytest.mark.parametrize("kind", sorted(BAD))
+def test_faulty_file_fails_the_job_and_names_it(lib, tmp_path, kind):
+    good = tmp_path / "good_co.png"
+    write_png(good, _scene(48, 40, 3, 0))
+    bad = tmp_path / f"bad_{kind}_ir.png"
+    if kind != "missing":
+        bad.write_bytes(_broken(kind, good.read_bytes()))
+    loader = tnative.NativeTileLoader([str(good)] * 2, [str(good), str(bad)],
+                                      64)
+    try:
+        with pytest.raises(RuntimeError) as e:
+            loader.get(np.array([0, 1, 0]))
+        msg = str(e.value)
+        assert f"failed to decode {bad}" in msg and BAD[kind] in msg, msg
+        rgb, ir = loader.get(np.array([0]))       # the loader goes on
+        np.testing.assert_array_equal(rgb, ir)
+    finally:
+        loader.close()
+
+
+def test_first_failing_tile_in_order_is_reported(lib, tmp_path):
+    """Tiles decode on a pool, but the job reports the failure a loop over
+    (rgb 0, ir 0, rgb 1, ...) meets first."""
+    good = tmp_path / "ok.png"
+    write_png(good, _scene(32, 32, 3, 0))
+    gone = [str(tmp_path / f"gone{i}.png") for i in range(4)]
+    loader = tnative.NativeTileLoader([str(good), gone[0], str(good)],
+                                      [gone[1], str(good), gone[2]], 32)
+    try:
+        for idx, first in (([2, 1, 0], gone[2]), ([1, 0], gone[0]),
+                           ([0, 2], gone[1])):
+            with pytest.raises(RuntimeError, match=first):
+                loader.get(np.array(idx))
+    finally:
+        loader.close()
+
+
+# ------------------------------------------------------ cache and threads
+
+def test_cache_pool_and_repeats_leave_the_bytes(lib, resize_dir):
+    """No cache, a budget that holds two tiles, the default budget: the
+    same bytes, equal to JAX's one-thread loader, over jobs that repeat
+    indices and jobs waited in reverse order."""
+    paths = [resize_dir / f"rgb{s}.png" for s in (1024, 600, 256, 48)]
+    irs = [resize_dir / f"gray{s}.png" for s in (1024, 600, 256, 48)]
+    jobs = [[0, 1, 0, 2], [3, 3, 1, 0, 2, 2], [1], [2, 0, 3, 1, 0, 3]]
+    want = [_tiles(jnative, paths, irs, 512, j) for j in jobs]
+    tile_gb = 512 * 512 * 3 / 2**30
+    for gb in (0.0, 2 * tile_gb, 8.0):
+        loader = tnative.NativeTileLoader([str(p) for p in paths],
+                                          [str(p) for p in irs], 512,
+                                          cache_gb=gb)
+        try:
+            ids = [loader.submit(np.array(j)) for j in jobs]
+            got = {i: loader.wait(i) for i in reversed(ids)}
+            got[ids[0]] = loader.get(np.array(jobs[0]))    # from the cache
+            for i, w in zip(ids, want):
+                for g, x in zip(got[i], w):
+                    np.testing.assert_array_equal(g, x)
+        finally:
+            loader.close()
+
+
+def test_wait_releases_the_interpreter(lib, resize_dir):
+    """While `loader_wait` blocks, other Python threads run."""
+    p = [str(resize_dir / "rgb1536.png")] * 4
+    loader = tnative.NativeTileLoader(p, p, 512, cache_gb=0.0)
+    ticks, stop = [0], threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            ticks[0] += 1
+    job = loader.submit(np.arange(4))
+    th = threading.Thread(target=spin)
+    th.start()
+    try:
+        time.sleep(0.001)
+        before = ticks[0]
+        loader.wait(job)
+        during = ticks[0] - before
+    finally:
+        stop.set()
+        th.join(timeout=10)
+        loader.close()
+    assert not th.is_alive() and during > 1000, during
+
+
+def test_close_with_jobs_in_flight_returns(lib, resize_dir):
+    p = [str(resize_dir / "rgb1024.png")] * 2
+    loader = tnative.NativeTileLoader(p, p, 512, cache_gb=0.0)
+    for _ in range(3):
+        loader.submit(np.array([0, 1]))
+    th = threading.Thread(target=loader.close)
+    th.start()
+    th.join(timeout=60)
+    assert not th.is_alive()
+
+
+def test_submit_checks_its_indices(lib, resize_dir):
+    p = [str(resize_dir / "rgb48.png")]
+    loader = tnative.NativeTileLoader(p, p, 64)
+    try:
+        for bad in ([1], [-1], [[0]]):
+            with pytest.raises(IndexError):
+                loader.submit(np.array(bad))
+    finally:
+        loader.close()
+
+
+# ---------------------------------------------------------------- build
+
+def _fresh_binding(monkeypatch):
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_error", None)
+
+
+def test_compile_error_is_kept_word_for_word(lib, tmp_path, monkeypatch,
+                                             capsys):
+    """A source that does not compile: `available()` is False, the
+    compiler's message is `load_error()` and the feed's reason."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "tile_loader.cpp").write_text("int broken(\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _fresh_binding(monkeypatch)
+    assert not tnative.available()
+    err = tnative.load_error()
+    assert "failed:" in err and "tile_loader.cpp:" in err and "error" in err
+    with pytest.raises(RuntimeError, match="native loader unavailable"):
+        tnative.NativeTileLoader([], [], 64)
+    ds = VedaiDataset(_folder(tmp_path / "f", (48,), 2), 32)
+    src_ = tl._make_tile_source(ds, 32)
+    assert src_.name == "python" and err in src_.why
+
+
+def test_missing_compiler_is_kept(lib, monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", Path("/nonexistent/build"))
+    _fresh_binding(monkeypatch)
+    assert not tnative.available()
+    assert "no host C++ compiler" in tnative.load_error()
+
+
+def test_library_has_no_opencv_and_no_zlib(lib):
+    """`ldd` / `nm -D`: libc, libstdc++ (and its libgcc_s), libm only; no
+    OpenCV, libpng or zlib symbol."""
+    so = _build.build_host()
+    if shutil.which("ldd") is None or shutil.which("nm") is None:
+        pytest.skip("no ldd / nm on this machine")
+    ldd = subprocess.run(["ldd", str(so)], capture_output=True, text=True,
+                         check=True).stdout
+    libs = {line.split()[0] for line in ldd.splitlines() if line.strip()}
+    allowed = ("linux-vdso", "libstdc++", "libm.", "libgcc_s", "libc.",
+               "libpthread", "ld-linux", "/lib64/ld-linux")
+    assert all(n.startswith(allowed) for n in libs), libs
+    nm = subprocess.run(["nm", "-D", "--undefined-only", str(so)],
+                        capture_output=True, text=True, check=True).stdout
+    for bad in ("cv", "inflate", "png_", "adler32", "crc32"):
+        assert not [s for s in nm.split() if s.startswith(bad)], bad
+    exported = subprocess.run(["nm", "-D", "--defined-only", str(so)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    for name in ("loader_create", "loader_submit", "loader_wait",
+                 "loader_last_error", "loader_destroy"):
+        assert f" T {name}" in exported
+
+
+def test_kernel_hash_ignores_host_sources(lib, tmp_path, monkeypatch):
+    """The CUDA library's hash reads `.cu` / `.cuh` only, so the tile
+    loader's source leaves the kernels' build as it is."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    kernels, host = _build._source_hash(), _build._host_hash()
+    (copy / "tile_loader.cpp").write_text("// changed\n")
+    assert _build._source_hash() == kernels
+    assert _build._host_hash() != host
