@@ -103,6 +103,24 @@ the final ok line:
               JAX's mAP@0.5, int8 at least 0.9x bf16's; int8's gap to bf16
               is its cost in mAP) and bf16's beside JAX's bf16 values (the
               same bounds), raw Detect maps bf16 vs f32
+     reference_io  the reference-checkpoint tools on the trained npz:
+              `tools.export_torch --no-module` (its round trip exact over
+              the sidecar's 244 arrays) then `tools.import_torch` back,
+              bit-equal to the npz; `tools.parity_check.run` on that .pt
+              (512 px, batch 4, bf16, `trained`'s 16 images, --ref-map50 the
+              sidecar's JAX f32 mAP@0.5): pass true, mAP@0.5 and mAP equal to
+              `trained`'s bf16 readings, launches PER_FORWARD x 4; the A/B of
+              the kernels against JAX's composition (`kernels.no_kernels()`):
+              one warm bf16 forward of the trained flagship (batch 4, 512
+              px) and one training step (forward, loss, backward) of the
+              seeded flagship, each way, CUDA-event ms and device-busy ms,
+              no counter moving inside the switch, the forward's raw Detect
+              maps within 2e-2 of the kernel path's; `python -m
+              sodt_tpu_torch.tools.profile_eval --batch 4 --iters 2` in a
+              subprocess started first, beside the export, the parity
+              check and the A/B's set-up (its timings, taken on a shared
+              card, are not kept), whose categories must name the
+              kernels' bodies
      train_aug  `python -m sodt_tpu_torch.train --weights` the .npz, 512 px,
               batch 4, nbs 4: 2 epochs with --save-dir / --save-period 1
               (every array but the anchors loaded), --resume last.pt for one
@@ -256,9 +274,11 @@ the final ok line:
      Each path's seconds follow it on a line of their own.
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
-              device time; the forward's time by CUDA events (host gaps
-              included), its summed kernel time, the host's time to issue
-              it and the host's largest ops
+              device time and the top 25 categories
+              (`utils.profiler.breakdown`, as tools/profile_eval prints);
+              the forward's time by CUDA events (host gaps included), its
+              summed kernel time, the host's time to issue it and the
+              host's largest ops
      profile_train  the same over one warm training step
      profile_swinv2, profile_swinv2_train  the same two for the SwinV2
               model
@@ -272,6 +292,8 @@ the final ok line:
      and on one whole pass of `eval_runner`), the card line, the ok line.
 
 Needs a CUDA card; exits 1 without one and 2 when the port is missing.
+Refuses to run (exit 1, before any phase) with SODT_NO_KERNELS set: every
+path would take the composition and launch nothing of what it checks.
 """
 
 from __future__ import annotations
@@ -280,6 +302,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -386,6 +409,15 @@ TRAINED_BF16_TOL = 1e-2
 TRAINED_F32_TOL = 5e-3
 TRAINED_INT8_FRACTION = 0.9
 TRAINED_MAP_TOL = {"bf16": 2e-2, "f32": 5e-3, "int8": 2e-2}
+# reference_io: the A/B of the kernels against JAX's composition holds the
+# composition's raw Detect maps to the kernel path's (max |diff| / max
+# |ref|); profile_eval's categories must name the bodies that K1-K8 and K13
+# run in an eval forward
+REF_IO_MAP_TOL = 2e-2
+PROFILE_EVAL_BODIES = ("sodt::window_attn_fwd_kernel",
+                       "sodt::gemm_core_kernel", "sodt::layernorm_kernel",
+                       "sodt::global_attn_fwd_kernel")
+PROFILE_EVAL_TIMEOUT = 300
 # the augmented training feed from the trained weights (train_aug): the
 # flagship at full width and depth, 512 px, batch 4, nbs 4
 AUG_ARGS = ["--synthetic", "--img-size", "512", "--batch-size", "4",
@@ -665,18 +697,20 @@ PROFILE_TRIES = 5
 PROFILER = {"sessions": 0, "empty_sessions": [], "event_fallbacks": []}
 
 
-def profiled(run, label: str) -> list[dict]:
+def profiled(run, label: str, cuda_only: bool = False) -> list[dict]:
     """The device kernels (`_device_rows`) of one torch.profiler session
-    around `run()`. A session that recorded none is run again after a
-    pause that grows, up to PROFILE_TRIES sessions in all; [] if none of
-    them recorded any."""
+    around `run()` (`cuda_only`: the CUDA activity alone, which records
+    far fewer events for a training step). A session that recorded none
+    is run again after a pause that grows, up to PROFILE_TRIES sessions
+    in all; [] if none of them recorded any."""
     import torch
     from torch.profiler import profile, ProfilerActivity
+    acts = [ProfilerActivity.CUDA] if cuda_only else [ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]
     for i in range(PROFILE_TRIES):
         time.sleep(0.1 * i)
         PROFILER["sessions"] += 1
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             run()
             torch.cuda.synchronize()
         rows = _device_rows(prof)
@@ -686,7 +720,8 @@ def profiled(run, label: str) -> list[dict]:
     return []
 
 
-def device_split(fn, label: str, iters: int = 5) -> tuple[float, dict]:
+def device_split(fn, label: str, iters: int = 5,
+                 cuda_only: bool = False) -> tuple[float, dict]:
     """Summed device time of the kernels of one call of `fn`, from
     torch.profiler over `iters` warm calls: the time on the card without
     the host's share of the call; and its split by kernel name (ms a
@@ -696,7 +731,7 @@ def device_split(fn, label: str, iters: int = 5) -> tuple[float, dict]:
     import torch
     fn()
     torch.cuda.synchronize()
-    rows = profiled(lambda: [fn() for _ in range(iters)], label)
+    rows = profiled(lambda: [fn() for _ in range(iters)], label, cuda_only)
     if not rows:
         PROFILER["event_fallbacks"].append(label)
         return time_ms(fn, iters=iters), {}
@@ -704,8 +739,9 @@ def device_split(fn, label: str, iters: int = 5) -> tuple[float, dict]:
             {r["kernel"]: r["device_ms"] / iters for r in rows})
 
 
-def device_ms(fn, label: str, iters: int = 5) -> float:
-    return device_split(fn, label, iters)[0]
+def device_ms(fn, label: str, iters: int = 5,
+              cuda_only: bool = False) -> float:
+    return device_split(fn, label, iters, cuda_only)[0]
 
 
 def host_ms(fn, iters: int = 10) -> float:
@@ -3000,6 +3036,189 @@ def phase_trained(label: str) -> dict:
     return row
 
 
+def _ab_run(fn, way: str, label: str, iters: int) -> dict:
+    """One way of the kernel A/B: `fn` once warm, then the launches of one
+    call, its CUDA-event ms and its device-busy ms (torch.profiler, the
+    CUDA activity alone); the counters are read again after the timing
+    (inside `no_kernels()` nothing may have moved)."""
+    import torch
+    from sodt_tpu_torch import kernels
+    fn()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    one = kernels.launches()
+    ms = time_ms(fn, iters=iters, warmup=0)
+    busy = device_ms(fn, f"{label} {way}", iters=iters, cuda_only=True)
+    return {"out": out, "launches": one, "after_timing": kernels.launches(),
+            "ms": ms, "device_busy_ms": busy}
+
+
+def _profile_eval_tool(workdir: Path) -> subprocess.Popen:
+    """`python -m sodt_tpu_torch.tools.profile_eval` as a user runs it, at
+    the paths' batch, started in the background (SODT_NO_KERNELS unset)."""
+    env = {k: v for k, v in os.environ.items() if k != "SODT_NO_KERNELS"}
+    return subprocess.Popen(
+        [sys.executable, "-m", "sodt_tpu_torch.tools.profile_eval",
+         "--batch", str(MAIN_BATCH), "--iters", "2", "--out",
+         str(workdir / "profile")], cwd=Path(__file__).resolve().parent,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_reference_io(label: str, workdir: Path, trained: dict | None
+                       ) -> dict:
+    """The reference-checkpoint tools and the kernel switch on the card
+    (module doc, `reference_io`). profile_eval's subprocess runs beside
+    (a), (b) and the A/B's set-up, and is waited for before the A/B is
+    timed: its own timings are taken on a shared card and are not kept."""
+    import torch
+    from sodt_tpu_torch import kernels, val
+    from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
+    from sodt_tpu_torch.models import build_model
+    from sodt_tpu_torch.tools import export_torch, import_torch, parity_check
+    from sodt_tpu_torch.train.checkpoint import load_weights
+    from sodt_tpu_torch.train.evaluate import cache_rel_bias
+    from sodt_tpu_torch.train.loss import compute_loss
+    from sodt_tpu_torch.weights import load_npz
+
+    npz, side = trained_weights()
+    wd = workdir / label
+    wd.mkdir(parents=True, exist_ok=True)
+    row, ok, t0 = {"phase": label}, True, time.perf_counter()
+    proc = _profile_eval_tool(wd)
+    try:
+        # (a) export to a plain reference state_dict, import it back
+        pt, back = wd / "reference.pt", wd / "imported.npz"
+        with stdout_lines("round-trip") as said:
+            exp = export_torch.main(["--weights", npz, "--out", str(pt),
+                                     "--no-module"])
+        imp = import_torch.main([str(pt), "--out", str(back)])
+        src, got = load_weights(npz), load_npz(back)
+        same = sorted(src) == sorted(got) and all(
+            torch.equal(src[k], got[k]) for k in src)
+        row["round_trip"] = {"export": said, "reference_keys":
+                             exp["reference_keys"], "arrays": len(got),
+                             "sidecar_arrays": side["arrays"],
+                             "bit_equal": same,
+                             "seconds": time.perf_counter() - t0}
+        ok = ok and same and exp["arrays"] == imp["arrays"] == side["arrays"]
+
+        # (b) parity_check on that .pt: trained's protocol and numbers
+        t1 = time.perf_counter()
+        metrics, run_map = [], val.run_map
+
+        def recorded(a, size):
+            metrics.append(run_map(a, size))
+            return metrics[-1]
+        val.run_map = recorded
+        try:
+            kernels.reset_launches()
+            pc = parity_check.run(
+                str(pt), "configs/model.yaml", "configs/data_vedai.yaml",
+                img_size=512, batch_size=MAIN_BATCH, synthetic=True,
+                synthetic_n=16, ref_map50=side["jax_f32_eval"]["map50"],
+                save_dir=str(wd / "parity"))
+            launched = kernels.launches()
+        finally:
+            val.run_map = run_map
+        bf16 = (trained or {}).get("runs", {}).get("bf16", {})
+        m = metrics[-1]
+        per = {k: v * TRAINED_FORWARDS for k, v in PER_FORWARD.items()}
+        row["parity_check"] = {
+            **pc, "map50_unrounded": m["map50"], "map_unrounded": m["map"],
+            "trained_bf16": {k: bf16.get(k) for k in ("map50", "map")},
+            "launches": launched, "expected_launches": per,
+            "seconds": time.perf_counter() - t1}
+        ok = ok and (pc["pass"] is True and m["map50"] == bf16.get("map50")
+                     and m["map"] == bf16.get("map") and launched == per)
+
+        # (c) the A/B of the kernels against JAX's composition
+        t1 = time.perf_counter()
+        ds = SyntheticVedai(n=16, img_size=512, nc=8, seed=1)
+        batch = next(make_eval_batches(ds, MAIN_BATCH, 512))
+        img = torch.from_numpy(batch["img"]).cuda().float() / 255
+        ir = torch.from_numpy(batch["ir"]).cuda().float() / 255
+        model = build_model("configs/model.yaml", ch_in=4,
+                            dtype=torch.bfloat16)
+        model.load_state_dict(load_weights(npz))
+        model = cache_rel_bias(model.cuda().eval())
+        tmodel, tb, _, cfg = _train_setup(torch.bfloat16)
+        params = list(tmodel.parameters())
+        setup_s = time.perf_counter() - t1
+    finally:
+        try:
+            out, err = proc.communicate(timeout=PROFILE_EVAL_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+
+    def step():
+        o = tmodel(tb["img"], tb["ir"])
+        total, _ = compute_loss(o["raw"], tb["targets"], tb["tmask"], cfg)
+        return torch.autograd.grad(total, params)
+
+    t2 = time.perf_counter()
+    ab, secs = {}, {}
+    none = {k: 0 for k in PER_FORWARD}
+    for way in ("kernels", "composition"):
+        ctx = (kernels.no_kernels() if way == "composition"
+               else contextlib.nullcontext())
+        t3 = time.perf_counter()
+        with ctx:
+            with torch.no_grad():
+                f = _ab_run(lambda: model(img, ir)["raw"][0], way,
+                            f"{label} forward", 5)
+            s = _ab_run(step, way, f"{label} step", 3)
+        secs[way] = time.perf_counter() - t3
+        raw = f.pop("out").float()
+        s.pop("out")
+        ab[way] = {"forward": f, "step": s, "raw": raw}
+        if way == "kernels":
+            ok = (ok and f["launches"] == PER_FORWARD
+                  and s["launches"] == PER_STEP)
+        else:
+            ok = ok and all(r[k] == none for r in (f, s)
+                            for k in ("launches", "after_timing"))
+    ref, comp = ab["kernels"].pop("raw"), ab["composition"].pop("raw")
+    gap = ((comp - ref).abs().max() / ref.abs().max()).item()
+    for way in ab:
+        for part in ab[way].values():
+            part.pop("after_timing")
+    row["ab"] = {**ab, "detect_max_rel": gap, "bound": REF_IO_MAP_TOL,
+                 "composition_over_kernels": {
+                     part: {k: ab["composition"][part][k]
+                            / ab["kernels"][part][k]
+                            for k in ("ms", "device_busy_ms")}
+                     for part in ("forward", "step")},
+                 "seconds": {"setup": setup_s, "waited_for_profile_eval":
+                             t2 - t1 - setup_s, **secs}}
+    ok = ok and gap <= REF_IO_MAP_TOL and bool(torch.isfinite(comp).all())
+    del model, tmodel, params
+
+    # (d) the trace tool's result
+    lines = out.strip().splitlines()
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        res = {}
+    names = [c["name"] for c in res.get("categories", [])]
+    row["profile_eval"] = {
+        "rc": proc.returncode, "device_ms_per_iter":
+        res.get("device_ms_per_iter"), "sessions": res.get("sessions"),
+        "categories": [(c["name"], c["share"])
+                       for c in res.get("categories", [])[:12]],
+        "bodies_named": {b: b in names for b in PROFILE_EVAL_BODIES}}
+    if proc.returncode:
+        row["profile_eval"]["stderr"] = err[-2000:]
+    ok = ok and proc.returncode == 0 and all(b in names
+                                             for b in PROFILE_EVAL_BODIES)
+    row.update(launches=launched, seconds=time.perf_counter() - t0,
+               ok=bool(ok))
+    emit(row)
+    return row
+
+
 def _train_cli(args: list[str], **hooks) -> tuple[dict, str]:
     """`sodt_tpu_torch.train` in-process; its printed lines are passed on
     and returned."""
@@ -4464,20 +4683,18 @@ def phase_grads() -> dict:
 
 
 def _device_rows(prof) -> list[dict]:
-    """Device kernels only: a host-side op (an aten op, an autograd
-    function) carries its kernels' time a second time."""
-    from torch.autograd import DeviceType
-    rows = []
-    for e in prof.key_averages():
-        dev = getattr(e, "device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "cuda_time_total", 0.0)
-        if (dev and e.key and e.device_type == DeviceType.CUDA
-                and not e.key.startswith("Memcpy")):
-            rows.append({"kernel": e.key[:120], "device_ms": dev / 1e3,
-                         "count": e.count})
-    rows.sort(key=lambda r: -r["device_ms"])
-    return rows
+    """Device kernels only (`utils.profiler.device_rows`): a host-side op
+    (an aten op, an autograd function) carries its kernels' time a second
+    time."""
+    from sodt_tpu_torch.utils.profiler import device_rows
+    return device_rows(prof)
+
+
+def _categories(rows) -> list[dict]:
+    """The 25 largest kernel categories of `rows` with their shares, as
+    tools/profile_eval prints them."""
+    from sodt_tpu_torch.utils.profiler import breakdown
+    return breakdown(rows)["categories"]
 
 
 def _busy(rows) -> tuple:
@@ -4527,7 +4744,8 @@ def phase_profile_train(label: str = "profile_train",
           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
           "port_kernels_ms": ours,
           "idle_share": _idle(busy, step_ms),
-          "peak_memory_bytes": peak, "top": rows[:40]})
+          "peak_memory_bytes": peak, "top": rows[:40],
+          "categories": _categories(rows)})
 
 
 def phase_profile(label: str = "profile",
@@ -4579,7 +4797,7 @@ def _profile_eval(label: str, cfg: str, int8: bool) -> None:
            "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
            "port_kernels_ms": ours,
            "idle_share": _idle(busy, step_ms),
-           "top": rows[:40]}
+           "top": rows[:40], "categories": _categories(rows)}
     emit(out)
 
 
@@ -4597,6 +4815,11 @@ def _build_tile_loader(out: dict) -> None:
 
 
 def main() -> int:
+    if os.environ.get("SODT_NO_KERNELS"):
+        print("chip_smoke: SODT_NO_KERNELS is set: every path would take "
+              "JAX's composition and launch none of the kernels this run "
+              "checks; unset it", file=sys.stderr)
+        return 1
     try:
         import torch
     except ImportError:
@@ -4690,6 +4913,7 @@ def main() -> int:
               V2_TRAIN_STEPS, V2_STEP, V2_FORWARD)
         drive("int8", phase_int8, INT8_ARGS, INT8_FORWARD)
         drive("trained", phase_trained)
+        drive("reference_io", phase_reference_io, tmp, paths.get("trained"))
         drive("train_aug", phase_train_aug, tmp)
         drive("folders", phase_folders, tmp, paths.get("trained"))
         drive("eval_extras", phase_eval_extras, tmp, paths.get("folders"))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+__version__ = "0.1.0"
+
 __all__ = ["resolve_device"]
 
 

@@ -10,12 +10,23 @@ to `LAUNCHES[name]` where it launches its kernel, and nowhere else.
 .int8_serving`): inside it the block dispatch takes JAX's int8 gate, on any
 device, and the five fused block wrappers run their int8 bodies (the
 `*_q8` counters). It is read at each forward.
+
+`kernels_enabled()` is the one switch every dispatch site consults
+(`sodt_tpu.pallas.kernels_enabled`): false inside `no_kernels()` or while
+`SODT_NO_KERNELS` is set in the environment, read at each call. There
+the model takes JAX's composition (the generic block path, the reference
+attention cores, the plain LayerNorm) on any device, and no counter
+moves: the FLOPs of the composition, and the A/B of the kernels against
+it. The device stays a separate test: a CPU tensor takes the plain
+versions whatever the switch says.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
+_disabled = False
 _int8 = False
 
 LAUNCHES: dict[str, int] = {
@@ -45,9 +56,31 @@ LAUNCHES: dict[str, int] = {
 }
 
 
+def kernels_enabled() -> bool:
+    """False inside `no_kernels()` and while SODT_NO_KERNELS is set (to
+    anything but the empty string, as JAX reads it)."""
+    return not (_disabled or os.environ.get("SODT_NO_KERNELS"))
+
+
+@contextlib.contextmanager
+def no_kernels():
+    """JAX's composition within the context: no kernel is chosen at any
+    dispatch site (forward, or the backward of a kernel launched before
+    the context). Nests; the previous state comes back on exit, also on
+    an exception."""
+    global _disabled
+    prev = _disabled
+    _disabled = True
+    try:
+        yield
+    finally:
+        _disabled = prev
+
+
 def int8_enabled() -> bool:
-    """True inside `int8_serving()`."""
-    return _int8
+    """True inside `int8_serving()` while the kernels are enabled (JAX's
+    `int8_enabled`: `no_kernels()` turns int8 serving off too)."""
+    return _int8 and kernels_enabled()
 
 
 @contextlib.contextmanager

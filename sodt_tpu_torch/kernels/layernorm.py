@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, kernels_enabled
 from . import _build
 
 
@@ -154,8 +154,10 @@ class _AddLayerNorm(torch.autograd.Function):
 
 
 def _on_card(x: torch.Tensor) -> bool:
-    # JAX gates its kernels to bf16; f32 takes the plain version
-    return x.is_cuda and x.dtype == torch.bfloat16
+    # JAX gates its kernels to bf16; f32 takes the plain version, and so
+    # does everything inside `no_kernels()` (JAX never dispatches its LN
+    # kernel: `_use_pallas` in `sodt_tpu/pallas/layernorm.py` l.86-93)
+    return kernels_enabled() and x.is_cuda and x.dtype == torch.bfloat16
 
 
 def layernorm(x, weight, bias, eps: float = 1e-5):

@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, kernels_enabled
 from . import _build
 from .layernorm import layernorm, layernorm_plain
 from .quant import (_q8_deq, _q8_point, ln_f32, log_kernel_amax, q8_dot,
@@ -385,7 +385,8 @@ class Replay(torch.autograd.Function):
     `launch(*tensors, *consts)` and saves the tensors; backward runs
     `compose(*leaves, *consts)` on detached leaves under enable_grad and
     returns `torch.autograd.grad` of it. The kernels inside `compose` (K13,
-    K1 -> K9, K8 -> K10) carry their own backward."""
+    K1 -> K9, K8 -> K10) carry their own backward; inside `no_kernels()`
+    their dispatch sites choose the plain versions."""
 
     @staticmethod
     def forward(ctx, launch, compose, consts, *tensors):
@@ -782,7 +783,8 @@ def fused_window_attention_nhwc(qkv, bias, mask, ws: int, nh: int,
 
 
 class _WindowAttention(torch.autograd.Function):
-    """K1 forward, K9 backward, on the residuals (qkv, bias, mask)."""
+    """K1 forward, K9 backward, on the residuals (qkv, bias, mask); a
+    backward run inside `no_kernels()` takes K9's plain version."""
 
     @staticmethod
     def forward(ctx, qkv, bias, mask, ws, nh, scale):
@@ -796,7 +798,9 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         qkv, bias, mask = ctx.saved_tensors
-        dqkv, dbias = window_attention_bwd(qkv, bias, mask, *ctx.consts, gy)
+        bwd = (window_attention_bwd if kernels_enabled()
+               else attention_nhwc_bwd_plain)
+        dqkv, dbias = bwd(qkv, bias, mask, *ctx.consts, gy)
         return dqkv, dbias, None, None, None, None
 
 
@@ -986,7 +990,8 @@ def _check_tokens_args(name, qkv, bias, mask, nw, nh):
 
 
 class _WindowAttentionTokens(torch.autograd.Function):
-    """K11 forward, K11 backward, on the residuals (qkv, bias, mask)."""
+    """K11 forward, K11 backward, on the residuals (qkv, bias, mask); a
+    backward run inside `no_kernels()` takes its plain version."""
 
     @staticmethod
     def forward(ctx, qkv, bias, mask, nw, nh, scale):
@@ -1006,8 +1011,9 @@ class _WindowAttentionTokens(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         qkv, bias, mask = ctx.saved_tensors
-        dqkv, dbias = window_attention_tokens_bwd(qkv, bias, mask,
-                                                  *ctx.consts, gy)
+        bwd = (window_attention_tokens_bwd if kernels_enabled()
+               else attention_qkv_bwd_plain)
+        dqkv, dbias = bwd(qkv, bias, mask, *ctx.consts, gy)
         return dqkv, dbias, None, None, None, None
 
 
@@ -1148,7 +1154,8 @@ def _launch_global(qkv, bias, mask, nh: int, scale: float, ws: int,
 
 class _GlobalAttention(torch.autograd.Function):
     """K8 forward, K10 backward, on the residuals (qkv, bias, mask) and,
-    where `lse_reusable(scale)`, K8's f32 output and log-sum-exp."""
+    where `lse_reusable(scale)`, K8's f32 output and log-sum-exp; a
+    backward run inside `no_kernels()` takes K10's plain version."""
 
     @staticmethod
     def forward(ctx, qkv, bias, mask, nh, scale, ws):
@@ -1162,6 +1169,10 @@ class _GlobalAttention(torch.autograd.Function):
     def backward(ctx, gy):
         qkv, bias, mask, o32, lse = ctx.saved_tensors
         nh, scale, ws = ctx.consts
+        if not kernels_enabled():
+            dqkv, dbias = global_attention_bwd_plain(qkv, bias, nh, scale,
+                                                     gy, ws, mask)
+            return dqkv, dbias, None, None, None, None
         dqkv, dbias = global_attention_bwd(
             qkv, bias, nh, scale, gy, ws, mask,
             stats=None if lse is None else (o32, lse))
@@ -1309,8 +1320,9 @@ def window_attention_core_nhwc(qkv, bias, mask, ws: int, nh: int,
     up to 256 tokens go to K1 (JAX's gate), larger ones to K8 — one window
     as in JAX, several (which JAX leaves to XLA) through K8's windowed
     form. Each wrapper raises outside its kernel's domain. f32 and CPU
-    tensors take the plain version, as JAX gates its kernels to bf16."""
-    if qkv.is_cuda and qkv.dtype == torch.bfloat16:
+    tensors take the plain version, as JAX gates its kernels to bf16, and
+    so does everything inside `no_kernels()`."""
+    if kernels_enabled() and qkv.is_cuda and qkv.dtype == torch.bfloat16:
         if ws * ws <= 256:
             return fused_window_attention_nhwc(qkv, bias, mask, ws, nh, scale)
         return fused_global_attention(qkv, bias, nh, scale, ws, mask)
@@ -1322,8 +1334,9 @@ def window_attention_core(qkv, bias, mask, nw: int, nh: int, scale: float):
     (`window_attention_core` l.185), by JAX's gate: a CUDA bf16 tensor
     with windows of up to 256 tokens goes to K11, whose wrapper raises
     outside the kernel's domain (`window_core_supported`: head dims of
-    whole tensor-core tiles); f32, CPU tensors and larger windows take the
-    plain composition."""
-    if qkv.is_cuda and qkv.dtype == torch.bfloat16 and qkv.shape[1] <= 256:
+    whole tensor-core tiles); f32, CPU tensors, larger windows and
+    everything inside `no_kernels()` take the plain composition."""
+    if (kernels_enabled() and qkv.is_cuda and qkv.dtype == torch.bfloat16
+            and qkv.shape[1] <= 256):
         return fused_window_attention(qkv, bias, mask, nw, nh, scale)
     return reference_attention_qkv(qkv, bias, mask, nw, nh, scale)

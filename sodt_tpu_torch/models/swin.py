@@ -21,6 +21,12 @@ c > 256 the LN-outside split with K5's and K6's / K7's; every other block
 (a shifted linear-MLP block at c <= 256 among them) takes the generic
 composition, un-quantized, as in JAX. On the CPU the int8 wrappers run
 their plain int8 bodies.
+
+Inside `kernels.no_kernels()` (or with SODT_NO_KERNELS set) every block
+takes the generic composition, whose attention core and LayerNorms are
+then the plain versions too (`sodt_tpu/models/swin.py` l.333 consults
+`kernels_enabled()` the same way): JAX's composition on any device, no
+kernel launched, int8 serving off.
 """
 
 
@@ -35,7 +41,7 @@ from torch import nn
 
 from .norm import LayerNorm, AddLayerNorm
 from ..ops.activations import gelu
-from ..kernels import int8_enabled
+from ..kernels import int8_enabled, kernels_enabled
 from ..kernels import window_attention as kwa
 from ..kernels.quant import q8_weights
 from ..kernels.layernorm import layernorm as layer_norm
@@ -399,7 +405,8 @@ def swin_block_forward(blk: SwinBlock, x: torch.Tensor) -> torch.Tensor:
             return mega_block(blk, x, mask, shift, int8=True)
         if windowed and c > 256:
             return split_block(blk, x, mask, shift, int8=True)
-    elif x.is_cuda and x.dtype == torch.bfloat16 and windowed:
+    elif (kernels_enabled() and x.is_cuda and x.dtype == torch.bfloat16
+          and windowed):
         if ksb.megakernel_supported(c, blk.num_heads, ws):
             return mega_block(blk, x, mask, shift)
         return split_block(blk, x, mask, shift)

@@ -29,6 +29,12 @@ def xywhn2xyxy(x: torch.Tensor, w: float = 640, h: float = 640) -> torch.Tensor:
                       w * (cx + bw / 2), h * (cy + bh / 2)], dim=-1)
 
 
+def xyn2xy(x: torch.Tensor, w: float = 640, h: float = 640,
+           padw: float = 0, padh: float = 0) -> torch.Tensor:
+    """Normalized points (..., >= 2) -> pixel points (..., 2)."""
+    return torch.cat([w * x[..., 0:1] + padw, h * x[..., 1:2] + padh], dim=-1)
+
+
 def clip_coords(boxes: torch.Tensor, img_hw: tuple[int, int]) -> torch.Tensor:
     """Clip xyxy boxes to image bounds (h, w); extra columns pass through."""
     h, w = img_hw
@@ -119,3 +125,11 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, *, xyxy: bool = True,
         return iou - (rho2 / c2 + v * alpha)
     c_area = cw * ch + eps
     return iou - (c_area - union) / c_area
+
+
+def wh_iou(wh1: torch.Tensor, wh2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of (N, 2) and (M, 2) width / height boxes anchored at
+    the origin -> (N, M)."""
+    inter = torch.minimum(wh1[:, None, :], wh2[None, :, :]).prod(dim=2)
+    return inter / (wh1.prod(dim=-1)[:, None] + wh2.prod(dim=-1)[None, :]
+                    - inter)

@@ -13,7 +13,8 @@ The same pipeline as the JAX package, written over a batch dimension:
      1 < n < 3000 candidates, with the redundancy rule.
 
 Top-k ties break as `jax.lax.top_k` breaks them, lower index first: a
-stable descending sort, never `torch.topk`.
+stable descending sort, never `torch.topk`. `single_image_nms` is JAX's
+one-image entry, `batched_nms` over a batch of one.
 """
 
 from __future__ import annotations
@@ -29,10 +30,11 @@ MAX_WH = 4096.0  # class-offset multiplier
 def batched_nms(preds: torch.Tensor, *, conf_thres: float = 0.25,
                 iou_thres: float = 0.45, multi_label: bool = False,
                 max_det: int = 300,
-                top_k: int = 4096, merge: bool = True):
+                top_k: int = 4096, merge: bool = True,
+                agnostic: bool = False):
     """(B, N, 5+nc) xywh+obj+cls predictions -> ((B, max_det, 6) dets as
     xyxy+conf+cls, (B, max_det) bool valid). Entries beyond the survivors
-    are zero."""
+    are zero. `agnostic`: one IoU over every class (no class offset)."""
     bsz, n, no = preds.shape
     nc = no - 5
     dev, dt = preds.device, preds.dtype
@@ -66,7 +68,8 @@ def batched_nms(preds: torch.Tensor, *, conf_thres: float = 0.25,
     top_cls = torch.gather(cls_ids, 1, top_idx)
     cand_valid = top_scores > 0.0
 
-    off = top_boxes + (top_cls * MAX_WH)[..., None]
+    off = (top_boxes if agnostic
+           else top_boxes + (top_cls * MAX_WH)[..., None])
     iou = box_iou(off, off)                                   # (B, k, k)
 
     rows = torch.arange(bsz, device=dev)
@@ -107,3 +110,21 @@ def batched_nms(preds: torch.Tensor, *, conf_thres: float = 0.25,
     dets = torch.where(kept_ok[..., None], dets,
                        torch.zeros((), dtype=dt, device=dev))
     return dets, kept_ok
+
+
+def single_image_nms(pred: torch.Tensor, *, conf_thres: float = 0.25,
+                     iou_thres: float = 0.45, multi_label: bool = False,
+                     agnostic: bool = False, max_det: int = 300,
+                     top_k: int = 4096, merge: bool = True,
+                     approx_topk: bool = False):
+    """NMS of one image's raw predictions (N, 5+nc) in xywh+obj+cls layout
+    -> (dets (max_det, 6) xyxy+conf+cls, valid (max_det,) bool); entries
+    beyond the survivors are zero. `approx_topk` is accepted and keeps the
+    exact stable sort (JAX's approximate top-k is a TPU knob, exact
+    whenever the candidates that clear conf_thres fit in top_k)."""
+    del approx_topk
+    dets, valid = batched_nms(pred[None], conf_thres=conf_thres,
+                              iou_thres=iou_thres, multi_label=multi_label,
+                              max_det=max_det, top_k=top_k, merge=merge,
+                              agnostic=agnostic)
+    return dets[0], valid[0]

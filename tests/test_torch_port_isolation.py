@@ -30,7 +30,9 @@ def test_port_imports_no_jax():
                 "train.sam", "utils.loggers", "utils.wandb_utils",
                 "utils.plots", "utils.profiler", "utils.downloads",
                 "utils.general", "parallel.mesh", "data.streams",
-                "data.tools", "utils.torch_import", "ops.wbf"):
+                "data.tools", "utils.torch_import", "ops.wbf",
+                "tools.import_torch", "tools.export_torch",
+                "tools.parity_check", "tools.profile_eval"):
         assert f"sodt_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -58,6 +60,23 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         detect.main(["--source", str(tmp_path)])
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_tools_raise_without_cuda(monkeypatch, tmp_path):
+    """The tools run on the card unless given --device cpu: without a card
+    each raises before it reads or writes anything."""
+    from sodt_tpu_torch.tools import (export_torch, import_torch,
+                                      parity_check, profile_eval)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pt, out = str(tmp_path / "absent.pt"), str(tmp_path / "out")
+    for main, argv in (
+            (import_torch.main, [pt, "--out", out]),
+            (export_torch.main, ["--weights", pt, "--out", out]),
+            (parity_check.main, ["--pt", pt, "--save-dir", out]),
+            (profile_eval.main, ["--batch", "1", "--out", out])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 def test_val_cli_runs_on_cpu_when_asked(tmp_path, capsys):
