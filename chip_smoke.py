@@ -271,6 +271,17 @@ the final ok line:
               world size 1, against f32 and against the batch in another
               order), every rank's bf16 launches PER_STEP; more than one
               card is not measured
+     bench    `sodt_tpu_torch.bench.run(["--int8"])` in this process, at
+              its defaults (the flagship at 512 px, bf16, eval batch 128 x
+              8 batches, training batch 32 with remat, the int8 pass):
+              each path's peak memory on a line, then the bench's JSON
+              line; every numeric field finite and above 0, both MFUs in
+              (0, 1.05], and the launches of the run (`launches_bench` in
+              the kernels line) non-zero for every kernel but K11; then
+              each kernel of the bench's paths (`main`, `train`, `int8`)
+              once at batch 128 against its plain version (the kernel
+              check above), the check of the grid limits and 32-bit
+              offsets at the bench's shapes
      Each path's seconds follow it on a line of their own.
   5. profile  torch.profiler over one warm eval step at the main path's
               shape: device-busy and idle share, the top 40 kernels by
@@ -289,7 +300,8 @@ the final ok line:
               kernel row names its own in `cuda_event_fallbacks`)
   6. the {"kernels": [...]} line (each entry also with its launches on
      the `remat` and `sam` runs, on rank 0's step of `ddp` at world size 2,
-     and on one whole pass of `eval_runner`), the card line, the ok line.
+     on one whole pass of `eval_runner` and on the `bench` run), the card
+     line, the ok line.
 
 Needs a CUDA card; exits 1 without one and 2 when the port is missing.
 Refuses to run (exit 1, before any phase) with SODT_NO_KERNELS set: every
@@ -299,6 +311,7 @@ path would take the composition and launch nothing of what it checks.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -1018,7 +1031,7 @@ def _cast(args, dt):
                  and a.dtype == torch.bfloat16 else a for a in args)
 
 
-def kernel_cases(batch: int) -> list[dict]:
+def kernel_cases(batch: int, sink=None) -> list[dict]:
     """Every kernel call shape of one flagship forward at 512 px, K1's at
     608 px, the training step's (K1's replays, K9, K10, K13) and the SwinV2
     family's (K11 forward and backward, K13): the kernel
@@ -1027,7 +1040,10 @@ def kernel_cases(batch: int) -> list[dict]:
     `path` whose run counts its launches), and (K1, K8, K9, K10, K13) one
     library call computing the same function. A kernel with
     two outputs (K9, K10: dqkv and the f32 dbias; add+LN) has one tolerance
-    for each."""
+    for each. `sink(case)`, where given, takes each case as it is made (the
+    list comes back empty), so that no case's tensors outlive it. The
+    inputs are drawn on the card (at batch 128 the host's draws would take
+    minutes)."""
     import torch
     import torch.nn.functional as F
     from sodt_tpu_torch.kernels import window_attention as wa
@@ -1036,10 +1052,11 @@ def kernel_cases(batch: int) -> list[dict]:
     from sodt_tpu_torch.models.swin import shift_attn_mask
 
     bf = torch.bfloat16
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator("cuda").manual_seed(0)
 
     def rnd(shape, scale=1.0, dtype=bf):
-        return (torch.randn(shape, generator=g) * scale).to("cuda", dtype)
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
 
     def ln(c):
         return (1 + rnd((c,), 0.1, torch.float32), rnd((c,), 0.1, torch.float32))
@@ -1061,21 +1078,27 @@ def kernel_cases(batch: int) -> list[dict]:
         time), the kernel's split by launch, and its bit-equality over two
         runs; `chain_bytes`: the bytes a chain of launches moves, each
         launch reading its inputs and writing its outputs once (K2-K4)."""
-        cases.append(dict(name=name, shape=shape, kern=kern, plain=plain,
-                          args=args, nbytes=nb, flops=fl, calls=calls,
-                          lib=lib, tols=tols, path=path, int8_ops=int8_ops,
-                          bf16=bf16, q8=q8, device=device,
-                          chain_bytes=chain_bytes))
+        (sink or cases.append)(dict(
+            name=name, shape=shape, kern=kern, plain=plain, args=args,
+            nbytes=nb, flops=fl, calls=calls, lib=lib, tols=tols, path=path,
+            int8_ops=int8_ops, bf16=bf16, q8=q8, device=device,
+            chain_bytes=chain_bytes))
 
     def sdpa_bwd(q, k, v, am, scale):
         """The backward of SDPA with the same additive bias (no dbias: the
-        mask asks for no gradient), on a graph built once."""
-        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                             scale=scale)
-        g = torch.ones_like(out)
-        return lambda: torch.autograd.grad(out, (q, k, v), g,
-                                           retain_graph=True)
+        mask asks for no gradient), on a graph built once, at the first
+        call."""
+        graph = []
+
+        def run():
+            if not graph:
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = F.scaled_dot_product_attention(*qkv, attn_mask=am,
+                                                     scale=scale)
+                graph.append((out, qkv, torch.ones_like(out)))
+            out, qkv, gy = graph[0]
+            return torch.autograd.grad(out, qkv, gy, retain_graph=True)
+        return run
 
     nh, ws, n = 12, 8, 64
     # stage 1 (c 192): K2 for blocks 0/2/4, K3 + K4 (shift 2) for 1/3/5
@@ -1475,26 +1498,43 @@ def int8_cases(batch: int, rnd, ln, msk, case) -> None:
            chain_bytes=int(24.125 * m2 * c2) + wbytes(q7))
 
 
+def _as_tuple(o) -> tuple:
+    return o if isinstance(o, tuple) else (o,)
+
+
+def kernel_vs_plain(cs) -> tuple:
+    """A case's kernel and plain version on its arguments: (outputs,
+    references, max |diff| of each output, max |diff| / max |ref|)."""
+    import torch
+    args = cs["args"]
+    outs = _as_tuple(cs["kern"](*args))
+    # K12's plain version takes the same bf16 inputs: its rounding points
+    # are part of the function
+    refs = _as_tuple(cs["plain"](*(args if cs["int8_ops"]
+                                   else _cast(args, torch.float32))))
+    torch.cuda.synchronize()
+    errs = [(o.float() - r.float()).abs().max().item()
+            for o, r in zip(outs, refs)]
+    rels = [e / r.float().abs().max().item() for e, r in zip(errs, refs)]
+    return outs, refs, errs, rels
+
+
+def within(rels, tols) -> bool:
+    return bool(len(rels) == len(tols) and all(
+        math.isfinite(r) and r <= t for r, t in zip(rels, tols)))
+
+
 def phase_kernels(batch: int) -> list[dict]:
     import torch
     rows = []
-    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
     for cs in kernel_cases(batch):
         args = cs["args"]
-        outs = as_tuple(cs["kern"](*args))
-        # K12's plain version takes the same bf16 inputs: its rounding
-        # points are part of the function
-        refs = as_tuple(cs["plain"](*(args if cs["int8_ops"]
-                                      else _cast(args, torch.float32))))
-        torch.cuda.synchronize()
-        errs = [(o.float() - r.float()).abs().max().item()
-                for o, r in zip(outs, refs)]
-        rels = [e / r.float().abs().max().item() for e, r in zip(errs, refs)]
+        outs, refs, errs, rels = kernel_vs_plain(cs)
         singly = bit_equal = None
         if cs["name"].endswith("_bwd") or cs["device"]:
             # no atomics (the dbias sums, the GEMM core of K6 / K7): a
             # second run gives the same bits
-            again = as_tuple(cs["kern"](*args))
+            again = _as_tuple(cs["kern"](*args))
             bit_equal = all(torch.equal(a, o) for a, o in zip(again, outs))
             del again
         if cs["name"].endswith("_bwd"):
@@ -1550,10 +1590,9 @@ def phase_kernels(batch: int) -> list[dict]:
                "ms": ms, "plain_ms": pms, "library_ms": lms,
                "bf16_kernel_ms": b16, "bound_ms": bms, "bound_by": by,
                **dev, **q8,
-               "ok": bool(len(rels) == len(cs["tols"]) and all(
-                   math.isfinite(r) and r <= t
-                   for r, t in zip(rels, cs["tols"]))
-                   and bit_equal is not False and q8.get("q8_ok", True))}
+               "ok": bool(within(rels, cs["tols"])
+                          and bit_equal is not False
+                          and q8.get("q8_ok", True))}
         emit(row)
         rows.append(row)
     return rows
@@ -4803,6 +4842,85 @@ def _profile_eval(label: str, cfg: str, int8: bool) -> None:
 
 # --------------------------------------------------------------------- main
 
+# the bench (`python -m sodt_tpu_torch.bench`) at its defaults with the int8
+# pass; its numeric fields, the counters its run must move (all but K11's)
+# and the batch of the kernels' check at its shapes
+BENCH_ARGS = ["--int8"]
+BENCH_FIELDS = ("value", "inference_ips", "e2e_host_ips", "e2e_feed_mbps",
+                "gflops_per_img", "inference_mfu", "int8_ips", "train_ips",
+                "train_mfu", "train_feed_ips", "train_scan_feed_ips",
+                "power_limit_w")
+BENCH_MFU_MAX = 1.05
+BENCH_LAUNCHED = tuple(k for k in TPU_KERNEL if TPU_KERNEL[k][0] != "K11")
+BENCH_PATHS = ("main", "train", "int8")
+BENCH_BATCH = 128
+
+
+def kernels_at_batch(batch: int, label: str) -> list[dict]:
+    """Each kernel case of the bench's paths once at `batch` against its
+    plain version (each case dropped once read): max |diff| / max |ref|
+    within its tolerances."""
+    import torch
+    rows = []
+
+    def check(cs):
+        if cs["path"] not in BENCH_PATHS:
+            return
+        _, _, errs, rels = kernel_vs_plain(cs)
+        row = {"phase": label, "name": cs["name"], "shape": cs["shape"],
+               "batch": batch, "path": cs["path"], "max_abs_err": errs[0],
+               "rel_errs": rels, "tols": list(cs["tols"]),
+               "ok": within(rels, cs["tols"])}
+        emit(row)
+        rows.append(row)
+        torch.cuda.empty_cache()
+
+    kernel_cases(batch, sink=check)
+    return rows
+
+
+def phase_bench(label: str) -> dict:
+    """The bench's run in this process (its launches counted from 0 just
+    before it), its peak memory a path and its JSON line, then the kernels
+    of its paths at its batch against their plain versions."""
+    import torch
+    from sodt_tpu_torch import bench, kernels
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rec = bench.run(BENCH_ARGS)
+    counts = kernels.launches()
+    seconds = time.perf_counter() - t0
+    for path, n in rec["peak_memory_bytes"].items():
+        emit({"phase": label, "path": path, "peak_memory_bytes": n,
+              "peak_gib": n / 2**30})
+    print(json.dumps(rec), flush=True)
+    bad = [k for k in BENCH_FIELDS
+           if not (isinstance(rec.get(k), (int, float))
+                   and math.isfinite(rec[k]) and rec[k] > 0)]
+    bad += [k for k in ("inference_mfu", "train_mfu")
+            if k not in bad and not 0 < rec[k] <= BENCH_MFU_MAX]
+    idle = [k for k in BENCH_LAUNCHED if not counts.get(k)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rows = kernels_at_batch(BENCH_BATCH, f"{label}_kernels")
+    row = {"phase": label, "args": BENCH_ARGS, "bench_seconds": seconds,
+           "kernels_seconds": time.perf_counter() - t1,
+           "fields_failed": bad, "not_launched": idle, "launches": counts,
+           "kernels_checked": len(rows),
+           "kernels_failed": [f"{r['name']} {r['shape']}" for r in rows
+                              if not r["ok"]],
+           "worst_rel_err": max((max(r["rel_errs"]) for r in rows),
+                                default=None)}
+    row["ok"] = bool(not bad and not idle and rows
+                     and not row["kernels_failed"]
+                     and rec["topk_path"] == "exact"
+                     and rec["vs_baseline"] is None)
+    emit(row)
+    return row
+
+
 def _build_tile_loader(out: dict) -> None:
     """The port's tile loader (host C++), built while nvcc builds the
     kernels: its seconds, or why it did not build (phase `folders` then
@@ -4932,6 +5050,7 @@ def main() -> int:
         drive("evolve", phase_evolve, tmp)
         drive("run_logs", phase_run_logs, tmp)
         drive("ddp", phase_ddp, tmp)
+        drive("bench", phase_bench)
     for label, phase, args in (
             ("grads", phase_grads, ()), ("profile", phase_profile, ()),
             ("profile_train", phase_profile_train, ()),
@@ -4972,6 +5091,7 @@ def main() -> int:
                 "launches_ddp": paths["ddp"]["launches"].get(name, 0),
                 "launches_runner": paths["eval_runner"]["launches"].get(
                     name, 0),
+                "launches_bench": paths["bench"]["launches"].get(name, 0),
                 "max_abs_err": max((r["max_abs_err"] for r in mine),
                                    default=None),
                 "ms": tot("ms"), "plain_ms": tot("plain_ms"),

@@ -3,7 +3,10 @@
   * `flops_estimate(fn, *args)`: the FLOPs of one call, counted by
     `torch.utils.flop_counter.FlopCounterMode` (matmuls, convolutions,
     attention; element-wise work is not counted, where JAX's cost
-    analysis of the lowered HLO counts it too). The counter does not see
+    analysis of the lowered HLO counts it too). fn runs under no_grad: a
+    function that differentiates (a training step) turns grad mode on
+    itself, and its backward is counted with its forward. A count that
+    fails returns None and warns with its cause. The counter does not see
     inside the hand-written kernels, which are extension calls: the
     callers count a model through its plain PyTorch versions, which the
     wrappers take for CPU tensors (`model_info` runs on a CPU copy);
@@ -28,6 +31,7 @@ import contextlib
 import copy
 import re
 import time
+import warnings
 from pathlib import Path
 from typing import Callable
 
@@ -35,12 +39,14 @@ import torch
 
 
 def flops_estimate(fn: Callable, *args) -> float | None:
-    """FLOPs of fn(*args) by FlopCounterMode (None where counting fails)."""
+    """FLOPs of fn(*args) by FlopCounterMode (None where counting fails,
+    with a warning that names the cause)."""
     from torch.utils.flop_counter import FlopCounterMode
     try:
         with torch.no_grad(), FlopCounterMode(display=False) as fc:
             fn(*args)
-    except Exception:
+    except Exception as e:
+        warnings.warn(f"flops_estimate: the count failed: {e!r}")
         return None
     return float(fc.get_total_flops())
 
