@@ -154,6 +154,21 @@ the final ok line:
               bank's setup, the first epoch's feed against a warm one,
               feed + step ms and the idle share of the streaming, bank and
               rect feeds
+     jpeg     the port's JPEG decoder (`csrc/jpeg.cpp`, in the host
+              library): (a) bit-equal to the numpy decoder (`data/jpeg.py`)
+              on every file of tests/torch_port_jpeg/ (made by cv2, which
+              the CPU tests hold both decoders to); (b) `trained`'s 16
+              images at 512 px written as JPEG by the port's encoder
+              (`write_jpeg`, PIL's defaults) and, beside them, as PNG of
+              the pixels those JPEGs decode to: `val --data` in bf16 on
+              each (PER_FORWARD, counts reset just before and read just
+              after each run) reads the same mAP@0.5 and mAP to the last
+              digit; (c) the tile loader's 512 px tiles of the JPEG folder
+              bit-equal to the python source's; (d) ms to decode a 1024 px
+              JPEG pair: the tile loader at 1024 px (decode and copy, no
+              resize) on its pool and held to one core, and the numpy
+              decoder, beside the card's name and power limit. Each of
+              (a)-(d) prints its own line
      eval_extras  the eval protocol's extras and the serving path on the
               trained weights (predictions printed first): `val --augment`
               in bf16 and f32 on `trained`'s 16 images (mAP@0.5 and mAP
@@ -3727,21 +3742,22 @@ def _folder_feed(fold: str, hyp_path: Path, regime: str) -> dict:
     return out
 
 
-def _native_tiles(fold: str) -> dict:
-    """The port's tile loader on the 1024 px folder at 512 px: every pair's
-    tiles bit-equal to the python source's, and the ms to decode and resize
-    one pair with the cache off, on its pool (the rgb and ir tiles on two
-    threads) and with the process held to one core, beside the python
-    source's ms a pair (the same tiles, `VedaiDataset.__getitem__`)."""
+def _native_tiles(fold: str, size: int = 512) -> dict:
+    """The port's tile loader on a folder at `size` px: every pair's tiles
+    bit-equal to the python source's, and the ms to decode and resize one
+    pair with the cache off, on its pool (the rgb and ir tiles on two
+    threads) and, for its first 4 pairs, with the process held to one core,
+    beside the python source's ms a pair (the same tiles,
+    `VedaiDataset.__getitem__`)."""
     import os
     import numpy as np
     from sodt_tpu_torch.data import VedaiDataset, native_loader
-    ds = VedaiDataset(fold, img_size=512)
+    ds = VedaiDataset(fold, img_size=size)
     out = {"cpus": os.cpu_count(), "load_error": native_loader.load_error()}
     if out["load_error"] is not None:
         return dict(out, bit_equal=False)
     py_ms, native_ms, equal = [], [], True
-    nat = native_loader.NativeTileLoader(ds.img_files, ds.ir_files, 512,
+    nat = native_loader.NativeTileLoader(ds.img_files, ds.ir_files, size,
                                          cache_gb=0.0)
     try:
         for i in range(len(ds)):
@@ -3761,10 +3777,10 @@ def _native_tiles(fold: str) -> dict:
     os.sched_setaffinity(0, {min(mask)})
     one_core = []
     try:
-        nat = native_loader.NativeTileLoader(ds.img_files, ds.ir_files, 512,
-                                             cache_gb=0.0)
+        nat = native_loader.NativeTileLoader(ds.img_files, ds.ir_files,
+                                             size, cache_gb=0.0)
         try:
-            for i in range(4):
+            for i in range(min(4, len(ds))):
                 t = time.perf_counter()
                 nat.get(np.array([i]))
                 one_core.append(1e3 * (time.perf_counter() - t))
@@ -3775,6 +3791,24 @@ def _native_tiles(fold: str) -> dict:
     return dict(out, bit_equal=bool(equal), pairs=len(ds),
                 python_ms_per_pair=py_ms, native_ms_per_pair=native_ms,
                 native_ms_per_pair_one_core=one_core)
+
+
+def _tie_val(root: Path, stems: list, ext: str) -> dict:
+    """`val --data` in bf16 on the folder `root` of `stems`
+    (`images/<stem>_co.<ext>`, labels beside), with the launch counts set
+    to 0 just before and read just after: its mAP@0.5 and mAP, the images
+    seen, and whether every forward launched PER_FORWARD."""
+    from sodt_tpu_torch import kernels, val
+    fold = root / "fold.txt"
+    fold.write_text("".join(f"{root / 'images' / s}_co.{ext}\n"
+                            for s in stems))
+    kernels.reset_launches()
+    m = val.main(FOLDER_VAL + ["--data", _data_yaml(root, str(fold))])
+    per = {k: v / (len(stems) // MAIN_BATCH)
+           for k, v in kernels.launches().items()}
+    return {"map50": m["map50"], "map": m["map"], "seen": m["seen"],
+            "launches_ok": per == {k: float(v)
+                                   for k, v in PER_FORWARD.items()}}
 
 
 def _vedai1024(workdir: Path) -> tuple[dict, str, str]:
@@ -3896,16 +3930,13 @@ def phase_folders(label: str, workdir: Path, trained: dict) -> dict:
     tstems = [f"{i:08d}" for i in range(16)]
     row["tie_write"] = _write_png_folder(
         tie, SyntheticVedai(n=16, img_size=512, nc=8, seed=1), tstems, None)
-    tfold = tie / "fold.txt"
-    tfold.write_text("".join(f"{tie / 'images' / s}_co.png\n"
-                             for s in tstems))
-    m = val.main(FOLDER_VAL + ["--data", _data_yaml(tie, str(tfold))])
+    m = _tie_val(tie, tstems, "png")
     want = (trained or {}).get("runs", {}).get("bf16")
     if want is None:
         want = val.main(TRAINED_ARGS)
-    row["tie"] = {"folder": {k: m[k] for k in ("map50", "map")},
+    row["tie"] = {"folder": m,
                   "trained_bf16": {k: want[k] for k in ("map50", "map")}}
-    ok = ok and row["tie_write"]["bit_equal"] and all(
+    ok = ok and row["tie_write"]["bit_equal"] and m["launches_ok"] and all(
         m[k] == want[k] for k in ("map50", "map"))
 
     row["native_tiles"] = nat = _native_tiles(fold)
@@ -3933,6 +3964,129 @@ def phase_folders(label: str, workdir: Path, trained: dict) -> dict:
            for k, v in row["feed"].items()},
         **{f"{k}_idle_share": v["idle_share"] for k, v in row["feed"].items()}}
     row.update(launches={}, ok=bool(ok))
+    emit(row)
+    return row
+
+
+# ------------------------------------------------------------------- jpeg
+
+JPEG_FIXTURES = Path("tests/torch_port_jpeg")
+JPEG_N = 16           # `trained`'s images, at 512 px
+JPEG_RAW = 1024       # the side of the pairs whose decode is timed
+JPEG_PAIRS = 4
+
+
+def _write_jpeg_folder(root: Path, items, stems: list) -> str:
+    """`items` ((rgb, ir, labels) each) as `images/<stem>_co.jpg` (RGB) and
+    `_ir.jpg` (gray) by the port's encoder, labels with 9 significant
+    digits; returns the fold list."""
+    from sodt_tpu_torch.data.jpeg import write_jpeg
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    for (rgb, ir, labels), stem in zip(items, stems):
+        write_jpeg(root / "images" / f"{stem}_co.jpg", rgb)
+        write_jpeg(root / "images" / f"{stem}_ir.jpg", ir[..., 0])
+        (root / "labels" / f"{stem}.txt").write_text("\n".join(
+            " ".join(f"{v:.9g}" for v in r) for r in labels) + "\n")
+    fold = root / "fold.txt"
+    fold.write_text("".join(f"{root / 'images' / s}_co.jpg\n"
+                            for s in stems))
+    return str(fold)
+
+
+def _jpeg_decode_ms(workdir: Path) -> dict:
+    """ms to decode one 1024 px JPEG pair (RGB 4:2:0 and gray, written by
+    the port's encoder): `_native_tiles` at 1024 px (decode and copy, no
+    resize) on JPEG_PAIRS pairs, which gives the tile loader on its pool
+    and held to one core and the python source (the C++ decode on the
+    calling thread); the numpy decoder on the first pair."""
+    import numpy as np
+    from sodt_tpu_torch.data import SyntheticVedai, jpeg
+    src = SyntheticVedai(n=JPEG_PAIRS, img_size=JPEG_RAW, nc=8, seed=5)
+    stems = [f"{i:08d}" for i in range(JPEG_PAIRS)]
+    root = workdir / "jpeg1024"
+    nat = _native_tiles(_write_jpeg_folder(
+        root, (src[i] for i in range(JPEG_PAIRS)), stems), JPEG_RAW)
+    numpy_ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        for m in ("co", "ir"):
+            jpeg.read_jpeg(root / "images" / f"{stems[0]}_{m}.jpg")
+        numpy_ms.append(1e3 * (time.perf_counter() - t))
+    keys = {"cpp_pool": "native_ms_per_pair",
+            "cpp_one_core": "native_ms_per_pair_one_core",
+            "cpp_calling_thread": "python_ms_per_pair"}
+    return {"side": JPEG_RAW, "pairs": JPEG_PAIRS,
+            "bytes_per_pair": sum(p.stat().st_size for p in
+                                  (root / "images").iterdir()) / JPEG_PAIRS,
+            "tiles": nat, "numpy_ms_per_pair": numpy_ms,
+            "median": {**{k: float(np.median(nat[v])) if nat.get(v) else None
+                          for k, v in keys.items()},
+                       "numpy": float(np.median(numpy_ms))}}
+
+
+def phase_jpeg(label: str, workdir: Path, trained: dict) -> dict:
+    """The port's JPEG decoder on the card's machine (module doc, phase
+    `jpeg`); (a)-(d) each print a line of their own."""
+    import numpy as np
+    from sodt_tpu_torch.data import SyntheticVedai, jpeg, native_loader
+
+    trained_weights()
+    row, ok = {"phase": label}, True
+    if native_loader.load_error() is not None:
+        raise RuntimeError(native_loader.load_error())
+
+    # (a) the C++ decoder against the numpy one on the checked-in files
+    files = sorted(JPEG_FIXTURES.glob("*.jpg"))
+    fixtures = {}
+    for f in files:
+        a, b = native_loader.decode_jpeg(f), jpeg.read_jpeg(f)
+        fixtures[f.name] = {"shape": list(a.shape),
+                            "bit_equal": bool(a.shape == b.shape
+                                              and np.array_equal(a, b))}
+    ok_a = len(files) >= 12 and all(v["bit_equal"] for v in fixtures.values())
+    emit({"phase": f"{label}_fixtures", "files": fixtures, "ok": ok_a})
+    ok = ok and ok_a
+
+    # (b) the same pixels as JPEG and as PNG: one mAP to the digit
+    src = SyntheticVedai(n=JPEG_N, img_size=512, nc=8, seed=1)
+    items = [src[i] for i in range(JPEG_N)]
+    stems = [f"{i:08d}" for i in range(JPEG_N)]
+    root, twin = workdir / "trained_jpeg", workdir / "trained_jpeg_as_png"
+    fold = _write_jpeg_folder(root, items, stems)
+    decoded = [tuple(native_loader.decode_jpeg(
+        root / "images" / f"{s}_{m}.jpg") for m in ("co", "ir")) + (lab,)
+        for s, (_, _, lab) in zip(stems, items)]
+    twin_write = _write_png_folder(twin, decoded, stems, None)
+    evals = {"jpeg": _tie_val(root, stems, "jpg"),
+             "png": _tie_val(twin, stems, "png")}
+    ok_b = (all(evals["jpeg"][k] == evals["png"][k] for k in ("map50", "map"))
+            and all(e["launches_ok"] and e["seen"] == JPEG_N
+                    for e in evals.values())
+            and twin_write["bit_equal"] and evals["jpeg"]["map50"] > 0.5)
+    trained_bf16 = (trained or {}).get("runs", {}).get("bf16")
+    emit({"phase": f"{label}_tie", **evals,
+          "trained_bf16": ({k: trained_bf16[k] for k in ("map50", "map")}
+                           if trained_bf16 else None),
+          "jpeg_bytes_per_pair": sum(p.stat().st_size for p in
+                                     (root / "images").iterdir()) / JPEG_N,
+          "ok": ok_b})
+    ok = ok and ok_b
+
+    # (c) the tile loader's tiles of the JPEG folder against the python
+    # source's
+    tiles = _native_tiles(fold)
+    emit({"phase": f"{label}_tiles", "size": 512, **tiles,
+          "ok": tiles["bit_equal"]})
+    ok = ok and tiles["bit_equal"]
+
+    # (d) decode ms of a 1024 px pair, beside the card
+    dec = _jpeg_decode_ms(workdir)
+    ok = ok and dec["tiles"]["bit_equal"]
+    emit({"phase": f"{label}_decode_ms", "card": card_line(), **dec})
+    row.update(fixtures_ok=ok_a, tie=evals,
+               tiles_bit_equal=tiles["bit_equal"], decode_ms=dec["median"],
+               launches={}, ok=bool(ok))
     emit(row)
     return row
 
@@ -5034,6 +5188,7 @@ def main() -> int:
         drive("reference_io", phase_reference_io, tmp, paths.get("trained"))
         drive("train_aug", phase_train_aug, tmp)
         drive("folders", phase_folders, tmp, paths.get("trained"))
+        drive("jpeg", phase_jpeg, tmp, paths.get("trained"))
         drive("eval_extras", phase_eval_extras, tmp, paths.get("folders"))
         drive("eval_runner", phase_eval_runner, tmp)
         drive("mono", phase_path, MONO_ARGS, MONO_FORWARD)

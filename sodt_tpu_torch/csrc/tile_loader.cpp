@@ -1,4 +1,5 @@
-// Tile loader of the port: PNG decode, resize and prefetch on host threads.
+// Tile loader of the port: PNG / JPEG decode, resize and prefetch on host
+// threads.
 //
 // The port's counterpart of the JAX system's native loader, in C++17 with
 // the standard library alone: no OpenCV and no zlib. A worker thread takes
@@ -9,8 +10,10 @@
 // RAM cache up to a byte budget.
 //
 // Each tile is made as the JAX native loader makes it through OpenCV:
-//   1. the PNG is read as cv::imread(IMREAD_UNCHANGED) reads it: gray,
-//      palette colours, RGB (held as BGR), each with or without alpha;
+//   1. the file is read as cv::imread(IMREAD_UNCHANGED) reads it, the
+//      decoder chosen by its signature (as OpenCV chooses it), not by its
+//      name: a PNG here (gray, palette colours, RGB, each with or without
+//      alpha), a JPEG by `jpeg.cpp` (gray or RGB); held as BGR;
 //   2. gray is widened to three channels, alpha is dropped;
 //   3. 16-bit samples saturate to 8 bits (convertTo(CV_8U) without a scale);
 //   4. the longest side is resized to img_size with cv::resize's arithmetic:
@@ -53,6 +56,12 @@
 #include <thread>
 #include <unordered_map>
 #include <vector>
+
+// csrc/jpeg.cpp: a JPEG file in memory -> (h, w), c = 1 gray or 3 RGB, and
+// its (h, w, c) pixels; throws std::runtime_error with the cause
+namespace sodt_jpeg {
+void decode(const uint8_t* data, size_t n, int* h, int* w, int* c, std::vector<uint8_t>* px);
+}  // namespace sodt_jpeg
 
 namespace {
 
@@ -507,11 +516,9 @@ void row_to_bgr(const uint8_t* row, uint32_t n, const PngHeader& hd,
   }
 }
 
-Image decode_png(const std::string& path) {
-  static const uint8_t kSig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1A, '\n'};
-  std::vector<uint8_t> data = read_file(path);
-  if (data.size() < 8 || std::memcmp(data.data(), kSig, 8))
-    throw Error("not a PNG file (signature)");
+constexpr uint8_t kPngSig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1A, '\n'};
+
+Image decode_png(const std::vector<uint8_t>& data) {
   PngHeader hd;
   bool have_header = false, have_end = false;
   // the palette in BGR order, black past its end
@@ -604,6 +611,30 @@ Image decode_png(const std::string& path) {
     off += size_t(ph) * (stride + 1);
   }
   return img;
+}
+
+Image decode_image(const std::string& path) {
+  std::vector<uint8_t> data = read_file(path);
+  if (data.size() >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF) {
+    int h, w, c;
+    std::vector<uint8_t> px;
+    sodt_jpeg::decode(data.data(), data.size(), &h, &w, &c, &px);
+    Image img;
+    img.h = h;
+    img.w = w;
+    img.px.resize(size_t(h) * w * 3);
+    const size_t n = size_t(h) * w;
+    for (size_t i = 0; i < n; ++i) {
+      const uint8_t* s = &px[i * c];
+      uint8_t* d = &img.px[i * 3];
+      d[0] = s[c == 3 ? 2 : 0];
+      d[1] = s[c == 3 ? 1 : 0];
+      d[2] = s[0];
+    }
+    return img;
+  }
+  if (data.size() >= 8 && !std::memcmp(data.data(), kPngSig, 8)) return decode_png(data);
+  throw Error("not a PNG or JPEG file (signature): the port reads those two formats");
 }
 
 // ---------------------------------------------------------------- resize
@@ -911,7 +942,7 @@ class Loader {
     }
     const std::string& path = ir ? ir_paths_[index] : rgb_paths_[index];
     try {
-      make_tile(decode_png(path), img_size_, out);
+      make_tile(decode_image(path), img_size_, out);
     } catch (const std::exception& e) {
       throw Error("failed to decode " + path + ": " + e.what());
     }

@@ -56,7 +56,6 @@ import torch
 from .augment import (WARP, PerspectiveParams, augment_draws, draw_cols,
                       flip_draws, flips, hsv_apply, hsv_draws, mosaic4,
                       perspective_draws, random_perspective, warp_draws)
-from .png import png_size
 from .synthetic import pad_labels
 from ..ops.boxes import xywhn2xyxy
 from ..ops.letterbox import letterbox_image_np, letterbox_params
@@ -579,11 +578,12 @@ def make_eval_batches(dataset, batch_size: int, img_size: int,
 
 
 def _aspect_ratios(dataset) -> np.ndarray:
-    """h / w of every image, from the PNG headers where the dataset has
-    files (JAX reads them from PIL's headers)."""
+    """h / w of every image, from the PNG or JPEG headers where the
+    dataset has files (JAX reads them from PIL's headers)."""
+    from .vedai import image_size
     files = getattr(dataset, "img_files", None)
     if files is not None:
-        shapes = [png_size(f)[::-1] for f in files]
+        shapes = [image_size(f)[::-1] for f in files]
     else:
         shapes = [dataset[i][0].shape[:2] for i in range(len(dataset))]
     shapes = np.asarray(shapes, np.float64)

@@ -1,11 +1,13 @@
-"""ctypes binding of the port's tile loader, `csrc/tile_loader.cpp`
-(`libsodt_tiles.so`), with the JAX package's API (`available`,
+"""ctypes binding of the port's host library (`libsodt_tiles.so`): the tile
+loader, `csrc/tile_loader.cpp`, with the JAX package's API (`available`,
 `NativeTileLoader`: submit / wait / get / close; `sodt_tpu/data/
-native_loader.py`).
+native_loader.py`), and the one-file JPEG decode of `csrc/jpeg.cpp`
+(`decode_jpeg`).
 
 A GIL-free worker decodes and resizes the next step's (rgb, ir) pairs while
-the device runs the current one: its own PNG reader and inflate, cv2's
-resize arithmetic, no OpenCV and no zlib. The library is built from the
+the device runs the current one: its own PNG reader and inflate, its own
+JPEG decoder (the decoder chosen by the file's signature), cv2's resize
+arithmetic, no OpenCV, no libjpeg and no zlib. The library is built from the
 repo's sources with the host compiler at first use
 (`kernels._build.build_host`), on any machine with `c++` or `g++`. Where it
 does not build or load, `load_error()` keeps the reason word for word and
@@ -50,6 +52,14 @@ def _load_lib():
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
     lib.loader_destroy.restype = None
     lib.loader_destroy.argtypes = [ctypes.c_void_p]
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.jpeg_file_shape.restype = ctypes.c_int
+    lib.jpeg_file_shape.argtypes = [ctypes.c_char_p, ip, ip, ip,
+                                    ctypes.c_char_p, ctypes.c_int]
+    lib.jpeg_file_decode.restype = ctypes.c_int
+    lib.jpeg_file_decode.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
     _lib = lib
     return lib
 
@@ -63,6 +73,30 @@ def load_error() -> str | None:
     """Why the library did not build or load (None where it did)."""
     _load_lib()
     return _error
+
+
+def decode_jpeg(path) -> np.ndarray:
+    """A JPEG file -> (H, W, 1) gray or (H, W, 3) RGB uint8, the pixels of
+    the JAX package's `_read_image` through cv2, decoded by the host
+    library. Raises RuntimeError with the compiler's words where the
+    library does not build, and ValueError naming the file and the cause
+    where the file does not decode."""
+    lib = _load_lib()
+    if lib is None:
+        raise RuntimeError(f"the host library (JPEG decoder) is "
+                           f"unavailable: {_error}")
+    name = str(path).encode()
+    err = ctypes.create_string_buffer(1024)
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if not lib.jpeg_file_shape(name, ctypes.byref(h), ctypes.byref(w),
+                               ctypes.byref(c), err, len(err)):
+        raise ValueError(err.value.decode(errors="replace"))
+    out = np.empty((h.value, w.value, c.value), np.uint8)
+    if not lib.jpeg_file_decode(
+            name, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            h.value, w.value, c.value, err, len(err)):
+        raise ValueError(err.value.decode(errors="replace"))
+    return out
 
 
 class NativeTileLoader:

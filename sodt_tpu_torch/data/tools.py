@@ -10,11 +10,12 @@
 
     python -m sodt_tpu_torch.data.tools {flatten,boxes,autosplit} <path>
 
-`extract_boxes` reads with the port's PNG decoder (`png.read_png_rgb`, as
-PIL's `convert("RGB")`) and writes each crop with its encoder as
-`.png`, where JAX writes JPEG (`.jpg`) through PIL, which the port does
-not import: a stated departure. The crops' pixels are JAX's crop arrays
-before its JPEG encoding. It reads PNG only: another image format raises.
+`extract_boxes` reads PNG with the port's decoder (`png.read_png_rgb`, as
+PIL's `convert("RGB")`) and JPEG with the host library's (`native_loader.
+decode_jpeg`, gray repeated to RGB, as `convert("RGB")` gives it), chosen
+by the file's signature; another image format raises NotImplementedError.
+It writes each crop as JAX does, a `.jpg` under JAX's name, with the
+port's encoder (`jpeg.write_jpeg`: PIL's defaults, the bytes PIL writes).
 """
 
 from __future__ import annotations
@@ -26,8 +27,10 @@ from pathlib import Path
 
 import numpy as np
 
-from .png import read_png_rgb, write_png
-from .vedai import derive_label_path
+from . import native_loader
+from .jpeg import write_jpeg
+from .png import read_png_rgb
+from .vedai import _unsupported, derive_label_path, image_format
 
 IMG_FORMATS = {"bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp"}
 
@@ -43,7 +46,7 @@ def flatten_recursive(path: str) -> Path:
 
 
 def extract_boxes(path: str) -> Path:
-    """Crop labelled boxes into one directory per class, as PNGs."""
+    """Crop labelled boxes into one directory per class, as JPEGs."""
     path = Path(path)
     out = path / "classifier"
     if out.is_dir():
@@ -54,15 +57,20 @@ def extract_boxes(path: str) -> Path:
         lb_file = Path(derive_label_path(str(im_file)))
         if not lb_file.exists():
             continue
-        if im_file.suffix.lower() != ".png":
-            raise NotImplementedError(
-                f"{im_file}: the port reads PNG only")
-        im = read_png_rgb(im_file)
+        fmt = image_format(str(im_file))
+        if fmt == "PNG":
+            im = read_png_rgb(im_file)
+        elif fmt == "JPEG":
+            im = native_loader.decode_jpeg(im_file)
+            if im.shape[2] == 1:
+                im = np.repeat(im, 3, axis=2)
+        else:
+            raise _unsupported(str(im_file), fmt)
         h, w = im.shape[:2]
         lb = np.loadtxt(lb_file, ndmin=2, dtype=np.float32)
         for j, x in enumerate(lb):
             c = int(x[0])
-            f = out / f"{c}" / f"{path.stem}_{im_file.stem}_{j}.png"
+            f = out / f"{c}" / f"{path.stem}_{im_file.stem}_{j}.jpg"
             f.parent.mkdir(parents=True, exist_ok=True)
             b = x[1:5] * [w, h, w, h]
             b[2:] = b[2:] * 1.2 + 3  # pad
@@ -73,7 +81,7 @@ def extract_boxes(path: str) -> Path:
             crop = im[y1:y2, x1:x2]
             if not crop.size:
                 raise ValueError(f"box failure in {f}")
-            write_png(f, crop)
+            write_jpeg(f, crop)
     return out
 
 

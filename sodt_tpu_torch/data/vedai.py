@@ -1,16 +1,21 @@
 """VEDAI paired RGB+IR folders on the host (`sodt_tpu/data/vedai.py`).
 
-A fold list names the RGB images (`*_co.png`); the IR image is the
-`*_ir.png` beside each, the label `labels/<stem>.txt` beside `images/`
+A fold list names the RGB images (`*_co.png`, `*_co.jpg`); the IR image
+is the `*_ir` file beside each, the label `labels/<stem>.txt` beside `images/`
 (`class cx cy w h`, normalized, one object a line). Items are uint8 RGB
 and IR tiles resized so that the longest side is `img_size`, and the
 (n, 5) labels.
 
-Decoding is the port's own (`png.read_png`, PNG only: the card's machine
-has neither cv2 nor PIL) and so is the resize (`resize.resize_longest`,
-cv2's arithmetic): both give the pixels of the JAX package's cv2 branch.
-The integrity scan verifies each file with `png.verify_png` where JAX
-calls PIL's `Image.verify`, and marks the same files corrupt. The label
+Decoding is the port's own (the card's machine has neither cv2 nor PIL),
+chosen by the file's signature as cv2 chooses it: a PNG by `png.read_png`,
+a JPEG by the host library's decoder (`csrc/jpeg.cpp`, through
+`native_loader.decode_jpeg`; where it does not build, the read raises with
+the compiler's words). Other formats (BMP, TIFF, WebP, DNG) raise
+NotImplementedError naming the format. The resize is the port's own too
+(`resize.resize_longest`, cv2's arithmetic): both give the pixels of the
+JAX package's cv2 branch. The integrity scan verifies each file with
+`png.verify_png` or `jpeg.verify_jpeg` where JAX calls PIL's
+`Image.verify`, and marks the same files corrupt. The label
 cache (`<list>.labels.npz`, keyed by a sha256 over every file's path, size
 and mtime) has JAX's key and layout, so each package reads the other's.
 """
@@ -23,7 +28,10 @@ from pathlib import Path
 
 import numpy as np
 
-from .png import read_png, verify_png
+from . import native_loader
+from .jpeg import jpeg_size, verify_jpeg
+from .png import SIGNATURE as PNG_SIGNATURE
+from .png import png_size, read_png, verify_png
 from .resize import resize_longest as _resize_longest
 
 
@@ -40,16 +48,65 @@ def derive_label_path(p: str) -> str:
     return q + ".txt"
 
 
+def image_format(path: str) -> str:
+    """The format of a file by its signature, as cv2 and PIL tell it:
+    "PNG", "JPEG", "BMP", "TIFF", "DNG" (a TIFF named .dng), "WebP", or
+    "unknown"."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head.startswith(PNG_SIGNATURE):
+        return "PNG"
+    if head.startswith(b"\xff\xd8\xff"):
+        return "JPEG"
+    if head.startswith(b"BM"):
+        return "BMP"
+    if head[:4] in (b"II*\x00", b"MM\x00*"):
+        return "DNG" if Path(path).suffix.lower() == ".dng" else "TIFF"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    return "unknown"
+
+
+def _unsupported(path: str, fmt: str):
+    return NotImplementedError(
+        f"{path}: a {fmt} image; the port reads PNG and JPEG (the card's "
+        "machine has no other decoder)")
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """(width, height) from the file's header, as PIL's `Image.size`."""
+    fmt = image_format(path)
+    if fmt == "PNG":
+        return png_size(path)
+    if fmt == "JPEG":
+        return jpeg_size(path)
+    raise _unsupported(path, fmt)
+
+
+def verify_image(path: str) -> None:
+    """Raise where the JAX scan (PIL's `Image.verify` and its 10 px
+    assert) marks the file corrupt."""
+    fmt = image_format(path)
+    if fmt == "JPEG":
+        verify_jpeg(path)
+    elif fmt == "PNG" or fmt == "unknown":
+        verify_png(path)
+    else:
+        raise _unsupported(path, fmt)
+
+
 def _read_image(path: str) -> np.ndarray:
     """Decode to uint8 HWC RGB, HW1 for one channel (JAX's cv2 branch;
-    `png.read_png` says what four channels hold). PNG only."""
+    `png.read_png` says what four channels hold), by the file's signature:
+    PNG or JPEG."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    if Path(path).suffix.lower() != ".png":
-        raise NotImplementedError(
-            f"{path}: the port decodes PNG only (the card's machine has no "
-            "other decoder)")
-    return read_png(path)
+    fmt = image_format(path)
+    if fmt == "PNG":
+        return read_png(path)
+    if fmt == "JPEG":
+        return native_loader.decode_jpeg(path)
+    raise _unsupported(path, fmt)
 
 
 class VedaiDataset:
@@ -106,7 +163,7 @@ class VedaiDataset:
                 if not os.path.exists(f):
                     continue  # decoded lazily; a missing pair fails there
                 try:
-                    verify_png(f)
+                    verify_image(f)
                 except Exception as e:
                     print(f"WARNING: corrupt image {f}: {e}")
                     ok = False

@@ -4,14 +4,16 @@
         --weights checkpoints/flagship_r5_150ep_ema.npz --save-txt
 
 --source is an image or video file, a folder of them, a webcam index, an
-rtsp / rtmp / http(s) URL or a `.streams` list of them. Images are PNGs,
-decoded by the port itself; a video is read frame by frame with cv2
+rtsp / rtmp / http(s) URL or a `.streams` list of them. Images are PNG or
+JPEG files, decoded by the port itself (`data.vedai._read_image`; other
+image formats raise NotImplementedError); a video is read frame by frame with cv2
 (imported there; frames named `<file>#<i>`), and a live source through
 `data.streams.StreamSource` (cv2 too) until --max-frames frames (1000 by
 default). Without cv2, as on the card's machine, a video raises
 ImportError and a live source RuntimeError, as in JAX.
-Under RGB+IR a `*_co.png` picks up the `*_ir.png` beside it, and `_ir`
-files are skipped as pair partners. Each image goes through
+Under RGB+IR a `*_co.png` picks up the `*_ir.png` beside it (a `*_co.jpg`
+its `*_ir.jpg`, by JAX's `derive_ir_path`), and `_ir` files are skipped as
+pair partners. Each image goes through
 `models.infer.Predictor` (device letterbox, one eval step, boxes back in
 native pixels) with the serving rule of the JAX CLI: top_k 512 when
 --conf-thres >= 0.1, else the eval protocol's 4096. --save-txt writes
@@ -56,8 +58,8 @@ CH_IN = {"RGB": 3, "IR": 3, "RGB+IR": 4}
 
 def iter_sources(source: str, want_ir: bool = False):
     """Yield (name, rgb uint8 HWC, ir or None) frames from a file, a
-    folder or a video. Under RGB+IR a `*_co.png` picks up its `*_ir.png`
-    sibling where it exists, and `_ir` files are skipped as pair
+    folder or a video. Under RGB+IR a `*_co.png` / `*_co.jpg` picks up its
+    `*_ir` sibling where it exists, and `_ir` files are skipped as pair
     partners."""
     p = Path(source)
     files = sorted(p.glob("*")) if p.is_dir() else [p]

@@ -9,10 +9,10 @@ stream, `c_int` for ints, `c_float` for floats. Every entry returns
 `cudaGetLastError()`; `check()` raises when it is not 0.
 
 Beside them, `build_host()` compiles the host C++ of `csrc/*.cpp` (the tile
-loader: standard library only, no CUDA) with the host compiler into
-`libsodt_tiles.so` under the same directory, named by a hash of those
-sources and the flags; it needs no `nvcc`, so it builds on any machine with
-`c++` or `g++`.
+loader and the JPEG decoder: standard library only, no CUDA) with the host
+compiler into `libsodt_tiles.so` under the same directory, named by a hash
+of those sources and the flags; it needs no `nvcc`, so it builds on any
+machine with `c++` or `g++`.
 """
 
 from __future__ import annotations

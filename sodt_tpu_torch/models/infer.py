@@ -2,8 +2,9 @@
 `Detections`.
 
 `Predictor` takes numpy images (HWC uint8, RGB; gray is repeated to three
-channels), PNG paths (decoded by the port's own `data.vedai._read_image`),
-or lists of them, with an optional IR image each; it letterboxes every
+channels), PNG or JPEG paths (decoded by the port's own
+`data.vedai._read_image`), or lists of them, with an optional IR image
+each; it letterboxes every
 image on the model's device, runs one batched eval step with the serving
 settings (conf 0.25, iou 0.45, max_det 300, one label a box, top_k 512)
 and maps the boxes back to each image's native pixels. JAX's Predictor

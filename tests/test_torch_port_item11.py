@@ -18,7 +18,7 @@ the CPU:
     under one fake cv2 module: names, frames, BGR -> RGB, --max-frames,
     StopIteration after close; JAX's errors without cv2;
   * `data.tools`: autosplit's files and the flattened tree identical to
-    JAX's; extract_boxes' PNG crops pixel-equal to JAX's crop arrays;
+    JAX's; extract_boxes' JPEG crops byte-equal to the ones JAX writes;
   * `ops.wbf`: equal to JAX's on tests/test_aux.py's cases and a seeded
     random one.
 """
@@ -459,33 +459,35 @@ def test_autosplit_and_flatten_equal_jax(tmp_path):
     assert sorted(want) == ["a.txt", "b.txt", "c.txt"]
 
 
-def test_extract_boxes_crops_equal_jax(tmp_path, monkeypatch):
-    """The port's PNG crops hold JAX's crop arrays (taken where JAX hands
-    them to PIL, before its JPEG encoding), under the same class
-    directories and stems."""
+def test_extract_boxes_crops_equal_jax(tmp_path):
+    """The port's crops are JAX's: `.jpg` files under the same class
+    directories and names, byte-equal to the ones PIL writes, from PNG and
+    JPEG (colour and gray) sources alike; cv2 decodes each to PIL's
+    pixels."""
     from sodt_tpu.data import tools as jtools
     from sodt_tpu_torch.data import tools
     root = _labelled_tree(tmp_path / "set")
-    crops = []
-    real = Image.fromarray
-
-    def record(a, *args, **kw):
-        crops.append(np.array(a))
-        return real(a, *args, **kw)
-    with monkeypatch.context() as m:
-        m.setattr(Image, "fromarray", record)
-        jout = jtools.extract_boxes(str(root))
-    jfiles = sorted(jout.rglob("*.jpg"))
-    want = dict(zip([p.relative_to(jout).with_suffix("") for p in
-                     sorted(jout.rglob("*.jpg"), key=lambda p: p.stat(
-                         ).st_mtime_ns)], crops))
-    out = tools.extract_boxes(str(root))
-    files = sorted(out.rglob("*.png"))
-    assert [p.relative_to(out).with_suffix("") for p in files] == [
-        p.relative_to(jout).with_suffix("") for p in jfiles] and len(files) == 4
-    for p in files:
-        np.testing.assert_array_equal(png.read_png(p),
-                                      want[p.relative_to(out).with_suffix("")])
+    rng = np.random.default_rng(5)
+    smooth = cv2.GaussianBlur(rng.integers(0, 256, (70, 90, 3), np.uint8),
+                              (5, 5), 2)
+    cv2.imwrite(str(root / "images/d_co.jpg"), smooth)
+    cv2.imwrite(str(root / "images/sub/e.jpg"), smooth[:41, :57, 1],
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    np.savetxt(root / "labels/d.txt", [[0, 0.3, 0.4, 0.5, 0.6],
+                                       [1, 0.8, 0.8, 0.3, 0.3]], fmt="%.6f")
+    np.savetxt(root / "labels/sub/e.txt", [[2, 0.5, 0.5, 0.9, 0.9]],
+               fmt="%.6f")
+    files = lambda d: {p.relative_to(d): p.read_bytes()
+                       for p in sorted(Path(d).rglob("*")) if p.is_file()}
+    want = files(jtools.extract_boxes(str(root)))
+    got = files(tools.extract_boxes(str(root)))
+    assert sorted(got) == sorted(want) and len(got) == 7
+    assert all(k.suffix == ".jpg" for k in got)
+    for k in want:
+        dec = lambda b: cv2.imdecode(np.frombuffer(b, np.uint8),
+                                     cv2.IMREAD_UNCHANGED)
+        np.testing.assert_array_equal(dec(got[k]), dec(want[k]))
+        assert got[k] == want[k], k
 
 
 # -------------------------------------------------------------------- WBF

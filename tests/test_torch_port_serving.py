@@ -1,10 +1,10 @@
 """The serving path of the port (`sodt_tpu_torch/models/infer.py`'s
 `Predictor` and `Detections`, `sodt_tpu_torch/detect.py`) against the JAX
 package's (`sodt_tpu/models/infer.py`, the repo-root `detect.py`), f32 on
-the CPU, on the narrow flagship with weights carried across by
-`from_jax_variables` (the all-CNN tests/tiny.yaml of `tests/test_aux.py`
-is not buildable by the port: ROADMAP.md Queue 1 item 10). Its Detect bias
-is raised so that random weights clear the serving threshold (conf 0.25).
+the CPU, on the narrow flagship and on the all-CNN tests/tiny.yaml of
+`tests/test_aux.py`, with weights carried across by `from_jax_variables`.
+Their Detect biases are raised so that random weights clear the serving
+threshold (conf 0.25).
 
 Tolerances: the same detections per image, boxes within 1e-3 px of JAX's
 in native pixels, scores and classes within 1e-4; the detect CLI's label
@@ -32,7 +32,7 @@ from sodt_tpu_torch.models.infer import Detections, Predictor
 from sodt_tpu_torch.ops.boxes import scale_coords as tscale_coords
 from sodt_tpu_torch.weights import from_jax_variables, save_npz
 
-from torch_port_common import NARROW_CFG, j, narrow_pair
+from torch_port_common import NARROW_CFG, j, narrow_pair, tiny_pair
 
 ROOT = Path(__file__).resolve().parent.parent
 BOX_TOL = 1e-3        # px, native
@@ -107,6 +107,30 @@ def test_torch_predictor_matches_jax(served, tmp_path, capsys):
     assert out[:2] == out[2:] and out[0].startswith("image 0: ")
     saved = got.save(tmp_path / "plots")
     assert [p.name for p in saved] == ["image0.png", "image1.png"]
+
+
+def test_torch_predictor_on_tiny_yaml_matches_jax(tmp_path):
+    """tests/test_aux.py's serving case on tests/tiny.yaml (RGB, 64 px,
+    names a, b, c): an 80 x 100 and a 120 x 90 image as arrays, and the
+    same images as JPEG paths, which both packages decode (JAX with cv2):
+    the same detections, boxes in native pixels."""
+    import cv2
+    from sodt_tpu.data.vedai import _read_image as jread
+    jm, v, tm = tiny_pair(2, detect_bias=6.0)
+    imgs = _images()
+    names = ["a", "b", "c"]
+    want = JPredictor(jm, v, img_size=IMG, names=names)(imgs)
+    pred = Predictor(tm, img_size=IMG, names=names)
+    got = pred(imgs)
+    assert got.shapes == [(80, 100), (120, 90)]
+    _same(got.dets, want.dets)
+    paths = []
+    for i, im in enumerate(imgs):
+        paths.append(str(tmp_path / f"{i}.jpg"))
+        cv2.imwrite(paths[-1], cv2.GaussianBlur(im, (3, 3), 1)[..., ::-1])
+    want = JPredictor(jm, v, img_size=IMG, names=names)(
+        [jread(p) for p in paths])
+    _same(pred(paths).dets, want.dets)
 
 
 def test_torch_predictor_is_its_eval_step_after_scale_coords(served):
@@ -201,6 +225,50 @@ def test_torch_detect_cli_matches_jax_loop(served, tmp_path, capsys):
                 [float(x) for x in f[1:5]], want_xywh, rtol=0,
                 atol=1e-6 + BOX_TOL / min(h0, w0))
             assert abs(float(f[5]) - conf) <= 1e-4
+
+
+def test_torch_detect_cli_on_jpeg_pairs_matches_jax_loop(served, tmp_path):
+    """`python -m sodt_tpu_torch.detect` on a JPEG folder (written by cv2,
+    as a camera's files are): `x_co.jpg` picks up `x_ir.jpg` (gray,
+    progressive) as JAX's `derive_ir_path` pairs them, a `_co.jpg` without
+    a partner stands alone; under RGB+IR, the same detections as JAX's
+    loop, which decodes with cv2."""
+    import cv2
+    jm, v, tm = served
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(6)
+    for stem, (h, w), ir in (("a", (80, 100), True), ("b", (120, 90), True),
+                             ("c", (64, 64), False)):
+        img = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), np.uint8),
+                               (3, 3), 1)
+        cv2.imwrite(str(src / f"{stem}_co.jpg"), img)
+        if ir:
+            cv2.imwrite(str(src / f"{stem}_ir.jpg"), img[..., 2],
+                        [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    npz = tmp_path / "w.npz"
+    save_npz(from_jax_variables(v), npz)
+    cfg = tmp_path / "narrow.yaml"
+    cfg.write_text(yaml.safe_dump(NARROW_CFG))
+    res = detect.main(["--source", str(src), "--cfg", str(cfg), "--weights",
+                       str(npz), "--img-size", str(IMG), "--input_mode",
+                       "RGB+IR", "--save-dir", str(tmp_path / "out"),
+                       "--no-bf16", "--device", "cpu"])
+    want = _jax_detect(jm, v, src)
+    assert [r["source"] for r in res["results"]] == [n for n, _ in want]
+    assert [Path(n).name for n, _ in want] == ["a_co.jpg", "b_co.jpg",
+                                                "c_co.jpg"]
+    assert res["detections"] == sum(len(d) for _, d in want) > 0
+    got = [tm_dets for tm_dets in _port_dets(tm, src)]
+    _same(got, [d for _, d in want])
+
+
+def _port_dets(tm, src):
+    """The port's detections per image of `src` through its own
+    `iter_sources` and `Predictor` (what the CLI runs)."""
+    pred = Predictor(tm, img_size=IMG)
+    return [pred([rgb], [ir] if ir is not None else None).dets[0]
+            for _, rgb, ir in detect.iter_sources(str(src), want_ir=True)]
 
 
 @pytest.mark.parametrize("args,what", [

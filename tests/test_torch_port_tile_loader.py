@@ -10,6 +10,11 @@
   * square 8-bit RGB / gray pairs equal the port's python tile source, and
     the feeds give the same batches with and without `prefer_native`;
   * the inflate against zlib at levels 0, 1, 6, 9 and its strategies;
+  * JPEG files (gray, 4:4:4, 4:2:2, 4:2:0, 4:4:0, progressive, restart
+    intervals, optimised tables; `csrc/jpeg.cpp`, chosen by the file's
+    signature) give tiles bit-equal to JAX's OpenCV loader at 64 and 512
+    px, and a folder that mixes PNG and JPEG pairs equals it and the
+    port's python tile source;
   * every faulty file fails its job with the file named; the cache, the
     thread pool and repeated indices leave the bytes as they are;
   * the build: the compiler's words kept where it fails, the library free
@@ -205,6 +210,135 @@ def test_non_square_is_padded_as_jax_opencv_loader(lib, resize_dir, hw,
     assert (tile[h:] == 114).all() and (tile[:, w:] == 114).all()
 
 
+# ----------------------------------------------------------------- JPEG
+
+# (channels, cv2.imwrite's JPEG parameters by name, IMWRITE_ left out)
+SAMPLING = "JPEG_SAMPLING_FACTOR"
+JPEG_VARIANTS = {
+    "gray": (1, {}),
+    "s444": (3, {SAMPLING: SAMPLING + "_444"}),
+    "s422": (3, {SAMPLING: SAMPLING + "_422"}),
+    "s420": (3, {SAMPLING: SAMPLING + "_420"}),
+    "s440": (3, {SAMPLING: SAMPLING + "_440"}),
+    "progressive": (3, {"JPEG_PROGRESSIVE": 1}),
+    "restart": (3, {"JPEG_RST_INTERVAL": 3}),
+    "optimized": (3, {"JPEG_OPTIMIZE": 1}),
+}
+
+
+def _write_jpeg(path, img, params=None):
+    """cv2's JPEG of `img` (BGR or gray), `params` named as in
+    JPEG_VARIANTS. cv2 is imported here, so that only the JPEG tests skip
+    where it is absent."""
+    cv2 = pytest.importorskip("cv2")
+    flat = []
+    for key, value in (params or {}).items():
+        flat += [getattr(cv2, "IMWRITE_" + key),
+                 getattr(cv2, "IMWRITE_" + value) if isinstance(value, str)
+                 else value]
+    assert cv2.imwrite(str(path), img, flat)
+
+
+@pytest.fixture(scope="module")
+def jpeg_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("jpeg_variants")
+    for i, (name, (c, params)) in enumerate(JPEG_VARIANTS.items()):
+        img = _scene(VH, VW, c, 40 + i)
+        _write_jpeg(d / f"{name}.jpg", img[..., 0] if c == 1 else img,
+                    params)
+    return d
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("variant", sorted(JPEG_VARIANTS))
+def test_jpeg_tiles_equal_jax_opencv_loader(lib, jpeg_dir, variant, size):
+    tile = _same_as_jax(jpeg_dir / f"{variant}.jpg", size)
+    ow = int(VW * size / VH)
+    assert (tile[:, ow:] == 114).all() and (tile[:, :ow] != 114).any()
+
+
+def _mixed_folder(root: Path) -> str:
+    """A fold list of pairs that mix the formats: a JPEG `_co` with a PNG
+    `_ir`, a PNG `_co` with a JPEG `_ir` (gray), JPEG both (one named
+    .png: the signature decides), at sides that take each resize branch."""
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    lines = []
+    kinds = (("jpg", "png"), ("png", "jpg"), ("jpg", "jpg"), ("jpg", "png"))
+    for i, ((co, ir), side) in enumerate(zip(kinds, (1024, 600, 256, 48))):
+        stem = root / "images" / f"{i:08d}"
+        rgb, gray = _scene(side, side, 3, 300 + i), _scene(side, side, 1, i)
+        if co == "jpg":
+            _write_jpeg(f"{stem}_co.jpg", rgb[..., ::-1])
+        else:
+            write_png(f"{stem}_co.png", rgb)
+        irp = f"{stem}_ir.{co}"                       # beside its _co
+        if ir == "jpg":
+            _write_jpeg(irp, gray[..., 0], {"JPEG_PROGRESSIVE": 1})
+        else:
+            write_png(irp, gray)
+        (root / "labels" / f"{i:08d}.txt").write_text("0 0.5 0.5 0.2 0.2\n")
+        lines.append(f"{stem}_co.{co}\n")
+    lst = root / "fold.txt"
+    lst.write_text("".join(lines))
+    return str(lst)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_mixed_png_jpeg_folder_equals_jax_and_python_source(lib, tmp_path,
+                                                            size):
+    ds = VedaiDataset(_mixed_folder(tmp_path), size)
+    assert len(ds) == 4
+    idx = np.array([3, 0, 2, 1, 0])
+    py = tl.PyTileSource(ds, "test").wait(idx)
+    src = tl._make_tile_source(ds, size, cache=False)
+    assert src.name == "native"
+    got = src.wait(src.submit(idx))
+    want = _tiles(jnative, ds.img_files, ds.ir_files, size, idx)
+    for g, p, w in zip(got, py, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, p)
+
+
+@pytest.mark.parametrize("kind,what", [
+    ("cut_progressive", "truncated progressive JPEG"),
+    ("arithmetic", "arithmetic-coded (SOF9) JPEG is not supported"),
+    ("cmyk", "CMYK / YCCK JPEG"), ("no_frame", "no image"),
+    ("overfull_huffman", "bad Huffman table")])
+def test_faulty_jpeg_fails_the_job_and_names_it(lib, tmp_path, kind, what):
+    good = tmp_path / "good_co.jpg"
+    _write_jpeg(good, _scene(48, 40, 3, 0), {"JPEG_PROGRESSIVE": 1})
+    data = bytearray(good.read_bytes())
+    sof = data.index(b"\xff\xc2")
+    if kind == "cut_progressive":
+        data = data[:len(data) * 3 // 4]
+    elif kind == "arithmetic":
+        data[sof + 1] = 0xC9
+    elif kind == "cmyk":
+        data[sof + 3] += 3
+        data[sof + 9] = 4
+        data[sof + 19:sof + 19] = b"\x04\x11\x00"
+    elif kind == "overfull_huffman":        # three 1-bit DC codes
+        sos = data.index(b"\xff\xda")
+        data[sos:sos] = (b"\xff\xc4\x00\x16\x00\x03" + bytes(15)
+                         + b"\x00\x01\x02")
+    else:
+        data = data[:sof] + b"\xff\xd9"
+    bad = tmp_path / f"bad_{kind}_ir.jpg"
+    bad.write_bytes(bytes(data))
+    loader = tnative.NativeTileLoader([str(good)] * 2, [str(good), str(bad)],
+                                      64)
+    try:
+        with pytest.raises(RuntimeError) as e:
+            loader.get(np.array([0, 1]))
+        msg = str(e.value)
+        assert f"failed to decode {bad}" in msg and what in msg, msg
+        rgb, ir = loader.get(np.array([0]))
+        np.testing.assert_array_equal(rgb, ir)
+    finally:
+        loader.close()
+
+
 # ------------------------------------------------- python source, feeds
 
 def _folder(root: Path, sides, n_per_side: int = 2) -> str:
@@ -334,8 +468,8 @@ def _broken(kind: str, good: bytes) -> bytes:
         return good[:pos] + bytes([good[pos] ^ 0x40]) + good[pos + 1:]
     if kind == "truncated":
         return good[:len(good) // 2]
-    if kind == "not_png":
-        return b"\xff\xd8\xff\xe0" + good[4:]
+    if kind == "not_png":                      # neither PNG nor JPEG
+        return b"GIF8" + good[4:]
     bad = {"zlib_header": bytes([z[0] ^ 0x0F]) + z[1:],
            "adler": z[:-1] + bytes([z[-1] ^ 1]),
            "zlib_cut": z[:len(z) // 2]}[kind]
@@ -344,7 +478,8 @@ def _broken(kind: str, good: bytes) -> bytes:
 
 
 BAD = {"crc": "bad CRC in chunk IDAT", "truncated": "truncated PNG file",
-       "not_png": "not a PNG file", "zlib_header": "bad zlib stream (header)",
+       "not_png": "not a PNG or JPEG file",
+       "zlib_header": "bad zlib stream (header)",
        "adler": "bad zlib stream (Adler-32)",
        "zlib_cut": "truncated zlib stream", "missing": "cannot open the file"}
 
@@ -495,7 +630,7 @@ def test_missing_compiler_is_kept(lib, monkeypatch):
 
 def test_library_has_no_opencv_and_no_zlib(lib):
     """`ldd` / `nm -D`: libc, libstdc++ (and its libgcc_s), libm only; no
-    OpenCV, libpng or zlib symbol."""
+    OpenCV, libpng, zlib or libjpeg symbol."""
     so = _build.build_host()
     if shutil.which("ldd") is None or shutil.which("nm") is None:
         pytest.skip("no ldd / nm on this machine")
@@ -507,13 +642,15 @@ def test_library_has_no_opencv_and_no_zlib(lib):
     assert all(n.startswith(allowed) for n in libs), libs
     nm = subprocess.run(["nm", "-D", "--undefined-only", str(so)],
                         capture_output=True, text=True, check=True).stdout
-    for bad in ("cv", "inflate", "png_", "adler32", "crc32"):
+    for bad in ("cv", "inflate", "png_", "adler32", "crc32", "jpeg_",
+                "tj"):
         assert not [s for s in nm.split() if s.startswith(bad)], bad
     exported = subprocess.run(["nm", "-D", "--defined-only", str(so)],
                               capture_output=True, text=True,
                               check=True).stdout
     for name in ("loader_create", "loader_submit", "loader_wait",
-                 "loader_last_error", "loader_destroy"):
+                 "loader_last_error", "loader_destroy", "jpeg_file_shape",
+                 "jpeg_file_decode"):
         assert f" T {name}" in exported
 
 

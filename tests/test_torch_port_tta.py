@@ -22,7 +22,8 @@ from sodt_tpu_torch.train import tta as ttta
 from sodt_tpu_torch.train.evaluate import make_eval_step as tstep
 from sodt_tpu_torch.data import SyntheticVedai, make_eval_batches
 
-from torch_port_common import close, j, narrow_pair, same_dets, t, trained_pair
+from torch_port_common import (close, j, narrow_pair, same_dets, t,
+                               tiny_pair, trained_pair)
 
 RESIZE_TOL = 1e-6
 TTA_TOL = 1e-4
@@ -62,8 +63,7 @@ def test_torch_tta_forward_matches_jax():
     """The three passes' decoded predictions, de-scaled and de-flipped, of
     the narrow flagship (RGB+IR, Swin encoder, stride 4 Detect) on a batch
     of two 64 x 96 images (each pass resized, then padded back to 64 x 96).
-    (The all-CNN tests/tiny.yaml is not buildable by the port: ROADMAP.md
-    Queue 1 item 10.)"""
+    The all-CNN tests/tiny.yaml of tests/test_aux.py is held below."""
     jm, v, tm = narrow_pair(0)
     x, ir = _asymmetric(2, 64, 96, 1), _asymmetric(2, 64, 96, 2)
     want = jax.jit(lambda v, x, ir: jtta.tta_forward(jm, v, x, ir))(
@@ -71,6 +71,24 @@ def test_torch_tta_forward_matches_jax():
     with torch.no_grad():
         got = ttta.tta_forward(tm, t(x), t(ir))
     assert tuple(got.shape) == tuple(want.shape)
+    close(got, want, TTA_TOL)
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (64, 96)])
+def test_torch_tta_forward_on_tiny_yaml_matches_jax(h, w):
+    """tests/test_aux.py's case on the all-CNN tests/tiny.yaml (RGB, one
+    Detect level at stride 4), `tta_forward(gs=4)`, with weights drawn and
+    carried across by `from_jax_variables`: the three passes' decoded
+    predictions, de-scaled and de-flipped, within TTA_TOL."""
+    jm, v, tm = tiny_pair(4)
+    x = _asymmetric(1, h, w, 7)
+    want = jax.jit(lambda v, x: jtta.tta_forward(jm, v, x, x, gs=4))(
+        v, j(x))
+    with torch.no_grad():
+        got = ttta.tta_forward(tm, t(x), t(x), gs=4)
+    assert tuple(got.shape) == tuple(want.shape)
+    assert want.shape[0] == 1 and want.shape[2] == 8
+    assert float(np.asarray(want).std()) > 100 * TTA_TOL
     close(got, want, TTA_TOL)
 
 

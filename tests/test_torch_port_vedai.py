@@ -128,13 +128,40 @@ def test_label_cache_is_shared_and_corrupt_items_match(folder, tmp_path,
         np.testing.assert_array_equal(a, b)
 
 
-def test_read_image_takes_png_only(tmp_path):
-    p = tmp_path / "x_co.jpg"
-    p.write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="PNG only"):
-        tv._read_image(str(p))
+def test_read_image_decodes_jpeg_as_jax(tmp_path):
+    """A JPEG (named .jpg, or a JPEG named .png) decodes through the host
+    library to the pixels of JAX's `_read_image` (cv2), colour and gray."""
+    import cv2
+    rng = np.random.default_rng(11)
+    img = cv2.GaussianBlur(rng.integers(0, 256, (45, 67, 3), np.uint8),
+                           (5, 5), 2)
+    for name, arr in (("x_co.jpg", img), ("y_ir.jpg", img[..., 0]),
+                      ("z_co.png", img)):
+        p = str(tmp_path / name)
+        ok, buf = cv2.imencode(".jpg", arr)
+        (tmp_path / name).write_bytes(buf.tobytes())
+        got = tv._read_image(p)
+        np.testing.assert_array_equal(got, jv._read_image(p))
+        assert got.dtype == np.uint8 and got.shape[2] == (1 if arr.ndim == 2
+                                                          else 3)
+
+
+@pytest.mark.parametrize("ext,fmt", [(".bmp", "BMP"), (".tiff", "TIFF"),
+                                     (".webp", "WebP")])
+def test_read_image_other_formats_raise_naming_them(tmp_path, ext, fmt):
+    import cv2
+    p = str(tmp_path / f"x_co{ext}")
+    assert cv2.imwrite(p, np.full((12, 14, 3), 90, np.uint8))
+    assert jv._read_image(p).shape == (12, 14, 3)  # JAX reads it
+    with pytest.raises(NotImplementedError, match=f"a {fmt} image"):
+        tv._read_image(p)
+
+
+def test_read_image_missing_file_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         tv._read_image(str(tmp_path / "missing_co.png"))
+    with pytest.raises(FileNotFoundError):
+        tv._read_image(str(tmp_path / "missing_co.jpg"))
 
 
 def test_native_binding_matches_jax_and_the_python_source(folder, tmp_path,

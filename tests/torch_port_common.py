@@ -249,6 +249,35 @@ def same_dets(td, tv, jd, jv, tol):
     close(td.numpy()[tv], jd[jv], tol)
 
 
+TINY_CFG = "tests/tiny.yaml"   # tests/test_aux.py's all-CNN detector
+
+
+def tiny_pair(seed: int, img: int = 64, detect_bias: float = 0.0):
+    """tests/tiny.yaml (RGB, three classes, one Detect level at stride 4)
+    in both packages, weights drawn with numpy from `seed`; with
+    `detect_bias` the Detect objectness bias raised by it and the class
+    biases by a third of it. (JAX model, variables as numpy, the port's
+    model in eval mode.)"""
+    from pathlib import Path
+    from sodt_tpu.models import build_model as jbuild
+    from sodt_tpu_torch.models import build_model as tbuild
+    from sodt_tpu_torch.weights import from_jax_variables
+    cfg = str(Path(__file__).resolve().parent.parent / TINY_CFG)
+    jm = jbuild(cfg, ch_in=3, input_mode="RGB")
+    x0 = j(np.zeros((1, img, img, 3), np.float32))
+    v = drawn_variables(jm, x0, x0, seed=seed, train=False)
+    if detect_bias:
+        bias = np.array(v["params"]["detect"]["m0"]["bias"])
+        no = 5 + 3
+        bias[4::no] += detect_bias
+        for c in range(5, no):
+            bias[c::no] += detect_bias / 3
+        v["params"]["detect"]["m0"]["bias"] = bias
+    tm = tbuild(cfg, ch_in=3, input_mode="RGB").eval()
+    tm.load_state_dict(from_jax_variables(v))
+    return jm, v, tm
+
+
 def narrow_pair(seed: int, img: int = 64):
     """The narrow flagship (`NARROW_CFG`, RGB+IR) in both packages from a
     JAX init drawn with `seed` and perturbed by `randomize_variables`:
