@@ -169,6 +169,24 @@ the final ok line:
               resize) on its pool and held to one core, and the numpy
               decoder, beside the card's name and power limit. Each of
               (a)-(d) prints its own line
+     bmp_tiff the port's BMP and TIFF decoders (`csrc/bmp.cpp`,
+              `csrc/tiff.cpp`, in the host library): (a) bit-equal to the
+              numpy decoders (`data/bmp.py`, `data/tiff.py`) on every file
+              of tests/torch_port_bmp_tiff/ (which the CPU tests hold to
+              cv2 and PIL), and on 4 damaged copies of each from a seed
+              (the same pixels, a broken strip filled as libtiff fills
+              it, or an error of the same type); (b) `trained`'s 16
+              images at 512 px written by the port's `write_bmp` (24-bit
+              RGB, 8-bit gray) and
+              `write_tiff` (deflate, predictor 2, 64 x 128 tiles) and as
+              PNG: the tile loader's 512 px tiles of each folder bit-equal
+              to the python source's, and `val --data` in bf16 on each
+              (PER_FORWARD) reading the PNG twin's mAP@0.5 and mAP to the
+              last digit (both formats are lossless); (c) ms to decode a
+              1024 px BMP pair and TIFF pair: the tile loader at 1024 px on
+              its pool and held to one core, and the numpy decoders,
+              beside the card's name and power limit. Each of (a)-(c)
+              prints its own line
      eval_extras  the eval protocol's extras and the serving path on the
               trained weights (predictions printed first): `val --augment`
               in bf16 and f32 on `trained`'s 16 images (mAP@0.5 and mAP
@@ -4091,6 +4109,180 @@ def phase_jpeg(label: str, workdir: Path, trained: dict) -> dict:
     return row
 
 
+# --------------------------------------------------------------- bmp_tiff
+
+BT_FIXTURES = Path("tests/torch_port_bmp_tiff")
+BT_TIFF = {"compression": "deflate", "predictor": 2, "tile": (64, 128)}
+
+
+def _write_bt_folder(root: Path, items, stems: list, ext: str) -> str:
+    """`items` ((rgb, ir, labels) each) as `images/<stem>_co.<ext>` (RGB)
+    and `_ir.<ext>` (gray) by the port's `write_bmp` or `write_tiff`
+    (BT_TIFF), labels with 9 significant digits; returns the fold list."""
+    from sodt_tpu_torch.data.bmp import write_bmp
+    from sodt_tpu_torch.data.tiff import write_tiff
+    write = (write_bmp if ext == "bmp"
+             else lambda p, a: write_tiff(p, a, **BT_TIFF))
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    for (rgb, ir, labels), stem in zip(items, stems):
+        write(root / "images" / f"{stem}_co.{ext}", rgb)
+        write(root / "images" / f"{stem}_ir.{ext}", ir[..., 0])
+        (root / "labels" / f"{stem}.txt").write_text("\n".join(
+            " ".join(f"{v:.9g}" for v in r) for r in labels) + "\n")
+    fold = root / "fold.txt"
+    fold.write_text("".join(f"{root / 'images' / s}_co.{ext}\n"
+                            for s in stems))
+    return str(fold)
+
+
+def _bt_decode_ms(workdir: Path, ext: str) -> dict:
+    """ms to decode one 1024 px pair of `ext` (written as in
+    `_write_bt_folder`): `_native_tiles` at 1024 px (decode and copy, no
+    resize) on JPEG_PAIRS pairs, which gives the tile loader on its pool
+    and held to one core and the python source (the C++ decode of
+    `_read_image` on the calling thread); the numpy decoder on the first
+    pair."""
+    import numpy as np
+    from sodt_tpu_torch.data import SyntheticVedai, bmp, tiff
+    src = SyntheticVedai(n=JPEG_PAIRS, img_size=JPEG_RAW, nc=8, seed=5)
+    stems = [f"{i:08d}" for i in range(JPEG_PAIRS)]
+    root = workdir / f"{ext}1024"
+    nat = _native_tiles(_write_bt_folder(
+        root, (src[i] for i in range(JPEG_PAIRS)), stems, ext), JPEG_RAW)
+    read = bmp.read_bmp if ext == "bmp" else tiff.read_tiff
+    numpy_ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        for m in ("co", "ir"):
+            read(root / "images" / f"{stems[0]}_{m}.{ext}")
+        numpy_ms.append(1e3 * (time.perf_counter() - t))
+    keys = {"cpp_pool": "native_ms_per_pair",
+            "cpp_one_core": "native_ms_per_pair_one_core",
+            "cpp_calling_thread": "python_ms_per_pair"}
+    return {"side": JPEG_RAW, "pairs": JPEG_PAIRS,
+            "bytes_per_pair": sum(p.stat().st_size for p in
+                                  (root / "images").iterdir()) / JPEG_PAIRS,
+            "tiles": nat, "numpy_ms_per_pair": numpy_ms,
+            "median": {**{k: float(np.median(nat[v])) if nat.get(v) else None
+                          for k, v in keys.items()},
+                       "numpy": float(np.median(numpy_ms))}}
+
+
+def _bt_damaged_agree(files, out: Path, per_file: int = 4) -> dict:
+    """Each fixture with bytes overwritten or cut, from a seed: the C++
+    decoder gives the numpy decoder's pixels (a broken strip filled as
+    libtiff fills it) or raises an error of its type. Counts the files,
+    those where the two agree, and those that decoded."""
+    import numpy as np
+    from sodt_tpu_torch.data import bmp, native_loader, tiff
+    out.mkdir(parents=True, exist_ok=True)
+    n = agree = decoded = 0
+    for f in files:
+        cpp, plain = ((native_loader.decode_bmp, bmp.read_bmp)
+                      if f.suffix == ".bmp"
+                      else (native_loader.decode_tiff, tiff.read_tiff))
+        good = f.read_bytes()
+        rng = np.random.default_rng(sum(good[-64:]))
+        for k in range(per_file):
+            data = bytearray(good)
+            if k % 2:
+                data = data[:int(rng.integers(8, len(data)))]
+            else:
+                for i in rng.integers(8, len(data), int(rng.integers(1, 6))):
+                    data[i] = int(rng.integers(256))
+            path = out / f"{n}{f.suffix}"
+            path.write_bytes(bytes(data))
+            n += 1
+            got = want = None
+            try:
+                want = plain(path)
+            except (ValueError, NotImplementedError) as e:
+                want = type(e)
+            try:
+                got = cpp(path)
+            except (ValueError, NotImplementedError) as e:
+                got = type(e)
+            if isinstance(want, type) or isinstance(got, type):
+                agree += got is want
+            else:
+                decoded += 1
+                agree += bool(got.shape == want.shape
+                              and got.dtype == want.dtype
+                              and np.array_equal(got, want))
+    return {"files": n, "agree": agree, "decoded": decoded}
+
+
+def phase_bmp_tiff(label: str, workdir: Path, trained: dict) -> dict:
+    """The port's BMP and TIFF decoders on the card's machine (module doc,
+    phase `bmp_tiff`); (a)-(c) each print a line of their own."""
+    import numpy as np
+    from sodt_tpu_torch.data import SyntheticVedai, bmp, native_loader, tiff
+
+    trained_weights()
+    t0 = time.perf_counter()
+    row, ok = {"phase": label}, True
+    if native_loader.load_error() is not None:
+        raise RuntimeError(native_loader.load_error())
+
+    # (a) the C++ decoders against the numpy ones on the checked-in files
+    files = sorted(BT_FIXTURES.glob("*.bmp")) + sorted(
+        BT_FIXTURES.glob("*.tif"))
+    fixtures = {}
+    for f in files:
+        cpp, plain = ((native_loader.decode_bmp, bmp.read_bmp)
+                      if f.suffix == ".bmp"
+                      else (native_loader.decode_tiff, tiff.read_tiff))
+        a, b = cpp(f), plain(f)
+        fixtures[f.name] = {"shape": list(a.shape), "dtype": str(a.dtype),
+                            "bit_equal": bool(a.shape == b.shape
+                                              and a.dtype == b.dtype
+                                              and np.array_equal(a, b))}
+    damaged = _bt_damaged_agree(files, workdir / "bt_damaged")
+    ok_a = (len(files) >= 40 and all(v["bit_equal"]
+                                     for v in fixtures.values())
+            and damaged["agree"] == damaged["files"])
+    emit({"phase": f"{label}_fixtures", "files": fixtures,
+          "damaged": damaged, "ok": ok_a})
+    ok = ok and ok_a
+
+    # (b) the same pixels as BMP, as TIFF and as PNG: tiles, one mAP
+    src = SyntheticVedai(n=JPEG_N, img_size=512, nc=8, seed=1)
+    items = [src[i] for i in range(JPEG_N)]
+    stems = [f"{i:08d}" for i in range(JPEG_N)]
+    twin = workdir / "trained_bt_as_png"
+    twin_write = _write_png_folder(twin, items, stems, None)
+    evals, tiles = {"png": _tie_val(twin, stems, "png")}, {}
+    for ext in ("bmp", "tif"):
+        root = workdir / f"trained_{ext}"
+        fold = _write_bt_folder(root, items, stems, ext)
+        tiles[ext] = _native_tiles(fold)
+        evals[ext] = _tie_val(root, stems, ext)
+    ok_b = (all(evals[e][k] == evals["png"][k] for e in ("bmp", "tif")
+                for k in ("map50", "map"))
+            and all(e["launches_ok"] and e["seen"] == JPEG_N
+                    for e in evals.values())
+            and all(t["bit_equal"] for t in tiles.values())
+            and twin_write["bit_equal"] and evals["png"]["map50"] > 0.5)
+    trained_bf16 = (trained or {}).get("runs", {}).get("bf16")
+    emit({"phase": f"{label}_tie", **evals,
+          "tiles_bit_equal": {e: t["bit_equal"] for e, t in tiles.items()},
+          "trained_bf16": ({k: trained_bf16[k] for k in ("map50", "map")}
+                           if trained_bf16 else None), "ok": ok_b})
+    ok = ok and ok_b
+
+    # (c) decode ms of a 1024 px pair, beside the card
+    dec = {ext: _bt_decode_ms(workdir, ext) for ext in ("bmp", "tif")}
+    ok = ok and all(d["tiles"]["bit_equal"] for d in dec.values())
+    emit({"phase": f"{label}_decode_ms", "card": card_line(), **dec})
+    row.update(fixtures_ok=ok_a, tie=evals,
+               tiles_bit_equal={e: t["bit_equal"] for e, t in tiles.items()},
+               decode_ms={e: d["median"] for e, d in dec.items()},
+               wall_s=time.perf_counter() - t0, launches={}, ok=bool(ok))
+    emit(row)
+    return row
+
+
 # the eval protocol's extras and the serving path on the trained weights
 # (phase eval_extras). A TTA step runs three forwards: 512 px (PER_FORWARD);
 # the lr-flipped 0.83 pass padded to 448 px, whose stage 1 (112 x 112) and
@@ -5189,6 +5381,7 @@ def main() -> int:
         drive("train_aug", phase_train_aug, tmp)
         drive("folders", phase_folders, tmp, paths.get("trained"))
         drive("jpeg", phase_jpeg, tmp, paths.get("trained"))
+        drive("bmp_tiff", phase_bmp_tiff, tmp, paths.get("trained"))
         drive("eval_extras", phase_eval_extras, tmp, paths.get("folders"))
         drive("eval_runner", phase_eval_runner, tmp)
         drive("mono", phase_path, MONO_ARGS, MONO_FORWARD)

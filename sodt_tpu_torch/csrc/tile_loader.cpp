@@ -1,5 +1,5 @@
-// Tile loader of the port: PNG / JPEG decode, resize and prefetch on host
-// threads.
+// Tile loader of the port: PNG / JPEG / BMP / TIFF decode, resize and
+// prefetch on host threads.
 //
 // The port's counterpart of the JAX system's native loader, in C++17 with
 // the standard library alone: no OpenCV and no zlib. A worker thread takes
@@ -13,7 +13,9 @@
 //   1. the file is read as cv::imread(IMREAD_UNCHANGED) reads it, the
 //      decoder chosen by its signature (as OpenCV chooses it), not by its
 //      name: a PNG here (gray, palette colours, RGB, each with or without
-//      alpha), a JPEG by `jpeg.cpp` (gray or RGB); held as BGR;
+//      alpha), a JPEG by `jpeg.cpp` (gray or RGB), a BMP by `bmp.cpp` and
+//      a TIFF by `tiff.cpp` (their docs say what each kind gives); held as
+//      BGR;
 //   2. gray is widened to three channels, alpha is dropped;
 //   3. 16-bit samples saturate to 8 bits (convertTo(CV_8U) without a scale);
 //   4. the longest side is resized to img_size with cv::resize's arithmetic:
@@ -63,6 +65,16 @@ namespace sodt_jpeg {
 void decode(const uint8_t* data, size_t n, int* h, int* w, int* c, std::vector<uint8_t>* px);
 }  // namespace sodt_jpeg
 
+// csrc/bmp.cpp and csrc/tiff.cpp: a BMP or TIFF file in memory -> (h, w) and
+// its (h, w) B G R pixels as OpenCV 4.6 reads them (gray widened, alpha
+// dropped, 16-bit samples saturated); throw std::runtime_error with the cause
+namespace sodt_bmp {
+void decode_bgr(const uint8_t* data, size_t n, int* h, int* w, std::vector<uint8_t>* bgr);
+}  // namespace sodt_bmp
+namespace sodt_tiff {
+void decode_bgr(const uint8_t* data, size_t n, int* h, int* w, std::vector<uint8_t>* bgr);
+}  // namespace sodt_tiff
+
 namespace {
 
 struct Error : std::runtime_error {
@@ -103,6 +115,23 @@ uint32_t crc32(const uint8_t* p, size_t n, uint32_t crc = 0) {
   return ~crc;
 }
 
+uint32_t be32(const uint8_t* p) {
+  return uint32_t(p[0]) << 24 | uint32_t(p[1]) << 16 | uint32_t(p[2]) << 8 | p[3];
+}
+
+}  // namespace
+
+// ------------------------------------------------------ inflate (RFC 1950/1951)
+// One inflate for the host library: the PNG reader below and csrc/tiff.cpp
+// (deflate strips and tiles, through `sodt_inflate::inflate_prefix`) share
+// it.
+
+namespace sodt_inflate {
+
+struct InflateError : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
 uint32_t adler32(const uint8_t* p, size_t n) {
   uint32_t a = 1, b = 0;
   while (n) {
@@ -118,11 +147,6 @@ uint32_t adler32(const uint8_t* p, size_t n) {
   return b << 16 | a;
 }
 
-uint32_t be32(const uint8_t* p) {
-  return uint32_t(p[0]) << 24 | uint32_t(p[1]) << 16 | uint32_t(p[2]) << 8 | p[3];
-}
-
-// ------------------------------------------------------ inflate (RFC 1950/1951)
 
 constexpr int kFastBits = 10;
 
@@ -148,11 +172,11 @@ struct Huffman {
     int left = 1, max_len = 0;
     for (int len = 1; len <= 15; ++len) {
       left = (left << 1) - count[len];
-      if (left < 0) throw Error("bad zlib stream (over-subscribed code)");
+      if (left < 0) throw InflateError("bad zlib stream (over-subscribed code)");
       if (count[len]) max_len = len;
     }
     if (left > 0 && !(lone_ok && max_len <= 1))
-      throw Error("bad zlib stream (incomplete code)");
+      throw InflateError("bad zlib stream (incomplete code)");
     int code = 0, k = 0;
     for (int len = 1; len <= 15; ++len) {
       first_code[len] = code;
@@ -203,30 +227,69 @@ class Inflater {
   // Adler-32 checked.
   std::unique_ptr<uint8_t[]> Run(size_t cap, size_t& size) {
     std::unique_ptr<uint8_t[]> out(new uint8_t[cap]);
+    Stream(out.get(), cap);
+    size = n_;
+    return out;
+  }
+
+  // zlib's inflate() into out[0, need), as libtiff's ZIPDecode calls it on a
+  // strip: it stops at the first byte past `need` (mid-match or not) and
+  // leaves the rest of the stream, its Adler-32 too, unread, but reads the
+  // symbols and block headers up to that byte; the input running out after
+  // `need` bytes is no fault. Returns "" where all `need` bytes came, else
+  // the cause; `got` counts the bytes that came before it.
+  std::string Prefix(uint8_t* out, size_t need, size_t& got) {
+    prefix_ = true;
+    std::string cause;
+    try {
+      Stream(out, need);
+      if (n_ < need)
+        cause = "the stream ends after " + std::to_string(n_) + " of " + std::to_string(need) +
+                " bytes";
+    } catch (const Full&) {
+    } catch (const Truncated& e) {
+      if (n_ < need) cause = e.what();
+    } catch (const InflateError& e) {
+      cause = e.what();
+    }
+    got = n_;
+    return cause;
+  }
+
+ private:
+  struct Full {};  // Prefix: `need` bytes came and the next one has no room
+  struct Truncated : InflateError {
+    Truncated() : InflateError("truncated zlib stream") {}
+  };
+
+  void Stream(uint8_t* out, size_t cap) {
     uint32_t cmf = Bits(8), flg = Bits(8);
     if ((cmf & 15) != 8 || (cmf >> 4) > 7 || (cmf * 256 + flg) % 31)
-      throw Error("bad zlib stream (header)");
-    if (flg & 32) throw Error("bad zlib stream (preset dictionary)");
-    size_t n = 0;
+      throw InflateError("bad zlib stream (header)");
+    if (flg & 32) throw InflateError("bad zlib stream (preset dictionary)");
     for (bool last = false; !last;) {
       last = Bits(1);
       uint32_t type = Bits(2);
       if (type == 0) {
         Drop(nbits_ & 7);
         uint32_t len = Bits(16), nlen = Bits(16);
-        if ((len ^ 0xFFFF) != nlen) throw Error("bad zlib stream (stored length)");
-        if (n + len > cap) throw Error("too much image data");
-        // the bytes the bit buffer holds, then the rest straight from the input
-        for (; len && nbits_ >= 8; --len) out[n++] = uint8_t(Bits(8));
-        if (len) {
-          if (size_t(end_ - pos_) < len) throw Error("truncated zlib stream");
-          std::memcpy(out.get() + n, pos_, len);
-          pos_ += len;
-          n += len;
+        if ((len ^ 0xFFFF) != nlen) throw InflateError("bad zlib stream (stored length)");
+        if (n_ + len > cap && !prefix_) throw InflateError("too much image data");
+        // the bytes the bit buffer holds, then the rest straight from the
+        // input; Prefix copies what has room, as zlib does
+        for (; len && n_ < cap && nbits_ >= 8; --len) out[n_++] = uint8_t(Bits(8));
+        if (len && n_ < cap) {
+          const size_t take = std::min({size_t(len), cap - n_, size_t(end_ - pos_)});
+          std::memcpy(out + n_, pos_, take);
+          pos_ += take;
+          n_ += take;
+          len -= uint32_t(take);
           bits_ = 0;  // the buffer is empty; drop what was loaded ahead
         }
+        if (len && n_ == cap) throw Full();
+        if (len) throw Truncated();
       } else if (type == 3) {
-        throw Error("bad zlib stream (block type 3)");
+        throw InflateError("bad zlib stream (block type 3)");
       } else {
         const Huffman* lit;
         const Huffman* dist;
@@ -238,7 +301,7 @@ class Inflater {
           lit = &lit_;
           dist = &dist_;
         }
-        n = Codes(*lit, *dist, out.get(), n, cap);
+        Codes(*lit, *dist, out, cap);
       }
     }
     Drop(nbits_ & 7);
@@ -246,12 +309,9 @@ class Inflater {
     want |= Bits(8) << 16;
     want |= Bits(8) << 8;
     want |= Bits(8);
-    if (adler32(out.get(), n) != want) throw Error("bad zlib stream (Adler-32)");
-    size = n;
-    return out;
+    if (adler32(out, n_) != want) throw InflateError("bad zlib stream (Adler-32)");
   }
 
- private:
   // Tops the bit buffer up to at least 56 bits while input remains. With 8
   // bytes ahead it loads them at once and counts the whole bytes that fit:
   // the bits above the count are those same next bytes, which a later load
@@ -279,7 +339,7 @@ class Inflater {
   }
   uint32_t Bits(int n) {
     if (nbits_ < n) Refill();
-    if (nbits_ < n) throw Error("truncated zlib stream");
+    if (nbits_ < n) throw Truncated();
     uint32_t v = uint32_t(bits_ & ((uint64_t(1) << n) - 1));
     Drop(n);
     return v;
@@ -296,12 +356,13 @@ class Inflater {
       for (int b = 0; b < 16; ++b) k |= ((v >> b) & 1) << (15 - b);
       for (len = kFastBits + 1; int(k) >= h.max_code[len]; ++len) {
       }
-      if (len >= 16) throw Error("bad zlib stream (invalid code)");
+      if (len > nbits_) throw Truncated();
+      if (len >= 16) throw InflateError("bad zlib stream (invalid code)");
       int i = int(k >> (16 - len)) - h.first_code[len] + h.first_sym[len];
-      if (i < 0 || i >= 320) throw Error("bad zlib stream (invalid code)");
+      if (i < 0 || i >= 320) throw InflateError("bad zlib stream (invalid code)");
       s = h.sym[i];
     }
-    if (len > nbits_) throw Error("truncated zlib stream");
+    if (len > nbits_) throw Truncated();
     Drop(len);
     return s;
   }
@@ -328,7 +389,7 @@ class Inflater {
                                   11, 4,  12, 3, 13, 2, 14, 1, 15};
     int nlit = int(Bits(5)) + 257, ndist = int(Bits(5)) + 1, ncode = int(Bits(4)) + 4;
     if (nlit > 286 || ndist > 30)
-      throw Error("bad zlib stream (too many length or distance symbols)");
+      throw InflateError("bad zlib stream (too many length or distance symbols)");
     uint8_t clens[19] = {0};
     for (int i = 0; i < ncode; ++i) clens[order[i]] = uint8_t(Bits(3));
     Huffman cl;
@@ -342,7 +403,7 @@ class Inflater {
       }
       int rep, val = 0;
       if (s == 16) {
-        if (i == 0) throw Error("bad zlib stream (repeat with no length)");
+        if (i == 0) throw InflateError("bad zlib stream (repeat with no length)");
         val = lens[i - 1];
         rep = 3 + int(Bits(2));
       } else if (s == 17) {
@@ -350,49 +411,85 @@ class Inflater {
       } else {
         rep = 11 + int(Bits(7));
       }
-      if (i + rep > nlit + ndist) throw Error("bad zlib stream (too many lengths)");
+      if (i + rep > nlit + ndist) throw InflateError("bad zlib stream (too many lengths)");
       while (rep--) lens[i++] = uint8_t(val);
     }
-    if (!lens[256]) throw Error("bad zlib stream (no end-of-block code)");
+    if (!lens[256]) throw InflateError("bad zlib stream (no end-of-block code)");
     lit_.build(lens, nlit, true);
     dist_.build(lens + nlit, ndist, true);
   }
 
-  size_t Codes(const Huffman& lit, const Huffman& dist, uint8_t* out, size_t n,
-               size_t cap) {
-    for (;;) {
-      int s = Decode(lit);
-      if (s < 256) {
-        if (n >= cap) throw Error("too much image data");
-        out[n++] = uint8_t(s);
-        continue;
+  // The codes of one block into out[n_, cap); n_ counts what came, also
+  // where it throws.
+  void Codes(const Huffman& lit, const Huffman& dist, uint8_t* out, size_t cap) {
+    size_t n = n_;
+    try {
+      for (;;) {
+        int s = Decode(lit);
+        if (s < 256) {
+          if (n >= cap) {
+            if (prefix_) throw Full();
+            throw InflateError("too much image data");
+          }
+          out[n++] = uint8_t(s);
+          continue;
+        }
+        if (s == 256) break;
+        s -= 257;
+        if (s >= 29) throw InflateError("bad zlib stream (invalid length symbol)");
+        size_t len = size_t(kLenBase[s]) + Bits(kLenExtra[s]);
+        int d = Decode(dist);
+        if (d >= 30) throw InflateError("bad zlib stream (invalid distance symbol)");
+        size_t back = size_t(kDistBase[d]) + Bits(kDistExtra[d]);
+        if (n >= cap && prefix_) throw Full();  // zlib stops before it checks the distance
+        if (back > n) throw InflateError("bad zlib stream (distance too far back)");
+        bool cut = false;
+        if (n + len > cap) {
+          if (!prefix_) throw InflateError("too much image data");
+          len = cap - n;
+          cut = true;
+        }
+        const uint8_t* src = out + n - back;
+        uint8_t* dst = out + n;
+        if (back >= len) {
+          std::memcpy(dst, src, len);
+        } else {
+          for (size_t i = 0; i < len; ++i) dst[i] = src[i];
+        }
+        n += len;
+        if (cut) throw Full();
       }
-      if (s == 256) return n;
-      s -= 257;
-      if (s >= 29) throw Error("bad zlib stream (invalid length symbol)");
-      size_t len = size_t(kLenBase[s]) + Bits(kLenExtra[s]);
-      int d = Decode(dist);
-      if (d >= 30) throw Error("bad zlib stream (invalid distance symbol)");
-      size_t back = size_t(kDistBase[d]) + Bits(kDistExtra[d]);
-      if (back > n) throw Error("bad zlib stream (distance too far back)");
-      if (n + len > cap) throw Error("too much image data");
-      const uint8_t* src = out + n - back;
-      uint8_t* dst = out + n;
-      if (back >= len) {
-        std::memcpy(dst, src, len);
-      } else {
-        for (size_t i = 0; i < len; ++i) dst[i] = src[i];
-      }
-      n += len;
+    } catch (...) {
+      n_ = n;
+      throw;
     }
+    n_ = n;
   }
 
   const uint8_t* pos_;
   const uint8_t* end_;
   uint64_t bits_ = 0;
   int nbits_ = 0;
+  size_t n_ = 0;  // the bytes written
+  bool prefix_ = false;
   Huffman lit_, dist_;
 };
+
+// A TIFF strip or tile's deflate data in[0, n) -> its first `need` bytes in
+// `out`, as libtiff's ZIPDecode reads them with zlib (Inflater::Prefix).
+// Returns "" where all came, else the cause; `out` then holds the bytes that
+// came before it, zeros after.
+std::string inflate_prefix(const uint8_t* in, size_t n, size_t need, std::vector<uint8_t>* out) {
+  out->assign(need, 0);
+  size_t got = 0;
+  return Inflater(in, n).Prefix(out->data(), need, got);
+}
+
+}  // namespace sodt_inflate
+
+namespace {
+
+using sodt_inflate::Inflater;
 
 // ------------------------------------------------------------------ PNG
 
@@ -634,7 +731,19 @@ Image decode_image(const std::string& path) {
     return img;
   }
   if (data.size() >= 8 && !std::memcmp(data.data(), kPngSig, 8)) return decode_png(data);
-  throw Error("not a PNG or JPEG file (signature): the port reads those two formats");
+  const bool bmp = data.size() >= 2 && data[0] == 'B' && data[1] == 'M';
+  const bool tiff = data.size() >= 4 && (!std::memcmp(data.data(), "II*\0", 4) ||
+                                         !std::memcmp(data.data(), "MM\0*", 4) ||
+                                         !std::memcmp(data.data(), "II+\0", 4) ||
+                                         !std::memcmp(data.data(), "MM\0+", 4));
+  if (bmp || tiff) {
+    Image img;
+    (bmp ? sodt_bmp::decode_bgr : sodt_tiff::decode_bgr)(data.data(), data.size(), &img.h,
+                                                          &img.w, &img.px);
+    return img;
+  }
+  throw Error("not a PNG, JPEG, BMP or TIFF file (signature): the port reads those four "
+              "formats");
 }
 
 // ---------------------------------------------------------------- resize

@@ -1,17 +1,18 @@
 """ctypes binding of the port's host library (`libsodt_tiles.so`): the tile
 loader, `csrc/tile_loader.cpp`, with the JAX package's API (`available`,
 `NativeTileLoader`: submit / wait / get / close; `sodt_tpu/data/
-native_loader.py`), and the one-file JPEG decode of `csrc/jpeg.cpp`
-(`decode_jpeg`).
+native_loader.py`), and the one-file decodes of `csrc/jpeg.cpp`
+(`decode_jpeg`), `csrc/bmp.cpp` (`decode_bmp`) and `csrc/tiff.cpp`
+(`decode_tiff`).
 
 A GIL-free worker decodes and resizes the next step's (rgb, ir) pairs while
 the device runs the current one: its own PNG reader and inflate, its own
-JPEG decoder (the decoder chosen by the file's signature), cv2's resize
-arithmetic, no OpenCV, no libjpeg and no zlib. The library is built from the
-repo's sources with the host compiler at first use
-(`kernels._build.build_host`), on any machine with `c++` or `g++`. Where it
-does not build or load, `load_error()` keeps the reason word for word and
-the feed takes the Python tile source.
+JPEG, BMP and TIFF decoders (the decoder chosen by the file's signature),
+cv2's resize arithmetic, no OpenCV, no libjpeg, no libtiff and no zlib. The
+library is built from the repo's sources with the host compiler at first
+use (`kernels._build.build_host`), on any machine with `c++` or `g++`.
+Where it does not build or load, `load_error()` keeps the reason word for
+word and the feed takes the Python tile source.
 """
 
 from __future__ import annotations
@@ -60,6 +61,16 @@ def _load_lib():
     lib.jpeg_file_decode.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+    for fmt in ("bmp", "tiff"):
+        shape = getattr(lib, f"{fmt}_file_shape")
+        shape.restype = ctypes.c_int
+        shape.argtypes = [ctypes.c_char_p, ip, ip, ip, ip, ctypes.c_char_p,
+                          ctypes.c_int]
+        fill = getattr(lib, f"{fmt}_file_decode")
+        fill.restype = ctypes.c_int
+        fill.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
     _lib = lib
     return lib
 
@@ -97,6 +108,56 @@ def decode_jpeg(path) -> np.ndarray:
             h.value, w.value, c.value, err, len(err)):
         raise ValueError(err.value.decode(errors="replace"))
     return out
+
+
+# the sample kinds of `bmp_file_decode` / `tiff_file_decode`
+_KINDS = {0: np.bool_, 1: np.uint8, 2: np.uint16}
+_NOT_IMPLEMENTED = "not implemented: "
+
+
+def _decode_file(fmt: str, path) -> np.ndarray:
+    """A BMP or TIFF file decoded by the host library to `_read_image`'s
+    layout (`data/bmp.py`, `data/tiff.py`); raises RuntimeError with the
+    compiler's words where the library does not build, NotImplementedError
+    for a kind out of the port's scope, ValueError where the file does not
+    decode."""
+    lib = _load_lib()
+    if lib is None:
+        raise RuntimeError(f"the host library ({fmt.upper()} decoder) is "
+                           f"unavailable: {_error}")
+    name = str(path).encode()
+    err = ctypes.create_string_buffer(1024)
+    h, w, c, kind = (ctypes.c_int() for _ in range(4))
+
+    def fail():
+        msg = err.value.decode(errors="replace")
+        if _NOT_IMPLEMENTED in msg:
+            raise NotImplementedError(msg.replace(_NOT_IMPLEMENTED, "", 1))
+        raise ValueError(msg)
+
+    if not getattr(lib, f"{fmt}_file_shape")(
+            name, ctypes.byref(h), ctypes.byref(w), ctypes.byref(c),
+            ctypes.byref(kind), err, len(err)):
+        fail()
+    out = np.empty((h.value, w.value, c.value), _KINDS[kind.value])
+    if not getattr(lib, f"{fmt}_file_decode")(
+            name, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            h.value, w.value, c.value, kind.value, err, len(err)):
+        fail()
+    return out
+
+
+def decode_bmp(path) -> np.ndarray:
+    """A BMP file -> what the JAX package's `_read_image` returns for it
+    (`data/bmp.py`'s table), decoded by the host library (`csrc/bmp.cpp`)."""
+    return _decode_file("bmp", path)
+
+
+def decode_tiff(path) -> np.ndarray:
+    """A TIFF file -> what the JAX package's `_read_image` returns for it
+    (`data/tiff.py`'s table), decoded by the host library
+    (`csrc/tiff.cpp`)."""
+    return _decode_file("tiff", path)
 
 
 class NativeTileLoader:

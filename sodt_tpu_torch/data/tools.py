@@ -10,10 +10,11 @@
 
     python -m sodt_tpu_torch.data.tools {flatten,boxes,autosplit} <path>
 
-`extract_boxes` reads PNG with the port's decoder (`png.read_png_rgb`, as
-PIL's `convert("RGB")`) and JPEG with the host library's (`native_loader.
-decode_jpeg`, gray repeated to RGB, as `convert("RGB")` gives it), chosen
-by the file's signature; another image format raises NotImplementedError.
+`extract_boxes` reads each image as PIL's `convert("RGB")` gives it, with
+the decoder its signature chooses: PNG with `png.read_png_rgb`, JPEG with
+the host library's (`native_loader.decode_jpeg`, gray repeated to RGB),
+BMP with `bmp.read_bmp_rgb` and TIFF with `tiff.read_tiff_rgb` (palette
+colours, alpha dropped); WebP and DNG raise NotImplementedError.
 It writes each crop as JAX does, a `.jpg` under JAX's name, with the
 port's encoder (`jpeg.write_jpeg`: PIL's defaults, the bytes PIL writes).
 """
@@ -28,8 +29,10 @@ from pathlib import Path
 import numpy as np
 
 from . import native_loader
+from .bmp import read_bmp_rgb
 from .jpeg import write_jpeg
 from .png import read_png_rgb
+from .tiff import read_tiff_rgb
 from .vedai import _unsupported, derive_label_path, image_format
 
 IMG_FORMATS = {"bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp"}
@@ -58,8 +61,9 @@ def extract_boxes(path: str) -> Path:
         if not lb_file.exists():
             continue
         fmt = image_format(str(im_file))
-        if fmt == "PNG":
-            im = read_png_rgb(im_file)
+        if fmt in ("PNG", "BMP", "TIFF"):
+            im = {"PNG": read_png_rgb, "BMP": read_bmp_rgb,
+                  "TIFF": read_tiff_rgb}[fmt](im_file)
         elif fmt == "JPEG":
             im = native_loader.decode_jpeg(im_file)
             if im.shape[2] == 1:

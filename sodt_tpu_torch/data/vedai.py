@@ -1,23 +1,35 @@
 """VEDAI paired RGB+IR folders on the host (`sodt_tpu/data/vedai.py`).
 
-A fold list names the RGB images (`*_co.png`, `*_co.jpg`); the IR image
+A fold list names the RGB images (`*_co.png`, `*_co.jpg`, ...); the IR image
 is the `*_ir` file beside each, the label `labels/<stem>.txt` beside `images/`
 (`class cx cy w h`, normalized, one object a line). Items are uint8 RGB
 and IR tiles resized so that the longest side is `img_size`, and the
 (n, 5) labels.
 
 Decoding is the port's own (the card's machine has neither cv2 nor PIL),
-chosen by the file's signature as cv2 chooses it: a PNG by `png.read_png`,
-a JPEG by the host library's decoder (`csrc/jpeg.cpp`, through
-`native_loader.decode_jpeg`; where it does not build, the read raises with
-the compiler's words). Other formats (BMP, TIFF, WebP, DNG) raise
-NotImplementedError naming the format. The resize is the port's own too
-(`resize.resize_longest`, cv2's arithmetic): both give the pixels of the
-JAX package's cv2 branch. The integrity scan verifies each file with
-`png.verify_png` or `jpeg.verify_jpeg` where JAX calls PIL's
-`Image.verify`, and marks the same files corrupt. The label
-cache (`<list>.labels.npz`, keyed by a sha256 over every file's path, size
-and mtime) has JAX's key and layout, so each package reads the other's.
+chosen by the file's signature as cv2 chooses it, and `_read_image` returns
+what JAX's `_read_image` returns:
+  PNG   `png.read_png`: 8-bit gray (H, W, 1), RGB (H, W, 3), RGBA and gray
+        + alpha (H, W, 4) as cv2 gives them; palette indices, 1-, 2-, 4-
+        and 16-bit kinds as PIL gives them (`png.py`'s table);
+  JPEG  the host library's decoder (`csrc/jpeg.cpp`, through
+        `native_loader.decode_jpeg`): gray (H, W, 1) or RGB (H, W, 3), the
+        pixels of cv2;
+  BMP   the host library's decoder (`csrc/bmp.cpp`, `native_loader.
+        decode_bmp`): 24- and 32-bit as cv2, palette (indices) and 16-bit
+        as PIL (`bmp.py`'s table);
+  TIFF  the host library's decoder (`csrc/tiff.cpp`, `native_loader.
+        decode_tiff`): 8-bit gray and RGB(A) as cv2, palette (indices), 1-,
+        2-, 4- and 16-bit as PIL (`tiff.py`'s table).
+Where the host library does not build, a JPEG, BMP or TIFF read raises with
+the compiler's words; it never falls back to the numpy decoders. WebP and
+DNG raise NotImplementedError naming the format. The resize is the port's
+own too (`resize.resize_longest`, cv2's arithmetic). The integrity scan
+verifies each file with `verify_png`, `verify_jpeg`, `verify_bmp` or
+`verify_tiff` where JAX calls PIL's `Image.verify`, and marks the same files
+corrupt; `image_size` is PIL's `Image.size` for the four. The label cache
+(`<list>.labels.npz`, keyed by a sha256 over every file's path, size and
+mtime) has JAX's key and layout, so each package reads the other's.
 """
 
 from __future__ import annotations
@@ -29,10 +41,13 @@ from pathlib import Path
 import numpy as np
 
 from . import native_loader
+from .bmp import bmp_size, verify_bmp
 from .jpeg import jpeg_size, verify_jpeg
 from .png import SIGNATURE as PNG_SIGNATURE
 from .png import png_size, read_png, verify_png
 from .resize import resize_longest as _resize_longest
+from .tiff import SIGNATURES as TIFF_SIGNATURES
+from .tiff import tiff_size, verify_tiff
 
 
 def derive_ir_path(p: str) -> str:
@@ -60,7 +75,7 @@ def image_format(path: str) -> str:
         return "JPEG"
     if head.startswith(b"BM"):
         return "BMP"
-    if head[:4] in (b"II*\x00", b"MM\x00*"):
+    if head[:4] in TIFF_SIGNATURES:            # classic TIFF and BigTIFF
         return "DNG" if Path(path).suffix.lower() == ".dng" else "TIFF"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "WebP"
@@ -69,44 +84,44 @@ def image_format(path: str) -> str:
 
 def _unsupported(path: str, fmt: str):
     return NotImplementedError(
-        f"{path}: a {fmt} image; the port reads PNG and JPEG (the card's "
-        "machine has no other decoder)")
+        f"{path}: a {fmt} image; the port reads PNG, JPEG, BMP and TIFF (the "
+        "card's machine has no other decoder)")
+
+
+_SIZES = {"PNG": png_size, "JPEG": jpeg_size, "BMP": bmp_size,
+          "TIFF": tiff_size}
+_VERIFY = {"PNG": verify_png, "unknown": verify_png, "JPEG": verify_jpeg,
+           "BMP": verify_bmp, "TIFF": verify_tiff}
+_DECODE = {"PNG": read_png, "JPEG": native_loader.decode_jpeg,
+           "BMP": native_loader.decode_bmp, "TIFF": native_loader.decode_tiff}
 
 
 def image_size(path: str) -> tuple[int, int]:
     """(width, height) from the file's header, as PIL's `Image.size`."""
     fmt = image_format(path)
-    if fmt == "PNG":
-        return png_size(path)
-    if fmt == "JPEG":
-        return jpeg_size(path)
-    raise _unsupported(path, fmt)
+    if fmt not in _SIZES:
+        raise _unsupported(path, fmt)
+    return _SIZES[fmt](path)
 
 
 def verify_image(path: str) -> None:
     """Raise where the JAX scan (PIL's `Image.verify` and its 10 px
     assert) marks the file corrupt."""
     fmt = image_format(path)
-    if fmt == "JPEG":
-        verify_jpeg(path)
-    elif fmt == "PNG" or fmt == "unknown":
-        verify_png(path)
-    else:
+    if fmt not in _VERIFY:
         raise _unsupported(path, fmt)
+    _VERIFY[fmt](path)
 
 
 def _read_image(path: str) -> np.ndarray:
-    """Decode to uint8 HWC RGB, HW1 for one channel (JAX's cv2 branch;
-    `png.read_png` says what four channels hold), by the file's signature:
-    PNG or JPEG."""
+    """Decode as JAX's `_read_image` does (module doc), by the file's
+    signature: PNG, JPEG, BMP or TIFF."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     fmt = image_format(path)
-    if fmt == "PNG":
-        return read_png(path)
-    if fmt == "JPEG":
-        return native_loader.decode_jpeg(path)
-    raise _unsupported(path, fmt)
+    if fmt not in _DECODE:
+        raise _unsupported(path, fmt)
+    return _DECODE[fmt](path)
 
 
 class VedaiDataset:

@@ -452,9 +452,11 @@ def test_unsupported_kinds_raise_naming_them(lib, tmp_path, marker, what):
     elif marker != "bmp":
         data[i + 1] = marker
     path = tmp_path / "x_co.jpg"
-    if marker == "bmp":
+    if marker == "bmp":        # named .jpg, a BMP of embedded JPEG data
         cv2.imwrite(str(tmp_path / "x.bmp"), np.zeros((9, 9, 3), np.uint8))
-        (tmp_path / "x.bmp").rename(path)   # named .jpg, a BMP inside
+        bmp = bytearray((tmp_path / "x.bmp").read_bytes())
+        bmp[30:34] = struct.pack("<I", 4)       # BI_JPEG: out of scope
+        path.write_bytes(bytes(bmp))
         with pytest.raises(NotImplementedError, match=re.escape(what)):
             tv._read_image(str(path))
         return

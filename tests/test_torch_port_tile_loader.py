@@ -15,6 +15,18 @@
     signature) give tiles bit-equal to JAX's OpenCV loader at 64 and 512
     px, and a folder that mixes PNG and JPEG pairs equals it and the
     port's python tile source;
+  * BMP and TIFF files (every checked-in fixture of `tests/
+    torch_port_bmp_tiff/`: palettes, RLE, 16-bit and 32-bit BITFIELDS,
+    CORE headers; LZW, deflate, PackBits, predictor 2, tiles, planar
+    configuration 2, MM, BigTIFF, MinIsWhite, alpha, orientation; `csrc/
+    bmp.cpp` and `csrc/tiff.cpp`, chosen by the signature) give tiles
+    bit-equal to JAX's OpenCV loader at 64 and 512 px, each resize branch
+    and non-square sides included; where OpenCV 4.6 reads nothing or
+    misreads (2- and 4-bit gray, 4-bit palettes, 16-bit planar
+    configuration 2, the 16-bit masks of a V4 header), the tile equals
+    its twin's (the same pixels in a kind OpenCV reads); a folder that
+    mixes PNG, JPEG, BMP and TIFF pairs equals JAX's loader and the port's
+    python tile source;
   * every faulty file fails its job with the file named; the cache, the
     thread pool and repeated indices leave the bytes as they are;
   * the build: the compiler's words kept where it fails, the library free
@@ -38,12 +50,13 @@ import torch
 from sodt_tpu.data import native_loader as jnative
 from sodt_tpu_torch.data import loader as tl
 from sodt_tpu_torch.data import native_loader as tnative
-from sodt_tpu_torch.data import png
+from sodt_tpu_torch.data import bmp, png, tiff
 from sodt_tpu_torch.data.png import write_png
 from sodt_tpu_torch.data.vedai import VedaiDataset
 from sodt_tpu_torch.kernels import _build
 from test_torch_port_item11 import _chunk, _encode
 from torch_port_common import one_torch_thread  # noqa: F401  (fixture)
+from torch_port_common import DAMAGED_STRIPS, bmp_tiff_script, damaged_tiff
 
 SIZES = (64, 512)
 # a portrait variant image: area over partial cells at 64 px, the linear
@@ -339,6 +352,213 @@ def test_faulty_jpeg_fails_the_job_and_names_it(lib, tmp_path, kind, what):
         loader.close()
 
 
+# ------------------------------------------------------------ BMP, TIFF
+
+BT_FIXTURES = Path(__file__).resolve().parent / "torch_port_bmp_tiff"
+BT_FILES = sorted(p.name for p in BT_FIXTURES.iterdir()
+                  if p.suffix in (".bmp", ".tif"))
+# where OpenCV 4.6 reads nothing or misreads, a twin of the same pixels in
+# a kind it reads: name -> write(path of the fixture, path of the twin)
+BT_TWINS = {
+    "gray4.tif": lambda src, dst: tiff.write_tiff(
+        dst, tiff.read_tiff_rgb(src)[..., 0]),
+    "gray2_minwhite.tif": lambda src, dst: tiff.write_tiff(
+        dst, tiff.read_tiff_rgb(src)[..., 0]),
+    "palette4.tif": lambda src, dst: tiff.write_tiff(
+        dst, tiff.read_tiff_rgb(src)),
+    "rgb16_planar2_deflate.tif": lambda src, dst: tiff.write_tiff(
+        dst, tiff._load(src)[1]),
+    "v4_bitfields565.bmp": lambda src, dst: dst.write_bytes(
+        (BT_FIXTURES / "bitfields565.bmp").read_bytes()),
+}
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("name", BT_FILES)
+def test_bmp_tiff_tiles_equal_jax_opencv_loader(lib, tmp_path, name, size):
+    path = BT_FIXTURES / name
+    if name not in BT_TWINS:
+        _same_as_jax(path, size)
+        return
+    if "planar2" not in name:           # OpenCV 4.6 reads nothing there
+        with pytest.raises(RuntimeError):
+            _tiles(jnative, [path], [path], size, [0])
+    twin = tmp_path / f"twin{path.suffix}"
+    BT_TWINS[name](path, twin)
+    got = _tiles(tnative, [path], [path], size, [0])
+    want = _tiles(jnative, [twin], [twin], size, [0])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def _write_bt(path: Path, img: np.ndarray) -> None:
+    """`img` (RGB or gray) as a BMP (24-bit / 8-bit) or a TIFF (LZW by cv2
+    for RGB, deflate with predictor 2 in tiles by the port's writer for
+    gray)."""
+    if path.suffix == ".bmp":
+        bmp.write_bmp(path, img)
+    elif img.ndim == 3:
+        cv2 = pytest.importorskip("cv2")
+        assert cv2.imwrite(str(path), img[..., ::-1], [
+            cv2.IMWRITE_TIFF_COMPRESSION, cv2.IMWRITE_TIFF_COMPRESSION_LZW])
+    else:
+        tiff.write_tiff(path, img, compression="deflate", predictor=2,
+                        tile=(64, 128))
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("hw", [(1024, 768), (768, 1024), (600, 600),
+                                (48, 40)])
+@pytest.mark.parametrize("ext", [".bmp", ".tif"])
+def test_bmp_tiff_resize_paths_equal_jax_opencv_loader(lib, tmp_path, ext,
+                                                       hw, size):
+    """Shrinking (area, integer and general) and enlarging, non-square
+    sides padded with 114, colour and gray."""
+    for c in (3, 1):
+        path = tmp_path / f"x{c}{ext}"
+        img = _scene(*hw, c, sum(hw) + c)
+        _write_bt(path, img if c == 3 else img[..., 0])
+        tile = _same_as_jax(path, size)
+        h, w = (int(s * size / max(hw)) for s in hw)
+        assert (tile[h:] == 114).all() and (tile[:, w:] == 114).all()
+
+
+@pytest.mark.parametrize("name", sorted(DAMAGED_STRIPS))
+def test_damaged_tiff_tiles_equal_jax_opencv_loader(lib, tmp_path, name):
+    """A cut or garbled LZW or PackBits strip or tile: the tiles of JAX's
+    OpenCV loader, whose libtiff keeps what came before the fault and
+    zeros. Deflate: the tiles of cv2 5.0's image, zlib's reading (OpenCV
+    4.6's libtiff inflates with libdeflate, which leaves bytes of its own
+    about the fault). A 16-bit strip fails the job, as in JAX."""
+    path = damaged_tiff(tmp_path, name)
+    if "16" in name:
+        for mod in (tnative, jnative):
+            with pytest.raises(RuntimeError, match="failed to decode"):
+                _tiles(mod, [path], [path], 64, [0])
+        return
+    if not name.startswith("deflate"):
+        _same_as_jax(path, 64)
+        return
+    cv2 = pytest.importorskip("cv2")
+    read = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    twin = tmp_path / "twin.png"
+    write_png(twin, read[..., ::-1] if read.ndim == 3 else read)
+    for g, w in zip(_tiles(tnative, [path], [path], 64, [0]),
+                    _tiles(jnative, [twin], [twin], 64, [0])):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def _mixed_four(root: Path) -> str:
+    """A fold list of pairs in PNG, JPEG, BMP and TIFF, mixed within pairs
+    (a TIFF named .png: the signature decides), at sides that take each
+    resize branch."""
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    kinds = (("tif", "bmp"), ("bmp", "png"), ("png", "tif"), ("jpg", "tif"),
+             ("bmp", "jpg"), ("tif", "tif"))
+    lines = []
+    for i, ((co, ir), side) in enumerate(zip(kinds, (1024, 600, 256, 48,
+                                                     512, 100))):
+        stem = root / "images" / f"{i:08d}"
+        rgb, gray = _scene(side, side, 3, 400 + i), _scene(side, side, 1, i)
+        for kind, img, p in ((co, rgb, Path(f"{stem}_co.{co}")),
+                             (ir, gray[..., 0], Path(f"{stem}_ir.{co}"))):
+            if kind == "png":
+                write_png(p, img)
+            elif kind == "jpg":
+                _write_jpeg(p, img[..., ::-1] if img.ndim == 3 else img)
+            else:
+                tmp = p.with_suffix("." + kind)
+                _write_bt(tmp, img)
+                tmp.replace(p)
+        (root / "labels" / f"{i:08d}.txt").write_text("0 0.5 0.5 0.2 0.2\n")
+        lines.append(f"{stem}_co.{co}\n")
+    lst = root / "fold.txt"
+    lst.write_text("".join(lines))
+    return str(lst)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_mixed_four_format_folder_equals_jax_and_python_source(
+        lib, tmp_path, size):
+    ds = VedaiDataset(_mixed_four(tmp_path), size)
+    assert len(ds) == 6
+    idx = np.array([5, 3, 0, 2, 1, 4, 0])
+    py = tl.PyTileSource(ds, "test").wait(idx)
+    src = tl._make_tile_source(ds, size, cache=False)
+    assert src.name == "native"
+    got = src.wait(src.submit(idx))
+    want = _tiles(jnative, ds.img_files, ds.ir_files, size, idx)
+    for g, p, w in zip(got, py, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, p)
+
+
+def _bad_bmp_tiff(kind: str, tmp_path: Path) -> Path:
+    good = tmp_path / "good.tif"
+    bmp_tiff_script().write_tiff(good, _scene(40, 48, 3, 1),
+                                 rows_per_strip=8)
+    data = good.read_bytes()
+    if kind == "rle_run_past_row":
+        path = tmp_path / "bad_ir.bmp"
+        path.write_bytes(b"BM" + struct.pack("<IHHI", 0, 0, 0, 54 + 1024)
+                         + struct.pack("<IiiHHIIiiII", 40, 7, 5, 1, 8, 1, 0,
+                                       0, 0, 0, 0) + bytes(1024)
+                         + bytes([9, 13, 0, 1]))
+        return path
+    if kind == "rle_too_large":         # 2^30 < 40000^2 pixels, 2 bytes
+        path = tmp_path / "bad_ir.bmp"
+        path.write_bytes(b"BM" + struct.pack("<IHHI", 0, 0, 0, 54)
+                         + struct.pack("<IiiHHIIiiII", 40, 40000, 40000, 1,
+                                       8, 1, 0, 0, 0, 0, 0) + bytes([0, 1]))
+        return path
+    path = tmp_path / "bad_ir.tif"
+    if kind == "strip_past_end":        # the last strip's byte count
+        ifd = struct.unpack_from("<I", data, 4)[0]
+        for e in range(ifd + 2, ifd + 2 + 12 * data[ifd], 12):
+            if struct.unpack_from("<H", data, e)[0] == 279:
+                at = struct.unpack_from("<I", data, e + 8)[0] + 4 * 4
+        path.write_bytes(data[:at] + struct.pack("<I", len(data))
+                         + data[at + 4:])
+        return path
+    if kind == "palette_16bit":
+        bmp_tiff_script().write_tiff(
+            path, np.arange(12 * 11, dtype=np.uint16).reshape(12, 11) * 300,
+            photometric=3, colormap=np.zeros((1 << 16, 3), np.uint16))
+        return path
+    if kind == "jpeg_compression":
+        cv2 = pytest.importorskip("cv2")
+        ok, enc = cv2.imencode(".tif", _scene(16, 16, 3, 2), [
+            cv2.IMWRITE_TIFF_COMPRESSION, cv2.IMWRITE_TIFF_COMPRESSION_JPEG])
+        path.write_bytes(enc.tobytes())
+        return path
+    raise KeyError(kind)
+
+
+@pytest.mark.parametrize("kind,what", [
+    ("rle_run_past_row", "an RLE run past the end of its row"),
+    ("rle_too_large", "image too large (40000 x 40000 pixels"),
+    ("strip_past_end", "strip or tile 4 past the end of the file"),
+    ("palette_16bit", "a 16-bit palette, which neither libtiff nor PIL"),
+    ("jpeg_compression", "not implemented: a TIFF image with JPEG (7)")])
+def test_faulty_bmp_tiff_fails_the_job_and_names_it(lib, tmp_path, kind,
+                                                    what):
+    good = tmp_path / "good_co.bmp"
+    bmp.write_bmp(good, _scene(48, 40, 3, 0))
+    bad = _bad_bmp_tiff(kind, tmp_path)
+    loader = tnative.NativeTileLoader([str(good)] * 2, [str(good), str(bad)],
+                                      64)
+    try:
+        with pytest.raises(RuntimeError) as e:
+            loader.get(np.array([0, 1]))
+        msg = str(e.value)
+        assert f"failed to decode {bad}" in msg and what in msg, msg
+        rgb, ir = loader.get(np.array([0]))
+        np.testing.assert_array_equal(rgb, ir)
+    finally:
+        loader.close()
+
+
 # ------------------------------------------------- python source, feeds
 
 def _folder(root: Path, sides, n_per_side: int = 2) -> str:
@@ -468,7 +688,7 @@ def _broken(kind: str, good: bytes) -> bytes:
         return good[:pos] + bytes([good[pos] ^ 0x40]) + good[pos + 1:]
     if kind == "truncated":
         return good[:len(good) // 2]
-    if kind == "not_png":                      # neither PNG nor JPEG
+    if kind == "not_png":          # neither PNG, JPEG, BMP nor TIFF
         return b"GIF8" + good[4:]
     bad = {"zlib_header": bytes([z[0] ^ 0x0F]) + z[1:],
            "adler": z[:-1] + bytes([z[-1] ^ 1]),
@@ -478,7 +698,7 @@ def _broken(kind: str, good: bytes) -> bytes:
 
 
 BAD = {"crc": "bad CRC in chunk IDAT", "truncated": "truncated PNG file",
-       "not_png": "not a PNG or JPEG file",
+       "not_png": "not a PNG, JPEG, BMP or TIFF file",
        "zlib_header": "bad zlib stream (header)",
        "adler": "bad zlib stream (Adler-32)",
        "zlib_cut": "truncated zlib stream", "missing": "cannot open the file"}
@@ -650,7 +870,8 @@ def test_library_has_no_opencv_and_no_zlib(lib):
                               check=True).stdout
     for name in ("loader_create", "loader_submit", "loader_wait",
                  "loader_last_error", "loader_destroy", "jpeg_file_shape",
-                 "jpeg_file_decode"):
+                 "jpeg_file_decode", "bmp_file_shape", "bmp_file_decode",
+                 "tiff_file_shape", "tiff_file_decode"):
         assert f" T {name}" in exported
 
 

@@ -1,0 +1,378 @@
+"""Write the BMP and TIFF fixtures of the port's tests.
+
+    python tests/torch_port_bmp_tiff/make_fixtures.py
+
+The card's machine has neither cv2 nor PIL, so the files that hold the
+port's C++ decoders to its numpy ones there are made here once and checked
+in; `tests/test_torch_port_bmp.py` and `tests/test_torch_port_tiff.py` hold
+each against JAX's `_read_image` (cv2 or PIL, by the branch the module doc
+names) on the CPU, and `chip_smoke.py` holds the C++ decoders to the numpy
+ones on them. The kinds neither cv2 nor PIL writes are written byte by byte
+here (the BMP writer and the TIFF writer below, which takes any byte
+order, BigTIFF, tiles, planar configuration 2, predictor 2, 1-16 bit
+samples, a photometric, colour map, extra samples and orientation); LZW
+comes from cv2. The tests write their other files with the same two
+writers. Each image is smooth structure plus noise from a
+seeded numpy generator, at odd sides, rows not a multiple of 4 bytes.
+"""
+
+from __future__ import annotations
+
+import struct
+import sys
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE.parent.parent))
+
+from sodt_tpu_torch.data.tiff import _packbits_encode  # noqa: E402
+
+
+def scene(h: int, w: int, c: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:h, :w]
+    base = np.stack([128 + 90 * np.sin(x / 5.0 + k) * np.cos(y / 7.0 - k)
+                     for k in range(c)], -1)
+    return np.clip(base + rng.normal(0, 18, (h, w, c)), 0, 255).astype(
+        np.uint8)
+
+
+# ------------------------------------------------------------------ BMP
+
+def bmp(rows: bytes, w: int, h: int, bpp: int, comp: int = 0,
+        header: int = 40, palette=None, masks=None, top_down=False) -> bytes:
+    """A BMP file around `rows` (the bitmap as stored). `palette`: (n, 3)
+    RGB; `masks`: (r, g, b[, a]), after an INFO header, else in it."""
+    pal = b""
+    if palette is not None:
+        pal = b"".join(bytes([b, g, r] + ([] if header == 12 else [0]))
+                       for r, g, b in np.asarray(palette, np.uint8))
+    extra = b""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        n_pal = 0 if palette is None else len(palette)
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bpp, comp, len(rows), 2835, 2835, n_pal, 0)
+        m = list(masks or ()) + [0] * (4 - len(masks or ()))
+        if header == 40 and masks is not None:
+            extra = struct.pack("<III", *m[:3])
+        elif header > 40:
+            info += struct.pack("<IIII", *m)
+            if header >= 108:
+                info += struct.pack("<I", 0x73524742) + bytes(48)
+            info = (info + bytes(header))[:header]
+    offset = 14 + len(info) + len(extra) + len(pal)
+    head = b"BM" + struct.pack("<IHHI", offset + len(rows), 0, 0, offset)
+    return head + info + extra + pal + rows
+
+
+def pack_rows(px: np.ndarray, bpp: int, top_down=False) -> bytes:
+    """(h, w) indices or uint16, (h, w, k) bytes -> rows padded to 4 bytes,
+    bottom-up unless `top_down`."""
+    out = []
+    for r in px:
+        if bpp < 8:
+            bits = ((r[:, None] >> np.arange(bpp - 1, -1, -1)) & 1)
+            b = np.packbits(bits.reshape(-1).astype(np.uint8)).tobytes()
+        elif bpp == 16:
+            b = r.astype("<u2").tobytes()
+        else:
+            b = r.astype(np.uint8).tobytes()
+        out.append(b + bytes(-len(b) % 4))
+    return b"".join(out if top_down else out[::-1])
+
+
+def rle(px: np.ndarray, rle4: bool, delta_row: int | None = None,
+        end_row: int | None = None, literals: bool = True) -> bytes:
+    """RLE8 / RLE4 of (h, w) indices, bottom row first: stretches of 3 or
+    more pixels a run can hold (equal pixels; RLE4: two alternating
+    nibbles) as runs, the rest as literals of 3 to 7 pixels (odd counts
+    included; runs alone without `literals`), a tail under 3 pixels as
+    runs; each row ends with an end-of-line. At `delta_row` the first 2
+    pixels are skipped with a delta escape (left at index 0); the bitmap
+    ends at `end_row` with an end-of-bitmap (the rows above keep index
+    0)."""
+    out = bytearray()
+    period = 2 if rle4 else 1
+    for y, row in enumerate(px[::-1]):
+        if y == end_row:
+            break
+        x = 0
+        if y == delta_row:
+            out += bytes([0, 2, 2, 0])
+            x = 2
+        w = len(row)
+        while x < w:
+            k = min(x + period, w)
+            while k < w and row[k] == row[k - period] and k - x < 255:
+                k += 1
+            n = k - x
+            if n >= 3 or w - x < 3 or not literals:        # a run
+                lo = row[x + 1] if x + 1 < w else 0
+                out += bytes([n, row[x] << 4 | lo if rle4 else row[x]])
+                x += n
+                continue
+            n = min(w - x, 3 + (x + y) % 5)                 # literals
+            lit = [int(v) for v in row[x:x + n]]
+            if rle4:
+                lit += [0] * (n % 2)
+                data = bytes(a << 4 | b for a, b in zip(lit[::2], lit[1::2]))
+            else:
+                data = bytes(lit)
+            out += bytes([0, n]) + data + bytes(len(data) % 2)
+            x += n
+        out += bytes([0, 0])
+    out += bytes([0, 1])
+    return bytes(out)
+
+
+def bmp_fixtures() -> dict:
+    rng = np.random.default_rng(5)
+    pal = rng.integers(0, 256, (256, 3))
+    out = {}
+    h, w = 13, 11                                  # odd sides, padded rows
+    rgb = scene(h, w, 3, 1)
+    idx = (scene(h, w, 1, 2)[..., 0] // 32 * 3).astype(np.int64)
+    s16 = rng.integers(0, 1 << 16, (h, w))
+    bgra = np.dstack([rgb[..., ::-1], scene(h, w, 1, 3)])
+    out["rgb24"] = bmp(pack_rows(rgb[..., ::-1], 24), w, h, 24)
+    out["rgb24_topdown"] = bmp(pack_rows(rgb[..., ::-1], 24, True), w, h, 24,
+                               top_down=True)
+    out["core24"] = bmp(pack_rows(rgb[..., ::-1], 24), w, h, 24, header=12)
+    out["core_pal8"] = bmp(pack_rows(idx, 8), w, h, 8, header=12,
+                           palette=pal)
+    out["gray8"] = bmp(pack_rows(rgb[..., 1], 8), w, h, 8,
+                       palette=np.repeat(np.arange(256)[:, None], 3, 1))
+    out["pal8_short"] = bmp(pack_rows(idx, 8), w, h, 8, palette=pal[:20])
+    out["pal4"] = bmp(pack_rows(idx % 16, 4), w, h, 4, palette=pal[:16])
+    out["pal1"] = bmp(pack_rows(idx % 2, 1), w, h, 1, palette=pal[:2])
+    out["pal1_bilevel"] = bmp(pack_rows(idx % 2, 1), w, h, 1,
+                              palette=[(0, 0, 0), (255, 255, 255)])
+    out["rle8"] = bmp(rle(idx, False, delta_row=4, end_row=11), w, h, 8,
+                      comp=1, palette=pal)
+    out["rle4"] = bmp(rle(idx % 16, True, delta_row=2, end_row=12), w, h, 4,
+                      comp=2, palette=pal[:16])
+    out["rgb555"] = bmp(pack_rows(s16, 16), w, h, 16)
+    out["bitfields565"] = bmp(pack_rows(s16, 16), w, h, 16, comp=3,
+                              masks=(0xF800, 0x7E0, 0x1F))
+    out["bitfields555"] = bmp(pack_rows(s16, 16), w, h, 16, comp=3,
+                              masks=(0x7C00, 0x3E0, 0x1F))
+    out["v4_bitfields565"] = bmp(pack_rows(s16, 16), w, h, 16, comp=3,
+                                 header=108, masks=(0xF800, 0x7E0, 0x1F))
+    out["rgb32"] = bmp(pack_rows(bgra, 32), w, h, 32)
+    out["info_bitfields32"] = bmp(pack_rows(bgra, 32), w, h, 32, comp=3,
+                                  masks=(0xFF0000, 0xFF00, 0xFF))
+    out["v5_alpha"] = bmp(pack_rows(bgra, 32), w, h, 32, comp=3, header=124,
+                          masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))
+    out["v5_rgba_order"] = bmp(pack_rows(bgra, 32), w, h, 32, comp=3,
+                               header=124,
+                               masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000))
+    out["v4_no_alpha"] = bmp(pack_rows(bgra, 32), w, h, 32, comp=3,
+                             header=108, masks=(0xFF0000, 0xFF00, 0xFF, 0))
+    out["v5_10bit"] = bmp(pack_rows(bgra, 32), w, h, 32, comp=3, header=124,
+                          masks=(0x3FF00000, 0xFFC00, 0x3FF, 0))
+    return out
+
+
+# ----------------------------------------------------------------- TIFF
+
+def write_tiff(path: str | Path, arr: np.ndarray, compression="none",
+               tile=None, rows_per_strip=None, predictor=1, byteorder="<",
+               bigtiff=False, planar=1, photometric=None, bits=None,
+               colormap=None, extra_samples=None, orientation=None) -> None:
+    """Write `arr` ((H, W) or (H, W, spp), uint8 or uint16 samples, in file
+    order) as a TIFF with one IFD, byte by byte. `compression` is "none",
+    "deflate" or "packbits"; `tile` a (height, width) of multiples of 16,
+    else strips of `rows_per_strip` rows (all rows by default); `bits` 1,
+    2 or 4 packs uint8 values of that width (default: 8 or 16 by the
+    dtype); `colormap` (2**bits, 3) uint16 for photometric 3."""
+    s = np.asarray(arr)
+    if s.ndim == 2:
+        s = s[..., None]
+    h, w, spp = s.shape
+    bits = bits or (16 if s.dtype == np.uint16 else 8)
+    if photometric is None:
+        photometric = 1 if spp < 3 else 2
+    comp = {"none": 1, "deflate": 8, "packbits": 32773}[compression]
+    if predictor == 2 and (bits < 8 or comp != 8):
+        raise ValueError("predictor 2 takes 8- or 16-bit samples, deflated "
+                         "(readers ignore it without LZW or deflate)")
+    bo = byteorder
+
+    def encode(block: np.ndarray) -> bytes:
+        r, c, k = block.shape
+        v = block.astype(np.int64)
+        if predictor == 2:
+            d = v.copy()
+            d[:, 1:] = v[:, 1:] - v[:, :-1]
+            v = d & ((1 << bits) - 1)
+        if bits == 16:
+            raw = v.astype(bo + "u2").tobytes()
+        elif bits == 8:
+            raw = v.astype(np.uint8).tobytes()
+        else:
+            vals = v.reshape(r, c * k).astype(np.uint8)
+            packed = np.zeros((r, c * k * bits), np.uint8)
+            for q in range(bits):
+                packed[:, q::bits] = (vals >> (bits - 1 - q)) & 1
+            raw = np.packbits(packed, axis=1).tobytes()
+        if comp == 8:
+            return zlib.compress(raw)
+        if comp == 32773:
+            rs = len(raw) // r
+            return b"".join(_packbits_encode(raw[i * rs:(i + 1) * rs])
+                            for i in range(r))
+        return raw
+
+    planes = ([s] if planar == 1 or spp == 1
+              else [s[..., k:k + 1] for k in range(spp)])
+    chunks = []
+    for p in planes:
+        if tile:
+            th, tw = tile
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    blk = np.zeros((th, tw, p.shape[2]), s.dtype)
+                    part = p[y:y + th, x:x + tw]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(encode(blk))
+        else:
+            rps = rows_per_strip or h
+            chunks.extend(encode(p[y:y + rps]) for y in range(0, h, rps))
+    off_type = 16 if bigtiff else 4
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+            259: (3, [comp]), 262: (3, [photometric]), 277: (3, [spp]),
+            284: (3, [planar])}
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if colormap is not None:
+        tags[320] = (3, [int(v) for v in np.asarray(colormap).T.reshape(-1)])
+    if extra_samples is not None:
+        tags[338] = (3, list(extra_samples))
+    if orientation:
+        tags[274] = (3, [orientation])
+    if tile:
+        tags[322], tags[323] = (4, [tile[1]]), (4, [tile[0]])
+        off_tag, cnt_tag = 324, 325
+    else:
+        tags[278] = (4, [rows_per_strip or h])
+        off_tag, cnt_tag = 273, 279
+    body = bytearray(b"\0" * (16 if bigtiff else 8))
+    offsets = []
+    for c in chunks:
+        offsets.append(len(body))
+        body += c + b"\0" * (len(c) % 2)
+    tags[off_tag] = (off_type, offsets)
+    tags[cnt_tag] = (off_type, [len(c) for c in chunks])
+    ifd_at = len(body)
+    esz, inline, ofmt = (20, 8, "Q") if bigtiff else (12, 4, "I")
+    spill_at = ifd_at + (8 if bigtiff else 2) + len(tags) * esz + inline
+    fmt = {3: "H", 4: "I", 16: "Q"}
+    entries, spill = b"", bytearray()
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        payload = struct.pack(f"{bo}{len(vals)}{fmt[typ]}", *vals)
+        if len(payload) <= inline:
+            value = payload + b"\0" * (inline - len(payload))
+        else:
+            value = struct.pack(bo + ofmt, spill_at + len(spill))
+            spill += payload + b"\0" * (len(payload) % 2)
+        entries += struct.pack(bo + "HH" + ofmt, tag, typ, len(vals)) + value
+    body += (struct.pack(bo + ("Q" if bigtiff else "H"), len(tags)) + entries
+             + b"\0" * inline + spill)
+    magic = b"II" if bo == "<" else b"MM"
+    body[:16 if bigtiff else 8] = (
+        magic + struct.pack(bo + "HHHQ", 43, 8, 0, ifd_at) if bigtiff
+        else magic + struct.pack(bo + "HI", 42, ifd_at))
+    Path(path).write_bytes(bytes(body))
+
+
+def tiff_fixtures(tmp: Path) -> dict:
+    """name -> bytes of each TIFF fixture."""
+    import cv2
+
+    rng = np.random.default_rng(7)
+    h, w = 19, 23
+    rgb = scene(h, w, 3, 11)
+    gray = rgb[..., 1]
+    alpha = scene(h, w, 1, 12)
+    s16 = rng.integers(0, 1 << 16, (h, w, 4)).astype(np.uint16)
+    s16[::2] //= 300                                   # both sides of 255
+    cmap = rng.integers(0, 1 << 16, (256, 3))
+    idx = (gray // 16).astype(np.uint8)
+    cases = {
+        "deflate_tiles_pred": (rgb, dict(compression="deflate",
+                                         tile=(16, 16), predictor=2)),
+        "packbits_mm": (rgb, dict(compression="packbits", byteorder=">",
+                                  rows_per_strip=4)),
+        "bigtiff": (rgb, dict(bigtiff=True, rows_per_strip=5)),
+        "bigtiff_mm": (gray, dict(bigtiff=True, byteorder=">")),
+        "planar2": (rgb, dict(planar=2, rows_per_strip=7)),
+        "planar2_deflate_rgba": (np.dstack([rgb, alpha]), dict(
+            planar=2, compression="deflate", extra_samples=[2])),
+        "rgba_unassociated": (np.dstack([rgb, alpha]),
+                              dict(extra_samples=[2])),
+        "rgba_associated": (np.dstack([rgb, alpha]),
+                            dict(extra_samples=[1], compression="packbits")),
+        "gray_alpha": (np.dstack([gray, alpha[..., 0]]),
+                       dict(extra_samples=[2])),
+        "minwhite8": (gray, dict(photometric=0)),
+        "bit1": ((gray > 128).astype(np.uint8), dict(bits=1)),
+        "bit1_minwhite_tiles": ((gray > 128).astype(np.uint8), dict(
+            bits=1, photometric=0, tile=(16, 16), compression="packbits")),
+        "gray4": (gray >> 4, dict(bits=4, compression="deflate")),
+        "gray2_minwhite": (gray >> 6, dict(bits=2, photometric=0)),
+        "palette8": (idx * 16, dict(photometric=3, colormap=cmap)),
+        "palette8_cmap8": (idx * 16, dict(photometric=3,
+                                          colormap=cmap >> 8)),
+        "palette4": (idx, dict(bits=4, photometric=3, colormap=cmap[:16])),
+        "palette1": (idx % 2, dict(bits=1, photometric=3,
+                                   colormap=cmap[:2])),
+        "gray16_mm_pred": (s16[..., 0], dict(byteorder=">", predictor=2,
+                                             compression="deflate")),
+        "gray16_minwhite": (s16[..., 0], dict(photometric=0)),
+        "rgb16_tiles": (s16[..., :3], dict(tile=(16, 32))),
+        "rgb16_planar2_deflate": (s16[..., :3], dict(planar=2,
+                                                     compression="deflate")),
+        "rgba16_associated": (s16, dict(extra_samples=[1])),
+        "orientation3": (rgb, dict(orientation=3)),
+        "orientation6": (rgb, dict(orientation=6)),
+    }
+    out = {}
+    for name, (arr, kw) in cases.items():
+        p = tmp / f"{name}.tif"
+        write_tiff(p, arr, **kw)
+        out[name] = p.read_bytes()
+    lzw = [cv2.IMWRITE_TIFF_COMPRESSION, cv2.IMWRITE_TIFF_COMPRESSION_LZW]
+    pred = [cv2.IMWRITE_TIFF_PREDICTOR, cv2.IMWRITE_TIFF_PREDICTOR_HORIZONTAL]
+    for name, arr, params in (
+            ("lzw_rgb", rgb[..., ::-1], lzw),
+            ("lzw_pred_gray_strips", gray, lzw + pred + [
+                cv2.IMWRITE_TIFF_ROWSPERSTRIP, 6]),
+            ("lzw_pred_rgb16", s16[..., 2::-1], lzw + pred)):
+        ok, buf = cv2.imencode(".tif", arr, params)
+        assert ok, name
+        out[name] = buf.tobytes()
+    return out
+
+
+def main():
+    import tempfile
+
+    for p in HERE.glob("*.bmp"):
+        p.unlink()
+    for p in HERE.glob("*.tif"):
+        p.unlink()
+    for name, data in bmp_fixtures().items():
+        (HERE / f"{name}.bmp").write_bytes(data)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in tiff_fixtures(Path(tmp)).items():
+            (HERE / f"{name}.tif").write_bytes(data)
+
+
+if __name__ == "__main__":
+    main()

@@ -296,3 +296,202 @@ def narrow_pair(seed: int, img: int = 64):
     tm = tbuild(NARROW_CFG, ch_in=4).eval()
     tm.load_state_dict(from_jax_variables(v))
     return jm, v, cache_rel_bias(tm)
+
+
+def jax_read_image(path, cv2_branch: bool) -> np.ndarray:
+    """The JAX package's `_read_image` of a file, through cv2 or, as on a
+    machine without cv2, through PIL."""
+    from sodt_tpu.data import vedai as jv
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jv, "_HAS_CV2", cv2_branch)
+        return jv._read_image(str(path))
+
+
+def pil_scan(path):
+    """JAX's integrity scan of one file: None where it marks the file
+    corrupt, else PIL's (width, height)."""
+    from PIL import Image
+    try:
+        with Image.open(path) as im:
+            im.verify()
+            w, h = im.size
+            assert w > 9 and h > 9
+            return w, h
+    except Exception:
+        return None
+
+
+# name -> (codec, kind, layout, damage): a TIFF of 37 x 29 px whose middle
+# strip (8 rows) or tile (16 x 16) is cut short (its byte count halved) or
+# garbled (four bytes at a third of its data inverted). LZW is cv2's writer
+# (with predictor 2), the others the port's `write_tiff`.
+DAMAGED_STRIPS = {
+    "lzw_rgb8_one_strip_cut": ("lzw", "rgb8", "one_strip", "cut"),
+    "lzw_rgb8_strips_garbled": ("lzw", "rgb8", "strips", "garble"),
+    "lzw_gray8_strips_cut": ("lzw", "gray8", "strips", "cut"),
+    "packbits_rgb8_strips_cut": ("packbits", "rgb8", "strips", "cut"),
+    "packbits_gray8_one_strip_cut": ("packbits", "gray8", "one_strip", "cut"),
+    "packbits_palette8_strips_cut": ("packbits", "palette8", "strips", "cut"),
+    "packbits_bit1_one_strip_cut": ("packbits", "bit1", "one_strip", "cut"),
+    "deflate_rgb8_pred2_tiles_cut": ("deflate", "rgb8", "tiles", "cut"),
+    "deflate_gray8_strips_garbled": ("deflate", "gray8", "strips", "garble"),
+    "deflate_palette8_tiles_cut": ("deflate", "palette8", "tiles", "cut"),
+    "deflate_gray16_strips_cut": ("deflate", "gray16", "strips", "cut"),
+}
+
+
+def bmp_tiff_script():
+    """`tests/torch_port_bmp_tiff/make_fixtures.py` as a module: its BMP
+    and TIFF writers, which write any kind byte by byte."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures",
+        Path(__file__).resolve().parent / "torch_port_bmp_tiff"
+        / "make_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def damaged_tiff(tmp_path, name: str):
+    """The file DAMAGED_STRIPS names, written under tmp_path."""
+    import struct
+    from sodt_tpu_torch.data import tiff
+    codec, kind, layout, damage = DAMAGED_STRIPS[name]
+    rng = np.random.default_rng(len(name))
+    y, x = np.mgrid[:37, :29]
+    img = np.clip(128 + 90 * np.sin(x[..., None] / 5.0 + np.arange(3))
+                  * np.cos(y[..., None] / 7.0)
+                  + rng.normal(0, 18, (37, 29, 3)), 1, 255).astype(np.uint8)
+    path = tmp_path / f"{name}.tif"
+    strips = None if layout == "one_strip" else 8
+    if codec == "lzw":
+        import cv2
+        params = [cv2.IMWRITE_TIFF_COMPRESSION,
+                  cv2.IMWRITE_TIFF_COMPRESSION_LZW]
+        if strips:
+            params += [cv2.IMWRITE_TIFF_ROWSPERSTRIP, strips]
+        arr = img[..., ::-1] if kind == "rgb8" else img[..., 0]
+        assert cv2.imwrite(str(path), arr, params)
+    else:
+        kw = dict(compression=codec, predictor=2 if "pred2" in name else 1)
+        kw.update(tile=(16, 16)) if layout == "tiles" else kw.update(
+            rows_per_strip=strips)
+        arr = {"rgb8": img, "gray8": img[..., 0],
+               "palette8": img[..., 0], "bit1": img[..., 0] > 128,
+               "gray16": img[..., 0].astype(np.uint16) * 257}[kind]
+        if kind == "palette8":
+            kw.update(photometric=3, colormap=rng.integers(
+                0, 65536, (256, 3)))
+        if kind == "bit1":
+            arr = arr.astype(np.uint8)
+            kw.update(bits=1)
+        bmp_tiff_script().write_tiff(path, arr, **kw)
+    data = bytearray(path.read_bytes())
+    t = tiff._info(bytes(data), str(path))
+    k = len(t.offsets) // 2
+    off, cnt = t.offsets[k], t.counts[k]
+    if damage == "garble":
+        for i in range(off + cnt // 3, off + cnt // 3 + 4):
+            data[i] ^= 0xFF
+    else:                               # the count's place in the IFD
+        pos = struct.unpack_from("<I", data, 4)[0]
+        for e in range(pos + 2, pos + 2 + 12 * data[pos], 12):
+            tag, typ, n = struct.unpack_from("<HHI", data, e)
+            if tag in (279, 325):
+                size = 2 if typ == 3 else 4
+                at = e + 8 if n * size <= 4 else struct.unpack_from(
+                    "<I", data, e + 8)[0]
+                struct.pack_into("<H" if size == 2 else "<I", data,
+                                 at + k * size, cnt // 2)
+    path.write_bytes(bytes(data))
+    return path
+
+
+def folder_as(tmp_path_factory, ext: str, write) -> dict:
+    """`write_vedai_folder`'s pairs (n=4) written again by `write(path,
+    pixels)` as `<stem>_co.<ext>` (RGB) and `<stem>_ir.<ext>` (gray (H, W)),
+    with the labels and the fold lists of that folder."""
+    import cv2
+    src = write_vedai_folder(tmp_path_factory.mktemp("png"), n=4)
+    root = tmp_path_factory.mktemp(ext)
+    (root / "images").mkdir()
+    (root / "labels").mkdir()
+    for stem in src["stems"]:
+        co = cv2.imread(str(src["root"] / "images" / f"{stem}_co.png"))
+        ir = cv2.imread(str(src["root"] / "images" / f"{stem}_ir.png"),
+                        cv2.IMREAD_UNCHANGED)
+        write(root / "images" / f"{stem}_co.{ext}", co[..., ::-1].copy())
+        write(root / "images" / f"{stem}_ir.{ext}",
+              ir if ir.ndim == 2 else ir[..., 0].copy())
+        lab = src["root"] / "labels" / f"{stem}.txt"
+        (root / "labels" / f"{stem}.txt").write_bytes(lab.read_bytes())
+    lst = lambda name, stems: (root / name).write_text("".join(
+        f"{root / 'images' / s}_co.{ext}\n" for s in stems))
+    stems = src["stems"]
+    lst("fold.txt", stems)
+    lst("fold_val.txt", stems[:2])
+    lst("fold_eval.txt", stems[:2] + stems[-1:])
+    return {"root": root, "list": root / "fold.txt", "png": src,
+            "val_list": root / "fold_val.txt",
+            "eval_list": root / "fold_eval.txt", "n": len(stems)}
+
+
+def batches_equal_jax(folder: dict, rect: bool, img: int = 256) -> None:
+    """JAX's VedaiDataset + make_eval_batches and the port's give bit-equal
+    batches on the folder, square or --rect (sizes from the headers)."""
+    from sodt_tpu.data.loader import make_eval_batches as jbatches
+    from sodt_tpu.data.vedai import VedaiDataset as JDS
+    from sodt_tpu_torch.data import VedaiDataset as TDS, make_eval_batches
+    lst = folder["eval_list"] if rect else folder["val_list"]
+    jds = JDS(str(lst), img_size=img)
+    tds = TDS(str(lst), img_size=img)
+    assert tds.img_files == jds.img_files and len(tds) == (3 if rect else 2)
+    shapes = set()
+    for a, b in zip(jbatches(jds, 2, img, rect=rect),
+                    make_eval_batches(tds, 2, img, rect=rect)):
+        for k in ("img", "ir", "targets", "tmask"):
+            np.testing.assert_array_equal(b[k], np.asarray(a[k]))
+        for k in ("indices", "valid", "shapes", "stems"):
+            assert b[k] == a[k], k
+        assert b.get("net_shape") == a.get("net_shape")
+        shapes.add(b["img"].shape[1:3])
+    assert shapes == ({(288, 288), (288, 224)} if rect else {(img, img)})
+
+
+def val_equals_jax(folder: dict, tmp_path, img: int = 256,
+                   tol: float = 5e-3) -> dict:
+    """`val --data --rect` of the port on the folder's eval list against
+    JAX's evaluate of the same files with the in-repo checkpoint, within
+    test_torch_port_folders.py's bound; returns the port's metrics."""
+    from pathlib import Path
+    import jax
+    import yaml
+    from sodt_tpu.data.loader import make_eval_batches as jbatches
+    from sodt_tpu.data.vedai import VedaiDataset as JDS
+    from sodt_tpu.models import build_model as jbuild
+    from sodt_tpu.train.checkpoint import eval_variables, load_checkpoint
+    from sodt_tpu.train.evaluate import evaluate as jevaluate
+    from sodt_tpu_torch import val
+    from sodt_tpu_torch.weights import from_jax_variables, save_npz
+    root = Path(__file__).resolve().parent.parent
+    lst = folder["eval_list"]
+    data = tmp_path / "data.yaml"
+    data.write_text(yaml.safe_dump({"val": str(lst), "nc": 8}))
+    v = jax.tree.map(np.asarray, eval_variables(
+        load_checkpoint(root / "runs/flagship_r5_150ep/best_stripped")))
+    npz = tmp_path / "flagship.npz"
+    save_npz(from_jax_variables(v), npz)
+    jm = jbuild(str(root / "sodt_tpu/configs/model.yaml"), ch_in=4,
+                input_mode="RGB+IR")
+    mj = jevaluate(jm, v, jbatches(JDS(str(lst), img_size=img), 2, img,
+                                   rect=True), nc=8, img_size=img)
+    mt = val.main(["--data", str(data), "--weights", str(npz),
+                   "--img-size", str(img), "--batch-size", "2", "--device",
+                   "cpu", "--no-bf16", "--rect"])
+    assert mt["seen"] == mj["seen"] == 3 and mt["nt"] == mj["nt"]
+    for k in ("map50", "map"):
+        assert abs(mt[k] - mj[k]) <= tol, (k, mt[k], mj[k])
+    assert mj["map50"] > 0.5
+    return mt
