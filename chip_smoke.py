@@ -187,6 +187,26 @@ the final ok line:
               its pool and held to one core, and the numpy decoders,
               beside the card's name and power limit. Each of (a)-(c)
               prints its own line
+     webp     the port's WebP decoder (`csrc/webp.cpp`, in the host
+              library): (a) bit-equal to the numpy decoder (`data/webp.py`)
+              on every file of tests/torch_port_webp/ (which the CPU tests
+              hold to cv2), the animated one raising NotImplementedError in
+              both, and on 4 damaged copies of each from a seed (the same
+              pixels or an error of the same type); (b) `trained`'s 16
+              images at 512 px written lossless by the tests' minimal VP8L
+              writer (`tests/torch_port_common.write_webp_lossless`), and
+              the 4 checked-in quality-90 pairs of the same source
+              (tests/torch_port_webp/vedai_q90/), each beside a PNG twin
+              (the source's pixels; the numpy decode's pixels, held equal
+              to the C++ decode): the tile loader's 512 px tiles of each
+              WebP folder bit-equal to the python source's, and `val
+              --data` in bf16 (PER_FORWARD) reading its twin's mAP@0.5 and
+              mAP to the last digit; (c) ms to decode a 1024 px pair,
+              lossless and lossy: the tile loader on its pool and held to
+              one core, the C++ decode on the calling thread, and the numpy
+              decoder on smaller files (a 128 px lossless pair, the 512 px
+              lossy pair of (b)), beside the card's name and power limit.
+              Each of (a)-(c) prints its own line
      eval_extras  the eval protocol's extras and the serving path on the
               trained weights (predictions printed first): `val --augment`
               in bf16 and f32 on `trained`'s 16 images (mAP@0.5 and mAP
@@ -4169,19 +4189,21 @@ def _bt_decode_ms(workdir: Path, ext: str) -> dict:
                        "numpy": float(np.median(numpy_ms))}}
 
 
-def _bt_damaged_agree(files, out: Path, per_file: int = 4) -> dict:
-    """Each fixture with bytes overwritten or cut, from a seed: the C++
-    decoder gives the numpy decoder's pixels (a broken strip filled as
-    libtiff fills it) or raises an error of its type. Counts the files,
-    those where the two agree, and those that decoded."""
+def _damaged_agree(files, out: Path, per_file: int = 4) -> dict:
+    """Each BMP, TIFF or WebP fixture with bytes overwritten or cut, from a
+    seed: the C++ decoder gives the numpy decoder's pixels (a broken TIFF
+    strip filled as libtiff fills it) or raises an error of its type.
+    Counts the files, those where the two agree, and those that
+    decoded."""
     import numpy as np
-    from sodt_tpu_torch.data import bmp, native_loader, tiff
+    from sodt_tpu_torch.data import bmp, native_loader, tiff, webp
+    readers = {".bmp": (native_loader.decode_bmp, bmp.read_bmp),
+               ".tif": (native_loader.decode_tiff, tiff.read_tiff),
+               ".webp": (native_loader.decode_webp, webp.read_webp)}
     out.mkdir(parents=True, exist_ok=True)
     n = agree = decoded = 0
     for f in files:
-        cpp, plain = ((native_loader.decode_bmp, bmp.read_bmp)
-                      if f.suffix == ".bmp"
-                      else (native_loader.decode_tiff, tiff.read_tiff))
+        cpp, plain = readers[f.suffix]
         good = f.read_bytes()
         rng = np.random.default_rng(sum(good[-64:]))
         for k in range(per_file):
@@ -4238,7 +4260,7 @@ def phase_bmp_tiff(label: str, workdir: Path, trained: dict) -> dict:
                             "bit_equal": bool(a.shape == b.shape
                                               and a.dtype == b.dtype
                                               and np.array_equal(a, b))}
-    damaged = _bt_damaged_agree(files, workdir / "bt_damaged")
+    damaged = _damaged_agree(files, workdir / "bt_damaged")
     ok_a = (len(files) >= 40 and all(v["bit_equal"]
                                      for v in fixtures.values())
             and damaged["agree"] == damaged["files"])
@@ -4273,6 +4295,210 @@ def phase_bmp_tiff(label: str, workdir: Path, trained: dict) -> dict:
 
     # (c) decode ms of a 1024 px pair, beside the card
     dec = {ext: _bt_decode_ms(workdir, ext) for ext in ("bmp", "tif")}
+    ok = ok and all(d["tiles"]["bit_equal"] for d in dec.values())
+    emit({"phase": f"{label}_decode_ms", "card": card_line(), **dec})
+    row.update(fixtures_ok=ok_a, tie=evals,
+               tiles_bit_equal={e: t["bit_equal"] for e, t in tiles.items()},
+               decode_ms={e: d["median"] for e, d in dec.items()},
+               wall_s=time.perf_counter() - t0, launches={}, ok=bool(ok))
+    emit(row)
+    return row
+
+
+# ------------------------------------------------------------------- webp
+
+WEBP_FIXTURES = Path("tests/torch_port_webp")
+WEBP_Q90 = WEBP_FIXTURES / "vedai_q90"       # 4 pairs of `trained`'s source
+WEBP_LOSSY_N = 4
+WEBP_PAIR_1024 = "00001024"                  # SyntheticVedai(1, 1024, seed 2)
+WEBP_NUMPY_LOSSLESS_SIDE = 128               # numpy's lossless timing side
+# written before this phase first ran on the card (PERF.md, section 6)
+WEBP_PREDICTED = {
+    "fixtures_bit_equal": "all 60, and the 240 damaged copies agree",
+    "lossless_tie": "mAP@0.5 and mAP equal to the PNG twin's (lossless: "
+                    "the same pixels), tiles bit-equal",
+    "lossy_tie": "equal to the PNG twin of the numpy decode, tiles equal",
+    "lossless_1024_pair_ms": {"cpp_pool": "15-40", "cpp_one_core": "25-60",
+                              "cpp_calling_thread": "40-80"},
+    "lossy_1024_pair_ms": {"cpp_pool": "35-80", "cpp_one_core": "45-100",
+                           "cpp_calling_thread": "55-110"},
+    "numpy_ms": "lossy 512 px pair 1200-2500; lossless 128 px pair 40-120",
+    "phase_s": "25-40",
+}
+
+
+def _webp_folder(root: Path, twin: Path, stems: list) -> str:
+    """`root/images` beside the PNG twin's labels: the twin's label files
+    copied, the fold list of `<stem>_co.webp` written; returns it."""
+    (root / "labels").mkdir(parents=True, exist_ok=True)
+    for stem in stems:
+        (root / "labels" / f"{stem}.txt").write_bytes(
+            (twin / "labels" / f"{stem}.txt").read_bytes())
+    fold = root / "fold.txt"
+    fold.write_text("".join(f"{root / 'images' / s}_co.webp\n"
+                            for s in stems))
+    return str(fold)
+
+
+def _webp_decode_ms(workdir: Path, lossless_pair, plain_sources,
+                    lossy_numpy_ms: float) -> dict:
+    """ms to decode one 1024 px WebP pair, lossless (the tests' VP8L
+    writer) and lossy (the checked-in pair at quality 90): `_native_tiles`
+    at 1024 px (decode and copy, no resize) gives the tile loader on its
+    pool, held to one core, and the C++ decode of `_read_image` on the
+    calling thread. The numpy decoder, being slow, is timed on smaller
+    files (`plain_sources`): a lossless 128 px pair here, twice, and the
+    lossy 512 px pair that (b) decoded once (`lossy_numpy_ms`)."""
+    import numpy as np
+    import shutil
+    from sodt_tpu_torch.data import webp
+    from torch_port_common import write_webp_lossless
+    out, keys = {}, {"cpp_pool": "native_ms_per_pair",
+                     "cpp_one_core": "native_ms_per_pair_one_core",
+                     "cpp_calling_thread": "python_ms_per_pair"}
+    for kind in ("lossless", "lossy"):
+        root = workdir / f"webp1024_{kind}"
+        (root / "images").mkdir(parents=True)
+        (root / "labels").mkdir()
+        for m in ("co", "ir"):
+            dst = root / "images" / f"{WEBP_PAIR_1024}_{m}.webp"
+            if kind == "lossy":
+                shutil.copyfile(WEBP_Q90 / dst.name, dst)
+            else:
+                write_webp_lossless(dst, lossless_pair[m])
+        (root / "labels" / f"{WEBP_PAIR_1024}.txt").write_text(
+            "0 0.5 0.5 0.2 0.2\n")
+        fold = root / "fold.txt"
+        fold.write_text(f"{root / 'images' / WEBP_PAIR_1024}_co.webp\n")
+        nat = _native_tiles(str(fold), 1024)
+        numpy_ms = [lossy_numpy_ms] if kind == "lossy" else []
+        for _ in range(0 if kind == "lossy" else 2):
+            t = time.perf_counter()
+            for p in plain_sources[kind]:
+                webp.read_webp(p)
+            numpy_ms.append(1e3 * (time.perf_counter() - t))
+        out[kind] = {
+            "bytes_per_pair": sum(p.stat().st_size for p in
+                                  (root / "images").iterdir()),
+            "tiles": nat, "numpy_ms_per_pair": numpy_ms,
+            "numpy_pair": [f"{Path(p).name}: {webp.webp_size(p)}"
+                           for p in plain_sources[kind]],
+            "median": {**{k: float(np.median(nat[v])) if nat.get(v) else None
+                          for k, v in keys.items()},
+                       "numpy": float(np.median(numpy_ms))}}
+    return out
+
+
+def phase_webp(label: str, workdir: Path, trained: dict) -> dict:
+    """The port's WebP decoder on the card's machine (module doc, phase
+    `webp`); (a)-(c) each print a line of their own."""
+    import numpy as np
+    from sodt_tpu_torch.data import SyntheticVedai, native_loader, webp
+    from sodt_tpu_torch.data.png import write_png
+    sys.path.insert(0, str(Path("tests").resolve()))
+    from torch_port_common import write_webp_lossless
+
+    trained_weights()
+    t0 = time.perf_counter()
+    row, ok = {"phase": label, "predicted": WEBP_PREDICTED}, True
+    if native_loader.load_error() is not None:
+        raise RuntimeError(native_loader.load_error())
+
+    # (a) the C++ decoder against the numpy one on the checked-in files
+    files = sorted(WEBP_FIXTURES.glob("*.webp"))
+    fixtures = {}
+    for f in files:
+        res = []
+        for read in (native_loader.decode_webp, webp.read_webp):
+            try:
+                res.append(read(f))
+            except NotImplementedError:             # the animated file
+                res.append(NotImplementedError)
+        a, b = res
+        same = (a is b) if isinstance(a, type) else (
+            not isinstance(b, type) and a.shape == b.shape
+            and np.array_equal(a, b))
+        fixtures[f.name] = {"shape": None if isinstance(a, type)
+                            else list(a.shape), "bit_equal": bool(same)}
+    damaged = _damaged_agree(files, workdir / "webp_damaged")
+    ok_a = (len(files) >= 30 and all(v["bit_equal"]
+                                     for v in fixtures.values())
+            and damaged["agree"] == damaged["files"])
+    emit({"phase": f"{label}_fixtures", "files": fixtures,
+          "damaged": damaged, "ok": ok_a})
+    ok = ok and ok_a
+
+    # (b) trained's images as lossless WebP (the tests' VP8L writer) and 4
+    # of them as the checked-in lossy pairs, each beside a PNG twin
+    src = SyntheticVedai(n=JPEG_N, img_size=512, nc=8, seed=1)
+    items = [src[i] for i in range(JPEG_N)]
+    stems = [f"{i:08d}" for i in range(JPEG_N)]
+    twin = workdir / "trained_webp_as_png"
+    twin_write = _write_png_folder(twin, items, stems, None)
+    evals, tiles = {"png": _tie_val(twin, stems, "png")}, {}
+    ll = workdir / "trained_webp_lossless"
+    (ll / "images").mkdir(parents=True)
+    for (rgb, ir, _), stem in zip(items, stems):
+        write_webp_lossless(ll / "images" / f"{stem}_co.webp", rgb)
+        write_webp_lossless(ll / "images" / f"{stem}_ir.webp", ir[..., 0])
+    tiles["lossless"] = _native_tiles(_webp_folder(ll, twin, stems))
+    evals["lossless"] = _tie_val(ll, stems, "webp")
+    lossy_stems = stems[:WEBP_LOSSY_N]
+    lossy, lossy_twin = (workdir / "trained_webp_q90",
+                         workdir / "trained_webp_q90_as_png")
+    (lossy / "images").mkdir(parents=True)
+    (lossy_twin / "images").mkdir(parents=True)
+    (lossy_twin / "labels").mkdir()
+    numpy_equal, numpy_ms = True, []
+    for stem in lossy_stems:
+        for m in ("co", "ir"):
+            name = f"{stem}_{m}.webp"
+            (lossy / "images" / name).write_bytes(
+                (WEBP_Q90 / name).read_bytes())
+            t = time.perf_counter()
+            px = webp.read_webp(WEBP_Q90 / name)
+            numpy_ms.append(1e3 * (time.perf_counter() - t))
+            numpy_equal = numpy_equal and np.array_equal(
+                px, native_loader.decode_webp(WEBP_Q90 / name))
+            write_png(lossy_twin / "images" / f"{stem}_{m}.png", px)
+        (lossy_twin / "labels" / f"{stem}.txt").write_bytes(
+            (twin / "labels" / f"{stem}.txt").read_bytes())
+    tiles["lossy"] = _native_tiles(_webp_folder(lossy, twin, lossy_stems))
+    evals["lossy"] = _tie_val(lossy, lossy_stems, "webp")
+    evals["lossy_png"] = _tie_val(lossy_twin, lossy_stems, "png")
+    ok_b = (all(evals["lossless"][k] == evals["png"][k]
+                and evals["lossy"][k] == evals["lossy_png"][k]
+                for k in ("map50", "map"))
+            and all(e["launches_ok"] for e in evals.values())
+            and evals["png"]["seen"] == evals["lossless"]["seen"] == JPEG_N
+            and evals["lossy"]["seen"] == evals["lossy_png"]["seen"]
+            == WEBP_LOSSY_N
+            and all(t["bit_equal"] for t in tiles.values())
+            and twin_write["bit_equal"] and numpy_equal
+            and evals["png"]["map50"] > 0.5)
+    trained_bf16 = (trained or {}).get("runs", {}).get("bf16")
+    emit({"phase": f"{label}_tie", **evals,
+          "tiles_bit_equal": {e: t["bit_equal"] for e, t in tiles.items()},
+          "lossy_numpy_equals_cpp": bool(numpy_equal),
+          "lossy_numpy_ms_per_image": numpy_ms,
+          "trained_bf16": ({k: trained_bf16[k] for k in ("map50", "map")}
+                           if trained_bf16 else None), "ok": ok_b})
+    ok = ok and ok_b
+
+    # (c) decode ms of a 1024 px pair, beside the card
+    big = SyntheticVedai(n=1, img_size=1024, nc=8, seed=2)[0]
+    small = SyntheticVedai(n=1, img_size=WEBP_NUMPY_LOSSLESS_SIDE, nc=8,
+                           seed=2)[0]
+    small_dir = workdir / "webp_numpy_lossless"
+    small_dir.mkdir()
+    plain = {"lossy": [WEBP_Q90 / f"{lossy_stems[0]}_{m}.webp"
+                       for m in ("co", "ir")],
+             "lossless": [small_dir / f"small_{m}.webp"
+                          for m in ("co", "ir")]}
+    write_webp_lossless(plain["lossless"][0], small[0])
+    write_webp_lossless(plain["lossless"][1], small[1][..., 0])
+    dec = _webp_decode_ms(workdir, {"co": big[0], "ir": big[1][..., 0]},
+                          plain, numpy_ms[0] + numpy_ms[1])
     ok = ok and all(d["tiles"]["bit_equal"] for d in dec.values())
     emit({"phase": f"{label}_decode_ms", "card": card_line(), **dec})
     row.update(fixtures_ok=ok_a, tie=evals,
@@ -5382,6 +5608,7 @@ def main() -> int:
         drive("folders", phase_folders, tmp, paths.get("trained"))
         drive("jpeg", phase_jpeg, tmp, paths.get("trained"))
         drive("bmp_tiff", phase_bmp_tiff, tmp, paths.get("trained"))
+        drive("webp", phase_webp, tmp, paths.get("trained"))
         drive("eval_extras", phase_eval_extras, tmp, paths.get("folders"))
         drive("eval_runner", phase_eval_runner, tmp)
         drive("mono", phase_path, MONO_ARGS, MONO_FORWARD)

@@ -65,15 +65,19 @@ namespace sodt_jpeg {
 void decode(const uint8_t* data, size_t n, int* h, int* w, int* c, std::vector<uint8_t>* px);
 }  // namespace sodt_jpeg
 
-// csrc/bmp.cpp and csrc/tiff.cpp: a BMP or TIFF file in memory -> (h, w) and
-// its (h, w) B G R pixels as OpenCV 4.6 reads them (gray widened, alpha
-// dropped, 16-bit samples saturated); throw std::runtime_error with the cause
+// csrc/bmp.cpp, csrc/tiff.cpp and csrc/webp.cpp: a BMP, TIFF or WebP file in
+// memory -> (h, w) and its (h, w) B G R pixels as OpenCV 4.6 reads them (gray
+// widened, alpha dropped, 16-bit samples saturated); throw std::runtime_error
+// with the cause
 namespace sodt_bmp {
 void decode_bgr(const uint8_t* data, size_t n, int* h, int* w, std::vector<uint8_t>* bgr);
 }  // namespace sodt_bmp
 namespace sodt_tiff {
 void decode_bgr(const uint8_t* data, size_t n, int* h, int* w, std::vector<uint8_t>* bgr);
 }  // namespace sodt_tiff
+namespace sodt_webp {
+void decode_bgr(const uint8_t* data, size_t n, int* h, int* w, std::vector<uint8_t>* bgr);
+}  // namespace sodt_webp
 
 namespace {
 
@@ -736,13 +740,15 @@ Image decode_image(const std::string& path) {
                                          !std::memcmp(data.data(), "MM\0*", 4) ||
                                          !std::memcmp(data.data(), "II+\0", 4) ||
                                          !std::memcmp(data.data(), "MM\0+", 4));
-  if (bmp || tiff) {
+  const bool webp = data.size() >= 12 && !std::memcmp(data.data(), "RIFF", 4) &&
+                    !std::memcmp(data.data() + 8, "WEBP", 4);
+  if (bmp || tiff || webp) {
     Image img;
-    (bmp ? sodt_bmp::decode_bgr : sodt_tiff::decode_bgr)(data.data(), data.size(), &img.h,
-                                                          &img.w, &img.px);
+    (bmp ? sodt_bmp::decode_bgr : tiff ? sodt_tiff::decode_bgr : sodt_webp::decode_bgr)(
+        data.data(), data.size(), &img.h, &img.w, &img.px);
     return img;
   }
-  throw Error("not a PNG, JPEG, BMP or TIFF file (signature): the port reads those four "
+  throw Error("not a PNG, JPEG, BMP, TIFF or WebP file (signature): the port reads those five "
               "formats");
 }
 

@@ -578,8 +578,8 @@ def make_eval_batches(dataset, batch_size: int, img_size: int,
 
 
 def _aspect_ratios(dataset) -> np.ndarray:
-    """h / w of every image, from the PNG, JPEG, BMP or TIFF headers where
-    the dataset has files (JAX reads them from PIL's headers; a TIFF
+    """h / w of every image, from the PNG, JPEG, BMP, TIFF or WebP headers
+    where the dataset has files (JAX reads them from PIL's headers; a TIFF
     oriented 5-8 reports its sides swapped, as PIL does)."""
     from .vedai import image_size
     files = getattr(dataset, "img_files", None)

@@ -2,13 +2,14 @@
 loader, `csrc/tile_loader.cpp`, with the JAX package's API (`available`,
 `NativeTileLoader`: submit / wait / get / close; `sodt_tpu/data/
 native_loader.py`), and the one-file decodes of `csrc/jpeg.cpp`
-(`decode_jpeg`), `csrc/bmp.cpp` (`decode_bmp`) and `csrc/tiff.cpp`
-(`decode_tiff`).
+(`decode_jpeg`), `csrc/bmp.cpp` (`decode_bmp`), `csrc/tiff.cpp`
+(`decode_tiff`) and `csrc/webp.cpp` (`decode_webp`).
 
 A GIL-free worker decodes and resizes the next step's (rgb, ir) pairs while
 the device runs the current one: its own PNG reader and inflate, its own
-JPEG, BMP and TIFF decoders (the decoder chosen by the file's signature),
-cv2's resize arithmetic, no OpenCV, no libjpeg, no libtiff and no zlib. The
+JPEG, BMP, TIFF and WebP decoders (the decoder chosen by the file's
+signature), cv2's resize arithmetic, no OpenCV, no libjpeg, no libtiff, no
+libwebp and no zlib. The
 library is built from the repo's sources with the host compiler at first
 use (`kernels._build.build_host`), on any machine with `c++` or `g++`.
 Where it does not build or load, `load_error()` keeps the reason word for
@@ -61,7 +62,7 @@ def _load_lib():
     lib.jpeg_file_decode.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
-    for fmt in ("bmp", "tiff"):
+    for fmt in ("bmp", "tiff", "webp"):
         shape = getattr(lib, f"{fmt}_file_shape")
         shape.restype = ctypes.c_int
         shape.argtypes = [ctypes.c_char_p, ip, ip, ip, ip, ctypes.c_char_p,
@@ -110,14 +111,16 @@ def decode_jpeg(path) -> np.ndarray:
     return out
 
 
-# the sample kinds of `bmp_file_decode` / `tiff_file_decode`
+# the sample kinds of `bmp_file_decode` / `tiff_file_decode` /
+# `webp_file_decode`
 _KINDS = {0: np.bool_, 1: np.uint8, 2: np.uint16}
 _NOT_IMPLEMENTED = "not implemented: "
 
 
 def _decode_file(fmt: str, path) -> np.ndarray:
-    """A BMP or TIFF file decoded by the host library to `_read_image`'s
-    layout (`data/bmp.py`, `data/tiff.py`); raises RuntimeError with the
+    """A BMP, TIFF or WebP file decoded by the host library (BMP and TIFF
+    to `_read_image`'s layout, `data/bmp.py` and `data/tiff.py`; WebP to
+    cv2's B G R (A)); raises RuntimeError with the
     compiler's words where the library does not build, NotImplementedError
     for a kind out of the port's scope, ValueError where the file does not
     decode."""
@@ -158,6 +161,14 @@ def decode_tiff(path) -> np.ndarray:
     (`data/tiff.py`'s table), decoded by the host library
     (`csrc/tiff.cpp`)."""
     return _decode_file("tiff", path)
+
+
+def decode_webp(path) -> np.ndarray:
+    """A WebP file -> what the JAX package's `_read_image` returns for it
+    through cv2 (`data/webp.py`'s table: (H, W, 3) RGB, or (H, W, 4) A R G
+    B where the file has alpha), decoded by the host library
+    (`csrc/webp.cpp`); an animated file raises NotImplementedError."""
+    return np.ascontiguousarray(_decode_file("webp", path)[..., ::-1])
 
 
 class NativeTileLoader:

@@ -65,6 +65,15 @@ DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
 ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 MIN_SIDE = 10        # the JAX scan's "image size <10 pixels" assert
+PIL_MAX_PIXELS = 2 * 89478485    # PIL's decompression bomb, at open
+
+
+def pil_bomb(w: int, h: int, name) -> None:
+    """PIL's open refuses more than twice its 89478485-pixel limit (above
+    the limit itself it only warns)."""
+    if w * h > PIL_MAX_PIXELS:
+        raise ValueError(f"{name}: decompression bomb ({w} x {h} pixels; "
+                         f"PIL opens at most {PIL_MAX_PIXELS})")
 
 
 def _chunks(data: bytes):
@@ -96,19 +105,22 @@ def _ihdr(payload: bytes):
 
 def png_size(path: str | Path) -> tuple[int, int]:
     """(width, height) from the IHDR chunk, as PIL's `Image.open(f).size`
-    (the header only)."""
+    (the header only); raises above PIL's decompression bomb limit, as its
+    open does."""
     with open(path, "rb") as f:
         head = f.read(33)
     if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
         raise ValueError(f"{path}: not a PNG file")
     w, h = struct.unpack(">II", head[16:24])
+    pil_bomb(w, h, path)
     return int(w), int(h)
 
 
 def verify_png(path: str | Path) -> None:
-    """Raise ValueError where the JAX scan (`Image.verify` and its 10 px
-    assert) marks the file corrupt: the signature, IHDR first, every
-    chunk's CRC, IEND present, both sides at least MIN_SIDE."""
+    """Raise ValueError where the JAX scan (`Image.open`, `Image.verify`
+    and its 10 px assert) marks the file corrupt: the signature, IHDR
+    first, every chunk's CRC, IEND present, PIL's decompression bomb limit,
+    both sides at least MIN_SIDE."""
     data = Path(path).read_bytes()
     kinds = []
     for kind, payload in _chunks(data):
@@ -121,6 +133,7 @@ def verify_png(path: str | Path) -> None:
             break
     if b"IEND" not in kinds:
         raise ValueError("truncated PNG file (no IEND)")
+    pil_bomb(w, h, path)
     if w < MIN_SIDE or h < MIN_SIDE:
         raise ValueError("image size <10 pixels")
 

@@ -13,8 +13,12 @@
 `extract_boxes` reads each image as PIL's `convert("RGB")` gives it, with
 the decoder its signature chooses: PNG with `png.read_png_rgb`, JPEG with
 the host library's (`native_loader.decode_jpeg`, gray repeated to RGB),
-BMP with `bmp.read_bmp_rgb` and TIFF with `tiff.read_tiff_rgb` (palette
-colours, alpha dropped); WebP and DNG raise NotImplementedError.
+BMP with `bmp.read_bmp_rgb`, TIFF with `tiff.read_tiff_rgb` (palette
+colours, alpha dropped) and WebP with the host library's
+(`native_loader.decode_webp`, alpha dropped, after PIL's open walk
+`webp.webp_size`; `webp.read_webp_rgb` is its plain version); an animated
+WebP raises NotImplementedError naming "animated WebP", DNG
+NotImplementedError.
 It writes each crop as JAX does, a `.jpg` under JAX's name, with the
 port's encoder (`jpeg.write_jpeg`: PIL's defaults, the bytes PIL writes).
 """
@@ -33,6 +37,7 @@ from .bmp import read_bmp_rgb
 from .jpeg import write_jpeg
 from .png import read_png_rgb
 from .tiff import read_tiff_rgb
+from .webp import webp_size
 from .vedai import _unsupported, derive_label_path, image_format
 
 IMG_FORMATS = {"bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp"}
@@ -64,6 +69,10 @@ def extract_boxes(path: str) -> Path:
         if fmt in ("PNG", "BMP", "TIFF"):
             im = {"PNG": read_png_rgb, "BMP": read_bmp_rgb,
                   "TIFF": read_tiff_rgb}[fmt](im_file)
+        elif fmt == "WebP":
+            webp_size(im_file)                 # PIL's open refuses it first
+            im = native_loader.decode_webp(im_file)
+            im = im[..., 1:] if im.shape[2] == 4 else im
         elif fmt == "JPEG":
             im = native_loader.decode_jpeg(im_file)
             if im.shape[2] == 1:

@@ -20,14 +20,19 @@ what JAX's `_read_image` returns:
         as PIL (`bmp.py`'s table);
   TIFF  the host library's decoder (`csrc/tiff.cpp`, `native_loader.
         decode_tiff`): 8-bit gray and RGB(A) as cv2, palette (indices), 1-,
-        2-, 4- and 16-bit as PIL (`tiff.py`'s table).
-Where the host library does not build, a JPEG, BMP or TIFF read raises with
-the compiler's words; it never falls back to the numpy decoders. WebP and
-DNG raise NotImplementedError naming the format. The resize is the port's
-own too (`resize.resize_longest`, cv2's arithmetic). The integrity scan
-verifies each file with `verify_png`, `verify_jpeg`, `verify_bmp` or
-`verify_tiff` where JAX calls PIL's `Image.verify`, and marks the same files
-corrupt; `image_size` is PIL's `Image.size` for the four. The label cache
+        2-, 4- and 16-bit as PIL (`tiff.py`'s table);
+  WebP  the host library's decoder (`csrc/webp.cpp`, `native_loader.
+        decode_webp`): lossy and lossless, (H, W, 3) RGB, or (H, W, 4) A R
+        G B with alpha, the pixels of cv2 (`webp.py`'s table); an animated
+        WebP raises NotImplementedError naming "animated WebP".
+Where the host library does not build, a JPEG, BMP, TIFF or WebP read
+raises with the compiler's words; it never falls back to the numpy
+decoders. DNG raises NotImplementedError naming the format. The resize is
+the port's own too (`resize.resize_longest`, cv2's arithmetic). The
+integrity scan verifies each file with `verify_png`, `verify_jpeg`,
+`verify_bmp`, `verify_tiff` or `verify_webp` where JAX calls PIL's
+`Image.verify`, and marks the same files corrupt; `image_size` is PIL's
+`Image.size` for the five. The label cache
 (`<list>.labels.npz`, keyed by a sha256 over every file's path, size and
 mtime) has JAX's key and layout, so each package reads the other's.
 """
@@ -48,6 +53,7 @@ from .png import png_size, read_png, verify_png
 from .resize import resize_longest as _resize_longest
 from .tiff import SIGNATURES as TIFF_SIGNATURES
 from .tiff import tiff_size, verify_tiff
+from .webp import verify_webp, webp_size
 
 
 def derive_ir_path(p: str) -> str:
@@ -84,16 +90,17 @@ def image_format(path: str) -> str:
 
 def _unsupported(path: str, fmt: str):
     return NotImplementedError(
-        f"{path}: a {fmt} image; the port reads PNG, JPEG, BMP and TIFF (the "
-        "card's machine has no other decoder)")
+        f"{path}: a {fmt} image; the port reads PNG, JPEG, BMP, TIFF and "
+        "WebP (the card's machine has no other decoder)")
 
 
 _SIZES = {"PNG": png_size, "JPEG": jpeg_size, "BMP": bmp_size,
-          "TIFF": tiff_size}
+          "TIFF": tiff_size, "WebP": webp_size}
 _VERIFY = {"PNG": verify_png, "unknown": verify_png, "JPEG": verify_jpeg,
-           "BMP": verify_bmp, "TIFF": verify_tiff}
+           "BMP": verify_bmp, "TIFF": verify_tiff, "WebP": verify_webp}
 _DECODE = {"PNG": read_png, "JPEG": native_loader.decode_jpeg,
-           "BMP": native_loader.decode_bmp, "TIFF": native_loader.decode_tiff}
+           "BMP": native_loader.decode_bmp, "TIFF": native_loader.decode_tiff,
+           "WebP": native_loader.decode_webp}
 
 
 def image_size(path: str) -> tuple[int, int]:
@@ -115,7 +122,7 @@ def verify_image(path: str) -> None:
 
 def _read_image(path: str) -> np.ndarray:
     """Decode as JAX's `_read_image` does (module doc), by the file's
-    signature: PNG, JPEG, BMP or TIFF."""
+    signature: PNG, JPEG, BMP, TIFF or WebP."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     fmt = image_format(path)

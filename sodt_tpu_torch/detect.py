@@ -5,9 +5,9 @@
 
 --source is an image or video file, a folder of them, a webcam index, an
 rtsp / rtmp / http(s) URL or a `.streams` list of them. Images are PNG,
-JPEG, BMP or TIFF files, decoded by the port itself (`data.vedai.
-_read_image`; WebP raises NotImplementedError); a video is read frame by
-frame with cv2
+JPEG, BMP, TIFF or WebP files, decoded by the port itself (`data.vedai.
+_read_image`; an animated WebP raises NotImplementedError naming "animated
+WebP"); a video is read frame by frame with cv2
 (imported there; frames named `<file>#<i>`), and a live source through
 `data.streams.StreamSource` (cv2 too) until --max-frames frames (1000 by
 default). Without cv2, as on the card's machine, a video raises
@@ -59,7 +59,7 @@ CH_IN = {"RGB": 3, "IR": 3, "RGB+IR": 4}
 
 def iter_sources(source: str, want_ir: bool = False):
     """Yield (name, rgb uint8 HWC, ir or None) frames from a file, a
-    folder or a video (PNG, JPEG, BMP and TIFF images). Under RGB+IR a
+    folder or a video (PNG, JPEG, BMP, TIFF and WebP images). Under RGB+IR a
     `*_co.png` / `*_co.jpg` / ... picks up its `*_ir` sibling where it
     exists, and `_ir` files are skipped as pair partners."""
     p = Path(source)

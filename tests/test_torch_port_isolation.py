@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
                 "data.tools", "utils.torch_import", "ops.wbf",
                 "tools.import_torch", "tools.export_torch",
                 "tools.parity_check", "tools.profile_eval", "data.jpeg",
-                "data.bmp", "data.tiff"):
+                "data.bmp", "data.tiff", "data.webp"):
         assert f"sodt_tpu_torch.{new}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -161,6 +161,39 @@ def test_verify_flags_what_pil_flags(tmp_path):
         assert _port_verdict(p) == _pil_verdict(p) == (name == "good"), name
 
 
+def _ihdr_only(path, side: int) -> None:
+    """A PNG of a few dozen bytes whose IHDR says side x side (1-bit gray),
+    with a short IDAT: PIL's open and verify read no pixels."""
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+    path.write_bytes(png.SIGNATURE + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", side, side, 1, 0, 0, 0, 0)) + chunk(
+        b"IDAT", zlib.compress(bytes(10))) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("side,corrupt", [(14000, True), (9000, False)])
+def test_scan_follows_pil_pixel_limit(tmp_path, side, corrupt):
+    """PIL's open refuses more than 2 x 89478485 pixels (above 89478485 it
+    only warns): JAX's scan marks a 14000 x 14000 IHDR corrupt and passes a
+    9000 x 9000 one; so do the port's scan and `image_size`."""
+    import warnings
+    from sodt_tpu_torch.data import vedai as tv
+    from torch_port_common import pil_scan
+    path = tmp_path / f"ihdr{side}.png"
+    _ihdr_only(path, side)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert (pil_scan(path) is None) == corrupt
+    if corrupt:
+        for read in (tv.verify_image, tv.image_size):
+            with pytest.raises(ValueError, match="decompression bomb"):
+                read(str(path))
+    else:
+        tv.verify_image(str(path))
+        assert tv.image_size(str(path)) == (side, side)
+
+
 def test_out_of_scope_pngs_raise(tmp_path):
     """What the PNG standard does not define raises ValueError in the
     port, as PIL refuses it too: a palette at 16 bits, colour type 5, gray

@@ -688,7 +688,7 @@ def _broken(kind: str, good: bytes) -> bytes:
         return good[:pos] + bytes([good[pos] ^ 0x40]) + good[pos + 1:]
     if kind == "truncated":
         return good[:len(good) // 2]
-    if kind == "not_png":          # neither PNG, JPEG, BMP nor TIFF
+    if kind == "not_png":          # neither PNG, JPEG, BMP, TIFF nor WebP
         return b"GIF8" + good[4:]
     bad = {"zlib_header": bytes([z[0] ^ 0x0F]) + z[1:],
            "adler": z[:-1] + bytes([z[-1] ^ 1]),
@@ -698,7 +698,7 @@ def _broken(kind: str, good: bytes) -> bytes:
 
 
 BAD = {"crc": "bad CRC in chunk IDAT", "truncated": "truncated PNG file",
-       "not_png": "not a PNG, JPEG, BMP or TIFF file",
+       "not_png": "not a PNG, JPEG, BMP, TIFF or WebP file",
        "zlib_header": "bad zlib stream (header)",
        "adler": "bad zlib stream (Adler-32)",
        "zlib_cut": "truncated zlib stream", "missing": "cannot open the file"}
@@ -863,7 +863,7 @@ def test_library_has_no_opencv_and_no_zlib(lib):
     nm = subprocess.run(["nm", "-D", "--undefined-only", str(so)],
                         capture_output=True, text=True, check=True).stdout
     for bad in ("cv", "inflate", "png_", "adler32", "crc32", "jpeg_",
-                "tj"):
+                "tj", "WebP", "VP8"):
         assert not [s for s in nm.split() if s.startswith(bad)], bad
     exported = subprocess.run(["nm", "-D", "--defined-only", str(so)],
                               capture_output=True, text=True,
@@ -871,7 +871,8 @@ def test_library_has_no_opencv_and_no_zlib(lib):
     for name in ("loader_create", "loader_submit", "loader_wait",
                  "loader_last_error", "loader_destroy", "jpeg_file_shape",
                  "jpeg_file_decode", "bmp_file_shape", "bmp_file_decode",
-                 "tiff_file_shape", "tiff_file_decode"):
+                 "tiff_file_shape", "tiff_file_decode", "webp_file_shape",
+                 "webp_file_decode"):
         assert f" T {name}" in exported
 
 

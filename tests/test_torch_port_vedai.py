@@ -148,21 +148,17 @@ def test_read_image_decodes_jpeg_as_jax(tmp_path):
 
 @pytest.mark.parametrize("ext,fmt", [(".bmp", "BMP"), (".tiff", "TIFF"),
                                      (".webp", "WebP")])
-def test_read_image_other_formats_raise_naming_them(tmp_path, ext, fmt):
-    """Formats beyond PNG and JPEG: a BMP and a TIFF as cv2 writes them
-    decode to JAX's pixels (the host library's decoders); WebP raises,
-    naming itself."""
+def test_read_image_other_formats_decode_as_jax(tmp_path, ext, fmt):
+    """Formats beyond PNG and JPEG: a BMP, a TIFF and a WebP as cv2 writes
+    them decode to JAX's pixels (the host library's decoders)."""
     import cv2
     p = str(tmp_path / f"x_co{ext}")
     img = np.random.default_rng(3).integers(0, 256, (12, 14, 3), np.uint8)
     assert cv2.imwrite(p, img)
+    assert tv.image_format(p) == fmt
     want = jv._read_image(p)                       # JAX reads it
     assert want.shape == (12, 14, 3)
-    if fmt == "WebP":
-        with pytest.raises(NotImplementedError, match=f"a {fmt} image"):
-            tv._read_image(p)
-    else:
-        np.testing.assert_array_equal(tv._read_image(p), want)
+    np.testing.assert_array_equal(tv._read_image(p), want)
 
 
 def test_read_image_missing_file_raises(tmp_path):

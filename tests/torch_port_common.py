@@ -495,3 +495,116 @@ def val_equals_jax(folder: dict, tmp_path, img: int = 256,
         assert abs(mt[k] - mj[k]) <= tol, (k, mt[k], mj[k])
     assert mj["map50"] > 0.5
     return mt
+
+
+class _BitWriter:
+    """LSB-first bits, as a VP8L stream packs them."""
+
+    def __init__(self):
+        self.acc, self.n, self.out = 0, 0, bytearray()
+
+    def put(self, value: int, bits: int):
+        self.acc |= (value & ((1 << bits) - 1)) << self.n
+        self.n += bits
+        while self.n >= 8:
+            self.out.append(self.acc & 255)
+            self.acc >>= 8
+            self.n -= 8
+
+    def put_bytes(self, values: np.ndarray):
+        """Each uint8 of `values` as 8 bits, in order (numpy, not a loop)."""
+        a = np.asarray(values, np.uint8).reshape(-1).astype(np.uint16)
+        if not a.size:
+            return
+        k = self.n
+        if k == 0:
+            self.out += a.astype(np.uint8).tobytes()
+            return
+        out = (a << k) & 0xFF
+        out[0] |= self.acc
+        out[1:] |= a[:-1] >> (8 - k)
+        self.out += out.astype(np.uint8).tobytes()
+        self.acc = int(a[-1] >> (8 - k))
+
+    def bytes(self) -> bytes:
+        return bytes(self.out) + (bytes([self.acc]) if self.n else b"")
+
+
+def _vp8l_code8(bw: _BitWriter, use_length: bool):
+    """A prefix code giving each of the first 256 symbols 8 bits: a normal
+    code whose code-length code has one symbol (8), so that each length
+    reads no bits; with `use_length`, the alphabet (green's 280) is cut
+    to 256 lengths."""
+    bw.put(0, 1)                       # not a simple code
+    bw.put(12 - 4, 4)                  # 12 code-length code lengths
+    for i in range(12):                # the order's 12th symbol is 8
+        bw.put(1 if i == 11 else 0, 3)
+    bw.put(int(use_length), 1)
+    if use_length:
+        bw.put(3, 3)                   # 8 bits of max_symbol
+        bw.put(256 - 2, 8)
+
+
+def _vp8l_single(bw: _BitWriter, symbol: int):
+    """A simple prefix code of one 8-bit symbol (it reads no bits)."""
+    bw.put(1, 1)
+    bw.put(0, 1)
+    bw.put(1, 1)
+    bw.put(symbol, 8)
+
+
+def vp8l_stream(argb: np.ndarray, header: bool = True,
+                alpha_used: bool = True) -> bytes:
+    """A minimal VP8L bitstream of an (h, w, 4) A R G B uint8 image: the
+    5-byte header (left out for an ALPH chunk's stream), no transform, no
+    colour cache, one prefix-code group of fixed 8-bit codes for green,
+    red, blue (and alpha unless all 255), literal pixels only."""
+    h, w, _ = argb.shape
+    bw = _BitWriter()
+    if header:
+        bw.put(0x2F, 8)
+        bw.put(w - 1, 14)
+        bw.put(h - 1, 14)
+        bw.put(int(alpha_used), 1)
+        bw.put(0, 3)
+    bw.put(0, 1)                       # no transform
+    bw.put(0, 1)                       # no colour cache
+    bw.put(0, 1)                       # no meta prefix codes
+    opaque = bool((argb[..., 0] == 255).all())
+    _vp8l_code8(bw, use_length=True)   # green
+    _vp8l_code8(bw, use_length=False)  # red
+    _vp8l_code8(bw, use_length=False)  # blue
+    if opaque:
+        _vp8l_single(bw, 255)
+    else:
+        _vp8l_code8(bw, use_length=False)
+    bw.put(1, 1)                       # distance: one 1-bit symbol, 0
+    bw.put(0, 1)
+    bw.put(0, 1)
+    bw.put(0, 1)
+    # each symbol's 8-bit code is the symbol, read from its top bit: the
+    # stream carries its bits reversed
+    rev = np.array([int(f"{s:08b}"[::-1], 2) for s in range(256)], np.uint8)
+    order = [2, 1, 3] if opaque else [2, 1, 3, 0]       # G R B (A)
+    bw.put_bytes(rev[argb.reshape(-1, 4)[:, order]])
+    return bw.bytes()
+
+
+def riff(chunks: list) -> bytes:
+    """A WebP file of (fourcc, payload) chunks, each padded to even."""
+    body = b"".join(k + len(p).to_bytes(4, "little") + p + b"\0" * (len(p) & 1)
+                    for k, p in chunks)
+    return b"RIFF" + (4 + len(body)).to_bytes(4, "little") + b"WEBP" + body
+
+
+def write_webp_lossless(path, rgb: np.ndarray) -> None:
+    """An (h, w, 3) RGB or (h, w) gray image as a lossless WebP file of
+    `vp8l_stream` (what the port's tests use where cv2 is absent)."""
+    rgb = np.asarray(rgb, np.uint8)
+    if rgb.ndim == 2:
+        rgb = np.repeat(rgb[..., None], 3, -1)
+    argb = np.concatenate([np.full(rgb.shape[:2] + (1,), 255, np.uint8),
+                           rgb], -1)
+    from pathlib import Path
+    Path(path).write_bytes(riff([(b"VP8L", vp8l_stream(argb,
+                                                        alpha_used=False))]))
