@@ -185,7 +185,18 @@ the final ok line:
               last digit (both formats are lossless); (c) ms to decode a
               1024 px BMP pair and TIFF pair: the tile loader at 1024 px on
               its pool and held to one core, and the numpy decoders,
-              beside the card's name and power limit. Each of (a)-(c)
+              beside the card's name and power limit; (d) aerial TIFF:
+              `trained`'s first 8 images with the RGB as YCbCr 4:2:0
+              JPEG in 256 px tiles (`write_tiff`, JPEGTables) and the IR
+              as float32 under predictor 3 holding ir / 255 as the card
+              computes it, beside a PNG twin (the decoded RGB, the 8-bit
+              IR): `val` on each reading one mAP to the last digit (the
+              float IR reaches the model unscaled, as in JAX, so both
+              give it the same inputs), the tiles bit-equal to the
+              python source's as OpenCV 4.6 converts its items, C++ =
+              numpy on the files; (e) ms to decode a 1024 px such pair
+              (pool, one core, numpy) beside the predictions written
+              before the run (BT_AERIAL_PREDICTED). Each of (a)-(e)
               prints its own line
      webp     the port's WebP decoder (`csrc/webp.cpp`, in the host
               library): (a) bit-equal to the numpy decoder (`data/webp.py`)
@@ -3780,13 +3791,25 @@ def _folder_feed(fold: str, hyp_path: Path, regime: str) -> dict:
     return out
 
 
+def _as_tile(img):
+    """An item as OpenCV 4.6's `convertTo(CV_8U)` leaves it in the tile
+    loader: uint8 as it is, float rounded half to even and saturated (NaN
+    0), integers saturated."""
+    import numpy as np
+    if img.dtype == np.uint8:
+        return img
+    with np.errstate(invalid="ignore"):
+        v = np.where(np.isnan(img), 0, np.clip(np.rint(img), 0, 255))
+    return v.astype(np.uint8)
+
+
 def _native_tiles(fold: str, size: int = 512) -> dict:
     """The port's tile loader on a folder at `size` px: every pair's tiles
-    bit-equal to the python source's, and the ms to decode and resize one
-    pair with the cache off, on its pool (the rgb and ir tiles on two
-    threads) and, for its first 4 pairs, with the process held to one core,
-    beside the python source's ms a pair (the same tiles,
-    `VedaiDataset.__getitem__`)."""
+    bit-equal to the python source's (its items as the loader converts
+    them, `_as_tile`), and the ms to decode and resize one pair with the
+    cache off, on its pool (the rgb and ir tiles on two threads) and, for
+    its first 4 pairs, with the process held to one core, beside the python
+    source's ms a pair (`VedaiDataset.__getitem__`)."""
     import os
     import numpy as np
     from sodt_tpu_torch.data import VedaiDataset, native_loader
@@ -3805,8 +3828,8 @@ def _native_tiles(fold: str, size: int = 512) -> dict:
             t = time.perf_counter()
             nrgb, nir = nat.get(np.array([i]))
             native_ms.append(1e3 * (time.perf_counter() - t))
-            equal = equal and np.array_equal(nrgb[0], rgb) and \
-                np.array_equal(nir[0], ir)
+            equal = equal and np.array_equal(nrgb[0], _as_tile(rgb)) and \
+                np.array_equal(nir[0], _as_tile(ir))
     finally:
         nat.close()
     # one core: the loader's threads inherit the mask of the thread that
@@ -4189,6 +4212,12 @@ def _bt_decode_ms(workdir: Path, ext: str) -> dict:
                        "numpy": float(np.median(numpy_ms))}}
 
 
+def _bit_equal(a, b) -> bool:
+    """The same shape, dtype and bytes (a float NaN equal to itself)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and a.tobytes() == b.tobytes())
+
+
 def _damaged_agree(files, out: Path, per_file: int = 4) -> dict:
     """Each BMP, TIFF or WebP fixture with bytes overwritten or cut, from a
     seed: the C++ decoder gives the numpy decoder's pixels (a broken TIFF
@@ -4229,10 +4258,116 @@ def _damaged_agree(files, out: Path, per_file: int = 4) -> dict:
                 agree += got is want
             else:
                 decoded += 1
-                agree += bool(got.shape == want.shape
-                              and got.dtype == want.dtype
-                              and np.array_equal(got, want))
+                agree += _bit_equal(got, want)
     return {"files": n, "agree": agree, "decoded": decoded}
+
+
+# aerial imagery as TIFF (module doc, phase `bmp_tiff` (d), (e)): RGB as
+# YCbCr 4:2:0 JPEG in 256 px tiles, IR as float32 under the floating-point
+# predictor, deflated
+BT_AERIAL_N = 8                  # `trained`'s first images, at 512 px
+BT_AERIAL_RGB = {"compression": "jpeg", "tile": (256, 256)}
+BT_AERIAL_IR = {"compression": "deflate", "predictor": 3}
+# written before (d) and (e) first ran on the card (PERF.md, section 6)
+BT_AERIAL_PREDICTED = {
+    "tie": "mAP@0.5 and mAP equal to the PNG twin's (the decoded RGB, the "
+           "8-bit IR) to the last digit; tiles bit-equal",
+    "aerial_1024_pair_ms": {"cpp_pool": "35-70", "cpp_one_core": "45-80",
+                            "cpp_calling_thread": "50-100",
+                            "numpy": "250-450"},
+    "parts_d_e_s": "3-8",
+}
+
+
+def _aerial_folder(root: Path, items, stems: list, ir_scaled) -> str:
+    """`items` as aerial TIFF (BT_AERIAL_RGB, BT_AERIAL_IR): the IR samples
+    `ir_scaled(ir)` (float32); labels as `_write_bt_folder` writes them;
+    returns the fold list."""
+    from sodt_tpu_torch.data.tiff import write_tiff
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    for (rgb, ir, labels), stem in zip(items, stems):
+        write_tiff(root / "images" / f"{stem}_co.tif", rgb, **BT_AERIAL_RGB)
+        write_tiff(root / "images" / f"{stem}_ir.tif", ir_scaled(ir),
+                   **BT_AERIAL_IR)
+        (root / "labels" / f"{stem}.txt").write_text("\n".join(
+            " ".join(f"{v:.9g}" for v in r) for r in labels) + "\n")
+    fold = root / "fold.txt"
+    fold.write_text("".join(f"{root / 'images' / s}_co.tif\n"
+                            for s in stems))
+    return str(fold)
+
+
+def _aerial_tie(workdir: Path, items, stems: list) -> dict:
+    """(d): the aerial folder of `items` and its PNG twin (the RGB as the
+    numpy decoder reads the JPEG TIFF, the IR's 8-bit pixels). The float IR
+    holds ir / 255 as the card computes it (`img.float() / 255.0` of the
+    eval step), so that both folders give the model the same inputs: the
+    float IR reaches it unscaled, as in JAX. `val --data` in bf16 on each
+    (PER_FORWARD), the tiles of the aerial folder against the python
+    source's, C++ = numpy on its files."""
+    import numpy as np
+    import torch
+    from sodt_tpu_torch.data import native_loader, tiff
+    scaled = lambda ir: (torch.from_numpy(np.ascontiguousarray(
+        ir[..., 0])).cuda().float() / 255.0).cpu().numpy()
+    root = workdir / "aerial_tif"
+    fold = _aerial_folder(root, items, stems, scaled)
+    twin = workdir / "aerial_twin"
+    decoded = [(tiff.read_tiff(root / "images" / f"{s}_co.tif"), ir, lab)
+               for (_, ir, lab), s in zip(items, stems)]
+    twin_write = _write_png_folder(twin, decoded, stems, None)
+    files = sorted((root / "images").iterdir())
+    cpp_equal = all(_bit_equal(native_loader.decode_tiff(f),
+                               tiff.read_tiff(f)) for f in files)
+    ir_exact = all(np.array_equal(tiff.read_tiff(root / "images" /
+                                                 f"{s}_ir.tif")[..., 0],
+                                  scaled(ir))
+                   for (_, ir, _), s in zip(items, stems))
+    evals = {"aerial": _tie_val(root, stems, "tif"),
+             "png": _tie_val(twin, stems, "png")}
+    tiles = _native_tiles(fold)
+    ok = (all(evals["aerial"][k] == evals["png"][k] for k in ("map50", "map"))
+          and all(e["launches_ok"] and e["seen"] == len(stems)
+                  for e in evals.values())
+          and tiles["bit_equal"] and twin_write["bit_equal"] and cpp_equal
+          and ir_exact and evals["png"]["map50"] > 0.5)
+    return {**evals, "tiles_bit_equal": tiles["bit_equal"],
+            "cpp_equals_numpy": cpp_equal, "ir_samples_exact": ir_exact,
+            "predicted": BT_AERIAL_PREDICTED["tie"], "ok": bool(ok)}
+
+
+def _aerial_decode_ms(workdir: Path) -> dict:
+    """(e): ms to decode one 1024 px aerial pair (JPEG_PAIRS pairs of
+    `SyntheticVedai(seed=5)`, as (c)): the tile loader at 1024 px on its
+    pool and held to one core, the C++ decode of `_read_image` on the
+    calling thread (`_native_tiles`), and the numpy decoder on the first
+    pair, twice."""
+    import numpy as np
+    from sodt_tpu_torch.data import SyntheticVedai, tiff
+    src = SyntheticVedai(n=JPEG_PAIRS, img_size=JPEG_RAW, nc=8, seed=5)
+    stems = [f"{i:08d}" for i in range(JPEG_PAIRS)]
+    root = workdir / "aerial1024"
+    nat = _native_tiles(_aerial_folder(
+        root, (src[i] for i in range(JPEG_PAIRS)), stems,
+        lambda ir: ir[..., 0] / np.float32(255)), JPEG_RAW)
+    numpy_ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        for m in ("co", "ir"):
+            tiff.read_tiff(root / "images" / f"{stems[0]}_{m}.tif")
+        numpy_ms.append(1e3 * (time.perf_counter() - t))
+    keys = {"cpp_pool": "native_ms_per_pair",
+            "cpp_one_core": "native_ms_per_pair_one_core",
+            "cpp_calling_thread": "python_ms_per_pair"}
+    return {"side": JPEG_RAW, "pairs": JPEG_PAIRS,
+            "bytes_per_pair": sum(p.stat().st_size for p in
+                                  (root / "images").iterdir()) / JPEG_PAIRS,
+            "tiles": nat, "numpy_ms_per_pair": numpy_ms,
+            "median": {**{k: float(np.median(nat[v])) if nat.get(v) else None
+                          for k, v in keys.items()},
+                       "numpy": float(np.median(numpy_ms))},
+            "predicted": BT_AERIAL_PREDICTED["aerial_1024_pair_ms"]}
 
 
 def phase_bmp_tiff(label: str, workdir: Path, trained: dict) -> dict:
@@ -4257,9 +4392,7 @@ def phase_bmp_tiff(label: str, workdir: Path, trained: dict) -> dict:
                       else (native_loader.decode_tiff, tiff.read_tiff))
         a, b = cpp(f), plain(f)
         fixtures[f.name] = {"shape": list(a.shape), "dtype": str(a.dtype),
-                            "bit_equal": bool(a.shape == b.shape
-                                              and a.dtype == b.dtype
-                                              and np.array_equal(a, b))}
+                            "bit_equal": _bit_equal(a, b)}
     damaged = _damaged_agree(files, workdir / "bt_damaged")
     ok_a = (len(files) >= 40 and all(v["bit_equal"]
                                      for v in fixtures.values())
@@ -4297,9 +4430,22 @@ def phase_bmp_tiff(label: str, workdir: Path, trained: dict) -> dict:
     dec = {ext: _bt_decode_ms(workdir, ext) for ext in ("bmp", "tif")}
     ok = ok and all(d["tiles"]["bit_equal"] for d in dec.values())
     emit({"phase": f"{label}_decode_ms", "card": card_line(), **dec})
+
+    # (d) aerial TIFF (YCbCr JPEG RGB, float32 IR): one mAP with its PNG
+    # twin; (e) the decode ms of a 1024 px such pair
+    t_de = time.perf_counter()
+    aerial = _aerial_tie(workdir, items[:BT_AERIAL_N], stems[:BT_AERIAL_N])
+    emit({"phase": f"{label}_aerial_tie", **aerial})
+    aerial_dec = _aerial_decode_ms(workdir)
+    emit({"phase": f"{label}_aerial_decode_ms", "card": card_line(),
+          **aerial_dec, "parts_d_e_s": time.perf_counter() - t_de,
+          "parts_d_e_s_predicted": BT_AERIAL_PREDICTED["parts_d_e_s"]})
+    ok = ok and aerial["ok"] and aerial_dec["tiles"]["bit_equal"]
     row.update(fixtures_ok=ok_a, tie=evals,
                tiles_bit_equal={e: t["bit_equal"] for e, t in tiles.items()},
                decode_ms={e: d["median"] for e, d in dec.items()},
+               aerial_tie={k: aerial[k] for k in ("aerial", "png", "ok")},
+               aerial_decode_ms=aerial_dec["median"],
                wall_s=time.perf_counter() - t0, launches={}, ok=bool(ok))
     emit(row)
     return row

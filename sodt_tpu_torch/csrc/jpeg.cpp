@@ -43,6 +43,8 @@
 #include <string>
 #include <vector>
 
+#include "jpeg.h"
+
 namespace sodt_jpeg {
 
 struct JpegError : std::runtime_error {
@@ -334,9 +336,18 @@ class Decoder {
   int width() const { return w_; }
   int height() const { return h_; }
   int channels() const { return int(comps_.size()) == 1 ? 1 : 3; }
+  // the frame a TIFF chunk takes: its width, and from `rows` to `top` rows
+  void limit(int cols, int rows, int top) { lim_cols_ = cols, lim_rows_ = rows, lim_top_ = top; }
+  // each component's sampling factors (h, v)
+  std::vector<std::pair<int, int>> sampling() const {
+    std::vector<std::pair<int, int>> s;
+    for (const auto& c : comps_) s.emplace_back(c.h, c.v);
+    return s;
+  }
 
   // (h, w, c) uint8 into out: gray, or RGB
-  void Output(uint8_t* out) {
+  // ycc: -1 RGB or YCbCr as the markers say, 1 YCbCr -> RGB, 0 as stored
+  void Output(uint8_t* out, int ycc = -1) {
     std::vector<std::vector<uint8_t>> planes;
     for (auto& c : comps_) {
       if (hmax_ % c.h || vmax_ % c.v)
@@ -348,9 +359,10 @@ class Decoder {
       std::memcpy(out, planes[0].data(), n);
       return;
     }
-    bool rgb = (!jfif_ && adobe_ == 0) ||
-               (!jfif_ && adobe_ < 0 && comps_[0].id == 82 && comps_[1].id == 71 &&
-                comps_[2].id == 66);
+    bool rgb = ycc == 0 ||
+               (ycc < 0 && ((!jfif_ && adobe_ == 0) ||
+                            (!jfif_ && adobe_ < 0 && comps_[0].id == 82 &&
+                             comps_[1].id == 71 && comps_[2].id == 66)));
     const uint8_t *p0 = planes[0].data(), *p1 = planes[1].data(), *p2 = planes[2].data();
     if (rgb) {
       for (size_t i = 0; i < n; ++i) {
@@ -420,6 +432,11 @@ class Decoder {
     if (!h_ || !w_)
       throw JpegError("unsupported image size " + std::to_string(w_) + " x " +
                       std::to_string(h_));
+    if (lim_cols_ && (w_ != lim_cols_ || h_ < lim_rows_ || h_ > lim_top_))
+      // a TIFF chunk's frame, refused before its coefficients are allocated
+      throw JpegError("broken TIFF file (a JPEG strip or tile of " + std::to_string(w_) + " x " +
+                      std::to_string(h_) + " for " + std::to_string(lim_cols_) + " x " +
+                      std::to_string(lim_rows_) + ")");
     if (seg_.size() != size_t(6 + 3 * nc) || nc == 0) throw JpegError("broken JPEG file (SOF)");
     if (nc == 4) throw JpegError("CMYK / YCCK JPEG (4 components) is not supported");
     if (nc != 1 && nc != 3)
@@ -811,6 +828,7 @@ class Decoder {
   int adobe_ = -1;
   bool have_frame_ = false, progressive_ = false, truncated_ = false;
   int w_ = 0, h_ = 0, hmax_ = 0, vmax_ = 0, mcux_ = 0, mcuy_ = 0;
+  int lim_cols_ = 0, lim_rows_ = 0, lim_top_ = 0;
   std::vector<Component> comps_;
 };
 
@@ -845,6 +863,31 @@ void decode(const uint8_t* data, size_t n, int* h, int* w, int* c, std::vector<u
   *c = dec.channels();
   px->resize(size_t(*h) * *w * *c);
   dec.Output(px->data());
+}
+
+void decode_segment(const uint8_t* tables, size_t tn, const uint8_t* data, size_t n,
+                    bool ycc, int cols, int rows, int top, int* h, int* w, int* c,
+                    std::vector<uint8_t>* px, std::vector<std::pair<int, int>>* sampling) {
+  std::vector<uint8_t> joined;
+  if (tn) {
+    if (tn < 2 || n < 2 || tables[0] != 0xFF || tables[1] != 0xD8 || data[0] != 0xFF ||
+        data[1] != 0xD8)
+      throw JpegError("broken JPEG strip or tile (no SOI)");
+    const size_t end = tables[tn - 2] == 0xFF && tables[tn - 1] == 0xD9 ? tn - 2 : tn;
+    joined.assign(tables, tables + end);
+    joined.insert(joined.end(), data + 2, data + n);
+    data = joined.data();
+    n = joined.size();
+  }
+  Decoder dec(data, n);
+  dec.limit(cols, rows, top);
+  dec.Run(false);
+  *h = dec.height();
+  *w = dec.width();
+  *c = dec.channels();
+  px->resize(size_t(*h) * *w * *c);
+  dec.Output(px->data(), ycc ? 1 : 0);
+  *sampling = dec.sampling();
 }
 
 }  // namespace sodt_jpeg

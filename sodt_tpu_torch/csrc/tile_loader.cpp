@@ -67,8 +67,9 @@ void decode(const uint8_t* data, size_t n, int* h, int* w, int* c, std::vector<u
 
 // csrc/bmp.cpp, csrc/tiff.cpp and csrc/webp.cpp: a BMP, TIFF or WebP file in
 // memory -> (h, w) and its (h, w) B G R pixels as OpenCV 4.6 reads them (gray
-// widened, alpha dropped, 16-bit samples saturated); throw std::runtime_error
-// with the cause
+// widened, alpha dropped, 16-bit, signed and float samples saturated as its
+// convertTo(CV_8U) does); throw std::runtime_error with the cause, which for
+// the TIFF kinds on which 4.6 aborts its process names the kind
 namespace sodt_bmp {
 void decode_bgr(const uint8_t* data, size_t n, int* h, int* w, std::vector<uint8_t>* bgr);
 }  // namespace sodt_bmp

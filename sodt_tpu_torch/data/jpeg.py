@@ -29,6 +29,10 @@ pixels, step for step:
                     libjpeg then smooths its blocks.
                     Arithmetic coding, lossless, hierarchical, 12-bit and
                     CMYK / YCCK files raise ValueError naming what they are.
+  decode_segment(tables, data, ycc)
+                    a TIFF strip's or tile's JPEG stream after its
+                    JPEGTables, the colour space set by the TIFF's
+                    photometric (`tiff.py`; csrc/jpeg.h's C++ entry).
   jpeg_size(path)   (width, height) as PIL's `Image.open(f).size`: the
                     frame header, through PIL's own marker walk.
   verify_jpeg(path) raises where PIL's `Image.open` plus `verify()` plus the
@@ -241,6 +245,7 @@ class _Decoder:
         self.progressive = False
         self.truncated = False
         self.n_scans = 0
+        self.frame_limit = None      # (width, least rows, most rows)
 
     def fail(self, why: str):
         raise ValueError(f"{self.name}: {why}")
@@ -334,6 +339,11 @@ class _Decoder:
             self.fail(f"{prec}-bit JPEG is not supported")
         if h == 0 or w == 0:
             self.fail(f"unsupported image size {w} x {h}")
+        if self.frame_limit:        # a TIFF chunk's frame, before allocating
+            cols, rows, top = self.frame_limit
+            if w != cols or not rows <= h <= top:
+                self.fail(f"broken TIFF file (a JPEG strip or tile of {w} x "
+                          f"{h} for {cols} x {rows})")
         if len(body) != 6 + 3 * nc or nc == 0:
             self.fail("broken JPEG file (SOF)")
         if nc == 4:
@@ -746,9 +756,15 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """The bytes of a JPEG file -> (H, W, 1) gray or (H, W, 3) RGB uint8."""
+def _decode(data: bytes, name: str, ycc: bool | None = None,
+            frame_limit=None):
+    """The pixels and the frame of a JPEG stream. Three components are
+    YCbCr converted to RGB, or RGB as stored where the markers say so
+    (module doc); `ycc` True or False says it instead. `frame_limit`
+    (width, least rows, most rows) refuses another frame size before its
+    coefficients are allocated."""
     dec = _Decoder(bytes(data), name)
+    dec.frame_limit = frame_limit
     dec.run()
     f = dec.frame
     w, h, comps = f["w"], f["h"], f["comps"]
@@ -759,13 +775,39 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
             dec.fail("JPEG with fractional sampling ratios is not supported")
         planes.append(_upsample(_plane(c), hf, vf, w, h))
     if len(comps) == 1:
-        return planes[0].astype(np.uint8)[..., None]
+        return planes[0].astype(np.uint8)[..., None], f
     ids = [c.id for c in comps]
-    rgb = ((not dec.jfif and dec.adobe == 0)
-           or (not dec.jfif and dec.adobe is None and ids == [82, 71, 66]))
-    if rgb:
-        return np.stack(planes, -1).astype(np.uint8)
-    return _ycc_to_rgb(*planes)
+    if ycc is None:
+        ycc = not ((not dec.jfif and dec.adobe == 0)
+                   or (not dec.jfif and dec.adobe is None
+                       and ids == [82, 71, 66]))
+    if not ycc:
+        return np.stack(planes, -1).astype(np.uint8), f
+    return _ycc_to_rgb(*planes), f
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The bytes of a JPEG file -> (H, W, 1) gray or (H, W, 3) RGB uint8."""
+    return _decode(data, name)[0]
+
+
+def decode_segment(tables: bytes | None, data: bytes, ycc: bool,
+                   frame_limit, name: str = "<bytes>"):
+    """A TIFF strip's or tile's JPEG stream (compression 7): the tables of
+    JPEGTables (a tables-only stream, or None) read first, then the
+    chunk's own stream, as libtiff feeds libjpeg; three components are
+    YCbCr converted to RGB with `ycc`, else RGB as stored (libtiff sets
+    the colour space by the TIFF's photometric); a frame other than
+    `frame_limit` (width, least rows, most rows) raises before it is
+    decoded. Returns the pixels and each component's sampling factors
+    (h, v)."""
+    if tables:
+        if tables[:2] != SOI or data[:2] != SOI:
+            raise ValueError(f"{name}: broken JPEG strip or tile (no SOI)")
+        end = len(tables) - 2 if tables[-2:] == b"\xff\xd9" else len(tables)
+        data = tables[:end] + data[2:]
+    px, f = _decode(data, name, ycc, frame_limit)
+    return px, [(c.h, c.v) for c in f["comps"]]
 
 
 def read_jpeg(path: str | Path) -> np.ndarray:

@@ -113,7 +113,8 @@ def decode_jpeg(path) -> np.ndarray:
 
 # the sample kinds of `bmp_file_decode` / `tiff_file_decode` /
 # `webp_file_decode`
-_KINDS = {0: np.bool_, 1: np.uint8, 2: np.uint16}
+_KINDS = {0: np.bool_, 1: np.uint8, 2: np.uint16, 3: np.int8, 4: np.int16,
+          5: np.int32, 6: np.uint32, 7: np.float32, 8: np.float64}
 _NOT_IMPLEMENTED = "not implemented: "
 
 
@@ -158,7 +159,8 @@ def decode_bmp(path) -> np.ndarray:
 
 def decode_tiff(path) -> np.ndarray:
     """A TIFF file -> what the JAX package's `_read_image` returns for it
-    (`data/tiff.py`'s table), decoded by the host library
+    (`data/tiff.py`'s table: bool, uint8, uint16, int8, int16, int32,
+    uint32, float32 or float64 samples), decoded by the host library
     (`csrc/tiff.cpp`)."""
     return _decode_file("tiff", path)
 

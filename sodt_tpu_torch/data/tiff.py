@@ -8,7 +8,13 @@ JAX package's `_read_image` returns (`sodt_tpu/data/vedai.py`: cv2's
 IMREAD_UNCHANGED then `[..., ::-1]`, or `np.asarray(PIL.Image.open(f))`
 where cv2 is absent), taking for each kind the branch `png.py` names: 8-bit
 gray, RGB and RGBA as cv2 5.0 gives them, palette, 1-, 2-, 4- and 16-bit
-images as PIL gives them.
+images as PIL gives them. The kinds aerial imagery adds (JPEG, YCbCr, CMYK,
+signed, float and 32-bit samples) take cv2's branch: cv2 reads every one of
+them, where PIL opens only some and differs on several (int16 widened to
+int32, uint32 and int8 reinterpreted, CMYK as inverted ink, no float or
+integer colour, big-endian floats under predictor 3 misread), and JAX's
+`_read_image` takes cv2 wherever it imports. CMYK with an extra sample,
+which cv2 does not read, takes PIL's.
 
   kind                              read_tiff                       branch
   8-bit gray (MinIsBlack)           (H, W, 1) uint8                 cv2
@@ -19,6 +25,27 @@ images as PIL gives them.
                                       premultiplied (c a + 127)
                                       // 255 where ExtraSamples
                                       is 2 (unassociated alpha)
+  JPEG (7): gray, RGB (photometric  (H, W, 1) / (H, W, 3) uint8:    cv2
+    2), YCbCr (6) of 1 x 1, 2 x 1,    each strip's or tile's stream
+    2 x 2 data units                  after JPEGTables, through
+                                      `jpeg.decode_segment`; YCbCr
+                                      to RGB (libjpeg's fancy
+                                      upsampling, which libtiff leaves
+                                      on), RGB as stored
+  YCbCr (6), not JPEG: 1 x 1,       (H, W, 3) uint8 RGB: each data  cv2
+    2 x 1, 2 x 2 data units           unit's Cb Cr on its pixels,
+                                      libtiff's TIFFYCbCrToRGB (16-bit
+                                      fixed point from the float32
+                                      YCbCrCoefficients and Reference-
+                                      BlackWhite, defaults .299 .587
+                                      .114 and 0 255 128 255 128 255)
+  CMYK (5), 8-bit, InkSet 1         (H, W, 4) 255, R, G, B; R =     cv2
+                                      (255 - K)(255 - C) // 255
+  CMYK + extra sample               (H, W, 3) C M Y as stored       PIL
+  signed 8-, 16-, 32-bit, unsigned  (H, W, 1) / (H, W, 3) int8,     cv2
+    32-bit, float 32- and 64-bit:     int16, int32, uint32, float32,
+    gray, RGB, RGB + extra sample     float64 as stored; (H, W, 4)
+                                      A R G B, nothing premultiplied
   1-bit gray                        (H, W, 1) bool (1: white;       PIL
                                       MinIsWhite: 0 is white)
   2-, 4-bit gray                    (H, W, 1) uint8 v * 85, v * 17  PIL
@@ -36,52 +63,80 @@ images as PIL gives them.
                        palette colours (the colour map's samples // 256),
                        16-bit gray clipped at 255, other 16-bit samples
                        their high byte, associated alpha divided out, any
-                       alpha dropped.
+                       alpha dropped; float gray ("F") truncated and
+                       clipped to 0-255, NaN 0; "I" gray (int16, int32,
+                       uint32 read as int32) clipped; int8 as its bytes
+                       ("L"); CMYK nk - c nk / 255 (PIL's rounding); JPEG
+                       and YCbCr as `read_tiff`. Raises where PIL opens no
+                       such file, and for uncompressed YCbCr, which PIL
+                       reads as RGBX bytes and runs out of. A big-endian
+                       float under predictor 3, which PIL misreads, follows
+                       the true samples.
   tiff_size(path)      (width, height) as PIL's `Image.size`: swapped where
                        the Orientation tag is 5-8.
   verify_tiff(path)    raises where PIL's `Image.open` (its `verify` reads
-                       no pixels) plus the JAX scan's 10 px assert fail.
+                       no pixels) plus the JAX scan's 10 px assert fail (a
+                       float or integer RGB TIFF, which PIL does not open, is
+                       corrupt to the scan).
   write_tiff(path, arr, compression, predictor, tile)
-                       uint8 or uint16 gray or RGB as a little-endian
-                       TIFF: no compression, deflate or PackBits; one strip
-                       or tiles; predictor 2 (the files `chip_smoke.py`
+                       uint8 or uint16 gray or RGB, float32 gray, as a
+                       little-endian TIFF: no compression, deflate,
+                       PackBits or JPEG (uint8; RGB as YCbCr 4:2:0, the
+                       port's PIL-equal encoder, JPEGTables); one strip or
+                       tiles; predictor 2 or 3 (the files `chip_smoke.py`
                        and the folder tests write).
 
 Read: byte order II and MM, classic TIFF and BigTIFF, the first IFD only
 (as cv2 and PIL read a multi-page file); strips and tiles; planar
-configuration 1 and 2; compression 1 (none), 5 (LZW), 8 and 32946
-(deflate), 32773 (PackBits); predictor 1 and 2; photometric 0, 1, 2 and 3.
+configuration 1 and 2 (1 only for the kinds aerial imagery adds);
+compression 1 (none), 5 (LZW), 7 (JPEG), 8 and 32946 (deflate), 32773
+(PackBits); predictor 1, 2 (at 8, 16, 32 and 64 bits, on the unsigned
+word) and 3 (floating point: each row's bytes summed at the pixel's
+stride, then read as planes, most significant byte first, whatever the
+byte order); FillOrder 1 and 2 (2 reverses each byte's bits before the
+codec, as libtiff does; its JPEG codec ignores it); photometric 0, 1, 2, 3,
+5 and 6. The RATIONAL tags are read as libtiff reads them, float(double(n)
+/ d).
 
 The Orientation tag: cv2 turns the image by it (2-4 flip it, in both
 OpenCVs), and so does PIL 12 on load for 2-4. OpenCV 4.6 also turns it by
 5-8 (transposes), where cv2 5.0 returns no image; the cv2 branch here takes
 4.6's turn. PIL reads a 5-8 file with its sides swapped before it turns it,
-so the PIL branch raises NotImplementedError for those.
+so the PIL branch raises NotImplementedError for those, and so do the kinds
+aerial imagery adds for any turn.
 
 A damaged file: a strip or tile past the end of the file raises
 ValueError, as cv2 returns no image and PIL fails. Where a strip's
 compressed data stops short or breaks (a cut LZW or PackBits run, a bad
 LZW code, a bad deflate stream), libtiff's RGBA reader, through which both
-OpenCVs read the kinds of 8 bits and fewer, keeps the strip as its decoder
-left it: the bytes that came before the fault, zeros after, the predictor
-not undone (a cut PackBits literal run is dropped whole; deflate is zlib's
-reading, which stops at the strip's last byte and reads no Adler-32 after
-it). `read_tiff` does the same on its cv2 branch and raises ValueError on
-PIL's, which fails there; `read_tiff_rgb` raises, as PIL's `convert`
-fails. An uncompressed strip is read from its offset for as many bytes as
-its rows take, as PIL reads it and as libtiff reads a file of one strip
-whose byte count is bogus. The Predictor tag counts with LZW and deflate
-only, as libtiff registers it with those codecs alone. A 16-bit palette
-raises ValueError: neither libtiff nor PIL reads one. So does an image of
-more than 2^30 pixels, which OpenCV refuses, before any is allocated, and
-one of more than 2 x 89478485 wherever the port reads as PIL does, as
-PIL's open refuses it.
+OpenCVs read the unsigned kinds of 8 bits and fewer but JPEG, keeps the
+strip as its decoder left it: the bytes that came before the fault, zeros
+after, the predictor not undone (a cut PackBits literal run is dropped
+whole; deflate is zlib's reading, which stops at the strip's last byte and
+reads no Adler-32 after it). `read_tiff` does the same on its cv2 branch
+for those kinds and raises ValueError elsewhere, as PIL and OpenCV's
+encoded-strip read fail; `read_tiff_rgb` raises, as PIL's `convert` fails.
+A JPEG strip decodes as the JPEG decoder decodes a file (a cut stream
+filled as libjpeg fills it) and raises where it raises; a frame narrower
+than the strip or tile, shorter than its rows, or sampled unlike
+YCbCrSubsampling (1 x 1 unless YCbCr) raises, as libtiff refuses it. An
+uncompressed strip is read from its offset for as many bytes as its rows
+take, as PIL reads it and as libtiff reads a file of one strip whose byte
+count is bogus. The Predictor tag counts with LZW and deflate only, as
+libtiff registers it with those codecs alone. A 16-bit palette, and 16-bit
+float samples, raise ValueError: neither cv2 nor PIL reads one. So does an
+image of more than 2^30 pixels, which OpenCV refuses, before any is
+allocated, and one of more than 2 x 89478485 wherever the port reads as PIL
+does, as PIL's open refuses it.
 
-Out of scope, raising NotImplementedError naming the kind: JPEG (6, 7),
-CCITT (2, 3, 4) and other compressions, old-style LZW, float, signed or
-32-bit samples (SampleFormat 2 and 3, predictor 3), FillOrder 2, the
-photometrics other than 0-3 (CMYK, YCbCr, CIELab, ...), a palette with
-extra samples, 16-bit gray with extra samples, more than one extra sample.
+Out of scope, raising NotImplementedError naming the kind (ROADMAP Queue 1
+item 18): CCITT (2, 3, 4), old-style JPEG (6) and other compressions,
+old-style LZW, CIELab and the other photometrics, YCbCr subsampled other
+than 1 x 1, 2 x 1, 2 x 2, JPEG-compressed CMYK, InkSet 2, a palette with
+extra samples, 16-bit gray or signed / float / 32-bit gray with an extra
+sample, more than one extra sample, planar configuration 2 or an
+Orientation turn for the kinds aerial imagery adds, uncompressed tiles
+under FillOrder 2 (libtiff fails on the small ones).
 """
 
 from __future__ import annotations
@@ -93,6 +148,8 @@ from types import SimpleNamespace
 
 import numpy as np
 
+from .jpeg import decode_segment
+
 SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 MIN_SIDE = 10        # the JAX scan's "image size <10 pixels" assert
 MAX_PIXELS = 1 << 30             # OpenCV's CV_IO_MAX_IMAGE_PIXELS
@@ -102,13 +159,13 @@ TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
              11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
 _INT_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I",
             16: "Q", 17: "q", 18: "Q"}
-# the compressions read (none, LZW, deflate twice, PackBits) -> the most
-# bytes each makes of one byte of its data (LZW: a 9-bit code for a string
-# of up to 4096 bytes)
-RATIO = {1: 1, 5: 4096, 8: 1032, 32946: 1032, 32773: 128}
+# the compressions read (none, LZW, JPEG, deflate twice, PackBits) -> the
+# most bytes each makes of one byte of its data (LZW: a 9-bit code for a
+# string of up to 4096 bytes; JPEG: a 16 x 16 MCU of 768 bytes in 4 bits)
+RATIO = {1: 1, 5: 4096, 7: 1536, 8: 1032, 32946: 1032, 32773: 128}
 _COMPRESSION_NAMES = {2: "CCITT RLE (2)", 3: "CCITT Group 3 (3)",
                       4: "CCITT Group 4 (4)", 6: "old-style JPEG (6)",
-                      7: "JPEG (7)", 34712: "JPEG 2000 (34712)",
+                      34712: "JPEG 2000 (34712)",
                       34925: "LZMA (34925)", 50000: "Zstandard (50000)",
                       50001: "WebP (50001)"}
 # the compressions PIL knows the name of (an unknown one fails its open)
@@ -172,10 +229,14 @@ PIL_KEYS = _pil_keys()
 
 
 class _Ifd:
-    """The first IFD: byte order, BigTIFF or not, {tag: tuple of ints}."""
+    """The first IFD: byte order, BigTIFF or not, {tag: tuple of ints},
+    {tag: tuple of float32 values} of its RATIONAL tags, and the bytes of
+    JPEGTables (347)."""
 
-    def __init__(self, bo: str, big: bool, tags: dict):
+    def __init__(self, bo: str, big: bool, tags: dict, rationals: dict,
+                 tables: bytes | None):
         self.bo, self.big, self.tags = bo, big, tags
+        self.rationals, self.tables = rationals, tables
 
     def get(self, tag: int, default=None):
         v = self.tags.get(tag)
@@ -187,12 +248,14 @@ def _walk_ifd(data: bytes, name: str, pil: bool) -> _Ifd:
     reads it: BigTIFF told by the third byte being 43 (which misses a
     big-endian BigTIFF), a read that runs out ending the walk with the tags
     read so far, a tag of a type PIL does not know skipped. Without, as
-    libtiff reads it: any short read raises."""
+    libtiff reads it: any short read raises. RATIONAL values are kept as
+    libtiff reads them, float(double(n) / d) (0 where d is 0)."""
     if data[:4] not in SIGNATURES:
         raise ValueError(f"{name}: not a TIFF file (signature)")
     bo = "<" if data[:2] == b"II" else ">"
     big = data[2] == 43 if pil else data[:4] in SIGNATURES[2:]
-    if big and not pil and struct.unpack(bo + "HH", data[4:8]) != (8, 0):
+    if big and not pil and (len(data) < 8 or struct.unpack(
+            bo + "HH", data[4:8]) != (8, 0)):
         raise ValueError(f"{name}: broken BigTIFF header")
     head = 16 if big else 8
     if len(data) < head:
@@ -202,7 +265,7 @@ def _walk_ifd(data: bytes, name: str, pil: bool) -> _Ifd:
     if not first:
         raise ValueError(f"{name}: broken TIFF file (no IFD)")
     ent, count_bytes, inline = (20, 8, 8) if big else (12, 2, 4)
-    tags = {}
+    tags, rationals, tables = {}, {}, None
     pos = first
     try:
         if pos + count_bytes > len(data):
@@ -227,19 +290,37 @@ def _walk_ifd(data: bytes, name: str, pil: bool) -> _Ifd:
                 if at + size > len(data):
                     raise EOFError(f"tag {tag}'s data past the end of the "
                                    "file")
-            if not size or typ not in _INT_FMT:
+            if tag == 347 and typ in (1, 7):
+                tables = bytes(data[at:at + size])
+            if not size:
+                continue
+            if typ == 5:
+                v = struct.unpack_from(f"{bo}{2 * count}I", data, at)
+                rationals[tag] = tuple(
+                    float(np.float32(a / b)) if b else 0.0
+                    for a, b in zip(v[::2], v[1::2]))
+            if typ not in _INT_FMT:
                 continue
             tags[tag] = struct.unpack_from(f"{bo}{count}{_INT_FMT[typ]}",
                                            data, at)
     except EOFError as e:
         if not pil:
             raise ValueError(f"{name}: broken TIFF file ({e})") from None
-    return _Ifd(bo, big, tags)
+    return _Ifd(bo, big, tags, rationals, tables)
 
 
 def _one(ifd: _Ifd, tag: int, default=None):
     v = ifd.get(tag)
     return default if v is None else v[0]
+
+
+# (SampleFormat, bits) -> the samples' dtype
+DTYPES = {(1, 8): np.uint8, (1, 16): np.uint16, (1, 32): np.uint32,
+          (2, 8): np.int8, (2, 16): np.int16, (2, 32): np.int32,
+          (3, 32): np.float32, (3, 64): np.float64}
+YCBCR_SUBSAMPLING = ((1, 1), (2, 1), (2, 2))
+LUMA = (0.299, 0.587, 0.114)                  # YCbCrCoefficients' default
+REF_BW = (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)  # libtiff's for YCbCr
 
 
 def _info(data: bytes, name: str) -> SimpleNamespace:
@@ -258,18 +339,19 @@ def _info(data: bytes, name: str) -> SimpleNamespace:
     photo = _one(ifd, 262)
     spp = _one(ifd, 277, 1)
     bps = ifd.get(258, (1,))
-    sf = ifd.get(339, (1,))
+    sfs = ifd.get(339, (1,))
     # libtiff knows the Predictor tag only with the codecs that take it
     pred = _one(ifd, 317, 1) if comp in (5, 8, 32946) else 1
     fill = _one(ifd, 266, 1)
     extra = ifd.get(338, ())
     planar = _one(ifd, 284, 1)
+    orient = _one(ifd, 274, 1)
 
     def out_of_scope(what):
         return NotImplementedError(
             f"{name}: a TIFF image with {what}; the port reads uncompressed, "
-            "LZW, deflate and PackBits gray, RGB and palette images of 1-16 "
-            "bits")
+            "LZW, deflate, PackBits and JPEG gray, RGB, palette, CMYK and "
+            "YCbCr images of unsigned, signed and float samples")
 
     if comp not in RATIO:
         raise out_of_scope(_COMPRESSION_NAMES.get(
@@ -277,29 +359,39 @@ def _info(data: bytes, name: str) -> SimpleNamespace:
     if photo is None:
         raise ValueError(f"{name}: broken TIFF file (no photometric "
                          "interpretation)")
-    if photo not in (0, 1, 2, 3):
+    if photo not in (0, 1, 2, 3, 5, 6):
         raise out_of_scope(
             f"photometric {_PHOTOMETRIC_NAMES.get(photo, photo)}")
     if len(set(bps)) != 1:
         raise out_of_scope(f"mixed bits per sample {bps}")
     bits = bps[0]
-    if set(sf) - {1}:
-        kind = {2: "signed", 3: "floating-point"}.get(max(sf), "other")
-        raise out_of_scope(f"{kind} samples (SampleFormat {max(sf)})")
-    if bits not in (1, 2, 4, 8, 16):
-        raise out_of_scope(f"{bits}-bit samples")
-    if pred not in (1, 2):
+    if len(set(sfs)) != 1:
+        raise out_of_scope(f"mixed sample formats {sfs}")
+    sf = sfs[0]
+    if sf not in (1, 2, 3):
+        raise out_of_scope(f"SampleFormat {sf}")
+    if sf == 3 and bits == 16:
+        raise ValueError(f"{name}: unreadable TIFF (16-bit floating-point "
+                         "samples, which neither cv2 nor PIL reads)")
+    if (sf, bits) not in DTYPES and not (sf == 1 and bits in (1, 2, 4)):
+        raise out_of_scope(f"{bits}-bit samples (SampleFormat {sf})")
+    if pred not in (1, 2, 3):
         raise out_of_scope(f"predictor {pred}")
-    if fill != 1:
-        raise out_of_scope(f"FillOrder {fill}")
-    colours = 3 if photo == 2 else 1
+    if pred == 3 and sf != 3:
+        raise ValueError(f"{name}: broken TIFF file (the floating-point "
+                         f"predictor with SampleFormat {sf})")
+    if fill not in (1, 2):
+        raise ValueError(f"{name}: broken TIFF file (FillOrder {fill})")
+    numeric = sf != 1 or bits >= 32
+    colours = {2: 3, 5: 4, 6: 3}.get(photo, 1)
     if spp - colours not in (0, 1):
         raise out_of_scope(f"{spp} samples per pixel (photometric {photo})")
-    if spp > colours and photo == 3:
+    more = spp > colours
+    if more and photo == 3:
         raise out_of_scope("a palette and an extra sample")
-    if spp > colours and bits == 16 and photo < 2:
+    if more and bits == 16 and photo < 2:
         raise out_of_scope("16-bit gray and an extra sample")
-    if spp > colours and bits < 8:
+    if more and bits < 8:
         raise out_of_scope(f"{bits}-bit samples and an extra sample")
     if photo == 2 and bits < 8:
         raise out_of_scope(f"{bits}-bit RGB")
@@ -309,6 +401,38 @@ def _info(data: bytes, name: str) -> SimpleNamespace:
     if pred == 2 and bits < 8:
         raise ValueError(f"{name}: broken TIFF file (predictor 2 with "
                          f"{bits}-bit samples)")
+    if numeric and photo not in (1, 2):
+        raise out_of_scope(f"{bits}-bit samples of SampleFormat {sf} under "
+                           f"photometric {photo}")
+    if numeric and more and photo == 1:
+        raise out_of_scope(f"{bits}-bit gray (SampleFormat {sf}) and an "
+                           "extra sample")
+    if photo in (5, 6) and (bits != 8 or sf != 1):
+        raise out_of_scope(f"{bits}-bit samples under photometric "
+                           f"{_PHOTOMETRIC_NAMES[photo]}")
+    if photo == 5 and _one(ifd, 332, 1) != 1:
+        raise out_of_scope(f"InkSet {_one(ifd, 332)} (CMYK is InkSet 1)")
+    sub = ifd.get(530, ())
+    sub = tuple(sub[:2]) if len(sub) >= 2 else (2, 2)
+    if photo == 6:
+        if more:
+            raise out_of_scope("YCbCr and an extra sample")
+        if sub not in YCBCR_SUBSAMPLING:
+            raise out_of_scope(f"YCbCr subsampling {sub[0]} x {sub[1]}")
+        if pred != 1 and sub != (1, 1):
+            raise out_of_scope(f"predictor {pred} with subsampled YCbCr")
+    if comp == 7:
+        if photo not in (1, 2, 6) or bits != 8 or sf != 1 or more:
+            raise out_of_scope(f"JPEG compression under photometric {photo} "
+                               f"({spp} x {bits} bits)")
+        pred, fill = 1, 1           # libtiff's JPEG codec reverses no bits
+    new_kind = numeric or photo in (5, 6) or comp == 7
+    if new_kind and orient != 1:
+        raise out_of_scope(f"orientation {orient} with photometric {photo} "
+                           f"and {bits}-bit samples of SampleFormat {sf}")
+    if planar == 2 and spp > 1 and new_kind:
+        raise out_of_scope(f"planar configuration 2 under photometric "
+                           f"{photo} with {bits}-bit samples")
     cmap = None
     if photo == 3:
         cmap = ifd.get(320)
@@ -326,6 +450,10 @@ def _info(data: bytes, name: str) -> SimpleNamespace:
         offsets, counts = ifd.get(273), ifd.get(279)
         if offsets is None:
             raise ValueError(f"{name}: broken TIFF file (no strips)")
+    if tiled and fill == 2 and comp == 1:
+        # libtiff's reading of them fails on small tiles (an RGBA tile of
+        # fewer than 1024 pixels) and not on large ones
+        raise out_of_scope("uncompressed tiles under FillOrder 2")
     planes = spp if planar == 2 and spp > 1 else 1
     across, down = -(-w // tw), -(-h // th)
     if len(offsets) < across * down * planes or (
@@ -334,19 +462,32 @@ def _info(data: bytes, name: str) -> SimpleNamespace:
                          f"{across * down * planes} strips or tiles)")
     if counts is None and comp != 1:
         raise ValueError(f"{name}: broken TIFF file (no byte counts)")
+    units = sub if photo == 6 and comp != 7 else None
+    t = SimpleNamespace(
+        w=w, h=h, comp=comp, photo=photo, spp=spp, bits=bits, sf=sf,
+        pred=pred, fill=fill, extra=tuple(extra), planes=planes, tiled=tiled,
+        tw=tw, th=th, across=across, down=down, offsets=offsets,
+        counts=counts, cmap=cmap, orient=orient, bo=ifd.bo, big=ifd.big,
+        units=units, sub=sub, tables=ifd.tables,
+        luma=ifd.rationals.get(529, LUMA)[:3],
+        ref_bw=ifd.rationals.get(532, REF_BW)[:6])
+    if photo == 6 and (len(t.luma) < 3 or len(t.ref_bw) < 6):
+        raise ValueError(f"{name}: broken TIFF file (YCbCr coefficients)")
     # no codec makes more than RATIO[comp] bytes of a byte of its data: a
     # file that claims more pixels than that is refused before they are
     # allocated
-    need = ((down * th if tiled else h) * across * planes
-            * -(-tw * (spp // planes) * bits // 8))
+    rows = down * th if tiled else h
+    if comp == 7:
+        need = rows * across * tw * spp
+    elif units:
+        hs, vs = units
+        need = -(-rows // vs) * across * -(-tw // hs) * (hs * vs + 2)
+    else:
+        need = rows * across * planes * -(-tw * (spp // planes) * bits // 8)
     if need > RATIO[comp] * len(data):
         raise ValueError(f"{name}: broken TIFF file ({w} x {h} pixels, more "
                          f"than its {len(data)} bytes can hold)")
-    return SimpleNamespace(
-        w=w, h=h, comp=comp, photo=photo, spp=spp, bits=bits, pred=pred,
-        extra=tuple(extra), planes=planes, tiled=tiled, tw=tw, th=th,
-        across=across, down=down, offsets=offsets, counts=counts, cmap=cmap,
-        orient=_one(ifd, 274, 1), bo=ifd.bo, big=ifd.big)
+    return t
 
 
 # ------------------------------------------------------------- codecs
@@ -596,11 +737,15 @@ def _inflate_to_fault(src: bytes, need: int) -> bytes:
 
 # ------------------------------------------------------------- samples
 
+_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
 def _chunk(data: bytes, t: SimpleNamespace, i: int, need: int,
            name: str) -> tuple[bytes, str | None]:
     """Strip or tile i, decompressed to `need` bytes, and the cause of its
     codec's fault or None (the codecs above); a strip past the end of the
-    file raises."""
+    file raises. FillOrder 2 reverses the bits of each byte of the data
+    first, as libtiff does before it decodes."""
     off = t.offsets[i]
     cnt = t.counts[i] if t.counts is not None else need
     if t.comp == 1:
@@ -611,11 +756,14 @@ def _chunk(data: bytes, t: SimpleNamespace, i: int, need: int,
                 data):
             raise ValueError(f"{name}: truncated TIFF file (strip or tile "
                              f"{i} past the end of the file)")
-        return data[off:off + need], None
+        src = data[off:off + need]
+        return (src.translate(_REVERSED) if t.fill == 2 else src), None
     if off + cnt > len(data):
         raise ValueError(f"{name}: truncated TIFF file (strip or tile {i} "
                          "past the end of the file)")
     src = data[off:off + cnt]
+    if t.fill == 2:
+        src = src.translate(_REVERSED)
     if t.comp == 5:
         return _lzw(src, need, name)
     if t.comp == 32773:
@@ -623,15 +771,29 @@ def _chunk(data: bytes, t: SimpleNamespace, i: int, need: int,
     return _inflate(src, need, name)
 
 
+def _dtype(t: SimpleNamespace):
+    return DTYPES.get((t.sf, t.bits), np.uint8)
+
+
 def _unpack(raw: bytes, rows: int, cols: int, k: int, t: SimpleNamespace,
             predict: bool = True):
     """A decompressed chunk of `rows` x `cols` pixels of k samples ->
-    (rows, cols, k) uint8 / uint16, the predictor undone with `predict`."""
-    if t.bits == 16:
-        a = np.frombuffer(raw, t.bo + "u2").astype(np.uint16).reshape(
-            rows, cols, k)
-    elif t.bits == 8:
-        a = np.frombuffer(raw, np.uint8).reshape(rows, cols, k)
+    (rows, cols, k) of the samples' dtype (uint8 for 1-8 bits), the
+    predictor undone with `predict`: 2 sums each sample with the one k to
+    its left (wrapping, on the unsigned word); 3 sums each byte of the
+    row with the one k to its left, then reads the row's bytes as planes,
+    most significant byte first."""
+    dt = _dtype(t)
+    if t.bits >= 8 and t.pred == 3 and predict:
+        b = t.bits // 8
+        v = np.frombuffer(raw, np.uint8).reshape(rows, cols * b, k)
+        v = np.cumsum(v, axis=1, dtype=np.uint8)
+        v = v.reshape(rows, b, cols * k).transpose(0, 2, 1)
+        return np.ascontiguousarray(v).view(f">{np.dtype(dt).str[1:]}"
+                                            ).reshape(rows, cols, k).astype(dt)
+    if t.bits >= 8:
+        a = np.frombuffer(raw, np.dtype(dt).newbyteorder(t.bo)).astype(
+            dt).reshape(rows, cols, k)
     else:
         stride = -(-cols * k * t.bits // 8)
         bits = np.unpackbits(np.frombuffer(raw, np.uint8).reshape(
@@ -640,30 +802,81 @@ def _unpack(raw: bytes, rows: int, cols: int, k: int, t: SimpleNamespace,
         a = (bits.reshape(rows, cols * k, t.bits) * weights).sum(
             -1, dtype=np.uint8).reshape(rows, cols, k)
     if t.pred == 2 and predict:
-        a = np.cumsum(a, axis=1, dtype=a.dtype)
+        u = a.view(f"u{a.dtype.itemsize}")
+        a = np.cumsum(u, axis=1, dtype=u.dtype).view(a.dtype)
     return a
+
+
+def _units(raw: bytes, rows: int, cols: int, t: SimpleNamespace):
+    """A chunk of YCbCr data units -> (rows, cols) Y, Cb, Cr planes, each
+    unit's Cb and Cr on all of its hs x vs pixels."""
+    hs, vs = t.units
+    ur, uc = -(-rows // vs), -(-cols // hs)
+    u = np.frombuffer(raw, np.uint8).reshape(ur, uc, hs * vs + 2)
+    y = u[..., :hs * vs].reshape(ur, uc, vs, hs).transpose(0, 2, 1, 3)
+    y = y.reshape(ur * vs, uc * hs)
+    rep = lambda c: np.repeat(np.repeat(c, vs, 0), hs, 1)
+    return np.stack([y, rep(u[..., -2]), rep(u[..., -1])], -1)[:rows, :cols]
+
+
+def _jpeg(data: bytes, t: SimpleNamespace, i: int, rows: int, cols: int,
+          name: str) -> np.ndarray:
+    """Strip or tile i of a JPEG-compressed TIFF: its stream after the
+    JPEGTables (`jpeg.decode_segment`), YCbCr converted to RGB where the
+    photometric is YCbCr and left as stored where it is RGB, as libtiff
+    sets libjpeg's colour spaces. The frame must be the chunk's width and
+    at least its rows (libtiff warns of fewer and then fails), at most
+    its nominal rows (libtiff refuses more, except in a last strip, where
+    the port refuses more than RowsPerStrip before allocating), its first
+    component sampled as YCbCrSubsampling says (1 x 1 unless YCbCr) and
+    the others 1 x 1, as libtiff requires."""
+    off = t.offsets[i]
+    cnt = t.counts[i]
+    if off + cnt > len(data):
+        raise ValueError(f"{name}: truncated TIFF file (strip or tile {i} "
+                         "past the end of the file)")
+    px, samp = decode_segment(t.tables, data[off:off + cnt], t.photo == 6,
+                              (cols, rows, t.th), name)
+    if len(samp) != t.spp:
+        raise ValueError(f"{name}: broken TIFF file (a JPEG strip or tile "
+                         f"of {len(samp)} components for {t.spp} samples)")
+    want = [t.sub if t.photo == 6 else (1, 1)] + [(1, 1)] * (t.spp - 1)
+    if samp != want:
+        raise ValueError(f"{name}: broken TIFF file (JPEG sampling factors "
+                         f"{samp}, where libtiff takes {want})")
+    return px[:rows]
 
 
 def _samples(data: bytes, t: SimpleNamespace, name: str,
              fill: bool = False) -> np.ndarray:
-    """Every strip or tile placed: (h, w, spp) uint8 (the sample values at
-    1-8 bits) or uint16. A codec's fault raises ValueError, or with `fill`
-    leaves the strip as libtiff's RGBA reader does: the bytes that came
-    before it, zeros after, the predictor not undone."""
-    out = np.zeros((t.h, t.w, t.spp), np.uint16 if t.bits == 16
-                   else np.uint8)
+    """Every strip or tile placed: (h, w, spp) samples (uint8 at 1-8 bits,
+    the dtype of SampleFormat and bits else); YCbCr data units as (h, w,
+    3) Y, Cb, Cr; JPEG chunks decoded (gray, RGB or YCbCr -> RGB). A
+    codec's fault raises ValueError, or with `fill` leaves the strip as
+    libtiff's RGBA reader does: the bytes that came before it, zeros after,
+    the predictor not undone."""
+    out = np.zeros((t.h, t.w, t.spp), _dtype(t))
     k = t.spp // t.planes
-    stride = -(-t.tw * k * t.bits // 8)
     i = 0
     for p in range(t.planes):
         for ty in range(t.down):
             for tx in range(t.across):
                 y0, x0 = ty * t.th, tx * t.tw
                 rows = t.th if t.tiled else min(t.th, t.h - y0)
-                raw, fault = _chunk(data, t, i, rows * stride, name)
-                if fault and not fill:
-                    raise ValueError(f"{name}: {fault}")
-                a = _unpack(raw, rows, t.tw, k, t, predict=not fault)
+                if t.comp == 7:
+                    a = _jpeg(data, t, i, rows, t.tw, name)
+                else:
+                    if t.units:
+                        hs, vs = t.units
+                        need = (-(-rows // vs) * -(-t.tw // hs)
+                                * (hs * vs + 2))
+                    else:
+                        need = rows * -(-t.tw * k * t.bits // 8)
+                    raw, fault = _chunk(data, t, i, need, name)
+                    if fault and not fill:
+                        raise ValueError(f"{name}: {fault}")
+                    a = (_units(raw, rows, t.tw, t) if t.units else
+                         _unpack(raw, rows, t.tw, k, t, predict=not fault))
                 y1, x1 = min(y0 + rows, t.h), min(x0 + t.tw, t.w)
                 out[y0:y1, x0:x1, p * k:(p + 1) * k] = a[:y1 - y0, :x1 - x0]
                 i += 1
@@ -680,6 +893,12 @@ def _orient(img: np.ndarray, o: int) -> np.ndarray:
     return np.ascontiguousarray(turned)
 
 
+def _rgba_reader(t: SimpleNamespace) -> bool:
+    """OpenCV reads these through libtiff's RGBA reader, which fills a
+    broken strip; the others through TIFFReadEncodedStrip, which fails."""
+    return t.sf == 1 and t.bits <= 8 and t.comp != 7
+
+
 def _load(path, fill=None) -> tuple[SimpleNamespace, np.ndarray]:
     """The image's description and samples; `fill` (a function of the
     description) says whether a codec's fault fills the strip."""
@@ -689,7 +908,10 @@ def _load(path, fill=None) -> tuple[SimpleNamespace, np.ndarray]:
 
 
 def _cv2_branch(t: SimpleNamespace) -> bool:
-    return t.bits == 8 and t.photo != 3
+    """The kinds `read_tiff` reads as cv2 5.0 does (module doc)."""
+    return ((t.bits == 8 and t.photo != 3
+             and not (t.photo == 5 and t.spp == 5))
+            or t.sf != 1 or t.bits >= 32)
 
 
 def _pil_bomb(w: int, h: int, name: str) -> None:
@@ -701,13 +923,14 @@ def _pil_bomb(w: int, h: int, name: str) -> None:
 def _pil_mode(t: SimpleNamespace, name: str) -> str:
     """PIL's mode for the image, or ValueError where PIL does not open it
     (and so the JAX package, without cv2, reads nothing)."""
-    key = (t.bo, t.photo, (1,), 1, (t.bits,) * t.spp, t.extra)
+    key = (t.bo, t.photo, (t.sf,), t.fill, (t.bits,) * t.spp, t.extra)
     if t.big and t.bo == ">":
         raise ValueError(f"{name}: PIL opens no big-endian BigTIFF")
     _pil_bomb(t.w, t.h, name)
     if key not in PIL_KEYS:
         raise ValueError(f"{name}: PIL reads no such TIFF (photometric "
-                         f"{t.photo}, {t.spp} x {t.bits} bits)")
+                         f"{t.photo}, {t.spp} x {t.bits} bits, SampleFormat "
+                         f"{t.sf}, FillOrder {t.fill})")
     if t.orient in (5, 6, 7, 8):
         raise NotImplementedError(
             f"{name}: a TIFF image with orientation {t.orient} read through "
@@ -734,19 +957,86 @@ def _unpremultiply(rgb: np.ndarray, a: np.ndarray) -> np.ndarray:
     return np.where(a == 255, rgb, np.where(a == 0, 0, v)).astype(np.uint8)
 
 
+def _cmyk_rgb(s: np.ndarray) -> np.ndarray:
+    """libtiff's RGBA reader on 8-bit CMYK: (255 - K)(255 - C) // 255 for
+    R, and so for G and B."""
+    s = s.astype(np.int32)
+    k = 255 - s[..., 3:4]
+    return (k * (255 - s[..., :3]) // 255).astype(np.uint8)
+
+
+def _cmyk_pil(s: np.ndarray) -> np.ndarray:
+    """PIL's `convert("RGB")` of CMYK: nk - c nk / 255 (its MULDIV255
+    rounding), nk = 255 - K."""
+    s = s.astype(np.int32)
+    nk = 255 - s[..., 3:4]
+    t = s[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def _code2v(c, rb: float, rw: float, cr: int) -> np.ndarray:
+    """libtiff's Code2V: (c - (int) RB) * (float) CR / (float) (RW - RB),
+    clamped to +-4096 and truncated, in float32."""
+    f32 = np.float32
+    den = f32(rw) - f32(rb)
+    den = den if den != 0 else f32(1)
+    v = (np.asarray(c - np.trunc(f32(rb)), f32) * f32(cr)) / den
+    return np.trunc(np.clip(v, f32(-4096), f32(4096))).astype(np.int64)
+
+
+def _ycbcr_rgb(ycc: np.ndarray, luma, ref_bw) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGB (tables of 16-bit fixed point from the
+    float32 coefficients and ReferenceBlackWhite) on (..., 3) Y Cb Cr
+    bytes."""
+    f32 = np.float32
+    lr, lg, lb = (f32(v) for v in luma)
+    fix = lambda x: int(float(x) * 65536.0 + 0.5)
+    f1 = f32(2) - f32(2) * lr
+    f3 = f32(2) - f32(2) * lb
+    d1, d3 = fix(np.clip(f1, 0, 2)), fix(np.clip(f3, 0, 2))
+    d2, d4 = -fix(np.clip(lr * f1 / lg, 0, 2)), -fix(np.clip(lb * f3 / lg,
+                                                             0, 2))
+    x = np.arange(256) - 128
+    rb = [f32(v) for v in ref_bw]
+    cr = _code2v(x, rb[4] - f32(128), rb[5] - f32(128), 127)
+    cb = _code2v(x, rb[2] - f32(128), rb[3] - f32(128), 127)
+    cr_r, cb_b = (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + 32768
+    y_tab = _code2v(x + 128, rb[0], rb[1], 255)
+    yy = y_tab[ycc[..., 0]]
+    cbv, crv = ycc[..., 1], ycc[..., 2]
+    rgb = np.stack([yy + cr_r[crv], yy + ((cb_g[cbv] + cr_g[crv]) >> 16),
+                    yy + cb_b[cbv]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _colour(s: np.ndarray, t: SimpleNamespace) -> np.ndarray:
+    """YCbCr data units or CMYK samples as the RGBA reader leaves them
+    (JPEG chunks come out of the decoder in RGB already)."""
+    if t.units:
+        return _ycbcr_rgb(s, t.luma, t.ref_bw)
+    return s
+
+
 def read_tiff(path: str | Path) -> np.ndarray:
     """Decode a TIFF to the layout of the JAX package's `_read_image`
     (module doc)."""
-    t, s = _load(path, fill=_cv2_branch)     # PIL raises on a codec fault
+    t, s = _load(path, fill=lambda t: _cv2_branch(t) and _rgba_reader(t))
     name = str(path)
     if _cv2_branch(t):
-        if t.photo < 2:
-            img = _gray(s[..., :1], t)
+        if t.photo == 5:                          # A = 255, R G B
+            img = np.concatenate([np.full_like(s[..., :1], 255),
+                                  _cmyk_rgb(s)], -1)
+        elif t.photo == 6:
+            img = _colour(s, t)
+        elif t.photo < 2:
+            img = s[..., :1] if t.sf != 1 or t.bits >= 32 else _gray(
+                s[..., :1], t)
         elif t.spp == 3:
             img = s
         else:
             rgb = s[..., :3]
-            if t.extra == (2,):
+            if t.extra == (2,) and t.bits == 8 and t.sf == 1:
                 rgb = _premultiply(rgb, s[..., 3:])
             img = np.concatenate([s[..., 3:], rgb], -1)
         return _orient(img, t.orient)
@@ -757,6 +1047,8 @@ def read_tiff(path: str | Path) -> np.ndarray:
         img = _gray(s, t)
         if t.bits == 1:
             img = img != 0
+    elif t.photo == 5:                            # CMYK: the ink as stored
+        img = s[..., :3]
     else:
         img = (s >> 8).astype(np.uint8)
         if t.extra == (1,):
@@ -771,13 +1063,30 @@ def read_tiff_rgb(path: str | Path) -> np.ndarray:
     """Decode a TIFF to (H, W, 3) uint8 RGB as PIL's `convert("RGB")`
     does (module doc)."""
     t, s = _load(path)
-    _pil_mode(t, str(path))
+    mode = _pil_mode(t, str(path))
     if t.photo == 3:
         img = (t.cmap // 256).astype(np.uint8)[s[..., 0]]
+    elif mode == "F":
+        v = s[..., :1]
+        with np.errstate(invalid="ignore"):
+            g = np.where(np.isnan(v), 0, np.clip(np.trunc(v), 0, 255))
+        img = np.repeat(g.astype(np.uint8), 3, -1)
+    elif mode == "I" or t.sf == 2:
+        # PIL reads 32-bit unsigned as int32 and signed 8-bit as its bytes
+        v = s[..., :1].astype({4: np.int32, 1: np.uint8}.get(
+            s.dtype.itemsize, s.dtype))
+        img = np.repeat(np.clip(v, 0, 255).astype(np.uint8), 3, -1)
     elif t.photo < 2:
         g = (np.minimum(s[..., :1], 255).astype(np.uint8) if t.bits == 16
              else _gray(s[..., :1], t))
         img = np.repeat(g, 3, -1)
+    elif t.photo == 5:
+        img = _cmyk_pil(s)
+    elif t.photo == 6:
+        if t.comp == 1:
+            raise ValueError(f"{path}: PIL reads uncompressed YCbCr as RGBX "
+                             "bytes and runs out of them")
+        img = _colour(s, t)
     else:
         img = s if t.bits == 8 else (s >> 8).astype(np.uint8)
         if t.extra == (1,):
@@ -865,31 +1174,69 @@ def _packbits_encode(row: bytes) -> bytes:
     return bytes(out)
 
 
+def _jpeg_chunks(blocks) -> tuple[bytes, list]:
+    """The port's JPEG (`jpeg.encode_jpeg`: PIL's defaults, RGB as YCbCr
+    4:2:0) of each block as an abbreviated stream, and the quantization and
+    Huffman tables they share as a tables-only stream (JPEGTables)."""
+    from .jpeg import encode_jpeg
+    tables, chunks = None, []
+    for blk in blocks:
+        s, pos, keep, tab = encode_jpeg(blk), 2, [], []
+        while s[pos + 1] != 0xDA:
+            n = struct.unpack(">H", s[pos + 2:pos + 4])[0]
+            (tab if s[pos + 1] in (0xDB, 0xC4) else keep if s[pos + 1]
+             != 0xE0 else []).append(s[pos:pos + 2 + n])
+            pos += 2 + n
+        t = b"\xff\xd8" + b"".join(tab) + b"\xff\xd9"
+        if tables not in (None, t):
+            raise AssertionError("the blocks' JPEG tables differ")
+        tables = t
+        chunks.append(b"\xff\xd8" + b"".join(keep) + s[pos:])
+    return tables, chunks
+
+
 def write_tiff(path: str | Path, arr: np.ndarray, compression="none",
                predictor=1, tile=None) -> None:
-    """Write `arr` ((H, W) gray or (H, W, 3) RGB, uint8 or uint16) as a
-    little-endian TIFF with one IFD: one strip, or tiles of `tile`
-    (height, width), multiples of 16. `compression` is "none", "deflate"
-    or "packbits"; `predictor` 2 takes deflate."""
+    """Write `arr` ((H, W) gray or (H, W, 3) RGB, uint8 or uint16; (H, W)
+    float32) as a little-endian TIFF with one IFD: one strip, or tiles of
+    `tile` (height, width), multiples of 16. `compression` is "none",
+    "deflate", "packbits" or "jpeg" (uint8: RGB as YCbCr 4:2:0 with
+    YCbCrSubsampling 2 x 2, the tables in JPEGTables; tiles padded with
+    their edge pixels); `predictor` 2 (integer) and 3 (float) take
+    deflate."""
     s = np.asarray(arr)
     if s.ndim == 2:
         s = s[..., None]
     h, w, spp = s.shape
-    if s.dtype not in (np.uint8, np.uint16) or spp not in (1, 3):
-        raise ValueError(f"write_tiff takes uint8 or uint16 gray or RGB, "
-                         f"not {s.dtype} {s.shape}")
-    bits = 16 if s.dtype == np.uint16 else 8
-    comp = {"none": 1, "deflate": 8, "packbits": 32773}[compression]
-    if predictor == 2 and comp != 8:
-        raise ValueError("predictor 2 takes deflate (readers ignore it "
-                         "without LZW or deflate)")
+    if (s.dtype not in (np.uint8, np.uint16, np.float32) or spp not in (1, 3)
+            or (s.dtype == np.float32 and spp != 1)):
+        raise ValueError(f"write_tiff takes uint8 or uint16 gray or RGB and "
+                         f"float32 gray, not {s.dtype} {s.shape}")
+    bits = 8 * s.dtype.itemsize
+    comp = {"none": 1, "deflate": 8, "packbits": 32773,
+            "jpeg": 7}[compression]
+    if predictor in (2, 3) and comp != 8:
+        raise ValueError("predictors 2 and 3 take deflate (readers ignore "
+                         "them without LZW or deflate)")
+    if predictor == 3 and s.dtype != np.float32 or (
+            predictor == 2 and s.dtype == np.float32):
+        raise ValueError("predictor 3 takes float32 samples, 2 integers")
+    if comp == 7 and s.dtype != np.uint8:
+        raise ValueError("JPEG takes uint8 samples")
 
     def encode(block: np.ndarray) -> bytes:
         if predictor == 2:                  # differences wrap, unsigned
             d = block.copy()
             d[:, 1:] = block[:, 1:] - block[:, :-1]
             block = d
-        raw = block.astype("<u2" if bits == 16 else np.uint8).tobytes()
+        if predictor == 3:                  # byte planes, then differences
+            r, c, _ = block.shape
+            v = block.astype(">f4").view(np.uint8).reshape(r, c, 4)
+            v = v.transpose(0, 2, 1).reshape(r, 4 * c).astype(np.int64)
+            v[:, 1:] = v[:, 1:] - v[:, :-1]
+            raw = (v & 255).astype(np.uint8).tobytes()
+        else:
+            raw = block.astype(block.dtype.newbyteorder("<")).tobytes()
         if comp == 8:
             return zlib.compress(raw)
         if comp == 32773:
@@ -899,16 +1246,26 @@ def write_tiff(path: str | Path, arr: np.ndarray, compression="none",
         return raw
 
     th, tw = tile or (h, w)
-    chunks = []
+    blocks = []
     for y in range(0, h, th):
         for x in range(0, w, tw):
-            blk = np.zeros((th, tw, spp), s.dtype)
             part = s[y:y + th, x:x + tw]
-            blk[:part.shape[0], :part.shape[1]] = part
-            chunks.append(encode(blk))
+            blocks.append(np.pad(part, ((0, th - part.shape[0]),
+                                        (0, tw - part.shape[1]), (0, 0)),
+                                 mode="edge" if comp == 7 else "constant"))
     tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
             259: (3, [comp]), 262: (3, [1 if spp == 1 else 2]),
             277: (3, [spp]), 284: (3, [1])}
+    if comp == 7:
+        tables, chunks = _jpeg_chunks(
+            [b[..., 0] if spp == 1 else b for b in blocks])
+        tags[347] = (7, tables)
+        if spp == 3:
+            tags[262], tags[530] = (3, [6]), (3, [2, 2])
+    else:
+        chunks = [encode(b) for b in blocks]
+    if s.dtype == np.float32:
+        tags[339] = (3, [3])
     if predictor != 1:
         tags[317] = (3, [predictor])
     if tile:
@@ -927,8 +1284,8 @@ def write_tiff(path: str | Path, arr: np.ndarray, compression="none",
     entries, spill = b"", bytearray()
     for tag in sorted(tags):
         typ, vals = tags[tag]
-        payload = struct.pack(f"<{len(vals)}{'H' if typ == 3 else 'I'}",
-                              *vals)
+        payload = (bytes(vals) if typ == 7 else struct.pack(
+            f"<{len(vals)}{'H' if typ == 3 else 'I'}", *vals))
         if len(payload) <= 4:
             value = payload + b"\0" * (4 - len(payload))
         else:

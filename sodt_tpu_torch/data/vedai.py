@@ -2,9 +2,10 @@
 
 A fold list names the RGB images (`*_co.png`, `*_co.jpg`, ...); the IR image
 is the `*_ir` file beside each, the label `labels/<stem>.txt` beside `images/`
-(`class cx cy w h`, normalized, one object a line). Items are uint8 RGB
-and IR tiles resized so that the longest side is `img_size`, and the
-(n, 5) labels.
+(`class cx cy w h`, normalized, one object a line). Items are the RGB and
+IR images resized so that the longest side is `img_size`, in the dtype
+`_read_image` gives (uint8 mostly; a 16-bit IR stays uint16, a float or
+signed one float32 or int16, as in JAX), and the (n, 5) labels.
 
 Decoding is the port's own (the card's machine has neither cv2 nor PIL),
 chosen by the file's signature as cv2 chooses it, and `_read_image` returns
@@ -19,8 +20,9 @@ what JAX's `_read_image` returns:
         decode_bmp`): 24- and 32-bit as cv2, palette (indices) and 16-bit
         as PIL (`bmp.py`'s table);
   TIFF  the host library's decoder (`csrc/tiff.cpp`, `native_loader.
-        decode_tiff`): 8-bit gray and RGB(A) as cv2, palette (indices), 1-,
-        2-, 4- and 16-bit as PIL (`tiff.py`'s table);
+        decode_tiff`): 8-bit gray and RGB(A), JPEG, YCbCr, CMYK, signed,
+        float and 32-bit samples as cv2, palette (indices), 1-, 2-, 4- and
+        16-bit as PIL (`tiff.py`'s table);
   WebP  the host library's decoder (`csrc/webp.cpp`, `native_loader.
         decode_webp`): lossy and lossless, (H, W, 3) RGB, or (H, W, 4) A R
         G B with alpha, the pixels of cv2 (`webp.py`'s table); an animated
@@ -28,7 +30,8 @@ what JAX's `_read_image` returns:
 Where the host library does not build, a JPEG, BMP, TIFF or WebP read
 raises with the compiler's words; it never falls back to the numpy
 decoders. DNG raises NotImplementedError naming the format. The resize is
-the port's own too (`resize.resize_longest`, cv2's arithmetic). The
+the port's own too (`resize.resize_longest`, cv2's arithmetic for every
+dtype cv2 resizes, IPP's where cv2 takes it). The
 integrity scan verifies each file with `verify_png`, `verify_jpeg`,
 `verify_bmp`, `verify_tiff` or `verify_webp` where JAX calls PIL's
 `Image.verify`, and marks the same files corrupt; `image_size` is PIL's
@@ -132,7 +135,8 @@ def _read_image(path: str) -> np.ndarray:
 
 
 class VedaiDataset:
-    """Index-addressable paired dataset: (rgb u8, ir u8, labels (n, 5))."""
+    """Index-addressable paired dataset: (rgb, ir, labels (n, 5)), the images
+    in `_read_image`'s dtype (module doc)."""
 
     def __init__(self, list_file: str, img_size: int = 512,
                  prefix: str | None = None):

@@ -97,7 +97,7 @@ def cxx_path() -> str:
 
 def _host_hash() -> str:
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cpp")):
+    for p in sorted([*CSRC.glob("*.cpp"), *CSRC.glob("*.h")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(HOST_FLAGS).encode())

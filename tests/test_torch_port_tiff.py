@@ -77,8 +77,7 @@ def _info(path):
 
 
 def _cv2_branch(path) -> bool:
-    t = _info(path)
-    return t.bits == 8 and t.photo != 3
+    return tiff._cv2_branch(_info(path))
 
 
 def _equal(got, want, what):
@@ -136,11 +135,13 @@ def _turned(img: np.ndarray, o: int) -> np.ndarray:
 # -------------------------------------------------------------- decode
 
 @pytest.mark.parametrize("name", FIXTURE_FILES)
-def test_fixture_decodes_as_jax(lib, name):
+def test_fixture_decodes_as_jax(lib, tmp_path, name):
     """Each checked-in file through the port's three reads; the JAX read of
     the branch the table names; PIL's `convert("RGB")` for
     `read_tiff_rgb`. An image oriented 5-8, which cv2 5.0 does not read, is
-    held to its upright twin turned as OpenCV 4.6 turns it."""
+    held to its upright twin turned as OpenCV 4.6 turns it; a big-endian
+    file under the floating-point predictor, which PIL misreads, to PIL's
+    read of its little-endian twin."""
     path = FIXTURES / name
     got = _all_three(path)
     t = _info(path)
@@ -153,6 +154,16 @@ def test_fixture_decodes_as_jax(lib, name):
             tiff.read_tiff_rgb(path)
         return
     _equal(got, jax_read_image(path, cv2_branch=_cv2_branch(path)), name)
+    if t.pred == 3 and t.bo == ">":
+        # PIL swaps the bytes that libtiff's floating-point predictor
+        # already put in the host's order: the port's convert("RGB") is
+        # held to PIL's of a little-endian twin of the same samples
+        twin = tmp_path / "le.tif"
+        FX.write_tiff(twin, got[..., 0], predictor=3, compression="lzw",
+                      tile=(16, 16))
+        _equal(tiff.read_tiff_rgb(path), _pil_rgb(twin), name)
+        assert not np.array_equal(_pil_rgb(path), _pil_rgb(twin))
+        return
     _rgb_as_pil(path)
 
 
@@ -187,6 +198,9 @@ def _pil_writer(mode, compression):
             img = img.convert("P")
         else:
             img = img.convert(mode)
+        if compression == "jpeg":
+            img.save(p, compression="jpeg", quality=90)
+            return
         img.save(p, compression=compression)
     return write
 
@@ -238,6 +252,32 @@ WRITERS = {  # kind -> (write(path, h, w, seed), cv2 branch or not)
     "own_palette4": (_own_writer(1, bits=4, photometric=3), False),
     "own_rgb16_planar2_deflate": (_own_writer(3, bits=16, planar=2,
                                               compression="deflate"), False),
+    "cv2_jpeg_rgb": (_cv2_writer(3, [cv2.IMWRITE_TIFF_COMPRESSION,
+                                     cv2.IMWRITE_TIFF_COMPRESSION_JPEG,
+                                     cv2.IMWRITE_TIFF_ROWSPERSTRIP, 8]),
+                     True),
+    "pil_jpeg_ycbcr": (_pil_writer("YCbCr", "jpeg"), True),
+    "pil_lzw_cmyk": (_pil_writer("CMYK", "tiff_lzw"), True),
+    "own_jpeg_gray_strips": (lambda p, h, w, s: FX.write_jpeg_tiff(
+        p, FX.scene(h, w, 1, s)[..., 0], subsampling=0, rows_per_strip=16),
+        True),
+    "own_jpeg_ycc21_tiles": (lambda p, h, w, s: FX.write_jpeg_tiff(
+        p, FX.scene(h, w, 3, s), subsampling=1, tile=(16, 32)), True),
+    "own_jpeg_ycc22_strips": (lambda p, h, w, s: FX.write_jpeg_tiff(
+        p, FX.scene(h, w, 3, s), subsampling=2, rows_per_strip=32), True),
+    "own_ycc22_lzw": (lambda p, h, w, s: FX.write_ycbcr(
+        p, FX.scene(h, w, 3, s), (2, 2), compression="lzw",
+        rows_per_strip=16), True),
+    "own_ycc21_deflate": (lambda p, h, w, s: FX.write_ycbcr(
+        p, FX.scene(h, w, 3, s), (2, 1), compression="deflate"), True),
+    "own_float32_pred3_tiles": (lambda p, h, w, s: FX.write_tiff(
+        p, FX.scene(h, w, 1, s)[..., 0] / np.float32(7), predictor=3,
+        compression="deflate", tile=(32, 16)), True),
+    "own_int16_pred2_strips": (lambda p, h, w, s: FX.write_tiff(
+        p, FX.scene(h, w, 1, s)[..., 0].astype(np.int16) * -97,
+        predictor=2, compression="lzw", rows_per_strip=5), True),
+    "own_fill2_deflate_rgb": (_own_writer(3, fill_order=2,
+                                          compression="deflate"), True),
 }
 
 
@@ -482,35 +522,39 @@ def test_sizes_are_bounded_as_pil_and_opencv(lib, tmp_path, side, dtype,
 
 
 def _out_of_scope(tmp_path) -> dict:
-    """what -> a file of a kind the port does not read."""
+    """what -> a file of a kind the port does not read (ROADMAP Queue 1)."""
     rgb = FX.scene(16, 16, 3, 1)
     files = {}
-
-    def cv2_file(name, img, params):
-        ok, enc = cv2.imencode(".tif", img, params)
-        assert ok
-        files[name] = enc.tobytes()
 
     def pil_file(name, img, **kw):
         b = io.BytesIO()
         img.save(b, format="TIFF", **kw)
         files[name] = b.getvalue()
 
-    cv2_file("JPEG (7)", rgb, [cv2.IMWRITE_TIFF_COMPRESSION,
-                               cv2.IMWRITE_TIFF_COMPRESSION_JPEG])
+    def own_file(name, arr, **kw):
+        p = tmp_path / "own.tif"
+        FX.write_tiff(p, arr, **kw)
+        files[name] = p.read_bytes()
+
     pil_file("CCITT Group 4 (4)", Image.fromarray(rgb).convert("1"),
              compression="group4")
-    cv2_file("floating-point samples", rgb.astype(np.float32), [])
-    pil_file("signed samples", Image.fromarray(rgb[..., 0].astype(np.int32)))
-    pil_file("photometric CMYK (5)", Image.fromarray(rgb).convert("CMYK"))
-    pil_file("photometric YCbCr (6)", Image.fromarray(rgb).convert("YCbCr"))
+    pil_file("JPEG compression under photometric 5",
+             Image.fromarray(rgb).convert("CMYK"), compression="jpeg")
+    pil_file("photometric CIELab (8)", Image.fromarray(rgb).convert("LAB"))
     pil_file("a palette and an extra sample", Image.fromarray(rgb).convert(
         "PA"))
-    p = tmp_path / "la16.tif"
-    FX.write_tiff(p, np.zeros((16, 16, 2), np.uint16), extra_samples=[2])
-    files["16-bit gray and an extra sample"] = p.read_bytes()
-    files["FillOrder 2"] = _add_tag(_file(tmp_path, "fill", rgb[..., 0]),
-                                    266, 2)
+    own_file("16-bit gray and an extra sample",
+             np.zeros((16, 16, 2), np.uint16), extra_samples=[2])
+    own_file("old-style JPEG (6)", rgb, compression=6,
+             chunks=[b"\xff\xd8\xff\xd9"])
+    own_file("YCbCr subsampling 4 x 2", rgb, photometric=6,
+             extra_tags={530: (3, [4, 2])})
+    own_file("planar configuration 2 under photometric 6", rgb,
+             photometric=6, planar=2, extra_tags={530: (3, [1, 1])})
+    own_file("orientation 3 with photometric 1 and 32-bit samples",
+             rgb[..., 0].astype(np.float32), orientation=3)
+    own_file("uncompressed tiles under FillOrder 2", rgb, fill_order=2,
+             tile=(16, 16))
     data = bytearray(_file(tmp_path, "old", rgb[..., 0]))
     off = struct.unpack_from("<I", data, _strip_tags(data)[273] + 8)[0]
     data[off:off + 2] = b"\x00\x01"
@@ -533,10 +577,13 @@ def _add_tag(data: bytes, tag: int, value: int) -> bytes:
     return body[:4] + struct.pack("<I", len(body)) + body[8:] + ifd
 
 
-SCOPE = ["JPEG (7)", "CCITT Group 4 (4)", "floating-point samples",
-         "signed samples", "photometric CMYK (5)", "photometric YCbCr (6)",
-         "a palette and an extra sample", "16-bit gray and an extra sample",
-         "FillOrder 2", "old-style LZW"]
+SCOPE = ["CCITT Group 4 (4)", "JPEG compression under photometric 5",
+         "photometric CIELab (8)", "a palette and an extra sample",
+         "16-bit gray and an extra sample", "old-style JPEG (6)",
+         "YCbCr subsampling 4 x 2",
+         "planar configuration 2 under photometric 6",
+         "orientation 3 with photometric 1 and 32-bit samples",
+         "uncompressed tiles under FillOrder 2", "old-style LZW"]
 
 
 @pytest.mark.parametrize("what", SCOPE)
@@ -712,3 +759,108 @@ def test_tiff_folder_batches_equal_jax(lib, folder, rect):
 
 def test_tiff_folder_val_matches_jax(lib, folder, tmp_path, one_torch_thread):
     val_equals_jax(folder, tmp_path)
+
+
+@pytest.fixture(scope="module")
+def aerial_folder(tmp_path_factory):
+    """The PNG VEDAI folder's pairs as aerial imagery ships them: RGB as
+    YCbCr 4:2:0 JPEG in tiles (the port's writer: JPEGTables, PIL's
+    encoder), IR as float32 samples under the floating-point predictor
+    (the 8-bit values, deflated)."""
+    def write(p, img):
+        if img.ndim == 3:
+            tiff.write_tiff(p, img, compression="jpeg", tile=(256, 256))
+        else:
+            tiff.write_tiff(p, img.astype(np.float32), compression="deflate",
+                            predictor=3)
+    return folder_as(tmp_path_factory, "tif", write)
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["square", "rect"])
+def test_aerial_folder_items_and_batches_equal_jax(lib, aerial_folder, rect):
+    """JAX's VedaiDataset items and eval batches, bit-equal, dtypes
+    included: float32 IR items, which JAX's eval step does not scale, and
+    the rect batches' uint8 letterbox of them."""
+    from sodt_tpu.data.vedai import VedaiDataset as JDS
+    from sodt_tpu_torch.data import VedaiDataset as TDS
+    lst = str(aerial_folder["val_list"])
+    j, t = JDS(lst, img_size=256), TDS(lst, img_size=256)
+    for i in range(len(j)):
+        for a, b in zip(t[i], j[i]):
+            _equal(a, b, i)
+        assert t[i][1].dtype == np.float32
+    batches_equal_jax(aerial_folder, rect)
+
+
+def test_aerial_folder_val_matches_jax(lib, aerial_folder, tmp_path,
+                                       one_torch_thread):
+    val_equals_jax(aerial_folder, tmp_path)
+
+
+def test_write_tiff_jpeg_and_float_read_back_as_cv2(lib, tmp_path):
+    """The port's writer: JPEG (RGB as YCbCr 4:2:0, gray; one strip or
+    tiles) reads back through cv2 to the port's decode, float32 under
+    predictor 3 to its samples, bit for bit."""
+    rgb = FX.scene(45, 61, 3, 8)
+    for arr, kw in ((rgb, {}), (rgb, {"tile": (32, 16)}), (rgb[..., 0], {})):
+        path = tmp_path / f"{arr.ndim}_{kw}.tif"
+        tiff.write_tiff(path, arr, compression="jpeg", **kw)
+        got = _all_three(path)
+        _equal(got, jax_read_image(path, cv2_branch=True), path.name)
+        assert np.abs(got.astype(int) - (arr if arr.ndim == 3 else arr[
+            ..., None])).mean() < 20      # quality 75 on a noisy scene
+    f = (rgb[..., 0] / np.float32(3)).astype(np.float32)
+    path = tmp_path / "f.tif"
+    tiff.write_tiff(path, f, compression="deflate", predictor=3)
+    _equal(_all_three(path), f[..., None], "float32")
+    _equal(jax_read_image(path, cv2_branch=True), f[..., None], "float32")
+
+
+@pytest.mark.parametrize("name", FIXTURE_FILES)
+def test_scan_marks_fixtures_as_jax(name):
+    """JAX's integrity scan (PIL's open and verify, the 10 px assert) on
+    each fixture, new kinds included: PIL opens the float, `I` and CMYK
+    kinds it knows and no float or integer colour; `verify_image` raises
+    where the scan marks the file corrupt."""
+    path = FIXTURES / name
+    want = pil_scan(path)
+    if want is None:
+        with pytest.raises(Exception):
+            tv.verify_image(str(path))
+    else:
+        tv.verify_image(str(path))
+        assert tv.image_size(str(path)) == want
+
+
+@pytest.mark.parametrize("case", ["last_strip_full_height", "strip_too_tall",
+                                  "strip_too_narrow"])
+def test_jpeg_strip_frame_sizes_as_libtiff(lib, tmp_path, case):
+    """libtiff takes a last strip whose JPEG frame keeps the full
+    RowsPerStrip (decoded as cv2 decodes it) and refuses a frame taller
+    than its strip elsewhere (cv2 reads nothing); a narrower frame it only
+    warns of and reads on, which the port does not follow. In both
+    refusals the two decoders raise naming the sizes, before the frame is
+    decoded."""
+    rgb = FX.scene(40, 24, 3, 4)
+    rows = 16
+    blocks = [rgb[y:y + rows] for y in range(0, 40, rows)]
+    if case == "last_strip_full_height":
+        blocks[-1] = np.pad(blocks[-1], ((0, rows - len(blocks[-1])), (0, 0),
+                                         (0, 0)), mode="edge")
+    elif case == "strip_too_tall":
+        blocks[0] = rgb[:rows + 8]
+    else:
+        blocks[1] = blocks[1][:, :16]
+    tables, chunks = FX.jpeg_chunks(rgb, blocks, 2)
+    path = tmp_path / f"{case}.tif"
+    FX.write_tiff(path, rgb, compression=7, rows_per_strip=rows,
+                  photometric=6, chunks=chunks,
+                  extra_tags={530: (3, [2, 2]), 347: (7, tables)})
+    read = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if case == "last_strip_full_height":
+        _equal(_all_three(path), read[..., ::-1], case)
+        return
+    assert (read is None) == (case == "strip_too_tall")
+    for decode in (tnative.decode_tiff, tiff.read_tiff):
+        with pytest.raises(ValueError, match="a JPEG strip or tile of"):
+            decode(path)

@@ -219,3 +219,188 @@ def test_tile_source_says_why_it_fell_back(folder, tmp_path, monkeypatch):
     rgb, ir = src.wait(src.submit(np.array([1, 0])))
     np.testing.assert_array_equal(rgb[0], t[1][0])
     np.testing.assert_array_equal(ir[1], t[0][1])
+
+
+# ------------------------------------------- dtypes beyond uint8 (16-bit IR)
+
+def _pair_folder(root, side: tuple[int, int], ir_write) -> str:
+    """One pair, `<stem>_co.<ext>` (8-bit RGB) and `<stem>_ir.<ext>` (16-bit
+    gray), written by `ir_write(path, array)`, and one label; the fold
+    list."""
+    from pathlib import Path
+    root = Path(root)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    h, w = side
+    rng = np.random.default_rng(h * 7 + w)
+    y, x = np.mgrid[:h, :w]
+    base = 90 * np.sin(x / 23.0) * np.cos(y / 17.0) + 128
+    rgb = np.clip(base[..., None] + rng.normal(0, 20, (h, w, 3)), 0,
+                  255).astype(np.uint8)
+    ir16 = np.clip(base * 200 + rng.normal(0, 3000, (h, w)), 0,
+                   65535).astype(np.uint16)
+    ext = ir_write(None, None)
+    ir_write(root / "images" / f"00000001_co.{ext}", rgb)
+    ir_write(root / "images" / f"00000001_ir.{ext}", ir16)
+    (root / "labels" / "00000001.txt").write_text("1 0.5 0.5 0.2 0.3\n")
+    lst = root / "fold.txt"
+    lst.write_text(f"{root / 'images' / f'00000001_co.{ext}'}\n")
+    return str(lst)
+
+
+def _ir_png16(path, arr):
+    """PNG by cv2 (RGB given, written as BGR); the extension for None."""
+    import cv2
+    if path is None:
+        return "png"
+    assert cv2.imwrite(str(path), arr[..., ::-1] if arr.ndim == 3 else arr)
+
+
+def _ir_tiff16(path, arr):
+    """TIFF by the port's writer (deflate, predictor 2)."""
+    from sodt_tpu_torch.data.tiff import write_tiff
+    if path is None:
+        return "tif"
+    write_tiff(path, arr, compression="deflate", predictor=2)
+
+
+RESIZE_16 = [((1024, 1024), 512), ((700, 700), 512), ((300, 300), 512),
+             ((1024, 1024), 128), ((1024, 768), 512), ((300, 211), 512)]
+
+
+@pytest.mark.parametrize("ir_write", [_ir_png16, _ir_tiff16],
+                         ids=["png16", "tiff16"])
+@pytest.mark.parametrize("side,size", RESIZE_16,
+                         ids=[f"{s[0]}x{s[1]}to{n}" for s, n in RESIZE_16])
+def test_16bit_ir_items_equal_jax(tmp_path, ir_write, side, size):
+    """A 16-bit gray IR beside an 8-bit RGB: the port's item equals JAX's,
+    dtype included (uint16 IR, INTER_AREA when shrinking, IPP's linear
+    resize when enlarging). Before the resize took every dtype, the port's
+    IR came back uint8."""
+    lst = _pair_folder(tmp_path, side, ir_write)
+    j = jv.VedaiDataset(lst, img_size=size)
+    (tmp_path / "fold.labels.npz").unlink()
+    t = tv.VedaiDataset(lst, img_size=size)
+    assert len(t) == len(j) == 1
+    for a, b in zip(t[0], j[0]):
+        assert a.dtype == b.dtype and a.shape == b.shape, (a.dtype, b.dtype)
+        np.testing.assert_array_equal(a, b)
+    assert t[0][1].dtype == np.uint16 and t[0][1].max() > 255
+
+
+def _dtype_image(dtype, h: int, w: int, c: int, seed: int) -> np.ndarray:
+    """Smooth structure plus noise over most of the dtype's range: ties of
+    every rounding occur."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:h, :w]
+    base = np.sin(x[..., None] / 9.0 + np.arange(c)) * np.cos(
+        y[..., None] / 7.0)
+    if np.dtype(dtype).kind == "f":
+        return (base * 300 + rng.normal(0, 40, (h, w, c))).astype(dtype)
+    info = np.iinfo(dtype)
+    span = (float(info.max) - float(info.min)) / 2
+    mid = (float(info.max) + float(info.min)) / 2
+    v = mid + span * 0.9 * base + rng.normal(0, span / 20, (h, w, c))
+    return np.clip(np.rint(v), info.min, info.max).astype(dtype)
+
+
+RESIZE_DTYPES = [(1024, 512), (1000, 512), (700, 512), (300, 512),
+                 (211, 512), (37, 512)]
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int16, np.float32,
+                                   np.float64])
+@pytest.mark.parametrize("src,size", RESIZE_DTYPES,
+                         ids=[f"{s}to{d}" for s, d in RESIZE_DTYPES])
+def test_resize_longest_equals_cv2_for_every_dtype(dtype, src, size):
+    """`resize_longest` against JAX's `_resize_longest` (cv2 5.0 with its
+    IPP) at integer and general shrinking factors and enlarged, square and
+    not, 1, 3 and 4 channels. Enlarging float64, and float32 of 3 or 4
+    channels, raises NotImplementedError (IPP's rounding there is not
+    reproduced)."""
+    from sodt_tpu.data.vedai import _resize_longest as jresize
+    from sodt_tpu_torch.data.resize import resize_longest
+    for c in (1, 3, 4):
+        for hw in ((src, src), (src, src * 3 // 4), (src * 2 // 3, src)):
+            img = _dtype_image(dtype, *hw, c, src + c + hw[1])
+            if src < size and (dtype == np.float64 or (
+                    dtype == np.float32 and c > 1)):
+                with pytest.raises(NotImplementedError):
+                    resize_longest(img, size)
+                continue
+            got, want = resize_longest(img, size), jresize(img, size)
+            assert got.dtype == want.dtype == dtype
+            assert got.shape == want.shape, (hw, c)
+            np.testing.assert_array_equal(got, want, err_msg=f"{hw} {c}")
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.int8, np.float16])
+def test_resize_raises_where_cv2_raises(dtype):
+    """cv2.resize refuses these dtypes under INTER_AREA and INTER_LINEAR;
+    so does the port, unless no resize is needed."""
+    import cv2
+    from sodt_tpu_torch.data.resize import resize_longest
+    img = np.ones((40, 30, 1), dtype)
+    for size in (20, 80):
+        with pytest.raises(cv2.error):
+            cv2.resize(img, (size * 3 // 4, size), interpolation=(
+                cv2.INTER_AREA if size < 40 else cv2.INTER_LINEAR))
+        with pytest.raises(TypeError, match=np.dtype(dtype).name):
+            resize_longest(img, size)
+    assert resize_longest(img, 40) is img
+
+
+def test_resize_nan_reaches_what_cv2_sums(tmp_path):
+    """float32 IR with NaN (a nodata value) shrunk and enlarged: NaN reaches
+    exactly the outputs cv2 sums it into."""
+    from sodt_tpu.data.vedai import _resize_longest as jresize
+    from sodt_tpu_torch.data.resize import resize_longest
+    rng = np.random.default_rng(5)
+    for hw, size in (((300, 200), 512), ((1000, 700), 384),
+                     ((1024, 1024), 512)):
+        img = (rng.random((*hw, 1)) * 100).astype(np.float32)
+        img[rng.random((*hw, 1)) < 0.02] = np.nan
+        with np.errstate(invalid="ignore"):
+            got, want = resize_longest(img, size), jresize(img, size)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_predictor_letterbox_takes_the_dtype_as_jax(tmp_path):
+    """The Predictor's letterbox (and `detect`'s, through it) of uint16,
+    int16 and float32 images: the f32 values JAX's `letterbox_image` gives,
+    no uint8 cast."""
+    import jax.numpy as jnp
+    import torch
+    from sodt_tpu.ops.letterbox import letterbox_image as jletterbox
+    from sodt_tpu_torch.models import infer
+    for dtype in (np.uint16, np.int16, np.float32):
+        img = _dtype_image(dtype, 61, 47, 3, 3)
+        item = infer._to_array(img)
+        assert item.dtype == dtype
+        got = infer.Predictor.letterbox(
+            type("P", (), {"img_size": 64, "model": torch.nn.Linear(1, 1)})(),
+            [item])
+        want = jletterbox(jnp.asarray(item, jnp.float32), 64) / 255.0
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def ir16_folder(tmp_path_factory):
+    """The PNG VEDAI folder's pairs with the IR at 16 bits (v * 257 + 3)."""
+    import cv2
+    from torch_port_common import folder_as
+
+    def write(p, img):
+        if img.ndim == 2:
+            img = img.astype(np.uint16) * 257 + 3
+        assert cv2.imwrite(str(p), img[..., ::-1] if img.ndim == 3 else img)
+    return folder_as(tmp_path_factory, "png", write)
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["square", "rect"])
+def test_16bit_ir_eval_batches_equal_jax(ir16_folder, rect):
+    """The eval batches of a 16-bit IR folder (uint16 IR stacked as it is,
+    square; the rect letterbox's uint8 cast) equal JAX's."""
+    from torch_port_common import batches_equal_jax
+    batches_equal_jax(ir16_folder, rect)

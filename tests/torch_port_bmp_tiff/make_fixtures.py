@@ -180,73 +180,202 @@ def bmp_fixtures() -> dict:
 
 # ----------------------------------------------------------------- TIFF
 
+def lzw_encode(raw: bytes) -> bytes:
+    """TIFF LZW: a clear code first, MSB-first codes of 9-12 bits, each
+    width taken where libtiff's decoder takes it (one code early), a clear
+    code before the table fills, the end-of-information code last."""
+    out, acc, nacc = bytearray(), 0, 0
+    nbits = 9
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << nbits) | code
+        nacc += nbits
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 255)
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    put(256)
+    cur = b""
+    for b in raw:
+        s = cur + bytes([b])
+        if s in table:
+            cur = s
+            continue
+        put(table[cur])
+        table[s] = nxt
+        nxt += 1
+        if nxt == 1 << nbits and nbits < 12:
+            nbits += 1
+        if nxt == 4093:
+            put(256)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, nbits = 258, 9
+        cur = bytes([b])
+    if cur:
+        put(table[cur])
+        nxt += 1
+        if nxt == 1 << nbits and nbits < 12:
+            nbits += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def reverse_bits(data: bytes) -> bytes:
+    """Each byte's bits in the other order (FillOrder 2)."""
+    lut = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+    return data.translate(lut)
+
+
+def float_predict(block: np.ndarray) -> bytes:
+    """libtiff's floating-point predictor (3) on (rows, cols, k) samples:
+    each row's bytes split into planes, most significant byte first, then
+    differenced byte by byte at a stride of k."""
+    r, c, k = block.shape
+    b = block.dtype.itemsize
+    be = block.astype(block.dtype.newbyteorder(">")).reshape(r, c * k)
+    planes = be.view(np.uint8).reshape(r, c * k, b).transpose(0, 2, 1)
+    v = planes.reshape(r, b * c * k).astype(np.int64)
+    d = v.copy()
+    d[:, k:] = v[:, k:] - v[:, :-k]
+    return (d & 255).astype(np.uint8).tobytes()
+
+
+def ycbcr_units(ycc: np.ndarray, hs: int, vs: int) -> bytes:
+    """(h, w, 3) Y Cb Cr samples as TIFF YCbCr data units of hs x vs: the
+    hs * vs Y samples row by row, then the cell's mean Cb and Cr (the
+    image padded by its edge samples to whole units)."""
+    h, w, _ = ycc.shape
+    hh, ww = -(-h // vs) * vs, -(-w // hs) * hs
+    pad = np.pad(ycc, ((0, hh - h), (0, ww - w), (0, 0)), mode="edge")
+    cells = pad.reshape(hh // vs, vs, ww // hs, hs, 3).transpose(0, 2, 1, 3, 4)
+    y = cells[..., 0].reshape(hh // vs, ww // hs, vs * hs)
+    cbcr = cells[..., 1:].reshape(hh // vs, ww // hs, vs * hs, 2).mean(2)
+    return np.concatenate([y, cbcr.astype(np.uint8)], -1).astype(
+        np.uint8).tobytes()
+
+
+def jpeg_chunks(img: np.ndarray, blocks, subsampling: int, quality=75):
+    """PIL's JPEG encoding of each block (an (rows, cols[, 3]) array) as
+    abbreviated streams, and the tables they share as one tables-only
+    stream (TIFF's JPEGTables)."""
+    import io
+    from PIL import Image
+    tables, chunks = None, []
+    for blk in blocks:
+        b = io.BytesIO()
+        Image.fromarray(blk).save(b, "JPEG", quality=quality,
+                                  subsampling=subsampling)
+        s, pos, keep, tab = b.getvalue(), 2, [], []
+        while s[pos + 1] != 0xDA:
+            n = struct.unpack(">H", s[pos + 2:pos + 4])[0]
+            seg = s[pos:pos + 2 + n]
+            if s[pos + 1] in (0xDB, 0xC4):
+                tab.append(seg)
+            elif s[pos + 1] != 0xE0:
+                keep.append(seg)
+            pos += 2 + n
+        t = b"\xff\xd8" + b"".join(tab) + b"\xff\xd9"
+        assert tables in (None, t)
+        tables = t
+        chunks.append(b"\xff\xd8" + b"".join(keep) + s[pos:])
+    return tables, chunks
+
+
+TYPES = {3: "H", 4: "I", 16: "Q", 8: "h", 9: "i", 11: "f", 12: "d"}
+
+
 def write_tiff(path: str | Path, arr: np.ndarray, compression="none",
                tile=None, rows_per_strip=None, predictor=1, byteorder="<",
                bigtiff=False, planar=1, photometric=None, bits=None,
-               colormap=None, extra_samples=None, orientation=None) -> None:
-    """Write `arr` ((H, W) or (H, W, spp), uint8 or uint16 samples, in file
-    order) as a TIFF with one IFD, byte by byte. `compression` is "none",
-    "deflate" or "packbits"; `tile` a (height, width) of multiples of 16,
-    else strips of `rows_per_strip` rows (all rows by default); `bits` 1,
-    2 or 4 packs uint8 values of that width (default: 8 or 16 by the
-    dtype); `colormap` (2**bits, 3) uint16 for photometric 3."""
+               colormap=None, extra_samples=None, orientation=None,
+               sample_format=None, fill_order=1, extra_tags=None,
+               chunks=None) -> None:
+    """Write `arr` ((H, W) or (H, W, spp) samples in file order, of any
+    integer or float dtype) as a TIFF with one IFD, byte by byte.
+    `compression` is "none", "lzw", "deflate" or "packbits"; `tile` a
+    (height, width) of multiples of 16, else strips of `rows_per_strip`
+    rows (all rows by default); `bits` 1, 2 or 4 packs uint8 values of that
+    width (default: the dtype's); `colormap` (2**bits, 3) uint16 for
+    photometric 3; `sample_format` defaults to the dtype's kind (1 unsigned,
+    2 signed, 3 float); predictor 2 differences integers (wrapping), 3 is
+    the floating-point predictor; `fill_order` 2 reverses each byte's bits
+    after compression. `chunks` (compressed strips or tiles, with
+    `compression` a TIFF code) replaces the encoding, as for JPEG;
+    `extra_tags` {tag: (type, values)} adds tags: type 5 takes (numerator,
+    denominator) pairs, 7 bytes."""
     s = np.asarray(arr)
     if s.ndim == 2:
         s = s[..., None]
     h, w, spp = s.shape
-    bits = bits or (16 if s.dtype == np.uint16 else 8)
+    bits = bits or 8 * s.dtype.itemsize
+    if sample_format is None:
+        sample_format = {"u": 1, "b": 1, "i": 2, "f": 3}[s.dtype.kind]
     if photometric is None:
         photometric = 1 if spp < 3 else 2
-    comp = {"none": 1, "deflate": 8, "packbits": 32773}[compression]
-    if predictor == 2 and (bits < 8 or comp != 8):
-        raise ValueError("predictor 2 takes 8- or 16-bit samples, deflated "
-                         "(readers ignore it without LZW or deflate)")
+    comp = ({"none": 1, "lzw": 5, "deflate": 8, "packbits": 32773}[compression]
+            if isinstance(compression, str) else compression)
+    if predictor in (2, 3) and (bits < 8 or comp not in (5, 8)):
+        raise ValueError("predictors take 8-bit samples or wider, LZW or "
+                         "deflated (readers ignore them otherwise)")
     bo = byteorder
 
     def encode(block: np.ndarray) -> bytes:
         r, c, k = block.shape
-        v = block.astype(np.int64)
-        if predictor == 2:
-            d = v.copy()
-            d[:, 1:] = v[:, 1:] - v[:, :-1]
-            v = d & ((1 << bits) - 1)
-        if bits == 16:
-            raw = v.astype(bo + "u2").tobytes()
-        elif bits == 8:
-            raw = v.astype(np.uint8).tobytes()
+        if predictor == 3:
+            raw = float_predict(block)
+        elif bits >= 8:
+            v = block
+            if predictor == 2:
+                u = block.view(f"u{block.dtype.itemsize}")
+                d = u.copy()
+                d[:, 1:] = u[:, 1:] - u[:, :-1]
+                v = d.view(block.dtype)
+            raw = v.astype(v.dtype.newbyteorder(bo)).tobytes()
         else:
-            vals = v.reshape(r, c * k).astype(np.uint8)
+            vals = block.reshape(r, c * k).astype(np.uint8)
             packed = np.zeros((r, c * k * bits), np.uint8)
             for q in range(bits):
                 packed[:, q::bits] = (vals >> (bits - 1 - q)) & 1
             raw = np.packbits(packed, axis=1).tobytes()
-        if comp == 8:
-            return zlib.compress(raw)
-        if comp == 32773:
+        if comp == 5:
+            raw = lzw_encode(raw)
+        elif comp == 8:
+            raw = zlib.compress(raw)
+        elif comp == 32773:
             rs = len(raw) // r
-            return b"".join(_packbits_encode(raw[i * rs:(i + 1) * rs])
-                            for i in range(r))
-        return raw
+            raw = b"".join(_packbits_encode(raw[i * rs:(i + 1) * rs])
+                           for i in range(r))
+        return reverse_bits(raw) if fill_order == 2 else raw
 
     planes = ([s] if planar == 1 or spp == 1
               else [s[..., k:k + 1] for k in range(spp)])
-    chunks = []
-    for p in planes:
-        if tile:
-            th, tw = tile
-            for y in range(0, h, th):
-                for x in range(0, w, tw):
-                    blk = np.zeros((th, tw, p.shape[2]), s.dtype)
-                    part = p[y:y + th, x:x + tw]
-                    blk[:part.shape[0], :part.shape[1]] = part
-                    chunks.append(encode(blk))
-        else:
-            rps = rows_per_strip or h
-            chunks.extend(encode(p[y:y + rps]) for y in range(0, h, rps))
+    if chunks is None:
+        chunks = []
+        for p in planes:
+            if tile:
+                th, tw = tile
+                for y in range(0, h, th):
+                    for x in range(0, w, tw):
+                        blk = np.zeros((th, tw, p.shape[2]), s.dtype)
+                        part = p[y:y + th, x:x + tw]
+                        blk[:part.shape[0], :part.shape[1]] = part
+                        chunks.append(encode(blk))
+            else:
+                rps = rows_per_strip or h
+                chunks.extend(encode(p[y:y + rps]) for y in range(0, h, rps))
     off_type = 16 if bigtiff else 4
     tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
             259: (3, [comp]), 262: (3, [photometric]), 277: (3, [spp]),
             284: (3, [planar])}
+    if sample_format != 1:
+        tags[339] = (3, [sample_format] * spp)
+    if fill_order != 1:
+        tags[266] = (3, [fill_order])
     if predictor != 1:
         tags[317] = (3, [predictor])
     if colormap is not None:
@@ -261,6 +390,7 @@ def write_tiff(path: str | Path, arr: np.ndarray, compression="none",
     else:
         tags[278] = (4, [rows_per_strip or h])
         off_tag, cnt_tag = 273, 279
+    tags.update(extra_tags or {})
     body = bytearray(b"\0" * (16 if bigtiff else 8))
     offsets = []
     for c in chunks:
@@ -271,17 +401,23 @@ def write_tiff(path: str | Path, arr: np.ndarray, compression="none",
     ifd_at = len(body)
     esz, inline, ofmt = (20, 8, "Q") if bigtiff else (12, 4, "I")
     spill_at = ifd_at + (8 if bigtiff else 2) + len(tags) * esz + inline
-    fmt = {3: "H", 4: "I", 16: "Q"}
     entries, spill = b"", bytearray()
     for tag in sorted(tags):
         typ, vals = tags[tag]
-        payload = struct.pack(f"{bo}{len(vals)}{fmt[typ]}", *vals)
+        if typ == 7:
+            payload, n = bytes(vals), len(vals)
+        elif typ == 5:
+            payload = b"".join(struct.pack(bo + "II", *v) for v in vals)
+            n = len(vals)
+        else:
+            payload = struct.pack(f"{bo}{len(vals)}{TYPES[typ]}", *vals)
+            n = len(vals)
         if len(payload) <= inline:
             value = payload + b"\0" * (inline - len(payload))
         else:
             value = struct.pack(bo + ofmt, spill_at + len(spill))
             spill += payload + b"\0" * (len(payload) % 2)
-        entries += struct.pack(bo + "HH" + ofmt, tag, typ, len(vals)) + value
+        entries += struct.pack(bo + "HH" + ofmt, tag, typ, n) + value
     body += (struct.pack(bo + ("Q" if bigtiff else "H"), len(tags)) + entries
              + b"\0" * inline + spill)
     magic = b"II" if bo == "<" else b"MM"
@@ -289,6 +425,58 @@ def write_tiff(path: str | Path, arr: np.ndarray, compression="none",
         magic + struct.pack(bo + "HHHQ", 43, 8, 0, ifd_at) if bigtiff
         else magic + struct.pack(bo + "HI", 42, ifd_at))
     Path(path).write_bytes(bytes(body))
+
+
+def write_ycbcr(path, ycc: np.ndarray, subsampling=(2, 2), compression="none",
+                rows_per_strip=None, extra_tags=None, **kw) -> None:
+    """(H, W, 3) Y Cb Cr samples as a photometric-6 TIFF of data units
+    (`ycbcr_units`), in strips of `rows_per_strip` rows."""
+    hs, vs = subsampling
+    h, w, _ = ycc.shape
+    rps = rows_per_strip or h
+    code = {"none": 1, "lzw": 5, "deflate": 8, "packbits": 32773}[compression]
+    chunks = []
+    for y in range(0, h, rps):
+        raw = ycbcr_units(ycc[y:y + rps], hs, vs)
+        chunks.append(lzw_encode(raw) if code == 5 else zlib.compress(raw)
+                      if code == 8 else _packbits_encode(raw)
+                      if code == 32773 else raw)
+    tags = {530: (3, [hs, vs]), **(extra_tags or {})}
+    write_tiff(path, ycc, compression=code, rows_per_strip=rps,
+               photometric=6, extra_tags=tags, chunks=chunks, **kw)
+
+
+def write_jpeg_tiff(path, img: np.ndarray, subsampling=2, photometric=None,
+                    tile=None, rows_per_strip=None, tables=True,
+                    **kw) -> None:
+    """A JPEG-compressed TIFF (compression 7) of (H, W) gray or (H, W, 3)
+    RGB pixels: PIL's JPEG of each strip or tile (`subsampling` 0, 1, 2:
+    4:4:4, 4:2:2, 4:2:0), photometric YCbCr (6) with YCbCrSubsampling for
+    colour unless given, the tables in JPEGTables (`tables`) or in every
+    chunk."""
+    h, w = img.shape[:2]
+    if tile:
+        th, tw = tile
+        pad = np.pad(img, ((0, -h % th), (0, -w % tw)) + ((0, 0),) * (
+            img.ndim - 2), mode="edge")
+        blocks = [pad[y:y + th, x:x + tw] for y in range(0, h, th)
+                  for x in range(0, w, tw)]
+    else:
+        rps = rows_per_strip or h
+        blocks = [img[y:y + rps] for y in range(0, h, rps)]
+    tab, chunks = jpeg_chunks(img, blocks, subsampling)
+    color = img.ndim == 3
+    photometric = photometric or (6 if color else 1)
+    tags = dict(kw.pop("extra_tags", {}))
+    if photometric == 6:
+        tags[530] = (3, [[1, 1], [2, 1], [2, 2]][subsampling])
+    if tables:
+        tags[347] = (7, tab)
+    else:
+        chunks = [tab[:-2] + c[2:] for c in chunks]
+    write_tiff(path, img, compression=7, tile=tile,
+               rows_per_strip=rows_per_strip, photometric=photometric,
+               extra_tags=tags, chunks=chunks, **kw)
 
 
 def tiff_fixtures(tmp: Path) -> dict:
@@ -344,6 +532,76 @@ def tiff_fixtures(tmp: Path) -> dict:
     }
     out = {}
     for name, (arr, kw) in cases.items():
+        p = tmp / f"{name}.tif"
+        write_tiff(p, arr, **kw)
+        out[name] = p.read_bytes()
+    # the kinds aerial imagery ships: JPEG (gray, RGB, YCbCr 1 x 1, 2 x 1,
+    # 2 x 2; strips, tiles, tables in JPEGTables or in each chunk), YCbCr
+    # data units, CMYK, signed, float and 32-bit samples (predictors 2 and
+    # 3), FillOrder 2
+    f32 = (rng.standard_normal((h, w)) * 60 + 90).astype(np.float32)
+    f32[0, :4] = [np.nan, np.inf, -np.inf, 255.5]
+    ycc_tags = {529: (5, [(2126, 10000), (7152, 10000), (722, 10000)]),
+                532: (5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                          (240, 1)])}
+    jpegs = {
+        "jpeg_gray": (gray, dict(subsampling=0, rows_per_strip=16)),
+        "jpeg_rgb": (rgb, dict(subsampling=0, photometric=2)),
+        "jpeg_ycc11_tiles": (rgb, dict(subsampling=0, tile=(16, 16))),
+        "jpeg_ycc21_strips": (rgb, dict(subsampling=1, rows_per_strip=8)),
+        "jpeg_ycc22_strips": (rgb, dict(subsampling=2, rows_per_strip=16)),
+        "jpeg_ycc22_tiles_mm": (rgb, dict(subsampling=2, tile=(16, 16),
+                                          byteorder=">")),
+        "jpeg_ycc22_no_tables": (rgb, dict(subsampling=2, tables=False)),
+    }
+    for name, (arr, kw) in jpegs.items():
+        p = tmp / f"{name}.tif"
+        write_jpeg_tiff(p, arr, **kw)
+        out[name] = p.read_bytes()
+    yccs = {
+        "ycc11": dict(subsampling=(1, 1)),
+        "ycc21_lzw": dict(subsampling=(2, 1), compression="lzw",
+                          rows_per_strip=6),
+        "ycc22_deflate": dict(subsampling=(2, 2), compression="deflate",
+                              rows_per_strip=8),
+        "ycc22_packbits_bt709": dict(subsampling=(2, 2),
+                                     compression="packbits",
+                                     extra_tags=ycc_tags),
+    }
+    for name, kw in yccs.items():
+        p = tmp / f"{name}.tif"
+        write_ycbcr(p, scene(h, w, 3, 13), **kw)
+        out[name] = p.read_bytes()
+    samples = {
+        "cmyk_lzw": (scene(h, w, 4, 14), dict(photometric=5,
+                                              compression="lzw")),
+        "cmyk_extra": (scene(h, w, 5, 14), dict(photometric=5,
+                                                extra_samples=[0])),
+        "float32": (f32, {}),
+        "float32_pred3": (f32, dict(predictor=3, compression="deflate")),
+        "float32_pred3_mm_tiles": (f32, dict(predictor=3, compression="lzw",
+                                             byteorder=">", tile=(16, 16))),
+        "float32_rgb_pred2": (np.dstack([f32, f32 * 2, -f32]),
+                              dict(predictor=2, compression="deflate")),
+        "float32_rgba": (np.dstack([f32, f32, f32, f32 / 200]),
+                         dict(extra_samples=[2])),
+        "float64_pred3": (f32.astype(np.float64) * np.pi, dict(
+            predictor=3, compression="deflate")),
+        "int8_rgb": ((rgb.astype(np.int16) - 128).astype(np.int8), {}),
+        "int16_pred2_lzw": ((s16[..., 0].astype(np.int32) - 20000).astype(
+            np.int16), dict(predictor=2, compression="lzw")),
+        "int16_rgb_mm": ((s16[..., :3].astype(np.int32) - 30000).astype(
+            np.int16), dict(byteorder=">", compression="packbits")),
+        "int32_pred2": (s16[..., 0].astype(np.int32) * 40000 - 10 ** 9,
+                        dict(predictor=2, compression="deflate")),
+        "uint32": (s16[..., 1].astype(np.uint32) * 60000, {}),
+        "fill2_lzw_rgb": (rgb, dict(compression="lzw", fill_order=2)),
+        "fill2_bit1": ((gray > 128).astype(np.uint8), dict(
+            bits=1, fill_order=2)),
+        "fill2_gray16": (s16[..., 0], dict(fill_order=2,
+                                           compression="deflate")),
+    }
+    for name, (arr, kw) in samples.items():
         p = tmp / f"{name}.tif"
         write_tiff(p, arr, **kw)
         out[name] = p.read_bytes()
