@@ -167,8 +167,23 @@ the final ok line:
               bit-equal to the python source's; (d) ms to decode a 1024 px
               JPEG pair: the tile loader at 1024 px (decode and copy, no
               resize) on its pool and held to one core, and the numpy
-              decoder, beside the card's name and power limit. Each of
-              (a)-(d) prints its own line
+              decoder, beside the card's name and power limit; (e) the
+              kinds cv2 reads beyond those: C++ = numpy, as cv2 5.0 reads
+              and as OpenCV 4.6 reads (the tiles' libjpeg-turbo 2.1
+              smoothing), on the fixtures of cut and scan-stripped
+              progressive, arithmetic-coded, CMYK / YCCK, lossless and
+              12-bit files and on 6 damaged copies of each (the same
+              pixels or the same error); the 16 images as JPEGs of three
+              kinds in turn, written from the port's encoder's
+              coefficients: progressive (a DC scan, an AC scan a
+              component) cut to 60% of their bytes, CMYK (Adobe, the
+              RGB as C M Y, K 255), sequential arithmetic-coded (a QM
+              encoder, jcarith.c's); and as DNG (TIFF named .dng), each
+              folder beside a PNG twin of its decoded pixels: `val`
+              reads one mAP on each pair; ms to decode a 1024 px cut
+              progressive pair, beside the predictions written before the
+              run (JPEG_KINDS_PREDICTED). Each of (a)-(e) prints its own
+              line
      bmp_tiff the port's BMP and TIFF decoders (`csrc/bmp.cpp`,
               `csrc/tiff.cpp`, in the host library): (a) bit-equal to the
               numpy decoders (`data/bmp.py`, `data/tiff.py`) on every file
@@ -4086,6 +4101,454 @@ def _jpeg_decode_ms(workdir: Path) -> dict:
                        "numpy": float(np.median(numpy_ms))}}
 
 
+def _decode_or_error(read, path):
+    """`read(path)`, or the words of the ValueError it raises past the
+    file's name."""
+    try:
+        return read(path)
+    except ValueError as e:
+        return str(e).split(": ", 1)[-1]
+
+
+def _same_decode(a, b) -> bool:
+    """Two decodes gave the same pixels, or failed with the same words."""
+    if isinstance(a, str) or isinstance(b, str):
+        return a == b
+    return bool(a.shape == b.shape and a.dtype == b.dtype
+                and a.tobytes() == b.tobytes())
+
+
+# (e) (module doc, phase `jpeg`): the fixtures of the kinds and their
+# damaged copies, a folder of cut progressive JPEGs and one of DNGs beside
+# PNG twins, the decode ms of a 1024 px cut progressive pair; written
+# before (e) first ran on the card (PERF.md, section 6)
+JPEG_KINDS_CUT = 0.6         # the share of each progressive file kept
+JPEG_KINDS_PREDICTED = {
+    "fixtures": "C++ = numpy (cv2 5.0's reading and OpenCV 4.6's) on every "
+                "kind's fixture and on 6 damaged copies of each",
+    "tie": "the folder of cut progressive, CMYK and arithmetic-coded JPEGs "
+           "and the DNG folder each read their PNG twin's mAP@0.5 and mAP "
+           "to the last digit",
+    "cut_1024_pair_ms": {"cpp": "15-40", "cpp_opencv46": "15-40",
+                         "numpy": "400-1200"},
+    "part_e_s": "10-30",
+}
+
+
+def _progressive(data: bytes) -> bytes:
+    """A baseline JPEG of the port's encoder as a progressive one: its
+    coefficients in an interleaved DC scan, then one AC scan (1-63) for each
+    component, coded with the same standard tables (an AC-first block's
+    codes are a baseline block's after its DC; EOB is an EOB run of one)."""
+    import numpy as np
+    from sodt_tpu_torch.data import jpeg
+    dec = jpeg._Decoder(data, "x")
+    dec.run()
+    f, head = dec.frame, data[:data.index(b"\xff\xda")]
+    i = head.index(b"\xff\xc0\x00")
+    head = head[:i] + b"\xff\xc2" + head[i + 2:]
+    coefs = [np.asarray(c.coef, np.int64).reshape(c.ph, c.pw, 64)
+             for c in f["comps"]]
+    zero = np.zeros(256, np.int64)
+    tabs = [jpeg._code_arrays(*jpeg.STD_HUFFMAN[(0, min(ci, 1))])
+            + jpeg._code_arrays(*jpeg.STD_HUFFMAN[(1, min(ci, 1))])
+            for ci in range(len(coefs))]
+    dc_blocks, dc_comp = [], []
+    for my in range(f["mcuy"]):
+        for mx in range(f["mcux"]):
+            for ci, c in enumerate(f["comps"]):
+                for yy in range(c.v):
+                    for xx in range(c.h):
+                        b = np.zeros(64, np.int64)
+                        b[0] = coefs[ci][my * c.v + yy, mx * c.h + xx, 0]
+                        dc_blocks.append(b)
+                        dc_comp.append(ci)
+    no_eob = [(d, dl, a, np.where(np.arange(256) == 0, 0, al))
+              for d, dl, a, al in tabs]
+    n = len(coefs)
+    out = [head, jpeg._marker(0xDA, bytes([n, *[b for ci, c in enumerate(
+        f["comps"]) for b in (c.id, min(ci, 1) << 4 | min(ci, 1))]])
+        + b"\x00\x00\x00"), jpeg._entropy_encode(
+            np.stack(dc_blocks), np.array(dc_comp), no_eob)]
+    for ci, c in enumerate(f["comps"]):
+        blocks = coefs[ci][:c.bh, :c.bw].reshape(-1, 64).copy()
+        blocks[:, 0] = 0
+        t = min(ci, 1)
+        out += [jpeg._marker(0xDA, bytes([1, c.id, t << 4 | t, 1, 63, 0])),
+                jpeg._entropy_encode(blocks, np.zeros(len(blocks), np.int64),
+                                     [(zero, zero, *tabs[ci][2:])])]
+    return b"".join(out) + b"\xff\xd9"
+
+
+def _cmyk_jpeg(rgb) -> bytes:
+    """`rgb` as a 4-component baseline JPEG under an Adobe marker with
+    transform 0 (CMYK as stored), the samples R, G, B, 255, from which
+    OpenCV's CMYK to BGR gives back about the RGB: 1 x 1 sampling, quality
+    75's luma table and the standard luma Huffman tables for all four,
+    through the port's encoder's steps (FDCT, quantisation, Huffman)."""
+    import struct
+    import numpy as np
+    from sodt_tpu_torch.data import jpeg
+    h, w = rgb.shape[:2]
+    planes = [rgb[..., i].astype(np.int64) for i in range(3)]
+    planes.append(np.full((h, w), 255, np.int64))
+    qt = jpeg.quality_table(jpeg.QT_LUMA, jpeg.QUALITY)
+    bw, bh = -(-w // 8), -(-h // 8)
+    per = []
+    for p in planes:
+        x = jpeg._pad(p, bh * 8, bw * 8)
+        blk = x.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        co = jpeg._fdct_islow((blk - 128).reshape(-1, 8, 8)).reshape(-1, 64)
+        per.append(jpeg._quantize(co, qt))
+    blocks = np.stack(per, 1).reshape(-1, 64)     # each MCU: C, M, Y, K
+    tab = (jpeg._code_arrays(*jpeg.STD_HUFFMAN[(0, 0)])
+           + jpeg._code_arrays(*jpeg.STD_HUFFMAN[(1, 0)]))
+    scan = jpeg._entropy_encode(blocks, np.tile(np.arange(4), bh * bw),
+                                [tab] * 4)
+    out = [jpeg.SOI, jpeg._marker(0xEE, b"Adobe\x00\x64" + bytes(5)),
+           jpeg._marker(0xDB, bytes([0]) + bytes(qt[jpeg.NATURAL[k]]
+                                                 for k in range(64))),
+           jpeg._marker(0xC0, struct.pack(">BHHB", 8, h, w, 4) + b"".join(
+               bytes([i + 1, 0x11, 0]) for i in range(4)))]
+    for tc in (0, 1):
+        counts, syms = jpeg.STD_HUFFMAN[(tc, 0)]
+        out.append(jpeg._marker(0xC4, bytes([tc << 4]) + bytes(counts)
+                                + bytes(syms)))
+    out.append(jpeg._marker(0xDA, bytes([4]) + b"".join(
+        bytes([i + 1, 0]) for i in range(4)) + b"\x00\x3f\x00"))
+    return b"".join(out) + scan + b"\xff\xd9"
+
+
+class _ArithEncoder:
+    """libjpeg's QM encoder (jcarith.c arith_encode, finish_pass): the
+    decisions of one scan into stuffed bytes."""
+
+    def __init__(self):
+        self.c, self.a, self.sc, self.zc, self.ct = 0, 0x10000, 0, 0, 11
+        self.buffer, self.out = -1, bytearray()
+
+    def _emit(self, v):
+        self.out.append(v)
+        if v == 0xFF:
+            self.out.append(0)
+
+    def _flush_zeros(self):
+        self.out += bytes(self.zc)
+        self.zc = 0
+
+    def __call__(self, st, k, val):
+        from sodt_tpu_torch.data.jpeg import _ARITAB
+        sv = st[k]
+        qe = _ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[k] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[k] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._flush_zeros()
+                        self._emit(self.buffer + 1)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._settle()
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def _settle(self):
+        """Out with the buffered byte and the stacked 0xFF bytes."""
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._flush_zeros()
+            self._emit(self.buffer)
+        if self.sc:
+            self._flush_zeros()
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0x8000000:
+            if self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            self._settle()
+        if self.c & 0x7FFF800:
+            self._flush_zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+        return bytes(self.out)
+
+
+def _arith_jpeg(data: bytes) -> bytes:
+    """A baseline JPEG of the port's encoder as a sequential arithmetic-
+    coded one (SOF9, jcarith.c's encode_mcu, the default conditioning):
+    the same coefficients, quantisation tables and scan."""
+    import numpy as np
+    from sodt_tpu_torch.data import jpeg
+    dec = jpeg._Decoder(data, "x")
+    dec.run()
+    f = dec.frame
+    sos = data.index(b"\xff\xda")
+    head = data[:sos]
+    i = head.index(b"\xff\xc0\x00")
+    head = head[:i] + b"\xff\xc9" + head[i + 2:]
+    n = int.from_bytes(data[sos + 2:sos + 4], "big")
+    enc, fixed = _ArithEncoder(), bytearray([113])
+    dc_stats = [bytearray(64) for _ in range(2)]
+    ac_stats = [bytearray(256) for _ in range(2)]
+    last = [0] * len(f["comps"])
+    ctx = [0] * len(f["comps"])
+    coefs = [np.asarray(c.coef, np.int64).reshape(c.ph, c.pw, 64)
+             for c in f["comps"]]
+    for my in range(f["mcuy"]):
+        for mx in range(f["mcux"]):
+            for ci, c in enumerate(f["comps"]):
+                t = min(ci, 1)
+                for yy in range(c.v):
+                    for xx in range(c.h):
+                        blk = coefs[ci][my * c.v + yy, mx * c.h + xx]
+                        st = dc_stats[t]
+                        s0 = ctx[ci]
+                        v = int(blk[0]) - last[ci]
+                        if v == 0:
+                            enc(st, s0, 0)
+                            ctx[ci] = 0
+                        else:
+                            last[ci] = int(blk[0])
+                            enc(st, s0, 1)
+                            if v > 0:
+                                enc(st, s0 + 1, 0)
+                                k, ctx[ci] = s0 + 2, 4
+                            else:
+                                v = -v
+                                enc(st, s0 + 1, 1)
+                                k, ctx[ci] = s0 + 3, 8
+                            m = 0
+                            v -= 1
+                            if v:
+                                enc(st, k, 1)
+                                m, v2, k = 1, v, 20
+                                v2 >>= 1
+                                while v2:
+                                    enc(st, k, 1)
+                                    m <<= 1
+                                    k += 1
+                                    v2 >>= 1
+                            enc(st, k, 0)
+                            if m > 1:            # the default U = 1
+                                ctx[ci] += 8
+                            k += 14
+                            m >>= 1
+                            while m:
+                                enc(st, k, 1 if m & v else 0)
+                                m >>= 1
+                        st = ac_stats[t]
+                        nat = blk[jpeg.NATURAL[:64]]
+                        nz = np.nonzero(nat[1:])[0]
+                        ke = int(nz[-1]) + 1 if len(nz) else 0
+                        k = 1
+                        while k <= ke:
+                            b = 3 * (k - 1)
+                            enc(st, b, 0)
+                            while nat[k] == 0:
+                                enc(st, b + 1, 0)
+                                b += 3
+                                k += 1
+                            enc(st, b + 1, 1)
+                            v = int(nat[k])
+                            enc(fixed, 0, 0 if v > 0 else 1)
+                            v = abs(v)
+                            b += 2
+                            m = 0
+                            v -= 1
+                            if v:
+                                enc(st, b, 1)
+                                m, v2 = 1, v >> 1
+                                if v2:
+                                    enc(st, b, 1)
+                                    m <<= 1
+                                    b = 189 if k <= 5 else 217
+                                    v2 >>= 1
+                                    while v2:
+                                        enc(st, b, 1)
+                                        m <<= 1
+                                        b += 1
+                                        v2 >>= 1
+                            enc(st, b, 0)
+                            b += 14
+                            m >>= 1
+                            while m:
+                                enc(st, b, 1 if m & v else 0)
+                                m >>= 1
+                            k += 1
+                        if k <= 63:
+                            enc(st, 3 * (k - 1), 1)
+    return head + data[sos:sos + 2 + n] + enc.finish() + b"\xff\xd9"
+
+
+def _cut_progressive(data: bytes) -> bytes:
+    """`_progressive(data)` cut to JPEG_KINDS_CUT of its bytes, not inside
+    a scan's header."""
+    data = _progressive(data)
+    cut = int(len(data) * JPEG_KINDS_CUT)
+    sos = data.rfind(b"\xff\xda", 0, cut)
+    return data[:sos - 1 if cut - sos < 16 else cut]
+
+
+JPEG_KINDS = ("cut_progressive", "cmyk", "arithmetic")
+
+
+def _kinds_folder(root: Path, items, stems: list) -> dict:
+    """`items` as `_write_jpeg_folder` writes them, then item i's files
+    rewritten as JPEG_KINDS[i % 3]: both cut progressive
+    (`_cut_progressive`), the RGB as CMYK (`_cmyk_jpeg`, the IR left
+    baseline), or both arithmetic-coded (`_arith_jpeg`). Returns the
+    files of each kind."""
+    import numpy as np
+    _write_jpeg_folder(root, items, stems)
+    kinds = {k: 0 for k in JPEG_KINDS}
+    for i, ((rgb, _, _), s) in enumerate(zip(items, stems)):
+        kind = JPEG_KINDS[i % 3]
+        for m in ("co", "ir"):
+            f = root / "images" / f"{s}_{m}.jpg"
+            if kind == "cmyk":
+                if m == "co":
+                    f.write_bytes(_cmyk_jpeg(np.asarray(rgb)))
+                    kinds[kind] += 1
+                continue
+            f.write_bytes((_cut_progressive if kind == "cut_progressive"
+                           else _arith_jpeg)(f.read_bytes()))
+            kinds[kind] += 1
+    return kinds
+
+
+def _jpeg_kinds(workdir: Path, items, stems: list) -> dict:
+    """(e): C++ = numpy, as cv2 5.0 reads and as OpenCV 4.6 reads, on the
+    kinds' fixtures (tests/torch_port_jpeg/: cut and scan-stripped
+    progressive, arithmetic-coded, CMYK / YCCK, lossless, 12-bit) and 6
+    damaged copies of each from a seed; `items` as a folder of cut
+    progressive, CMYK and arithmetic-coded JPEGs (`_kinds_folder`) and as
+    a folder of DNGs (TIFF named .dng, BT_TIFF), each beside a PNG twin of
+    its decoded pixels, read by `val` in bf16 (PER_FORWARD) to one mAP; ms
+    to decode a 1024 px cut progressive pair (C++ on the calling thread in
+    both readings, numpy once)."""
+    import numpy as np
+    from sodt_tpu_torch.data import SyntheticVedai, jpeg, native_loader
+    t0 = time.perf_counter()
+    names = ("cut_", "keep", "arith", "cmyk", "ycck", "lossless", "bits12")
+    files = sorted(f for f in JPEG_FIXTURES.glob("*.jpg")
+                   if f.name.startswith(names))
+    dmg = workdir / "jpeg_kinds_damaged"
+    dmg.mkdir(parents=True, exist_ok=True)
+    n = agree = decoded = 0
+    for f in files:
+        good = f.read_bytes()
+        rng = np.random.default_rng(sum(good[-64:]))
+        copies = [good]
+        for k in range(6):
+            data = bytearray(good)
+            if k % 2:
+                data = data[:int(rng.integers(8, len(data)))]
+            else:
+                for i in rng.integers(8, len(data), int(rng.integers(1, 6))):
+                    data[i] = int(rng.integers(256))
+            copies.append(bytes(data))
+        for k, data in enumerate(copies):
+            path = dmg / f"{n}.jpg"
+            path.write_bytes(data)
+            for o46 in (False, True):
+                a = _decode_or_error(lambda p: native_loader.decode_jpeg(
+                    p, opencv46=o46), path)
+                b = _decode_or_error(lambda p: jpeg.decode_jpeg(
+                    p.read_bytes(), str(p), opencv46=o46), path)
+                agree += _same_decode(a, b)
+                decoded += not isinstance(a, str)
+            n += 1
+    fixtures = {"files": len(files), "decodes": 2 * n, "agree": agree,
+                "decoded": decoded}
+    ok_fixtures = len(files) >= 20 and agree == 2 * n
+    # the folders and their twins
+    evals = {}
+    kinds_root = workdir / "kinds_jpeg"
+    written = _kinds_folder(kinds_root, items, stems)
+    dng = workdir / "kinds_dng"
+    _write_bt_folder(dng, items, stems, "dng")
+    twins_ok = True
+    for name, root, ext, read in (
+            ("jpeg_kinds", kinds_root, "jpg", native_loader.decode_jpeg),
+            ("dng", dng, "dng", native_loader.decode_tiff)):
+        decoded_items = [tuple(read(root / "images" / f"{s}_{m}.{ext}")
+                               for m in ("co", "ir")) + (lab,)
+                         for s, (_, _, lab) in zip(stems, items)]
+        twin = workdir / f"kinds_{name}_as_png"
+        twins_ok = twins_ok and _write_png_folder(
+            twin, decoded_items, stems, None)["bit_equal"]
+        evals[name] = _tie_val(root, stems, ext)
+        evals[f"{name}_png"] = _tie_val(twin, stems, "png")
+    ok_tie = twins_ok and all(
+        evals[k][m] == evals[f"{k}_png"][m]
+        for k in ("jpeg_kinds", "dng") for m in ("map50", "map")) and all(
+        e["launches_ok"] and e["seen"] == len(stems) for e in evals.values())
+    # decode ms of a 1024 px cut progressive pair
+    src = SyntheticVedai(n=1, img_size=JPEG_RAW, nc=8, seed=5)
+    big = workdir / "kinds_cut1024"
+    _write_jpeg_folder(big, [src[0]], ["00000000"])
+    pair = [big / "images" / f"00000000_{m}.jpg" for m in ("co", "ir")]
+    for p in pair:
+        p.write_bytes(_cut_progressive(p.read_bytes()))
+    ms = {}
+    for key, fn in (("cpp", lambda p: native_loader.decode_jpeg(p)),
+                    ("cpp_opencv46",
+                     lambda p: native_loader.decode_jpeg(p, opencv46=True)),
+                    ("numpy", jpeg.read_jpeg)):
+        runs = []
+        for _ in range(1 if key == "numpy" else 7):
+            t = time.perf_counter()
+            for p in pair:
+                fn(p)
+            runs.append(1e3 * (time.perf_counter() - t))
+        ms[key] = float(np.median(runs))
+    same = all(_same_decode(native_loader.decode_jpeg(p), jpeg.read_jpeg(p))
+               for p in pair)
+    return {"fixtures": fixtures, "kinds_written": written, "tie": evals,
+            "cut_1024_pair_ms": ms,
+            "cut_1024_bytes_per_pair": sum(p.stat().st_size for p in pair),
+            "cut_1024_cpp_equals_numpy": same,
+            "predicted": JPEG_KINDS_PREDICTED,
+            "part_e_s": time.perf_counter() - t0,
+            "ok": bool(ok_fixtures and ok_tie and same)}
+
+
 def phase_jpeg(label: str, workdir: Path, trained: dict) -> dict:
     """The port's JPEG decoder on the card's machine (module doc, phase
     `jpeg`); (a)-(d) each print a line of their own."""
@@ -4101,10 +4564,10 @@ def phase_jpeg(label: str, workdir: Path, trained: dict) -> dict:
     files = sorted(JPEG_FIXTURES.glob("*.jpg"))
     fixtures = {}
     for f in files:
-        a, b = native_loader.decode_jpeg(f), jpeg.read_jpeg(f)
-        fixtures[f.name] = {"shape": list(a.shape),
-                            "bit_equal": bool(a.shape == b.shape
-                                              and np.array_equal(a, b))}
+        a, b = _decode_or_error(native_loader.decode_jpeg, f), \
+            _decode_or_error(jpeg.read_jpeg, f)
+        fixtures[f.name] = {"shape": list(getattr(a, "shape", [])),
+                            "bit_equal": _same_decode(a, b)}
     ok_a = len(files) >= 12 and all(v["bit_equal"] for v in fixtures.values())
     emit({"phase": f"{label}_fixtures", "files": fixtures, "ok": ok_a})
     ok = ok and ok_a
@@ -4145,9 +4608,14 @@ def phase_jpeg(label: str, workdir: Path, trained: dict) -> dict:
     dec = _jpeg_decode_ms(workdir)
     ok = ok and dec["tiles"]["bit_equal"]
     emit({"phase": f"{label}_decode_ms", "card": card_line(), **dec})
+
+    # (e) the kinds cv2 reads beyond baseline and progressive, and DNG
+    kinds = _jpeg_kinds(workdir, items, stems)
+    emit({"phase": f"{label}_kinds", "card": card_line(), **kinds})
+    ok = ok and kinds["ok"]
     row.update(fixtures_ok=ok_a, tie=evals,
                tiles_bit_equal=tiles["bit_equal"], decode_ms=dec["median"],
-               launches={}, ok=bool(ok))
+               kinds_ok=kinds["ok"], launches={}, ok=bool(ok))
     emit(row)
     return row
 

@@ -7,7 +7,9 @@
 // LZWDecode: MSB-first codes of 9-12 bits, the width one code early),
 // deflate (through the tile loader's inflate, `sodt_inflate::inflate`),
 // PackBits and JPEG (each strip or tile after JPEGTables, through the JPEG
-// decoder's `sodt_jpeg::decode_segment`, csrc/jpeg.h); predictor 1, 2 and 3
+// decoder's `sodt_jpeg::decode_segment`, csrc/jpeg.h), and DNG 1.4's lossy
+// JPEG (34892), which libtiff has no decoder for (each strip a fault at its
+// first byte, filled as below); predictor 1, 2 and 3
 // (floating point); FillOrder 1 and 2; photometric MinIsWhite, MinIsBlack,
 // RGB, palette, CMYK and YCbCr (data units of 1 x 1, 2 x 1 and 2 x 2,
 // libtiff's YCbCr -> RGB); unsigned samples of 1, 2, 4, 8, 16 and 32 bits,
@@ -19,7 +21,9 @@
 // that reader (unsigned samples of 8 bits and fewer, not JPEG); elsewhere it
 // throws, as PIL and OpenCV's other reads fail. A 16-bit palette throws: no
 // reader takes one, nor more than 2^30 pixels (OpenCV) or, on PIL's branch
-// of `decode`, more than 2 x 89478485 (PIL's open). A kind out of the port's
+// of `decode`, more than 2 x 89478485 (PIL's open); nor does a raw DNG IFD0
+// (photometric CFA, LinearRaw), which cv2 and PIL read no image from (a DNG
+// is read as its IFD0 reads as a TIFF). A kind out of the port's
 // scope (CCITT and other compressions, old-style JPEG and LZW, CIELab, ...)
 // throws a cause that starts "not implemented:".
 //
@@ -258,11 +262,15 @@ Info info_of(const uint8_t* d, size_t n) {
       {9, "ICCLab (9)"}, {10, "ITULab (10)"}, {32844, "LogL (32844)"},
       {32845, "LogLuv (32845)"}, {32803, "CFA (32803)"}, {34892, "LinearRaw (34892)"}};
   const int comp = in.comp;
-  if (comp != 1 && comp != 5 && comp != 7 && comp != 8 && comp != 32946 && comp != 32773) {
+  if (comp != 1 && comp != 5 && comp != 7 && comp != 8 && comp != 32946 && comp != 32773 &&
+      comp != 34892) {
     auto it = comp_names.find(comp);
     throw out_of_scope(it != comp_names.end() ? it->second : "compression " + std::to_string(comp));
   }
   if (photo < 0) throw TiffError("broken TIFF file (no photometric interpretation)");
+  if (photo == 32803 || photo == 34892)
+    throw TiffError("a raw DNG image (photometric " + photo_names.at(int(photo)) +
+                    "): cv2 and PIL read none from it");
   if (photo == 4 || photo > 6) {
     auto it = photo_names.find(int(photo));
     throw out_of_scope("photometric " +
@@ -393,7 +401,7 @@ Info info_of(const uint8_t* d, size_t n) {
   in.tables = ifd.tables;
   // no codec makes more than `ratio` bytes of a byte of its data: a file
   // that claims more pixels than that is refused before they are allocated
-  const uint64_t ratio = comp == 1 ? 1 : comp == 5 ? 4096 : comp == 7 ? 1536
+  const uint64_t ratio = comp == 1 ? 1 : comp == 5 ? 4096 : comp == 7 || comp == 34892 ? 1536
                          : comp == 32773 ? 128 : 1032;
   const uint64_t rows = uint64_t(in.tiled ? in.down * in.th : in.h);
   uint64_t need;
@@ -536,6 +544,10 @@ std::string chunk(const uint8_t* d, size_t n, const Info& in, size_t i, size_t n
     return "";
   }
   if (off > n || n - off < cnt) throw past_end();
+  if (in.comp == 34892) {  // DNG 1.4's lossy JPEG: libtiff has no decoder
+    out->assign(need, 0);
+    return "compression 34892 (DNG's lossy JPEG): libtiff has no decoder for it";
+  }
   const uint8_t* src = bits_of(d + off, size_t(cnt));
   if (in.comp == 5) return lzw(src, size_t(cnt), need, out);
   if (in.comp == 32773) return packbits(src, size_t(cnt), need, out);

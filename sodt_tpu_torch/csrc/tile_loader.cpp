@@ -60,9 +60,11 @@
 #include <vector>
 
 // csrc/jpeg.cpp: a JPEG file in memory -> (h, w), c = 1 gray or 3 RGB, and
-// its (h, w, c) pixels; throws std::runtime_error with the cause
+// its (h, w, c) pixels, as OpenCV 4.6 reads them where `opencv46`; throws
+// std::runtime_error with the cause
 namespace sodt_jpeg {
-void decode(const uint8_t* data, size_t n, int* h, int* w, int* c, std::vector<uint8_t>* px);
+void decode(const uint8_t* data, size_t n, int* h, int* w, int* c, std::vector<uint8_t>* px,
+            bool opencv46);
 }  // namespace sodt_jpeg
 
 // csrc/bmp.cpp, csrc/tiff.cpp and csrc/webp.cpp: a BMP, TIFF or WebP file in
@@ -720,7 +722,7 @@ Image decode_image(const std::string& path) {
   if (data.size() >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF) {
     int h, w, c;
     std::vector<uint8_t> px;
-    sodt_jpeg::decode(data.data(), data.size(), &h, &w, &c, &px);
+    sodt_jpeg::decode(data.data(), data.size(), &h, &w, &c, &px, true);
     Image img;
     img.h = h;
     img.w = w;

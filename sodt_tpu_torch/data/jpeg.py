@@ -8,13 +8,15 @@ is libjpeg-turbo's default decompression; this module computes the same
 pixels, step for step:
 
   read_jpeg(path)   markers (SOI; APPn and COM skipped, JFIF and Adobe
-                    noted; DQT with 8- and 16-bit tables; SOF0, SOF1,
-                    SOF2; DHT; DRI; SOS; EOI), Huffman decode of baseline,
+                    noted; DQT with 8- and 16-bit tables; SOF0-3, SOF9-11;
+                    DHT; DAC; DRI; SOS; EOI), Huffman decode of baseline,
                     extended-sequential and progressive scans (DC first and
-                    refine, AC first and refine with EOB runs), restart
-                    intervals, libjpeg's ISLOW integer IDCT (`jidctint.c`),
-                    fancy upsampling (`jdsample.c`: h2v1, h2v2, h1v2; other
-                    integral factors replicate), the integer YCbCr -> RGB
+                    refine, AC first and refine with EOB runs), libjpeg's
+                    QM decoder for arithmetic-coded ones (`jdarith.c`, DAC
+                    conditioning), restart intervals, libjpeg-turbo's SIMD
+                    ISLOW IDCT (`idct_islow`), fancy upsampling
+                    (`jdsample.c`: h2v1, h2v2, h1v2; other integral
+                    factors replicate), the integer YCbCr -> RGB
                     (`jdcolor.c`). Gray -> (H, W, 1); colour -> (H, W, 3)
                     RGB, as `_read_image` returns them through cv2. Three
                     components are YCbCr unless an Adobe APP14 marker with
@@ -23,12 +25,43 @@ pixels, step for step:
                     orientation, and neither does this. Entropy data that
                     ends early is filled as libjpeg fills it: zero bits for
                     the MCU that runs out, and the MCUs after it left as
-                    they are (zero blocks in a sequential file). A
-                    progressive file whose scans leave AC coefficients 1-9
-                    unfinished (cut short, or so written) raises, because
-                    libjpeg then smooths its blocks.
-                    Arithmetic coding, lossless, hierarchical, 12-bit and
-                    CMYK / YCCK files raise ValueError naming what they are.
+                    they are (zero blocks in a sequential file); a marker
+                    segment cut short reads on through the FF D9 bytes
+                    libjpeg's source manager feeds. A progressive image
+                    whose scans leave some of AC coefficients 1-9 unsent or
+                    unrefined (cut short, or so written) is smoothed block
+                    by block from its neighbours' DCs, as libjpeg-turbo's
+                    `decompress_smooth_data` smooths it: 3.1's (cv2 5.0)
+                    by default, 2.1's (OpenCV 4.6, the JAX tile loader's)
+                    where `opencv46`; the two pick some neighbour rows and
+                    columns apart.
+
+                    kind              cv2 5.0       PIL 12        OpenCV 4.6
+                    arithmetic        (SOF9, SOF10) as Huffman    as cv2
+                    CMYK, YCCK        (H, W, 3)     CMYK (H, W,   as cv2
+                      (4 components)  OpenCV's        4), 255 -
+                                      CMYK2BGR      libjpeg's
+                    lossless (SOF3),  (H, W, c)     reads it      none
+                      2-8 bits        uint8, low    (8 bits; 2-7:
+                                      byte          none)
+                    lossless 9-16     none          none          none
+                    lossless in YCbCr none          none          none
+                    12-bit            none          none          none
+                    SOF11, hierarch.  none          none          none
+                    cut progressive   smoothed      raises        smoothed
+                                      (3.1)                       (2.1)
+
+                    `_read_image`, the tile loader and the scan follow the
+                    readers their JAX paths use: cv2 for the pixels,
+                    OpenCV 4.6 for the tiles, PIL's open for the scan
+                    (`verify_jpeg`); the box tool follows PIL's
+                    `convert("RGB")` (`tools.py`; CMYK as PIL's inverted
+                    samples). Where the reader gives no image, the port
+                    raises ValueError naming the kind. A lossless image is
+                    read as libjpeg-turbo reads it: each sample the
+                    prediction (predictors 1-7) plus the difference modulo
+                    2^16, shifted by the point transform into 8 bits;
+                    subsampled components raise (not mirrored).
   decode_segment(tables, data, ycc)
                     a TIFF strip's or tile's JPEG stream after its
                     JPEGTables, the colour space set by the TIFF's
@@ -48,8 +81,9 @@ pixels, step for step:
                     reciprocal quantisation, with libjpeg's edge padding and
                     dummy blocks.
 
-Only the Huffman decode runs in Python; the IDCT, upsampling and colour
-conversion are whole-image numpy operations in int64.
+The entropy decoding (Huffman, QM, lossless prediction) runs in Python;
+the smoothing, IDCT, upsampling and colour conversion are whole-image numpy
+operations in int64.
 """
 
 from __future__ import annotations
@@ -123,12 +157,13 @@ STD_HUFFMAN = {  # (class, table) -> (counts, symbols); class 0 DC, 1 AC
     (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), _AC_SYMS[1]),
 }
 
-# what each SOF marker that is not read names
+# the frames read: baseline, extended sequential, progressive, lossless, and
+# the three with arithmetic coding
+_SOF_READ = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA, 0xCB)
+# what each SOF marker that libjpeg (and so cv2) does not read names
 _SOF_UNSUPPORTED = {
-    0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
-    0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical lossless (SOF7)",
-    0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded (SOF10)",
-    0xCB: "arithmetic-coded lossless (SOF11)",
+    0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical (SOF6)",
+    0xC7: "hierarchical lossless (SOF7)",
     0xCD: "hierarchical arithmetic-coded (SOF13)",
     0xCE: "hierarchical arithmetic-coded (SOF14)",
     0xCF: "hierarchical arithmetic-coded (SOF15)"}
@@ -147,13 +182,15 @@ def _fix16(x: float) -> int:
 # ------------------------------------------------------------- Huffman
 
 
-def _huffman_lut(counts, symbols, is_dc: bool) -> list[int]:
+def _huffman_lut(counts, symbols, is_dc: bool, dc_top: int = 15
+                 ) -> list[int]:
     """A 65536-entry table over the next 16 bits: (code length << 8) |
     symbol. A prefix that no code of at most 16 bits matches decodes as
-    libjpeg decodes it: symbol 0 after 17 bits."""
+    libjpeg decodes it: symbol 0 after 17 bits. A DC table's symbols are
+    sizes up to `dc_top` (16 in a lossless image)."""
     if sum(counts) > 256 or sum(counts) > len(symbols):
         raise ValueError("broken JPEG file (bad Huffman table)")
-    if is_dc and any(s > 15 for s in symbols[:sum(counts)]):
+    if is_dc and any(s > dc_top for s in symbols[:sum(counts)]):
         raise ValueError("broken JPEG file (bad Huffman table)")
     lut = [17 << 8] * 65536
     last = max((i + 1 for i, n in enumerate(counts) if n), default=0)
@@ -214,9 +251,7 @@ def _split_scan(data: bytes, pos: int):
 
 # ------------------------------------------------------------ the parse
 
-_TRUNCATED_PROGRESSIVE = ("truncated progressive JPEG (libjpeg's block "
-                          "smoothing of partial coefficients is not "
-                          "mirrored)")
+_EOI_FILL = b"\xff\xd9" * 32769
 
 
 class _Component:
@@ -225,6 +260,7 @@ class _Component:
         self.qt = None       # latched at the component's first scan
         self.coef = None     # flat list, natural order, 64 per block
         self.coef_bits = [-1] * 64
+        self.prev_bits = [0] * 64   # coef_bits before the latest scan
 
 
 class _Decoder:
@@ -237,27 +273,38 @@ class _Decoder:
         # libjpeg's source managers insert an EOI where the file ends
         self.data = data + b"\xff\xd9"
         self.qt: dict[int, list[int]] = {}
-        self.huff: dict[tuple[int, int], list[int]] = {}
+        self.huff: dict[tuple[int, int], tuple | list[int]] = {}
         self.restart = 0
         self.jfif = False
         self.adobe = None
         self.frame = None
         self.progressive = False
-        self.truncated = False
         self.n_scans = 0
+        self.last_good = 0           # libjpeg's last_good_iMCU_row
+        self.opencv46 = False        # refuse what OpenCV 4.6 refuses
+        self.lossless = self.arithmetic = False
+        self.precision = 8
+        # arithmetic conditioning (DAC): DC L and U, AC Kx, per table
+        self.dc_l, self.dc_u, self.ac_k = [0] * 16, [1] * 16, [5] * 16
+        self.dc_stats = [bytearray(64) for _ in range(16)]
+        self.ac_stats = [bytearray(256) for _ in range(16)]
         self.frame_limit = None      # (width, least rows, most rows)
 
     def fail(self, why: str):
         raise ValueError(f"{self.name}: {why}")
 
     def _length(self, pos):
-        n = (struct.unpack(">H", self.data[pos:pos + 2])[0]
-             if pos + 2 <= self.n_real else 0)
-        if n < 2 or pos + n > self.n_real:
-            if self.progressive and self.n_scans:
-                self.fail(_TRUNCATED_PROGRESSIVE)
-            self.fail("truncated JPEG file (marker segment)")
-        return self.data[pos + 2:pos + n], pos + n
+        """The marker segment at pos and the offset after it. Past the
+        file's end libjpeg's source manager feeds FF D9 again and again, so
+        a segment cut short is read on through those bytes, and the marker
+        after it is an EOI (the one at n_real)."""
+        d = self.data[pos:self.n_real]
+        if len(d) < 65537:
+            d += _EOI_FILL[:65537 - len(d)]
+        n = struct.unpack(">H", d[:2])[0]
+        if n < 2:
+            self.fail("broken JPEG file (marker length)")
+        return d[2:n], min(pos + n, self.n_real)
 
     def run(self):
         d = self.data
@@ -275,16 +322,16 @@ class _Decoder:
             m = d[pos]
             pos += 1
             if m == 0xD9:
-                if pos - 2 >= self.n_real:
-                    self.truncated = True
                 break
-            if m in (0xC0, 0xC1, 0xC2):
+            if m in _SOF_READ:
                 body, pos = self._length(pos)
                 self._sof(m, body)
             elif m in _SOF_UNSUPPORTED:
-                self.fail(f"{_SOF_UNSUPPORTED[m]} JPEG is not supported")
+                self.fail(f"{_SOF_UNSUPPORTED[m]} JPEG: libjpeg, and so cv2, "
+                          "reads none")
             elif m == 0xCC:
-                self.fail("arithmetic-coded JPEG (DAC) is not supported")
+                body, pos = self._length(pos)
+                self._dac(body)
             elif m == 0xC4:
                 body, pos = self._length(pos)
                 self._dht(body)
@@ -318,16 +365,6 @@ class _Decoder:
                 self.fail(f"broken JPEG file (unknown marker 0x{m:02X})")
         if self.frame is None or not self.n_scans:
             self.fail("broken JPEG file (no image)")
-        # libjpeg's smoothing_ok: a progressive image whose scans left some
-        # of AC coefficients 1-9 unsent or unrefined is smoothed, block by
-        # block, from its neighbours' DCs; the port does not mirror that
-        comps = self.frame["comps"]
-        if (self.progressive and all(c.coef_bits[0] >= 0 for c in comps)
-                and any(b != 0 for c in comps for b in c.coef_bits[1:10])):
-            self.fail(_TRUNCATED_PROGRESSIVE if self.truncated else
-                      "progressive JPEG whose scans leave AC coefficients "
-                      "incomplete (libjpeg's block smoothing is not "
-                      "mirrored)")
 
     def _sof(self, m, body):
         if self.frame is not None:
@@ -335,8 +372,20 @@ class _Decoder:
         if len(body) < 6:
             self.fail("broken JPEG file (SOF)")
         prec, h, w, nc = struct.unpack(">BHHB", body[:6])
-        if prec != 8:
-            self.fail(f"{prec}-bit JPEG is not supported")
+        self.lossless = m in (0xC3, 0xCB)
+        if m == 0xCB:
+            self.fail("arithmetic-coded lossless (SOF11) JPEG: cv2 reads none")
+        if self.lossless and not 2 <= prec <= 16:
+            self.fail("broken JPEG file (lossless precision)")
+        if self.lossless and prec > 8:
+            self.fail(f"{prec}-bit lossless JPEG: cv2 reads none")
+        if not self.lossless and prec != 8:
+            self.fail(f"{prec}-bit JPEG: cv2 reads none (libjpeg's 8-bit "
+                      "interface refuses it)")
+        if self.lossless and self.opencv46:
+            self.fail("lossless (SOF3) JPEG: OpenCV 4.6 (libjpeg-turbo 2.1) "
+                      "reads none")
+        self.precision = prec
         if h == 0 or w == 0:
             self.fail(f"unsupported image size {w} x {h}")
         if self.frame_limit:        # a TIFF chunk's frame, before allocating
@@ -346,9 +395,7 @@ class _Decoder:
                           f"{h} for {cols} x {rows})")
         if len(body) != 6 + 3 * nc or nc == 0:
             self.fail("broken JPEG file (SOF)")
-        if nc == 4:
-            self.fail("CMYK / YCCK JPEG (4 components) is not supported")
-        if nc not in (1, 3):
+        if nc not in (1, 3, 4):
             self.fail(f"JPEG of {nc} components is not supported")
         comps = []
         for i in range(nc):
@@ -369,7 +416,11 @@ class _Decoder:
             c.pw = mcux * c.h                   # blocks, padded to MCUs
             c.ph = mcuy * c.v
             c.coef = [0] * (c.pw * c.ph * 64)
-        self.progressive = m == 0xC2
+        if self.lossless and any(c.h != hmax or c.v != vmax for c in comps):
+            self.fail("lossless JPEG with subsampled components is not "
+                      "supported")
+        self.progressive = m in (0xC2, 0xCA)
+        self.arithmetic = m in (0xC9, 0xCA)
         self.frame = dict(w=w, h=h, comps=comps, hmax=hmax, vmax=vmax,
                           mcux=mcux, mcuy=mcuy)
 
@@ -388,6 +439,20 @@ class _Decoder:
             self.qt[tq] = tab
             i += 1 + n
 
+    def _dac(self, body):
+        if len(body) % 2:
+            self.fail("broken JPEG file (DAC)")
+        for i in range(0, len(body), 2):
+            t, v = body[i], body[i + 1]
+            if t >= 32:
+                self.fail("broken JPEG file (DAC table)")
+            if t >= 16:
+                self.ac_k[t - 16] = v
+            else:
+                self.dc_l[t], self.dc_u[t] = v & 15, v >> 4
+                if self.dc_l[t] > self.dc_u[t]:
+                    self.fail("broken JPEG file (DAC value)")
+
     def _dht(self, body):
         i = 0
         while i < len(body):
@@ -398,11 +463,8 @@ class _Decoder:
             n = sum(counts)
             if tc > 1 or th > 3 or n > 256 or i + 17 + n > len(body):
                 self.fail("broken JPEG file (DHT)")
-            syms = body[i + 17:i + 17 + n]
-            try:
-                self.huff[(tc, th)] = _huffman_lut(counts, syms, tc == 0)
-            except ValueError as e:
-                self.fail(str(e))
+            # checked and built where a scan first takes it, as in libjpeg
+            self.huff[(tc, th)] = (counts, body[i + 17:i + 17 + n])
             i += 17 + n
 
     def _sos(self, body, pos):
@@ -423,6 +485,12 @@ class _Decoder:
             self.fail("broken JPEG file (more than 10 blocks in an MCU)")
         ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
         ah, al = ahl >> 4, ahl & 15
+        if self.lossless:            # Ss the predictor, Al the point transform
+            if not 1 <= ss <= 7 or se or ah or al >= self.precision:
+                self.fail("broken JPEG file (SOS lossless parameters)")
+            segs, end = _split_scan(self.data, pos)
+            self._lossless_scan(scomps, ss, al, segs)
+            return end
         if self.progressive:
             bad = (ss > se or se > 63 or ah > 13 or al > 13
                    or (ss == 0 and se != 0) or (ss > 0 and ns != 1))
@@ -444,7 +512,156 @@ class _Decoder:
     def _table(self, tc, th):
         if (tc, th) not in self.huff:
             self.fail("broken JPEG file (Huffman table missing)")
-        return self.huff[(tc, th)]
+        t = self.huff[(tc, th)]
+        if isinstance(t, tuple):
+            try:
+                t = self.huff[(tc, th)] = _huffman_lut(
+                    *t, tc == 0, 16 if self.lossless else 15)
+            except ValueError as e:
+                self.fail(str(e))
+        return t
+
+    def _lossless_scan(self, scomps, psv, pt, segs):
+        """A lossless scan (jdlhuff.c, jddiffct.c, jdlossls.c): each
+        sample's difference, Huffman coded as a DC difference (size 16 is
+        32768), added to its prediction modulo 2^16: the first row of the
+        scan and of each restart interval predicts from the left (its first
+        sample from 2^(P - Pt - 1)), every other row's first sample from
+        above, its others by predictor `psv`. Past the data's end libjpeg
+        reads zero bits and goes on decoding."""
+        f = self.frame
+        w, h = f["w"], f["h"]
+        if self.restart % w:
+            self.fail("broken JPEG file (a lossless restart interval that "
+                      "is not whole rows)")
+        tabs = [self._table(0, td) for _, td, _ in scomps]
+        ns = len(scomps)
+        diffs = [[0] * (w * h) for _ in range(ns)]
+        interval = self.restart or w * h
+        for it in range(-(-w * h // interval)):
+            if it > 0 and it - 1 < len(segs) and segs[it - 1][1] is not None:
+                if segs[it - 1][1] != (it - 1) & 7:
+                    self.fail("broken JPEG file (restart markers out of "
+                              "order)")
+            data = segs[it][0] if it < len(segs) else b""
+            lo, hi = it * interval, min((it + 1) * interval, w * h)
+            seg = _Segment(data, (hi - lo) * ns * 4 + 16)
+            wv, p = seg.w, 0
+            for m in range(lo, hi):
+                for ci in range(ns):
+                    e = tabs[ci][(wv[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                    p += e >> 8
+                    s = e & 255
+                    if s == 16:
+                        v = 32768
+                    elif s:
+                        v = _extend((wv[p >> 3] >> (32 - (p & 7) - s))
+                                    & _MASK[s], s)
+                        p += s
+                    else:
+                        v = 0
+                    diffs[ci][m] = v
+        rows = interval // w
+        init = 1 << (self.precision - pt - 1)
+        for ci, (c, _, _) in enumerate(scomps):
+            out = np.empty((h, w), np.int64)
+            d = diffs[ci]
+            prev = None
+            for y in range(h):
+                row = d[y * w:(y + 1) * w]
+                o = [0] * w
+                if y % rows == 0:                    # first row
+                    ra = (row[0] + init) & 0xFFFF
+                    o[0] = ra
+                    for x in range(1, w):
+                        ra = (row[x] + ra) & 0xFFFF
+                        o[x] = ra
+                else:
+                    rb = prev[0]
+                    ra = (row[0] + rb) & 0xFFFF
+                    o[0] = ra
+                    for x in range(1, w):
+                        rc, rb = rb, prev[x]
+                        pr = (ra if psv == 1 else rb if psv == 2 else
+                              rc if psv == 3 else ra + rb - rc if psv == 4
+                              else ra + ((rb - rc) >> 1) if psv == 5 else
+                              rb + ((ra - rc) >> 1) if psv == 6 else
+                              (ra + rb) >> 1)
+                        ra = (row[x] + pr) & 0xFFFF
+                        o[x] = ra
+                out[y] = o
+                prev = o
+            # the point transform undone, into an 8-bit sample
+            c.samples = ((out << pt) & 0xFF).astype(np.uint8)
+
+    def _arith_scan(self, scomps, ss, se, al, segs, mcus, kind):
+        """An arithmetic-coded scan (jdarith.c): the statistics of the
+        scan's tables cleared at its start and at each restart, with the DC
+        predictions and contexts; MCUs after a bad code in an interval
+        decode nothing."""
+        dc_bins = kind in ("seq", "dc_first")
+        ac_bins = kind in ("seq", "ac_first", "ac_refine")
+        interval = self.restart or len(mcus)
+        ns = len(scomps)
+        for it in range(-(-len(mcus) // interval)):
+            if it > 0 and it - 1 < len(segs) and segs[it - 1][1] is not None:
+                if segs[it - 1][1] != (it - 1) & 7:
+                    self.fail("broken JPEG file (restart markers out of "
+                              "order)")
+            for _, td, ta in scomps:
+                if dc_bins:
+                    self.dc_stats[td][:] = bytes(64)
+                if ac_bins:
+                    self.ac_stats[ta][:] = bytes(256)
+            last, ctx = [0] * ns, [0] * ns
+            dec = _Arith(segs[it][0] if it < len(segs) else b"")
+            for blocks in mcus[it * interval:(it + 1) * interval]:
+                if dec.ct == -1 and kind != "dc_refine":
+                    continue
+                for ci, off in blocks:
+                    c, td, ta = scomps[ci]
+                    coef = c.coef
+                    if kind == "dc_refine":
+                        if dec(_FIXED, 0):
+                            coef[off] |= 1 << al
+                        continue
+                    if kind in ("seq", "dc_first"):
+                        v = _arith_dc(dec, self.dc_stats[td], ctx, ci,
+                                      self.dc_l[td], self.dc_u[td])
+                        if v is None:
+                            dec.ct = -1
+                            break
+                        last[ci] = (last[ci] + v) & 0xFFFF
+                        coef[off] = _s16(last[ci] << al)
+                        if kind == "dc_first":
+                            continue
+                    st = self.ac_stats[ta]
+                    if kind == "ac_refine":
+                        if not _arith_ac_refine(dec, st, coef, off, ss, se,
+                                                al):
+                            dec.ct = -1
+                            break
+                        continue
+                    k = max(ss, 1)
+                    top = se if kind == "ac_first" else 63
+                    while k <= top:
+                        if dec(st, 3 * (k - 1)):
+                            break                           # EOB
+                        while not dec(st, 3 * (k - 1) + 1):
+                            k += 1
+                            if k > top:
+                                break
+                        if k > top:
+                            v = None
+                        else:
+                            v = _arith_ac(dec, st, k, self.ac_k[ta])
+                        if v is None:
+                            dec.ct = -1
+                            break
+                        coef[off + NATURAL[k]] = _s16(v << al)
+                        k += 1
+                    if dec.ct == -1:
+                        break
 
     def _scan(self, scomps, ss, se, ah, al, segs):
         f = self.frame
@@ -464,9 +681,27 @@ class _Decoder:
                                 b = (my * c.v + yy) * c.pw + mx * c.h + xx
                                 blocks.append((ci, b * 64))
                     mcus.append(blocks)
+        # libjpeg's start_pass: the bits of coefficients 0 (or 1) to 9 as
+        # they stood before this scan, then the scan's own
+        for c, _, _ in scomps:
+            for k in range(min(ss, 1), max(se, 9) + 1):
+                c.prev_bits[k] = c.coef_bits[k] if self.n_scans else 0
+            for k in range(ss, se + 1):
+                c.coef_bits[k] = al
+        # each MCU's iMCU row: libjpeg notes the row at its first MCU while
+        # the data has not yet run out (last_good_iMCU_row)
+        if len(scomps) == 1:
+            c = scomps[0][0]
+            rows = [i // c.bw // c.v for i in range(len(mcus))]
+        else:
+            rows = [i // f["mcux"] for i in range(len(mcus))]
         kind = ("seq" if not self.progressive else
                 ("dc_first" if ah == 0 else "dc_refine") if ss == 0 else
                 ("ac_first" if ah == 0 else "ac_refine"))
+        if self.arithmetic:
+            self._arith_scan(scomps, ss, se, al, segs, mcus, kind)
+            self.last_good = rows[-1]   # arithmetic data never runs short
+            return
         dc = [self._table(0, td) if kind in ("seq", "dc_first") else None
               for _, td, _ in scomps]
         ac = [self._table(1, ta) if kind in ("seq", "ac_first", "ac_refine")
@@ -477,6 +712,10 @@ class _Decoder:
         state = {"eobrun": 0}
         insufficient = False
         for it in range(n_int):
+            if (not insufficient and it * interval < len(mcus)
+                    and (it == 0 or rows[it * interval]
+                         != rows[it * interval - 1])):
+                self.last_good = rows[it * interval]
             # libjpeg's process_restart: the expected RSTn is consumed and
             # the out-of-data flag reset; at any other marker the flag
             # stays as it is and the interval has no data
@@ -491,7 +730,10 @@ class _Decoder:
             last_dc = [0] * len(scomps)
             state["eobrun"] = 0
             p = 0
-            for blocks in group:
+            for j, blocks in enumerate(group):
+                m = it * interval + j
+                if (j and not insufficient and rows[m] != rows[m - 1]):
+                    self.last_good = rows[m]
                 if insufficient:
                     continue  # libjpeg leaves the MCU as it is
                 for ci, off in blocks:
@@ -514,11 +756,6 @@ class _Decoder:
                                              ss, se, al, state)
                 if p > seg.bits:
                     insufficient = True
-        for c, _, _ in scomps:
-            if ss == 0:
-                c.coef_bits[0] = al
-            for k in range(max(ss, 1), se + 1):
-                c.coef_bits[k] = al
 
 
 def _extend(v, s):
@@ -647,28 +884,353 @@ def _block_ac_refine(w, p, ac, coef, off, ss, se, al, state):
     return p
 
 
+# ------------------------------------------------- arithmetic decoding
+
+# T.81 Table D.2 in libjpeg's packing (jaricom.c): Qe << 16 | Next_Index_MPS
+# << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 bin
+_ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171)
+
+
+class _Arith:
+    """libjpeg's QM decoder (jdarith.c) over one restart interval's
+    unstuffed bytes: zero bytes once they run out, as libjpeg feeds zeros
+    after a marker. `ct` -1 is libjpeg's error state (a bad code): the rest
+    of the interval decodes nothing."""
+
+    def __init__(self, data: bytes):
+        self.d, self.i, self.c, self.a, self.ct = data, 0, 0, 0, -16
+
+    def __call__(self, st, k: int) -> int:
+        while self.a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                data = self.d[self.i] if self.i < len(self.d) else 0
+                self.i += 1
+                self.c = (self.c << 8) | data
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        self.a = 0x8000
+            self.a <<= 1
+        sv = st[k]
+        qe = _ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        temp = self.a - qe
+        self.a = temp
+        temp <<= self.ct
+        if self.c >= temp:
+            self.c -= temp
+            if self.a < qe:
+                self.a = qe
+                st[k] = (sv & 0x80) ^ nm
+            else:
+                self.a = qe
+                st[k] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif self.a < 0x8000:
+            if self.a < qe:
+                st[k] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[k] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+
+_FIXED = bytearray([113])        # libjpeg's fixed_bin: never adapts
+
+
+def _arith_dc(dec, stats, ctx, ci, L, U):
+    """Figure F.19 for one block: the DC difference, updating the
+    component's conditioning context; None on a bad code."""
+    st = stats
+    i = ctx[ci]
+    if not dec(st, i):
+        ctx[ci] = 0
+        return 0
+    sign = dec(st, i + 1)
+    i += 2 + sign
+    m = dec(st, i)
+    if m:
+        i = 20
+        while dec(st, i):
+            m <<= 1
+            if m == 0x8000:
+                return None
+            i += 1
+    if m < (1 << L) >> 1:
+        ctx[ci] = 0
+    elif m > (1 << U) >> 1:
+        ctx[ci] = 12 + sign * 4
+    else:
+        ctx[ci] = 4 + sign * 4
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if dec(st, i):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def _arith_ac(dec, st, k, kmax):
+    """Figures F.21-F.24 for one AC coefficient at k whose bins start at
+    3 (k - 1) + 2 (after the EOB and zero-run tests): its value, or None on
+    a bad code."""
+    sign = dec(_FIXED, 0)
+    i = 3 * (k - 1) + 2
+    m = dec(st, i)
+    if m and dec(st, i):
+        m <<= 1
+        i = 189 if k <= kmax else 217
+        while dec(st, i):
+            m <<= 1
+            if m == 0x8000:
+                return None
+            i += 1
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if dec(st, i):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def _s16(v: int) -> int:
+    """v as a JCOEF (16 bits)."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+def _arith_ac_refine(dec, st, coef, off, ss, se, al) -> bool:
+    """decode_mcu_AC_refine on one block; False on a bad code."""
+    p1, m1 = 1 << al, -1 << al
+    kex = se
+    while kex > 0 and not coef[off + NATURAL[kex]]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        i = 3 * (k - 1)
+        if k > kex and dec(st, i):
+            break                                           # EOB
+        while True:
+            j = off + NATURAL[k]
+            if coef[j]:
+                if dec(st, i + 2):
+                    coef[j] = _s16(coef[j] + (m1 if coef[j] < 0 else p1))
+                break
+            if dec(st, i + 1):
+                coef[j] = m1 if dec(_FIXED, 0) else p1
+                break
+            i += 3
+            k += 1
+            if k > se:
+                return False
+        k += 1
+    return True
+
+
+# ------------------------------------------------------ block smoothing
+
+# libjpeg-turbo's block smoothing of a progressive image whose scans left
+# some of AC coefficients 1-9 unsent or unrefined (jdcoefct.c, 2.1 and
+# later): the natural positions of zigzag coefficients 1-9 (Q01, Q10, Q20,
+# Q11, Q02, Q03, Q12, Q21, Q30), and each estimate's weights over the 5 x 5
+# block neighbourhood's DC values (rows above to below, columns left to
+# right). With AC data present (some of coefficients 1-9 known in part)
+# the first five take the K.8-like weights; with none, all nine and the DC
+# take the Gaussian-like ones ("change_dc").
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+def _w(*rows):
+    return np.array(rows, np.int64)
+
+
+_Z = (0, 0, 0, 0, 0)
+_SMOOTH_AC = (
+    _w(_Z, _Z, (-7, 50, 0, -50, 7), _Z, _Z),
+    _w(_Z, (0, 0, 50, 0, 0), _Z, (0, 0, -50, 0, 0), _Z) + _w(
+        (0, 0, -7, 0, 0), _Z, _Z, _Z, (0, 0, 7, 0, 0)),
+    _w((0, 0, -1, 0, 0), (0, 0, 13, 0, 0), (0, 0, -24, 0, 0),
+       (0, 0, 13, 0, 0), (0, 0, -1, 0, 0)),
+    _w((0, -1, 0, 1, 0), (-1, 10, 0, -10, 1), _Z, (1, -10, 0, 10, -1),
+       (0, 1, 0, -1, 0)),
+    _w(_Z, _Z, (-1, 13, -24, 13, -1), _Z, _Z))
+_SMOOTH_DC_ONLY = (
+    _w((-1, -1, 0, 1, 1), (-3, 13, 0, -13, 3), (-3, 38, 0, -38, 3),
+       (-3, 13, 0, -13, 3), (-1, -1, 0, 1, 1)),
+    _w((-1, -3, -3, -3, -1), (-1, 13, 38, 13, -1), _Z, (1, -13, -38, -13, 1),
+       (1, 3, 3, 3, 1)),
+    _w((0, 0, 1, 0, 0), (0, 2, 7, 2, 0), (0, -5, -14, -5, 0), (0, 2, 7, 2, 0),
+       (0, 0, 1, 0, 0)),
+    _w((-1, 0, 0, 0, 1), (0, 9, 0, -9, 0), _Z, (0, -9, 0, 9, 0),
+       (1, 0, 0, 0, -1)),
+    _w(_Z, (0, 2, -5, 2, 0), (1, 7, -14, 7, 1), (0, 2, -5, 2, 0), _Z),
+    _w(_Z, (0, 1, 0, -1, 0), (0, 2, 0, -2, 0), (0, 1, 0, -1, 0), _Z),
+    _w(_Z, (0, 1, -3, 1, 0), _Z, (0, -1, 3, -1, 0), _Z),
+    _w(_Z, (0, 1, 0, -1, 0), (0, -3, 0, 3, 0), (0, 1, 0, -1, 0), _Z),
+    _w(_Z, (0, 1, 2, 1, 0), _Z, (0, -1, -2, -1, 0), _Z))
+_SMOOTH_DC = _w((-2, -6, -8, -6, -2), (-6, 6, 42, 6, -6),
+                (-8, 42, 152, 42, -8), (-6, 6, 42, 6, -6),
+                (-2, -6, -8, -6, -2))
+
+
+def _smoothing_ok(dec) -> bool:
+    """libjpeg's smoothing_ok: a progressive image whose components all
+    have their tables latched (the DC and Q01-Q30 entries nonzero) and
+    some DC data, and some of whose coefficients 1-9 are not yet exact."""
+    comps = dec.frame["comps"]
+    if not dec.progressive:
+        return False
+    for c in comps:
+        if c.qt is None or any(c.qt[p] == 0 for p in (0, *_SMOOTH_POS)):
+            return False
+        if c.coef_bits[0] < 0:
+            return False
+    return any(c.coef_bits[k] != 0 for c in comps for k in range(1, 10))
+
+
+def _neighbour_rows(c, total: int, turbo21: bool) -> np.ndarray:
+    """(bh, 5): the block rows two above to two below each block row of
+    the component, as decompress_smooth_data picks them. libjpeg-turbo 3
+    counts by the block row's place in the image, taking for the last iMCU
+    row only the rows holding data; 2.1 (OpenCV 4.6's) asks the block row's
+    place in its iMCU row or the iMCU row's place in the image, so that
+    with two block rows an iMCU row a neighbour two rows off is replaced by
+    the nearer one."""
+    out = np.empty((c.bh, 5), np.int64)
+    last = total - 1
+    for r in range(c.bh):
+        i, b = divmod(r, c.v)
+        rows = c.v if i < last else (c.bh % c.v or c.v)
+        if turbo21:
+            up1, up2 = b > 0 or i > 0, b > 1 or i > 1
+            dn1, dn2 = b < rows - 1 or i < last, b < rows - 2 or i + 1 < last
+        else:
+            ibr, ibrs = i * rows + b, rows * total
+            up1, up2 = ibr > 0, ibr > 1
+            dn1, dn2 = ibr < ibrs - 1, ibr < ibrs - 2
+        prev = r - 1 if up1 else r
+        nxt = r + 1 if dn1 else r
+        out[r] = (r - 2 if up2 else prev, prev, r, nxt, r + 2 if dn2 else nxt)
+    return out
+
+
+def _div_pred(num: np.ndarray, q: int, al: int) -> np.ndarray:
+    """An estimate's value from its weighted sum: rounded, limited below
+    the coefficient's next bit when some of it is known (al > 0)."""
+    a = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        a = np.minimum(a, (1 << al) - 1)
+    return np.where(num < 0, -a, a)
+
+
+def _smooth(dec, c, coef: np.ndarray, turbo21: bool) -> np.ndarray:
+    """decompress_smooth_data on one component: coef (ph, pw, 64) natural
+    order -> the blocks the IDCT gets. Rows past the iMCU row where the
+    last scan's data ran out take the coefficient bits from before that
+    scan."""
+    f = dec.frame
+    total = f["mcuy"]
+    q = [int(v) for v in c.qt]
+    dc = coef[:, :, 0]
+    rows = _neighbour_rows(c, total, turbo21)
+    cols = np.clip(np.arange(c.bw)[:, None] + np.arange(-2, 3), 0, c.bw - 1)
+    if turbo21 and c.bw == 2:       # 2.1 loads the column two right late
+        cols = np.array([[0, 0, 0, 1, 0], [0, 0, 1, 0, 0]])
+    # (bh, bw, 5, 5): the neighbourhood's DCs
+    hood = dc[rows[:, None, :, None], cols[None, :, None, :]]
+    out = coef.copy()
+    blk = out[:c.bh, :c.bw]
+    first = dec.n_scans > 1
+    for good in (True, False):
+        sel = np.arange(c.bh) // c.v
+        sel = sel <= dec.last_good if good else sel > dec.last_good
+        if not sel.any():
+            continue
+        if good:
+            bits = c.coef_bits[:10]
+        else:
+            bits = [c.coef_bits[0]] + [b if first else -1
+                                      for b in c.prev_bits[1:10]]
+        change_dc = all(b == -1 for b in bits[1:10])
+        h = hood[sel]
+        kernels = _SMOOTH_DC_ONLY if change_dc else _SMOOTH_AC
+        part = blk[sel]
+        for k, (pos, wts) in enumerate(zip(_SMOOTH_POS, kernels)):
+            al = bits[k + 1]
+            if al == 0:
+                continue
+            num = q[0] * (h * wts).sum(axis=(-2, -1))
+            est = _div_pred(num, q[pos], al)
+            part[..., pos] = np.where(part[..., pos] == 0, est,
+                                      part[..., pos])
+        if change_dc:
+            num = q[0] * (h * _SMOOTH_DC).sum(axis=(-2, -1))
+            part[..., 0] = _div_pred(num, q[0], 0)
+        blk[sel] = part
+    return out
+
+
 # ------------------------------------------------ IDCT, upsample, colour
 
 
+def _w16(x):
+    """x wrapped to 16 bits, as SIMD word arithmetic leaves it."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _w32(x):
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 def _idct_1d(d, shift):
-    """One pass of jidctint.c over axis 1 of d (n, 8, m), int64."""
+    """One pass of libjpeg-turbo's SIMD ISLOW IDCT (jidctint-avx2.asm) over
+    axis 1 of d (n, 8, m), int64 holding 16-bit words: jidctint.c's
+    arithmetic with the sums in0 +- in4, in7 + in3 and in5 + in1 taken in
+    16 bits, the products and the rest in 32, each output descaled and
+    saturated to 16 bits."""
     d0, d1, d2, d3, d4, d5, d6, d7 = (d[:, i] for i in range(8))
     z1 = (d2 + d6) * F0_541
     tmp2 = z1 - d6 * F1_847
     tmp3 = z1 + d2 * F0_765
-    tmp0 = (d0 + d4) << CONST_BITS
-    tmp1 = (d0 - d4) << CONST_BITS
+    tmp0 = _w16(d0 + d4) << CONST_BITS
+    tmp1 = _w16(d0 - d4) << CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = d7, d5, d3, d1
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z3, z4 = _w16(t0 + t2), _w16(t1 + t3)
     z5 = (z3 + z4) * F1_175
     t0 = t0 * F0_298
     t1 = t1 * F2_053
     t2 = t2 * F3_072
     t3 = t3 * F1_501
-    z1 = z1 * -F0_899
-    z2 = z2 * -F2_562
+    z1 = (d7 + d1) * -F0_899
+    z2 = (d5 + d3) * -F2_562
     z3 = z3 * -F1_961 + z5
     z4 = z4 * -F0_390 + z5
     t0 = t0 + z1 + z3
@@ -678,32 +1240,38 @@ def _idct_1d(d, shift):
     half = 1 << (shift - 1)
     out = [tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
-    return np.stack([(o + half) >> shift for o in out], axis=1)
-
-
-def _range_limit(x):
-    """libjpeg-turbo's IDCT output step as its SIMD code takes it (what
-    cv2 runs on x86 and Arm): the descaled value saturates to [-128, 127]
-    and is then offset by 128."""
-    return (np.clip(x, -128, 127) + 128).astype(np.uint8)
+    return np.stack([np.clip(_w32(o + half) >> shift, -32768, 32767)
+                     for o in out], axis=1)
 
 
 def idct_islow(coef: np.ndarray, qt) -> np.ndarray:
     """(n, 64) coefficients in natural order and a quantization table ->
-    (n, 8, 8) uint8 samples (libjpeg's jpeg_idct_islow)."""
+    (n, 8, 8) uint8 samples, as libjpeg-turbo's SIMD ISLOW IDCT gives them
+    (what cv2 runs on x86): the coefficients times the table in 16 bits; a
+    block whose rows 1-7 are all zero takes the DC-only path (each column
+    its dequantised row-0 value << 2, in 16 bits); the output saturated to
+    [-128, 127] and offset by 128."""
+    c = coef.astype(np.int64).reshape(-1, 8, 8)
     q = np.asarray(qt, np.int64).astype(np.int16).astype(np.int64)
-    x = (coef.astype(np.int64) * q).reshape(-1, 8, 8)   # [n, row, col]
-    ws = _idct_1d(x, CONST_BITS - PASS1_BITS)            # columns
-    ws = ws.astype(np.int32).astype(np.int64)
+    x = _w16(c * q.reshape(8, 8))                       # [n, row, col]
+    ws = _idct_1d(x, CONST_BITS - PASS1_BITS)           # columns
+    flat = ~c[:, 1:].any(axis=(1, 2))
+    ws[flat] = _w16(x[flat, :1] << PASS1_BITS)
     out = _idct_1d(ws.transpose(0, 2, 1), CONST_BITS + PASS1_BITS + 3)
-    return _range_limit(out.transpose(0, 2, 1))
+    return (np.clip(out.transpose(0, 2, 1), -128, 127) + 128).astype(
+        np.uint8)
 
 
-def _plane(c) -> np.ndarray:
-    """A component's samples, (dh, dw) uint8."""
+def _plane(c, smooth=None, opencv46=False) -> np.ndarray:
+    """A component's samples, (dh, dw) uint8; `smooth` (the decoder) where
+    libjpeg smooths the blocks first, as libjpeg-turbo 2.1 does where
+    `opencv46`, else as 3.1 does."""
     coef = np.asarray(c.coef, np.int64).astype(np.int16)
     if c.qt is None:  # never in a scan: libjpeg's all-zero multipliers
         return np.full((c.dh, c.dw), 128, np.uint8)
+    if smooth is not None:
+        coef = _smooth(smooth, c, coef.astype(np.int64).reshape(
+            c.ph, c.pw, 64), opencv46).astype(np.int16)
     blocks = idct_islow(coef.reshape(-1, 64), c.qt)
     img = blocks.reshape(c.ph, c.pw, 8, 8).transpose(0, 2, 1, 3).reshape(
         c.ph * 8, c.pw * 8)
@@ -756,24 +1324,41 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
+def _cmyk_bgr(cmyk: np.ndarray) -> np.ndarray:
+    """OpenCV's icvCvt_CMYK2BGR_8u_C4C3R on libjpeg's CMYK samples, as RGB:
+    each of C, M, Y becomes k - ((255 - v) k >> 8)."""
+    x = cmyk.astype(np.int64)
+    k = x[..., 3:]
+    return (k - (((255 - x[..., :3]) * k) >> 8)).astype(np.uint8)
+
+
 def _decode(data: bytes, name: str, ycc: bool | None = None,
-            frame_limit=None):
+            frame_limit=None, opencv46: bool = False, raw_cmyk=False):
     """The pixels and the frame of a JPEG stream. Three components are
     YCbCr converted to RGB, or RGB as stored where the markers say so
-    (module doc); `ycc` True or False says it instead. `frame_limit`
-    (width, least rows, most rows) refuses another frame size before its
-    coefficients are allocated."""
+    (module doc); `ycc` True or False says it instead. Four are CMYK, or
+    YCCK where an Adobe marker's transform is not 0 (Y Cb Cr to R G B, each
+    inverted, K as stored), then OpenCV's CMYK to RGB, or the CMYK samples
+    themselves where `raw_cmyk`. `frame_limit` (width, least rows, most
+    rows) refuses another frame size before its coefficients are
+    allocated."""
     dec = _Decoder(bytes(data), name)
     dec.frame_limit = frame_limit
+    dec.opencv46 = opencv46
     dec.run()
     f = dec.frame
     w, h, comps = f["w"], f["h"], f["comps"]
     planes = []
+    smooth = dec if _smoothing_ok(dec) else None
     for c in comps:
         hf, vf = f["hmax"] // c.h, f["vmax"] // c.v
         if f["hmax"] % c.h or f["vmax"] % c.v:
             dec.fail("JPEG with fractional sampling ratios is not supported")
-        planes.append(_upsample(_plane(c), hf, vf, w, h))
+        if dec.lossless:
+            planes.append(getattr(c, "samples", np.zeros((h, w), np.uint8)))
+        else:
+            planes.append(_upsample(_plane(c, smooth, opencv46), hf, vf, w,
+                                    h))
     if len(comps) == 1:
         return planes[0].astype(np.uint8)[..., None], f
     ids = [c.id for c in comps]
@@ -781,14 +1366,29 @@ def _decode(data: bytes, name: str, ycc: bool | None = None,
         ycc = not ((not dec.jfif and dec.adobe == 0)
                    or (not dec.jfif and dec.adobe is None
                        and ids == [82, 71, 66]))
+    if len(comps) == 4:
+        ycc = dec.adobe is not None and dec.adobe != 0
+    if dec.lossless and ycc:
+        dec.fail(f"lossless JPEG in {'YCCK' if len(comps) == 4 else 'YCbCr'}"
+                 ": cv2 reads none (libjpeg converts no colour in lossless "
+                 "mode)")
+    if len(comps) == 4:
+        if ycc:                                             # YCCK
+            planes[:3] = list(np.moveaxis(255 - _ycc_to_rgb(*planes[:3])
+                                          .astype(np.int64), -1, 0))
+        cmyk = np.stack(planes, -1).astype(np.uint8)
+        return (cmyk if raw_cmyk else _cmyk_bgr(cmyk)), f
     if not ycc:
         return np.stack(planes, -1).astype(np.uint8), f
     return _ycc_to_rgb(*planes), f
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """The bytes of a JPEG file -> (H, W, 1) gray or (H, W, 3) RGB uint8."""
-    return _decode(data, name)[0]
+def decode_jpeg(data: bytes, name: str = "<bytes>",
+                opencv46: bool = False) -> np.ndarray:
+    """The bytes of a JPEG file -> (H, W, 1) gray or (H, W, 3) RGB uint8,
+    as cv2 5.0 reads them, or as the JAX tile loader's OpenCV 4.6 reads them
+    where `opencv46` (module doc)."""
+    return _decode(data, name, opencv46=opencv46)[0]
 
 
 def decode_segment(tables: bytes | None, data: bytes, ycc: bool,

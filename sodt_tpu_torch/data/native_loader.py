@@ -56,12 +56,13 @@ def _load_lib():
     lib.loader_destroy.argtypes = [ctypes.c_void_p]
     ip = ctypes.POINTER(ctypes.c_int)
     lib.jpeg_file_shape.restype = ctypes.c_int
-    lib.jpeg_file_shape.argtypes = [ctypes.c_char_p, ip, ip, ip,
+    lib.jpeg_file_shape.argtypes = [ctypes.c_char_p, ip, ip, ip, ip,
                                     ctypes.c_char_p, ctypes.c_int]
     lib.jpeg_file_decode.restype = ctypes.c_int
     lib.jpeg_file_decode.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_int]
     for fmt in ("bmp", "tiff", "webp"):
         shape = getattr(lib, f"{fmt}_file_shape")
         shape.restype = ctypes.c_int
@@ -87,10 +88,13 @@ def load_error() -> str | None:
     return _error
 
 
-def decode_jpeg(path) -> np.ndarray:
+def decode_jpeg(path, opencv46: bool = False,
+                raw_cmyk: bool = False) -> np.ndarray:
     """A JPEG file -> (H, W, 1) gray or (H, W, 3) RGB uint8, the pixels of
-    the JAX package's `_read_image` through cv2, decoded by the host
-    library. Raises RuntimeError with the compiler's words where the
+    the JAX package's `_read_image` through cv2 (of the JAX tile loader's
+    OpenCV 4.6 where `opencv46`), decoded by the host library; a CMYK or
+    YCCK file gives (H, W, 4) C M Y K, libjpeg's samples, where `raw_cmyk`
+    (`data/jpeg.py`'s table). Raises RuntimeError with the compiler's words where the
     library does not build, and ValueError naming the file and the cause
     where the file does not decode."""
     lib = _load_lib()
@@ -99,14 +103,17 @@ def decode_jpeg(path) -> np.ndarray:
                            f"unavailable: {_error}")
     name = str(path).encode()
     err = ctypes.create_string_buffer(1024)
-    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    h, w, c, n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     if not lib.jpeg_file_shape(name, ctypes.byref(h), ctypes.byref(w),
-                               ctypes.byref(c), err, len(err)):
+                               ctypes.byref(c), ctypes.byref(n), err,
+                               len(err)):
         raise ValueError(err.value.decode(errors="replace"))
-    out = np.empty((h.value, w.value, c.value), np.uint8)
+    raw = raw_cmyk and n.value == 4
+    out = np.empty((h.value, w.value, 4 if raw else c.value), np.uint8)
     if not lib.jpeg_file_decode(
             name, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            h.value, w.value, c.value, err, len(err)):
+            h.value, w.value, out.shape[2], int(opencv46) | 2 * raw, err,
+            len(err)):
         raise ValueError(err.value.decode(errors="replace"))
     return out
 

@@ -90,7 +90,9 @@ Read: byte order II and MM, classic TIFF and BigTIFF, the first IFD only
 (as cv2 and PIL read a multi-page file); strips and tiles; planar
 configuration 1 and 2 (1 only for the kinds aerial imagery adds);
 compression 1 (none), 5 (LZW), 7 (JPEG), 8 and 32946 (deflate), 32773
-(PackBits); predictor 1, 2 (at 8, 16, 32 and 64 bits, on the unsigned
+(PackBits), 34892 (DNG 1.4's lossy JPEG, which libtiff has no decoder for:
+each strip faults at its first byte, so the RGBA reader's kinds read zeros
+on the cv2 branch and the others raise, as cv2 reads and fails); predictor 1, 2 (at 8, 16, 32 and 64 bits, on the unsigned
 word) and 3 (floating point: each row's bytes summed at the pixel's
 stride, then read as planes, most significant byte first, whatever the
 byte order); FillOrder 1 and 2 (2 reverses each byte's bits before the
@@ -129,6 +131,10 @@ image of more than 2^30 pixels, which OpenCV refuses, before any is
 allocated, and one of more than 2 x 89478485 wherever the port reads as PIL
 does, as PIL's open refuses it.
 
+A DNG is read as this reads a TIFF (its IFD0, as cv2 and PIL read it); a
+raw IFD0 (photometric CFA 32803, LinearRaw 34892) raises ValueError, as
+cv2 and PIL read no image from it.
+
 Out of scope, raising NotImplementedError naming the kind (ROADMAP Queue 1
 item 18): CCITT (2, 3, 4), old-style JPEG (6) and other compressions,
 old-style LZW, CIELab and the other photometrics, YCbCr subsampled other
@@ -162,7 +168,12 @@ _INT_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I",
 # the compressions read (none, LZW, JPEG, deflate twice, PackBits) -> the
 # most bytes each makes of one byte of its data (LZW: a 9-bit code for a
 # string of up to 4096 bytes; JPEG: a 16 x 16 MCU of 768 bytes in 4 bits)
-RATIO = {1: 1, 5: 4096, 7: 1536, 8: 1032, 32946: 1032, 32773: 128}
+RATIO = {1: 1, 5: 4096, 7: 1536, 8: 1032, 32946: 1032, 32773: 128,
+         34892: 1536}
+# DNG 1.4's lossy JPEG, which libtiff knows no decoder for: each strip
+# faults at its first byte (cv2's RGBA-reader kinds read zeros)
+NO_DECODER = {34892: "compression 34892 (DNG's lossy JPEG): libtiff has no "
+                     "decoder for it"}
 _COMPRESSION_NAMES = {2: "CCITT RLE (2)", 3: "CCITT Group 3 (3)",
                       4: "CCITT Group 4 (4)", 6: "old-style JPEG (6)",
                       34712: "JPEG 2000 (34712)",
@@ -359,6 +370,10 @@ def _info(data: bytes, name: str) -> SimpleNamespace:
     if photo is None:
         raise ValueError(f"{name}: broken TIFF file (no photometric "
                          "interpretation)")
+    if photo in (32803, 34892):
+        raise ValueError(
+            f"{name}: a raw DNG image (photometric "
+            f"{_PHOTOMETRIC_NAMES[photo]}): cv2 and PIL read none from it")
     if photo not in (0, 1, 2, 3, 5, 6):
         raise out_of_scope(
             f"photometric {_PHOTOMETRIC_NAMES.get(photo, photo)}")
@@ -761,6 +776,8 @@ def _chunk(data: bytes, t: SimpleNamespace, i: int, need: int,
     if off + cnt > len(data):
         raise ValueError(f"{name}: truncated TIFF file (strip or tile {i} "
                          "past the end of the file)")
+    if t.comp in NO_DECODER:
+        return bytes(need), NO_DECODER[t.comp]
     src = data[off:off + cnt]
     if t.fill == 2:
         src = src.translate(_REVERSED)

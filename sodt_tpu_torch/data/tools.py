@@ -12,13 +12,14 @@
 
 `extract_boxes` reads each image as PIL's `convert("RGB")` gives it, with
 the decoder its signature chooses: PNG with `png.read_png_rgb`, JPEG with
-the host library's (`native_loader.decode_jpeg`, gray repeated to RGB),
-BMP with `bmp.read_bmp_rgb`, TIFF with `tiff.read_tiff_rgb` (palette
-colours, alpha dropped) and WebP with the host library's
-(`native_loader.decode_webp`, alpha dropped, after PIL's open walk
-`webp.webp_size`; `webp.read_webp_rgb` is its plain version); an animated
-WebP raises NotImplementedError naming "animated WebP", DNG
-NotImplementedError.
+the host library's (`native_loader.decode_jpeg`, gray repeated to RGB;
+CMYK and YCCK as PIL's "CMYK;I" samples, 255 minus libjpeg's, through its
+CMYK to RGB), BMP with `bmp.read_bmp_rgb`, TIFF and DNG (a TIFF, its IFD0
+read) with `tiff.read_tiff_rgb` (palette colours, alpha dropped) and WebP
+with the host library's (`native_loader.decode_webp`, alpha dropped, after
+PIL's open walk `webp.webp_size`; `webp.read_webp_rgb` is its plain
+version); an animated WebP raises NotImplementedError naming "animated
+WebP".
 It writes each crop as JAX does, a `.jpg` under JAX's name, with the
 port's encoder (`jpeg.write_jpeg`: PIL's defaults, the bytes PIL writes).
 """
@@ -36,7 +37,7 @@ from . import native_loader
 from .bmp import read_bmp_rgb
 from .jpeg import write_jpeg
 from .png import read_png_rgb
-from .tiff import read_tiff_rgb
+from .tiff import _cmyk_pil, read_tiff_rgb
 from .webp import webp_size
 from .vedai import _unsupported, derive_label_path, image_format
 
@@ -66,17 +67,19 @@ def extract_boxes(path: str) -> Path:
         if not lb_file.exists():
             continue
         fmt = image_format(str(im_file))
-        if fmt in ("PNG", "BMP", "TIFF"):
+        if fmt in ("PNG", "BMP", "TIFF", "DNG"):
             im = {"PNG": read_png_rgb, "BMP": read_bmp_rgb,
-                  "TIFF": read_tiff_rgb}[fmt](im_file)
+                  "TIFF": read_tiff_rgb, "DNG": read_tiff_rgb}[fmt](im_file)
         elif fmt == "WebP":
             webp_size(im_file)                 # PIL's open refuses it first
             im = native_loader.decode_webp(im_file)
             im = im[..., 1:] if im.shape[2] == 4 else im
         elif fmt == "JPEG":
-            im = native_loader.decode_jpeg(im_file)
+            im = native_loader.decode_jpeg(im_file, raw_cmyk=True)
             if im.shape[2] == 1:
                 im = np.repeat(im, 3, axis=2)
+            elif im.shape[2] == 4:     # PIL reads JPEG CMYK as "CMYK;I"
+                im = _cmyk_pil(255 - im)
         else:
             raise _unsupported(str(im_file), fmt)
         h, w = im.shape[:2]

@@ -29,7 +29,9 @@ what JAX's `_read_image` returns:
         WebP raises NotImplementedError naming "animated WebP".
 Where the host library does not build, a JPEG, BMP, TIFF or WebP read
 raises with the compiler's words; it never falls back to the numpy
-decoders. DNG raises NotImplementedError naming the format. The resize is
+decoders. A DNG (a TIFF named .dng) reads as its IFD0 reads as a TIFF, as
+cv2 and PIL read it: neither develops a raw IFD0 (CFA, LinearRaw), and
+neither does the port (`tiff.py`'s table). The resize is
 the port's own too (`resize.resize_longest`, cv2's arithmetic for every
 dtype cv2 resizes, IPP's where cv2 takes it). The
 integrity scan verifies each file with `verify_png`, `verify_jpeg`,
@@ -97,12 +99,15 @@ def _unsupported(path: str, fmt: str):
         "WebP (the card's machine has no other decoder)")
 
 
+# a DNG is a TIFF to cv2 and PIL, which read its IFD0 and develop no raw
 _SIZES = {"PNG": png_size, "JPEG": jpeg_size, "BMP": bmp_size,
-          "TIFF": tiff_size, "WebP": webp_size}
+          "TIFF": tiff_size, "DNG": tiff_size, "WebP": webp_size}
 _VERIFY = {"PNG": verify_png, "unknown": verify_png, "JPEG": verify_jpeg,
-           "BMP": verify_bmp, "TIFF": verify_tiff, "WebP": verify_webp}
+           "BMP": verify_bmp, "TIFF": verify_tiff, "DNG": verify_tiff,
+           "WebP": verify_webp}
 _DECODE = {"PNG": read_png, "JPEG": native_loader.decode_jpeg,
            "BMP": native_loader.decode_bmp, "TIFF": native_loader.decode_tiff,
+           "DNG": native_loader.decode_tiff,
            "WebP": native_loader.decode_webp}
 
 

@@ -717,6 +717,136 @@ def test_image_format_knows_bigtiff(tmp_path):
     assert tv.image_format(str(dng)) == "DNG"
 
 
+# ----------------------------------------------------------------- DNG
+
+DNG_VERSION = {50706: (1, [1, 4, 0, 0])}
+
+
+def _lossy_dng(path: Path) -> None:
+    """The file at `path` with its Compression tag made 34892 (DNG 1.4's
+    lossy JPEG, which libtiff has no decoder for)."""
+    d = bytearray(path.read_bytes())
+    bo = "<" if d[:2] == b"II" else ">"
+    ifd = struct.unpack(bo + "I", d[4:8])[0]
+    for i in range(struct.unpack(bo + "H", d[ifd:ifd + 2])[0]):
+        e = ifd + 2 + 12 * i
+        if struct.unpack(bo + "H", d[e:e + 2])[0] == 259:
+            d[e + 8:e + 10] = struct.pack(bo + "H", 34892)
+    path.write_bytes(bytes(d))
+
+
+def _write_dng(kind: str, path: Path) -> None:
+    """A DNG's IFD0 of each kind: a plain TIFF named .dng, a DNG's preview
+    (DNGVersion, NewSubFileType 1, SubIFDs naming the raw), a JPEG YCbCr
+    preview, IFD0s under compression 34892 (libtiff's RGBA reader, through
+    which cv2 reads 8-bit RGB, gray and YCbCr, leaves each strip zeros),
+    and the raw IFD0s no reader develops (CFA, LinearRaw)."""
+    rgb = FX.scene(16, 24, 3, 5)
+    if kind.startswith("lossy34892"):
+        inner = kind.split("_", 1)[1]
+        if inner == "ycc":
+            FX.write_jpeg_tiff(path, rgb)
+        else:
+            FX.write_tiff(path, {"rgb": rgb, "gray": rgb[..., 0],
+                                 "gray16": rgb[..., 0].astype(np.uint16)
+                                 * 200}[inner], compression="deflate",
+                          extra_tags=DNG_VERSION)
+        _lossy_dng(path)
+    elif kind == "plain":
+        FX.write_tiff(path, rgb)
+    elif kind == "preview":
+        FX.write_tiff(path, rgb, compression="deflate", extra_tags={
+            **DNG_VERSION, 254: (4, [1]), 330: (4, [8])})
+    elif kind == "jpeg_preview":
+        FX.write_jpeg_tiff(path, rgb)
+    elif kind == "cfa16":
+        FX.write_tiff(path, rgb[..., 0].astype(np.uint16) * 200,
+                      photometric=32803, extra_tags={
+                          **DNG_VERSION, 33421: (3, [2, 2]),
+                          33422: (1, [0, 1, 1, 2])})
+    else:
+        FX.write_tiff(path, rgb.astype(np.uint16 if kind == "linear16"
+                                       else np.uint8),
+                      photometric=34892, extra_tags=DNG_VERSION)
+
+
+def _jax_scan(path):
+    try:
+        with Image.open(path) as im:
+            im.verify()
+            w, h = im.size
+            assert w > 9 and h > 9
+            return w, h
+    except Exception:
+        return None
+
+
+@pytest.mark.parametrize("kind", ["plain", "preview", "jpeg_preview",
+                                  "lossy34892_ycc", "lossy34892_rgb",
+                                  "lossy34892_gray"])
+def test_dng_reads_as_its_ifd0_tiff(lib, tmp_path, kind):
+    """cv2 and PIL read a DNG as a TIFF, its IFD0 alone: JAX's array, size
+    and scan verdict, PIL's `convert("RGB")` for the boxes, and JAX's
+    OpenCV 4.6 tile. Under compression 34892 cv2 reads zeros through the
+    RGBA reader (YCbCr zeros as their RGB), and PIL opens nothing."""
+    from sodt_tpu.data import native_loader as jnative
+    from sodt_tpu.data import vedai as jv
+    path = tmp_path / f"{kind}_co.dng"
+    _write_dng(kind, path)
+    assert tv.image_format(str(path)) == "DNG"
+    _equal(tv._read_image(str(path)), jv._read_image(str(path)), kind)
+    if kind.startswith("lossy34892"):
+        assert _jax_scan(path) is None
+        with pytest.raises(ValueError):
+            tv.verify_image(str(path))
+        with pytest.raises(ValueError):
+            tiff.read_tiff_rgb(path)
+    else:
+        assert tv.image_size(str(path)) == _jax_scan(path)
+        tv.verify_image(str(path))
+        with Image.open(path) as im:
+            _equal(tiff.read_tiff_rgb(path), np.asarray(im.convert("RGB")),
+                   kind)
+    tiles = []
+    for mod in (tnative, jnative):
+        loader = mod.NativeTileLoader([str(path)], [str(path)], 64)
+        try:
+            tiles.append(loader.get(np.asarray([0])))
+        finally:
+            loader.close()
+    for got, want in zip(*tiles):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["cfa16", "linear8", "linear16",
+                                  "lossy34892_gray16"])
+def test_raw_dng_fails_where_cv2_and_pil_fail(lib, tmp_path, kind):
+    """A raw IFD0 (CFA, LinearRaw), or 16-bit samples under compression
+    34892 (read outside the RGBA reader): cv2 reads no image (JAX raises
+    FileNotFoundError), PIL identifies none (the scan marks it corrupt),
+    JAX's 4.6 loader fails the job; the port raises naming the kind, its
+    scan marks it corrupt, its job fails."""
+    from sodt_tpu.data import native_loader as jnative
+    from sodt_tpu.data import vedai as jv
+    path = tmp_path / f"{kind}_co.dng"
+    _write_dng(kind, path)
+    with pytest.raises(FileNotFoundError):
+        jv._read_image(str(path))
+    with pytest.raises(ValueError, match="raw DNG image" if "lossy" not in
+                       kind else "compression 34892"):
+        tv._read_image(str(path))
+    assert _jax_scan(path) is None
+    with pytest.raises(ValueError):
+        tv.verify_image(str(path))
+    for mod in (tnative, jnative):
+        loader = mod.NativeTileLoader([str(path)], [str(path)], 64)
+        try:
+            with pytest.raises(RuntimeError, match="failed to decode"):
+                loader.get(np.asarray([0]))
+        finally:
+            loader.close()
+
+
 # ------------------------------------------------------------- folders
 
 def test_extract_boxes_crops_equal_jax(lib, tmp_path):

@@ -12,8 +12,8 @@
   * the inflate against zlib at levels 0, 1, 6, 9 and its strategies;
   * JPEG files (gray, 4:4:4, 4:2:2, 4:2:0, 4:4:0, progressive, restart
     intervals, optimised tables; `csrc/jpeg.cpp`, chosen by the file's
-    signature) give tiles bit-equal to JAX's OpenCV loader at 64 and 512
-    px, and a folder that mixes PNG and JPEG pairs equals it and the
+    signature, decoding as OpenCV 4.6's libjpeg-turbo 2.1) give tiles
+    bit-equal to JAX's OpenCV loader at 64 and 512 px, and a folder that mixes PNG and JPEG pairs equals it and the
     port's python tile source;
   * BMP and TIFF files (every checked-in fixture of `tests/
     torch_port_bmp_tiff/`: palettes, RLE, 16-bit and 32-bit BITFIELDS,
@@ -314,23 +314,26 @@ def test_mixed_png_jpeg_folder_equals_jax_and_python_source(lib, tmp_path,
 
 
 @pytest.mark.parametrize("kind,what", [
-    ("cut_progressive", "truncated progressive JPEG"),
-    ("arithmetic", "arithmetic-coded (SOF9) JPEG is not supported"),
-    ("cmyk", "CMYK / YCCK JPEG"), ("no_frame", "no image"),
-    ("overfull_huffman", "bad Huffman table")])
+    ("lossless", "lossless (SOF3) JPEG: OpenCV 4.6"),
+    ("bits12", "12-bit JPEG"), ("hierarchical", "hierarchical (SOF5)"),
+    ("no_frame", "no image"), ("overfull_huffman", "bad Huffman table")])
 def test_faulty_jpeg_fails_the_job_and_names_it(lib, tmp_path, kind, what):
+    """Files OpenCV 4.6 reads none of (a lossless frame, which its
+    libjpeg-turbo 2.1 does not know, 12 bits, a hierarchical frame) and
+    broken ones fail the job, naming the file and the kind. (Cut
+    progressive, arithmetic-coded and CMYK files, which 4.6 reads, are
+    `test_torch_port_jpeg_kinds.py`'s.)"""
     good = tmp_path / "good_co.jpg"
     _write_jpeg(good, _scene(48, 40, 3, 0), {"JPEG_PROGRESSIVE": 1})
     data = bytearray(good.read_bytes())
     sof = data.index(b"\xff\xc2")
-    if kind == "cut_progressive":
-        data = data[:len(data) * 3 // 4]
-    elif kind == "arithmetic":
-        data[sof + 1] = 0xC9
-    elif kind == "cmyk":
-        data[sof + 3] += 3
-        data[sof + 9] = 4
-        data[sof + 19:sof + 19] = b"\x04\x11\x00"
+    if kind == "lossless":
+        data = bytearray((Path(__file__).resolve().parent / "torch_port_jpeg"
+                          / "lossless_gray_p1.jpg").read_bytes())
+    elif kind == "bits12":
+        data[sof + 4] = 12
+    elif kind == "hierarchical":
+        data[sof + 1] = 0xC5
     elif kind == "overfull_huffman":        # three 1-bit DC codes
         sos = data.index(b"\xff\xda")
         data[sos:sos] = (b"\xff\xc4\x00\x16\x00\x03" + bytes(15)

@@ -286,7 +286,7 @@ def jpeg_chunks(img: np.ndarray, blocks, subsampling: int, quality=75):
     return tables, chunks
 
 
-TYPES = {3: "H", 4: "I", 16: "Q", 8: "h", 9: "i", 11: "f", 12: "d"}
+TYPES = {1: "B", 3: "H", 4: "I", 16: "Q", 8: "h", 9: "i", 11: "f", 12: "d"}
 
 
 def write_tiff(path: str | Path, arr: np.ndarray, compression="none",

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Host times of the port's tile loader (`sodt_tpu_torch/csrc/tile_loader.cpp`
-with its PNG, BMP and TIFF decoders) on 1024 px pairs.
+with its PNG, JPEG, BMP and TIFF decoders) on 1024 px pairs.
 
     python tools/bench_host_decode.py [--reps 3] [--label x]
 
@@ -8,8 +8,9 @@ Run from the root of a checkout, or with PYTHONPATH pointing at another one
 to time that version (unpack it with `git archive` under `build/`); runs of
 two versions alternated in one call compare them. The pairs are
 `SyntheticVedai(n=4, img_size=1024, seed=5)`'s, written by the port's own
-writers: PNG, 24-bit / 8-bit BMP, TIFF deflated with predictor 2 in 64 x 128
-tiles (chip_smoke's `bmp_tiff` files). For each format it times
+writers: PNG, baseline JPEG (PIL's defaults, chip_smoke's `jpeg` files),
+24-bit / 8-bit BMP, TIFF deflated with predictor 2 in 64 x 128 tiles
+(chip_smoke's `bmp_tiff` files). For each format it times
 `NativeTileLoader.get` of one pair at 1024 px with the cache off (decode and
 copy, no resize), `reps` passes over the pairs on the loader's pool and
 `reps` with the process held to one core. Prints one JSON line: the label,
@@ -40,10 +41,11 @@ def _write_pairs(root: Path) -> dict:
     """format -> (rgb paths, ir paths) of the same pairs."""
     from sodt_tpu_torch.data import SyntheticVedai
     from sodt_tpu_torch.data.bmp import write_bmp
+    from sodt_tpu_torch.data.jpeg import write_jpeg
     from sodt_tpu_torch.data.png import write_png
     from sodt_tpu_torch.data.tiff import write_tiff
 
-    writers = {"png": write_png, "bmp": write_bmp,
+    writers = {"png": write_png, "jpg": write_jpeg, "bmp": write_bmp,
                "tif": lambda p, a: write_tiff(p, a, compression="deflate",
                                               predictor=2, tile=(64, 128))}
     src = SyntheticVedai(n=PAIRS, img_size=SIDE, nc=8, seed=5)
